@@ -16,10 +16,14 @@ Four execution plans over the same parameters, numerically equivalent
   path.  Routes to ``fused_cell`` with a ``plan/dispatch`` event when the
   weight stack exceeds a thread block's shared memory.
 
-The JAX package's fifth plan, ``fused_seq_q8`` (int8 weights), is not ported
-yet.  The classifier head follows Guan & Ploetz-style HAR models: last
-hidden state -> dense -> 6-way logits.  Parameters are a plain dict
-``{"layers": [{"w": (D+H, 4H), "b": (4H,)}, ...], "head": {"w": (H, C),
+Every plan trains: ``loss_fn`` under ``torch.autograd`` differentiates it.
+A ``fused_seq`` training step is two launches at any T (the trajectory
+forward and the reverse-sweep backward kernel, kernels/lstm_seq_bwd.py); a
+``fused_cell`` step is T x L cell launches, its backward the VJP of the
+plain cell.  The JAX package's fifth plan, ``fused_seq_q8`` (int8 weights),
+is not ported yet.  The classifier head follows Guan & Ploetz-style HAR
+models: last hidden state -> dense -> 6-way logits.  Parameters are a plain
+dict ``{"layers": [{"w": (D+H, 4H), "b": (4H,)}, ...], "head": {"w": (H, C),
 "b": (C,)}}``; ``LSTMClassifier`` holds them as an ``nn.Module``.
 """
 from __future__ import annotations
@@ -95,31 +99,40 @@ def forward_fused_seq(params: dict, x: torch.Tensor, cfg: LSTMConfig,
     The tiling comes from ``choose_batch_block`` as a ``(block_b,
     time_chunk)`` pair: whole-T residency of the input when it fits,
     otherwise the kernel streams the time axis through its two-slot ring.
-    Only when even ``(bm=1, tc=1)`` cannot fit — the weight stack itself
-    exceeds ``smem_budget`` (default: one H100 thread block's shared memory)
-    — does this route to ``forward_fused_kernel``, emitting a
-    ``plan/dispatch`` event with ``fallback="fused_cell"``.
+    When autograd records the call, the search sizes the backward kernel
+    (``mode="bwd"``), and that one tiling serves the trajectory forward and
+    the backward.  Only when even ``(bm=1, tc=1)`` cannot fit — the weight
+    stack (in training, plus its gradient accumulators) exceeds
+    ``smem_budget`` (default: one H100 thread block's shared memory) — does
+    this route to ``forward_fused_kernel``, emitting a ``plan/dispatch``
+    event with ``fallback="fused_cell"``.  Every event names ``train``; a
+    training event also ``bwd_block_b``/``bwd_time_chunk``.
     """
     w_stack, b_stack, p_width = seq_lib.stack_params(params["layers"],
                                                      cfg.hidden)
     B, T, _ = x.shape
+    train = seq_lib.recorded(w_stack, b_stack, x)
     blocks = seq_lib.choose_batch_block(
         B, T, cfg.n_layers, p_width, cfg.hidden,
         dtype_bytes=x.element_size(), smem_budget=smem_budget,
-        w_dtype_bytes=w_stack.element_size())
+        w_dtype_bytes=w_stack.element_size(),
+        mode="bwd" if train else "fwd")
     tracer = trace_lib.get_tracer()
-    if blocks is None:        # weight stack > shared memory at (bm=1, tc=1)
+    if blocks is None:        # the stack > shared memory at (bm=1, tc=1)
         if tracer.enabled:
             tracer.event("plan/dispatch", family="lstm", plan="fused_seq",
-                         fallback="fused_cell", batch=B, seq_len=T)
+                         fallback="fused_cell", train=train, batch=B,
+                         seq_len=T)
         return forward_fused_kernel(params, x, cfg)
+    tiles = dict(block_b=blocks.block_b, time_chunk=blocks.time_chunk)
+    if train:
+        tiles.update(bwd_block_b=blocks.block_b,
+                     bwd_time_chunk=blocks.time_chunk)
     if tracer.enabled:
         tracer.event("plan/dispatch", family="lstm", plan="fused_seq",
-                     block_b=blocks.block_b, time_chunk=blocks.time_chunk,
-                     batch=B, seq_len=T)
+                     train=train, **tiles, batch=B, seq_len=T)
     xp = seq_lib.pad_input(x, p_width)
-    _, h = kernel_ops.lstm_seq(w_stack, b_stack, xp, block_b=blocks.block_b,
-                               time_chunk=blocks.time_chunk)
+    _, h = kernel_ops.lstm_seq(w_stack, b_stack, xp, **tiles)
     return _head(params, h[-1])
 
 
@@ -140,7 +153,8 @@ FORWARD_PLANS: dict[str, Callable] = {
 
 
 def plan_viability(cfg: LSTMConfig, batch: int, seq_len: int, *,
-                   smem_budget: int | None = None) -> Callable[[str], bool]:
+                   smem_budget: int | None = None,
+                   train: bool = False) -> Callable[[str], bool]:
     """Viability predicate for ``Scheduler(viable=...)``.
 
     The sequence-resident plan is only a real plan while
@@ -149,16 +163,32 @@ def plan_viability(cfg: LSTMConfig, batch: int, seq_len: int, *,
     ``forward_fused_seq`` reroutes to the per-cell kernel, so scheduling it
     would run ``fused_cell`` under another name.  Every other plan is
     always viable.
+
+    ``train=True`` sizes the backward working set instead
+    (``choose_batch_block(mode="bwd")``: trajectory windows and gradient
+    accumulators on top of the forward's terms) — the number that matters
+    when the scheduled step runs under autograd, where a plan past it
+    would train on ``fused_cell`` under the fast plan's name.
     """
     p_width = max(cfg.input_dim, cfg.hidden)
     block = seq_lib.choose_batch_block(
         batch, seq_len, cfg.n_layers, p_width, cfg.hidden,
-        smem_budget=smem_budget)
+        smem_budget=smem_budget, mode="bwd" if train else "fwd")
 
     def viable(plan_name: str) -> bool:
         return block is not None or plan_name != "fused_seq"
 
     return viable
+
+
+def loss_fn(params: dict, x: torch.Tensor, labels: torch.Tensor,
+            cfg: LSTMConfig, forward: Callable = forward_sequential
+            ) -> torch.Tensor:
+    """Mean cross-entropy of the plan's logits against integer labels,
+    in float32."""
+    logits = forward(params, x, cfg)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels.long()[:, None]).mean()
 
 
 def accuracy(params: dict, x: torch.Tensor, labels: torch.Tensor,
@@ -174,9 +204,9 @@ class LSTMClassifier(nn.Module):
     windows.
 
     Parameters come from ``params`` (e.g. ``convert.params_from_numpy``) or
-    are drawn by ``init_params`` from ``generator`` (default: seed 0).  They
-    are frozen (``requires_grad=False``): the kernels have no backward yet,
-    so this module serves; training is not ported."""
+    are drawn by ``init_params`` from ``generator`` (default: seed 0), as
+    trainable copies (``launch/train_har.py`` trains them).  Serving runs
+    under ``torch.inference_mode()``, which records no graph."""
 
     def __init__(self, cfg: LSTMConfig = CONFIG, plan: str = "fused_seq", *,
                  params: dict | None = None,
@@ -192,15 +222,15 @@ class LSTMClassifier(nn.Module):
                 else torch.Generator().manual_seed(0)
             params = init_params(gen, cfg)
 
-        def frozen(t: torch.Tensor) -> nn.Parameter:
-            return nn.Parameter(t.detach().clone(), requires_grad=False)
+        def param(t: torch.Tensor) -> nn.Parameter:
+            return nn.Parameter(t.detach().clone())
 
         self.layer_w = nn.ParameterList(
-            [frozen(p["w"]) for p in params["layers"]])
+            [param(p["w"]) for p in params["layers"]])
         self.layer_b = nn.ParameterList(
-            [frozen(p["b"]) for p in params["layers"]])
-        self.head_w = frozen(params["head"]["w"])
-        self.head_b = frozen(params["head"]["b"])
+            [param(p["b"]) for p in params["layers"]])
+        self.head_w = param(params["head"]["w"])
+        self.head_b = param(params["head"]["b"])
 
     def params(self) -> dict:
         """The plain parameter dict the plan functions take."""

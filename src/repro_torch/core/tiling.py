@@ -7,9 +7,11 @@ Hopper the fast memory is a thread block's shared memory
 (core/factorization.H100_SMEM_PER_BLOCK); the term algebra and the search
 order are the JAX package's ``core/tiling.py`` unchanged:
 
-* ``WorkingSet``: a named-term accumulator;
+* ``WorkingSet``: a named-term accumulator whose ``bwd_only`` terms count
+  only under ``mode="bwd"`` (the training working set);
 * ``streamed_rows``: whole-axis residency vs ``STREAM_SLOTS``
-  double-buffered chunk windows;
+  double-buffered chunk windows; ``bwd_window_rows``: the reverse sweep's
+  trajectory window, one overlap row longer;
 * ``joint_search``: whole-T residency at the coarsest batch tile first, then
   streamed time chunks from coarse to fine, then smaller batch tiles.
 """
@@ -36,6 +38,13 @@ class TilePlan(Protocol):
     def time_chunk(self) -> int | None: ...
 
 
+def check_mode(mode: str) -> str:
+    """Validate the fwd/bwd phase split shared by the budget tables."""
+    if mode not in ("fwd", "bwd"):
+        raise ValueError(f"mode must be 'fwd' or 'bwd', got {mode!r}")
+    return mode
+
+
 def streamed_rows(seq_len: int, time_chunk: int | None) -> int:
     """Rows a (possibly streamed) sequence-axis buffer holds: the whole
     axis when ``time_chunk`` is None, else ``STREAM_SLOTS`` double-buffered
@@ -45,14 +54,31 @@ def streamed_rows(seq_len: int, time_chunk: int | None) -> int:
     return STREAM_SLOTS * min(time_chunk, seq_len)
 
 
+def bwd_window_rows(seq_len: int, time_chunk: int) -> int:
+    """Rows per reverse-sweep trajectory window: a chunked backward needs
+    the t-1 row of the previous chunk, so each window carries one overlap
+    row whenever more than one chunk exists."""
+    tc = min(time_chunk, seq_len)
+    return tc + 1 if seq_len > tc else tc
+
+
 @dataclasses.dataclass
 class WorkingSet:
     """Named-term working set of ONE thread block — the algebra the budget
-    tables are written in.  ``total()`` is what the budget compares;
-    ``terms`` is what tests and the ROADMAP table introspect."""
+    tables are written in.  ``bwd_only`` terms count only under
+    ``mode="bwd"``, the working set of the training kernels.  ``total()``
+    is what the budget compares; ``terms`` is what tests and the ROADMAP
+    table introspect."""
+    mode: str = "fwd"
     terms: dict[str, int] = dataclasses.field(default_factory=dict)
 
-    def add(self, name: str, nbytes: int) -> "WorkingSet":
+    def __post_init__(self):
+        check_mode(self.mode)
+
+    def add(self, name: str, nbytes: int, bwd_only: bool = False
+            ) -> "WorkingSet":
+        if bwd_only and self.mode != "bwd":
+            return self
         self.terms[name] = self.terms.get(name, 0) + int(nbytes)
         return self
 

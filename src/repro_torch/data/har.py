@@ -9,7 +9,8 @@ frequency, amplitude, gravity orientation and noise floor chosen to mimic
 walking/upstairs/downstairs/sitting/standing/laying).
 
 For one seed it yields arrays identical to the JAX package's generator, so
-both packages can be fed the same windows.
+both packages can be fed the same windows; ``batches`` shuffles them into
+the same minibatches.
 """
 from __future__ import annotations
 
@@ -68,3 +69,17 @@ def make_har(n_train: int = 7352, n_test: int = 2947, seed: int = 0
         return HARData(xs, ys)
 
     return gen(n_train), gen(n_test)
+
+
+def batches(data: HARData, batch_size: int, seed: int = 0,
+            epochs: int = 10**9):
+    """Shuffled (x, y) minibatches, epoch after epoch, dropping each
+    epoch's remainder — the same numpy generator as the JAX package's, so
+    the same batches for a seed."""
+    rng = np.random.default_rng(seed)
+    n = len(data.y)
+    for _ in range(epochs):
+        order = rng.permutation(n)
+        for i in range(0, n - batch_size + 1, batch_size):
+            idx = order[i:i + batch_size]
+            yield data.x[idx], data.y[idx]

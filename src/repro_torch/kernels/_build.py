@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by hand
 with nvcc into its own shared library, then loaded with ctypes — no PyTorch
 headers, so a build takes seconds rather than minutes.  Libraries land in
-``build/`` at the repo root, keyed by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one loads.  ``build_all`` starts
+``build/`` at the repo root, keyed by a hash of the source, the headers
+beside it (``csrc/*.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads.  ``build_all`` starts
 one nvcc per source, all at once, so a cold build costs the slowest file.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
@@ -25,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("lstm_cell", "lstm_seq")
+SOURCES = ("lstm_cell", "lstm_seq", "lstm_seq_bwd")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -42,7 +43,9 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 

@@ -1,13 +1,19 @@
 // Sequence-resident stacked-LSTM forward, f32, for Hopper (sm_90a).
 //
-// Replaces two Pallas kernels of the JAX package's kernels/lstm_seq.py:
+// Replaces four Pallas kernels of the JAX package's kernels/lstm_seq.py:
 // _seq_kernel (launched by _lstm_seq_call, whole (T, bm, P) input block
 // resident) and _seq_chunked_kernel (launched by _lstm_seq_chunked_call,
-// input streamed through two (tc, bm, P) windows).  Here they are one
-// kernel: the input always streams through a shared-memory ring of
-// time_chunk steps; a chunk of T or more is the whole-T layout with a single
-// slot.  The per-step arithmetic does not depend on the chunking, so every
-// time_chunk gives bit-identical results.
+// input streamed through two (tc, bm, P) windows), and their
+// trajectory-writing twins _seq_traj_kernel (_lstm_seq_traj_call) and
+// _seq_traj_chunked_kernel (_lstm_seq_traj_chunked_call), which the training
+// forward launches.  Here they are one kernel: the input always streams
+// through a shared-memory ring of time_chunk steps; a chunk of T or more is
+// the whole-T layout with a single slot.  The per-step arithmetic does not
+// depend on the chunking, so every time_chunk gives bit-identical results.
+// The TRAJ instance also writes every step's post-step f32 (c, h) of every
+// layer into (T, L, B, H) trajectories, straight from the update pass to
+// device memory (no shared memory), for the rows below B; nothing else
+// differs, so its final (c, h) equal the plain instance's to the bit.
 //
 // What bounds it on the H100: at the paper's 2 x 32 config, B=1, T=128 one
 // forward does about 4.2 MFLOP and reads under 100 KB, which the card could
@@ -23,7 +29,8 @@
 // memory once (64 KiB + 1 KiB at 2 x 32) and the (c, h) state of every layer
 // lives in f32 shared memory for the whole sequence, so nothing but x is
 // read from device memory after the start and nothing but the final (c, h)
-// is written.  Per step and layer: the gate pass computes
+// (and, for TRAJ, the trajectories) is written.  Per step and layer: the
+// gate pass (lstm_gates.cuh, shared with the backward's recompute) computes
 // inp @ W[:P] + h @ W[P:] + b, applies each gate's sigmoid or tanh and puts
 // the activated gates in a shared gate buffer; a barrier; the update pass
 // computes c' = f * c + i * g and h' = o * tanh(c'); a barrier.  The next
@@ -49,20 +56,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lstm_gates.cuh"
+
 namespace {
 
-constexpr int kPad = 8;  // words of padding per W row in shared memory
+using lstm_gates::kPad;
 
-__device__ __forceinline__ float sigmoid(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-template <int ROWS>
+template <int ROWS, bool TRAJ>
 __global__ void lstm_seq_fwd_kernel(const float* __restrict__ w,
                                     const float* __restrict__ b,
                                     const float* __restrict__ x,
                                     float* __restrict__ c_out,
-                                    float* __restrict__ h_out, int B, int T,
+                                    float* __restrict__ h_out,
+                                    float* __restrict__ c_traj,
+                                    float* __restrict__ h_traj, int B, int T,
                                     int L, int P, int H, int tc, int parts,
                                     long long x_stride_b,
                                     long long x_stride_t) {
@@ -150,49 +157,30 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ w,
     const float* xs = ring + (size_t)(k % slots) * slot_elems;
     const int steps = min(tc, T - k * tc);
     for (int s = 0; s < steps; ++s) {
+      const int t = k * tc + s;
       const float* inp = xs + (size_t)s * ROWS * P;
       int in_w = P;  // layer 0 reads all P input columns, later layers H
       for (int l = 0; l < L; ++l) {
         const float* wl = w_s + (size_t)l * K * S + j;
-        const float* wh = wl + (size_t)P * S;
         float* cl = c_s + (size_t)l * ROWS * H;
         float* hl = h_s + (size_t)l * ROWS * H;
-        float acc[ROWS];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-        for (int q = p; q < in_w; q += parts) {
-          const float wv = wl[(size_t)q * S];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r)
-            acc[r] = fmaf(inp[r * in_w + q], wv, acc[r]);
-        }
-        for (int q = p; q < H; q += parts) {
-          const float wv = wh[(size_t)q * S];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r)
-            acc[r] = fmaf(hl[r * H + q], wv, acc[r]);
-        }
-        for (int off = 1; off < parts; off <<= 1) {
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r)
-            acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-        }
-        if (active) {
-          const float bias = b_s[(size_t)l * G + j];
-#pragma unroll
-          for (int r = 0; r < ROWS; ++r) {
-            const float v = acc[r] + bias;
-            const float a = is_tanh ? tanhf(v) : sigmoid(v);
-            if (p == 0) g_s[r * G + j] = a;
-          }
-        }
+        lstm_gates::gate_pass<ROWS>(inp, in_w, hl, H, wl, wl + (size_t)P * S,
+                                    S, b_s + (size_t)l * G, j, p, parts,
+                                    active, is_tanh, g_s);
         __syncthreads();
         for (int e = tid; e < ROWS * H; e += nt) {
           const int r = e / H;
           const float* gr = g_s + r * G + (e - r * H);
           const float cn = gr[H] * cl[e] + gr[0] * gr[2 * H];
+          const float hn = gr[3 * H] * tanhf(cn);
           cl[e] = cn;
-          hl[e] = gr[3 * H] * tanhf(cn);
+          hl[e] = hn;
+          if (TRAJ && r < rows) {
+            const long long o =
+                (((long long)t * L + l) * B + row0 + r) * H + (e - r * H);
+            c_traj[o] = cn;
+            h_traj[o] = hn;
+          }
         }
         __syncthreads();
         inp = hl;
@@ -215,25 +203,41 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ w,
   }
 }
 
-template <int ROWS>
+template <int ROWS, bool TRAJ>
 int launch(const float* w, const float* b, const float* x, float* c_out,
-           float* h_out, int B, int T, int L, int P, int H,
-           long long x_stride_b, long long x_stride_t, int time_chunk,
-           int parts, int threads, long long smem_bytes,
+           float* h_out, float* c_traj, float* h_traj, int B, int T, int L,
+           int P, int H, long long x_stride_b, long long x_stride_t,
+           int time_chunk, int parts, int threads, long long smem_bytes,
            cudaStream_t stream) {
   static long long configured = 48 * 1024;
   if (smem_bytes > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_seq_fwd_kernel<ROWS>,
+        lstm_seq_fwd_kernel<ROWS, TRAJ>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
     configured = smem_bytes;
   }
   const int grid = (B + ROWS - 1) / ROWS;
-  lstm_seq_fwd_kernel<ROWS><<<grid, threads, (size_t)smem_bytes, stream>>>(
-      w, b, x, c_out, h_out, B, T, L, P, H, time_chunk, parts, x_stride_b,
-      x_stride_t);
+  lstm_seq_fwd_kernel<ROWS, TRAJ>
+      <<<grid, threads, (size_t)smem_bytes, stream>>>(
+          w, b, x, c_out, h_out, c_traj, h_traj, B, T, L, P, H, time_chunk,
+          parts, x_stride_b, x_stride_t);
   return (int)cudaGetLastError();
+}
+
+template <int ROWS>
+int launch_rows(const float* w, const float* b, const float* x, float* c_out,
+                float* h_out, float* c_traj, float* h_traj, int B, int T,
+                int L, int P, int H, long long x_stride_b,
+                long long x_stride_t, int time_chunk, int parts, int threads,
+                long long smem_bytes, cudaStream_t stream) {
+  if (c_traj != nullptr)
+    return launch<ROWS, true>(w, b, x, c_out, h_out, c_traj, h_traj, B, T, L,
+                              P, H, x_stride_b, x_stride_t, time_chunk, parts,
+                              threads, smem_bytes, stream);
+  return launch<ROWS, false>(w, b, x, c_out, h_out, nullptr, nullptr, B, T, L,
+                             P, H, x_stride_b, x_stride_t, time_chunk, parts,
+                             threads, smem_bytes, stream);
 }
 
 }  // namespace
@@ -241,22 +245,26 @@ int launch(const float* w, const float* b, const float* x, float* c_out,
 extern "C" {
 
 // w (L, P+H, 4H), b (L, 4H), c_out/h_out (L, B, H) contiguous; x element
-// (b, t, p) at x[b * x_stride_b + t * x_stride_t + p].  One thread block of
+// (b, t, p) at x[b * x_stride_b + t * x_stride_t + p].  c_traj/h_traj are
+// null, or (T, L, B, H) f32 that receive every step's post-step (c, h) (the
+// training forward; the arithmetic is the same either way, so the final
+// (c, h) are bit-identical with and without them).  One thread block of
 // `threads` (>= parts * 4H, a multiple of 32) threads per batch tile of
 // block_b rows (1, 2, 4, 8 or 16), `parts` (1, 2 or 4) lanes to a gate
 // column; smem_bytes is the wrapper's working_set_bytes for
 // (block_b, time_chunk).  Returns cudaErrorInvalidValue for another
 // block_b.
 int lstm_seq_fwd_f32(const float* w, const float* b, const float* x,
-                     float* c_out, float* h_out, int B, int T, int L, int P,
-                     int H, long long x_stride_b, long long x_stride_t,
-                     int block_b, int time_chunk, int parts, int threads,
+                     float* c_out, float* h_out, float* c_traj,
+                     float* h_traj, int B, int T, int L, int P, int H,
+                     long long x_stride_b, long long x_stride_t, int block_b,
+                     int time_chunk, int parts, int threads,
                      long long smem_bytes, void* stream) {
 #define LSTM_SEQ_LAUNCH(R)                                                  \
   case R:                                                                   \
-    return launch<R>(w, b, x, c_out, h_out, B, T, L, P, H, x_stride_b,      \
-                     x_stride_t, time_chunk, parts, threads, smem_bytes,    \
-                     (cudaStream_t)stream);
+    return launch_rows<R>(w, b, x, c_out, h_out, c_traj, h_traj, B, T, L,   \
+                          P, H, x_stride_b, x_stride_t, time_chunk, parts,  \
+                          threads, smem_bytes, (cudaStream_t)stream);
   switch (block_b) {
     LSTM_SEQ_LAUNCH(1)
     LSTM_SEQ_LAUNCH(2)

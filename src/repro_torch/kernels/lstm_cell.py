@@ -13,6 +13,13 @@ are its cost — the reason ``fused_seq`` exists.
 A tensor on the CPU takes ``lstm_cell_plain``; a tensor on the card launches
 the kernel or raises.  ``lstm_cell.launches`` counts kernel launches and
 nothing else.
+
+Autograd: a call that autograd records runs ``_LstmCellFn``, whose forward
+is the kernel (the plain version on the CPU) and whose backward is the VJP
+of the plain cell, ``ref.lstm_cell``, recomputed — what the JAX package's
+``custom_vjp`` does (``kernels/lstm_cell.py:93-110``).  There is no
+backward kernel, so a ``fused_cell`` training step launches T x L cells and
+nothing else.
 """
 from __future__ import annotations
 
@@ -66,17 +73,23 @@ def lstm_cell(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     x: (B, D); c, h: (B, H), all float32.  Returns (c', h').
 
     ``block_b``/``block_h`` tile the (B, H) output per thread block; None
-    takes ``factorization.choose_block(B, H, D+H)``.  The kernel has no
-    backward yet, so a CUDA call that autograd would record raises."""
+    takes ``factorization.choose_block(B, H, D+H)``.  Under autograd the
+    backward is the VJP of ``ref.lstm_cell`` (``_LstmCellFn``)."""
     _validate(w, b, x, c, h)
-    if x.device.type == "cpu":
-        return lstm_cell_plain(w, b, x, c, h)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm_cell runs on cpu or cuda, not {x.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (w, b, x, c, h)):
-        raise RuntimeError("the lstm_cell CUDA kernel has no backward; call "
-                           "it under torch.no_grad()/inference_mode()")
+        return _LstmCellFn.apply(w, b, x, c, h, block_b, block_h)
+    return _forward(w, b, x, c, h, block_b, block_h)
+
+
+def _forward(w, b, x, c, h, block_b: int | None, block_h: int | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The cell step outside autograd: the plain version on the CPU, one
+    kernel launch on the card."""
+    if x.device.type == "cpu":
+        return lstm_cell_plain(w, b, x, c, h)
     if x.stride(-1) != 1 or h.stride(-1) != 1:
         raise ValueError("lstm_cell: x and h need a contiguous last dim")
     B, D = x.shape
@@ -102,6 +115,26 @@ def lstm_cell(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     _build.check(lib, _NAME, err)
     lstm_cell.launches += 1
     return c_out, h_out
+
+
+class _LstmCellFn(torch.autograd.Function):
+    """``lstm_cell`` under autograd: the kernel forward, and the VJP of
+    ``ref.lstm_cell`` recomputed from the saved operands as the backward."""
+
+    @staticmethod
+    def forward(ctx, w, b, x, c, h, block_b, block_h):
+        ctx.save_for_backward(w, b, x, c, h)
+        return _forward(w, b, x, c, h, block_b, block_h)
+
+    @staticmethod
+    def backward(ctx, dc, dh):
+        ins = tuple(t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = ref.lstm_cell(*ins)
+        grads = torch.autograd.grad(out, ins, (dc, dh))
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
 
 
 #: kernel launches since the last reset (CPU calls are not counted)

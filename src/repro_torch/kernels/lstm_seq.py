@@ -1,15 +1,30 @@
-"""Sequence-resident stacked-LSTM forward (K2): host half, wrapper, launch
-counter and plain version.
+"""Sequence-resident stacked-LSTM forward (K2, K2t): host half, wrappers,
+launch counters, plain versions and the differentiable entry point.
 
-Replaces two Pallas kernels of the JAX package's ``kernels/lstm_seq.py``:
-``_seq_kernel`` (launched by ``_lstm_seq_call``) and
-``_seq_chunked_kernel`` (launched by ``_lstm_seq_chunked_call``), with ONE
+Replaces four Pallas kernels of the JAX package's ``kernels/lstm_seq.py``:
+``_seq_kernel`` (launched by ``_lstm_seq_call``), ``_seq_chunked_kernel``
+(``_lstm_seq_chunked_call``) and their trajectory-writing twins
+``_seq_traj_kernel`` (``_lstm_seq_traj_call``) and
+``_seq_traj_chunked_kernel`` (``_lstm_seq_traj_chunked_call``), with ONE
 CUDA C++ kernel in ``csrc/lstm_seq.cu``: a persistent thread block per batch
 tile runs the whole T x L recurrence in one launch, the ``(L, P+H, 4H)``
 weight stack and every layer's ``(c, h)`` resident in shared memory, the
-input streamed through a two-slot ring of ``time_chunk`` steps.  What bounds
-it on the H100 (the chain of T x L dependent steps, not FLOPs or bytes) and
-what the design does about it is written at the top of the CUDA source.
+input streamed through a two-slot ring of ``time_chunk`` steps; its
+trajectory instance (``lstm_seq_traj``) also writes the (T, L, B, H) f32
+post-step states.  What bounds it on the H100 (the chain of T x L dependent
+steps, not FLOPs or bytes) and what the design does about it is written at
+the top of the CUDA source.
+
+Autograd: ``lstm_seq`` on tensors that require grad runs ``_LstmSeqFn``,
+the counterpart of the JAX package's ``custom_vjp``.  Its forward is the
+trajectory launch at the backward's tiling and its backward is the
+reverse-time sweep of ``kernels/lstm_seq_bwd.py``: a training step is two
+launches at any T.  When ``choose_batch_block(mode="bwd")`` finds no tiling
+(``ORACLE_BWD``), a CPU call is autograd of ``ref.lstm_seq``, the JAX
+package's own decision table, named by a ``plan/dispatch`` event; a CUDA
+call raises, and ``core/lstm.forward_fused_seq`` trains such widths on the
+per-cell kernel.  Without grad, ``lstm_seq`` is one plain launch and writes
+no trajectories.
 
 Host half, as in the JAX package: ``stack_params`` and ``pad_input`` build
 the kernel's operands; ``working_set_bytes`` and ``choose_batch_block`` are
@@ -19,9 +34,11 @@ tile fits — already at 2 x 64, whose f32 stack alone is 256 KiB —
 ``choose_batch_block`` returns None and ``core/lstm.forward_fused_seq``
 routes to the per-cell kernel with a ``plan/dispatch`` event.
 
-A tensor on the CPU takes ``lstm_seq_plain``; a tensor on the card launches
-the kernel or raises.  ``lstm_seq.launches`` counts kernel launches: one per
-forward at any T.
+A tensor on the CPU takes the plain versions (``lstm_seq_plain``,
+``ref.lstm_seq_traj``), through the same autograd wiring; a tensor on the
+card launches the kernel or raises.  ``lstm_seq.launches`` counts plain
+launches (one per inference forward at any T) and ``lstm_seq_traj.launches``
+trajectory launches (one per training forward).
 """
 from __future__ import annotations
 
@@ -33,6 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import factorization, tiling
 from repro_torch.kernels import _build, ref
+from repro_torch.obs import trace as trace_lib
 
 _NAME = "lstm_seq"
 
@@ -113,32 +131,59 @@ def gate_parts(hidden: int) -> int:
 
 def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
                       block_b: int, dtype_bytes: int = 4,
-                      w_dtype_bytes: int | None = None,
+                      w_dtype_bytes: int | None = None, mode: str = "fwd",
                       time_chunk: int | None = None) -> int:
-    """Shared memory of one thread block of the forward kernel.
+    """Shared memory of one thread block, per phase.
 
-    Terms (``tiling.WorkingSet``): the weight stack (its rows padded by
-    ``W_ROW_PAD`` words) and bias, the x ring (``tiling.streamed_rows``: T
-    rows when ``time_chunk`` is None, else 2 x tc), the f32 (c, h) of every
-    layer, and the f32 gate buffer (block_b, 4H).  The outputs go straight
-    to device memory and take no shared memory.  This is the exact dynamic
-    shared memory the kernel is launched with."""
+    ``mode="fwd"`` sizes the forward kernel (``csrc/lstm_seq.cu``; the
+    trajectory launch adds nothing, its trajectories go straight to device
+    memory).  Terms (``tiling.WorkingSet``): the weight stack (its rows
+    padded by ``W_ROW_PAD`` words) and bias, the x ring
+    (``tiling.streamed_rows``: T rows when ``time_chunk`` is None, else 2 x
+    tc), the f32 (c, h) of every layer, and the f32 gate buffer
+    (block_b, 4H).  The outputs go straight to device memory.
+
+    ``mode="bwd"`` sizes the backward kernel (``csrc/lstm_seq_bwd.cu``),
+    which holds the forward's terms (its (dc, dh) carries take the place of
+    (c, h)) plus its own: the f32 dW/db accumulators (dW rows padded as W's),
+    the two f32 trajectory windows (T + 1 rows, one of them the zero state
+    before t = 0, when ``time_chunk`` is None; else 2 slots of
+    ``tiling.bwd_window_rows`` = tc + 1), the gate-gradient buffer
+    (block_b, 4H) and the layer-below input gradient (block_b, H).  dx, dw
+    and db go straight to device memory.  The backward's set contains the
+    forward's, so one tiling that fits it also fits the trajectory launch
+    that feeds it.
+
+    This is the exact dynamic shared memory each kernel is launched with."""
     wb = dtype_bytes if w_dtype_bytes is None else w_dtype_bytes
-    ws = tiling.WorkingSet()
-    ws.add("weights", n_layers * (p_width + hidden)
-           * (4 * hidden + W_ROW_PAD) * wb)
+    ws = tiling.WorkingSet(mode)
+    w_rows = n_layers * (p_width + hidden)
+    ws.add("weights", w_rows * (4 * hidden + W_ROW_PAD) * wb)
     ws.add("biases", n_layers * 4 * hidden * wb)
     ws.add("x_ring", block_b * tiling.streamed_rows(seq_len, time_chunk)
            * p_width * dtype_bytes)
     ws.add("state", 2 * n_layers * block_b * hidden * 4)
     ws.add("gates", block_b * 4 * hidden * 4)
+    ws.add("grad_accumulators",
+           (w_rows * (4 * hidden + W_ROW_PAD) + n_layers * 4 * hidden) * 4,
+           bwd_only=True)
+    if time_chunk is None:
+        traj_rows = seq_len + 1
+    else:
+        traj_rows = tiling.STREAM_SLOTS * tiling.bwd_window_rows(
+            seq_len, time_chunk)
+    ws.add("traj", 2 * traj_rows * n_layers * block_b * hidden * 4,
+           bwd_only=True)
+    ws.add("dgates", block_b * 4 * hidden * 4, bwd_only=True)
+    ws.add("dinp", block_b * hidden * 4, bwd_only=True)
     return ws.total()
 
 
 def choose_batch_block(batch: int, seq_len: int, n_layers: int,
                        p_width: int, hidden: int, dtype_bytes: int = 4,
                        smem_budget: int | None = None,
-                       w_dtype_bytes: int | None = None) -> SeqBlocks | None:
+                       w_dtype_bytes: int | None = None,
+                       mode: str = "fwd") -> SeqBlocks | None:
     """Pick the (batch tile, time residency), or None when not viable.
 
     A tile is one thread block on one SM, and the recurrence's time is set
@@ -152,8 +197,12 @@ def choose_batch_block(batch: int, seq_len: int, n_layers: int,
     whole-T residency at the current tile, then streamed time chunks from
     T//2 down to 1, then half the tile.  The budget is one thread block's
     shared memory (``smem_budget``, default
-    ``factorization.H100_SMEM_PER_BLOCK``).  None means even ``(1, 1)``
-    does not fit — the weight stack itself is too large — and the caller
+    ``factorization.H100_SMEM_PER_BLOCK``).
+
+    ``mode="bwd"`` sizes the training kernels (``working_set_bytes``), so a
+    tiling fine for inference can be none for training.  None means even
+    ``(1, 1)`` does not fit — the weight stack (plus, for ``bwd``, its
+    gradient accumulators) is too large — and ``core/lstm.forward_fused_seq``
     routes to the per-cell kernel.
     """
     budget = factorization.H100_SMEM_PER_BLOCK if smem_budget is None \
@@ -161,7 +210,7 @@ def choose_batch_block(batch: int, seq_len: int, n_layers: int,
 
     def fits(bm: int, tc: int | None) -> bool:
         return working_set_bytes(seq_len, n_layers, p_width, hidden, bm,
-                                 dtype_bytes, w_dtype_bytes,
+                                 dtype_bytes, w_dtype_bytes, mode=mode,
                                  time_chunk=tc) <= budget
 
     need = -(-batch // factorization.H100_SMS)
@@ -170,14 +219,80 @@ def choose_batch_block(batch: int, seq_len: int, n_layers: int,
     return None if found is None else SeqBlocks(*found)
 
 
+#: bwd spec sentinel: "no viable backward tiling — autograd of the oracle",
+#: which only a CPU call takes; a CUDA call raises instead.
+ORACLE_BWD = 0
+
+
+def recorded(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _fwd_spec(B: int, T: int, L: int, P: int, H: int, block_b: int | None,
+              time_chunk: int | None) -> tuple[int, int | None]:
+    """The forward's ``(block_b, time_chunk)``: explicit tiles pin the
+    layout, otherwise ``choose_batch_block`` searches (an explicit
+    ``time_chunk`` survives an automatic ``block_b``)."""
+    if block_b is None:
+        blocks = choose_batch_block(B, T, L, P, H)
+        if blocks is None:
+            raise ValueError(
+                f"sequence-resident working set (L={L}, P+H={P + H}, "
+                f"4H={4 * H}) exceeds a thread block's shared memory even at "
+                "batch tile 1 with tc=1 time streaming; use the per-cell "
+                "kernel (core/lstm.forward_fused_seq routes this)")
+        block_b = blocks.block_b
+        if time_chunk is None:
+            time_chunk = blocks.time_chunk
+    if block_b not in TILE_ROWS:
+        raise ValueError(f"lstm_seq: block_b must be one of {TILE_ROWS}, "
+                         f"not {block_b}")
+    return block_b, time_chunk
+
+
+def _resolve_specs(B: int, T: int, L: int, P: int, H: int, *,
+                   bwd_block_b: int | None, bwd_time_chunk: int | None,
+                   device: torch.device
+                   ) -> tuple[int, int | None] | int:
+    """The ``(block_b, time_chunk)`` of a call autograd records, for the
+    backward launch and the trajectory launch that feeds it.
+
+    An explicit ``bwd_block_b`` (one of ``TILE_ROWS``) pins the layout;
+    otherwise ``choose_batch_block(mode="bwd")`` searches (an explicit
+    ``bwd_time_chunk`` survives).  When nothing
+    fits, a CPU call gets ``ORACLE_BWD`` — autograd of ``ref.lstm_seq``, the
+    JAX package's decision table — and a CUDA call a ValueError naming the
+    working set: on the card no plain version takes a kernel's place
+    (``core/lstm.forward_fused_seq`` trains such widths on ``fused_cell``)."""
+    if bwd_block_b is not None:
+        if bwd_block_b not in TILE_ROWS:
+            raise ValueError(f"lstm_seq: bwd_block_b must be one of "
+                             f"{TILE_ROWS}, not {bwd_block_b}")
+        return bwd_block_b, bwd_time_chunk
+    blocks = choose_batch_block(B, T, L, P, H, mode="bwd")
+    if blocks is not None:
+        return (blocks.block_b, blocks.time_chunk if bwd_time_chunk is None
+                else bwd_time_chunk)
+    if device.type == "cpu":
+        return ORACLE_BWD
+    need = working_set_bytes(T, L, P, H, 1, mode="bwd", time_chunk=1)
+    raise ValueError(
+        f"lstm_seq backward: working set of {need} bytes at batch tile 1 "
+        f"with tc=1 (L={L}, P+H={P + H}, 4H={4 * H}) exceeds a thread "
+        f"block's {factorization.H100_SMEM_PER_BLOCK} bytes of shared "
+        "memory; train this width on the per-cell kernel "
+        "(core/lstm.forward_fused_seq routes it)")
+
+
 # ---------------------------------------------------------------------------
-# Kernel wrapper
+# Kernel wrappers
 # ---------------------------------------------------------------------------
 def _entry():
     lib = _build.load(_NAME)
     fn = lib.lstm_seq_fwd_f32
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -198,50 +313,24 @@ def _validate(w, b, x) -> None:
         if t.device != x.device:
             raise ValueError(f"lstm_seq: {name} is on {t.device}, x on "
                              f"{x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_seq runs on cpu or cuda, not {x.device}")
 
 
-def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
-             block_b: int | None = None, time_chunk: int | None = None
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Whole-sequence stacked LSTM in ONE kernel launch.
+def _no_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel's output carries no graph, so a CUDA call that autograd
+    would record raises instead of dropping the gradient."""
+    if recorded(*tensors):
+        raise RuntimeError(f"{name} on CUDA tensors is not differentiable by "
+                           "itself; call lstm_seq, whose autograd Function "
+                           "pairs it with the backward kernel")
 
-    w: (L, P+H, 4H) stacked gate weights (stack_params); b: (L, 4H);
-    x: (B, T, P) input zero-padded to width P (pad_input), all float32.
-    Returns the final (c, h), each (L, B, H).  Oracle: ref.lstm_seq.
 
-    When ``block_b`` is None the tiling comes from ``choose_batch_block``
-    (an explicit ``time_chunk`` still pins the time layout); an explicit
-    ``block_b`` is one of ``TILE_ROWS``.  ValueError when
-    nothing fits — core/lstm.forward_fused_seq routes that case to the
-    per-cell kernel.  ``time_chunk=None`` holds the whole sequence in the
-    ring; results are bit-identical for every ``time_chunk``.  The kernel
-    reads x through its strides, so a batch-major tensor is read in place.
-    """
-    _validate(w, b, x)
+def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool):
+    """One launch of the forward kernel, with or without trajectories."""
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T, _ = x.shape
-    if block_b is None:
-        blocks = choose_batch_block(B, T, L, P, H)
-        if blocks is None:
-            raise ValueError(
-                f"sequence-resident working set (L={L}, P+H={P + H}, "
-                f"4H={4 * H}) exceeds a thread block's shared memory even at "
-                "batch tile 1 with tc=1 time streaming; use the per-cell "
-                "kernel (core/lstm.forward_fused_seq routes this)")
-        block_b = blocks.block_b
-        if time_chunk is None:
-            time_chunk = blocks.time_chunk
-    if block_b not in TILE_ROWS:
-        raise ValueError(f"lstm_seq: block_b must be one of {TILE_ROWS}, "
-                         f"not {block_b}")
-    if x.device.type == "cpu":
-        return lstm_seq_plain(w, b, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"lstm_seq runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (w, b, x)):
-        raise RuntimeError("the lstm_seq CUDA kernel has no backward yet; "
-                           "call it under torch.no_grad()/inference_mode()")
     if x.stride(-1) != 1:
         raise ValueError("lstm_seq: x needs a contiguous last dim")
     tc = T if time_chunk is None else max(1, min(time_chunk, T))
@@ -259,15 +348,131 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     w, b = w.contiguous(), b.contiguous()
     c_out = x.new_empty(L, B, H)
     h_out = x.new_empty(L, B, H)
+    if traj:
+        c_traj = x.new_empty(T, L, B, H)
+        h_traj = x.new_empty(T, L, B, H)
+        traj_ptrs = (c_traj.data_ptr(), h_traj.data_ptr())
+    else:
+        traj_ptrs = (None, None)
     lib, fn = _entry()
     err = fn(w.data_ptr(), b.data_ptr(), x.data_ptr(), c_out.data_ptr(),
-             h_out.data_ptr(), B, T, L, P, H, x.stride(0), x.stride(1),
-             block_b, tc, parts, threads, smem,
+             h_out.data_ptr(), *traj_ptrs, B, T, L, P, H, x.stride(0),
+             x.stride(1), block_b, tc, parts, threads, smem,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, _NAME, err)
-    lstm_seq.launches += 1
+    if traj:
+        return c_out, h_out, c_traj, h_traj
     return c_out, h_out
 
 
-#: kernel launches since the last reset (CPU calls are not counted)
+def _forward(w, b, x, block_b: int, time_chunk: int | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain forward at a resolved tiling: its plain version on the
+    CPU, one kernel launch on the card."""
+    if x.device.type == "cpu":
+        return lstm_seq_plain(w, b, x)
+    _no_autograd("the lstm_seq kernel", w, b, x)
+    out = _launch(w, b, x, block_b, time_chunk, traj=False)
+    lstm_seq.launches += 1
+    return out
+
+
+def lstm_seq_traj(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
+                  block_b: int | None = None, time_chunk: int | None = None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The trajectory-writing forward in ONE launch: (c, h, c_traj, h_traj).
+
+    Same operands and tiling as ``lstm_seq``; ``c_traj``/``h_traj`` are
+    the (T, L, B, H) f32 post-step states, bit-identical for every
+    ``time_chunk``, and (c, h) equal the plain launch's to the bit.
+    Oracle: ``ref.lstm_seq_traj``.  Not differentiable by itself (it is
+    the forward half of ``lstm_seq``'s autograd Function)."""
+    _validate(w, b, x)
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk)
+    if x.device.type == "cpu":
+        return ref.lstm_seq_traj(w, b, x)
+    _no_autograd("lstm_seq_traj", w, b, x)
+    out = _launch(w, b, x, block_b, time_chunk, traj=True)
+    lstm_seq_traj.launches += 1
+    return out
+
+
+class _LstmSeqFn(torch.autograd.Function):
+    """``lstm_seq`` under autograd: the trajectory launch forward and the
+    reverse-sweep launch backward, both at ``bwd_spec``.  On the CPU the
+    wrappers take their plain versions, so this wiring runs there too."""
+
+    @staticmethod
+    def forward(ctx, w, b, x, bwd_spec):
+        block_b, time_chunk = bwd_spec
+        c, h, c_traj, h_traj = lstm_seq_traj(w, b, x, block_b=block_b,
+                                             time_chunk=time_chunk)
+        ctx.bwd_spec = bwd_spec
+        ctx.save_for_backward(w, b, x, c_traj, h_traj)
+        return c, h
+
+    @staticmethod
+    def backward(ctx, dc, dh):
+        from repro_torch.kernels import lstm_seq_bwd as bwd_lib
+        w, b, x, c_traj, h_traj = ctx.saved_tensors
+        block_b, time_chunk = ctx.bwd_spec
+        dw, db, dx = bwd_lib.lstm_seq_bwd(w, b, x, c_traj, h_traj, dc, dh,
+                                          block_b=block_b,
+                                          time_chunk=time_chunk)
+        return dw, db, dx if ctx.needs_input_grad[2] else None, None
+
+
+def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
+             block_b: int | None = None, time_chunk: int | None = None,
+             bwd_block_b: int | None = None,
+             bwd_time_chunk: int | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Whole-sequence stacked LSTM in ONE kernel launch.
+
+    w: (L, P+H, 4H) stacked gate weights (stack_params); b: (L, 4H);
+    x: (B, T, P) input zero-padded to width P (pad_input), all float32.
+    Returns the final (c, h), each (L, B, H).  Oracle: ref.lstm_seq.
+
+    When ``block_b`` is None the tiling comes from ``choose_batch_block``
+    (an explicit ``time_chunk`` still pins the time layout); an explicit ``block_b`` is one of ``TILE_ROWS``.  ValueError
+    when nothing fits — core/lstm.forward_fused_seq routes that case to the
+    per-cell kernel.  ``time_chunk=None`` holds the whole sequence in the
+    ring; results are bit-identical for every ``time_chunk``.  The kernel
+    reads x through its strides, so a batch-major tensor is read in place.
+
+    When autograd records the call (grad enabled and an input requires
+    grad), ``_LstmSeqFn`` runs it at the tiling ``_resolve_specs`` gives
+    (``bwd_block_b``/``bwd_time_chunk``, default
+    ``choose_batch_block(mode="bwd")``; ``block_b``/``time_chunk`` are not
+    used): the trajectory launch, then the backward kernel.  Where no
+    backward tiling fits, a CPU call is autograd of ``ref.lstm_seq``, named
+    by a ``plan/dispatch`` event with ``fallback="oracle_bwd"``, and a CUDA
+    call raises ValueError.
+    """
+    _validate(w, b, x)
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    if recorded(w, b, x):
+        bwd_spec = _resolve_specs(B, T, L, P, H, bwd_block_b=bwd_block_b,
+                                  bwd_time_chunk=bwd_time_chunk,
+                                  device=x.device)
+        if bwd_spec != ORACLE_BWD:
+            return _LstmSeqFn.apply(w, b, x, bwd_spec)
+        tracer = trace_lib.get_tracer()
+        if tracer.enabled:
+            tracer.event("plan/dispatch", family="lstm", plan="lstm_seq",
+                         fallback="oracle_bwd", bwd_block_b=ORACLE_BWD,
+                         batch=B, seq_len=T)
+        return ref.lstm_seq(w, b, x)
+    return _forward(w, b, x, *_fwd_spec(B, T, L, P, H, block_b, time_chunk))
+
+
+#: plain launches since the last reset (CPU calls are not counted)
 lstm_seq.launches = 0
+#: trajectory launches since the last reset (CPU calls are not counted)
+lstm_seq_traj.launches = 0

@@ -1,0 +1,222 @@
+"""Sequence-resident stacked-LSTM backward (K3, K4b): wrapper, launch
+counter and plain version.
+
+Replaces two Pallas kernels of the JAX package's
+``kernels/lstm_seq_bwd.py``: ``_seq_bwd_kernel`` (launched by
+``_lstm_seq_bwd_call``) and ``_seq_bwd_chunked_kernel`` (launched by
+``_lstm_seq_bwd_chunked_call``), with ONE CUDA C++ kernel in
+``csrc/lstm_seq_bwd.cu``: a persistent thread block per batch tile unwinds
+the whole T x L recurrence in reverse time in one launch, recomputing the
+gates from the forward's f32 trajectories with the forward's own gate pass
+(``csrc/lstm_gates.cuh``), the (dc, dh) carries and f32 dW/db accumulators
+in shared memory, x and the trajectories streamed in reverse chunk order.
+The sum of dW/db across batch tiles is taken by the last block to finish,
+over per-tile partials in tile order, so one launch gives the same bits run
+to run.  What bounds it on the H100 and what the design does about it is
+written at the top of the CUDA source.
+
+``lstm_seq_bwd_plain`` is the plain PyTorch version: it unwinds step by
+step exactly as the JAX package's ``_unwind_step`` does, over the whole
+batch at once, with no autograd.  A tensor on the CPU takes it; a tensor on
+the card launches the kernel or raises.  ``lstm_seq_bwd.launches`` counts
+kernel launches: one per training step at any T.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import factorization
+from repro_torch.kernels import _build
+from repro_torch.kernels import lstm_seq as seq_lib
+
+_NAME = "lstm_seq_bwd"
+F32 = torch.float32
+
+
+def lstm_seq_bwd_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                       c_traj: torch.Tensor, h_traj: torch.Tensor,
+                       dc: torch.Tensor, dh: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-sequence BPTT, step by step: (dw, db, dx).
+
+    w: (L, P+H, 4H); b: (L, 4H); x: (B, T, P) padded input; c_traj/h_traj:
+    (T, L, B, H) f32 post-step trajectories (ref.lstm_seq_traj); dc/dh:
+    (L, B, H) cotangents of the final state.  For t = T-1 .. 0 and layers
+    top-down: recompute the gates from the trajectories, form the gate
+    gradients, accumulate dW and db in f32, and pass dh_prev = dg W[P:]^T,
+    dc_prev = dc * f and dinp = dg W[:P]^T on — the JAX package's
+    ``_unwind_step``.  Results in the parameter and input dtypes."""
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    w32, b32 = w.to(F32), b.to(F32)
+    dw = torch.zeros(L, P + H, 4 * H, dtype=F32, device=x.device)
+    db = torch.zeros(L, 4 * H, dtype=F32, device=x.device)
+    dx = torch.empty(B, T, P, dtype=F32, device=x.device)
+    dc_carry = [dc[l].to(F32) for l in range(L)]
+    dh_carry = [dh[l].to(F32) for l in range(L)]
+    zeros = torch.zeros(L, B, H, dtype=F32, device=x.device)
+    for t in range(T - 1, -1, -1):
+        x_t = x[:, t].to(F32)
+        c_t, h_t = c_traj[t], h_traj[t]
+        c_prev_all = c_traj[t - 1] if t > 0 else zeros
+        h_prev_all = h_traj[t - 1] if t > 0 else zeros
+        dinp = torch.zeros(B, P, dtype=F32, device=x.device)
+        for l in range(L - 1, -1, -1):
+            wl = w32[l]
+            inp = x_t if l == 0 else F.pad(h_t[l - 1], (0, P - H))
+            c_prev, h_prev = c_prev_all[l], h_prev_all[l]
+            gates = inp @ wl[:P] + h_prev @ wl[P:] + b32[l]
+            i, f, g, o = gates.chunk(4, dim=-1)
+            si, sf, so = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+            tg = torch.tanh(g)
+            tc = torch.tanh(c_t[l])
+            dh_l = dh_carry[l] + dinp[:, :H]
+            dc_l = dc_carry[l] + dh_l * so * (1.0 - tc * tc)
+            dgates = torch.cat([
+                dc_l * tg * si * (1.0 - si),
+                dc_l * c_prev * sf * (1.0 - sf),
+                dc_l * si * (1.0 - tg * tg),
+                dh_l * tc * so * (1.0 - so),
+            ], dim=-1)
+            dw[l] += torch.cat([inp.T @ dgates, h_prev.T @ dgates], dim=0)
+            db[l] += dgates.sum(dim=0)
+            dh_carry[l] = dgates @ wl[P:].T
+            dc_carry[l] = dc_l * sf
+            dinp = dgates @ wl[:P].T
+        dx[:, t] = dinp
+    return dw.to(w.dtype), db.to(b.dtype), dx.to(x.dtype)
+
+
+def dot_parts(rows: int, threads: int) -> int:
+    """Lanes that share one row of W in the backward's ``dg @ W^T``
+    products: the largest power of two up to a warp with ``parts * rows``
+    within ``threads`` (at least 1; the block sweeps the rows again when
+    even one lane per row does not cover them)."""
+    parts = factorization.WARP
+    while parts > 1 and parts * rows > threads:
+        parts //= 2
+    return parts
+
+
+def _entry():
+    lib = _build.load(_NAME)
+    fn = lib.lstm_seq_bwd_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _validate(w, b, x, c_traj, h_traj, dc, dh) -> None:
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T = x.shape[0], x.shape[1]
+    if w.dim() != 3 or b.shape != (L, 4 * H) or x.dim() != 3 \
+            or x.shape[-1] != P or c_traj.shape != (T, L, B, H) \
+            or h_traj.shape != (T, L, B, H) or dc.shape != (L, B, H) \
+            or dh.shape != (L, B, H):
+        raise ValueError(
+            f"lstm_seq_bwd shapes: w {tuple(w.shape)}, b {tuple(b.shape)}, "
+            f"x {tuple(x.shape)}, c_traj {tuple(c_traj.shape)}, h_traj "
+            f"{tuple(h_traj.shape)}, dc {tuple(dc.shape)}, dh "
+            f"{tuple(dh.shape)}")
+    for name, t in (("w", w), ("b", b), ("x", x), ("c_traj", c_traj),
+                    ("h_traj", h_traj), ("dc", dc), ("dh", dh)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"lstm_seq_bwd takes float32 tensors; {name} is "
+                            f"{t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"lstm_seq_bwd: {name} is on {t.device}, x on "
+                             f"{x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_seq_bwd runs on cpu or cuda, not {x.device}")
+
+
+#: one int32 ticket per (device, stream): zeroed once, and reset to 0 by
+#: the last block of each launch, so launches on one stream reuse it in
+#: order and launches on two streams never share one
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    ticket = _TICKETS.get(key)
+    if ticket is None:
+        ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                             device=device)
+    return ticket
+
+
+def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                 c_traj: torch.Tensor, h_traj: torch.Tensor,
+                 dc: torch.Tensor, dh: torch.Tensor, *, block_b: int,
+                 time_chunk: int | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-sequence BPTT in ONE kernel launch: (dw, db, dx).
+
+    Operands as ``lstm_seq_bwd_plain``, all float32.  ``block_b`` /
+    ``time_chunk`` come from ``lstm_seq.choose_batch_block(mode="bwd")``:
+    ``time_chunk=None`` holds x and both trajectories whole in shared
+    memory, ``tc`` streams them in reverse chunks; the gradients are
+    bit-identical for every ``time_chunk`` and from run to run."""
+    _validate(w, b, x, c_traj, h_traj, dc, dh)
+    if block_b not in seq_lib.TILE_ROWS:
+        raise ValueError(f"lstm_seq_bwd: block_b must be one of "
+                         f"{seq_lib.TILE_ROWS}, not {block_b}")
+    if x.device.type == "cpu":
+        return lstm_seq_bwd_plain(w, b, x, c_traj, h_traj, dc, dh)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (w, b, x, c_traj, h_traj, dc, dh)):
+        raise RuntimeError("the lstm_seq_bwd kernel has no double backward; "
+                           "call it outside autograd")
+    if x.stride(-1) != 1:
+        raise ValueError("lstm_seq_bwd: x needs a contiguous last dim")
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    tc = T if time_chunk is None else max(1, min(time_chunk, T))
+    smem = seq_lib.working_set_bytes(T, L, P, H, block_b, mode="bwd",
+                                     time_chunk=None if tc == T else tc)
+    if smem > factorization.H100_SMEM_PER_BLOCK:
+        raise ValueError(f"lstm_seq_bwd: tile ({block_b}, {tc}) needs {smem} "
+                         "bytes of shared memory, above a thread block's "
+                         f"{factorization.H100_SMEM_PER_BLOCK}")
+    parts = seq_lib.gate_parts(H)
+    if parts == 0:
+        raise ValueError(f"lstm_seq_bwd: 4H = {4 * H} gate columns exceed "
+                         f"{seq_lib.MAX_THREADS} threads")
+    threads = factorization.round_up(parts * 4 * H, factorization.WARP)
+    dparts = dot_parts(P + H, threads)
+    w, b = w.contiguous(), b.contiguous()
+    c_traj, h_traj = c_traj.contiguous(), h_traj.contiguous()
+    dc, dh = dc.contiguous(), dh.contiguous()
+    n_tiles = -(-B // block_b)
+    dw = torch.empty_like(w)
+    db = torch.empty_like(b)
+    dx = x.new_empty(B, T, P)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # one tile writes dw and db itself; more sum per-tile partials, the
+    # last tile to finish found by the stream's ticket
+    many = n_tiles > 1
+    partials = x.new_empty(n_tiles * (w.numel() + b.numel()) if many else 0)
+    ticket = _ticket(x.device, stream) if many else None
+    lib, fn = _entry()
+    err = fn(w.data_ptr(), b.data_ptr(), x.data_ptr(), c_traj.data_ptr(),
+             h_traj.data_ptr(), dc.data_ptr(), dh.data_ptr(), dw.data_ptr(),
+             db.data_ptr(), dx.data_ptr(), partials.data_ptr(),
+             None if ticket is None else ticket.data_ptr(), B, T, L, P, H,
+             x.stride(0), x.stride(1), block_b, tc, parts, dparts, threads,
+             smem, stream)
+    _build.check(lib, _NAME, err)
+    lstm_seq_bwd.launches += 1
+    return dw, db, dx
+
+
+#: kernel launches since the last reset (CPU calls are not counted)
+lstm_seq_bwd.launches = 0

@@ -4,7 +4,9 @@
 ``lstm_seq`` takes its ``(block_b, time_chunk)`` from
 ``lstm_seq.choose_batch_block``.  Either block may be pinned by the caller.
 CPU tensors run the kernels' plain versions; CUDA tensors launch the
-kernels.
+kernels.  Both are differentiable: under autograd ``lstm_seq`` pairs its
+trajectory launch with the backward kernel, and ``lstm_cell`` takes the VJP
+of its plain version.
 """
 from __future__ import annotations
 
@@ -24,14 +26,22 @@ def lstm_cell(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
 
 
 def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
-             block_b: int | None = None, time_chunk: int | None = None
+             block_b: int | None = None, time_chunk: int | None = None,
+             bwd_block_b: int | None = None,
+             bwd_time_chunk: int | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Whole-sequence stacked LSTM, ONE kernel launch for all T steps.
+    """Whole-sequence stacked LSTM, ONE kernel launch for all T steps (and,
+    under autograd, ONE reverse-sweep launch for the backward).
 
     w: (L, P+H, 4H) (lstm_seq.stack_params); b: (L, 4H); x: (B, T, P)
-    padded input.  Returns final (c, h), each (L, B, H).  Raises ValueError
-    when the weight stack exceeds a thread block's shared memory even at
-    (bm=1, tc=1) — core/lstm.forward_fused_seq routes that case to the
-    per-cell kernel."""
+    padded input.  Returns final (c, h), each (L, B, H).
+    ``block_b``/``time_chunk`` tile the forward; ``bwd_block_b``/
+    ``bwd_time_chunk`` tile the training path, its trajectory forward
+    included (None: from ``choose_batch_block(mode="bwd")``).  Raises ValueError when the weight stack exceeds a
+    thread block's shared memory even at (bm=1, tc=1) —
+    core/lstm.forward_fused_seq routes that case to the per-cell kernel —
+    and, on CUDA tensors under autograd, when the backward fits nowhere (a
+    CPU call then takes autograd of ``ref.lstm_seq``)."""
     return _lstm_seq.lstm_seq(w, b, x, block_b=block_b,
-                              time_chunk=time_chunk)
+                              time_chunk=time_chunk, bwd_block_b=bwd_block_b,
+                              bwd_time_chunk=bwd_time_chunk)

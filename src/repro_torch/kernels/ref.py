@@ -47,3 +47,35 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor
             c[l], h[l] = lstm_cell(w[l], b[l], inp, c[l], h[l])
             inp = F.pad(h[l], (0, P - H)) if P > H else h[l]
     return torch.stack(c).to(x.dtype), torch.stack(h).to(x.dtype)
+
+
+def lstm_seq_traj(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """Trajectory-writing oracle — the residual contract of the training
+    path (the trajectory launch of kernels/csrc/lstm_seq.cu, consumed by
+    kernels/csrc/lstm_seq_bwd.cu).
+
+    Same math as ``lstm_seq``, but also returns the POST-step state
+    trajectories ``(c_traj, h_traj)``, each (T, L, B, H) float32: the f32
+    values the recurrence carries, not cast to x.dtype, because the
+    backward recomputes the gates from them.  Returns (c, h, c_traj,
+    h_traj) with (c, h) exactly ``lstm_seq``'s.  The contract does not
+    depend on the kernel's tiling: every ``(block_b, time_chunk)`` writes
+    these same arrays.
+    """
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    c = [torch.zeros(B, H, dtype=F32, device=x.device) for _ in range(L)]
+    h = [torch.zeros(B, H, dtype=F32, device=x.device) for _ in range(L)]
+    cs, hs = [], []
+    for t in range(T):
+        inp = x[:, t].to(F32)
+        for l in range(L):
+            c[l], h[l] = lstm_cell(w[l], b[l], inp, c[l], h[l])
+            inp = F.pad(h[l], (0, P - H)) if P > H else h[l]
+        cs.append(torch.stack(c))
+        hs.append(torch.stack(h))
+    return (torch.stack(c).to(x.dtype), torch.stack(h).to(x.dtype),
+            torch.stack(cs), torch.stack(hs))

@@ -41,7 +41,7 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def _latencies_ms(fn, params: dict, windows: torch.Tensor,
+def latencies_ms(fn, params: dict, windows: torch.Tensor,
                   cfg: LSTMConfig) -> tuple[list[float], torch.Tensor]:
     """Answer each window as its own request; per-request ms and logits."""
     block_until_ready(fn(params, windows[:1], cfg))          # untimed warmup
@@ -72,7 +72,7 @@ def serve(cfg: LSTMConfig, device: torch.device, *, requests: int = 32,
     table: dict[str, dict] = {}
     with torch.inference_mode():
         for name in names:
-            times, _ = _latencies_ms(lstm.FORWARD_PLANS[name], params,
+            times, _ = latencies_ms(lstm.FORWARD_PLANS[name], params,
                                      windows, cfg)
             table[name] = {"mean_ms": statistics.fmean(times),
                            "p50_ms": statistics.median(times),
@@ -86,7 +86,7 @@ def serve(cfg: LSTMConfig, device: torch.device, *, requests: int = 32,
             sched.calibrate(params, windows[:1], cfg)
             chosen = sched.choose().plan
         served = chosen or plan
-        _, logits = _latencies_ms(lstm.FORWARD_PLANS[served], params,
+        _, logits = latencies_ms(lstm.FORWARD_PLANS[served], params,
                                   windows, cfg)
         acc = float((logits.argmax(-1) == labels).float().mean())
     return {"table": table, "chosen": chosen, "served": served,

@@ -153,12 +153,16 @@ def test_scheduler_calibrates_and_chooses(small):
 
 
 def test_classifier_module_runs_each_plan(small):
+    """The module's parameters train (they require grad), and serving
+    under inference_mode records no graph."""
     for name in lstm.FORWARD_PLANS:
         model = lstm.LSTMClassifier(small["cfg"], plan=name,
                                     params=small["params"])
-        assert not any(p.requires_grad for p in model.parameters())
-        np.testing.assert_allclose(model(small["x"]).numpy(),
-                                   small["sequential"], **TOL)
+        assert all(p.requires_grad for p in model.parameters())
+        with torch.inference_mode():
+            out = model(small["x"])
+        assert out.grad_fn is None and not out.requires_grad
+        np.testing.assert_allclose(out.numpy(), small["sequential"], **TOL)
     with pytest.raises(ValueError):
         lstm.LSTMClassifier(small["cfg"], plan="fused_seq_q8")
 
