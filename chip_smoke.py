@@ -5,15 +5,19 @@
 
 Builds the hand-written kernels of the serving and training paths from
 ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a) into ``build/``, holds each
-kernel against its plain PyTorch version on the card (the backward also
-against torch autograd of the oracle), serves the paper's HAR classifier
-(2 layers x 32 hidden, T=128) through the port's entry point
-``repro_torch.launch.classify`` and trains it at batch 64 through
-``repro_torch.launch.train_har``, each with the launch counters set to 0
-just before and read just after, checks the four plans agree, that a
-``fused_seq`` training step is two launches at any T, and times each
-kernel beside its plain version, one PyTorch library call computing the same
-function, and the least time the card could take for the work.
+kernel, f32 and int8 instances, against its plain PyTorch version on the
+card (the backward also against torch autograd of the oracle), serves the
+paper's HAR classifier (2 layers x 32 hidden, T=128) through the port's
+entry point ``repro_torch.launch.classify`` with all five plans, and at
+2 x 64 through the int8 plan, and trains it at batch 64 through
+``repro_torch.launch.train_har`` with ``fused_seq`` and with the int8 plan
+``fused_seq_q8``, each path with the launch counters set to 0 just before
+and read just after and the plain versions of the sequence kernels armed to
+raise on CUDA tensors; checks each plan against ``sequential`` under its own
+policy, that a ``fused_seq`` and a ``fused_seq_q8`` training step is two
+launches at any T, and times each kernel beside its plain version, one
+PyTorch library call computing the same function, and the least time the
+card could take for the work.
 
 Float32 matrix products and cuDNN run without TF32 here
 (``allow_tf32 = False`` for both), so the plain versions and the library
@@ -26,6 +30,7 @@ numbers, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -42,6 +47,10 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 #: Its f32 tolerance for LSTM gradients (LSTM_GRAD_TOL): the backward sums
 #: over T steps and the batch in another order than autograd does.
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
+#: The int8 kernels against the dequantize oracle ``ref.lstm_seq_q8``
+#: (Q8_ORACLE_TOL of the JAX package's tests): the kernels fold the scale
+#: after the products, the oracle multiplies it into the weights first.
+Q8_ORACLE_TOL = dict(rtol=1e-4, atol=1e-5)
 #: Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
 #: float32 FLOP/s outside the tensor cores — the kernels use CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -93,15 +102,43 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
 
 
 def instance(mangled: str) -> str:
-    """The template arguments of a mangled kernel name, e.g. ``<16,512>``
-    for ``lstm_seq_bwd_kernel<16, 512>`` (a bool argument prints 0 or 1)."""
-    args = re.search(r"I((?:L[ib]\d+E)+)E", mangled)
-    return "<" + ",".join(re.findall(r"L[ib](\d+)E", args.group(1))) + ">" \
-        if args else ""
+    """The template arguments of a mangled kernel name, e.g.
+    ``<16,512,int8>`` for ``lstm_seq_bwd_kernel<16, 512, int8_t>`` (a bool
+    argument prints 0 or 1)."""
+    args = re.search(r"I((?:L[ib]\d+E)+)([af]?)E", mangled)
+    if not args:
+        return ""
+    vals = re.findall(r"L[ib](\d+)E", args.group(1))
+    if args.group(2):
+        vals.append({"a": "int8", "f": "f32"}[args.group(2)])
+    return "<" + ",".join(vals) + ">"
 
 
 def randn(*shape, gen, scale=1.0):
     return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+
+@contextlib.contextmanager
+def tripwires(*where):
+    """Arm each ``(module, name)`` plain version to raise when a CUDA
+    tensor reaches it: inside, every CUDA call must launch its kernel."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in where]
+
+    def armed(name, fn):
+        def call(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                raise RuntimeError(f"a CUDA tensor reached the plain version "
+                                   f"{name}")
+            return fn(*args, **kwargs)
+        return call
+
+    for mod, name, fn in saved:
+        setattr(mod, name, armed(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def main() -> None:
@@ -117,7 +154,7 @@ def main() -> None:
     sys.path.insert(0, str(src))
 
     from repro_torch.configs.mobirnn_lstm import LSTMConfig
-    from repro_torch.core import lstm
+    from repro_torch.core import lstm, plans
     from repro_torch.kernels import _build
     from repro_torch.kernels import lstm_cell as cell_k
     from repro_torch.kernels import lstm_seq as seq_k
@@ -126,13 +163,32 @@ def main() -> None:
     from repro_torch.launch import classify, train_har
     from repro_torch.obs import trace as trace_lib
     from repro_torch.data import har
-    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.adamw import AdamW, tree_leaves, warmup_cosine
 
     counted = (cell_k.lstm_cell, seq_k.lstm_seq, seq_k.lstm_seq_traj,
-               bwd_k.lstm_seq_bwd)
+               bwd_k.lstm_seq_bwd, seq_k.lstm_seq_q8, seq_k.lstm_seq_q8_traj,
+               bwd_k.lstm_seq_bwd_q8)
 
     def counts() -> dict:
         return {fn.__name__: fn.launches for fn in counted}
+
+    def only(**launched) -> dict:
+        """The counts of a run that launched ``launched`` and nothing
+        else."""
+        return {fn.__name__: launched.get(fn.__name__, 0) for fn in counted}
+
+    # the plain versions a sequence-kernel wrapper would take for CPU
+    # tensors; armed around the main paths, where none may see CUDA ones
+    plain_versions = ((seq_k, "lstm_seq_plain"), (seq_k, "lstm_seq_q8_plain"),
+                      (seq_k, "lstm_seq_q8_traj_plain"),
+                      (bwd_k, "lstm_seq_bwd_plain"), (ref, "lstm_seq"),
+                      (ref, "lstm_seq_traj"))
+    lstm_family = plans.get_family("lstm")
+
+    def policy(plan: str) -> dict:
+        """The plan's own tolerance against ``sequential``: LSTM_TOL, or
+        Q8_BAND for the int8 plan."""
+        return lstm_family.tol(plan, "float32")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -311,6 +367,105 @@ def main() -> None:
             close(g, r, f"lstm_seq_bwd block_b={block_b} vs 1", GRAD_TOL)
     print("[K3] batch tiles 1, 2, 4, 8, 16 agree (B=37, T=50, tc=2)")
 
+    # --- 3d. the int8 instances (K5, K2t-q8, K3-q8) ------------------------
+    q8_cases = cases + [("2x64 T=128 B=1", (2, 64, 64, 1, 128), {}),
+                        ("3x64 T=128 B=1", (3, 64, 64, 1, 128), {}),
+                        ("2x96 T=128 B=1", (2, 96, 96, 1, 128), {})]
+    for label, shape, kw in q8_cases:
+        w, b, x = seq_case(*shape)
+        wq, s = ref.quantize_q8(w)
+        got = seq_k.lstm_seq_q8(w, b, x, **kw)
+        err = max(close(g, r, f"lstm_seq_q8 {label}")
+                  for g, r in zip(got, seq_k.lstm_seq_q8_plain(wq, s, b, x)))
+        oracle = max(close(g, r, f"lstm_seq_q8 {label} vs ref.lstm_seq_q8",
+                           Q8_ORACLE_TOL)
+                     for g, r in zip(got, ref.lstm_seq_q8(wq, s, b, x)))
+        errs["lstm_seq_q8"] = max(errs["lstm_seq_q8"], err)
+        traj = seq_k.lstm_seq_q8_traj(wq, s, b, x, **kw)
+        terr = max(close(g, r, f"lstm_seq_q8_traj {label}") for g, r in zip(
+            traj, seq_k.lstm_seq_q8_traj_plain(wq, s, b, x)))
+        errs["lstm_seq_q8_traj"] = max(errs["lstm_seq_q8_traj"], terr)
+        check(torch.equal(traj[0], got[0]) and torch.equal(traj[1], got[1]),
+              f"lstm_seq_q8_traj {label}: final (c, h) differ from the "
+              "plain q8 launch")
+        print(f"[K5] lstm_seq_q8 {label}: max abs err {err:.3e} vs its plain"
+              f" version, {oracle:.3e} vs ref.lstm_seq_q8; trajectory launch"
+              f" {terr:.3e}, final (c, h) equal to the plain launch")
+    # (a 16-row tile of T=50 has room for 24-step chunks, not 48)
+    for B, block_b, T, chunks in [(1, 1, 128, (None, 1, 8, 48)),
+                                  (64, 4, 128, (None, 1, 8, 48)),
+                                  (37, 16, 50, (None, 1, 8, 24))]:
+        w, b, x = seq_case(2, 32, 32, B, T)
+        wq, s = ref.quantize_q8(w)
+        outs = [seq_k.lstm_seq_q8_traj(wq, s, b, x, block_b=block_b,
+                                       time_chunk=tc)
+                for tc in chunks + chunks[:1]]       # and a second run
+        check(all(torch.equal(g, r) for out in outs[1:]
+                  for g, r in zip(out, outs[0])),
+              f"lstm_seq_q8_traj B={B} T={T}: time_chunk {chunks} or a "
+              "second run differ")
+        plain = [seq_k.lstm_seq_q8(w, b, x, block_b=block_b, time_chunk=tc)
+                 for tc in chunks]
+        check(all(torch.equal(g, r) for out in plain[1:]
+                  for g, r in zip(out, plain[0])),
+              f"lstm_seq_q8 B={B} T={T}: time_chunk {chunks} differ")
+        print(f"[K5] q8 forward and trajectories bit-identical across "
+              f"time_chunk {chunks} and two runs (B={B}, block_b={block_b}, "
+              f"T={T})")
+
+    def q8_bwd_run(w, b, x, dc, dh, block_b, tc):
+        wq, s = ref.quantize_q8(w)
+        _, _, ct, ht = seq_k.lstm_seq_q8_traj(wq, s, b, x, block_b=block_b,
+                                              time_chunk=tc)
+        return bwd_k.lstm_seq_bwd_q8(wq, s, b, x, ct, ht, dc, dh,
+                                     block_b=block_b, time_chunk=tc), \
+            (wq, s, ct, ht)
+
+    def ste_autograd(w, b, x, dc, dh):
+        """autograd of the oracle over straight-through int8 weights."""
+        ins = [t.clone().requires_grad_() for t in (w, b, x)]
+        return torch.autograd.grad(ref.lstm_seq(
+            ref.quantize_dequantize_ste(ins[0]), ins[1], ins[2]), ins,
+            (dc, dh))
+
+    for label, shape, tiles in bwd_cases:
+        w, b, x, dc, dh = bwd_case(*shape)
+        L, P, H, B, T = shape
+        tiles = tiles or tuple(seq_k.choose_batch_block(
+            B, T, L, P, H, mode="bwd", quantized=True))
+        got, (wq, s, ct, ht) = q8_bwd_run(w, b, x, dc, dh, *tiles)
+        plain = bwd_k.lstm_seq_bwd_plain(wq, b, x, ct, ht, dc, dh, scales=s)
+        err = max(close(g, r, f"lstm_seq_bwd_q8 {label} vs {what}", GRAD_TOL)
+                  for want, what in ((plain, "plain"),
+                                     (ste_autograd(w, b, x, dc, dh),
+                                      "autograd over STE weights"))
+                  for g, r in zip(got, want))
+        errs["lstm_seq_bwd_q8"] = max(errs["lstm_seq_bwd_q8"], err)
+        again, _ = q8_bwd_run(w, b, x, dc, dh, *tiles)
+        check(all(torch.equal(g, r) for g, r in zip(got, again)),
+              f"lstm_seq_bwd_q8 {label}: two identical calls differ")
+        print(f"[K3-q8] lstm_seq_bwd_q8 {label} tiles {tiles}: max abs err "
+              f"{err:.3e} vs plain and autograd over STE weights (dw, db, "
+              "dx); two calls bit-identical")
+    for B, block_b, T, chunks in [(1, 1, 128, (None, 1, 8, 48)),
+                                  (64, 1, 128, (None, 1, 48)),
+                                  (37, 8, 50, (1, 3, 8))]:
+        w, b, x, dc, dh = bwd_case(2, 32, 32, B, T)
+        outs = [q8_bwd_run(w, b, x, dc, dh, block_b, tc)[0] for tc in chunks]
+        for tc, out in zip(chunks[1:], outs[1:]):
+            check(all(torch.equal(g, r) for g, r in zip(out, outs[0])),
+                  f"lstm_seq_bwd_q8 B={B} T={T} time_chunk={tc} differs "
+                  f"from {chunks[0]}")
+        print(f"[K3-q8] gradients bit-identical across time_chunk {chunks} "
+              f"(B={B}, block_b={block_b}, T={T})")
+    w, b, x, dc, dh = bwd_case(2, 32, 32, 37, 50)
+    base, _ = q8_bwd_run(w, b, x, dc, dh, 1, 2)
+    for block_b in (2, 4, 8, 16):
+        got, _ = q8_bwd_run(w, b, x, dc, dh, block_b, 2)
+        for g, r in zip(got, base):
+            close(g, r, f"lstm_seq_bwd_q8 block_b={block_b} vs 1", GRAD_TOL)
+    print("[K3-q8] batch tiles 1, 2, 4, 8, 16 agree (B=37, T=50, tc=2)")
+
     cfg = LSTMConfig()
     T, L = cfg.seq_len, cfg.n_layers
     model = lstm.LSTMClassifier(
@@ -330,23 +485,24 @@ def main() -> None:
     check(len(events) == 1
           and events[0]["attrs"].get("fallback") == "fused_cell",
           f"tiny budget should route to fused_cell with an event: {events}")
-    check(seq_k.lstm_seq.launches == 0
-          and cell_k.lstm_cell.launches == T * L,
-          f"routed forward launched lstm_seq {seq_k.lstm_seq.launches}x, "
-          f"lstm_cell {cell_k.lstm_cell.launches}x")
+    check(counts() == only(lstm_cell=T * L),
+          f"routed forward launched {counts()}")
     close(routed, want, "fused_seq routed to fused_cell")
     print(f"[K2] 1 KiB budget: routed to fused_cell ({T * L} cell launches, "
           "0 sequence launches) with plan/dispatch fallback=fused_cell")
 
-    # --- 4. the serving path, counted --------------------------------------
+    # --- 4. the serving path, counted -------------------------------------
     reset_counts(*counted)
-    served = classify.main(["--device", "cuda", "--requests", "32",
-                            "--plan", "auto", "--seed", "0"])
+    with tripwires(*plain_versions):
+        served = classify.main(["--device", "cuda", "--requests", "32",
+                                "--plan", "auto", "--seed", "0"])
     launches = counts()
     print(f"[slice] serving path launches: {launches}")
-    for name in ("lstm_cell", "lstm_seq"):
+    for name in ("lstm_cell", "lstm_seq", "lstm_seq_q8"):
         check(launches[name] > 0, f"{name} was not launched serving")
-    check(launches["lstm_seq_traj"] == launches["lstm_seq_bwd"] == 0,
+    check(all(launches[n] == 0 for n in ("lstm_seq_traj", "lstm_seq_bwd",
+                                         "lstm_seq_q8_traj",
+                                         "lstm_seq_bwd_q8")),
           "serving launched a training kernel")
     check(served["logits"].shape == (32, cfg.n_classes)
           and bool(torch.isfinite(served["logits"]).all()),
@@ -360,7 +516,8 @@ def main() -> None:
         asked = har_windows(32)              # the windows classify served
         close(served["logits"], torch.cat([lstm.forward_sequential(
             params, asked[j:j + 1], cfg) for j in range(32)]),
-            f"served through {served['served']} vs sequential")
+            f"served through {served['served']} vs sequential",
+            policy(served["served"]))
         windows = har_windows(64)
         ref_single = torch.cat([lstm.forward_sequential(
             params, windows[j:j + 1], cfg) for j in range(32)])
@@ -369,53 +526,104 @@ def main() -> None:
             single = torch.cat([fwd(params, windows[j:j + 1], cfg)
                                 for j in range(32)])
             batch = fwd(params, windows, cfg)
-            e1 = close(single, ref_single, f"{name} single-window")
-            e2 = close(batch, ref_batch, f"{name} batch of 64")
+            e1 = close(single, ref_single, f"{name} single-window",
+                       policy(name))
+            e2 = close(batch, ref_batch, f"{name} batch of 64", policy(name))
             print(f"[slice] {name}: 32 single + batch of 64 agree with "
-                  f"sequential (max abs err {max(e1, e2):.3e})")
+                  f"sequential at {policy(name)} (max abs err "
+                  f"{max(e1, e2):.3e})")
         for B in (1, 64):
-            reset_counts(*counted)
-            lstm.forward_fused_seq(params, windows[:B], cfg)
-            check(counts() == {"lstm_cell": 0, "lstm_seq": 1,
-                               "lstm_seq_traj": 0, "lstm_seq_bwd": 0},
-                  f"fused_seq B={B}: {counts()}")
-            reset_counts(*counted)
-            lstm.forward_fused_kernel(params, windows[:B], cfg)
-            check(counts() == {"lstm_cell": T * L, "lstm_seq": 0,
-                               "lstm_seq_traj": 0, "lstm_seq_bwd": 0},
-                  f"fused_cell B={B}: {counts()}")
-        print(f"[slice] launches per forward: fused_seq 1, fused_cell "
-              f"{T * L} (T x L) at B=1 and B=64")
+            for fwd, want in ((lstm.forward_fused_seq, only(lstm_seq=1)),
+                              (lstm.forward_fused_seq_q8,
+                               only(lstm_seq_q8=1)),
+                              (lstm.forward_fused_kernel,
+                               only(lstm_cell=T * L))):
+                reset_counts(*counted)
+                fwd(params, windows[:B], cfg)
+                check(counts() == want, f"{fwd.__name__} B={B}: {counts()}")
+        print(f"[slice] launches per forward: fused_seq 1, fused_seq_q8 1, "
+              f"fused_cell {T * L} (T x L) at B=1 and B=64")
     print(f"[slice] scheduler chose {served['chosen']}")
 
-    # --- 4b. the training path, counted -------------------------------------
+    # 2 x 64: the f32 stack fits no block, the int8 one does
+    wide64 = cfg.with_complexity(64, 2)
+    served64 = {}
+    for plan in ("fused_seq_q8", "fused_seq"):
+        sink = trace_lib.ListSink()
+        old = trace_lib.set_tracer(trace_lib.Tracer(sink))
+        try:
+            reset_counts(*counted)
+            with tripwires(*plain_versions):
+                served64[plan] = classify.main(
+                    ["--device", "cuda", "--requests", "16", "--plan", plan,
+                     "--hidden", "64", "--seed", "0"])
+            got = counts()
+        finally:
+            trace_lib.set_tracer(old)
+        events = [r["attrs"] for r in sink.records
+                  if r["name"] == "plan/dispatch"]
+        calls = 2 * (1 + 16)        # warmup + 16 timed, twice (table, answer)
+        if plan == "fused_seq_q8":
+            check(got == only(lstm_seq_q8=calls) and all(
+                "fallback" not in e for e in events),
+                  f"2 x 64 fused_seq_q8: {got}, {events[:1]}")
+        else:
+            check(got == only(lstm_cell=calls * T * L) and all(
+                e.get("fallback") == "fused_cell" for e in events),
+                  f"2 x 64 fused_seq: {got}, {events[:1]}")
+    p64 = lstm.LSTMClassifier(
+        wide64, generator=torch.Generator().manual_seed(0)).to(device).params()
+    with torch.inference_mode():
+        asked64 = har_windows(16)
+        want64 = torch.cat([lstm.forward_sequential(
+            p64, asked64[j:j + 1], wide64) for j in range(16)])
+    for plan, out in served64.items():
+        close(out["logits"], want64, f"2 x 64 served through {plan}",
+              policy(plan))
+    print(f"[slice] 2 x 64, B=1: fused_seq_q8 1 q8 launch a request (p50 "
+          f"{served64['fused_seq_q8']['table']['fused_seq_q8']['p50_ms']:.3f}"
+          f" ms); fused_seq routed to fused_cell, {T * L} launches (p50 "
+          f"{served64['fused_seq']['table']['fused_seq']['p50_ms']:.3f} ms)"
+          ", each within its policy of sequential")
+
+    # --- 4b. the training paths, counted ------------------------------------
     train_args = ["--device", "cuda", "--batch", "64", "--steps", "20",
                   "--n-train", "512", "--n-test", "256", "--latency-cases",
                   "0", "--seed", "0"]
-    sink = trace_lib.ListSink()
-    old = trace_lib.set_tracer(trace_lib.Tracer(sink))
-    try:
-        reset_counts(*counted)
-        trained = train_har.main(train_args + ["--plan", "fused_seq"])
-        train_launches = counts()
-    finally:
-        trace_lib.set_tracer(old)
-    print(f"[train] training path launches: {train_launches}")
-    losses = trained["losses"]
-    check(train_launches["lstm_seq_traj"] == train_launches["lstm_seq_bwd"]
-          == len(losses) == 20 and train_launches["lstm_cell"] == 0,
-          f"20 fused_seq steps launched {train_launches}")
-    check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
-          f"fused_seq losses not finite or not falling: {losses}")
-    events = [r["attrs"] for r in sink.records
-              if r["name"] == "plan/dispatch" and r["attrs"]["train"]]
-    check(len(events) == 20 and all(
-        "fallback" not in e and e["bwd_block_b"] >= 1 for e in events),
-          f"a fused_seq training call left its kernels: {events}")
-    step_tiles = {(e["bwd_block_b"], e["bwd_time_chunk"]) for e in events
-                  if e["batch"] == 64}
-    print(f"[train] fused_seq losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
-          f"backward tiling {step_tiles} (no oracle)")
+    runs, train_launches = {}, {}
+    for plan in ("fused_seq", "fused_seq_q8"):
+        sink = trace_lib.ListSink()
+        old = trace_lib.set_tracer(trace_lib.Tracer(sink))
+        try:
+            reset_counts(*counted)
+            with tripwires(*plain_versions):
+                runs[plan] = train_har.main(train_args + ["--plan", plan])
+            train_launches[plan] = counts()
+        finally:
+            trace_lib.set_tracer(old)
+        print(f"[train] {plan} training path launches: "
+              f"{train_launches[plan]}")
+        losses = runs[plan]["losses"]
+        suffix = "_q8" if plan == "fused_seq_q8" else ""
+        # 20 steps of two launches; train_har's two test-accuracy checks
+        # (after step 1 and at the end) are one inference forward each
+        check(train_launches[plan] == only(
+            **{f"lstm_seq{suffix}_traj": 20, f"lstm_seq_bwd{suffix}": 20,
+               f"lstm_seq{suffix}": 2}) and len(losses) == 20,
+              f"20 {plan} steps launched {train_launches[plan]}")
+        check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"{plan} losses not finite or not falling: {losses}")
+        events = [r["attrs"] for r in sink.records
+                  if r["name"] == "plan/dispatch" and r["attrs"]["train"]]
+        check(len(events) == 20 and all(
+            "fallback" not in e and e["bwd_block_b"] >= 1
+            and e["plan"] == plan for e in events),
+              f"a {plan} training call left its kernels: {events}")
+        step_tiles = {(e["bwd_block_b"], e["bwd_time_chunk"])
+                      for e in events if e["batch"] == 64}
+        print(f"[train] {plan} losses {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"backward tiling {step_tiles} (no oracle)")
+    trained, losses = runs["fused_seq"], runs["fused_seq"]["losses"]
     sequential = train_har.main(train_args + ["--plan", "sequential"])
     for i in range(3):
         check(math.isclose(losses[i], sequential["losses"][i],
@@ -426,68 +634,195 @@ def main() -> None:
     print(f"[train] first 3 losses agree with sequential: {losses[:3]} vs "
           f"{sequential['losses'][:3]}")
 
-    def counted_step(forward, T_: int) -> dict:
+    def ste_forward(p, x, cfg_):
+        """sequential over straight-through int8 weights of the stacked
+        layout: the q8 plan's training reference."""
+        w, b, P = seq_k.stack_params(p["layers"], cfg_.hidden)
+        _, h = ref.lstm_seq(ref.quantize_dequantize_ste(w), b,
+                            seq_k.pad_input(x, P))
+        return h[-1] @ p["head"]["w"] + p["head"]["b"]
+
+    # train_har's first 3 steps (its data, batches, schedule) over STE
+    train_set, _ = har.make_har(512, 256, seed=0)
+    p_ste = lstm.LSTMClassifier(
+        cfg, generator=torch.Generator().manual_seed(0)).to(device).params()
+    opt = AdamW(lr=warmup_cosine(3e-3, 20 // 10, 20), weight_decay=0.0)
+    state, batches = opt.init(p_ste), har.batches(train_set, 64, seed=0)
+    q8_losses = runs["fused_seq_q8"]["losses"]
+    for i in range(3):
+        bx, by = next(batches)
+        state, loss, _ = train_har.train_step(
+            p_ste, state, torch.from_numpy(bx).to(device),
+            torch.from_numpy(by).to(device=device, dtype=torch.long), cfg,
+            ste_forward, opt)
+        check(math.isclose(q8_losses[i], float(loss),
+                           rel_tol=GRAD_TOL["rtol"],
+                           abs_tol=GRAD_TOL["atol"]),
+              f"step {i + 1}: fused_seq_q8 loss {q8_losses[i]} vs "
+              f"sequential over STE weights {float(loss)}")
+    print(f"[train] first 3 fused_seq_q8 losses agree with sequential over "
+          f"straight-through int8 weights: {q8_losses[:3]}")
+
+    def counted_step(forward, T_: int, cfg_=cfg, B_: int = 64) -> dict:
         model = lstm.LSTMClassifier(
-            cfg, generator=torch.Generator().manual_seed(1)).to(device)
+            cfg_, generator=torch.Generator().manual_seed(1)).to(device)
         p = model.params()
-        xs = randn(64, T_, cfg.input_dim, gen=gen)
-        ys = torch.randint(0, cfg.n_classes, (64,), generator=gen).to(device)
+        xs = randn(B_, T_, cfg_.input_dim, gen=gen)
+        ys = torch.randint(0, cfg_.n_classes, (B_,), generator=gen).to(device)
         reset_counts(*counted)
-        loss = lstm.loss_fn(p, xs, ys, cfg, forward=forward)
+        loss = lstm.loss_fn(p, xs, ys, cfg_, forward=forward)
         torch.autograd.grad(loss, tree_leaves(p))
         torch.cuda.synchronize()
         return counts()
 
     for T_ in (128, 300):
         got = counted_step(lstm.forward_fused_seq, T_)
-        check(got == {"lstm_cell": 0, "lstm_seq": 0, "lstm_seq_traj": 1,
-                      "lstm_seq_bwd": 1},
+        check(got == only(lstm_seq_traj=1, lstm_seq_bwd=1),
               f"fused_seq training step at T={T_}: {got}")
+        got = counted_step(lstm.forward_fused_seq_q8, T_)
+        check(got == only(lstm_seq_q8_traj=1, lstm_seq_bwd_q8=1),
+              f"fused_seq_q8 training step at T={T_}: {got}")
     got = counted_step(lstm.forward_fused_kernel, T)
-    check(got == {"lstm_cell": T * L, "lstm_seq": 0, "lstm_seq_traj": 0,
-                  "lstm_seq_bwd": 0}, f"fused_cell training step: {got}")
+    check(got == only(lstm_cell=T * L), f"fused_cell training step: {got}")
     print(f"[train] one step: fused_seq 2 launches (lstm_seq_traj 1, "
-          f"lstm_seq_bwd 1) at T=128 and T=300; fused_cell {T * L} cell "
+          f"lstm_seq_bwd 1) and fused_seq_q8 2 (lstm_seq_q8_traj 1, "
+          f"lstm_seq_bwd_q8 1) at T=128 and T=300; fused_cell {T * L} cell "
           "launches and no backward kernel")
 
-    # 2 x 48: the forward fits a thread block, the backward does not
-    wide = cfg.with_complexity(48, 2)
-    wp = lstm.LSTMClassifier(
-        wide, generator=torch.Generator().manual_seed(2)).to(device).params()
-    xs = randn(4, 16, wide.input_dim, gen=gen)
-    ys = torch.randint(0, wide.n_classes, (4,), generator=gen).to(device)
-    sink = trace_lib.ListSink()
-    old = trace_lib.set_tracer(trace_lib.Tracer(sink))
-    try:
-        reset_counts(*counted)
-        got = torch.autograd.grad(lstm.loss_fn(
-            wp, xs, ys, wide, forward=lstm.forward_fused_seq),
-            tree_leaves(wp))
-        wide_launches = counts()
-    finally:
-        trace_lib.set_tracer(old)
-    events = [r["attrs"] for r in sink.records
-              if r["name"] == "plan/dispatch"]
-    check(wide_launches == {"lstm_cell": 16 * 2, "lstm_seq": 0,
-                            "lstm_seq_traj": 0, "lstm_seq_bwd": 0}
-          and len(events) == 1 and events[0]["train"]
-          and events[0].get("fallback") == "fused_cell",
-          f"2 x 48 training step: {wide_launches}, {events}")
-    want = torch.autograd.grad(lstm.loss_fn(wp, xs, ys, wide),
-                               tree_leaves(wp))
-    for g, r in zip(got, want):
-        close(g, r, "2 x 48 fused_seq grads vs sequential", GRAD_TOL)
-    w_s, b_s, P = seq_k.stack_params(wp["layers"], 48)
-    try:
-        seq_k.lstm_seq(w_s, b_s, seq_k.pad_input(xs, P))
-        raised = ""
-    except ValueError as e:
-        raised = str(e)
-    check("working set" in raised,
-          f"lstm_seq under autograd past the backward's budget: {raised!r}")
-    print("[train] 2 x 48 (backward fits no block): a fused_seq step runs "
-          "on fused_cell with the event and sequential's grads; a bare "
-          "lstm_seq call under autograd raises")
+    # 2 x 48 (f32: the forward fits a block, the backward does not) and
+    # 2 x 64 (q8: the same); both train on fused_cell
+    for plan, hidden in (("fused_seq", 48), ("fused_seq_q8", 64)):
+        wide = cfg.with_complexity(hidden, 2)
+        wp = lstm.LSTMClassifier(
+            wide, generator=torch.Generator().manual_seed(2)
+        ).to(device).params()
+        xs = randn(4, 16, wide.input_dim, gen=gen)
+        ys = torch.randint(0, wide.n_classes, (4,), generator=gen).to(device)
+        sink = trace_lib.ListSink()
+        old = trace_lib.set_tracer(trace_lib.Tracer(sink))
+        try:
+            reset_counts(*counted)
+            got = torch.autograd.grad(lstm.loss_fn(
+                wp, xs, ys, wide, forward=lstm.FORWARD_PLANS[plan]),
+                tree_leaves(wp))
+            wide_launches = counts()
+        finally:
+            trace_lib.set_tracer(old)
+        events = [r["attrs"] for r in sink.records
+                  if r["name"] == "plan/dispatch"]
+        check(wide_launches == only(lstm_cell=16 * 2)
+              and len(events) == 1 and events[0]["train"]
+              and events[0]["plan"] == plan
+              and events[0].get("fallback") == "fused_cell",
+              f"2 x {hidden} {plan} training step: {wide_launches}, "
+              f"{events}")
+        want = torch.autograd.grad(lstm.loss_fn(wp, xs, ys, wide),
+                                   tree_leaves(wp))
+        for g, r in zip(got, want):
+            close(g, r, f"2 x {hidden} {plan} grads vs sequential", GRAD_TOL)
+        w_s, b_s, P = seq_k.stack_params(wp["layers"], hidden)
+        bare = seq_k.lstm_seq_q8 if plan == "fused_seq_q8" \
+            else seq_k.lstm_seq
+        try:
+            bare(w_s, b_s, seq_k.pad_input(xs, P))
+            raised = ""
+        except ValueError as e:
+            raised = str(e)
+        check("working set" in raised,
+              f"{bare.__name__} under autograd past the backward's budget: "
+              f"{raised!r}")
+        print(f"[train] 2 x {hidden} (backward fits no block): a {plan} "
+              "step runs on fused_cell with the event and sequential's "
+              f"grads; a bare {bare.__name__} call under autograd raises")
+
+    def cudnn_lstm(w_s, b_s, P):
+        """``nn.LSTM`` loaded with the stacked weights (TF32 off): one
+        library call computing the sequence kernels' function."""
+        L_, H_ = w_s.shape[0], w_s.shape[-1] // 4
+        lib = torch.nn.LSTM(P, H_, num_layers=L_, batch_first=True
+                            ).to(device).requires_grad_(False)
+        for l in range(L_):
+            getattr(lib, f"weight_ih_l{l}").copy_(
+                w_s[l][:P if l == 0 else H_].T)
+            getattr(lib, f"weight_hh_l{l}").copy_(w_s[l][P:].T)
+            getattr(lib, f"bias_ih_l{l}").copy_(b_s[l])
+            getattr(lib, f"bias_hh_l{l}").zero_()
+        return lib
+
+    def q8_rows(w_s, b_s, xp, B, dc, dh, extra=False) -> list[dict]:
+        """Times of the q8 forward and, with cotangents, of the q8 training
+        pair at the backward's tiling, each beside its plain version, its
+        bound and cuDNN over the dequantized weights."""
+        L_, H_ = w_s.shape[0], w_s.shape[-1] // 4
+        P_, T_ = w_s.shape[1] - H_, xp.shape[1]
+        wq, s = ref.quantize_q8(w_s)
+        lib = cudnn_lstm(ref.dequantize_q8(wq, s), b_s, P_)
+        c_k, h_k = seq_k.lstm_seq_q8(w_s, b_s, xp)
+        _, (h_lib, c_lib) = lib(xp)
+        close(c_lib, c_k, "nn.LSTM over dequantized weights vs lstm_seq_q8",
+              Q8_ORACLE_TOL)
+        close(h_lib, h_k, "nn.LSTM over dequantized weights vs lstm_seq_q8",
+              Q8_ORACLE_TOL)
+        # codes 1 byte, scales, bias and activations 4; (c, h) out
+        q8_in = wq.numel() + 4 * (s.numel() + b_s.numel() + xp.numel())
+        flops = T_ * 2 * B * 4 * H_ * ((P_ + H_) + (L_ - 1) * 2 * H_)
+        fwd = seq_k.choose_batch_block(B, T_, L_, P_, H_, quantized=True)
+        shape = f"B={B} T={T_} L={L_} P={P_} H={H_}"
+        t_bound, by = bound(q8_in + 4 * 2 * L_ * B * H_, flops)
+        rows = [dict(
+            name="lstm_seq_q8", B=B, extra=extra, shape=shape,
+            ms=time_ms(lambda: seq_k._launch(wq, b_s, xp, fwd.block_b,
+                                             fwd.time_chunk, False, s), 100),
+            entry_ms=time_ms(lambda: seq_k.lstm_seq_q8(w_s, b_s, xp), 100),
+            plain_ms=time_ms(lambda: seq_k.lstm_seq_q8_plain(wq, s, b_s, xp),
+                             2),
+            library_ms=time_ms(lambda: lib(xp), 50),
+            bound_ms=t_bound, bound_by=by)]
+        if dc is None:
+            return rows
+        tiles = seq_k.choose_batch_block(B, T_, L_, P_, H_, mode="bwd",
+                                         quantized=True)
+        kw = dict(block_b=tiles.block_b, time_chunk=tiles.time_chunk)
+        _, _, ct, ht = seq_k.lstm_seq_q8_traj(wq, s, b_s, xp, **kw)
+        dw, db, dx = bwd_k.lstm_seq_bwd_q8(wq, s, b_s, xp, ct, ht, dc, dh,
+                                           **kw)
+        xg = xp.clone().requires_grad_()
+        lib.requires_grad_(True)
+        with torch.enable_grad():
+            _, (h_lib, c_lib) = lib(xg)
+            lib_in = [xg, *lib.parameters()]
+            g_lib = torch.autograd.grad((h_lib, c_lib), lib_in, (dh, dc),
+                                        retain_graph=True)
+            close(g_lib[0], dx, "nn.LSTM backward vs lstm_seq_bwd_q8 dx",
+                  GRAD_TOL)
+            close(g_lib[3], db[0], "nn.LSTM backward vs lstm_seq_bwd_q8 db",
+                  GRAD_TOL)
+            traj_lib_ms = time_ms(lambda: lib(xg), 50)
+            bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
+                (h_lib, c_lib), lib_in, (dh, dc), retain_graph=True), 50)
+        state = 2 * T_ * L_ * B * H_                # both trajectories
+        t_bound, by = bound(q8_in + 4 * (2 * L_ * B * H_ + state), flops)
+        shape += f" tiles {tuple(tiles)}"
+        rows.append(dict(
+            name="lstm_seq_q8_traj", B=B, extra=extra, shape=shape,
+            ms=time_ms(lambda: seq_k.lstm_seq_q8_traj(wq, s, b_s, xp, **kw),
+                       100),
+            plain_ms=time_ms(lambda: seq_k.lstm_seq_q8_traj_plain(
+                wq, s, b_s, xp), 2),
+            library_ms=traj_lib_ms, bound_ms=t_bound, bound_by=by))
+        # codes, scales, b, x, both trajectories, dc, dh in; f32 dw, db and
+        # dx out
+        t_bound, by = bound(q8_in + 4 * (state + 2 * L_ * B * H_ + wq.numel()
+                                         + b_s.numel() + xp.numel()),
+                            3 * flops)
+        rows.append(dict(
+            name="lstm_seq_bwd_q8", B=B, extra=extra, shape=shape,
+            ms=time_ms(lambda: bwd_k.lstm_seq_bwd_q8(
+                wq, s, b_s, xp, ct, ht, dc, dh, **kw), 100),
+            plain_ms=time_ms(lambda: bwd_k.lstm_seq_bwd_plain(
+                wq, b_s, xp, ct, ht, dc, dh, scales=s), 2),
+            library_ms=bwd_lib_ms, bound_ms=t_bound, bound_by=by))
+        return rows
 
     # --- 5. times ----------------------------------------------------------
     # no_grad, not inference_mode: nn.LSTM's backward is timed in here too
@@ -522,14 +857,7 @@ def main() -> None:
 
             w_s, b_s, P = seq_k.stack_params(params["layers"], H)
             xp = seq_k.pad_input(windows[:B], P)
-            lib = torch.nn.LSTM(P, H, num_layers=L, batch_first=True
-                                ).to(device).requires_grad_(False)
-            for l in range(L):
-                getattr(lib, f"weight_ih_l{l}").copy_(
-                    w_s[l][:P if l == 0 else H].T)
-                getattr(lib, f"weight_hh_l{l}").copy_(w_s[l][P:].T)
-                getattr(lib, f"bias_ih_l{l}").copy_(b_s[l])
-                getattr(lib, f"bias_hh_l{l}").zero_()
+            lib = cudnn_lstm(w_s, b_s, P)
             _, (h_lib, c_lib) = lib(xp)
             c_k, h_k = seq_k.lstm_seq(w_s, b_s, xp)
             close(c_lib, c_k, "nn.LSTM vs lstm_seq")
@@ -591,6 +919,16 @@ def main() -> None:
                 plain_ms=time_ms(lambda: bwd_k.lstm_seq_bwd_plain(
                     w_s, b_s, xp, ct, ht, dc, dh), 2),
                 library_ms=bwd_lib_ms, bound_ms=t_bound, bound_by=by))
+
+            # the int8 instances at the same shapes, beside nn.LSTM (cuDNN)
+            # over the dequantized weights, the same function to
+            # Q8_ORACLE_TOL; "ms" is the kernel's launch on the codes, the
+            # public call adds the per-call quantize (printed beside)
+            rows += q8_rows(w_s, b_s, xp, B, dc, dh)
+        # 2 x 64, B=1: the int8 forward where the f32 one fits no block
+        w64, b64, P64 = seq_k.stack_params(p64["layers"], 64)
+        rows += q8_rows(w64, b64, seq_k.pad_input(windows[:1], P64), 1,
+                        None, None, extra=True)
         # the backward's 8- and 16-row tiles, which batches past 132 SMs'
         # worth of rows take (timed here, not on the main path)
         for B in (1024, 2048):
@@ -634,10 +972,15 @@ def main() -> None:
                     w_s, b_s, xb, ct, ht, dc, dh), 1, repeats=3),
                 library_ms=bwd_lib_ms, bound_ms=t_bound, bound_by=by))
     for r in rows:
-        print(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f}"
-              f" ms, bound {r['bound_ms']:.3e} ms ({r['bound_by']})")
-    for name, run in (("fused_seq", trained), ("sequential", sequential)):
+        entry = f" (public call, quantize included, {r['entry_ms']:.4f} ms)" \
+            if "entry_ms" in r else ""
+        print(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms"
+              f"{entry}, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
+              f"({r['bound_by']})")
+    for name, run in (("fused_seq", trained),
+                      ("fused_seq_q8", runs["fused_seq_q8"]),
+                      ("sequential", sequential)):
         print(f"[time] training step, {name}, batch 64: median "
               f"{statistics.median(run['step_ms']):.3f} ms, min "
               f"{min(run['step_ms']):.3f} ms over 20 steps (host clock "
@@ -651,14 +994,25 @@ def main() -> None:
                            "src/repro/kernels/lstm_seq.py:317", 1, launches),
               "lstm_seq_traj": ("src/repro_torch/kernels/csrc/lstm_seq.cu",
                                 "src/repro/kernels/lstm_seq.py:350", 64,
-                                train_launches),
+                                train_launches["fused_seq"]),
               "lstm_seq_bwd": ("src/repro_torch/kernels/csrc/lstm_seq_bwd.cu",
                                "src/repro/kernels/lstm_seq_bwd.py:134", 64,
-                               train_launches)}
+                               train_launches["fused_seq"]),
+              "lstm_seq_q8": ("src/repro_torch/kernels/csrc/lstm_seq.cu",
+                              "src/repro/kernels/lstm_seq.py:340", 1,
+                              launches),
+              "lstm_seq_q8_traj": (
+                  "src/repro_torch/kernels/csrc/lstm_seq.cu",
+                  "src/repro/kernels/lstm_seq.py:374", 64,
+                  train_launches["fused_seq_q8"]),
+              "lstm_seq_bwd_q8": (
+                  "src/repro_torch/kernels/csrc/lstm_seq_bwd.cu",
+                  "src/repro/kernels/lstm_seq_bwd.py:197", 64,
+                  train_launches["fused_seq_q8"])}
     kernels = []
     for r in rows:
         src_file, replaces, main_b, path = source[r["name"]]
-        if r["B"] != main_b:
+        if r["B"] != main_b or r.get("extra"):
             continue
         kernels.append({
             "name": r["name"], "route": "cuda", "source": src_file,

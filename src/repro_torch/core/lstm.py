@@ -1,7 +1,8 @@
 """The paper's model: stacked LSTM for activity recognition (MobiRNN §4.1).
 
-Four execution plans over the same parameters, numerically equivalent
-(asserted against the JAX package by tests/test_torch_plans.py):
+Five execution plans over the same parameters, the JAX package's five in
+its order (asserted against it by tests/test_torch_plans.py); the first
+four are numerically equivalent, the fifth agrees within the int8 band:
 
 * ``forward_sequential`` — reference plan: a loop over time, layers in
   dependency order inside the step (the single-threaded baseline of Fig 3/4).
@@ -15,16 +16,24 @@ Four execution plans over the same parameters, numerically equivalent
   weights in shared memory once, (c, h) never leaving it — the MobiRNN fast
   path.  Routes to ``fused_cell`` with a ``plan/dispatch`` event when the
   weight stack exceeds a thread block's shared memory.
+* ``forward_fused_seq_q8`` (``fused_seq_q8``) — ``fused_seq`` over
+  per-output-channel int8 weights (kernels/ref.quantize_q8), held in
+  shared memory as int8 plus f32 scales: a quarter of the f32 stack, so it
+  runs in one launch at widths where ``fused_seq`` cannot (2 x 64, 3 x 64,
+  2 x 96).  Within ``Q8_BAND`` of the others (core/plans.py), within fp
+  rounding of the dequantize oracle; it trains quantization-aware with f32
+  master weights and straight-through gradients.
 
 Every plan trains: ``loss_fn`` under ``torch.autograd`` differentiates it.
 A ``fused_seq`` training step is two launches at any T (the trajectory
 forward and the reverse-sweep backward kernel, kernels/lstm_seq_bwd.py); a
 ``fused_cell`` step is T x L cell launches, its backward the VJP of the
-plain cell.  The JAX package's fifth plan, ``fused_seq_q8`` (int8 weights),
-is not ported yet.  The classifier head follows Guan & Ploetz-style HAR
-models: last hidden state -> dense -> 6-way logits.  Parameters are a plain
-dict ``{"layers": [{"w": (D+H, 4H), "b": (4H,)}, ...], "head": {"w": (H, C),
-"b": (C,)}}``; ``LSTMClassifier`` holds them as an ``nn.Module``.
+plain cell; a ``fused_seq_q8`` step is two launches too (the q8
+trajectory forward and the q8 backward).  The classifier head follows
+Guan & Ploetz-style HAR models: last hidden state -> dense -> 6-way
+logits.  Parameters are a plain dict ``{"layers": [{"w": (D+H, 4H), "b":
+(4H,)}, ...], "head": {"w": (H, C), "b": (C,)}}``; ``LSTMClassifier``
+holds them as an ``nn.Module``.
 """
 from __future__ import annotations
 
@@ -108,6 +117,39 @@ def forward_fused_seq(params: dict, x: torch.Tensor, cfg: LSTMConfig,
     event with ``fallback="fused_cell"``.  Every event names ``train``; a
     training event also ``bwd_block_b``/``bwd_time_chunk``.
     """
+    return _forward_fused_seq_impl(params, x, cfg, smem_budget=smem_budget,
+                                   quantized=False)
+
+
+def forward_fused_seq_q8(params: dict, x: torch.Tensor, cfg: LSTMConfig,
+                         smem_budget: int | None = None) -> torch.Tensor:
+    """Int8-weight sequence-resident plan: ``fused_seq`` with the stacked
+    weights quantized per output channel (kernels/ref.quantize_q8) inside
+    ``kernels/lstm_seq.lstm_seq_q8`` and held in shared memory as int8 plus
+    f32 scales.  The budget table is ``choose_batch_block(quantized=True)``,
+    so the plan stays one launch at 2 x 64, 3 x 64 and 2 x 96, where the
+    f32 stack fits no thread block.  Its training step is two launches
+    with f32 straight-through gradients for the f32 master weights; where
+    the q8 backward fits no block (2 x 64: its f32 dW accumulators alone are
+    264 KiB) a training call routes to ``fused_cell``, as a forward that
+    fits no block does, with a ``plan/dispatch`` event naming
+    ``plan="fused_seq_q8", fallback="fused_cell"``.
+
+    NOT numerically equivalent to the other plans: within fp rounding of
+    ``ref.lstm_seq_q8`` (dequantize, then run) and within ``Q8_BAND`` of
+    the f32 plans (core/plans.py)."""
+    return _forward_fused_seq_impl(params, x, cfg, smem_budget=smem_budget,
+                                   quantized=True)
+
+
+def _forward_fused_seq_impl(params: dict, x: torch.Tensor, cfg: LSTMConfig,
+                            *, smem_budget: int | None,
+                            quantized: bool) -> torch.Tensor:
+    """Shared body of the f32 and int8 sequence-resident plans: stack the
+    layer params, consult the (quantization-aware) budget table once —
+    ``mode="bwd"`` when autograd records the call — route to the per-cell
+    kernel when even (bm=1, tc=1) cannot fit, run the sequence kernel,
+    apply the head."""
     w_stack, b_stack, p_width = seq_lib.stack_params(params["layers"],
                                                      cfg.hidden)
     B, T, _ = x.shape
@@ -115,12 +157,13 @@ def forward_fused_seq(params: dict, x: torch.Tensor, cfg: LSTMConfig,
     blocks = seq_lib.choose_batch_block(
         B, T, cfg.n_layers, p_width, cfg.hidden,
         dtype_bytes=x.element_size(), smem_budget=smem_budget,
-        w_dtype_bytes=w_stack.element_size(),
-        mode="bwd" if train else "fwd")
+        w_dtype_bytes=None if quantized else w_stack.element_size(),
+        mode="bwd" if train else "fwd", quantized=quantized)
+    plan = "fused_seq_q8" if quantized else "fused_seq"
     tracer = trace_lib.get_tracer()
     if blocks is None:        # the stack > shared memory at (bm=1, tc=1)
         if tracer.enabled:
-            tracer.event("plan/dispatch", family="lstm", plan="fused_seq",
+            tracer.event("plan/dispatch", family="lstm", plan=plan,
                          fallback="fused_cell", train=train, batch=B,
                          seq_len=T)
         return forward_fused_kernel(params, x, cfg)
@@ -129,10 +172,11 @@ def forward_fused_seq(params: dict, x: torch.Tensor, cfg: LSTMConfig,
         tiles.update(bwd_block_b=blocks.block_b,
                      bwd_time_chunk=blocks.time_chunk)
     if tracer.enabled:
-        tracer.event("plan/dispatch", family="lstm", plan="fused_seq",
+        tracer.event("plan/dispatch", family="lstm", plan=plan,
                      train=train, **tiles, batch=B, seq_len=T)
     xp = seq_lib.pad_input(x, p_width)
-    _, h = kernel_ops.lstm_seq(w_stack, b_stack, xp, **tiles)
+    op = kernel_ops.lstm_seq_q8 if quantized else kernel_ops.lstm_seq
+    _, h = op(w_stack, b_stack, xp, **tiles)
     return _head(params, h[-1])
 
 
@@ -142,17 +186,21 @@ def forward_wavefront(params: dict, x: torch.Tensor, cfg: LSTMConfig
     return wavefront.forward_wavefront(params, x, cfg)
 
 
-#: The execution plans, keyed by scheduler Plan name.  Every entry maps
-#: (params, x, cfg) -> logits, and all four are numerically equivalent.
+#: The five execution plans, keyed by scheduler Plan name, in the JAX
+#: package's order.  Every entry maps (params, x, cfg) -> logits.  The first
+#: four are numerically equivalent; ``fused_seq_q8`` agrees with them within
+#: the int8 band (core/plans.Q8_BAND).
 FORWARD_PLANS: dict[str, Callable] = {
     "sequential": forward_sequential,
     "wavefront": forward_wavefront,
     "fused_cell": forward_fused_kernel,
     "fused_seq": forward_fused_seq,
+    "fused_seq_q8": forward_fused_seq_q8,
 }
 
 
 def plan_viability(cfg: LSTMConfig, batch: int, seq_len: int, *,
+                   q8_plan_names: tuple[str, ...] = ("fused_seq_q8",),
                    smem_budget: int | None = None,
                    train: bool = False) -> Callable[[str], bool]:
     """Viability predicate for ``Scheduler(viable=...)``.
@@ -169,13 +217,25 @@ def plan_viability(cfg: LSTMConfig, batch: int, seq_len: int, *,
     accumulators on top of the forward's terms) — the number that matters
     when the scheduled step runs under autograd, where a plan past it
     would train on ``fused_cell`` under the fast plan's name.
+
+    ``q8_plan_names`` lists the scheduler names of the int8 plan
+    (``fused_seq_q8``); its surface is the quantization-aware table
+    (``choose_batch_block(quantized=True)``), which fits every width the
+    f32 one does and more (2 x 64 serving), so there are shapes where the
+    scheduler may offer only the int8 fast path.
     """
     p_width = max(cfg.input_dim, cfg.hidden)
+    mode = "bwd" if train else "fwd"
     block = seq_lib.choose_batch_block(
         batch, seq_len, cfg.n_layers, p_width, cfg.hidden,
-        smem_budget=smem_budget, mode="bwd" if train else "fwd")
+        smem_budget=smem_budget, mode=mode)
+    q8_block = seq_lib.choose_batch_block(
+        batch, seq_len, cfg.n_layers, p_width, cfg.hidden,
+        smem_budget=smem_budget, mode=mode, quantized=True)
 
     def viable(plan_name: str) -> bool:
+        if plan_name in q8_plan_names:
+            return q8_block is not None
         return block is not None or plan_name != "fused_seq"
 
     return viable

@@ -45,6 +45,16 @@ def check_mode(mode: str) -> str:
     return mode
 
 
+def weight_dtype_bytes(dtype_bytes: int, w_dtype_bytes: int | None = None,
+                       quantized: bool = False) -> int:
+    """Bytes per weight under the shared parameterisation: an explicit
+    ``w_dtype_bytes`` wins; otherwise quantized plans hold int8 weights
+    (1 byte) and float plans hold activation-width weights."""
+    if w_dtype_bytes is not None:
+        return w_dtype_bytes
+    return 1 if quantized else dtype_bytes
+
+
 def streamed_rows(seq_len: int, time_chunk: int | None) -> int:
     """Rows a (possibly streamed) sequence-axis buffer holds: the whole
     axis when ``time_chunk`` is None, else ``STREAM_SLOTS`` double-buffered

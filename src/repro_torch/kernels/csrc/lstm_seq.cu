@@ -1,19 +1,27 @@
-// Sequence-resident stacked-LSTM forward, f32, for Hopper (sm_90a).
+// Sequence-resident stacked-LSTM forward, f32 or int8 weights, for Hopper
+// (sm_90a).
 //
-// Replaces four Pallas kernels of the JAX package's kernels/lstm_seq.py:
+// Replaces eight Pallas kernels of the JAX package's kernels/lstm_seq.py:
 // _seq_kernel (launched by _lstm_seq_call, whole (T, bm, P) input block
 // resident) and _seq_chunked_kernel (launched by _lstm_seq_chunked_call,
-// input streamed through two (tc, bm, P) windows), and their
+// input streamed through two (tc, bm, P) windows), their
 // trajectory-writing twins _seq_traj_kernel (_lstm_seq_traj_call) and
 // _seq_traj_chunked_kernel (_lstm_seq_traj_chunked_call), which the training
-// forward launches.  Here they are one kernel: the input always streams
-// through a shared-memory ring of time_chunk steps; a chunk of T or more is
-// the whole-T layout with a single slot.  The per-step arithmetic does not
-// depend on the chunking, so every time_chunk gives bit-identical results.
-// The TRAJ instance also writes every step's post-step f32 (c, h) of every
-// layer into (T, L, B, H) trajectories, straight from the update pass to
-// device memory (no shared memory), for the rows below B; nothing else
-// differs, so its final (c, h) equal the plain instance's to the bit.
+// forward launches, and the int8-weight bodies of all four (_seq_q8_kernel,
+// _seq_chunked_q8_kernel, _seq_traj_q8_kernel, _seq_traj_chunked_q8_kernel:
+// the fused_seq_q8 plan).  Here they are one kernel: the input always
+// streams through a shared-memory ring of time_chunk steps; a chunk of T or
+// more is the whole-T layout with a single slot.  The per-step arithmetic
+// does not depend on the chunking, so every time_chunk gives bit-identical
+// results.  The TRAJ instance also writes every step's post-step f32 (c, h)
+// of every layer into (T, L, B, H) trajectories, straight from the update
+// pass to device memory (no shared memory), for the rows below B; nothing
+// else differs, so its final (c, h) equal the plain instance's to the bit.
+// The int8 instances (WT = int8_t) hold the stack as int8 codes in rows
+// padded in bytes (lstm_gates.cuh), with the (L, 4H) f32 scales beside the
+// bias; the gate pass converts each code to f32 in a register and folds the
+// column's scale after the reduction, and everything after the gate pass,
+// the f32 trajectories included, is the f32 instance's code.
 //
 // What bounds it on the H100: at the paper's 2 x 32 config, B=1, T=128 one
 // forward does about 4.2 MFLOP and reads under 100 KB, which the card could
@@ -26,7 +34,9 @@
 // recurrence in one launch.  The hidden dimension is never split across
 // thread blocks, because hidden tiles are not independent across steps.
 // The (L, P+H, 4H) weight stack and the bias are copied into dynamic shared
-// memory once (64 KiB + 1 KiB at 2 x 32) and the (c, h) state of every layer
+// memory once (64 KiB + 1 KiB at 2 x 32; int8: 18 KiB + 2 KiB with the
+// scales, and 68 KiB at 2 x 64, where the f32 stack's 256 KiB fits no
+// block) and the (c, h) state of every layer
 // lives in f32 shared memory for the whole sequence, so nothing but x is
 // read from device memory after the start and nothing but the final (c, h)
 // (and, for TRAJ, the trajectories) is written.  Per step and layer: the
@@ -45,9 +55,10 @@
 // tile's rows), the lanes combine their sums with warp shuffles in a fixed
 // order (so results stay deterministic), and each lane applies the gate's
 // activation, so 4H columns' activations run in parallel and the update
-// pass is two products and one tanh per element.  W rows are padded to
-// 4H + 8 words in shared memory so the 32 lanes of a warp (8 columns x 4
-// parts) read 32 different banks.  The wrapper keeps tiles small (one row
+// pass is two products and one tanh per element.  W rows are padded in
+// shared memory (f32: 4H + 8 words; int8: see lstm_gates.cuh) so the 32
+// lanes of a warp (8 columns x 4 parts) read without bank conflicts.  The
+// wrapper keeps tiles small (one row
 // per block until the batch outgrows the SMs, then a power of two up to 16
 // rows, one kernel instance per size), so a block's work per step stays
 // small.
@@ -60,10 +71,9 @@
 
 namespace {
 
-using lstm_gates::kPad;
-
-template <int ROWS, bool TRAJ>
-__global__ void lstm_seq_fwd_kernel(const float* __restrict__ w,
+template <int ROWS, bool TRAJ, typename WT>
+__global__ void lstm_seq_fwd_kernel(const WT* __restrict__ w,
+                                    const float* __restrict__ scales,
                                     const float* __restrict__ b,
                                     const float* __restrict__ x,
                                     float* __restrict__ c_out,
@@ -73,16 +83,18 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ w,
                                     int L, int P, int H, int tc, int parts,
                                     long long x_stride_b,
                                     long long x_stride_t) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kQ8 = sizeof(WT) == 1;
   const int G = 4 * H;
-  const int S = G + kPad;  // row stride of W in shared memory
+  const int S = lstm_gates::row_stride<WT>(G);  // W row stride in shared mem
   const int K = P + H;
   const int nc = (T + tc - 1) / tc;
   const int slots = nc > 1 ? 2 : 1;
   const int slot_elems = tc * ROWS * P;
-  float* w_s = smem;                                  // (L, K, S)
-  float* b_s = w_s + (size_t)L * K * S;               // (L, G)
-  float* ring = b_s + (size_t)L * G;                  // (slots, tc, ROWS, P)
+  WT* w_s = reinterpret_cast<WT*>(smem);              // (L, K, S)
+  float* b_s = reinterpret_cast<float*>(w_s + (size_t)L * K * S);  // (L, G)
+  float* s_s = b_s + (size_t)L * G;                   // (L, G), int8 only
+  float* ring = s_s + (kQ8 ? (size_t)L * G : 0);      // (slots, tc, ROWS, P)
   float* c_s = ring + (size_t)slots * slot_elems;     // (L, ROWS, H)
   float* h_s = c_s + (size_t)L * ROWS * H;            // (L, ROWS, H)
   float* g_s = h_s + (size_t)L * ROWS * H;            // (ROWS, G)
@@ -98,26 +110,12 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ w,
   const int j = active ? tid / parts : 0;
   const bool is_tanh = j / H == 2;  // gate order i, f, g, o
 
-  // Weights into padded rows (16-byte copies when aligned), bias, state.
-  const bool vec = (reinterpret_cast<uintptr_t>(w) % 16 == 0) && (G % 4 == 0);
-  const int n_rows = L * K;
-  if (vec) {
-    const int per_row = G / 4;
-    for (int i = tid; i < n_rows * per_row; i += nt) {
-      const int row = i / per_row;
-      const int col = (i - row * per_row) * 4;
-      __pipeline_memcpy_async(w_s + (size_t)row * S + col,
-                              w + (size_t)row * G + col, 16);
-    }
-  } else {
-    for (int i = tid; i < n_rows * G; i += nt) {
-      const int row = i / G;
-      const int col = i - row * G;
-      __pipeline_memcpy_async(w_s + (size_t)row * S + col,
-                              w + (size_t)row * G + col, 4);
-    }
+  // Weights into padded rows, bias (and scales), state.
+  lstm_gates::load_stack(w_s, w, L * K, G, S, tid, nt);
+  for (int i = tid; i < L * G; i += nt) {
+    __pipeline_memcpy_async(b_s + i, b + i, 4);
+    if (kQ8) __pipeline_memcpy_async(s_s + i, scales + i, 4);
   }
-  for (int i = tid; i < L * G; i += nt) __pipeline_memcpy_async(b_s + i, b + i, 4);
   for (int i = tid; i < L * ROWS * H; i += nt) {
     c_s[i] = 0.0f;
     h_s[i] = 0.0f;
@@ -161,12 +159,13 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ w,
       const float* inp = xs + (size_t)s * ROWS * P;
       int in_w = P;  // layer 0 reads all P input columns, later layers H
       for (int l = 0; l < L; ++l) {
-        const float* wl = w_s + (size_t)l * K * S + j;
+        const WT* wl = w_s + (size_t)l * K * S + j;
         float* cl = c_s + (size_t)l * ROWS * H;
         float* hl = h_s + (size_t)l * ROWS * H;
         lstm_gates::gate_pass<ROWS>(inp, in_w, hl, H, wl, wl + (size_t)P * S,
-                                    S, b_s + (size_t)l * G, j, p, parts,
-                                    active, is_tanh, g_s);
+                                    S, b_s + (size_t)l * G,
+                                    s_s + (size_t)l * G, j, p, parts, active,
+                                    is_tanh, g_s);
         __syncthreads();
         for (int e = tid; e < ROWS * H; e += nt) {
           const int r = e / H;
@@ -203,41 +202,67 @@ __global__ void lstm_seq_fwd_kernel(const float* __restrict__ w,
   }
 }
 
-template <int ROWS, bool TRAJ>
-int launch(const float* w, const float* b, const float* x, float* c_out,
-           float* h_out, float* c_traj, float* h_traj, int B, int T, int L,
-           int P, int H, long long x_stride_b, long long x_stride_t,
-           int time_chunk, int parts, int threads, long long smem_bytes,
-           cudaStream_t stream) {
+template <int ROWS, bool TRAJ, typename WT>
+int launch(const WT* w, const float* scales, const float* b, const float* x,
+           float* c_out, float* h_out, float* c_traj, float* h_traj, int B,
+           int T, int L, int P, int H, long long x_stride_b,
+           long long x_stride_t, int time_chunk, int parts, int threads,
+           long long smem_bytes, cudaStream_t stream) {
   static long long configured = 48 * 1024;
   if (smem_bytes > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_seq_fwd_kernel<ROWS, TRAJ>,
+        lstm_seq_fwd_kernel<ROWS, TRAJ, WT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
     configured = smem_bytes;
   }
   const int grid = (B + ROWS - 1) / ROWS;
-  lstm_seq_fwd_kernel<ROWS, TRAJ>
+  lstm_seq_fwd_kernel<ROWS, TRAJ, WT>
       <<<grid, threads, (size_t)smem_bytes, stream>>>(
-          w, b, x, c_out, h_out, c_traj, h_traj, B, T, L, P, H, time_chunk,
-          parts, x_stride_b, x_stride_t);
+          w, scales, b, x, c_out, h_out, c_traj, h_traj, B, T, L, P, H,
+          time_chunk, parts, x_stride_b, x_stride_t);
   return (int)cudaGetLastError();
 }
 
-template <int ROWS>
-int launch_rows(const float* w, const float* b, const float* x, float* c_out,
-                float* h_out, float* c_traj, float* h_traj, int B, int T,
-                int L, int P, int H, long long x_stride_b,
-                long long x_stride_t, int time_chunk, int parts, int threads,
-                long long smem_bytes, cudaStream_t stream) {
+template <int ROWS, typename WT>
+int launch_rows(const WT* w, const float* scales, const float* b,
+                const float* x, float* c_out, float* h_out, float* c_traj,
+                float* h_traj, int B, int T, int L, int P, int H,
+                long long x_stride_b, long long x_stride_t, int time_chunk,
+                int parts, int threads, long long smem_bytes,
+                cudaStream_t stream) {
   if (c_traj != nullptr)
-    return launch<ROWS, true>(w, b, x, c_out, h_out, c_traj, h_traj, B, T, L,
-                              P, H, x_stride_b, x_stride_t, time_chunk, parts,
-                              threads, smem_bytes, stream);
-  return launch<ROWS, false>(w, b, x, c_out, h_out, nullptr, nullptr, B, T, L,
-                             P, H, x_stride_b, x_stride_t, time_chunk, parts,
-                             threads, smem_bytes, stream);
+    return launch<ROWS, true>(w, scales, b, x, c_out, h_out, c_traj, h_traj,
+                              B, T, L, P, H, x_stride_b, x_stride_t,
+                              time_chunk, parts, threads, smem_bytes, stream);
+  return launch<ROWS, false>(w, scales, b, x, c_out, h_out, nullptr, nullptr,
+                             B, T, L, P, H, x_stride_b, x_stride_t,
+                             time_chunk, parts, threads, smem_bytes, stream);
+}
+
+// One instance per tile size; another block_b is cudaErrorInvalidValue.
+template <typename WT>
+int launch_tile(const WT* w, const float* scales, const float* b,
+                const float* x, float* c_out, float* h_out, float* c_traj,
+                float* h_traj, int B, int T, int L, int P, int H,
+                long long x_stride_b, long long x_stride_t, int block_b,
+                int time_chunk, int parts, int threads, long long smem_bytes,
+                void* stream) {
+#define LSTM_SEQ_LAUNCH(R)                                                  \
+  case R:                                                                   \
+    return launch_rows<R>(w, scales, b, x, c_out, h_out, c_traj, h_traj, B, \
+                          T, L, P, H, x_stride_b, x_stride_t, time_chunk,   \
+                          parts, threads, smem_bytes, (cudaStream_t)stream);
+  switch (block_b) {
+    LSTM_SEQ_LAUNCH(1)
+    LSTM_SEQ_LAUNCH(2)
+    LSTM_SEQ_LAUNCH(4)
+    LSTM_SEQ_LAUNCH(8)
+    LSTM_SEQ_LAUNCH(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LSTM_SEQ_LAUNCH
 }
 
 }  // namespace
@@ -260,21 +285,23 @@ int lstm_seq_fwd_f32(const float* w, const float* b, const float* x,
                      long long x_stride_b, long long x_stride_t, int block_b,
                      int time_chunk, int parts, int threads,
                      long long smem_bytes, void* stream) {
-#define LSTM_SEQ_LAUNCH(R)                                                  \
-  case R:                                                                   \
-    return launch_rows<R>(w, b, x, c_out, h_out, c_traj, h_traj, B, T, L,   \
-                          P, H, x_stride_b, x_stride_t, time_chunk, parts,  \
-                          threads, smem_bytes, (cudaStream_t)stream);
-  switch (block_b) {
-    LSTM_SEQ_LAUNCH(1)
-    LSTM_SEQ_LAUNCH(2)
-    LSTM_SEQ_LAUNCH(4)
-    LSTM_SEQ_LAUNCH(8)
-    LSTM_SEQ_LAUNCH(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LSTM_SEQ_LAUNCH
+  return launch_tile<float>(w, nullptr, b, x, c_out, h_out, c_traj, h_traj,
+                            B, T, L, P, H, x_stride_b, x_stride_t, block_b,
+                            time_chunk, parts, threads, smem_bytes, stream);
+}
+
+// The int8 plan: wq (L, P+H, 4H) int8 codes and scales (L, 4H) f32, the
+// stack's weight being wq * scales[l, j]; everything else as
+// lstm_seq_fwd_f32 (smem_bytes is working_set_bytes(quantized=True)).
+int lstm_seq_fwd_q8(const int8_t* wq, const float* scales, const float* b,
+                    const float* x, float* c_out, float* h_out,
+                    float* c_traj, float* h_traj, int B, int T, int L, int P,
+                    int H, long long x_stride_b, long long x_stride_t,
+                    int block_b, int time_chunk, int parts, int threads,
+                    long long smem_bytes, void* stream) {
+  return launch_tile<int8_t>(wq, scales, b, x, c_out, h_out, c_traj, h_traj,
+                             B, T, L, P, H, x_stride_b, x_stride_t, block_b,
+                             time_chunk, parts, threads, smem_bytes, stream);
 }
 
 const char* lstm_seq_error_string(int err) {

@@ -1,11 +1,13 @@
-// Sequence-resident stacked-LSTM backward (the whole BPTT sweep), f32, for
-// Hopper (sm_90a).
+// Sequence-resident stacked-LSTM backward (the whole BPTT sweep), f32 or
+// int8 weights, for Hopper (sm_90a).
 //
-// Replaces two Pallas kernels of the JAX package's kernels/lstm_seq_bwd.py:
+// Replaces four Pallas kernels of the JAX package's kernels/lstm_seq_bwd.py:
 // _seq_bwd_kernel (launched by _lstm_seq_bwd_call, x and both trajectories
 // resident) and _seq_bwd_chunked_kernel (launched by
 // _lstm_seq_bwd_chunked_call, x and the trajectories streamed in reverse
-// chunk order).  Here they are one kernel: x and the trajectories always
+// chunk order), and their int8-weight bodies _seq_bwd_q8_kernel and
+// _seq_bwd_chunked_q8_kernel (the fused_seq_q8 plan's training backward).
+// Here they are one kernel: x and the trajectories always
 // stream through a shared-memory ring of time_chunk steps, read from the
 // last chunk to the first; a chunk of T is the whole-T layout with a single
 // slot.  The unwind arithmetic does not depend on the chunking, so every
@@ -15,6 +17,18 @@
 // the forward's post-step f32 trajectories c_traj, h_traj (T, L, B, H) and
 // the final-state cotangents dc, dh (L, B, H).  Outputs: dw (L, P+H, 4H),
 // db (L, 4H) and dx (B, T, P), all f32.
+//
+// Int8 weights (WT = int8_t): w is the int8 stack the q8 forward ran with
+// and scales (L, 4H) its f32 per-column scales, held beside the bias; the
+// weight the forward used is wq * s.  The recompute (a) is the q8 forward's
+// gate pass, scale fold included, so it stays bit-identical to it.  dW and
+// db (c) take the UNSCALED dg: that is the straight-through gradient with
+// respect to the dequantized weights, accumulated and written in f32 for
+// the f32 master stack.  Only the outgoing products take the scale:
+// dh_prev = (dg * s) W[P:]^T and dinp = (dg * s) W[:P]^T, as the JAX
+// package's _unwind_step does, through a second (ROWS, 4H) buffer that (b)
+// fills with dg * s beside dg -- scaling dg in place would scale dW and db
+// too.
 //
 // What bounds it on the H100: like the forward, the chain of T x L dependent
 // layer-steps, now three passes long each (gate recompute, gate gradients,
@@ -59,7 +73,6 @@
 
 namespace {
 
-using lstm_gates::kPad;
 
 // Bounded for MAX_T threads, so every block the wrapper sizes can launch:
 // uncapped, the largest instance took 128 registers a thread, too many for
@@ -67,9 +80,10 @@ using lstm_gates::kPad;
 // registers.  Each tile size is built twice: MAX_T = 512 (up to 128
 // registers, no spills) serves H <= 32, the paper's width included, and
 // MAX_T = 1024 (64 registers) the wider blocks.
-template <int ROWS, int MAX_T>
+template <int ROWS, int MAX_T, typename WT>
 __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
-    const float* __restrict__ w, const float* __restrict__ b,
+    const WT* __restrict__ w, const float* __restrict__ scales,
+    const float* __restrict__ b,
     const float* __restrict__ x, const float* __restrict__ c_traj,
     const float* __restrict__ h_traj, const float* __restrict__ dcf,
     const float* __restrict__ dhf, float* __restrict__ dw,
@@ -77,9 +91,11 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
     float* __restrict__ partials, int* __restrict__ ticket, int B, int T,
     int L, int P, int H, int tc, int parts, int dparts, long long x_stride_b,
     long long x_stride_t) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kQ8 = sizeof(WT) == 1;
   const int G = 4 * H;
-  const int S = G + kPad;  // row stride of W and dW in shared memory
+  const int S = lstm_gates::row_stride<WT>(G);     // W row stride
+  const int SF = lstm_gates::row_stride<float>(G);  // dW row stride (f32)
   const int K = P + H;
   const int nc = (T + tc - 1) / tc;
   const int slots = nc > 1 ? 2 : 1;
@@ -89,18 +105,22 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
   const int t_slot = (tc + 1) * t_row;       // one trajectory window
   // The forward's terms first (lstm_seq.working_set_bytes), then the
   // backward's own; the sum is the launch's dynamic shared memory.
-  float* w_s = smem;                                // (L, K, S)
-  float* b_s = w_s + (size_t)L * K * S;             // (L, G)
-  float* xr = b_s + (size_t)L * G;                  // (slots, tc, ROWS, P)
+  WT* w_s = reinterpret_cast<WT*>(smem);            // (L, K, S)
+  float* b_s = reinterpret_cast<float*>(w_s + (size_t)L * K * S);  // (L, G)
+  float* s_s = b_s + (size_t)L * G;                 // (L, G), int8 only
+  float* xr = s_s + (kQ8 ? (size_t)L * G : 0);      // (slots, tc, ROWS, P)
   float* dc_s = xr + (size_t)slots * x_slot;        // (L, ROWS, H)
   float* dh_s = dc_s + (size_t)L * layer_state;     // (L, ROWS, H)
   float* g_s = dh_s + (size_t)L * layer_state;      // (ROWS, G)
-  float* dw_s = g_s + (size_t)ROWS * G;             // (L, K, S)
-  float* db_s = dw_s + (size_t)L * K * S;           // (L, G)
+  float* dw_s = g_s + (size_t)ROWS * G;             // (L, K, SF)
+  float* db_s = dw_s + (size_t)L * K * SF;          // (L, G)
   float* cr = db_s + (size_t)L * G;             // (slots, tc+1, L, ROWS, H)
   float* hr = cr + (size_t)slots * t_slot;      // (slots, tc+1, L, ROWS, H)
   float* dg_s = hr + (size_t)slots * t_slot;        // (ROWS, G)
   float* di_s = dg_s + (size_t)ROWS * G;            // (ROWS, H)
+  float* dgs_s = di_s + (size_t)ROWS * H;           // (ROWS, G), int8 only
+  // the gate gradients the outgoing products read: dg * s for int8
+  const float* dprod = kQ8 ? dgs_s : dg_s;
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -116,28 +136,13 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
   const int dp = tid % dparts;
   const int q_lanes = nt / dparts;  // rows of W per sweep of the block
 
-  // Weights into padded rows (16-byte copies when aligned), bias.
-  const bool vec = (reinterpret_cast<uintptr_t>(w) % 16 == 0) && (G % 4 == 0);
-  const int n_rows = L * K;
-  if (vec) {
-    const int per_row = G / 4;
-    for (int i = tid; i < n_rows * per_row; i += nt) {
-      const int row = i / per_row;
-      const int col = (i - row * per_row) * 4;
-      __pipeline_memcpy_async(w_s + (size_t)row * S + col,
-                              w + (size_t)row * G + col, 16);
-    }
-  } else {
-    for (int i = tid; i < n_rows * G; i += nt) {
-      const int row = i / G;
-      const int col = i - row * G;
-      __pipeline_memcpy_async(w_s + (size_t)row * S + col,
-                              w + (size_t)row * G + col, 4);
-    }
-  }
-  for (int i = tid; i < L * G; i += nt)
+  // Weights into padded rows, bias (and scales).
+  lstm_gates::load_stack(w_s, w, L * K, G, S, tid, nt);
+  for (int i = tid; i < L * G; i += nt) {
     __pipeline_memcpy_async(b_s + i, b + i, 4);
-  for (int i = tid; i < L * K * S; i += nt) dw_s[i] = 0.0f;
+    if (kQ8) __pipeline_memcpy_async(s_s + i, scales + i, 4);
+  }
+  for (int i = tid; i < L * K * SF; i += nt) dw_s[i] = 0.0f;
   for (int i = tid; i < L * G; i += nt) db_s[i] = 0.0f;
   // The carries start at the final-state cotangents (zero past B).
   for (int e = tid; e < L * layer_state; e += nt) {
@@ -219,13 +224,14 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
                                   : h_now + (size_t)(l - 1) * layer_state;
         const int in_w = l == 0 ? P : H;
         const float* hp = h_pre + (size_t)l * layer_state;
-        const float* wl = w_s + (size_t)l * K * S;
+        const WT* wl = w_s + (size_t)l * K * S;
+        const float* sl = s_s + (size_t)l * G;
 
         // (a) the forward's gates, recomputed bit for bit.
         lstm_gates::gate_pass<ROWS>(inp, in_w, hp, H, wl + j,
                                     wl + (size_t)P * S + j, S,
-                                    b_s + (size_t)l * G, j, p, parts, active,
-                                    is_tanh, g_s);
+                                    b_s + (size_t)l * G, sl, j, p, parts,
+                                    active, is_tanh, g_s);
         __syncthreads();
 
         // (b) gate gradients and the dc carry (_unwind_step's dgates).
@@ -247,26 +253,32 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
           dgr[H] = ok ? dcv * cp[e] * sf * (1.0f - sf) : 0.0f;
           dgr[2 * H] = ok ? dcv * si * (1.0f - tg * tg) : 0.0f;
           dgr[3 * H] = ok ? dhv * tcn * so * (1.0f - so) : 0.0f;
+          if (kQ8) {
+            float* dsr = dgs_s + r * G + kk;
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              dsr[g * H] = dgr[g * H] * sl[g * H + kk];
+          }
           dcl[e] = dcv * sf;
         }
         __syncthreads();
 
         // (c) dW and db, then the dh carry and the input gradient.
         if (active) {
-          float* dwl = dw_s + (size_t)l * K * S + j;
+          float* dwl = dw_s + (size_t)l * K * SF + j;
           for (int q = p; q < in_w; q += parts) {
             float sum = 0.0f;
 #pragma unroll
             for (int r = 0; r < ROWS; ++r)
               sum = fmaf(inp[r * in_w + q], dg_s[r * G + j], sum);
-            dwl[(size_t)q * S] += sum;
+            dwl[(size_t)q * SF] += sum;
           }
           for (int q = p; q < H; q += parts) {
             float sum = 0.0f;
 #pragma unroll
             for (int r = 0; r < ROWS; ++r)
               sum = fmaf(hp[r * H + q], dg_s[r * G + j], sum);
-            dwl[(size_t)(P + q) * S] += sum;
+            dwl[(size_t)(P + q) * SF] += sum;
           }
           if (p == 0) {
             float sum = 0.0f;
@@ -278,15 +290,15 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
         for (int base = 0; base < K; base += q_lanes) {
           const int q = base + tid / dparts;
           const bool q_ok = q < K;
-          const float* wq = wl + (size_t)(q_ok ? q : 0) * S;
+          const WT* wq = wl + (size_t)(q_ok ? q : 0) * S;
           float acc[ROWS];
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
           for (int jj = dp; jj < G; jj += dparts) {
-            const float wv = wq[jj];
+            const float wv = static_cast<float>(wq[jj]);
 #pragma unroll
             for (int r = 0; r < ROWS; ++r)
-              acc[r] = fmaf(dg_s[r * G + jj], wv, acc[r]);
+              acc[r] = fmaf(dprod[r * G + jj], wv, acc[r]);
           }
           for (int off = 1; off < dparts; off <<= 1) {
 #pragma unroll
@@ -318,13 +330,13 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
   const int n_out = nw + L * G;
   if (gridDim.x == 1) {
     for (int i = tid; i < nw; i += nt)
-      dw[i] = dw_s[(size_t)(i / G) * S + i % G];
+      dw[i] = dw_s[(size_t)(i / G) * SF + i % G];
     for (int i = tid; i < L * G; i += nt) db[i] = db_s[i];
     return;
   }
   float* part = partials + (size_t)blockIdx.x * n_out;
   for (int i = tid; i < nw; i += nt)
-    part[i] = dw_s[(size_t)(i / G) * S + i % G];
+    part[i] = dw_s[(size_t)(i / G) * SF + i % G];
   for (int i = tid; i < L * G; i += nt) part[nw + i] = db_s[i];
   __threadfence();
   __syncthreads();
@@ -345,8 +357,8 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
   if (tid == 0) *ticket = 0;  // every block has drawn: ready for the next
 }
 
-template <int ROWS, int MAX_T>
-int launch(const float* w, const float* b, const float* x,
+template <int ROWS, int MAX_T, typename WT>
+int launch(const WT* w, const float* scales, const float* b, const float* x,
            const float* c_traj, const float* h_traj, const float* dc,
            const float* dh, float* dw, float* db, float* dx, float* partials,
            int* ticket, int B, int T, int L, int P, int H,
@@ -356,16 +368,54 @@ int launch(const float* w, const float* b, const float* x,
   static long long configured = 48 * 1024;
   if (smem_bytes > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_seq_bwd_kernel<ROWS, MAX_T>,
+        lstm_seq_bwd_kernel<ROWS, MAX_T, WT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
     configured = smem_bytes;
   }
   const int grid = (B + ROWS - 1) / ROWS;
-  lstm_seq_bwd_kernel<ROWS, MAX_T><<<grid, threads, (size_t)smem_bytes, stream>>>(
-      w, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials, ticket, B, T, L,
-      P, H, time_chunk, parts, dparts, x_stride_b, x_stride_t);
+  lstm_seq_bwd_kernel<ROWS, MAX_T, WT>
+      <<<grid, threads, (size_t)smem_bytes, stream>>>(
+          w, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials,
+          ticket, B, T, L, P, H, time_chunk, parts, dparts, x_stride_b,
+          x_stride_t);
   return (int)cudaGetLastError();
+}
+
+// One instance per (tile size, thread bound); another block_b or more than
+// 1024 threads is cudaErrorInvalidValue.
+template <typename WT>
+int launch_tile(const WT* w, const float* scales, const float* b,
+                const float* x, const float* c_traj, const float* h_traj,
+                const float* dc, const float* dh, float* dw, float* db,
+                float* dx, float* partials, int* ticket, int B, int T, int L,
+                int P, int H, long long x_stride_b, long long x_stride_t,
+                int block_b, int time_chunk, int parts, int dparts,
+                int threads, long long smem_bytes, void* stream) {
+  if (threads > 1024) return (int)cudaErrorInvalidValue;
+#define LSTM_SEQ_BWD_LAUNCH(R)                                               \
+  case R:                                                                    \
+    return threads <= 512                                                    \
+               ? launch<R, 512>(w, scales, b, x, c_traj, h_traj, dc, dh, dw, \
+                                db, dx, partials, ticket, B, T, L, P, H,     \
+                                x_stride_b, x_stride_t, time_chunk, parts,   \
+                                dparts, threads, smem_bytes,                 \
+                                (cudaStream_t)stream)                        \
+               : launch<R, 1024>(w, scales, b, x, c_traj, h_traj, dc, dh,   \
+                                 dw, db, dx, partials, ticket, B, T, L, P,   \
+                                 H, x_stride_b, x_stride_t, time_chunk,      \
+                                 parts, dparts, threads, smem_bytes,         \
+                                 (cudaStream_t)stream);
+  switch (block_b) {
+    LSTM_SEQ_BWD_LAUNCH(1)
+    LSTM_SEQ_BWD_LAUNCH(2)
+    LSTM_SEQ_BWD_LAUNCH(4)
+    LSTM_SEQ_BWD_LAUNCH(8)
+    LSTM_SEQ_BWD_LAUNCH(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef LSTM_SEQ_BWD_LAUNCH
 }
 
 }  // namespace
@@ -392,28 +442,28 @@ int lstm_seq_bwd_f32(const float* w, const float* b, const float* x,
                      long long x_stride_t, int block_b, int time_chunk,
                      int parts, int dparts, int threads, long long smem_bytes,
                      void* stream) {
-  if (threads > 1024) return (int)cudaErrorInvalidValue;
-#define LSTM_SEQ_BWD_LAUNCH(R)                                                \
-  case R:                                                                     \
-    return threads <= 512                                                     \
-               ? launch<R, 512>(w, b, x, c_traj, h_traj, dc, dh, dw, db, dx,  \
-                                partials, ticket, B, T, L, P, H, x_stride_b,  \
-                                x_stride_t, time_chunk, parts, dparts,        \
-                                threads, smem_bytes, (cudaStream_t)stream)    \
-               : launch<R, 1024>(w, b, x, c_traj, h_traj, dc, dh, dw, db, dx, \
-                                 partials, ticket, B, T, L, P, H, x_stride_b, \
-                                 x_stride_t, time_chunk, parts, dparts,       \
-                                 threads, smem_bytes, (cudaStream_t)stream);
-  switch (block_b) {
-    LSTM_SEQ_BWD_LAUNCH(1)
-    LSTM_SEQ_BWD_LAUNCH(2)
-    LSTM_SEQ_BWD_LAUNCH(4)
-    LSTM_SEQ_BWD_LAUNCH(8)
-    LSTM_SEQ_BWD_LAUNCH(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef LSTM_SEQ_BWD_LAUNCH
+  return launch_tile<float>(w, nullptr, b, x, c_traj, h_traj, dc, dh, dw, db,
+                            dx, partials, ticket, B, T, L, P, H, x_stride_b,
+                            x_stride_t, block_b, time_chunk, parts, dparts,
+                            threads, smem_bytes, stream);
+}
+
+// The int8 plan: wq (L, P+H, 4H) int8 codes the q8 forward ran with and
+// their (L, 4H) f32 scales; dw and db are the f32 straight-through
+// gradients of the dequantized stack.  Everything else as lstm_seq_bwd_f32
+// (smem_bytes is working_set_bytes(mode="bwd", quantized=True)).
+int lstm_seq_bwd_q8(const int8_t* wq, const float* scales, const float* b,
+                    const float* x, const float* c_traj, const float* h_traj,
+                    const float* dc, const float* dh, float* dw, float* db,
+                    float* dx, float* partials, int* ticket, int B, int T,
+                    int L, int P, int H, long long x_stride_b,
+                    long long x_stride_t, int block_b, int time_chunk,
+                    int parts, int dparts, int threads, long long smem_bytes,
+                    void* stream) {
+  return launch_tile<int8_t>(wq, scales, b, x, c_traj, h_traj, dc, dh, dw,
+                             db, dx, partials, ticket, B, T, L, P, H,
+                             x_stride_b, x_stride_t, block_b, time_chunk,
+                             parts, dparts, threads, smem_bytes, stream);
 }
 
 const char* lstm_seq_bwd_error_string(int err) {

@@ -1,10 +1,12 @@
-"""Sequence-resident stacked-LSTM backward (K3, K4b): wrapper, launch
-counter and plain version.
+"""Sequence-resident stacked-LSTM backward (K3, K4b, and their int8 twin
+K3-q8): wrappers, launch counters and plain version.
 
-Replaces two Pallas kernels of the JAX package's
+Replaces four Pallas kernels of the JAX package's
 ``kernels/lstm_seq_bwd.py``: ``_seq_bwd_kernel`` (launched by
-``_lstm_seq_bwd_call``) and ``_seq_bwd_chunked_kernel`` (launched by
-``_lstm_seq_bwd_chunked_call``), with ONE CUDA C++ kernel in
+``_lstm_seq_bwd_call``), ``_seq_bwd_chunked_kernel`` (launched by
+``_lstm_seq_bwd_chunked_call``) and their int8-weight bodies
+``_seq_bwd_q8_kernel`` and ``_seq_bwd_chunked_q8_kernel``, with ONE CUDA
+C++ kernel in
 ``csrc/lstm_seq_bwd.cu``: a persistent thread block per batch tile unwinds
 the whole T x L recurrence in reverse time in one launch, recomputing the
 gates from the forward's f32 trajectories with the forward's own gate pass
@@ -13,12 +15,16 @@ in shared memory, x and the trajectories streamed in reverse chunk order.
 The sum of dW/db across batch tiles is taken by the last block to finish,
 over per-tile partials in tile order, so one launch gives the same bits run
 to run.  What bounds it on the H100 and what the design does about it is
-written at the top of the CUDA source.
+written at the top of the CUDA source.  Its int8 instance
+(``lstm_seq_bwd_q8``, or ``lstm_seq_bwd(..., scales=)``) recomputes the
+gates with the q8 forward's scale fold and returns f32 straight-through
+dw and db for the master stack.
 
 ``lstm_seq_bwd_plain`` is the plain PyTorch version: it unwinds step by
 step exactly as the JAX package's ``_unwind_step`` does, over the whole
-batch at once, with no autograd.  A tensor on the CPU takes it; a tensor on
-the card launches the kernel or raises.  ``lstm_seq_bwd.launches`` counts
+batch at once, with no autograd (``scales=`` folds as the q8 kernel does).
+A tensor on the CPU takes it; a tensor on the card launches the kernel or
+raises.  ``lstm_seq_bwd.launches`` and ``lstm_seq_bwd_q8.launches`` count
 kernel launches: one per training step at any T.
 """
 from __future__ import annotations
@@ -38,7 +44,8 @@ F32 = torch.float32
 
 def lstm_seq_bwd_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                        c_traj: torch.Tensor, h_traj: torch.Tensor,
-                       dc: torch.Tensor, dh: torch.Tensor
+                       dc: torch.Tensor, dh: torch.Tensor,
+                       scales: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-sequence BPTT, step by step: (dw, db, dx).
 
@@ -48,7 +55,12 @@ def lstm_seq_bwd_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     top-down: recompute the gates from the trajectories, form the gate
     gradients, accumulate dW and db in f32, and pass dh_prev = dg W[P:]^T,
     dc_prev = dc * f and dinp = dg W[:P]^T on — the JAX package's
-    ``_unwind_step``.  Results in the parameter and input dtypes."""
+    ``_unwind_step``.  Results in the parameter and input dtypes.
+
+    ``scales`` (L, 4H) f32: ``w`` is the int8 stack of the q8 forward.  The
+    recompute folds the scales as the forward did, dW and db take the
+    unscaled gate gradients (f32 straight-through gradients, returned in
+    f32), and only the outgoing products take ``dg * s``."""
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T, _ = x.shape
@@ -69,7 +81,10 @@ def lstm_seq_bwd_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
             wl = w32[l]
             inp = x_t if l == 0 else F.pad(h_t[l - 1], (0, P - H))
             c_prev, h_prev = c_prev_all[l], h_prev_all[l]
-            gates = inp @ wl[:P] + h_prev @ wl[P:] + b32[l]
+            gates = inp @ wl[:P] + h_prev @ wl[P:]
+            if scales is not None:
+                gates = gates * scales[l].to(F32)
+            gates = gates + b32[l]
             i, f, g, o = gates.chunk(4, dim=-1)
             si, sf, so = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
             tg = torch.tanh(g)
@@ -84,11 +99,13 @@ def lstm_seq_bwd_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
             ], dim=-1)
             dw[l] += torch.cat([inp.T @ dgates, h_prev.T @ dgates], dim=0)
             db[l] += dgates.sum(dim=0)
-            dh_carry[l] = dgates @ wl[P:].T
+            dg_w = dgates if scales is None else dgates * scales[l].to(F32)
+            dh_carry[l] = dg_w @ wl[P:].T
             dc_carry[l] = dc_l * sf
-            dinp = dgates @ wl[:P].T
+            dinp = dg_w @ wl[:P].T
         dx[:, t] = dinp
-    return dw.to(w.dtype), db.to(b.dtype), dx.to(x.dtype)
+    return (dw.to(w.dtype if scales is None else F32), db.to(b.dtype),
+            dx.to(x.dtype))
 
 
 def dot_parts(rows: int, threads: int) -> int:
@@ -102,35 +119,44 @@ def dot_parts(rows: int, threads: int) -> int:
     return parts
 
 
-def _entry():
+def _entry(q8: bool = False):
     lib = _build.load(_NAME)
-    fn = lib.lstm_seq_bwd_f32
+    fn = lib.lstm_seq_bwd_q8 if q8 else lib.lstm_seq_bwd_f32
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * (13 if q8 else 12)
+                       + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
 
 
-def _validate(w, b, x, c_traj, h_traj, dc, dh) -> None:
+def _validate(w, b, x, c_traj, h_traj, dc, dh, scales=None) -> None:
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T = x.shape[0], x.shape[1]
     if w.dim() != 3 or b.shape != (L, 4 * H) or x.dim() != 3 \
             or x.shape[-1] != P or c_traj.shape != (T, L, B, H) \
             or h_traj.shape != (T, L, B, H) or dc.shape != (L, B, H) \
-            or dh.shape != (L, B, H):
+            or dh.shape != (L, B, H) \
+            or (scales is not None and scales.shape != (L, 4 * H)):
         raise ValueError(
             f"lstm_seq_bwd shapes: w {tuple(w.shape)}, b {tuple(b.shape)}, "
             f"x {tuple(x.shape)}, c_traj {tuple(c_traj.shape)}, h_traj "
             f"{tuple(h_traj.shape)}, dc {tuple(dc.shape)}, dh "
-            f"{tuple(dh.shape)}")
-    for name, t in (("w", w), ("b", b), ("x", x), ("c_traj", c_traj),
-                    ("h_traj", h_traj), ("dc", dc), ("dh", dh)):
+            f"{tuple(dh.shape)}, scales "
+            f"{None if scales is None else tuple(scales.shape)}")
+    if scales is not None and w.dtype != torch.int8:
+        raise TypeError(f"the q8 backward takes an int8 stack; w is "
+                        f"{w.dtype}")
+    floats = [("b", b), ("x", x), ("c_traj", c_traj), ("h_traj", h_traj),
+              ("dc", dc), ("dh", dh)] + (
+                  [("w", w)] if scales is None else [("scales", scales)])
+    for name, t in floats:
         if t.dtype != torch.float32:
             raise TypeError(f"lstm_seq_bwd takes float32 tensors; {name} is "
                             f"{t.dtype}")
+    for name, t in floats + [("w", w)]:
         if t.device != x.device:
             raise ValueError(f"lstm_seq_bwd: {name} is on {t.device}, x on "
                              f"{x.device}")
@@ -153,36 +179,30 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
     return ticket
 
 
-def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-                 c_traj: torch.Tensor, h_traj: torch.Tensor,
-                 dc: torch.Tensor, dh: torch.Tensor, *, block_b: int,
-                 time_chunk: int | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Whole-sequence BPTT in ONE kernel launch: (dw, db, dx).
-
-    Operands as ``lstm_seq_bwd_plain``, all float32.  ``block_b`` /
-    ``time_chunk`` come from ``lstm_seq.choose_batch_block(mode="bwd")``:
-    ``time_chunk=None`` holds x and both trajectories whole in shared
-    memory, ``tc`` streams them in reverse chunks; the gradients are
-    bit-identical for every ``time_chunk`` and from run to run."""
-    _validate(w, b, x, c_traj, h_traj, dc, dh)
+def _run(w, b, x, c_traj, h_traj, dc, dh, block_b: int,
+         time_chunk: int | None, scales: torch.Tensor | None):
+    """The backward at a resolved tiling: its plain version on the CPU, one
+    launch of the f32 or (with ``scales``) int8 instance on the card."""
+    _validate(w, b, x, c_traj, h_traj, dc, dh, scales)
     if block_b not in seq_lib.TILE_ROWS:
         raise ValueError(f"lstm_seq_bwd: block_b must be one of "
                          f"{seq_lib.TILE_ROWS}, not {block_b}")
     if x.device.type == "cpu":
-        return lstm_seq_bwd_plain(w, b, x, c_traj, h_traj, dc, dh)
+        return lstm_seq_bwd_plain(w, b, x, c_traj, h_traj, dc, dh, scales)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (w, b, x, c_traj, h_traj, dc, dh)):
         raise RuntimeError("the lstm_seq_bwd kernel has no double backward; "
                            "call it outside autograd")
     if x.stride(-1) != 1:
         raise ValueError("lstm_seq_bwd: x needs a contiguous last dim")
+    q8 = scales is not None
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T, _ = x.shape
     tc = T if time_chunk is None else max(1, min(time_chunk, T))
     smem = seq_lib.working_set_bytes(T, L, P, H, block_b, mode="bwd",
-                                     time_chunk=None if tc == T else tc)
+                                     time_chunk=None if tc == T else tc,
+                                     quantized=q8)
     if smem > factorization.H100_SMEM_PER_BLOCK:
         raise ValueError(f"lstm_seq_bwd: tile ({block_b}, {tc}) needs {smem} "
                          "bytes of shared memory, above a thread block's "
@@ -196,8 +216,9 @@ def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     w, b = w.contiguous(), b.contiguous()
     c_traj, h_traj = c_traj.contiguous(), h_traj.contiguous()
     dc, dh = dc.contiguous(), dh.contiguous()
+    scales = None if scales is None else scales.contiguous()
     n_tiles = -(-B // block_b)
-    dw = torch.empty_like(w)
+    dw = x.new_empty(w.shape)            # f32, for the int8 stack too
     db = torch.empty_like(b)
     dx = x.new_empty(B, T, P)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -206,17 +227,59 @@ def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     many = n_tiles > 1
     partials = x.new_empty(n_tiles * (w.numel() + b.numel()) if many else 0)
     ticket = _ticket(x.device, stream) if many else None
-    lib, fn = _entry()
-    err = fn(w.data_ptr(), b.data_ptr(), x.data_ptr(), c_traj.data_ptr(),
+    lib, fn = _entry(q8)
+    w_ptrs = (w.data_ptr(), scales.data_ptr()) if q8 else (w.data_ptr(),)
+    err = fn(*w_ptrs, b.data_ptr(), x.data_ptr(), c_traj.data_ptr(),
              h_traj.data_ptr(), dc.data_ptr(), dh.data_ptr(), dw.data_ptr(),
              db.data_ptr(), dx.data_ptr(), partials.data_ptr(),
              None if ticket is None else ticket.data_ptr(), B, T, L, P, H,
              x.stride(0), x.stride(1), block_b, tc, parts, dparts, threads,
              smem, stream)
     _build.check(lib, _NAME, err)
-    lstm_seq_bwd.launches += 1
     return dw, db, dx
+
+
+def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                 c_traj: torch.Tensor, h_traj: torch.Tensor,
+                 dc: torch.Tensor, dh: torch.Tensor, *, block_b: int,
+                 time_chunk: int | None = None,
+                 scales: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Whole-sequence BPTT in ONE kernel launch: (dw, db, dx).
+
+    Operands as ``lstm_seq_bwd_plain``, all float32.  ``block_b`` /
+    ``time_chunk`` come from ``lstm_seq.choose_batch_block(mode="bwd")``:
+    ``time_chunk=None`` holds x and both trajectories whole in shared
+    memory, ``tc`` streams them in reverse chunks; the gradients are
+    bit-identical for every ``time_chunk`` and from run to run.  With
+    ``scales``, ``w`` is the int8 stack and this is ``lstm_seq_bwd_q8``."""
+    if scales is not None:
+        return lstm_seq_bwd_q8(w, scales, b, x, c_traj, h_traj, dc, dh,
+                               block_b=block_b, time_chunk=time_chunk)
+    out = _run(w, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, None)
+    if x.device.type == "cuda":
+        lstm_seq_bwd.launches += 1
+    return out
+
+
+def lstm_seq_bwd_q8(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
+                    x: torch.Tensor, c_traj: torch.Tensor,
+                    h_traj: torch.Tensor, dc: torch.Tensor, dh: torch.Tensor,
+                    *, block_b: int, time_chunk: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The int8 instance of the backward in ONE launch: (dw, db, dx), all
+    f32.  wq: (L, P+H, 4H) int8 codes the q8 forward ran with, scales:
+    (L, 4H) f32, c_traj/h_traj its f32 trajectories; tiling from
+    ``choose_batch_block(mode="bwd", quantized=True)``.  dw and db are the
+    straight-through gradients of the dequantized stack, for the f32
+    master weights."""
+    out = _run(wq, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, scales)
+    if x.device.type == "cuda":
+        lstm_seq_bwd_q8.launches += 1
+    return out
 
 
 #: kernel launches since the last reset (CPU calls are not counted)
 lstm_seq_bwd.launches = 0
+#: q8 kernel launches since the last reset (CPU calls are not counted)
+lstm_seq_bwd_q8.launches = 0

@@ -1,12 +1,12 @@
 """Public entry points of the LSTM kernels, with automatic blocks.
 
 ``lstm_cell`` tiles its (B, H) output with ``factorization.choose_block``;
-``lstm_seq`` takes its ``(block_b, time_chunk)`` from
-``lstm_seq.choose_batch_block``.  Either block may be pinned by the caller.
+``lstm_seq`` and ``lstm_seq_q8`` take their ``(block_b, time_chunk)`` from
+``lstm_seq.choose_batch_block``.  Any block may be pinned by the caller.
 CPU tensors run the kernels' plain versions; CUDA tensors launch the
-kernels.  Both are differentiable: under autograd ``lstm_seq`` pairs its
-trajectory launch with the backward kernel, and ``lstm_cell`` takes the VJP
-of its plain version.
+kernels.  All are differentiable: under autograd ``lstm_seq`` and
+``lstm_seq_q8`` pair their trajectory launch with the backward kernel, and
+``lstm_cell`` takes the VJP of its plain version.
 """
 from __future__ import annotations
 
@@ -45,3 +45,21 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     return _lstm_seq.lstm_seq(w, b, x, block_b=block_b,
                               time_chunk=time_chunk, bwd_block_b=bwd_block_b,
                               bwd_time_chunk=bwd_time_chunk)
+
+
+def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
+                block_b: int | None = None, time_chunk: int | None = None,
+                bwd_block_b: int | None = None,
+                bwd_time_chunk: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lstm_seq`` over int8 weights: ``w`` is the f32 MASTER stack,
+    quantized per output channel inside (``ref.quantize_q8``) and held by
+    the kernel as int8 codes plus (L, 4H) f32 scales.  ONE launch forward,
+    and under autograd one trajectory launch plus one backward launch with
+    f32 straight-through gradients.  Tiles from
+    ``choose_batch_block(quantized=True)``; the same ValueErrors as
+    ``lstm_seq``."""
+    return _lstm_seq.lstm_seq_q8(w, b, x, block_b=block_b,
+                                 time_chunk=time_chunk,
+                                 bwd_block_b=bwd_block_b,
+                                 bwd_time_chunk=bwd_time_chunk)

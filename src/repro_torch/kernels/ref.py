@@ -79,3 +79,57 @@ def lstm_seq_traj(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor
         hs.append(torch.stack(h))
     return (torch.stack(c).to(x.dtype), torch.stack(h).to(x.dtype),
             torch.stack(cs), torch.stack(hs))
+
+
+# ---------------------------------------------------------------------------
+# Int8 weight quantization (the ``fused_seq_q8`` plan)
+#
+# The scale contract: PER-OUTPUT-CHANNEL symmetric int8, one f32 scale per
+# (layer, gate column), no zero point.  scale[l, j] = max(max_k |w[l, k, j]|,
+# 1e-12) / 127, codes round(w / scale) in [-127, 127], dequantized weight
+# codes * scale.  Biases stay f32.  The kernels never build the dequantized
+# stack: they fold the scale into the gate pre-activations, so a kernel
+# agrees with ``lstm_seq_q8`` (dequantize, then run) within fp rounding,
+# not bit for bit.
+# ---------------------------------------------------------------------------
+def quantize_q8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """w: (L, P+H, 4H) -> (int8 codes of the same shape, f32 scales (L, 4H)).
+
+    Bit-equal to the JAX package's ``ref.quantize_q8``: the division is f32
+    and ``torch.round`` rounds half to even, as ``jnp.round`` does (a
+    product by 127 / amax, or f64 arithmetic, would move codes that sit on
+    a .5 boundary)."""
+    w32 = w.to(F32)
+    scales = torch.clamp(w32.abs().amax(dim=1), min=1e-12) / 127.0
+    q = torch.round(w32 / scales[:, None, :])
+    return q.clamp(-127, 127).to(torch.int8), scales
+
+
+def dequantize_q8(wq: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(L, P+H, 4H) int8 codes x (L, 4H) f32 scales -> f32 weights."""
+    return wq.to(F32) * scales[:, None, :]
+
+
+def quantize_dequantize_ste(w: torch.Tensor) -> torch.Tensor:
+    """Straight-through quantize-dequantize: the value is the dequantized
+    int8 weight, the gradient the identity — the differentiation contract
+    of the q8 training path."""
+    w32 = w.to(F32)
+    with torch.no_grad():
+        wdq = dequantize_q8(*quantize_q8(w32))
+    return w32 + (wdq - w32).detach()
+
+
+def lstm_seq_q8(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
+                x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dequantize-then-run oracle of the q8 sequence kernel."""
+    return lstm_seq(dequantize_q8(wq, scales), b, x)
+
+
+def lstm_seq_q8_traj(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
+                     x: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Trajectory oracle of the q8 training path (``lstm_seq_traj``'s
+    layout: f32 (T, L, B, H) post-step states)."""
+    return lstm_seq_traj(dequantize_q8(wq, scales), b, x)

@@ -3,11 +3,13 @@
 Builds the MobiRNN stacked LSTM (2 layers x 32 hidden by default, weights
 drawn from ``--seed``), makes synthetic HAR test windows
 (repro_torch.data.har) and answers ``--requests`` single-window requests —
-the paper's §4.1 latency protocol.  For every plan it serves (all four with
-``--plan auto``, else the one named) it prints the per-request latency, host
+the paper's §4.1 latency protocol.  For every plan it serves (all five with
+``--plan auto``, else the one named; ``fused_seq_q8`` holds the weights as
+int8 with f32 per-column scales) it prints the per-request latency, host
 clock around a call that ends in ``torch.cuda.synchronize()``.  With
 ``--plan auto`` the Fig 7 scheduler calibrates every viable plan on one
-window, chooses, and answers the requests through its choice.
+window (``core/lstm.plan_viability``: the f32 and int8 budget tables),
+chooses, and answers the requests through its choice.
 
   PYTHONPATH=src python -m repro_torch.launch.classify [--device cuda|cpu]
       [--requests N] [--plan auto|<name>] [--hidden H --layers L]

@@ -7,6 +7,9 @@ windows (repro_torch.data.har) and trains with AdamW (b2 0.95, global-norm
 clip 1.0, a warmup-cosine schedule, no weight decay) through the plan named
 by ``--plan``.  Under ``fused_seq`` a training step is two kernel launches
 at any T: the trajectory-writing forward and the reverse-time BPTT sweep.
+``fused_seq_q8`` trains quantization-aware: f32 master weights, quantized
+to int8 inside every forward, straight-through gradients, and the same
+two launches (their int8 instances).
 Then the paper's §4.1 protocol: per-window latency over ``--latency-cases``
 test windows for every plan (0 skips it).
 
@@ -60,7 +63,8 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--plan", default="sequential",
                     choices=sorted(lstm.FORWARD_PLANS),
                     help="execution plan of the training step; fused_seq "
-                         "is two kernel launches a step at any T")
+                         "and fused_seq_q8 are two kernel launches a step "
+                         "at any T")
     ap.add_argument("--latency-cases", type=int, default=100,
                     help="test windows for the paper §4.1 latency protocol "
                          "(0 skips it)")

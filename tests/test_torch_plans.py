@@ -1,4 +1,4 @@
-"""The port's serving slice against the JAX package: the four plans, the
+"""The port's serving slice against the JAX package: the five plans, the
 ``fused_cell`` route, the scheduler, the classifier module, the HAR data
 and the ``launch.classify`` entry point, all on the CPU."""
 import numpy as np
@@ -18,7 +18,7 @@ from repro.partitioning import split  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.mobirnn_lstm import LSTMConfig  # noqa: E402
-from repro_torch.core import lstm, wavefront  # noqa: E402
+from repro_torch.core import lstm, plans, wavefront  # noqa: E402
 from repro_torch.core.scheduler import (Plan, Scheduler,  # noqa: E402
                                         SyntheticLoadSensor)
 from repro_torch.data import har  # noqa: E402
@@ -27,6 +27,12 @@ from repro_torch.obs import trace as trace_lib  # noqa: E402
 
 #: the JAX package's f32 LSTM tolerance (core/plans.LSTM_TOL)
 TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _policy(plan):
+    """The plan's own tolerance against sequential: LSTM_TOL, or the int8
+    band for fused_seq_q8."""
+    return plans.get_family("lstm").tol(plan, "float32")
 SMALL = dict(hidden=16, n_layers=2, seq_len=8)
 
 
@@ -63,13 +69,16 @@ def small():
 @pytest.mark.parametrize("plan", list(lstm.FORWARD_PLANS))
 def test_plan_matches_jax(small, plan, jax_plan):
     got = lstm.FORWARD_PLANS[plan](small["params"], small["x"], small["cfg"])
-    np.testing.assert_allclose(got.numpy(), small[jax_plan], **TOL)
+    np.testing.assert_allclose(got.numpy(), small[jax_plan], **_policy(plan))
 
 
 def test_the_port_has_four_plans():
+    """The plan table: the JAX package's five plans, in its order (the
+    name is from the first slice, which had four)."""
     assert list(lstm.FORWARD_PLANS) == ["sequential", "wavefront",
-                                        "fused_cell", "fused_seq"]
-    assert set(lstm.FORWARD_PLANS) < set(jax_lstm.FORWARD_PLANS)
+                                        "fused_cell", "fused_seq",
+                                        "fused_seq_q8"]
+    assert list(lstm.FORWARD_PLANS) == list(jax_lstm.FORWARD_PLANS)
 
 
 def test_slice_at_full_width_matches_jax():
@@ -123,11 +132,21 @@ def test_fused_seq_routes_at_2x64():
 
 
 def test_plan_viability():
+    """At 2 x 64 the f32 stack fits no block and the int8 one does, so
+    serving may offer only the int8 fast path; its training backward fits
+    no block either."""
     paper = lstm.plan_viability(LSTMConfig(), 1, 128)
-    wide = lstm.plan_viability(LSTMConfig().with_complexity(64, 2), 1, 128)
+    wide_cfg = LSTMConfig().with_complexity(64, 2)
+    wide = lstm.plan_viability(wide_cfg, 1, 128)
     assert all(paper(n) for n in lstm.FORWARD_PLANS)
     assert not wide("fused_seq")
     assert all(wide(n) for n in lstm.FORWARD_PLANS if n != "fused_seq")
+    assert wide("fused_seq_q8")
+    train = lstm.plan_viability(wide_cfg, 1, 128, train=True)
+    assert not train("fused_seq") and not train("fused_seq_q8")
+    renamed = lstm.plan_viability(wide_cfg, 1, 128, train=True,
+                                  q8_plan_names=("accel_seq_q8",))
+    assert not renamed("accel_seq_q8") and renamed("fused_seq_q8")
 
 
 def test_scheduler_calibrates_and_chooses(small):
@@ -162,9 +181,10 @@ def test_classifier_module_runs_each_plan(small):
         with torch.inference_mode():
             out = model(small["x"])
         assert out.grad_fn is None and not out.requires_grad
-        np.testing.assert_allclose(out.numpy(), small["sequential"], **TOL)
+        np.testing.assert_allclose(out.numpy(), small["sequential"],
+                                   **_policy(name))
     with pytest.raises(ValueError):
-        lstm.LSTMClassifier(small["cfg"], plan="fused_seq_q8")
+        lstm.LSTMClassifier(small["cfg"], plan="fused_seq_q4")
 
 
 def test_accuracy_matches_jax():
