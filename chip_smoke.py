@@ -4,19 +4,33 @@
   python3 chip_smoke.py
 
 Builds the hand-written kernels of the serving and training paths from
-``src/repro_torch/kernels/csrc`` (nvcc, sm_90a) into ``build/``, holds each
-kernel, f32 and int8 instances, against its plain PyTorch version on the
-card (the backward also against torch autograd of the oracle), serves the
-paper's HAR classifier (2 layers x 32 hidden, T=128) through the port's
-entry point ``repro_torch.launch.classify`` with all five plans, and at
-2 x 64 through the int8 plan, and trains it at batch 64 through
+``src/repro_torch/kernels/csrc`` (nvcc, sm_90a, one process per source, all
+at once) into ``build/``, holds each kernel, f32, int8 and bf16 instances,
+against its plain PyTorch version on the card (the LSTM backward also
+against torch autograd of the oracle), serves the paper's HAR classifier
+(2 layers x 32 hidden, T=128) through the port's entry point
+``repro_torch.launch.classify`` with all five plans, and at 2 x 64 through
+the int8 plan, and trains it at batch 64 through
 ``repro_torch.launch.train_har`` with ``fused_seq`` and with the int8 plan
 ``fused_seq_q8``, each path with the launch counters set to 0 just before
 and read just after and the plain versions of the sequence kernels armed to
 raise on CUDA tensors; checks each plan against ``sequential`` under its own
 policy, that a ``fused_seq`` and a ``fused_seq_q8`` training step is two
-launches at any T, and times each kernel beside its plain version, one
-PyTorch library call computing the same function, and the least time the
+launches at any T.  Then the RWKV6 slice: the K6 chunked scan against its
+plain version (the JAX family's cases, the full-width heads at T=512 and
+500, extreme decay, rows alone and in a batch, a split-resume run), the
+full-width model cut to 4 layers in f32 (the kernel plan against
+``chunked_xla``, prefill plus decode against ``forward``), and the full
+32-layer bf16 RWKV6-3B served through ``repro_torch.launch.serve``'s wave
+engine: 8 ragged requests of 300 to 500 tokens, 16 new tokens each, with
+32 kernel launches per prefill, none in decode and the plain scans armed to
+raise, every launch of the serve held against the plain version on the
+inputs it was given, then the same requests with
+``models.rwkv.WKV_PLAN = "chunked_xla"`` (and the waves' prefills through
+``stepwise``: the first-token logits of the three plans are printed beside
+each other).
+It times each kernel beside its plain version, one PyTorch library call
+computing the same function where there is one, and the least time the
 card could take for the work.
 
 Float32 matrix products and cuDNN run without TF32 here
@@ -31,6 +45,7 @@ numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -40,6 +55,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 #: The JAX package's f32 tolerance for LSTM plans and kernels (LSTM_TOL).
@@ -51,6 +67,10 @@ GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 #: (Q8_ORACLE_TOL of the JAX package's tests): the kernels fold the scale
 #: after the products, the oracle multiplies it into the weights first.
 Q8_ORACLE_TOL = dict(rtol=1e-4, atol=1e-5)
+#: The split-resume tolerance of the JAX package's tests/test_wkv6.py.
+SPLIT_TOL = dict(rtol=2e-4, atol=2e-4)
+#: Prefill plus decode against the full forward: tests/test_consistency.py.
+CONSISTENCY_TOL = dict(rtol=3e-4, atol=3e-4)
 #: Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
 #: float32 FLOP/s outside the tensor cores — the kernels use CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -106,8 +126,9 @@ def instance(mangled: str) -> str:
     ``<16,512,int8>`` for ``lstm_seq_bwd_kernel<16, 512, int8_t>`` (a bool
     argument prints 0 or 1)."""
     args = re.search(r"I((?:L[ib]\d+E)+)([af]?)E", mangled)
-    if not args:
-        return ""
+    if not args:            # a kernel templated on its IO type alone
+        return ("<bf16>" if "I13__nv_bfloat16E" in mangled
+                else "<f32>" if "IfE" in mangled else "")
     vals = re.findall(r"L[ib](\d+)E", args.group(1))
     if args.group(2):
         vals.append({"a": "int8", "f": "f32"}[args.group(2)])
@@ -141,6 +162,307 @@ def tripwires(*where):
             setattr(mod, name, fn)
 
 
+def rwkv_slice(device, gen, counted, counts, only) -> dict:
+    """The RWKV6 slice: K6 against its plain version, the 4-layer f32 model
+    across plans and against its own forward, the 32-layer bf16 RWKV6-3B
+    served through ``launch/serve.py`` (counted, plain scans armed), and
+    K6's times.  Returns K6's entry of the ``kernels`` line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import plans
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wkv6_k
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.models import registry, rwkv
+    from repro_torch import steps as steps_lib
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serving import Request
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol = plans.RWKV_TOL
+
+    def inputs(BH, T, dk, dv, dtype, decay=1.0):
+        r, k = (randn(BH, T, dk, gen=gen).to(dtype) for _ in range(2))
+        v = randn(BH, T, dv, gen=gen).to(dtype)
+        logw = -torch.exp(randn(BH, T, dk, gen=gen)) * decay
+        return (r, k, v, logw, randn(BH, dk, gen=gen),
+                randn(BH, dk, dv, gen=gen, scale=0.3))
+
+    # --- R1. K6 against its plain version -----------------------------------
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    fam = plans.get_family("rwkv6")
+    cases = [(c.label, (c.shape[0] * c.shape[2], c.shape[1], c.shape[3],
+                        c.shape[4], c.shape[5])) for c in fam.cases]
+    cases += [(f"full width T={T}", (160, T, 64, 64, 32)) for T in (512, 500)]
+    for label, (BH, T, dk, dv, C) in cases:
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[1]
+            a = inputs(BH, T, dk, dv, dtype)
+            got = wkv6_k.wkv6(*a, chunk=C)
+            want = wkv6_k.wkv6_plain(*a, chunk=C)
+            check(got[0].dtype == dtype and got[1].dtype == f32,
+                  f"wkv6 {label} {name}: output dtypes {got[0].dtype}, "
+                  f"{got[1].dtype}")
+            # the state is f32 math on the same inputs: the f32 tier
+            e = max(close(got[0].float(), want[0].float(),
+                          f"wkv6 {label} {name} out", tol[name]),
+                    close(got[1], want[1], f"wkv6 {label} {name} state",
+                          tol["float32"]))
+            errs[name] = max(errs[name], e)
+            print(f"[K6] wkv6 {label} (BH={BH} T={T} {dk}x{dv} C={C}) "
+                  f"{name}: max abs err {e:.3e} at RWKV_TOL {name} (state "
+                  "at RWKV_TOL float32)")
+    for dtype in (f32, bf16):
+        for BH, T, dk, dv, C in ((4, 19, 8, 8, 8), (160, 500, 64, 64, 32)):
+            out, s = wkv6_k.wkv6(*inputs(BH, T, dk, dv, dtype, decay=1e6),
+                                 chunk=C)
+            check(bool(torch.isfinite(out.float()).all())
+                  and bool(torch.isfinite(s).all()),
+                  f"wkv6 BH={BH} T={T} {dtype} not finite at log-decays of "
+                  "-1e6")
+    print("[K6] finite at single-step log-decays down to -1e6 (f32, bf16; "
+          "T=19 and the full width at T=500)")
+    a = inputs(5, 23, 64, 64, f32)
+    base = wkv6_k.wkv6(*a, chunk=8)
+    for bt in (2, 5):
+        check(all(torch.equal(g, w) for g, w in zip(
+            wkv6_k.wkv6(*a, chunk=8, bh_tile=bt), base)),
+              f"wkv6 bh_tile={bt} differs from bh_tile=1")
+    for i in range(5):
+        alone = wkv6_k.wkv6(*(t[i:i + 1] for t in a), chunk=8)
+        check(all(torch.equal(g[0], w[i]) for g, w in zip(alone, base)),
+              f"wkv6 row {i} alone differs from the batch")
+    a = inputs(160, 500, 64, 64, bf16)
+    base = wkv6_k.wkv6(*a, chunk=32)
+    for i in (0, 77, 159):
+        alone = wkv6_k.wkv6(*(t[i:i + 1] for t in a), chunk=32)
+        check(all(torch.equal(g[0], w[i]) for g, w in zip(alone, base)),
+              f"wkv6 full-width row {i} alone differs from the batch")
+    print("[K6] rows bit-identical alone and in a batch (BH=5, T=23, tiles "
+          "1, 2, 5; bf16 rows 0, 77, 159 of 160 at T=500)")
+    r, k, v, logw, u, s0 = inputs(160, 512, 64, 64, f32)
+    out, s_full = wkv6_k.wkv6(r, k, v, logw, u, s0)
+    out_a, s_mid = wkv6_k.wkv6(r[:, :300], k[:, :300], v[:, :300],
+                               logw[:, :300], u, s0)
+    out_b, s_end = wkv6_k.wkv6(r[:, 300:], k[:, 300:], v[:, 300:],
+                               logw[:, 300:], u, s_mid)
+    e = max(close(torch.cat([out_a, out_b], 1), out, "wkv6 split at 300",
+                  SPLIT_TOL),
+            close(s_end, s_full, "wkv6 split state", SPLIT_TOL))
+    print(f"[K6] split at 300 of 512 and resumed from the carried state: "
+          f"max abs err {e:.3e} against the unsplit run")
+
+    # --- R2. the full-width model cut to 4 layers, f32 ---------------------
+    cfg4 = dataclasses.replace(get_arch("rwkv6-3b"), n_layers=4,
+                               dtype="float32")
+    m4 = registry.build(cfg4)
+    cgen = torch.Generator(device=device).manual_seed(0)
+    p4 = m4.init(cgen, device)
+    mix, mlp = p4["blocks"][0]["mix"], p4["blocks"][0]["mlp"]
+    for t in (mix["maa_x"], mix["maa"], mix["u"], mlp["mu_k"], mlp["mu_r"]):
+        t.add_(0.1 * torch.randn(t.shape, generator=cgen, device=device))
+    S, K = 300, 4
+    toks = torch.randint(0, cfg4.vocab, (2, S + K), generator=cgen,
+                         device=device)
+    with torch.no_grad():
+        reset_counts(*counted)
+        scan, _ = m4.forward(p4, {"tokens": toks})
+        check(counts() == only(wkv6=4), f"4-layer forward: {counts()}")
+        old = rwkv.WKV_PLAN
+        rwkv.WKV_PLAN = "chunked_xla"
+        try:
+            xla, _ = m4.forward(p4, {"tokens": toks})
+        finally:
+            rwkv.WKV_PLAN = old
+        e1 = close(scan, xla, "4-layer f32 logits, chunked_scan vs "
+                   "chunked_xla", tol["float32"])
+        cache = m4.init_cache(2, S + K, device)
+        reset_counts(*counted)
+        first, cache = m4.prefill(p4, cache, {"tokens": toks[:, :S]})
+        e2 = close(first[:, 0], scan[:, S - 1], "4-layer prefill vs forward",
+                   CONSISTENCY_TOL)
+        for t in range(K):
+            d, cache = m4.decode_step(p4, cache, {"tokens": toks[:, S + t]})
+            e2 = max(e2, close(d, scan[:, S + t], f"4-layer decode {t}",
+                               CONSISTENCY_TOL))
+        check(counts() == only(wkv6=4),
+              f"4-layer prefill + {K} decode steps launched {counts()}")
+    print(f"[model] 4 x 2560 f32, S={S}: chunked_scan logits vs chunked_xla "
+          f"max abs err {e1:.3e} (RWKV_TOL f32); prefill + {K} decode steps "
+          f"vs forward over {S + K}: {e2:.3e} ({CONSISTENCY_TOL}); 4 launches"
+          " a forward or prefill, none in decode")
+    del p4, scan, xla, cache
+    torch.cuda.empty_cache()
+
+    # --- R3. RWKV6-3B served at full width, bf16 ---------------------------
+    cfg = get_arch("rwkv6-3b")
+    t0 = time.perf_counter()
+    engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=4,
+                                   max_seq=500 + 16 + 1)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    print(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters in "
+          f"{cfg.dtype}, drawn from seed 0 on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    lens = [412, 300, 377, 500, 333, 468, 451, 389]   # wave maxima 500, 468
+    prng = np.random.default_rng(0)
+    reqs = [Request(i, prng.integers(0, cfg.vocab, (n,)).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate(lens)]
+    seen = {"prefill": [], "tokens": [], "launches": [], "finite": True,
+            "calls": []}
+    kernel, prefill, decode = (wkv6_k.wkv6, engine._prefill,
+                               steps_lib.decode_step)
+
+    def watched_prefill(params, cache, batch):
+        before = kernel.launches
+        logits, cache = prefill(params, cache, batch)
+        seen["launches"].append(kernel.launches - before)
+        seen["tokens"].append(batch["tokens"])
+        seen["prefill"].append(logits.float().clone())
+        seen["finite"] &= bool(torch.isfinite(logits).all())
+        return logits, cache
+
+    def watched_decode(cfg_, params, cache, batch):
+        logits, cache = decode(cfg_, params, cache, batch)
+        seen["finite"] &= bool(torch.isfinite(logits).all())
+        return logits, cache
+
+    def captured_kernel(*args, **kwargs):
+        """The kernel as the serve calls it, keeping its inputs (the state
+        is a view of the cache, which the layer then overwrites) and
+        outputs for the check against the plain version after the serve.
+        The wrapper counts its launches through its module's name, which
+        is this function while it is installed: the count is carried
+        across."""
+        captured_kernel.launches = kernel.launches
+        got_ = kernel(*args, **kwargs)
+        kernel.launches = captured_kernel.launches
+        seen["calls"].append(([a.clone() for a in args], kwargs, got_))
+        return got_
+
+    engine._prefill, steps_lib.decode_step = watched_prefill, watched_decode
+    wkv6_k.wkv6 = captured_kernel
+    capacity = engine.pool.stats.capacity
+    reset_counts(*counted)
+    try:
+        with tripwires((wkv6_k, "wkv6_plain"), (ref, "wkv6"),
+                       (ref, "wkv6_stepwise"), (rwkv, "wkv_chunked")):
+            served = serve_lm.serve(engine, reqs)
+    finally:
+        wkv6_k.wkv6, steps_lib.decode_step = kernel, decode
+    got = counts()
+    check(got == only(wkv6=64) and seen["launches"] == [32, 32],
+          f"serve launched {got}, per prefill {seen['launches']}")
+    check(all(r.tokens.shape == (16,) and int(r.tokens.min()) >= 0
+              and int(r.tokens.max()) < cfg.vocab for r in served["results"]),
+          "served tokens outside [0, vocab) or not 16 a request")
+    check(seen["finite"], "a served logit is not finite")
+    check(served["pool"].buffers_built == capacity,
+          f"the pool built {served['pool'].buffers_built} buffers")
+    print(f"[serve] wkv6 launches {got['wkv6']}: {seen['launches']} per "
+          "prefill, 0 in decode, no plain scan reached; every logit finite;"
+          f" buffers_built {served['pool'].buffers_built} = capacity")
+    # every launch of the serve against the plain version on the inputs it
+    # was given (the 32 layers' real r, k, v, logw, u and carried state):
+    # out at the bf16 tier, the f32 state at the f32 tier
+    e_out = e_state = 0.0
+    n_calls, L = len(seen["calls"]), cfg.n_layers
+    check(n_calls == sum(seen["launches"]), f"captured {n_calls} calls")
+    for i, (args, kwargs, (out, s_out)) in enumerate(seen["calls"]):
+        want = wkv6_k.wkv6_plain(*args, chunk=kwargs["chunk"])
+        where = f"served wkv6 call {i} (layer {i % L}, wave {i // L})"
+        e_out = max(e_out, close(out.float(), want[0].float(),
+                                 f"{where} out", tol["bfloat16"]))
+        e_state = max(e_state, close(s_out, want[1], f"{where} state",
+                                     tol["float32"]))
+    r0 = seen["calls"][0][0][0]
+    print(f"[serve] each of the {n_calls} served wkv6 launches (r "
+          f"{tuple(r0.shape)} {r0.dtype}) against wkv6_plain on its own "
+          f"inputs: out max abs "
+          f"err {e_out:.3e} (RWKV_TOL bf16), state {e_state:.3e} (RWKV_TOL "
+          "f32)")
+    seen["calls"].clear()
+    scan_logits, seen["prefill"] = seen["prefill"], []
+    old = rwkv.WKV_PLAN
+    rwkv.WKV_PLAN = "chunked_xla"
+    try:
+        reset_counts(*counted)
+        plain = serve_lm.serve(engine, reqs)
+        check(counts() == only(), f"chunked_xla serve launched {counts()}")
+        xla_logits, seen["prefill"] = seen["prefill"], []
+        # the same waves through the stepwise oracle, for the model's own
+        # bf16 spread between two plain plans
+        rwkv.WKV_PLAN = "stepwise"
+        step_logits = []
+        with torch.no_grad():
+            for toks in seen["tokens"][:2]:
+                cache = engine.model.init_cache(toks.shape[0], 1, device)
+                step_logits.append(engine.model.prefill(
+                    engine.params, cache, {"tokens": toks})[0].float())
+    finally:
+        rwkv.WKV_PLAN = old
+    # Printed, not held to a tolerance: in bf16 the 32 random layers turn a
+    # one-ulp difference in a wkv output into first-token logits that
+    # differ by O(1) between any two plans, the two plain ones included.
+    # The kernel is held on this path by the per-launch check above, and
+    # the model's bf16 casts by tests/test_torch_rwkv.py against JAX's.
+    for i, (a, b, c) in enumerate(zip(scan_logits, xla_logits, step_logits)):
+        d_kernel, d_plain = (a - b).abs(), (c - b).abs()
+        print(f"[serve] wave {i} first-token logits (max |logit| "
+              f"{float(b.abs().max()):.3f}): chunked_scan vs chunked_xla max "
+              f"{float(d_kernel.max()):.3e} mean {float(d_kernel.mean()):.3e}"
+              f"; stepwise vs chunked_xla max {float(d_plain.max()):.3e} "
+              f"mean {float(d_plain.mean()):.3e}; argmax equal "
+              f"{int((a.argmax(-1) == b.argmax(-1)).sum())} of {a.shape[0]}")
+    same = sum(int((a.tokens == b.tokens).sum())
+               for a, b in zip(served["results"], plain["results"]))
+    print(f"[serve] greedy tokens equal between chunked_scan and chunked_xla:"
+          f" {same} of {16 * len(reqs)}")
+    for name, run in (("chunked_scan", served), ("chunked_xla", plain)):
+        for i, w in enumerate(run["waves"]):
+            print(f"[time] serve {name} wave {i}: prefill "
+                  f"{w['prefill_ms']:.3f} ms, decode "
+                  f"{w['decode_ms_per_token']:.3f} ms/token (host clock)")
+    launches = got["wkv6"]
+    del engine
+    torch.cuda.empty_cache()
+
+    # --- R4. K6's times at the serving heads -------------------------------
+    BH, T, dk, dv, C = 160, 512, 64, 64, 32
+    pairs = C * (C - 1) // 2
+    # multiply-adds of one chunk of one row: carry, scores (sub, 2 mul,
+    # add), scores x v, bonus, bonus x v, state update, decays
+    per_chunk = (2 * C * dk * dv + 4 * pairs * dk + 2 * pairs * dv
+                 + 3 * C * dk + 2 * C * dv + 2 * C * dk * dv + dk * dv
+                 + 3 * C * dk)
+    rows = {}
+    for dtype in (bf16, f32):
+        io = 2 if dtype == bf16 else 4
+        a = inputs(BH, T, dk, dv, dtype)
+        # r, k, v in and out in the IO type; logw f32; u, s0, s_out f32
+        nbytes = (io * BH * T * (2 * dk + 2 * dv) + 4 * BH * T * dk
+                  + 4 * (BH * dk + 2 * BH * dk * dv))
+        t_bound, by = bound(nbytes, BH * (T // C) * per_chunk)
+        rows[dtype] = dict(
+            ms=time_ms(lambda: wkv6_k.wkv6(*a, chunk=C), 50),
+            plain_ms=time_ms(lambda: wkv6_k.wkv6_plain(*a, chunk=C), 2),
+            bound_ms=t_bound, bound_by=by)
+        print(f"[time] wkv6 BH={BH} T={T} {dk}x{dv} C={C} "
+              f"{str(dtype).split('.')[1]}: kernel {rows[dtype]['ms']:.4f} ms"
+              f", plain {rows[dtype]['plain_ms']:.4f} ms, library none (no "
+              f"single PyTorch call computes WKV6), bound {t_bound:.3e} ms "
+              f"({by})")
+    main_row = rows[bf16]
+    print(f"[K6] max abs err vs plain: f32 {errs['float32']:.3e}, bf16 "
+          f"{errs['bfloat16']:.3e} (bf16 outputs keep 8 significant bits)")
+    return {"name": "wkv6", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+            "replaces": "src/repro/kernels/wkv6.py:312",
+            "launches": launches, "max_abs_err": errs["bfloat16"],
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None}
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     if not torch.cuda.is_available():
@@ -160,6 +482,7 @@ def main() -> None:
     from repro_torch.kernels import lstm_seq as seq_k
     from repro_torch.kernels import lstm_seq_bwd as bwd_k
     from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wkv6_k
     from repro_torch.launch import classify, train_har
     from repro_torch.obs import trace as trace_lib
     from repro_torch.data import har
@@ -167,7 +490,7 @@ def main() -> None:
 
     counted = (cell_k.lstm_cell, seq_k.lstm_seq, seq_k.lstm_seq_traj,
                bwd_k.lstm_seq_bwd, seq_k.lstm_seq_q8, seq_k.lstm_seq_q8_traj,
-               bwd_k.lstm_seq_bwd_q8)
+               bwd_k.lstm_seq_bwd_q8, wkv6_k.wkv6)
 
     def counts() -> dict:
         return {fn.__name__: fn.launches for fn in counted}
@@ -1020,6 +1343,7 @@ def main() -> None:
             "max_abs_err": errs[r["name"]], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    kernels.append(rwkv_slice(device, gen, counted, counts, only))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,19 @@
-from repro_torch.configs import mobirnn_lstm
+"""Architecture registry of the port: the paper's LSTM and the language
+models whose paths are ported (``ARCHS``; ``get_arch`` takes a
+``-reduced`` suffix for the small CPU variant)."""
+from repro_torch.configs import mobirnn_lstm, rwkv6_3b
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
 
 MOBIRNN_LSTM = mobirnn_lstm.CONFIG
 
-__all__ = ["MOBIRNN_LSTM", "mobirnn_lstm"]
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in [rwkv6_3b.CONFIG]}
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name.endswith("-reduced"):
+        return ARCHS[name[: -len("-reduced")]].reduced()
+    return ARCHS[name]
+
+
+__all__ = ["ARCHS", "MOBIRNN_LSTM", "ModelConfig", "MoEConfig", "SSMConfig",
+           "get_arch", "mobirnn_lstm"]

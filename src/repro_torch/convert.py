@@ -1,13 +1,29 @@
-"""Carrying weights across from the JAX package.
+"""Carrying weights and caches across from the JAX package.
 
-The JAX package's plain parameter tree — ``partitioning.split`` of its
-``core/lstm.init_params`` with every leaf mapped through ``np.asarray`` —
-has the same structure and layouts as the port's:
-``{"layers": [{"w": (D+H, 4H), "b": (4H,)}, ...], "head": {"w": (H, C),
-"b": (C,)}}``, gate order (i, f, g, o).  So carrying it across is a copy of
-every leaf into a tensor; nothing is transposed or reordered.
-``params_to_numpy`` is the way back (the port's params or grads as numpy,
-for comparing them with the JAX package's).
+A JAX tree — ``partitioning.split`` of a parameter or cache tree with every
+leaf mapped through ``np.asarray`` — has the same structure and layouts as
+the port's, so carrying it across is a copy of every leaf into a tensor;
+nothing is transposed or reordered.  Dicts stay dicts; lists and tuples
+become lists.  The trees it carries:
+
+* the LSTM classifier (``core/lstm.init_params``): ``{"layers": [{"w":
+  (D+H, 4H), "b": (4H,)}, ...], "head": {"w": (H, C), "b": (C,)}}``, gate
+  order (i, f, g, o);
+* the language models (``models/transformer.init_params``, the RWKV6 path):
+  ``{"embed": (V, d), "blocks": [slot, ...], "final_norm": {"scale",
+  "bias"}, "lm_head": {"w": (d, V)}}``, one slot per layer of the period
+  (JAX keeps them in a tuple), each ``{"ln1", "mix", "ln2", "mlp"}`` with
+  every leaf stacked over layer groups (leading layer axis); every weight
+  keeps the JAX layout ``(d_in, d_out)`` for ``x @ w``;
+* their decode caches (``init_cache``): ``{"pos": () int32, "slots":
+  [{"shift_t": (G, B, d), "wkv": (G, B, H, dh, dh) f32, "shift_c":
+  (G, B, d)}]}``.
+
+``params_to_numpy`` is the way back (the port's params, grads or caches as
+numpy, for comparing them with the JAX package's).  A bfloat16 leaf (the
+JAX package's numpy arrays of ``ml_dtypes.bfloat16``) crosses bit for bit
+both ways; numpy has no bfloat16 of its own, so the way back imports
+``ml_dtypes`` for such a leaf only.
 """
 from __future__ import annotations
 
@@ -23,7 +39,11 @@ def params_from_numpy(tree, device: str | torch.device = "cpu"):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device) for v in tree]
-    return torch.tensor(np.asarray(tree), device=device)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16), device=device).view(
+            torch.bfloat16)
+    return torch.tensor(a, device=device)
 
 
 def params_to_numpy(tree):
@@ -33,4 +53,9 @@ def params_to_numpy(tree):
         return {k: params_to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_to_numpy(v) for v in tree]
-    return tree.detach().cpu().numpy()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()

@@ -1,5 +1,5 @@
 """Family-generic execution-plan registry (the twin of the JAX package's
-``core/plans.py``), with the LSTM family registered.
+``core/plans.py``), with the LSTM and RWKV6 families registered.
 
 A family registers the same things the JAX package's does:
 
@@ -11,19 +11,30 @@ A family registers the same things the JAX package's does:
   step (the JAX package's ``fwd_dispatches``/``train_dispatches``: the
   O(1)-in-T contract);
 * a **viability** factory: the shared-memory budget table behind the Fig 7
-  scheduler's ``viable=`` predicate (``core/lstm.plan_viability``);
+  scheduler's ``viable=`` predicate;
 * **cases** — the family's deliberately awkward shapes; ``value_sweep`` and
   ``grad_sweep`` enumerate plans x cases x dtypes from them.
 
-The ``lstm`` family's plans are ``core/lstm.FORWARD_PLANS`` (the registry
-points at the same callables).  Its dtypes are ``("float32",)``: the
-kernels raise ``TypeError`` on anything else until the bf16 slice, so the
-bf16 entries of the tolerance tables (kept, as the JAX package has them)
-are not swept.  ``profile_hook`` is None: the JAX family's hook prices each
-candidate tiling with a TPU roofline (``analysis.lstm_seq_stream_costs``),
-which says nothing about an H100; it waits for the profiler slice.
+Families registered here:
 
-The RWKV6 and Mamba families come with their slices.
+* ``lstm`` — the plans are ``core/lstm.FORWARD_PLANS`` (the registry points
+  at the same callables).  Its dtypes are ``("float32",)``: the kernels
+  raise ``TypeError`` on anything else until the bf16 slice, so the bf16
+  entries of the tolerance tables (kept, as the JAX package has them) are
+  not swept.  Viability is ``core/lstm.plan_viability``.
+* ``rwkv6`` — ``stepwise`` (the per-timestep oracle, models/rwkv.wkv_step
+  over T), ``chunked_xla`` (models/rwkv.wkv_chunked, the plain-PyTorch
+  chunked scan, chunk clamped to the largest divisor of T) and
+  ``chunked_scan`` (kernels/wkv6, ONE kernel launch forward, any T; where
+  ``choose_blocks`` finds no chunk, a CPU call routes to ``chunked_xla``
+  with a ``plan/dispatch fallback=`` event and a CUDA call raises).  Dtypes float32 and bfloat16.
+  ``chunked_scan`` has no training launch count until its backward kernel
+  (K6b) is ported.  Viability is ``rwkv_viability``.
+
+``profile_hook`` is None for both: the JAX hooks price each candidate
+tiling with a TPU roofline (``analysis.*_stream_costs``), which says
+nothing about an H100; they wait for the profiler slice.  The Mamba family
+comes with its slice.
 """
 from __future__ import annotations
 
@@ -265,3 +276,191 @@ def _build_lstm_family() -> Family:
 
 
 register_family(_build_lstm_family())
+
+
+# ===========================================================================
+# rwkv6 family — stepwise oracle, plain chunked scan, the K6 kernel
+# ===========================================================================
+#: chunked-vs-stepwise agreement band (log-space chunk math reassociates
+#: the decay products)
+RWKV_TOL = {"float32": dict(rtol=5e-4, atol=5e-4),
+            "bfloat16": dict(rtol=6e-2, atol=6e-2)}
+RWKV_GRAD_TOL = {"float32": dict(rtol=2e-3, atol=2e-3)}
+
+_RWKV_EXACT = EquivalencePolicy("exact", RWKV_TOL, RWKV_GRAD_TOL)
+
+#: (B, T, H, dk, dv, chunk) — C=1, C=T, non-dividing T, chunk > T all on
+#: the table, so the tail and clamping paths are part of the sweep
+_RWKV_CASES = (
+    Case("c8t24", (2, 24, 2, 8, 8, 8)),                     # C | T
+    Case("c1", (2, 12, 2, 8, 8, 1), heavy_grad=False),      # C=1: per-step
+    Case("cT", (1, 16, 2, 8, 8, 16)),                       # C=T: one chunk
+    Case("oddT", (2, 23, 2, 8, 8, 8), heavy_grad=False),    # tail path
+    Case("cgtT", (1, 7, 2, 8, 10, 32)),                     # clamp, dk != dv
+    Case("long", (2, 96, 2, 16, 16, 16), heavy=True),
+)
+
+
+def _rwkv_make_inputs(case: Case, dtype: str):
+    """((r, k, v, logw, u, state), chunk) on the CPU, from a seed of the
+    case label: r, k, v in ``dtype``; logw (<= 0), u and state f32."""
+    import zlib
+
+    B, T, H, dk, dv, chunk = case.shape
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(zlib.crc32(case.label.encode()))
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    r = randn(B, T, H, dk).to(dt)
+    k = randn(B, T, H, dk).to(dt)
+    v = randn(B, T, H, dv).to(dt)
+    logw = -torch.exp(randn(B, T, H, dk))
+    u = randn(H, dk)
+    state = randn(B, H, dk, dv) * 0.3
+    return (r, k, v, logw, u, state), chunk
+
+
+def _rwkv_stepwise(r, k, v, logw, u, state, *, chunk):
+    """Per-timestep oracle: models/rwkv.wkv_step over T — the fine-grained
+    plan every chunked plan must reproduce."""
+    from repro_torch.models import rwkv as rwkv_lib
+
+    del chunk
+    s = state.to(torch.float32)
+    outs = []
+    for t in range(r.shape[1]):
+        out, s = rwkv_lib.wkv_step(r[:, t], k[:, t], v[:, t], logw[:, t],
+                                   u, s)
+        outs.append(out)
+    return torch.stack(outs, dim=1).to(v.dtype), s
+
+
+def _rwkv_chunked_xla(r, k, v, logw, u, state, *, chunk):
+    """models/rwkv.wkv_chunked with the model's divisor clamp — the plain
+    PyTorch chunked scan (the JAX package's jnp ``lax.scan`` plan)."""
+    from repro_torch.models import rwkv as rwkv_lib
+
+    S = r.shape[1]
+    c = max(1, min(chunk, S))
+    while S % c:              # largest divisor of S not above the target
+        c -= 1
+    out, state = rwkv_lib.wkv_chunked(r, k, v, logw, u, state, c)
+    return out.to(v.dtype), state
+
+
+def _rwkv_scan_blocks(seq_len: int, dk: int, dv: int, chunk: int,
+                      device: torch.device):
+    """The kernel plan's tiling, or None where ``choose_blocks`` finds no
+    chunk that fits a thread block and the tensors are on the CPU (the plan
+    then runs ``chunked_xla``).  On the card no plain version stands in
+    for the kernel: there it raises ValueError naming the working set."""
+    from repro_torch.core import factorization
+    from repro_torch.kernels import wkv6 as wkv6_lib
+
+    blocks = wkv6_lib.choose_blocks(seq_len, dk, dv, target=chunk)
+    if blocks is None and device.type != "cpu":
+        smem = wkv6_lib.working_set_bytes(seq_len, dk, dv, 1)
+        raise ValueError(
+            f"chunked_scan: heads of {dk} x {dv} fit no chunk; the working "
+            f"set at chunk 1 is {smem} bytes of shared memory (at most "
+            f"{factorization.H100_SMEM_PER_BLOCK}) and a side may have at "
+            f"most {wkv6_lib.THREADS}")
+    return blocks
+
+
+def _rwkv_chunked_scan(r, k, v, logw, u, state, *, chunk):
+    """kernels/wkv6 (K6): the model layout (B,S,H,*) folded to the
+    kernel's (B*H, S, *), u broadcast per batch-head row, any T.  Where
+    ``choose_blocks`` finds no chunk that fits a thread block, a CPU call
+    runs ``chunked_xla`` and says so in a ``plan/dispatch`` event, and a
+    CUDA call raises (``_rwkv_scan_blocks``)."""
+    from repro_torch.kernels import wkv6 as wkv6_lib
+    from repro_torch.obs import trace as trace_lib
+
+    B, S, H, dk = r.shape
+    dv = v.shape[-1]
+    blocks = _rwkv_scan_blocks(S, dk, dv, chunk, r.device)
+    if blocks is None:
+        tracer = trace_lib.get_tracer()
+        if tracer.enabled:
+            tracer.event("plan/dispatch", family="rwkv6",
+                         plan="chunked_scan", fallback="chunked_xla",
+                         n_bh=B * H, seq_len=S, dk=dk, dv=dv)
+        return _rwkv_chunked_xla(r, k, v, logw, u, state, chunk=chunk)
+
+    def fold(a):
+        return a.transpose(1, 2).reshape(B * H, S, a.shape[-1])
+
+    ub = u[None].expand(B, H, dk).reshape(B * H, dk)
+    out, s_out = wkv6_lib.wkv6(
+        fold(r), fold(k), fold(v), fold(logw), ub,
+        state.reshape(B * H, dk, dv), chunk=blocks.chunk,
+        bh_tile=blocks.bh_tile)
+    return (out.reshape(B, H, S, dv).transpose(1, 2),
+            s_out.reshape(B, H, dk, dv))
+
+
+RWKV_PLANS: dict[str, Callable] = {
+    "stepwise": _rwkv_stepwise,
+    "chunked_xla": _rwkv_chunked_xla,
+    "chunked_scan": _rwkv_chunked_scan,
+}
+
+
+def _rwkv_apply(plan: str, inputs):
+    args, chunk = inputs
+    return RWKV_PLANS[plan](*args, chunk=chunk)
+
+
+def _rwkv_grads(plan: str, inputs):
+    """Gradients of ``sum(tanh(out)) + 0.5 * sum(state'^2)`` through
+    ``plan`` with respect to all six inputs (the JAX family's loss)."""
+    args, chunk = inputs
+    args = [a.detach().clone().requires_grad_() for a in args]
+    out, s = RWKV_PLANS[plan](*args, chunk=chunk)
+    loss = torch.sum(torch.tanh(out.to(torch.float32))) + 0.5 * torch.sum(
+        s * s)
+    return torch.autograd.grad(loss, args)
+
+
+#: the rwkv6 plans that run the kernel, hence the ones viability gates
+RWKV_SCAN_PLANS = ("chunked_scan",)
+
+
+def rwkv_viability(seq_len: int, dk: int, dv: int, *, chunk: int = 32,
+                   smem_budget: int | None = None, train: bool = False
+                   ) -> Callable[[str], bool]:
+    """Fig 7 ``viable=`` predicate for the rwkv6 family, from the
+    kernels/wkv6 budget table: the kernel plan is a real plan only while
+    ``choose_blocks`` finds a chunk that fits a thread block.  With
+    ``train=True`` it is not viable at all until the backward kernel (K6b)
+    is ported: a CUDA training call through it would raise.  Every other
+    plan name stays viable."""
+    from repro_torch.kernels import wkv6 as wkv6_lib
+
+    blocks = None if train else wkv6_lib.choose_blocks(
+        seq_len, dk, dv, target=chunk, smem_budget=smem_budget)
+
+    def viable(plan_name: str) -> bool:
+        return blocks is not None or plan_name not in RWKV_SCAN_PLANS
+
+    return viable
+
+
+def _build_rwkv_family() -> Family:
+    specs = {
+        "stepwise": PlanSpec("stepwise", _rwkv_stepwise, _RWKV_EXACT),
+        "chunked_xla": PlanSpec("chunked_xla", _rwkv_chunked_xla,
+                                _RWKV_EXACT),
+        "chunked_scan": PlanSpec("chunked_scan", _rwkv_chunked_scan,
+                                 _RWKV_EXACT, fwd_launches=1),
+    }
+    return Family(
+        name="rwkv6", oracle="stepwise", plans=specs, cases=_RWKV_CASES,
+        dtypes=("float32", "bfloat16"), make_inputs=_rwkv_make_inputs,
+        apply=_rwkv_apply, grads=_rwkv_grads, viability=rwkv_viability)
+
+
+register_family(_build_rwkv_family())

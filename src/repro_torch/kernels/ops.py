@@ -1,12 +1,14 @@
-"""Public entry points of the LSTM kernels, with automatic blocks.
+"""Public entry points of the kernels, with automatic blocks.
 
 ``lstm_cell`` tiles its (B, H) output with ``factorization.choose_block``;
 ``lstm_seq`` and ``lstm_seq_q8`` take their ``(block_b, time_chunk)`` from
-``lstm_seq.choose_batch_block``.  Any block may be pinned by the caller.
-CPU tensors run the kernels' plain versions; CUDA tensors launch the
-kernels.  All are differentiable: under autograd ``lstm_seq`` and
-``lstm_seq_q8`` pair their trajectory launch with the backward kernel, and
-``lstm_cell`` takes the VJP of its plain version.
+``lstm_seq.choose_batch_block``; ``wkv6`` takes its chunk from the caller
+(the model's ``cfg.ssm.chunk``) and runs one batch-head row per thread
+block.  Any block may be pinned by the caller.  CPU tensors run the
+kernels' plain versions; CUDA tensors launch the kernels.  The LSTM entries
+are differentiable: under autograd ``lstm_seq`` and ``lstm_seq_q8`` pair
+their trajectory launch with the backward kernel, and ``lstm_cell`` takes
+the VJP of its plain version; ``wkv6`` has no backward kernel yet.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.kernels import lstm_cell as _lstm_cell
 from repro_torch.kernels import lstm_seq as _lstm_seq
+from repro_torch.kernels import wkv6 as _wkv6
 
 
 def lstm_cell(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
@@ -63,3 +66,16 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
                                  time_chunk=time_chunk,
                                  bwd_block_b=bwd_block_b,
                                  bwd_time_chunk=bwd_time_chunk)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor, *,
+         chunk: int = 32, bh_tile: int = 1
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 chunked scan, ONE kernel launch for the whole sequence.
+
+    r, k, logw: (BH, T, dk); v: (BH, T, dv); u: (BH, dk); state:
+    (BH, dk, dv).  Returns (out (BH, T, dv) in v's dtype, final state f32).
+    Forward only: there is no backward kernel yet, so a CUDA call under
+    autograd raises (a CPU call differentiates the plain version)."""
+    return _wkv6.wkv6(r, k, v, logw, u, state, chunk=chunk, bh_tile=bh_tile)

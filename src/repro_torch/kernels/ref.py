@@ -1,5 +1,6 @@
-"""Plain-PyTorch oracles of the LSTM kernels (the twin of the JAX package's
-``kernels/ref.py``): f32 math, results cast back to the IO dtype.
+"""Plain-PyTorch oracles of the kernels (the twin of the JAX package's
+``kernels/ref.py``): the LSTM kernels and the RWKV6 chunked scan, f32
+math, results cast back to the IO dtype where the kernel's are.
 
 Each CUDA kernel of the port is held against these on the card, and the CPU
 tests hold these against the JAX originals.
@@ -133,3 +134,80 @@ def lstm_seq_q8_traj(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
     """Trajectory oracle of the q8 training path (``lstm_seq_traj``'s
     layout: f32 (T, L, B, H) post-step states)."""
     return lstm_seq_traj(dequantize_q8(wq, scales), b, x)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 chunked wkv scan (kernels/wkv6.py)
+# ---------------------------------------------------------------------------
+def wkv6_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk of the RWKV6 recurrence, f32, for one (batch, head) or
+    a batch of them (any leading dims).
+
+    r,k,logw: (..., C, dk); v: (..., C, dv); u: (..., dk);
+    state: (..., dk, dv).
+      S_t = diag(exp(logw_t)) S_{t-1} + k_t^T v_t
+      out_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+    Stable within-chunk parallel form using only non-positive exponents.
+    """
+    r, k, v = r.to(F32), k.to(F32), v.to(F32)
+    logw, u, state = logw.to(F32), u.to(F32), state.to(F32)
+    C = r.shape[-2]
+    L = torch.cumsum(logw, dim=-2)              # inclusive: L_i = sum_{j<=i}
+    L_prev = L - logw                           # exclusive: L_{i-1}
+    # carry term: r_i diag(exp(L_prev_i)) S
+    out = (r * torch.exp(L_prev)) @ state       # (..., C, dv)
+    # intra-chunk term, j < i:  A[i,j,c] = exp(L_prev[i,c] - L[j,c])  (<= 0)
+    diff = L_prev[..., :, None, :] - L[..., None, :, :]     # (..., C, C, dk)
+    idx = torch.arange(C, device=r.device)
+    mask = idx[:, None] > idx[None, :]
+    # mask the exponent (j >= i entries are positive: exp would overflow
+    # under strong decay and NaN the VJP), not the scores
+    diff = torch.where(mask[:, :, None], diff,
+                       torch.tensor(-torch.inf, device=r.device))
+    scores = torch.einsum("...ic,...jc,...ijc->...ij", r, k, torch.exp(diff))
+    out = out + scores @ v
+    # bonus (diagonal) term
+    out = out + torch.einsum("...ic,...c,...ic->...i", r, u, k)[..., None] * v
+    # state update: S' = diag(exp(L_last)) S
+    #                    + sum_j diag(exp(L_last - L_j)) k_j^T v_j
+    L_last = L[..., -1, :]
+    decay_j = torch.exp(L_last[..., None, :] - L)  # (..., C, dk), <= 0
+    state_new = (torch.exp(L_last)[..., :, None] * state
+                 + (k * decay_j).transpose(-1, -2) @ v)
+    return out, state_new
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+         chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence oracle: ``wkv6_chunk`` over T/chunk chunks in order.
+
+    r,k,logw: (..., T, dk); v: (..., T, dv); state: (..., dk, dv);
+    T % chunk == 0.  Returns (out (..., T, dv) f32, state f32)."""
+    T = r.shape[-2]
+    assert T % chunk == 0, (T, chunk)
+    s = state.to(F32)
+    outs = []
+    for t0 in range(0, T, chunk):
+        win = slice(t0, t0 + chunk)
+        out, s = wkv6_chunk(r[..., win, :], k[..., win, :], v[..., win, :],
+                            logw[..., win, :], u, s)
+        outs.append(out)
+    return torch.cat(outs, dim=-2), s
+
+
+def wkv6_stepwise(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-timestep reference recurrence (the 'fine-grained' plan), f32.
+    r,k,logw: (..., T, dk); v: (..., T, dv); state: (..., dk, dv)."""
+    r, k, v = r.to(F32), k.to(F32), v.to(F32)
+    logw, u, s = logw.to(F32), u.to(F32), state.to(F32)
+    outs = []
+    for t in range(r.shape[-2]):
+        kv = k[..., t, :, None] * v[..., t, None, :]
+        outs.append((r[..., t, None, :] @ (s + u[..., :, None] * kv))[..., 0, :])
+        s = torch.exp(logw[..., t, :])[..., :, None] * s + kv
+    return torch.stack(outs, dim=-2), s

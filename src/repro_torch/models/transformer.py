@@ -1,0 +1,217 @@
+"""Decoder assembly (the port's twin of the JAX package's
+``models/transformer.py``), with the RWKV6 path ported.
+
+A model is a periodic stack of blocks; each block = (mix, mlp) chosen per
+slot by the config.  The port has the rwkv6 blocks (time-mix + channel-mix);
+a config with attention, Mamba or MoE layers, vision tokens or audio
+codebooks raises ``NotImplementedError`` naming the ROADMAP item that ports
+it.  As in JAX, the block parameters are a list over the period's slots
+whose leaves are stacked over layer groups (a leading layer axis); the
+layers run in a Python loop over the groups.
+
+Three entry points share the block code:
+  * forward      — full sequence from zero state (reference logits)
+  * prefill      — full sequence, fills the decode cache IN PLACE
+  * decode_step  — one token against the preallocated cache, in place
+
+The cache is written in place (``copy_`` into the checked-out buffers):
+the JAX package donates its caches to its jits for the same effect, so a
+serve never allocates a cache (core/state.StatePool).  The
+sequence-parallel time-mix and ``prefill_chunk`` (chunked admission) wait
+for their slices (ROADMAP Queue 1 items 14 and 12).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common, rwkv
+from repro_torch.optim.adamw import tree_map
+
+F32 = torch.float32
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    """Raise for what the port cannot run yet, naming its ROADMAP item."""
+    if cfg.n_codebooks or cfg.n_vis_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: audio and vision fronts come with the LM stack "
+            "(ROADMAP Queue 1 item 11)")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers come with the LM stack (ROADMAP Queue 1 "
+            "item 11)")
+    for s in range(cfg.period):
+        if cfg.layer_kind(s) == "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: attention layers come with the LM stack "
+                "(ROADMAP Queue 1 item 11; kernels K8, K9)")
+    if cfg.ssm is None or cfg.ssm.kind != "rwkv6":
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba layers come with the Mamba family (ROADMAP "
+            "Queue 1 item 10; kernel K7)")
+
+
+def _n_groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.period
+
+
+def _layer(tree, g: int):
+    """Group ``g``'s slice (views) of a tree whose leaves are stacked over
+    groups."""
+    return tree_map(lambda t: t[g], tree)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def _init_slot(gen: torch.Generator, cfg: ModelConfig, dtype, device
+               ) -> dict:
+    return {"ln1": common.init_norm(cfg.d_model, cfg.norm, F32, device),
+            "mix": rwkv.init_tmix(gen, cfg, dtype, device),
+            "ln2": common.init_norm(cfg.d_model, cfg.norm, F32, device),
+            "mlp": rwkv.init_cmix(gen, cfg, dtype, device)}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                device: str | torch.device = "cpu") -> dict:
+    """Parameter tree with weights drawn from ``gen`` (a generator on
+    ``device``): ``embed``, ``blocks`` (a list over the period's slots,
+    leaves stacked over layer groups), ``final_norm`` and ``lm_head``, in
+    the JAX package's layouts."""
+    _check_ported(cfg)
+    dtype = _dtype(cfg)
+    p: dict = {"embed": common.init_embedding(gen, cfg.vocab, cfg.d_model,
+                                              dtype, device)}
+    p["blocks"] = []
+    for _ in range(cfg.period):
+        groups = [_init_slot(gen, cfg, dtype, device)
+                  for _ in range(_n_groups(cfg))]
+        p["blocks"].append(tree_map(lambda *ts: torch.stack(ts), *groups))
+    p["final_norm"] = common.init_norm(cfg.d_model, cfg.norm, F32, device)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = common.init_linear(gen, cfg.d_model, cfg.vocab, dtype,
+                                          device)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device: str | torch.device = "cpu") -> dict:
+    """Zero decode cache: ``pos`` (a 0-d int32 tensor) and per slot the
+    token-shift states ``shift_t``/``shift_c`` (groups, B, d) in the model
+    dtype and the wkv state (groups, B, H, dh, dh) f32.  ``max_seq`` is
+    the JAX signature's; RWKV state does not grow with the sequence.  On
+    the ``meta`` device it is the shape-and-dtype spec a StatePool builds
+    its buffers from."""
+    _check_ported(cfg)
+    del max_seq
+    dtype, n = _dtype(cfg), _n_groups(cfg)
+    H, dh, d = rwkv.n_heads(cfg), cfg.ssm.head_dim, cfg.d_model
+    slot = {"shift_t": torch.zeros(n, batch, d, dtype=dtype, device=device),
+            "wkv": torch.zeros(n, batch, H, dh, dh, dtype=F32, device=device),
+            "shift_c": torch.zeros(n, batch, d, dtype=dtype, device=device)}
+    slots = [slot] + [{k: torch.zeros_like(v) for k, v in slot.items()}
+                      for _ in range(cfg.period - 1)]
+    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+            "slots": slots}
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+def _apply_mlp_slot(slot_p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    cache: dict) -> tuple[torch.Tensor, dict]:
+    """Second half-block (the rwkv6 channel-mix) with residual."""
+    h = common.apply_norm(slot_p["ln2"], x, cfg.norm)
+    out, shift = rwkv.apply_cmix(slot_p["mlp"], h, cache["shift_c"])
+    return x + out, dict(cache, shift_c=shift)
+
+
+def _apply_block(slot_p: dict, cfg: ModelConfig, x: torch.Tensor,
+                 cache_slot: dict, mode: str) -> tuple[torch.Tensor, dict]:
+    """One block (time-mix + channel-mix).  ``cache_slot`` has NO group
+    dim.  mode: 'full' | 'prefill' | 'decode'.  Returns the new
+    activations and the block's new states (new tensors)."""
+    h = common.apply_norm(slot_p["ln1"], x, cfg.norm)
+    fn = rwkv.step_tmix if mode == "decode" else rwkv.apply_tmix
+    out, shift, state = fn(slot_p["mix"], cfg, h, cache_slot["shift_t"],
+                           cache_slot["wkv"])
+    x = x + out
+    return _apply_mlp_slot(slot_p, cfg, x, dict(cache_slot, shift_t=shift,
+                                                wkv=state))
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
+                 ) -> torch.Tensor:
+    del cfg
+    return params["embed"][batch["tokens"].long()]
+
+
+def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
+              ) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].T
+    else:
+        logits = common.apply_linear(params["lm_head"], x)
+    return common.softcap(logits.to(F32), cfg.logit_softcap)
+
+
+def _run_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
+               cache: dict, mode: str) -> torch.Tensor:
+    """All layers in order, each starting from its slice of the cache and
+    copying its new states into it."""
+    for g in range(_n_groups(cfg)):
+        for s in range(cfg.period):
+            slot_p = _layer(params["blocks"][s], g)
+            slot_c = _layer(cache["slots"][s], g)
+            x, new = _apply_block(slot_p, cfg, x, slot_c, mode)
+            for name, buf in slot_c.items():
+                buf.copy_(new[name])
+    return common.apply_norm(params["final_norm"], x, cfg.norm)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+def forward(params: dict, cfg: ModelConfig, batch: dict, *,
+            inference: bool = False) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward from zero state (a scratch cache, thrown
+    away).  Returns (logits (B,S,V) f32, aux).  ``inference`` is the JAX
+    signature's (it switches MoE dispatch, which the rwkv6 path does not
+    have)."""
+    del inference
+    x = embed_inputs(params, cfg, batch)
+    cache = init_cache(cfg, x.shape[0], x.shape[1], x.device)
+    x = _run_stack(params, cfg, x, cache, "full")
+    return lm_logits(params, cfg, x), {}
+
+
+def prefill(params: dict, cfg: ModelConfig, cache: dict, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward that fills the decode cache in place.
+
+    Returns (logits of the LAST position (B,1,V) f32, the same cache)."""
+    x = embed_inputs(params, cfg, batch)
+    x = _run_stack(params, cfg, x, cache, "prefill")
+    cache["pos"].fill_(x.shape[1])
+    return lm_logits(params, cfg, x[:, -1:]), cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, cache: dict, batch: dict
+                ) -> tuple[torch.Tensor, dict]:
+    """One decode step, in place.  batch['tokens']: (B,).  Returns
+    (logits (B,V) f32, the same cache)."""
+    x = embed_inputs(params, cfg, {"tokens": batch["tokens"][:, None]})
+    x = _run_stack(params, cfg, x, cache, "decode")
+    cache["pos"].add_(1)
+    return lm_logits(params, cfg, x)[:, 0], cache

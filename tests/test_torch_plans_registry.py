@@ -1,8 +1,8 @@
 """The port's plan registry (``repro_torch.core.plans``) against the JAX
-package's (``repro.core.plans``): the LSTM family's plan names, policies,
-tolerance tables, launch counts and cases, its sweeps, and the port's five
-plans swept over the JAX family's cases against the JAX package's
-``sequential`` on the CPU."""
+package's (``repro.core.plans``): the LSTM and RWKV6 families' plan names,
+policies, tolerance tables, launch counts and cases, their sweeps, and the
+port's plans swept over the JAX families' cases against the JAX package's
+oracles (``sequential``, ``stepwise``) on the CPU."""
 import dataclasses
 
 import numpy as np
@@ -20,6 +20,8 @@ from repro.partitioning import split  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.mobirnn_lstm import LSTMConfig  # noqa: E402
 from repro_torch.core import lstm, plans  # noqa: E402
+from repro_torch.kernels import wkv6 as wkv6_k  # noqa: E402
+from repro_torch.obs import trace as trace_lib  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
 
 FAMILY = plans.get_family("lstm")
@@ -67,7 +69,8 @@ def test_sweeps_are_the_jax_float32_sweeps():
         ids(jax_plans.value_sweep(), "lstm")
     assert ids(plans.grad_sweep(), "lstm") == \
         ids(jax_plans.grad_sweep(), "lstm")
-    assert all(sc.dtype == "float32" for sc in plans.value_sweep())
+    assert all(sc.dtype == "float32" for sc in plans.value_sweep()
+               if sc.family == "lstm")
 
 
 def test_register_family_needs_its_oracle():
@@ -113,8 +116,11 @@ def test_port_plan_matches_jax_sequential_on_jax_cases(plan, case):
                                else plans.LSTM_TOL["float32"])
 
 
-@pytest.mark.parametrize("sc", plans.grad_sweep(),
-                         ids=[sc.id for sc in plans.grad_sweep()])
+LSTM_GRAD_SWEEP = [sc for sc in plans.grad_sweep() if sc.family == "lstm"]
+
+
+@pytest.mark.parametrize("sc", LSTM_GRAD_SWEEP,
+                         ids=[sc.id for sc in LSTM_GRAD_SWEEP])
 def test_port_plan_grads_match_jax_sequential_on_jax_cases(sc):
     (jcfg, jparams, x, labels), (cfg, params, xt, yt) = _jax_inputs(sc.case)
     want = jax.grad(jax_lstm.loss_fn)(jparams, x, labels, jcfg)
@@ -145,3 +151,142 @@ def test_grads_hook_leaves_the_inputs_untouched():
                zip(before, tree_leaves(inputs[1])))
     shapes = tree_map(lambda t: tuple(t.shape), inputs[1])
     assert tree_map(lambda t: tuple(t.shape), grads) == shapes
+
+
+# ---------------------------------------------------------------------------
+# the rwkv6 family
+# ---------------------------------------------------------------------------
+RWKV = plans.get_family("rwkv6")
+JAX_RWKV = jax_plans.get_family("rwkv6")
+
+
+def test_the_rwkv6_family_has_the_jax_plans_in_order():
+    assert list(RWKV.plans) == list(JAX_RWKV.plans) == \
+        list(plans.RWKV_PLANS)
+    assert RWKV.oracle == JAX_RWKV.oracle == "stepwise"
+    assert RWKV.dtypes == JAX_RWKV.dtypes == ("float32", "bfloat16")
+    assert RWKV.profile_hook is None
+    for name, spec in RWKV.plans.items():
+        assert spec.name == name and spec.fn is plans.RWKV_PLANS[name]
+
+
+def test_rwkv6_tolerance_tables_are_the_jax_ones():
+    assert plans.RWKV_TOL == jax_plans.RWKV_TOL
+    assert plans.RWKV_GRAD_TOL == jax_plans.RWKV_GRAD_TOL
+
+
+@pytest.mark.parametrize("plan", list(plans.RWKV_PLANS))
+def test_each_rwkv6_plan_has_the_jax_policy_and_launch_counts(plan):
+    """The same policies and forward launches; ``chunked_scan`` has no
+    training count until its backward kernel (K6b) is ported (JAX: 2)."""
+    mine, theirs = RWKV.plans[plan], JAX_RWKV.plans[plan]
+    assert mine.policy == theirs.policy
+    assert mine.fwd_launches == theirs.fwd_dispatches
+    if plan == "chunked_scan":
+        assert (mine.fwd_launches, mine.train_launches) == (1, None)
+        assert theirs.train_dispatches == 2
+    else:
+        assert mine.train_launches == theirs.train_dispatches
+
+
+def test_rwkv6_cases_and_sweeps_are_the_jax_ones():
+    assert [tuple(c) for c in RWKV.cases] == \
+        [tuple(c) for c in JAX_RWKV.cases]
+
+    def ids(sweep):
+        return [(sc.id, sc.heavy) for sc in sweep if sc.family == "rwkv6"]
+    assert ids(plans.value_sweep()) == ids(jax_plans.value_sweep())
+    assert ids(plans.grad_sweep()) == ids(jax_plans.grad_sweep())
+
+
+def test_rwkv6_viability_gates_only_the_kernel_plan():
+    serving = RWKV.viability(512, 64, 64, chunk=32)
+    assert all(serving(n) for n in plans.RWKV_PLANS)
+    tiny = RWKV.viability(512, 64, 64, smem_budget=1024)
+    assert not tiny("chunked_scan") and tiny("chunked_xla") \
+        and tiny("stepwise")
+    # no backward kernel yet: a training call through the kernel plan
+    # would raise on the card
+    train = RWKV.viability(512, 64, 64, train=True)
+    assert not train("chunked_scan") and train("stepwise")
+
+
+def _jax_rwkv_inputs(case, dtype):
+    """The JAX family's inputs for ``case`` and the port's copy of them
+    (bf16 values carried through f32 exactly)."""
+    args, chunk = JAX_RWKV.make_inputs(case, dtype)
+    dt = getattr(torch, dtype)
+    mine = [torch.from_numpy(np.array(a, np.float32)).to(
+        dt if i < 3 else torch.float32) for i, a in enumerate(args)]
+    return (args, chunk), (mine, chunk)
+
+
+def _f32(a):
+    return np.asarray(a, np.float32) if not isinstance(a, torch.Tensor) \
+        else a.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", list(RWKV.dtypes))
+@pytest.mark.parametrize("case", JAX_RWKV.cases,
+                         ids=[c.label for c in JAX_RWKV.cases])
+@pytest.mark.parametrize("plan", list(plans.RWKV_PLANS))
+def test_port_rwkv6_plan_matches_jax_stepwise_on_jax_cases(plan, case,
+                                                           dtype):
+    (jargs, chunk), (args, _) = _jax_rwkv_inputs(case, dtype)
+    want = jax_plans.RWKV_PLANS["stepwise"](*jargs, chunk=chunk)
+    got = plans.RWKV_PLANS[plan](*args, chunk=chunk)
+    assert got[0].dtype == args[2].dtype and got[1].dtype == torch.float32
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_f32(g), _f32(w), **RWKV.tol(plan, dtype))
+
+
+RWKV_GRAD_SWEEP = [sc for sc in plans.grad_sweep() if sc.family == "rwkv6"
+                   and not sc.heavy]
+
+
+@pytest.mark.parametrize("sc", RWKV_GRAD_SWEEP,
+                         ids=[sc.id for sc in RWKV_GRAD_SWEEP])
+def test_port_rwkv6_plan_grads_match_jax_stepwise_on_jax_cases(sc):
+    """CPU gradients (autograd of the plain versions) against JAX's
+    gradients of its stepwise oracle, at the family's gradient tolerance."""
+    (jargs, chunk), (args, _) = _jax_rwkv_inputs(sc.case, sc.dtype)
+    want = JAX_RWKV.grads("stepwise", (jargs, chunk))
+    got = RWKV.grads(sc.plan, (args, chunk))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   **RWKV.grad_tol(sc.plan, sc.dtype))
+
+
+def test_chunked_scan_routes_to_chunked_xla_where_no_chunk_fits():
+    """Heads wider than a thread block has threads fit no tile: on the CPU
+    the plan runs ``chunked_xla`` and says so; on the card it raises, as
+    the kernel's wrapper does (no plain version stands in for the kernel
+    there)."""
+    rng = np.random.default_rng(0)
+    B, S, H, dk, dv = 1, 6, 1, 4, wkv6_k.THREADS + 8
+    r, k = (torch.from_numpy(rng.standard_normal((B, S, H, dk)
+                                                 ).astype(np.float32))
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal((B, S, H, dv)
+                                             ).astype(np.float32))
+    logw = -torch.exp(torch.from_numpy(rng.standard_normal((B, S, H, dk)
+                                                           ).astype(np.float32)))
+    u = torch.zeros(H, dk)
+    s = torch.zeros(B, H, dk, dv)
+    sink = trace_lib.ListSink()
+    old = trace_lib.set_tracer(trace_lib.Tracer(sink))
+    try:
+        got = plans.RWKV_PLANS["chunked_scan"](r, k, v, logw, u, s, chunk=4)
+    finally:
+        trace_lib.set_tracer(old)
+    want = plans.RWKV_PLANS["chunked_xla"](r, k, v, logw, u, s, chunk=4)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    (event,) = sink.records
+    assert event["attrs"]["fallback"] == "chunked_xla"
+    with pytest.raises(ValueError, match="fit no chunk; the working set"):
+        plans._rwkv_scan_blocks(S, dk, dv, 4, torch.device("cuda"))
+    with pytest.raises(ValueError, match="fit no chunk"):
+        plans.RWKV_PLANS["chunked_scan"](
+            *(t.to("meta") for t in (r, k, v, logw, u, s)), chunk=4)
+    assert plans._rwkv_scan_blocks(S, 64, 64, 4, torch.device("cuda")) \
+        == wkv6_k.WkvBlocks(4, 1)
