@@ -28,7 +28,16 @@ raise, every launch of the serve held against the plain version on the
 inputs it was given, then the same requests with
 ``models.rwkv.WKV_PLAN = "chunked_xla"`` (and the waves' prefills through
 ``stepwise``: the first-token logits of the three plans are printed beside
-each other).
+each other).  Then the RWKV6 training slice: the trajectory forward K6t
+and the backward K6b against their plain versions and torch autograd (the
+same cases), the 4-layer f32 model's ``loss_fn`` gradients through the
+kernels against those through ``chunked_xla``, with remat on and off and
+its launches per step against the JAX package's dispatch count, and
+RWKV6-3B trained at full width and depth in bf16 through
+``repro_torch.launch.train`` (8 steps of batch 4 x 512, the plain scans
+armed to raise, every K6b launch of step 1 held against its plain
+version, the last step under torch.profiler for where the device's time
+goes).
 It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work.
@@ -75,6 +84,14 @@ CONSISTENCY_TOL = dict(rtol=3e-4, atol=3e-4)
 #: float32 FLOP/s outside the tensor cores — the kernels use CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+#: Its bf16 dense tensor-core peak: the yardstick of a training step's
+#: model FLOPs.
+BF16_FLOP_PER_S = 989e12
+#: JAX's Pallas dispatches of one value_and_grad of its loss_fn through
+#: chunked_scan at 4 layers, with remat (the trajectory forward, its
+#: recompute and the backward: 3 a layer) and without (2 a layer); pinned
+#: on the CPU by tests/test_torch_lm_train.py.
+JAX_TRAIN_DISPATCHES_4 = {True: 12, False: 8}
 REPO = Path(__file__).resolve().parent
 
 
@@ -162,6 +179,62 @@ def tripwires(*where):
             setattr(mod, name, fn)
 
 
+def wkv_inputs(BH, T, dk, dv, dtype, gen, decay=1.0):
+    """r, k, v in ``dtype``; logw (<= 0, scaled by ``decay``), u and the
+    state f32; on the card."""
+    r, k = (randn(BH, T, dk, gen=gen).to(dtype) for _ in range(2))
+    v = randn(BH, T, dv, gen=gen).to(dtype)
+    logw = -torch.exp(randn(BH, T, dk, gen=gen)) * decay
+    return (r, k, v, logw, randn(BH, dk, gen=gen),
+            randn(BH, dk, dv, gen=gen, scale=0.3))
+
+
+def wkv6_fwd_work(BH, T, dk, dv, C, dtype, traj=False) -> tuple[int, int]:
+    """(bytes, operations) of one K6 launch (K6t with ``traj``): r, k, v
+    in and out in the IO type, logw f32, u, s0 and s_out f32 (and s_traj
+    f32 out); per chunk of a row the carry, the scores (sub, 2 mul, add),
+    scores x v, the bonus, bonus x v, the state update and the decays."""
+    io = 2 if dtype == torch.bfloat16 else 4
+    nt = -(-T // C)
+    nbytes = (io * BH * T * (2 * dk + 2 * dv) + 4 * BH * T * dk
+              + 4 * (BH * dk + 2 * BH * dk * dv))
+    if traj:
+        nbytes += 4 * BH * nt * dk * dv
+    pairs = C * (C - 1) // 2
+    per_chunk = (2 * C * dk * dv + 4 * pairs * dk + 2 * pairs * dv
+                 + 3 * C * dk + 2 * C * dv + 2 * C * dk * dv + dk * dv
+                 + 3 * C * dk)
+    return nbytes, BH * nt * per_chunk
+
+
+def wkv6_bwd_work(BH, T, dk, dv, C, dtype) -> tuple[int, int]:
+    """(bytes, operations) that the chunk backward of ``kernels/wkv6.py``'s
+    docstring needs, each distinct product and exponential counted once (a
+    multiply-add is 2 operations, an exponential 1), whatever the kernel
+    recomputes: r, k, v, dout in and dr, dk, dv out in the IO type; logw in
+    and dlogw out, u, du, the chunk-incoming states, s_fin, ds_fin and ds0
+    f32.  Per chunk of a row: four (C, dk, dv) products (dv's state term
+    through k e^{Llast - L}, dr's carry S dO, dk's v . dS', the dS update
+    through r e^{L_prev}); for each of the C(C-1)/2 pairs over dk the decay
+    (sub, exp), k times it, A, dr's term, r times it and dk's term, and over
+    dv dA and dv's term; per (i, c) the cumsum, the two decays and their
+    products with r and k, the bonus and its three gradient terms, du, the
+    two scalings, dlogw's two inputs, the state term and the reverse
+    cumsums; per (i, n) db and dv's bonus term; dS' scaled and Llast's
+    term."""
+    io = 2 if dtype == torch.bfloat16 else 4
+    nt = -(-T // C)
+    nbytes = (io * BH * T * (4 * dk + 3 * dv) + 4 * BH * T * 2 * dk
+              + 4 * 2 * BH * dk + 4 * BH * nt * dk * dv
+              + 4 * 3 * BH * dk * dv)
+    pairs = C * (C - 1) // 2
+    per_chunk = (8 * C * dk * dv
+                 + pairs * (10 * dk + 4 * dv)
+                 + 26 * C * dk + 4 * C * dv
+                 + 3 * dk * dv + 3 * dk)
+    return nbytes, BH * nt * per_chunk
+
+
 def rwkv_slice(device, gen, counted, counts, only) -> dict:
     """The RWKV6 slice: K6 against its plain version, the 4-layer f32 model
     across plans and against its own forward, the 32-layer bf16 RWKV6-3B
@@ -181,11 +254,7 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
     tol = plans.RWKV_TOL
 
     def inputs(BH, T, dk, dv, dtype, decay=1.0):
-        r, k = (randn(BH, T, dk, gen=gen).to(dtype) for _ in range(2))
-        v = randn(BH, T, dv, gen=gen).to(dtype)
-        logw = -torch.exp(randn(BH, T, dk, gen=gen)) * decay
-        return (r, k, v, logw, randn(BH, dk, gen=gen),
-                randn(BH, dk, dv, gen=gen, scale=0.3))
+        return wkv_inputs(BH, T, dk, dv, dtype, gen, decay)
 
     # --- R1. K6 against its plain version -----------------------------------
     errs = {"float32": 0.0, "bfloat16": 0.0}
@@ -428,20 +497,10 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
 
     # --- R4. K6's times at the serving heads -------------------------------
     BH, T, dk, dv, C = 160, 512, 64, 64, 32
-    pairs = C * (C - 1) // 2
-    # multiply-adds of one chunk of one row: carry, scores (sub, 2 mul,
-    # add), scores x v, bonus, bonus x v, state update, decays
-    per_chunk = (2 * C * dk * dv + 4 * pairs * dk + 2 * pairs * dv
-                 + 3 * C * dk + 2 * C * dv + 2 * C * dk * dv + dk * dv
-                 + 3 * C * dk)
     rows = {}
     for dtype in (bf16, f32):
-        io = 2 if dtype == bf16 else 4
         a = inputs(BH, T, dk, dv, dtype)
-        # r, k, v in and out in the IO type; logw f32; u, s0, s_out f32
-        nbytes = (io * BH * T * (2 * dk + 2 * dv) + 4 * BH * T * dk
-                  + 4 * (BH * dk + 2 * BH * dk * dv))
-        t_bound, by = bound(nbytes, BH * (T // C) * per_chunk)
+        t_bound, by = bound(*wkv6_fwd_work(BH, T, dk, dv, C, dtype))
         rows[dtype] = dict(
             ms=time_ms(lambda: wkv6_k.wkv6(*a, chunk=C), 50),
             plain_ms=time_ms(lambda: wkv6_k.wkv6_plain(*a, chunk=C), 2),
@@ -461,6 +520,406 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
             "bound_by": main_row["bound_by"], "library_ms": None}
+
+
+def device_time(events, spans=()) -> tuple[float, dict, dict]:
+    """The device's busy time in one profiled step (one stream, so kernels
+    do not overlap), that time by group — the wkv kernels, the matrix
+    products, the kernels inside the optimizer's span (``spans``, empty
+    when the host was not traced) and the rest — and by kernel name with
+    its launches."""
+    def group(e) -> str:
+        name = e.name.lower()
+        if "wkv6" in name:
+            return "wkv6 kernels"
+        if any(k in name for k in ("gemm", "cutlass", "xmma", "nvjet")):
+            return "matrix products"
+        if any(t.start <= e.time_range.start <= t.end for t in spans):
+            return "AdamW"
+        return "other"
+
+    by_group = dict.fromkeys(("wkv6 kernels", "matrix products", "AdamW",
+                              "other"), 0.0)
+    by_name: dict[str, list] = {}
+    for e in events:
+        ms = e.time_range.elapsed_us() / 1e3
+        by_group[group(e)] += ms
+        entry = by_name.setdefault(e.name, [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+    return sum(by_group.values()), by_group, by_name
+
+
+def print_step_profile(profiles: list[dict], unprofiled_ms: float) -> None:
+    """Where the last two training steps' device time goes, from
+    torch.profiler's device events.  The first traced the device alone:
+    its busy time against its own wall gives the device's idle share, and
+    its wall against the unprofiled steps' median the tracing's host cost.
+    The second also traced the host, so the optimizer's span groups its
+    kernels; its wall carries the host tracing's cost and is not used."""
+    span = "adamw.update_"
+    for prof in profiles:
+        device = [e for e in prof["events"]
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = [e.time_range for e in device if e.name == span]
+        kernels = [e for e in device if e.name != span]
+        what = ("device and host traced" if prof["host"]
+                else "device traced alone")
+        if not kernels:
+            print(f"[profile] training step {prof['step']} ({what}): the "
+                  "profiler recorded no device time; not measured")
+            continue
+        busy, by_group, by_name = device_time(kernels, spans)
+        groups = "; ".join(f"{g} {t:.3f} ms" for g, t in by_group.items()
+                           if prof["host"] or g != "AdamW")
+        if prof["host"]:
+            print(f"[profile] training step {prof['step']} ({what}): device "
+                  f"busy {busy:.3f} ms; {groups}")
+            top = sorted(by_name.items(), key=lambda kv: kv[1][0],
+                         reverse=True)
+            for name, (ms, n) in top[:12]:
+                print(f"[profile]   {ms:9.3f} ms in {n:5d} launches: "
+                      f"{name[:110]}")
+        else:
+            wall = prof["wall_ms"]
+            print(f"[profile] training step {prof['step']} ({what}): wall "
+                  f"{wall:.3f} ms ({wall - unprofiled_ms:+.3f} ms against the"
+                  f" unprofiled median), device busy {busy:.3f} ms, idle "
+                  f"{1 - busy / wall:.1%} of this step's wall; {groups} "
+                  f"(AdamW in other)")
+
+
+def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
+    """The RWKV6 training slice: K6t and K6b against their plain versions
+    and torch autograd (R5); the full-width model cut to 4 layers in f32,
+    its gradients through the kernels against those through
+    ``chunked_xla``, with remat on and off, and its launches per step
+    against JAX's dispatch count (R6); RWKV6-3B trained at full width and
+    depth in bf16 through ``launch/train.py``, counted, the plain scans
+    armed to raise, each K6b launch of step 1 held against its plain
+    version (R7); the two kernels' times (R8).  Returns their entries of
+    the ``kernels`` line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import plans
+    from repro_torch import steps as steps_lib
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wkv6_k
+    from repro_torch.launch import train as train_lm
+    from repro_torch.models import registry, rwkv
+    from repro_torch.optim.adamw import tree_leaves
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol, grad_tol = plans.RWKV_TOL, plans.RWKV_GRAD_TOL["float32"]
+    names = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+
+    bf16_step = {"share": 0.0}
+
+    def hold(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+        """Hold a gradient to its reference; return the max abs error.  One
+        in f32 at RWKV_GRAD_TOL; one in bf16 at RWKV_TOL bf16 with its atol
+        scaled by the reference's max abs, and also within one bf16 step at
+        that max, 2^-7 * max|want| (the largest share is kept)."""
+        if want.dtype == f32:
+            return close(got, want, what, grad_tol)
+        m = float(want.float().abs().max())
+        t = tol["bfloat16"]
+        e = close(got.float(), want.float(), what,
+                  dict(rtol=t["rtol"], atol=t["atol"] * m))
+        check(e <= 2.0 ** -7 * m, f"{what}: max abs err {e} is past one "
+              f"bf16 step at max|want| {m}")
+        bf16_step["share"] = max(bf16_step["share"], e / m if m else 0.0)
+        return e
+
+    def cotangents(BH, T, dk, dv, dtype):
+        return randn(BH, T, dv, gen=gen).to(dtype), randn(BH, dk, dv, gen=gen)
+
+    def bwd_args(a, traj, s_fin, dout, dsf):
+        return (*a[:5], traj, s_fin, dout, dsf)
+
+    # --- R5. K6t and K6b against their plain versions ----------------------
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in ("traj", "bwd")}
+    fam = plans.get_family("rwkv6")
+    cases = [(c.label, (c.shape[0] * c.shape[2], c.shape[1], c.shape[3],
+                        c.shape[4], c.shape[5])) for c in fam.cases]
+    cases += [(f"full width T={T}", (160, T, 64, 64, 32)) for T in (512, 500)]
+    for label, (BH, T, dk, dv, C) in cases:
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[1]
+            a = wkv_inputs(BH, T, dk, dv, dtype, gen)
+            out, s_out = wkv6_k.wkv6(*a, chunk=C)
+            t_out, t_s, traj = wkv6_k.wkv6_traj(*a, chunk=C)
+            check(torch.equal(out, t_out) and torch.equal(s_out, t_s),
+                  f"wkv6_traj {label} {name}: out or state differs from "
+                  "wkv6's")
+            p_out, _, p_traj = wkv6_k.wkv6_traj_plain(*a, C)
+            e_t = max(close(t_out.float(), p_out.float(),
+                            f"wkv6_traj {label} {name} out", tol[name]),
+                      close(traj, p_traj, f"wkv6_traj {label} {name} s_traj",
+                            tol["float32"]))
+            errs["traj"][name] = max(errs["traj"][name], e_t)
+            dout, dsf = cotangents(BH, T, dk, dv, dtype)
+            args = bwd_args(a, traj, t_s, dout, dsf)
+            got = wkv6_k.wkv6_bwd(*args, chunk=C)
+            plain = wkv6_k.wkv6_bwd_plain(*args, C)
+            x = [t.clone().requires_grad_() for t in a]
+            with torch.enable_grad():
+                auto = torch.autograd.grad(wkv6_k.wkv6_plain(*x, C), x,
+                                           (dout, dsf))
+            e_b = e_a = 0.0
+            for n, g, pl, au in zip(names, got, plain, auto):
+                check(g.dtype == pl.dtype == au.dtype,
+                      f"wkv6_bwd {label} {name} {n}: dtype {g.dtype}")
+                e_b = max(e_b, hold(g, pl, f"wkv6_bwd {label} {name} {n} "
+                                    "vs plain"))
+                e_a = max(e_a, hold(g, au, f"wkv6_bwd {label} {name} {n} "
+                                    "vs autograd"))
+            errs["bwd"][name] = max(errs["bwd"][name], e_b)
+            print(f"[K6t/K6b] {label} (BH={BH} T={T} {dk}x{dv} C={C}) {name}:"
+                  f" K6t out and state bit-equal to K6's, vs plain {e_t:.3e};"
+                  f" K6b vs plain {e_b:.3e}, vs autograd of wkv6_plain "
+                  f"{e_a:.3e}")
+    for dtype in (f32, bf16):
+        for BH, T, dk, dv, C in ((4, 19, 8, 8, 8), (160, 500, 64, 64, 32)):
+            a = wkv_inputs(BH, T, dk, dv, dtype, gen, decay=1e6)
+            _, s_fin, traj = wkv6_k.wkv6_traj(*a, chunk=C)
+            got = wkv6_k.wkv6_bwd(*bwd_args(a, traj, s_fin, *cotangents(
+                BH, T, dk, dv, dtype)), chunk=C)
+            check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+                  f"wkv6_bwd BH={BH} T={T} {dtype}: a gradient is not finite"
+                  " at log-decays of -1e6")
+    print("[K6b] gradients finite at single-step log-decays down to -1e6 "
+          "(f32, bf16; T=19 and the full width at T=500)")
+    a = wkv_inputs(160, 500, 64, 64, bf16, gen)
+    _, s_fin, traj = wkv6_k.wkv6_traj(*a, chunk=32)
+    args = bwd_args(a, traj, s_fin, *cotangents(160, 500, 64, 64, bf16))
+    base = wkv6_k.wkv6_bwd(*args, chunk=32)
+    check(all(torch.equal(g, w) for g, w in zip(
+        wkv6_k.wkv6_bwd(*args, chunk=32), base)),
+          "wkv6_bwd: two runs differ")
+    for i in (0, 77, 159):
+        alone = wkv6_k.wkv6_bwd(*(t[i:i + 1] for t in args), chunk=32)
+        check(all(torch.equal(g[0], w[i]) for g, w in zip(alone, base)),
+              f"wkv6_bwd full-width row {i} alone differs from the batch")
+        t_alone = wkv6_k.wkv6_traj(*(t[i:i + 1] for t in a), chunk=32)[2]
+        check(torch.equal(t_alone[0], traj[i]),
+              f"wkv6_traj full-width row {i} alone differs from the batch")
+    a = wkv_inputs(5, 23, 64, 64, f32, gen)
+    _, s_fin, traj = wkv6_k.wkv6_traj(*a, chunk=8)
+    args = bwd_args(a, traj, s_fin, *cotangents(5, 23, 64, 64, f32))
+    base = wkv6_k.wkv6_bwd(*args, chunk=8)
+    for bt in (2, 5):
+        check(all(torch.equal(g, w) for g, w in zip(
+            wkv6_k.wkv6_bwd(*args, chunk=8, bh_tile=bt), base)),
+              f"wkv6_bwd bh_tile={bt} differs from bh_tile=1")
+    print("[K6b] two runs bit-identical; rows bit-identical alone and in a "
+          "batch (bf16 rows 0, 77, 159 of 160 at T=500, K6t too; f32 BH=5, "
+          "T=23 at tiles 1, 2, 5)")
+
+    # --- R6. the full-width model cut to 4 layers, f32: gradients ----------
+    cfg4 = dataclasses.replace(get_arch("rwkv6-3b"), n_layers=4,
+                               dtype="float32")
+    m4 = registry.build(cfg4)
+    cgen = torch.Generator(device=device).manual_seed(0)
+    p4 = m4.init(cgen, device)
+    mix, mlp = p4["blocks"][0]["mix"], p4["blocks"][0]["mlp"]
+    for t in (mix["maa_x"], mix["maa"], mix["u"], mlp["mu_k"], mlp["mu_r"]):
+        t.add_(0.1 * torch.randn(t.shape, generator=cgen, device=device))
+    leaves = tree_leaves(p4)
+    for t in leaves:
+        t.requires_grad_()
+    batch = {"tokens": torch.randint(0, cfg4.vocab, (2, 300), generator=cgen,
+                                     device=device)}
+    L = cfg4.n_layers
+
+    def grads(remat: bool):
+        reset_counts(*counted)
+        loss, _ = steps_lib.loss_fn(p4, cfg4, batch, remat=remat)
+        g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.detach(), g, counts()
+
+    loss_on, g_on, n_on = grads(True)
+    loss_off, g_off, n_off = grads(False)
+    for remat, n in ((True, n_on), (False, n_off)):
+        want = only(wkv6_traj=(2 if remat else 1) * L, wkv6_bwd=L)
+        check(n == want and n["wkv6_traj"] + n["wkv6_bwd"]
+              == JAX_TRAIN_DISPATCHES_4[remat],
+              f"4-layer training step (remat {remat}) launched {n}")
+    d_remat = max(float((a - b).abs().max()) for a, b in zip(g_on, g_off))
+    for a, b in zip(g_on, g_off):
+        close(a, b, "4-layer grads, remat on vs off", grad_tol)
+    old = rwkv.WKV_PLAN
+    rwkv.WKV_PLAN = "chunked_xla"
+    try:
+        loss_x, g_x, n_x = grads(True)
+    finally:
+        rwkv.WKV_PLAN = old
+    check(n_x == only(), f"chunked_xla training step launched {n_x}")
+    e = close(loss_on, loss_x, "4-layer loss, chunked_scan vs chunked_xla",
+              grad_tol)
+    for a, b in zip(g_on, g_x):
+        e = max(e, close(a, b, "4-layer grads, chunked_scan vs chunked_xla",
+                         grad_tol))
+    print(f"[train] 4 x 2560 f32, B=2 S=300: loss_fn grads through "
+          f"chunked_scan vs chunked_xla max abs err {e:.3e} (RWKV_GRAD_TOL "
+          f"f32); remat on vs off max abs diff {d_remat:.3e}; launches a "
+          f"step: remat on {n_on['wkv6_traj']} K6t + {n_on['wkv6_bwd']} "
+          f"K6b, off {n_off['wkv6_traj']} + {n_off['wkv6_bwd']}, no K6 (JAX:"
+          f" {JAX_TRAIN_DISPATCHES_4[True]} and "
+          f"{JAX_TRAIN_DISPATCHES_4[False]})")
+    del p4, leaves, g_on, g_off, g_x
+    torch.cuda.empty_cache()
+
+    # --- R7. RWKV6-3B trained at full width and depth, bf16 ----------------
+    cfg = get_arch("rwkv6-3b")
+    n_steps, L = 8, cfg.n_layers
+    kernel_bwd, plain_bwd = wkv6_k.wkv6_bwd, wkv6_k.wkv6_bwd_plain
+    seen = {"n": 0, "err": 0.0, "shape": None}
+
+    def checked_bwd(*args, **kwargs):
+        """K6b as the training step calls it; each launch of step 1 (the
+        first L) held against the plain version on its own inputs.  The
+        wrapper counts its launches through its module's name, which is
+        this function while it is installed: the count is carried
+        across."""
+        checked_bwd.launches = kernel_bwd.launches
+        got = kernel_bwd(*args, **kwargs)
+        kernel_bwd.launches = checked_bwd.launches
+        if seen["n"] < L:
+            want = plain_bwd(*args, kwargs["chunk"])
+            for n, g, w in zip(names, got, want):
+                seen["err"] = max(seen["err"], hold(
+                    g, w, f"trained wkv6_bwd launch {seen['n']} {n}"))
+            seen["n"] += 1
+            seen["shape"] = (tuple(args[0].shape), args[0].dtype,
+                             kwargs["chunk"])
+        return got
+
+    train_step = steps_lib.train_step
+    profiles = []
+
+    def profiled_step(*args, **kwargs):
+        """The last two steps under torch.profiler: the first tracing the
+        device alone, the second the host too (the steps before them run
+        as they are)."""
+        profiled_step.n += 1
+        if profiled_step.n <= n_steps - 2:
+            return train_step(*args, **kwargs)
+        host = profiled_step.n == n_steps
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        if host:
+            acts.append(torch.profiler.ProfilerActivity.CPU)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as p:
+            t1 = time.perf_counter()
+            out = train_step(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        profiles.append({"step": profiled_step.n, "host": host,
+                         "wall_ms": wall, "events": p.events()})
+        return out
+
+    profiled_step.n = 0
+    wkv6_k.wkv6_bwd, steps_lib.train_step = checked_bwd, profiled_step
+    reset_counts(*counted)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with tripwires((wkv6_k, "wkv6_plain"), (wkv6_k, "wkv6_traj_plain"),
+                       (wkv6_k, "wkv6_bwd_plain"), (ref, "wkv6"),
+                       (ref, "wkv6_traj"), (ref, "wkv6_stepwise"),
+                       (rwkv, "wkv_chunked")):
+            report = train_lm.main([
+                "--arch", cfg.name, "--device", "cuda", "--steps",
+                str(n_steps), "--batch", "4", "--seq", "512", "--log-every",
+                "1", "--seed", "0"])
+    finally:
+        wkv6_k.wkv6_bwd, steps_lib.train_step = kernel_bwd, train_step
+    wall = time.perf_counter() - t0
+    got = counts()
+    check(got == only(wkv6_traj=2 * L * n_steps, wkv6_bwd=L * n_steps),
+          f"{n_steps} training steps launched {got}")
+    check(seen["n"] == L, f"checked {seen['n']} K6b launches of step 1")
+    check(all(math.isfinite(x) for x in report["losses"]
+              + report["grad_norms"]),
+          f"a loss or grad_norm is not finite: {report['losses']}, "
+          f"{report['grad_norms']}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # step 1 also ran the 32 checks, the last two the profiler
+    step_ms = report["step_ms"][1:-2]
+    med = statistics.median(step_ms)
+    tokens = report["tokens_per_step"]
+    model_flops = 6 * report["n_params"] * tokens
+    print(f"[train] {cfg.name}: {report['n_params'] / 1e9:.3f} B parameters "
+          f"in {cfg.dtype}, batch 4 x 512, {n_steps} steps in {wall:.1f} s "
+          f"(init included); launches {got['wkv6_traj']} K6t + "
+          f"{got['wkv6_bwd']} K6b ({2 * L} + {L} a step), none of K6, no "
+          "plain scan reached; every loss and grad_norm finite; peak "
+          f"device memory {peak:.2f} GB (torch.cuda.max_memory_allocated)")
+    print(f"[train] each of step 1's {seen['n']} K6b launches (r "
+          f"{seen['shape'][0]} {seen['shape'][1]}, C={seen['shape'][2]}) "
+          f"against wkv6_bwd_plain on its own inputs: max abs err "
+          f"{seen['err']:.3e} (dr, dk, dv at RWKV_TOL bf16 x max|grad| and "
+          "one bf16 step at max|grad|, dlogw, du, ds0 at RWKV_GRAD_TOL f32)")
+    print(f"[time] training step, {cfg.name}, batch 4 x 512, steps 2 to "
+          f"{n_steps - 2}: median {med:.3f} ms, min {min(step_ms):.3f} ms "
+          f"(host clock around the step, ending in the loss's copy to the "
+          f"host); "
+          f"{tokens / (med / 1e3):.1f} tokens/s; model FLOPs (6 x params x "
+          f"tokens, {model_flops:.3e} a step) at "
+          f"{model_flops / (med / 1e3) / BF16_FLOP_PER_S:.2%} of the H100's "
+          "989 TFLOP/s bf16 dense peak")
+    print_step_profile(profiles, med)
+    launches = {"wkv6_traj": got["wkv6_traj"], "wkv6_bwd": got["wkv6_bwd"]}
+    torch.cuda.empty_cache()
+
+    # --- R8. K6t's and K6b's times at the training heads -------------------
+    BH, T, dk, dv = 160, 512, 64, 64
+    C = wkv6_k.choose_blocks(T, dk, dv, target=cfg.ssm.chunk,
+                             mode="bwd").chunk
+    rows = {}
+    for dtype in (bf16, f32):
+        a = wkv_inputs(BH, T, dk, dv, dtype, gen)
+        _, s_fin, traj = wkv6_k.wkv6_traj(*a, chunk=C)
+        args = bwd_args(a, traj, s_fin, *cotangents(BH, T, dk, dv, dtype))
+        t_bound, by = bound(*wkv6_fwd_work(BH, T, dk, dv, C, dtype,
+                                           traj=True))
+        rows["wkv6_traj", dtype] = dict(
+            ms=time_ms(lambda: wkv6_k.wkv6_traj(*a, chunk=C), 50),
+            plain_ms=time_ms(lambda: wkv6_k.wkv6_traj_plain(*a, C), 2),
+            bound_ms=t_bound, bound_by=by)
+        t_bound, by = bound(*wkv6_bwd_work(BH, T, dk, dv, C, dtype))
+        rows["wkv6_bwd", dtype] = dict(
+            ms=time_ms(lambda: wkv6_k.wkv6_bwd(*args, chunk=C), 20),
+            plain_ms=time_ms(lambda: wkv6_k.wkv6_bwd_plain(*args, C), 2),
+            bound_ms=t_bound, bound_by=by)
+        for name in ("wkv6_traj", "wkv6_bwd"):
+            r = rows[name, dtype]
+            print(f"[time] {name} BH={BH} T={T} {dk}x{dv} C={C} "
+                  f"{str(dtype).split('.')[1]}: kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f} ms, library none (no single "
+                  f"PyTorch call computes it), bound {r['bound_ms']:.3e} ms "
+                  f"({r['bound_by']})")
+    print(f"[K6t/K6b] max abs err vs plain: K6t f32 "
+          f"{errs['traj']['float32']:.3e}, bf16 {errs['traj']['bfloat16']:.3e}"
+          f"; K6b f32 {errs['bwd']['float32']:.3e}, bf16 "
+          f"{errs['bwd']['bfloat16']:.3e}; bf16 dr, dk, dv (R5 and R7) "
+          f"within {bf16_step['share']:.3e} x max|want| (held at one bf16 "
+          f"step, 2^-7 = {2.0 ** -7:.3e})")
+    entries = []
+    for name, replaces in (("wkv6_traj", "src/repro/kernels/wkv6.py:318"),
+                           ("wkv6_bwd", "src/repro/kernels/wkv6.py:327")):
+        r = rows[name, bf16]
+        src = "wkv6.cu" if name == "wkv6_traj" else "wkv6_bwd.cu"
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name.split("_")[1]]["bfloat16"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
+    return entries
 
 
 def main() -> None:
@@ -490,7 +949,8 @@ def main() -> None:
 
     counted = (cell_k.lstm_cell, seq_k.lstm_seq, seq_k.lstm_seq_traj,
                bwd_k.lstm_seq_bwd, seq_k.lstm_seq_q8, seq_k.lstm_seq_q8_traj,
-               bwd_k.lstm_seq_bwd_q8, wkv6_k.wkv6)
+               bwd_k.lstm_seq_bwd_q8, wkv6_k.wkv6, wkv6_k.wkv6_traj,
+               wkv6_k.wkv6_bwd)
 
     def counts() -> dict:
         return {fn.__name__: fn.launches for fn in counted}
@@ -1344,6 +1804,7 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kernels.append(rwkv_slice(device, gen, counted, counts, only))
+    kernels += rwkv_train_slice(device, gen, counted, counts, only)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

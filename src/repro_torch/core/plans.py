@@ -25,11 +25,12 @@ Families registered here:
 * ``rwkv6`` — ``stepwise`` (the per-timestep oracle, models/rwkv.wkv_step
   over T), ``chunked_xla`` (models/rwkv.wkv_chunked, the plain-PyTorch
   chunked scan, chunk clamped to the largest divisor of T) and
-  ``chunked_scan`` (kernels/wkv6, ONE kernel launch forward, any T; where
-  ``choose_blocks`` finds no chunk, a CPU call routes to ``chunked_xla``
-  with a ``plan/dispatch fallback=`` event and a CUDA call raises).  Dtypes float32 and bfloat16.
-  ``chunked_scan`` has no training launch count until its backward kernel
-  (K6b) is ported.  Viability is ``rwkv_viability``.
+  ``chunked_scan`` (kernels/wkv6, ONE kernel launch forward and TWO per
+  gradient — the trajectory forward K6t and the reverse sweep K6b — at any
+  T; where ``choose_blocks`` finds no chunk, a CPU call routes to
+  ``chunked_xla`` with a ``plan/dispatch fallback=`` event and a CUDA call
+  raises).  Dtypes float32 and bfloat16.  Viability is
+  ``rwkv_viability``.
 
 ``profile_hook`` is None for both: the JAX hooks price each candidate
 tiling with a TPU roofline (``analysis.*_stream_costs``), which says
@@ -351,43 +352,50 @@ def _rwkv_chunked_xla(r, k, v, logw, u, state, *, chunk):
 
 
 def _rwkv_scan_blocks(seq_len: int, dk: int, dv: int, chunk: int,
-                      device: torch.device):
-    """The kernel plan's tiling, or None where ``choose_blocks`` finds no
-    chunk that fits a thread block and the tensors are on the CPU (the plan
-    then runs ``chunked_xla``).  On the card no plain version stands in
-    for the kernel: there it raises ValueError naming the working set."""
+                      device: torch.device, train: bool = False):
+    """The kernel plan's tiling — from the backward's table when ``train``
+    (its chunk serves both training launches) — or None where
+    ``choose_blocks`` finds no chunk that fits a thread block and the
+    tensors are on the CPU (the plan then runs ``chunked_xla``).  On the
+    card no plain version stands in for the kernels: there it raises
+    ValueError naming the working set."""
     from repro_torch.core import factorization
     from repro_torch.kernels import wkv6 as wkv6_lib
 
-    blocks = wkv6_lib.choose_blocks(seq_len, dk, dv, target=chunk)
+    mode = "bwd" if train else "fwd"
+    blocks = wkv6_lib.choose_blocks(seq_len, dk, dv, target=chunk, mode=mode)
     if blocks is None and device.type != "cpu":
-        smem = wkv6_lib.working_set_bytes(seq_len, dk, dv, 1)
+        smem = wkv6_lib.working_set_bytes(seq_len, dk, dv, 1, mode=mode)
         raise ValueError(
             f"chunked_scan: heads of {dk} x {dv} fit no chunk; the working "
-            f"set at chunk 1 is {smem} bytes of shared memory (at most "
-            f"{factorization.H100_SMEM_PER_BLOCK}) and a side may have at "
-            f"most {wkv6_lib.THREADS}")
+            f"set of the {mode} kernel at chunk 1 is {smem} bytes of shared "
+            f"memory (at most {factorization.H100_SMEM_PER_BLOCK}) and a side "
+            f"may have at most {wkv6_lib.THREADS}")
     return blocks
 
 
 def _rwkv_chunked_scan(r, k, v, logw, u, state, *, chunk):
-    """kernels/wkv6 (K6): the model layout (B,S,H,*) folded to the
-    kernel's (B*H, S, *), u broadcast per batch-head row, any T.  Where
-    ``choose_blocks`` finds no chunk that fits a thread block, a CPU call
-    runs ``chunked_xla`` and says so in a ``plan/dispatch`` event, and a
-    CUDA call raises (``_rwkv_scan_blocks``)."""
+    """kernels/wkv6: the model layout (B,S,H,*) folded to the kernels'
+    (B*H, S, *), u broadcast per batch-head row (its gradient summed over
+    B by autograd), any T.  Inference is K6; a call autograd records is
+    K6t forward and K6b backward, at the chunk of the backward's table.
+    Where ``choose_blocks`` finds no chunk that fits a thread block, a CPU
+    call runs ``chunked_xla`` and says so in a ``plan/dispatch`` event,
+    and a CUDA call raises (``_rwkv_scan_blocks``)."""
     from repro_torch.kernels import wkv6 as wkv6_lib
     from repro_torch.obs import trace as trace_lib
 
     B, S, H, dk = r.shape
     dv = v.shape[-1]
-    blocks = _rwkv_scan_blocks(S, dk, dv, chunk, r.device)
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r, k, v, logw, u, state))
+    blocks = _rwkv_scan_blocks(S, dk, dv, chunk, r.device, train)
     if blocks is None:
         tracer = trace_lib.get_tracer()
         if tracer.enabled:
             tracer.event("plan/dispatch", family="rwkv6",
                          plan="chunked_scan", fallback="chunked_xla",
-                         n_bh=B * H, seq_len=S, dk=dk, dv=dv)
+                         n_bh=B * H, seq_len=S, dk=dk, dv=dv, train=train)
         return _rwkv_chunked_xla(r, k, v, logw, u, state, chunk=chunk)
 
     def fold(a):
@@ -433,15 +441,15 @@ def rwkv_viability(seq_len: int, dk: int, dv: int, *, chunk: int = 32,
                    smem_budget: int | None = None, train: bool = False
                    ) -> Callable[[str], bool]:
     """Fig 7 ``viable=`` predicate for the rwkv6 family, from the
-    kernels/wkv6 budget table: the kernel plan is a real plan only while
-    ``choose_blocks`` finds a chunk that fits a thread block.  With
-    ``train=True`` it is not viable at all until the backward kernel (K6b)
-    is ported: a CUDA training call through it would raise.  Every other
-    plan name stays viable."""
+    kernels/wkv6 budget tables: the kernel plan is a real plan only while
+    ``choose_blocks`` finds a chunk that fits a thread block — for
+    ``train=True`` the backward's (K6b), whose working set is the larger,
+    else the forward's.  Every other plan name stays viable."""
     from repro_torch.kernels import wkv6 as wkv6_lib
 
-    blocks = None if train else wkv6_lib.choose_blocks(
-        seq_len, dk, dv, target=chunk, smem_budget=smem_budget)
+    blocks = wkv6_lib.choose_blocks(seq_len, dk, dv, target=chunk,
+                                    smem_budget=smem_budget,
+                                    mode="bwd" if train else "fwd")
 
     def viable(plan_name: str) -> bool:
         return blocks is not None or plan_name not in RWKV_SCAN_PLANS
@@ -455,7 +463,8 @@ def _build_rwkv_family() -> Family:
         "chunked_xla": PlanSpec("chunked_xla", _rwkv_chunked_xla,
                                 _RWKV_EXACT),
         "chunked_scan": PlanSpec("chunked_scan", _rwkv_chunked_scan,
-                                 _RWKV_EXACT, fwd_launches=1),
+                                 _RWKV_EXACT, fwd_launches=1,
+                                 train_launches=2),
     }
     return Family(
         name="rwkv6", oracle="stepwise", plans=specs, cases=_RWKV_CASES,

@@ -1,8 +1,9 @@
-// RWKV6 chunked scan (K6), f32 and bf16 IO, for Hopper (sm_90a).
+// RWKV6 chunked scan (K6) and its trajectory-writing instance (K6t), f32
+// and bf16 IO, for Hopper (sm_90a).
 //
-// Replaces the JAX package's Pallas kernel kernels/wkv6.py:_kernel (body
-// _fwd_body, chunk math _chunk_math), launched by _fwd_call: the RWKV6
-// recurrence
+// Replaces the JAX package's Pallas kernels kernels/wkv6.py:_kernel and
+// _traj_kernel (body _fwd_body, chunk math _chunk_math), launched by
+// _fwd_call: the RWKV6 recurrence
 //   S_t = diag(exp(logw_t)) S_{t-1} + k_t^T v_t,
 //   out_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 // over whole sequences, one batch-head row at a time, in chunks of C steps.
@@ -37,6 +38,14 @@
 // conflict-free rows (the (C, dk) tiles are padded by one word).  All
 // accumulation is f32.  Two-slot cp.async windows and wgmma for the
 // C x dk x dv products are later work.
+//
+// K6t (kTraj = true) is the same kernel with one more output: before each
+// chunk it writes the block's shared-memory state, the state the chunk
+// starts from, to s_traj[row][chunk] (f32), the residual the backward
+// (csrc/wkv6_bwd.cu) recomputes each chunk from.  It reads the state and
+// writes nothing the chunk loop reads, so its out and final state are bit
+// for bit K6's (the JAX contract of _kernel and _traj_kernel); it adds
+// T / C * dk * dv * 4 bytes a row of stores, 42 MB at the serving shapes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,13 +72,14 @@ __host__ __device__ inline long long smem_floats(int C, int dk, int dv) {
          (long long)dk * dv + dk + C;
 }
 
-template <typename IO>
+template <typename IO, bool kTraj>
 __global__ void __launch_bounds__(kThreads)
     wkv6_kernel(const IO* __restrict__ r, const IO* __restrict__ k,
                 const IO* __restrict__ v, const float* __restrict__ logw,
                 const float* __restrict__ u, const float* __restrict__ s0,
-                IO* __restrict__ out, float* __restrict__ s_out, int BH,
-                int T, int dk, int dv, int C, int bh_tile) {
+                IO* __restrict__ out, float* __restrict__ s_out,
+                float* __restrict__ s_traj, int BH, int T, int dk, int dv,
+                int C, int bh_tile) {
   extern __shared__ float smem[];
   const int pk = dk + 1;
   float* sr = smem;            // r, then r * e^{L_prev}
@@ -96,6 +106,10 @@ __global__ void __launch_bounds__(kThreads)
 
     for (int ch = 0; ch < nchunks; ++ch) {
       const int t0 = ch * C;
+      if (kTraj) {  // the state this chunk starts from
+        float* dst = s_traj + ((long long)row * nchunks + ch) * dk * dv;
+        for (int e = tid; e < dk * dv; e += kThreads) dst[e] = sS[e];
+      }
       // (1) the chunk's windows, f32; steps past T are identity steps
       for (int e = tid; e < C * dk; e += kThreads) {
         const int i = e / dk, c = e - i * dk;
@@ -232,11 +246,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename IO>
+template <typename IO, bool kTraj>
 int launch(const IO* r, const IO* k, const IO* v, const float* logw,
-           const float* u, const float* s0, IO* out, float* s_out, int BH,
-           int T, int dk, int dv, int chunk, int bh_tile, long long smem,
-           void* stream) {
+           const float* u, const float* s0, IO* out, float* s_out,
+           float* s_traj, int BH, int T, int dk, int dv, int chunk,
+           int bh_tile, long long smem, void* stream) {
   if (BH < 1 || T < 0 || chunk < 1 || bh_tile < 1 || dk < 1 || dv < 1 ||
       dk > kThreads || dv > kThreads)
     return (int)cudaErrorInvalidValue;
@@ -245,13 +259,15 @@ int launch(const IO* r, const IO* k, const IO* v, const float* logw,
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        wkv6_kernel<IO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        wkv6_kernel<IO, kTraj>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int grid = (BH + bh_tile - 1) / bh_tile;
-  wkv6_kernel<IO><<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
-      r, k, v, logw, u, s0, out, s_out, BH, T, dk, dv, chunk, bh_tile);
+  wkv6_kernel<IO, kTraj>
+      <<<grid, kThreads, (size_t)smem, (cudaStream_t)stream>>>(
+          r, k, v, logw, u, s0, out, s_out, s_traj, BH, T, dk, dv, chunk,
+          bh_tile);
   return (int)cudaGetLastError();
 }
 
@@ -263,13 +279,14 @@ extern "C" {
 // (BH, dk, dv); all contiguous.  logw, u and the states are f32; r, k, v
 // and out f32 (wkv6_f32) or bf16 (wkv6_bf16).  smem must equal the
 // block's shared memory, 4 * smem_floats(chunk, dk, dv) bytes.  Grid:
-// ceil(BH / bh_tile) blocks of 256 threads.
+// ceil(BH / bh_tile) blocks of 256 threads.  The _traj entries (K6t) also
+// write s_traj (BH, ceil(T / chunk), dk, dv) f32.
 int wkv6_f32(const float* r, const float* k, const float* v,
              const float* logw, const float* u, const float* s0, float* out,
              float* s_out, int BH, int T, int dk, int dv, int chunk,
              int bh_tile, long long smem, void* stream) {
-  return launch<float>(r, k, v, logw, u, s0, out, s_out, BH, T, dk, dv,
-                       chunk, bh_tile, smem, stream);
+  return launch<float, false>(r, k, v, logw, u, s0, out, s_out, nullptr, BH,
+                              T, dk, dv, chunk, bh_tile, smem, stream);
 }
 
 int wkv6_bf16(const void* r, const void* k, const void* v, const float* logw,
@@ -277,9 +294,29 @@ int wkv6_bf16(const void* r, const void* k, const void* v, const float* logw,
               int BH, int T, int dk, int dv, int chunk, int bh_tile,
               long long smem, void* stream) {
   using bf16 = __nv_bfloat16;
-  return launch<bf16>((const bf16*)r, (const bf16*)k, (const bf16*)v, logw,
-                      u, s0, (bf16*)out, s_out, BH, T, dk, dv, chunk,
-                      bh_tile, smem, stream);
+  return launch<bf16, false>((const bf16*)r, (const bf16*)k, (const bf16*)v,
+                             logw, u, s0, (bf16*)out, s_out, nullptr, BH, T,
+                             dk, dv, chunk, bh_tile, smem, stream);
+}
+
+int wkv6_traj_f32(const float* r, const float* k, const float* v,
+                  const float* logw, const float* u, const float* s0,
+                  float* out, float* s_out, float* s_traj, int BH, int T,
+                  int dk, int dv, int chunk, int bh_tile, long long smem,
+                  void* stream) {
+  return launch<float, true>(r, k, v, logw, u, s0, out, s_out, s_traj, BH,
+                             T, dk, dv, chunk, bh_tile, smem, stream);
+}
+
+int wkv6_traj_bf16(const void* r, const void* k, const void* v,
+                   const float* logw, const float* u, const float* s0,
+                   void* out, float* s_out, float* s_traj, int BH, int T,
+                   int dk, int dv, int chunk, int bh_tile, long long smem,
+                   void* stream) {
+  using bf16 = __nv_bfloat16;
+  return launch<bf16, true>((const bf16*)r, (const bf16*)k, (const bf16*)v,
+                            logw, u, s0, (bf16*)out, s_out, s_traj, BH, T,
+                            dk, dv, chunk, bh_tile, smem, stream);
 }
 
 const char* wkv6_error_string(int err) {

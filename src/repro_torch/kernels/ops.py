@@ -6,9 +6,9 @@
 (the model's ``cfg.ssm.chunk``) and runs one batch-head row per thread
 block.  Any block may be pinned by the caller.  CPU tensors run the
 kernels' plain versions; CUDA tensors launch the kernels.  The LSTM entries
-are differentiable: under autograd ``lstm_seq`` and ``lstm_seq_q8`` pair
-their trajectory launch with the backward kernel, and ``lstm_cell`` takes
-the VJP of its plain version; ``wkv6`` has no backward kernel yet.
+are differentiable: under autograd ``lstm_seq``, ``lstm_seq_q8`` and
+``wkv6`` pair their trajectory launch with their backward kernel, and
+``lstm_cell`` takes the VJP of its plain version.
 """
 from __future__ import annotations
 
@@ -76,6 +76,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     r, k, logw: (BH, T, dk); v: (BH, T, dv); u: (BH, dk); state:
     (BH, dk, dv).  Returns (out (BH, T, dv) in v's dtype, final state f32).
-    Forward only: there is no backward kernel yet, so a CUDA call under
-    autograd raises (a CPU call differentiates the plain version)."""
+    Under autograd: the trajectory launch K6t forward and the backward
+    kernel K6b (on the CPU their plain versions)."""
     return _wkv6.wkv6(r, k, v, logw, u, state, chunk=chunk, bh_tile=bh_tile)

@@ -198,6 +198,31 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=-2), s
 
 
+def wkv6_traj(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
+              chunk: int
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Trajectory-writing oracle — the residual contract of the RWKV6
+    training path (the trajectory launch of kernels/csrc/wkv6.cu, consumed
+    by kernels/csrc/wkv6_bwd.cu).
+
+    ``wkv6`` plus the CHUNK-INCOMING states ``s_traj (..., T // chunk, dk,
+    dv)`` f32: entry ``t`` is the state chunk ``t`` starts from (entry 0 is
+    ``state``), as the JAX package's ``_fwd_body`` writes them.  Returns
+    (out, state', s_traj) with (out, state') exactly ``wkv6``'s."""
+    T = r.shape[-2]
+    assert T % chunk == 0, (T, chunk)
+    s = state.to(F32)
+    outs, traj = [], []
+    for t0 in range(0, T, chunk):
+        win = slice(t0, t0 + chunk)
+        traj.append(s)
+        out, s = wkv6_chunk(r[..., win, :], k[..., win, :], v[..., win, :],
+                            logw[..., win, :], u, s)
+        outs.append(out)
+    return torch.cat(outs, dim=-2), s, torch.stack(traj, dim=-3)
+
+
 def wkv6_stepwise(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -40,16 +40,13 @@ def train_step(params: dict, state: dict, x: torch.Tensor, y: torch.Tensor,
                ) -> tuple[dict, torch.Tensor, torch.Tensor]:
     """One AdamW step on the batch (x, y) through ``forward``: the loss at
     the current parameters, their gradients by ``torch.autograd``, and the
-    update, written into the parameter tensors in place.  Returns the new
-    optimizer state, the loss and the gradient norm before clipping."""
-    leaves = tree_leaves(params)
+    update, written into the parameter tensors and ``state`` in place.
+    Returns the optimizer state, the loss and the gradient norm before
+    clipping."""
     loss = lstm.loss_fn(params, x, y, cfg, forward=forward)
-    flat = iter(torch.autograd.grad(loss, leaves))
+    flat = iter(torch.autograd.grad(loss, tree_leaves(params)))
     grads = tree_map(lambda _: next(flat), params)
-    new, state, metrics = opt.update(grads, state, params)
-    with torch.no_grad():
-        for p, n in zip(leaves, tree_leaves(new)):
-            p.copy_(n)
+    metrics = opt.update_(grads, state, params)
     return state, loss.detach(), metrics["grad_norm"]
 
 

@@ -24,8 +24,9 @@ class Model:
                    device: str | torch.device = "cpu") -> dict:
         return transformer.init_cache(self.cfg, batch, max_seq, device)
 
-    def forward(self, params, batch, inference: bool = False):
-        return transformer.forward(params, self.cfg, batch,
+    def forward(self, params, batch, remat: bool = False,
+                inference: bool = False):
+        return transformer.forward(params, self.cfg, batch, remat=remat,
                                    inference=inference)
 
     def prefill(self, params, cache, batch):

@@ -10,23 +10,28 @@ whose leaves are stacked over layer groups (a leading layer axis); the
 layers run in a Python loop over the groups.
 
 Three entry points share the block code:
-  * forward      — full sequence from zero state (reference logits)
+  * forward      — full sequence from zero state (reference logits, and
+                   the training forward: differentiable, ``remat=``)
   * prefill      — full sequence, fills the decode cache IN PLACE
   * decode_step  — one token against the preallocated cache, in place
 
-The cache is written in place (``copy_`` into the checked-out buffers):
-the JAX package donates its caches to its jits for the same effect, so a
-serve never allocates a cache (core/state.StatePool).  The
-sequence-parallel time-mix and ``prefill_chunk`` (chunked admission) wait
-for their slices (ROADMAP Queue 1 items 14 and 12).
+``forward`` carries each layer's states as values, as the JAX package's
+does: writing them into a scratch cache would modify tensors autograd has
+saved.  prefill and decode write the cache in place (``copy_`` into the
+checked-out buffers): the JAX package donates its caches to its jits for
+the same effect, so a serve never allocates a cache
+(core/state.StatePool).  The sequence-parallel time-mix and
+``prefill_chunk`` (chunked admission) wait for their slices (ROADMAP
+Queue 1 items 14 and 12).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, rwkv
-from repro_torch.optim.adamw import tree_map
+from repro_torch.optim.adamw import tree_leaves, tree_map
 
 F32 = torch.float32
 
@@ -66,6 +71,19 @@ def _layer(tree, g: int):
     return tree_map(lambda t: t[g], tree)
 
 
+def _groups(tree, n: int) -> list:
+    """The ``n`` group slices of a tree whose leaves are stacked over
+    groups, with ONE ``unbind(0)`` per leaf: its backward stacks the
+    groups' gradients into one leaf-sized tensor, where ``t[g]`` per layer
+    would allocate and zero a whole leaf-sized gradient for every group."""
+    parts = [leaf.unbind(0) for leaf in tree_leaves(tree)]
+    out = []
+    for g in range(n):
+        it = iter([p[g] for p in parts])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -102,6 +120,16 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 # ---------------------------------------------------------------------------
 # Cache
 # ---------------------------------------------------------------------------
+def _zero_slot(cfg: ModelConfig, batch: int, device) -> dict:
+    """One layer's zero states (the JAX package's ``_dummy_cache_slot``):
+    what ``forward`` starts every layer from."""
+    dtype, d = _dtype(cfg), cfg.d_model
+    H, dh = rwkv.n_heads(cfg), cfg.ssm.head_dim
+    return {"shift_t": torch.zeros(batch, d, dtype=dtype, device=device),
+            "wkv": torch.zeros(batch, H, dh, dh, dtype=F32, device=device),
+            "shift_c": torch.zeros(batch, d, dtype=dtype, device=device)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: str | torch.device = "cpu") -> dict:
     """Zero decode cache: ``pos`` (a 0-d int32 tensor) and per slot the
@@ -112,13 +140,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     its buffers from."""
     _check_ported(cfg)
     del max_seq
-    dtype, n = _dtype(cfg), _n_groups(cfg)
-    H, dh, d = rwkv.n_heads(cfg), cfg.ssm.head_dim, cfg.d_model
-    slot = {"shift_t": torch.zeros(n, batch, d, dtype=dtype, device=device),
-            "wkv": torch.zeros(n, batch, H, dh, dh, dtype=F32, device=device),
-            "shift_c": torch.zeros(n, batch, d, dtype=dtype, device=device)}
-    slots = [slot] + [{k: torch.zeros_like(v) for k, v in slot.items()}
-                      for _ in range(cfg.period - 1)]
+    n = _n_groups(cfg)
+    slots = [{k: v.expand(n, *v.shape).clone()
+              for k, v in _zero_slot(cfg, batch, device).items()}
+             for _ in range(cfg.period)]
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
             "slots": slots}
 
@@ -169,7 +194,8 @@ def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
 def _run_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
                cache: dict, mode: str) -> torch.Tensor:
     """All layers in order, each starting from its slice of the cache and
-    copying its new states into it."""
+    copying its new states into it (prefill and decode, never under
+    autograd)."""
     for g in range(_n_groups(cfg)):
         for s in range(cfg.period):
             slot_p = _layer(params["blocks"][s], g)
@@ -184,15 +210,29 @@ def _run_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
 # Entry points
 # ---------------------------------------------------------------------------
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
-            inference: bool = False) -> tuple[torch.Tensor, dict]:
-    """Full-sequence forward from zero state (a scratch cache, thrown
-    away).  Returns (logits (B,S,V) f32, aux).  ``inference`` is the JAX
-    signature's (it switches MoE dispatch, which the rwkv6 path does not
-    have)."""
+            remat: bool = False, inference: bool = False
+            ) -> tuple[torch.Tensor, dict]:
+    """Full-sequence forward, every layer from zero states, the states
+    carried as values (differentiable).  Returns (logits (B,S,V) f32,
+    aux).  ``remat`` recomputes each layer group in the backward
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of
+    its group function): only the groups' inputs are kept, and a group's
+    forward runs twice per gradient.  ``inference`` is the JAX signature's
+    (it switches MoE dispatch, which the rwkv6 path does not have)."""
     del inference
     x = embed_inputs(params, cfg, batch)
-    cache = init_cache(cfg, x.shape[0], x.shape[1], x.device)
-    x = _run_stack(params, cfg, x, cache, "full")
+    zeros = _zero_slot(cfg, x.shape[0], x.device)
+
+    def group_fn(x, group_p):
+        for slot_p in group_p:
+            x, _ = _apply_block(slot_p, cfg, x, zeros, "full")
+        return x
+
+    slots = [_groups(p, _n_groups(cfg)) for p in params["blocks"]]
+    for group_p in zip(*slots):
+        x = (checkpoint(group_fn, x, group_p, use_reentrant=False) if remat
+             else group_fn(x, group_p))
+    x = common.apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x), {}
 
 

@@ -4,10 +4,14 @@ tensors.
 
 Not ``torch.optim.AdamW``: its defaults (b2 0.999, decay 0.01 coupled to
 the learning rate differently) and the absence of clipping would change the
-trajectory the port is held to.  Parameters and gradients are the plain
-parameter trees of ``core/lstm`` (dicts and lists of tensors); moments are
-f32 whatever the parameter dtype, the update is computed in f32 and cast
-back.
+trajectory the port is held to.  Parameters and gradients are plain
+parameter trees (dicts and lists of tensors: ``core/lstm``'s, the language
+models'); moments are f32 whatever the parameter dtype, the update is
+computed in f32 and cast back.  ``update_`` writes the JAX package's
+numbers into the parameters and moments in place, one leaf at a time
+(the JAX package returns new trees and donates the old ones to its jit),
+so that a step of a model of billions of parameters holds one leaf's f32
+temporaries at a time and no second copy of the moments.
 """
 from __future__ import annotations
 
@@ -62,34 +66,31 @@ class AdamW:
         return torch.tensor(self.lr, dtype=F32)
 
     @torch.no_grad()
-    def update(self, grads: Any, state: dict, params: Any
-               ) -> tuple[Any, dict, dict]:
-        """Returns (new_params, new_state, metrics); metrics holds the
-        global gradient norm before clipping (``grad_norm``) and ``lr``."""
-        step = state["step"] + 1
-        step_f = torch.tensor(step, dtype=F32)
-        g32 = tree_map(lambda g: g.to(F32), grads)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g))
-                               for g in tree_leaves(g32)))
-        if self.grad_clip:
-            scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
-            g32 = tree_map(lambda g: g * scale, g32)
-        mu = tree_map(lambda m, g: self.b1 * m + (1 - self.b1) * g,
-                      state["mu"], g32)
-        nu = tree_map(lambda n, g: self.b2 * n + (1 - self.b2) * g * g,
-                      state["nu"], g32)
+    def update_(self, grads: Any, state: dict, params: Any) -> dict:
+        """One step, in place: each parameter and its moments are
+        overwritten leaf by leaf, and ``state["step"]`` advances.  Returns
+        the metrics: the global gradient norm before clipping
+        (``grad_norm``) and ``lr``."""
+        step_f = torch.tensor(state["step"] + 1, dtype=F32)
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
+                               for g in tree_leaves(grads)))
+        scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         bc1 = 1 - torch.pow(torch.tensor(self.b1, dtype=F32), step_f)
         bc2 = 1 - torch.pow(torch.tensor(self.b2, dtype=F32), step_f)
         lr = self._lr(step_f)
-
-        def upd(p, m, n):
+        for p, g, m, n in zip(tree_leaves(params), tree_leaves(grads),
+                              tree_leaves(state["mu"]),
+                              tree_leaves(state["nu"])):
+            g32 = g.to(F32)
+            if self.grad_clip:
+                g32 = g32 * scale
+            m.copy_(self.b1 * m + (1 - self.b1) * g32)
+            n.copy_(self.b2 * n + (1 - self.b2) * g32 * g32)
             u = (m / bc1) / (torch.sqrt(n / bc2) + self.eps)
             u = u + self.weight_decay * p.to(F32)
-            return (p.to(F32) - lr * u).to(p.dtype)
-
-        new_params = tree_map(upd, params, mu, nu)
-        return new_params, {"mu": mu, "nu": nu, "step": step}, {
-            "grad_norm": gnorm, "lr": lr}
+            p.copy_((p.to(F32) - lr * u).to(p.dtype))
+        state["step"] += 1
+        return {"grad_norm": gnorm, "lr": lr}
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int,

@@ -43,7 +43,8 @@ def test_the_scan_sees_the_whole_port():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     assert {"core/lstm.py", "kernels/lstm_cell.py", "kernels/lstm_seq.py",
             "launch/classify.py", "models/rwkv.py", "kernels/wkv6.py",
-            "serving/engine.py", "launch/serve.py"} <= names
+            "serving/engine.py", "launch/serve.py", "launch/train.py",
+            "data/lm.py", "steps.py", "optim/adamw.py"} <= names
     assert _imported_modules(ROOT / "tests" / "test_torch_plans.py").count(
         "repro.partitioning") == 1    # the scanner does see such imports
 

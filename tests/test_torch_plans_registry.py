@@ -177,16 +177,14 @@ def test_rwkv6_tolerance_tables_are_the_jax_ones():
 
 @pytest.mark.parametrize("plan", list(plans.RWKV_PLANS))
 def test_each_rwkv6_plan_has_the_jax_policy_and_launch_counts(plan):
-    """The same policies and forward launches; ``chunked_scan`` has no
-    training count until its backward kernel (K6b) is ported (JAX: 2)."""
+    """The same policies and launches: ``chunked_scan`` is one launch
+    forward and two per training step (K6t and K6b), as JAX's."""
     mine, theirs = RWKV.plans[plan], JAX_RWKV.plans[plan]
     assert mine.policy == theirs.policy
     assert mine.fwd_launches == theirs.fwd_dispatches
+    assert mine.train_launches == theirs.train_dispatches
     if plan == "chunked_scan":
-        assert (mine.fwd_launches, mine.train_launches) == (1, None)
-        assert theirs.train_dispatches == 2
-    else:
-        assert mine.train_launches == theirs.train_dispatches
+        assert (mine.fwd_launches, mine.train_launches) == (1, 2)
 
 
 def test_rwkv6_cases_and_sweeps_are_the_jax_ones():
@@ -205,10 +203,13 @@ def test_rwkv6_viability_gates_only_the_kernel_plan():
     tiny = RWKV.viability(512, 64, 64, smem_budget=1024)
     assert not tiny("chunked_scan") and tiny("chunked_xla") \
         and tiny("stepwise")
-    # no backward kernel yet: a training call through the kernel plan
-    # would raise on the card
+    # training asks the backward's table (K6b): 64 x 64 heads fit it
     train = RWKV.viability(512, 64, 64, train=True)
-    assert not train("chunked_scan") and train("stepwise")
+    assert train("chunked_scan") and train("stepwise")
+    at = wkv6_k.working_set_bytes(512, 64, 64, 1, mode="bwd")
+    tight = RWKV.viability(512, 64, 64, smem_budget=at - 1, train=True)
+    assert not tight("chunked_scan") and tight("chunked_xla")
+    assert RWKV.viability(512, 64, 64, smem_budget=at - 1)("chunked_scan")
 
 
 def _jax_rwkv_inputs(case, dtype):
@@ -249,6 +250,26 @@ RWKV_GRAD_SWEEP = [sc for sc in plans.grad_sweep() if sc.family == "rwkv6"
 def test_port_rwkv6_plan_grads_match_jax_stepwise_on_jax_cases(sc):
     """CPU gradients (autograd of the plain versions) against JAX's
     gradients of its stepwise oracle, at the family's gradient tolerance."""
+    (jargs, chunk), (args, _) = _jax_rwkv_inputs(sc.case, sc.dtype)
+    want = JAX_RWKV.grads("stepwise", (jargs, chunk))
+    got = RWKV.grads(sc.plan, (args, chunk))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   **RWKV.grad_tol(sc.plan, sc.dtype))
+
+
+RWKV_HEAVY_GRADS = [sc for sc in plans.grad_sweep() if sc.family == "rwkv6"
+                    and sc.plan == "chunked_scan" and sc.heavy]
+
+
+@pytest.mark.parametrize("sc", RWKV_HEAVY_GRADS,
+                         ids=[sc.id for sc in RWKV_HEAVY_GRADS])
+def test_chunked_scan_grads_match_jax_stepwise_on_the_heavy_cases(sc):
+    """The rest of the family's gradient sweep for the kernel plan — the
+    cases the sweep marks heavy (C | T, C = T, dk != dv with chunk > T,
+    T = 96) — through ``_Wkv6Fn`` (the trajectory forward and the
+    hand-derived backward, plain on the CPU), against JAX's gradients of
+    its stepwise oracle at the family's gradient tolerance."""
     (jargs, chunk), (args, _) = _jax_rwkv_inputs(sc.case, sc.dtype)
     want = JAX_RWKV.grads("stepwise", (jargs, chunk))
     got = RWKV.grads(sc.plan, (args, chunk))

@@ -212,8 +212,8 @@ def test_working_set_is_the_launch_size_at_the_serving_heads():
     # the chunk is clamped to T
     assert wkv6_k.working_set_bytes(7, 64, 64, 32) == \
         wkv6_k.working_set_bytes(7, 64, 64, 7)
-    with pytest.raises(NotImplementedError):
-        wkv6_k.working_set_bytes(512, 64, 64, 32, mode="bwd")
+    # the backward kernel's table is its own (tests/test_torch_wkv6_bwd.py)
+    assert wkv6_k.working_set_bytes(512, 64, 64, 32, mode="bwd") == 108_288
 
 
 def test_choose_blocks_keeps_the_chunk_coarse_and_one_row_a_block():
