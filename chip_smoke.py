@@ -37,7 +37,21 @@ RWKV6-3B trained at full width and depth in bf16 through
 ``repro_torch.launch.train`` (8 steps of batch 4 x 512, the plain scans
 armed to raise, every K6b launch of step 1 held against its plain
 version, the last step under torch.profiler for where the device's time
-goes).
+goes).  Then the Mamba slice: the selective scan K7, its trajectory
+instance K7t and its backward K7b against their plain versions and torch
+autograd (the JAX family's cases and Jamba's width, d_inner 16384 and
+d_state 16, at B=4 x T=512 and 500; bit-identity across chunks, tiles,
+rows and a split-resume; two runs of K7b equal; finite at dt x 1e4), the
+attention-free Jamba stack at full width cut to 2 layers in f32 (the
+kernel plan against ``scan``, prefill plus decode against ``forward``,
+``loss_fn`` gradients across plans with remat on and off and its launches
+a step), and the same stack in bf16, 3.12 B parameters, served through
+``repro_torch.launch.serve`` (8 ragged requests of 300 to 500 tokens, 16
+new tokens each, one K7 a layer per prefill and per decode step, each
+launch held against the plain version on its own inputs) and trained
+through ``repro_torch.launch.train.train`` (8 steps of batch 4 x 512, two
+K7t and one K7b a layer a step, step 1's K7b launches held against plain,
+the last two steps under torch.profiler).
 It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work.
@@ -140,12 +154,17 @@ def bound(nbytes: int, flops: int) -> tuple[float, str]:
 
 def instance(mangled: str) -> str:
     """The template arguments of a mangled kernel name, e.g.
-    ``<16,512,int8>`` for ``lstm_seq_bwd_kernel<16, 512, int8_t>`` (a bool
+    ``<16,512,int8>`` for ``lstm_seq_bwd_kernel<16, 512, int8_t>`` or
+    ``<bf16,1>`` for ``mamba_scan_kernel<__nv_bfloat16, true>`` (a bool
     argument prints 0 or 1)."""
     args = re.search(r"I((?:L[ib]\d+E)+)([af]?)E", mangled)
-    if not args:            # a kernel templated on its IO type alone
-        return ("<bf16>" if "I13__nv_bfloat16E" in mangled
-                else "<f32>" if "IfE" in mangled else "")
+    if not args:            # a kernel templated on its IO type, then flags
+        io = re.search(r"I(13__nv_bfloat16|f)((?:Lb[01]E)*)E", mangled)
+        if not io:
+            return ""
+        flags = re.findall(r"Lb(\d)E", io.group(2))
+        return "<" + ",".join(["f32" if io.group(1) == "f" else "bf16",
+                               *flags]) + ">"
     vals = re.findall(r"L[ib](\d+)E", args.group(1))
     if args.group(2):
         vals.append({"a": "int8", "f": "f32"}[args.group(2)])
@@ -524,30 +543,58 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
 
 def device_time(events, spans=()) -> tuple[float, dict, dict]:
     """The device's busy time in one profiled step (one stream, so kernels
-    do not overlap), that time by group — the wkv kernels, the matrix
-    products, the kernels inside the optimizer's span (``spans``, empty
-    when the host was not traced) and the rest — and by kernel name with
-    its launches."""
+    do not overlap), that time by group — the scan kernels of each family
+    (wkv6, mamba_scan), the matrix products, the kernels inside the
+    optimizer's span (``spans``, empty when the host was not traced) and
+    the rest, each group that ran — and by kernel name with its
+    launches."""
     def group(e) -> str:
         name = e.name.lower()
-        if "wkv6" in name:
-            return "wkv6 kernels"
+        for family in ("wkv6", "mamba_scan"):
+            if family in name:
+                return f"{family} kernels"
         if any(k in name for k in ("gemm", "cutlass", "xmma", "nvjet")):
             return "matrix products"
         if any(t.start <= e.time_range.start <= t.end for t in spans):
             return "AdamW"
         return "other"
 
-    by_group = dict.fromkeys(("wkv6 kernels", "matrix products", "AdamW",
-                              "other"), 0.0)
+    by_group: dict[str, float] = {}
     by_name: dict[str, list] = {}
     for e in events:
-        ms = e.time_range.elapsed_us() / 1e3
-        by_group[group(e)] += ms
+        ms, g = e.time_range.elapsed_us() / 1e3, group(e)
+        by_group[g] = by_group.get(g, 0.0) + ms
         entry = by_name.setdefault(e.name, [0.0, 0])
         entry[0] += ms
         entry[1] += 1
     return sum(by_group.values()), by_group, by_name
+
+
+def profiling(train_step, n_steps: int, profiles: list):
+    """``train_step`` with the last two of ``n_steps`` steps under
+    torch.profiler, each appended to ``profiles``: the first tracing the
+    device alone, the second the host too (the steps before them run as
+    they are)."""
+    def profiled_step(*args, **kwargs):
+        profiled_step.n += 1
+        if profiled_step.n <= n_steps - 2:
+            return train_step(*args, **kwargs)
+        host = profiled_step.n == n_steps
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        if host:
+            acts.append(torch.profiler.ProfilerActivity.CPU)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as p:
+            t1 = time.perf_counter()
+            out = train_step(*args, **kwargs)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        profiles.append({"step": profiled_step.n, "host": host,
+                         "wall_ms": wall, "events": p.events()})
+        return out
+
+    profiled_step.n = 0
+    return profiled_step
 
 
 def print_step_profile(profiles: list[dict], unprofiled_ms: float) -> None:
@@ -797,30 +844,8 @@ def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
 
     train_step = steps_lib.train_step
     profiles = []
-
-    def profiled_step(*args, **kwargs):
-        """The last two steps under torch.profiler: the first tracing the
-        device alone, the second the host too (the steps before them run
-        as they are)."""
-        profiled_step.n += 1
-        if profiled_step.n <= n_steps - 2:
-            return train_step(*args, **kwargs)
-        host = profiled_step.n == n_steps
-        acts = [torch.profiler.ProfilerActivity.CUDA]
-        if host:
-            acts.append(torch.profiler.ProfilerActivity.CPU)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as p:
-            t1 = time.perf_counter()
-            out = train_step(*args, **kwargs)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t1) * 1e3
-        profiles.append({"step": profiled_step.n, "host": host,
-                         "wall_ms": wall, "events": p.events()})
-        return out
-
-    profiled_step.n = 0
-    wkv6_k.wkv6_bwd, steps_lib.train_step = checked_bwd, profiled_step
+    wkv6_k.wkv6_bwd = checked_bwd
+    steps_lib.train_step = profiling(train_step, n_steps, profiles)
     reset_counts(*counted)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -922,6 +947,566 @@ def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
     return entries
 
 
+def mamba_inputs(B, T, di, ds, dtype, gen, dt_scale=1.0):
+    """x in ``dtype``; dt (> 0, scaled by ``dt_scale``), b, c, a (< 0) and
+    h0 f32; on the card."""
+    x = randn(B, T, di, gen=gen).to(dtype)
+    dt = torch.nn.functional.softplus(randn(B, T, di, gen=gen)) * dt_scale
+    return (x, dt, randn(B, T, ds, gen=gen), randn(B, T, ds, gen=gen),
+            -torch.exp(randn(di, ds, gen=gen)),
+            randn(B, di, ds, gen=gen, scale=0.3))
+
+
+def mamba_fwd_work(B, T, di, ds, C, dtype, traj=False) -> tuple[int, int]:
+    """(bytes, operations) of one K7 launch (K7t with ``traj``): x in and y
+    out in the IO type, dt, b, c, a, h0 and h_out f32 (and h_traj f32
+    out); per state-step dt A, its exponential (one operation), (dt x) B,
+    the update's multiply-add and y's, and per channel-step dt x."""
+    io = 2 if dtype == torch.bfloat16 else 4
+    nt = -(-T // C)
+    nbytes = (2 * io * B * T * di + 4 * B * T * di + 4 * 2 * B * T * ds
+              + 4 * di * ds + 4 * 2 * B * di * ds)
+    if traj:
+        nbytes += 4 * B * nt * di * ds
+    return nbytes, B * T * di * (7 * ds + 1)
+
+
+def mamba_bwd_work(B, T, di, ds, C, dtype) -> tuple[int, int]:
+    """(bytes, operations) that the backward of ``kernels/mamba_scan.py``'s
+    docstring needs, each product and exponential counted once: x, dy in
+    and dx out in the IO type; dt, ddt, b, c, db, dc, a, da, h_traj,
+    dh_fin and dh0 f32.  Per state-step the recompute of h from the chunk's
+    incoming state (dt A, exp, (dt x) B, multiply-add: 5) and the reverse
+    step (g's multiply-add, sum g B, g h a, sum g h a A, dA's multiply-add,
+    the dB and dC terms and their sums over d_inner, a g: 16); per
+    channel-step dt x, dx and ddt's multiply-add (4).  The kernel's own
+    partial sums of dB and dC are its choice and not counted."""
+    io = 2 if dtype == torch.bfloat16 else 4
+    nt = -(-T // C)
+    nbytes = (3 * io * B * T * di + 2 * 4 * B * T * di + 4 * 4 * B * T * ds
+              + 2 * 4 * di * ds + 4 * B * nt * di * ds + 2 * 4 * B * di * ds)
+    return nbytes, B * T * di * (21 * ds + 4)
+
+
+def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
+    """The Mamba slice: K7 and K7t against their plain versions (M1); K7b
+    against its plain version and torch autograd (M2); the attention-free
+    Jamba stack at full width cut to 2 layers in f32, across plans and
+    against its own forward, with its gradients (M3); the same stack in
+    bf16 (3.12 B parameters) served through ``launch/serve.py`` and
+    trained through ``launch/train.train``, counted, the plain scans armed
+    to raise (M4); the three kernels' times (M5).  Returns their entries
+    of the ``kernels`` line."""
+    from repro_torch.configs import get_arch, jamba_1_5_large_398b as jamba
+    from repro_torch.core import plans
+    from repro_torch import steps as steps_lib
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.launch import train as train_lm
+    from repro_torch.models import mamba, registry
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serving import Request
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    tol, grad_tol = plans.MAMBA_TOL, plans.MAMBA_GRAD_TOL["float32"]
+    names = ("dx", "ddt", "db", "dc", "da", "dh0")
+    sums = ("db", "dc", "da")          # sums over d_inner or batch and time
+    # attention and MoE layers out (they come with the LM stack), depth 2
+    cfg = dataclasses.replace(get_arch("jamba-1.5-large-398b"),
+                              **jamba.ATTENTION_FREE, n_layers=2)
+    di, ds = mamba.d_inner(cfg), cfg.ssm.d_state
+    plain_scans = ((ms, "mamba_scan_plain"), (ms, "mamba_scan_traj_plain"),
+                   (ms, "mamba_scan_bwd_plain"), (ms, "mamba_scan_ref"),
+                   (ms, "_chunk_math"))
+    bf16_step = {"share": 0.0}
+
+    def hold(got: torch.Tensor, want: torch.Tensor, what: str,
+             name: str) -> float:
+        """Hold a gradient to its reference; return the max abs error.  An
+        f32 one at MAMBA_GRAD_TOL elementwise, its atol scaled by the
+        reference's max abs (past 1: at full width gradients reach the
+        hundreds), or for a sum over d_inner or over batch and time (db,
+        dc, da: another order of summation) within its rtol of the largest
+        entry; a bf16 one (dx of a bf16 launch) at MAMBA_TOL bf16 with its
+        atol scaled the same way and within one bf16 step at that max,
+        2^-7 * max|want|."""
+        m = float(want.float().abs().max())
+        if want.dtype == f32 and name in sums:
+            e = float((got - want).abs().max())
+            check(e <= grad_tol["rtol"] * m, f"{what}: max abs err {e} past "
+                  f"{grad_tol['rtol']} of max|want| {m}")
+            return e
+        if want.dtype == f32:
+            return close(got, want, what, dict(
+                rtol=grad_tol["rtol"], atol=grad_tol["atol"] * max(1.0, m)))
+        t = tol["bfloat16"]
+        e = close(got.float(), want.float(), what,
+                  dict(rtol=t["rtol"], atol=t["atol"] * m))
+        check(e <= 2.0 ** -7 * m, f"{what}: max abs err {e} is past one "
+              f"bf16 step at max|want| {m}")
+        bf16_step["share"] = max(bf16_step["share"], e / m if m else 0.0)
+        return e
+
+    # --- M1. K7 and K7t against their plain versions -----------------------
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0}
+            for k in ("fwd", "traj", "bwd")}
+    fam = plans.get_family("mamba")
+    cases = [(c.label, c.shape) for c in fam.cases]
+    cases += [(f"full width T={T}", (4, T, di, ds, cfg.ssm.chunk, 1))
+              for T in (512, 500)]
+    for label, (B, T, di_, ds_, C, bb) in cases:
+        tr = ms.choose_blocks(T, di_, ds_, target=C, mode="bwd")
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[1]
+            a = mamba_inputs(B, T, di_, ds_, dtype, gen)
+            got = ms.mamba_scan(*a, chunk=C, block_b=bb)
+            want = ms.mamba_scan_plain(*a, C)
+            check(got[0].dtype == dtype and got[1].dtype == f32,
+                  f"mamba_scan {label} {name}: output dtypes {got[0].dtype},"
+                  f" {got[1].dtype}")
+            # the state is f32 math on the same inputs: the f32 tier
+            e = max(close(got[0].float(), want[0].float(),
+                          f"mamba_scan {label} {name} y", tol[name]),
+                    close(got[1], want[1], f"mamba_scan {label} {name} state",
+                          tol["float32"]))
+            errs["fwd"][name] = max(errs["fwd"][name], e)
+            # K7t at the training tiling: y and state bit-equal to K7's
+            t_y, t_h, traj = ms.mamba_scan_traj(*a, chunk=tr.chunk,
+                                                di_tile=tr.di_tile)
+            check(torch.equal(t_y, got[0]) and torch.equal(t_h, got[1]),
+                  f"mamba_scan_traj {label} {name}: y or state differs from "
+                  "mamba_scan's")
+            p_traj = ms.mamba_scan_traj_plain(*a, tr.chunk)[2]
+            e_t = close(traj, p_traj, f"mamba_scan_traj {label} {name} "
+                        "h_traj", tol["float32"])
+            errs["traj"][name] = max(errs["traj"][name], max(e, e_t))
+            print(f"[K7/K7t] {label} (B={B} T={T} di={di_} ds={ds_} C={C} "
+                  f"block_b={bb}) {name}: K7 vs plain max abs err {e:.3e} "
+                  f"(MAMBA_TOL {name}, state at f32); K7t at (C={tr.chunk}, "
+                  f"di_tile={tr.di_tile}) y and state bit-equal to K7's, "
+                  f"h_traj vs plain {e_t:.3e}")
+    B, T = 4, 500
+    for dtype in (f32, bf16):
+        a = mamba_inputs(B, T, di, ds, dtype, gen)
+        base = ms.mamba_scan(*a, chunk=T, di_tile=32)
+        for C, tile in ((1, 128), (16, 128), (64, 64), (64, 32), (64, 128)):
+            check(all(torch.equal(g, w) for g, w in zip(
+                ms.mamba_scan(*a, chunk=C, di_tile=tile), base)),
+                  f"mamba_scan {dtype} chunk {C} di_tile {tile} differs from "
+                  "chunk T")
+        for i in (0, 3):
+            alone = ms.mamba_scan(*(t[i:i + 1] if t.dim() == 3 and t.shape[0]
+                                    == B else t for t in a), chunk=64)
+            check(torch.equal(alone[0][0], base[0][i])
+                  and torch.equal(alone[1][0], base[1][i]),
+                  f"mamba_scan {dtype} row {i} alone differs from the batch")
+        y1, h1 = ms.mamba_scan(*(t[:, :300] for t in a[:4]), a[4], a[5],
+                               chunk=64)
+        y2, h2 = ms.mamba_scan(*(t[:, 300:] for t in a[:4]), a[4], h1,
+                               chunk=64)
+        check(torch.equal(torch.cat([y1, y2], 1), base[0])
+              and torch.equal(h2, base[1]),
+              f"mamba_scan {dtype} split at 300 and resumed differs")
+        out = ms.mamba_scan(*mamba_inputs(B, T, di, ds, dtype, gen,
+                                          dt_scale=1e4), chunk=64)
+        check(all(bool(torch.isfinite(t.float()).all()) for t in out),
+              f"mamba_scan {dtype} not finite at dt x 1e4")
+    print(f"[K7] bit-identical at chunks 1, 16, 64 and T={T} and d_inner "
+          f"tiles 32, 64, 128 (f32, bf16, B={B} at full width); rows 0 and "
+          "3 alone as in the batch; split at 300 and resumed from the final "
+          "state bit-identical to the whole run; finite at dt x 1e4")
+
+    # --- M2. K7b against its plain version and torch autograd -------------
+    for label, (B, T, di_, ds_, C, bb) in cases:
+        tr = ms.choose_blocks(T, di_, ds_, target=C, mode="bwd")
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[1]
+            a = mamba_inputs(B, T, di_, ds_, dtype, gen)
+            _, _, traj = ms.mamba_scan_traj(*a, chunk=tr.chunk,
+                                            di_tile=tr.di_tile)
+            dy, dhf = randn(B, T, di_, gen=gen).to(dtype), randn(
+                B, di_, ds_, gen=gen)
+            args = (*a[:5], traj, dy, dhf)
+            got = ms.mamba_scan_bwd(*args, chunk=tr.chunk, di_tile=tr.di_tile)
+            plain = ms.mamba_scan_bwd_plain(*args, tr.chunk)
+            x = [t.clone().requires_grad_() for t in a]
+            with torch.enable_grad():
+                auto = torch.autograd.grad(ms.mamba_scan_plain(*x, tr.chunk),
+                                           x, (dy, dhf))
+            e_b = e_a = 0.0
+            for n, g, pl, au in zip(names, got, plain, auto):
+                check(g.dtype == pl.dtype == au.dtype,
+                      f"mamba_scan_bwd {label} {name} {n}: dtype {g.dtype}")
+                e_b = max(e_b, hold(g, pl, f"mamba_scan_bwd {label} {name} "
+                                    f"{n} vs plain", n))
+                e_a = max(e_a, hold(g, au, f"mamba_scan_bwd {label} {name} "
+                                    f"{n} vs autograd", n))
+            del auto, x
+            errs["bwd"][name] = max(errs["bwd"][name], e_b)
+            print(f"[K7b] {label} (B={B} T={T} di={di_} ds={ds_} "
+                  f"C={tr.chunk} di_tile={tr.di_tile}) {name}: vs plain "
+                  f"{e_b:.3e}, vs autograd of mamba_scan_plain {e_a:.3e}")
+    tr = ms.choose_blocks(500, di, ds, target=cfg.ssm.chunk, mode="bwd")
+    for dt_scale, dtype in ((1.0, bf16), (1e4, f32), (1e4, bf16)):
+        a = mamba_inputs(4, 500, di, ds, dtype, gen, dt_scale)
+        _, _, traj = ms.mamba_scan_traj(*a, chunk=tr.chunk)
+        args = (*a[:5], traj, randn(4, 500, di, gen=gen).to(dtype),
+                randn(4, di, ds, gen=gen))
+        base = ms.mamba_scan_bwd(*args, chunk=tr.chunk)
+        if dt_scale > 1:
+            check(all(bool(torch.isfinite(g.float()).all()) for g in base),
+                  f"mamba_scan_bwd {dtype}: a gradient is not finite at dt x"
+                  " 1e4")
+            continue
+        check(all(torch.equal(g, w) for g, w in zip(
+            ms.mamba_scan_bwd(*args, chunk=tr.chunk), base)),
+              "mamba_scan_bwd: two runs differ")
+        for i in (0, 3):
+            alone = ms.mamba_scan_bwd(*(t[i:i + 1] if t.shape[0] == 4 and
+                                        t.dim() >= 3 else t for t in args),
+                                      chunk=tr.chunk)
+            check(all(torch.equal(g[0], w[i]) for j, (g, w) in enumerate(
+                zip(alone, base)) if names[j] != "da"),
+                  f"mamba_scan_bwd row {i} alone differs from the batch")
+    print(f"[K7b] two runs bit-identical (bf16, full width, T=500, "
+          f"C={tr.chunk}); rows 0 and 3 alone as in the batch (all but dA, "
+          "which sums the rows); gradients finite at dt x 1e4 (f32, bf16)")
+
+    # --- M3. the stack at full width, 2 layers, f32 ------------------------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = registry.build(cfg32)
+    cgen = torch.Generator(device=device).manual_seed(0)
+    p32 = m32.init(cgen, device)
+    S, K = 300, 4
+    toks = torch.randint(0, cfg.vocab, (2, S + K), generator=cgen,
+                         device=device)
+    with torch.no_grad(), tripwires(*plain_scans[:3]):
+        reset_counts(*counted)
+        fused, _ = m32.forward(p32, {"tokens": toks})
+        check(counts() == only(mamba_scan=cfg.n_layers),
+              f"2-layer forward: {counts()}")
+        cache = m32.init_cache(2, S + K, device)
+        reset_counts(*counted)
+        first, cache = m32.prefill(p32, cache, {"tokens": toks[:, :S]})
+        e2 = close(first[:, 0], fused[:, S - 1], "2-layer prefill vs "
+                   "forward", CONSISTENCY_TOL)
+        for t in range(K):
+            d, cache = m32.decode_step(p32, cache, {"tokens": toks[:, S + t]})
+            e2 = max(e2, close(d, fused[:, S + t], f"2-layer decode {t}",
+                               CONSISTENCY_TOL))
+        check(counts() == only(mamba_scan=cfg.n_layers * (1 + K)),
+              f"2-layer prefill + {K} decode steps launched {counts()}")
+    old = mamba.SCAN_PLAN
+    mamba.SCAN_PLAN = "scan"
+    try:
+        with torch.no_grad():
+            plain_logits, _ = m32.forward(p32, {"tokens": toks})
+    finally:
+        mamba.SCAN_PLAN = old
+    e1 = close(fused, plain_logits, "2-layer f32 logits, fused_scan vs scan",
+               tol["float32"])
+    print(f"[model] {cfg.n_layers} x {cfg.d_model} (d_inner {di}) f32, "
+          f"S={S}: fused_scan logits vs scan max abs err {e1:.3e} (MAMBA_TOL"
+          f" f32); prefill + {K} decode steps vs forward over {S + K}: "
+          f"{e2:.3e} ({CONSISTENCY_TOL}); {cfg.n_layers} launches a forward "
+          f"or prefill, {cfg.n_layers} a decode step")
+    del fused, plain_logits, cache
+    leaves = tree_leaves(p32)
+    for t in leaves:
+        t.requires_grad_()
+    batch = {"tokens": toks[:, :S]}
+    L = cfg.n_layers
+
+    def grads(remat: bool):
+        reset_counts(*counted)
+        loss, _ = steps_lib.loss_fn(p32, cfg32, batch, remat=remat)
+        g = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return loss.detach(), g, counts()
+
+    with tripwires(*plain_scans[:3]):
+        loss_on, g_on, n_on = grads(True)
+        loss_off, g_off, n_off = grads(False)
+    for remat, n in ((True, n_on), (False, n_off)):
+        check(n == only(mamba_scan_traj=(2 if remat else 1) * L,
+                        mamba_scan_bwd=L),
+              f"2-layer training step (remat {remat}) launched {n}")
+    d_remat = max(float((a - b).abs().max()) for a, b in zip(g_on, g_off))
+    for a, b in zip(g_on, g_off):
+        close(a, b, "2-layer grads, remat on vs off", grad_tol)
+    del g_off
+    mamba.SCAN_PLAN = "scan"
+    try:
+        loss_p, g_p, n_p = grads(True)
+    finally:
+        mamba.SCAN_PLAN = old
+    check(n_p == only(), f"scan training step launched {n_p}")
+    e = close(loss_on, loss_p, "2-layer loss, fused_scan vs scan", grad_tol)
+    for a, b in zip(g_on, g_p):
+        e = max(e, close(a, b, "2-layer grads, fused_scan vs scan",
+                         grad_tol))
+    print(f"[train] {L} x {cfg.d_model} f32, B=2 S={S}: loss_fn grads "
+          f"through fused_scan vs scan max abs err {e:.3e} (MAMBA_GRAD_TOL "
+          f"f32); remat on vs off max abs diff {d_remat:.3e}; launches a "
+          f"step: remat on {n_on['mamba_scan_traj']} K7t + "
+          f"{n_on['mamba_scan_bwd']} K7b, off {n_off['mamba_scan_traj']} + "
+          f"{n_off['mamba_scan_bwd']}, no K7")
+    del p32, leaves, g_on, g_p
+    torch.cuda.empty_cache()
+
+    # --- M4. the stack in bf16, served ------------------------------------
+    t0 = time.perf_counter()
+    engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=4,
+                                   max_seq=500 + 16 + 1)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    print(f"[serve] {cfg.name} attention-free, {cfg.n_layers} layers: "
+          f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn from "
+          f"seed 0 on the card in {time.perf_counter() - t0:.1f} s")
+    lens = [412, 300, 377, 500, 333, 468, 451, 389]   # wave maxima 500, 468
+    prng = np.random.default_rng(0)
+    reqs = [Request(i, prng.integers(0, cfg.vocab, (n,)).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate(lens)]
+    seen = {"prefill": [], "calls": [], "finite": True}
+    kernel, prefill, decode = (ms.mamba_scan, engine._prefill,
+                               steps_lib.decode_step)
+
+    def watched_prefill(params, cache, batch):
+        before = kernel.launches
+        logits, cache = prefill(params, cache, batch)
+        seen["prefill"].append(kernel.launches - before)
+        seen["finite"] &= bool(torch.isfinite(logits).all())
+        return logits, cache
+
+    def watched_decode(cfg_, params, cache, batch):
+        logits, cache = decode(cfg_, params, cache, batch)
+        seen["finite"] &= bool(torch.isfinite(logits).all())
+        return logits, cache
+
+    def captured_kernel(*args, **kwargs):
+        """K7 as the serve calls it, keeping its inputs (h0 is a view of
+        the cache, which the layer then overwrites) and outputs for the
+        check against the plain version after the serve.  The wrapper
+        counts its launches through its module's name, which is this
+        function while it is installed: the count is carried across."""
+        captured_kernel.launches = kernel.launches
+        got_ = kernel(*args, **kwargs)
+        kernel.launches = captured_kernel.launches
+        seen["calls"].append(([a.clone() for a in args], kwargs, got_))
+        return got_
+
+    engine._prefill, steps_lib.decode_step = watched_prefill, watched_decode
+    ms.mamba_scan = captured_kernel
+    reset_counts(*counted)
+    try:
+        with tripwires(*plain_scans):
+            served = serve_lm.serve(engine, reqs)
+    finally:
+        ms.mamba_scan, steps_lib.decode_step = kernel, decode
+    got = counts()
+    per_wave = cfg.n_layers * (1 + 16)
+    check(got == only(mamba_scan=2 * per_wave)
+          and seen["prefill"] == [cfg.n_layers] * 2,
+          f"serve launched {got}, per prefill {seen['prefill']}")
+    check(all(r.tokens.shape == (16,) and int(r.tokens.min()) >= 0
+              and int(r.tokens.max()) < cfg.vocab for r in served["results"]),
+          "served tokens outside [0, vocab) or not 16 a request")
+    check(seen["finite"], "a served logit is not finite")
+    check(served["pool"].buffers_built == served["pool"].capacity,
+          f"the pool built {served['pool'].buffers_built} buffers")
+    e_y = e_h = 0.0
+    n_calls = len(seen["calls"])
+    check(n_calls == got["mamba_scan"], f"captured {n_calls} calls")
+    for i, (args, kwargs, (y, h)) in enumerate(seen["calls"]):
+        want = ms.mamba_scan_plain(*args, kwargs["chunk"])
+        e_y = max(e_y, close(y, want[0], f"served mamba_scan call {i} y",
+                             tol["float32"]))
+        e_h = max(e_h, close(h, want[1], f"served mamba_scan call {i} state",
+                             tol["float32"]))
+    x0 = seen["calls"][0][0][0]
+    print(f"[serve] mamba_scan launches {got['mamba_scan']}: "
+          f"{seen['prefill']} per prefill, {cfg.n_layers} a decode step, no "
+          f"plain scan reached; every logit finite; buffers_built "
+          f"{served['pool'].buffers_built} = capacity; each launch (prefill "
+          f"x {tuple(x0.shape)} {x0.dtype}, decode at T=1) against "
+          f"mamba_scan_plain on its own inputs: y max abs err {e_y:.3e}, "
+          f"state {e_h:.3e} (MAMBA_TOL f32)")
+    for i, w in enumerate(served["waves"]):
+        print(f"[time] serve mamba wave {i}: prefill {w['prefill_ms']:.3f} "
+              f"ms, decode {w['decode_ms_per_token']:.3f} ms/token (host "
+              "clock)")
+    serve_launches = got["mamba_scan"]
+    del engine, served, seen
+    torch.cuda.empty_cache()
+
+    # --- M4. the stack in bf16, trained -----------------------------------
+    n_steps = 8
+    kernel_bwd, plain_bwd = ms.mamba_scan_bwd, ms.mamba_scan_bwd_plain
+    seen = {"n": 0, "err": 0.0, "shape": None}
+
+    def checked_bwd(*args, **kwargs):
+        """K7b as the training step calls it; each launch of step 1 (the
+        first L) held against the plain version on its own inputs, its
+        launch count carried across as ``captured_kernel``'s."""
+        checked_bwd.launches = kernel_bwd.launches
+        got_ = kernel_bwd(*args, **kwargs)
+        kernel_bwd.launches = checked_bwd.launches
+        if seen["n"] < L:
+            want = plain_bwd(*args, kwargs["chunk"])
+            for n, g, w in zip(names, got_, want):
+                seen["err"] = max(seen["err"], hold(
+                    g, w, f"trained mamba_scan_bwd launch {seen['n']} {n}",
+                    n))
+            seen["n"] += 1
+            seen["shape"] = (tuple(args[0].shape), args[0].dtype,
+                             kwargs["chunk"], kwargs["di_tile"])
+        return got_
+
+    train_step = steps_lib.train_step
+    profiles = []
+    ms.mamba_scan_bwd = checked_bwd
+    steps_lib.train_step = profiling(train_step, n_steps, profiles)
+    reset_counts(*counted)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with tripwires(*plain_scans):
+            report = train_lm.train(cfg, steps=n_steps, batch=4, seq=512,
+                                    lr=3e-3, seed=0, device="cuda",
+                                    log_every=1)
+    finally:
+        ms.mamba_scan_bwd, steps_lib.train_step = kernel_bwd, train_step
+    wall = time.perf_counter() - t0
+    got = counts()
+    check(got == only(mamba_scan_traj=2 * L * n_steps,
+                      mamba_scan_bwd=L * n_steps),
+          f"{n_steps} training steps launched {got}")
+    check(seen["n"] == L, f"checked {seen['n']} K7b launches of step 1")
+    check(all(math.isfinite(x) for x in report["losses"]
+              + report["grad_norms"]),
+          f"a loss or grad_norm is not finite: {report['losses']}, "
+          f"{report['grad_norms']}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = report["step_ms"][1:-2]
+    med = statistics.median(step_ms)
+    tokens = report["tokens_per_step"]
+    model_flops = 6 * report["n_params"] * tokens
+    print(f"[train] {cfg.name} attention-free: {report['n_params'] / 1e9:.3f}"
+          f" B parameters in {cfg.dtype}, batch 4 x 512, {n_steps} steps in "
+          f"{wall:.1f} s (init included); launches {got['mamba_scan_traj']} "
+          f"K7t + {got['mamba_scan_bwd']} K7b ({2 * L} + {L} a step), none "
+          "of K7, no plain scan reached; every loss and grad_norm finite; "
+          f"loss {report['losses'][0]:.3f} -> {report['losses'][-1]:.3f}; "
+          f"peak device memory {peak:.2f} GB "
+          "(torch.cuda.max_memory_allocated)")
+    print(f"[train] each of step 1's {seen['n']} K7b launches (x "
+          f"{seen['shape'][0]} {seen['shape'][1]}, C={seen['shape'][2]}, "
+          f"di_tile={seen['shape'][3]}) against mamba_scan_bwd_plain on its "
+          f"own inputs: max abs err {seen['err']:.3e} (MAMBA_GRAD_TOL f32, "
+          "atol x max|grad|; db, dc, da within its rtol of their max)")
+    print(f"[time] training step, {cfg.name} attention-free, batch 4 x 512, "
+          f"steps 2 to {n_steps - 2}: median {med:.3f} ms, min "
+          f"{min(step_ms):.3f} ms (host clock around the step, ending in the "
+          f"loss's copy to the host); {tokens / (med / 1e3):.1f} tokens/s; "
+          f"model FLOPs (6 x params x tokens, {model_flops:.3e} a step) at "
+          f"{model_flops / (med / 1e3) / BF16_FLOP_PER_S:.2%} of the H100's "
+          "989 TFLOP/s bf16 dense peak")
+    print_step_profile(profiles, med)
+    train_launches = {"mamba_scan_traj": got["mamba_scan_traj"],
+                      "mamba_scan_bwd": got["mamba_scan_bwd"]}
+    torch.cuda.empty_cache()
+
+    # --- M5. the kernels' times at full width -----------------------------
+    B, T = 4, 512
+    sv = ms.choose_blocks(T, di, ds, target=cfg.ssm.chunk)
+    tr = ms.choose_blocks(T, di, ds, target=cfg.ssm.chunk, mode="bwd")
+    rows = {}
+    for dtype in (f32, bf16):
+        a = mamba_inputs(B, T, di, ds, dtype, gen)
+        _, _, traj = ms.mamba_scan_traj(*a, chunk=tr.chunk)
+        args = (*a[:5], traj, randn(B, T, di, gen=gen).to(dtype),
+                randn(B, di, ds, gen=gen))
+        for name, fn, plain_fn, work, it in (
+                ("mamba_scan",
+                 lambda: ms.mamba_scan(*a, chunk=sv.chunk),
+                 lambda: ms.mamba_scan_plain(*a, sv.chunk),
+                 mamba_fwd_work(B, T, di, ds, sv.chunk, dtype), 20),
+                ("mamba_scan_traj",
+                 lambda: ms.mamba_scan_traj(*a, chunk=tr.chunk),
+                 lambda: ms.mamba_scan_traj_plain(*a, tr.chunk),
+                 mamba_fwd_work(B, T, di, ds, tr.chunk, dtype, traj=True),
+                 20),
+                ("mamba_scan_bwd",
+                 lambda: ms.mamba_scan_bwd(*args, chunk=tr.chunk),
+                 lambda: ms.mamba_scan_bwd_plain(*args, tr.chunk),
+                 mamba_bwd_work(B, T, di, ds, tr.chunk, dtype), 10)):
+            t_bound, by = bound(*work)
+            r = rows[name, dtype] = dict(
+                ms=time_ms(fn, it), plain_ms=time_ms(plain_fn, 1, repeats=3),
+                bound_ms=t_bound, bound_by=by)
+            C = sv.chunk if name == "mamba_scan" else tr.chunk
+            # h_traj grows as the chunk shrinks: beside the bound at the
+            # chunk run here, the bound with h_traj at the config's chunk,
+            # a yardstick that does not move with the port's tiling
+            at_cfg = ""
+            if name != "mamba_scan":
+                cfg_work = mamba_bwd_work(B, T, di, ds, cfg.ssm.chunk, dtype) \
+                    if name == "mamba_scan_bwd" else mamba_fwd_work(
+                        B, T, di, ds, cfg.ssm.chunk, dtype, traj=True)
+                cfg_bound, cfg_by = bound(*cfg_work)
+                at_cfg = (f"; with h_traj at the config's chunk "
+                          f"{cfg.ssm.chunk}: bound {cfg_bound:.3e} ms "
+                          f"({cfg_by}), kernel at "
+                          f"{r['ms'] / cfg_bound:.2f}x it")
+            print(f"[time] {name} B={B} T={T} di={di} ds={ds} C={C} "
+                  f"di_tile={sv.di_tile} {str(dtype).split('.')[1]}: kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"none (no single PyTorch call computes a selective scan), "
+                  f"bound {r['bound_ms']:.3e} ms ({r['bound_by']}), kernel "
+                  f"at {r['ms'] / r['bound_ms']:.2f}x it{at_cfg}")
+    # the budget table's tilings against the config's own chunk for
+    # serving (three blocks an SM) and, for training, against the chunk a
+    # table holding 8 warps an SM would take (two blocks an SM)
+    a = mamba_inputs(B, T, di, ds, f32, gen)
+    _, _, traj = ms.mamba_scan_traj(*a, chunk=8)
+    args = (*a[:5], traj, randn(B, T, di, gen=gen), randn(B, di, ds, gen=gen))
+    alt = (time_ms(lambda: ms.mamba_scan(*a, chunk=cfg.ssm.chunk), 20),
+           time_ms(lambda: ms.mamba_scan_traj(*a, chunk=8), 20),
+           time_ms(lambda: ms.mamba_scan_bwd(*args, chunk=8), 10))
+    print(f"[time] f32 tilings: K7 at chunk {cfg.ssm.chunk} {alt[0]:.4f} ms "
+          f"against {rows['mamba_scan', f32]['ms']:.4f} at {sv.chunk}; K7t "
+          f"and K7b at chunk 8 {alt[1]:.4f} and {alt[2]:.4f} ms against "
+          f"{rows['mamba_scan_traj', f32]['ms']:.4f} and "
+          f"{rows['mamba_scan_bwd', f32]['ms']:.4f} at {tr.chunk}")
+    print(f"[K7/K7t/K7b] max abs err vs plain: K7 f32 "
+          f"{errs['fwd']['float32']:.3e}, bf16 {errs['fwd']['bfloat16']:.3e}"
+          f"; K7t f32 {errs['traj']['float32']:.3e}, bf16 "
+          f"{errs['traj']['bfloat16']:.3e}; K7b f32 "
+          f"{errs['bwd']['float32']:.3e}, bf16 {errs['bwd']['bfloat16']:.3e};"
+          f" bf16 dx within {bf16_step['share']:.3e} x max|want| (held at "
+          f"one bf16 step, 2^-7 = {2.0 ** -7:.3e})")
+    # the model hands the scan its input in f32 (what JAX's scan computes
+    # with), so the main path runs the f32-IO instances: their rows go in
+    launches = dict(mamba_scan=serve_launches, **train_launches)
+    entries = []
+    for name, err, replaces in (
+            ("mamba_scan", "fwd", "src/repro/kernels/mamba_scan.py:217"),
+            ("mamba_scan_traj", "traj",
+             "src/repro/kernels/mamba_scan.py:223"),
+            ("mamba_scan_bwd", "bwd", "src/repro/kernels/mamba_scan.py:232")):
+        r = rows[name, f32]
+        src = "mamba_scan_bwd.cu" if name == "mamba_scan_bwd" \
+            else "mamba_scan.cu"
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[err]["float32"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None})
+    return entries
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     if not torch.cuda.is_available():
@@ -940,6 +1525,7 @@ def main() -> None:
     from repro_torch.kernels import lstm_cell as cell_k
     from repro_torch.kernels import lstm_seq as seq_k
     from repro_torch.kernels import lstm_seq_bwd as bwd_k
+    from repro_torch.kernels import mamba_scan as mamba_k
     from repro_torch.kernels import ref
     from repro_torch.kernels import wkv6 as wkv6_k
     from repro_torch.launch import classify, train_har
@@ -950,7 +1536,8 @@ def main() -> None:
     counted = (cell_k.lstm_cell, seq_k.lstm_seq, seq_k.lstm_seq_traj,
                bwd_k.lstm_seq_bwd, seq_k.lstm_seq_q8, seq_k.lstm_seq_q8_traj,
                bwd_k.lstm_seq_bwd_q8, wkv6_k.wkv6, wkv6_k.wkv6_traj,
-               wkv6_k.wkv6_bwd)
+               wkv6_k.wkv6_bwd, mamba_k.mamba_scan, mamba_k.mamba_scan_traj,
+               mamba_k.mamba_scan_bwd)
 
     def counts() -> dict:
         return {fn.__name__: fn.launches for fn in counted}
@@ -1805,6 +2392,7 @@ def main() -> None:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     kernels.append(rwkv_slice(device, gen, counted, counts, only))
     kernels += rwkv_train_slice(device, gen, counted, counts, only)
+    kernels += mamba_slice(device, gen, counted, counts, only)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -64,7 +64,8 @@ class ModelConfig:
     # audio: number of EnCodec codebooks (parallel token streams)
     n_codebooks: int = 0
     # shard the sequence dim of activations over a 'model' mesh axis
-    # (sequence parallelism; not ported yet, see ROADMAP item 14)
+    # (sequence parallelism; not ported yet: ROADMAP Queue 1, "Distributed,
+    # launch and checkpoint")
     seq_shard: bool = False
     # int8 KV cache (per-token-per-head scales)
     kv_quant: bool = False

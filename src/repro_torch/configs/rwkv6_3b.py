@@ -20,6 +20,7 @@ CONFIG = ModelConfig(
     norm="ln",
     ssm=SSMConfig(kind="rwkv6", head_dim=64, lora_rank=64, chunk=32),
     seq_shard=True,           # read by the sequence-parallel time-mix,
-                              # which is not ported yet (ROADMAP item 14)
+                              # which is not ported yet (ROADMAP Queue 1,
+                              # "Distributed, launch and checkpoint")
     source="arXiv:2404.05892",
 )

@@ -9,15 +9,16 @@ become lists.  The trees it carries:
 * the LSTM classifier (``core/lstm.init_params``): ``{"layers": [{"w":
   (D+H, 4H), "b": (4H,)}, ...], "head": {"w": (H, C), "b": (C,)}}``, gate
   order (i, f, g, o);
-* the language models (``models/transformer.init_params``, the RWKV6 path):
-  ``{"embed": (V, d), "blocks": [slot, ...], "final_norm": {"scale",
-  "bias"}, "lm_head": {"w": (d, V)}}``, one slot per layer of the period
-  (JAX keeps them in a tuple), each ``{"ln1", "mix", "ln2", "mlp"}`` with
-  every leaf stacked over layer groups (leading layer axis); every weight
-  keeps the JAX layout ``(d_in, d_out)`` for ``x @ w``;
+* the language models (``models/transformer.init_params``, the RWKV6 and
+  Mamba paths): ``{"embed": (V, d), "blocks": [slot, ...], "final_norm":
+  {"scale", ...}, "lm_head": {"w": (d, V)}}``, one slot per layer of the
+  period (JAX keeps them in a tuple), each ``{"ln1", "mix", "ln2", "mlp"}``
+  with every leaf stacked over layer groups (leading layer axis); every
+  weight keeps the JAX layout ``(d_in, d_out)`` for ``x @ w``;
 * their decode caches (``init_cache``): ``{"pos": () int32, "slots":
-  [{"shift_t": (G, B, d), "wkv": (G, B, H, dh, dh) f32, "shift_c":
-  (G, B, d)}]}``.
+  [slot, ...]}``, an rwkv6 slot ``{"shift_t": (G, B, d), "wkv": (G, B, H,
+  dh, dh) f32, "shift_c": (G, B, d)}``, a mamba slot ``{"conv": (G, B,
+  dc-1, di), "h": (G, B, di, ds) f32}``.
 
 ``params_to_numpy`` is the way back (the port's params, grads or caches as
 numpy, for comparing them with the JAX package's).  A bfloat16 leaf (the

@@ -11,6 +11,10 @@ from __future__ import annotations
 #: Dynamic shared memory one thread block may use on an H100 (227 KB of the
 #: SM's 256 KB; above 48 KB only after cudaFuncSetAttribute).
 H100_SMEM_PER_BLOCK = 232_448
+#: Shared memory of one SM (228 KB), which the blocks resident on it share;
+#: the runtime reserves 1 KB of it for each block.
+H100_SMEM_PER_SM = 233_472
+H100_SMEM_RESERVED_PER_BLOCK = 1024
 #: Streaming multiprocessors of an H100 SXM.
 H100_SMS = 132
 #: Threads of one warp — the alignment of a thread block's fast axis.

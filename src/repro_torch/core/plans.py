@@ -1,5 +1,5 @@
 """Family-generic execution-plan registry (the twin of the JAX package's
-``core/plans.py``), with the LSTM and RWKV6 families registered.
+``core/plans.py``), with the LSTM, RWKV6 and Mamba families registered.
 
 A family registers the same things the JAX package's does:
 
@@ -31,11 +31,16 @@ Families registered here:
   ``chunked_xla`` with a ``plan/dispatch fallback=`` event and a CUDA call
   raises).  Dtypes float32 and bfloat16.  Viability is
   ``rwkv_viability``.
+* ``mamba`` — ``scan`` (the per-step oracle, kernels/mamba_scan
+  ``mamba_scan_ref``) and ``fused_scan`` (kernels/mamba_scan, ONE kernel
+  launch forward and TWO per gradient — K7t and K7b — at any T and B;
+  where ``choose_blocks`` finds no tiling, a CPU call takes the oracle VJP
+  with a ``plan/dispatch fallback=`` event and a CUDA call raises).
+  Dtypes float32 and bfloat16.  Viability is ``mamba_viability``.
 
-``profile_hook`` is None for both: the JAX hooks price each candidate
+``profile_hook`` is None for all three: the JAX hooks price each candidate
 tiling with a TPU roofline (``analysis.*_stream_costs``), which says
-nothing about an H100; they wait for the profiler slice.  The Mamba family
-comes with its slice.
+nothing about an H100; they wait for the profiler slice.
 """
 from __future__ import annotations
 
@@ -473,3 +478,175 @@ def _build_rwkv_family() -> Family:
 
 
 register_family(_build_rwkv_family())
+
+
+# ===========================================================================
+# mamba family — per-step scan oracle, the K7 kernel
+# ===========================================================================
+#: fused-vs-scan agreement band: both paths run the same per-step
+#: recurrence in f32; differences come only from the order of its sums
+MAMBA_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+MAMBA_GRAD_TOL = {"float32": dict(rtol=2e-4, atol=2e-5)}
+
+_MAMBA_EXACT = EquivalencePolicy("exact", MAMBA_TOL, MAMBA_GRAD_TOL)
+
+#: (B, T, d_inner, d_state, chunk, block_b) — C=1, C=T, non-dividing T
+#: (pad path) and a non-dividing batch tile (row-pad path) all on the
+#: table, so every clamp and pad branch is part of the sweep
+_MAMBA_CASES = (
+    Case("c8t24", (2, 24, 8, 4, 8, 2)),                     # C | T, bm | B
+    Case("c1", (2, 12, 8, 4, 1, 2), heavy_grad=False),      # C=1: per-step
+    Case("cT", (1, 16, 8, 4, 16, 1)),                       # C=T: one chunk
+    Case("oddT", (2, 23, 8, 4, 8, 2), heavy_grad=False),    # pad path
+    Case("btail", (3, 16, 8, 4, 8, 2)),                     # bm does not | B
+    Case("long", (2, 96, 16, 8, 16, 2), heavy=True),
+)
+
+
+def _mamba_make_inputs(case: Case, dtype: str):
+    """((x, dt, b, c, a, h0), chunk, block_b) on the CPU, from a seed of the
+    case label: x in ``dtype``; dt (> 0), b, c, a (< 0) and h0 f32."""
+    import zlib
+
+    B, T, di, ds, chunk, block_b = case.shape
+    gen = torch.Generator().manual_seed(zlib.crc32(case.label.encode()))
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    x = randn(B, T, di).to(getattr(torch, dtype))
+    dt = torch.nn.functional.softplus(randn(B, T, di))
+    a = -torch.exp(randn(di, ds))
+    return ((x, dt, randn(B, T, ds), randn(B, T, ds), a,
+             randn(B, di, ds) * 0.3), chunk, block_b)
+
+
+def _mamba_scan(x, dt, b, c, a, h0, *, chunk, block_b):
+    """Per-step scan oracle — the models/mamba recurrence
+    (kernels/mamba_scan.mamba_scan_ref)."""
+    from repro_torch.kernels import mamba_scan as ms_lib
+
+    del chunk, block_b
+    return ms_lib.mamba_scan_ref(x, dt, b, c, a, h0)
+
+
+def _mamba_scan_blocks(seq_len: int, d_inner: int, d_state: int,
+                       chunk: int, device: torch.device, train: bool = False):
+    """The kernel plan's tiling — from the backward's table when ``train``
+    (its chunk and tile serve both training launches) — or None where
+    ``choose_blocks`` finds nothing and the tensors are on the CPU.  On the
+    card no plain version stands in for the kernels: there it raises
+    ValueError naming the working set."""
+    from repro_torch.core import factorization
+    from repro_torch.kernels import mamba_scan as ms_lib
+
+    mode = "bwd" if train else "fwd"
+    blocks = ms_lib.choose_blocks(seq_len, d_inner, d_state, target=chunk,
+                                  mode=mode)
+    if blocks is None and device.type != "cpu":
+        smem = ms_lib.working_set_bytes(seq_len, d_state, 1,
+                                        factorization.WARP, mode)
+        raise ValueError(
+            f"fused_scan: d_state {d_state} fits no tiling; the working set "
+            f"of the {mode} kernel at chunk 1 and one warp is {smem} bytes "
+            f"of shared memory (budget "
+            f"{ms_lib.block_budget(factorization.WARP)}) and a thread keeps "
+            f"at most {ms_lib.MAX_DS} states")
+    return blocks
+
+
+def _mamba_fused_scan(x, dt, b, c, a, h0, *, chunk, block_b):
+    """kernels/mamba_scan: ONE launch forward (K7), and under autograd the
+    trajectory forward K7t and the reverse sweep K7b, at the tiling of the
+    backward's table; any T and B (the last chunk runs short).  Where
+    ``choose_blocks`` finds nothing, a CPU call takes the oracle VJP
+    (``ORACLE_BWD``; past the forward's table too, the ``scan`` oracle)
+    and says so in a ``plan/dispatch`` event, and a CUDA call raises
+    (``_mamba_scan_blocks``)."""
+    from repro_torch.kernels import mamba_scan as ms_lib
+    from repro_torch.kernels import ops
+    from repro_torch.obs import trace as trace_lib
+
+    B, T, di = x.shape
+    ds = b.shape[-1]
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, dt, b, c, a, h0))
+    blocks = _mamba_scan_blocks(T, di, ds, chunk, x.device, train)
+    bwd = ms_lib.FUSED_BWD
+    if blocks is None:
+        blocks = ms_lib.choose_blocks(T, di, ds, target=chunk) \
+            if train else None
+        tracer = trace_lib.get_tracer()
+        if tracer.enabled:
+            tracer.event("plan/dispatch", family="mamba", plan="fused_scan",
+                         fallback="oracle_bwd" if blocks else "scan",
+                         batch=B, seq_len=T, d_inner=di, d_state=ds,
+                         train=train)
+        if blocks is None:
+            return _mamba_scan(x, dt, b, c, a, h0, chunk=chunk,
+                               block_b=block_b)
+        bwd = ms_lib.ORACLE_BWD
+    return ops.mamba_scan(x, dt, b, c, a, h0, chunk=blocks.chunk,
+                          block_b=block_b, di_tile=blocks.di_tile, bwd=bwd)
+
+
+MAMBA_PLANS: dict[str, Callable] = {
+    "scan": _mamba_scan,
+    "fused_scan": _mamba_fused_scan,
+}
+
+
+def _mamba_apply(plan: str, inputs):
+    args, chunk, block_b = inputs
+    return MAMBA_PLANS[plan](*args, chunk=chunk, block_b=block_b)
+
+
+def _mamba_grads(plan: str, inputs):
+    """Gradients of ``sum(tanh(y)) + 0.5 * sum(h'^2)`` through ``plan``
+    with respect to all six inputs (the JAX family's loss)."""
+    args, chunk, block_b = inputs
+    args = [a.detach().clone().requires_grad_() for a in args]
+    y, h = MAMBA_PLANS[plan](*args, chunk=chunk, block_b=block_b)
+    loss = torch.sum(torch.tanh(y.to(torch.float32))) + 0.5 * torch.sum(
+        h * h)
+    return torch.autograd.grad(loss, args)
+
+
+#: the mamba plans that run the kernels, hence the ones viability gates
+MAMBA_SCAN_PLANS = ("fused_scan",)
+
+
+def mamba_viability(seq_len: int, d_inner: int, d_state: int, *,
+                    chunk: int | None = None, smem_budget: int | None = None,
+                    train: bool = False) -> Callable[[str], bool]:
+    """Fig 7 ``viable=`` predicate for the mamba family, from the
+    kernels/mamba_scan budget tables: the kernel plan is a real plan only
+    while ``choose_blocks`` finds a tiling — for ``train=True`` the
+    backward's (K7b), whose working set is the larger, else the
+    forward's.  The ``scan`` oracle stays viable."""
+    from repro_torch.kernels import mamba_scan as ms_lib
+
+    blocks = ms_lib.choose_blocks(seq_len, d_inner, d_state, target=chunk,
+                                  smem_budget=smem_budget,
+                                  mode="bwd" if train else "fwd")
+
+    def viable(plan_name: str) -> bool:
+        return blocks is not None or plan_name not in MAMBA_SCAN_PLANS
+
+    return viable
+
+
+def _build_mamba_family() -> Family:
+    specs = {
+        "scan": PlanSpec("scan", _mamba_scan, _MAMBA_EXACT),
+        "fused_scan": PlanSpec("fused_scan", _mamba_fused_scan, _MAMBA_EXACT,
+                               fwd_launches=1, train_launches=2),
+    }
+    return Family(
+        name="mamba", oracle="scan", plans=specs, cases=_MAMBA_CASES,
+        dtypes=("float32", "bfloat16"), make_inputs=_mamba_make_inputs,
+        apply=_mamba_apply, grads=_mamba_grads, viability=mamba_viability)
+
+
+register_family(_build_mamba_family())

@@ -4,11 +4,13 @@
 ``lstm_seq`` and ``lstm_seq_q8`` take their ``(block_b, time_chunk)`` from
 ``lstm_seq.choose_batch_block``; ``wkv6`` takes its chunk from the caller
 (the model's ``cfg.ssm.chunk``) and runs one batch-head row per thread
-block.  Any block may be pinned by the caller.  CPU tensors run the
-kernels' plain versions; CUDA tensors launch the kernels.  The LSTM entries
-are differentiable: under autograd ``lstm_seq``, ``lstm_seq_q8`` and
-``wkv6`` pair their trajectory launch with their backward kernel, and
-``lstm_cell`` takes the VJP of its plain version.
+block; ``mamba_scan`` takes its chunk from the caller and runs one batch
+row and ``di_tile`` channels per thread block.  Any block may be pinned by
+the caller.  CPU tensors run the kernels' plain versions; CUDA tensors
+launch the kernels.  The entries are differentiable: under autograd
+``lstm_seq``, ``lstm_seq_q8``, ``wkv6`` and ``mamba_scan`` pair their
+trajectory launch with their backward kernel, and ``lstm_cell`` takes the
+VJP of its plain version.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.kernels import lstm_cell as _lstm_cell
 from repro_torch.kernels import lstm_seq as _lstm_seq
+from repro_torch.kernels import mamba_scan as _mamba_scan
 from repro_torch.kernels import wkv6 as _wkv6
 
 
@@ -79,3 +82,19 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Under autograd: the trajectory launch K6t forward and the backward
     kernel K6b (on the CPU their plain versions)."""
     return _wkv6.wkv6(r, k, v, logw, u, state, chunk=chunk, bh_tile=bh_tile)
+
+
+def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+               c: torch.Tensor, a: torch.Tensor, h0: torch.Tensor, *,
+               chunk: int = 16, block_b: int | None = None,
+               di_tile: int | None = None, bwd: int = _mamba_scan.FUSED_BWD
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba selective scan, ONE kernel launch for the whole sequence.
+
+    x, dt: (B, T, di); b, c: (B, T, ds); a: (di, ds); h0: (B, di, ds).
+    Returns (y (B, T, di) in x's dtype, final state f32).  Under autograd:
+    the trajectory launch K7t forward and the backward kernel K7b (on the
+    CPU their plain versions); ``bwd=ORACLE_BWD`` differentiates the plain
+    scan instead, on the CPU only.  The ``fused_scan`` plan calls this."""
+    return _mamba_scan.mamba_scan(x, dt, b, c, a, h0, chunk=chunk,
+                                  block_b=block_b, di_tile=di_tile, bwd=bwd)

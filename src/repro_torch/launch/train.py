@@ -8,10 +8,12 @@ weights drawn from ``--seed`` on the device.  Every layer's time-mix runs
 the plan of ``models/rwkv.WKV_PLAN``: on the card ``chunked_scan``, whose
 training step is two kernel launches a layer (the trajectory forward K6t
 and the reverse sweep K6b), plus one more K6t a layer for the recompute of
-``remat`` (on, as in the JAX trainer).  It prints the JAX trainer's
-per-step JSON lines and closing ``loss a -> b`` line, and before that the
-median and minimum step time (host clock around a step, ending in the
-loss's copy to the host).
+``remat`` (on, as in the JAX trainer).  A Mamba stack (``train(cfg,
+...)`` with an attention-free Jamba config) runs ``models/mamba.SCAN_PLAN``
+the same way: K7t and K7b, plus one more K7t a layer for the recompute.
+It prints the JAX trainer's per-step JSON lines and closing ``loss a ->
+b`` line, and before that the median and minimum step time (host clock
+around a step, ending in the loss's copy to the host).
 
   PYTHONPATH=src python -m repro_torch.launch.train [--arch rwkv6-3b]
       [--reduced] [--device cuda|cpu] [--steps N] [--batch B] [--seq S]
@@ -19,7 +21,7 @@ loss's copy to the host).
 
 The default device is ``cuda``; without a card that raises rather than
 running on the CPU.  ``--ckpt-dir`` raises: checkpointing comes with the
-distributed slice (ROADMAP Queue 1 item 14).
+distributed slice (ROADMAP Queue 1, "Distributed, launch and checkpoint").
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch import steps as steps_lib
 from repro_torch.configs import ARCHS, get_arch
+from repro_torch.configs.base import ModelConfig
 from repro_torch.data.lm import SyntheticLM
 from repro_torch.launch.classify import resolve_device
 from repro_torch.models import registry
@@ -47,40 +50,51 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet: raises (ROADMAP Queue 1 item 14)")
+                    help="not ported yet: raises (ROADMAP Queue 1, "
+                         "\"Distributed, launch and checkpoint\")")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     if args.ckpt_dir is not None:
         raise NotImplementedError("--ckpt-dir: checkpointing comes with the "
-                                  "distributed slice (ROADMAP Queue 1 item "
-                                  "14)")
+                                  "distributed slice (ROADMAP Queue 1, "
+                                  "\"Distributed, launch and checkpoint\")")
+    return train(get_arch(args.arch + ("-reduced" if args.reduced else "")),
+                 steps=args.steps, batch=args.batch, seq=args.seq,
+                 lr=args.lr, seed=args.seed, device=args.device,
+                 log_every=args.log_every)
 
-    device = resolve_device(args.device)
-    cfg = get_arch(args.arch + ("-reduced" if args.reduced else ""))
+
+def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
+          seq: int = 64, lr: float = 3e-3, seed: int = 0,
+          device: str = "cuda", log_every: int = 10) -> dict:
+    """Train ``cfg`` for ``steps`` AdamW steps of ``batch`` x ``seq``
+    tokens and print the report; ``main``'s flags as keywords.  Returns
+    the logged history, every loss, ``grad_norm`` and step time, the
+    parameter count and the tokens of a step."""
+    device = resolve_device(device)
     model = registry.build(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(args.seed),
+    params = model.init(torch.Generator(device=device).manual_seed(seed),
                         device)
     for p in tree_leaves(params):
         p.requires_grad_()
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"arch={cfg.name} params={n_params:,} device={device}")
 
-    optimizer = AdamW(lr=warmup_cosine(args.lr, args.steps // 10,
-                                       args.steps))
+    optimizer = AdamW(lr=warmup_cosine(lr, steps // 10, steps))
     opt_state = optimizer.init(params)
-    it = SyntheticLM(cfg.vocab, seed=args.seed).batches(args.batch, args.seq)
+    it = SyntheticLM(cfg.vocab, seed=seed).batches(batch, seq)
 
     history, losses, grad_norms, step_ms = [], [], [], []
-    log_every = max(args.log_every, 1)   # --log-every 0 means "every step"
+    log_every = max(log_every, 1)        # --log-every 0 means "every step"
     t0 = time.time()
-    for step in range(1, args.steps + 1):
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in next(it).items()}
+    for step in range(1, steps + 1):
+        tokens = {k: torch.from_numpy(v).to(device)
+                  for k, v in next(it).items()}
         ts = time.perf_counter()
         params, opt_state, metrics = steps_lib.train_step(
-            optimizer, cfg, params, opt_state, batch)
+            optimizer, cfg, params, opt_state, tokens)
         losses.append(float(metrics["loss"]))
         step_ms.append((time.perf_counter() - ts) * 1e3)
         grad_norms.append(float(metrics["grad_norm"]))
@@ -93,7 +107,7 @@ def main(argv: list[str] | None = None) -> dict:
                                   else v) for k, v in m.items()}))
     report = {"history": history, "losses": losses,
               "grad_norms": grad_norms, "step_ms": step_ms,
-              "n_params": n_params, "tokens_per_step": args.batch * args.seq}
+              "n_params": n_params, "tokens_per_step": batch * seq}
     if not history:                      # --steps 0: nothing ran, no summary
         print("no training steps run")
         return report

@@ -92,3 +92,8 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if not cap:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU, tanh approximation (JAX's ``jax.nn.gelu(approximate=True)``)."""
+    return torch.nn.functional.gelu(x, approximate="tanh")

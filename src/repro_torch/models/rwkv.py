@@ -20,7 +20,8 @@ decode step feeds its f32 output to the head-norm, as JAX's does).
 Token-shift state and the per-head (dk x dv) wkv state are the recurrent
 state buffers held in the preallocated decode cache (core/state.py).  The
 sequence-parallel time-mix (JAX ``_apply_tmix_seqpar``) is not ported: it
-comes with the distributed code (ROADMAP Queue 1 item 14).
+comes with the distributed code (ROADMAP Queue 1, "Distributed, launch and
+checkpoint").
 """
 from __future__ import annotations
 

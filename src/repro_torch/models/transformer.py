@@ -1,13 +1,14 @@
 """Decoder assembly (the port's twin of the JAX package's
-``models/transformer.py``), with the RWKV6 path ported.
+``models/transformer.py``), with the RWKV6 and Mamba paths ported.
 
 A model is a periodic stack of blocks; each block = (mix, mlp) chosen per
-slot by the config.  The port has the rwkv6 blocks (time-mix + channel-mix);
-a config with attention, Mamba or MoE layers, vision tokens or audio
-codebooks raises ``NotImplementedError`` naming the ROADMAP item that ports
-it.  As in JAX, the block parameters are a list over the period's slots
-whose leaves are stacked over layer groups (a leading layer axis); the
-layers run in a Python loop over the groups.
+slot by the config.  The port has the rwkv6 blocks (time-mix + channel-mix)
+and the mamba blocks (Mamba + dense MLP: Jamba's layers, with attention and
+MoE taken out); a config with attention or MoE layers, vision tokens or
+audio codebooks raises ``NotImplementedError`` naming the ROADMAP item that
+ports it, by its title.  As in JAX, the block parameters are a list over
+the period's slots whose leaves are stacked over layer groups (a leading
+layer axis); the layers run in a Python loop over the groups.
 
 Three entry points share the block code:
   * forward      — full sequence from zero state (reference logits, and
@@ -22,7 +23,7 @@ checked-out buffers): the JAX package donates its caches to its jits for
 the same effect, so a serve never allocates a cache
 (core/state.StatePool).  The sequence-parallel time-mix and
 ``prefill_chunk`` (chunked admission) wait for their slices (ROADMAP
-Queue 1 items 14 and 12).
+Queue 1, "Distributed, launch and checkpoint" and "The serving stack").
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, rwkv
+from repro_torch.models import common, mamba, mlp, rwkv
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 F32 = torch.float32
@@ -41,24 +42,22 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port cannot run yet, naming its ROADMAP item."""
+    """Raise for what the port cannot run yet, naming its ROADMAP item by
+    its title."""
+    todo = []
     if cfg.n_codebooks or cfg.n_vis_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: audio and vision fronts come with the LM stack "
-            "(ROADMAP Queue 1 item 11)")
+        todo.append("audio and vision fronts")
+    if any(cfg.layer_kind(s) == "attn" for s in range(cfg.period)):
+        todo.append("attention layers (kernels K8, K9)")
     if cfg.moe is not None:
+        todo.append("MoE layers")
+    if todo:
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers come with the LM stack (ROADMAP Queue 1 "
-            "item 11)")
-    for s in range(cfg.period):
-        if cfg.layer_kind(s) == "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: attention layers come with the LM stack "
-                "(ROADMAP Queue 1 item 11; kernels K8, K9)")
-    if cfg.ssm is None or cfg.ssm.kind != "rwkv6":
+            f"{cfg.name}: {', '.join(todo)} come with the LM stack (ROADMAP "
+            "Queue 1, \"The LM stack\")")
+    if cfg.ssm is None or cfg.ssm.kind not in ("rwkv6", "mamba"):
         raise NotImplementedError(
-            f"{cfg.name}: Mamba layers come with the Mamba family (ROADMAP "
-            "Queue 1 item 10; kernel K7)")
+            f"{cfg.name}: only the rwkv6 and mamba mixes are ported")
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -87,12 +86,24 @@ def _groups(tree, n: int) -> list:
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
+def _rwkv(cfg: ModelConfig) -> bool:
+    return cfg.ssm.kind == "rwkv6"
+
+
 def _init_slot(gen: torch.Generator, cfg: ModelConfig, dtype, device
                ) -> dict:
+    """An rwkv6 block (time-mix, channel-mix) or a mamba block (Mamba,
+    dense MLP)."""
+    if _rwkv(cfg):
+        mix, mlp_p = (rwkv.init_tmix(gen, cfg, dtype, device),
+                      rwkv.init_cmix(gen, cfg, dtype, device))
+    else:
+        mix, mlp_p = (mamba.init_mamba(gen, cfg, dtype, device),
+                      mlp.init_mlp(gen, cfg, dtype, device))
     return {"ln1": common.init_norm(cfg.d_model, cfg.norm, F32, device),
-            "mix": rwkv.init_tmix(gen, cfg, dtype, device),
+            "mix": mix,
             "ln2": common.init_norm(cfg.d_model, cfg.norm, F32, device),
-            "mlp": rwkv.init_cmix(gen, cfg, dtype, device)}
+            "mlp": mlp_p}
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
@@ -124,6 +135,11 @@ def _zero_slot(cfg: ModelConfig, batch: int, device) -> dict:
     """One layer's zero states (the JAX package's ``_dummy_cache_slot``):
     what ``forward`` starts every layer from."""
     dtype, d = _dtype(cfg), cfg.d_model
+    if not _rwkv(cfg):
+        di, ds, dc = mamba.d_inner(cfg), cfg.ssm.d_state, cfg.ssm.d_conv
+        return {"conv": torch.zeros(batch, dc - 1, di, dtype=dtype,
+                                    device=device),
+                "h": torch.zeros(batch, di, ds, dtype=F32, device=device)}
     H, dh = rwkv.n_heads(cfg), cfg.ssm.head_dim
     return {"shift_t": torch.zeros(batch, d, dtype=dtype, device=device),
             "wkv": torch.zeros(batch, H, dh, dh, dtype=F32, device=device),
@@ -132,10 +148,12 @@ def _zero_slot(cfg: ModelConfig, batch: int, device) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: str | torch.device = "cpu") -> dict:
-    """Zero decode cache: ``pos`` (a 0-d int32 tensor) and per slot the
-    token-shift states ``shift_t``/``shift_c`` (groups, B, d) in the model
-    dtype and the wkv state (groups, B, H, dh, dh) f32.  ``max_seq`` is
-    the JAX signature's; RWKV state does not grow with the sequence.  On
+    """Zero decode cache: ``pos`` (a 0-d int32 tensor) and per slot, for
+    rwkv6, the token-shift states ``shift_t``/``shift_c`` (groups, B, d) in
+    the model dtype and the wkv state (groups, B, H, dh, dh) f32; for mamba
+    the conv window ``conv`` (groups, B, dc-1, di) in the model dtype and
+    the ssm state ``h`` (groups, B, di, ds) f32.  ``max_seq`` is the JAX
+    signature's; a recurrent state does not grow with the sequence.  On
     the ``meta`` device it is the shape-and-dtype spec a StatePool builds
     its buffers from."""
     _check_ported(cfg)
@@ -153,24 +171,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # ---------------------------------------------------------------------------
 def _apply_mlp_slot(slot_p: dict, cfg: ModelConfig, x: torch.Tensor,
                     cache: dict) -> tuple[torch.Tensor, dict]:
-    """Second half-block (the rwkv6 channel-mix) with residual."""
+    """Second half-block (the rwkv6 channel-mix, or the dense MLP) with
+    residual."""
     h = common.apply_norm(slot_p["ln2"], x, cfg.norm)
+    if not _rwkv(cfg):
+        return x + mlp.apply_mlp(slot_p["mlp"], h), cache
     out, shift = rwkv.apply_cmix(slot_p["mlp"], h, cache["shift_c"])
     return x + out, dict(cache, shift_c=shift)
 
 
 def _apply_block(slot_p: dict, cfg: ModelConfig, x: torch.Tensor,
                  cache_slot: dict, mode: str) -> tuple[torch.Tensor, dict]:
-    """One block (time-mix + channel-mix).  ``cache_slot`` has NO group
-    dim.  mode: 'full' | 'prefill' | 'decode'.  Returns the new
-    activations and the block's new states (new tensors)."""
+    """One block (mix + mlp).  ``cache_slot`` has NO group dim.  mode:
+    'full' | 'prefill' | 'decode'.  Returns the new activations and the
+    block's new states (new tensors)."""
     h = common.apply_norm(slot_p["ln1"], x, cfg.norm)
-    fn = rwkv.step_tmix if mode == "decode" else rwkv.apply_tmix
-    out, shift, state = fn(slot_p["mix"], cfg, h, cache_slot["shift_t"],
-                           cache_slot["wkv"])
-    x = x + out
-    return _apply_mlp_slot(slot_p, cfg, x, dict(cache_slot, shift_t=shift,
-                                                wkv=state))
+    if _rwkv(cfg):
+        fn = rwkv.step_tmix if mode == "decode" else rwkv.apply_tmix
+        out, shift, state = fn(slot_p["mix"], cfg, h, cache_slot["shift_t"],
+                               cache_slot["wkv"])
+        new = dict(cache_slot, shift_t=shift, wkv=state)
+    else:
+        fn = mamba.step_mamba if mode == "decode" else mamba.apply_mamba
+        out, conv, hst = fn(slot_p["mix"], cfg, h, cache_slot["conv"],
+                            cache_slot["h"])
+        new = dict(cache_slot, conv=conv, h=hst)
+    return _apply_mlp_slot(slot_p, cfg, x + out, new)
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +244,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of
     its group function): only the groups' inputs are kept, and a group's
     forward runs twice per gradient.  ``inference`` is the JAX signature's
-    (it switches MoE dispatch, which the rwkv6 path does not have)."""
+    (it switches MoE dispatch, which the ported paths do not have)."""
     del inference
     x = embed_inputs(params, cfg, batch)
     zeros = _zero_slot(cfg, x.shape[0], x.device)

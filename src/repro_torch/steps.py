@@ -1,7 +1,7 @@
 """Step functions shared by training, serving and the smoke runs (the
-port's twin of the JAX package's ``steps.py``, for the rwkv6 path: a config
-with MoE layers, audio codebooks or vision tokens raises, as
-``models/transformer`` does).  All take the plain parameter and cache
+port's twin of the JAX package's ``steps.py``, for the rwkv6 and mamba
+paths: a config with attention or MoE layers, audio codebooks or vision
+tokens raises, as ``models/transformer`` does).  All take the plain parameter and cache
 trees; the cache is updated in place, and ``train_step`` updates the
 parameters and the optimizer state in place (the JAX package donates them
 to its jits for the same effect)."""

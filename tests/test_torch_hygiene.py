@@ -44,13 +44,16 @@ def test_the_scan_sees_the_whole_port():
     assert {"core/lstm.py", "kernels/lstm_cell.py", "kernels/lstm_seq.py",
             "launch/classify.py", "models/rwkv.py", "kernels/wkv6.py",
             "serving/engine.py", "launch/serve.py", "launch/train.py",
-            "data/lm.py", "steps.py", "optim/adamw.py"} <= names
+            "data/lm.py", "steps.py", "optim/adamw.py",
+            "kernels/mamba_scan.py", "models/mamba.py", "models/mlp.py",
+            "configs/jamba_1_5_large_398b.py"} <= names
     assert _imported_modules(ROOT / "tests" / "test_torch_plans.py").count(
         "repro.partitioning") == 1    # the scanner does see such imports
 
 
 def test_kernels_are_cuda_sources_with_a_c_interface():
     from repro_torch.kernels import _build
+    assert {"mamba_scan", "mamba_scan_bwd"} <= set(_build.SOURCES)
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text(encoding="utf-8")
         assert 'extern "C"' in src and f"{name}_error_string" in src

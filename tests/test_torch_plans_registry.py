@@ -1,8 +1,8 @@
 """The port's plan registry (``repro_torch.core.plans``) against the JAX
-package's (``repro.core.plans``): the LSTM and RWKV6 families' plan names,
-policies, tolerance tables, launch counts and cases, their sweeps, and the
-port's plans swept over the JAX families' cases against the JAX package's
-oracles (``sequential``, ``stepwise``) on the CPU."""
+package's (``repro.core.plans``): the LSTM, RWKV6 and Mamba families' plan
+names, policies, tolerance tables, launch counts and cases, their sweeps,
+and the port's plans swept over the JAX families' cases against the JAX
+package's oracles (``sequential``, ``stepwise``, ``scan``) on the CPU."""
 import dataclasses
 
 import numpy as np
@@ -20,6 +20,7 @@ from repro.partitioning import split  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs.mobirnn_lstm import LSTMConfig  # noqa: E402
 from repro_torch.core import lstm, plans  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms_k  # noqa: E402
 from repro_torch.kernels import wkv6 as wkv6_k  # noqa: E402
 from repro_torch.obs import trace as trace_lib  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
@@ -311,3 +312,128 @@ def test_chunked_scan_routes_to_chunked_xla_where_no_chunk_fits():
             *(t.to("meta") for t in (r, k, v, logw, u, s)), chunk=4)
     assert plans._rwkv_scan_blocks(S, 64, 64, 4, torch.device("cuda")) \
         == wkv6_k.WkvBlocks(4, 1)
+
+
+# ---------------------------------------------------------------------------
+# the mamba family
+# ---------------------------------------------------------------------------
+MAMBA = plans.get_family("mamba")
+JAX_MAMBA = jax_plans.get_family("mamba")
+
+
+def test_the_mamba_family_has_the_jax_plans_in_order():
+    assert list(MAMBA.plans) == list(JAX_MAMBA.plans) == \
+        list(plans.MAMBA_PLANS) == ["scan", "fused_scan"]
+    assert MAMBA.oracle == JAX_MAMBA.oracle == "scan"
+    assert MAMBA.dtypes == JAX_MAMBA.dtypes == ("float32", "bfloat16")
+    assert MAMBA.profile_hook is None
+    for name, spec in MAMBA.plans.items():
+        assert spec.name == name and spec.fn is plans.MAMBA_PLANS[name]
+
+
+def test_mamba_tolerance_tables_are_the_jax_ones():
+    assert plans.MAMBA_TOL == jax_plans.MAMBA_TOL
+    assert plans.MAMBA_GRAD_TOL == jax_plans.MAMBA_GRAD_TOL
+
+
+@pytest.mark.parametrize("plan", list(plans.MAMBA_PLANS))
+def test_each_mamba_plan_has_the_jax_policy_and_launch_counts(plan):
+    """The same policies and launches: ``fused_scan`` is one launch
+    forward and two per training step (K7t and K7b), as JAX's."""
+    mine, theirs = MAMBA.plans[plan], JAX_MAMBA.plans[plan]
+    assert mine.policy == theirs.policy
+    assert mine.fwd_launches == theirs.fwd_dispatches
+    assert mine.train_launches == theirs.train_dispatches
+    if plan == "fused_scan":
+        assert (mine.fwd_launches, mine.train_launches) == (1, 2)
+
+
+def test_mamba_cases_and_sweeps_are_the_jax_ones():
+    assert [tuple(c) for c in MAMBA.cases] == \
+        [tuple(c) for c in JAX_MAMBA.cases]
+
+    def ids(sweep):
+        return [(sc.id, sc.heavy) for sc in sweep if sc.family == "mamba"]
+    assert ids(plans.value_sweep()) == ids(jax_plans.value_sweep())
+    assert ids(plans.grad_sweep()) == ids(jax_plans.grad_sweep())
+
+
+def test_mamba_viability_gates_only_the_kernel_plan():
+    serving = MAMBA.viability(512, 16384, 16, chunk=64)
+    assert all(serving(n) for n in plans.MAMBA_PLANS)
+    tiny = MAMBA.viability(512, 16384, 16, smem_budget=256)
+    assert not tiny("fused_scan") and tiny("scan")
+    assert not MAMBA.viability(512, 16384, 32)("fused_scan")
+
+
+def _jax_mamba_inputs(case, dtype):
+    """The JAX family's inputs for ``case`` and the port's copy of them
+    (bf16 values carried through f32 exactly)."""
+    args, chunk, block_b = JAX_MAMBA.make_inputs(case, dtype)
+    mine = [torch.from_numpy(np.array(a, np.float32)) for a in args]
+    mine[0] = mine[0].to(getattr(torch, dtype))
+    return (args, chunk, block_b), (mine, chunk, block_b)
+
+
+@pytest.mark.parametrize("dtype", list(MAMBA.dtypes))
+@pytest.mark.parametrize("case", JAX_MAMBA.cases,
+                         ids=[c.label for c in JAX_MAMBA.cases])
+@pytest.mark.parametrize("plan", list(plans.MAMBA_PLANS))
+def test_port_mamba_plan_matches_jax_scan_on_jax_cases(plan, case, dtype):
+    jinputs, inputs = _jax_mamba_inputs(case, dtype)
+    want = JAX_MAMBA.apply("scan", jinputs)
+    got = MAMBA.apply(plan, inputs)
+    assert got[0].dtype == inputs[0][0].dtype
+    assert got[1].dtype == torch.float32
+    tol = MAMBA.tol(plan, dtype) if plan != "scan" else plans.MAMBA_TOL[dtype]
+    np.testing.assert_allclose(_f32(got[0]), _f32(want[0]), **tol)
+    np.testing.assert_allclose(_f32(got[1]), _f32(want[1]),
+                               **plans.MAMBA_TOL["float32"])
+
+
+MAMBA_GRAD_SWEEP = [sc for sc in plans.grad_sweep() if sc.family == "mamba"]
+
+
+@pytest.mark.parametrize("sc", MAMBA_GRAD_SWEEP,
+                         ids=[sc.id for sc in MAMBA_GRAD_SWEEP])
+def test_fused_scan_grads_match_jax_scan_on_jax_cases(sc):
+    """Through ``_MambaFn`` (the trajectory forward and the hand-derived
+    backward, plain on the CPU) against JAX's gradients of its scan
+    oracle, every case of the family's gradient sweep, at its gradient
+    tolerance."""
+    jinputs, inputs = _jax_mamba_inputs(sc.case, sc.dtype)
+    want = JAX_MAMBA.grads("scan", jinputs)
+    got = MAMBA.grads(sc.plan, inputs)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_f32(g), _f32(w),
+                                   **MAMBA.grad_tol(sc.plan, sc.dtype))
+
+
+def test_fused_scan_calls_each_kernel_as_jax_dispatches(monkeypatch):
+    """On the CPU the wrappers run their plain versions and count no
+    launch; counting their calls shows what a card launch count rests on:
+    a forward is one K7, a gradient one K7t and one K7b (JAX's 1 and 2)."""
+    calls = dict.fromkeys(("mamba_scan", "mamba_scan_traj",
+                           "mamba_scan_bwd", "_launch_fwd"), 0)
+    for name in ("mamba_scan_traj", "mamba_scan_bwd"):
+        fn = getattr(ms_k, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr(ms_k, name, counted)
+    plain = ms_k.mamba_scan_plain
+
+    def counted_plain(*a, **kw):
+        calls["mamba_scan"] += 1
+        return plain(*a, **kw)
+    monkeypatch.setattr(ms_k, "mamba_scan_plain", counted_plain)
+    inputs = MAMBA.make_inputs(MAMBA.cases[0], "float32")
+    MAMBA.apply("fused_scan", inputs)
+    assert calls["mamba_scan"] == MAMBA.plans["fused_scan"].fwd_launches
+    calls["mamba_scan"] = 0
+    MAMBA.grads("fused_scan", inputs)
+    assert calls["mamba_scan"] == 0
+    assert calls["mamba_scan_traj"] + calls["mamba_scan_bwd"] == \
+        MAMBA.plans["fused_scan"].train_launches
+    assert calls["mamba_scan_traj"] == calls["mamba_scan_bwd"] == 1

@@ -25,6 +25,7 @@ from repro.partitioning import split  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import jamba_1_5_large_398b  # noqa: E402
 from repro_torch.core import plans  # noqa: E402
 from repro_torch.models import registry, rwkv, transformer  # noqa: E402
 
@@ -254,13 +255,27 @@ def test_convert_round_trips_params_and_caches(both):
 
 
 def test_unported_layers_raise_naming_their_roadmap_item():
+    """Attention and MoE layers raise naming the ROADMAP item by its title
+    (the LM stack), before anything is allocated: the full Jamba config
+    names both; its attention-free stack, Mamba layers and dense MLPs,
+    builds."""
     attn = dataclasses.replace(CFG, n_heads=4, n_kv_heads=2, ssm=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*LM stack"):
         registry.build(attn).init(torch.Generator().manual_seed(0))
-    mamba = dataclasses.replace(
-        CFG, ssm=dataclasses.replace(CFG.ssm, kind="mamba"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.build(mamba).init_cache(1, 8)
+    jamba = get_arch("jamba-1.5-large-398b")
+    for build in (lambda m: m.init(torch.Generator().manual_seed(0)),
+                  lambda m: m.init_cache(1, 8)):
+        with pytest.raises(NotImplementedError,
+                           match="attention layers.*MoE layers.*LM stack"):
+            build(registry.build(jamba))
+    free = dataclasses.replace(jamba, n_layers=2, **jamba_1_5_large_398b
+                               .ATTENTION_FREE).reduced()
+    model = registry.build(free)
+    params = model.init(torch.Generator().manual_seed(0))
+    assert len(params["blocks"]) == 1
+    assert set(params["blocks"][0]["mix"]) >= {"in_proj", "a_log"}
+    assert set(params["blocks"][0]["mlp"]) == {"wg", "wu", "wd"}
+    assert set(model.init_cache(1, 8)["slots"][0]) == {"conv", "h"}
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,11 @@
 """The port's serving slice on the CPU: the wave ``Engine`` against the JAX
 package's wave ``Engine`` (greedy tokens identical for the same requests
-and transplanted params), the preallocated ``StatePool``, and the
+and transplanted params) on the reduced RWKV6-3B and on the reduced
+attention-free Jamba stack (Mamba layers, whose decode runs the scan at
+T = 1), the preallocated ``StatePool``, and the
 ``repro_torch.launch.serve`` entry point."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -19,6 +23,7 @@ from repro.serving.engine import EngineConfig as JaxEngineConfig  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import jamba_1_5_large_398b as jamba  # noqa: E402
 from repro_torch.core.state import StatePool, make_buffer  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
@@ -63,6 +68,44 @@ def test_wave_engine_tokens_equal_the_jax_engine(engines):
         np.testing.assert_array_equal(g.tokens, np.asarray(w.tokens))
         assert g.finish_reason == FinishReason.LENGTH
         assert set(g.plan_decisions) == {"decode/base"}
+
+
+@pytest.fixture(scope="module")
+def mamba_engines():
+    """The JAX and the port's wave engines on the reduced attention-free
+    Jamba (``dataclasses.replace`` of the config in both packages)."""
+    free = dict(jamba.ATTENTION_FREE, n_layers=2)
+    jcfg = dataclasses.replace(jax_get_arch("jamba-1.5-large-398b"),
+                               **free).reduced()
+    cfg = dataclasses.replace(get_arch("jamba-1.5-large-398b"),
+                              **free).reduced()
+    jmodel = jax_registry.build(jcfg)
+    plain, _ = split(jmodel.init(jax.random.PRNGKey(0)))
+    params = convert.params_from_numpy(jax.tree.map(np.asarray, plain))
+    return (JaxEngine(jmodel, plain,
+                      config=JaxEngineConfig(n_slots=2, max_seq=32)),
+            Engine(registry.build(cfg), params,
+                   config=EngineConfig(n_slots=2, max_seq=32)))
+
+
+def test_mamba_wave_engine_tokens_equal_the_jax_engine(mamba_engines):
+    """Ragged prompts, left-padded in waves of 2, a short wave filled with
+    an inactive lane: greedy tokens equal to JAX's, the pool's buffers
+    (conv windows and ssm states) zeroed in place between waves."""
+    jengine, engine = mamba_engines
+    prompts = _prompts(5, seed=2)
+    budgets = [4, 6, 3, 5, 4]
+    want = jengine.serve([JaxRequest(i, p, max_new_tokens=m)
+                          for i, (p, m) in enumerate(zip(prompts, budgets))])
+    got = engine.serve([Request(i, p, max_new_tokens=m)
+                        for i, (p, m) in enumerate(zip(prompts, budgets))])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, np.asarray(w.tokens))
+    stats = engine.pool.stats
+    assert stats.buffers_built == stats.capacity and stats.outstanding == 0
+    buf = engine.pool.checkout()
+    assert set(buf["slots"][0]) == {"conv", "h"}
+    engine.pool.give_back(buf)
 
 
 def test_pool_never_allocates_while_serving(engines):
