@@ -145,24 +145,28 @@ def time_ms(fn, iters: int, repeats: int = 5) -> float:
     return statistics.median(samples)
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
-    """Least time in ms for the work, and which of the two bounds it."""
+def bound(nbytes: int, flops: int, flop_rate: float = F32_FLOP_PER_S
+          ) -> tuple[float, str]:
+    """Least time in ms for the work, and which of the two bounds it: the
+    bytes at the HBM rate, the operations at ``flop_rate`` (the f32 rate
+    of the CUDA cores unless the inputs' type has a faster peak)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def instance(mangled: str) -> str:
     """The template arguments of a mangled kernel name, e.g.
-    ``<16,512,int8>`` for ``lstm_seq_bwd_kernel<16, 512, int8_t>`` or
+    ``<16,512,int8>`` for ``lstm_seq_bwd_kernel<16, 512, int8_t>``,
     ``<bf16,1>`` for ``mamba_scan_kernel<__nv_bfloat16, true>`` (a bool
-    argument prints 0 or 1)."""
+    argument prints 0 or 1) or ``<f32,160>`` for
+    ``flash_prefill_kernel<float, 160>``."""
     args = re.search(r"I((?:L[ib]\d+E)+)([af]?)E", mangled)
-    if not args:            # a kernel templated on its IO type, then flags
-        io = re.search(r"I(13__nv_bfloat16|f)((?:Lb[01]E)*)E", mangled)
+    if not args:            # a kernel templated on its IO type, then values
+        io = re.search(r"I(13__nv_bfloat16|f)((?:L[ib]\d+E)*)E", mangled)
         if not io:
             return ""
-        flags = re.findall(r"Lb(\d)E", io.group(2))
+        flags = re.findall(r"L[ib](\d+)E", io.group(2))
         return "<" + ",".join(["f32" if io.group(1) == "f" else "bf16",
                                *flags]) + ">"
     vals = re.findall(r"L[ib](\d+)E", args.group(1))
@@ -1507,6 +1511,433 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     return entries
 
 
+def attn_inputs(B, S, Hq, Hkv, dh, dtype, gen):
+    """q (B, S, Hq, dh) and k, v (B, S, Hkv, dh) in ``dtype``, on the card
+    (S = 1 and the query squeezed for a decode step's q)."""
+    return (randn(B, S, Hq, dh, gen=gen).to(dtype),
+            randn(B, S, Hkv, dh, gen=gen).to(dtype),
+            randn(B, S, Hkv, dh, gen=gen).to(dtype))
+
+
+def prefill_work(B, S, Hq, Hkv, dh, dtype) -> tuple[int, int]:
+    """(bytes, operations) of one K8 launch: q, k, v in and o out in the IO
+    type, each once; the causal half of the two products, 4 B Hq dh
+    S (S + 1) / 2 (a multiply-add is 2)."""
+    io = 2 if dtype == torch.bfloat16 else 4
+    return (io * B * S * dh * (2 * Hq + 2 * Hkv),
+            4 * B * Hq * dh * S * (S + 1) // 2)
+
+
+def decode_work(B, Hq, Hkv, dk, lengths, dtype) -> tuple[int, int]:
+    """(bytes, operations) of one K9 launch: the k and v rows below each
+    row's length, q in and o out, in the IO type; the two products over
+    those rows (4 Hq dk a row and position)."""
+    io = 2 if dtype == torch.bfloat16 else 4
+    n = int(lengths.clamp_min(0).sum())
+    return (io * (2 * n * Hkv * dk + 2 * B * Hq * dk), 4 * n * Hq * dk)
+
+
+def attention_slice(device, gen, counted, counts, only) -> list[dict]:
+    """The dense attention slice: K8 against its plain version (A1); K9
+    against its plain version (A2); Qwen2-0.5B at full width and depth in
+    f32, across plans and prefill + decode against its own forward (A3);
+    Qwen2-0.5B and Yi-9B in bf16 served through ``launch/serve.py``,
+    counted, the plain attention functions armed to raise, every launch
+    then held against its plain version on its own inputs, and served
+    again uncaptured for the times (A4); the two
+    kernels' times beside SDPA's (A5).  Returns their entries of the
+    ``kernels`` line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ref
+    from repro_torch import steps as steps_lib
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.models import attention, registry
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serving import Request
+
+    import torch.nn.functional as F
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    #: the JAX package's kernel tolerances (tests/test_flash_prefill.py):
+    #: 2e-4 against the oracle and across tiles; per dtype 1e-4 f32, 3e-2
+    #: bf16 (an output rounded to bf16 on both sides)
+    tol = {f32: dict(rtol=2e-4, atol=2e-4), bf16: dict(rtol=3e-2, atol=3e-2)}
+    plain_attention = ((fp, "flash_prefill_plain"), (da, "decode_attn_plain"),
+                       (attention, "flash_attention"),
+                       (attention, "_decode_einsum"), (ref, "prefill_attn"),
+                       (ref, "decode_attn"))
+    errs = {"flash_prefill": {f32: 0.0, bf16: 0.0},
+            "decode_attn": {f32: 0.0, bf16: 0.0}}
+
+    # --- A1. K8 against its plain version ---------------------------------
+    cases = [  # tests/test_flash_prefill.py's sweep, dtype and model cases
+        (2, 64, 4, 2, 32, 16, 16, 0), (1, 128, 8, 8, 16, 32, 64, 0),
+        (2, 96, 4, 1, 32, 32, 32, 24), (1, 60, 2, 2, 16, 16, 16, 0),
+        (1, 60, 2, 2, 16, 16, 16, 20), (1, 64, 4, 2, 32, 32, 32, 0),
+        (2, 96, 4, 2, 16, 32, 32, 0),
+        # Qwen2-0.5B's served prefills, Yi-9B's, 8/8 x 160, a window of 64
+        (4, 500, 14, 2, 64, None, None, 0), (4, 468, 14, 2, 64, None, None, 0),
+        (4, 500, 32, 4, 128, None, None, 0), (2, 500, 8, 8, 160, None, None, 0),
+        (4, 500, 14, 2, 64, None, None, 64)]
+    for B, S, Hq, Hkv, dh, qb, kb, w in cases:
+        blocks = fp.choose_blocks(S, dh)
+        qb_, kb_ = qb or blocks.q_block, kb or blocks.k_block
+        e_case = {}
+        for dtype in (f32, bf16):
+            q, k, v = attn_inputs(B, S, Hq, Hkv, dh, dtype, gen)
+            got = fp.flash_prefill(q, k, v, window=w, q_block=qb,
+                                   k_block=kb)
+            want = fp.flash_prefill_plain(q, k, v, window=w, q_block=qb_,
+                                          k_block=kb_)
+            check(got.dtype == dtype and got.shape == q.shape,
+                  f"flash_prefill {B, S, Hq, Hkv, dh}: {got.dtype} "
+                  f"{tuple(got.shape)}")
+            e = close(got.float(), want.float(),
+                      f"flash_prefill {(B, S, Hq, Hkv, dh, qb_, kb_, w)} "
+                      f"{dtype}", tol[dtype])
+            errs["flash_prefill"][dtype] = max(errs["flash_prefill"][dtype],
+                                               e)
+            e_case[dtype] = e
+        print(f"[K8] B={B} S={S} {Hq}/{Hkv} x {dh} q_block={qb_} "
+              f"k_block={kb_} window={w}: vs plain max abs err f32 "
+              f"{e_case[f32]:.3e}, bf16 {e_case[bf16]:.3e}")
+    q, k, v = attn_inputs(4, 500, 14, 2, 64, f32, gen)
+    base = fp.flash_prefill(q, k, v)
+    for qb, kb in ((16, 64), (32, 32), (48, 16), (64, 2)):
+        close(fp.flash_prefill(q, k, v, q_block=qb, k_block=kb), base,
+              f"flash_prefill tiles ({qb}, {kb}) vs default", tol[f32])
+    q.requires_grad_()
+    try:
+        fp.flash_prefill(q, k, v)
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised, "flash_prefill under autograd did not raise on the card")
+    print(f"[K8] max abs err vs plain: f32 "
+          f"{errs['flash_prefill'][f32]:.3e}, bf16 "
+          f"{errs['flash_prefill'][bf16]:.3e}; f32 results within 2e-4 at "
+          "q/k tiles (16, 64), (32, 32), (48, 16), (64, 2); raises under "
+          "autograd")
+
+    # --- A2. K9 against its plain version ---------------------------------
+    cases = [  # tests/test_kernels.py::test_decode_attn_sweep, then the
+        # served decode shapes of Qwen2-0.5B and Yi-9B, ragged
+        (2, 8, 2, 96, 32, 32), (1, 4, 4, 64, 64, 64), (3, 16, 2, 128, 16, 128),
+        (2, 2, 1, 33, 8, 16), (4, 14, 2, 517, 64, None),
+        (4, 32, 4, 517, 128, None)]
+    for B, Hq, Hkv, S, dk, bs in cases:
+        bs_ = bs or da.choose_block(S, Hq // Hkv, dk)
+        lens = (torch.arange(1, B + 1) * (S // (B + 1)) + 1).to(torch.int32)
+        if S == 517:
+            lens = torch.tensor([0, 1, 300, 517][:B], dtype=torch.int32)
+        lens = lens.to(device)
+        e_case = {}
+        for dtype in (f32, bf16):
+            q = randn(B, Hq, dk, gen=gen).to(dtype)
+            _, kc, vc = attn_inputs(B, S, Hkv, Hkv, dk, dtype, gen)
+            got = da.decode_attn(q, kc, vc, lens, block_s=bs)
+            want = da.decode_attn_plain(q, kc, vc, lens, block_s=bs_)
+            e = close(got.float(), want.float(),
+                      f"decode_attn {(B, Hq, Hkv, S, dk, bs_)} {dtype}",
+                      tol[dtype])
+            errs["decode_attn"][dtype] = max(errs["decode_attn"][dtype], e)
+            e_case[dtype] = e
+            zero = (lens == 0).nonzero().flatten().tolist()
+            check(all(bool((got[i] == 0).all()) for i in zero),
+                  f"decode_attn {(B, Hq, Hkv, S, dk)}: a row of length 0 "
+                  "is not 0")
+        print(f"[K9] B={B} {Hq}/{Hkv} x {dk} S={S} block_s={bs_} lengths "
+              f"{lens.tolist()}: vs plain max abs err f32 {e_case[f32]:.3e}, "
+              f"bf16 {e_case[bf16]:.3e}"
+              + ("; length 0 gives 0" if 0 in lens.tolist() else ""))
+    q = randn(4, 32, 128, gen=gen)
+    _, kc, vc = attn_inputs(4, 517, 4, 4, 128, f32, gen)
+    lens = torch.tensor([1, 64, 300, 517], dtype=torch.int32, device=device)
+    base = da.decode_attn(q, kc, vc, lens)
+    for bs in (1, 16, 100, 128):
+        close(da.decode_attn(q, kc, vc, lens, block_s=bs), base,
+              f"decode_attn block_s {bs} vs default", tol[f32])
+    print(f"[K9] max abs err vs plain: f32 {errs['decode_attn'][f32]:.3e}, "
+          f"bf16 {errs['decode_attn'][bf16]:.3e}; f32 results within 2e-4 "
+          "at block_s 1, 16, 100, 128")
+
+    # --- A3. Qwen2-0.5B at full width and depth, f32 ----------------------
+    cfg32 = dataclasses.replace(get_arch("qwen2-0.5b"), dtype="float32")
+    model = registry.build(cfg32)
+    p32 = model.init(torch.Generator(device=device).manual_seed(0), device)
+    n_params = sum(t.numel() for t in tree_leaves(p32))
+    L, S, K = cfg32.n_layers, 300, 4
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg32.vocab, (2, S + K)).astype(np.int32)).to(device)
+
+    def run(prefill_plan: str, decode_plan: str):
+        """forward over S + K, then prefill S + K decode steps, under the
+        given plans: (forward logits, each step's logits, launches of the
+        forward, the prefill and each decode step)."""
+        old = attention.PREFILL_PLAN, attention.DECODE_PLAN
+        attention.PREFILL_PLAN, attention.DECODE_PLAN = (prefill_plan,
+                                                         decode_plan)
+        try:
+            with torch.no_grad():
+                reset_counts(*counted)
+                full, _ = model.forward(p32, {"tokens": toks})
+                n = [counts()]
+                cache = model.init_cache(2, S + K, device=device)
+                reset_counts(*counted)
+                first, cache = model.prefill(p32, cache,
+                                             {"tokens": toks[:, :S]})
+                n.append(counts())
+                outs = [first[:, 0]]
+                for t in range(K):
+                    reset_counts(*counted)
+                    logits, cache = model.decode_step(
+                        p32, cache, {"tokens": toks[:, S + t]})
+                    n.append(counts())
+                    outs.append(logits)
+            torch.cuda.synchronize()
+        finally:
+            attention.PREFILL_PLAN, attention.DECODE_PLAN = old
+        return full, outs, n
+
+    with tripwires(*plain_attention[:2], *plain_attention[4:]):
+        full, outs, n_k = run("flash_prefill", "decode_attn")
+    check(n_k[:2] == [only(flash_prefill=L)] * 2
+          and n_k[2:] == [only(decode_attn=L)] * K,
+          f"f32 Qwen2 launches (forward, prefill, decode steps): {n_k}")
+    e2 = max(close(o, full[:, S - 1 + t], f"f32 Qwen2 step {t} vs forward",
+                   CONSISTENCY_TOL) for t, o in enumerate(outs))
+    plain_full, plain_outs, n_p = run("blocked", "einsum")
+    check(all(n == only() for n in n_p), f"plain plans launched {n_p}")
+    e1 = close(full, plain_full, "f32 Qwen2 forward, flash_prefill vs "
+               "blocked", tol[f32])
+    e1d = max(close(a, b, f"f32 Qwen2 step {t}, kernels vs blocked/einsum",
+                    tol[f32]) for t, (a, b) in enumerate(zip(outs,
+                                                             plain_outs)))
+    print(f"[model] {cfg32.name} {L} x {cfg32.d_model} f32 ({n_params / 1e9:.3f}"
+          f" B parameters), B=2 S={S}: forward logits flash_prefill vs "
+          f"blocked max abs err {e1:.3e}, prefill + {K} decode steps "
+          f"through K8/K9 vs blocked/einsum {e1d:.3e} (2e-4); vs the "
+          f"forward over {S + K}: {e2:.3e} ({CONSISTENCY_TOL}); {L} K8 "
+          f"launches a forward or prefill, {L} K9 a decode step")
+    del p32, full, outs, plain_full, plain_outs, model
+    torch.cuda.empty_cache()
+
+    # --- A4. Qwen2-0.5B and Yi-9B in bf16, served --------------------------
+    lens_req = [412, 300, 377, 500, 333, 468, 451, 389]  # wave maxima 500, 468
+    served_launches = {"flash_prefill": 0, "decode_attn": 0}
+    served_err = {"flash_prefill": 0.0, "decode_attn": 0.0}
+    for name in ("qwen2-0.5b", "yi-9b"):
+        cfg = get_arch(name)
+        t0 = time.perf_counter()
+        engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=4,
+                                       max_seq=500 + 16 + 1)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_leaves(engine.params))
+        print(f"[serve] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, {n_params / 1e9:.3f} B parameters "
+              f"in {cfg.dtype}, drawn from seed 0 on the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+        prng = np.random.default_rng(0)
+        reqs = [Request(i, prng.integers(0, cfg.vocab, (n,)).astype(np.int32),
+                        max_new_tokens=16) for i, n in enumerate(lens_req)]
+        seen = {"calls": {"flash_prefill": [], "decode_attn": []},
+                "prefill": [], "decode": [], "finite": True}
+        kernels = {"flash_prefill": fp.flash_prefill,
+                   "decode_attn": da.decode_attn}
+        prefill, decode = engine._prefill, steps_lib.decode_step
+
+        def watched_prefill(params, cache, batch):
+            before = kernels["flash_prefill"].launches
+            logits, cache = prefill(params, cache, batch)
+            seen["prefill"].append(kernels["flash_prefill"].launches - before)
+            seen["finite"] &= bool(torch.isfinite(logits).all())
+            return logits, cache
+
+        def watched_decode(cfg_, params, cache, batch):
+            before = kernels["decode_attn"].launches
+            logits, cache = decode(cfg_, params, cache, batch)
+            seen["decode"].append(kernels["decode_attn"].launches - before)
+            seen["finite"] &= bool(torch.isfinite(logits).all())
+            return logits, cache
+
+        def capture(kname):
+            """The kernel as the serve calls it, keeping clones of its
+            inputs (the caches are written after the call and zeroed
+            between waves) and its output for the check against the plain
+            version after the serve; the launch count is carried across,
+            as in the Mamba slice."""
+            kernel = kernels[kname]
+
+            def captured(*args, **kwargs):
+                captured.launches = kernel.launches
+                out = kernel(*args, **kwargs)
+                kernel.launches = captured.launches
+                seen["calls"][kname].append(
+                    ([a.clone() for a in args], kwargs, out))
+                return out
+            captured.launches = kernel.launches
+            return captured
+
+        engine._prefill, steps_lib.decode_step = watched_prefill, \
+            watched_decode
+        fp.flash_prefill = capture("flash_prefill")
+        da.decode_attn = capture("decode_attn")
+        reset_counts(*counted)
+        try:
+            with tripwires(*plain_attention):
+                served = serve_lm.serve(engine, reqs)
+        finally:
+            fp.flash_prefill = kernels["flash_prefill"]
+            da.decode_attn = kernels["decode_attn"]
+            steps_lib.decode_step = decode
+        got = counts()
+        Lc = cfg.n_layers
+        check(got == only(flash_prefill=2 * Lc, decode_attn=2 * 16 * Lc)
+              and seen["prefill"] == [Lc] * 2
+              and seen["decode"] == [Lc] * 32,
+              f"{name} serve launched {got}; per prefill {seen['prefill']}"
+              f", per decode step {sorted(set(seen['decode']))}")
+        check(all(r.tokens.shape == (16,) and int(r.tokens.min()) >= 0
+                  and int(r.tokens.max()) < cfg.vocab
+                  for r in served["results"]),
+              f"{name}: served tokens outside [0, vocab) or not 16 a request")
+        check(seen["finite"], f"{name}: a served logit is not finite")
+        check(served["pool"].buffers_built == served["pool"].capacity,
+              f"{name}: the pool built {served['pool'].buffers_built} "
+              "buffers")
+        for kname, calls in seen["calls"].items():
+            check(len(calls) == got[kname],
+                  f"{name}: captured {len(calls)} {kname} calls")
+            for i, (args, kwargs, out) in enumerate(calls):
+                if kname == "flash_prefill":
+                    bl = fp.choose_blocks(args[0].shape[1],
+                                          args[0].shape[3])
+                    want = fp.flash_prefill_plain(
+                        *args, window=kwargs.get("window", 0),
+                        q_block=bl.q_block, k_block=bl.k_block)
+                else:
+                    bs = da.choose_block(args[1].shape[1],
+                                         args[0].shape[1] // args[1].shape[2],
+                                         args[0].shape[2])
+                    want = da.decode_attn_plain(*args, block_s=bs)
+                served_err[kname] = max(served_err[kname], close(
+                    out.float(), want.float(),
+                    f"{name} served {kname} call {i}", tol[bf16]))
+            served_launches[kname] += got[kname]
+        q0 = seen["calls"]["flash_prefill"][0][0][0]
+        k0 = seen["calls"]["decode_attn"][0][0][1]
+        print(f"[serve] {name}: {got['flash_prefill']} K8 launches "
+              f"({seen['prefill']} per prefill) and {got['decode_attn']} K9 "
+              f"({Lc} a decode step), no plain attention reached; every "
+              f"logit finite; buffers_built {served['pool'].buffers_built} "
+              f"= capacity; each launch (K8 at q {tuple(q0.shape)}, K9 over "
+              f"caches {tuple(k0.shape)}, {q0.dtype}) against its plain "
+              f"version on its own inputs: K8 max abs err "
+              f"{served_err['flash_prefill']:.3e}, K9 "
+              f"{served_err['decode_attn']:.3e} (bf16 3e-2)")
+        # the same requests again, nothing captured: the serve's times
+        reset_counts(*counted)
+        with tripwires(*plain_attention):
+            timed = serve_lm.serve(engine, reqs)
+        check(counts() == got, f"{name}: the second serve launched "
+              f"{counts()}")
+        check(all(np.array_equal(a.tokens, b.tokens) for a, b in zip(
+            timed["results"], served["results"])),
+              f"{name}: the second serve's tokens differ from the first's")
+        for i, (w, wc) in enumerate(zip(timed["waves"], served["waves"])):
+            print(f"[time] serve {name} wave {i}: prefill "
+                  f"{w['prefill_ms']:.3f} ms, decode "
+                  f"{w['decode_ms_per_token']:.3f} ms/token (host clock; "
+                  f"the first serve, launches captured: "
+                  f"{wc['prefill_ms']:.3f} and "
+                  f"{wc['decode_ms_per_token']:.3f})")
+        print(f"[serve] {name}: a second serve of the same requests, "
+              "nothing captured, launched as many kernels and gave the same "
+              "tokens")
+        del engine, served, timed, seen
+        torch.cuda.empty_cache()
+
+    # --- A5. the kernels' times at the served shapes ----------------------
+    rows = {}
+    for name, (Hq, Hkv, dh) in (("qwen2-0.5b", (14, 2, 64)),
+                                ("yi-9b", (32, 4, 128))):
+        B, S = 4, 500
+        q, k, v = attn_inputs(B, S, Hq, Hkv, dh, bf16, gen)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        bl = fp.choose_blocks(S, dh)
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        e_lib = close(lib.transpose(1, 2).float(), fp.flash_prefill(
+            q, k, v).float(), f"SDPA vs K8 at {name}", tol[bf16])
+        t_bound, by = bound(*prefill_work(B, S, Hq, Hkv, dh, bf16),
+                            flop_rate=BF16_FLOP_PER_S)
+        rows["flash_prefill", name] = r = dict(
+            ms=time_ms(lambda: fp.flash_prefill(q, k, v), 20),
+            plain_ms=time_ms(lambda: fp.flash_prefill_plain(
+                q, k, v, q_block=bl.q_block, k_block=bl.k_block), 1,
+                repeats=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+            bound_ms=t_bound, bound_by=by)
+        print(f"[time] flash_prefill {name} B={B} S={S} {Hq}/{Hkv} x {dh} "
+              f"bf16 (q_block {bl.q_block}, k_block {bl.k_block}): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms (F.scaled_dot_product_attention, "
+              f"is_causal, enable_gqa; vs K8 {e_lib:.3e}), bound "
+              f"{r['bound_ms']:.3e} ms ({r['bound_by']}; bf16 dense peak), "
+              f"kernel at {r['ms'] / r['bound_ms']:.1f}x it")
+        S_c = 517
+        qd = randn(B, Hq, dh, gen=gen).to(bf16)
+        _, kc, vc = attn_inputs(B, S_c, Hkv, Hkv, dh, bf16, gen)
+        lens = torch.full((B,), 508, dtype=torch.int32, device=device)
+        bs = da.choose_block(S_c, Hq // Hkv, dh)
+        kct, vct = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2) \
+            .contiguous()
+        mask = (torch.arange(S_c, device=device)[None, :]
+                < lens[:, None])[:, None, None, :]
+        lib = F.scaled_dot_product_attention(qd[:, :, None], kct, vct,
+                                             attn_mask=mask,
+                                             enable_gqa=True)[:, :, 0]
+        e_lib = close(lib.float(), da.decode_attn(qd, kc, vc, lens).float(),
+                      f"SDPA vs K9 at {name}", tol[bf16])
+        t_bound, by = bound(*decode_work(B, Hq, Hkv, dh, lens, bf16),
+                            flop_rate=BF16_FLOP_PER_S)
+        rows["decode_attn", name] = r = dict(
+            ms=time_ms(lambda: da.decode_attn(qd, kc, vc, lens), 50),
+            plain_ms=time_ms(lambda: da.decode_attn_plain(
+                qd, kc, vc, lens, block_s=bs), 3, repeats=3),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], kct, vct, attn_mask=mask, enable_gqa=True),
+                50),
+            bound_ms=t_bound, bound_by=by)
+        print(f"[time] decode_attn {name} B={B} {Hq}/{Hkv} x {dh} over "
+              f"{S_c} cache slots, length 508, bf16 (block_s {bs}): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms (F.scaled_dot_product_attention "
+              f"with a length mask, enable_gqa; vs K9 {e_lib:.3e}), bound "
+              f"{r['bound_ms']:.3e} ms ({r['bound_by']}), kernel at "
+              f"{r['ms'] / r['bound_ms']:.1f}x it")
+    # the main path's first model, Qwen2-0.5B, gives the line its times
+    entries = []
+    for kname, replaces, src in (
+            ("flash_prefill", "src/repro/kernels/flash_prefill.py:27",
+             "flash_prefill.cu"),
+            ("decode_attn", "src/repro/kernels/decode_attn.py:26",
+             "decode_attn.cu")):
+        r = rows[kname, "qwen2-0.5b"]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": served_launches[kname],
+            "max_abs_err": errs[kname][f32], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    return entries
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     if not torch.cuda.is_available():
@@ -1522,6 +1953,8 @@ def main() -> None:
     from repro_torch.configs.mobirnn_lstm import LSTMConfig
     from repro_torch.core import lstm, plans
     from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attn as da_k
+    from repro_torch.kernels import flash_prefill as fp_k
     from repro_torch.kernels import lstm_cell as cell_k
     from repro_torch.kernels import lstm_seq as seq_k
     from repro_torch.kernels import lstm_seq_bwd as bwd_k
@@ -1537,7 +1970,7 @@ def main() -> None:
                bwd_k.lstm_seq_bwd, seq_k.lstm_seq_q8, seq_k.lstm_seq_q8_traj,
                bwd_k.lstm_seq_bwd_q8, wkv6_k.wkv6, wkv6_k.wkv6_traj,
                wkv6_k.wkv6_bwd, mamba_k.mamba_scan, mamba_k.mamba_scan_traj,
-               mamba_k.mamba_scan_bwd)
+               mamba_k.mamba_scan_bwd, fp_k.flash_prefill, da_k.decode_attn)
 
     def counts() -> dict:
         return {fn.__name__: fn.launches for fn in counted}
@@ -2393,6 +2826,7 @@ def main() -> None:
     kernels.append(rwkv_slice(device, gen, counted, counts, only))
     kernels += rwkv_train_slice(device, gen, counted, counts, only)
     kernels += mamba_slice(device, gen, counted, counts, only)
+    kernels += attention_slice(device, gen, counted, counts, only)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 
 Layer pattern (period 8): one attention layer per 8 (at period midpoint),
 seven Mamba layers; MoE MLP on every second layer (16 experts, top-2).
-The port runs its Mamba and dense-MLP layers; the attention and MoE layers
-come with the LM stack, so the configuration as it stands raises there.
+The port runs its Mamba, attention and dense-MLP layers; the MoE layers
+come with the slice "MoE and the full Jamba hybrid" (ROADMAP Queue 1), so
+the configuration as it stands raises there.
 ``dataclasses.replace(CONFIG, **ATTENTION_FREE, n_layers=L)`` is the
 attention-free stack at Jamba's width that both packages run (the JAX
 package's config takes the same replacement).

@@ -1,0 +1,21 @@
+"""Qwen2-0.5B — dense GQA decoder with QKV bias, tied embeddings
+[arXiv:2407.10671]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=896,
+    n_heads=14,
+    n_kv_heads=2,
+    d_ff=4864,
+    vocab=151936,
+    head_dim=64,
+    qkv_bias=True,
+    tie_embeddings=True,
+    mlp_act="swiglu",
+    norm="rms",
+    rope_theta=1_000_000.0,
+    source="arXiv:2407.10671",
+)

@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("lstm_cell", "lstm_seq", "lstm_seq_bwd", "wkv6", "wkv6_bwd",
-           "mamba_scan", "mamba_scan_bwd")
+           "mamba_scan", "mamba_scan_bwd", "flash_prefill", "decode_attn")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -93,6 +93,13 @@ def load(name: str) -> ctypes.CDLL:
             err_fn.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned, as a kernel's vector loads
+    need (a contiguous view at an odd offset is copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(lib: ctypes.CDLL, name: str, err: int) -> None:

@@ -5,17 +5,23 @@
 ``lstm_seq.choose_batch_block``; ``wkv6`` takes its chunk from the caller
 (the model's ``cfg.ssm.chunk``) and runs one batch-head row per thread
 block; ``mamba_scan`` takes its chunk from the caller and runs one batch
-row and ``di_tile`` channels per thread block.  Any block may be pinned by
-the caller.  CPU tensors run the kernels' plain versions; CUDA tensors
+row and ``di_tile`` channels per thread block; ``flash_prefill`` takes its
+``(q_block, k_block)`` from ``flash_prefill.choose_blocks`` and runs one
+(row, query head, q tile) per thread block; ``decode_attn`` takes its
+``block_s`` from ``decode_attn.choose_block`` and runs one (row, kv head)
+per thread block.  Any block may be pinned by the caller.  CPU tensors run the kernels' plain versions; CUDA tensors
 launch the kernels.  The entries are differentiable: under autograd
 ``lstm_seq``, ``lstm_seq_q8``, ``wkv6`` and ``mamba_scan`` pair their
 trajectory launch with their backward kernel, and ``lstm_cell`` takes the
-VJP of its plain version.
+VJP of its plain version; the two attention kernels serve inference only
+and raise on the card under autograd.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attn as _decode_attn
+from repro_torch.kernels import flash_prefill as _flash_prefill
 from repro_torch.kernels import lstm_cell as _lstm_cell
 from repro_torch.kernels import lstm_seq as _lstm_seq
 from repro_torch.kernels import mamba_scan as _mamba_scan
@@ -98,3 +104,30 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     scan instead, on the CPU only.  The ``fused_scan`` plan calls this."""
     return _mamba_scan.mamba_scan(x, dt, b, c, a, h0, chunk=chunk,
                                   block_b=block_b, di_tile=di_tile, bwd=bwd)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int = 0, scale: float | None = None,
+                  q_block: int | None = None, k_block: int | None = None
+                  ) -> torch.Tensor:
+    """Causal GQA prefill attention, ONE kernel launch (K8).
+
+    q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh); ``window`` > 0 restricts each
+    query to the last ``window`` positions.  Returns (B, S, Hq, dh) in q's
+    dtype.  The ``flash_prefill`` prefill plan of ``models/attention``
+    calls this."""
+    return _flash_prefill.flash_prefill(q, k, v, window=window, scale=scale,
+                                        q_block=q_block, k_block=k_block)
+
+
+def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                scale: float | None = None, block_s: int | None = None
+                ) -> torch.Tensor:
+    """One new token's GQA attention over a cache, ONE kernel launch (K9).
+
+    q: (B, Hq, dk); caches: (B, S, Hkv, dk); lengths: (B,) int32 on the
+    device.  Returns (B, Hq, dk) in q's dtype, 0 for a row of length 0.
+    The ``decode_attn`` decode plan of ``models/attention`` calls this."""
+    return _decode_attn.decode_attn(q, k_cache, v_cache, lengths,
+                                    scale=scale, block_s=block_s)

@@ -1,6 +1,7 @@
 """Plain-PyTorch oracles of the kernels (the twin of the JAX package's
-``kernels/ref.py``): the LSTM kernels and the RWKV6 chunked scan, f32
-math, results cast back to the IO dtype where the kernel's are.
+``kernels/ref.py``): the LSTM kernels, the RWKV6 chunked scan and the
+two attention kernels, f32 math, results cast back to the IO dtype where
+the kernel's are.
 
 Each CUDA kernel of the port is held against these on the card, and the CPU
 tests hold these against the JAX originals.
@@ -236,3 +237,49 @@ def wkv6_stepwise(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append((r[..., t, None, :] @ (s + u[..., :, None] * kv))[..., 0, :])
         s = torch.exp(logw[..., t, :])[..., :, None] * s + kv
     return torch.stack(outs, dim=-2), s
+
+
+# ---------------------------------------------------------------------------
+# Blocked causal prefill attention (kernels/flash_prefill.py)
+# ---------------------------------------------------------------------------
+def prefill_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int = 0, scale: float | None = None
+                 ) -> torch.Tensor:
+    """Naive causal attention oracle.  q: (B,S,Hq,dh); k,v: (B,S,Hkv,dh).
+    GQA: query head h reads kv head h // (Hq // Hkv)."""
+    S, Hq, dh = q.shape[1], q.shape[2], q.shape[3]
+    group = Hq // k.shape[2]
+    scale = dh ** -0.5 if scale is None else scale
+    kr = torch.repeat_interleave(k.to(F32), group, dim=2)
+    vr = torch.repeat_interleave(v.to(F32), group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(F32), kr) * scale
+    pos = torch.arange(S, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    s = torch.where(mask, s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Single-token flash-decode attention (kernels/decode_attn.py)
+# ---------------------------------------------------------------------------
+def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
+                v_cache: torch.Tensor, length: torch.Tensor | int,
+                scale: float | None = None) -> torch.Tensor:
+    """q: (B, Hq, dk); caches: (B, S, Hkv, dk); length: valid cache length
+    (a scalar or one per row).  GQA: query head h reads kv head
+    h // (Hq // Hkv).  Returns (B, Hq, dk); a row of length 0 is NaN (the
+    kernel's is 0)."""
+    S, Hkv, dk = k_cache.shape[1], k_cache.shape[2], k_cache.shape[3]
+    scale = dk ** -0.5 if scale is None else scale
+    group = q.shape[1] // Hkv
+    kc = torch.repeat_interleave(k_cache.to(F32), group, dim=2)
+    vc = torch.repeat_interleave(v_cache.to(F32), group, dim=2)
+    scores = torch.einsum("bhd,bshd->bhs", q.to(F32), kc) * scale
+    length = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1)
+    valid = torch.arange(S, device=q.device)[None, None, :] < length
+    scores = torch.where(valid, scores, -torch.inf)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p, vc).to(q.dtype)

@@ -8,15 +8,19 @@ serves them in waves of ``--batch-size``, ``--max-new`` greedy tokens each.
 It prints what the JAX entry point prints, plus each wave's prefill ms and
 decode ms per token (host clock, ending in a synchronize on the card).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve [--arch rwkv6-3b]
-      [--reduced] [--device cuda|cpu] [--requests N] [--prompt-len S]
-      [--max-new K] [--batch-size B]
+  PYTHONPATH=src python -m repro_torch.launch.serve [--arch rwkv6-3b |
+      qwen2-0.5b | yi-9b | stablelm-12b | command-r-35b] [--reduced]
+      [--device cuda|cpu] [--requests N] [--prompt-len S] [--max-new K]
+      [--batch-size B]
 
 The default device is ``cuda``; without a card that raises rather than
 running on the CPU.  ``--engine slot`` (the JAX default, continuous
 batching) raises until the slot engine is ported, so the port's default is
-``wave``.  On the card every prefill's time-mix runs the K6 kernel
-(``models/rwkv.WKV_PLAN``).
+``wave``.  On the card every prefill's RWKV6 time-mix runs the K6 kernel
+(``models/rwkv.WKV_PLAN``); for a dense model every prefill's attention
+runs the K8 kernel and every decode step's the K9 kernel
+(``models/attention.PREFILL_PLAN`` and ``DECODE_PLAN``), one launch a
+layer each.
 """
 from __future__ import annotations
 

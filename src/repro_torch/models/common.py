@@ -1,5 +1,6 @@
-"""Shared model components: norms, linear and embedding initializers (the
-port's twin of the JAX package's ``models/common.py``).
+"""Shared model components: norms, linear and embedding initializers and
+rotary position embeddings (the port's twin of the JAX package's
+``models/common.py``).
 
 Initializers return plain tensors drawn from an explicit
 ``torch.Generator`` on an explicit device (the JAX package returns
@@ -72,20 +73,51 @@ def apply_groupnorm(p: dict, x: torch.Tensor, n_groups: int,
 # Linear / embedding
 # ---------------------------------------------------------------------------
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,
-                dtype: torch.dtype, device="cpu") -> dict:
+                dtype: torch.dtype, device="cpu", bias: bool = False) -> dict:
     """``{"w": (d_in, d_out)}`` (JAX layout: ``y = x @ w``), scale
-    d_in^-1/2.  The biased layers come with the LM stack."""
-    return {"w": truncated_normal(gen, (d_in, d_out), d_in ** -0.5, dtype,
-                                  device)}
+    d_in^-1/2, and with ``bias`` a zero ``"b": (d_out,)``."""
+    p = {"w": truncated_normal(gen, (d_in, d_out), d_in ** -0.5, dtype,
+                               device)}
+    if bias:
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=device)
+    return p
 
 
 def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"]
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d: int,
                    dtype: torch.dtype, device="cpu") -> torch.Tensor:
     return truncated_normal(gen, (vocab, d), d ** -0.5, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device="cpu") -> torch.Tensor:
+    """The (head_dim / 2,) f32 rotation frequencies theta^(-2i / head_dim)."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=F32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """Rotate the halves of x: (..., S, H, dh) by the f32 angles of
+    ``positions`` (broadcastable to (..., S)), in f32, cast back to x's
+    dtype."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                  # (dh/2,)
+    angles = positions[..., None].to(F32) * freqs            # (..., S, dh/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x32 = x.to(F32)
+    x1, x2 = x32[..., : dh // 2], x32[..., dh // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+    return out.to(x.dtype)
 
 
 def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Step functions shared by training, serving and the smoke runs (the
-port's twin of the JAX package's ``steps.py``, for the rwkv6 and mamba
-paths: a config with attention or MoE layers, audio codebooks or vision
-tokens raises, as ``models/transformer`` does).  All take the plain parameter and cache
+port's twin of the JAX package's ``steps.py``, for the dense attention,
+rwkv6 and mamba paths: a config with MoE layers, audio codebooks or vision
+tokens raises, as ``models/transformer`` does, and ``loss_fn`` raises for
+a config with attention layers, whose training is not ported).  All take the plain parameter and cache
 trees; the cache is updated in place, and ``train_step`` updates the
 parameters and the optimizer state in place (the JAX package donates them
 to its jits for the same effect)."""
@@ -26,7 +27,7 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     """Next-token cross-entropy of ``transformer.forward`` (``remat`` as
     there; on by default, as in the JAX package).  Returns (loss,
     metrics)."""
-    transformer._check_ported(cfg)
+    transformer.check_trainable(cfg)
     logits, _ = transformer.forward(params, cfg, batch, remat=remat)
     toks = batch["tokens"]
     loss = _xent(logits[:, :-1], toks[:, 1:])

@@ -46,14 +46,17 @@ def test_the_scan_sees_the_whole_port():
             "serving/engine.py", "launch/serve.py", "launch/train.py",
             "data/lm.py", "steps.py", "optim/adamw.py",
             "kernels/mamba_scan.py", "models/mamba.py", "models/mlp.py",
-            "configs/jamba_1_5_large_398b.py"} <= names
+            "configs/jamba_1_5_large_398b.py", "kernels/flash_prefill.py",
+            "kernels/decode_attn.py", "models/attention.py",
+            "configs/qwen2_0_5b.py", "configs/yi_9b.py"} <= names
     assert _imported_modules(ROOT / "tests" / "test_torch_plans.py").count(
         "repro.partitioning") == 1    # the scanner does see such imports
 
 
 def test_kernels_are_cuda_sources_with_a_c_interface():
     from repro_torch.kernels import _build
-    assert {"mamba_scan", "mamba_scan_bwd"} <= set(_build.SOURCES)
+    assert {"mamba_scan", "mamba_scan_bwd", "flash_prefill",
+            "decode_attn"} <= set(_build.SOURCES)
     for name in _build.SOURCES:
         src = (_build.CSRC / f"{name}.cu").read_text(encoding="utf-8")
         assert 'extern "C"' in src and f"{name}_error_string" in src

@@ -306,3 +306,64 @@ def test_train_main_raises_where_it_cannot_run():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_lm.main(["--reduced", "--steps", "1"])
+
+
+# ---------------------------------------------------------------------------
+# bf16 gradients: the dtype the full-width model trains in
+# ---------------------------------------------------------------------------
+CFG16 = dataclasses.replace(CFG, dtype="bfloat16")
+JCFG16 = dataclasses.replace(JCFG, dtype="bfloat16")
+#: the port's bf16 gradient error, relative to each leaf's max|f32 grad|,
+#: may be this many times JAX's own bf16 error on the same leaf, plus one
+#: bf16 step at that max (2^-8) for the leaves where JAX's error is near 0
+#: (tests/test_torch_mamba.py's rule)
+BF16_GRAD_MULTIPLE = 2.0
+BF16_STEP = 2.0 ** -8
+
+
+def _bf16_errors(key, tok_seed, seq):
+    """Per leaf, the bf16 gradient's max abs error against JAX's f32
+    gradient of the same bf16 weights (as the JAX init draws them from
+    ``PRNGKey(key)``), over max|f32 grad|: (the port's, JAX's)."""
+    plain, _ = split(jax_registry.build(JCFG16).init(
+        jax.random.PRNGKey(key)))
+    tree16 = jax.tree.map(np.asarray, plain)
+    tree32 = jax.tree.map(lambda a: np.asarray(a, np.float32), tree16)
+    toks = np.random.default_rng(tok_seed).integers(
+        0, CFG.vocab, (2, seq)).astype(np.int32)
+
+    def grads(cfg, tree):
+        return [t.float().numpy() for t in tree_leaves(
+            convert.params_from_numpy(jax.tree.map(np.asarray, jax.grad(
+                lambda p: jax_steps.loss_fn(
+                    p, cfg, {"tokens": jnp.asarray(toks)})[0])(
+                        jax.tree.map(jnp.asarray, tree)))))]
+
+    want, jax16 = grads(JCFG, tree32), grads(JCFG16, tree16)
+    params = _port(tree16)
+    loss, _ = steps.loss_fn(params, CFG16,
+                            {"tokens": torch.from_numpy(toks)})
+    mine = [g.float().numpy() for g in torch.autograd.grad(
+        loss, tree_leaves(params))]
+
+    def rel(got):
+        return [float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+                for g, w in zip(got, want)]
+    return rel(mine), rel(jax16)
+
+
+@pytest.mark.parametrize("key,tok_seed,seq", [
+    (0, 100, 24), (1, 101, 24), (2, 102, 24),
+    pytest.param(0, 1, 40, marks=pytest.mark.xfail(strict=True, reason=(
+        "the port's mix/gn/bias gradient is 3.07x JAX's bf16 error here; "
+        "with XLA's excess precision off the rule holds (ROADMAP Queue 3, "
+        "'RWKV6 bf16 gradients at one input')")))])
+def test_bf16_grads_are_as_close_to_f32_as_jax_bf16(key, tok_seed, seq):
+    """The bf16 model's ``loss_fn`` gradients against JAX's f32 gradients
+    of the same bf16 weights: per leaf, the port's error is at most
+    BF16_GRAD_MULTIPLE times JAX's bf16 error plus one bf16 step (both
+    relative to the leaf's max|f32 grad|).  Seeds 0 to 2 as in
+    tests/test_torch_mamba.py, and the input ROADMAP Queue 3 logs."""
+    mine, theirs = _bf16_errors(key, tok_seed, seq)
+    for i, (m, t) in enumerate(zip(mine, theirs)):
+        assert m <= BF16_GRAD_MULTIPLE * t + BF16_STEP, (i, m, t)

@@ -255,19 +255,28 @@ def test_convert_round_trips_params_and_caches(both):
 
 
 def test_unported_layers_raise_naming_their_roadmap_item():
-    """Attention and MoE layers raise naming the ROADMAP item by its title
-    (the LM stack), before anything is allocated: the full Jamba config
-    names both; its attention-free stack, Mamba layers and dense MLPs,
-    builds."""
+    """MoE layers raise naming their ROADMAP item by its title ("MoE and
+    the full Jamba hybrid"), before anything is allocated: the full Jamba
+    config names MoE only, its attention layers being ported; a dense
+    attention config builds (attention blocks and dense MLPs, k/v cache
+    slots), and so does the attention-free Jamba stack."""
     attn = dataclasses.replace(CFG, n_heads=4, n_kv_heads=2, ssm=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*LM stack"):
-        registry.build(attn).init(torch.Generator().manual_seed(0))
+    model = registry.build(attn)
+    params = model.init(torch.Generator().manual_seed(0))
+    assert set(params["blocks"][0]["mix"]) == {"wq", "wk", "wv", "wo"}
+    assert set(params["blocks"][0]["mlp"]) == {"wg", "wu", "wd"}
+    assert set(model.init_cache(1, 8)["slots"][0]) == {"k", "v"}
+    moe = dataclasses.replace(attn, moe=get_arch("jamba-1.5-large-398b").moe)
+    with pytest.raises(NotImplementedError,
+                       match='MoE layers.*ROADMAP.*"MoE and the full Jamba'):
+        registry.build(moe).init(torch.Generator().manual_seed(0))
     jamba = get_arch("jamba-1.5-large-398b")
     for build in (lambda m: m.init(torch.Generator().manual_seed(0)),
                   lambda m: m.init_cache(1, 8)):
         with pytest.raises(NotImplementedError,
-                           match="attention layers.*MoE layers.*LM stack"):
+                           match="MoE layers.*MoE and the full Jamba") as e:
             build(registry.build(jamba))
+        assert "attention" not in str(e.value)
     free = dataclasses.replace(jamba, n_layers=2, **jamba_1_5_large_398b
                                .ATTENTION_FREE).reduced()
     model = registry.build(free)

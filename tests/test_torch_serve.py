@@ -108,6 +108,48 @@ def test_mamba_wave_engine_tokens_equal_the_jax_engine(mamba_engines):
     engine.pool.give_back(buf)
 
 
+@pytest.fixture(scope="module")
+def dense_engines():
+    """The JAX and the port's wave engines on ``qwen2-0.5b-reduced``, its
+    QKV biases (zero as drawn) set at random in both."""
+    name = "qwen2-0.5b-reduced"
+    jmodel = jax_registry.build(jax_get_arch(name))
+    plain, _ = split(jmodel.init(jax.random.PRNGKey(0)))
+    tree = jax.tree.map(np.asarray, plain)
+    rng = np.random.default_rng(3)
+    mix = tree["blocks"][0]["mix"]
+    for b in ("bq", "bk", "bv"):
+        mix[b] = (0.1 * rng.standard_normal(mix[b].shape)).astype(
+            mix[b].dtype)
+    return (JaxEngine(jmodel, jax.tree.map(jax.numpy.asarray, tree),
+                      config=JaxEngineConfig(n_slots=2, max_seq=32)),
+            Engine(registry.build(get_arch(name)),
+                   convert.params_from_numpy(tree),
+                   config=EngineConfig(n_slots=2, max_seq=32)))
+
+
+def test_dense_wave_engine_tokens_equal_the_jax_engine(dense_engines):
+    """Ragged prompts left-padded with token 0 at positions arange(S) (no
+    pad mask, as the JAX engine runs them) in waves of 2, a short wave
+    filled with an inactive lane: greedy tokens equal to JAX's, the k/v
+    caches zeroed in place between waves."""
+    jengine, engine = dense_engines
+    prompts = _prompts(5, seed=4)
+    budgets = [4, 6, 3, 5, 4]
+    want = jengine.serve([JaxRequest(i, p, max_new_tokens=m)
+                          for i, (p, m) in enumerate(zip(prompts, budgets))])
+    got = engine.serve([Request(i, p, max_new_tokens=m)
+                        for i, (p, m) in enumerate(zip(prompts, budgets))])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, np.asarray(w.tokens))
+    stats = engine.pool.stats
+    assert stats.buffers_built == stats.capacity and stats.outstanding == 0
+    buf = engine.pool.checkout()
+    assert set(buf["slots"][0]) == {"k", "v"}
+    assert not any(bool(t.any()) for t in buf["slots"][0].values())
+    engine.pool.give_back(buf)
+
+
 def test_pool_never_allocates_while_serving(engines):
     _, engine = engines
     stats = engine.pool.stats
