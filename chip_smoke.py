@@ -99,8 +99,10 @@ CONSISTENCY_TOL = dict(rtol=3e-4, atol=3e-4)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 #: Its bf16 dense tensor-core peak: the yardstick of a training step's
-#: model FLOPs.
+#: model FLOPs and of the kernels that run on the tensor cores.
 BF16_FLOP_PER_S = 989e12
+#: nvcc's output per source of this run's build (ptxas registers and spills)
+BUILD_LOGS: dict[str, str] = {}
 #: JAX's Pallas dispatches of one value_and_grad of its loss_fn through
 #: chunked_scan at 4 layers, with remat (the trajectory forward, its
 #: recompute and the backward: 3 a layer) and without (2 a layer); pinned
@@ -124,6 +126,8 @@ def close(got: torch.Tensor, want: torch.Tensor, what: str,
 def reset_counts(*wrappers) -> None:
     for fn in wrappers:
         fn.launches = 0
+        if hasattr(fn, "tc_launches"):      # K8's tensor-core launches
+            fn.tc_launches = 0
 
 
 def time_ms(fn, iters: int, repeats: int = 5) -> float:
@@ -143,6 +147,23 @@ def time_ms(fn, iters: int, repeats: int = 5) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / iters)
     return statistics.median(samples)
+
+
+def graph_ms(fn, calls: int = 20) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, its replay timed by ``time_ms``; the host's per-call work (the
+    wrapper, the launch) is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return time_ms(graph.replay, 5) / calls
 
 
 def bound(nbytes: int, flops: int, flop_rate: float = F32_FLOP_PER_S
@@ -1564,6 +1585,14 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     #: 2e-4 against the oracle and across tiles; per dtype 1e-4 f32, 3e-2
     #: bf16 (an output rounded to bf16 on both sides)
     tol = {f32: dict(rtol=2e-4, atol=2e-4), bf16: dict(rtol=3e-2, atol=3e-2)}
+    #: K8's tensor-core instance against the plain version with p rounded
+    #: as the kernel rounds it: one bf16 step of each output (2^-7 of it;
+    #: both sides round the output to bf16, from f32 sums taken in another
+    #: order), plus 2^-7 for a p that lands on the other side of a bf16
+    #: step (the scores' last f32 bits differ) in a row of few keys, where
+    #: one p moves o by up to 2^-8 |v| / l
+    tc_tol = dict(rtol=2 ** -7, atol=2 ** -7)
+    err_rp = 0.0
     plain_attention = ((fp, "flash_prefill_plain"), (da, "decode_attn_plain"),
                        (attention, "flash_attention"),
                        (attention, "_decode_einsum"), (ref, "prefill_attn"),
@@ -1572,6 +1601,12 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
             "decode_attn": {f32: 0.0, bf16: 0.0}}
 
     # --- A1. K8 against its plain version ---------------------------------
+    # f32 runs the SIMT instance at each case's tiles; bf16 the tensor-core
+    # instance at its own (q_block 64, k_block from the bf16 table), held
+    # to the plain version at the same tiles twice: with p rounded to bf16
+    # before the PV product as the kernel rounds it (round_p) at
+    # tc_tol, and as the JAX kernel computes (p in f32) at bf16's
+    # 3e-2.
     cases = [  # tests/test_flash_prefill.py's sweep, dtype and model cases
         (2, 64, 4, 2, 32, 16, 16, 0), (1, 128, 8, 8, 16, 32, 64, 0),
         (2, 96, 4, 1, 32, 32, 32, 24), (1, 60, 2, 2, 16, 16, 16, 0),
@@ -1584,30 +1619,51 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     for B, S, Hq, Hkv, dh, qb, kb, w in cases:
         blocks = fp.choose_blocks(S, dh)
         qb_, kb_ = qb or blocks.q_block, kb or blocks.k_block
-        e_case = {}
-        for dtype in (f32, bf16):
-            q, k, v = attn_inputs(B, S, Hq, Hkv, dh, dtype, gen)
-            got = fp.flash_prefill(q, k, v, window=w, q_block=qb,
-                                   k_block=kb)
-            want = fp.flash_prefill_plain(q, k, v, window=w, q_block=qb_,
-                                          k_block=kb_)
-            check(got.dtype == dtype and got.shape == q.shape,
-                  f"flash_prefill {B, S, Hq, Hkv, dh}: {got.dtype} "
-                  f"{tuple(got.shape)}")
-            e = close(got.float(), want.float(),
-                      f"flash_prefill {(B, S, Hq, Hkv, dh, qb_, kb_, w)} "
-                      f"{dtype}", tol[dtype])
-            errs["flash_prefill"][dtype] = max(errs["flash_prefill"][dtype],
-                                               e)
-            e_case[dtype] = e
-        print(f"[K8] B={B} S={S} {Hq}/{Hkv} x {dh} q_block={qb_} "
-              f"k_block={kb_} window={w}: vs plain max abs err f32 "
-              f"{e_case[f32]:.3e}, bf16 {e_case[bf16]:.3e}")
+        q, k, v = attn_inputs(B, S, Hq, Hkv, dh, f32, gen)
+        got = fp.flash_prefill(q, k, v, window=w, q_block=qb, k_block=kb)
+        want = fp.flash_prefill_plain(q, k, v, window=w, q_block=qb_,
+                                      k_block=kb_)
+        check(got.dtype == f32 and got.shape == q.shape,
+              f"flash_prefill {B, S, Hq, Hkv, dh}: {got.dtype} "
+              f"{tuple(got.shape)}")
+        e32 = close(got, want, f"flash_prefill {(B, S, Hq, Hkv, dh, qb_, kb_, w)}"
+                    " float32", tol[f32])
+        errs["flash_prefill"][f32] = max(errs["flash_prefill"][f32], e32)
+        tc = fp.choose_blocks(S, dh, bf16)
+        q, k, v = attn_inputs(B, S, Hq, Hkv, dh, bf16, gen)
+        before = fp.flash_prefill.tc_launches
+        got = fp.flash_prefill(q, k, v, window=w)
+        check(got.dtype == bf16 and got.shape == q.shape
+              and fp.flash_prefill.tc_launches == before + 1,
+              f"flash_prefill {B, S, Hq, Hkv, dh} bf16: {got.dtype} "
+              f"{tuple(got.shape)}, not on the tensor-core instance")
+        e_rp = close(got.float(), fp.flash_prefill_plain(
+            q, k, v, window=w, q_block=tc.q_block, k_block=tc.k_block,
+            round_p=True).float(), f"flash_prefill {(B, S, Hq, Hkv, dh, w)} "
+            f"bf16 {tuple(tc)} vs round_p plain", tc_tol)
+        e16 = close(got.float(), fp.flash_prefill_plain(
+            q, k, v, window=w, q_block=tc.q_block,
+            k_block=tc.k_block).float(), f"flash_prefill "
+            f"{(B, S, Hq, Hkv, dh, w)} bf16 {tuple(tc)}", tol[bf16])
+        errs["flash_prefill"][bf16] = max(errs["flash_prefill"][bf16], e16)
+        err_rp = max(err_rp, e_rp)
+        print(f"[K8] B={B} S={S} {Hq}/{Hkv} x {dh} window={w}: f32 (q_block "
+              f"{qb_}, k_block {kb_}) vs plain max abs err {e32:.3e}; bf16 "
+              f"tensor cores (q_block {tc.q_block}, k_block {tc.k_block}) "
+              f"vs round_p plain {e_rp:.3e}, vs plain {e16:.3e}")
     q, k, v = attn_inputs(4, 500, 14, 2, 64, f32, gen)
     base = fp.flash_prefill(q, k, v)
     for qb, kb in ((16, 64), (32, 32), (48, 16), (64, 2)):
         close(fp.flash_prefill(q, k, v, q_block=qb, k_block=kb), base,
               f"flash_prefill tiles ({qb}, {kb}) vs default", tol[f32])
+    for Hq, Hkv, dh in ((14, 2, 64), (32, 4, 128), (8, 8, 160)):
+        q, k, v = attn_inputs(2, 500, Hq, Hkv, dh, bf16, gen)
+        base = fp.flash_prefill(q, k, v).float()
+        for kb in fp.TC_K_BLOCKS:
+            close(fp.flash_prefill(q, k, v, k_block=kb).float(), base,
+                  f"flash_prefill bf16 {Hq}/{Hkv} x {dh} k_block {kb} vs "
+                  "default", tol[bf16])
+    q, k, v = attn_inputs(4, 500, 14, 2, 64, f32, gen)
     q.requires_grad_()
     try:
         fp.flash_prefill(q, k, v)
@@ -1617,8 +1673,11 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     check(raised, "flash_prefill under autograd did not raise on the card")
     print(f"[K8] max abs err vs plain: f32 "
           f"{errs['flash_prefill'][f32]:.3e}, bf16 "
-          f"{errs['flash_prefill'][bf16]:.3e}; f32 results within 2e-4 at "
-          "q/k tiles (16, 64), (32, 32), (48, 16), (64, 2); raises under "
+          f"{errs['flash_prefill'][bf16]:.3e} (vs round_p plain "
+          f"{err_rp:.3e}, within rtol {tc_tol['rtol']:.4g} atol "
+          f"{tc_tol['atol']:.4g}); f32 results within 2e-4 at q/k "
+          "tiles (16, 64), (32, 32), (48, 16), (64, 2); bf16 within 3e-2 at "
+          f"k_block {fp.TC_K_BLOCKS} at dh 64, 128, 160; raises under "
           "autograd")
 
     # --- A2. K9 against its plain version ---------------------------------
@@ -1704,8 +1763,10 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     with tripwires(*plain_attention[:2], *plain_attention[4:]):
         full, outs, n_k = run("flash_prefill", "decode_attn")
     check(n_k[:2] == [only(flash_prefill=L)] * 2
-          and n_k[2:] == [only(decode_attn=L)] * K,
-          f"f32 Qwen2 launches (forward, prefill, decode steps): {n_k}")
+          and n_k[2:] == [only(decode_attn=L)] * K
+          and fp.flash_prefill.tc_launches == 0,
+          f"f32 Qwen2 launches (forward, prefill, decode steps): {n_k}, "
+          f"{fp.flash_prefill.tc_launches} on K8's tensor cores")
     e2 = max(close(o, full[:, S - 1 + t], f"f32 Qwen2 step {t} vs forward",
                    CONSISTENCY_TOL) for t, o in enumerate(outs))
     plain_full, plain_outs, n_p = run("blocked", "einsum")
@@ -1770,15 +1831,20 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
             version after the serve; the launch count is carried across,
             as in the Mamba slice."""
             kernel = kernels[kname]
+            attrs = [a for a in ("launches", "tc_launches")
+                     if hasattr(kernel, a)]
 
             def captured(*args, **kwargs):
-                captured.launches = kernel.launches
+                for a in attrs:
+                    setattr(captured, a, getattr(kernel, a))
                 out = kernel(*args, **kwargs)
-                kernel.launches = captured.launches
+                for a in attrs:
+                    setattr(kernel, a, getattr(captured, a))
                 seen["calls"][kname].append(
                     ([a.clone() for a in args], kwargs, out))
                 return out
-            captured.launches = kernel.launches
+            for a in attrs:
+                setattr(captured, a, getattr(kernel, a))
             return captured
 
         engine._prefill, steps_lib.decode_step = watched_prefill, \
@@ -1794,12 +1860,15 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
             da.decode_attn = kernels["decode_attn"]
             steps_lib.decode_step = decode
         got = counts()
+        n_tc = kernels["flash_prefill"].tc_launches
         Lc = cfg.n_layers
         check(got == only(flash_prefill=2 * Lc, decode_attn=2 * 16 * Lc)
               and seen["prefill"] == [Lc] * 2
-              and seen["decode"] == [Lc] * 32,
-              f"{name} serve launched {got}; per prefill {seen['prefill']}"
-              f", per decode step {sorted(set(seen['decode']))}")
+              and seen["decode"] == [Lc] * 32
+              and n_tc == got["flash_prefill"],
+              f"{name} serve launched {got}, {n_tc} K8 on the tensor cores; "
+              f"per prefill {seen['prefill']}, per decode step "
+              f"{sorted(set(seen['decode']))}")
         check(all(r.tokens.shape == (16,) and int(r.tokens.min()) >= 0
                   and int(r.tokens.max()) < cfg.vocab
                   for r in served["results"]),
@@ -1813,8 +1882,8 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
                   f"{name}: captured {len(calls)} {kname} calls")
             for i, (args, kwargs, out) in enumerate(calls):
                 if kname == "flash_prefill":
-                    bl = fp.choose_blocks(args[0].shape[1],
-                                          args[0].shape[3])
+                    bl = fp.choose_blocks(args[0].shape[1], args[0].shape[3],
+                                          args[0].dtype)
                     want = fp.flash_prefill_plain(
                         *args, window=kwargs.get("window", 0),
                         q_block=bl.q_block, k_block=bl.k_block)
@@ -1830,7 +1899,8 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         q0 = seen["calls"]["flash_prefill"][0][0][0]
         k0 = seen["calls"]["decode_attn"][0][0][1]
         print(f"[serve] {name}: {got['flash_prefill']} K8 launches "
-              f"({seen['prefill']} per prefill) and {got['decode_attn']} K9 "
+              f"({seen['prefill']} per prefill; {n_tc} on the tensor-core "
+              f"instance) and {got['decode_attn']} K9 "
               f"({Lc} a decode step), no plain attention reached; every "
               f"logit finite; buffers_built {served['pool'].buffers_built} "
               f"= capacity; each launch (K8 at q {tuple(q0.shape)}, K9 over "
@@ -1842,8 +1912,9 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         reset_counts(*counted)
         with tripwires(*plain_attention):
             timed = serve_lm.serve(engine, reqs)
-        check(counts() == got, f"{name}: the second serve launched "
-              f"{counts()}")
+        check(counts() == got and fp.flash_prefill.tc_launches == n_tc,
+              f"{name}: the second serve launched {counts()}, "
+              f"{fp.flash_prefill.tc_launches} K8 on the tensor cores")
         check(all(np.array_equal(a.tokens, b.tokens) for a, b in zip(
             timed["results"], served["results"])),
               f"{name}: the second serve's tokens differ from the first's")
@@ -1867,28 +1938,39 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         B, S = 4, 500
         q, k, v = attn_inputs(B, S, Hq, Hkv, dh, bf16, gen)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        bl = fp.choose_blocks(S, dh)
+        bl = fp.choose_blocks(S, dh, bf16)
         lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                              enable_gqa=True)
         e_lib = close(lib.transpose(1, 2).float(), fp.flash_prefill(
             q, k, v).float(), f"SDPA vs K8 at {name}", tol[bf16])
-        t_bound, by = bound(*prefill_work(B, S, Hq, Hkv, dh, bf16),
-                            flop_rate=BF16_FLOP_PER_S)
+        work = prefill_work(B, S, Hq, Hkv, dh, bf16)
+        t_bound, by = bound(*work, flop_rate=BF16_FLOP_PER_S)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
         rows["flash_prefill", name] = r = dict(
             ms=time_ms(lambda: fp.flash_prefill(q, k, v), 20),
             plain_ms=time_ms(lambda: fp.flash_prefill_plain(
                 q, k, v, q_block=bl.q_block, k_block=bl.k_block), 1,
                 repeats=3),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20),
-            bound_ms=t_bound, bound_by=by)
+            library_ms=time_ms(sdpa, 20), bound_ms=t_bound, bound_by=by)
+        g_k8 = graph_ms(lambda: fp.flash_prefill(q, k, v))
+        g_lib = graph_ms(sdpa)
         print(f"[time] flash_prefill {name} B={B} S={S} {Hq}/{Hkv} x {dh} "
-              f"bf16 (q_block {bl.q_block}, k_block {bl.k_block}): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"bf16 on the tensor cores (q_block {bl.q_block}, k_block "
+              f"{bl.k_block}): kernel {r['ms']:.4f} ms "
+              f"({work[1] / r['ms'] / 1e9:.1f} TFLOP/s of the causal "
+              f"products), plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']:.4f} ms (F.scaled_dot_product_attention, "
-              f"is_causal, enable_gqa; vs K8 {e_lib:.3e}), bound "
-              f"{r['bound_ms']:.3e} ms ({r['bound_by']}; bf16 dense peak), "
-              f"kernel at {r['ms'] / r['bound_ms']:.1f}x it")
+              f"is_causal, enable_gqa; vs K8 {e_lib:.3e}), kernel at "
+              f"{r['ms'] / r['library_ms']:.2f}x the library's time; in a "
+              f"CUDA graph (device time alone) kernel {g_k8:.4f} ms "
+              f"({work[1] / g_k8 / 1e9:.1f} TFLOP/s), library {g_lib:.4f} "
+              f"ms ({g_k8 / g_lib:.2f}x); bound {r['bound_ms']:.3e} ms "
+              f"({r['bound_by']}; bf16 dense peak), kernel at "
+              f"{r['ms'] / r['bound_ms']:.1f}x it")
         S_c = 517
         qd = randn(B, Hq, dh, gen=gen).to(bf16)
         _, kc, vc = attn_inputs(B, S_c, Hkv, Hkv, dh, bf16, gen)
@@ -1920,7 +2002,18 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
               f"with a length mask, enable_gqa; vs K9 {e_lib:.3e}), bound "
               f"{r['bound_ms']:.3e} ms ({r['bound_by']}), kernel at "
               f"{r['ms'] / r['bound_ms']:.1f}x it")
-    # the main path's first model, Qwen2-0.5B, gives the line its times
+    compiled = ""                      # the entry ptxas is reporting on
+    for line in BUILD_LOGS.get("flash_prefill", "").splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            compiled = entry.group(1)
+        elif "flash_prefill_tc_kernel" in compiled and (
+                "registers" in line or "spill" in line):
+            print(f"[time] flash_prefill tensor-core instance "
+                  f"<padded dh, k_block> = {instance(compiled)}: "
+                  f"{line.strip()}")
+    # the main path's first model, Qwen2-0.5B, gives the line its times;
+    # K8's error is its bf16 instance's, the one the line times
     entries = []
     for kname, replaces, src in (
             ("flash_prefill", "src/repro/kernels/flash_prefill.py:27",
@@ -1932,7 +2025,8 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": served_launches[kname],
-            "max_abs_err": errs[kname][f32], "ms": r["ms"],
+            "max_abs_err": errs[kname][
+                bf16 if kname == "flash_prefill" else f32], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     return entries
@@ -2009,6 +2103,7 @@ def main() -> None:
     # --- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
     logs = _build.build_all(ptxas_info=True)
+    BUILD_LOGS.update(logs)
     print(f"[build] {sorted(logs) or 'cached'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
