@@ -128,6 +128,8 @@ def reset_counts(*wrappers) -> None:
         fn.launches = 0
         if hasattr(fn, "tc_launches"):      # K8's tensor-core launches
             fn.tc_launches = 0
+        if hasattr(fn, "reg_launches"):     # K2's register weight home
+            fn.reg_launches = 0
 
 
 def time_ms(fn, iters: int, repeats: int = 5) -> float:
@@ -177,23 +179,19 @@ def bound(nbytes: int, flops: int, flop_rate: float = F32_FLOP_PER_S
 
 
 def instance(mangled: str) -> str:
-    """The template arguments of a mangled kernel name, e.g.
+    """The template arguments of a mangled kernel name, in order, e.g.
     ``<16,512,int8>`` for ``lstm_seq_bwd_kernel<16, 512, int8_t>``,
     ``<bf16,1>`` for ``mamba_scan_kernel<__nv_bfloat16, true>`` (a bool
-    argument prints 0 or 1) or ``<f32,160>`` for
-    ``flash_prefill_kernel<float, 160>``."""
-    args = re.search(r"I((?:L[ib]\d+E)+)([af]?)E", mangled)
-    if not args:            # a kernel templated on its IO type, then values
-        io = re.search(r"I(13__nv_bfloat16|f)((?:L[ib]\d+E)*)E", mangled)
-        if not io:
-            return ""
-        flags = re.findall(r"L[ib](\d+)E", io.group(2))
-        return "<" + ",".join(["f32" if io.group(1) == "f" else "bf16",
-                               *flags]) + ">"
-    vals = re.findall(r"L[ib](\d+)E", args.group(1))
-    if args.group(2):
-        vals.append({"a": "int8", "f": "f32"}[args.group(2)])
-    return "<" + ",".join(vals) + ">"
+    argument prints 0 or 1), ``<f32,160>`` for
+    ``flash_prefill_kernel<float, 160>`` or ``<1,1,int8,1>`` for
+    ``lstm_seq_fwd_kernel<1, true, int8_t, true>``."""
+    args = re.search(r"I((?:L[ib]\d+E|f|a|13__nv_bfloat16)+)E", mangled)
+    if not args:
+        return ""
+    names = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
+    return "<" + ",".join(
+        tok[0] or names[tok[1]] for tok in re.findall(
+            r"L[ib](\d+)E|(f|a|13__nv_bfloat16)", args.group(1))) + ">"
 
 
 def randn(*shape, gen, scale=1.0):
@@ -2098,6 +2096,11 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    sm_clock_hz = float(clocks.stdout.strip().splitlines()[0]) * 1e6
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
     # --- 1. build ---------------------------------------------------------
@@ -2145,7 +2148,15 @@ def main() -> None:
              ("2x32 T=128 B=64", (2, 32, 32, 64, 128), {}),
              ("P>H hidden 8 input 9", (2, 9, 8, 3, 20), {}),
              ("batch tail B=37 tile 16 tc=8 T=50", (2, 32, 32, 37, 50),
-              dict(block_b=16, time_chunk=8))]
+              dict(block_b=16, time_chunk=8)),
+             # the wavefront's edges: one layer, three (shared weight
+             # home), one step, fewer steps than layers, a 16-row tail
+             ("L=1 1x32 T=64 B=2", (1, 32, 32, 2, 64), {}),
+             ("L=3 3x32 T=64 B=2", (3, 32, 32, 2, 64), {}),
+             ("T=1 2x32 B=3", (2, 32, 32, 3, 1), {}),
+             ("T<L 3x32 T=2 B=2", (3, 32, 32, 2, 2), {}),
+             ("batch tail B=37 tile 16 T=50", (2, 32, 32, 37, 50),
+              dict(block_b=16))]
     for label, shape, kw in cases:
         w, b, x = seq_case(*shape)
         got = seq_k.lstm_seq(w, b, x, **kw)
@@ -2193,6 +2204,59 @@ def main() -> None:
                   "tc=1")
         print(f"[K2t] trajectories bit-identical across time_chunk {chunks} "
               f"(B={B}, block_b={block_b}, T={T})")
+
+    # --- 3b'. the wavefront across time chunks, weight homes and tiles ------
+    # f32 and q8, plain and trajectory launches: every time_chunk gives the
+    # same bits, the trajectory launch's final (c, h) are the plain
+    # launch's, and so are those of every other batch tile and weight home
+    # (the canonical order of lstm_gates.cuh is layout-free)
+    def wave_runs(w, b, x, q8, **kw):
+        if q8:
+            wq, s = ref.quantize_q8(w)
+            return (seq_k.lstm_seq_q8(w, b, x, **kw),
+                    seq_k.lstm_seq_q8_traj(wq, s, b, x, **kw))
+        return seq_k.lstm_seq(w, b, x, **kw), seq_k.lstm_seq_traj(w, b, x,
+                                                                   **kw)
+
+    for label, (L_, P_, H_, B_, T_), q8s, block_b, chunks in [
+            ("L=1", (1, 32, 32, 2, 64), (False, True), 1, (None, 1, 24)),
+            ("L=3", (3, 32, 32, 2, 64), (False, True), 1, (None, 1, 24)),
+            ("T=1", (2, 32, 32, 3, 1), (False, True), 1, (None, 1)),
+            ("T<L", (3, 32, 32, 2, 2), (False, True), 1, (None, 1)),
+            ("tail B=37 tile 16", (2, 32, 32, 37, 50), (False, True), 16,
+             (None, 1, 8, 24)),
+            ("q8 2x64", (2, 64, 64, 1, 128), (True,), 1, (None, 1, 48)),
+            ("q8 3x64", (3, 64, 64, 1, 128), (True,), 1, (None, 1, 48)),
+            ("q8 2x96", (2, 96, 96, 1, 128), (True,), 1, (None, 1, 24))]:
+        w, b, x = seq_case(L_, P_, H_, B_, T_)
+        for q8 in q8s:
+            runs = [wave_runs(w, b, x, q8, block_b=block_b, time_chunk=tc)
+                    for tc in chunks]
+            (c0, h0), traj0 = runs[0]
+            check(all(torch.equal(g, r) for plain, traj in runs[1:]
+                      for g, r in zip((*plain, *traj), (c0, h0, *traj0))),
+                  f"{label} q8={q8}: time_chunk {chunks} differ")
+            check(torch.equal(traj0[0], c0) and torch.equal(traj0[1], h0),
+                  f"{label} q8={q8}: trajectory launch's final (c, h) differ")
+        home = seq_k.weight_home(L_, P_, H_, block_b)
+        print(f"[K2] {label} ({home} weights, tile {block_b}): f32 and q8 "
+              f"forward and trajectories bit-identical across time_chunk "
+              f"{chunks}; K2t's final (c, h) equal the plain launch's"
+              if len(q8s) == 2 else
+              f"[K5] {label} ({home} weights, tile {block_b}): forward and "
+              f"trajectories bit-identical across time_chunk {chunks}; "
+              "K2t's final (c, h) equal the plain launch's")
+    w, b, x = seq_case(2, 32, 32, 3, 50)
+    for q8 in (False, True):
+        base = wave_runs(w, b, x, q8, block_b=1)
+        for block_b, tc in ((1, 8), (2, None), (4, 8), (16, None)):
+            got = wave_runs(w, b, x, q8, block_b=block_b, time_chunk=tc)
+            check(all(torch.equal(g, r) for g, r in zip(
+                (*got[0], *got[1]), (*base[0], *base[1]))),
+                  f"q8={q8} tile {block_b} tc {tc} differs from tile 1")
+    print("[K2] 2x32 B=3 T=50, f32 and q8: tiles 1 (register weights) and "
+          "2, 4, 16 (shared weights), whole and 8-step chunks, give the same"
+          " bits, forward and trajectories")
 
     # --- 3c. K3/K4b: the backward against its plain version and autograd ----
     def bwd_case(L, P, H, B, T):
@@ -2375,7 +2439,9 @@ def main() -> None:
         reset_counts(*counted)
         with torch.inference_mode():
             x1 = randn(1, T, cfg.input_dim, gen=gen)
-            routed = lstm.forward_fused_seq(params, x1, cfg, smem_budget=1024)
+            # below the smallest 2 x 32 forward tile: (1, 1) with the
+            # weights in registers is 768 bytes (h slots and the x ring)
+            routed = lstm.forward_fused_seq(params, x1, cfg, smem_budget=512)
             want = lstm.forward_sequential(params, x1, cfg)
     finally:
         trace_lib.set_tracer(old)
@@ -2386,7 +2452,7 @@ def main() -> None:
     check(counts() == only(lstm_cell=T * L),
           f"routed forward launched {counts()}")
     close(routed, want, "fused_seq routed to fused_cell")
-    print(f"[K2] 1 KiB budget: routed to fused_cell ({T * L} cell launches, "
+    print(f"[K2] 512-byte budget: routed to fused_cell ({T * L} cell launches, "
           "0 sequence launches) with plan/dispatch fallback=fused_cell")
 
     # --- 4. the serving path, counted -------------------------------------
@@ -2402,6 +2468,17 @@ def main() -> None:
                                          "lstm_seq_q8_traj",
                                          "lstm_seq_bwd_q8")),
           "serving launched a training kernel")
+    reg = {fn.__name__: fn.reg_launches
+           for fn in (seq_k.lstm_seq, seq_k.lstm_seq_q8)}
+    check(all(reg[n] == launches[n] for n in reg),
+          f"a 2 x 32 serving launch left the register weight home: {reg} "
+          f"of {launches}")
+    print(f"[slice] serving path: every lstm_seq and lstm_seq_q8 launch ran "
+          f"the wavefront kernel with its weights in registers ({reg})")
+    print(f"[slice] HAR fused_seq p50 of one window: "
+          f"{served['table']['fused_seq']['p50_ms']:.3f} ms, fused_seq_q8 "
+          f"{served['table']['fused_seq_q8']['p50_ms']:.3f} ms, fused_cell "
+          f"{served['table']['fused_cell']['p50_ms']:.3f} ms ({card})")
     check(served["logits"].shape == (32, cfg.n_classes)
           and bool(torch.isfinite(served["logits"]).all()),
           "served logits are not finite (32, 6)")
@@ -2439,6 +2516,10 @@ def main() -> None:
                 reset_counts(*counted)
                 fwd(params, windows[:B], cfg)
                 check(counts() == want, f"{fwd.__name__} B={B}: {counts()}")
+                check(seq_k.lstm_seq.reg_launches == want["lstm_seq"]
+                      and seq_k.lstm_seq_q8.reg_launches
+                      == want["lstm_seq_q8"],
+                      f"{fwd.__name__} B={B}: not on the register home")
         print(f"[slice] launches per forward: fused_seq 1, fused_seq_q8 1, "
               f"fused_cell {T * L} (T x L) at B=1 and B=64")
     print(f"[slice] scheduler chose {served['chosen']}")
@@ -2497,10 +2578,26 @@ def main() -> None:
             with tripwires(*plain_versions):
                 runs[plan] = train_har.main(train_args + ["--plan", plan])
             train_launches[plan] = counts()
+            traj_fn, plain_fn = (
+                (seq_k.lstm_seq_q8_traj, seq_k.lstm_seq_q8)
+                if plan == "fused_seq_q8" else
+                (seq_k.lstm_seq_traj, seq_k.lstm_seq))
+            train_reg = (traj_fn.reg_launches, plain_fn.reg_launches)
         finally:
             trace_lib.set_tracer(old)
         print(f"[train] {plan} training path launches: "
               f"{train_launches[plan]}")
+        # the 20 steps' trajectory launches (B=64, one row a block) keep
+        # their weights in registers; the two accuracy forwards over the
+        # 256 test windows run 2-row tiles, on the shared weight home
+        check(train_reg[0] == train_launches[plan][traj_fn.__name__] == 20,
+              f"{plan}: {train_reg[0]} of 20 trajectory launches on the "
+              "register weight home")
+        print(f"[train] {plan}: all 20 trajectory launches ran the wavefront "
+              f"kernel with weights in registers; the 2 accuracy forwards "
+              f"(B=256) {train_reg[1]} in registers, "
+              f"{train_launches[plan][plain_fn.__name__] - train_reg[1]} on "
+              "shared-memory weights")
         losses = runs[plan]["losses"]
         suffix = "_q8" if plan == "fused_seq_q8" else ""
         # 20 steps of two launches; train_har's two test-accuracy checks
@@ -2575,17 +2672,20 @@ def main() -> None:
 
     for T_ in (128, 300):
         got = counted_step(lstm.forward_fused_seq, T_)
-        check(got == only(lstm_seq_traj=1, lstm_seq_bwd=1),
+        check(got == only(lstm_seq_traj=1, lstm_seq_bwd=1)
+              and seq_k.lstm_seq_traj.reg_launches == 1,
               f"fused_seq training step at T={T_}: {got}")
         got = counted_step(lstm.forward_fused_seq_q8, T_)
-        check(got == only(lstm_seq_q8_traj=1, lstm_seq_bwd_q8=1),
+        check(got == only(lstm_seq_q8_traj=1, lstm_seq_bwd_q8=1)
+              and seq_k.lstm_seq_q8_traj.reg_launches == 1,
               f"fused_seq_q8 training step at T={T_}: {got}")
     got = counted_step(lstm.forward_fused_kernel, T)
     check(got == only(lstm_cell=T * L), f"fused_cell training step: {got}")
     print(f"[train] one step: fused_seq 2 launches (lstm_seq_traj 1, "
           f"lstm_seq_bwd 1) and fused_seq_q8 2 (lstm_seq_q8_traj 1, "
-          f"lstm_seq_bwd_q8 1) at T=128 and T=300; fused_cell {T * L} cell "
-          "launches and no backward kernel")
+          f"lstm_seq_bwd_q8 1) at T=128 and T=300, the trajectory launch on "
+          f"register weights; fused_cell {T * L} cell launches and no "
+          "backward kernel")
 
     # 2 x 48 (f32: the forward fits a block, the backward does not) and
     # 2 x 64 (q8: the same); both train on fused_cell
@@ -2647,6 +2747,31 @@ def main() -> None:
             getattr(lib, f"bias_hh_l{l}").zero_()
         return lib
 
+    def library_graph_ms(fn) -> float | None:
+        """``fn``'s device time in a CUDA graph, or None (printed) when the
+        library call cannot be captured."""
+        try:
+            return graph_ms(fn)
+        except Exception as e:                      # noqa: BLE001
+            torch.cuda.synchronize()
+            print(f"[time] nn.LSTM cannot be captured in a CUDA graph: "
+                  f"{type(e).__name__}: {str(e).splitlines()[0][:200]}")
+            return None
+
+    def chain_bound_ms(T_: int, L_: int, P_: int, H_: int) -> float:
+        """Least time of the wavefront's dependent chain by arithmetic: T +
+        L - 1 wave-steps, each at least its dependent f32 operations at 4
+        cycles apiece (the arithmetic latency the CUDA C++ Programming
+        Guide gives for compute capability 7.x and later) at the card's
+        highest SM clock: one accumulator's chain of multiply-adds
+        (ceil(max(P, H) / 4) of them: 4 accumulators a segment), the
+        combine's two levels, in + rec, the bias (or scale fold), and the
+        cell update's fmaf and multiply.  The shared-memory loads, the
+        shuffles, expf, tanhf and the barrier are left out (no published
+        latency), so the real step is longer."""
+        ops = -(-max(P_, H_) // 4) + 2 + 1 + 1 + 2
+        return (T_ + L_ - 1) * ops * 4 / sm_clock_hz * 1e3
+
     def q8_rows(w_s, b_s, xp, B, dc, dh, extra=False) -> list[dict]:
         """Times of the q8 forward and, with cotangents, of the q8 training
         pair at the backward's tiling, each beside its plain version, its
@@ -2667,14 +2792,18 @@ def main() -> None:
         fwd = seq_k.choose_batch_block(B, T_, L_, P_, H_, quantized=True)
         shape = f"B={B} T={T_} L={L_} P={P_} H={H_}"
         t_bound, by = bound(q8_in + 4 * 2 * L_ * B * H_, flops)
+        fwd_launch = lambda: seq_k._launch(wq, b_s, xp, fwd.block_b,  # noqa
+                                           fwd.time_chunk, False, s)
         rows = [dict(
             name="lstm_seq_q8", B=B, extra=extra, shape=shape,
-            ms=time_ms(lambda: seq_k._launch(wq, b_s, xp, fwd.block_b,
-                                             fwd.time_chunk, False, s), 100),
+            home=seq_k.weight_home(L_, P_, H_, fwd.block_b),
+            ms=time_ms(fwd_launch, 100), graph_ms=graph_ms(fwd_launch),
             entry_ms=time_ms(lambda: seq_k.lstm_seq_q8(w_s, b_s, xp), 100),
             plain_ms=time_ms(lambda: seq_k.lstm_seq_q8_plain(wq, s, b_s, xp),
                              2),
             library_ms=time_ms(lambda: lib(xp), 50),
+            library_graph_ms=library_graph_ms(lambda: lib(xp)),
+            chain_ms=chain_bound_ms(T_, L_, P_, H_),
             bound_ms=t_bound, bound_by=by)]
         if dc is None:
             return rows
@@ -2696,18 +2825,25 @@ def main() -> None:
             close(g_lib[3], db[0], "nn.LSTM backward vs lstm_seq_bwd_q8 db",
                   GRAD_TOL)
             traj_lib_ms = time_ms(lambda: lib(xg), 50)
+            traj_lib_graph_ms = library_graph_ms(lambda: lib(xg))
             bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
                 (h_lib, c_lib), lib_in, (dh, dc), retain_graph=True), 50)
         state = 2 * T_ * L_ * B * H_                # both trajectories
         t_bound, by = bound(q8_in + 4 * (2 * L_ * B * H_ + state), flops)
         shape += f" tiles {tuple(tiles)}"
+        traj_launch = lambda: seq_k._launch(wq, b_s, xp, tiles.block_b,  # noqa
+                                            tiles.time_chunk, True, s)
         rows.append(dict(
             name="lstm_seq_q8_traj", B=B, extra=extra, shape=shape,
-            ms=time_ms(lambda: seq_k.lstm_seq_q8_traj(wq, s, b_s, xp, **kw),
-                       100),
+            home=seq_k.weight_home(L_, P_, H_, tiles.block_b),
+            ms=time_ms(traj_launch, 100), graph_ms=graph_ms(traj_launch),
+            entry_ms=time_ms(lambda: seq_k.lstm_seq_q8_traj(
+                wq, s, b_s, xp, **kw), 100),
             plain_ms=time_ms(lambda: seq_k.lstm_seq_q8_traj_plain(
                 wq, s, b_s, xp), 2),
-            library_ms=traj_lib_ms, bound_ms=t_bound, bound_by=by))
+            library_ms=traj_lib_ms, library_graph_ms=traj_lib_graph_ms,
+            chain_ms=chain_bound_ms(T_, L_, P_, H_),
+            bound_ms=t_bound, bound_by=by))
         # codes, scales, b, x, both trajectories, dc, dh in; f32 dw, db and
         # dx out
         t_bound, by = bound(q8_in + 4 * (state + 2 * L_ * B * H_ + wq.numel()
@@ -2764,12 +2900,19 @@ def main() -> None:
                           + 2 * L * B * H)
             flops = T * 2 * B * 4 * H * ((P + H) + (L - 1) * 2 * H)
             t_bound, by = bound(nbytes, flops)
+            fwd = seq_k.choose_batch_block(B, T, L, P, H)
+            fwd_launch = lambda: seq_k._launch(  # noqa: E731
+                w_s, b_s, xp, fwd.block_b, fwd.time_chunk, False)
             rows.append(dict(
                 name="lstm_seq", B=B, shape=f"B={B} T={T} L={L} P={P} H={H}",
-                ms=time_ms(lambda: seq_k.lstm_seq(w_s, b_s, xp), 100),
+                home=seq_k.weight_home(L, P, H, fwd.block_b),
+                ms=time_ms(fwd_launch, 100), graph_ms=graph_ms(fwd_launch),
+                entry_ms=time_ms(lambda: seq_k.lstm_seq(w_s, b_s, xp), 100),
                 plain_ms=time_ms(lambda: seq_k.lstm_seq_plain(w_s, b_s, xp),
                                  2),
                 library_ms=time_ms(lambda: lib(xp), 50),
+                library_graph_ms=library_graph_ms(lambda: lib(xp)),
+                chain_ms=chain_bound_ms(T, L, P, H),
                 bound_ms=t_bound, bound_by=by))
 
             # the training pair at the backward's tiling, beside nn.LSTM's
@@ -2793,18 +2936,26 @@ def main() -> None:
                 close(g_lib[3], db[0], "nn.LSTM backward vs lstm_seq_bwd db",
                       GRAD_TOL)
                 traj_lib_ms = time_ms(lambda: lib(xg), 50)
+                traj_lib_graph_ms = library_graph_ms(lambda: lib(xg))
                 bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
                     (h_lib, c_lib), lib_in, (dh, dc), retain_graph=True), 50)
             state = 2 * T * L * B * H                       # both trajectories
             t_bound, by = bound(4 * (xp.numel() + w_s.numel() + b_s.numel()
                                      + 2 * L * B * H + state), flops)
+            traj_launch = lambda: seq_k._launch(  # noqa: E731
+                w_s, b_s, xp, tiles.block_b, tiles.time_chunk, True)
             rows.append(dict(
                 name="lstm_seq_traj", B=B, tiles=tuple(tiles),
                 shape=f"B={B} T={T} L={L} P={P} H={H} tiles {tuple(tiles)}",
-                ms=time_ms(lambda: seq_k.lstm_seq_traj(w_s, b_s, xp, **kw),
-                           100),
+                home=seq_k.weight_home(L, P, H, tiles.block_b),
+                ms=time_ms(traj_launch, 100),
+                graph_ms=graph_ms(traj_launch),
+                entry_ms=time_ms(lambda: seq_k.lstm_seq_traj(
+                    w_s, b_s, xp, **kw), 100),
                 plain_ms=time_ms(lambda: ref.lstm_seq_traj(w_s, b_s, xp), 2),
-                library_ms=traj_lib_ms, bound_ms=t_bound, bound_by=by))
+                library_ms=traj_lib_ms, library_graph_ms=traj_lib_graph_ms,
+                chain_ms=chain_bound_ms(T, L, P, H),
+                bound_ms=t_bound, bound_by=by))
             # x, w, b, both trajectories, dc, dh in; dx, dw, db out
             t_bound, by = bound(4 * (2 * xp.numel() + 2 * w_s.numel()
                                      + 2 * b_s.numel() + state
@@ -2869,13 +3020,47 @@ def main() -> None:
                 plain_ms=time_ms(lambda: bwd_k.lstm_seq_bwd_plain(
                     w_s, b_s, xb, ct, ht, dc, dh), 1, repeats=3),
                 library_ms=bwd_lib_ms, bound_ms=t_bound, bound_by=by))
+    def ms_or_none(v):
+        return "not capturable" if v is None else f"{v:.4f} ms"
+
     for r in rows:
-        entry = f" (public call, quantize included, {r['entry_ms']:.4f} ms)" \
-            if "entry_ms" in r else ""
-        print(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} ms"
-              f"{entry}, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
-              f"({r['bound_by']})")
+        if "graph_ms" not in r:
+            print(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} "
+                  f"ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
+                  f"({r['bound_by']})")
+            continue
+        print(f"[time] {r['name']} {r['shape']} ({r['home']} weights): "
+              f"kernel {r['ms']:.4f} ms back to back (raw launch), "
+              f"{r['graph_ms']:.4f} ms in a CUDA graph; public call "
+              f"{r['entry_ms']:.4f} ms back to back; nn.LSTM "
+              f"{r['library_ms']:.4f} ms back to back, "
+              f"{ms_or_none(r['library_graph_ms'])} in a CUDA graph; plain "
+              f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.3e} ms "
+              f"({r['bound_by']}); chain bound {r['chain_ms']:.3e} ms "
+              f"(T + L - 1 wave-steps at {sm_clock_hz / 1e6:.0f} MHz)")
+    for B in (1, 64):
+        libs = {r["name"]: r for r in rows
+                if r["B"] == B and "library_graph_ms" in r
+                and not r.get("extra")}
+        print(f"[time] the nn.LSTM yardstick at B={B}, two phases of one "
+              f"function: f32 forward {libs['lstm_seq']['library_ms']:.4f} "
+              f"ms (graph {ms_or_none(libs['lstm_seq']['library_graph_ms'])})"
+              f", over dequantized q8 weights "
+              f"{libs['lstm_seq_q8']['library_ms']:.4f} ms (graph "
+              f"{ms_or_none(libs['lstm_seq_q8']['library_graph_ms'])}); "
+              f"training forward {libs['lstm_seq_traj']['library_ms']:.4f} "
+              f"and {libs['lstm_seq_q8_traj']['library_ms']:.4f} ms")
+    for name, legend in (("lstm_seq", "<rows,traj,weights,register home>"),
+                         ("lstm_seq_bwd", "<rows,max threads,weights>")):
+        compiled = ""                  # the entry ptxas is reporting on
+        for line in BUILD_LOGS.get(name, "").splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                compiled = entry.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"[time] {name} {legend} = {instance(compiled)}: "
+                      f"{line.strip()}")
     for name, run in (("fused_seq", trained),
                       ("fused_seq_q8", runs["fused_seq_q8"]),
                       ("sequential", sequential)):

@@ -1,27 +1,50 @@
-// The gate pass of one stacked-LSTM layer-step, shared by the forward
+// The gate arithmetic of one stacked-LSTM layer-step, shared by the forward
 // (lstm_seq.cu) and the backward's gate recompute (lstm_seq_bwd.cu), and
-// the weight-stack layout both kernels hold in shared memory.
+// the weight-stack layout both kernels can hold in shared memory.
 //
 // The backward recomputes the forward's gate activations from the stored
-// f32 trajectories.  Both kernels include this one function, so the
-// recompute runs the same multiply-adds in the same order, combines the
-// lanes' partial sums by the same shuffles, folds the same scale and
-// applies the same sigmoid and tanh: its activations are the forward's to
-// the bit, for f32 weights and for int8 weights alike.
+// f32 trajectories.  Both kernels build each gate pre-activation with the
+// functions below, so the recompute runs the same multiply-adds in the same
+// order, combines the same partial sums in the same order, folds the same
+// scale and applies the same sigmoid and tanh: its activations are the
+// forward's to the bit, for f32 and int8 weights alike, whatever the two
+// kernels' thread layouts.
+//
+// The canonical order of one gate column j (gate order i, f, g, o):
+//  * a segment is one product, v (n) @ W[rows] (n): the input segment (x,
+//    n = P rows, at layer 0; the layer below's h, n = H rows, above it) and
+//    the recurrent segment (the layer's own h_{t-1}, n = H rows);
+//  * a segment is four partial sums: accumulator k (0..3) sums the rows
+//    q = k, k + 4, k + 8, ... < n in ascending order, fmaf(v[q], w[q], acc)
+//    from 0 (partial_sums); the four are combined as (a0 + a1) + (a2 + a3)
+//    (combine);
+//  * pre = in + rec; f32: v = pre + b[j]; int8: v = fmaf(pre, s[j], b[j]),
+//    the column's scale folded once after the products and before the bias
+//    ((x @ wq + h @ wq) * s + b, the JAX package's _step_layers); then
+//    sigmoid, or for the g gate tanh as 2 sigmoid(2v) - 1 (preact,
+//    activate).
+// The order does not depend on how many lanes share a column: lane p of
+// `parts` (1, 2 or 4) lanes keeps accumulators k = p, p + parts, ..., and
+// combine takes the lane bits first by xor shuffle and then its own
+// accumulators, which gives (a0 + a1) + (a2 + a3) in every lane (float
+// addition is commutative, so both partners of a shuffle get the same
+// bits).  The forward (one lane a column) and the backward (gate_parts(H)
+// lanes a column) therefore produce the same bits.  Every step's arithmetic
+// is also the same at every time chunk, batch tile and weight home, so
+// those never change a result either.
 //
 // Weight types.  WT = float: the f32 stack.  WT = int8_t: the int8 plan
 // (fused_seq_q8), codes in [-127, 127] with one f32 scale per (layer, gate
-// column).  Each code converts to f32 in a register (exactly), the f32
-// multiply-add chain is the f32 instance's, and the column's scale is
-// folded in once, after the lanes' shuffle reduction and before the bias:
-// v = acc * s[j] + b[j], which is the JAX package's _step_layers
-// ((x @ wq + h @ wq) * s + b).  No f32 copy of the stack is ever built.
+// column).  Each code converts to f32 exactly, so the multiply-add chains
+// are the f32 instance's; no f32 copy of the stack is kept in shared memory.
 //
-// Row strides in shared memory (in elements of WT; both kernels and the
+// Row strides in shared memory (in elements of WT; the kernels and the
 // host's working_set_bytes use these numbers):
-//  * f32: 4H + kPad words.  Lane (j, p) of a warp (8 columns x 4 parts)
-//    reads word q*S + j with q = p + 4k, and the pad puts the 4 rows a
-//    warp reads at once 8 banks apart, so the 32 lanes hit 32 banks.
+//  * f32: 4H + kPad words.  In the backward, lane (j, p) of a warp (8
+//    columns x 4 parts) reads word q*S + j with q = p + 4k, and the pad puts
+//    the 4 rows a warp reads at once 8 banks apart, so the 32 lanes hit 32
+//    banks.  The forward's shared home groups four rows of a column
+//    together (lstm_seq.cu), so its warps read 32 adjacent groups.
 //  * int8: 4H rounded up to 16 bytes, plus 16 more when that is a multiple
 //    of 64.  Row starts stay 16-byte aligned, so the stack is copied in
 //    16-byte cp.async pieces (cp.async moves 4, 8 or 16 bytes, never 1).
@@ -87,52 +110,111 @@ __device__ __forceinline__ void load_stack(WT* w_s, const WT* w, int n_rows,
   }
 }
 
-// Lane (j, p) of `parts` lanes sharing gate column j: sums reduction rows
-// p, p + parts, ... of inp @ W[:P] (the first in_w of them) and h @ W[P:]
-// for each of the tile's ROWS rows, combines the lanes by xor shuffle in a
-// fixed order, folds the column's scale (int8 weights only), adds the bias
-// and writes the activated gate to g_s (ROWS, 4H).  inp is (ROWS, in_w),
-// h (ROWS, H); wl and wh point at column j of the layer's input and
-// recurrent rows, row stride S; scale is the layer's (4H) f32 scales (unused
-// for f32 weights).  Every lane of the warp calls this (the shuffles need
-// all 32); only active lanes write.
-template <int ROWS, typename WT>
-__device__ __forceinline__ void gate_pass(const float* inp, int in_w,
-                                          const float* h, int H,
-                                          const WT* wl, const WT* wh, int S,
-                                          const float* bias,
-                                          const float* scale, int j, int p,
-                                          int parts, bool active,
-                                          bool is_tanh, float* g_s) {
-  const int G = 4 * H;
-  float acc[ROWS];
+// The partial sums of one segment of n reduction rows for the ROWS rows of
+// a tile: this lane's accumulators k = p + m * PARTS (m < 4 / PARTS) in
+// acc[m], each summing rows q = k, k + 4, ... < n in ascending order as
+// fmaf(v(r, q), w(q), acc) from 0.  v(r, q) is the segment's input of tile
+// row r, w(q) the column's f32 weight of reduction row q.
+template <int ROWS, int PARTS, class V, class W>
+__device__ __forceinline__ void partial_sums(float (&acc)[4 / PARTS][ROWS],
+                                             int p, int n, V v, W w) {
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
-  for (int q = p; q < in_w; q += parts) {
-    const float wv = static_cast<float>(wl[(size_t)q * S]);
+  for (int m = 0; m < 4 / PARTS; ++m)
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(inp[r * in_w + q], wv, acc[r]);
-  }
-  for (int q = p; q < H; q += parts) {
-    const float wv = static_cast<float>(wh[(size_t)q * S]);
+    for (int r = 0; r < ROWS; ++r) acc[m][r] = 0.0f;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(h[r * H + q], wv, acc[r]);
-  }
-  for (int off = 1; off < parts; off <<= 1) {
+  for (int q0 = 0; q0 < n; q0 += 4) {
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
-  }
-  if (active) {
-    const float bj = bias[j];
-    const float sj = sizeof(WT) == 1 ? scale[j] : 1.0f;
+    for (int m = 0; m < 4 / PARTS; ++m) {
+      const int q = q0 + p + m * PARTS;
+      if (q < n) {
+        const float wq = w(q);
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float v = sizeof(WT) == 1 ? fmaf(acc[r], sj, bj) : acc[r] + bj;
-      const float a = is_tanh ? tanhf(v) : sigmoid(v);
-      if (p == 0) g_s[r * G + j] = a;
+        for (int r = 0; r < ROWS; ++r)
+          acc[m][r] = fmaf(v(r, q), wq, acc[m][r]);
+      }
     }
   }
+}
+
+// partial_sums<ROWS, 1> for a lane that loads its inputs four rows at a
+// time: v4(r, g) gives rows 4g .. 4g + 3 of tile row r's segment input and
+// w4(g) those rows' weights, as float4 (past n they are never used).
+// Accumulator m takes rows 4g + m in ascending g, as in partial_sums, so
+// the bits are partial_sums'.
+template <int ROWS, class V4, class W4>
+__device__ __forceinline__ void partial_sums4(float (&acc)[4][ROWS], int n,
+                                              V4 v4, W4 w4) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) acc[m][r] = 0.0f;
+  for (int q0 = 0; q0 < n; q0 += 4) {
+    const float4 w = w4(q0 / 4);
+    const float wm[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const float4 x = v4(r, q0 / 4);
+      const float xm[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (q0 + m < n) acc[m][r] = fmaf(xm[m], wm[m], acc[m][r]);
+    }
+  }
+}
+
+// (a0 + a1) + (a2 + a3) over the PARTS lanes of a column (adjacent lanes,
+// p = lane % PARTS): the lane bits by xor shuffle first, then this lane's
+// own accumulators.  Every lane of the warp calls it (the shuffles need
+// all 32); every lane of a column gets the same bits.
+template <int ROWS, int PARTS>
+__device__ __forceinline__ void combine(float (&out)[ROWS],
+                                        const float (&acc)[4 / PARTS][ROWS]) {
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if constexpr (PARTS == 4) {
+      float a = acc[0][r];
+      a += __shfl_xor_sync(0xffffffffu, a, 1);
+      out[r] = a + __shfl_xor_sync(0xffffffffu, a, 2);
+    } else if constexpr (PARTS == 2) {
+      const float a = acc[0][r] + __shfl_xor_sync(0xffffffffu, acc[0][r], 1);
+      const float b = acc[1][r] + __shfl_xor_sync(0xffffffffu, acc[1][r], 1);
+      out[r] = a + b;
+    } else {
+      static_assert(PARTS == 1, "1, 2 or 4 lanes a column");
+      out[r] = (acc[0][r] + acc[1][r]) + (acc[2][r] + acc[3][r]);
+    }
+  }
+}
+
+// One segment's canonical sum: partial_sums, then combine.
+template <int ROWS, int PARTS, class V, class W>
+__device__ __forceinline__ void segment_sum(float (&out)[ROWS], int p, int n,
+                                            V v, W w) {
+  float acc[4 / PARTS][ROWS];
+  partial_sums<ROWS, PARTS>(acc, p, n, v, w);
+  combine<ROWS, PARTS>(out, acc);
+}
+
+// The gate pre-activation from the two segments' sums: the bias added (f32)
+// or the scale folded before it (int8).
+template <typename WT>
+__device__ __forceinline__ float preact(float in, float rec, float b,
+                                        float s) {
+  const float v = in + rec;
+  return sizeof(WT) == 1 ? fmaf(v, s, b) : v + b;
+}
+
+// tanh(v) = 2 sigmoid(2v) - 1: the same expf and division as a sigmoid, so
+// the four gate lanes of a unit run one instruction stream (a divergent
+// tanhf beside the sigmoids serializes the two).  Within ~1e-7 of tanhf.
+__device__ __forceinline__ float tanh_sig(float v) {
+  return fmaf(2.0f, sigmoid(2.0f * v), -1.0f);
+}
+
+__device__ __forceinline__ float activate(float v, bool is_tanh) {
+  const float s = sigmoid(is_tanh ? 2.0f * v : v);
+  return is_tanh ? fmaf(2.0f, s, -1.0f) : s;
 }
 
 }  // namespace lstm_gates

@@ -39,9 +39,11 @@
 // rule) unwinds the whole T x L recurrence in one launch, time backwards and
 // layers top-down, with the (L, P+H, 4H) weight stack resident in shared
 // memory and the (dc, dh) carries in f32 shared memory.  Per layer-step:
-//  (a) recompute the gates with lstm_gates::gate_pass, the function the
-//      forward ran, on the same f32 inputs read back from the trajectories,
-//      so the recomputed activations are the forward's to the bit; barrier;
+//  (a) recompute the gates with lstm_gates.cuh's segment sums, preact and
+//      activate, the functions the forward runs, in their canonical order
+//      (recompute_gates), on the same f32 inputs read back from the
+//      trajectories, so the recomputed activations are the forward's to the
+//      bit; barrier;
 //  (b) form the gate gradients dg (ROWS, 4H) and the dc carry, as
 //      _unwind_step does; barrier;
 //  (c) accumulate dW += [inp | h_prev]^T dg and db += sum dg into f32
@@ -73,6 +75,33 @@
 
 namespace {
 
+// Step (a): lane (j, p) of PARTS lanes a column writes the forward's
+// activated gate of column j for the tile's ROWS rows to g_s (ROWS, 4H):
+// the input segment (inp (ROWS, in_w) @ W[:in_w]) and the recurrent one
+// (h (ROWS, H) @ W[P:]) in lstm_gates.cuh's canonical order, combined over
+// the PARTS lanes by shuffle, then the bias (or scale and bias) and the
+// gate's sigmoid or tanh.  wl and wh point at column j of the layer's
+// input and recurrent rows, row stride S.  Every lane of the warp calls it
+// (the shuffles need all 32); only active lanes with p = 0 write.
+template <int ROWS, int PARTS, typename WT>
+__device__ __forceinline__ void recompute_gates(
+    const float* inp, int in_w, const float* h, int H, const WT* wl,
+    const WT* wh, int S, float bj, float sj, int j, int p, bool active,
+    bool is_tanh, float* g_s) {
+  float in_s[ROWS], rec_s[ROWS];
+  lstm_gates::segment_sum<ROWS, PARTS>(
+      in_s, p, in_w, [&](int r, int q) { return inp[r * in_w + q]; },
+      [&](int q) { return static_cast<float>(wl[(size_t)q * S]); });
+  lstm_gates::segment_sum<ROWS, PARTS>(
+      rec_s, p, H, [&](int r, int q) { return h[r * H + q]; },
+      [&](int q) { return static_cast<float>(wh[(size_t)q * S]); });
+  if (active && p == 0) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+      g_s[r * 4 * H + j] = lstm_gates::activate(
+          lstm_gates::preact<WT>(in_s[r], rec_s[r], bj, sj), is_tanh);
+  }
+}
 
 // Bounded for MAX_T threads, so every block the wrapper sizes can launch:
 // uncapped, the largest instance took 128 registers a thread, too many for
@@ -228,10 +257,21 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
         const float* sl = s_s + (size_t)l * G;
 
         // (a) the forward's gates, recomputed bit for bit.
-        lstm_gates::gate_pass<ROWS>(inp, in_w, hp, H, wl + j,
-                                    wl + (size_t)P * S + j, S,
-                                    b_s + (size_t)l * G, sl, j, p, parts,
-                                    active, is_tanh, g_s);
+        {
+          const float bj = b_s[(size_t)l * G + j];
+          const float sj = kQ8 ? sl[j] : 1.0f;
+          const WT* wi = wl + j;
+          const WT* wh = wl + (size_t)P * S + j;
+          if (parts == 4)
+            recompute_gates<ROWS, 4>(inp, in_w, hp, H, wi, wh, S, bj, sj, j,
+                                     p, active, is_tanh, g_s);
+          else if (parts == 2)
+            recompute_gates<ROWS, 2>(inp, in_w, hp, H, wi, wh, S, bj, sj, j,
+                                     p, active, is_tanh, g_s);
+          else
+            recompute_gates<ROWS, 1>(inp, in_w, hp, H, wi, wh, S, bj, sj, j,
+                                     p, active, is_tanh, g_s);
+        }
         __syncthreads();
 
         // (b) gate gradients and the dc carry (_unwind_step's dgates).

@@ -11,15 +11,16 @@ int8-weight bodies of all four (``_seq_q8_kernel``,
 ``_seq_chunked_q8_kernel``, ``_seq_traj_q8_kernel``,
 ``_seq_traj_chunked_q8_kernel``), with ONE CUDA C++ kernel in
 ``csrc/lstm_seq.cu``: a persistent thread block per batch tile runs the
-whole T x L recurrence in one launch, the ``(L, P+H, 4H)`` weight stack and
-every layer's ``(c, h)`` resident in shared memory, the input streamed
-through a two-slot ring of ``time_chunk`` steps; its trajectory instance
-(``lstm_seq_traj``) also writes the (T, L, B, H) f32 post-step states, and
-its int8 instances (``lstm_seq_q8``, ``lstm_seq_q8_traj``) hold the stack
-as int8 codes with (L, 4H) f32 per-column scales, folded into the gate
-pre-activations.  What bounds it on the H100 (the chain of T x L dependent
-steps, not FLOPs or bytes) and what the design does about it is written at
-the top of the CUDA source.
+whole recurrence in one launch as a layer wavefront (each layer its own
+warps, layer l at time s - l in wave-step s, one barrier a wave-step, T + L
+- 1 wave-steps), each hidden unit's four gates in one warp quad with c in a
+register, the input streamed through a two-slot ring of ``time_chunk``
+steps; its trajectory instance (``lstm_seq_traj``) also writes the (T, L,
+B, H) f32 post-step states, and its int8 instances (``lstm_seq_q8``,
+``lstm_seq_q8_traj``) take the stack as int8 codes with (L, 4H) f32
+per-column scales, folded into the gate pre-activations.  What bounds it on
+the H100 (the chain of dependent steps, not FLOPs or bytes) and what the
+design does about it is written at the top of the CUDA source.
 
 Autograd: ``lstm_seq`` on tensors that require grad runs ``_LstmSeqFn``,
 the counterpart of the JAX package's ``custom_vjp``.  Its forward is the
@@ -38,11 +39,14 @@ each is one plain launch and writes no trajectories.
 Host half, as in the JAX package: ``stack_params`` and ``pad_input`` build
 the kernel's operands; ``working_set_bytes`` and ``choose_batch_block`` are
 the budget table, with Hopper's terms and budget
-(``factorization.H100_SMEM_PER_BLOCK``) in place of the TPU's VMEM.  When no
-tile fits — already at 2 x 64, whose f32 stack alone is 256 KiB —
+(``factorization.H100_SMEM_PER_BLOCK``) in place of the TPU's VMEM, and
+``weight_home`` names where a launch keeps its weights: in registers (the
+paper's 2 x 32 at one row a block) or in shared memory.  When no tile fits
+— already at 2 x 64, whose f32 stack alone is 256 KiB —
 ``choose_batch_block`` returns None and ``core/lstm`` routes to the
 per-cell kernel with a ``plan/dispatch`` event; the int8 stack at 2 x 64 is
-68 KiB and fits (``quantized=True``).
+68 KiB and fits (``quantized=True``).  The budget functions are pure
+functions of integers and are memoised.
 
 A tensor on the CPU takes the plain versions (``lstm_seq_plain``,
 ``ref.lstm_seq_traj``, ``lstm_seq_q8_plain``, ``lstm_seq_q8_traj_plain``),
@@ -51,11 +55,13 @@ or raises.  Each wrapper counts its launches (CPU calls are not counted):
 ``lstm_seq.launches`` and ``lstm_seq_q8.launches`` plain launches (one per
 inference forward at any T), ``lstm_seq_traj.launches`` and
 ``lstm_seq_q8_traj.launches`` trajectory launches (one per training
-forward).
+forward); each also counts in ``reg_launches`` the launches whose weights
+were in registers (``weight_home``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -70,12 +76,19 @@ F32 = torch.float32
 
 #: Batch tiles the kernel is built for: one kernel instance per size.
 TILE_ROWS = (1, 2, 4, 8, 16)
-#: Most threads one block of the kernel uses.
+#: Most threads one block of either kernel uses.
 MAX_THREADS = 1024
-#: Most lanes that share one gate column's dot product.
+#: Most lanes that share one gate column's dot product in the backward.
 SPLIT_K = 4
 #: Words of padding per f32 weight row in shared memory (bank spreading).
 W_ROW_PAD = 8
+#: Hidden units a warp of the forward owns: 8 units x 4 gates = 32 lanes.
+UNITS_PER_WARP = 8
+#: The register-resident forward instance: H = P = 32, at most 2 layers
+#: (``REG_THREADS`` threads), one row a block.
+REG_HIDDEN = 32
+REG_MAX_LAYERS = 2
+REG_THREADS = 256
 
 #: The plain PyTorch version (torch.matmul + elementwise ops, f32 math): the
 #: CPU path of ``lstm_seq`` and the yardstick the kernel is held to.
@@ -180,16 +193,51 @@ class SeqBlocks(NamedTuple):
         return self.block_b
 
 
+@functools.lru_cache(maxsize=None)
 def gate_parts(hidden: int) -> int:
-    """Lanes sharing each of the 4H gate columns: the largest power of
-    two up to ``SPLIT_K`` that keeps a block within ``MAX_THREADS``; 0 when
-    even one lane per column does not fit (4H > 1024)."""
+    """Lanes sharing each of the 4H gate columns in the backward kernel: the
+    largest power of two up to ``SPLIT_K`` that keeps a block within
+    ``MAX_THREADS``; 0 when even one lane per column does not fit (4H >
+    1024).  (The forward runs one lane a column.)"""
     parts = SPLIT_K
     while parts and parts * 4 * hidden > MAX_THREADS:
         parts //= 2
     return parts
 
 
+@functools.lru_cache(maxsize=None)
+def fwd_threads(n_layers: int, hidden: int) -> int:
+    """Threads of one forward block: each layer's own warps, a warp to
+    ``UNITS_PER_WARP`` hidden units (4 gate lanes each)."""
+    return n_layers * -(-hidden // UNITS_PER_WARP) * factorization.WARP
+
+
+@functools.lru_cache(maxsize=None)
+def weight_home(n_layers: int, p_width: int, hidden: int,
+                block_b: int) -> str:
+    """Where a forward launch keeps its weight stack: ``"registers"`` (each
+    lane's 64 weights, int8 codes converted once to f32) for the paper's
+    width — H = P = ``REG_HIDDEN``, at most ``REG_MAX_LAYERS`` layers, one
+    row a block, the tile of B=1 serving and of B=64 training — and
+    ``"shared"`` (padded shared rows, ``row_stride``) for every other
+    shape, whose lanes would need more registers than a thread has at
+    their block's size."""
+    if (hidden == REG_HIDDEN and p_width == hidden
+            and n_layers <= REG_MAX_LAYERS and block_b == 1):
+        return "registers"
+    return "shared"
+
+
+def fwd_max_threads(block_b: int, home: str) -> int:
+    """Most threads the forward instance for ``block_b`` rows and ``home``
+    launches with (its ``__launch_bounds__``: 255 registers a thread at
+    ``REG_THREADS``, 128 at 512, 64 at 1024)."""
+    if home == "registers":
+        return REG_THREADS
+    return 512 if block_b >= 8 else MAX_THREADS
+
+
+@functools.lru_cache(maxsize=None)
 def row_stride(hidden: int, w_bytes: int = 4) -> int:
     """Elements per weight row in shared memory (``row_stride`` of
     ``csrc/lstm_gates.cuh``).  f32 rows are 4H + ``W_ROW_PAD`` words.  int8
@@ -203,70 +251,84 @@ def row_stride(hidden: int, w_bytes: int = 4) -> int:
     return g + W_ROW_PAD
 
 
+@functools.lru_cache(maxsize=None)
 def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
                       block_b: int, dtype_bytes: int = 4,
                       w_dtype_bytes: int | None = None, mode: str = "fwd",
                       time_chunk: int | None = None,
                       quantized: bool = False) -> int:
-    """Shared memory of one thread block, per phase.
+    """Shared memory of one thread block, per phase: the exact dynamic
+    shared memory each kernel is launched with.
 
     ``mode="fwd"`` sizes the forward kernel (``csrc/lstm_seq.cu``; the
-    trajectory launch adds nothing, its trajectories go straight to device
-    memory).  Terms (``tiling.WorkingSet``): the weight stack (its rows
-    padded to ``row_stride``) and bias, the x ring
-    (``tiling.streamed_rows``: T rows when ``time_chunk`` is None, else 2 x
-    tc), the f32 (c, h) of every layer, and the f32 gate buffer
-    (block_b, 4H).  The outputs go straight to device memory.
+    trajectory launch adds nothing, its trajectories go straight from
+    registers to device memory).  Terms (``tiling.WorkingSet``): the weight
+    stack, its rows padded to ``row_stride`` and each segment's rows (P
+    input, H recurrent) to a multiple of 4, when ``weight_home`` keeps it
+    in shared memory (nothing when it is in registers); the f32 h of every
+    layer in two slots (t mod 2); the x ring (``tiling.streamed_rows``: T
+    rows when ``time_chunk`` is None, else 2 x tc); h and x rows padded to
+    a multiple of 4 floats.  Bias, scales, c and the gates live in
+    registers; layer 0's input product is formed a step ahead in
+    registers, so it needs no buffer.
 
-    ``mode="bwd"`` sizes the backward kernel (``csrc/lstm_seq_bwd.cu``),
-    which holds the forward's terms (its (dc, dh) carries take the place of
-    (c, h)) plus its own: the f32 dW/db accumulators (dW rows padded as W's),
-    the two f32 trajectory windows (T + 1 rows, one of them the zero state
-    before t = 0, when ``time_chunk`` is None; else 2 slots of
+    ``mode="bwd"`` sizes the backward kernel (``csrc/lstm_seq_bwd.cu``):
+    the stack and bias (and scales), the x ring, its (dc, dh) carries, its
+    gate buffer (block_b, 4H), the f32 dW/db accumulators (dW rows padded as
+    W's), the two f32 trajectory windows (T + 1 rows, one of them the zero
+    state before t = 0, when ``time_chunk`` is None; else 2 slots of
     ``tiling.bwd_window_rows`` = tc + 1), the gate-gradient buffer
     (block_b, 4H) and the layer-below input gradient (block_b, H).  dx, dw
-    and db go straight to device memory.  The backward's set contains the
-    forward's, so one tiling that fits it also fits the trajectory launch
-    that feeds it.
+    and db go straight to device memory.  ``choose_batch_block`` holds a
+    backward tiling to the forward's bytes and threads as well, so it also
+    fits the trajectory launch that feeds it.
 
     ``quantized=True`` sizes the int8 instances (the ``fused_seq_q8``
     plan): the stack is 1 byte a weight (``tiling.weight_dtype_bytes``), its
-    rows padded in bytes (``row_stride``), the bias stays f32 and the
-    (L, 4H) f32 scales sit beside it; in ``bwd`` the dW/db accumulators
-    stay f32 and the outgoing products read their own (block_b, 4H) f32
-    copy of the gate gradients times the scales.  The JAX table's
-    "active-layer dequant temporary" has no counterpart: the kernels convert
-    each int8 code to f32 in a register and keep no f32 slab of the stack.
-
-    This is the exact dynamic shared memory each kernel is launched with."""
+    rows padded in bytes (``row_stride``); in ``bwd`` the bias stays f32,
+    the (L, 4H) f32 scales sit beside it, the dW/db accumulators stay f32
+    and the outgoing products read their own (block_b, 4H) f32 copy of the
+    gate gradients times the scales.  The JAX table's "active-layer dequant
+    temporary" has no counterpart: the kernels convert each int8 code to f32
+    in a register and keep no f32 slab of the stack in shared memory."""
     wb = tiling.weight_dtype_bytes(dtype_bytes, w_dtype_bytes, quantized)
     ws = tiling.WorkingSet(mode)
     w_rows = n_layers * (p_width + hidden)
+    rows = tiling.streamed_rows(seq_len, time_chunk)
+    if mode == "fwd":
+        p4 = factorization.round_up(p_width, 4)
+        h4 = factorization.round_up(hidden, 4)
+        if weight_home(n_layers, p_width, hidden, block_b) == "shared":
+            ws.add("weights", n_layers * (p4 + h4) * row_stride(hidden, wb)
+                   * wb)
+        ws.add("h_slots", 2 * n_layers * block_b * h4 * 4)
+        ws.add("x_ring", block_b * rows * p4 * dtype_bytes)
+        return ws.total()
+    x_ring = block_b * rows * p_width * dtype_bytes
+    state = 2 * n_layers * block_b * hidden * 4
     ws.add("weights", w_rows * row_stride(hidden, wb) * wb)
     ws.add("biases", n_layers * 4 * hidden * (4 if quantized else wb))
     if quantized:
         ws.add("scales", n_layers * 4 * hidden * 4)
-    ws.add("x_ring", block_b * tiling.streamed_rows(seq_len, time_chunk)
-           * p_width * dtype_bytes)
-    ws.add("state", 2 * n_layers * block_b * hidden * 4)
+    ws.add("x_ring", x_ring)
+    ws.add("state", state)
     ws.add("gates", block_b * 4 * hidden * 4)
     ws.add("grad_accumulators",
-           (w_rows * row_stride(hidden) + n_layers * 4 * hidden) * 4,
-           bwd_only=True)
+           (w_rows * row_stride(hidden) + n_layers * 4 * hidden) * 4)
     if time_chunk is None:
         traj_rows = seq_len + 1
     else:
         traj_rows = tiling.STREAM_SLOTS * tiling.bwd_window_rows(
             seq_len, time_chunk)
-    ws.add("traj", 2 * traj_rows * n_layers * block_b * hidden * 4,
-           bwd_only=True)
-    ws.add("dgates", block_b * 4 * hidden * 4, bwd_only=True)
-    ws.add("dinp", block_b * hidden * 4, bwd_only=True)
+    ws.add("traj", 2 * traj_rows * n_layers * block_b * hidden * 4)
+    ws.add("dgates", block_b * 4 * hidden * 4)
+    ws.add("dinp", block_b * hidden * 4)
     if quantized:
-        ws.add("dgates_scaled", block_b * 4 * hidden * 4, bwd_only=True)
+        ws.add("dgates_scaled", block_b * 4 * hidden * 4)
     return ws.total()
 
 
+@functools.lru_cache(maxsize=None)
 def choose_batch_block(batch: int, seq_len: int, n_layers: int,
                        p_width: int, hidden: int, dtype_bytes: int = 4,
                        smem_budget: int | None = None,
@@ -286,24 +348,34 @@ def choose_batch_block(batch: int, seq_len: int, n_layers: int,
     whole-T residency at the current tile, then streamed time chunks from
     T//2 down to 1, then half the tile.  The budget is one thread block's
     shared memory (``smem_budget``, default
-    ``factorization.H100_SMEM_PER_BLOCK``).
+    ``factorization.H100_SMEM_PER_BLOCK``), and a forward block's threads
+    (``fwd_threads``) must be within its instance's bound
+    (``fwd_max_threads``: a layer wavefront needs every layer's warps at
+    once, so L x ceil(H / 8) warps; e.g. 9 x 32 or 5 x 64 fit no block).
 
     ``mode="bwd"`` sizes the training kernels (``working_set_bytes``), so a
-    tiling fine for inference can be none for training.  None means even
-    ``(1, 1)`` does not fit — the weight stack (plus, for ``bwd``, its
-    gradient accumulators) is too large — and ``core/lstm.forward_fused_seq``
-    routes to the per-cell kernel.  ``quantized=True`` sizes the int8
-    instances (``working_set_bytes``): with the stack quartered, they fit
-    where the f32 ones do not (2 x 64, 3 x 64 and 2 x 96 forward), and are
-    never tiled finer.
+    tiling fine for inference can be none for training; the trajectory
+    launch runs at the tiling found, so the forward's bytes and threads
+    must fit there too.  None means even ``(1, 1)`` does not fit — the weight stack
+    (plus, for ``bwd``, its gradient accumulators) is too large — and
+    ``core/lstm.forward_fused_seq`` routes to the per-cell kernel.
+    ``quantized=True`` sizes the int8 instances (``working_set_bytes``):
+    with the stack quartered, they fit where the f32 ones do not (2 x 64,
+    3 x 64 and 2 x 96 forward), and are never tiled finer.
     """
     budget = factorization.H100_SMEM_PER_BLOCK if smem_budget is None \
         else smem_budget
 
+    threads = fwd_threads(n_layers, hidden)
+
     def fits(bm: int, tc: int | None) -> bool:
-        return working_set_bytes(seq_len, n_layers, p_width, hidden, bm,
-                                 dtype_bytes, w_dtype_bytes, mode=mode,
-                                 time_chunk=tc, quantized=quantized) <= budget
+        home = weight_home(n_layers, p_width, hidden, bm)
+        modes = ("fwd",) if mode == "fwd" else ("fwd", "bwd")
+        return threads <= fwd_max_threads(bm, home) and all(
+            working_set_bytes(seq_len, n_layers, p_width, hidden, bm,
+                              dtype_bytes, w_dtype_bytes, mode=m,
+                              time_chunk=tc, quantized=quantized) <= budget
+            for m in modes)
 
     need = -(-batch // factorization.H100_SMS)
     seed = next((r for r in TILE_ROWS if r >= need), TILE_ROWS[-1])
@@ -437,7 +509,8 @@ def _no_autograd(name: str, *tensors: torch.Tensor) -> None:
 def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool,
             scales: torch.Tensor | None = None):
     """One launch of the forward kernel, with or without trajectories; an
-    int8 instance when ``scales`` are given."""
+    int8 instance when ``scales`` are given.  The weight home, the threads
+    and the shared memory come from the (memoised) budget table."""
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T, _ = x.shape
@@ -451,11 +524,13 @@ def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool,
         raise ValueError(f"lstm_seq: tile ({block_b}, {tc}) needs {smem} "
                          "bytes of shared memory, above a thread block's "
                          f"{factorization.H100_SMEM_PER_BLOCK}")
-    parts = gate_parts(H)
-    if parts == 0:
-        raise ValueError(f"lstm_seq: 4H = {4 * H} gate columns exceed "
-                         f"{MAX_THREADS} threads")
-    threads = factorization.round_up(parts * 4 * H, factorization.WARP)
+    home = weight_home(L, P, H, block_b)
+    threads = fwd_threads(L, H)
+    if threads > fwd_max_threads(block_b, home):
+        raise ValueError(f"lstm_seq: {L} layers of {H} hidden units need "
+                         f"{threads} threads a block, above the "
+                         f"{fwd_max_threads(block_b, home)} of the "
+                         f"{block_b}-row instance")
     w, b = w.contiguous(), b.contiguous()
     scales = None if scales is None else scales.contiguous()
     c_out = x.new_empty(L, B, H)
@@ -470,12 +545,21 @@ def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool,
     w_ptrs = (w.data_ptr(), scales.data_ptr()) if q8 else (w.data_ptr(),)
     err = fn(*w_ptrs, b.data_ptr(), x.data_ptr(), c_out.data_ptr(),
              h_out.data_ptr(), *traj_ptrs, B, T, L, P, H, x.stride(0),
-             x.stride(1), block_b, tc, parts, threads, smem,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             x.stride(1), block_b, tc, int(home == "registers"), threads,
+             smem, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, _NAME, err)
     if traj:
         return c_out, h_out, c_traj, h_traj
     return c_out, h_out
+
+
+def _count(wrapper, w: torch.Tensor, block_b: int) -> None:
+    """One launch of ``wrapper``'s kernel: ``launches``, and
+    ``reg_launches`` when its weights were in registers."""
+    H = w.shape[-1] // 4
+    wrapper.launches += 1
+    if weight_home(w.shape[0], w.shape[1] - H, H, block_b) == "registers":
+        wrapper.reg_launches += 1
 
 
 def _forward(w, b, x, block_b: int, time_chunk: int | None
@@ -486,7 +570,7 @@ def _forward(w, b, x, block_b: int, time_chunk: int | None
         return lstm_seq_plain(w, b, x)
     _no_autograd("the lstm_seq kernel", w, b, x)
     out = _launch(w, b, x, block_b, time_chunk, traj=False)
-    lstm_seq.launches += 1
+    _count(lstm_seq, w, block_b)
     return out
 
 
@@ -510,7 +594,7 @@ def lstm_seq_traj(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
         return ref.lstm_seq_traj(w, b, x)
     _no_autograd("lstm_seq_traj", w, b, x)
     out = _launch(w, b, x, block_b, time_chunk, traj=True)
-    lstm_seq_traj.launches += 1
+    _count(lstm_seq_traj, w, block_b)
     return out
 
 
@@ -585,10 +669,11 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     return _forward(w, b, x, *_fwd_spec(B, T, L, P, H, block_b, time_chunk))
 
 
-#: plain launches since the last reset (CPU calls are not counted)
-lstm_seq.launches = 0
+#: plain launches since the last reset (CPU calls are not counted), and
+#: those of them on the register weight home
+lstm_seq.launches = lstm_seq.reg_launches = 0
 #: trajectory launches since the last reset (CPU calls are not counted)
-lstm_seq_traj.launches = 0
+lstm_seq_traj.launches = lstm_seq_traj.reg_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -616,7 +701,7 @@ def lstm_seq_q8_traj(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
         return lstm_seq_q8_traj_plain(wq, scales, b, x)
     _no_autograd("lstm_seq_q8_traj", scales, b, x)
     out = _launch(wq, b, x, block_b, time_chunk, traj=True, scales=scales)
-    lstm_seq_q8_traj.launches += 1
+    _count(lstm_seq_q8_traj, wq, block_b)
     return out
 
 
@@ -690,11 +775,11 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     if x.device.type == "cpu":
         return lstm_seq_q8_plain(wq, scales, b, x)
     out = _launch(wq, b, x, block_b, time_chunk, traj=False, scales=scales)
-    lstm_seq_q8.launches += 1
+    _count(lstm_seq_q8, wq, block_b)
     return out
 
 
 #: q8 plain launches since the last reset (CPU calls are not counted)
-lstm_seq_q8.launches = 0
+lstm_seq_q8.launches = lstm_seq_q8.reg_launches = 0
 #: q8 trajectory launches since the last reset (CPU calls are not counted)
-lstm_seq_q8_traj.launches = 0
+lstm_seq_q8_traj.launches = lstm_seq_q8_traj.reg_launches = 0

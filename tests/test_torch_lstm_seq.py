@@ -122,14 +122,88 @@ def test_batch_tile_spreads_the_batch_over_the_sms(batch_and_tile):
 
 @pytest.mark.parametrize("bm", [1, 4, 16])
 def test_working_set_terms(bm):
+    """The forward's exact shared memory: at one row a block the 2 x 32
+    stack is in registers, past it in padded shared rows; h of every layer
+    in two slots and the x ring either way (bias, scales, c and the gates
+    are in registers)."""
     L, P, H, T, tc = 2, 32, 32, 128, 32
     whole = seq_k.working_set_bytes(T, L, P, H, bm)
     streamed = seq_k.working_set_bytes(T, L, P, H, bm, time_chunk=tc)
-    fixed = (L * (P + H) * (4 * H + 8) * 4                 # padded weights
-             + L * 4 * H * 4                               # bias
-             + 2 * L * bm * H * 4 + bm * 4 * H * 4)        # (c, h), gates
+    assert seq_k.weight_home(L, P, H, bm) == \
+        ("registers" if bm == 1 else "shared")
+    fixed = ((0 if bm == 1 else L * (P + H) * (4 * H + 8) * 4)  # weights
+             + 2 * L * bm * H * 4)                        # h, two slots
     assert whole == fixed + T * bm * P * 4
     assert streamed == fixed + 2 * tc * bm * P * 4
+
+
+@pytest.mark.parametrize("case", [
+    # (L, H, quantized, home, threads, bytes at B=1, T=128 whole): the
+    # paper's width keeps its weights in registers, f32 and int8; the int8
+    # widths that only fit as codes keep them in padded shared rows
+    (2, 32, False, "registers", 256, 128 * 32 * 4 + 2 * 2 * 32 * 4),
+    (2, 32, True, "registers", 256, 128 * 32 * 4 + 2 * 2 * 32 * 4),
+    (2, 64, True, "shared", 512,
+     2 * 128 * 272 + 128 * 64 * 4 + 2 * 2 * 64 * 4),
+    (3, 64, True, "shared", 768,
+     3 * 128 * 272 + 128 * 64 * 4 + 2 * 3 * 64 * 4),
+    (2, 96, True, "shared", 768,
+     2 * 192 * 400 + 128 * 96 * 4 + 2 * 2 * 96 * 4),
+], ids=["2x32", "2x32-q8", "2x64-q8", "3x64-q8", "2x96-q8"])
+def test_forward_table_bytes_and_weight_home(case):
+    L, H, q8, home, threads, nbytes = case
+    P = max(9, H)
+    assert seq_k.weight_home(L, P, H, 1) == home
+    assert seq_k.fwd_threads(L, H) == threads
+    assert seq_k.working_set_bytes(128, L, P, H, 1, quantized=q8) == nbytes
+    assert seq_k.choose_batch_block(1, 128, L, P, H, quantized=q8) == \
+        seq_k.SeqBlocks(1, None)
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 1), (2, 32, 1), (2, 32, 2),
+                                   (3, 32, 1), (2, 16, 1), (2, 32, 1, 40)],
+                         ids=["L1", "L2", "tile2", "L3", "H16", "P40"])
+def test_weight_home_is_registers_only_at_the_paper_width(shape):
+    """Registers hold each lane's 64 weights only where H = P = 32, at most
+    2 layers, one row a block; everything else keeps its weights in shared
+    memory."""
+    L, H, bm, *p = shape
+    P = p[0] if p else H
+    want = "registers" if (H, P, bm) == (32, 32, 1) and L <= 2 else "shared"
+    assert seq_k.weight_home(L, P, H, bm) == want
+    assert seq_k.fwd_threads(L, H) <= seq_k.fwd_max_threads(bm, want)
+
+
+@pytest.mark.parametrize("shape", [(9, 32, False), (5, 64, True),
+                                   (17, 16, False)],
+                         ids=["9x32", "5x64-q8", "17x16"])
+def test_a_wavefront_past_1024_threads_fits_no_block(shape):
+    """Every layer needs its own warps at once: L x ceil(H / 8) warps past
+    32 fit no thread block, whatever the bytes, so the table finds nothing
+    (core/lstm routes to fused_cell), for training too."""
+    L, H, q8 = shape
+    assert seq_k.fwd_threads(L, H) > seq_k.MAX_THREADS
+    for mode in ("fwd", "bwd"):
+        assert seq_k.choose_batch_block(1, 8, L, H, H, mode=mode,
+                                        quantized=q8) is None
+
+
+def test_budget_functions_are_memoised():
+    """The wrapper's per-call host work: the tile search, the bytes and
+    the weight home are looked up, not recomputed, on a repeated shape."""
+    args = (64, 128, 2, 32, 32)
+    first = seq_k.choose_batch_block(*args, mode="bwd")
+    hits = seq_k.choose_batch_block.cache_info().hits
+    assert seq_k.choose_batch_block(*args, mode="bwd") is first
+    assert seq_k.choose_batch_block.cache_info().hits == hits + 1
+    for fn, fn_args in ((seq_k.working_set_bytes, (128, 2, 32, 32, 1)),
+                        (seq_k.gate_parts, (32,)),
+                        (seq_k.weight_home, (2, 32, 32, 1)),
+                        (seq_k.fwd_threads, (2, 32))):
+        want = fn(*fn_args)
+        hits = fn.cache_info().hits
+        assert fn(*fn_args) == want
+        assert fn.cache_info().hits == hits + 1
 
 
 @pytest.mark.parametrize("hidden_parts", [(5, 4), (32, 4), (64, 4), (128, 2),

@@ -180,18 +180,65 @@ def test_no_grad_runs_the_plain_forward():
 
 @pytest.mark.parametrize("bm_tc", [(1, None), (4, None), (1, 32), (16, 8)])
 def test_bwd_working_set_terms(bm_tc):
-    """The backward's set is the forward's plus its own terms, exactly the
-    shared memory lstm_seq_bwd.cu carves out."""
+    """The backward's set, term by term, is exactly the shared memory
+    lstm_seq_bwd.cu carves out, and holds every forward term at least as
+    large, so it is larger than the forward's."""
     bm, tc = bm_tc
     L, P, H, T = 2, 32, 32, 128
     fwd = seq_k.working_set_bytes(T, L, P, H, bm, time_chunk=tc)
     bwd = seq_k.working_set_bytes(T, L, P, H, bm, mode="bwd", time_chunk=tc)
+    x_rows = T if tc is None else 2 * tc
     traj_rows = T + 1 if tc is None else 2 * (tc + 1)
+    shared = (L * (P + H) * (4 * H + 8) * 4 + L * 4 * H * 4  # W, bias
+              + x_rows * bm * P * 4                         # x ring
+              + 2 * L * bm * H * 4 + bm * 4 * H * 4)        # (dc, dh), gates
     own = (L * (P + H) * (4 * H + 8) * 4 + L * 4 * H * 4    # dW, db accum
            + 2 * traj_rows * L * bm * H * 4                 # c, h windows
            + bm * 4 * H * 4 + bm * H * 4)                   # dgates, dinp
-    assert bwd == fwd + own
+    assert bwd == shared + own
     assert bwd > fwd
+
+
+@pytest.mark.parametrize("case", [
+    # (T, L, P, H, block_b, kwargs, bytes): what the backward kernel
+    # launched with before the forward became a wavefront, unchanged
+    (128, 2, 32, 32, 1, {}, 225408),
+    (128, 2, 32, 32, 4, {}, 477696),
+    (128, 2, 32, 32, 1, dict(time_chunk=32), 184960),
+    (128, 2, 32, 32, 16, dict(time_chunk=8), 348160),
+    (128, 2, 32, 32, 1, dict(quantized=True), 175744),
+    (300, 2, 32, 32, 1, dict(time_chunk=37), 191360),
+    (300, 2, 32, 32, 1, dict(time_chunk=75, quantized=True), 190336),
+    (128, 2, 64, 64, 1, dict(time_chunk=1, quantized=True), 355072),
+    (20, 2, 9, 8, 1, {}, 15216),
+], ids=["B1", "tile4", "tc32", "tile16-tc8", "q8", "T300-tc37",
+        "q8-T300-tc75", "q8-2x64-tc1", "PgtH"])
+def test_bwd_bytes_are_unchanged(case):
+    T, L, P, H, bm, kw, nbytes = case
+    assert seq_k.working_set_bytes(T, L, P, H, bm, mode="bwd", **kw) == nbytes
+
+
+def test_a_bwd_tiling_fits_the_trajectory_launch_that_feeds_it():
+    """Wherever the training table finds a tiling, the trajectory forward
+    launches at it: its bytes within the budget and its threads within its
+    instance's bound."""
+    budget = factorization.H100_SMEM_PER_BLOCK
+    for L, H in ((1, 32), (2, 32), (3, 32), (1, 8), (2, 48), (4, 16),
+                 (2, 20)):
+        P = max(9, H)
+        for B in (1, 64, 300, 2000):
+            for T in (1, 7, 128, 300, 2048):
+                for q8 in (False, True):
+                    got = seq_k.choose_batch_block(B, T, L, P, H, mode="bwd",
+                                                   quantized=q8)
+                    if got is None:
+                        continue
+                    home = seq_k.weight_home(L, P, H, got.block_b)
+                    assert seq_k.working_set_bytes(
+                        T, L, P, H, got.block_b, time_chunk=got.time_chunk,
+                        quantized=q8) <= budget, (L, H, B, T, q8, got)
+                    assert seq_k.fwd_threads(L, H) <= \
+                        seq_k.fwd_max_threads(got.block_b, home)
 
 
 @pytest.mark.parametrize("case", [

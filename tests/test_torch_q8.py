@@ -287,18 +287,22 @@ def test_quantize_runs_inside_the_autograd_function():
 # The budget table
 # ---------------------------------------------------------------------------
 def test_q8_bytes_at_the_paper_width_are_the_kernels_layout():
-    """2 x 32 (P = H = 32), one row, whole T = 128: the int8 rows are 4H =
-    128 bytes padded to 144 (16-byte aligned, off a 0/64 bank offset)."""
+    """2 x 32 (P = H = 32), one row, whole T = 128: the forward holds the
+    codes in registers (as their f32 values), so its shared memory is the x
+    ring and h; the backward holds the int8 rows, 4H = 128 bytes padded to
+    144 (16-byte aligned, off a 0/64 bank offset)."""
     L, P, H, T = 2, 32, 32, 128
     rows, G = L * (P + H), 4 * H
     assert seq_k.row_stride(H, 1) == 144 and seq_k.row_stride(H) == 136
-    fwd = (rows * 144            # int8 stack
+    assert seq_k.weight_home(L, P, H, 1) == "registers"
+    fwd = (T * P * 4              # x ring, whole T
+           + 2 * L * H * 4)       # h of each layer, two slots
+    assert seq_k.working_set_bytes(T, L, P, H, 1, quantized=True) == fwd
+    bwd = (rows * 144            # int8 stack
            + L * G * 4 * 2       # f32 bias and scales
            + T * P * 4           # x ring, whole T
-           + 2 * L * H * 4       # (c, h)
-           + G * 4)              # gate buffer
-    assert seq_k.working_set_bytes(T, L, P, H, 1, quantized=True) == fwd
-    bwd = (fwd
+           + 2 * L * H * 4       # (dc, dh)
+           + G * 4               # gate buffer
            + (rows * 136 + L * G) * 4   # f32 dW/db accumulators
            + 2 * (T + 1) * L * H * 4    # both trajectories, one zero row
            + G * 4 + H * 4              # dg, the layer-below input grad
