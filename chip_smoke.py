@@ -101,6 +101,10 @@ F32_FLOP_PER_S = 67e12
 #: Its bf16 dense tensor-core peak: the yardstick of a training step's
 #: model FLOPs and of the kernels that run on the tensor cores.
 BF16_FLOP_PER_S = 989e12
+#: Its TF32 dense tensor-core peak: the tier the chunk products of K6, K6t
+#: and K6b would reach on the tensor cores (they run on the CUDA cores in
+#: f32; their bounds are stated at both rates).
+TF32_FLOP_PER_S = 495e12
 #: nvcc's output per source of this run's build (ptxas registers and spills)
 BUILD_LOGS: dict[str, str] = {}
 #: JAX's Pallas dispatches of one value_and_grad of its loss_fn through
@@ -543,15 +547,21 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
     for dtype in (bf16, f32):
         a = inputs(BH, T, dk, dv, dtype)
         t_bound, by = bound(*wkv6_fwd_work(BH, T, dk, dv, C, dtype))
+        tc_bound, tc_by = bound(*wkv6_fwd_work(BH, T, dk, dv, C, dtype),
+                                flop_rate=TF32_FLOP_PER_S)
         rows[dtype] = dict(
             ms=time_ms(lambda: wkv6_k.wkv6(*a, chunk=C), 50),
+            graph_ms=graph_ms(lambda: wkv6_k.wkv6(*a, chunk=C)),
             plain_ms=time_ms(lambda: wkv6_k.wkv6_plain(*a, chunk=C), 2),
             bound_ms=t_bound, bound_by=by)
         print(f"[time] wkv6 BH={BH} T={T} {dk}x{dv} C={C} "
               f"{str(dtype).split('.')[1]}: kernel {rows[dtype]['ms']:.4f} ms"
-              f", plain {rows[dtype]['plain_ms']:.4f} ms, library none (no "
-              f"single PyTorch call computes WKV6), bound {t_bound:.3e} ms "
-              f"({by})")
+              f" back to back, {rows[dtype]['graph_ms']:.4f} ms in a CUDA "
+              f"graph, plain {rows[dtype]['plain_ms']:.4f} ms, library none "
+              f"(no single PyTorch call computes WKV6), bound "
+              f"{t_bound:.3e} ms ({by}, f32 at 67 TFLOP/s); with the "
+              f"products on TF32 tensor cores (495 TFLOP/s) {tc_bound:.3e} "
+              f"ms ({tc_by})")
     main_row = rows[bf16]
     print(f"[K6] max abs err vs plain: f32 {errs['float32']:.3e}, bf16 "
           f"{errs['bfloat16']:.3e} (bf16 outputs keep 8 significant bits)")
@@ -759,6 +769,44 @@ def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
                   " at log-decays of -1e6")
     print("[K6b] gradients finite at single-step log-decays down to -1e6 "
           "(f32, bf16; T=19 and the full width at T=500)")
+    # the sub-chunk edges: T not a multiple of the sub-chunk (19, 23, 500),
+    # chunks of 8, 16 and 32, heads of 128 at C=16; K6t bit-equal to K6,
+    # and K6t and K6b against the pairwise plain versions and those in the
+    # kernels' sub-chunk form
+    for BH, T, dk, dv, C in ((8, 19, 64, 64, 32), (8, 23, 64, 64, 32),
+                             (8, 500, 64, 64, 8), (8, 500, 64, 64, 16),
+                             (8, 500, 64, 64, 32), (8, 100, 128, 128, 16)):
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[1]
+            a = wkv_inputs(BH, T, dk, dv, dtype, gen)
+            out, s_out = wkv6_k.wkv6(*a, chunk=C)
+            t_out, t_s, traj = wkv6_k.wkv6_traj(*a, chunk=C)
+            what = f"T={T} {dk}x{dv} C={C} {name}"
+            check(torch.equal(out, t_out) and torch.equal(s_out, t_s),
+                  f"wkv6_traj {what}: out or state differs from wkv6's")
+            dout, dsf = cotangents(BH, T, dk, dv, dtype)
+            got = wkv6_k.wkv6_bwd(*bwd_args(a, traj, t_s, dout, dsf),
+                                  chunk=C)
+            e_t = e_b = 0.0
+            for sub in (None, wkv6_k.SUB_CHUNK):
+                form = "pairwise" if sub is None else f"sub-chunk {sub}"
+                p_out, p_s, p_traj = wkv6_k.wkv6_traj_plain(*a, C,
+                                                           sub_chunk=sub)
+                e_t = max(e_t, close(t_out.float(), p_out.float(),
+                                     f"wkv6_traj {what} out vs {form}",
+                                     tol[name]),
+                          close(t_s, p_s, f"wkv6_traj {what} state vs "
+                                f"{form}", tol["float32"]),
+                          close(traj, p_traj, f"wkv6_traj {what} s_traj vs "
+                                f"{form}", tol["float32"]))
+                plain = wkv6_k.wkv6_bwd_plain(
+                    *bwd_args(a, traj, t_s, dout, dsf), C, sub_chunk=sub)
+                for n, g, pl in zip(names, got, plain):
+                    e_b = max(e_b, hold(g, pl, f"wkv6_bwd {what} {n} vs "
+                                        f"{form}"))
+            print(f"[K6t/K6b] sub-chunk edge BH={BH} {what}: K6t bit-equal "
+                  f"to K6, vs plain (pairwise and sub-chunk form) {e_t:.3e};"
+                  f" K6b vs both {e_b:.3e}")
     a = wkv_inputs(160, 500, 64, 64, bf16, gen)
     _, s_fin, traj = wkv6_k.wkv6_traj(*a, chunk=32)
     args = bwd_args(a, traj, s_fin, *cotangents(160, 500, 64, 64, bf16))
@@ -932,22 +980,40 @@ def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
         args = bwd_args(a, traj, s_fin, *cotangents(BH, T, dk, dv, dtype))
         t_bound, by = bound(*wkv6_fwd_work(BH, T, dk, dv, C, dtype,
                                            traj=True))
+        tc = bound(*wkv6_fwd_work(BH, T, dk, dv, C, dtype, traj=True),
+                   flop_rate=TF32_FLOP_PER_S)
         rows["wkv6_traj", dtype] = dict(
             ms=time_ms(lambda: wkv6_k.wkv6_traj(*a, chunk=C), 50),
+            graph_ms=graph_ms(lambda: wkv6_k.wkv6_traj(*a, chunk=C)),
             plain_ms=time_ms(lambda: wkv6_k.wkv6_traj_plain(*a, C), 2),
-            bound_ms=t_bound, bound_by=by)
+            bound_ms=t_bound, bound_by=by, tc=tc)
         t_bound, by = bound(*wkv6_bwd_work(BH, T, dk, dv, C, dtype))
+        tc = bound(*wkv6_bwd_work(BH, T, dk, dv, C, dtype),
+                   flop_rate=TF32_FLOP_PER_S)
         rows["wkv6_bwd", dtype] = dict(
             ms=time_ms(lambda: wkv6_k.wkv6_bwd(*args, chunk=C), 20),
+            graph_ms=graph_ms(lambda: wkv6_k.wkv6_bwd(*args, chunk=C)),
             plain_ms=time_ms(lambda: wkv6_k.wkv6_bwd_plain(*args, C), 2),
-            bound_ms=t_bound, bound_by=by)
+            bound_ms=t_bound, bound_by=by, tc=tc)
         for name in ("wkv6_traj", "wkv6_bwd"):
             r = rows[name, dtype]
             print(f"[time] {name} BH={BH} T={T} {dk}x{dv} C={C} "
-                  f"{str(dtype).split('.')[1]}: kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f} ms, library none (no single "
-                  f"PyTorch call computes it), bound {r['bound_ms']:.3e} ms "
-                  f"({r['bound_by']})")
+                  f"{str(dtype).split('.')[1]}: kernel {r['ms']:.4f} ms back "
+                  f"to back, {r['graph_ms']:.4f} ms in a CUDA graph, plain "
+                  f"{r['plain_ms']:.4f} ms, library none (no single PyTorch "
+                  f"call computes it), bound {r['bound_ms']:.3e} ms "
+                  f"({r['bound_by']}, f32 at 67 TFLOP/s); with the products "
+                  f"on TF32 tensor cores (495 TFLOP/s) {r['tc'][0]:.3e} ms "
+                  f"({r['tc'][1]})")
+    for name, legend in (("wkv6", "<IO,traj>"), ("wkv6_bwd", "<IO>")):
+        compiled = ""                  # the entry ptxas is reporting on
+        for line in BUILD_LOGS.get(name, "").splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                compiled = entry.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"[time] {name} {legend} = {instance(compiled)}: "
+                      f"{line.strip()}")
     print(f"[K6t/K6b] max abs err vs plain: K6t f32 "
           f"{errs['traj']['float32']:.3e}, bf16 {errs['traj']['bfloat16']:.3e}"
           f"; K6b f32 {errs['bwd']['float32']:.3e}, bf16 "
@@ -2884,6 +2950,10 @@ def main() -> None:
                 name="lstm_cell", B=B, shape=f"B={B} D={D} H={H}",
                 ms=time_ms(lambda: cell_k.lstm_cell(lw["w"], lw["b"], x, c,
                                                     h), 200),
+                # the kernel's device time alone: the host's wrapper and
+                # launch are left out
+                cell_graph_ms=graph_ms(lambda: cell_k.lstm_cell(
+                    lw["w"], lw["b"], x, c, h)),
                 plain_ms=time_ms(lambda: cell_k.lstm_cell_plain(
                     lw["w"], lw["b"], x, c, h), 200),
                 library_ms=time_ms(lambda: lib(x, (h, c)), 200),
@@ -3025,8 +3095,11 @@ def main() -> None:
 
     for r in rows:
         if "graph_ms" not in r:
+            graph = (f", {r['cell_graph_ms']:.4f} ms in a CUDA graph"
+                     if "cell_graph_ms" in r else "")
             print(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} "
-                  f"ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"ms back to back{graph}, plain {r['plain_ms']:.4f} ms, "
+                  f"library "
                   f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
                   f"({r['bound_by']})")
             continue

@@ -22,68 +22,130 @@
 //           chunk hands on: the next chunk's s_traj entry, or s_fin]
 //   dS    = e^{Llast} * dS' + (r * e^{L_prev})^T dO, carried to the chunk
 //           before; the first chunk's is ds0.
-// L_prev of step i is taken as L_{i-1} (0 for the first step), the
-// exclusive cumsum: then every exponent is a difference of two cumsums
-// with the later one subtracted, which is <= 0 exactly in f32 (adding a
-// non-positive number never raises a float), so exp never overflows,
+// L_prev of step i is L_{i-1} (0 for the first step).  Every exponent is a
+// difference of two cumsums with the later one subtracted, or a factor of
+// one (csrc/wkv6_math.cuh), clamped at 0, so exp never overflows,
 // whatever the decay.  Steps past T are identity steps (r = k = v = dO =
 // 0, logw = 0) and write nothing.
 //
 // What bounds it on the H100: at the training shapes (160 rows of 64 x 64
 // heads, T = 512, C = 32, bf16 IO) one call moves ~165 MB (r, k, v, dO
 // and dr, dk, dv in bf16, logw and dlogw in f32, s_traj's 42 MB of f32
-// states) and does ~5.1 G f32 operations (a multiply-add counted as two,
-// an exponential as one), so the bytes bound it at ~49 us and the
-// operations at ~76 us.  As in the forward, its real limit is narrower:
-// the chunks of a row run in order, so only 160 blocks exist, and each
-// block's time is set by its shared-memory traffic and its own chunks'
-// arithmetic.
+// states) and needs ~4.0 G f32 operations, so the operations bound it at
+// ~60 us and the bytes at ~49 us.  Its real limit is narrower: the chunks
+// of a row run in order, so only 160 blocks exist, and each block's time
+// is its own chunks' chain, ~700 K multiply-adds a chunk on one SM, fed
+// from shared memory.
 //
 // Design: one thread block of 256 threads per batch-head row (a tile of
 // bh_tile rows runs them one after another, each exactly as alone), chunks
 // in reverse order.  The state cotangent dS is carried in shared memory
-// for the whole sweep, seeded from ds_fin; du is carried in a register of
-// the thread that owns its column; every output of a row is written by
-// its own block, so there are no atomics and two runs are bit-identical.
-// Each chunk takes seven phases separated by __syncthreads: (0) the
-// outgoing state's term of Llast; (1) the windows, as f32, and S; (2) the
-// column cumsums with e^{L_prev} and e^{Llast - L}, and the bonus A_ii and
-// dA_ii; (3) A and dA below the diagonal; (4) dv and dk, and G = -k dk;
-// (5) dr, and G += r dr on the row above; (6) du, the reverse cumsum of G
-// into dlogw, and the dS update.  Every product is a loop in this file,
-// one output element a thread at a time, reading the shared tiles along
-// conflict-free rows (each (C, d) and (dk, dv) tile is padded by one
-// word).  The block needs 108,288 bytes at 64 x 64, C = 32 (two fit on
-// an SM).
-// Register tiles, cp.async windows and wgmma are later work.
+// for the whole sweep, seeded from ds_fin; du is carried in shared memory;
+// every output of a row is written by its own block and each is summed by
+// one thread in a fixed order, so there are no atomics and two runs are
+// bit-identical.  Per chunk, nine phases between barriers:
+//   (0) the chunk's windows and its incoming state into f32 tiles, read
+//       straight from global memory, every load of a thread issued before
+//       it waits; the previous chunk's dlogw out;
+//   (1) L by warp scans;
+//   (2) the factors r * alpha, k * beta, gamma, the bonus b and
+//       db_i = dO_i . v_i;
+//   (3) A below the diagonal sub-blocks and dA = dO v^T (kept transposed
+//       above A's diagonal), 2 x 2 tiles;
+//   (4) the diagonal sub-blocks: each decay once, for A, dr and dk;
+//   (5) dr (half the block) and dk (the other half), 4 x 4 tiles: the
+//       carry S dO and the state term v . dS', the factored intra-chunk
+//       sums segment by segment with gamma folded into the operand, then
+//       the bonus terms and G's two inputs;
+//   (5b) r * e^{Lp} and k * e^{Llast - L}, into the tiles of r * alpha and
+//       k * beta, which (5) was the last to read;
+//   (6) dv on the whole block, then, after a barrier, the dS update in
+//       place;
+//   (7) dlogw's reverse cumsum by warp scans, du, and Llast's term of the
+//       chunk before (sum_n S dS).
+// At 64 x 64, C = 32 a block needs 115,224 bytes, two blocks an SM, so
+// all 160 rows run at once.  Heads of 128 train at C = 16 (210,180
+// bytes).  kernels/wkv6.py: working_set_bytes (mode="bwd") prices each
+// term.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "wkv6_math.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace wkv;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+// dv_j = sum_{i>=j} A_ij dO_i + sum_c (k e^{Llast - L})_jc dS'_c for the
+// chunk's n live rows, TM x 4 tiles of (C, dv), one a thread at a time.
+// A's upper triangle holds dA, so the tile's first rows take their
+// i < j0 + TM - 1 terms masked.
+template <typename IO>
+__device__ __forceinline__ void dv_tiles(const Dims& d, const float* A,
+                                         const float* DO, const float* KD,
+                                         const float* dS, IO* gv, int n,
+                                         int tid) {
+  constexpr int TM = 2;
+  const int C = d.C, dv = d.dv;
+  for (int t = tid; t < tiles<TM, 4>(C, dv); t += kThreads) {
+    const Tile<TM, 4> w(t, C, dv);
+    int oA[TM], oK[TM], on[4];
+#pragma unroll
+    for (int x = 0; x < TM; ++x) {
+      oA[x] = w.mc(x, C);
+      oK[x] = w.mc(x, C) * d.pk;
+    }
+#pragma unroll
+    for (int y = 0; y < 4; ++y) on[y] = w.nc(y, dv);
+    float acc[TM][4];
+    zero(acc);
+    const int i1 = min(C, w.m[0] + TM - 1);
+    for (int i = w.m[0]; i < i1; ++i)
+#pragma unroll
+      for (int x = 0; x < TM; ++x)
+        if (i >= w.m[x])
+#pragma unroll
+          for (int y = 0; y < 4; ++y)
+            acc[x][y] = fmaf(A[i * d.pc + oA[x]], DO[i * d.pv + on[y]],
+                             acc[x][y]);
+    tile_mac(acc, A, oA, d.pc, DO, on, d.pv, i1, C);
+    tile_mac(acc, KD, oK, 1, dS, on, d.pv, 0, d.dk);
+#pragma unroll
+    for (int x = 0; x < TM; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y)
+        if (w.m[x] < n && w.n[y] < dv)
+          store(gv + (long long)w.m[x] * dv + w.n[y], acc[x][y]);
+  }
 }
 
-// Shared memory of one block, in floats: r, k, L, e^{L_prev}, e^{Llast - L}
-// and the dlogw partials G as (C, dk + 1); v and dO as (C, dv + 1); A and
-// dA (C, C); S and dS (dk, dv + 1); u (dk).  kernels/wkv6.py:
-// working_set_bytes(mode="bwd") prices the same terms.
-__host__ __device__ inline long long smem_floats(int C, int dk, int dv) {
-  return 6LL * C * (dk + 1) + 2LL * C * (dv + 1) + 2LL * C * C +
-         2LL * dk * (dv + 1) + dk;
+// Tile t (4 x 4 of (dk, dv)) of dS <- e^{Llast} dS' + (r e^{Lp})^T dO, in
+// place: each output it writes depends on its own entry of dS' alone.
+__device__ __forceinline__ void ds_update(const Dims& d, const float* L,
+                                          const float* RE, const float* DO,
+                                          float* dS, int t) {
+  const Tile<4, 4> w(t, d.dk, d.dv);
+  int oc[4], on[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) oc[x] = w.mc(x, d.dk);
+#pragma unroll
+  for (int y = 0; y < 4; ++y) on[y] = w.nc(y, d.dv);
+  float acc[4][4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const float decay = exp_le0(L[(d.C - 1) * d.pk + oc[x]]);
+#pragma unroll
+    for (int y = 0; y < 4; ++y) acc[x][y] = decay * dS[oc[x] * d.pv + on[y]];
+  }
+  tile_mac(acc, RE, oc, d.pk, DO, on, d.pv, 0, d.C);
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < 4; ++y)
+      if (w.m[x] < d.dk && w.n[y] < d.dv)
+        dS[w.m[x] * d.pv + w.n[y]] = acc[x][y];
 }
 
 template <typename IO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     wkv6_bwd_kernel(const IO* __restrict__ r, const IO* __restrict__ k,
                     const IO* __restrict__ v, const float* __restrict__ logw,
                     const float* __restrict__ u,
@@ -95,23 +157,18 @@ __global__ void __launch_bounds__(kThreads)
                     float* __restrict__ glogw, float* __restrict__ gu,
                     float* __restrict__ gs0, int BH, int T, int dk, int dv,
                     int C, int bh_tile) {
-  extern __shared__ float smem[];
-  const int pk = dk + 1, pv = dv + 1;
-  float* sr = smem;           // r
-  float* sk = sr + C * pk;    // k
-  float* sL = sk + C * pk;    // logw, then L
-  float* sE = sL + C * pk;    // e^{L_prev}
-  float* sD = sE + C * pk;    // e^{Llast - L}
-  float* sG = sD + C * pk;    // dlogw partials
-  float* sv = sG + C * pk;    // v
-  float* sdo = sv + C * pv;   // dO
-  float* sA = sdo + C * pv;   // A (bonus on the diagonal), lower triangle
-  float* sdA = sA + C * C;    // dA, lower triangle with the diagonal
-  float* sS = sdA + C * C;    // the chunk's incoming state; before (1),
-                              // the state it hands on
-  float* sdS = sS + dk * pv;  // the carried state cotangent
-  float* su = sdS + dk * pv;  // u
-  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) float f[];
+  const Dims d = dims(C, dk, dv);
+  const Layout lay = layout(true, d);
+  float *R = f + lay.R, *K = f + lay.K, *L = f + lay.L, *Ra = f + lay.Ra,
+        *Kb = f + lay.Kb, *RE = f + lay.RE, *KD = f + lay.KD,
+        *GR = f + lay.GR, *GK = f + lay.GK, *V = f + lay.V, *DO = f + lay.DO,
+        *A = f + lay.A, *S = f + lay.S, *dS = f + lay.dS, *G = f + lay.G,
+        *su = f + lay.u, *lt = f + lay.lt, *du = f + lay.du, *b = f + lay.b,
+        *db = f + lay.db;
+  const int pk = d.pk, pv = d.pv, pc = d.pc, s = d.s, ns = d.ns;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int half = tid / (kThreads / 2), ht = tid % (kThreads / 2);
   const int nchunks = (T + C - 1) / C;
 
   for (int rr = 0; rr < bh_tile; ++rr) {
@@ -120,172 +177,202 @@ __global__ void __launch_bounds__(kThreads)
     const long long kbase = (long long)row * T * dk;
     const long long vbase = (long long)row * T * dv;
     const long long sbase = (long long)row * dk * dv;
-    for (int e = tid; e < dk * dv; e += kThreads) {
-      const int c = e / dv, n = e - c * dv;
-      sdS[c * pv + n] = ds_fin[sbase + e];
-      sS[c * pv + n] = s_fin[sbase + e];
-    }
-    for (int e = tid; e < dk; e += kThreads)
+    const float* traj = s_traj + (long long)row * nchunks * dk * dv;
+
+    // the last chunk's Llast term, from the state it hands on (s_fin)
+    copy_rows(dS, pv, ds_fin + sbase, dk, dk, dv, tid);
+    copy_rows(S, pv, s_fin + sbase, dk, dk, dv, tid);
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    for (int e = tid; e < dk; e += kThreads) {
       su[e] = u[(long long)row * dk + e];
-    float du = 0.f;  // column tid's du, for tid < dk
+      du[e] = 0.f;
+    }
+    __syncthreads();
+    for (int c = warp; c < dk; c += kWarps) {
+      float x = 0.f;
+      for (int m = lane; m < dv; m += 32)
+        x = fmaf(S[c * pv + m], dS[c * pv + m], x);
+      x = warp_sum(x);
+      if (lane == 0) lt[((nchunks - 1) & 1) * dk + c] = x;
+    }
     __syncthreads();
 
+    int prev_t0 = -1;  // the chunk whose dlogw is still in GK
     for (int ch = nchunks - 1; ch >= 0; --ch) {
-      const int t0 = ch * C;
-      // (0) Llast's own term: sum_n S'_cn dS'_cn, S' the state the chunk
-      // hands on (still in sS), kept by column c's thread
-      float lterm = 0.f;
-      if (tid < dk)
-        for (int n = 0; n < dv; ++n)
-          lterm = fmaf(sS[tid * pv + n], sdS[tid * pv + n], lterm);
-      __syncthreads();
-
-      // (1) the chunk's windows, f32, and its incoming state; steps past
-      // T are identity steps
-      for (int e = tid; e < C * dk; e += kThreads) {
-        const int i = e / dk, c = e - i * dk;
-        const bool in = t0 + i < T;
-        const long long g = kbase + (long long)(t0 + i) * dk + c;
-        sr[i * pk + c] = in ? to_f32(r[g]) : 0.f;
-        sk[i * pk + c] = in ? to_f32(k[g]) : 0.f;
-        sL[i * pk + c] = in ? logw[g] : 0.f;
-      }
-      for (int e = tid; e < C * dv; e += kThreads) {
-        const int i = e / dv, n = e - i * dv;
-        const bool in = t0 + i < T;
-        const long long g = vbase + (long long)(t0 + i) * dv + n;
-        sv[i * pv + n] = in ? to_f32(v[g]) : 0.f;
-        sdo[i * pv + n] = in ? to_f32(dout[g]) : 0.f;
-      }
+      const int t0 = ch * C, n = min(C, T - t0);
+      // (0) the chunk's windows and incoming state; the later chunk's dlogw
+      copy_rows(L, pk, logw + kbase + (long long)t0 * dk, n, C, dk, tid);
+      copy_rows(S, pv, traj + (long long)ch * dk * dv, dk, dk, dv, tid);
+      __pipeline_commit();
       {
-        const float* src = s_traj + ((long long)row * nchunks + ch) * dk * dv;
-        for (int e = tid; e < dk * dv; e += kThreads) {
-          const int c = e / dv, n = e - c * dv;
-          sS[c * pv + n] = src[e];
-        }
+        float* const rk[2] = {R, K};
+        const IO* const rk_src[2] = {r + kbase + (long long)t0 * dk,
+                                     k + kbase + (long long)t0 * dk};
+        load_rows(rk, pk, rk_src, n, C, dk, tid);
+        float* const vd[2] = {V, DO};
+        const IO* const vd_src[2] = {v + vbase + (long long)t0 * dv,
+                                     dout + vbase + (long long)t0 * dv};
+        load_rows(vd, pv, vd_src, n, C, dv, tid);
+      }
+      __pipeline_wait_prior(0);
+      if (prev_t0 >= 0)
+        store_rows(glogw + kbase + (long long)prev_t0 * dk, GK, pk,
+                   min(C, T - prev_t0), dk, warp, lane);
+      __syncthreads();
+
+      // (1) L down each column
+      scan_cols(L, C, dk, pk, warp, lane);
+      __syncthreads();
+
+      // (2) the decay factors, the bonus b and db_i = dO_i . v_i
+      prep(d, R, K, L, su, Ra, Kb, nullptr, nullptr, G, b, warp, lane);
+      for (int i = warp; i < C; i += kWarps) {
+        float x = 0.f;
+        for (int m = lane; m < dv; m += 32)
+          x = fmaf(DO[i * pv + m], V[i * pv + m], x);
+        x = warp_sum(x);
+        if (lane == 0) db[i] = x;
       }
       __syncthreads();
 
-      // (2) down each column: e^{L_prev}, L, then e^{Llast - L}; per step
-      // the bonus A_ii = r_i . u . k_i and dA_ii = dO_i . v_i
-      for (int e = tid; e < dk + C; e += kThreads) {
-        if (e < dk) {
-          float acc = 0.f;
-          for (int i = 0; i < C; ++i) {
-            sE[i * pk + e] = __expf(acc);
-            acc += sL[i * pk + e];
-            sL[i * pk + e] = acc;
+      // (3) A below the diagonal sub-blocks, dA = dO v^T above it
+      scores(d, Ra, Kb, G, b, A, DO, V, true, tid);
+      __syncthreads();
+
+      // (4) the diagonal sub-blocks: A, and dr's and dk's terms into GR, GK
+      diag_pass<true>(d, R, K, L, A, GR, GK, warp, lane);
+      __syncthreads();
+
+      // (5) dr_ic (half 0) and dk_jc (half 1), 4 x 4 tiles of (C, dk)
+      for (int t = ht; t < tiles<4, 4>(C, dk); t += kThreads / 2) {
+        const Tile<4, 4> w(t, C, dk);
+        const int I = w.m[0] / s;  // the tile's rows share a sub-chunk
+        int orow[4], oc[4], odA[4], ocol[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          orow[x] = w.mc(x, C) * pv;
+          odA[x] = w.mc(x, C) * (half == 0 ? 1 : pc);  // dA_ij at A[j][i]
+        }
+#pragma unroll
+        for (int y = 0; y < 4; ++y) {
+          oc[y] = w.nc(y, dk) * pv;
+          ocol[y] = w.nc(y, dk);
+        }
+        float dot[4][4], off[4][4], g[4];
+        zero(dot);
+        zero(off);
+        if (half == 0) {
+          // carry (S dO_i)_c; then sum_{J<I} gamma_IJ (dA_IJ (k beta)_J)
+          tile_mac(dot, DO, orow, 1, S, oc, 1, 0, dv);
+          for (int J = 0; J < I; ++J) {
+#pragma unroll
+            for (int y = 0; y < 4; ++y) g[y] = G[pair(I, J) * pk + ocol[y]];
+            tile_mac_scaled(off, A, odA, pc, Kb, ocol, pk, g, J * s,
+                            J * s + s);
           }
-          for (int i = 0; i < C; ++i)
-            sD[i * pk + e] = __expf(acc - sL[i * pk + e]);
         } else {
-          const int i = e - dk;
-          float b = 0.f, db = 0.f;
-          for (int c = 0; c < dk; ++c)
-            b = fmaf(sr[i * pk + c] * su[c], sk[i * pk + c], b);
-          for (int n = 0; n < dv; ++n)
-            db = fmaf(sdo[i * pv + n], sv[i * pv + n], db);
-          sA[i * C + i] = b;
-          sdA[i * C + i] = db;
+          // state term v_j . dS'_c; then
+          // sum_{I>J} gamma_IJ (dA_IJ^T (r alpha)_I)
+          tile_mac(dot, V, orow, 1, dS, oc, 1, 0, dv);
+          for (int J2 = I + 1; J2 < ns; ++J2) {
+#pragma unroll
+            for (int y = 0; y < 4; ++y) g[y] = G[pair(J2, I) * pk + ocol[y]];
+            tile_mac_scaled(off, A, odA, 1, Ra, ocol, pk, g, J2 * s,
+                            min(C, J2 * s + s));
+          }
         }
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+#pragma unroll
+          for (int y = 0; y < 4; ++y) {
+            const int i = w.m[x], c = w.n[y];
+            if (i >= C || c >= dk) continue;
+            const int e = i * pk + c;
+            const float Li = L[e];
+            const float Lp = i > 0 ? L[e - pk] : 0.f;
+            float nb;
+            if (half == 0) {
+              const float alpha =
+                  I > 0 ? exp_le0(Lp - L[(I * s - 1) * pk + c]) : 0.f;
+              nb = fmaf(exp_le0(Lp), dot[x][y], fmaf(alpha, off[x][y], GR[e]));
+              if (i < n)
+                store(gr + kbase + (long long)(t0 + i) * dk + c,
+                      fmaf(db[i] * su[c], K[e], nb));
+              GR[e] = R[e] * nb;
+            } else {
+              const float beta =
+                  I < ns - 1
+                      ? exp_le0(L[(min(C, I * s + s) - 1) * pk + c] - Li)
+                      : 0.f;
+              nb = fmaf(exp_le0(L[(C - 1) * pk + c] - Li), dot[x][y],
+                        fmaf(beta, off[x][y], GK[e]));
+              if (i < n)
+                store(gk + kbase + (long long)(t0 + i) * dk + c,
+                      fmaf(db[i] * su[c], R[e], nb));
+              GK[e] = -K[e] * nb;
+            }
+          }
       }
       __syncthreads();
 
-      // (3) below the diagonal: A_ij and dA_ij = dO_i . v_j, j < i
-      for (int e = tid; e < C * C; e += kThreads) {
-        const int i = e / C, j = e - i * C;
-        if (j < i) {
-          const float* ri = sr + i * pk;
-          const float* lpi = sL + (i - 1) * pk;
-          const float* kj = sk + j * pk;
-          const float* lj = sL + j * pk;
-          float a = 0.f;
-          for (int c = 0; c < dk; ++c)
-            a = fmaf(ri[c] * kj[c], __expf(lpi[c] - lj[c]), a);
-          const float* doi = sdo + i * pv;
-          const float* vj = sv + j * pv;
-          float da = 0.f;
-          for (int n = 0; n < dv; ++n) da = fmaf(doi[n], vj[n], da);
-          sA[e] = a;
-          sdA[e] = da;
-        }
-      }
+      // (5b) r e^{Lp} and k e^{Llast - L}, into the tiles of r alpha, k beta
+      decay_operands(d, R, K, L, RE, KD, warp, lane);
       __syncthreads();
 
-      // (4) dv_jn, and dk_jc with G_j = -k_j (dk_j - bonus)
-      for (int e = tid; e < C * dv; e += kThreads) {
-        const int j = e / dv, n = e - j * dv;
-        float acc = 0.f;
-        for (int i = j; i < C; ++i)
-          acc = fmaf(sA[i * C + j], sdo[i * pv + n], acc);
-        for (int c = 0; c < dk; ++c)
-          acc = fmaf(sk[j * pk + c] * sD[j * pk + c], sdS[c * pv + n], acc);
-        if (t0 + j < T) store(gv + vbase + (long long)(t0 + j) * dv + n, acc);
-      }
-      for (int e = tid; e < C * dk; e += kThreads) {
-        const int j = e / dk, c = e - j * dk;
-        const float lj = sL[j * pk + c];
-        float acc = 0.f;
-        for (int i = j + 1; i < C; ++i)
-          acc = fmaf(sdA[i * C + j] * sr[i * pk + c],
-                     __expf(sL[(i - 1) * pk + c] - lj), acc);
-        float st = 0.f;
-        for (int n = 0; n < dv; ++n)
-          st = fmaf(sv[j * pv + n], sdS[c * pv + n], st);
-        acc = fmaf(sD[j * pk + c], st, acc);
-        sG[j * pk + c] = -sk[j * pk + c] * acc;
-        if (t0 + j < T)
-          store(gk + kbase + (long long)(t0 + j) * dk + c,
-                fmaf(sdA[j * C + j] * su[c], sr[j * pk + c], acc));
-      }
+      // (6) dv_jn in 2 x 4 tiles of (C, dv); then, once every read of dS'
+      // is done, the dS update in place, 4 x 4 tiles of (dk, dv)
+      dv_tiles(d, A, DO, KD, dS, gv + vbase + (long long)t0 * dv, n, tid);
+      __syncthreads();
+      for (int t = tid; t < tiles<4, 4>(dk, dv); t += kThreads)
+        ds_update(d, L, RE, DO, dS, t);
       __syncthreads();
 
-      // (5) dr_ic, and G_{i-1} += r_i (dr_i - bonus)
-      for (int e = tid; e < C * dk; e += kThreads) {
-        const int i = e / dk, c = e - i * dk;
-        float carry = 0.f;
-        for (int n = 0; n < dv; ++n)
-          carry = fmaf(sS[c * pv + n], sdo[i * pv + n], carry);
-        float acc = sE[i * pk + c] * carry;
-        if (i > 0) {
-          const float lpi = sL[(i - 1) * pk + c];
-          for (int j = 0; j < i; ++j)
-            acc = fmaf(sdA[i * C + j] * sk[j * pk + c],
-                       __expf(lpi - sL[j * pk + c]), acc);
-          sG[(i - 1) * pk + c] += sr[i * pk + c] * acc;
+      // (7) dlogw_m = sum_{i>=m} G_i, G_i = GK_i + GR_{i+1} (+ Llast's term
+      // on row C-1), into GK; du; Llast's term of the chunk before
+      {
+        const float* ltc = lt + (ch & 1) * dk;
+        for (int c = warp; c < dk; c += kWarps) {
+          float carry = 0.f, dsum = 0.f;
+          for (int base = 0; base < C; base += 32) {
+            const int i = C - 1 - base - lane;  // rows from the last up
+            float g = 0.f;
+            if (i >= 0) {
+              g = GK[i * pk + c];
+              if (i + 1 < C) g += GR[(i + 1) * pk + c];
+              if (i == C - 1) g += ltc[c];
+              dsum = fmaf(db[i] * R[i * pk + c], K[i * pk + c], dsum);
+            }
+#pragma unroll
+            for (int o = 1; o < 32; o <<= 1) {
+              const float y = __shfl_up_sync(kFull, g, o);
+              if (lane >= o) g += y;
+            }
+            g += carry;
+            carry = __shfl_sync(kFull, g, 31);
+            if (i >= 0) GK[i * pk + c] = g;
+          }
+          dsum = warp_sum(dsum);
+          if (lane == 0) du[c] += dsum;
         }
-        if (t0 + i < T)
-          store(gr + kbase + (long long)(t0 + i) * dk + c,
-                fmaf(sdA[i * C + i] * su[c], sk[i * pk + c], acc));
+        if (ch > 0)
+          for (int c = warp; c < dk; c += kWarps) {
+            float x = 0.f;
+            for (int m = lane; m < dv; m += 32)
+              x = fmaf(S[c * pv + m], dS[c * pv + m], x);
+            x = warp_sum(x);
+            if (lane == 0) lt[((ch - 1) & 1) * dk + c] = x;
+          }
       }
-      __syncthreads();
-
-      // (6) du; dlogw_m = sum_{i>=m} G_i with Llast's term on row C-1
-      if (tid < dk) {
-        const int c = tid;
-        for (int i = 0; i < C; ++i)
-          du = fmaf(sdA[i * C + i] * sr[i * pk + c], sk[i * pk + c], du);
-        float acc = lterm;
-        for (int m = C - 1; m >= 0; --m) {
-          acc += sG[m * pk + c];
-          if (t0 + m < T) glogw[kbase + (long long)(t0 + m) * dk + c] = acc;
-        }
-      }
-      // dS <- e^{Llast} dS + (r e^{L_prev})^T dO: each thread its entries
-      for (int e = tid; e < dk * dv; e += kThreads) {
-        const int c = e / dv, n = e - c * dv;
-        float acc = __expf(sL[(C - 1) * pk + c]) * sdS[c * pv + n];
-        for (int i = 0; i < C; ++i)
-          acc = fmaf(sr[i * pk + c] * sE[i * pk + c], sdo[i * pv + n], acc);
-        sdS[c * pv + n] = acc;
-      }
-      __syncthreads();  // the next chunk reads sS, sdS, overwrites the rest
+      __syncthreads();  // the next chunk overwrites the tiles
+      prev_t0 = t0;
     }
-    if (tid < dk) gu[(long long)row * dk + tid] = du;
-    for (int e = tid; e < dk * dv; e += kThreads) {
-      const int c = e / dv, n = e - c * dv;
-      gs0[sbase + e] = sdS[c * pv + n];
-    }
+    if (prev_t0 >= 0)
+      store_rows(glogw + kbase + (long long)prev_t0 * dk, GK, pk,
+                 min(C, T - prev_t0), dk, warp, lane);
+    for (int e = tid; e < dk; e += kThreads)
+      gu[(long long)row * dk + e] = du[e];
+    store_rows(gs0 + sbase, dS, pv, dk, dv, warp, lane);
     __syncthreads();  // the next row overwrites the states
   }
 }
@@ -300,7 +387,7 @@ int launch(const IO* r, const IO* k, const IO* v, const float* logw,
       dk > kThreads || dv > kThreads)
     return (int)cudaErrorInvalidValue;
   // the wrapper's budget table must price exactly this launch
-  if (smem != 4 * smem_floats(chunk, dk, dv))
+  if (smem != layout(true, dims(chunk, dk, dv)).bytes)
     return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -325,9 +412,10 @@ extern "C" {
 // states of the trajectory forward at the same chunk; s_fin, ds_fin, ds0
 // (BH, dk, dv); all contiguous.  logw, u, the states and their gradients
 // are f32; r, k, v, dout, dr, dk, dv f32 (wkv6_bwd_f32) or bf16
-// (wkv6_bwd_bf16).  smem must equal the block's shared memory,
-// 4 * smem_floats(chunk, dk, dv) bytes.  Grid: ceil(BH / bh_tile) blocks
-// of 256 threads.
+// (wkv6_bwd_bf16).  smem must equal the block's shared memory in the
+// layout of wkv6_math.cuh, as kernels/wkv6.py:working_set_bytes(
+// mode="bwd") prices it.  Grid:
+// ceil(BH / bh_tile) blocks of 256 threads.
 int wkv6_bwd_f32(const float* r, const float* k, const float* v,
                  const float* logw, const float* u, const float* s_traj,
                  const float* s_fin, const float* dout, const float* ds_fin,

@@ -46,8 +46,12 @@ sum_{i>=m} gL_i + sum_{i>m} gLp_i``.
 Numerical safety: every exponent the chunk math takes is a difference
 ``L_a - L_b`` (a >= b) of a running log-decay cumsum, hence <= 0 — no exp
 overflow whatever the decay (``logw <= 0``); the masked scores are never
-computed, forward or backward.  Non-dividing T runs identity steps (r = k =
-v = 0, logw = 0) inside the kernels past the end.
+computed, forward or backward.  The kernels take the intra-chunk decays
+through sub-chunks of ``SUB_CHUNK`` steps (``csrc/wkv6_math.cuh``): across
+sub-chunks as a product of three such exponents' exps, pairwise only
+within one; the plain versions compute the same with ``sub_chunk``, and
+pairwise by default, the yardstick.  Non-dividing T runs identity steps
+(r = k = v = 0, logw = 0) inside the kernels past the end.
 
 Tiling: ``WkvBlocks(chunk, bh_tile)`` presents the family-generic
 ``core/tiling.TilePlan`` interface.  A thread block runs the ``bh_tile``
@@ -83,6 +87,10 @@ F32 = torch.float32
 #: threads of one block (csrc/wkv6.cu and csrc/wkv6_bwd.cu kThreads): dk
 #: and dv must not exceed it
 THREADS = 256
+#: steps of a sub-chunk (csrc/wkv6_math.cuh kSub): the intra-chunk decays
+#: factor through sub-chunk boundaries; only the diagonal sub-blocks keep
+#: the pairwise exponent
+SUB_CHUNK = 8
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -112,42 +120,39 @@ class WkvBlocks(NamedTuple):
 def working_set_bytes(seq_len: int, dk: int, dv: int, chunk: int,
                       mode: str = "fwd") -> int:
     """Dynamic shared memory of one thread block, exactly as the kernel of
-    ``mode`` launches it (the C side refuses a launch priced otherwise).
+    ``mode`` launches it (``csrc/wkv6_math.cuh: layout``; the C side
+    refuses a launch priced otherwise).
 
-    All terms are f32 whatever the IO dtype; (C, d) tiles pad each row by
-    one word, so that a warp reading down a column hits distinct banks.
+    Every term is f32 whatever the IO dtype (the windows are converted as
+    they are read); (rows, d) tiles pad each row by one word, so that a
+    warp reading down a column hits distinct banks.
 
-    ``mode="fwd"`` prices K6 and K6t (one layout): the r, k, L and L_prev
-    tiles (C, dk); v (C, dv); the (C, C) scores, summed over dk in
-    registers (the JAX table prices a (C, C, dk) tensor, which would be
-    256 KiB at C=32, dk=64); the carried (dk, dv) state; u and the per-step
-    bonus.
+    ``mode="fwd"`` prices K6 and K6t: seven (C, dk) tiles (r, k, L, r *
+    alpha, k * beta, r * e^{Lp}, k * e^{Llast - L}); v (C, dv); the scores
+    A (C, C); the carried (dk, dv) state; gamma, one dk row per pair of
+    sub-chunks (``SUB_CHUNK`` steps each); u and the bonus.
 
-    ``mode="bwd"`` prices K6b: the r, k and L tiles, e^{L_prev} and
-    e^{L_last - L}, and the dlogw partials, each (C, dk); v and the output
-    cotangent (C, dv); the scores A (bonus on the diagonal) and their
-    cotangent (C, C); the chunk's incoming state and the carried state
-    cotangent (dk, dv); u.
+    ``mode="bwd"`` prices K6b: seven (C, dk) tiles (r, k, L, r * alpha and
+    k * beta, which later hold r * e^{Lp} and k * e^{Llast - L}, and the dr
+    and dk partials); v and dO; A with dA transposed in its upper triangle;
+    the chunk's incoming state and the carried state cotangent; gamma; u,
+    Llast's term (two), du, the bonus and db.
 
     Neither grows with ``bh_tile``: a block runs its rows one after
     another."""
     mode = tiling.check_mode(mode)
+    bwd = mode == "bwd"
     C = max(1, min(chunk, seq_len))
-    pk, pv = dk + 1, dv + 1
+    pk, pv, pc = dk + 1, dv + 1, C + 1
+    s = min(SUB_CHUNK, C)
+    ns = -(-C // s)
     ws = tiling.WorkingSet(mode)
-    if mode == "fwd":
-        ws.add("tiles", 4 * C * pk * 4)       # r, k, L, L_prev
-        ws.add("v", C * dv * 4)
-        ws.add("scores", C * C * 4)
-        ws.add("state", dk * dv * 4)
-        ws.add("u", dk * 4)
-        ws.add("bonus", C * 4)
-    else:
-        ws.add("tiles", 6 * C * pk * 4)       # r, k, L, e^Lp, e^(Ll-L), G
-        ws.add("v_dout", 2 * C * pv * 4)
-        ws.add("scores", 2 * C * C * 4)       # A and dA
-        ws.add("states", 2 * dk * pv * 4)     # S and dS
-        ws.add("u", dk * 4)
+    ws.add("tiles", 7 * C * pk * 4)
+    ws.add("v_dout" if bwd else "v", (2 if bwd else 1) * C * pv * 4)
+    ws.add("scores", C * pc * 4)
+    ws.add("states" if bwd else "state", (2 if bwd else 1) * dk * pv * 4)
+    ws.add("gamma", ns * (ns - 1) // 2 * pk * 4)
+    ws.add("vectors", ((4 * dk + 2 * C) if bwd else (dk + C)) * 4)
     return ws.total()
 
 
@@ -186,44 +191,128 @@ def _pad_time(chunk: int, *ts: torch.Tensor) -> list[torch.Tensor]:
     return [F.pad(t, (0, 0, 0, pad)) if pad else t for t in ts]
 
 
+def _exp_le0(x: torch.Tensor) -> torch.Tensor:
+    """e^x of an exponent that is <= 0 in exact arithmetic, clamped at 0
+    as the kernels take it (``exp_le0``)."""
+    return torch.exp(torch.clamp(x, max=0.0))
+
+
+def _exclusive(L: torch.Tensor) -> torch.Tensor:
+    """L_{i-1} down the time axis (dim 1), 0 at the first step: the kernels'
+    L_prev, a cumsum itself rather than L - logw."""
+    return F.pad(L[:, :-1], (0, 0, 1, 0))
+
+
+def _intra_decay(L: torch.Tensor, Lp: torch.Tensor,
+                 sub_chunk: int | None) -> torch.Tensor:
+    """The intra-chunk decays ``e^{Lp_ic - L_jc}`` (BH, C, C, dk) for
+    j < i, 0 elsewhere.  ``sub_chunk`` None takes each pairwise (the
+    exponent masked to -inf above the diagonal); an int takes them as the
+    kernels do (``csrc/wkv6_math.cuh``): within a sub-chunk pairwise, across
+    sub-chunks as ``alpha_i * gamma_IJ * beta_j`` through the step before
+    i's sub-chunk and the last step of j's, every exponent clamped at 0."""
+    C = L.shape[1]
+    idx = torch.arange(C, device=L.device)
+    strict = idx[:, None] > idx[None, :]
+    if sub_chunk is None:
+        diff = torch.where(strict[..., None],
+                           Lp[:, :, None, :] - L[:, None, :, :], -torch.inf)
+        return torch.exp(diff)
+    s = max(1, min(sub_chunk, C))
+    sub = idx // s
+    before = torch.clamp(sub * s - 1, min=0)       # b_I, the step before I
+    last = torch.clamp((sub + 1) * s, max=C) - 1   # e_J, J's last step
+    alpha = _exp_le0(Lp - L[:, before])
+    beta = _exp_le0(L[:, last] - L)
+    gamma = _exp_le0(L[:, before][:, :, None, :] - L[:, last][:, None, :, :])
+    across = alpha[:, :, None, :] * gamma * beta[:, None, :, :]
+    within = _exp_le0(Lp[:, :, None, :] - L[:, None, :, :])
+    same = (sub[:, None] == sub[None, :])[..., None]
+    return torch.where(strict[..., None],
+                       torch.where(same, within, across), 0.0)
+
+
+def _chunk_fwd(r, k, v, logw, u, S, sub_chunk: int):
+    """One chunk of the recurrence as the kernels compute it, f32, batched
+    over the rows: the factored decays of ``_intra_decay`` and clamped
+    exponents.  Returns (out (BH, C, dv), the outgoing state)."""
+    L = torch.cumsum(logw, dim=1)
+    Lp = _exclusive(L)
+    A = torch.einsum("bic,bjc,bijc->bij", r, k, _intra_decay(L, Lp,
+                                                             sub_chunk))
+    bonus = torch.einsum("bic,bc,bic->bi", r, u, k)
+    out = (r * _exp_le0(Lp)) @ S + A @ v + bonus[..., None] * v
+    L_last = L[:, -1]
+    S_new = (_exp_le0(L_last)[..., None] * S
+             + (k * _exp_le0(L_last[:, None] - L)).transpose(1, 2) @ v)
+    return out, S_new
+
+
+def _scan_sub(r, k, v, logw, u, state, chunk: int, sub_chunk: int):
+    """``ref.wkv6_traj`` through ``_chunk_fwd``: (out, state', s_traj)."""
+    r, k, v, logw = (t.to(F32) for t in _pad_time(chunk, r, k, v, logw))
+    u, s = u.to(F32), state.to(F32)
+    outs, traj = [], []
+    for t0 in range(0, r.shape[1], chunk):
+        win = slice(t0, t0 + chunk)
+        traj.append(s)
+        out, s = _chunk_fwd(r[:, win], k[:, win], v[:, win], logw[:, win],
+                            u, s, sub_chunk)
+        outs.append(out)
+    return torch.cat(outs, dim=1), s, torch.stack(traj, dim=1)
+
+
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-               chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+               chunk: int, sub_chunk: int | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of K6 (the JAX package's ``_oracle``): the
     batched ``ref.wkv6`` over chunks of ``chunk`` steps, T zero-padded at
     the end with identity steps, with the kernel's output dtypes — the CPU
-    path of ``wkv6`` and the yardstick the kernel is held to."""
+    path of ``wkv6`` and the yardstick the kernel is held to.  With
+    ``sub_chunk`` the intra-chunk decays are taken as the kernel takes them
+    (``_intra_decay``), sub-chunks of that many steps."""
     T = r.shape[1]
     chunk = max(1, min(chunk, T))
-    out, s_out = ref.wkv6(*_pad_time(chunk, r, k, v, logw), u, state, chunk)
+    if sub_chunk is None:
+        out, s_out = ref.wkv6(*_pad_time(chunk, r, k, v, logw), u, state,
+                              chunk)
+    else:
+        out, s_out, _ = _scan_sub(r, k, v, logw, u, state, chunk, sub_chunk)
     return out[:, :T].to(v.dtype), s_out.to(F32)
 
 
 def wkv6_traj_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     logw: torch.Tensor, u: torch.Tensor, state: torch.Tensor,
-                    chunk: int
+                    chunk: int, sub_chunk: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version of K6t: ``ref.wkv6_traj`` on the padded sequence —
     ``wkv6_plain``'s outputs plus the chunk-incoming states ``s_traj (BH,
-    ceil(T / chunk), dk, dv)`` f32."""
+    ceil(T / chunk), dk, dv)`` f32; ``sub_chunk`` as in ``wkv6_plain``."""
     T = r.shape[1]
     chunk = max(1, min(chunk, T))
-    out, s_out, s_traj = ref.wkv6_traj(*_pad_time(chunk, r, k, v, logw), u,
-                                       state, chunk)
+    if sub_chunk is None:
+        out, s_out, s_traj = ref.wkv6_traj(*_pad_time(chunk, r, k, v, logw),
+                                           u, state, chunk)
+    else:
+        out, s_out, s_traj = _scan_sub(r, k, v, logw, u, state, chunk,
+                                       sub_chunk)
     return out[:, :T].to(v.dtype), s_out.to(F32), s_traj
 
 
 def wkv6_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    logw: torch.Tensor, u: torch.Tensor, s_traj: torch.Tensor,
                    s_fin: torch.Tensor, dout: torch.Tensor,
-                   ds_fin: torch.Tensor, chunk: int
-                   ) -> tuple[torch.Tensor, ...]:
+                   ds_fin: torch.Tensor, chunk: int,
+                   sub_chunk: int | None = None) -> tuple[torch.Tensor, ...]:
     """The plain version of K6b: the hand-derived chunk backward of the
     module docstring, chunks in reverse order, f32, batched over the BH
     rows.  ``s_traj`` holds the chunk-incoming states (``wkv6_traj``'s),
     ``s_fin`` the final state; the state each chunk hands on is the next
     chunk's incoming one, or ``s_fin`` for the last.  Returns (dr, dk, dv)
-    in r's, k's and v's dtypes and (dlogw, du, ds0) f32."""
+    in r's, k's and v's dtypes and (dlogw, du, ds0) f32.  With
+    ``sub_chunk`` the intra-chunk decays are taken as the kernel takes
+    them (``_intra_decay``) and every exponent is clamped at 0."""
     BH, T, dk = r.shape
     chunk = max(1, min(chunk, T))
     r_, k_, v_, w_, do_ = (t.to(F32) for t in _pad_time(
@@ -235,23 +324,22 @@ def wkv6_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dr, dk_, dv, dlogw = (torch.empty_like(t) for t in (r_, k_, v_, w_))
     idx = torch.arange(chunk, device=r.device)
     strict = idx[:, None] > idx[None, :]                     # j < i
+    ex = torch.exp if sub_chunk is None else _exp_le0
     for ch in reversed(range(nt)):
         win = slice(ch * chunk, (ch + 1) * chunk)
         rc, kc, vc, wc, do = (t[:, win] for t in (r_, k_, v_, w_, do_))
         S = s_traj[:, ch].to(F32)
         S_next = s_traj[:, ch + 1].to(F32) if ch + 1 < nt else s_fin.to(F32)
         L = torch.cumsum(wc, dim=1)
-        Lp = L - wc
+        Lp = L - wc if sub_chunk is None else _exclusive(L)
         L_last = L[:, -1]
-        diff = torch.where(strict[..., None],
-                           Lp[:, :, None, :] - L[:, None, :, :], -torch.inf)
-        decay = torch.exp(diff)                              # (BH, C, C, dk)
+        decay = _intra_decay(L, Lp, sub_chunk)               # (BH, C, C, dk)
         A = torch.einsum("bic,bjc,bijc->bij", rc, kc, decay)
         bonus = torch.einsum("bic,bc,bic->bi", rc, u_, kc)
         dA = torch.where(strict, do @ vc.transpose(1, 2), 0.0)
         db = (do * vc).sum(-1)
-        D = torch.exp(L_last[:, None] - L)                   # e^{Llast - L}
-        E = torch.exp(Lp)
+        D = ex(L_last[:, None] - L)                          # e^{Llast - L}
+        E = ex(Lp)
         dv[:, win] = (A.transpose(1, 2) @ do + bonus[..., None] * do
                       + (kc * D) @ ds)
         dr_nb = (E * (do @ S.transpose(1, 2))
@@ -266,7 +354,7 @@ def wkv6_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         g[:, -1] += (S_next * ds).sum(-1)                    # Llast's term
         g[:, :-1] += rc[:, 1:] * dr_nb[:, 1:]                # gLp, shifted
         dlogw[:, win] = torch.flip(torch.cumsum(torch.flip(g, [1]), 1), [1])
-        ds = torch.exp(L_last)[..., None] * ds + (rc * E).transpose(1, 2) @ do
+        ds = ex(L_last)[..., None] * ds + (rc * E).transpose(1, 2) @ do
     return (dr[:, :T].to(r.dtype), dk_[:, :T].to(k.dtype),
             dv[:, :T].to(v.dtype), dlogw[:, :T], du, ds)
 

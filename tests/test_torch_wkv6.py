@@ -112,6 +112,59 @@ def test_wkv6_matches_the_jax_kernel_on_the_family_cases(case, dtype):
     np.testing.assert_allclose(s.numpy(), np.asarray(j_s), **tol)
 
 
+# ---------------------------------------------------------------------------
+# the sub-chunk form the kernels compute (``sub_chunk``)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("sub_chunk", [8, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", jax_plans._RWKV_CASES,
+                         ids=[c.label for c in jax_plans._RWKV_CASES])
+def test_sub_chunk_plain_matches_the_pairwise_plain_and_the_jax_kernel(
+        case, dtype, sub_chunk):
+    """The intra-chunk decays factored through sub-chunk boundaries (the
+    kernels' ``SUB_CHUNK`` = 8, and 4 to cut every case's chunks into
+    several sub-chunks) against the pairwise plain version and JAX's
+    Pallas ``_kernel`` (interpret mode) at RWKV_TOL."""
+    B, T, H, dk, dv, chunk = case.shape
+    a = _np_inputs(B * H, T, dk, dv, seed=len(case.label) + 40)
+    out, s = wkv6_k.wkv6_plain(*_torch(a, dtype), chunk, sub_chunk=sub_chunk)
+    p_out, p_s = wkv6_k.wkv6_plain(*_torch(a, dtype), chunk)
+    j_out, j_s = jax_wkv6.wkv6(*_jax(a, dtype), chunk=chunk)
+    assert out.dtype == getattr(torch, dtype) and s.dtype == torch.float32
+    tol = plans.RWKV_TOL[dtype]
+    for want_out, want_s in ((p_out, p_s), (j_out, j_s)):
+        np.testing.assert_allclose(_f32(out), _f32(want_out), **tol)
+        np.testing.assert_allclose(s.numpy(), _f32(want_s),
+                                   **plans.RWKV_TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay_scale", [1e3, 1e6])
+def test_sub_chunk_outputs_finite_under_extreme_decay(decay_scale, dtype):
+    a = _np_inputs(2, 19, 8, 8, seed=12, decay_scale=decay_scale)
+    for chunk in (8, 19):
+        out, s, traj = wkv6_k.wkv6_traj_plain(*_torch(a, dtype), chunk,
+                                              sub_chunk=wkv6_k.SUB_CHUNK)
+        assert all(bool(torch.isfinite(t.float()).all())
+                   for t in (out, s, traj))
+
+
+@pytest.mark.parametrize("T", [19, 23])
+def test_sub_chunk_at_T_not_a_multiple_of_the_sub_chunk(T):
+    """C = 32 clamps to T: sub-chunks of 8, 8 and a last short one; the
+    trajectory form gives the same out and states."""
+    a = _torch(_np_inputs(3, T, 8, 10, seed=13))
+    out, s = wkv6_k.wkv6_plain(*a, 32, sub_chunk=wkv6_k.SUB_CHUNK)
+    t_out, t_s, traj = wkv6_k.wkv6_traj_plain(*a, 32,
+                                              sub_chunk=wkv6_k.SUB_CHUNK)
+    want_out, want_s = ref.wkv6_stepwise(*a)
+    tol = plans.RWKV_TOL["float32"]
+    torch.testing.assert_close(out, want_out, **tol)
+    torch.testing.assert_close(s, want_s, **tol)
+    assert torch.equal(t_out, out) and torch.equal(t_s, s)
+    assert traj.shape == (3, 1, 8, 10) and torch.equal(traj[:, 0], a[5])
+
+
 def test_ops_wkv6_is_the_wrapper():
     a = _torch(_np_inputs(2, 12, 4, 4, seed=4))
     got = ops.wkv6(*a, chunk=4)
@@ -203,17 +256,22 @@ def test_wrapper_rejects_mismatched_shapes():
 # the budget table
 # ---------------------------------------------------------------------------
 def test_working_set_is_the_launch_size_at_the_serving_heads():
-    """64 x 64 heads at C=32: r, k, L, L_prev (32 x 65 f32 each), v
-    (32 x 64), the scores (32 x 32), the state (64 x 64), u and the bonus —
-    62,336 bytes, three thread blocks to an SM."""
-    assert wkv6_k.working_set_bytes(512, 64, 64, 32) == 4 * (
-        4 * 32 * 65 + 32 * 64 + 32 * 32 + 64 * 64 + 64 + 32) == 62_336
-    assert 3 * 62_336 <= factorization.H100_SMEM_PER_BLOCK
+    """64 x 64 heads at C=32: seven (32, 65) f32 tiles (r, k, L, r alpha,
+    k beta, r e^{Lp}, k e^{Llast - L}), v (32 x 65), the scores (32 x 33),
+    the state (64 x 65), gamma (6 pairs of 4 sub-chunks x 65), u and the
+    bonus — 89,368 bytes, two thread blocks to an SM, whatever the IO
+    dtype."""
+    terms = {"tiles": 7 * 32 * 65 * 4, "v": 32 * 65 * 4,
+             "scores": 32 * 33 * 4, "state": 64 * 65 * 4,
+             "gamma": 6 * 65 * 4, "vectors": (64 + 32) * 4}
+    assert wkv6_k.working_set_bytes(512, 64, 64, 32) == \
+        sum(terms.values()) == 89_368
+    assert 2 * (89_368 + 1024) <= 233_472         # an SM's shared memory
     # the chunk is clamped to T
     assert wkv6_k.working_set_bytes(7, 64, 64, 32) == \
         wkv6_k.working_set_bytes(7, 64, 64, 7)
     # the backward kernel's table is its own (tests/test_torch_wkv6_bwd.py)
-    assert wkv6_k.working_set_bytes(512, 64, 64, 32, mode="bwd") == 108_288
+    assert wkv6_k.working_set_bytes(512, 64, 64, 32, mode="bwd") == 115_224
 
 
 def test_choose_blocks_keeps_the_chunk_coarse_and_one_row_a_block():

@@ -141,6 +141,64 @@ def test_bwd_wrapper_checks_its_shapes():
 
 
 # ---------------------------------------------------------------------------
+# the sub-chunk form the kernel computes (``sub_chunk``)
+# ---------------------------------------------------------------------------
+def _sub_bwd(args, cots, chunk, sub_chunk):
+    _, s_fin, s_traj = wkv6_k.wkv6_traj_plain(*args, chunk,
+                                              sub_chunk=sub_chunk)
+    return wkv6_k.wkv6_bwd_plain(*args[:5], s_traj, s_fin, *cots, chunk,
+                                 sub_chunk=sub_chunk)
+
+
+@pytest.mark.parametrize("sub_chunk", [8, 4])
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
+def test_sub_chunk_bwd_matches_the_pairwise_plain_and_the_jax_kernel(
+        case, sub_chunk):
+    """The backward with its intra-chunk decays factored through sub-chunk
+    boundaries against the pairwise plain backward and ``jax.vjp`` of the
+    JAX Pallas kernel with its fused backward (``_bwd_kernel``, interpret
+    mode), at RWKV_GRAD_TOL."""
+    (a, c), chunk = _case(case, seed=12)
+    got = _sub_bwd(_torch(a), _torch(c), chunk, sub_chunk)
+    plain = _plain_bwd(_torch(a), _torch(c), chunk)
+    _, vjp = jax.vjp(lambda *x: jax_wkv6.wkv6(
+        *x, chunk=chunk, bwd=jax_wkv6.FUSED_BWD), *map(jnp.asarray, a))
+    want = vjp(tuple(map(jnp.asarray, c)))
+    for name, g, p, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got,
+                             plain, want):
+        torch.testing.assert_close(g, p, **GRAD_TOL, msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay_scale", [1e3, 1e6])
+def test_sub_chunk_grads_finite_under_extreme_decay(decay_scale, dtype):
+    a, c = _np_inputs(2, 19, 8, 8, seed=13, decay_scale=decay_scale)
+    a, c = _torch(a), _torch(c)
+    dt = getattr(torch, dtype)
+    a[:3] = [t.to(dt) for t in a[:3]]
+    c[0] = c[0].to(dt)
+    for chunk in (8, 19):
+        for g in _sub_bwd(a, c, chunk, wkv6_k.SUB_CHUNK):
+            assert bool(torch.isfinite(g.float()).all())
+
+
+@pytest.mark.parametrize("T", [19, 23])
+def test_sub_chunk_bwd_at_T_not_a_multiple_of_the_sub_chunk(T):
+    """C = 32 clamps to T (sub-chunks 8, 8 and a short one), and C = 16
+    leaves a short last chunk: against autograd of the pairwise plain
+    forward."""
+    a, c = _np_inputs(3, T, 6, 5, seed=14)
+    for chunk in (32, 16):
+        got = _sub_bwd(_torch(a), _torch(c), chunk, wkv6_k.SUB_CHUNK)
+        want = _autograd(_torch(a), _torch(c), chunk)
+        for name, g, w in zip(("dr", "dk", "dv", "dlogw", "du", "ds0"), got,
+                              want):
+            torch.testing.assert_close(g, w, **GRAD_TOL, msg=name)
+
+
+# ---------------------------------------------------------------------------
 # the trajectory forward
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("case", [c for c in CASES
@@ -229,16 +287,17 @@ def test_no_gradient_means_no_function():
 # the backward's budget table
 # ---------------------------------------------------------------------------
 def test_bwd_working_set_term_by_term():
-    """64 x 64 heads at C=32: six (32, 65) f32 tiles (r, k, L, e^{L_prev},
-    e^{Llast - L}, the dlogw partials), v and dO (32, 65), A and dA
-    (32, 32), S and dS (64, 65), u — 108,288 bytes, two blocks to an SM."""
-    terms = {"tiles": 6 * 32 * 65 * 4, "v_dout": 2 * 32 * 65 * 4,
-             "scores": 2 * 32 * 32 * 4, "states": 2 * 64 * 65 * 4,
-             "u": 64 * 4}
+    """64 x 64 heads at C=32: seven (32, 65) f32 tiles (r, k, L, r alpha
+    and k beta, which later hold r e^{Lp} and k e^{Llast - L}, the dr and
+    dk partials), v and dO (32, 65), A with dA transposed above its
+    diagonal (32, 33), S and dS (64, 65), gamma (6 x 65), u, Llast's term
+    (two), du, the bonus and db — 115,224 bytes, two blocks to an SM."""
+    terms = {"tiles": 7 * 32 * 65 * 4, "v_dout": 2 * 32 * 65 * 4,
+             "scores": 32 * 33 * 4, "states": 2 * 64 * 65 * 4,
+             "gamma": 6 * 65 * 4, "vectors": (4 * 64 + 2 * 32) * 4}
     assert wkv6_k.working_set_bytes(512, 64, 64, 32, mode="bwd") == \
-        sum(terms.values()) == 108_288
-    assert 2 * (108_288 + 1024) <= 233_472        # an SM's shared memory
-    assert 108_288 <= factorization.H100_SMEM_PER_BLOCK
+        sum(terms.values()) == 115_224
+    assert 2 * (115_224 + 1024) <= 233_472        # two blocks to an SM
     assert wkv6_k.working_set_bytes(7, 64, 64, 32, mode="bwd") == \
         wkv6_k.working_set_bytes(7, 64, 64, 7, mode="bwd")
     assert wkv6_k.working_set_bytes(512, 64, 64, 32, mode="bwd") > \
@@ -267,15 +326,19 @@ def test_bwd_choose_blocks_halves_the_chunk_then_gives_up():
 
 def test_rwkv_viability_for_training():
     assert plans.rwkv_viability(512, 64, 64, train=True)("chunked_scan")
-    # heads of 128: the backward fits from C=16 (200,704 bytes), not C=32
+    # heads of 128: the backward fits from C=16 (210,180 bytes), not C=32
     assert plans.rwkv_viability(512, 128, 128, train=True)("chunked_scan")
     assert wkv6_k.choose_blocks(512, 128, 128, mode="bwd").chunk == 16
+    assert wkv6_k.working_set_bytes(512, 128, 128, 16, mode="bwd") == \
+        210_180
+    assert 210_180 <= factorization.H100_SMEM_PER_BLOCK
     past = plans.rwkv_viability(512, 192, 192, train=True)
     assert not past("chunked_scan") and past("chunked_xla") \
         and past("stepwise")
-    # 192 x 192 heads: the forward fits a chunk, the backward none (its
-    # state and state cotangent alone are 296,448 bytes)
+    # 192 x 192 heads: the forward fits a chunk (C=8), the backward none
+    # (its state and state cotangent alone are 296,448 bytes)
     assert plans.rwkv_viability(512, 192, 192)("chunked_scan")
+    assert wkv6_k.choose_blocks(512, 192, 192) == wkv6_k.WkvBlocks(8, 1)
 
 
 def test_training_on_the_card_raises_past_the_budget():
