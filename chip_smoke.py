@@ -1745,46 +1745,104 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
           "autograd")
 
     # --- A2. K9 against its plain version ---------------------------------
+    # each case against the plain version at the table's split (block_s,
+    # splits): each split's online softmax, then the merge in split order;
+    # two runs bit-identical
     cases = [  # tests/test_kernels.py::test_decode_attn_sweep, then the
-        # served decode shapes of Qwen2-0.5B and Yi-9B, ragged
-        (2, 8, 2, 96, 32, 32), (1, 4, 4, 64, 64, 64), (3, 16, 2, 128, 16, 128),
-        (2, 2, 1, 33, 8, 16), (4, 14, 2, 517, 64, None),
-        (4, 32, 4, 517, 128, None)]
-    for B, Hq, Hkv, S, dk, bs in cases:
-        bs_ = bs or da.choose_block(S, Hq // Hkv, dk)
-        lens = (torch.arange(1, B + 1) * (S // (B + 1)) + 1).to(torch.int32)
-        if S == 517:
-            lens = torch.tensor([0, 1, 300, 517][:B], dtype=torch.int32)
-        lens = lens.to(device)
-        e_case = {}
+        # served decode shapes of Qwen2-0.5B and Yi-9B at lengths 0, 1, 63,
+        # 64, 65, 300, 508 and 517 (one row each), and StableLM's heads
+        (2, 8, 2, 96, 32, 32, None), (1, 4, 4, 64, 64, 64, None),
+        (3, 16, 2, 128, 16, 128, None), (2, 2, 1, 33, 8, 16, None),
+        (4, 14, 2, 517, 64, None, [0, 1, 63, 64]),
+        (4, 14, 2, 517, 64, None, [65, 300, 508, 517]),
+        (4, 32, 4, 517, 128, None, [0, 1, 63, 64]),
+        (4, 32, 4, 517, 128, None, [65, 300, 508, 517]),
+        (2, 32, 8, 517, 160, None, [300, 508])]
+    for B, Hq, Hkv, S, dk, bs, lens in cases:
+        if lens is None:
+            lens = (torch.arange(1, B + 1) * (S // (B + 1)) + 1).tolist()
+        lens = torch.tensor(lens, dtype=torch.int32, device=device)
+        e_case, picked = {}, {}
         for dtype in (f32, bf16):
+            bl = da.choose_blocks(S, B, Hkv, Hq // Hkv, dk, dtype,
+                                  block_s=bs)
+            picked[dtype] = (bl.block_s, bl.splits)
             q = randn(B, Hq, dk, gen=gen).to(dtype)
             _, kc, vc = attn_inputs(B, S, Hkv, Hkv, dk, dtype, gen)
             got = da.decode_attn(q, kc, vc, lens, block_s=bs)
-            want = da.decode_attn_plain(q, kc, vc, lens, block_s=bs_)
+            want = da.decode_attn_plain(q, kc, vc, lens, block_s=bl.block_s,
+                                        splits=bl.splits)
             e = close(got.float(), want.float(),
-                      f"decode_attn {(B, Hq, Hkv, S, dk, bs_)} {dtype}",
-                      tol[dtype])
+                      f"decode_attn {(B, Hq, Hkv, S, dk)} {tuple(bl)} "
+                      f"{dtype}", tol[dtype])
+            check(torch.equal(got, da.decode_attn(q, kc, vc, lens,
+                                                  block_s=bs)),
+                  f"decode_attn {(B, Hq, Hkv, S, dk)} {dtype}: two runs "
+                  "differ")
             errs["decode_attn"][dtype] = max(errs["decode_attn"][dtype], e)
             e_case[dtype] = e
             zero = (lens == 0).nonzero().flatten().tolist()
             check(all(bool((got[i] == 0).all()) for i in zero),
                   f"decode_attn {(B, Hq, Hkv, S, dk)}: a row of length 0 "
                   "is not 0")
-        print(f"[K9] B={B} {Hq}/{Hkv} x {dk} S={S} block_s={bs_} lengths "
+        print(f"[K9] B={B} {Hq}/{Hkv} x {dk} S={S} (block_s, splits) f32 "
+              f"{picked[f32]}, bf16 {picked[bf16]}, lengths "
               f"{lens.tolist()}: vs plain max abs err f32 {e_case[f32]:.3e}, "
-              f"bf16 {e_case[bf16]:.3e}"
+              f"bf16 {e_case[bf16]:.3e}; two runs bit-identical"
               + ("; length 0 gives 0" if 0 in lens.tolist() else ""))
+    # 20 launches captured in one CUDA graph, replayed twice, equal to the
+    # eager calls: each launch leaves its arrival counters at 0
+    for Hq, Hkv, dk in ((14, 2, 64), (32, 4, 128)):
+        q = randn(4, Hq, dk, gen=gen).to(bf16)
+        _, kc, vc = attn_inputs(4, 517, Hkv, Hkv, dk, bf16, gen)
+        lens = torch.tensor([508, 1, 0, 300], dtype=torch.int32,
+                            device=device)
+        eager = da.decode_attn(q, kc, vc, lens)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            da.decode_attn(q, kc, vc, lens)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = [da.decode_attn(q, kc, vc, lens) for _ in range(20)]
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            check(all(torch.equal(o, eager) for o in outs),
+                  f"decode_attn {Hq}/{Hkv} x {dk}: a graph replay differs "
+                  "from the eager call")
+        check(torch.equal(da.decode_attn(q, kc, vc, lens), eager),
+              f"decode_attn {Hq}/{Hkv} x {dk}: an eager call after the "
+              "replays differs")
+        print(f"[K9] {Hq}/{Hkv} x {dk} bf16: 20 launches in a CUDA graph, "
+              "replayed twice, bit-identical to the eager call")
+    # across block_s (each with the table's split for it), f32: at Yi's
+    # heads 1, 16 and 100; 128 there would stage 256 KB of k/v, so the
+    # table finds no launch and the wrapper raises; 128 at Qwen2's heads
+    lens = torch.tensor([1, 64, 300, 517], dtype=torch.int32, device=device)
+    for Hq, Hkv, dk, sizes in ((32, 4, 128, (1, 16, 100)),
+                               (14, 2, 64, (128,))):
+        q = randn(4, Hq, dk, gen=gen)
+        _, kc, vc = attn_inputs(4, 517, Hkv, Hkv, dk, f32, gen)
+        base = da.decode_attn(q, kc, vc, lens)
+        for bs in sizes:
+            close(da.decode_attn(q, kc, vc, lens, block_s=bs), base,
+                  f"decode_attn {Hq}/{Hkv} x {dk} block_s {bs} vs default",
+                  tol[f32])
     q = randn(4, 32, 128, gen=gen)
     _, kc, vc = attn_inputs(4, 517, 4, 4, 128, f32, gen)
-    lens = torch.tensor([1, 64, 300, 517], dtype=torch.int32, device=device)
-    base = da.decode_attn(q, kc, vc, lens)
-    for bs in (1, 16, 100, 128):
-        close(da.decode_attn(q, kc, vc, lens, block_s=bs), base,
-              f"decode_attn block_s {bs} vs default", tol[f32])
+    try:
+        da.decode_attn(q, kc, vc, lens, block_s=128)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised, "decode_attn f32 32/4 x 128 at block_s 128 (256 KB of "
+          "k/v stages) did not raise")
     print(f"[K9] max abs err vs plain: f32 {errs['decode_attn'][f32]:.3e}, "
           f"bf16 {errs['decode_attn'][bf16]:.3e}; f32 results within 2e-4 "
-          "at block_s 1, 16, 100, 128")
+          "at block_s 1, 16, 100 (32/4 x 128) and 128 (14/2 x 64); 32/4 x "
+          "128 at block_s 128 raises (no launch in the table)")
 
     # --- A3. Qwen2-0.5B at full width and depth, f32 ----------------------
     cfg32 = dataclasses.replace(get_arch("qwen2-0.5b"), dtype="float32")
@@ -1952,10 +2010,12 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
                         *args, window=kwargs.get("window", 0),
                         q_block=bl.q_block, k_block=bl.k_block)
                 else:
-                    bs = da.choose_block(args[1].shape[1],
-                                         args[0].shape[1] // args[1].shape[2],
-                                         args[0].shape[2])
-                    want = da.decode_attn_plain(*args, block_s=bs)
+                    B_, S_, Hkv_, dk_ = args[1].shape
+                    bl = da.choose_blocks(S_, B_, Hkv_,
+                                          args[0].shape[1] // Hkv_, dk_,
+                                          args[0].dtype)
+                    want = da.decode_attn_plain(*args, block_s=bl.block_s,
+                                                splits=bl.splits)
                 served_err[kname] = max(served_err[kname], close(
                     out.float(), want.float(),
                     f"{name} served {kname} call {i}", tol[bf16]))
@@ -2039,7 +2099,7 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         qd = randn(B, Hq, dh, gen=gen).to(bf16)
         _, kc, vc = attn_inputs(B, S_c, Hkv, Hkv, dh, bf16, gen)
         lens = torch.full((B,), 508, dtype=torch.int32, device=device)
-        bs = da.choose_block(S_c, Hq // Hkv, dh)
+        bl = da.choose_blocks(S_c, B, Hkv, Hq // Hkv, dh, bf16)
         kct, vct = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2) \
             .contiguous()
         mask = (torch.arange(S_c, device=device)[None, :]
@@ -2051,21 +2111,29 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
                       f"SDPA vs K9 at {name}", tol[bf16])
         t_bound, by = bound(*decode_work(B, Hq, Hkv, dh, lens, bf16),
                             flop_rate=BF16_FLOP_PER_S)
+        def sdpa_decode():
+            return F.scaled_dot_product_attention(
+                qd[:, :, None], kct, vct, attn_mask=mask, enable_gqa=True)
+
         rows["decode_attn", name] = r = dict(
             ms=time_ms(lambda: da.decode_attn(qd, kc, vc, lens), 50),
+            graph_ms=graph_ms(lambda: da.decode_attn(qd, kc, vc, lens)),
             plain_ms=time_ms(lambda: da.decode_attn_plain(
-                qd, kc, vc, lens, block_s=bs), 3, repeats=3),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qd[:, :, None], kct, vct, attn_mask=mask, enable_gqa=True),
-                50),
+                qd, kc, vc, lens, block_s=bl.block_s, splits=bl.splits), 3,
+                repeats=3),
+            library_ms=time_ms(sdpa_decode, 50),
+            library_graph_ms=graph_ms(sdpa_decode),
             bound_ms=t_bound, bound_by=by)
         print(f"[time] decode_attn {name} B={B} {Hq}/{Hkv} x {dh} over "
-              f"{S_c} cache slots, length 508, bf16 (block_s {bs}): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms (F.scaled_dot_product_attention "
-              f"with a length mask, enable_gqa; vs K9 {e_lib:.3e}), bound "
-              f"{r['bound_ms']:.3e} ms ({r['bound_by']}), kernel at "
-              f"{r['ms'] / r['bound_ms']:.1f}x it")
+              f"{S_c} cache slots, length 508, bf16 (block_s {bl.block_s}, "
+              f"{bl.splits} splits, {bl.grid} blocks): kernel "
+              f"{r['ms']:.4f} ms back to back, {r['graph_ms']:.4f} ms in a "
+              f"CUDA graph; plain {r['plain_ms']:.4f} ms; library "
+              f"{r['library_ms']:.4f} ms, {r['library_graph_ms']:.4f} ms in "
+              f"a graph (F.scaled_dot_product_attention with a length mask, "
+              f"enable_gqa; vs K9 {e_lib:.3e}); bound {r['bound_ms']:.3e} ms "
+              f"({r['bound_by']}), kernel at "
+              f"{r['graph_ms'] / r['bound_ms']:.1f}x it in a graph")
     compiled = ""                      # the entry ptxas is reporting on
     for line in BUILD_LOGS.get("flash_prefill", "").splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -2093,6 +2161,9 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
                 bf16 if kname == "flash_prefill" else f32], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if kname == "decode_attn":        # device time alone, both sides
+            entries[-1].update(graph_ms=r["graph_ms"],
+                               library_graph_ms=r["library_graph_ms"])
     return entries
 
 
@@ -2188,8 +2259,13 @@ def main() -> None:
     errs = {fn.__name__: 0.0 for fn in counted}
 
     # --- 2. K1 against its plain version -----------------------------------
+    # the 2 x 32 cell's layers at B=1, 5 and 64, a ragged width, the 2 x 64
+    # stack that fused_seq routes to fused_cell, and 3 x 256; two runs of
+    # each agree bit for bit (the slices' partials meet in a fixed order)
     for B, D, H in [(1, 9, 32), (1, 32, 32), (64, 9, 32), (64, 32, 32),
-                    (5, 9, 20)]:
+                    (5, 9, 20), (5, 32, 32), (1, 9, 64), (1, 64, 64),
+                    (64, 64, 64), (1, 9, 256), (1, 256, 256),
+                    (64, 256, 256)]:
         w = randn(D + H, 4 * H, gen=gen, scale=(D + H) ** -0.5)
         b = randn(4 * H, gen=gen, scale=0.1)
         xs = randn(B, 3, D, gen=gen)
@@ -2200,8 +2276,14 @@ def main() -> None:
         want = cell_k.lstm_cell_plain(w, b, x, c, h)
         err = max(close(g, r, f"lstm_cell B={B} D={D} H={H}")
                   for g, r in zip(got, want))
+        again = cell_k.lstm_cell(w, b, x, c, h)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"lstm_cell B={B} D={D} H={H}: two runs differ")
         errs["lstm_cell"] = max(errs["lstm_cell"], err)
-        print(f"[K1] lstm_cell B={B} D={D} H={H}: max abs err {err:.3e}")
+        print(f"[K1] lstm_cell B={B} D={D} H={H} "
+              f"{tuple(cell_k.choose_blocks(B, D, H))} (block_b, block_h, "
+              f"k_slices, threads, smem, grid): max abs err {err:.3e}; two "
+              "runs bit-identical")
 
     # --- 3. K2 against its plain version -----------------------------------
     def seq_case(L, P, H, B, T):
@@ -2927,38 +3009,48 @@ def main() -> None:
     # --- 5. times ----------------------------------------------------------
     # no_grad, not inference_mode: nn.LSTM's backward is timed in here too
     rows = []
-    with torch.no_grad():
-        for B in (1, 64):
-            D = H = cfg.hidden
-            lw = params["layers"][1]
-            x = randn(B, D, gen=gen)
-            c = randn(B, H, gen=gen)
-            h = randn(B, H, gen=gen)
-            lib = torch.nn.LSTMCell(D, H).to(device).requires_grad_(False)
-            lib.weight_ih.copy_(lw["w"][:D].T)
-            lib.weight_hh.copy_(lw["w"][D:].T)
-            lib.bias_ih.copy_(lw["b"])
-            lib.bias_hh.zero_()
-            h_lib, c_lib = lib(x, (h, c))
-            c_k, h_k = cell_k.lstm_cell(lw["w"], lw["b"], x, c, h)
-            close(c_lib, c_k, "nn.LSTMCell vs lstm_cell")
-            close(h_lib, h_k, "nn.LSTMCell vs lstm_cell")
-            nbytes = 4 * (lw["w"].numel() + lw["b"].numel() + B * D
-                          + 4 * B * H)      # x, c, h in; c', h' out
-            t_bound, by = bound(nbytes, 2 * B * (D + H) * 4 * H)
-            rows.append(dict(
-                name="lstm_cell", B=B, shape=f"B={B} D={D} H={H}",
-                ms=time_ms(lambda: cell_k.lstm_cell(lw["w"], lw["b"], x, c,
-                                                    h), 200),
-                # the kernel's device time alone: the host's wrapper and
-                # launch are left out
-                cell_graph_ms=graph_ms(lambda: cell_k.lstm_cell(
-                    lw["w"], lw["b"], x, c, h)),
-                plain_ms=time_ms(lambda: cell_k.lstm_cell_plain(
-                    lw["w"], lw["b"], x, c, h), 200),
-                library_ms=time_ms(lambda: lib(x, (h, c)), 200),
-                bound_ms=t_bound, bound_by=by))
 
+    def cell_row(B: int, lw: dict, extra: bool = False) -> dict:
+        """K1 at layer ``lw``'s width beside nn.LSTMCell with its weights:
+        back to back and in a CUDA graph, the plain version and the
+        bound."""
+        H = lw["b"].numel() // 4
+        D = lw["w"].shape[0] - H
+        x = randn(B, D, gen=gen)
+        c = randn(B, H, gen=gen)
+        h = randn(B, H, gen=gen)
+        lib = torch.nn.LSTMCell(D, H).to(device).requires_grad_(False)
+        lib.weight_ih.copy_(lw["w"][:D].T)
+        lib.weight_hh.copy_(lw["w"][D:].T)
+        lib.bias_ih.copy_(lw["b"])
+        lib.bias_hh.zero_()
+        h_lib, c_lib = lib(x, (h, c))
+        c_k, h_k = cell_k.lstm_cell(lw["w"], lw["b"], x, c, h)
+        close(c_lib, c_k, "nn.LSTMCell vs lstm_cell")
+        close(h_lib, h_k, "nn.LSTMCell vs lstm_cell")
+        nbytes = 4 * (lw["w"].numel() + lw["b"].numel() + B * D
+                      + 4 * B * H)      # x, c, h in; c', h' out
+        t_bound, by = bound(nbytes, 2 * B * (D + H) * 4 * H)
+        return dict(
+            name="lstm_cell", B=B, shape=f"B={B} D={D} H={H}", extra=extra,
+            ms=time_ms(lambda: cell_k.lstm_cell(lw["w"], lw["b"], x, c, h),
+                       200),
+            # the kernel's device time alone: the host's wrapper and
+            # launch are left out
+            cell_graph_ms=graph_ms(lambda: cell_k.lstm_cell(
+                lw["w"], lw["b"], x, c, h)),
+            plain_ms=time_ms(lambda: cell_k.lstm_cell_plain(
+                lw["w"], lw["b"], x, c, h), 200),
+            library_ms=time_ms(lambda: lib(x, (h, c)), 200),
+            library_graph_ms=graph_ms(lambda: lib(x, (h, c))),
+            bound_ms=t_bound, bound_by=by)
+
+    with torch.no_grad():
+        # the 2 x 64 stack's second layer: fused_seq serves it on fused_cell
+        rows.append(cell_row(1, p64["layers"][1], extra=True))
+        for B in (1, 64):
+            H = cfg.hidden
+            rows.append(cell_row(B, params["layers"][1]))
             w_s, b_s, P = seq_k.stack_params(params["layers"], H)
             xp = seq_k.pad_input(windows[:B], P)
             lib = cudnn_lstm(w_s, b_s, P)
@@ -3097,11 +3189,13 @@ def main() -> None:
         if "graph_ms" not in r:
             graph = (f", {r['cell_graph_ms']:.4f} ms in a CUDA graph"
                      if "cell_graph_ms" in r else "")
+            lib_graph = (f" ({r['library_graph_ms']:.4f} ms in a graph)"
+                         if "library_graph_ms" in r else "")
             print(f"[time] {r['name']} {r['shape']}: kernel {r['ms']:.4f} "
                   f"ms back to back{graph}, plain {r['plain_ms']:.4f} ms, "
                   f"library "
-                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.3e} ms "
-                  f"({r['bound_by']})")
+                  f"{r['library_ms']:.4f} ms{lib_graph}, bound "
+                  f"{r['bound_ms']:.3e} ms ({r['bound_by']})")
             continue
         print(f"[time] {r['name']} {r['shape']} ({r['home']} weights): "
               f"kernel {r['ms']:.4f} ms back to back (raw launch), "
@@ -3115,7 +3209,7 @@ def main() -> None:
     for B in (1, 64):
         libs = {r["name"]: r for r in rows
                 if r["B"] == B and "library_graph_ms" in r
-                and not r.get("extra")}
+                and r["name"] != "lstm_cell" and not r.get("extra")}
         print(f"[time] the nn.LSTM yardstick at B={B}, two phases of one "
               f"function: f32 forward {libs['lstm_seq']['library_ms']:.4f} "
               f"ms (graph {ms_or_none(libs['lstm_seq']['library_graph_ms'])})"
@@ -3176,6 +3270,9 @@ def main() -> None:
             "max_abs_err": errs[r["name"]], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if r["name"] == "lstm_cell":      # device time alone, both sides
+            kernels[-1].update(graph_ms=r["cell_graph_ms"],
+                               library_graph_ms=r["library_graph_ms"])
     kernels.append(rwkv_slice(device, gen, counted, counts, only))
     kernels += rwkv_train_slice(device, gen, counted, counts, only)
     kernels += mamba_slice(device, gen, counted, counts, only)

@@ -11,20 +11,29 @@ softmax over blocks of ``block_s`` positions (m, l and acc in f32), the
 output ``acc / l`` in q's dtype.  A row of length 0 gives 0, as the Pallas
 kernel's does (``ref.decode_attn``, the naive oracle, gives NaN there).
 
-The Pallas grid reads a kv head's cache once for each of its query heads;
-the port's thread block owns one (batch row, kv head) and its whole group,
-and reads the cache once.  The lengths stay on the device (a decode step
-passes ``pos + 1`` as a tensor): no step waits on the host.  What bounds it
-on the card is written at the top of the CUDA source.
+The launch is split over cache positions (flash-decoding) in one kernel:
+splits x Hkv x B blocks, each owning a span of positions of one (batch row,
+kv head) and its whole group of query heads (so the cache is read once),
+each writing its partial (m, l, acc) to a workspace; the last block of a
+(row, kv head) to arrive merges the partials in split order.  The split
+comes from ``choose_blocks``, from the cache capacity S alone: the lengths
+stay on the device (a decode step passes ``pos + 1`` as a tensor) and no
+step waits on the host.  The arrival counters live in a buffer zeroed once
+per device and size (``_counters``) and reset by the kernel, so a CUDA
+graph can capture the launch.  What bounds it on the card is written at
+the top of the CUDA source.
 
 A tensor on the CPU takes the plain version, which repeats the kernel's
-blocks in PyTorch; a tensor on the card launches the kernel or raises, and
-raises under autograd (decode is never differentiated).
+order (each split's online softmax over its blocks, then the merge in
+split order) in PyTorch; a tensor on the card launches the kernel or
+raises, and raises under autograd (decode is never differentiated).
 ``decode_attn.launches`` counts kernel launches and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,48 +42,103 @@ from repro_torch.kernels import _build
 
 F32 = torch.float32
 NEG_INF = -1e30
-#: threads of a block and the (head, dim) accumulators each keeps
-#: (csrc/decode_attn.cu kThreads, kMaxPairs): group * dk may not exceed
+#: threads of a block and the f32 accumulators each keeps
+#: (csrc/decode_attn.cu kThreads, kAccFloats): group * dk may not exceed
 #: their product
-THREADS = 128
-MAX_PAIRS = 16
-#: floats of padding after each staged cache row (kPad)
-PAD = 4
-#: positions of a cache block the table starts from (the JAX entry's
-#: default is 128; the grid here is only B x Hkv blocks, so a block's share
-#: of an SM is no constraint and a smaller block keeps the working set
-#: small)
+THREADS = 256
+ACC_FLOATS = 8
+#: positions of a cache block the table starts from, and the fewest it
+#: halves to while looking for more splits
 BLOCK_S = 64
+MIN_BLOCK_S = 16
+#: f32 floats of one head's partial row in the workspace beside acc (dk):
+#: m, l and two of padding (16-byte rows)
+ROW_PAD = 4
+#: the kernel's static shared memory (the last-block flag), beside the
+#: dynamic bytes ``working_set_bytes`` prices
+STATIC_SMEM = 16
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def working_set_bytes(group: int, block_s: int, dk: int) -> int:
+class DecodeBlocks(NamedTuple):
+    """One launch of K9: cache blocks of ``block_s`` positions, ``splits``
+    spans of ``span`` positions (a multiple of block_s) covering the cache,
+    ``smem`` bytes of dynamic shared memory a block, ``grid`` blocks."""
+    block_s: int
+    splits: int
+    span: int
+    smem: int
+    grid: int
+
+
+def _io_bytes(dtype: torch.dtype) -> int:
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def working_set_bytes(group: int, block_s: int, dk: int,
+                      dtype: torch.dtype = F32) -> int:
     """Dynamic shared memory of one thread block, exactly as the kernel
-    launches it: the k and v blocks (block_s, dk) with rows padded by
-    ``PAD`` floats, the group's queries (group, dk), their scores (group,
-    block_s) and each head's m, l and rescale factor, all f32 whatever the
-    IO dtype."""
+    launches it: two stages of the k and v blocks (block_s, dk) in the IO
+    dtype, the group's queries (group, dk), their scores (group, block_s)
+    and each head's m, l and rescale factor, these in f32."""
     ws = tiling.WorkingSet()
-    ws.add("k_v", 2 * block_s * (dk + PAD) * 4)
+    ws.add("k_v", 2 * 2 * block_s * dk * _io_bytes(dtype))
     ws.add("q", group * dk * 4)
     ws.add("scores", group * block_s * 4)
     ws.add("stats", 3 * group * 4)
     return ws.total()
 
 
-def choose_block(seq_len: int, group: int, dk: int, *,
-                 target: int = BLOCK_S) -> int | None:
-    """The cache block ``block_s``: halving from ``target`` (clamped to the
-    cache length) until the working set fits a thread block's shared
-    memory; None when the kernel cannot take the heads (dk not a multiple
-    of 4, or more than ``THREADS * MAX_PAIRS`` (head, dim) pairs)."""
-    if dk % 4 or group * dk > THREADS * MAX_PAIRS:
+def split_span(seq_len: int, block_s: int, splits: int) -> tuple[int, int]:
+    """(splits, span): ``splits`` spans of whole blocks of ``block_s``
+    positions as even as they come, each ``span`` positions, none wholly
+    past the cache (so the count can come out lower than asked)."""
+    blocks = -(-seq_len // block_s)
+    span = -(-blocks // max(1, min(splits, blocks))) * block_s
+    return -(-seq_len // span), span
+
+
+def workspace_floats(batch: int, n_kv: int, group: int, dk: int,
+                     splits: int) -> int:
+    """f32 workspace of one launch: each split's row a head, acc (dk), m,
+    l and padding, for every (row, kv head)."""
+    return batch * n_kv * splits * group * (dk + ROW_PAD)
+
+
+@functools.lru_cache(maxsize=None)
+def choose_blocks(seq_len: int, batch: int, n_kv: int, group: int, dk: int,
+                  dtype: torch.dtype = F32, *, block_s: int | None = None
+                  ) -> DecodeBlocks | None:
+    """K9's budget table: the cache block and the split, from the cache
+    capacity, B, Hkv and the head shape alone.
+
+    Splits aim at one block for each of the H100's SMs: ``ceil(132 / (B x
+    Hkv))`` (a block's time is mostly fixed latencies, and the last
+    block's merge grows with the splits).  ``block_s`` (unless pinned)
+    starts at ``BLOCK_S`` clamped to the cache and halves, down to
+    ``MIN_BLOCK_S``, while the cache holds fewer blocks than that, then
+    until the working set fits a thread block's shared memory.  None when
+    the kernel cannot take the heads (dk not a whole number of 16-byte
+    chunks of ``dtype``, or more than ``THREADS * ACC_FLOATS`` (head, dim)
+    pairs) or a pinned block does not fit."""
+    io = _io_bytes(dtype)
+    if seq_len < 1 or batch < 1 or n_kv < 1 or dk < 1 or (dk * io) % 16 \
+            or group * dk > THREADS * ACC_FLOATS:
         return None
-    for bs in tiling.halving(max(1, min(target, seq_len))):
-        if working_set_bytes(group, bs, dk) <= \
-                factorization.H100_SMEM_PER_BLOCK:
-            return bs
-    return None
+    target = -(-factorization.H100_SMS // (batch * n_kv))
+    budget = factorization.H100_SMEM_PER_BLOCK - STATIC_SMEM
+    bs = block_s
+    if bs is None:
+        bs = min(BLOCK_S, seq_len)
+        while bs > MIN_BLOCK_S and -(-seq_len // bs) < target:
+            bs = max(MIN_BLOCK_S, bs // 2)
+        while bs > 1 and working_set_bytes(group, bs, dk, dtype) > budget:
+            bs //= 2
+    smem = working_set_bytes(group, bs, dk, dtype)
+    if bs < 1 or smem > budget:
+        return None
+    splits, span = split_span(seq_len, bs, target)
+    return DecodeBlocks(bs, splits, span, smem, splits * n_kv * batch)
 
 
 # ---------------------------------------------------------------------------
@@ -82,52 +146,86 @@ def choose_block(seq_len: int, group: int, dk: int, *,
 # ---------------------------------------------------------------------------
 def decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                      scale: float | None = None,
-                      block_s: int = BLOCK_S) -> torch.Tensor:
-    """K9's function in PyTorch, block by block as the kernel runs it: the
-    online softmax over blocks of ``block_s`` positions in f32, positions
-    at or past each row's length masked (a block wholly past it changes
-    nothing), the output ``acc / l``, 0 where l is 0 (a row of length 0).
-    GQA by grouping the query heads of each kv head."""
+                      scale: float | None = None, block_s: int = BLOCK_S,
+                      splits: int = 1) -> torch.Tensor:
+    """K9's function in PyTorch, in the kernel's order: the cache cut into
+    ``split_span(S, block_s, splits)`` spans, each span's online softmax
+    over its blocks of ``block_s`` positions in f32 (positions at or past
+    each row's length masked; a block wholly past it changes nothing), then
+    the spans merged: each head's largest m, and l and acc weighted by
+    ``exp(m - max)`` summed in split order; the output ``acc / l``, 0
+    where l is 0 (a row of length 0).  GQA by grouping the query heads of
+    each kv head."""
     B, S, Hkv, dk = k_cache.shape
     Hq = q.shape[1]
     g = Hq // Hkv
     scale = dk ** -0.5 if scale is None else scale
+    n_split, span = split_span(S, block_s, splits)
+    dev = q.device
     q4 = q.to(F32).reshape(B, Hkv, g, dk)
-    length = lengths.to(q.device).reshape(B, 1, 1, 1)
-    pos = torch.arange(S, device=q.device)
-    m = torch.full((B, Hkv, g), NEG_INF, dtype=F32, device=q.device)
+    length = lengths.to(dev).reshape(B, 1, 1, 1, 1)
+    # position of (split, offset in the span)
+    pos = (torch.arange(n_split, device=dev)[:, None] * span
+           + torch.arange(span, device=dev)[None, :])
+    keys, vals = (torch.cat([t.to(F32), t.new_zeros(
+        B, n_split * span - S, Hkv, dk, dtype=F32)], 1)[:, pos]
+        for t in (k_cache, v_cache))         # (B, n_split, span, Hkv, dk)
+    m = torch.full((B, Hkv, g, n_split), NEG_INF, dtype=F32, device=dev)
     l = torch.zeros_like(m)
-    acc = torch.zeros(B, Hkv, g, dk, dtype=F32, device=q.device)
-    for s0 in range(0, S, block_s):
+    acc = torch.zeros(B, Hkv, g, n_split, dk, dtype=F32, device=dev)
+    for s0 in range(0, span, block_s):
         win = slice(s0, s0 + block_s)
-        valid = pos[win] < length                         # (B, 1, 1, n)
-        s = torch.einsum("bkgd,bskd->bkgs", q4, k_cache[:, win].to(F32))
+        valid = (pos[:, win] < S) & (pos[:, win] < length)  # (B,1,1,n,bs)
+        s = torch.einsum("bkgd,bnjkd->bkgnj", q4, keys[:, :, win])
         s = torch.where(valid, s * scale, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp(m - m_new)
         p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
         l = l * alpha + p.sum(-1)
         acc = acc * alpha[..., None] + torch.einsum(
-            "bkgs,bskd->bkgd", p, v_cache[:, win].to(F32))
+            "bkgnj,bnjkd->bkgnd", p, vals[:, :, win])
         m = m_new
-    out = torch.where(l[..., None] > 0, acc / torch.where(
-        l > 0, l, 1.0)[..., None], 0.0)
+    wgt = torch.exp(m - m.amax(-1, keepdim=True))
+    big_l = torch.zeros(B, Hkv, g, dtype=F32, device=dev)
+    out = torch.zeros(B, Hkv, g, dk, dtype=F32, device=dev)
+    for i in range(n_split):
+        big_l = big_l + l[..., i] * wgt[..., i]
+        out = out + acc[..., i, :] * wgt[..., i, None]
+    out = torch.where(big_l[..., None] > 0, out / torch.where(
+        big_l > 0, big_l, 1.0)[..., None], 0.0)
     return out.reshape(B, Hq, dk).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
 # The launch
 # ---------------------------------------------------------------------------
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The arrival counters of ``n`` (row, kv head) pairs on ``device``:
+    zeroed once per device and size and kept, because each launch leaves
+    them at 0 again (so a CUDA graph may capture a launch that uses
+    them)."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), n)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
 def _entry(dtype: torch.dtype):
     """The C entry point of ``dtype``'s instance: q, the two caches, the
-    lengths, o, then B, S, Hq, Hkv, dk, block_s, the scale, the
-    shared-memory bytes and the stream."""
+    lengths, o, the workspace, the counters, then B, S, Hq, Hkv, dk,
+    block_s, splits, span, the scale, the shared-memory bytes and the
+    stream."""
     lib = _build.load("decode_attn")
     fn = getattr(lib, "decode_attn_" + (
         "f32" if dtype == torch.float32 else "bf16"))
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_longlong,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -142,9 +240,11 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: (B, Hq, dk); k_cache, v_cache: (B, S, Hkv, dk); lengths: (B,) int32
     on q's device, the valid positions of each row.  Returns (B, Hq, dk) in
-    q's dtype.  ``block_s`` defaults to ``choose_block``.  On the card q
-    and the caches share one dtype, float32 or bfloat16, and a call that
-    autograd would record raises.  The CPU runs ``decode_attn_plain``."""
+    q's dtype.  ``block_s`` (pinned, or from ``choose_blocks``) and the
+    table's split set the order of the sums.  On the card q and the caches
+    share one dtype, float32 or bfloat16, and a call that autograd would
+    record raises.  The CPU runs ``decode_attn_plain`` at the table's
+    blocks."""
     B, Hq, dk = q.shape
     if k_cache.dim() != 4 or v_cache.shape != k_cache.shape \
             or k_cache.shape[0] != B or k_cache.shape[3] != dk \
@@ -160,11 +260,12 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     g = Hq // Hkv
     scale = dk ** -0.5 if scale is None else float(scale)
-    bs = block_s if block_s is not None else (
-        choose_block(S, g, dk) or min(BLOCK_S, S))
+    blocks = choose_blocks(S, B, Hkv, g, dk, q.dtype, block_s=block_s)
     if q.device.type == "cpu":
+        bs = blocks.block_s if blocks else block_s or min(BLOCK_S, S)
         return decode_attn_plain(q, k_cache, v_cache, lengths, scale=scale,
-                                 block_s=bs)
+                                 block_s=bs,
+                                 splits=blocks.splits if blocks else 1)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cpu or cuda, not {q.device}")
     if torch.is_grad_enabled() and any(
@@ -177,20 +278,24 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
                         f"one dtype, float32 or bfloat16, and int32 lengths;"
                         f" got {q.dtype}, {k_cache.dtype}, {v_cache.dtype}, "
                         f"{lengths.dtype}")
-    smem = working_set_bytes(g, bs, dk)
-    if choose_block(S, g, dk) is None or bs < 1 \
-            or smem > factorization.H100_SMEM_PER_BLOCK:
+    if blocks is None:
         raise ValueError(f"decode_attn: no launch for {g} heads of {dk} a "
-                         f"kv head at block_s {bs} (dk a multiple of 4, "
-                         f"group x dk at most {THREADS * MAX_PAIRS}, "
-                         f"{smem} bytes of shared memory)")
+                         f"kv head at block_s {block_s} (dk a whole number "
+                         f"of 16-byte chunks, group x dk at most "
+                         f"{THREADS * ACC_FLOATS}, the working set within a "
+                         "block's shared memory)")
     q, k_cache, v_cache = (_build.aligned(t) for t in (q, k_cache, v_cache))
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
+    ws = torch.empty(workspace_floats(B, Hkv, g, dk, blocks.splits),
+                     dtype=F32, device=q.device)
+    counters = _counters(q.device, B * Hkv)
     lib, fn = _entry(q.dtype)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), B, S, Hq, Hkv, dk, bs,
-             scale, smem, torch.cuda.current_stream(q.device).cuda_stream)
+             lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             counters.data_ptr(), B, S, Hq, Hkv, dk, blocks.block_s,
+             blocks.splits, blocks.span, scale, blocks.smem,
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "decode_attn", err)
     decode_attn.launches += 1
     return out

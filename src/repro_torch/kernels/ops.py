@@ -1,6 +1,6 @@
 """Public entry points of the kernels, with automatic blocks.
 
-``lstm_cell`` tiles its (B, H) output with ``factorization.choose_block``;
+``lstm_cell`` takes its tile and K split from ``lstm_cell.choose_blocks``;
 ``lstm_seq`` and ``lstm_seq_q8`` take their ``(block_b, time_chunk)`` from
 ``lstm_seq.choose_batch_block``; ``wkv6`` takes its chunk from the caller
 (the model's ``cfg.ssm.chunk``) and runs one batch-head row per thread
@@ -8,7 +8,8 @@ block; ``mamba_scan`` takes its chunk from the caller and runs one batch
 row and ``di_tile`` channels per thread block; ``flash_prefill`` takes its
 ``(q_block, k_block)`` from ``flash_prefill.choose_blocks`` and runs one
 (row, query head, q tile) per thread block; ``decode_attn`` takes its
-``block_s`` from ``decode_attn.choose_block`` and runs one (row, kv head)
+``block_s`` and its split over cache positions from
+``decode_attn.choose_blocks`` and runs one (row, kv head, span of positions)
 per thread block.  Any block may be pinned by the caller.  CPU tensors run the kernels' plain versions; CUDA tensors
 launch the kernels.  The entries are differentiable: under autograd
 ``lstm_seq``, ``lstm_seq_q8``, ``wkv6`` and ``mamba_scan`` pair their

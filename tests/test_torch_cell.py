@@ -146,16 +146,62 @@ def test_params_from_numpy_copies_the_jax_tree(jax_tree):
     assert np.array_equal(mine["head"]["w"].numpy(), jax_tree["head"]["w"])
 
 
-@pytest.mark.parametrize("args", [(1, 32, 64), (64, 32, 64), (5, 20, 29),
-                                  (3, 256, 512), (64, 32, 100_000)])
+#: every (B, D, H) that chip_smoke.py and the plans launch K1 at: both
+#: layers of the 2 x 32 cell at B = 1, 5 and 64, 2 x 48, 2 x 64 and 3 x 256,
+#: and a K far past one pass of the slices
+CELL_LAUNCHES = [(1, 9, 32), (1, 32, 32), (5, 9, 32), (5, 32, 32),
+                 (64, 9, 32), (64, 32, 32), (5, 9, 20), (1, 9, 48),
+                 (64, 48, 48), (1, 9, 64), (1, 64, 64), (64, 64, 64),
+                 (1, 9, 256), (1, 256, 256), (64, 256, 256),
+                 (64, 99_968, 32)]
+
+
+@pytest.mark.parametrize("args", CELL_LAUNCHES,
+                         ids=lambda s: "B%dD%dH%d" % s)
 def test_choose_block_fits_a_thread_block(args):
-    m, n, k = args
-    bm, bn, bk = factorization.choose_block(m, n, k)
-    assert bn % factorization.WARP == 0
-    assert bn >= min(n, factorization.CTA_THREADS)
-    assert 1 <= bm <= m and bm * bn <= factorization.CTA_THREADS
-    assert bk == k
-    assert bm == 1 or bm * k * 4 <= factorization.H100_SMEM_PER_BLOCK
+    """K1's table at every shape it is launched at: the threads within a
+    block's 1,024 (and the kernel's 256), the shared memory priced exactly
+    and within a block, each thread at most one output, the tile one the
+    kernel is built for, and a K of any depth split into slices."""
+    B, D, H = args
+    bl = cell_k.choose_blocks(B, D, H)
+    assert bl is not None
+    assert bl.block_b in cell_k.BLOCK_BS and bl.block_h in cell_k.BLOCK_HS
+    assert bl.threads == bl.k_slices * bl.block_h
+    assert bl.threads <= cell_k.MAX_THREADS <= 1024
+    assert bl.k_slices >= bl.block_b              # one output a thread
+    assert bl.smem == 4 * bl.k_slices * bl.block_b * 4 * bl.block_h
+    assert bl.smem == cell_k.working_set_bytes(bl.block_b, bl.block_h,
+                                               bl.k_slices)
+    assert bl.smem <= factorization.H100_SMEM_PER_BLOCK
+    assert bl.grid == -(-B // bl.block_b) * -(-H // bl.block_h)
+    # one pass of the slices covers K unless the threads run out
+    assert bl.k_slices * cell_k.UNROLL >= D + H \
+        or bl.threads > cell_k.MAX_THREADS - bl.block_h
+
+
+@pytest.mark.parametrize("B,D,H,grid", [(1, 9, 32, 8), (1, 32, 32, 8),
+                                        (1, 64, 64, 16), (64, 32, 32, 256),
+                                        (1, 256, 256, 64)])
+def test_table_spreads_a_cell_over_the_sms(B, D, H, grid):
+    """A cell at B=1 runs on several SMs: the tile halves (columns first)
+    until the grid has a block for each of the H100's 132 SMs or the tile
+    is 1 row x 4 columns."""
+    bl = cell_k.choose_blocks(B, D, H)
+    assert bl.grid == grid
+    assert bl.grid >= factorization.H100_SMS or (bl.block_b, bl.block_h) \
+        == (1, 4)
+
+
+def test_table_pins_and_refusals():
+    """``block_b``/``block_h`` name the table's tile: a pin the kernel is
+    built for is kept, any other gives no launch."""
+    bl = cell_k.choose_blocks(64, 32, 32, block_b=8, block_h=32)
+    assert (bl.block_b, bl.block_h, bl.threads, bl.grid) == (8, 32, 256, 8)
+    assert cell_k.choose_blocks(5, 9, 20, block_h=8).block_h == 8
+    assert cell_k.choose_blocks(5, 9, 20, block_b=5) is None
+    assert cell_k.choose_blocks(5, 9, 20, block_h=20) is None
+    assert cell_k.choose_blocks(0, 9, 20) is None
 
 
 @pytest.mark.parametrize("args", [(9, 32, 1), (32, 32, 64), (9, 20, 5)])

@@ -4,7 +4,9 @@ runs for CPU tensors, and what the kernel is held to on the card) against
 the JAX package's Pallas kernel in interpret mode and against both
 packages' naive oracles, on the JAX package's own sweep cases
 (tests/test_kernels.py::test_decode_attn_sweep) plus the port's head
-widths; a row of length 0; and K9's budget table.  The kernel itself runs
+widths, at the splits over cache positions the kernel runs (each split's
+online softmax, then the merge in split order); a row of length 0 and
+lengths at the blocks' edges; and K9's budget table.  The kernel itself runs
 on the card only (chip_smoke.py, phase A2)."""
 import numpy as np
 import pytest
@@ -109,25 +111,135 @@ def test_block_s_never_changes_results():
         torch.testing.assert_close(outs[0], o, **TOL)
 
 
-@pytest.mark.parametrize("group,dk", [(7, 64), (8, 128), (4, 160)])
-def test_budget_table_at_the_served_head_widths(group, dk):
+#: the served decode shapes: (model, B, group, dk, kv heads) at S = 517
+SERVED = [("qwen2-0.5b", 4, 7, 64, 2), ("yi-9b", 4, 8, 128, 4),
+          ("command-r-35b", 4, 8, 128, 8), ("stablelm-12b", 4, 4, 160, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("model,B,group,dk,n_kv", SERVED,
+                         ids=[s[0] for s in SERVED])
+def test_budget_table_at_the_served_head_widths(model, B, group, dk, n_kv,
+                                                dtype):
     """Qwen2 (7 query heads a kv head, 64 wide), Yi and Command-R (8 x
-    128), StableLM (4 x 160): the cache block of ``BLOCK_S`` positions,
-    priced exactly, within a block's shared memory; every (head, dim) pair
-    of the group held by the block's threads."""
-    bs = da.choose_block(517, group, dk)
-    assert bs == da.BLOCK_S
-    ws = da.working_set_bytes(group, bs, dk)
-    assert ws == 4 * (2 * bs * (dk + da.PAD) + group * dk + group * bs
-                      + 3 * group)
-    assert ws <= factorization.H100_SMEM_PER_BLOCK
-    assert group * dk <= da.THREADS * da.MAX_PAIRS
+    128), StableLM (4 x 160) at B = 4 over 517 slots: splits x Hkv x B
+    reaches a block for each of the 132 SMs, the spans cover the cache
+    and none lies wholly past it, the working set is priced exactly and
+    fits a block, two blocks fit an SM in the served dtype (bf16: the
+    blocks past 132 run beside others), every (head, dim) pair of the
+    group held by the block's threads."""
+    bl = da.choose_blocks(517, B, n_kv, group, dk, dtype)
+    assert bl.grid == bl.splits * n_kv * B >= factorization.H100_SMS
+    assert bl.span % bl.block_s == 0
+    assert bl.span * (bl.splits - 1) < 517 <= bl.span * bl.splits
+    io = 2 if dtype == torch.bfloat16 else 4
+    ws = da.working_set_bytes(group, bl.block_s, dk, dtype)
+    assert bl.smem == ws == 4 * bl.block_s * dk * io + 4 * (
+        group * dk + group * bl.block_s + 3 * group)
+    assert ws + da.STATIC_SMEM <= factorization.H100_SMEM_PER_BLOCK
+    assert dtype != torch.bfloat16 or 2 * (
+        ws + factorization.H100_SMEM_RESERVED_PER_BLOCK) \
+        <= factorization.H100_SMEM_PER_SM
+    assert group * dk <= da.THREADS * da.ACC_FLOATS
+    assert da.workspace_floats(B, n_kv, group, dk, bl.splits) == \
+        B * n_kv * bl.splits * group * (dk + 4)
 
 
-def test_budget_table_edges():
-    assert da.choose_block(33, 2, 8) == 33            # clamped to the cache
-    assert da.choose_block(517, 16, 160) is None      # 2,560 pairs
-    assert da.choose_block(517, 8, 30) is None        # dk not a multiple of 4
+@pytest.mark.parametrize("args,want", [
+    # the cache block halves (to MIN_BLOCK_S) while S holds fewer blocks
+    # than the splits asked for: a block an SM at Qwen2's and Yi's shapes
+    ((517, 4, 2, 7, 64, torch.bfloat16), (32, 17, 32)),
+    ((517, 4, 4, 8, 128, torch.bfloat16), (64, 9, 64)),
+    # a short cache: blocks of 16, as many splits as blocks
+    ((33, 2, 1, 2, 8), (16, 3, 16)),
+    # StableLM's heads: fewer splits than blocks, spans of two
+    ((517, 4, 8, 4, 160, torch.bfloat16), (64, 5, 128)),
+    # one (row, kv head): as many splits as blocks of 16
+    ((517, 1, 1, 16, 128), (16, 33, 16)),
+    # a pinned block longer than the cache: one split
+    ((77, 2, 2, 4, 32, torch.float32, 128), (128, 1, 128)),
+    # one head of 2,048: the block halves until two stages fit
+    ((517, 2, 1, 1, 2048), (4, 65, 8)),
+    # no launch: 2,560 pairs; dk not whole 16-byte chunks (f32, bf16); a
+    # pinned block past the shared memory
+    ((517, 1, 1, 16, 160), None), ((517, 1, 8, 1, 30), None),
+    ((517, 1, 8, 1, 36, torch.bfloat16), None),
+    ((517, 1, 1, 1, 2048, torch.float32, 64), None)])
+def test_budget_table_edges(args, want):
+    bl = da.choose_blocks(*args[:6], block_s=args[6]) if len(args) > 6 \
+        else da.choose_blocks(*args)
+    assert (bl if bl is None else (bl.block_s, bl.splits, bl.span)) == want
+
+
+def _split_counts(S, block_s):
+    """Splits of 1, 2 and 9 and one per block of ``block_s`` positions."""
+    return [1, 2, 9, -(-S // block_s)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,dh,block", [
+    (2, 8, 2, 96, 32, 32), (1, 4, 4, 64, 64, 64), (3, 16, 2, 128, 16, 128),
+    (2, 2, 1, 33, 8, 16),
+    (2, 14, 2, 75, 64, 16), (2, 32, 4, 70, 128, 16), (2, 8, 2, 41, 160, 8),
+])
+def test_split_plain_matches_jax_pallas(B, Hq, Hkv, S, dh, block):
+    """The plain version at every split (1, 2, 9, one per block) against
+    the JAX package's Pallas kernel in interpret mode, which walks the
+    whole cache in one order, at its tolerance."""
+    q, kc, vc = _inputs(B, Hq, Hkv, S, dh, seed=S + dh)
+    lens = _lengths(B, S)
+    want = np.asarray(jax_ops.decode_attn(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens),
+        block_s=block))
+    tq, tk, tv, tl = (convert.params_from_numpy(a) for a in (q, kc, vc, lens))
+    for splits in _split_counts(S, block):
+        got = da.decode_attn_plain(tq, tk, tv, tl, block_s=block,
+                                   splits=splits)
+        np.testing.assert_allclose(got.numpy(), want, **TOL,
+                                   err_msg=f"splits={splits}")
+
+
+@pytest.mark.parametrize("S,dh,block", [(70, 64, 16), (129, 128, 32)])
+def test_lengths_at_the_block_edges(S, dh, block):
+    """Rows of length 0, 1, block_s, block_s + 1 and S, at each split,
+    against the Pallas kernel (a row of length 0 gives 0 in both)."""
+    lens = np.array([0, 1, block, block + 1, S], np.int32)
+    q, kc, vc = _inputs(5, 8, 2, S, dh, seed=dh)
+    want = np.asarray(jax_ops.decode_attn(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens),
+        block_s=block))
+    tq, tk, tv, tl = (convert.params_from_numpy(a) for a in (q, kc, vc, lens))
+    for splits in _split_counts(S, block):
+        got = da.decode_attn_plain(tq, tk, tv, tl, block_s=block,
+                                   splits=splits)
+        assert torch.all(got[0] == 0)
+        np.testing.assert_allclose(got.numpy(), want, **TOL,
+                                   err_msg=f"splits={splits}")
+
+
+@pytest.mark.parametrize("block", [1, 16, 64])
+def test_split_never_changes_results(block):
+    """Every split count from 1 to one per block gives the unsplit result
+    within 2e-4."""
+    q, kc, vc = (convert.params_from_numpy(a)
+                 for a in _inputs(3, 8, 2, 77, 32, seed=6))
+    lens = torch.tensor([1, 40, 77], dtype=torch.int32)
+    base = da.decode_attn_plain(q, kc, vc, lens, block_s=block)
+    for splits in range(2, -(-77 // block) + 1, max(1, 77 // block // 9)):
+        torch.testing.assert_close(da.decode_attn_plain(
+            q, kc, vc, lens, block_s=block, splits=splits), base, **TOL)
+
+
+def test_cpu_wrapper_takes_the_tables_split():
+    """A CPU call runs the plain version at ``choose_blocks``'s block and
+    split, bit for bit."""
+    q, kc, vc = (convert.params_from_numpy(a)
+                 for a in _inputs(4, 14, 2, 517, 64, seed=7))
+    lens = torch.tensor([0, 63, 300, 508], dtype=torch.int32)
+    bl = da.choose_blocks(517, 4, 2, 7, 64)
+    assert bl.splits > 1
+    assert torch.equal(da.decode_attn(q, kc, vc, lens), da.decode_attn_plain(
+        q, kc, vc, lens, block_s=bl.block_s, splits=bl.splits))
 
 
 def test_wrapper_rejects_mismatched_shapes():
