@@ -1506,67 +1506,90 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     torch.cuda.empty_cache()
 
     # --- M5. the kernels' times at full width -----------------------------
+    # back to back and in a CUDA graph (device time alone), each beside its
+    # bound: K7 at the serving table's tiling as the prefill (B=4, T=512)
+    # and as the served decode step (T=1), K7t and K7b at the training
+    # table's
     B, T = 4, 512
     sv = ms.choose_blocks(T, di, ds, target=cfg.ssm.chunk)
     tr = ms.choose_blocks(T, di, ds, target=cfg.ssm.chunk, mode="bwd")
     rows = {}
     for dtype in (f32, bf16):
         a = mamba_inputs(B, T, di, ds, dtype, gen)
-        _, _, traj = ms.mamba_scan_traj(*a, chunk=tr.chunk)
+        one = tuple(t[:, :1] for t in a[:4]) + a[4:]
+        _, _, traj = ms.mamba_scan_traj(*a, chunk=tr.chunk,
+                                        di_tile=tr.di_tile)
         args = (*a[:5], traj, randn(B, T, di, gen=gen).to(dtype),
                 randn(B, di, ds, gen=gen))
         for name, fn, plain_fn, work, it in (
                 ("mamba_scan",
-                 lambda: ms.mamba_scan(*a, chunk=sv.chunk),
+                 lambda: ms.mamba_scan(*a, chunk=sv.chunk,
+                                       di_tile=sv.di_tile),
                  lambda: ms.mamba_scan_plain(*a, sv.chunk),
                  mamba_fwd_work(B, T, di, ds, sv.chunk, dtype), 20),
+                ("mamba_scan decode",
+                 lambda: ms.mamba_scan(*one, chunk=1, di_tile=sv.di_tile),
+                 lambda: ms.mamba_scan_plain(*one, 1),
+                 mamba_fwd_work(B, 1, di, ds, 1, dtype), 50),
                 ("mamba_scan_traj",
-                 lambda: ms.mamba_scan_traj(*a, chunk=tr.chunk),
+                 lambda: ms.mamba_scan_traj(*a, chunk=tr.chunk,
+                                            di_tile=tr.di_tile),
                  lambda: ms.mamba_scan_traj_plain(*a, tr.chunk),
                  mamba_fwd_work(B, T, di, ds, tr.chunk, dtype, traj=True),
                  20),
                 ("mamba_scan_bwd",
-                 lambda: ms.mamba_scan_bwd(*args, chunk=tr.chunk),
+                 lambda: ms.mamba_scan_bwd(*args, chunk=tr.chunk,
+                                           di_tile=tr.di_tile),
                  lambda: ms.mamba_scan_bwd_plain(*args, tr.chunk),
                  mamba_bwd_work(B, T, di, ds, tr.chunk, dtype), 10)):
             t_bound, by = bound(*work)
             r = rows[name, dtype] = dict(
-                ms=time_ms(fn, it), plain_ms=time_ms(plain_fn, 1, repeats=3),
+                ms=time_ms(fn, it), graph_ms=graph_ms(fn, 10),
+                plain_ms=time_ms(plain_fn, 1, repeats=3),
                 bound_ms=t_bound, bound_by=by)
-            C = sv.chunk if name == "mamba_scan" else tr.chunk
-            # h_traj grows as the chunk shrinks: beside the bound at the
-            # chunk run here, the bound with h_traj at the config's chunk,
-            # a yardstick that does not move with the port's tiling
-            at_cfg = ""
-            if name != "mamba_scan":
-                cfg_work = mamba_bwd_work(B, T, di, ds, cfg.ssm.chunk, dtype) \
-                    if name == "mamba_scan_bwd" else mamba_fwd_work(
-                        B, T, di, ds, cfg.ssm.chunk, dtype, traj=True)
-                cfg_bound, cfg_by = bound(*cfg_work)
-                at_cfg = (f"; with h_traj at the config's chunk "
-                          f"{cfg.ssm.chunk}: bound {cfg_bound:.3e} ms "
-                          f"({cfg_by}), kernel at "
-                          f"{r['ms'] / cfg_bound:.2f}x it")
-            print(f"[time] {name} B={B} T={T} di={di} ds={ds} C={C} "
-                  f"di_tile={sv.di_tile} {str(dtype).split('.')[1]}: kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-                  f"none (no single PyTorch call computes a selective scan), "
-                  f"bound {r['bound_ms']:.3e} ms ({r['bound_by']}), kernel "
-                  f"at {r['ms'] / r['bound_ms']:.2f}x it{at_cfg}")
-    # the budget table's tilings against the config's own chunk for
-    # serving (three blocks an SM) and, for training, against the chunk a
-    # table holding 8 warps an SM would take (two blocks an SM)
+            tiles = sv if name.startswith("mamba_scan ") or \
+                name == "mamba_scan" else tr
+            print(f"[time] {name} B={B} T={1 if 'decode' in name else T} "
+                  f"di={di} ds={ds} C={1 if 'decode' in name else tiles.chunk}"
+                  f" di_tile={tiles.di_tile} {str(dtype).split('.')[1]}: "
+                  f"kernel {r['ms']:.4f} ms back to back, {r['graph_ms']:.4f}"
+                  f" ms in a CUDA graph, plain {r['plain_ms']:.4f} ms, "
+                  f"library none (no single PyTorch call computes a "
+                  f"selective scan), bound {r['bound_ms']:.3e} ms "
+                  f"({r['bound_by']}), kernel at "
+                  f"{r['graph_ms'] / r['bound_ms']:.2f}x it in a graph")
+    # the training pair at other chunks than the table's, and K7 at the
+    # config's own (f32, in a CUDA graph)
     a = mamba_inputs(B, T, di, ds, f32, gen)
-    _, _, traj = ms.mamba_scan_traj(*a, chunk=8)
-    args = (*a[:5], traj, randn(B, T, di, gen=gen), randn(B, di, ds, gen=gen))
-    alt = (time_ms(lambda: ms.mamba_scan(*a, chunk=cfg.ssm.chunk), 20),
-           time_ms(lambda: ms.mamba_scan_traj(*a, chunk=8), 20),
-           time_ms(lambda: ms.mamba_scan_bwd(*args, chunk=8), 10))
-    print(f"[time] f32 tilings: K7 at chunk {cfg.ssm.chunk} {alt[0]:.4f} ms "
-          f"against {rows['mamba_scan', f32]['ms']:.4f} at {sv.chunk}; K7t "
-          f"and K7b at chunk 8 {alt[1]:.4f} and {alt[2]:.4f} ms against "
-          f"{rows['mamba_scan_traj', f32]['ms']:.4f} and "
-          f"{rows['mamba_scan_bwd', f32]['ms']:.4f} at {tr.chunk}")
+    k7 = graph_ms(lambda: ms.mamba_scan(*a, chunk=cfg.ssm.chunk), 10)
+    alt = [f"K7 at chunk {cfg.ssm.chunk} {k7:.4f} ms against "
+           f"{rows['mamba_scan', f32]['graph_ms']:.4f} at {sv.chunk}"]
+    for C in (16, 64):
+        _, _, traj = ms.mamba_scan_traj(*a, chunk=C, di_tile=tr.di_tile)
+        args = (*a[:5], traj, randn(B, T, di, gen=gen),
+                randn(B, di, ds, gen=gen))
+        k7t = graph_ms(lambda: ms.mamba_scan_traj(
+            *a, chunk=C, di_tile=tr.di_tile), 10)
+        k7b = graph_ms(lambda: ms.mamba_scan_bwd(
+            *args, chunk=C, di_tile=tr.di_tile), 5)
+        alt.append(f"K7t and K7b at chunk {C} {k7t:.4f} and {k7b:.4f} ms")
+    occupancy = [ms.bwd_blocks_per_sm(t, T, ds, tr.chunk, tr.di_tile)
+                 for t in (f32, bf16)]
+    print(f"[time] K7b holds {occupancy[0]} blocks of "
+          f"{ms.BWD_LANES * tr.di_tile} threads an SM in f32, {occupancy[1]}"
+          " in bf16 (the runtime's occupancy calculator)")
+    print(f"[time] f32 tilings in a CUDA graph: {'; '.join(alt)}; the "
+          f"table's (chunk {tr.chunk}) "
+          f"{rows['mamba_scan_traj', f32]['graph_ms']:.4f} and "
+          f"{rows['mamba_scan_bwd', f32]['graph_ms']:.4f} ms")
+    for name in ("mamba_scan", "mamba_scan_bwd"):
+        compiled = ""
+        for line in BUILD_LOGS.get(name, "").splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                compiled = entry.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"[time] {name} {instance(compiled)}: {line.strip()}")
     print(f"[K7/K7t/K7b] max abs err vs plain: K7 f32 "
           f"{errs['fwd']['float32']:.3e}, bf16 {errs['fwd']['bfloat16']:.3e}"
           f"; K7t f32 {errs['traj']['float32']:.3e}, bf16 "
@@ -1575,8 +1598,11 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
           f" bf16 dx within {bf16_step['share']:.3e} x max|want| (held at "
           f"one bf16 step, 2^-7 = {2.0 ** -7:.3e})")
     # the model hands the scan its input in f32 (what JAX's scan computes
-    # with), so the main path runs the f32-IO instances: their rows go in
+    # with), so the main path runs the f32-IO instances: their rows go in;
+    # K7's row also splits its launches into the served prefills and decode
+    # steps (one prefill and 16 decode steps a layer a wave)
     launches = dict(mamba_scan=serve_launches, **train_launches)
+    prefills = serve_launches // (1 + 16)
     entries = []
     for name, err, replaces in (
             ("mamba_scan", "fwd", "src/repro/kernels/mamba_scan.py:217"),
@@ -1592,7 +1618,16 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[err]["float32"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": None,
+            "graph_ms": r["graph_ms"],
+            "bf16_graph_ms": rows[name, bf16]["graph_ms"]})
+        if name == "mamba_scan":
+            d = rows["mamba_scan decode", f32]
+            entries[-1].update(
+                prefill_launches=prefills,
+                decode_launches=launches[name] - prefills,
+                decode_ms=d["ms"], decode_graph_ms=d["graph_ms"],
+                decode_bound_ms=d["bound_ms"])
     return entries
 
 
@@ -2920,6 +2955,18 @@ def main() -> None:
         ops = -(-max(P_, H_) // 4) + 2 + 1 + 1 + 2
         return (T_ + L_ - 1) * ops * 4 / sm_clock_hz * 1e3
 
+    def bwd_chain_bound_ms(T_: int, L_: int, P_: int, H_: int) -> float:
+        """The same bound for the backward's wavefront (K3's register
+        home): T + L - 1 wave-steps, each at least the chain's dependent
+        f32 operations at 4 cycles: dh (the carry plus the layer above's
+        dinp), dc's two, the gate gradient's multiply, one accumulator's
+        multiply-adds of a product (4H / 8 of them: a half-row of 4H
+        columns a lane in 4 accumulators), the combine's two levels and
+        the halves' add.  Loads, the shuffle and the barriers are left
+        out."""
+        ops = 1 + 2 + 1 + -(-4 * H_ // 8) + 2 + 1
+        return (T_ + L_ - 1) * ops * 4 / sm_clock_hz * 1e3
+
     def q8_rows(w_s, b_s, xp, B, dc, dh, extra=False) -> list[dict]:
         """Times of the q8 forward and, with cotangents, of the q8 training
         pair at the backward's tiling, each beside its plain version, its
@@ -2997,13 +3044,16 @@ def main() -> None:
         t_bound, by = bound(q8_in + 4 * (state + 2 * L_ * B * H_ + wq.numel()
                                          + b_s.numel() + xp.numel()),
                             3 * flops)
+        bwd_call = lambda: bwd_k.lstm_seq_bwd_q8(  # noqa: E731
+            wq, s, b_s, xp, ct, ht, dc, dh, **kw)
         rows.append(dict(
             name="lstm_seq_bwd_q8", B=B, extra=extra, shape=shape,
-            ms=time_ms(lambda: bwd_k.lstm_seq_bwd_q8(
-                wq, s, b_s, xp, ct, ht, dc, dh, **kw), 100),
+            home=seq_k.weight_home(L_, P_, H_, tiles.block_b),
+            ms=time_ms(bwd_call, 100), graph_ms=graph_ms(bwd_call),
             plain_ms=time_ms(lambda: bwd_k.lstm_seq_bwd_plain(
                 wq, b_s, xp, ct, ht, dc, dh, scales=s), 2),
-            library_ms=bwd_lib_ms, bound_ms=t_bound, bound_by=by))
+            library_ms=bwd_lib_ms, chain_ms=bwd_chain_bound_ms(
+                T_, L_, P_, H_), bound_ms=t_bound, bound_by=by))
         return rows
 
     # --- 5. times ----------------------------------------------------------
@@ -3122,14 +3172,17 @@ def main() -> None:
             t_bound, by = bound(4 * (2 * xp.numel() + 2 * w_s.numel()
                                      + 2 * b_s.numel() + state
                                      + 2 * L * B * H), 3 * flops)
+            bwd_call = lambda: bwd_k.lstm_seq_bwd(  # noqa: E731
+                w_s, b_s, xp, ct, ht, dc, dh, **kw)
             rows.append(dict(
                 name="lstm_seq_bwd", B=B, tiles=tuple(tiles),
                 shape=f"B={B} T={T} L={L} P={P} H={H} tiles {tuple(tiles)}",
-                ms=time_ms(lambda: bwd_k.lstm_seq_bwd(
-                    w_s, b_s, xp, ct, ht, dc, dh, **kw), 100),
+                home=seq_k.weight_home(L, P, H, tiles.block_b),
+                ms=time_ms(bwd_call, 100), graph_ms=graph_ms(bwd_call),
                 plain_ms=time_ms(lambda: bwd_k.lstm_seq_bwd_plain(
                     w_s, b_s, xp, ct, ht, dc, dh), 2),
-                library_ms=bwd_lib_ms, bound_ms=t_bound, bound_by=by))
+                library_ms=bwd_lib_ms, chain_ms=bwd_chain_bound_ms(
+                    T, L, P, H), bound_ms=t_bound, bound_by=by))
 
             # the int8 instances at the same shapes, beside nn.LSTM (cuDNN)
             # over the dequantized weights, the same function to
@@ -3174,18 +3227,31 @@ def main() -> None:
             t_bound, by = bound(4 * (2 * xb.numel() + 2 * w_s.numel()
                                      + 2 * b_s.numel() + state
                                      + 2 * L * B * H), 3 * flops)
+            bwd_call = lambda: bwd_k.lstm_seq_bwd(  # noqa: E731
+                w_s, b_s, xb, ct, ht, dc, dh, **kw)
             rows.append(dict(
                 name="lstm_seq_bwd", B=B, tiles=tuple(tiles),
                 shape=f"B={B} T={T} L={L} P={P} H={H} tiles {tuple(tiles)}",
-                ms=time_ms(lambda: bwd_k.lstm_seq_bwd(
-                    w_s, b_s, xb, ct, ht, dc, dh, **kw), 20),
+                home=seq_k.weight_home(L, P, H, tiles.block_b),
+                ms=time_ms(bwd_call, 20), graph_ms=graph_ms(bwd_call, 5),
                 plain_ms=time_ms(lambda: bwd_k.lstm_seq_bwd_plain(
                     w_s, b_s, xb, ct, ht, dc, dh), 1, repeats=3),
-                library_ms=bwd_lib_ms, bound_ms=t_bound, bound_by=by))
+                library_ms=bwd_lib_ms, chain_ms=bwd_chain_bound_ms(
+                    T, L, P, H), bound_ms=t_bound, bound_by=by))
     def ms_or_none(v):
         return "not capturable" if v is None else f"{v:.4f} ms"
 
     for r in rows:
+        if r["name"].startswith("lstm_seq_bwd"):
+            print(f"[time] {r['name']} {r['shape']} ({r['home']} weights): "
+                  f"kernel {r['ms']:.4f} ms back to back, "
+                  f"{r['graph_ms']:.4f} ms in a CUDA graph; nn.LSTM's "
+                  f"backward {r['library_ms']:.4f} ms back to back; plain "
+                  f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.3e} ms "
+                  f"({r['bound_by']}); chain bound {r['chain_ms']:.3e} ms "
+                  f"(the backward's wavefront, T + L - 1 wave-steps at "
+                  f"{sm_clock_hz / 1e6:.0f} MHz)")
+            continue
         if "graph_ms" not in r:
             graph = (f", {r['cell_graph_ms']:.4f} ms in a CUDA graph"
                      if "cell_graph_ms" in r else "")
@@ -3219,15 +3285,17 @@ def main() -> None:
               f"training forward {libs['lstm_seq_traj']['library_ms']:.4f} "
               f"and {libs['lstm_seq_q8_traj']['library_ms']:.4f} ms")
     for name, legend in (("lstm_seq", "<rows,traj,weights,register home>"),
-                         ("lstm_seq_bwd", "<rows,max threads,weights>")):
+                         ("lstm_seq_bwd", "<rows,max threads,weights> "
+                          "(shared home) or wave<weights> (register home)")):
         compiled = ""                  # the entry ptxas is reporting on
         for line in BUILD_LOGS.get(name, "").splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
             if entry:
                 compiled = entry.group(1)
             elif "registers" in line or "spill" in line:
-                print(f"[time] {name} {legend} = {instance(compiled)}: "
-                      f"{line.strip()}")
+                tag = "wave" if "wave_kernel" in compiled else ""
+                print(f"[time] {name} {legend} = {tag}{instance(compiled)}:"
+                      f" {line.strip()}")
     for name, run in (("fused_seq", trained),
                       ("fused_seq_q8", runs["fused_seq_q8"]),
                       ("sequential", sequential)):
@@ -3273,6 +3341,9 @@ def main() -> None:
         if r["name"] == "lstm_cell":      # device time alone, both sides
             kernels[-1].update(graph_ms=r["cell_graph_ms"],
                                library_graph_ms=r["library_graph_ms"])
+        if r["name"].startswith("lstm_seq_bwd"):
+            kernels[-1].update(graph_ms=r["graph_ms"],
+                               chain_bound_ms=r["chain_ms"])
     kernels.append(rwkv_slice(device, gen, counted, counts, only))
     kernels += rwkv_train_slice(device, gen, counted, counts, only)
     kernels += mamba_slice(device, gen, counted, counts, only)

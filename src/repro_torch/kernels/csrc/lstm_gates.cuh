@@ -77,6 +77,18 @@ __host__ __device__ constexpr int row_stride(int G) {
   return G + kPad;
 }
 
+// bar.sync id, n: the first n threads (whole warps) to arrive at named
+// barrier id (1 to 15; 0 is __syncthreads) meet there, and the other warps
+// of the block run on.  Outside nvcc it is the g++ mock's barrier
+// (tests/cuda_mock).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+#ifdef __CUDACC__
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+#else
+  cuda_mock_named_sync(id, n);
+#endif
+}
+
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }

@@ -7,11 +7,11 @@
 // _lstm_seq_bwd_chunked_call, x and the trajectories streamed in reverse
 // chunk order), and their int8-weight bodies _seq_bwd_q8_kernel and
 // _seq_bwd_chunked_q8_kernel (the fused_seq_q8 plan's training backward).
-// Here they are one kernel: x and the trajectories always
-// stream through a shared-memory ring of time_chunk steps, read from the
-// last chunk to the first; a chunk of T is the whole-T layout with a single
-// slot.  The unwind arithmetic does not depend on the chunking, so every
-// time_chunk gives bit-identical gradients.
+// Here they are one source with two kernels, one per weight home (below):
+// x and the trajectories always stream through a shared-memory ring read
+// from the last step to the first, so the whole-T and the chunked layouts
+// are one code path.  The unwind arithmetic does not depend on the
+// chunking, so every time_chunk gives bit-identical gradients.
 //
 // Inputs: w (L, P+H, 4H), b (L, 4H), x (B, T, P) read through its strides,
 // the forward's post-step f32 trajectories c_traj, h_traj (T, L, B, H) and
@@ -26,19 +26,55 @@
 // respect to the dequantized weights, accumulated and written in f32 for
 // the f32 master stack.  Only the outgoing products take the scale:
 // dh_prev = (dg * s) W[P:]^T and dinp = (dg * s) W[:P]^T, as the JAX
-// package's _unwind_step does, through a second (ROWS, 4H) buffer that (b)
-// fills with dg * s beside dg -- scaling dg in place would scale dW and db
-// too.
+// package's _unwind_step does, through a second (ROWS, 4H) buffer filled
+// with dg * s beside dg -- scaling dg in place would scale dW and db too.
 //
-// What bounds it on the H100: like the forward, the chain of T x L dependent
-// layer-steps, now three passes long each (gate recompute, gate gradients,
-// the products), not FLOPs or bytes: at the paper's 2 x 32, B=64, T=128 the
-// sweep does about 3x the forward's 4.2 MFLOP per row and moves a few MB.
+// What bounds it on the H100: like the forward, the chain of dependent
+// steps, not FLOPs or bytes: at the paper's 2 x 32, B=64, T=128 the sweep
+// does about 3x the forward's 4.2 MFLOP per row and moves a few MB.  Of a
+// layer-step only the gate gradients dg (elementwise) and the two products
+// dh_prev = dg W[P:]^T and dinp = dg W[:P]^T feed the next layer-step; the
+// gate recompute reads only the trajectories, and dW and db feed nothing
+// until the end.
 //
-// Design: one persistent thread block per batch tile (the forward's tile
-// rule) unwinds the whole T x L recurrence in one launch, time backwards and
-// layers top-down, with the (L, P+H, 4H) weight stack resident in shared
-// memory and the (dc, dh) carries in f32 shared memory.  Per layer-step:
+// Two weight homes, as in the forward (the host's weight_home):
+//
+// Register home (lstm_seq_bwd_wave_kernel: H = P = 32, at most 2 layers,
+// one row a block -- the paper's width trained at batch 64): a layer
+// wavefront mirrored from the forward's.  In wave-step s layer l unwinds
+// step t = T-1-(s-(L-1-l)), so the chain is T + L - 1 wave-steps (129 at
+// 2 x 32, T=128) instead of T x L layer-steps, and only the chain is in
+// the chain.  Each layer has two roles of four warps:
+//  * chain warps: lane (unit u, gate g) forms dg of its gate column and
+//    the unit's dc carry (in a register) from the activations, the carries
+//    and the trajectories; the layer's chain warps meet at a named barrier
+//    (bar.sync 1 + l, 128 threads), then lane (row q, half p) sums half of
+//    q's 4H products with the 64 weights of its half-row, which it keeps
+//    in registers for the whole launch, the halves meet by one shuffle,
+//    and q's sum goes to dh_prev (the layer's own carry), to dinp (the
+//    layer below's) or, at layer 0, to dx;
+//  * worker warps: lane j (a gate column) recomputes the gates of the step
+//    the chain takes next from its column's 64 weights in registers, with
+//    lstm_gates.cuh's canonical order, so they are K2t's to the bit.
+// Everything a wave-step hands on (activations, dg, dh_prev, dinp) lives
+// in two slots by wave-step parity, so one block barrier a wave-step
+// orders every dependency.  dW and db feed nothing in the sweep: the chain
+// lanes also write each step's dg to a workspace (L2-resident), and after
+// the sweep every lane sums dW[l][k][j] = sum_t v_t[k] dg_t[j] (v the
+// layer's input and previous h) and db over t from T-1 down to 0, for
+// 32 rows of one column, from that workspace and the trajectories, staged
+// through shared memory 32 steps at a time.  (Summed during the sweep,
+// dW cost no time of its own but its loads slowed the chain: 1.3 against
+// 0.85 us a wave-step.)  The trajectories and x stream through a ring of
+// 16 rows (one row a time step, (c, h) of every layer and x), filled by
+// the workers with cp.async 8 wave-steps ahead; the ring does not depend
+// on time_chunk, so no chunking changes a result.
+//
+// Shared home (lstm_seq_bwd_kernel: every other shape): one persistent
+// thread block per batch tile unwinds the whole T x L recurrence in one
+// launch, time backwards and layers top-down, with the (L, P+H, 4H) weight
+// stack resident in shared memory and the (dc, dh) carries in f32 shared
+// memory.  Per layer-step:
 //  (a) recompute the gates with lstm_gates.cuh's segment sums, preact and
 //      activate, the functions the forward runs, in their canonical order
 //      (recompute_gates), on the same f32 inputs read back from the
@@ -58,14 +94,18 @@
 // batch tail past B are zero in the ring and their gate gradients are set to
 // zero, so they never reach dW or db.
 //
-// dW and db across batch tiles: blocks run in parallel and in no order, and
-// float atomics would make the sum differ run to run.  So each block writes
-// its f32 partial to a workspace, and the last block to finish (an integer
-// ticket: __threadfence, then atomicAdd on a counter of the launch's stream,
-// which that block resets to 0 for the stream's next launch, so launches on
-// two streams never share one) sums the partials in tile order 0 .. n-1 and
-// writes dw and db.  One launch, no fill of the ticket, and results identical
-// run to run.  A single tile writes dw and db directly.
+// dW and db across batch tiles (close_sums, both homes): blocks run in
+// parallel and in no order, and float atomics would make the sum differ
+// run to run.  So each block writes its f32 partial to a workspace and
+// draws an integer ticket of its group of kGroup tiles (__threadfence,
+// then atomicAdd); the last of a group sums the group's partials in tile
+// order into a group partial and draws the top ticket, and the last group
+// sums the group partials in group order into dw and db.  Each last block
+// resets its ticket to 0 for the stream's next launch (the wrapper keeps
+// one set of tickets a stream, so launches on two streams never share
+// one).  At 64 tiles the last block reads 16 partials instead of 64 (the
+// flat sum took 70 us of a 0.71 ms launch), results stay identical run to
+// run, and a single tile writes dw and db directly.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -74,6 +114,62 @@
 #include "lstm_gates.cuh"
 
 namespace {
+
+constexpr int kGroup = 8;  // tiles a group of the closing sum
+
+// The closing sum of dW and db over the launch's tiles (see the top of the
+// file).  Each block has written its n_out-float partial at partials +
+// blockIdx.x * n_out (dw's nw floats, then db's); the group partials
+// follow the tiles' at partials + gridDim.x * n_out.  Every thread of the
+// block calls it.
+__device__ __forceinline__ void close_sums(float* partials, int* tickets,
+                                           int n_out, int nw, float* dw,
+                                           float* db, int tid, int nt) {
+  __shared__ int last_flag;
+  const int tiles = gridDim.x;
+  const int groups = (tiles + kGroup - 1) / kGroup;
+  const int grp = blockIdx.x / kGroup;
+  const int first = grp * kGroup;
+  const int in_group = min(kGroup, tiles - first);
+  float* group_parts = partials + (size_t)tiles * n_out;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_flag = atomicAdd(tickets + grp, 1) == in_group - 1;
+  __syncthreads();
+  if (!last_flag) return;
+  __threadfence();
+  // the group's tiles in tile order; straight out when it is the only group
+  float* gout = group_parts + (size_t)grp * n_out;
+  for (int e = tid; e < n_out; e += nt) {
+    float sum = __ldcg(partials + (size_t)first * n_out + e);
+    for (int k = 1; k < in_group; ++k)
+      sum += __ldcg(partials + (size_t)(first + k) * n_out + e);
+    if (groups > 1)
+      gout[e] = sum;
+    else if (e < nw)
+      dw[e] = sum;
+    else
+      db[e - nw] = sum;
+  }
+  if (tid == 0) tickets[grp] = 0;  // the group has drawn: ready for the next
+  if (groups == 1) return;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last_flag = atomicAdd(tickets + groups, 1) == groups - 1;
+  __syncthreads();
+  if (!last_flag) return;
+  __threadfence();
+  for (int e = tid; e < n_out; e += nt) {
+    float sum = __ldcg(group_parts + e);
+    for (int k = 1; k < groups; ++k)
+      sum += __ldcg(group_parts + (size_t)k * n_out + e);
+    if (e < nw)
+      dw[e] = sum;
+    else
+      db[e - nw] = sum;
+  }
+  if (tid == 0) tickets[groups] = 0;
+}
 
 // Step (a): lane (j, p) of PARTS lanes a column writes the forward's
 // activated gate of column j for the tile's ROWS rows to g_s (ROWS, 4H):
@@ -117,7 +213,7 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
     const float* __restrict__ h_traj, const float* __restrict__ dcf,
     const float* __restrict__ dhf, float* __restrict__ dw,
     float* __restrict__ db, float* __restrict__ dx,
-    float* __restrict__ partials, int* __restrict__ ticket, int B, int T,
+    float* __restrict__ partials, int* __restrict__ tickets, int B, int T,
     int L, int P, int H, int tc, int parts, int dparts, long long x_stride_b,
     long long x_stride_t) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -378,30 +474,313 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
   for (int i = tid; i < nw; i += nt)
     part[i] = dw_s[(size_t)(i / G) * SF + i % G];
   for (int i = tid; i < L * G; i += nt) part[nw + i] = db_s[i];
-  __threadfence();
-  __syncthreads();
-  int* last = reinterpret_cast<int*>(g_s);  // g_s is free from here on
-  if (tid == 0) last[0] = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
-  __syncthreads();
-  if (!last[0]) return;
-  __threadfence();
-  for (int i = tid; i < n_out; i += nt) {
-    float sum = __ldcg(partials + i);
-    for (unsigned tile = 1; tile < gridDim.x; ++tile)
-      sum += __ldcg(partials + (size_t)tile * n_out + i);
-    if (i < nw)
-      dw[i] = sum;
-    else
-      db[i - nw] = sum;
+  close_sums(partials, tickets, n_out, nw, dw, db, tid, nt);
+}
+
+// The register home's wavefront (see the top of the file): H = P = 32, L
+// of 1 or 2 layers, one batch row a block, 256 threads a layer (four chain
+// warps, then four worker warps, layer by layer).
+constexpr int kWaveH = 32;              // H = P of the register home
+constexpr int kWaveG = 4 * kWaveH;      // gate columns
+constexpr int kWaveK = 2 * kWaveH;      // rows of a layer's stack
+constexpr int kWaveThreads = 256;       // threads a layer
+constexpr int kRing = 16;               // trajectory rows in the ring
+constexpr int kLead = 8;                // wave-steps a row is loaded ahead
+constexpr int kStage = 32;              // steps a block of the dW pass stages
+
+// The register home's dynamic shared memory, in bytes, for L layers and
+// weight type size wb (4 f32, 1 int8), all f32: the ring (kRing rows of
+// (c, h) of every layer and x), the two parity slots of the activations
+// (L, G), tanh(c) (L, H), dg (L, G) (and dg * s, int8), dh_prev (L, H)
+// and dinp (L, P), and the dW pass's two stages of kStage + 1 rows of dg
+// (L, G), h (L, H) and x (P).  The weights are in the lanes' registers.
+// kernels/lstm_seq.py:working_set_bytes(mode="bwd") prices the same terms.
+__host__ __device__ inline long long wave_smem_bytes(int L, int wb) {
+  const long long ring_row = 2LL * L * kWaveH + kWaveH;
+  const long long slots = 2LL * L * (kWaveG + kWaveH + kWaveG + kWaveH +
+                                     kWaveH + (wb == 1 ? kWaveG : 0));
+  const long long stage_row = (long long)L * (kWaveG + kWaveH) + kWaveH;
+  return 4 * (kRing * ring_row + slots + 2LL * (kStage + 1) * stage_row);
+}
+
+template <typename WT>
+__global__ void __launch_bounds__(2 * kWaveThreads, 1)
+    lstm_seq_bwd_wave_kernel(
+        const WT* __restrict__ w, const float* __restrict__ scales,
+        const float* __restrict__ b, const float* __restrict__ x,
+        const float* __restrict__ c_traj, const float* __restrict__ h_traj,
+        const float* __restrict__ dcf, const float* __restrict__ dhf,
+        float* __restrict__ dw, float* __restrict__ db,
+        float* __restrict__ dx, float* __restrict__ partials,
+        int* __restrict__ tickets, float* __restrict__ dg_work, int B, int T,
+        int L, long long x_stride_b, long long x_stride_t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kQ8 = sizeof(WT) == 1;
+  constexpr int H = kWaveH, P = kWaveH, G = kWaveG, K = kWaveK;
+  float* ring = reinterpret_cast<float*>(smem);
+  const int RW = 2 * L * H + P;  // a ring row: c (L, H), h (L, H), x (P)
+  float* act = ring + kRing * RW;   // (2, L, G) activations
+  float* tcb = act + 2 * L * G;     // (2, L, H) tanh(c_t)
+  float* dgb = tcb + 2 * L * H;     // (2, L, G) dg
+  float* dhb = dgb + 2 * L * G;     // (2, L, H) dh_prev, the layer's carry
+  float* dib = dhb + 2 * L * H;     // (2, L, P) dinp, the layer below's
+  float* dgs = dib + 2 * L * P;     // (2, L, G) dg * s, int8 only
+  float* stage = dgs + (kQ8 ? 2 * L * G : 0);  // (2, kStage + 1, SRW)
+  const int SRW = L * (G + H) + P;  // a stage row: dg (L, G), h (L, H), x
+  const float* dprod = kQ8 ? dgs : dgb;
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row = blockIdx.x;
+  const bool chain = warp < 4 * L;
+  const int l = chain ? warp / 4 : (warp - 4 * L) / 4;
+  const int i = (chain ? tid : tid - 128 * L) - 128 * l;  // 0 .. 127
+  // chain lanes: unit u, gate g (column g H + u) for dg; row q, half p
+  // for the products.  Worker lanes: column j.
+  const int u = i >> 2, g = i & 3, q = i >> 1, p = i & 1;
+  const int j = i;
+  const int col = chain ? g * H + u : j;
+  const float bias = b[l * G + col];
+  const float scale = kQ8 ? scales[l * G + col] : 1.0f;
+
+  // A lane's 64 weights in registers (the codes' exact f32 values for
+  // int8): a chain lane's half of row q, columns 8k + 4p .. 8k + 4p + 3; a
+  // worker lane's column j, rows 0 .. 63 (one array, so the two roles
+  // share registers).
+  static_assert(G / 2 == K, "a half-row and a column have K values");
+  float rv[K];
+  const WT* wl = w + (size_t)l * K * G;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    rv[k] = static_cast<float>(chain ? wl[q * G + 8 * (k / 4) + 4 * p + k % 4]
+                                     : wl[k * G + j]);
+  // The carries at their first wave-step: dh into the layer's slot, dc in
+  // the chain lanes' registers.
+  float dc = 0.0f;
+  if (chain) {
+    dc = dcf[((long long)l * B + row) * H + u];
+    if (g == 0)
+      dhb[((L - 1 - l) & 1) * L * H + l * H + u] =
+          dhf[((long long)l * B + row) * H + u];
   }
-  if (tid == 0) *ticket = 0;  // every block has drawn: ready for the next
+  // Start copying trajectory row r (step r: (c, h) of every layer and x)
+  // into ring slot r mod kRing; row -1, the state before t = 0, is zeros.
+  // The worker lanes copy, off the chain.
+  auto load_row = [&](int r) {
+    if (r < -1 || chain) return;
+    float* dst = ring + (r & (kRing - 1)) * RW;
+    for (int e = tid - 128 * L; e < RW; e += 128 * L) {
+      if (r < 0) {
+        dst[e] = 0.0f;
+      } else if (e < 2 * L * H) {
+        const int ll = (e % (L * H)) / H, k = e % H;
+        const float* src = e < L * H ? c_traj : h_traj;
+        __pipeline_memcpy_async(
+            dst + e, src + (((long long)r * L + ll) * B + row) * H + k, 4);
+      } else {
+        __pipeline_memcpy_async(
+            dst + e, x + row * x_stride_b + r * x_stride_t + (e - 2 * L * H),
+            4);
+      }
+    }
+  };
+  auto ring_row = [&](int r) { return ring + (r & (kRing - 1)) * RW; };
+  // rows T-1 .. T-1-kLead, one copy group each, each kLead wave-steps
+  // ahead of its first use
+  for (int k = 0; k <= kLead; ++k) {
+    load_row(T - 1 - k);
+    __pipeline_commit();
+  }
+  __pipeline_wait_prior(kLead - 1);
+  __syncthreads();
+
+  // Wave-step s: the chain unwinds step t of layer l; the workers
+  // recompute the gates of step t - 1 (the chain's next).  s = -1 only
+  // recomputes.
+  for (int s = -1; s <= T + L - 2; ++s) {
+    load_row(T - 3 - kLead - s);
+    __pipeline_commit();
+    const int t = T - 1 - s + (L - 1 - l);
+    const int now = s & 1, nxt = (s + 1) & 1;
+    if (chain) {
+      if (t >= 0 && t < T) {
+        // (chain) dg of the lane's gate column, and the unit's dc carry
+        const float* a = act + (now * L + l) * G;
+        const float si = a[u], sf = a[H + u], tg = a[2 * H + u],
+                    so = a[3 * H + u];
+        const float tcn = tcb[(now * L + l) * H + u];
+        const float cp = ring_row(t - 1)[l * H + u];
+        const float dhv = dhb[(now * L + l) * H + u] +
+                          (l + 1 < L ? dib[(now * L + l + 1) * P + u] : 0.0f);
+        const float dcv = dc + dhv * so * (1.0f - tcn * tcn);
+        float dg;
+        if (g == 0)
+          dg = dcv * tg * si * (1.0f - si);
+        else if (g == 1)
+          dg = dcv * cp * sf * (1.0f - sf);
+        else if (g == 2)
+          dg = dcv * si * (1.0f - tg * tg);
+        else
+          dg = dhv * tcn * so * (1.0f - so);
+        dc = dcv * sf;
+        dgb[(now * L + l) * G + col] = dg;
+        dg_work[(((long long)row * L + l) * T + t) * G + col] = dg;
+        if (kQ8) dgs[(now * L + l) * G + col] = dg * scale;
+        lstm_gates::bar_sync(1 + l, 128);
+        // (chain) row q's product with dg (dg * s for int8): half p of its
+        // columns, four at a time, then the halves by one shuffle
+        const float* dgp = dprod + (now * L + l) * G + 4 * p;
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int k = 0; k < G / 8; ++k) {
+          const float4 d4 = *reinterpret_cast<const float4*>(dgp + 8 * k);
+          acc[0] = fmaf(d4.x, rv[4 * k], acc[0]);
+          acc[1] = fmaf(d4.y, rv[4 * k + 1], acc[1]);
+          acc[2] = fmaf(d4.z, rv[4 * k + 2], acc[2]);
+          acc[3] = fmaf(d4.w, rv[4 * k + 3], acc[3]);
+        }
+        float out = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+        out += __shfl_xor_sync(0xffffffffu, out, 1);
+        if (p == 0) {
+          if (q >= P)  // -> h_{t-1} of this layer: the dh carry
+            dhb[(nxt * L + l) * H + q - P] = out;
+          else if (l == 0)  // -> x: dx, straight to device memory
+            dx[((long long)row * T + t) * P + q] = out;
+          else  // -> the layer below's h_t
+            dib[(nxt * L + l) * P + q] = out;
+        }
+      }
+    } else {
+      const int tr = t - 1;  // the chain's next step
+      if (tr >= 0 && tr < T) {
+        // (workers) the gates of step tr, lstm_gates.cuh's order
+        const float* rr = ring_row(tr);
+        const float* inp = l == 0 ? rr + 2 * L * H : rr + L * H + (l - 1) * H;
+        const float* hp = ring_row(tr - 1) + L * H + l * H;
+        float sum[2];
+#pragma unroll
+        for (int seg = 0; seg < 2; ++seg) {
+          const float* v = seg ? hp : inp;
+          float acc4[4][1];
+          lstm_gates::partial_sums4<1>(
+              acc4, H,
+              [&](int, int grp) {
+                return *reinterpret_cast<const float4*>(v + 4 * grp);
+              },
+              [&](int grp) {
+                const int k = seg * H + 4 * grp;
+                return make_float4(rv[k], rv[k + 1], rv[k + 2], rv[k + 3]);
+              });
+          float o[1];
+          lstm_gates::combine<1, 1>(o, acc4);
+          sum[seg] = o[0];
+        }
+        const int gj = j / H;
+        act[(nxt * L + l) * G + j] = lstm_gates::activate(
+            lstm_gates::preact<WT>(sum[0], sum[1], bias, scale), gj == 2);
+        if (j < H) tcb[(nxt * L + l) * H + j] = tanhf(rr[l * H + j]);
+      }
+    }
+    __pipeline_wait_prior(kLead - 1);  // the rows the next wave-step reads
+    __syncthreads();
+  }
+
+  // dW and db (the barrier above makes every dg of the workspace visible):
+  // lane e sums rows k0 .. k0 + 31 of column c of layer ll, and db[ll][c]
+  // with its input rows, over t = T-1 .. 0, from stages of kStage steps
+  // that cp.async brings into shared memory (rows t0 - 1 .. t0 + kStage -
+  // 1 of dg, h and x, the row before t = 0 zeros), the next stage in
+  // flight while this one is summed; straight out for one tile, else as
+  // this tile's partial and the fixed-order sum over tiles
+  __pipeline_wait_prior(0);
+  const int nw = L * K * G;
+  const int n_out = nw + L * G;
+  float* out_w = gridDim.x == 1 ? dw : partials + (size_t)row * n_out;
+  float* out_b = gridDim.x == 1 ? db : out_w + nw;
+  // x rows copy 16 bytes at a time when every row is 16-byte aligned
+  const bool x16 = (reinterpret_cast<uintptr_t>(x) | x_stride_b * 4 |
+                    x_stride_t * 4) % 16 == 0;
+  auto stage_rows = [&](int t_hi, int buf) {
+    const int t0 = max(0, t_hi - kStage);
+    const int pieces = SRW / 4;  // 16-byte pieces a row
+    float* dst = stage + (size_t)buf * (kStage + 1) * SRW;
+    for (int e = tid; e < (t_hi - t0 + 1) * pieces; e += nt) {
+      const int r = e / pieces, f = (e - r * pieces) * 4;
+      const int t = t0 - 1 + r;
+      float* d = dst + r * SRW + f;
+      if (t < 0) {
+        for (int u = 0; u < 4; ++u) d[u] = 0.0f;
+      } else if (f < L * G) {
+        __pipeline_memcpy_async(
+            d, dg_work + (((long long)row * L + f / G) * T + t) * G + f % G,
+            16);
+      } else if (f < L * (G + H)) {
+        const int ff = f - L * G;
+        __pipeline_memcpy_async(
+            d, h_traj + (((long long)t * L + ff / H) * B + row) * H + ff % H,
+            16);
+      } else {
+        const float* src =
+            x + row * x_stride_b + t * x_stride_t + f - L * (G + H);
+        if (x16)
+          __pipeline_memcpy_async(d, src, 16);
+        else
+          for (int u = 0; u < 4; ++u)
+            __pipeline_memcpy_async(d + u, src + u, 4);
+      }
+    }
+  };
+  {
+    const int c = tid % G;
+    const int r32 = tid / G;  // 32-row group of the L x K rows
+    const int ll = r32 / 2, k0 = (r32 % 2) * 32;
+    float acc[32], bacc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) acc[k] = 0.0f;
+    stage_rows(T, 0);
+    __pipeline_commit();
+    for (int t_hi = T, buf = 0; t_hi > 0; t_hi -= kStage, buf ^= 1) {
+      const int t0 = max(0, t_hi - kStage);
+      if (t0 > 0) stage_rows(t0, buf ^ 1);
+      __pipeline_commit();
+      __pipeline_wait_prior(1);
+      __syncthreads();
+      const float* st = stage + (size_t)buf * (kStage + 1) * SRW;
+      for (int t = t_hi - 1; t >= t0; --t) {
+        const float* rw = st + (t - t0 + 1) * SRW;  // row t; row t-1 before
+        const float dgv = rw[ll * G + c];
+        bacc += dgv;
+        // the 32 inputs of rows k0 ..: the layer's input (x, or the layer
+        // below's h_t) or its own h_{t-1}
+        const float* v = k0 == 0 ? (ll == 0 ? rw + L * (G + H)
+                                            : rw + L * G + (ll - 1) * H)
+                                 : rw - SRW + L * G + ll * H;
+#pragma unroll
+        for (int k = 0; k < 32; k += 4) {
+          const float4 q4 = *reinterpret_cast<const float4*>(v + k);
+          acc[k] = fmaf(q4.x, dgv, acc[k]);
+          acc[k + 1] = fmaf(q4.y, dgv, acc[k + 1]);
+          acc[k + 2] = fmaf(q4.z, dgv, acc[k + 2]);
+          acc[k + 3] = fmaf(q4.w, dgv, acc[k + 3]);
+        }
+      }
+      __syncthreads();  // the stage is read before the next refill
+    }
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      out_w[((size_t)ll * K + k0 + k) * G + c] = acc[k];
+    if (k0 == 0) out_b[ll * G + c] = bacc;
+  }
+  if (gridDim.x > 1) close_sums(partials, tickets, n_out, nw, dw, db, tid, nt);
 }
 
 template <int ROWS, int MAX_T, typename WT>
 int launch(const WT* w, const float* scales, const float* b, const float* x,
            const float* c_traj, const float* h_traj, const float* dc,
            const float* dh, float* dw, float* db, float* dx, float* partials,
-           int* ticket, int B, int T, int L, int P, int H,
+           int* tickets, int B, int T, int L, int P, int H,
            long long x_stride_b, long long x_stride_t, int time_chunk,
            int parts, int dparts, int threads, long long smem_bytes,
            cudaStream_t stream) {
@@ -417,32 +796,67 @@ int launch(const WT* w, const float* scales, const float* b, const float* x,
   lstm_seq_bwd_kernel<ROWS, MAX_T, WT>
       <<<grid, threads, (size_t)smem_bytes, stream>>>(
           w, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials,
-          ticket, B, T, L, P, H, time_chunk, parts, dparts, x_stride_b,
+          tickets, B, T, L, P, H, time_chunk, parts, dparts, x_stride_b,
           x_stride_t);
   return (int)cudaGetLastError();
 }
 
-// One instance per (tile size, thread bound); another block_b or more than
-// 1024 threads is cudaErrorInvalidValue.
+template <typename WT>
+int launch_wave(const WT* w, const float* scales, const float* b,
+                const float* x, const float* c_traj, const float* h_traj,
+                const float* dc, const float* dh, float* dw, float* db,
+                float* dx, float* partials, int* tickets, float* dg_work,
+                int B, int T, int L, int P, int H, long long x_stride_b,
+                long long x_stride_t, int threads, long long smem_bytes,
+                cudaStream_t stream) {
+  if (P != kWaveH || H != kWaveH || L < 1 || L > 2 ||
+      threads != L * kWaveThreads ||
+      smem_bytes != wave_smem_bytes(L, (int)sizeof(WT)))
+    return (int)cudaErrorInvalidValue;
+  static long long configured = 48 * 1024;
+  if (smem_bytes > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lstm_seq_bwd_wave_kernel<WT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem_bytes;
+  }
+  lstm_seq_bwd_wave_kernel<WT><<<B, threads, (size_t)smem_bytes, stream>>>(
+      w, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials, tickets,
+      dg_work, B, T, L, x_stride_b, x_stride_t);
+  return (int)cudaGetLastError();
+}
+
+// One instance per (tile size, thread bound) of the shared home and one
+// register-home wavefront; another block_b, more than 1024 threads or a
+// register home at another shape is cudaErrorInvalidValue.
 template <typename WT>
 int launch_tile(const WT* w, const float* scales, const float* b,
                 const float* x, const float* c_traj, const float* h_traj,
                 const float* dc, const float* dh, float* dw, float* db,
-                float* dx, float* partials, int* ticket, int B, int T, int L,
-                int P, int H, long long x_stride_b, long long x_stride_t,
-                int block_b, int time_chunk, int parts, int dparts,
-                int threads, long long smem_bytes, void* stream) {
+                float* dx, float* partials, int* tickets, float* dg_work,
+                int B, int T, int L, int P, int H, long long x_stride_b,
+                long long x_stride_t, int block_b, int time_chunk, int reg,
+                int parts, int dparts, int threads, long long smem_bytes,
+                void* stream) {
   if (threads > 1024) return (int)cudaErrorInvalidValue;
+  if (reg) {
+    if (block_b != 1) return (int)cudaErrorInvalidValue;
+    return launch_wave<WT>(w, scales, b, x, c_traj, h_traj, dc, dh, dw, db,
+                           dx, partials, tickets, dg_work, B, T, L, P, H,
+                           x_stride_b, x_stride_t, threads, smem_bytes,
+                           (cudaStream_t)stream);
+  }
 #define LSTM_SEQ_BWD_LAUNCH(R)                                               \
   case R:                                                                    \
     return threads <= 512                                                    \
                ? launch<R, 512>(w, scales, b, x, c_traj, h_traj, dc, dh, dw, \
-                                db, dx, partials, ticket, B, T, L, P, H,     \
+                                db, dx, partials, tickets, B, T, L, P, H,    \
                                 x_stride_b, x_stride_t, time_chunk, parts,   \
                                 dparts, threads, smem_bytes,                 \
                                 (cudaStream_t)stream)                        \
                : launch<R, 1024>(w, scales, b, x, c_traj, h_traj, dc, dh,   \
-                                 dw, db, dx, partials, ticket, B, T, L, P,   \
+                                 dw, db, dx, partials, tickets, B, T, L, P,  \
                                  H, x_stride_b, x_stride_t, time_chunk,      \
                                  parts, dparts, threads, smem_bytes,         \
                                  (cudaStream_t)stream);
@@ -464,28 +878,31 @@ extern "C" {
 
 // w (L, P+H, 4H), b (L, 4H), c_traj/h_traj (T, L, B, H), dc/dh (L, B, H),
 // dw, db and dx (B, T, P) contiguous f32; x element (b, t, p) at
-// x[b * x_stride_b + t * x_stride_t + p].  partials holds
-// ceil(B / block_b) x (L (P+H) 4H + L 4H) floats and ticket one int that
-// is 0 at the launch and 0 again after it (both unused for one tile): one
-// per stream serves every launch on it.  One thread
-// block of `threads` (>= parts * 4H, a multiple of 32) threads per batch
-// tile of block_b rows (1, 2, 4, 8 or 16); `parts` lanes to a gate column,
-// `dparts` (a power of two up to 32) to a row of W in the products;
-// smem_bytes is the wrapper's working_set_bytes(mode="bwd") for
-// (block_b, time_chunk).  Returns cudaErrorInvalidValue for another
-// block_b or more than 1024 threads.
+// x[b * x_stride_b + t * x_stride_t + p].  partials holds (n + ceil(n /
+// 8)) x (L (P+H) 4H + L 4H) floats for n = ceil(B / block_b) tiles, and
+// tickets ceil(n / 8) + 1 ints that are 0 at the launch and 0 again after
+// it (both unused for one tile): one set per stream serves every launch
+// on it.  reg = 1 takes the register home (block_b 1, H = P = 32, 1 or 2
+// layers, 256 threads a layer; smem_bytes is lstm_seq_bwd_wave_smem_bytes;
+// dg_work holds B L T 4H floats, written and read within the launch);
+// reg = 0 the shared home: one thread block of `threads` (>= parts * 4H,
+// a multiple of 32) threads per batch tile of block_b rows (1, 2, 4, 8 or
+// 16); `parts` lanes to a gate column, `dparts` (a power of two up to 32)
+// to a row of W in the products; smem_bytes is the wrapper's
+// working_set_bytes(mode="bwd") for (block_b, time_chunk).  Returns
+// cudaErrorInvalidValue for any other tiling.
 int lstm_seq_bwd_f32(const float* w, const float* b, const float* x,
                      const float* c_traj, const float* h_traj,
                      const float* dc, const float* dh, float* dw, float* db,
-                     float* dx, float* partials, int* ticket, int B, int T,
-                     int L, int P, int H, long long x_stride_b,
-                     long long x_stride_t, int block_b, int time_chunk,
-                     int parts, int dparts, int threads, long long smem_bytes,
-                     void* stream) {
+                     float* dx, float* partials, int* tickets,
+                     float* dg_work, int B, int T, int L, int P, int H,
+                     long long x_stride_b, long long x_stride_t, int block_b,
+                     int time_chunk, int reg, int parts, int dparts,
+                     int threads, long long smem_bytes, void* stream) {
   return launch_tile<float>(w, nullptr, b, x, c_traj, h_traj, dc, dh, dw, db,
-                            dx, partials, ticket, B, T, L, P, H, x_stride_b,
-                            x_stride_t, block_b, time_chunk, parts, dparts,
-                            threads, smem_bytes, stream);
+                            dx, partials, tickets, dg_work, B, T, L, P, H,
+                            x_stride_b, x_stride_t, block_b, time_chunk, reg,
+                            parts, dparts, threads, smem_bytes, stream);
 }
 
 // The int8 plan: wq (L, P+H, 4H) int8 codes the q8 forward ran with and
@@ -495,15 +912,21 @@ int lstm_seq_bwd_f32(const float* w, const float* b, const float* x,
 int lstm_seq_bwd_q8(const int8_t* wq, const float* scales, const float* b,
                     const float* x, const float* c_traj, const float* h_traj,
                     const float* dc, const float* dh, float* dw, float* db,
-                    float* dx, float* partials, int* ticket, int B, int T,
-                    int L, int P, int H, long long x_stride_b,
+                    float* dx, float* partials, int* tickets, float* dg_work,
+                    int B, int T, int L, int P, int H, long long x_stride_b,
                     long long x_stride_t, int block_b, int time_chunk,
-                    int parts, int dparts, int threads, long long smem_bytes,
-                    void* stream) {
+                    int reg, int parts, int dparts, int threads,
+                    long long smem_bytes, void* stream) {
   return launch_tile<int8_t>(wq, scales, b, x, c_traj, h_traj, dc, dh, dw,
-                             db, dx, partials, ticket, B, T, L, P, H,
-                             x_stride_b, x_stride_t, block_b, time_chunk,
-                             parts, dparts, threads, smem_bytes, stream);
+                             db, dx, partials, tickets, dg_work, B, T, L, P,
+                             H, x_stride_b, x_stride_t, block_b, time_chunk,
+                             reg, parts, dparts, threads, smem_bytes, stream);
+}
+
+// The register home's dynamic shared memory for L layers and weights of
+// wb bytes (4 f32, 1 int8): what kernels/lstm_seq.py's table is held to.
+long long lstm_seq_bwd_wave_smem_bytes(int L, int wb) {
+  return wave_smem_bytes(L, wb);
 }
 
 const char* lstm_seq_bwd_error_string(int err) {

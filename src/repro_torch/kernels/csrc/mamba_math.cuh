@@ -2,8 +2,10 @@
 // K7, K7t) and the backward's recompute (csrc/mamba_scan_bwd.cu: K7b), so
 // that the states the backward recomputes are bit for bit the forward's.
 //
-// One thread owns one channel d of d_inner and keeps its d_state (at most
-// kMaxDs) f32 states in registers.  Every rounding is spelled out
+// In the forward one thread owns one channel d of d_inner and keeps its
+// d_state (at most kMaxDs) f32 states in registers (step); the backward
+// spreads a channel's states over four lanes and updates each with
+// update(), step()'s arithmetic for one state.  Every rounding is spelled out
 // (__fmul_rn, __fmaf_rn): the compiler may not contract a product into a
 // different fused multiply-add in one kernel than in the other.  The decay
 // is expf, not __expf: expf is accurate to 2 ulp at any argument, __expf
@@ -36,6 +38,15 @@ __device__ __forceinline__ float decay(float dt, float a) {
   return expf(__fmul_rn(dt, a));
 }
 
+// One state's update: a_t h + (dt x) B_t[s], rounded as step() rounds it
+// (the product, then the fused multiply-add).  The backward's recompute
+// (csrc/mamba_scan_bwd.cu), which splits a channel's states over lanes,
+// calls it state by state, so its states are step()'s to the bit.
+__device__ __forceinline__ float update(float a_t, float h, float dtx,
+                                        float b) {
+  return __fmaf_rn(a_t, h, __fmul_rn(dtx, b));
+}
+
 // One step of one channel: h <- a_t * h + (dt x) B_t, returning
 // y = sum_s h[s] C_t[s] (summed from s = 0).  b and c are the step's rows
 // of B and C (d_state floats, in shared memory).
@@ -48,7 +59,7 @@ __device__ __forceinline__ float step(float (&h)[kMaxDs],
 #pragma unroll
   for (int s = 0; s < kMaxDs; ++s) {
     if (s < ds) {
-      h[s] = __fmaf_rn(decay(dt, a[s]), h[s], __fmul_rn(dtx, b[s]));
+      h[s] = update(decay(dt, a[s]), h[s], dtx, b[s]);
       y = __fmaf_rn(h[s], c[s], y);
     }
   }

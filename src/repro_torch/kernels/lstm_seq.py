@@ -89,6 +89,13 @@ UNITS_PER_WARP = 8
 REG_HIDDEN = 32
 REG_MAX_LAYERS = 2
 REG_THREADS = 256
+#: The register-home backward (the wavefront of ``csrc/lstm_seq_bwd.cu``):
+#: threads a layer (four chain warps and four worker warps) and the
+#: trajectory rows of its ring.
+BWD_REG_THREADS = 256
+BWD_RING = 16
+#: steps a block of the register-home backward's closing dW pass stages
+BWD_STAGE = 32
 
 #: The plain PyTorch version (torch.matmul + elementwise ops, f32 math): the
 #: CPU path of ``lstm_seq`` and the yardstick the kernel is held to.
@@ -272,7 +279,16 @@ def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
     registers; layer 0's input product is formed a step ahead in
     registers, so it needs no buffer.
 
-    ``mode="bwd"`` sizes the backward kernel (``csrc/lstm_seq_bwd.cu``):
+    ``mode="bwd"`` sizes the backward (``csrc/lstm_seq_bwd.cu``).  Where
+    ``weight_home`` is ``"registers"`` (the paper's 2 x 32 at one row a
+    block) it is the wavefront kernel, whose lanes keep the weights in
+    registers and whose ring does not depend on T or ``time_chunk``:
+    ``BWD_RING`` trajectory rows of (c, h) of every layer and x
+    (``ring``), and two parity slots of the activations (L, 4H), tanh(c)
+    (L, H), dg (L, 4H), dh_prev (L, H) and dinp (L, P), plus dg * s (L, 4H)
+    for int8 (``slots``), and the dW pass's two stages of ``BWD_STAGE`` + 1
+    rows of dg (L, 4H), h (L, H) and x (P) (``dw_stage``), all f32.
+    Elsewhere it is the shared-home kernel:
     the stack and bias (and scales), the x ring, its (dc, dh) carries, its
     gate buffer (block_b, 4H), the f32 dW/db accumulators (dW rows padded as
     W's), the two f32 trajectory windows (T + 1 rows, one of them the zero
@@ -303,6 +319,14 @@ def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
                    * wb)
         ws.add("h_slots", 2 * n_layers * block_b * h4 * 4)
         ws.add("x_ring", block_b * rows * p4 * dtype_bytes)
+        return ws.total()
+    if weight_home(n_layers, p_width, hidden, block_b) == "registers":
+        g = 4 * hidden
+        ws.add("ring", BWD_RING * (2 * n_layers * hidden + p_width) * 4)
+        ws.add("slots", 2 * n_layers * (2 * g + 2 * hidden + p_width
+                                        + (g if quantized else 0)) * 4)
+        ws.add("dw_stage", 2 * (BWD_STAGE + 1)
+               * (n_layers * (g + hidden) + p_width) * 4)
         return ws.total()
     x_ring = block_b * rows * p_width * dtype_bytes
     state = 2 * n_layers * block_b * hidden * 4

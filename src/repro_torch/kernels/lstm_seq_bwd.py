@@ -10,11 +10,16 @@ C++ kernel in
 ``csrc/lstm_seq_bwd.cu``: a persistent thread block per batch tile unwinds
 the whole T x L recurrence in reverse time in one launch, recomputing the
 gates from the forward's f32 trajectories with the forward's own gate pass
-(``csrc/lstm_gates.cuh``), the (dc, dh) carries and f32 dW/db accumulators
-in shared memory, x and the trajectories streamed in reverse chunk order.
-The sum of dW/db across batch tiles is taken by the last block to finish,
-over per-tile partials in tile order, so one launch gives the same bits run
-to run.  What bounds it on the H100 and what the design does about it is
+(``csrc/lstm_gates.cuh``).  Where ``lstm_seq.weight_home`` is
+``"registers"`` (the paper's 2 x 32 at one row a block) the block runs a
+layer wavefront whose chain warps form the gate gradients and the
+products that feed the next step while worker warps recompute the gates
+ahead and accumulate dW/db in registers behind; elsewhere it walks time
+backwards and layers top-down with the stack, the carries and f32 dW/db
+accumulators in shared memory.  The sum of dW/db across batch tiles is a
+two-level fixed-order sum (groups of 8 tiles, then the groups) taken by
+the last blocks to finish, so one launch gives the same bits run to
+run.  What bounds it on the H100 and what the design does about it is
 written at the top of the CUDA source.  Its int8 instance
 (``lstm_seq_bwd_q8``, or ``lstm_seq_bwd(..., scales=)``) recomputes the
 gates with the q8 forward's scale fold and returns f32 straight-through
@@ -123,9 +128,9 @@ def _entry(q8: bool = False):
     lib = _build.load(_NAME)
     fn = lib.lstm_seq_bwd_q8 if q8 else lib.lstm_seq_bwd_f32
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * (13 if q8 else 12)
+        fn.argtypes = ([ctypes.c_void_p] * (14 if q8 else 13)
                        + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
@@ -164,19 +169,33 @@ def _validate(w, b, x, c_traj, h_traj, dc, dh, scales=None) -> None:
         raise ValueError(f"lstm_seq_bwd runs on cpu or cuda, not {x.device}")
 
 
-#: one int32 ticket per (device, stream): zeroed once, and reset to 0 by
-#: the last block of each launch, so launches on one stream reuse it in
-#: order and launches on two streams never share one
+#: tiles a group of the kernel's closing sum (csrc/lstm_seq_bwd.cu kGroup)
+CLOSE_GROUP = 8
+#: the closing sum's int32 tickets per (device, stream): zeroed once, and
+#: each reset to 0 by the last block to draw it, so launches on one stream
+#: reuse them in order and launches on two streams never share one
 _TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 
-def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` tickets of ``stream``, all 0 between launches (a
+    longer set replaces a shorter one)."""
     key = (device.index, stream)
-    ticket = _TICKETS.get(key)
-    if ticket is None:
-        ticket = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
-                                             device=device)
-    return ticket
+    tickets = _TICKETS.get(key)
+    if tickets is None or tickets.numel() < n:
+        tickets = _TICKETS[key] = torch.zeros(n, dtype=torch.int32,
+                                              device=device)
+    return tickets
+
+
+def close_workspace(n_tiles: int, n_out: int) -> tuple[int, int]:
+    """Floats of the closing sum's partials (each tile's, then each
+    group's) and its tickets (each group's, then the top one) for
+    ``n_tiles`` tiles of ``n_out`` floats; none for one tile."""
+    if n_tiles == 1:
+        return 0, 0
+    groups = -(-n_tiles // CLOSE_GROUP)
+    return (n_tiles + groups) * n_out, groups + 1
 
 
 def _run(w, b, x, c_traj, h_traj, dc, dh, block_b: int,
@@ -207,14 +226,17 @@ def _run(w, b, x, c_traj, h_traj, dc, dh, block_b: int,
         raise ValueError(f"lstm_seq_bwd: tile ({block_b}, {tc}) needs {smem} "
                          "bytes of shared memory, above a thread block's "
                          f"{factorization.H100_SMEM_PER_BLOCK}")
+    reg = seq_lib.weight_home(L, P, H, block_b) == "registers"
     parts = seq_lib.gate_parts(H)
     if parts == 0:
         raise ValueError(f"lstm_seq_bwd: 4H = {4 * H} gate columns exceed "
                          f"{seq_lib.MAX_THREADS} threads")
-    threads = factorization.round_up(parts * 4 * H, factorization.WARP)
+    threads = L * seq_lib.BWD_REG_THREADS if reg else \
+        factorization.round_up(parts * 4 * H, factorization.WARP)
     dparts = dot_parts(P + H, threads)
     w, b = w.contiguous(), b.contiguous()
-    c_traj, h_traj = c_traj.contiguous(), h_traj.contiguous()
+    # the register home copies trajectory rows 16 bytes at a time
+    c_traj, h_traj = _build.aligned(c_traj), _build.aligned(h_traj)
     dc, dh = dc.contiguous(), dh.contiguous()
     scales = None if scales is None else scales.contiguous()
     n_tiles = -(-B // block_b)
@@ -223,18 +245,22 @@ def _run(w, b, x, c_traj, h_traj, dc, dh, block_b: int,
     dx = x.new_empty(B, T, P)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     # one tile writes dw and db itself; more sum per-tile partials, the
-    # last tile to finish found by the stream's ticket
-    many = n_tiles > 1
-    partials = x.new_empty(n_tiles * (w.numel() + b.numel()) if many else 0)
-    ticket = _ticket(x.device, stream) if many else None
+    # last tiles to finish found by the stream's tickets
+    n_parts, n_tickets = close_workspace(n_tiles, w.numel() + b.numel())
+    partials = x.new_empty(n_parts)
+    ticket = _tickets(x.device, stream, n_tickets) if n_tickets else None
+    # the register home's gate gradients of every step, summed into dW after
+    # the sweep
+    dg_work = x.new_empty(B * L * T * 4 * H if reg else 0)
     lib, fn = _entry(q8)
     w_ptrs = (w.data_ptr(), scales.data_ptr()) if q8 else (w.data_ptr(),)
     err = fn(*w_ptrs, b.data_ptr(), x.data_ptr(), c_traj.data_ptr(),
              h_traj.data_ptr(), dc.data_ptr(), dh.data_ptr(), dw.data_ptr(),
              db.data_ptr(), dx.data_ptr(), partials.data_ptr(),
-             None if ticket is None else ticket.data_ptr(), B, T, L, P, H,
-             x.stride(0), x.stride(1), block_b, tc, parts, dparts, threads,
-             smem, stream)
+             None if ticket is None else ticket.data_ptr(),
+             dg_work.data_ptr(), B, T, L, P, H,
+             x.stride(0), x.stride(1), block_b, tc, int(reg), parts, dparts,
+             threads, smem, stream)
     _build.check(lib, _NAME, err)
     return dw, db, dx
 

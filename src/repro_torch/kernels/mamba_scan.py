@@ -15,9 +15,10 @@ the recurrent state on chip for the whole sequence.  The JAX kernel keeps
 the whole (block_b, d_inner, d_state) state in VMEM, 1 MiB a batch row at
 Jamba's width (d_inner 16384, d_state 16) against a thread block's 227 KB
 of shared memory.  Each channel's recurrence is independent (the step sums
-over d_state only), so the port tiles d_inner: a thread owns one channel
-and keeps its d_state (at most 16) f32 states in registers, and a block
-runs ``di_tile`` channels of one batch row.  ``chunk`` sets the window of
+over d_state only), so the port tiles d_inner: in the forward a thread
+owns one channel and keeps its d_state (at most 16) f32 states in
+registers, in the backward four lanes share a channel's states, and a
+block runs ``di_tile`` channels of one batch row.  ``chunk`` sets the window of
 B and C rows (shared by every channel of a row), x and dt staged in shared
 memory, and the cadence of the trajectory K7t writes; it changes no
 arithmetic, so K7's outputs are bit-identical at every chunk, tile and row
@@ -43,11 +44,14 @@ chunk walked in reverse from g = dh_fin at the last step:
   dA     = sum_{b,t} g_t h_{t-1} a_t dt_t,     dh0 = a_0 * g_0
 
 The per-step states of a chunk are recomputed from its stored incoming
-state with the forward's own step function, so they are bit-identical to
-the forward's.  dB and dC sum over d_inner tiles and dA over batch rows:
-each block writes its partial sums and the last block to arrive (an
-integer ticket) adds them in a fixed order, so two runs give the same bits
-and no float atomics are used.
+state with the forward's own step arithmetic (``mamba_math.cuh``), so they
+are bit-identical to the forward's; the backward walks a chunk in
+sub-chunks of ``BWD_SUB`` steps from checkpoints, so its shared memory
+does not hold a chunk's states.  dB and dC sum over d_inner tiles and dA
+over batch rows: each block writes its partial sums and the last blocks
+to arrive (integer tickets; for dB and dC two levels, groups of
+``BWD_GROUP`` tiles, then the groups) add them in a fixed order, so two
+runs give the same bits and no float atomics are used.
 
 Tiling: ``MambaBlocks(block_b, chunk, di_tile)`` presents the family-generic
 ``core/tiling.TilePlan`` interface.  ``working_set_bytes`` prices the
@@ -56,7 +60,8 @@ table lacks; ``choose_blocks`` keeps the chunk as coarse as the budget
 allows, then the tile, and keeps enough blocks an SM to hold
 ``MIN_WARPS_PER_SM`` warps (a TPU core runs the grid in order; an SM needs
 warps to switch between).  A training call takes its (chunk, di_tile) from
-the backward's table (``mode="bwd"``) for both launches.
+the backward's table (``mode="bwd"``) for both launches; at Jamba's width
+that is chunk 32, set by K7t's windows.
 
 Non-dividing T and B: the kernels and their plain versions run the last
 chunk short and stop at the last row, so nothing is padded (the JAX entry
@@ -92,6 +97,14 @@ MAX_DS = 16
 #: waves of the whole scan: at Jamba's width four rows make 512 blocks of
 #: four warps, 3.9 an SM, and 16 warps an SM hold them all
 MIN_WARPS_PER_SM = 16
+#: K7b's layout (csrc/mamba_scan_bwd.cu): lanes a channel (each keeps
+#: d_state / 4 states), steps a sub-chunk, and the channels of its widest
+#: block (256 threads; two blocks an SM hold MIN_WARPS_PER_SM warps)
+BWD_LANES = 4
+BWD_SUB = 8
+BWD_DI_TILE = 64
+#: d-tiles a group of K7b's two-level dB/dC sum
+BWD_GROUP = 16
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -102,7 +115,8 @@ class MambaBlocks(NamedTuple):
     ``block_b`` rows of the batch run one after another in a block (each
     exactly as alone); ``chunk`` is the window of B, C, x and dt rows in
     shared memory and the trajectory's cadence (I/O granularity only);
-    ``di_tile`` is the channels of a block, one a thread.
+    ``di_tile`` is the channels of a block, one a thread in K7 and K7t
+    and four in K7b.
 
     Presents ``core/tiling.TilePlan``: ``batch_tile`` is ``block_b``,
     ``time_chunk`` is ``chunk`` (the kernels always stream time)."""
@@ -120,45 +134,72 @@ class MambaBlocks(NamedTuple):
 
 
 def working_set_bytes(seq_len: int, d_state: int, chunk: int, di_tile: int,
-                      mode: str = "fwd") -> int:
+                      mode: str = "fwd", io_bytes: int = 4) -> int:
     """Dynamic shared memory of one thread block, exactly as the kernel of
     ``mode`` launches it (the C side refuses a launch priced otherwise).
-    All terms are f32 whatever the IO dtype.
 
-    ``mode="fwd"`` prices K7 and K7t: the chunk's x and dt windows
-    (C, di_tile) and B and C rows (C, d_state).  ``mode="bwd"`` prices K7b:
-    those, the dy window (C, di_tile), the chunk's per-step states
-    (C + 1, d_state, di_tile) — its incoming state and the state after each
-    step, recomputed from ``h_traj`` (the port's form of JAX's
-    ``linearised_scan`` term, and what pushes the training chunk down) —
-    and each warp's partial sums of dB and dC for each step (C, di_tile).
-    The state never enters the table: it lives in registers.  Neither
-    grows with ``block_b``: a block runs its rows one after another."""
+    ``mode="fwd"`` prices K7 and K7t, a block of ``di_tile`` channels, one
+    a thread: the chunk's x and dt windows (C, di_tile) and B and C rows
+    (C, d_state), all f32 whatever the IO dtype.  The state never enters
+    the table: it lives in registers.
+
+    ``mode="bwd"`` prices K7b, a block of ``di_tile`` channels, four lanes
+    each (``BWD_LANES`` x di_tile threads), which walks a chunk in
+    sub-chunks of ``BWD_SUB`` steps:
+      * ``checkpoints``: the state at each sub-chunk's start, a float4 a
+        lane, ceil(C / BWD_SUB) x threads x 16 bytes -- the port's form of
+        JAX's ``linearised_scan`` term; a sub-chunk's own states and decays
+        are recomputed into registers, so no term grows with the states of
+        the whole chunk;
+      * ``sums``: each warp's 32 dB/dC sums of each step of a sub-chunk,
+        in two slots by sub-chunk parity, 2 x BWD_SUB x threads x 4 bytes;
+      * ``ring``: two chunk windows, each dt (C, di_tile) f32, x and dy
+        (C, di_tile) in the IO dtype (``io_bytes``: 4 for f32, 2 for
+        bf16), the chunk's incoming state (di_tile, d_state) f32 (K7t's
+        ``h_traj`` row) and the B and C rows (C, d_state) f32, rounded up
+        to 16 bytes.
+    Neither table grows with ``block_b``: a block runs its rows one after
+    another."""
     ws = tiling.WorkingSet(mode)
     C = max(1, min(chunk, seq_len))
-    ws.add("x_dt", 2 * C * di_tile * 4)
-    ws.add("b_c", 2 * C * d_state * 4)
-    ws.add("dy", C * di_tile * 4, bwd_only=True)
-    ws.add("states", (C + 1) * d_state * di_tile * 4, bwd_only=True)
-    ws.add("partials", C * di_tile * 4, bwd_only=True)
+    if mode == "fwd":
+        ws.add("x_dt", 2 * C * di_tile * 4)
+        ws.add("b_c", 2 * C * d_state * 4)
+        return ws.total()
+    threads = BWD_LANES * di_tile
+    ws.add("checkpoints", -(-C // BWD_SUB) * threads * 16)
+    ws.add("sums", 2 * BWD_SUB * threads * 4)
+    ws.add("ring", 2 * factorization.round_up(
+        C * di_tile * (4 + 2 * io_bytes) + di_tile * d_state * 4
+        + 2 * C * d_state * 4, 16))
     return ws.total()
 
 
-def block_budget(di_tile: int) -> int:
-    """Shared memory one block of ``di_tile`` threads may take so that
+def block_budget(threads: int) -> int:
+    """Shared memory one block of ``threads`` threads may take so that
     ``MIN_WARPS_PER_SM`` warps fit on an SM: the SM's shared memory over
-    the blocks needed, less the runtime's reserve of each."""
-    blocks = max(1, MIN_WARPS_PER_SM * factorization.WARP // di_tile)
+    the blocks needed, less the runtime's reserve of each.  A forward
+    block has ``di_tile`` threads, a K7b block ``BWD_LANES`` x di_tile."""
+    blocks = max(1, MIN_WARPS_PER_SM * factorization.WARP // threads)
     return min(factorization.H100_SMEM_PER_BLOCK,
                factorization.H100_SMEM_PER_SM // blocks
                - factorization.H100_SMEM_RESERVED_PER_BLOCK)
 
 
-def _tiles(d_inner: int) -> list[int]:
-    """Candidate d_inner tiles, coarse to fine: whole warps up to
-    ``DI_TILE``, no wider than d_inner needs."""
-    top = min(DI_TILE, factorization.round_up(d_inner, factorization.WARP))
+def _tiles(d_inner: int, top: int = DI_TILE) -> list[int]:
+    """Candidate d_inner tiles, coarse to fine: whole warps up to ``top``,
+    no wider than d_inner needs."""
+    top = min(top, factorization.round_up(d_inner, factorization.WARP))
     return [t for t in tiling.halving(top) if t % factorization.WARP == 0]
+
+
+def _bwd_tile(d_inner: int) -> int:
+    """K7b's default tile: the widest power of two of channels up to
+    ``BWD_DI_TILE`` that d_inner needs (at least 8, one warp)."""
+    tile = 8
+    while tile < min(BWD_DI_TILE, d_inner):
+        tile *= 2
+    return tile
 
 
 def choose_blocks(seq_len: int, d_inner: int, d_state: int, *,
@@ -170,21 +211,30 @@ def choose_blocks(seq_len: int, d_inner: int, d_state: int, *,
     The chunk halves from ``target`` (clamped to T; whole T when None) and,
     at each chunk, the tile halves from ``DI_TILE`` to one warp; the first
     pair whose working set fits wins.  The budget is ``smem_budget`` when
-    given, else ``block_budget(di_tile)``.  The batch tile is one row, so
-    the rows spread over the SMs.  None when d_state exceeds the registers
-    a thread keeps (``MAX_DS``) or even a chunk of 1 does not fit; the plan
-    then takes the oracle on the CPU and raises on the card.
+    given, else ``block_budget`` of the block's threads.  The batch tile is
+    one row, so the rows spread over the SMs.  None when d_state exceeds
+    the registers a thread keeps (``MAX_DS``) or even a chunk of 1 does not
+    fit; the plan then takes the oracle on the CPU and raises on the card.
+
     ``mode="bwd"`` is the training decision: its chunk and tile serve the
-    training forward (K7t) and the backward (K7b)."""
+    training forward (K7t, a block of di_tile threads) and the backward
+    (K7b, BWD_LANES x di_tile threads), so both working sets must fit
+    their budgets, the tile starting at ``BWD_DI_TILE``.  K7b's own terms
+    no longer grow with the chunk's states, so at Jamba's width K7t's
+    windows set the chunk."""
     tiling.check_mode(mode)
     if d_state > MAX_DS:
         return None
     start = seq_len if target is None else target
+    top = DI_TILE if mode == "fwd" else BWD_DI_TILE
     for c in tiling.halving(max(1, min(start, seq_len))):
-        for tile in _tiles(d_inner):
-            budget = block_budget(tile) if smem_budget is None \
-                else smem_budget
-            if working_set_bytes(seq_len, d_state, c, tile, mode) <= budget:
+        for tile in _tiles(d_inner, top):
+            kernels = [("fwd", tile)]
+            if mode == "bwd":
+                kernels.append(("bwd", BWD_LANES * tile))
+            if all(working_set_bytes(seq_len, d_state, c, tile, m) <= (
+                    block_budget(threads) if smem_budget is None
+                    else smem_budget) for m, threads in kernels):
                 return MambaBlocks(1, c, tile)
     return None
 
@@ -319,33 +369,39 @@ def _validate(x, dt, b, c, a, h) -> None:
 
 def _card_smem(what: str, mode: str, x, ds: int, chunk: int, di_tile: int,
                *io) -> int:
-    """Check a launch on the card — device, one IO dtype for x and ``io``,
-    states a thread can hold, a tile of whole warps — and return its
-    shared memory."""
+    """Check a launch on the card -- device, one IO dtype for x and ``io``,
+    states a thread can hold, a tile the kernel of ``mode`` takes (whole
+    warps up to ``DI_TILE`` for K7/K7t; a power of two of channels from 8
+    to ``BWD_DI_TILE`` for K7b) -- and return its shared memory."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
     if any(t.dtype != x.dtype for t in io) or x.dtype not in _IO_DTYPES:
         raise TypeError(f"{what} on the card takes x{' and dy' if io else ''}"
                         f" in one dtype, float32 or bfloat16; got "
                         f"{[t.dtype for t in (x, *io)]}")
-    smem = working_set_bytes(x.shape[1], ds, chunk, di_tile, mode)
-    if ds > MAX_DS or di_tile % factorization.WARP or not \
-            factorization.WARP <= di_tile <= DI_TILE \
+    smem = working_set_bytes(x.shape[1], ds, chunk, di_tile, mode,
+                             io_bytes=x.element_size())
+    if mode == "fwd":
+        tile_ok = di_tile % factorization.WARP == 0 and \
+            factorization.WARP <= di_tile <= DI_TILE
+    else:
+        tile_ok = 8 <= di_tile <= BWD_DI_TILE and not di_tile & (di_tile - 1)
+    if ds > MAX_DS or not tile_ok \
             or smem > factorization.H100_SMEM_PER_BLOCK:
         raise ValueError(f"{what}: d_state {ds} (at most {MAX_DS}), di_tile "
-                         f"{di_tile} (whole warps up to {DI_TILE}) at chunk "
-                         f"{chunk} need {smem} bytes of shared memory (at "
-                         f"most {factorization.H100_SMEM_PER_BLOCK})")
+                         f"{di_tile} at chunk {chunk} need {smem} bytes of "
+                         f"shared memory (at most "
+                         f"{factorization.H100_SMEM_PER_BLOCK})")
     return smem
 
 
-def _resolve(x, chunk: int, block_b: int, di_tile: int | None
-             ) -> tuple[int, int, int]:
+def _resolve(x, chunk: int, block_b: int, di_tile: int | None,
+             mode: str = "fwd") -> tuple[int, int, int]:
     """The clamps: chunk to [1, T], block_b to [1, B], di_tile (None: the
-    widest tile d_inner needs) to whole warps up to ``DI_TILE``."""
+    widest tile d_inner needs for the kernel of ``mode``)."""
     B, T, di = x.shape
     if di_tile is None:
-        di_tile = _tiles(di)[0]
+        di_tile = _tiles(di)[0] if mode == "fwd" else _bwd_tile(di)
     return max(1, min(chunk, T)), max(1, min(block_b, B)), di_tile
 
 
@@ -408,7 +464,7 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     _validate(x, dt, b, c, a, dh_fin)
     B, T, di = x.shape
     ds = b.shape[-1]
-    chunk, block_b, di_tile = _resolve(x, chunk, block_b, di_tile)
+    chunk, block_b, di_tile = _resolve(x, chunk, block_b, di_tile, "bwd")
     nt = -(-T // chunk)
     if h_traj.shape != (B, nt, di, ds) or dy.shape != x.shape:
         raise ValueError(f"mamba_scan_bwd shapes: h_traj "
@@ -427,13 +483,15 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
              torch.empty_like(c), torch.empty_like(a),
              torch.empty_like(dh_fin))
     n_dtiles, n_rowtiles = -(-di // di_tile), -(-B // block_b)
+    n_groups = -(-n_dtiles // BWD_GROUP)
     # workspaces: each block's dB/dC sums of each chunk step (32 words, dB
-    # then dC, a step) and its dA; one ticket per (row, chunk) and per tile
-    parts = torch.empty(B * nt * n_dtiles * chunk * 32, dtype=F32,
-                        device=x.device)
+    # then dC, a step), then each group's, and its dA; a ticket per (row,
+    # chunk, group), per (row, chunk) and per tile
+    parts = torch.empty(B * nt * (n_dtiles + n_groups) * chunk * 32,
+                        dtype=F32, device=x.device)
     da_parts = torch.empty(n_rowtiles * di * ds, dtype=F32, device=x.device)
-    tickets = torch.zeros(B * nt + n_dtiles, dtype=torch.int32,
-                          device=x.device)
+    tickets = torch.zeros(B * nt * (n_groups + 1) + n_dtiles,
+                          dtype=torch.int32, device=x.device)
     ptrs = (x, dt, b, c, a, h_traj, dy, dh_fin, *grads, parts, da_parts,
             tickets)
     lib, fn = _entry("mamba_scan_bwd",
@@ -443,6 +501,23 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     _build.check(lib, "mamba_scan_bwd", err)
     mamba_scan_bwd.launches += 1
     return grads
+
+
+def bwd_blocks_per_sm(dtype: torch.dtype, seq_len: int, d_state: int,
+                      chunk: int, di_tile: int) -> int:
+    """K7b blocks one SM holds at once at this launch's shared memory, as
+    the CUDA runtime's occupancy calculator sees the kernel (the card
+    only)."""
+    io = torch.tensor([], dtype=dtype).element_size()
+    smem = working_set_bytes(seq_len, d_state, chunk, di_tile, "bwd",
+                             io_bytes=io)
+    lib = _build.load("mamba_scan_bwd")
+    fn = lib.mamba_scan_bwd_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+    n = fn(io, di_tile, smem)
+    if n < 0:
+        _build.check(lib, "mamba_scan_bwd", -n)
+    return n
 
 
 class _MambaFn(torch.autograd.Function):

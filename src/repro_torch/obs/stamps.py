@@ -1,14 +1,17 @@
 """Phase stamps, instruction counts and times of a kernel on the card:
 where a launch of the RWKV6 chunked scans (K6 ``wkv6``, K6t ``wkv6_traj``,
-K6b ``wkv6_bwd``), the fused LSTM cell (K1 ``lstm_cell``) or the decode
-attention (K9 ``decode_attn``) spends its cycles.
+K6b ``wkv6_bwd``), the fused LSTM cell (K1 ``lstm_cell``), the decode
+attention (K9 ``decode_attn``), the Mamba selective scans (K7, K7t and K7b
+under ``mamba_scan_bwd``) or the stacked-LSTM backward (K3 and K3-q8 under
+``lstm_seq_bwd``) spends its cycles.
 
     PYTHONPATH=src python -m repro_torch.obs.stamps [--kernel wkv6]
-        [--dtype float32] [--sass]
+        [--dtype float32] [--sass] [--no-stamps]
 
 Each kernel source is copied with a ``clock64()`` stamp after every
-``__syncthreads()`` of its ``__global__`` body and one before the body's
-closing brace: thread 0 of each block adds the cycles since its previous
+barrier of its ``__global__`` body (``__syncthreads()`` or a named
+barrier, ``lstm_gates::bar_sync``) and one before the body's closing
+brace: thread 0 of each block adds the cycles since its previous
 stamp to a per-(block, site) counter and counts its passes, so site k's
 counter holds the time of the phase that ends there, the wait for the
 block's slowest warp included.  The adds are fire-and-forget atomics
@@ -24,7 +27,13 @@ launch at the kernel's main-path shapes, random inputs from seed 0:
 - ``lstm_cell``: the paper's cell, 2 x 32 at B = 1 (a served window) and
   B = 64 (a training batch), and 2 x 64 at B = 1, f32;
 - ``decode_attn``: Qwen2-0.5B's and Yi-9B's served decode step, B = 4 over
-  517 cache slots at length 508; bf16 unless ``--dtype float32``.
+  517 cache slots at length 508; bf16 unless ``--dtype float32``;
+- ``mamba_scan_bwd``: the attention-free Jamba-1.5-Large scan at full
+  width, B = 4 x T = 512, d_inner 16384, d_state 16: K7 at the serving
+  table's tiling (a prefill, and the one-step decode at T = 1), K7t and
+  K7b at the training table's; x and dy bf16 unless ``--dtype float32``;
+- ``lstm_seq_bwd``: the paper's 2 x 32 stack trained at batch 64, T = 128:
+  K3 (f32) and K3-q8 at the backward table's tiling.
 
 Printed per site: its line in the source, the nearest phase comment above
 it, the mean cycles a pass, the passes a block (over the blocks that reach
@@ -32,9 +41,13 @@ it) and its share of the cycles.  The stamps add a few instructions per
 phase; the launch's time with and without them is printed beside them.
 For ``lstm_cell`` and ``decode_attn`` the kernel's time back to back and in
 a CUDA graph (device time alone) is printed beside one PyTorch call of the
-same function (``nn.LSTMCell``; SDPA with a length mask), and the bound.
+same function (``nn.LSTMCell``; SDPA with a length mask), and the bound;
+for ``mamba_scan_bwd`` and ``lstm_seq_bwd`` each launch's time back to back
+and in a CUDA graph.
 
-``--sass`` also disassembles the real build (``cuobjdump -sass``) and
+``--no-stamps`` prints the times alone (no stamped copy is built), for
+comparing two trees in one call.  ``--sass`` also disassembles the real
+build (``cuobjdump -sass``) and
 prints, per kernel instance, the count of the instructions that bound
 these kernels: FFMA/FMUL/FADD, LDS/STS, MUFU.EX2, SHFL, BAR, LDG/STG,
 LDGSTS (cp.async) and ATOMG/RED; ptxas's registers and spills of every
@@ -65,6 +78,11 @@ CELL_SHAPES = ((1, 32, 32), (64, 32, 32), (1, 64, 64))
 #: cache slots, every row at length 508
 DECODE_SHAPES = (("qwen2-0.5b", 14, 2, 64), ("yi-9b", 32, 4, 128))
 DECODE_B, DECODE_S, DECODE_LEN = 4, 517, 508
+#: the Jamba scan's training and serving shape: B, T, d_inner, d_state,
+#: and the config's chunk (configs/jamba_1_5_large_398b.py)
+MAMBA_SHAPE, MAMBA_CHUNK = (4, 512, 16384, 16), 64
+#: the HAR training backward: batch, T, layers, hidden (P = H)
+LSTM_BWD_SHAPE = (64, 128, 2, 32)
 HBM_BYTES_PER_S = 3.35e12
 MAX_SITES = 64
 MAX_BLOCKS = 4096
@@ -98,6 +116,11 @@ extern "C" int stamps_reset() {{
 """
 
 
+def is_barrier(line: str) -> bool:
+    """Whether a source line is a block or named barrier the stamps follow."""
+    return "__syncthreads();" in line or "bar_sync(" in line
+
+
 def instrument(text: str) -> tuple[str, list[tuple[int, str]]]:
     """The source with a stamp after each barrier of each ``__global__``
     body and one before the body's closing brace, and per stamp site its
@@ -128,7 +151,7 @@ def instrument(text: str) -> tuple[str, list[tuple[int, str]]]:
         out.append(line)
         if opening:
             out.append("  long long stamp_prev_ = clock64();")
-        if in_kernel and "__syncthreads();" in line:
+        if in_kernel and is_barrier(line):
             out.append(f"PHASE_STAMP({len(sites)});")
             sites.append((n, label or stripped))
     if len(sites) > MAX_SITES:
@@ -355,8 +378,88 @@ def decode_attn_runs(dtype, rnd) -> dict:
     return runs
 
 
+def timed(name: str, fn) -> None:
+    """Print ``fn``'s time back to back and in a CUDA graph."""
+    print(f"[time] {name}: {event_ms(fn, 20, 5):.4f} ms back to back, "
+          f"{graph_ms(fn):.4f} ms in a CUDA graph")
+
+
+def mamba_runs(dtype, rnd) -> dict:
+    """K7 (a prefill and a T = 1 decode at the serving tiling), K7t and K7b
+    (at the training tiling) at Jamba's width, each timed back to back and
+    in a CUDA graph."""
+    from repro_torch.kernels import mamba_scan as ms
+    B, T_, di, ds = MAMBA_SHAPE
+    sv = ms.choose_blocks(T_, di, ds, target=MAMBA_CHUNK)
+    tr = ms.choose_blocks(T_, di, ds, target=MAMBA_CHUNK, mode="bwd")
+    x = rnd(B, T_, di).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, T_, di))
+    b, c = rnd(B, T_, ds), rnd(B, T_, ds)
+    a, h0 = -torch.exp(rnd(di, ds)), rnd(B, di, ds, scale=0.3)
+    args = (x, dt, b, c, a, h0)
+    one = tuple(t[:, :1] for t in args[:4]) + (a, h0)
+    _, _, traj = ms.mamba_scan_traj(*args, chunk=tr.chunk,
+                                    di_tile=tr.di_tile)
+    dy, dhf = rnd(B, T_, di).to(dtype), rnd(B, di, ds)
+    print(f"[stamps] B={B} T={T_} d_inner {di} d_state {ds} {dtype}: "
+          f"serving {sv}, training {tr}")
+    runs = {
+        f"mamba_scan (K7) prefill C={sv.chunk}": (
+            lambda: ms.mamba_scan(*args, chunk=sv.chunk, di_tile=sv.di_tile),
+            "mamba_scan"),
+        "mamba_scan (K7) decode T=1": (
+            lambda: ms.mamba_scan(*one, chunk=1, di_tile=sv.di_tile),
+            "mamba_scan"),
+        f"mamba_scan_traj (K7t) C={tr.chunk}": (
+            lambda: ms.mamba_scan_traj(*args, chunk=tr.chunk,
+                                       di_tile=tr.di_tile), "mamba_scan"),
+        f"mamba_scan_bwd (K7b) C={tr.chunk}": (
+            lambda: ms.mamba_scan_bwd(*args[:5], traj, dy, dhf,
+                                      chunk=tr.chunk, di_tile=tr.di_tile),
+            "mamba_scan_bwd")}
+    for name, (fn, _) in runs.items():
+        timed(name, fn)
+    return runs
+
+
+def lstm_bwd_runs(dtype, rnd) -> dict:
+    """K3 and K3-q8 at the HAR training shape and the backward table's
+    tiling, each timed back to back and in a CUDA graph."""
+    from repro_torch.kernels import lstm_seq as seq_k
+    from repro_torch.kernels import lstm_seq_bwd as bwd_k
+    from repro_torch.kernels import ref
+    B, T_, L, H = LSTM_BWD_SHAPE
+    w = rnd(L, 2 * H, 4 * H, scale=(2 * H) ** -0.5)
+    b, x = rnd(L, 4 * H, scale=0.1), rnd(B, T_, H)
+    dc, dh = rnd(L, B, H), rnd(L, B, H)
+    tiles = seq_k.choose_batch_block(B, T_, L, H, H, mode="bwd")
+    kw = dict(block_b=tiles.block_b, time_chunk=tiles.time_chunk)
+    _, _, ct, ht = seq_k.lstm_seq_traj(w, b, x, **kw)
+    wq, s = ref.quantize_q8(w)
+    qt = seq_k.choose_batch_block(B, T_, L, H, H, mode="bwd",
+                                  quantized=True)
+    qkw = dict(block_b=qt.block_b, time_chunk=qt.time_chunk)
+    _, _, cq, hq = seq_k.lstm_seq_q8_traj(wq, s, b, x, **qkw)
+    print(f"[stamps] B={B} T={T_} {L} x {H}: f32 tiles {tuple(tiles)}, q8 "
+          f"tiles {tuple(qt)}")
+    runs = {
+        "lstm_seq_bwd (K3) f32": (
+            lambda: bwd_k.lstm_seq_bwd(w, b, x, ct, ht, dc, dh, **kw),
+            "lstm_seq_bwd"),
+        "lstm_seq_bwd_q8 (K3-q8)": (
+            lambda: bwd_k.lstm_seq_bwd_q8(wq, s, b, x, cq, hq, dc, dh,
+                                          **qkw), "lstm_seq_bwd")}
+    for name, (fn, _) in runs.items():
+        timed(name, fn)
+    return runs
+
+
 KERNELS = {"wkv6": wkv6_runs, "lstm_cell": lstm_cell_runs,
-           "decode_attn": decode_attn_runs}
+           "decode_attn": decode_attn_runs, "mamba_scan_bwd": mamba_runs,
+           "lstm_seq_bwd": lstm_bwd_runs}
+#: the sources each choice stamps (by default the choice's own)
+SOURCES = {"wkv6": ("wkv6", "wkv6_bwd"),
+           "mamba_scan_bwd": ("mamba_scan", "mamba_scan_bwd")}
 
 
 def main(argv=None) -> None:
@@ -364,16 +467,18 @@ def main(argv=None) -> None:
     ap.add_argument("--kernel", default="wkv6", choices=tuple(KERNELS))
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("float32", "bfloat16"),
-                    help="IO dtype of wkv6 and decode_attn (lstm_cell is "
-                    "f32 only)")
+                    help="IO dtype of wkv6, decode_attn and mamba_scan_bwd "
+                    "(lstm_cell is f32 only, lstm_seq_bwd runs f32 and q8)")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--no-stamps", action="store_true",
+                    help="print the times alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("stamps: no CUDA device")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     dtype = getattr(torch, args.dtype)
-    if args.kernel == "lstm_cell":
+    if args.kernel in ("lstm_cell", "lstm_seq_bwd"):
         dtype = torch.float32
 
     def rnd(*shape, scale=1.0):
@@ -383,8 +488,7 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True)
     clock_hz = float(clock.stdout.split()[0]) * 1e6
-    sources = sorted({"wkv6": ("wkv6", "wkv6_bwd")}.get(
-        args.kernel, (args.kernel,)))
+    sources = sorted(SOURCES.get(args.kernel, (args.kernel,)))
     logs = _build.build_all(tuple(sources), ptxas_info=True)
     for name, log in logs.items():
         entry = ""
@@ -396,12 +500,15 @@ def main(argv=None) -> None:
                 print(f"[build] {name} {entry}: {line.strip()}")
     runs = KERNELS[args.kernel](dtype, rnd)
     unstamped_ms = {name: event_ms(fn) for name, (fn, _) in runs.items()}
-    stamped = {src: build_stamped(src) for src in sources}
+    stamped = {} if args.no_stamps else {
+        src: build_stamped(src) for src in sources}
     real_load = _build.load
     _build.load = lambda name: stamped[name][0] if name in stamped \
         else real_load(name)
     try:
         for name, (fn, src) in runs.items():
+            if src not in stamped:
+                continue
             lib, sites = stamped[src]
             ms = event_ms(fn)
             print(f"[stamps] {name}: {unstamped_ms[name]:.4f} ms a launch, "

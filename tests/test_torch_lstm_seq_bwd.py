@@ -181,12 +181,28 @@ def test_no_grad_runs_the_plain_forward():
 @pytest.mark.parametrize("bm_tc", [(1, None), (4, None), (1, 32), (16, 8)])
 def test_bwd_working_set_terms(bm_tc):
     """The backward's set, term by term, is exactly the shared memory
-    lstm_seq_bwd.cu carves out, and holds every forward term at least as
-    large, so it is larger than the forward's."""
+    lstm_seq_bwd.cu carves out.  One row a block at 2 x 32 is the register
+    home's wavefront, whose set does not depend on T or the time chunk;
+    the 4- and 16-row tiles are the shared home's, larger than the
+    forward's."""
     bm, tc = bm_tc
     L, P, H, T = 2, 32, 32, 128
     fwd = seq_k.working_set_bytes(T, L, P, H, bm, time_chunk=tc)
     bwd = seq_k.working_set_bytes(T, L, P, H, bm, mode="bwd", time_chunk=tc)
+    if seq_k.weight_home(L, P, H, bm) == "registers":
+        G = 4 * H
+        terms = {
+            # 16 trajectory rows: (c, h) of every layer and x (the weights
+            # are in the lanes' registers)
+            "ring": seq_k.BWD_RING * (2 * L * H + P) * 4,
+            # two parity slots of activations, tanh(c), dg, dh_prev, dinp
+            "slots": 2 * L * (G + H + G + H + P) * 4,
+            # the closing dW pass's two stages of 33 rows of dg, h and x
+            "dw_stage": 2 * (seq_k.BWD_STAGE + 1) * (L * (G + H) + P) * 4}
+        assert bwd == sum(terms.values()) == 108_800
+        assert bwd == seq_k.working_set_bytes(300, L, P, H, bm, mode="bwd",
+                                              time_chunk=37)
+        return
     x_rows = T if tc is None else 2 * tc
     traj_rows = T + 1 if tc is None else 2 * (tc + 1)
     shared = (L * (P + H) * (4 * H + 8) * 4 + L * 4 * H * 4  # W, bias
@@ -201,14 +217,18 @@ def test_bwd_working_set_terms(bm_tc):
 
 @pytest.mark.parametrize("case", [
     # (T, L, P, H, block_b, kwargs, bytes): what the backward kernel
-    # launched with before the forward became a wavefront, unchanged
-    (128, 2, 32, 32, 1, {}, 225408),
+    # launches with.  The shared home's (every tile but one row at 2 x
+    # 32) is unchanged since the forward became a wavefront; one row at
+    # 2 x 32 is the register home's wavefront, 108,800 bytes in f32 and
+    # 110,848 in int8 (dg * s) at every T and time chunk (225,408, 184,960,
+    # 175,744, 191,360 and 190,336 bytes in the shared home before it)
+    (128, 2, 32, 32, 1, {}, 108800),
     (128, 2, 32, 32, 4, {}, 477696),
-    (128, 2, 32, 32, 1, dict(time_chunk=32), 184960),
+    (128, 2, 32, 32, 1, dict(time_chunk=32), 108800),
     (128, 2, 32, 32, 16, dict(time_chunk=8), 348160),
-    (128, 2, 32, 32, 1, dict(quantized=True), 175744),
-    (300, 2, 32, 32, 1, dict(time_chunk=37), 191360),
-    (300, 2, 32, 32, 1, dict(time_chunk=75, quantized=True), 190336),
+    (128, 2, 32, 32, 1, dict(quantized=True), 110848),
+    (300, 2, 32, 32, 1, dict(time_chunk=37), 108800),
+    (300, 2, 32, 32, 1, dict(time_chunk=75, quantized=True), 110848),
     (128, 2, 64, 64, 1, dict(time_chunk=1, quantized=True), 355072),
     (20, 2, 9, 8, 1, {}, 15216),
 ], ids=["B1", "tile4", "tc32", "tile16-tc8", "q8", "T300-tc37",
@@ -242,14 +262,15 @@ def test_a_bwd_tiling_fits_the_trajectory_launch_that_feeds_it():
 
 
 @pytest.mark.parametrize("case", [
-    # (L, H, B, T, expected): the paper's 2 x 32 keeps whole T at T=128
-    # (225,408 of 232,448 bytes) in one-row blocks; at T=300 the halving
-    # walk 150, 75, 37 first fits at 37 (75 needs 240,000 bytes); the
-    # 16-row tiles of a batch of 2000 hold 168 KiB before any window, so
-    # only 2-step chunks fit; 2 x 64 fits neither forward nor backward
+    # (L, H, B, T, expected): the paper's 2 x 32 keeps whole T in one-row
+    # blocks, at T=128 and at T=300 alike: the register home's backward
+    # streams 16 trajectory rows whatever T (108,800 of 232,448 bytes),
+    # and the forward's x ring holds 300 rows; the 16-row tiles of a batch
+    # of 2000 hold 168 KiB before any window, so only 2-step chunks fit;
+    # 2 x 64 fits neither forward nor backward
     (2, 32, 1, 128, seq_k.SeqBlocks(1, None)),
     (2, 32, 64, 128, seq_k.SeqBlocks(1, None)),
-    (2, 32, 64, 300, seq_k.SeqBlocks(1, 37)),
+    (2, 32, 64, 300, seq_k.SeqBlocks(1, None)),
     (2, 32, 2000, 128, seq_k.SeqBlocks(16, 2)),
     (2, 64, 1, 128, None),
 ], ids=["2x32-B1", "2x32-B64", "2x32-T300", "2x32-B2000", "2x64"])

@@ -208,6 +208,29 @@ def test_bwd_plain_matches_the_jax_kernel(case):
         np.testing.assert_allclose(_np(g), _np(w), **GRAD_TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("T", [64, 70])
+def test_plain_versions_at_the_training_chunk_match_the_jax_kernels(T):
+    """K7t's and K7b's plain versions at the chunk the training table takes
+    (32 here, as at Jamba's width), on a small width, against JAX's Pallas
+    ``_traj_kernel`` (``_fwd_call(traj=True)``, T a multiple of the chunk)
+    and ``jax.vjp`` of the entry with its fused ``_bwd_kernel``, interpret
+    mode."""
+    chunk = ms.choose_blocks(T, 16, 16, target=64, mode="bwd").chunk
+    assert chunk == 32
+    a, c = _np_inputs(2, T, 16, 16, seed=20)
+    if T % chunk == 0:
+        jy, jh, jtraj = jax_ms._fwd_call(*_jax(a), chunk, 1, True, traj=True)
+        y, h, traj = ms.mamba_scan_traj(*_torch(a), chunk=chunk)
+        for g, w in ((y, jy), (h, jh), (traj, jtraj)):
+            np.testing.assert_allclose(_np(g), _np(w), **TOL["float32"])
+    _, vjp = jax.vjp(lambda *x: jax_ms.mamba_scan(
+        *x, chunk=chunk, block_b=1, bwd=jax_ms.FUSED_BWD), *_jax(a))
+    want = vjp(tuple(_jax(c)))
+    got = _plain_bwd(_torch(a), _torch(c), chunk)
+    for name, g, w in zip(GRADS, got, want):
+        np.testing.assert_allclose(_np(g), _np(w), **GRAD_TOL, err_msg=name)
+
+
 def test_bwd_plain_output_dtypes_follow_the_io():
     a, c = _np_inputs(2, 9, 6, 4, seed=9)
     got = _plain_bwd(_torch(a, "bfloat16"), _torch(c, "bfloat16"), 4)
@@ -303,48 +326,71 @@ def test_no_gradient_means_no_function():
 # the budget tables
 # ---------------------------------------------------------------------------
 def test_working_set_term_by_term():
-    """Jamba's width (d_state 16) at chunk 4 and a tile of 128 channels:
-    the forward holds the x and dt windows (4, 128) and the B and C rows
-    (4, 16); the backward adds the dy window, the per-step states
-    (5, 16, 128) and the warps' dB/dC sums (4, 128) — 49,664 bytes, four
-    blocks and sixteen warps to an SM."""
-    fwd = {"x_dt": 2 * 4 * 128 * 4, "b_c": 2 * 4 * 16 * 4}
-    bwd = dict(fwd, dy=4 * 128 * 4, states=5 * 16 * 128 * 4,
-               partials=4 * 128 * 4)
-    assert ms.working_set_bytes(512, 16, 4, 128) == sum(fwd.values())
-    assert ms.working_set_bytes(512, 16, 4, 128, mode="bwd") == \
-        sum(bwd.values()) == 49_664
-    assert 4 * (49_664 + factorization.H100_SMEM_RESERVED_PER_BLOCK) <= \
-        factorization.H100_SMEM_PER_SM
-    # the d_inner tile is a term of both tables; the chunk clamps to T
-    assert ms.working_set_bytes(512, 16, 4, 64, mode="bwd") < 49_664
-    assert ms.working_set_bytes(512, 16, 4, 64) < sum(fwd.values())
+    """Jamba's width (d_state 16) at the training chunk 32: the forward (K7,
+    K7t) at a tile of 64 channels, one a thread, holds the x and dt windows
+    (32, 64) and the B and C rows (32, 16), 20,480 bytes, eight blocks and
+    sixteen warps an SM; K7b at the same tile, four lanes a channel (256
+    threads), holds no per-step state of the chunk, 98,304 bytes in f32
+    IO, two blocks and sixteen warps an SM."""
+    fwd = {"x_dt": 2 * 32 * 64 * 4, "b_c": 2 * 32 * 16 * 4}
+    threads = ms.BWD_LANES * 64
+    bwd = {
+        # the state at each sub-chunk's start, a float4 a lane: 4 of 8 steps
+        "checkpoints": 32 // ms.BWD_SUB * threads * 16,
+        # each warp's 32 dB/dC sums of each of a sub-chunk's 8 steps, in
+        # two slots by sub-chunk parity
+        "sums": 2 * ms.BWD_SUB * threads * 4,
+        # two chunk windows: dt f32, x and dy in the IO dtype (f32 here),
+        # the chunk's incoming state (64, 16) and the B and C rows (32, 16)
+        "ring": 2 * (32 * 64 * (4 + 2 * 4) + 64 * 16 * 4 + 2 * 32 * 16 * 4)}
+    assert ms.working_set_bytes(512, 16, 32, 64) == sum(fwd.values()) \
+        == 20_480
+    assert ms.working_set_bytes(512, 16, 32, 64, mode="bwd") == \
+        sum(bwd.values()) == 98_304
+    for nbytes, blocks in ((20_480, 8), (98_304, 2)):
+        assert blocks * (nbytes + factorization.H100_SMEM_RESERVED_PER_BLOCK)\
+            <= factorization.H100_SMEM_PER_SM
+    # bf16 IO stages x and dy at 2 bytes
+    assert ms.working_set_bytes(512, 16, 32, 64, mode="bwd", io_bytes=2) == \
+        98_304 - 2 * 32 * 64 * 2 * 2
+    # the d_inner tile is a term of both tables; the chunk clamps to T; an
+    # odd window rounds up to 16 bytes
+    assert ms.working_set_bytes(512, 16, 32, 32, mode="bwd") < 98_304
+    assert ms.working_set_bytes(512, 16, 32, 32) < sum(fwd.values())
     assert ms.working_set_bytes(5, 16, 8, 128) == \
         ms.working_set_bytes(5, 16, 5, 128)
+    assert ms.working_set_bytes(512, 5, 7, 8, mode="bwd") % 16 == 0
     with pytest.raises(ValueError):
         ms.working_set_bytes(512, 16, 4, 128, mode="train")
 
 
 def test_block_budget_keeps_sixteen_warps_an_sm():
-    for tile, blocks in ((128, 4), (64, 8), (32, 16)):
-        assert ms.block_budget(tile) == \
+    for threads, blocks in ((256, 2), (128, 4), (64, 8), (32, 16)):
+        assert ms.block_budget(threads) == \
             factorization.H100_SMEM_PER_SM // blocks - 1024
-        assert blocks * tile // 32 == ms.MIN_WARPS_PER_SM
+        assert blocks * threads // 32 == ms.MIN_WARPS_PER_SM
 
 
 def test_choose_blocks_at_jambas_width():
     """Serving halves the config's chunk 64 to 32, where four blocks of
-    the widest tile share an SM; training halves it to 4, where the
-    backward's per-step states fit its budget, and the backward's table is
-    the tighter."""
+    the widest tile share an SM.  Training takes chunk 32 at a tile of 64
+    channels: there K7t's windows fit eight blocks an SM and K7b (which no
+    longer stages a chunk's states) two, so K7t writes its trajectory every
+    32 steps; at chunk 64 K7t's windows fit no tile at sixteen warps, nor
+    K7b's two chunk windows at the widest tile."""
     assert ms.choose_blocks(512, 16384, 16, target=64) == \
         ms.MambaBlocks(1, 32, 128)
-    assert ms.choose_blocks(512, 16384, 16, target=64, mode="bwd") == \
-        ms.MambaBlocks(1, 4, 128)
+    train = ms.choose_blocks(512, 16384, 16, target=64, mode="bwd")
+    assert train == ms.MambaBlocks(1, 32, 64) and train.chunk >= 32
+    for tile in (64, 32):
+        assert ms.working_set_bytes(512, 16, 64, tile) > \
+            ms.block_budget(tile)
+    assert ms.working_set_bytes(512, 16, 64, 64, mode="bwd") > \
+        ms.block_budget(ms.BWD_LANES * 64)
     assert ms.choose_blocks(1, 16384, 16, target=64) == \
         ms.MambaBlocks(1, 1, 128)
     for chunk in (1, 4, 64):
-        for tile in (32, 128):
+        for tile in (32, 64):
             assert ms.working_set_bytes(512, 16, chunk, tile, mode="bwd") > \
                 ms.working_set_bytes(512, 16, chunk, tile)
     # an explicit budget: the tile halves before the chunk does
@@ -358,6 +404,8 @@ def test_choose_blocks_at_jambas_width():
                             mode="bwd") == ms.MambaBlocks(1, 4, 32)
     # narrow d_inner: one warp; too many states for the registers: None
     assert ms.choose_blocks(24, 8, 4, target=8) == ms.MambaBlocks(1, 8, 32)
+    assert ms.choose_blocks(24, 8, 4, target=8, mode="bwd") == \
+        ms.MambaBlocks(1, 8, 32)
     assert ms.choose_blocks(512, 16384, 17, target=64) is None
     assert ms.choose_blocks(512, 16384, 16, smem_budget=1024,
                             mode="bwd") is None

@@ -289,8 +289,12 @@ def test_quantize_runs_inside_the_autograd_function():
 def test_q8_bytes_at_the_paper_width_are_the_kernels_layout():
     """2 x 32 (P = H = 32), one row, whole T = 128: the forward holds the
     codes in registers (as their f32 values), so its shared memory is the x
-    ring and h; the backward holds the int8 rows, 4H = 128 bytes padded to
-    144 (16-byte aligned, off a 0/64 bank offset)."""
+    ring and h; so does the backward's wavefront (the register home), whose
+    shared memory is f32 throughout: the trajectory ring, the parity slots
+    (with dg * s for the int8 products) and the closing dW pass's stages.
+    The shared home, which 2 x 32 takes from two rows a tile, holds the
+    int8 rows, 4H = 128 bytes padded to 144 (16-byte aligned, off a 0/64
+    bank offset)."""
     L, P, H, T = 2, 32, 32, 128
     rows, G = L * (P + H), 4 * H
     assert seq_k.row_stride(H, 1) == 144 and seq_k.row_stride(H) == 136
@@ -298,19 +302,29 @@ def test_q8_bytes_at_the_paper_width_are_the_kernels_layout():
     fwd = (T * P * 4              # x ring, whole T
            + 2 * L * H * 4)       # h of each layer, two slots
     assert seq_k.working_set_bytes(T, L, P, H, 1, quantized=True) == fwd
+    wave = (seq_k.BWD_RING * (2 * L * H + P) * 4     # trajectory ring
+            + 2 * L * (G + H + G + H + P) * 4         # parity slots
+            + 2 * L * G * 4                           # dg * s, int8 only
+            + 2 * (seq_k.BWD_STAGE + 1) * (L * (G + H) + P) * 4)  # dW pass
+    assert seq_k.working_set_bytes(T, L, P, H, 1, mode="bwd",
+                                   quantized=True) == wave
+    assert seq_k.working_set_bytes(T, L, P, H, 1, mode="bwd") == \
+        wave - 2 * L * G * 4
+    bm = 2                                  # the shared home from 2 rows
     bwd = (rows * 144            # int8 stack
            + L * G * 4 * 2       # f32 bias and scales
-           + T * P * 4           # x ring, whole T
-           + 2 * L * H * 4       # (dc, dh)
-           + G * 4               # gate buffer
+           + T * bm * P * 4      # x ring, whole T
+           + 2 * L * bm * H * 4  # (dc, dh)
+           + bm * G * 4          # gate buffer
            + (rows * 136 + L * G) * 4   # f32 dW/db accumulators
-           + 2 * (T + 1) * L * H * 4    # both trajectories, one zero row
-           + G * 4 + H * 4              # dg, the layer-below input grad
-           + G * 4)                     # dg * s for the outgoing products
-    assert seq_k.working_set_bytes(T, L, P, H, 1, mode="bwd",
+           + 2 * (T + 1) * L * bm * H * 4    # both trajectories, zero row
+           + bm * (G * 4 + H * 4)            # dg, the layer-below input grad
+           + bm * G * 4)                     # dg * s for the products
+    assert seq_k.weight_home(L, P, H, bm) == "shared"
+    assert seq_k.working_set_bytes(T, L, P, H, bm, mode="bwd",
                                    quantized=True) == bwd
-    ws = seq_k.working_set_bytes(T, L, P, H, 1, mode="bwd")
-    assert ws - bwd == rows * (136 * 4 - 144) - L * G * 4 - G * 4
+    ws = seq_k.working_set_bytes(T, L, P, H, bm, mode="bwd")
+    assert ws - bwd == rows * (136 * 4 - 144) - L * G * 4 - bm * G * 4
 
 
 @pytest.mark.parametrize("L,H", [(2, 64), (3, 64), (2, 96)])
@@ -348,13 +362,20 @@ def test_q8_backward_fits_no_block_at_2x64():
 
 
 def test_q8_streams_coarser_than_f32_at_t300():
-    """The training table at the paper's width and batch 64: T=300 does not
-    fit whole, and the int8 stack leaves room for 75-step chunks where the
-    f32 one takes 37."""
-    assert seq_k.choose_batch_block(64, 300, 2, 32, 32, mode="bwd") == \
-        seq_k.SeqBlocks(1, 37)
-    assert seq_k.choose_batch_block(64, 300, 2, 32, 32, mode="bwd",
-                                    quantized=True) == seq_k.SeqBlocks(1, 75)
+    """The training table at the paper's width, T=300: at batch 64 (one row
+    a block, the register home's wavefront, whose ring does not grow with
+    T) both take whole T; where the batch needs 2- to 16-row tiles (the
+    shared home) the int8 stack leaves room for twice the chunk of the f32
+    one."""
+    for q8 in (False, True):
+        assert seq_k.choose_batch_block(64, 300, 2, 32, 32, mode="bwd",
+                                        quantized=q8) == \
+            seq_k.SeqBlocks(1, None)
+    for B, f32, q8 in ((200, (2, 18), (2, 37)), (2000, (16, 2), (16, 4))):
+        assert seq_k.choose_batch_block(B, 300, 2, 32, 32, mode="bwd") == \
+            seq_k.SeqBlocks(*f32)
+        assert seq_k.choose_batch_block(B, 300, 2, 32, 32, mode="bwd",
+                                        quantized=True) == seq_k.SeqBlocks(*q8)
 
 
 # ---------------------------------------------------------------------------

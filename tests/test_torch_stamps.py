@@ -11,14 +11,28 @@ from repro_torch.obs import stamps  # noqa: E402
 
 
 @pytest.mark.parametrize("name", ["lstm_cell", "decode_attn", "wkv6",
-                                  "wkv6_bwd"])
+                                  "wkv6_bwd", "mamba_scan", "mamba_scan_bwd",
+                                  "lstm_seq_bwd"])
 def test_a_stamp_after_each_barrier_and_at_each_kernel_end(name):
     text = (_build.CSRC / f"{name}.cu").read_text()
     out, sites = stamps.instrument(text)
     lines = out.splitlines()
     kernels = text.count("__global__")
-    barriers = [n for n, line in enumerate(text.splitlines(), 1)
-                if "__syncthreads();" in line]
+    # the barriers inside a __global__ body (a __device__ helper's are not
+    # stamped: its callers' phases cover them)
+    barriers, depth, inside = [], 0, False
+    for n, line in enumerate(text.splitlines(), 1):
+        if "__global__" in line:
+            inside, depth = True, None
+        if inside:
+            if depth is None and "{" in line:
+                depth = 0
+            if depth is not None:
+                depth += line.count("{") - line.count("}")
+                if stamps.is_barrier(line):
+                    barriers.append(n)
+                if depth == 0:
+                    inside = False
     ends = [s for s in sites if s[1] == "end of kernel"]
     assert len(ends) == kernels
     assert [s[0] for s in sites if s[1] != "end of kernel"] == barriers
@@ -32,12 +46,17 @@ def test_a_stamp_after_each_barrier_and_at_each_kernel_end(name):
         if label == "end of kernel":
             assert lines[i + 1].startswith("}")
         else:
-            assert "__syncthreads();" in lines[i - 1]
+            assert stamps.is_barrier(lines[i - 1])
     assert out.count("long long stamp_prev_ = clock64();") == kernels
     assert "stamps_read" in out and "g_hits" in out
 
 
 def test_every_kernel_the_tool_stamps_has_a_main_path_shape():
-    assert set(stamps.KERNELS) == {"wkv6", "lstm_cell", "decode_attn"}
+    assert set(stamps.KERNELS) == {"wkv6", "lstm_cell", "decode_attn",
+                                   "mamba_scan_bwd", "lstm_seq_bwd"}
+    assert stamps.SOURCES["mamba_scan_bwd"] == ("mamba_scan",
+                                                "mamba_scan_bwd")
+    assert stamps.MAMBA_SHAPE == (4, 512, 16384, 16)
+    assert stamps.LSTM_BWD_SHAPE == (64, 128, 2, 32)
     assert all(len(s) == 3 for s in stamps.CELL_SHAPES)
     assert [s[0] for s in stamps.DECODE_SHAPES] == ["qwen2-0.5b", "yi-9b"]
