@@ -1169,11 +1169,32 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
             e_t = close(traj, p_traj, f"mamba_scan_traj {label} {name} "
                         "h_traj", tol["float32"])
             errs["traj"][name] = max(errs["traj"][name], max(e, e_t))
+            # the one-phase path at T=1 (a served decode step) on the
+            # case's first step: against plain, bit-equal to the general
+            # path at T=1, and K7t's one-phase instance to K7's
+            one = tuple(t[:, :1] for t in a[:4]) + a[4:]
+            dec = ms.mamba_scan(*one, chunk=1, block_b=bb)
+            want1 = ms.mamba_scan_plain(*one, 1)
+            e_1 = max(close(dec[0].float(), want1[0].float(),
+                            f"mamba_scan T=1 {label} {name} y", tol[name]),
+                      close(dec[1], want1[1], f"mamba_scan T=1 {label} "
+                            f"{name} state", tol["float32"]))
+            errs["fwd"][name] = max(errs["fwd"][name], e_1)
+            gen_ = ms._launch_fwd(*one, 1, 1, ms._tiles(di_)[0],
+                                  traj=False, one_phase=False)
+            t1 = ms.mamba_scan_traj(*one, chunk=1)
+            check(all(torch.equal(g, d) for g, d in zip(gen_, dec))
+                  and torch.equal(t1[0], dec[0])
+                  and torch.equal(t1[1], dec[1])
+                  and torch.equal(t1[2][:, 0], one[5].float()),
+                  f"mamba_scan T=1 {label} {name}: the one-phase path "
+                  "differs from the general path, or K7t's from K7's")
             print(f"[K7/K7t] {label} (B={B} T={T} di={di_} ds={ds_} C={C} "
                   f"block_b={bb}) {name}: K7 vs plain max abs err {e:.3e} "
                   f"(MAMBA_TOL {name}, state at f32); K7t at (C={tr.chunk}, "
                   f"di_tile={tr.di_tile}) y and state bit-equal to K7's, "
-                  f"h_traj vs plain {e_t:.3e}")
+                  f"h_traj vs plain {e_t:.3e}; T=1 one-phase vs plain "
+                  f"{e_1:.3e}, bit-equal to the general path and to K7t's")
     B, T = 4, 500
     for dtype in (f32, bf16):
         a = mamba_inputs(B, T, di, ds, dtype, gen)
@@ -1516,7 +1537,9 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     rows = {}
     for dtype in (f32, bf16):
         a = mamba_inputs(B, T, di, ds, dtype, gen)
-        one = tuple(t[:, :1] for t in a[:4]) + a[4:]
+        # a decode step's inputs are whole tensors of one step, as the
+        # model hands them over (no copy kernel of a strided view timed)
+        one = tuple(t[:, :1].contiguous() for t in a[:4]) + a[4:]
         _, _, traj = ms.mamba_scan_traj(*a, chunk=tr.chunk,
                                         di_tile=tr.di_tile)
         args = (*a[:5], traj, randn(B, T, di, gen=gen).to(dtype),
@@ -1564,6 +1587,10 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     k7 = graph_ms(lambda: ms.mamba_scan(*a, chunk=cfg.ssm.chunk), 10)
     alt = [f"K7 at chunk {cfg.ssm.chunk} {k7:.4f} ms against "
            f"{rows['mamba_scan', f32]['graph_ms']:.4f} at {sv.chunk}"]
+    for tile in (64, 32):
+        k7 = graph_ms(lambda: ms.mamba_scan(*a, chunk=sv.chunk,
+                                            di_tile=tile), 10)
+        alt.append(f"K7 at di_tile {tile} {k7:.4f} ms")
     for C in (16, 64):
         _, _, traj = ms.mamba_scan_traj(*a, chunk=C, di_tile=tr.di_tile)
         args = (*a[:5], traj, randn(B, T, di, gen=gen),
@@ -1578,6 +1605,15 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     print(f"[time] K7b holds {occupancy[0]} blocks of "
           f"{ms.BWD_LANES * tr.di_tile} threads an SM in f32, {occupancy[1]}"
           " in bf16 (the runtime's occupancy calculator)")
+    for t in (f32, bf16):
+        fwd_occ = [ms.fwd_blocks_per_sm(t, T_, ds, C, tile, traj)
+                   for T_, C, tile, traj in ((T, sv.chunk, sv.di_tile, False),
+                                             (1, 1, sv.di_tile, False),
+                                             (T, tr.chunk, tr.di_tile, True))]
+        print(f"[time] {str(t).split('.')[1]}: K7 prefill holds "
+              f"{fwd_occ[0]} blocks of {sv.di_tile} threads an SM, the T=1 "
+              f"one-phase path {fwd_occ[1]} of 128, K7t {fwd_occ[2]} of "
+              f"{tr.di_tile} (the runtime's occupancy calculator)")
     print(f"[time] f32 tilings in a CUDA graph: {'; '.join(alt)}; the "
           f"table's (chunk {tr.chunk}) "
           f"{rows['mamba_scan_traj', f32]['graph_ms']:.4f} and "
@@ -1589,7 +1625,9 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
             if entry:
                 compiled = entry.group(1)
             elif "registers" in line or "spill" in line:
-                print(f"[time] {name} {instance(compiled)}: {line.strip()}")
+                kernel = re.search(r"[0-9]([a-z_]+_kernel)I", compiled)
+                print(f"[time] {name} {kernel.group(1) if kernel else ''}"
+                      f"{instance(compiled)}: {line.strip()}")
     print(f"[K7/K7t/K7b] max abs err vs plain: K7 f32 "
           f"{errs['fwd']['float32']:.3e}, bf16 {errs['fwd']['bfloat16']:.3e}"
           f"; K7t f32 {errs['traj']['float32']:.3e}, bf16 "

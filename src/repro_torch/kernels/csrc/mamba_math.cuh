@@ -1,17 +1,25 @@
 // The selective scan's step math, shared by the forward (csrc/mamba_scan.cu:
-// K7, K7t) and the backward's recompute (csrc/mamba_scan_bwd.cu: K7b), so
-// that the states the backward recomputes are bit for bit the forward's.
+// K7, K7t and the one-phase T = 1 path) and the backward's recompute
+// (csrc/mamba_scan_bwd.cu: K7b), so that the states the backward recomputes
+// are bit for bit the forward's.
 //
-// In the forward one thread owns one channel d of d_inner and keeps its
-// d_state (at most kMaxDs) f32 states in registers (step); the backward
-// spreads a channel's states over four lanes and updates each with
-// update(), step()'s arithmetic for one state.  Every rounding is spelled out
-// (__fmul_rn, __fmaf_rn): the compiler may not contract a product into a
-// different fused multiply-add in one kernel than in the other.  The decay
+// A channel's d_state (at most kMaxDs) f32 states live in registers: of
+// one thread in the forward's general path, of four adjacent lanes (four
+// states each) in its one-phase T = 1 path and in the backward; each state
+// is updated by update().  Every rounding is spelled out (__fmul_rn,
+// __fmaf_rn, __fadd_rn): the compiler may not contract a product into a
+// different fused multiply-add in one kernel than in another.  The decay
 // is expf, not __expf: expf is accurate to 2 ulp at any argument, __expf
 // loses accuracy as |dt A| grows, and a decay near 1 multiplies its error
 // into every later step.  An argument of -inf or below -104 gives 0, so a
 // large dt A zeroes the decay and no 0 * inf appears.
+//
+// y_t = sum_s h_t[s] C_t[s] has one order of summation, whatever the lanes
+// (quarter_y, then channel_y): each quarter of four states is summed from
+// 0 by fused multiply-adds in state order, then the quarters pairwise,
+// (q0 + q1) + (q2 + q3).  So y is bit-identical across the forward's
+// paths, chunks, tiles and row tilings; it is not the plain version's
+// order, and is held to it at MAMBA_TOL.
 
 #pragma once
 
@@ -21,8 +29,7 @@
 
 namespace mamba {
 
-constexpr int kMaxDs = 16;     // states a thread keeps in registers
-constexpr int kMaxTile = 128;  // threads (channels) of the widest block
+constexpr int kMaxDs = 16;  // states a channel keeps in registers
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -38,74 +45,85 @@ __device__ __forceinline__ float decay(float dt, float a) {
   return expf(__fmul_rn(dt, a));
 }
 
-// One state's update: a_t h + (dt x) B_t[s], rounded as step() rounds it
-// (the product, then the fused multiply-add).  The backward's recompute
-// (csrc/mamba_scan_bwd.cu), which splits a channel's states over lanes,
-// calls it state by state, so its states are step()'s to the bit.
+// One state's update: a_t h + (dt x) B_t[s], rounded as every path rounds
+// it (the product, then the fused multiply-add).
 __device__ __forceinline__ float update(float a_t, float h, float dtx,
                                         float b) {
   return __fmaf_rn(a_t, h, __fmul_rn(dtx, b));
 }
 
-// One step of one channel: h <- a_t * h + (dt x) B_t, returning
-// y = sum_s h[s] C_t[s] (summed from s = 0).  b and c are the step's rows
-// of B and C (d_state floats, in shared memory).
-__device__ __forceinline__ float step(float (&h)[kMaxDs],
-                                      const float (&a)[kMaxDs], float x,
-                                      float dt, const float* b,
-                                      const float* c, int ds) {
-  const float dtx = __fmul_rn(dt, x);
+// One quarter's term of y: sum of h[s] c[s] over its four states, from 0,
+// in state order.
+__device__ __forceinline__ float quarter_y(const float* h, const float* c) {
   float y = 0.f;
 #pragma unroll
-  for (int s = 0; s < kMaxDs; ++s) {
-    if (s < ds) {
-      h[s] = update(decay(dt, a[s]), h[s], dtx, b[s]);
-      y = __fmaf_rn(h[s], c[s], y);
-    }
-  }
+  for (int u = 0; u < 4; ++u) y = __fmaf_rn(h[u], c[u], y);
   return y;
 }
 
-// A channel's row of d_state floats (of A, a state, a gradient) into
-// registers, zero past d_state; 16-byte loads where the row allows.
-__device__ __forceinline__ void load_row(const float* p, float (&v)[kMaxDs],
-                                         int ds) {
-  if ((ds & 3) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+// y of a channel whose states lie over kLanes adjacent lanes, from this
+// lane's quarter terms p (kMaxDs / kLanes / 4 of them, in state order):
+// the lane's quarters pairwise, then xor shuffles over the channel's
+// lanes.  An add is commutative in IEEE arithmetic, so every lane of the
+// channel ends with the same bits, and every kLanes gives the tree
+// (q0 + q1) + (q2 + q3).  Every lane of the warp must call it.
+template <int kLanes>
+__device__ __forceinline__ float channel_y(float (&p)[kMaxDs / kLanes / 4]) {
+  constexpr int kQ = kMaxDs / kLanes / 4;
 #pragma unroll
-    for (int s = 0; s < kMaxDs; s += 4) {
-      const float4 q = s < ds ? *reinterpret_cast<const float4*>(p + s)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-      v[s] = q.x;
-      v[s + 1] = q.y;
-      v[s + 2] = q.z;
-      v[s + 3] = q.w;
+  for (int w = 1; w < kQ; w *= 2)
+#pragma unroll
+    for (int i = 0; i + w < kQ; i += 2 * w) p[i] = __fadd_rn(p[i], p[i + w]);
+  float y = p[0];
+#pragma unroll
+  for (int o = 1; o < kLanes; o *= 2)
+    y = __fadd_rn(y, __shfl_xor_sync(0xffffffffu, y, o));
+  return y;
+}
+
+// A lane's kN states s0 .. s0 + kN - 1 of a row of ds floats (of A, a
+// state) into registers, zero past ds or for a channel that is not live;
+// 16-byte loads when vec (ds a multiple of 4 and the row 16-byte aligned).
+template <int kN>
+__device__ __forceinline__ void load_part(const float* row, int s0, int ds,
+                                          bool live, int vec,
+                                          float (&v)[kN]) {
+  if (vec) {
+#pragma unroll
+    for (int p = 0; p < kN; p += 4) {
+      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live && s0 + p < ds)
+        f = *reinterpret_cast<const float4*>(row + s0 + p);
+      v[p] = f.x;
+      v[p + 1] = f.y;
+      v[p + 2] = f.z;
+      v[p + 3] = f.w;
     }
   } else {
 #pragma unroll
-    for (int s = 0; s < kMaxDs; ++s) v[s] = s < ds ? p[s] : 0.f;
+    for (int p = 0; p < kN; ++p)
+      v[p] = live && s0 + p < ds ? row[s0 + p] : 0.f;
   }
 }
 
-// The same row back to memory: adjacent threads write adjacent rows, with
-// 16-byte stores where the row allows.
-__device__ __forceinline__ void store_row(float* p, const float (&v)[kMaxDs],
-                                          int ds) {
-  if ((ds & 3) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+// The same part back to memory (nothing past ds or for a channel that is
+// not live).
+template <int kN>
+__device__ __forceinline__ void store_part(float* row, int s0, int ds,
+                                           bool live, int vec,
+                                           const float (&v)[kN]) {
+  if (!live) return;
+  if (vec) {
 #pragma unroll
-    for (int s = 0; s < kMaxDs; s += 4)
-      if (s < ds)
-        *reinterpret_cast<float4*>(p + s) =
-            make_float4(v[s], v[s + 1], v[s + 2], v[s + 3]);
+    for (int p = 0; p < kN; p += 4)
+      if (s0 + p < ds)
+        *reinterpret_cast<float4*>(row + s0 + p) =
+            make_float4(v[p], v[p + 1], v[p + 2], v[p + 3]);
   } else {
 #pragma unroll
-    for (int s = 0; s < kMaxDs; ++s)
-      if (s < ds) p[s] = v[s];
+    for (int p = 0; p < kN; ++p)
+      if (s0 + p < ds) row[s0 + p] = v[p];
   }
-}
-
-__device__ __forceinline__ void zero_row(float (&v)[kMaxDs]) {
-#pragma unroll
-  for (int s = 0; s < kMaxDs; ++s) v[s] = 0.f;
 }
 
 }  // namespace mamba

@@ -15,14 +15,18 @@ the recurrent state on chip for the whole sequence.  The JAX kernel keeps
 the whole (block_b, d_inner, d_state) state in VMEM, 1 MiB a batch row at
 Jamba's width (d_inner 16384, d_state 16) against a thread block's 227 KB
 of shared memory.  Each channel's recurrence is independent (the step sums
-over d_state only), so the port tiles d_inner: in the forward a thread
-owns one channel and keeps its d_state (at most 16) f32 states in
-registers, in the backward four lanes share a channel's states, and a
-block runs ``di_tile`` channels of one batch row.  ``chunk`` sets the window of
-B and C rows (shared by every channel of a row), x and dt staged in shared
-memory, and the cadence of the trajectory K7t writes; it changes no
-arithmetic, so K7's outputs are bit-identical at every chunk, tile and row
-tiling.
+over d_state only), so the port tiles d_inner: a channel's d_state (at
+most 16) f32 states live in registers (of one thread in the forward, of
+four lanes in the backward and in the forward's one-phase path at T = 1),
+and a block runs ``di_tile`` channels of one batch row.  ``chunk``
+bounds the windows of x, dt and the B and C rows (shared by every channel
+of a row) that the forward stages in shared memory (at most
+``FWD_WINDOW`` steps a window) and sets the cadence of the trajectory K7t
+writes; it changes no arithmetic, so K7's outputs are bit-identical at
+every chunk, tile and row tiling.  y_t sums its states in one fixed order
+(``mamba_math.cuh``: quarters of four states, then pairwise), in every
+forward path; not the plain version's order, so the kernels are held to
+their plain versions at ``MAMBA_TOL``.
 
 Three launches:
   * ``mamba_scan`` (K7): y and the final state, one launch;
@@ -61,7 +65,7 @@ allows, then the tile, and keeps enough blocks an SM to hold
 ``MIN_WARPS_PER_SM`` warps (a TPU core runs the grid in order; an SM needs
 warps to switch between).  A training call takes its (chunk, di_tile) from
 the backward's table (``mode="bwd"``) for both launches; at Jamba's width
-that is chunk 32, set by K7t's windows.
+that is chunk 32, set by K7b's chunk windows.
 
 Non-dividing T and B: the kernels and their plain versions run the last
 chunk short and stop at the last row, so nothing is padded (the JAX entry
@@ -88,14 +92,19 @@ F32 = torch.float32
 ORACLE_BWD = 0
 #: ``bwd=`` default: ONE reverse-sweep launch for the whole backward
 FUSED_BWD = 1
-#: threads (channels) of the widest block; tiles are warps up to this
+#: threads (channels) of the forward's widest block; tiles are powers of
+#: two from one warp up to this
 DI_TILE = 128
-#: states a thread keeps in registers (csrc/mamba_math.cuh kMaxDs)
+#: states a channel keeps in registers (csrc/mamba_math.cuh kMaxDs)
 MAX_DS = 16
+#: steps of a window of the forward's ring, at most (csrc/mamba_scan.cu)
+FWD_WINDOW = 16
 #: warps the budget keeps resident on an SM.  A block runs its rows' T
 #: steps in order, so a grid that does not fit the SMs at once takes two
-#: waves of the whole scan: at Jamba's width four rows make 512 blocks of
-#: four warps, 3.9 an SM, and 16 warps an SM hold them all
+#: waves of the whole scan: at Jamba's width the forward's four rows make
+#: 512 blocks of four warps, 3.9 an SM, and 16 warps an SM hold them all
+#: (K7b's grid takes waves whatever the budget: 1,024 blocks of eight
+#: warps, two an SM at its 128 registers a thread)
 MIN_WARPS_PER_SM = 16
 #: K7b's layout (csrc/mamba_scan_bwd.cu): lanes a channel (each keeps
 #: d_state / 4 states), steps a sub-chunk, and the channels of its widest
@@ -114,9 +123,10 @@ class MambaBlocks(NamedTuple):
 
     ``block_b`` rows of the batch run one after another in a block (each
     exactly as alone); ``chunk`` is the window of B, C, x and dt rows in
-    shared memory and the trajectory's cadence (I/O granularity only);
-    ``di_tile`` is the channels of a block, one a thread in K7 and K7t
-    and four in K7b.
+    shared memory (in windows of at most ``FWD_WINDOW`` steps in K7 and
+    K7t) and the trajectory's cadence (I/O granularity only); ``di_tile``
+    is the channels of a block, one a thread in K7 and K7t and four in
+    K7b.
 
     Presents ``core/tiling.TilePlan``: ``batch_tile`` is ``block_b``,
     ``time_chunk`` is ``chunk`` (the kernels always stream time)."""
@@ -139,9 +149,12 @@ def working_set_bytes(seq_len: int, d_state: int, chunk: int, di_tile: int,
     ``mode`` launches it (the C side refuses a launch priced otherwise).
 
     ``mode="fwd"`` prices K7 and K7t, a block of ``di_tile`` channels, one
-    a thread: the chunk's x and dt windows (C, di_tile) and B and C rows
-    (C, d_state), all f32 whatever the IO dtype.  The state never enters
-    the table: it lives in registers.
+    a thread: a ring of two windows of W = min(C, ``FWD_WINDOW``) steps,
+    each dt (W, di_tile) f32 and x (W, di_tile) in the IO dtype
+    (``x_dt``), and the B and C rows (W, ``MAX_DS``) f32, padded with
+    zeros past d_state (``b_c``).  At T = 1 the one-phase path stages
+    nothing: 0 bytes.  The state never enters the table: it lives in
+    registers.
 
     ``mode="bwd"`` prices K7b, a block of ``di_tile`` channels, four lanes
     each (``BWD_LANES`` x di_tile threads), which walks a chunk in
@@ -163,15 +176,23 @@ def working_set_bytes(seq_len: int, d_state: int, chunk: int, di_tile: int,
     ws = tiling.WorkingSet(mode)
     C = max(1, min(chunk, seq_len))
     if mode == "fwd":
-        ws.add("x_dt", 2 * C * di_tile * 4)
-        ws.add("b_c", 2 * C * d_state * 4)
-        return ws.total()
+        return 0 if seq_len == 1 else _fwd_ring(C, di_tile, io_bytes)
     threads = BWD_LANES * di_tile
     ws.add("checkpoints", -(-C // BWD_SUB) * threads * 16)
     ws.add("sums", 2 * BWD_SUB * threads * 4)
     ws.add("ring", 2 * factorization.round_up(
         C * di_tile * (4 + 2 * io_bytes) + di_tile * d_state * 4
         + 2 * C * d_state * 4, 16))
+    return ws.total()
+
+
+def _fwd_ring(chunk: int, di_tile: int, io_bytes: int) -> int:
+    """The forward's ring of two windows (csrc/mamba_scan.cu
+    ``slot_bytes``), the shared memory of its general path at any T."""
+    ws = tiling.WorkingSet("fwd")
+    W = min(chunk, FWD_WINDOW)
+    ws.add("x_dt", 2 * W * di_tile * (4 + io_bytes))
+    ws.add("b_c", 2 * 2 * W * MAX_DS * 4)
     return ws.total()
 
 
@@ -187,10 +208,11 @@ def block_budget(threads: int) -> int:
 
 
 def _tiles(d_inner: int, top: int = DI_TILE) -> list[int]:
-    """Candidate d_inner tiles, coarse to fine: whole warps up to ``top``,
-    no wider than d_inner needs."""
-    top = min(top, factorization.round_up(d_inner, factorization.WARP))
-    return [t for t in tiling.halving(top) if t % factorization.WARP == 0]
+    """Candidate d_inner tiles, coarse to fine: powers of two from one warp
+    up to ``top``, no wider than d_inner needs."""
+    need = max(factorization.WARP, 1 << (d_inner - 1).bit_length())
+    return [t for t in tiling.halving(min(top, need))
+            if t >= factorization.WARP]
 
 
 def _bwd_tile(d_inner: int) -> int:
@@ -219,9 +241,9 @@ def choose_blocks(seq_len: int, d_inner: int, d_state: int, *,
     ``mode="bwd"`` is the training decision: its chunk and tile serve the
     training forward (K7t, a block of di_tile threads) and the backward
     (K7b, BWD_LANES x di_tile threads), so both working sets must fit
-    their budgets, the tile starting at ``BWD_DI_TILE``.  K7b's own terms
-    no longer grow with the chunk's states, so at Jamba's width K7t's
-    windows set the chunk."""
+    their budgets, the tile starting at ``BWD_DI_TILE``.  K7t's windows
+    stay at ``FWD_WINDOW`` steps whatever the chunk, so at Jamba's width
+    K7b's two chunk windows set the chunk."""
     tiling.check_mode(mode)
     if d_state > MAX_DS:
         return None
@@ -332,14 +354,14 @@ def mamba_scan_bwd_plain(x, dt, b, c, a, h_traj, dy, dh_fin, chunk: int
 # ---------------------------------------------------------------------------
 # The launches
 # ---------------------------------------------------------------------------
-def _entry(lib_name: str, symbol: str, n_ptrs: int):
+def _entry(lib_name: str, symbol: str, n_ptrs: int, n_ints: int = 7):
     """A C entry point taking ``n_ptrs`` pointers, then B, T, d_inner,
-    d_state, chunk, block_b, di_tile, the shared-memory bytes and the
-    stream."""
+    d_state, chunk, block_b, di_tile (and for the forward its path), the
+    shared-memory bytes and the stream."""
     lib = _build.load(lib_name)
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
@@ -370,9 +392,9 @@ def _validate(x, dt, b, c, a, h) -> None:
 def _card_smem(what: str, mode: str, x, ds: int, chunk: int, di_tile: int,
                *io) -> int:
     """Check a launch on the card -- device, one IO dtype for x and ``io``,
-    states a thread can hold, a tile the kernel of ``mode`` takes (whole
-    warps up to ``DI_TILE`` for K7/K7t; a power of two of channels from 8
-    to ``BWD_DI_TILE`` for K7b) -- and return its shared memory."""
+    states a thread can hold, a tile the kernel of ``mode`` takes (a power
+    of two of channels from one warp to ``DI_TILE`` for K7/K7t, from 8 to
+    ``BWD_DI_TILE`` for K7b) -- and return its shared memory."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {x.device}")
     if any(t.dtype != x.dtype for t in io) or x.dtype not in _IO_DTYPES:
@@ -381,11 +403,9 @@ def _card_smem(what: str, mode: str, x, ds: int, chunk: int, di_tile: int,
                         f"{[t.dtype for t in (x, *io)]}")
     smem = working_set_bytes(x.shape[1], ds, chunk, di_tile, mode,
                              io_bytes=x.element_size())
-    if mode == "fwd":
-        tile_ok = di_tile % factorization.WARP == 0 and \
-            factorization.WARP <= di_tile <= DI_TILE
-    else:
-        tile_ok = 8 <= di_tile <= BWD_DI_TILE and not di_tile & (di_tile - 1)
+    low, high = (factorization.WARP, DI_TILE) if mode == "fwd" \
+        else (8, BWD_DI_TILE)
+    tile_ok = low <= di_tile <= high and not di_tile & (di_tile - 1)
     if ds > MAX_DS or not tile_ok \
             or smem > factorization.H100_SMEM_PER_BLOCK:
         raise ValueError(f"{what}: d_state {ds} (at most {MAX_DS}), di_tile "
@@ -406,12 +426,20 @@ def _resolve(x, chunk: int, block_b: int, di_tile: int | None,
 
 
 def _launch_fwd(x, dt, b, c, a, h0, chunk: int, block_b: int, di_tile: int,
-                traj: bool) -> tuple[torch.Tensor, ...]:
-    """One launch of csrc/mamba_scan.cu: K7, or with ``traj`` K7t."""
+                traj: bool, one_phase: bool | None = None
+                ) -> tuple[torch.Tensor, ...]:
+    """One launch of csrc/mamba_scan.cu: K7, or with ``traj`` K7t.  At
+    T = 1 the one-phase path runs unless ``one_phase`` is False (the
+    general path, which ``chip_smoke.py`` holds it to bit for bit)."""
     what = "mamba_scan_traj" if traj else "mamba_scan"
     B, T, di = x.shape
     ds = b.shape[-1]
     smem = _card_smem(what, "fwd", x, ds, chunk, di_tile)
+    one_phase = T == 1 if one_phase is None else one_phase
+    if one_phase and T != 1:
+        raise ValueError(f"{what}: the one-phase path takes T = 1, not {T}")
+    if not one_phase:
+        smem = _fwd_ring(chunk, di_tile, x.element_size())
     x = x.contiguous()
     dt, b, c, a, h0 = (t.to(F32).contiguous() for t in (dt, b, c, a, h0))
     outs = [torch.empty_like(x), torch.empty(B, di, ds, dtype=F32,
@@ -421,9 +449,10 @@ def _launch_fwd(x, dt, b, c, a, h0, chunk: int, block_b: int, di_tile: int,
                                 device=x.device))
     ptrs = [x, dt, b, c, a, h0, *outs]
     lib, fn = _entry("mamba_scan", f"{what}_{_io_suffix(x.dtype)}",
-                     len(ptrs))
+                     len(ptrs), n_ints=8)
     err = fn(*(t.data_ptr() for t in ptrs), B, T, di, ds, chunk, block_b,
-             di_tile, smem, torch.cuda.current_stream(x.device).cuda_stream)
+             di_tile, int(one_phase), smem,
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, "mamba_scan", err)
     return tuple(outs)
 
@@ -501,6 +530,23 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     _build.check(lib, "mamba_scan_bwd", err)
     mamba_scan_bwd.launches += 1
     return grads
+
+
+def fwd_blocks_per_sm(dtype: torch.dtype, seq_len: int, d_state: int,
+                      chunk: int, di_tile: int, traj: bool = False) -> int:
+    """K7 (K7t with ``traj``) blocks one SM holds at once at this launch,
+    as the CUDA runtime's occupancy calculator sees the kernel of the path
+    it takes (the one-phase kernel at T = 1; the card only)."""
+    io = torch.tensor([], dtype=dtype).element_size()
+    smem = working_set_bytes(seq_len, d_state, chunk, di_tile, "fwd",
+                             io_bytes=io)
+    lib = _build.load("mamba_scan")
+    fn = lib.mamba_scan_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_longlong]
+    n = fn(io, int(traj), int(seq_len == 1), di_tile, smem)
+    if n < 0:
+        _build.check(lib, "mamba_scan", -n)
+    return n
 
 
 def bwd_blocks_per_sm(dtype: torch.dtype, seq_len: int, d_state: int,

@@ -1,9 +1,9 @@
 """Phase stamps, instruction counts and times of a kernel on the card:
 where a launch of the RWKV6 chunked scans (K6 ``wkv6``, K6t ``wkv6_traj``,
 K6b ``wkv6_bwd``), the fused LSTM cell (K1 ``lstm_cell``), the decode
-attention (K9 ``decode_attn``), the Mamba selective scans (K7, K7t and K7b
-under ``mamba_scan_bwd``) or the stacked-LSTM backward (K3 and K3-q8 under
-``lstm_seq_bwd``) spends its cycles.
+attention (K9 ``decode_attn``), the Mamba selective scans (K7 and K7t under
+``mamba_scan``, and K7b too under ``mamba_scan_bwd``) or the stacked-LSTM
+backward (K3 and K3-q8 under ``lstm_seq_bwd``) spends its cycles.
 
     PYTHONPATH=src python -m repro_torch.obs.stamps [--kernel wkv6]
         [--dtype float32] [--sass] [--no-stamps]
@@ -28,10 +28,14 @@ launch at the kernel's main-path shapes, random inputs from seed 0:
   B = 64 (a training batch), and 2 x 64 at B = 1, f32;
 - ``decode_attn``: Qwen2-0.5B's and Yi-9B's served decode step, B = 4 over
   517 cache slots at length 508; bf16 unless ``--dtype float32``;
-- ``mamba_scan_bwd``: the attention-free Jamba-1.5-Large scan at full
-  width, B = 4 x T = 512, d_inner 16384, d_state 16: K7 at the serving
-  table's tiling (a prefill, and the one-step decode at T = 1), K7t and
-  K7b at the training table's; x and dy bf16 unless ``--dtype float32``;
+- ``mamba_scan``: the attention-free Jamba-1.5-Large scan at full width,
+  B = 4 x T = 512, d_inner 16384, d_state 16: K7 at the serving table's
+  tiling (a prefill, and the one-step decode at T = 1) and K7t at the
+  training table's, each first held against its plain version, with the
+  kernels' blocks an SM; stamps ``mamba_scan.cu`` alone, so it builds no
+  K7b; x bf16 unless ``--dtype float32``;
+- ``mamba_scan_bwd``: the same, then K7b at the training table's tiling;
+  x and dy bf16 unless ``--dtype float32``;
 - ``lstm_seq_bwd``: the paper's 2 x 32 stack trained at batch 64, T = 128:
   K3 (f32) and K3-q8 at the backward table's tiling.
 
@@ -42,8 +46,8 @@ phase; the launch's time with and without them is printed beside them.
 For ``lstm_cell`` and ``decode_attn`` the kernel's time back to back and in
 a CUDA graph (device time alone) is printed beside one PyTorch call of the
 same function (``nn.LSTMCell``; SDPA with a length mask), and the bound;
-for ``mamba_scan_bwd`` and ``lstm_seq_bwd`` each launch's time back to back
-and in a CUDA graph.
+for ``mamba_scan``, ``mamba_scan_bwd`` and ``lstm_seq_bwd`` each launch's
+time back to back and in a CUDA graph.
 
 ``--no-stamps`` prints the times alone (no stamped copy is built), for
 comparing two trees in one call.  ``--sass`` also disassembles the real
@@ -384,10 +388,8 @@ def timed(name: str, fn) -> None:
           f"{graph_ms(fn):.4f} ms in a CUDA graph")
 
 
-def mamba_runs(dtype, rnd) -> dict:
-    """K7 (a prefill and a T = 1 decode at the serving tiling), K7t and K7b
-    (at the training tiling) at Jamba's width, each timed back to back and
-    in a CUDA graph."""
+def _mamba_inputs(dtype, rnd):
+    """Jamba's scan inputs at ``MAMBA_SHAPE`` and both tables' tilings."""
     from repro_torch.kernels import mamba_scan as ms
     B, T_, di, ds = MAMBA_SHAPE
     sv = ms.choose_blocks(T_, di, ds, target=MAMBA_CHUNK)
@@ -396,13 +398,62 @@ def mamba_runs(dtype, rnd) -> dict:
     dt = torch.nn.functional.softplus(rnd(B, T_, di))
     b, c = rnd(B, T_, ds), rnd(B, T_, ds)
     a, h0 = -torch.exp(rnd(di, ds)), rnd(B, di, ds, scale=0.3)
-    args = (x, dt, b, c, a, h0)
-    one = tuple(t[:, :1] for t in args[:4]) + (a, h0)
-    _, _, traj = ms.mamba_scan_traj(*args, chunk=tr.chunk,
-                                    di_tile=tr.di_tile)
-    dy, dhf = rnd(B, T_, di).to(dtype), rnd(B, di, ds)
     print(f"[stamps] B={B} T={T_} d_inner {di} d_state {ds} {dtype}: "
           f"serving {sv}, training {tr}")
+    return (x, dt, b, c, a, h0), sv, tr
+
+
+def mamba_fwd_runs(dtype, rnd, inputs=None) -> dict:
+    """K7 (a prefill and a T = 1 decode at the serving tiling) and K7t (at
+    the training tiling) at Jamba's width: each held against its plain
+    version (y at MAMBA_TOL of its dtype, the states at f32's), K7t's y and
+    state bit-equal to K7's, the one-phase T = 1 path bit-equal to the
+    general path where the tree has both; each kernel's blocks an SM (the
+    occupancy calculator, where the tree has the call); each launch timed
+    back to back and in a CUDA graph."""
+    from repro_torch.core import plans
+    from repro_torch.kernels import mamba_scan as ms
+    args, sv, tr = inputs or _mamba_inputs(dtype, rnd)
+    # a decode step's inputs are whole tensors of one step, as the model
+    # hands them over (no copy kernel of a strided view is timed)
+    one = tuple(t[:, :1].contiguous() for t in args[:4]) + args[4:]
+    tol, name = plans.MAMBA_TOL, str(dtype).split(".")[1]
+
+    def hold(got, want, what):
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   **tol[name], msg=f"{what} y")
+        torch.testing.assert_close(got[1], want[1], **tol["float32"],
+                                   msg=f"{what} state")
+
+    k7 = ms.mamba_scan(*args, chunk=sv.chunk, di_tile=sv.di_tile)
+    hold(k7, ms.mamba_scan_plain(*args, sv.chunk), "K7 prefill")
+    k7t = ms.mamba_scan_traj(*args, chunk=tr.chunk, di_tile=tr.di_tile)
+    plain_t = ms.mamba_scan_traj_plain(*args, tr.chunk)
+    hold(k7t, plain_t, "K7t")
+    torch.testing.assert_close(k7t[2], plain_t[2], **tol["float32"])
+    if not (torch.equal(k7t[0], k7[0]) and torch.equal(k7t[1], k7[1])):
+        raise RuntimeError("K7t's y or state differs from K7's")
+    dec = ms.mamba_scan(*one, chunk=1, di_tile=sv.di_tile)
+    hold(dec, ms.mamba_scan_plain(*one, 1), "K7 decode")
+    checks = "K7, K7t and the T=1 decode vs plain at MAMBA_TOL; K7t = K7"
+    # trees before the one-phase path lack these calls; the script runs
+    # on them too, to compare a parent and a change in one call
+    if hasattr(ms, "fwd_blocks_per_sm"):
+        gen = ms._launch_fwd(*one, 1, 1, sv.di_tile, traj=False,
+                             one_phase=False)
+        if not all(torch.equal(g, d) for g, d in zip(gen, dec)):
+            raise RuntimeError("the one-phase T=1 path differs from the "
+                               "general path")
+        checks += "; T=1 one-phase = general path"
+        T_, ds = args[0].shape[1], args[2].shape[-1]
+        occ = [ms.fwd_blocks_per_sm(dtype, T, ds, C, tile, traj)
+               for T, C, tile, traj in ((T_, sv.chunk, sv.di_tile, False),
+                                        (1, 1, sv.di_tile, False),
+                                        (T_, tr.chunk, tr.di_tile, True))]
+        print(f"[occupancy] blocks an SM: K7 prefill {occ[0]} of "
+              f"{sv.di_tile} threads, decode {occ[1]} (one-phase), K7t "
+              f"{occ[2]} of {tr.di_tile}")
+    print(f"[check] {checks} ({dtype})")
     runs = {
         f"mamba_scan (K7) prefill C={sv.chunk}": (
             lambda: ms.mamba_scan(*args, chunk=sv.chunk, di_tile=sv.di_tile),
@@ -412,13 +463,30 @@ def mamba_runs(dtype, rnd) -> dict:
             "mamba_scan"),
         f"mamba_scan_traj (K7t) C={tr.chunk}": (
             lambda: ms.mamba_scan_traj(*args, chunk=tr.chunk,
-                                       di_tile=tr.di_tile), "mamba_scan"),
-        f"mamba_scan_bwd (K7b) C={tr.chunk}": (
-            lambda: ms.mamba_scan_bwd(*args[:5], traj, dy, dhf,
-                                      chunk=tr.chunk, di_tile=tr.di_tile),
-            "mamba_scan_bwd")}
-    for name, (fn, _) in runs.items():
-        timed(name, fn)
+                                       di_tile=tr.di_tile), "mamba_scan")}
+    for name_, (fn, _) in runs.items():
+        timed(name_, fn)
+    return runs
+
+
+def mamba_runs(dtype, rnd) -> dict:
+    """``mamba_fwd_runs``, then K7b at the training tiling, timed back to
+    back and in a CUDA graph."""
+    from repro_torch.kernels import mamba_scan as ms
+    inputs = _mamba_inputs(dtype, rnd)
+    runs = mamba_fwd_runs(dtype, rnd, inputs)
+    args, _, tr = inputs
+    B, T_, di = args[0].shape
+    ds = args[2].shape[-1]
+    _, _, traj = ms.mamba_scan_traj(*args, chunk=tr.chunk,
+                                    di_tile=tr.di_tile)
+    dy, dhf = rnd(B, T_, di).to(dtype), rnd(B, di, ds)
+    name = f"mamba_scan_bwd (K7b) C={tr.chunk}"
+    runs[name] = (lambda: ms.mamba_scan_bwd(*args[:5], traj, dy, dhf,
+                                            chunk=tr.chunk,
+                                            di_tile=tr.di_tile),
+                  "mamba_scan_bwd")
+    timed(name, runs[name][0])
     return runs
 
 
@@ -455,8 +523,8 @@ def lstm_bwd_runs(dtype, rnd) -> dict:
 
 
 KERNELS = {"wkv6": wkv6_runs, "lstm_cell": lstm_cell_runs,
-           "decode_attn": decode_attn_runs, "mamba_scan_bwd": mamba_runs,
-           "lstm_seq_bwd": lstm_bwd_runs}
+           "decode_attn": decode_attn_runs, "mamba_scan": mamba_fwd_runs,
+           "mamba_scan_bwd": mamba_runs, "lstm_seq_bwd": lstm_bwd_runs}
 #: the sources each choice stamps (by default the choice's own)
 SOURCES = {"wkv6": ("wkv6", "wkv6_bwd"),
            "mamba_scan_bwd": ("mamba_scan", "mamba_scan_bwd")}
@@ -467,7 +535,8 @@ def main(argv=None) -> None:
     ap.add_argument("--kernel", default="wkv6", choices=tuple(KERNELS))
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("float32", "bfloat16"),
-                    help="IO dtype of wkv6, decode_attn and mamba_scan_bwd "
+                    help="IO dtype of wkv6, decode_attn, mamba_scan and "
+                    "mamba_scan_bwd "
                     "(lstm_cell is f32 only, lstm_seq_bwd runs f32 and q8)")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--no-stamps", action="store_true",

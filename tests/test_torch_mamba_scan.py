@@ -327,12 +327,18 @@ def test_no_gradient_means_no_function():
 # ---------------------------------------------------------------------------
 def test_working_set_term_by_term():
     """Jamba's width (d_state 16) at the training chunk 32: the forward (K7,
-    K7t) at a tile of 64 channels, one a thread, holds the x and dt windows
-    (32, 64) and the B and C rows (32, 16), 20,480 bytes, eight blocks and
-    sixteen warps an SM; K7b at the same tile, four lanes a channel (256
-    threads), holds no per-step state of the chunk, 98,304 bytes in f32
-    IO, two blocks and sixteen warps an SM."""
-    fwd = {"x_dt": 2 * 32 * 64 * 4, "b_c": 2 * 32 * 16 * 4}
+    K7t) at a tile of 64 channels, one a thread, holds a ring of two
+    windows of 16 steps, each x and dt (16, 64) and the B and C rows
+    (16, 16), 20,480 bytes in f32 IO, eight blocks and sixteen warps an
+    SM; K7b at the same tile, four lanes a channel (256 threads),
+    holds no per-step state of the chunk, 98,304 bytes in f32 IO, two
+    blocks and sixteen warps an SM."""
+    fwd = {
+        # two windows of min(32, FWD_WINDOW) steps: dt f32, x in the IO
+        # dtype (f32 here)
+        "x_dt": 2 * ms.FWD_WINDOW * 64 * (4 + 4),
+        # the B and C rows of each window, padded to MAX_DS states
+        "b_c": 2 * 2 * ms.FWD_WINDOW * ms.MAX_DS * 4}
     threads = ms.BWD_LANES * 64
     bwd = {
         # the state at each sub-chunk's start, a float4 a lane: 4 of 8 steps
@@ -350,9 +356,16 @@ def test_working_set_term_by_term():
     for nbytes, blocks in ((20_480, 8), (98_304, 2)):
         assert blocks * (nbytes + factorization.H100_SMEM_RESERVED_PER_BLOCK)\
             <= factorization.H100_SMEM_PER_SM
-    # bf16 IO stages x and dy at 2 bytes
+    # bf16 IO stages x (and dy) at 2 bytes
     assert ms.working_set_bytes(512, 16, 32, 64, mode="bwd", io_bytes=2) == \
         98_304 - 2 * 32 * 64 * 2 * 2
+    assert ms.working_set_bytes(512, 16, 32, 64, io_bytes=2) == \
+        20_480 - 2 * 16 * 64 * 2
+    # the forward's windows stop at FWD_WINDOW steps; at T = 1 the
+    # one-phase path stages nothing
+    assert ms.working_set_bytes(512, 16, 64, 64) == 20_480
+    assert ms.working_set_bytes(512, 16, 8, 64) == 20_480 // 2
+    assert ms.working_set_bytes(1, 16, 1, 128) == 0
     # the d_inner tile is a term of both tables; the chunk clamps to T; an
     # odd window rounds up to 16 bytes
     assert ms.working_set_bytes(512, 16, 32, 32, mode="bwd") < 98_304
@@ -372,21 +385,21 @@ def test_block_budget_keeps_sixteen_warps_an_sm():
 
 
 def test_choose_blocks_at_jambas_width():
-    """Serving halves the config's chunk 64 to 32, where four blocks of
-    the widest tile share an SM.  Training takes chunk 32 at a tile of 64
-    channels: there K7t's windows fit eight blocks an SM and K7b (which no
-    longer stages a chunk's states) two, so K7t writes its trajectory every
-    32 steps; at chunk 64 K7t's windows fit no tile at sixteen warps, nor
-    K7b's two chunk windows at the widest tile."""
+    """Serving keeps the config's chunk 64: the forward's windows stop at
+    16 steps, so four blocks of the widest tile share an SM at any chunk.
+    Training takes chunk 32 at a tile of 64 channels: there K7t's windows
+    fit eight blocks an SM and K7b (which no longer stages a chunk's
+    states) two, so K7t writes its trajectory every 32 steps; at chunk 64
+    K7t's windows fit, but K7b's two chunk windows fit no tile."""
     assert ms.choose_blocks(512, 16384, 16, target=64) == \
-        ms.MambaBlocks(1, 32, 128)
+        ms.MambaBlocks(1, 64, 128)
     train = ms.choose_blocks(512, 16384, 16, target=64, mode="bwd")
     assert train == ms.MambaBlocks(1, 32, 64) and train.chunk >= 32
     for tile in (64, 32):
-        assert ms.working_set_bytes(512, 16, 64, tile) > \
+        assert ms.working_set_bytes(512, 16, 64, tile) <= \
             ms.block_budget(tile)
-    assert ms.working_set_bytes(512, 16, 64, 64, mode="bwd") > \
-        ms.block_budget(ms.BWD_LANES * 64)
+        assert ms.working_set_bytes(512, 16, 64, tile, mode="bwd") > \
+            ms.block_budget(ms.BWD_LANES * tile)
     assert ms.choose_blocks(1, 16384, 16, target=64) == \
         ms.MambaBlocks(1, 1, 128)
     for chunk in (1, 4, 64):
