@@ -16,7 +16,18 @@ the int8 plan, and trains it at batch 64 through
 and read just after and the plain versions of the sequence kernels armed to
 raise on CUDA tensors; checks each plan against ``sequential`` under its own
 policy, that a ``fused_seq`` and a ``fused_seq_q8`` training step is two
-launches at any T.  Then the RWKV6 slice: the K6 chunked scan against its
+launches at any T.  Phase 3e does the same in bf16: K1, K2/K2t, K3 and the
+int8 stack over bf16 x against their plain versions (one bf16 step of the
+largest entry; f32 trajectories at the f32 tolerance) and bit-equal to
+their f32 instances on the widened operands, across time chunks, tiles,
+weight homes and runs; ``classify.serve`` of a bf16 ``LSTMConfig`` through
+all five plans (one bf16 K2 launch a request, T x L bf16 K1 for
+``fused_cell``, 2 x 64 in one K2 launch where f32 takes ``fused_cell``),
+20 bf16 ``train_har`` steps each through ``fused_seq`` and
+``fused_seq_q8`` (two launches a step, the first 3 losses against bf16
+``sequential``), 2 x 64 bf16 training routed to ``fused_cell``, and the
+bf16 instances' times beside their f32 instances'.  Then the RWKV6 slice:
+the K6 chunked scan against its
 plain version (the JAX family's cases, the full-width heads at T=512 and
 500, extreme decay, rows alone and in a batch, a split-resume run), the
 full-width model cut to 4 layers in f32 (the kernel plan against
@@ -134,6 +145,8 @@ def reset_counts(*wrappers) -> None:
             fn.tc_launches = 0
         if hasattr(fn, "reg_launches"):     # K2's register weight home
             fn.reg_launches = 0
+        if hasattr(fn, "bf16_launches"):    # the LSTM kernels' bf16 instances
+            fn.bf16_launches = 0
 
 
 def time_ms(fn, iters: int, repeats: int = 5) -> float:
@@ -189,13 +202,16 @@ def instance(mangled: str) -> str:
     argument prints 0 or 1), ``<f32,160>`` for
     ``flash_prefill_kernel<float, 160>`` or ``<1,1,int8,1>`` for
     ``lstm_seq_fwd_kernel<1, true, int8_t, true>``."""
-    args = re.search(r"I((?:L[ib]\d+E|f|a|13__nv_bfloat16)+)E", mangled)
+    args = re.search(r"I((?:L[ib]\d+E|f|a|13__nv_bfloat16|S\d*_)+)E",
+                     mangled)
     if not args:
         return ""
+    # a repeated argument is a substitution (S_, S0_, ...); in these
+    # kernels only __nv_bfloat16 is ever repeated (float, int8 are builtins)
     names = {"f": "f32", "a": "int8", "13__nv_bfloat16": "bf16"}
     return "<" + ",".join(
-        tok[0] or names[tok[1]] for tok in re.findall(
-            r"L[ib](\d+)E|(f|a|13__nv_bfloat16)", args.group(1))) + ">"
+        tok[0] or names.get(tok[1], "bf16") for tok in re.findall(
+            r"L[ib](\d+)E|(f|a|13__nv_bfloat16|S\d*_)", args.group(1))) + ">"
 
 
 def randn(*shape, gen, scale=1.0):
@@ -2253,7 +2269,7 @@ def main() -> None:
     sys.path.insert(0, str(src))
 
     from repro_torch.configs.mobirnn_lstm import LSTMConfig
-    from repro_torch.core import lstm, plans
+    from repro_torch.core import factorization, lstm, plans
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attn as da_k
     from repro_torch.kernels import flash_prefill as fp_k
@@ -2954,6 +2970,389 @@ def main() -> None:
               "step runs on fused_cell with the event and sequential's "
               f"grads; a bare {bare.__name__} call under autograd raises")
 
+    # --- 3e. the bf16 instances -------------------------------------------
+    # K1, K2/K2t, K3 and the int8 stack over bf16 x against their plain
+    # versions: a bf16 result within one bf16 step of the plain one (2^-7
+    # of its largest entry), the f32 trajectories at TOL, an int8 stack's
+    # f32 dw and db at GRAD_TOL.  Each bf16 instance equals its f32
+    # instance run on the widened operands, bit for bit, its bf16 outputs
+    # rounded once: a bf16 value widens to f32 exactly, so the bf16
+    # instances run the f32 multiply-add chains (and K3's recompute is K2t's)
+    BF16 = torch.bfloat16
+    bf16_errs = {n: 0.0 for n in ("lstm_cell", "lstm_seq", "lstm_seq_traj",
+                                  "lstm_seq_bwd", "lstm_seq_q8",
+                                  "lstm_seq_q8_traj", "lstm_seq_bwd_q8")}
+
+    def step_err(got, want, what: str) -> float:
+        """The max abs error of a bf16 result, checked against one bf16
+        step of the plain version's largest entry."""
+        e = float((got.float() - want.float()).abs().max())
+        check(got.dtype == want.dtype == BF16
+              and e <= 2.0 ** -7 * float(want.float().abs().max()),
+              f"{what}: max abs err {e} past one bf16 step of "
+              f"{float(want.float().abs().max())}")
+        return e
+
+    def widened(*ts):
+        return [t.float() if t.dtype == BF16 else t for t in ts]
+
+    def same_bits(got, f32, what: str) -> None:
+        """``got`` (bf16 instance) against ``f32`` (the f32 instance on the
+        widened operands): equal after rounding each of f32's bf16
+        counterparts once."""
+        check(all(torch.equal(g, r.to(g.dtype)) for g, r in zip(got, f32)),
+              f"{what}: the bf16 instance differs from the f32 instance on "
+              "the widened operands")
+
+    for B, D, H in [(1, 9, 32), (1, 32, 32), (64, 9, 32), (64, 32, 32),
+                    (5, 9, 20), (1, 9, 64), (1, 64, 64)]:
+        w = randn(D + H, 4 * H, gen=gen, scale=(D + H) ** -0.5).to(BF16)
+        b = randn(4 * H, gen=gen, scale=0.1).to(BF16)
+        x = randn(B, 3, D, gen=gen).to(BF16)[:, 1]
+        c = randn(B, H, gen=gen).to(BF16)
+        h = randn(B, H, gen=gen).to(BF16)
+        got = cell_k.lstm_cell(w, b, x, c, h)
+        err = max(step_err(g, r, f"lstm_cell bf16 B={B} D={D} H={H}")
+                  for g, r in zip(got, cell_k.lstm_cell_plain(w, b, x, c, h)))
+        again = cell_k.lstm_cell(w, b, x, c, h)
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"lstm_cell bf16 B={B} D={D} H={H}: two runs differ")
+        same_bits(got, cell_k.lstm_cell(*widened(w, b, x, c, h)),
+                  f"lstm_cell bf16 B={B} D={D} H={H}")
+        bf16_errs["lstm_cell"] = max(bf16_errs["lstm_cell"], err)
+        print(f"[K1 bf16] lstm_cell B={B} D={D} H={H}: max abs err "
+              f"{err:.3e}; two runs and the f32 instance on the widened "
+              "operands bit-identical")
+
+    def fits_f32(L_, P_, H_, B_, T_, mode="fwd") -> bool:
+        return seq_k.choose_batch_block(B_, T_, L_, P_, H_, mode=mode) \
+            is not None
+
+    bf16_cases = cases + [("2x64 T=128 B=1", (2, 64, 64, 1, 128), {}),
+                          ("3x64 T=128 B=1", (3, 64, 64, 1, 128), {})]
+    for label, shape, kw in bf16_cases:
+        w, b, x = seq_case(*shape)
+        L_, P_, H_, B_, T_ = shape
+        wb, bb, xb = w.to(BF16), b.to(BF16), x.to(BF16)
+        table = seq_k.choose_batch_block(B_, T_, L_, P_, H_, dtype_bytes=2,
+                                         w_dtype_bytes=2)
+        got = seq_k.lstm_seq(wb, bb, xb, **kw)
+        err = max(step_err(g, r, f"lstm_seq bf16 {label}") for g, r in
+                  zip(got, seq_k.lstm_seq_plain(wb, bb, xb)))
+        traj = seq_k.lstm_seq_traj(wb, bb, xb, **kw)
+        terr = max(close(g, r, f"lstm_seq_traj bf16 {label}") for g, r in
+                   zip(traj[2:], ref.lstm_seq_traj(wb, bb, xb)[2:]))
+        check(torch.equal(traj[0], got[0]) and torch.equal(traj[1], got[1]),
+              f"lstm_seq_traj bf16 {label}: final (c, h) differ from the "
+              "plain launch")
+        if fits_f32(*shape):
+            same_bits(traj, seq_k.lstm_seq_traj(*widened(wb, bb, xb), **kw),
+                      f"lstm_seq_traj bf16 {label}")
+        wq, s = ref.quantize_q8(w)
+        gq = seq_k.lstm_seq_q8(w, b, xb, **kw)
+        qerr = max(step_err(g, r, f"lstm_seq_q8 bf16 x {label}") for g, r in
+                   zip(gq, seq_k.lstm_seq_q8_plain(wq, s, b, xb)))
+        tq = seq_k.lstm_seq_q8_traj(wq, s, b, xb, **kw)
+        tqerr = max(close(g, r, f"lstm_seq_q8_traj bf16 x {label}")
+                    for g, r in zip(tq[2:], seq_k.lstm_seq_q8_traj_plain(
+                        wq, s, b, xb)[2:]))
+        check(torch.equal(tq[0], gq[0]) and torch.equal(tq[1], gq[1]),
+              f"lstm_seq_q8_traj bf16 x {label}: final (c, h) differ")
+        same_bits(tq, seq_k.lstm_seq_q8_traj(wq, s, b, xb.float(), **kw),
+                  f"lstm_seq_q8_traj bf16 x {label}")
+        for name, e in (("lstm_seq", err), ("lstm_seq_traj", terr),
+                        ("lstm_seq_q8", qerr), ("lstm_seq_q8_traj", tqerr)):
+            bf16_errs[name] = max(bf16_errs[name], e)
+        home = seq_k.weight_home(L_, P_, H_, kw.get("block_b",
+                                                    table.block_b))
+        print(f"[K2 bf16] {label}: the bf16 table picks {tuple(table)} "
+              f"(block_b, time_chunk), {home} weights; lstm_seq {err:.3e}, "
+              f"lstm_seq_traj {terr:.3e} (f32 trajectories); int8 over bf16 "
+              f"x {qerr:.3e}, trajectories {tqerr:.3e}; final (c, h) of the "
+              "trajectory launches equal the plain launches'"
+              + ("; the f32 instance on the widened operands bit-identical"
+                 if fits_f32(*shape) else
+                 "; the f32 stack fits no block here"))
+    w, b, x = seq_case(2, 32, 32, 3, 50)
+    for q8 in (False, True):
+        ops = (w, b, x.to(BF16)) if q8 else (w.to(BF16), b.to(BF16),
+                                              x.to(BF16))
+        base = wave_runs(*ops, q8, block_b=1)
+        for block_b, tc in ((1, None), (1, 8), (1, 1), (2, None), (4, 8),
+                            (16, None)):
+            got = wave_runs(*ops, q8, block_b=block_b, time_chunk=tc)
+            check(all(torch.equal(g, r) for g, r in zip(
+                (*got[0], *got[1]), (*base[0], *base[1]))),
+                  f"bf16 q8={q8} tile {block_b} tc {tc} differs from tile 1")
+    print("[K2 bf16] 2x32 B=3 T=50, bf16 and int8 over bf16 x: tile 1 "
+          "(register weights, whole, 8- and 1-step chunks, two runs) and "
+          "tiles 2, 4, 16 (shared weights) give the same bits, forward and "
+          "trajectories")
+
+    def f32_chunk(shape, block_b, tc) -> int | None:
+        """A time chunk at which the f32 backward fits ``block_b`` rows:
+        ``tc`` when it does, else 1 (gradients do not depend on it)."""
+        L_, P_, H_, B_, T_ = shape
+        ok = seq_k.working_set_bytes(T_, L_, P_, H_, block_b, mode="bwd",
+                                     time_chunk=tc) <= \
+            factorization.H100_SMEM_PER_BLOCK
+        return tc if ok else 1
+
+    for label, shape, tiles in bwd_cases:
+        w, b, x, dc, dh = bwd_case(*shape)
+        L_, P_, H_, B_, T_ = shape
+        ops = [t.to(BF16) for t in (w, b, x, dc, dh)]
+        tiles = tiles or tuple(seq_k.choose_batch_block(
+            B_, T_, L_, P_, H_, dtype_bytes=2, w_dtype_bytes=2, mode="bwd"))
+        kw = dict(block_b=tiles[0], time_chunk=tiles[1])
+        _, _, ct, ht = seq_k.lstm_seq_traj(*ops[:3], **kw)
+        got = bwd_k.lstm_seq_bwd(*ops[:3], ct, ht, *ops[3:], **kw)
+        err = max(step_err(g, r, f"lstm_seq_bwd bf16 {label} {n}")
+                  for n, g, r in zip(("dw", "db", "dx"), got,
+                                     bwd_k.lstm_seq_bwd_plain(
+                                         *ops[:3], ct, ht, *ops[3:])))
+        again = bwd_k.lstm_seq_bwd(*ops[:3], ct, ht, *ops[3:], **kw)
+        check(all(torch.equal(g, r) for g, r in zip(got, again)),
+              f"lstm_seq_bwd bf16 {label}: two calls differ")
+        f32_kw = dict(block_b=tiles[0],
+                      time_chunk=f32_chunk(shape, tiles[0], tiles[1]))
+        same_bits(got, bwd_k.lstm_seq_bwd(*widened(*ops[:3]), ct, ht,
+                                          *widened(*ops[3:]), **f32_kw),
+                  f"lstm_seq_bwd bf16 {label}")
+        # the int8 stack over bf16 x: f32 dw, db; bf16 dx
+        wq, s = ref.quantize_q8(w)
+        _, _, ctq, htq = seq_k.lstm_seq_q8_traj(wq, s, b, ops[2], **kw)
+        gq = bwd_k.lstm_seq_bwd_q8(wq, s, b, ops[2], ctq, htq, *ops[3:],
+                                   **kw)
+        pq = bwd_k.lstm_seq_bwd_plain(wq, b, ops[2], ctq, htq, *ops[3:],
+                                      scales=s)
+        qerr = max(close(gq[0], pq[0], f"lstm_seq_bwd_q8 bf16 x {label} dw",
+                         GRAD_TOL),
+                   close(gq[1], pq[1], f"lstm_seq_bwd_q8 bf16 x {label} db",
+                         GRAD_TOL),
+                   step_err(gq[2], pq[2], f"lstm_seq_bwd_q8 bf16 x {label} "
+                            "dx"))
+        same_bits(gq, bwd_k.lstm_seq_bwd_q8(
+            wq, s, b, ops[2].float(), ctq, htq, *widened(*ops[3:]),
+            **f32_kw), f"lstm_seq_bwd_q8 bf16 x {label}")
+        bf16_errs["lstm_seq_bwd"] = max(bf16_errs["lstm_seq_bwd"], err)
+        bf16_errs["lstm_seq_bwd_q8"] = max(bf16_errs["lstm_seq_bwd_q8"],
+                                           qerr)
+        print(f"[K3 bf16] {label} tiles {tiles}: max abs err {err:.3e} vs "
+              f"plain (dw, db, dx bf16), int8 over bf16 x {qerr:.3e}; two "
+              "calls and the f32 instances on the widened operands "
+              "bit-identical")
+    for B_, block_b, T_, chunks in [(1, 1, 128, (None, 1, 48)),
+                                    (64, 1, 128, (None, 1, 48)),
+                                    (37, 8, 50, (1, 3, 4))]:
+        w, b, x, dc, dh = bwd_case(2, 32, 32, B_, T_)
+        ops = [t.to(BF16) for t in (w, b, x, dc, dh)]
+        outs = []
+        for tc in chunks:
+            _, _, ct, ht = seq_k.lstm_seq_traj(*ops[:3], block_b=block_b,
+                                               time_chunk=tc)
+            outs.append(bwd_k.lstm_seq_bwd(*ops[:3], ct, ht, *ops[3:],
+                                           block_b=block_b, time_chunk=tc))
+        check(all(torch.equal(g, r) for out in outs[1:]
+                  for g, r in zip(out, outs[0])),
+              f"lstm_seq_bwd bf16 B={B_} T={T_}: time_chunk {chunks} differ")
+        print(f"[K3 bf16] gradients bit-identical across time_chunk {chunks}"
+              f" (B={B_}, block_b={block_b}, T={T_})")
+
+    # the bf16 serving path: all five plans through classify.serve with a
+    # bf16 config, counted, the plain versions (K1's too) armed
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    bf16_tol = plans.LSTM_TOL["bfloat16"]
+
+    def policy16(plan: str) -> dict:
+        """The bf16 tolerance against bf16 ``sequential``: LSTM_TOL's, or
+        Q8_BAND for the int8 plan (whose band is f32-only in the family)."""
+        return plans.Q8_BAND if plan == "fused_seq_q8" else bf16_tol
+
+    def bf16_counts() -> dict:
+        return {fn.__name__: fn.bf16_launches for fn in counted
+                if hasattr(fn, "bf16_launches")}
+
+    reset_counts(*counted)
+    with tripwires(*plain_versions, (cell_k, "lstm_cell_plain")):
+        served16 = classify.serve(cfg16, device, requests=32, plan="auto",
+                                  seed=0)
+    launches16 = counts()
+    serve16_bf16 = bf16_counts()
+    print(f"[bf16] serving path launches: {launches16}, on bf16 instances "
+          f"{serve16_bf16}")
+    for name in ("lstm_cell", "lstm_seq", "lstm_seq_q8"):
+        check(serve16_bf16[name] == launches16[name] > 0,
+              f"{name}: {serve16_bf16[name]} of {launches16[name]} bf16 "
+              "serving launches on the bf16 instance")
+    check(all(launches16[n] == 0 for n in (
+        "lstm_seq_traj", "lstm_seq_bwd", "lstm_seq_q8_traj",
+        "lstm_seq_bwd_q8")), "bf16 serving launched a training kernel")
+    check(served16["logits"].shape == (32, cfg.n_classes)
+          and served16["logits"].dtype == BF16
+          and bool(torch.isfinite(served16["logits"]).all()),
+          "bf16 served logits are not finite bf16 (32, 6)")
+    p16 = lstm.LSTMClassifier(
+        cfg16, generator=torch.Generator().manual_seed(0)).to(device).params()
+    with torch.inference_mode():
+        asked16 = har_windows(32).to(BF16)
+        close(served16["logits"].float(), torch.cat([
+            lstm.forward_sequential(p16, asked16[j:j + 1], cfg16)
+            for j in range(32)]).float(),
+            f"bf16 served through {served16['served']} vs sequential",
+            policy16(served16["served"]))
+        windows16 = har_windows(64).to(BF16)
+        ref16 = lstm.forward_sequential(p16, windows16, cfg16).float()
+        for name, fwd in lstm.FORWARD_PLANS.items():
+            e = close(fwd(p16, windows16, cfg16).float(), ref16,
+                      f"bf16 {name} batch of 64", policy16(name))
+            print(f"[bf16] {name}: batch of 64 within {policy16(name)} of "
+                  f"bf16 sequential (max abs err {e:.3e})")
+        for B_ in (1, 64):
+            for fwd, want in ((lstm.forward_fused_seq, only(lstm_seq=1)),
+                              (lstm.forward_fused_seq_q8,
+                               only(lstm_seq_q8=1)),
+                              (lstm.forward_fused_kernel,
+                               only(lstm_cell=T * L))):
+                reset_counts(*counted)
+                fwd(p16, windows16[:B_], cfg16)
+                check(counts() == want and all(
+                    bf16_counts()[n] == want[n] for n in bf16_counts()),
+                      f"bf16 {fwd.__name__} B={B_}: {counts()}, "
+                      f"{bf16_counts()}")
+                check(seq_k.lstm_seq.reg_launches == want["lstm_seq"]
+                      and seq_k.lstm_seq_q8.reg_launches
+                      == want["lstm_seq_q8"],
+                      f"bf16 {fwd.__name__} B={B_}: not on the register home")
+    print(f"[bf16] launches per forward: fused_seq 1 and fused_seq_q8 1 "
+          f"(register weights), fused_cell {T * L} (T x L), at B=1 and 64, "
+          "all on the bf16 instances")
+    print(f"[bf16] HAR p50 of one window: fused_seq "
+          f"{served16['table']['fused_seq']['p50_ms']:.3f} ms (f32 "
+          f"{served['table']['fused_seq']['p50_ms']:.3f}), fused_seq_q8 "
+          f"{served16['table']['fused_seq_q8']['p50_ms']:.3f}, fused_cell "
+          f"{served16['table']['fused_cell']['p50_ms']:.3f}; scheduler chose "
+          f"{served16['chosen']} ({card})")
+
+    # 2 x 64 in bf16: the halved stack serves in one K2 launch a request
+    cfg64_16 = dataclasses.replace(wide64, dtype="bfloat16")
+    sink = trace_lib.ListSink()
+    old = trace_lib.set_tracer(trace_lib.Tracer(sink))
+    try:
+        reset_counts(*counted)
+        with tripwires(*plain_versions, (cell_k, "lstm_cell_plain")):
+            served64_16 = classify.serve(cfg64_16, device, requests=16,
+                                         plan="fused_seq", seed=0)
+        got = counts()
+        got16 = bf16_counts()
+    finally:
+        trace_lib.set_tracer(old)
+    events = [r["attrs"] for r in sink.records
+              if r["name"] == "plan/dispatch"]
+    calls = 2 * (1 + 16)
+    check(got == only(lstm_seq=calls) and got16["lstm_seq"] == calls
+          and events and all("fallback" not in e for e in events),
+          f"2 x 64 bf16 fused_seq: {got}, {got16}, {events[:1]}")
+    p64_16 = lstm.LSTMClassifier(
+        cfg64_16, generator=torch.Generator().manual_seed(0)
+    ).to(device).params()
+    with torch.inference_mode():
+        asked64_16 = har_windows(16).to(BF16)
+        e = close(served64_16["logits"].float(), torch.cat([
+            lstm.forward_sequential(p64_16, asked64_16[j:j + 1], cfg64_16)
+            for j in range(16)]).float(), "2 x 64 bf16 fused_seq", bf16_tol)
+    p64_tile = seq_k.choose_batch_block(1, T, 2, 64, 64, dtype_bytes=2,
+                                        w_dtype_bytes=2)
+    print(f"[bf16] 2 x 64, B=1: fused_seq 1 bf16 K2 launch a request at tile "
+          f"{tuple(p64_tile)} (p50 "
+          f"{served64_16['table']['fused_seq']['p50_ms']:.3f} ms, max abs "
+          f"err {e:.3e} vs bf16 sequential) beside f32 fused_seq on "
+          f"fused_cell, {T * L} launches (p50 "
+          f"{served64['fused_seq']['table']['fused_seq']['p50_ms']:.3f} ms)")
+
+    # the bf16 training paths: 20 train_har steps through fused_seq and
+    # fused_seq_q8, counted, the plain versions armed
+    runs16, train16, train16_bf16 = {}, {}, {}
+    for plan in ("fused_seq", "fused_seq_q8"):
+        sink = trace_lib.ListSink()
+        old = trace_lib.set_tracer(trace_lib.Tracer(sink))
+        try:
+            reset_counts(*counted)
+            with tripwires(*plain_versions):
+                runs16[plan] = train_har.train(
+                    cfg16, device, plan=plan, steps=20, batch=64,
+                    n_train=512, n_test=256, latency_cases=0, seed=0)
+            train16[plan] = counts()
+            train16_bf16[plan] = bf16_counts()
+        finally:
+            trace_lib.set_tracer(old)
+        suffix = "_q8" if plan == "fused_seq_q8" else ""
+        want = only(**{f"lstm_seq{suffix}_traj": 20,
+                       f"lstm_seq_bwd{suffix}": 20, f"lstm_seq{suffix}": 2})
+        check(train16[plan] == want and all(
+            train16_bf16[plan][n] == want[n] for n in train16_bf16[plan]),
+              f"20 bf16 {plan} steps launched {train16[plan]}, bf16 "
+              f"{train16_bf16[plan]}")
+        losses = runs16[plan]["losses"]
+        check(len(losses) == 20 and all(map(math.isfinite, losses))
+              and losses[-1] < losses[0],
+              f"bf16 {plan} losses not finite or not falling: {losses}")
+        events = [r["attrs"] for r in sink.records
+                  if r["name"] == "plan/dispatch" and r["attrs"]["train"]]
+        check(len(events) == 20 and all(
+            "fallback" not in e and e["bwd_block_b"] >= 1 for e in events),
+              f"a bf16 {plan} training call left its kernels: {events[:1]}")
+        print(f"[bf16 train] {plan}: 20 steps, 2 launches a step on the bf16"
+              f" instances ({train16[plan]}); losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; median step "
+              f"{statistics.median(runs16[plan]['step_ms']):.3f} ms")
+    seq16 = train_har.train(cfg16, device, plan="sequential", steps=20,
+                            batch=64, n_train=512, n_test=256,
+                            latency_cases=0, seed=0)
+    grad16 = plans.LSTM_GRAD_TOL["bfloat16"]
+    for plan in ("fused_seq", "fused_seq_q8"):
+        for i in range(3):
+            check(math.isclose(runs16[plan]["losses"][i], seq16["losses"][i],
+                               rel_tol=grad16["rtol"],
+                               abs_tol=grad16["atol"]),
+                  f"bf16 step {i + 1}: {plan} loss "
+                  f"{runs16[plan]['losses'][i]} vs sequential "
+                  f"{seq16['losses'][i]}")
+        print(f"[bf16 train] first 3 {plan} losses "
+              f"{runs16[plan]['losses'][:3]} agree with bf16 sequential's "
+              f"{seq16['losses'][:3]} at {grad16}")
+    # 2 x 64 bf16 trains on fused_cell: the f32 dW accumulators alone fill
+    # a block
+    wp = lstm.LSTMClassifier(
+        cfg64_16, generator=torch.Generator().manual_seed(2)
+    ).to(device).params()
+    xs = randn(4, 16, cfg.input_dim, gen=gen).to(BF16)
+    ys = torch.randint(0, cfg.n_classes, (4,), generator=gen).to(device)
+    sink = trace_lib.ListSink()
+    old = trace_lib.set_tracer(trace_lib.Tracer(sink))
+    try:
+        reset_counts(*counted)
+        got = torch.autograd.grad(lstm.loss_fn(
+            wp, xs, ys, cfg64_16, forward=lstm.forward_fused_seq),
+            tree_leaves(wp))
+        wide_launches = counts()
+    finally:
+        trace_lib.set_tracer(old)
+    events = [r["attrs"] for r in sink.records
+              if r["name"] == "plan/dispatch"]
+    check(wide_launches == only(lstm_cell=16 * 2)
+          and cell_k.lstm_cell.bf16_launches == 16 * 2
+          and len(events) == 1 and events[0].get("fallback") == "fused_cell",
+          f"2 x 64 bf16 fused_seq training step: {wide_launches}, {events}")
+    want = torch.autograd.grad(lstm.loss_fn(wp, xs, ys, cfg64_16),
+                               tree_leaves(wp))
+    for g, r in zip(got, want):
+        close(g.float(), r.float(), "2 x 64 bf16 grads vs sequential",
+              grad16)
+    print("[bf16 train] 2 x 64 (the bf16 backward fits no block): a "
+          "fused_seq step runs on the bf16 K1 with the event and bf16 "
+          "sequential's grads")
+
     def cudnn_lstm(w_s, b_s, P):
         """``nn.LSTM`` loaded with the stacked weights (TF32 off): one
         library call computing the sequence kernels' function."""
@@ -3276,6 +3675,167 @@ def main() -> None:
                     w_s, b_s, xb, ct, ht, dc, dh), 1, repeats=3),
                 library_ms=bwd_lib_ms, chain_ms=bwd_chain_bound_ms(
                     T, L, P, H), bound_ms=t_bound, bound_by=by))
+    with torch.no_grad():
+        # the bf16 instances beside their f32 instances (this call's rows
+        # above): back to back and in a CUDA graph, the bound at 2 bytes an
+        # element (the trajectories 4) and at the bf16 peak (the inputs'
+        # type; the kernels' FMAs are f32), the plain version and the
+        # library in bf16 (nn.LSTM / nn.LSTMCell moved to bf16; its
+        # difference from the kernel printed beside, not gated)
+        def lib_err(got, want) -> float:
+            return max(float((g.float() - r.float()).abs().max())
+                       for g, r in zip(got, want))
+
+        def cell_row16(B: int, lw: dict, extra: bool = False) -> dict:
+            H = lw["b"].numel() // 4
+            D = lw["w"].shape[0] - H
+            x = randn(B, D, gen=gen).to(BF16)
+            c = randn(B, H, gen=gen).to(BF16)
+            h = randn(B, H, gen=gen).to(BF16)
+            lib = torch.nn.LSTMCell(D, H).to(device).requires_grad_(False)
+            lib.weight_ih.copy_(lw["w"][:D].T)
+            lib.weight_hh.copy_(lw["w"][D:].T)
+            lib.bias_ih.copy_(lw["b"])
+            lib.bias_hh.zero_()
+            lib = lib.to(BF16)
+            call = lambda: cell_k.lstm_cell(lw["w"], lw["b"], x, c,  # noqa
+                                            h)
+            t_bound, by = bound(2 * (lw["w"].numel() + lw["b"].numel()
+                                     + B * D + 4 * B * H),
+                                2 * B * (D + H) * 4 * H, BF16_FLOP_PER_S)
+            return dict(
+                name="lstm_cell_bf16", B=B, shape=f"B={B} D={D} H={H} bf16",
+                extra=extra, ms=time_ms(call, 200),
+                cell_graph_ms=graph_ms(call),
+                plain_ms=time_ms(lambda: cell_k.lstm_cell_plain(
+                    lw["w"], lw["b"], x, c, h), 200),
+                library_ms=time_ms(lambda: lib(x, (h, c)), 200),
+                library_graph_ms=graph_ms(lambda: lib(x, (h, c))),
+                library_err=lib_err(lib(x, (h, c))[::-1], call()),
+                bound_ms=t_bound, bound_by=by)
+
+        def seq_rows16(lw_list, xw, B: int, train: bool,
+                       extra: bool = False) -> list[dict]:
+            """K2 bf16 and the int8 stack over bf16 x at the serving
+            tiling; with ``train``, K2t, K3 and their int8-over-bf16
+            instances at the backward's tiling."""
+            Hs = lw_list[0]["b"].numel() // 4
+            w16, b16, P_ = seq_k.stack_params(lw_list, Hs)
+            L_, T_ = w16.shape[0], xw.shape[1]
+            xp16 = seq_k.pad_input(xw[:B].to(BF16), P_)
+            w32, b32 = w16.float(), b16.float()
+            wq, s = ref.quantize_q8(w32)
+            lib = cudnn_lstm(w32, b32, P_).to(BF16)
+            lib.flatten_parameters()     # one weight buffer, as cuDNN takes
+            shape = f"B={B} T={T_} L={L_} P={P_} H={Hs} bf16"
+            flops = T_ * 2 * B * 4 * Hs * ((P_ + Hs) + (L_ - 1) * 2 * Hs)
+            out = []
+            for name, wk, sk, bk in (("lstm_seq_bf16", w16, None, b16),
+                                     ("lstm_seq_q8_bf16", wq, s, b32)):
+                fwd = seq_k.choose_batch_block(B, T_, L_, P_, Hs,
+                                               **seq_k._bytes(wk, xp16))
+                launch = lambda: seq_k._launch(  # noqa: E731
+                    wk, bk, xp16, fwd.block_b, fwd.time_chunk, False, sk)
+                w_bytes = wk.numel() * wk.element_size() + (
+                    0 if sk is None else 4 * sk.numel())
+                t_bound, by = bound(w_bytes + bk.numel() * bk.element_size()
+                                    + 2 * (xp16.numel() + 2 * L_ * B * Hs),
+                                    flops, BF16_FLOP_PER_S)
+                if sk is None:
+                    entry = lambda: seq_k.lstm_seq(w16, b16, xp16)  # noqa
+                    plain = lambda: seq_k.lstm_seq_plain(  # noqa: E731
+                        w16, b16, xp16)
+                else:
+                    entry = lambda: seq_k.lstm_seq_q8(w32, b32, xp16)  # noqa
+                    plain = lambda: seq_k.lstm_seq_q8_plain(  # noqa: E731
+                        wq, s, b32, xp16)
+                out.append(dict(
+                    name=name, B=B, extra=extra, shape=shape + (
+                        " (int8 stack)" if sk is not None else ""),
+                    tiles=tuple(fwd),
+                    home=seq_k.weight_home(L_, P_, Hs, fwd.block_b),
+                    ms=time_ms(launch, 100), graph_ms=graph_ms(launch),
+                    entry_ms=time_ms(entry, 100), plain_ms=time_ms(plain, 2),
+                    library_ms=time_ms(lambda: lib(xp16), 50),
+                    library_graph_ms=library_graph_ms(lambda: lib(xp16)),
+                    library_err=lib_err(lib(xp16)[1][::-1], entry()),
+                    chain_ms=chain_bound_ms(T_, L_, P_, Hs),
+                    bound_ms=t_bound, bound_by=by))
+            if not train:
+                return out
+            dc = torch.zeros(L_, B, Hs, device=device, dtype=BF16)
+            dh = randn(L_, B, Hs, gen=gen).to(BF16)
+            xg = xp16.clone().requires_grad_()
+            lib.requires_grad_(True)
+            with torch.enable_grad():
+                _, (h_lib, c_lib) = lib(xg)
+                lib_in = [xg, *lib.parameters()]
+                traj_lib_ms = time_ms(lambda: lib(xg), 50)
+                traj_lib_graph = library_graph_ms(lambda: lib(xg))
+                bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
+                    (h_lib, c_lib), lib_in, (dh, dc), retain_graph=True), 50)
+            state = 2 * T_ * L_ * B * Hs
+            for suffix, wk, sk, bk in (("_bf16", w16, None, b16),
+                                       ("_q8_bf16", wq, s, b32)):
+                tiles = seq_k.choose_batch_block(
+                    B, T_, L_, P_, Hs, mode="bwd", **seq_k._bytes(wk, xp16))
+                kw = dict(block_b=tiles.block_b, time_chunk=tiles.time_chunk)
+                if sk is None:
+                    _, _, ct, ht = seq_k.lstm_seq_traj(wk, bk, xp16, **kw)
+                    bwd = lambda: bwd_k.lstm_seq_bwd(  # noqa: E731
+                        wk, bk, xp16, ct, ht, dc, dh, **kw)
+                else:
+                    _, _, ct, ht = seq_k.lstm_seq_q8_traj(wk, sk, bk, xp16,
+                                                          **kw)
+                    bwd = lambda: bwd_k.lstm_seq_bwd_q8(  # noqa: E731
+                        wk, sk, bk, xp16, ct, ht, dc, dh, **kw)
+                traj = lambda: seq_k._launch(  # noqa: E731
+                    wk, bk, xp16, tiles.block_b, tiles.time_chunk, True, sk)
+                w_bytes = wk.numel() * wk.element_size() + (
+                    0 if sk is None else 4 * sk.numel())
+                b_bytes = bk.numel() * bk.element_size()
+                home = seq_k.weight_home(L_, P_, Hs, tiles.block_b)
+                t_bound, by = bound(w_bytes + b_bytes + 2 * (
+                    xp16.numel() + 2 * L_ * B * Hs) + 4 * state, flops,
+                    BF16_FLOP_PER_S)
+                base = "lstm_seq_q8" if sk is not None else "lstm_seq"
+                tshape = shape + f" tiles {tuple(tiles)}"
+                out.append(dict(
+                    name=f"{base}_traj_bf16", B=B, extra=extra, shape=tshape,
+                    tiles=tuple(tiles), home=home, ms=time_ms(traj, 100),
+                    graph_ms=graph_ms(traj), entry_ms=time_ms(traj, 100),
+                    plain_ms=time_ms(lambda: ref.lstm_seq_traj(
+                        wk.float() if sk is None else ref.dequantize_q8(
+                            wk, sk), bk, xp16), 2),
+                    library_ms=traj_lib_ms, library_graph_ms=traj_lib_graph,
+                    chain_ms=chain_bound_ms(T_, L_, P_, Hs),
+                    bound_ms=t_bound, bound_by=by))
+                # w, b, x, the trajectories, dc, dh in; dw, db (the
+                # stack's, f32 for int8) and dx out
+                g_bytes = 4 if sk is not None else 2
+                t_bound, by = bound(
+                    w_bytes + b_bytes + 2 * (2 * xp16.numel()
+                                             + 2 * L_ * B * Hs) + 4 * state
+                    + g_bytes * (wk.numel() + bk.numel()), 3 * flops,
+                    BF16_FLOP_PER_S)
+                out.append(dict(
+                    name=f"lstm_seq_bwd{'_q8' if sk is not None else ''}"
+                         "_bf16", B=B, extra=extra, shape=tshape,
+                    tiles=tuple(tiles), home=home, ms=time_ms(bwd, 100),
+                    graph_ms=graph_ms(bwd),
+                    plain_ms=time_ms(lambda: bwd_k.lstm_seq_bwd_plain(
+                        wk, bk, xp16, ct, ht, dc, dh, scales=sk), 2),
+                    library_ms=bwd_lib_ms,
+                    chain_ms=bwd_chain_bound_ms(T_, L_, P_, Hs),
+                    bound_ms=t_bound, bound_by=by))
+            return out
+
+        rows.append(cell_row16(1, p64_16["layers"][1], extra=True))
+        for B in (1, 64):
+            rows.append(cell_row16(B, p16["layers"][1]))
+            rows += seq_rows16(p16["layers"], windows, B, train=True)
+        rows += seq_rows16(p64_16["layers"], windows, 1, train=False,
+                           extra=True)
     def ms_or_none(v):
         return "not capturable" if v is None else f"{v:.4f} ms"
 
@@ -3322,9 +3882,31 @@ def main() -> None:
               f"{ms_or_none(libs['lstm_seq_q8']['library_graph_ms'])}); "
               f"training forward {libs['lstm_seq_traj']['library_ms']:.4f} "
               f"and {libs['lstm_seq_q8_traj']['library_ms']:.4f} ms")
-    for name, legend in (("lstm_seq", "<rows,traj,weights,register home>"),
-                         ("lstm_seq_bwd", "<rows,max threads,weights> "
-                          "(shared home) or wave<weights> (register home)")):
+    for r in rows:
+        if not r["name"].endswith("_bf16"):
+            continue
+        f32 = next((q for q in rows if q["name"] == r["name"][:-5]
+                    and q["B"] == r["B"]
+                    and bool(q.get("extra")) == bool(r.get("extra"))
+                    and q["shape"].split(" tiles")[0]
+                    == r["shape"].replace(" bf16", "").replace(
+                        " (int8 stack)", "").split(" tiles")[0]), None)
+        mine = r.get("graph_ms", r.get("cell_graph_ms"))
+        theirs = None if f32 is None else f32.get(
+            "graph_ms", f32.get("cell_graph_ms"))
+        print(f"[time bf16] {r['name']} {r['shape']}: {mine:.4f} ms in a "
+              "CUDA graph" + ("" if theirs is None else
+                              f" vs the f32 instance's {theirs:.4f} ms "
+                              f"({mine / theirs:.3f}x)")
+              + f"; cuDNN bf16 {r['library_ms']:.4f} ms back to back"
+              + ("" if r.get("library_err") is None else
+                 f", {r['library_err']:.3e} max abs from the kernel"))
+    for name, legend in (("lstm_seq",
+                          "<rows,traj,weights,input,register home>"),
+                         ("lstm_seq_bwd", "<rows,max threads,weights,input> "
+                          "(shared home) or wave<weights,input> (register "
+                          "home)"),
+                         ("lstm_cell", "<rows,vector loads,dtype>")):
         compiled = ""                  # the entry ptxas is reporting on
         for line in BUILD_LOGS.get(name, "").splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -3336,7 +3918,10 @@ def main() -> None:
                       f" {line.strip()}")
     for name, run in (("fused_seq", trained),
                       ("fused_seq_q8", runs["fused_seq_q8"]),
-                      ("sequential", sequential)):
+                      ("sequential", sequential),
+                      ("fused_seq bf16", runs16["fused_seq"]),
+                      ("fused_seq_q8 bf16", runs16["fused_seq_q8"]),
+                      ("sequential bf16", seq16)):
         print(f"[time] training step, {name}, batch 64: median "
               f"{statistics.median(run['step_ms']):.3f} ms, min "
               f"{min(run['step_ms']):.3f} ms over 20 steps (host clock "
@@ -3365,6 +3950,19 @@ def main() -> None:
                   "src/repro_torch/kernels/csrc/lstm_seq_bwd.cu",
                   "src/repro/kernels/lstm_seq_bwd.py:197", 64,
                   train_launches["fused_seq_q8"])}
+    # the bf16 instances: the same kernels and call sites, counted on the
+    # bf16 serving and training paths
+    bf16_paths = {"lstm_cell": serve16_bf16, "lstm_seq": serve16_bf16,
+                  "lstm_seq_q8": serve16_bf16,
+                  "lstm_seq_traj": train16_bf16["fused_seq"],
+                  "lstm_seq_bwd": train16_bf16["fused_seq"],
+                  "lstm_seq_q8_traj": train16_bf16["fused_seq_q8"],
+                  "lstm_seq_bwd_q8": train16_bf16["fused_seq_q8"]}
+    for name, path in bf16_paths.items():
+        src_file, replaces, main_b, _ = source[name]
+        source[f"{name}_bf16"] = (src_file, replaces, main_b,
+                                  {f"{name}_bf16": path[name]})
+        errs[f"{name}_bf16"] = bf16_errs[name]
     kernels = []
     for r in rows:
         src_file, replaces, main_b, path = source[r["name"]]
@@ -3376,10 +3974,11 @@ def main() -> None:
             "max_abs_err": errs[r["name"]], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if r["name"] == "lstm_cell":      # device time alone, both sides
+        if r["name"].startswith("lstm_cell"):  # device time alone, both
             kernels[-1].update(graph_ms=r["cell_graph_ms"],
                                library_graph_ms=r["library_graph_ms"])
-        if r["name"].startswith("lstm_seq_bwd"):
+        if r["name"].startswith("lstm_seq_bwd") or (
+                r["name"].endswith("_bf16") and "graph_ms" in r):
             kernels[-1].update(graph_ms=r["graph_ms"],
                                chain_bound_ms=r["chain_ms"])
     kernels.append(rwkv_slice(device, gen, counted, counts, only))

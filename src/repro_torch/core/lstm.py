@@ -24,6 +24,14 @@ four are numerically equivalent, the fifth agrees within the int8 band:
   rounding of the dequantize oracle; it trains quantization-aware with f32
   master weights and straight-through gradients.
 
+Every plan runs in float32 or bfloat16 (``cfg.dtype``: the parameters' and
+the input's dtype), as the JAX package's do.  In bf16 the kernels widen
+every operand to f32 and sum in f32; ``fused_seq`` keeps its state in f32
+for the whole sequence and rounds only the final h, while ``fused_cell``
+(and ``sequential``) round the state to bf16 every step, by design, as in
+the JAX package.  The bf16 stack is half the f32 one, so ``fused_seq``
+serves 2 x 64 and 3 x 64 in one launch, where f32 routes to ``fused_cell``.
+
 Every plan trains: ``loss_fn`` under ``torch.autograd`` differentiates it.
 A ``fused_seq`` training step is two launches at any T (the trajectory
 forward and the reverse-sweep backward kernel, kernels/lstm_seq_bwd.py); a
@@ -146,12 +154,17 @@ def _forward_fused_seq_impl(params: dict, x: torch.Tensor, cfg: LSTMConfig,
                             *, smem_budget: int | None,
                             quantized: bool) -> torch.Tensor:
     """Shared body of the f32 and int8 sequence-resident plans: stack the
-    layer params, consult the (quantization-aware) budget table once —
-    ``mode="bwd"`` when autograd records the call — route to the per-cell
-    kernel when even (bm=1, tc=1) cannot fit, run the sequence kernel,
-    apply the head."""
+    layer params, consult the (dtype- and quantization-aware) budget table
+    once — ``mode="bwd"`` when autograd records the call — route to the
+    per-cell kernel when even (bm=1, tc=1) cannot fit, run the sequence
+    kernel, apply the head.  ``quantized`` casts the stack to f32 masters
+    first, as the JAX package does: int8 rounding is then the only
+    deviation, and the straight-through gradients land in f32 before the
+    cast returns them in the parameters' dtype."""
     w_stack, b_stack, p_width = seq_lib.stack_params(params["layers"],
                                                      cfg.hidden)
+    if quantized:
+        w_stack, b_stack = w_stack.float(), b_stack.float()
     B, T, _ = x.shape
     train = seq_lib.recorded(w_stack, b_stack, x)
     blocks = seq_lib.choose_batch_block(
@@ -200,7 +213,9 @@ FORWARD_PLANS: dict[str, Callable] = {
 
 
 def plan_viability(cfg: LSTMConfig, batch: int, seq_len: int, *,
+                   seq_plan_names: tuple[str, ...] = ("fused_seq",),
                    q8_plan_names: tuple[str, ...] = ("fused_seq_q8",),
+                   dtype_bytes: int = 4, w_dtype_bytes: int | None = None,
                    smem_budget: int | None = None,
                    train: bool = False) -> Callable[[str], bool]:
     """Viability predicate for ``Scheduler(viable=...)``.
@@ -209,8 +224,12 @@ def plan_viability(cfg: LSTMConfig, batch: int, seq_len: int, *,
     ``kernels/lstm_seq.choose_batch_block`` finds a ``(block_b,
     time_chunk)`` tiling that fits a thread block's shared memory; past it
     ``forward_fused_seq`` reroutes to the per-cell kernel, so scheduling it
-    would run ``fused_cell`` under another name.  Every other plan is
-    always viable.
+    would run ``fused_cell`` under another name.  ``seq_plan_names``
+    lists the scheduler names of that plan (a benchmark may register it as
+    ``accel_seq``); every other plan is always viable.  ``dtype_bytes``
+    sizes the input and ``w_dtype_bytes`` the stack (default: the input's
+    width): a bf16 model is ``dtype_bytes=2, w_dtype_bytes=2``, whose
+    halved stack serves 2 x 64 in one launch where f32 cannot.
 
     ``train=True`` sizes the backward working set instead
     (``choose_batch_block(mode="bwd")``: trajectory windows and gradient
@@ -228,15 +247,17 @@ def plan_viability(cfg: LSTMConfig, batch: int, seq_len: int, *,
     mode = "bwd" if train else "fwd"
     block = seq_lib.choose_batch_block(
         batch, seq_len, cfg.n_layers, p_width, cfg.hidden,
-        smem_budget=smem_budget, mode=mode)
+        dtype_bytes=dtype_bytes, smem_budget=smem_budget,
+        w_dtype_bytes=w_dtype_bytes, mode=mode)
     q8_block = seq_lib.choose_batch_block(
         batch, seq_len, cfg.n_layers, p_width, cfg.hidden,
-        smem_budget=smem_budget, mode=mode, quantized=True)
+        dtype_bytes=dtype_bytes, smem_budget=smem_budget, mode=mode,
+        quantized=True)
 
     def viable(plan_name: str) -> bool:
         if plan_name in q8_plan_names:
             return q8_block is not None
-        return block is not None or plan_name != "fused_seq"
+        return block is not None or plan_name not in seq_plan_names
 
     return viable
 

@@ -18,10 +18,9 @@ A family registers the same things the JAX package's does:
 Families registered here:
 
 * ``lstm`` — the plans are ``core/lstm.FORWARD_PLANS`` (the registry points
-  at the same callables).  Its dtypes are ``("float32",)``: the kernels
-  raise ``TypeError`` on anything else until the bf16 slice, so the bf16
-  entries of the tolerance tables (kept, as the JAX package has them) are
-  not swept.  Viability is ``core/lstm.plan_viability``.
+  at the same callables).  Dtypes float32 and bfloat16, as the JAX
+  package's; the int8 plan's band is float32-only, as there.  Viability is
+  ``core/lstm.plan_viability``.
 * ``rwkv6`` — ``stepwise`` (the per-timestep oracle, models/rwkv.wkv_step
   over T), ``chunked_xla`` (models/rwkv.wkv_chunked, the plain-PyTorch
   chunked scan, chunk clamped to the largest divisor of T) and
@@ -277,7 +276,7 @@ def _build_lstm_family() -> Family:
         specs[name] = spec
     return Family(
         name="lstm", oracle="sequential", plans=specs, cases=_LSTM_CASES,
-        dtypes=("float32",), make_inputs=_lstm_make_inputs,
+        dtypes=("float32", "bfloat16"), make_inputs=_lstm_make_inputs,
         apply=_lstm_apply, grads=_lstm_grads, viability=_lstm_viability)
 
 

@@ -6,7 +6,11 @@ sense load and choose.  Each registered ``Plan`` carries a calibrated base
 latency and a contention model; a ``LoadSensor`` supplies the current load;
 ``Scheduler.choose`` picks the predicted-fastest plan and ``Scheduler.run``
 folds the observed latency back into the calibration (exponential moving
-average), so the crossover point is learned, not assumed.
+average), so the crossover point is learned, not assumed.  The sensors are
+``SyntheticLoadSensor`` (injected load, for tests and the Fig 7
+reproduction) and ``ProcLoadSensor`` (the host's normalised 1-minute load
+average); ``Scheduler.decisions`` keeps the last ``MAX_DECISIONS``
+choices.
 
 The LSTM plans it schedules are core/lstm.FORWARD_PLANS; wire the
 shared-memory budget table in with
@@ -17,7 +21,9 @@ Timing waits for the card: a plan whose output is on CUDA is followed by
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import os
 import time
 from typing import Callable, Protocol
 
@@ -37,6 +43,21 @@ class SyntheticLoadSensor:
 
     def load(self) -> float:
         return min(max(self.value, 0.0), 1.0)
+
+
+class ProcLoadSensor:
+    """Real sensor: the 1-minute load average over the CPU count, at most 1
+    (the /proc analogue of the paper's ADB / Adreno utilisation scripts);
+    0 where the platform has no load average."""
+
+    def __init__(self, n_cpus: int | None = None):
+        self.n_cpus = n_cpus or os.cpu_count() or 1
+
+    def load(self) -> float:
+        try:
+            return min(os.getloadavg()[0] / self.n_cpus, 1.0)
+        except OSError:
+            return 0.0
 
 
 @dataclasses.dataclass
@@ -92,7 +113,12 @@ class Scheduler:
     plans that cannot run on the current shapes (core/lstm.plan_viability).
     Non-viable plans are never calibrated and never chosen.  ``ladder``
     lists plan names most-expensive first; ``degrade``/``recover`` step
-    ``level`` rungs of it out of and back into the choice."""
+    ``level`` rungs of it out of and back into the choice.  ``decisions``
+    keeps the last ``MAX_DECISIONS`` choices, oldest first."""
+
+    #: bound of the decision history: a serving loop calls choose() once a
+    #: tick for its whole life, so an unbounded list would grow without end
+    MAX_DECISIONS = 4096
 
     def __init__(self, sensor: LoadSensor,
                  viable: Callable[[str], bool] | None = None,
@@ -100,6 +126,8 @@ class Scheduler:
         self.sensor = sensor
         self.viable = viable
         self.plans: dict[str, Plan] = {}
+        self.decisions: collections.deque[Decision] = collections.deque(
+            maxlen=self.MAX_DECISIONS)
         self.ladder: list[str] = list(ladder or [])
         self.level: int = 0
 
@@ -184,6 +212,7 @@ class Scheduler:
                  for n, p in self._viable_plans(viable).items()}
         best = min(preds, key=preds.get)
         d = Decision(plan=best, load=load, predicted_s=preds)
+        self.decisions.append(d)
         tracer = trace_lib.get_tracer()
         if tracer.enabled:
             tracer.event("sched/choose", plan=best, load=load,

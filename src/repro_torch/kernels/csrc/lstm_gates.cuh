@@ -7,8 +7,8 @@
 // functions below, so the recompute runs the same multiply-adds in the same
 // order, combines the same partial sums in the same order, folds the same
 // scale and applies the same sigmoid and tanh: its activations are the
-// forward's to the bit, for f32 and int8 weights alike, whatever the two
-// kernels' thread layouts.
+// forward's to the bit, for f32, bf16 and int8 weights alike, whatever the
+// two kernels' thread layouts.
 //
 // The canonical order of one gate column j (gate order i, f, g, o):
 //  * a segment is one product, v (n) @ W[rows] (n): the input segment (x,
@@ -33,10 +33,14 @@
 // is also the same at every time chunk, batch tile and weight home, so
 // those never change a result either.
 //
-// Weight types.  WT = float: the f32 stack.  WT = int8_t: the int8 plan
-// (fused_seq_q8), codes in [-127, 127] with one f32 scale per (layer, gate
-// column).  Each code converts to f32 exactly, so the multiply-add chains
-// are the f32 instance's; no f32 copy of the stack is kept in shared memory.
+// Weight types.  WT = float: the f32 stack.  WT = __nv_bfloat16: the bf16
+// plans' stack.  WT = int8_t: the int8 plan (fused_seq_q8), codes in
+// [-127, 127] with one f32 scale per (layer, gate column).  A bf16 value
+// and an int8 code each convert to f32 exactly (to_f32), so the
+// multiply-add chains are the f32 instance's; no f32 copy of the stack is
+// kept in shared memory.  The inputs (x, the cotangents) are f32 or bf16
+// (IO) and are widened the same way; the state, the trajectories and
+// every sum stay f32, and only what leaves as bf16 is rounded (to_io).
 //
 // Row strides in shared memory (in elements of WT; the kernels and the
 // host's working_set_bytes use these numbers):
@@ -56,9 +60,19 @@
 //    or 16, i.e. S mod 128 bytes is not 0 or 64 -- which the extra 16
 //    bytes rule out.  (The f32 rule of 8 words of pad would give int8 rows
 //    8 bytes apart from alignment.)
+//  * bf16: 4H rounded up to 8 elements (16 bytes), plus 16 elements when
+//    that is a multiple of 32.  Row starts stay 16-byte aligned for the
+//    16-byte copies.  Two adjacent columns share a word, so a warp's 8
+//    columns x 4 parts read 4 words in each of 4 rows (16 columns x 2
+//    parts: 8 words in 2 rows).  The rows lie S/2 words apart; for 4H a
+//    multiple of 32 (every width the plans serve at a multiple of 8 units)
+//    the pad makes S/2 mod 32 equal 8 or 24 words, which puts the 4 (2)
+//    rows' words into distinct banks; without it S/2 mod 32 would be 0 or
+//    16 and rows would share banks.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,7 +88,47 @@ __host__ __device__ constexpr int row_stride(int G) {
     const int s = (G + 15) / 16 * 16;
     return s % 64 == 0 ? s + 16 : s;
   }
+  if (sizeof(WT) == 2) {
+    const int s = (G + 7) / 8 * 8;
+    return s % 32 == 0 ? s + 16 : s;
+  }
   return G + kPad;
+}
+
+// A weight or an input as f32 (exact for every type), and an f32 result
+// as an output type (bf16 rounds to nearest even).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T to_io(float v);
+template <>
+__device__ __forceinline__ float to_io<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_io<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Four consecutive bf16 as loaded (8 bytes) and as f32, each widened by a
+// shift or a mask of its bits; and four consecutive elements of either type
+// loaded as f32 (the pointer aligned to 4 elements).  Where the loads must
+// all be in flight before any is used, keep the raw uint2 and widen it
+// where it is used: a widening next to its load waits for the load.
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return widen4(*reinterpret_cast<const uint2*>(p));
 }
 
 // bar.sync id, n: the first n threads (whole warps) to arrive at named

@@ -1,5 +1,5 @@
-// Sequence-resident stacked-LSTM forward, f32 or int8 weights, for Hopper
-// (sm_90a).
+// Sequence-resident stacked-LSTM forward, f32, bf16 or int8 weights, f32
+// or bf16 input and output, for Hopper (sm_90a).
 //
 // Replaces eight Pallas kernels of the JAX package's kernels/lstm_seq.py:
 // _seq_kernel (launched by _lstm_seq_call, whole (T, bm, P) input block
@@ -75,6 +75,17 @@
 // Newton steps, sets the sigmoid's time.
 // The ring is filled with cp.async, chunk k+1 while chunk k computes.  Rows
 // of a batch tail past B are zero in the ring and never written.
+//
+// bf16 (WT, IO template arguments; the pairs built are f32/f32,
+// bf16/bf16, int8/f32 and int8/bf16): a bf16 stack, bias and x are read
+// as they are and widened to f32 where they are used (the shared home's
+// group of 4 rows of a column is 8 bytes, widened by shifts; the register
+// home widens its 64 weights once at load), the x ring holds bf16 (two
+// elements a 4-byte cp.async when P and x's rows are even, else copied
+// through registers), and every product, the state and the trajectories
+// stay f32; only the final (c, h) are written in bf16.  A bf16 value
+// widens exactly, so a bf16 instance runs the f32 instance's multiply-add
+// chains on the widened values, in lstm_gates.cuh's order.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -86,13 +97,17 @@
 
 namespace {
 
-// A shared-home group of 4 rows of one column as f32: a float4, or four
-// int8 codes stored as the bytes c + 128 of one word, each converted by
-// placing the byte in the mantissa of 2^23 and subtracting 2^23 + 128
-// (exact, an AND/OR and an add at full rate, where an int8-to-float
-// conversion runs at a quarter of it on Hopper).
+// A shared-home group of 4 rows of one column as f32: a float4, four bf16
+// (8 bytes, lstm_gates::load4), or four int8 codes stored as the bytes
+// c + 128 of one word, each converted by placing the byte in the mantissa
+// of 2^23 and subtracting 2^23 + 128 (exact, an AND/OR and an add at full
+// rate, where an int8-to-float conversion runs at a quarter of it on
+// Hopper).
 __device__ __forceinline__ float4 weight4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+  return lstm_gates::load4(p);
+}
+__device__ __forceinline__ float4 weight4(const __nv_bfloat16* p) {
+  return lstm_gates::load4(p);
 }
 __device__ __forceinline__ float4 weight4(const uint8_t* p) {
   const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
@@ -107,6 +122,39 @@ constexpr int kUnitsPerWarp = 8;  // 8 hidden units x 4 gates = 32 lanes
 constexpr int kRegH = 32;         // H (= P) of the register instance
 constexpr int kRegThreads = 256;  // its block: at most 2 layers of 4 warps
 
+// Register home: 32 inputs of shared memory (f32 h, or x's type) into
+// registers, four at a time (float4 or 8-byte loads).
+template <typename V>
+__device__ __forceinline__ void reg_load(float (&vv)[kRegH], const V* v) {
+#pragma unroll
+  for (int i = 0; i < kRegH / 4; ++i) {
+    const float4 f = lstm_gates::load4(v + 4 * i);
+    vv[4 * i] = f.x;
+    vv[4 * i + 1] = f.y;
+    vv[4 * i + 2] = f.z;
+    vv[4 * i + 3] = f.w;
+  }
+}
+
+// Shared home: one segment's canonical sum over n rows for the RG tile
+// rows r0 .. r0 + RG - 1 of v (f32 h or x's type, row stride vs, a
+// multiple of 4), four rows of inputs and of weights a load; wg is the
+// lane's column in the segment's first group row, S groups a row.
+template <int RG, typename ST, typename V>
+__device__ __forceinline__ void shared_segment(float (&out)[RG],
+                                               const ST* wg, int S,
+                                               const V* v, int vs, int n,
+                                               int r0) {
+  float acc[4][RG];
+  lstm_gates::partial_sums4<RG>(
+      acc, n,
+      [&](int r, int grp) {
+        return lstm_gates::load4(v + (r0 + r) * vs + 4 * grp);
+      },
+      [&](int grp) { return weight4(wg + (size_t)grp * S * 4); });
+  lstm_gates::combine<RG, 1>(out, acc);
+}
+
 // Most threads an instance launches with: the register bound of its
 // __launch_bounds__ (64 registers a thread at 1024, 128 at 512, 255 at
 // 256); the host's fwd_max_threads.
@@ -115,17 +163,38 @@ __host__ __device__ constexpr int max_threads() {
   return REG ? kRegThreads : (ROWS >= 8 ? 512 : 1024);
 }
 
-template <int ROWS, bool TRAJ, typename WT, bool REG>
+// Dynamic shared memory of one launch in bytes, the kernel's layout: the
+// shared-home stack (L, KG, S, 4) of wb-byte weights (none in registers),
+// the f32 h slots (L, 2, rows, H4), the register home's f32 copy of a bf16
+// chunk (tc, rows, P4) and the x ring of iob-byte elements (slots, tc,
+// rows, P4).  kernels/lstm_seq.py:working_set_bytes(mode="fwd") prices the
+// same terms; a launch with any other smem is refused.
+__host__ __device__ inline long long fwd_smem_bytes(int T, int L, int P,
+                                                    int H, int rows, int tc,
+                                                    bool reg, int wb,
+                                                    int iob) {
+  const long long P4 = (P + 3) / 4 * 4, H4 = (H + 3) / 4 * 4;
+  const int G = 4 * H;
+  const int S = wb == 4   ? lstm_gates::row_stride<float>(G)
+                : wb == 2 ? lstm_gates::row_stride<__nv_bfloat16>(G)
+                          : lstm_gates::row_stride<int8_t>(G);
+  const long long w = reg ? 0 : L * (P4 + H4) / 4 * S * 4 * wb;
+  const int slots = (T + tc - 1) / tc > 1 ? 2 : 1;
+  const long long widened = reg && iob == 2 ? (long long)tc * rows * P4 * 4 : 0;
+  return w + 2LL * L * rows * H4 * 4 + widened +
+         (long long)slots * tc * rows * P4 * iob;
+}
+
+template <int ROWS, bool TRAJ, typename WT, typename IO, bool REG>
 __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
-    lstm_seq_fwd_kernel(const WT* __restrict__ w,
-                        const float* __restrict__ scales,
-                        const float* __restrict__ b,
-                        const float* __restrict__ x,
-                        float* __restrict__ c_out, float* __restrict__ h_out,
-                        float* __restrict__ c_traj,
-                        float* __restrict__ h_traj, int B, int T, int L,
-                        int P, int H, int tc, long long x_stride_b,
-                        long long x_stride_t) {
+    lstm_seq_fwd_kernel(
+        const WT* __restrict__ w, const float* __restrict__ scales,
+        const typename std::conditional<sizeof(WT) == 1, float, WT>::type*
+            __restrict__ b,
+        const IO* __restrict__ x, IO* __restrict__ c_out,
+        IO* __restrict__ h_out, float* __restrict__ c_traj,
+        float* __restrict__ h_traj, int B, int T, int L, int P, int H, int tc,
+        long long x_stride_b, long long x_stride_t) {
   static_assert(!REG || ROWS == 1, "the register instance is one row");
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool kQ8 = sizeof(WT) == 1;
@@ -134,21 +203,28 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
   const int G = 4 * H;
   const int S = lstm_gates::row_stride<WT>(G);  // W row stride in shared mem
   const int K = P + H;
-  // h and x rows are padded to whole float4s; the shared-home stack holds
-  // each segment (the P input rows, the H recurrent rows) in groups of 4
-  // rows, a group of a column being one float4 or one 32-bit word
+  // h and x rows are padded to whole groups of 4; the shared-home stack
+  // holds each segment (the P input rows, the H recurrent rows) in groups
+  // of 4 rows, a group of a column being 4 weights side by side
   const int P4 = (P + 3) / 4 * 4;
   const int H4 = (H + 3) / 4 * 4;
   const int KG = (P4 + H4) / 4;  // row groups a layer
   const int nc = (T + tc - 1) / tc;
   const int slots = nc > 1 ? 2 : 1;
   const int slot_elems = tc * ROWS * P4;
-  // the shared-home stack: f32, or each int8 code c as the byte c + 128
-  using ST = typename std::conditional<kQ8, uint8_t, float>::type;
+  // the shared-home stack: f32, bf16, or each int8 code c as the byte c + 128
+  using ST = typename std::conditional<kQ8, uint8_t, WT>::type;
   const size_t w_bytes = REG ? 0 : (size_t)L * KG * S * 4 * sizeof(ST);
   ST* w_s = reinterpret_cast<ST*>(smem);                  // (L, KG, S, 4)
   float* hbuf = reinterpret_cast<float*>(smem + w_bytes);  // (L, 2, ROWS, H4)
-  float* ring = hbuf + (size_t)L * 2 * ROWS * H4;    // (slots, tc, ROWS, P4)
+  // The register home's layer 0 reads x as f32 rows, four at a load: the
+  // ring itself for f32 x, for bf16 x an f32 copy of the current chunk,
+  // widened by every thread when the chunk arrives.  (Widened in layer 0's
+  // step, next to its loads, bf16 x cost 10% to 17% a wave-step.)
+  constexpr bool kWiden = REG && sizeof(IO) == 2;
+  float* xf = hbuf + (size_t)L * 2 * ROWS * H4;          // (tc, ROWS, P4)
+  IO* ring = reinterpret_cast<IO*>(xf + (kWiden ? slot_elems : 0));
+  // ring: (slots, tc, ROWS, P4) in x's type
 
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -166,7 +242,7 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
   const bool is_tanh = g == 2;  // gate order i, f, g, o
   const int row0 = blockIdx.x * ROWS;
   const int rows = min(ROWS, B - row0);
-  const float bias = b[layer * G + col];
+  const float bias = lstm_gates::to_f32(b[layer * G + col]);
   const float scale = kQ8 ? scales[layer * G + col] : 1.0f;
 
   // Weights: the register instance's 64 a lane (input rows, then the
@@ -176,8 +252,8 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
     const WT* wc = w + (size_t)layer * K * G + col;
 #pragma unroll
     for (int q = 0; q < kRegH; ++q) {
-      wr[q] = static_cast<float>(wc[(size_t)q * G]);
-      wr[kRegH + q] = static_cast<float>(wc[(size_t)(P + q) * G]);
+      wr[q] = lstm_gates::to_f32(wc[(size_t)q * G]);
+      wr[kRegH + q] = lstm_gates::to_f32(wc[(size_t)(P + q) * G]);
     }
   } else {
     for (int i = tid; i < L * K * G; i += nt) {
@@ -191,48 +267,62 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
                 qs % 4;
       if constexpr (kQ8)
         *dst = static_cast<uint8_t>(w[i] + 128);
-      else
+      else if constexpr (sizeof(WT) == 4)
         __pipeline_memcpy_async(dst, w + i, 4);
+      else  // a 2-byte weight: cp.async moves 4, 8 or 16 bytes
+        *dst = w[i];
     }
   }
   for (int i = tid; i < L * 2 * ROWS * H4; i += nt) hbuf[i] = 0.0f;
 
+  // bf16 x is copied two elements a 4-byte cp.async when every pair is
+  // 4-byte aligned in x and in the ring (P and x's strides even, x
+  // aligned), else an element at a time through registers
+  const bool pairs = sizeof(IO) == 2 && P % 2 == 0 && x_stride_b % 2 == 0 &&
+                     x_stride_t % 2 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 4 == 0;
+  const IO zero = lstm_gates::to_io<IO>(0.0f);
   // Start copying chunk k's (steps, ROWS, P) window into its ring slot.
   auto load_chunk = [&](int k) {
-    float* dst = ring + (size_t)(k % slots) * slot_elems;
+    IO* dst = ring + (size_t)(k % slots) * slot_elems;
     const int t0 = k * tc;
-    const int n = min(tc, T - t0) * ROWS * P;
+    const int per = sizeof(IO) == 4 || pairs ? 4 / (int)sizeof(IO) : 1;
+    const int PQ = P / per;  // pieces a row
+    const int n = min(tc, T - t0) * ROWS * PQ;
     for (int i = tid; i < n; i += nt) {
-      const int q = i % P;
-      const int r = (i / P) % ROWS;
-      const int s = i / (P * ROWS);
-      if (r < rows) {
-        __pipeline_memcpy_async(
-            dst + (s * ROWS + r) * P4 + q,
-            x + (long long)(t0 + s) * x_stride_t +
-                (long long)(row0 + r) * x_stride_b + q,
-            4);
+      const int q = (i % PQ) * per;
+      const int r = (i / PQ) % ROWS;
+      const int s = i / (PQ * ROWS);
+      IO* d = dst + (s * ROWS + r) * P4 + q;
+      const IO* src = x + (long long)(t0 + s) * x_stride_t +
+                      (long long)(row0 + r) * x_stride_b + q;
+      if (r >= rows) {
+        for (int e = 0; e < per; ++e) d[e] = zero;
+      } else if (per * sizeof(IO) == 4) {
+        __pipeline_memcpy_async(d, src, 4);
       } else {
-        dst[(s * ROWS + r) * P4 + q] = 0.0f;
+        *d = *src;
       }
     }
     __pipeline_commit();
   };
 
-  // Register home: 32 floats of shared memory into registers (float4
-  // loads), and one segment's canonical sum of such a row with the lane's
-  // weights wr[woff ..].
-  auto reg_load = [&](float (&vv)[kRegH], const float* v) {
-    const float4* v4 = reinterpret_cast<const float4*>(v);
-#pragma unroll
-    for (int i = 0; i < kRegH / 4; ++i) {
-      const float4 f = v4[i];
-      vv[4 * i] = f.x;
-      vv[4 * i + 1] = f.y;
-      vv[4 * i + 2] = f.z;
-      vv[4 * i + 3] = f.w;
-    }
+  // Register home: the f32 row of x of step k of the chunk in ring slot
+  // `slot`; bf16 x: widen chunk k into its f32 copy.
+  auto x_row_f32 = [&](int slot, int k) -> const float* {
+    if constexpr (kWiden)
+      return xf + (size_t)k * ROWS * P4;
+    else
+      return reinterpret_cast<const float*>(ring + (size_t)slot * slot_elems +
+                                            (size_t)k * ROWS * P4);
   };
+  auto widen_chunk = [&](int k) {
+    const IO* src = ring + (size_t)(k % slots) * slot_elems;
+    const int n = min(tc, T - k * tc) * ROWS * P4;
+    for (int i = tid; i < n; i += nt) xf[i] = lstm_gates::to_f32(src[i]);
+  };
+  // Register home: one segment's canonical sum of a row in registers with
+  // the lane's weights wr[woff ..].
   auto reg_segment = [&](const float (&vv)[kRegH], int woff) {
     float out[1];
     lstm_gates::segment_sum<1, 1>(
@@ -240,27 +330,19 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
         [&](int q) { return wr[woff + q]; });
     return out[0];
   };
-  // Shared home: segment seg's (0 input, 1 recurrent) canonical sum over
-  // n rows for tile rows r0 .. r0 + RG - 1, v (ROWS, n) floats with row
-  // stride vs (a multiple of 4), four rows of inputs and of weights a load.
-  auto shared_segment = [&](float (&out)[RG], const float* v, int vs, int n,
-                            int r0, int seg) {
-    const ST* wg =
-        w_s + (((size_t)layer * KG + (seg ? P4 / 4 : 0)) * S + pc) * 4;
-    float acc[4][RG];
-    lstm_gates::partial_sums4<RG>(
-        acc, n,
-        [&](int r, int grp) {
-          return *reinterpret_cast<const float4*>(v + (r0 + r) * vs + 4 * grp);
-        },
-        [&](int grp) { return weight4(wg + (size_t)grp * S * 4); });
-    lstm_gates::combine<RG, 1>(out, acc);
-  };
+  // Shared home: the lane's column in the first group row of segment seg
+  // (0 input, 1 recurrent) of its layer.
+  const ST* w_in = w_s + ((size_t)layer * KG * S + pc) * 4;
+  const ST* w_rec = w_s + (((size_t)layer * KG + P4 / 4) * S + pc) * 4;
 
   load_chunk(0);  // the first group also carries the shared-home stack
   if (nc > 1) load_chunk(1);
   __pipeline_wait_prior(nc > 1 ? 1 : 0);
   __syncthreads();
+  if constexpr (kWiden) {
+    widen_chunk(0);
+    __syncthreads();
+  }
 
   // Layer 0's input product of step t, in its lanes' registers: xin
   // holds step t's during wave-step t, and the lanes form step t + 1's
@@ -271,17 +353,18 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
   int xk = tc > 1 ? 1 : 0;
   int xslot = tc > 1 ? 0 : slots - 1;
   int chunk = 0;
-  const float* xrow = ring + (size_t)xslot * slot_elems + (size_t)xk * ROWS * P4;
+  const IO* xrow = ring + (size_t)xslot * slot_elems + (size_t)xk * ROWS * P4;
+  const float* xrow_f = x_row_f32(xslot, xk);
   if (layer == 0) {
     if constexpr (REG) {
       float vv[kRegH];
-      reg_load(vv, ring);
+      reg_load(vv, x_row_f32(0, 0));
       xin[0] = reg_segment(vv, 0);
     } else {
 #pragma unroll
       for (int r0 = 0; r0 < ROWS; r0 += RG) {
         float out[RG];
-        shared_segment(out, ring, P4, P, r0, 0);
+        shared_segment<RG>(out, w_in, S, ring, P4, P, r0);
 #pragma unroll
         for (int r = 0; r < RG; ++r) xin[r0 + r] = out[r];
       }
@@ -302,6 +385,10 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
       __syncthreads();
       // chunk + 1 refills the slot of chunk - 1, last read at s - 1
       if (chunk + 1 < nc) load_chunk(chunk + 1);
+      if constexpr (kWiden) {
+        widen_chunk(chunk);
+        __syncthreads();
+      }
     }
     const int t = s - layer;
     if (t >= 0 && t < T) {  // uniform over the warp: a warp is one layer
@@ -309,16 +396,15 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
       float* h_next = hbuf + ((size_t)layer * 2 + (t & 1)) * ROWS * H4;
       float in[ROWS], rec[ROWS];
       if constexpr (REG) {
-        // one instruction stream for every layer: the second segment is
-        // the layer below's h_t, or at layer 0 x_{t+1} (whose product is
-        // next step's input; past T it reads a stale row, never used)
-        const float* second =
-            layer == 0 ? xrow
-                       : hbuf + ((size_t)(layer - 1) * 2 + (t & 1)) * H4;
-        // both rows' 16 loads go out before the first multiply-add
+        // the second segment is the layer below's h_t, or at layer 0
+        // x_{t+1} (whose product is next step's input; past T it reads a
+        // stale row, never used); for f32 x one instruction stream for
+        // every layer, for bf16 x a branch on the (warp-uniform) layer
+        const float* below = hbuf + ((size_t)(layer - 1) * 2 + (t & 1)) * H4;
+        // both rows' loads go out before the first multiply-add
         float va[kRegH], vb[kRegH];
         reg_load(va, h_own);
-        reg_load(vb, second);
+        reg_load(vb, layer == 0 ? xrow_f : below);
         rec[0] = reg_segment(va, kRegH);
         const float other = reg_segment(vb, 0);
         in[0] = layer == 0 ? xin[0] : other;
@@ -329,12 +415,12 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
 #pragma unroll
         for (int r0 = 0; r0 < ROWS; r0 += RG) {
           float rg[RG], ig[RG];
-          shared_segment(rg, h_own, H4, H, r0, 1);
+          shared_segment<RG>(rg, w_rec, S, h_own, H4, H, r0);
           if (layer == 0) {
 #pragma unroll
             for (int r = 0; r < RG; ++r) ig[r] = xin[r0 + r];
           } else {
-            shared_segment(ig, h_below, H4, H, r0, 0);
+            shared_segment<RG>(ig, w_in, S, h_below, H4, H, r0);
           }
 #pragma unroll
           for (int r = 0; r < RG; ++r) {
@@ -366,7 +452,7 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
 #pragma unroll
           for (int r0 = 0; r0 < ROWS; r0 += RG) {
             float out[RG];
-            shared_segment(out, xrow, P4, P, r0, 0);
+            shared_segment<RG>(out, w_in, S, xrow, P4, P, r0);
 #pragma unroll
             for (int r = 0; r < RG; ++r) xin[r0 + r] = out[r];
           }
@@ -378,70 +464,76 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
       xslot ^= slots - 1;
     }
     xrow = ring + (size_t)xslot * slot_elems + (size_t)xk * ROWS * P4;
+    xrow_f = x_row_f32(xslot, xk);
     __syncthreads();
   }
 
-  // The final (c, h): c from the owners' registers, h from the last slot.
+  // The final (c, h), in x's type: c from the owners' registers, h from
+  // the last slot.
   const float* h_last = hbuf + ((size_t)layer * 2 + ((T - 1) & 1)) * ROWS * H4;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     if (owner && r < rows) {
       const long long o = ((long long)layer * B + row0 + r) * H + j;
-      if (g == 0) c_out[o] = c[r];
-      if (g == 1) h_out[o] = h_last[r * H4 + j];
+      if (g == 0) c_out[o] = lstm_gates::to_io<IO>(c[r]);
+      if (g == 1) h_out[o] = lstm_gates::to_io<IO>(h_last[r * H4 + j]);
     }
   }
 }
 
-template <int ROWS, bool TRAJ, typename WT, bool REG>
-int launch(const WT* w, const float* scales, const float* b, const float* x,
-           float* c_out, float* h_out, float* c_traj, float* h_traj, int B,
-           int T, int L, int P, int H, long long x_stride_b,
-           long long x_stride_t, int time_chunk, int threads,
-           long long smem_bytes, cudaStream_t stream) {
+// The bias's type: the stack's, f32 beside an int8 stack.
+template <typename WT>
+using BiasT = typename std::conditional<sizeof(WT) == 1, float, WT>::type;
+
+template <int ROWS, bool TRAJ, typename WT, typename IO, bool REG>
+int launch(const WT* w, const float* scales, const BiasT<WT>* b, const IO* x,
+           IO* c_out, IO* h_out, float* c_traj, float* h_traj, int B, int T,
+           int L, int P, int H, long long x_stride_b, long long x_stride_t,
+           int time_chunk, int threads, long long smem_bytes,
+           cudaStream_t stream) {
   static long long configured = 48 * 1024;
   if (smem_bytes > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_seq_fwd_kernel<ROWS, TRAJ, WT, REG>,
+        lstm_seq_fwd_kernel<ROWS, TRAJ, WT, IO, REG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
     configured = smem_bytes;
   }
   const int grid = (B + ROWS - 1) / ROWS;
-  lstm_seq_fwd_kernel<ROWS, TRAJ, WT, REG>
+  lstm_seq_fwd_kernel<ROWS, TRAJ, WT, IO, REG>
       <<<grid, threads, (size_t)smem_bytes, stream>>>(
           w, scales, b, x, c_out, h_out, c_traj, h_traj, B, T, L, P, H,
           time_chunk, x_stride_b, x_stride_t);
   return (int)cudaGetLastError();
 }
 
-template <int ROWS, bool REG, typename WT>
-int launch_rows(const WT* w, const float* scales, const float* b,
-                const float* x, float* c_out, float* h_out, float* c_traj,
+template <int ROWS, bool REG, typename WT, typename IO>
+int launch_rows(const WT* w, const float* scales, const BiasT<WT>* b,
+                const IO* x, IO* c_out, IO* h_out, float* c_traj,
                 float* h_traj, int B, int T, int L, int P, int H,
                 long long x_stride_b, long long x_stride_t, int time_chunk,
                 int threads, long long smem_bytes, cudaStream_t stream) {
   const int wpl = (H + kUnitsPerWarp - 1) / kUnitsPerWarp;
   if (threads != L * wpl * 32 || threads > max_threads<ROWS, REG>() ||
-      (REG && (H != kRegH || P != kRegH)))
+      (REG && (H != kRegH || P != kRegH)) || time_chunk < 1 ||
+      smem_bytes != fwd_smem_bytes(T, L, P, H, ROWS, time_chunk, REG,
+                                   (int)sizeof(WT), (int)sizeof(IO)))
     return (int)cudaErrorInvalidValue;
   if (c_traj != nullptr)
-    return launch<ROWS, true, WT, REG>(w, scales, b, x, c_out, h_out, c_traj,
-                                       h_traj, B, T, L, P, H, x_stride_b,
-                                       x_stride_t, time_chunk, threads,
-                                       smem_bytes, stream);
-  return launch<ROWS, false, WT, REG>(w, scales, b, x, c_out, h_out, nullptr,
-                                      nullptr, B, T, L, P, H, x_stride_b,
-                                      x_stride_t, time_chunk, threads,
-                                      smem_bytes, stream);
+    return launch<ROWS, true, WT, IO, REG>(
+        w, scales, b, x, c_out, h_out, c_traj, h_traj, B, T, L, P, H,
+        x_stride_b, x_stride_t, time_chunk, threads, smem_bytes, stream);
+  return launch<ROWS, false, WT, IO, REG>(
+      w, scales, b, x, c_out, h_out, nullptr, nullptr, B, T, L, P, H,
+      x_stride_b, x_stride_t, time_chunk, threads, smem_bytes, stream);
 }
 
 // One instance per tile size and weight home; another block_b, a register
 // home at another shape, or a thread count that is not the layers' warps is
 // cudaErrorInvalidValue.
-template <typename WT>
-int launch_tile(const WT* w, const float* scales, const float* b,
-                const float* x, float* c_out, float* h_out, float* c_traj,
+template <typename WT, typename IO>
+int launch_tile(const WT* w, const float* scales, const BiasT<WT>* b,
+                const IO* x, IO* c_out, IO* h_out, float* c_traj,
                 float* h_traj, int B, int T, int L, int P, int H,
                 long long x_stride_b, long long x_stride_t, int block_b,
                 int time_chunk, int reg, int threads, long long smem_bytes,
@@ -485,17 +577,35 @@ extern "C" {
 // 8 or 16); `reg` names the weight home (the wrapper's weight_home): 1 for
 // the register instance (block_b 1, H = P = 32, at most 256 threads), 0 for
 // the shared one (at most 1024 threads, 512 at 8 and 16 rows); smem_bytes
-// is the wrapper's working_set_bytes for (block_b, time_chunk).  Returns
-// cudaErrorInvalidValue for any other tiling.
+// is the wrapper's working_set_bytes for (block_b, time_chunk) and the
+// dtypes (fwd_smem_bytes).  Returns cudaErrorInvalidValue for any other
+// tiling or shared memory.
 int lstm_seq_fwd_f32(const float* w, const float* b, const float* x,
                      float* c_out, float* h_out, float* c_traj,
                      float* h_traj, int B, int T, int L, int P, int H,
                      long long x_stride_b, long long x_stride_t, int block_b,
                      int time_chunk, int reg, int threads,
                      long long smem_bytes, void* stream) {
-  return launch_tile<float>(w, nullptr, b, x, c_out, h_out, c_traj, h_traj,
-                            B, T, L, P, H, x_stride_b, x_stride_t, block_b,
-                            time_chunk, reg, threads, smem_bytes, stream);
+  return launch_tile<float, float>(
+      w, nullptr, b, x, c_out, h_out, c_traj, h_traj, B, T, L, P, H,
+      x_stride_b, x_stride_t, block_b, time_chunk, reg, threads, smem_bytes,
+      stream);
+}
+
+// The bf16 plans: w, b, x, c_out and h_out bf16, the trajectories f32;
+// everything else as lstm_seq_fwd_f32 (smem_bytes is working_set_bytes(
+// dtype_bytes=2, w_dtype_bytes=2)).
+int lstm_seq_fwd_bf16(const __nv_bfloat16* w, const __nv_bfloat16* b,
+                      const __nv_bfloat16* x, __nv_bfloat16* c_out,
+                      __nv_bfloat16* h_out, float* c_traj, float* h_traj,
+                      int B, int T, int L, int P, int H,
+                      long long x_stride_b, long long x_stride_t,
+                      int block_b, int time_chunk, int reg, int threads,
+                      long long smem_bytes, void* stream) {
+  return launch_tile<__nv_bfloat16, __nv_bfloat16>(
+      w, nullptr, b, x, c_out, h_out, c_traj, h_traj, B, T, L, P, H,
+      x_stride_b, x_stride_t, block_b, time_chunk, reg, threads, smem_bytes,
+      stream);
 }
 
 // The int8 plan: wq (L, P+H, 4H) int8 codes and scales (L, 4H) f32, the
@@ -507,9 +617,35 @@ int lstm_seq_fwd_q8(const int8_t* wq, const float* scales, const float* b,
                     int H, long long x_stride_b, long long x_stride_t,
                     int block_b, int time_chunk, int reg, int threads,
                     long long smem_bytes, void* stream) {
-  return launch_tile<int8_t>(wq, scales, b, x, c_out, h_out, c_traj, h_traj,
-                             B, T, L, P, H, x_stride_b, x_stride_t, block_b,
-                             time_chunk, reg, threads, smem_bytes, stream);
+  return launch_tile<int8_t, float>(
+      wq, scales, b, x, c_out, h_out, c_traj, h_traj, B, T, L, P, H,
+      x_stride_b, x_stride_t, block_b, time_chunk, reg, threads, smem_bytes,
+      stream);
+}
+
+// The int8 plan of a bf16 model: as lstm_seq_fwd_q8 (f32 scales and bias)
+// with x, c_out and h_out bf16 (smem_bytes is working_set_bytes(
+// dtype_bytes=2, quantized=True)).
+int lstm_seq_fwd_q8_bf16(const int8_t* wq, const float* scales,
+                         const float* b, const __nv_bfloat16* x,
+                         __nv_bfloat16* c_out, __nv_bfloat16* h_out,
+                         float* c_traj, float* h_traj, int B, int T, int L,
+                         int P, int H, long long x_stride_b,
+                         long long x_stride_t, int block_b, int time_chunk,
+                         int reg, int threads, long long smem_bytes,
+                         void* stream) {
+  return launch_tile<int8_t, __nv_bfloat16>(
+      wq, scales, b, x, c_out, h_out, c_traj, h_traj, B, T, L, P, H,
+      x_stride_b, x_stride_t, block_b, time_chunk, reg, threads, smem_bytes,
+      stream);
+}
+
+// fwd_smem_bytes for a launch of block_b rows, time chunk tc (T for the
+// whole sequence), reg the weight home, wb and iob the bytes of a weight
+// and of an input element: what kernels/lstm_seq.py's table is held to.
+long long lstm_seq_fwd_smem_bytes(int T, int L, int P, int H, int block_b,
+                                  int tc, int reg, int wb, int iob) {
+  return fwd_smem_bytes(T, L, P, H, block_b, tc, reg != 0, wb, iob);
 }
 
 const char* lstm_seq_error_string(int err) {

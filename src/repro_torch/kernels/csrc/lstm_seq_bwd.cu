@@ -1,5 +1,5 @@
-// Sequence-resident stacked-LSTM backward (the whole BPTT sweep), f32 or
-// int8 weights, for Hopper (sm_90a).
+// Sequence-resident stacked-LSTM backward (the whole BPTT sweep), f32,
+// bf16 or int8 weights, f32 or bf16 input, for Hopper (sm_90a).
 //
 // Replaces four Pallas kernels of the JAX package's kernels/lstm_seq_bwd.py:
 // _seq_bwd_kernel (launched by _lstm_seq_bwd_call, x and both trajectories
@@ -17,6 +17,15 @@
 // the forward's post-step f32 trajectories c_traj, h_traj (T, L, B, H) and
 // the final-state cotangents dc, dh (L, B, H).  Outputs: dw (L, P+H, 4H),
 // db (L, 4H) and dx (B, T, P), all f32.
+//
+// bf16 (WT, IO template arguments; the pairs built are f32/f32,
+// bf16/bf16, int8/f32 and int8/bf16): a bf16 stack, bias, x and
+// cotangents are widened to f32 as they are read (x as it is copied into
+// the ring, which stays f32), the trajectories are f32, every sum is f32,
+// and dx and a bf16 stack's dw and db are rounded to bf16 once, as they
+// are written (an int8 stack's stay f32).  The recompute runs on the same
+// widened values as K2t's bf16 instance, in the same order, so it is K2t's
+// to the bit.
 //
 // Int8 weights (WT = int8_t): w is the int8 stack the q8 forward ran with
 // and scales (L, 4H) its f32 per-column scales, held beside the bias; the
@@ -111,6 +120,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "lstm_gates.cuh"
 
 namespace {
@@ -122,9 +133,10 @@ constexpr int kGroup = 8;  // tiles a group of the closing sum
 // blockIdx.x * n_out (dw's nw floats, then db's); the group partials
 // follow the tiles' at partials + gridDim.x * n_out.  Every thread of the
 // block calls it.
+template <typename OT>
 __device__ __forceinline__ void close_sums(float* partials, int* tickets,
-                                           int n_out, int nw, float* dw,
-                                           float* db, int tid, int nt) {
+                                           int n_out, int nw, OT* dw,
+                                           OT* db, int tid, int nt) {
   __shared__ int last_flag;
   const int tiles = gridDim.x;
   const int groups = (tiles + kGroup - 1) / kGroup;
@@ -147,9 +159,9 @@ __device__ __forceinline__ void close_sums(float* partials, int* tickets,
     if (groups > 1)
       gout[e] = sum;
     else if (e < nw)
-      dw[e] = sum;
+      dw[e] = lstm_gates::to_io<OT>(sum);
     else
-      db[e - nw] = sum;
+      db[e - nw] = lstm_gates::to_io<OT>(sum);
   }
   if (tid == 0) tickets[grp] = 0;  // the group has drawn: ready for the next
   if (groups == 1) return;
@@ -164,9 +176,9 @@ __device__ __forceinline__ void close_sums(float* partials, int* tickets,
     for (int k = 1; k < groups; ++k)
       sum += __ldcg(group_parts + (size_t)k * n_out + e);
     if (e < nw)
-      dw[e] = sum;
+      dw[e] = lstm_gates::to_io<OT>(sum);
     else
-      db[e - nw] = sum;
+      db[e - nw] = lstm_gates::to_io<OT>(sum);
   }
   if (tid == 0) tickets[groups] = 0;
 }
@@ -187,10 +199,10 @@ __device__ __forceinline__ void recompute_gates(
   float in_s[ROWS], rec_s[ROWS];
   lstm_gates::segment_sum<ROWS, PARTS>(
       in_s, p, in_w, [&](int r, int q) { return inp[r * in_w + q]; },
-      [&](int q) { return static_cast<float>(wl[(size_t)q * S]); });
+      [&](int q) { return lstm_gates::to_f32(wl[(size_t)q * S]); });
   lstm_gates::segment_sum<ROWS, PARTS>(
       rec_s, p, H, [&](int r, int q) { return h[r * H + q]; },
-      [&](int q) { return static_cast<float>(wh[(size_t)q * S]); });
+      [&](int q) { return lstm_gates::to_f32(wh[(size_t)q * S]); });
   if (active && p == 0) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
@@ -199,20 +211,51 @@ __device__ __forceinline__ void recompute_gates(
   }
 }
 
+// Dynamic shared memory of one shared-home launch in bytes, the kernel's
+// layout (below): the stack (L, K, S) of wb-byte weights, then f32 bias,
+// scales (int8), the x ring (slots, tc, rows, P), the dc and dh carries,
+// the gate buffer, the dW/db accumulators (rows of the f32 stride), the two
+// trajectory windows (slots, tc + 1, L, rows, H), dg, dinp and dg * s
+// (int8).  kernels/lstm_seq.py:working_set_bytes(mode="bwd") prices the
+// same terms; a launch with any other smem is refused.
+__host__ __device__ inline long long bwd_smem_bytes(int T, int L, int P,
+                                                    int H, int rows, int tc,
+                                                    int wb) {
+  const int G = 4 * H, K = P + H;
+  const int S = wb == 4   ? lstm_gates::row_stride<float>(G)
+                : wb == 2 ? lstm_gates::row_stride<__nv_bfloat16>(G)
+                          : lstm_gates::row_stride<int8_t>(G);
+  const long long SF = lstm_gates::row_stride<float>(G);
+  const bool q8 = wb == 1;
+  const long long slots = (T + tc - 1) / tc > 1 ? 2 : 1;
+  const long long floats =
+      (long long)L * G * (q8 ? 2 : 1) + slots * tc * rows * P +
+      2LL * L * rows * H + (long long)rows * G + (long long)L * K * SF +
+      (long long)L * G + 2 * slots * (tc + 1) * L * rows * H +
+      (long long)rows * G + (long long)rows * H +
+      (q8 ? (long long)rows * G : 0);
+  return (long long)L * K * S * wb + 4 * floats;
+}
+
+// The type of the bias and of dw and db: the stack's, f32 beside an int8
+// stack (the straight-through gradients of the f32 master).
+template <typename WT>
+using GradT = typename std::conditional<sizeof(WT) == 1, float, WT>::type;
+
 // Bounded for MAX_T threads, so every block the wrapper sizes can launch:
 // uncapped, the largest instance took 128 registers a thread, too many for
 // the 576 threads of H = 36 (144 gate columns x 4 lanes) on one SM's 65,536
 // registers.  Each tile size is built twice: MAX_T = 512 (up to 128
 // registers, no spills) serves H <= 32, the paper's width included, and
 // MAX_T = 1024 (64 registers) the wider blocks.
-template <int ROWS, int MAX_T, typename WT>
+template <int ROWS, int MAX_T, typename WT, typename IO>
 __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
     const WT* __restrict__ w, const float* __restrict__ scales,
-    const float* __restrict__ b,
-    const float* __restrict__ x, const float* __restrict__ c_traj,
-    const float* __restrict__ h_traj, const float* __restrict__ dcf,
-    const float* __restrict__ dhf, float* __restrict__ dw,
-    float* __restrict__ db, float* __restrict__ dx,
+    const GradT<WT>* __restrict__ b,
+    const IO* __restrict__ x, const float* __restrict__ c_traj,
+    const float* __restrict__ h_traj, const IO* __restrict__ dcf,
+    const IO* __restrict__ dhf, GradT<WT>* __restrict__ dw,
+    GradT<WT>* __restrict__ db, IO* __restrict__ dx,
     float* __restrict__ partials, int* __restrict__ tickets, int B, int T,
     int L, int P, int H, int tc, int parts, int dparts, long long x_stride_b,
     long long x_stride_t) {
@@ -264,7 +307,10 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
   // Weights into padded rows, bias (and scales).
   lstm_gates::load_stack(w_s, w, L * K, G, S, tid, nt);
   for (int i = tid; i < L * G; i += nt) {
-    __pipeline_memcpy_async(b_s + i, b + i, 4);
+    if constexpr (sizeof(GradT<WT>) == 4)
+      __pipeline_memcpy_async(b_s + i, b + i, 4);
+    else
+      b_s[i] = lstm_gates::to_f32(b[i]);
     if (kQ8) __pipeline_memcpy_async(s_s + i, scales + i, 4);
   }
   for (int i = tid; i < L * K * SF; i += nt) dw_s[i] = 0.0f;
@@ -277,8 +323,8 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
     float dcv = 0.0f, dhv = 0.0f;
     if (r < rows) {
       const long long o = ((long long)l * B + row0 + r) * H + kk;
-      dcv = dcf[o];
-      dhv = dhf[o];
+      dcv = lstm_gates::to_f32(dcf[o]);
+      dhv = lstm_gates::to_f32(dhf[o]);
     }
     dc_s[e] = dcv;
     dh_s[e] = dhv;
@@ -294,15 +340,14 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
       const int q = i % P;
       const int r = (i / P) % ROWS;
       const int s = i / (P * ROWS);
-      if (r < rows) {
-        __pipeline_memcpy_async(
-            xd + i,
-            x + (long long)(t0 + s) * x_stride_t +
-                (long long)(row0 + r) * x_stride_b + q,
-            4);
-      } else {
+      const IO* src = x + (long long)(t0 + s) * x_stride_t +
+                      (long long)(row0 + r) * x_stride_b + q;
+      if (r >= rows)
         xd[i] = 0.0f;
-      }
+      else if constexpr (sizeof(IO) == 4)
+        __pipeline_memcpy_async(xd + i, src, 4);
+      else  // widened as it is copied
+        xd[i] = lstm_gates::to_f32(*src);
     }
     float* cd = cr + (size_t)(k % slots) * t_slot;
     float* hd = hr + (size_t)(k % slots) * t_slot;
@@ -431,7 +476,7 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
 #pragma unroll
           for (int r = 0; r < ROWS; ++r) acc[r] = 0.0f;
           for (int jj = dp; jj < G; jj += dparts) {
-            const float wv = static_cast<float>(wq[jj]);
+            const float wv = lstm_gates::to_f32(wq[jj]);
 #pragma unroll
             for (int r = 0; r < ROWS; ++r)
               acc[r] = fmaf(dprod[r * G + jj], wv, acc[r]);
@@ -449,7 +494,8 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
 #pragma unroll
               for (int r = 0; r < ROWS; ++r)
                 if (r < rows)
-                  dx[((long long)(row0 + r) * T + t) * P + q] = acc[r];
+                  dx[((long long)(row0 + r) * T + t) * P + q] =
+                      lstm_gates::to_io<IO>(acc[r]);
             } else if (q < H) {  // -> the layer below's h_t
 #pragma unroll
               for (int r = 0; r < ROWS; ++r) di_s[r * H + q] = acc[r];
@@ -466,8 +512,9 @@ __global__ void __launch_bounds__(MAX_T) lstm_seq_bwd_kernel(
   const int n_out = nw + L * G;
   if (gridDim.x == 1) {
     for (int i = tid; i < nw; i += nt)
-      dw[i] = dw_s[(size_t)(i / G) * SF + i % G];
-    for (int i = tid; i < L * G; i += nt) db[i] = db_s[i];
+      dw[i] = lstm_gates::to_io<GradT<WT>>(dw_s[(size_t)(i / G) * SF + i % G]);
+    for (int i = tid; i < L * G; i += nt)
+      db[i] = lstm_gates::to_io<GradT<WT>>(db_s[i]);
     return;
   }
   float* part = partials + (size_t)blockIdx.x * n_out;
@@ -489,7 +536,7 @@ constexpr int kLead = 8;                // wave-steps a row is loaded ahead
 constexpr int kStage = 32;              // steps a block of the dW pass stages
 
 // The register home's dynamic shared memory, in bytes, for L layers and
-// weight type size wb (4 f32, 1 int8), all f32: the ring (kRing rows of
+// weight type size wb (4 f32, 2 bf16, 1 int8), all f32: the ring (kRing rows of
 // (c, h) of every layer and x), the two parity slots of the activations
 // (L, G), tanh(c) (L, H), dg (L, G) (and dg * s, int8), dh_prev (L, H)
 // and dinp (L, P), and the dW pass's two stages of kStage + 1 rows of dg
@@ -503,15 +550,15 @@ __host__ __device__ inline long long wave_smem_bytes(int L, int wb) {
   return 4 * (kRing * ring_row + slots + 2LL * (kStage + 1) * stage_row);
 }
 
-template <typename WT>
+template <typename WT, typename IO>
 __global__ void __launch_bounds__(2 * kWaveThreads, 1)
     lstm_seq_bwd_wave_kernel(
         const WT* __restrict__ w, const float* __restrict__ scales,
-        const float* __restrict__ b, const float* __restrict__ x,
+        const GradT<WT>* __restrict__ b, const IO* __restrict__ x,
         const float* __restrict__ c_traj, const float* __restrict__ h_traj,
-        const float* __restrict__ dcf, const float* __restrict__ dhf,
-        float* __restrict__ dw, float* __restrict__ db,
-        float* __restrict__ dx, float* __restrict__ partials,
+        const IO* __restrict__ dcf, const IO* __restrict__ dhf,
+        GradT<WT>* __restrict__ dw, GradT<WT>* __restrict__ db,
+        IO* __restrict__ dx, float* __restrict__ partials,
         int* __restrict__ tickets, float* __restrict__ dg_work, int B, int T,
         int L, long long x_stride_b, long long x_stride_t) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -542,7 +589,7 @@ __global__ void __launch_bounds__(2 * kWaveThreads, 1)
   const int u = i >> 2, g = i & 3, q = i >> 1, p = i & 1;
   const int j = i;
   const int col = chain ? g * H + u : j;
-  const float bias = b[l * G + col];
+  const float bias = lstm_gates::to_f32(b[l * G + col]);
   const float scale = kQ8 ? scales[l * G + col] : 1.0f;
 
   // A lane's 64 weights in registers (the codes' exact f32 values for
@@ -554,20 +601,31 @@ __global__ void __launch_bounds__(2 * kWaveThreads, 1)
   const WT* wl = w + (size_t)l * K * G;
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    rv[k] = static_cast<float>(chain ? wl[q * G + 8 * (k / 4) + 4 * p + k % 4]
-                                     : wl[k * G + j]);
+    rv[k] = lstm_gates::to_f32(chain ? wl[q * G + 8 * (k / 4) + 4 * p + k % 4]
+                                      : wl[k * G + j]);
   // The carries at their first wave-step: dh into the layer's slot, dc in
   // the chain lanes' registers.
   float dc = 0.0f;
   if (chain) {
-    dc = dcf[((long long)l * B + row) * H + u];
+    dc = lstm_gates::to_f32(dcf[((long long)l * B + row) * H + u]);
     if (g == 0)
       dhb[((L - 1 - l) & 1) * L * H + l * H + u] =
-          dhf[((long long)l * B + row) * H + u];
+          lstm_gates::to_f32(dhf[((long long)l * B + row) * H + u]);
   }
   // Start copying trajectory row r (step r: (c, h) of every layer and x)
   // into ring slot r mod kRing; row -1, the state before t = 0, is zeros.
-  // The worker lanes copy, off the chain.
+  // The worker lanes copy, off the chain.  A bf16 x element cannot go by
+  // cp.async (it is widened, and 2 bytes): its load goes out here and its
+  // store waits in x_dst/x_val for store_x, after the wave-step's work
+  // (a worker copies at most one x element a row: 2 L H + P <= 128 L).
+  float* x_dst = nullptr;
+  IO x_val = lstm_gates::to_io<IO>(0.0f);
+  auto store_x = [&] {
+    if constexpr (sizeof(IO) == 2) {
+      if (x_dst != nullptr) *x_dst = lstm_gates::to_f32(x_val);
+      x_dst = nullptr;
+    }
+  };
   auto load_row = [&](int r) {
     if (r < -1 || chain) return;
     float* dst = ring + (r & (kRing - 1)) * RW;
@@ -580,9 +638,13 @@ __global__ void __launch_bounds__(2 * kWaveThreads, 1)
         __pipeline_memcpy_async(
             dst + e, src + (((long long)r * L + ll) * B + row) * H + k, 4);
       } else {
-        __pipeline_memcpy_async(
-            dst + e, x + row * x_stride_b + r * x_stride_t + (e - 2 * L * H),
-            4);
+        const IO* src = x + row * x_stride_b + r * x_stride_t + (e - 2 * L * H);
+        if constexpr (sizeof(IO) == 4) {
+          __pipeline_memcpy_async(dst + e, src, 4);
+        } else {
+          x_dst = dst + e;
+          x_val = *src;
+        }
       }
     }
   };
@@ -591,6 +653,7 @@ __global__ void __launch_bounds__(2 * kWaveThreads, 1)
   // ahead of its first use
   for (int k = 0; k <= kLead; ++k) {
     load_row(T - 1 - k);
+    store_x();
     __pipeline_commit();
   }
   __pipeline_wait_prior(kLead - 1);
@@ -647,7 +710,7 @@ __global__ void __launch_bounds__(2 * kWaveThreads, 1)
           if (q >= P)  // -> h_{t-1} of this layer: the dh carry
             dhb[(nxt * L + l) * H + q - P] = out;
           else if (l == 0)  // -> x: dx, straight to device memory
-            dx[((long long)row * T + t) * P + q] = out;
+            dx[((long long)row * T + t) * P + q] = lstm_gates::to_io<IO>(out);
           else  // -> the layer below's h_t
             dib[(nxt * L + l) * P + q] = out;
         }
@@ -683,6 +746,7 @@ __global__ void __launch_bounds__(2 * kWaveThreads, 1)
         if (j < H) tcb[(nxt * L + l) * H + j] = tanhf(rr[l * H + j]);
       }
     }
+    store_x();
     __pipeline_wait_prior(kLead - 1);  // the rows the next wave-step reads
     __syncthreads();
   }
@@ -697,9 +761,10 @@ __global__ void __launch_bounds__(2 * kWaveThreads, 1)
   __pipeline_wait_prior(0);
   const int nw = L * K * G;
   const int n_out = nw + L * G;
-  float* out_w = gridDim.x == 1 ? dw : partials + (size_t)row * n_out;
-  float* out_b = gridDim.x == 1 ? db : out_w + nw;
-  // x rows copy 16 bytes at a time when every row is 16-byte aligned
+  // this tile's partial (several tiles) or dw and db themselves (one)
+  float* part = partials + (size_t)row * n_out;
+  const bool alone = gridDim.x == 1;
+  // f32 x rows copy 16 bytes at a time when every row is 16-byte aligned
   const bool x16 = (reinterpret_cast<uintptr_t>(x) | x_stride_b * 4 |
                     x_stride_t * 4) % 16 == 0;
   auto stage_rows = [&](int t_hi, int buf) {
@@ -722,9 +787,11 @@ __global__ void __launch_bounds__(2 * kWaveThreads, 1)
             d, h_traj + (((long long)t * L + ff / H) * B + row) * H + ff % H,
             16);
       } else {
-        const float* src =
+        const IO* src =
             x + row * x_stride_b + t * x_stride_t + f - L * (G + H);
-        if (x16)
+        if constexpr (sizeof(IO) == 2)  // widened as it is copied
+          for (int u = 0; u < 4; ++u) d[u] = lstm_gates::to_f32(src[u]);
+        else if (x16)
           __pipeline_memcpy_async(d, src, 16);
         else
           for (int u = 0; u < 4; ++u)
@@ -769,31 +836,45 @@ __global__ void __launch_bounds__(2 * kWaveThreads, 1)
       __syncthreads();  // the stage is read before the next refill
     }
 #pragma unroll
-    for (int k = 0; k < 32; ++k)
-      out_w[((size_t)ll * K + k0 + k) * G + c] = acc[k];
-    if (k0 == 0) out_b[ll * G + c] = bacc;
+    for (int k = 0; k < 32; ++k) {
+      const size_t o = ((size_t)ll * K + k0 + k) * G + c;
+      if (alone)
+        dw[o] = lstm_gates::to_io<GradT<WT>>(acc[k]);
+      else
+        part[o] = acc[k];
+    }
+    if (k0 == 0) {
+      if (alone)
+        db[ll * G + c] = lstm_gates::to_io<GradT<WT>>(bacc);
+      else
+        part[nw + ll * G + c] = bacc;
+    }
   }
-  if (gridDim.x > 1) close_sums(partials, tickets, n_out, nw, dw, db, tid, nt);
+  if (!alone) close_sums(partials, tickets, n_out, nw, dw, db, tid, nt);
 }
 
-template <int ROWS, int MAX_T, typename WT>
-int launch(const WT* w, const float* scales, const float* b, const float* x,
-           const float* c_traj, const float* h_traj, const float* dc,
-           const float* dh, float* dw, float* db, float* dx, float* partials,
-           int* tickets, int B, int T, int L, int P, int H,
+template <int ROWS, int MAX_T, typename WT, typename IO>
+int launch(const WT* w, const float* scales, const GradT<WT>* b, const IO* x,
+           const float* c_traj, const float* h_traj, const IO* dc,
+           const IO* dh, GradT<WT>* dw, GradT<WT>* db, IO* dx,
+           float* partials, int* tickets, int B, int T, int L, int P, int H,
            long long x_stride_b, long long x_stride_t, int time_chunk,
            int parts, int dparts, int threads, long long smem_bytes,
            cudaStream_t stream) {
+  if (time_chunk < 1 ||
+      smem_bytes != bwd_smem_bytes(T, L, P, H, ROWS, time_chunk,
+                                   (int)sizeof(WT)))
+    return (int)cudaErrorInvalidValue;
   static long long configured = 48 * 1024;
   if (smem_bytes > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_seq_bwd_kernel<ROWS, MAX_T, WT>,
+        lstm_seq_bwd_kernel<ROWS, MAX_T, WT, IO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
     configured = smem_bytes;
   }
   const int grid = (B + ROWS - 1) / ROWS;
-  lstm_seq_bwd_kernel<ROWS, MAX_T, WT>
+  lstm_seq_bwd_kernel<ROWS, MAX_T, WT, IO>
       <<<grid, threads, (size_t)smem_bytes, stream>>>(
           w, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials,
           tickets, B, T, L, P, H, time_chunk, parts, dparts, x_stride_b,
@@ -801,11 +882,11 @@ int launch(const WT* w, const float* scales, const float* b, const float* x,
   return (int)cudaGetLastError();
 }
 
-template <typename WT>
-int launch_wave(const WT* w, const float* scales, const float* b,
-                const float* x, const float* c_traj, const float* h_traj,
-                const float* dc, const float* dh, float* dw, float* db,
-                float* dx, float* partials, int* tickets, float* dg_work,
+template <typename WT, typename IO>
+int launch_wave(const WT* w, const float* scales, const GradT<WT>* b,
+                const IO* x, const float* c_traj, const float* h_traj,
+                const IO* dc, const IO* dh, GradT<WT>* dw, GradT<WT>* db,
+                IO* dx, float* partials, int* tickets, float* dg_work,
                 int B, int T, int L, int P, int H, long long x_stride_b,
                 long long x_stride_t, int threads, long long smem_bytes,
                 cudaStream_t stream) {
@@ -816,12 +897,12 @@ int launch_wave(const WT* w, const float* scales, const float* b,
   static long long configured = 48 * 1024;
   if (smem_bytes > configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        lstm_seq_bwd_wave_kernel<WT>,
+        lstm_seq_bwd_wave_kernel<WT, IO>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (e != cudaSuccess) return (int)e;
     configured = smem_bytes;
   }
-  lstm_seq_bwd_wave_kernel<WT><<<B, threads, (size_t)smem_bytes, stream>>>(
+  lstm_seq_bwd_wave_kernel<WT, IO><<<B, threads, (size_t)smem_bytes, stream>>>(
       w, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials, tickets,
       dg_work, B, T, L, x_stride_b, x_stride_t);
   return (int)cudaGetLastError();
@@ -830,11 +911,11 @@ int launch_wave(const WT* w, const float* scales, const float* b,
 // One instance per (tile size, thread bound) of the shared home and one
 // register-home wavefront; another block_b, more than 1024 threads or a
 // register home at another shape is cudaErrorInvalidValue.
-template <typename WT>
-int launch_tile(const WT* w, const float* scales, const float* b,
-                const float* x, const float* c_traj, const float* h_traj,
-                const float* dc, const float* dh, float* dw, float* db,
-                float* dx, float* partials, int* tickets, float* dg_work,
+template <typename WT, typename IO>
+int launch_tile(const WT* w, const float* scales, const GradT<WT>* b,
+                const IO* x, const float* c_traj, const float* h_traj,
+                const IO* dc, const IO* dh, GradT<WT>* dw, GradT<WT>* db,
+                IO* dx, float* partials, int* tickets, float* dg_work,
                 int B, int T, int L, int P, int H, long long x_stride_b,
                 long long x_stride_t, int block_b, int time_chunk, int reg,
                 int parts, int dparts, int threads, long long smem_bytes,
@@ -842,10 +923,10 @@ int launch_tile(const WT* w, const float* scales, const float* b,
   if (threads > 1024) return (int)cudaErrorInvalidValue;
   if (reg) {
     if (block_b != 1) return (int)cudaErrorInvalidValue;
-    return launch_wave<WT>(w, scales, b, x, c_traj, h_traj, dc, dh, dw, db,
-                           dx, partials, tickets, dg_work, B, T, L, P, H,
-                           x_stride_b, x_stride_t, threads, smem_bytes,
-                           (cudaStream_t)stream);
+    return launch_wave<WT, IO>(w, scales, b, x, c_traj, h_traj, dc, dh, dw,
+                               db, dx, partials, tickets, dg_work, B, T, L, P,
+                               H, x_stride_b, x_stride_t, threads,
+                               smem_bytes, (cudaStream_t)stream);
   }
 #define LSTM_SEQ_BWD_LAUNCH(R)                                               \
   case R:                                                                    \
@@ -899,10 +980,30 @@ int lstm_seq_bwd_f32(const float* w, const float* b, const float* x,
                      long long x_stride_b, long long x_stride_t, int block_b,
                      int time_chunk, int reg, int parts, int dparts,
                      int threads, long long smem_bytes, void* stream) {
-  return launch_tile<float>(w, nullptr, b, x, c_traj, h_traj, dc, dh, dw, db,
-                            dx, partials, tickets, dg_work, B, T, L, P, H,
-                            x_stride_b, x_stride_t, block_b, time_chunk, reg,
-                            parts, dparts, threads, smem_bytes, stream);
+  return launch_tile<float, float>(
+      w, nullptr, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials,
+      tickets, dg_work, B, T, L, P, H, x_stride_b, x_stride_t, block_b,
+      time_chunk, reg, parts, dparts, threads, smem_bytes, stream);
+}
+
+// The bf16 plans: w, b, x, dc, dh, dw, db and dx bf16 (dw, db and dx summed
+// in f32 and rounded once), the trajectories f32; everything else as
+// lstm_seq_bwd_f32 (smem_bytes is working_set_bytes(mode="bwd",
+// dtype_bytes=2, w_dtype_bytes=2)).
+int lstm_seq_bwd_bf16(const __nv_bfloat16* w, const __nv_bfloat16* b,
+                      const __nv_bfloat16* x, const float* c_traj,
+                      const float* h_traj, const __nv_bfloat16* dc,
+                      const __nv_bfloat16* dh, __nv_bfloat16* dw,
+                      __nv_bfloat16* db, __nv_bfloat16* dx, float* partials,
+                      int* tickets, float* dg_work, int B, int T, int L,
+                      int P, int H, long long x_stride_b,
+                      long long x_stride_t, int block_b, int time_chunk,
+                      int reg, int parts, int dparts, int threads,
+                      long long smem_bytes, void* stream) {
+  return launch_tile<__nv_bfloat16, __nv_bfloat16>(
+      w, nullptr, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials,
+      tickets, dg_work, B, T, L, P, H, x_stride_b, x_stride_t, block_b,
+      time_chunk, reg, parts, dparts, threads, smem_bytes, stream);
 }
 
 // The int8 plan: wq (L, P+H, 4H) int8 codes the q8 forward ran with and
@@ -917,16 +1018,42 @@ int lstm_seq_bwd_q8(const int8_t* wq, const float* scales, const float* b,
                     long long x_stride_t, int block_b, int time_chunk,
                     int reg, int parts, int dparts, int threads,
                     long long smem_bytes, void* stream) {
-  return launch_tile<int8_t>(wq, scales, b, x, c_traj, h_traj, dc, dh, dw,
-                             db, dx, partials, tickets, dg_work, B, T, L, P,
-                             H, x_stride_b, x_stride_t, block_b, time_chunk,
-                             reg, parts, dparts, threads, smem_bytes, stream);
+  return launch_tile<int8_t, float>(
+      wq, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials,
+      tickets, dg_work, B, T, L, P, H, x_stride_b, x_stride_t, block_b,
+      time_chunk, reg, parts, dparts, threads, smem_bytes, stream);
+}
+
+// The int8 plan of a bf16 model: as lstm_seq_bwd_q8 (f32 scales, bias, dw
+// and db) with x, dc, dh and dx bf16.
+int lstm_seq_bwd_q8_bf16(const int8_t* wq, const float* scales,
+                         const float* b, const __nv_bfloat16* x,
+                         const float* c_traj, const float* h_traj,
+                         const __nv_bfloat16* dc, const __nv_bfloat16* dh,
+                         float* dw, float* db, __nv_bfloat16* dx,
+                         float* partials, int* tickets, float* dg_work, int B,
+                         int T, int L, int P, int H, long long x_stride_b,
+                         long long x_stride_t, int block_b, int time_chunk,
+                         int reg, int parts, int dparts, int threads,
+                         long long smem_bytes, void* stream) {
+  return launch_tile<int8_t, __nv_bfloat16>(
+      wq, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, partials,
+      tickets, dg_work, B, T, L, P, H, x_stride_b, x_stride_t, block_b,
+      time_chunk, reg, parts, dparts, threads, smem_bytes, stream);
 }
 
 // The register home's dynamic shared memory for L layers and weights of
-// wb bytes (4 f32, 1 int8): what kernels/lstm_seq.py's table is held to.
+// wb bytes (4 f32, 2 bf16, 1 int8): what kernels/lstm_seq.py's table is
+// held to.
 long long lstm_seq_bwd_wave_smem_bytes(int L, int wb) {
   return wave_smem_bytes(L, wb);
+}
+
+// The shared home's: bwd_smem_bytes for a launch of block_b rows, time
+// chunk tc (T for the whole sequence) and weights of wb bytes.
+long long lstm_seq_bwd_smem_bytes(int T, int L, int P, int H, int block_b,
+                                  int tc, int wb) {
+  return bwd_smem_bytes(T, L, P, H, block_b, tc, wb);
 }
 
 const char* lstm_seq_bwd_error_string(int err) {

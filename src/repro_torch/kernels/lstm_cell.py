@@ -5,6 +5,8 @@ Replaces the JAX package's Pallas kernel ``kernels/lstm_cell.py:_kernel``
 (launched by ``_lstm_cell_call``) with the CUDA C++ kernel in
 ``csrc/lstm_cell.cu``.  One call is one cell step: ``[x, h] @ W + b`` with
 the sigmoid/tanh gate math fused behind the product, writing ``(c', h')``.
+The kernel is built for float32 and for bfloat16 operands (``DTYPES``);
+the bf16 instance does all its arithmetic in f32 and rounds only (c', h').
 
 What bounds it on the H100, and what the design does about it, is written
 at the top of the CUDA source: at the paper's shapes one call moves ~34 KB,
@@ -17,7 +19,8 @@ spreads a small batch's gate columns over several blocks;
 
 A tensor on the CPU takes ``lstm_cell_plain``; a tensor on the card launches
 the kernel or raises.  ``lstm_cell.launches`` counts kernel launches and
-nothing else.
+nothing else; ``lstm_cell.bf16_launches`` those of them on the bf16
+instance.
 
 Autograd: a call that autograd records runs ``_LstmCellFn``, whose forward
 is the kernel (the plain version on the CPU) and whose backward is the VJP
@@ -82,7 +85,9 @@ def _pow2_at_least(n: int) -> int:
 @functools.lru_cache(maxsize=None)
 def choose_blocks(B: int, D: int, H: int, *, block_b: int | None = None,
                   block_h: int | None = None) -> CellBlocks | None:
-    """K1's budget table: the tile, the K split and the thread count.
+    """K1's budget table: the tile, the K split and the thread count, the
+    same for both dtypes (the shared memory is the f32 partial sums either
+    way; a bf16 slice's loads are half the bytes of an f32 one's).
 
     The tile starts as coarse as the batch and hidden width ask (at most
     8 rows x 32 columns) and is halved, columns first, then rows, until
@@ -118,9 +123,14 @@ def choose_blocks(B: int, D: int, H: int, *, block_b: int | None = None,
                       grid(bm, bh))
 
 
-def _entry():
+#: the dtypes the kernel is built for: every operand float32, or every
+#: operand bfloat16
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _entry(dtype: torch.dtype):
     lib = _build.load(_NAME)
-    fn = lib.lstm_cell_f32
+    fn = lib.lstm_cell_f32 if dtype == torch.float32 else lib.lstm_cell_bf16
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
@@ -138,9 +148,9 @@ def _validate(w, b, x, c, h) -> None:
                          f"{tuple(b.shape)}, x {tuple(x.shape)}, c "
                          f"{tuple(c.shape)}, h {tuple(h.shape)}")
     for name, t in (("w", w), ("b", b), ("x", x), ("c", c), ("h", h)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"lstm_cell takes float32 tensors; {name} is "
-                            f"{t.dtype}")
+        if t.dtype not in DTYPES or t.dtype != w.dtype:
+            raise TypeError(f"lstm_cell takes all float32 or all bfloat16 "
+                            f"tensors; w is {w.dtype}, {name} {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"lstm_cell: {name} is on {t.device}, x on "
                              f"{x.device}")
@@ -151,7 +161,10 @@ def lstm_cell(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
               block_b: int | None = None, block_h: int | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused cell step.  w: (D+H, 4H) gate order (i,f,g,o); b: (4H,);
-    x: (B, D); c, h: (B, H), all float32.  Returns (c', h').
+    x: (B, D); c, h: (B, H), all float32 or all bfloat16.  Returns
+    (c', h') in that dtype: a bf16 call widens every operand to f32 (the
+    JAX kernel's f32 product, bias and gates) and rounds (c', h') to bf16,
+    so a ``fused_cell`` sequence in bf16 rounds its state every step.
 
     ``block_b``/``block_h`` pin the (rows, hidden columns) tile of a thread
     block, a side of ``BLOCK_BS``/``BLOCK_HS``; None takes
@@ -185,7 +198,7 @@ def _forward(w, b, x, c, h, block_b: int | None, block_h: int | None
     b, c = b.contiguous(), c.contiguous()
     c_out = torch.empty_like(c)
     h_out = torch.empty_like(c)
-    lib, fn = _entry()
+    lib, fn = _entry(w.dtype)
     err = fn(w.data_ptr(), b.data_ptr(), x.data_ptr(), c.data_ptr(),
              h.data_ptr(), c_out.data_ptr(), h_out.data_ptr(), B, D, H,
              x.stride(0), h.stride(0), blocks.block_b, blocks.block_h,
@@ -193,6 +206,8 @@ def _forward(w, b, x, c, h, block_b: int | None, block_h: int | None
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, _NAME, err)
     lstm_cell.launches += 1
+    if x.dtype == torch.bfloat16:
+        lstm_cell.bf16_launches += 1
     return c_out, h_out
 
 
@@ -216,5 +231,6 @@ class _LstmCellFn(torch.autograd.Function):
                 None, None)
 
 
-#: kernel launches since the last reset (CPU calls are not counted)
-lstm_cell.launches = 0
+#: kernel launches since the last reset (CPU calls are not counted), and
+#: those of them on the bf16 instance
+lstm_cell.launches = lstm_cell.bf16_launches = 0

@@ -18,7 +18,12 @@ register, the input streamed through a two-slot ring of ``time_chunk``
 steps; its trajectory instance (``lstm_seq_traj``) also writes the (T, L,
 B, H) f32 post-step states, and its int8 instances (``lstm_seq_q8``,
 ``lstm_seq_q8_traj``) take the stack as int8 codes with (L, 4H) f32
-per-column scales, folded into the gate pre-activations.  What bounds it on
+per-column scales, folded into the gate pre-activations.  Each is built for
+the (stack, input) dtypes of ``INSTANCES``: f32/f32, bf16/bf16 (a bf16
+stack, bias and input, widened to f32 as they are read; the state and the
+trajectories stay f32 and only the final (c, h) are written in bf16), and
+int8/f32 and int8/bf16 (the q8 plan of a bf16 model, as the JAX package
+feeds bf16 x to its q8 kernel).  What bounds it on
 the H100 (the chain of dependent steps, not FLOPs or bytes) and what the
 design does about it is written at the top of the CUDA source.
 
@@ -56,7 +61,8 @@ or raises.  Each wrapper counts its launches (CPU calls are not counted):
 inference forward at any T), ``lstm_seq_traj.launches`` and
 ``lstm_seq_q8_traj.launches`` trajectory launches (one per training
 forward); each also counts in ``reg_launches`` the launches whose weights
-were in registers (``weight_home``).
+were in registers (``weight_home``) and in ``bf16_launches`` those on a
+bf16 input (the bf16/bf16 and int8/bf16 instances).
 """
 from __future__ import annotations
 
@@ -249,12 +255,17 @@ def row_stride(hidden: int, w_bytes: int = 4) -> int:
     """Elements per weight row in shared memory (``row_stride`` of
     ``csrc/lstm_gates.cuh``).  f32 rows are 4H + ``W_ROW_PAD`` words.  int8
     rows are 4H rounded up to 16 bytes, plus 16 when that is a multiple of
-    64: row starts stay 16-byte aligned for the 16-byte copies, and the rows
-    a warp reads at once fall into distinct banks."""
+    64; bf16 rows 4H rounded up to 8 elements (16 bytes), plus 16 when that
+    is a multiple of 32 elements: row starts stay 16-byte aligned for the
+    16-byte copies, and the rows a warp reads at once fall into distinct
+    banks."""
     g = 4 * hidden
     if w_bytes == 1:
         s = factorization.round_up(g, 16)
         return s + 16 if s % 64 == 0 else s
+    if w_bytes == 2:
+        s = factorization.round_up(g, 8)
+        return s + 16 if s % 32 == 0 else s
     return g + W_ROW_PAD
 
 
@@ -272,12 +283,15 @@ def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
     registers to device memory).  Terms (``tiling.WorkingSet``): the weight
     stack, its rows padded to ``row_stride`` and each segment's rows (P
     input, H recurrent) to a multiple of 4, when ``weight_home`` keeps it
-    in shared memory (nothing when it is in registers); the f32 h of every
-    layer in two slots (t mod 2); the x ring (``tiling.streamed_rows``: T
-    rows when ``time_chunk`` is None, else 2 x tc); h and x rows padded to
-    a multiple of 4 floats.  Bias, scales, c and the gates live in
-    registers; layer 0's input product is formed a step ahead in
-    registers, so it needs no buffer.
+    in shared memory (nothing when it is in registers), ``w_dtype_bytes``
+    a weight (default ``dtype_bytes``); the f32 h of every layer in two
+    slots (t mod 2); the x ring (``tiling.streamed_rows``: T rows when
+    ``time_chunk`` is None, else 2 x tc) in the input's dtype,
+    ``dtype_bytes`` an element; h and x rows padded to a multiple of 4
+    elements; and on the register home with bf16 x an f32 copy of the
+    chunk in use (T rows, or tc), which its layer 0 reads.  Bias, scales,
+    c and the gates live in registers; layer 0's input product is formed a
+    step ahead in registers, so it needs no buffer.
 
     ``mode="bwd"`` sizes the backward (``csrc/lstm_seq_bwd.cu``).  Where
     ``weight_home`` is ``"registers"`` (the paper's 2 x 32 at one row a
@@ -289,7 +303,8 @@ def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
     for int8 (``slots``), and the dW pass's two stages of ``BWD_STAGE`` + 1
     rows of dg (L, 4H), h (L, H) and x (P) (``dw_stage``), all f32.
     Elsewhere it is the shared-home kernel:
-    the stack and bias (and scales), the x ring, its (dc, dh) carries, its
+    the stack (``w_dtype_bytes`` a weight) and the f32 bias (and scales),
+    the x ring, widened to f32 as it is copied in, its (dc, dh) carries, its
     gate buffer (block_b, 4H), the f32 dW/db accumulators (dW rows padded as
     W's), the two f32 trajectory windows (T + 1 rows, one of them the zero
     state before t = 0, when ``time_chunk`` is None; else 2 slots of
@@ -299,10 +314,13 @@ def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
     backward tiling to the forward's bytes and threads as well, so it also
     fits the trajectory launch that feeds it.
 
+    In ``bwd`` every term but the stack is f32 whatever the dtypes: the
+    backward widens a bf16 bias, x and cotangents as it reads them.
+
     ``quantized=True`` sizes the int8 instances (the ``fused_seq_q8``
     plan): the stack is 1 byte a weight (``tiling.weight_dtype_bytes``), its
-    rows padded in bytes (``row_stride``); in ``bwd`` the bias stays f32,
-    the (L, 4H) f32 scales sit beside it, the dW/db accumulators stay f32
+    rows padded in bytes (``row_stride``); in ``bwd`` the (L, 4H) f32
+    scales sit beside the bias, the dW/db accumulators stay f32
     and the outgoing products read their own (block_b, 4H) f32 copy of the
     gate gradients times the scales.  The JAX table's "active-layer dequant
     temporary" has no counterpart: the kernels convert each int8 code to f32
@@ -314,10 +332,15 @@ def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
     if mode == "fwd":
         p4 = factorization.round_up(p_width, 4)
         h4 = factorization.round_up(hidden, 4)
-        if weight_home(n_layers, p_width, hidden, block_b) == "shared":
+        home = weight_home(n_layers, p_width, hidden, block_b)
+        if home == "shared":
             ws.add("weights", n_layers * (p4 + h4) * row_stride(hidden, wb)
                    * wb)
         ws.add("h_slots", 2 * n_layers * block_b * h4 * 4)
+        if home == "registers" and dtype_bytes == 2:
+            chunk = seq_len if time_chunk is None else min(time_chunk,
+                                                           seq_len)
+            ws.add("x_widened", block_b * chunk * p4 * 4)
         ws.add("x_ring", block_b * rows * p4 * dtype_bytes)
         return ws.total()
     if weight_home(n_layers, p_width, hidden, block_b) == "registers":
@@ -328,10 +351,10 @@ def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
         ws.add("dw_stage", 2 * (BWD_STAGE + 1)
                * (n_layers * (g + hidden) + p_width) * 4)
         return ws.total()
-    x_ring = block_b * rows * p_width * dtype_bytes
+    x_ring = block_b * rows * p_width * 4
     state = 2 * n_layers * block_b * hidden * 4
     ws.add("weights", w_rows * row_stride(hidden, wb) * wb)
-    ws.add("biases", n_layers * 4 * hidden * (4 if quantized else wb))
+    ws.add("biases", n_layers * 4 * hidden * 4)
     if quantized:
         ws.add("scales", n_layers * 4 * hidden * 4)
     ws.add("x_ring", x_ring)
@@ -385,7 +408,10 @@ def choose_batch_block(batch: int, seq_len: int, n_layers: int,
     ``core/lstm.forward_fused_seq`` routes to the per-cell kernel.
     ``quantized=True`` sizes the int8 instances (``working_set_bytes``):
     with the stack quartered, they fit where the f32 ones do not (2 x 64,
-    3 x 64 and 2 x 96 forward), and are never tiled finer.
+    3 x 64 and 2 x 96 forward), and are never tiled finer.  The bf16
+    instances (``dtype_bytes=2``, ``w_dtype_bytes=2``) halve the stack and
+    the x ring: their forward fits 2 x 64 and 3 x 64 in one block, their
+    backward, whose f32 dW accumulators alone are 256 KiB there, does not.
     """
     budget = factorization.H100_SMEM_PER_BLOCK if smem_budget is None \
         else smem_budget
@@ -417,18 +443,28 @@ def recorded(*tensors: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _bytes(w: torch.Tensor, x: torch.Tensor) -> dict:
+    """The budget table's dtype keywords for a launch on ``w`` and ``x``:
+    the input's bytes an element, and the stack's (an int8 stack is
+    ``quantized=True``)."""
+    q8 = w.dtype == torch.int8
+    return dict(dtype_bytes=x.element_size(),
+                w_dtype_bytes=None if q8 else w.element_size(),
+                quantized=q8)
+
+
 def _fwd_spec(B: int, T: int, L: int, P: int, H: int, block_b: int | None,
-              time_chunk: int | None, quantized: bool = False
-              ) -> tuple[int, int | None]:
+              time_chunk: int | None, **dtypes) -> tuple[int, int | None]:
     """The forward's ``(block_b, time_chunk)``: explicit tiles pin the
     layout, otherwise ``choose_batch_block`` searches (an explicit
-    ``time_chunk`` survives an automatic ``block_b``)."""
+    ``time_chunk`` survives an automatic ``block_b``); ``dtypes`` are
+    ``_bytes``'s keywords."""
     if block_b is None:
-        blocks = choose_batch_block(B, T, L, P, H, quantized=quantized)
+        blocks = choose_batch_block(B, T, L, P, H, **dtypes)
         if blocks is None:
             raise ValueError(
                 f"sequence-resident working set (L={L}, P+H={P + H}, "
-                f"4H={4 * H}, quantized={quantized}) exceeds a thread "
+                f"4H={4 * H}, {dtypes}) exceeds a thread "
                 "block's shared memory even at batch tile 1 with tc=1 time "
                 "streaming; use the per-cell kernel (core/lstm routes this)")
         block_b = blocks.block_b
@@ -442,7 +478,7 @@ def _fwd_spec(B: int, T: int, L: int, P: int, H: int, block_b: int | None,
 
 def _resolve_specs(B: int, T: int, L: int, P: int, H: int, *,
                    bwd_block_b: int | None, bwd_time_chunk: int | None,
-                   device: torch.device, quantized: bool = False
+                   device: torch.device, **dtypes
                    ) -> tuple[int, int | None] | int:
     """The ``(block_b, time_chunk)`` of a call autograd records, for the
     backward launch and the trajectory launch that feeds it.
@@ -453,25 +489,24 @@ def _resolve_specs(B: int, T: int, L: int, P: int, H: int, *,
     fits, a CPU call gets ``ORACLE_BWD`` — autograd of ``ref.lstm_seq``, the
     JAX package's decision table — and a CUDA call a ValueError naming the
     working set: on the card no plain version takes a kernel's place
-    (``core/lstm`` trains such widths on ``fused_cell``).  ``quantized``
-    sizes the int8 backward."""
+    (``core/lstm`` trains such widths on ``fused_cell``).  ``dtypes``
+    (``_bytes``'s keywords) size the bf16 and int8 backwards."""
     if bwd_block_b is not None:
         if bwd_block_b not in TILE_ROWS:
             raise ValueError(f"lstm_seq: bwd_block_b must be one of "
                              f"{TILE_ROWS}, not {bwd_block_b}")
         return bwd_block_b, bwd_time_chunk
-    blocks = choose_batch_block(B, T, L, P, H, mode="bwd",
-                                quantized=quantized)
+    blocks = choose_batch_block(B, T, L, P, H, mode="bwd", **dtypes)
     if blocks is not None:
         return (blocks.block_b, blocks.time_chunk if bwd_time_chunk is None
                 else bwd_time_chunk)
     if device.type == "cpu":
         return ORACLE_BWD
     need = working_set_bytes(T, L, P, H, 1, mode="bwd", time_chunk=1,
-                             quantized=quantized)
+                             **dtypes)
     raise ValueError(
         f"lstm_seq backward: working set of {need} bytes at batch tile 1 "
-        f"with tc=1 (L={L}, P+H={P + H}, 4H={4 * H}, quantized={quantized})"
+        f"with tc=1 (L={L}, P+H={P + H}, 4H={4 * H}, {dtypes})"
         " exceeds a thread "
         f"block's {factorization.H100_SMEM_PER_BLOCK} bytes of shared "
         "memory; train this width on the per-cell kernel "
@@ -481,10 +516,23 @@ def _resolve_specs(B: int, T: int, L: int, P: int, H: int, *,
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-def _entry(q8: bool = False):
+#: (stack, bias, input) dtypes of the instances the kernel is built for;
+#: an int8 stack comes with (L, 4H) float32 scales
+INSTANCES = ((torch.float32, torch.float32, torch.float32),
+             (torch.bfloat16, torch.bfloat16, torch.bfloat16),
+             (torch.int8, torch.float32, torch.float32),
+             (torch.int8, torch.float32, torch.bfloat16))
+
+
+def _entry(w_dtype: torch.dtype, io_dtype: torch.dtype):
     lib = _build.load(_NAME)
-    fn = lib.lstm_seq_fwd_q8 if q8 else lib.lstm_seq_fwd_f32
+    fn = getattr(lib, "lstm_seq_fwd_" + {
+        (torch.float32, torch.float32): "f32",
+        (torch.bfloat16, torch.bfloat16): "bf16",
+        (torch.int8, torch.float32): "q8",
+        (torch.int8, torch.bfloat16): "q8_bf16"}[w_dtype, io_dtype])
     if fn.argtypes is None:
+        q8 = w_dtype == torch.int8
         fn.argtypes = ([ctypes.c_void_p] * (8 if q8 else 7)
                        + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
@@ -493,9 +541,12 @@ def _entry(q8: bool = False):
     return lib, fn
 
 
-def _validate(w, b, x, scales=None) -> None:
-    """Shapes, dtypes and devices of the operands: float32 throughout, or
-    an int8 stack ``w`` with its (L, 4H) float32 ``scales``."""
+def _validate(w, b, x, scales=None, w_dtype=None) -> None:
+    """Shapes, dtypes and devices of the operands: one of ``INSTANCES``
+    (float32 throughout, bfloat16 throughout, or an int8 stack ``w`` with
+    its (L, 4H) float32 ``scales`` and bias over a float32 or bfloat16
+    input).  ``w_dtype`` names the stack's dtype at the launch when the
+    call quantizes a float32 master ``w`` first (``lstm_seq_q8``)."""
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     if w.dim() != 3 or w.shape[-1] != 4 * H or b.shape != (L, 4 * H) \
@@ -506,14 +557,19 @@ def _validate(w, b, x, scales=None) -> None:
                          f"{None if scales is None else tuple(scales.shape)}")
     if scales is not None and w.dtype != torch.int8:
         raise TypeError(f"the q8 kernels take an int8 stack; w is {w.dtype}")
-    floats = [("b", b), ("x", x)] + (
-        [("w", w)] if scales is None else [("scales", scales)])
-    for name, t in floats:
-        if t.dtype != torch.float32:
-            raise TypeError(f"lstm_seq takes float32 tensors; {name} is "
-                            f"{t.dtype}")
-    for name, t in floats + [("w", w)]:
-        if t.device != x.device:
+    if w_dtype is not None and w.dtype != torch.float32:
+        raise TypeError(f"lstm_seq_q8 takes a float32 master stack; w is "
+                        f"{w.dtype}")
+    if (w.dtype == torch.int8) != (scales is not None) \
+            or (scales is not None and scales.dtype != torch.float32) \
+            or (w_dtype or w.dtype, b.dtype, x.dtype) not in INSTANCES:
+        raise TypeError(
+            f"lstm_seq has no instance for w {w.dtype}, b {b.dtype}, x "
+            f"{x.dtype}, scales {None if scales is None else scales.dtype}"
+            f"; it takes (w, b, x) {[tuple(map(str, i)) for i in INSTANCES]}"
+            " (int8 with float32 scales)")
+    for name, t in (("w", w), ("b", b), ("scales", scales)):
+        if t is not None and t.device != x.device:
             raise ValueError(f"lstm_seq: {name} is on {t.device}, x on "
                              f"{x.device}")
     if x.device.type not in ("cpu", "cuda"):
@@ -532,9 +588,10 @@ def _no_autograd(name: str, *tensors: torch.Tensor) -> None:
 
 def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool,
             scales: torch.Tensor | None = None):
-    """One launch of the forward kernel, with or without trajectories; an
-    int8 instance when ``scales`` are given.  The weight home, the threads
-    and the shared memory come from the (memoised) budget table."""
+    """One launch of the forward kernel, with or without trajectories: the
+    instance of ``w``'s and ``x``'s dtypes (``INSTANCES``; int8 with
+    ``scales``).  The weight home, the threads and the shared memory come
+    from the (memoised) budget table."""
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T, _ = x.shape
@@ -543,7 +600,8 @@ def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool,
     tc = T if time_chunk is None else max(1, min(time_chunk, T))
     q8 = scales is not None
     smem = working_set_bytes(T, L, P, H, block_b,
-                             time_chunk=None if tc == T else tc, quantized=q8)
+                             time_chunk=None if tc == T else tc,
+                             **_bytes(w, x))
     if smem > factorization.H100_SMEM_PER_BLOCK:
         raise ValueError(f"lstm_seq: tile ({block_b}, {tc}) needs {smem} "
                          "bytes of shared memory, above a thread block's "
@@ -559,13 +617,13 @@ def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool,
     scales = None if scales is None else scales.contiguous()
     c_out = x.new_empty(L, B, H)
     h_out = x.new_empty(L, B, H)
-    if traj:
-        c_traj = x.new_empty(T, L, B, H)
-        h_traj = x.new_empty(T, L, B, H)
+    if traj:                  # the trajectories are f32 for every dtype
+        c_traj = x.new_empty(T, L, B, H, dtype=F32)
+        h_traj = x.new_empty(T, L, B, H, dtype=F32)
         traj_ptrs = (c_traj.data_ptr(), h_traj.data_ptr())
     else:
         traj_ptrs = (None, None)
-    lib, fn = _entry(q8)
+    lib, fn = _entry(w.dtype, x.dtype)
     w_ptrs = (w.data_ptr(), scales.data_ptr()) if q8 else (w.data_ptr(),)
     err = fn(*w_ptrs, b.data_ptr(), x.data_ptr(), c_out.data_ptr(),
              h_out.data_ptr(), *traj_ptrs, B, T, L, P, H, x.stride(0),
@@ -577,13 +635,16 @@ def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool,
     return c_out, h_out
 
 
-def _count(wrapper, w: torch.Tensor, block_b: int) -> None:
-    """One launch of ``wrapper``'s kernel: ``launches``, and
-    ``reg_launches`` when its weights were in registers."""
+def _count(wrapper, w: torch.Tensor, x: torch.Tensor, block_b: int) -> None:
+    """One launch of ``wrapper``'s kernel: ``launches``, ``reg_launches``
+    when its weights were in registers, and ``bf16_launches`` when its
+    input was bf16."""
     H = w.shape[-1] // 4
     wrapper.launches += 1
     if weight_home(w.shape[0], w.shape[1] - H, H, block_b) == "registers":
         wrapper.reg_launches += 1
+    if x.dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
 
 
 def _forward(w, b, x, block_b: int, time_chunk: int | None
@@ -594,7 +655,7 @@ def _forward(w, b, x, block_b: int, time_chunk: int | None
         return lstm_seq_plain(w, b, x)
     _no_autograd("the lstm_seq kernel", w, b, x)
     out = _launch(w, b, x, block_b, time_chunk, traj=False)
-    _count(lstm_seq, w, block_b)
+    _count(lstm_seq, w, x, block_b)
     return out
 
 
@@ -613,12 +674,13 @@ def lstm_seq_traj(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T, _ = x.shape
-    block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk)
+    block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
+                                    **_bytes(w, x))
     if x.device.type == "cpu":
         return ref.lstm_seq_traj(w, b, x)
     _no_autograd("lstm_seq_traj", w, b, x)
     out = _launch(w, b, x, block_b, time_chunk, traj=True)
-    _count(lstm_seq_traj, w, block_b)
+    _count(lstm_seq_traj, w, x, block_b)
     return out
 
 
@@ -655,8 +717,12 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     """Whole-sequence stacked LSTM in ONE kernel launch.
 
     w: (L, P+H, 4H) stacked gate weights (stack_params); b: (L, 4H);
-    x: (B, T, P) input zero-padded to width P (pad_input), all float32.
-    Returns the final (c, h), each (L, B, H).  Oracle: ref.lstm_seq.
+    x: (B, T, P) input zero-padded to width P (pad_input), all float32 or
+    all bfloat16.  Returns the final (c, h), each (L, B, H) in x's dtype.
+    Oracle: ref.lstm_seq.  A bfloat16 call runs the kernel's bf16
+    instance: every product and the state in f32 (bf16 widens to f32
+    exactly), only the final (c, h) rounded to bf16, as the JAX package's
+    kernel does; its gradients come back in bf16.
 
     When ``block_b`` is None the tiling comes from ``choose_batch_block``
     (an explicit ``time_chunk`` still pins the time layout); an explicit ``block_b`` is one of ``TILE_ROWS``.  ValueError
@@ -681,7 +747,7 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     if recorded(w, b, x):
         bwd_spec = _resolve_specs(B, T, L, P, H, bwd_block_b=bwd_block_b,
                                   bwd_time_chunk=bwd_time_chunk,
-                                  device=x.device)
+                                  device=x.device, **_bytes(w, x))
         if bwd_spec != ORACLE_BWD:
             return _LstmSeqFn.apply(w, b, x, bwd_spec)
         tracer = trace_lib.get_tracer()
@@ -690,14 +756,16 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
                          fallback="oracle_bwd", bwd_block_b=ORACLE_BWD,
                          batch=B, seq_len=T)
         return ref.lstm_seq(w, b, x)
-    return _forward(w, b, x, *_fwd_spec(B, T, L, P, H, block_b, time_chunk))
+    return _forward(w, b, x, *_fwd_spec(B, T, L, P, H, block_b, time_chunk,
+                                        **_bytes(w, x)))
 
 
-#: plain launches since the last reset (CPU calls are not counted), and
-#: those of them on the register weight home
-lstm_seq.launches = lstm_seq.reg_launches = 0
+#: plain launches since the last reset (CPU calls are not counted), those
+#: of them on the register weight home, and those on a bf16 input
+lstm_seq.launches = lstm_seq.reg_launches = lstm_seq.bf16_launches = 0
 #: trajectory launches since the last reset (CPU calls are not counted)
 lstm_seq_traj.launches = lstm_seq_traj.reg_launches = 0
+lstm_seq_traj.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -720,12 +788,12 @@ def lstm_seq_q8_traj(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
     P = wq.shape[1] - H
     B, T, _ = x.shape
     block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
-                                    quantized=True)
+                                    **_bytes(wq, x))
     if x.device.type == "cpu":
         return lstm_seq_q8_traj_plain(wq, scales, b, x)
     _no_autograd("lstm_seq_q8_traj", scales, b, x)
     out = _launch(wq, b, x, block_b, time_chunk, traj=True, scales=scales)
-    _count(lstm_seq_q8_traj, wq, block_b)
+    _count(lstm_seq_q8_traj, wq, x, block_b)
     return out
 
 
@@ -765,7 +833,8 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole-sequence stacked LSTM over int8 weights in ONE kernel launch.
 
-    Same contract as ``lstm_seq``, but ``w`` is the f32 MASTER stack,
+    Same contract as ``lstm_seq``, but ``w`` is the f32 MASTER stack
+    (b float32, x float32 or bfloat16),
     quantized inside per output channel (``ref.quantize_q8``, on every call,
     as the JAX entry does), and the kernel holds it in shared memory as int8
     plus (L, 4H) f32 scales, so ``choose_batch_block(quantized=True)`` fits
@@ -777,14 +846,15 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     backward tiling fits, a CPU call is autograd of ``ref.lstm_seq`` over
     ``ref.quantize_dequantize_ste(w)`` with a ``plan/dispatch``
     ``fallback="oracle_bwd"`` event, and a CUDA call raises ValueError."""
-    _validate(w, b, x)
+    _validate(w, b, x, w_dtype=torch.int8)
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T, _ = x.shape
+    q8_bytes = dict(dtype_bytes=x.element_size(), quantized=True)
     if recorded(w, b, x):
         bwd_spec = _resolve_specs(B, T, L, P, H, bwd_block_b=bwd_block_b,
                                   bwd_time_chunk=bwd_time_chunk,
-                                  device=x.device, quantized=True)
+                                  device=x.device, **q8_bytes)
         if bwd_spec != ORACLE_BWD:
             return _LstmSeqQ8Fn.apply(w, b, x, bwd_spec)
         tracer = trace_lib.get_tracer()
@@ -794,16 +864,18 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
                          batch=B, seq_len=T)
         return ref.lstm_seq(ref.quantize_dequantize_ste(w), b, x)
     block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
-                                    quantized=True)
+                                    **q8_bytes)
     wq, scales = ref.quantize_q8(w)
     if x.device.type == "cpu":
         return lstm_seq_q8_plain(wq, scales, b, x)
     out = _launch(wq, b, x, block_b, time_chunk, traj=False, scales=scales)
-    _count(lstm_seq_q8, wq, block_b)
+    _count(lstm_seq_q8, wq, x, block_b)
     return out
 
 
 #: q8 plain launches since the last reset (CPU calls are not counted)
 lstm_seq_q8.launches = lstm_seq_q8.reg_launches = 0
+lstm_seq_q8.bf16_launches = 0
 #: q8 trajectory launches since the last reset (CPU calls are not counted)
 lstm_seq_q8_traj.launches = lstm_seq_q8_traj.reg_launches = 0
+lstm_seq_q8_traj.bf16_launches = 0

@@ -23,14 +23,19 @@ run.  What bounds it on the H100 and what the design does about it is
 written at the top of the CUDA source.  Its int8 instance
 (``lstm_seq_bwd_q8``, or ``lstm_seq_bwd(..., scales=)``) recomputes the
 gates with the q8 forward's scale fold and returns f32 straight-through
-dw and db for the master stack.
+dw and db for the master stack.  Each is built for the (stack, input)
+dtypes of ``lstm_seq.INSTANCES``: the bf16 instances widen the stack, the
+bias, x and the cotangents to f32 as they read them, recompute from the
+f32 trajectories (to the bit of K2t's bf16 instance), sum in f32 and write
+dx, and a bf16 stack's dw and db, in bf16.
 
 ``lstm_seq_bwd_plain`` is the plain PyTorch version: it unwinds step by
 step exactly as the JAX package's ``_unwind_step`` does, over the whole
 batch at once, with no autograd (``scales=`` folds as the q8 kernel does).
 A tensor on the CPU takes it; a tensor on the card launches the kernel or
 raises.  ``lstm_seq_bwd.launches`` and ``lstm_seq_bwd_q8.launches`` count
-kernel launches: one per training step at any T.
+kernel launches: one per training step at any T (``bf16_launches`` those
+on a bf16 input).
 """
 from __future__ import annotations
 
@@ -124,10 +129,15 @@ def dot_parts(rows: int, threads: int) -> int:
     return parts
 
 
-def _entry(q8: bool = False):
+def _entry(w_dtype: torch.dtype, io_dtype: torch.dtype):
     lib = _build.load(_NAME)
-    fn = lib.lstm_seq_bwd_q8 if q8 else lib.lstm_seq_bwd_f32
+    fn = getattr(lib, "lstm_seq_bwd_" + {
+        (torch.float32, torch.float32): "f32",
+        (torch.bfloat16, torch.bfloat16): "bf16",
+        (torch.int8, torch.float32): "q8",
+        (torch.int8, torch.bfloat16): "q8_bf16"}[w_dtype, io_dtype])
     if fn.argtypes is None:
+        q8 = w_dtype == torch.int8
         fn.argtypes = ([ctypes.c_void_p] * (14 if q8 else 13)
                        + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
@@ -137,6 +147,9 @@ def _entry(q8: bool = False):
 
 
 def _validate(w, b, x, c_traj, h_traj, dc, dh, scales=None) -> None:
+    """Shapes, dtypes and devices: (w, b, x) one of
+    ``lstm_seq.INSTANCES`` (int8 with float32 ``scales``), the cotangents
+    in x's dtype and the trajectories float32."""
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T = x.shape[0], x.shape[1]
@@ -154,15 +167,23 @@ def _validate(w, b, x, c_traj, h_traj, dc, dh, scales=None) -> None:
     if scales is not None and w.dtype != torch.int8:
         raise TypeError(f"the q8 backward takes an int8 stack; w is "
                         f"{w.dtype}")
-    floats = [("b", b), ("x", x), ("c_traj", c_traj), ("h_traj", h_traj),
-              ("dc", dc), ("dh", dh)] + (
-                  [("w", w)] if scales is None else [("scales", scales)])
-    for name, t in floats:
-        if t.dtype != torch.float32:
-            raise TypeError(f"lstm_seq_bwd takes float32 tensors; {name} is "
-                            f"{t.dtype}")
-    for name, t in floats + [("w", w)]:
-        if t.device != x.device:
+    if (w.dtype == torch.int8) != (scales is not None) \
+            or (scales is not None and scales.dtype != F32) \
+            or (w.dtype, b.dtype, x.dtype) not in seq_lib.INSTANCES:
+        raise TypeError(f"lstm_seq_bwd has no instance for w {w.dtype}, b "
+                        f"{b.dtype}, x {x.dtype}")
+    for name, t in (("c_traj", c_traj), ("h_traj", h_traj)):
+        if t.dtype != F32:
+            raise TypeError(f"lstm_seq_bwd takes float32 trajectories; "
+                            f"{name} is {t.dtype}")
+    for name, t in (("dc", dc), ("dh", dh)):
+        if t.dtype != x.dtype:
+            raise TypeError(f"lstm_seq_bwd takes cotangents in x's dtype "
+                            f"{x.dtype}; {name} is {t.dtype}")
+    for name, t in (("w", w), ("b", b), ("c_traj", c_traj),
+                    ("h_traj", h_traj), ("dc", dc), ("dh", dh),
+                    ("scales", scales)):
+        if t is not None and t.device != x.device:
             raise ValueError(f"lstm_seq_bwd: {name} is on {t.device}, x on "
                              f"{x.device}")
     if x.device.type not in ("cpu", "cuda"):
@@ -221,7 +242,7 @@ def _run(w, b, x, c_traj, h_traj, dc, dh, block_b: int,
     tc = T if time_chunk is None else max(1, min(time_chunk, T))
     smem = seq_lib.working_set_bytes(T, L, P, H, block_b, mode="bwd",
                                      time_chunk=None if tc == T else tc,
-                                     quantized=q8)
+                                     **seq_lib._bytes(w, x))
     if smem > factorization.H100_SMEM_PER_BLOCK:
         raise ValueError(f"lstm_seq_bwd: tile ({block_b}, {tc}) needs {smem} "
                          "bytes of shared memory, above a thread block's "
@@ -240,19 +261,21 @@ def _run(w, b, x, c_traj, h_traj, dc, dh, block_b: int,
     dc, dh = dc.contiguous(), dh.contiguous()
     scales = None if scales is None else scales.contiguous()
     n_tiles = -(-B // block_b)
-    dw = x.new_empty(w.shape)            # f32, for the int8 stack too
+    # dw in the stack's dtype, f32 for the int8 stack (the master's); db in
+    # the bias's, dx in x's
+    dw = x.new_empty(w.shape, dtype=F32 if q8 else w.dtype)
     db = torch.empty_like(b)
     dx = x.new_empty(B, T, P)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     # one tile writes dw and db itself; more sum per-tile partials, the
     # last tiles to finish found by the stream's tickets
     n_parts, n_tickets = close_workspace(n_tiles, w.numel() + b.numel())
-    partials = x.new_empty(n_parts)
+    partials = x.new_empty(n_parts, dtype=F32)
     ticket = _tickets(x.device, stream, n_tickets) if n_tickets else None
     # the register home's gate gradients of every step, summed into dW after
     # the sweep
-    dg_work = x.new_empty(B * L * T * 4 * H if reg else 0)
-    lib, fn = _entry(q8)
+    dg_work = x.new_empty(B * L * T * 4 * H if reg else 0, dtype=F32)
+    lib, fn = _entry(w.dtype, x.dtype)
     w_ptrs = (w.data_ptr(), scales.data_ptr()) if q8 else (w.data_ptr(),)
     err = fn(*w_ptrs, b.data_ptr(), x.data_ptr(), c_traj.data_ptr(),
              h_traj.data_ptr(), dc.data_ptr(), dh.data_ptr(), dw.data_ptr(),
@@ -273,7 +296,10 @@ def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-sequence BPTT in ONE kernel launch: (dw, db, dx).
 
-    Operands as ``lstm_seq_bwd_plain``, all float32.  ``block_b`` /
+    Operands as ``lstm_seq_bwd_plain``: (w, b, x) float32 or bfloat16
+    throughout, the cotangents in x's dtype, the trajectories float32;
+    dw, db and dx come back in w's, b's and x's dtypes, summed in f32.
+    ``block_b`` /
     ``time_chunk`` come from ``lstm_seq.choose_batch_block(mode="bwd")``:
     ``time_chunk=None`` holds x and both trajectories whole in shared
     memory, ``tc`` streams them in reverse chunks; the gradients are
@@ -285,6 +311,7 @@ def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     out = _run(w, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, None)
     if x.device.type == "cuda":
         lstm_seq_bwd.launches += 1
+        lstm_seq_bwd.bf16_launches += int(x.dtype == torch.bfloat16)
     return out
 
 
@@ -293,8 +320,9 @@ def lstm_seq_bwd_q8(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
                     h_traj: torch.Tensor, dc: torch.Tensor, dh: torch.Tensor,
                     *, block_b: int, time_chunk: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The int8 instance of the backward in ONE launch: (dw, db, dx), all
-    f32.  wq: (L, P+H, 4H) int8 codes the q8 forward ran with, scales:
+    """The int8 instance of the backward in ONE launch: (dw, db, dx), dw
+    and db f32, dx in x's dtype (float32 or bfloat16, the cotangents in
+    it too).  wq: (L, P+H, 4H) int8 codes the q8 forward ran with, scales:
     (L, 4H) f32, c_traj/h_traj its f32 trajectories; tiling from
     ``choose_batch_block(mode="bwd", quantized=True)``.  dw and db are the
     straight-through gradients of the dequantized stack, for the f32
@@ -302,10 +330,13 @@ def lstm_seq_bwd_q8(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
     out = _run(wq, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, scales)
     if x.device.type == "cuda":
         lstm_seq_bwd_q8.launches += 1
+        lstm_seq_bwd_q8.bf16_launches += int(x.dtype == torch.bfloat16)
     return out
 
 
-#: kernel launches since the last reset (CPU calls are not counted)
-lstm_seq_bwd.launches = 0
-#: q8 kernel launches since the last reset (CPU calls are not counted)
-lstm_seq_bwd_q8.launches = 0
+#: kernel launches since the last reset (CPU calls are not counted), and
+#: those of them on a bf16 input
+lstm_seq_bwd.launches = lstm_seq_bwd.bf16_launches = 0
+#: q8 kernel launches since the last reset (CPU calls are not counted), and
+#: those of them on a bf16 input
+lstm_seq_bwd_q8.launches = lstm_seq_bwd_q8.bf16_launches = 0

@@ -9,7 +9,9 @@ int8 with f32 per-column scales) it prints the per-request latency, host
 clock around a call that ends in ``torch.cuda.synchronize()``.  With
 ``--plan auto`` the Fig 7 scheduler calibrates every viable plan on one
 window (``core/lstm.plan_viability``: the f32 and int8 budget tables),
-chooses, and answers the requests through its choice.
+chooses, and answers the requests through its choice.  ``serve`` takes any
+``LSTMConfig``: a bf16 one serves its windows and weights in bf16, its
+budget table priced at 2 bytes an element.
 
   PYTHONPATH=src python -m repro_torch.launch.classify [--device cuda|cpu]
       [--requests N] [--plan auto|<name>] [--hidden H --layers L]
@@ -61,11 +63,18 @@ def serve(cfg: LSTMConfig, device: torch.device, *, requests: int = 32,
           plan: str = "auto", seed: int = 0) -> dict:
     """Answer ``requests`` single-window requests; returns the per-plan
     latency table (ms), the plan that answered (``served``), the chosen
-    plan under ``auto`` (else None) and the served logits (requests, C)."""
+    plan under ``auto`` (else None) and the served logits (requests, C).
+    The windows reach the plans in ``cfg.dtype``, the weights' dtype; the
+    scheduler's budget table is priced at that width."""
     if plan != "auto" and plan not in lstm.FORWARD_PLANS:
         raise ValueError(f"unknown plan {plan!r}")
+    dtype = getattr(torch, cfg.dtype)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+    print(f"config: {cfg.name} ({cfg.n_layers}L x {cfg.hidden}H, "
+          f"T={cfg.seq_len}, {cfg.input_dim} sensors, {cfg.dtype}) on {where}")
     _, test = har.make_har(n_train=1, n_test=requests, seed=seed)
-    windows = torch.tensor(test.x, device=device)
+    windows = torch.tensor(test.x, device=device).to(dtype)
     labels = torch.tensor(test.y, device=device, dtype=torch.long)
     model = lstm.LSTMClassifier(
         cfg, generator=torch.Generator().manual_seed(seed)).to(device)
@@ -81,8 +90,11 @@ def serve(cfg: LSTMConfig, device: torch.device, *, requests: int = 32,
                            "max_ms": max(times)}
         chosen = None
         if plan == "auto":
+            width = windows.element_size()
             sched = Scheduler(SyntheticLoadSensor(0.0),
-                              viable=lstm.plan_viability(cfg, 1, cfg.seq_len))
+                              viable=lstm.plan_viability(
+                                  cfg, 1, cfg.seq_len, dtype_bytes=width,
+                                  w_dtype_bytes=width))
             for name in names:
                 sched.register(Plan(name, lstm.FORWARD_PLANS[name]))
             sched.calibrate(params, windows[:1], cfg)
@@ -109,10 +121,6 @@ def main(argv: list[str] | None = None) -> dict:
 
     device = resolve_device(args.device)
     cfg = LSTMConfig().with_complexity(args.hidden, args.layers)
-    where = torch.cuda.get_device_name(device) if device.type == "cuda" \
-        else "cpu"
-    print(f"config: {cfg.name} ({cfg.n_layers}L x {cfg.hidden}H, "
-          f"T={cfg.seq_len}, {cfg.input_dim} sensors) on {where}")
     out = serve(cfg, device, requests=args.requests, plan=args.plan,
                 seed=args.seed)
     print(f"latency per single-window request over {args.requests} "

@@ -2,8 +2,9 @@
 where a launch of the RWKV6 chunked scans (K6 ``wkv6``, K6t ``wkv6_traj``,
 K6b ``wkv6_bwd``), the fused LSTM cell (K1 ``lstm_cell``), the decode
 attention (K9 ``decode_attn``), the Mamba selective scans (K7 and K7t under
-``mamba_scan``, and K7b too under ``mamba_scan_bwd``) or the stacked-LSTM
-backward (K3 and K3-q8 under ``lstm_seq_bwd``) spends its cycles.
+``mamba_scan``, and K7b too under ``mamba_scan_bwd``), the stacked-LSTM
+forward (K2 and K2t under ``lstm_seq``) or its backward (K3 and K3-q8 under
+``lstm_seq_bwd``) spends its cycles.
 
     PYTHONPATH=src python -m repro_torch.obs.stamps [--kernel wkv6]
         [--dtype float32] [--sass] [--no-stamps]
@@ -25,7 +26,11 @@ launch at the kernel's main-path shapes, random inputs from seed 0:
 - ``wkv6``: the RWKV6-3B training shape, 160 batch-head rows of 64 x 64
   heads, T = 512, C = 32; bf16 IO unless ``--dtype float32``;
 - ``lstm_cell``: the paper's cell, 2 x 32 at B = 1 (a served window) and
-  B = 64 (a training batch), and 2 x 64 at B = 1, f32;
+  B = 64 (a training batch), and 2 x 64 at B = 1, f32, and bf16 beside it
+  unless ``--dtype float32``;
+- ``lstm_seq``: the paper's 2 x 32 stack at T = 128, K2 at B = 1 and K2t
+  at B = 64 (each at its table's tiling), f32, and bf16 beside it unless
+  ``--dtype float32``, with bf16's 2 x 64 K2 at B = 1;
 - ``decode_attn``: Qwen2-0.5B's and Yi-9B's served decode step, B = 4 over
   517 cache slots at length 508; bf16 unless ``--dtype float32``;
 - ``mamba_scan``: the attention-free Jamba-1.5-Large scan at full width,
@@ -37,7 +42,8 @@ launch at the kernel's main-path shapes, random inputs from seed 0:
 - ``mamba_scan_bwd``: the same, then K7b at the training table's tiling;
   x and dy bf16 unless ``--dtype float32``;
 - ``lstm_seq_bwd``: the paper's 2 x 32 stack trained at batch 64, T = 128:
-  K3 (f32) and K3-q8 at the backward table's tiling.
+  K3 (f32) and K3-q8 at the backward table's tiling, and their bf16
+  instances beside them unless ``--dtype float32``.
 
 Printed per site: its line in the source, the nearest phase comment above
 it, the mean cycles a pass, the passes a block (over the blocks that reach
@@ -310,37 +316,90 @@ def wkv6_runs(dtype, rnd) -> dict:
                      "wkv6_bwd")}
 
 
+def _dtypes(dtype) -> tuple:
+    """f32, and ``dtype`` beside it when it is another."""
+    return (torch.float32,) if dtype == torch.float32 else (torch.float32,
+                                                            dtype)
+
+
 def lstm_cell_runs(dtype, rnd) -> dict:
-    """K1 at ``CELL_SHAPES``, each timed beside ``nn.LSTMCell`` with the
-    same weights (back to back and in a CUDA graph) and its bound."""
+    """K1 at ``CELL_SHAPES``, f32 and ``dtype``, each timed beside
+    ``nn.LSTMCell`` with the same weights in the same dtype (back to back
+    and in a CUDA graph) and its bound."""
     from repro_torch.kernels import lstm_cell as cell_k
     runs = {}
     for B, D, H in CELL_SHAPES:
-        w = rnd(D + H, 4 * H, scale=(D + H) ** -0.5)
-        b = rnd(4 * H, scale=0.1)
-        x, c, h = rnd(B, D), rnd(B, H), rnd(B, H)
-        lib = torch.nn.LSTMCell(D, H).cuda().requires_grad_(False)
-        lib.weight_ih.copy_(w[:D].T)
-        lib.weight_hh.copy_(w[D:].T)
-        lib.bias_ih.copy_(b)
-        lib.bias_hh.zero_()
+        ops32 = (rnd(D + H, 4 * H, scale=(D + H) ** -0.5),
+                 rnd(4 * H, scale=0.1), rnd(B, D), rnd(B, H), rnd(B, H))
+        for dt in _dtypes(dtype):
+            w, b, x, c, h = (t.to(dt) for t in ops32)
+            lib = torch.nn.LSTMCell(D, H).cuda().requires_grad_(False)
+            lib.weight_ih.copy_(w[:D].T)
+            lib.weight_hh.copy_(w[D:].T)
+            lib.bias_ih.copy_(b)
+            lib.bias_hh.zero_()
+            lib = lib.to(dt)
 
-        def kernel(w=w, b=b, x=x, c=c, h=h):
-            return cell_k.lstm_cell(w, b, x, c, h)
+            def kernel(w=w, b=b, x=x, c=c, h=h):
+                return cell_k.lstm_cell(w, b, x, c, h)
 
-        def library(lib=lib, x=x, c=c, h=h):
-            return lib(x, (h, c))
+            def library(lib=lib, x=x, c=c, h=h):
+                return lib(x, (h, c))
 
-        torch.testing.assert_close(library()[1], kernel()[0], rtol=2e-5,
-                                   atol=2e-5)
-        nbytes = 4 * (w.numel() + b.numel() + B * D + 4 * B * H)
-        print(f"[time] lstm_cell B={B} D={D} H={H} f32: kernel "
-              f"{event_ms(kernel, 200, 5):.4f} ms back to back, "
-              f"{graph_ms(kernel):.4f} ms in a CUDA graph; nn.LSTMCell "
-              f"{event_ms(library, 200, 5):.4f} ms, {graph_ms(library):.4f}"
-              f" ms in a graph; bound {nbytes / HBM_BYTES_PER_S * 1e3:.3e} "
-              "ms (bytes)")
-        runs[f"lstm_cell B={B} D={D} H={H}"] = (kernel, "lstm_cell")
+            want = cell_k.lstm_cell_plain(w, b, x, c, h)
+            torch.testing.assert_close(kernel()[0].float(), want[0].float(),
+                                       rtol=2e-5, atol=2e-5 if dt ==
+                                       torch.float32 else 2.0 ** -7)
+            name = str(dt).split(".")[1]
+            nbytes = w.element_size() * (w.numel() + b.numel() + B * D
+                                         + 4 * B * H)
+            print(f"[time] lstm_cell B={B} D={D} H={H} {name}: kernel "
+                  f"{event_ms(kernel, 200, 5):.4f} ms back to back, "
+                  f"{graph_ms(kernel):.4f} ms in a CUDA graph; nn.LSTMCell "
+                  f"{event_ms(library, 200, 5):.4f} ms, "
+                  f"{graph_ms(library):.4f} ms in a graph; bound "
+                  f"{nbytes / HBM_BYTES_PER_S * 1e3:.3e} ms (bytes)")
+            runs[f"lstm_cell B={B} D={D} H={H} {name}"] = (kernel,
+                                                           "lstm_cell")
+    return runs
+
+
+def lstm_seq_runs(dtype, rnd) -> dict:
+    """K2 at B = 1 and K2t at B = 64 (the paper's 2 x 32 stack, T = 128,
+    each at its table's tiling), f32 and ``dtype``, each held to its plain
+    version and timed back to back and in a CUDA graph; and bf16's 2 x 64
+    K2 at B = 1, which f32 cannot run in one block."""
+    from repro_torch.kernels import lstm_seq as seq_k
+    from repro_torch.kernels import ref
+    T_, L, H = 128, 2, 32
+    runs = {}
+    shapes = [(1, H, False), (64, H, True)]
+    if dtype != torch.float32:
+        shapes.append((1, 64, False))
+    for B, Hs, traj in shapes:
+        ops32 = (rnd(L, 2 * Hs, 4 * Hs, scale=(2 * Hs) ** -0.5),
+                 rnd(L, 4 * Hs, scale=0.1), rnd(B, T_, Hs))
+        for dt in _dtypes(dtype):
+            w, b, x = (t.to(dt) for t in ops32)
+            kw = seq_k._bytes(w, x)
+            mode = "bwd" if traj else "fwd"
+            tiles = seq_k.choose_batch_block(B, T_, L, Hs, Hs, mode=mode,
+                                             **kw)
+            if tiles is None:
+                continue
+            name = (f"lstm_seq{'_traj' if traj else ''} B={B} {L}x{Hs} "
+                    f"{str(dt).split('.')[1]} tiles {tuple(tiles)}")
+            got = seq_k._launch(w, b, x, tiles.block_b, tiles.time_chunk,
+                                traj)
+            want = ref.lstm_seq_traj(w, b, x)
+            for g, r in zip(got, want):
+                torch.testing.assert_close(
+                    g.float(), r.float(), rtol=2e-5,
+                    atol=2e-5 if g.dtype == torch.float32 else 2.0 ** -7)
+            fn = (lambda w=w, b=b, x=x, t=tiles, tr=traj: seq_k._launch(
+                w, b, x, t.block_b, t.time_chunk, tr))
+            timed(name, fn)
+            runs[name] = (fn, "lstm_seq")
     return runs
 
 
@@ -517,6 +576,18 @@ def lstm_bwd_runs(dtype, rnd) -> dict:
         "lstm_seq_bwd_q8 (K3-q8)": (
             lambda: bwd_k.lstm_seq_bwd_q8(wq, s, b, x, cq, hq, dc, dh,
                                           **qkw), "lstm_seq_bwd")}
+    if dtype != torch.float32:
+        # the bf16 instances on the same values rounded, at the same tiles
+        # (the register home's ring and wavefront do not depend on dtype)
+        w16, b16, x16, dc16, dh16 = (t.to(dtype) for t in (w, b, x, dc, dh))
+        _, _, c16, h16 = seq_k.lstm_seq_traj(w16, b16, x16, **kw)
+        _, _, cq16, hq16 = seq_k.lstm_seq_q8_traj(wq, s, b, x16, **qkw)
+        runs["lstm_seq_bwd (K3) bf16"] = (
+            lambda: bwd_k.lstm_seq_bwd(w16, b16, x16, c16, h16, dc16, dh16,
+                                       **kw), "lstm_seq_bwd")
+        runs["lstm_seq_bwd_q8 (K3-q8) bf16 x"] = (
+            lambda: bwd_k.lstm_seq_bwd_q8(wq, s, b, x16, cq16, hq16, dc16,
+                                          dh16, **qkw), "lstm_seq_bwd")
     for name, (fn, _) in runs.items():
         timed(name, fn)
     return runs
@@ -524,7 +595,8 @@ def lstm_bwd_runs(dtype, rnd) -> dict:
 
 KERNELS = {"wkv6": wkv6_runs, "lstm_cell": lstm_cell_runs,
            "decode_attn": decode_attn_runs, "mamba_scan": mamba_fwd_runs,
-           "mamba_scan_bwd": mamba_runs, "lstm_seq_bwd": lstm_bwd_runs}
+           "mamba_scan_bwd": mamba_runs, "lstm_seq": lstm_seq_runs,
+           "lstm_seq_bwd": lstm_bwd_runs}
 #: the sources each choice stamps (by default the choice's own)
 SOURCES = {"wkv6": ("wkv6", "wkv6_bwd"),
            "mamba_scan_bwd": ("mamba_scan", "mamba_scan_bwd")}
@@ -536,8 +608,8 @@ def main(argv=None) -> None:
     ap.add_argument("--dtype", default="bfloat16",
                     choices=("float32", "bfloat16"),
                     help="IO dtype of wkv6, decode_attn, mamba_scan and "
-                    "mamba_scan_bwd "
-                    "(lstm_cell is f32 only, lstm_seq_bwd runs f32 and q8)")
+                    "mamba_scan_bwd; the LSTM kernels run f32 and, for "
+                    "bfloat16, their bf16 instances beside it")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--no-stamps", action="store_true",
                     help="print the times alone")
@@ -547,8 +619,6 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     dtype = getattr(torch, args.dtype)
-    if args.kernel in ("lstm_cell", "lstm_seq_bwd"):
-        dtype = torch.float32
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)

@@ -51,6 +51,9 @@ struct float4 {
 struct uint4 {
   unsigned x, y, z, w;
 };
+struct uint2 {
+  unsigned x, y;
+};
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }

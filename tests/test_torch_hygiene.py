@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``src/repro_torch`` and no line of
-``chip_smoke.py`` imports jax, jaxlib or the JAX package ``repro``, and
+"""The port stands alone: no module of ``src/repro_torch``, no line of
+``chip_smoke.py`` and no ``examples/*_torch.py`` imports jax, jaxlib or the
+JAX package ``repro``, and
 every kernel is a CUDA source of the port built with a plain C interface."""
 import ast
 from pathlib import Path
@@ -11,7 +12,8 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -21,6 +21,7 @@ torch.set_num_threads(1)
 import cuda_mock  # noqa: E402
 
 from repro_torch.core import factorization, plans  # noqa: E402
+from repro_torch.kernels import lstm_cell as cell_k  # noqa: E402
 from repro_torch.kernels import lstm_seq as seq_k  # noqa: E402
 from repro_torch.kernels import lstm_seq_bwd as bwd_k  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
@@ -300,6 +301,301 @@ def test_k3_under_the_mock_matches_its_plain_version(case):
     for name, u, r in zip(("dw", "db", "dx"), runs[0], want):
         m = float(r.abs().max())
         assert float((u - r).abs().max()) <= 1e-4 * max(1.0, m), name
+
+
+BF16 = torch.bfloat16
+#: (stack, input) dtypes of each instance pair, by the C entry's suffix
+_PAIRS = {"f32": (torch.float32, torch.float32), "bf16": (BF16, BF16),
+          "q8": (torch.int8, torch.float32), "q8_bf16": (torch.int8, BF16)}
+
+
+def _lstm_inputs(B, T, L, H, P, seed, pad=0):
+    """f32 (w, b, x, dc, dh) for an LSTM stack, x strided when padded."""
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    return (rnd(L, P + H, 4 * H) * (P + H) ** -0.5, rnd(L, 4 * H) * 0.1,
+            rnd(B, T, P + pad)[:, :, :P], rnd(L, B, H), rnd(L, B, H))
+
+
+def _as_pair(pair, w, b, x, dc=None, dh=None):
+    """The operands of the ``pair`` instance from f32 ones: (w, scales, b,
+    x, dc, dh), the int8 stack quantized with its scales."""
+    wt, io = _PAIRS[pair]
+    cast = (lambda t: None if t is None else t.to(io))  # noqa: E731
+    if wt == torch.int8:
+        wq, s = ref.quantize_q8(w)
+        return wq, s, b, cast(x), cast(dc), cast(dh)
+    return w.to(wt), None, b.to(wt), cast(x), cast(dc), cast(dh)
+
+
+def _k2_call(lib, pair, w, s, b, x, block_b, tc, traj):
+    """One K2 (K2t with ``traj``) launch under the mock: (c, h) or (c, h,
+    c_traj, h_traj)."""
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    reg = seq_k.weight_home(L, P, H, block_b) == "registers"
+    smem = seq_k.working_set_bytes(T, L, P, H, block_b,
+                                   time_chunk=None if tc == T else tc,
+                                   **seq_k._bytes(w, x))
+    outs = [torch.full((L, B, H), float("nan")).to(x.dtype)
+            for _ in range(2)]
+    outs += [torch.full((T, L, B, H), float("nan")) for _ in range(2)] \
+        if traj else []
+    fn = getattr(lib, f"lstm_seq_fwd_{pair}")
+    ptrs = [w.data_ptr()] + ([s.data_ptr()] if s is not None else []) + [
+        b.data_ptr(), x.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+        outs[2].data_ptr() if traj else None,
+        outs[3].data_ptr() if traj else None]
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    err = fn(*ptrs, B, T, L, P, H, x.stride(0), x.stride(1), block_b, tc,
+             int(reg), seq_k.fwd_threads(L, H), smem, None)
+    assert err == 0
+    # a launch priced one byte off is refused
+    assert fn(*ptrs, B, T, L, P, H, x.stride(0), x.stride(1), block_b, tc,
+              int(reg), seq_k.fwd_threads(L, H), smem + 1, None) != 0
+    return tuple(outs)
+
+
+def _step(t: torch.Tensor) -> float:
+    """One bf16 step of the largest entry: 2^-7 x max|t|."""
+    return 2.0 ** -7 * float(t.float().abs().max())
+
+
+@pytest.mark.parametrize("case", [
+    # (B, T, L, H, P, block_b, time chunks, x padded by)
+    (2, 12, 2, 32, 32, 1, (12, 5), 0),
+    (3, 7, 2, 8, 9, 2, (7, 3), 0),
+    (5, 6, 3, 16, 16, 4, (6, 4), 3),
+], ids=["2x32-registers", "odd-P-tile2", "3x16-tile4-strided-x"])
+@pytest.mark.parametrize("pair", list(_PAIRS))
+def test_k2_and_k2t_under_the_mock_match_their_plain_versions(case, pair):
+    """K2 and K2t, every instance pair, both weight homes: against the plain
+    versions (f32 at 1e-5 of each output's largest entry; a bf16 (c, h)
+    within one bf16 step, 2^-7 x max|out|; the f32 trajectories at 2e-5);
+    bit-identical across time chunks, two runs and, at 2 x 32, the
+    register home (tile 1) and the shared one (tile 2); the trajectory
+    launch's final (c, h) the plain launch's; and a bf16 instance equal to
+    its f32 instance on the widened operands, bit for bit (the bf16
+    instance runs the f32 multiply-add chain; only (c, h) are rounded)."""
+    B, T, L, H, P, block_b, chunks, pad = case
+    w, b, x, _, _ = _lstm_inputs(B, T, L, H, P, seed=B * T + H, pad=pad)
+    wk, s, bk, xk, _, _ = _as_pair(pair, w, b, x)
+    lib = _lib("lstm_seq")
+    runs = [(_k2_call(lib, pair, wk, s, bk, xk, block_b, tc, False),
+             _k2_call(lib, pair, wk, s, bk, xk, block_b, tc, True))
+            for tc in chunks + chunks[:1]]
+    (c0, h0), traj0 = runs[0]
+    for plain, traj in runs[1:]:
+        assert all(torch.equal(u, v) for u, v in
+                   zip((*plain, *traj), (c0, h0, *traj0)))
+    assert torch.equal(traj0[0], c0) and torch.equal(traj0[1], h0)
+    if s is None:
+        want = ref.lstm_seq_traj(wk, bk, xk)
+    else:
+        want = seq_k.lstm_seq_q8_traj_plain(wk, s, bk, xk)
+    for u, r in zip(traj0[:2], want[:2]):
+        assert u.dtype == xk.dtype
+        limit = _step(r) if xk.dtype == BF16 else 1e-5 * max(
+            1.0, float(r.abs().max()))
+        assert float((u.float() - r.float()).abs().max()) <= limit
+    for u, r in zip(traj0[2:], want[2:]):
+        assert u.dtype == torch.float32
+        assert float((u - r).abs().max()) <= 2e-5
+    if H == 32 and P == 32:
+        shared = _k2_call(lib, pair, wk, s, bk, xk, 2, T, True)
+        assert all(torch.equal(u, v) for u, v in zip(shared, traj0))
+    if xk.dtype == BF16:
+        wide = "f32" if s is None else "q8"
+        f32 = _k2_call(lib, wide, wk if s is not None else wk.float(), s,
+                       bk.float(), xk.float(), block_b, T, True)
+        assert all(torch.equal(u, v.to(BF16))
+                   for u, v in zip(traj0[:2], f32[:2]))
+        assert all(torch.equal(u, v) for u, v in zip(traj0[2:], f32[2:]))
+
+
+def _k3_call(lib, pair, w, s, b, x, ct, ht, dc, dh, block_b, tc):
+    """One K3 launch of the ``pair`` instance under the mock: (dw, db, dx,
+    tickets)."""
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    q8 = s is not None
+    reg = seq_k.weight_home(L, P, H, block_b) == "registers"
+    smem = seq_k.working_set_bytes(T, L, P, H, block_b, mode="bwd",
+                                   time_chunk=None if tc == T else tc,
+                                   **seq_k._bytes(w, x))
+    parts = seq_k.gate_parts(H)
+    threads = L * seq_k.BWD_REG_THREADS if reg else \
+        factorization.round_up(parts * 4 * H, factorization.WARP)
+    n_tiles = -(-B // block_b)
+    n_parts, n_tickets = bwd_k.close_workspace(n_tiles,
+                                               w.numel() + b.numel())
+    dw = torch.full(w.shape, float("nan")).to(torch.float32 if q8
+                                              else w.dtype)
+    db = torch.full(b.shape, float("nan")).to(b.dtype)
+    dx = torch.full((B, T, P), float("nan")).to(x.dtype)
+    partials = torch.full((max(1, n_parts),), float("nan"))
+    tickets = torch.zeros(max(1, n_tickets), dtype=torch.int32)
+    dg_work = torch.full((B * L * T * 4 * H if reg else 1,), float("nan"))
+    fn = getattr(lib, f"lstm_seq_bwd_{pair}")
+    fn.argtypes = ([ctypes.c_void_p] * (14 if q8 else 13)
+                   + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p])
+    wp = (w.data_ptr(), s.data_ptr()) if q8 else (w.data_ptr(),)
+    err = fn(*wp, b.data_ptr(), x.data_ptr(), ct.data_ptr(), ht.data_ptr(),
+             dc.data_ptr(), dh.data_ptr(), dw.data_ptr(), db.data_ptr(),
+             dx.data_ptr(), partials.data_ptr(), tickets.data_ptr(),
+             dg_work.data_ptr(), B, T, L, P, H, x.stride(0), x.stride(1),
+             block_b, tc, int(reg), parts, bwd_k.dot_parts(P + H, threads),
+             threads, smem, None)
+    assert err == 0
+    return dw, db, dx, tickets
+
+
+@pytest.mark.parametrize("case", [
+    # (B, T, L, H, P, block_b, time chunks, instance pair)
+    (3, 12, 2, 32, 32, 1, (12, 5), "bf16"),
+    (2, 9, 1, 32, 32, 1, (9,), "bf16"),
+    (3, 10, 2, 32, 32, 1, (10, 3), "q8_bf16"),
+    (5, 9, 2, 16, 32, 2, (9, 4), "bf16"),
+    (5, 8, 2, 16, 32, 4, (8, 3), "q8_bf16"),
+    (20, 4, 2, 16, 16, 1, (4,), "bf16"),
+], ids=["2x32-wave", "1x32-wave", "q8-wave", "shared-tile2",
+        "q8-shared-tile4", "3-groups-shared"])
+def test_k3_bf16_under_the_mock_matches_its_plain_version(case):
+    """The bf16 instances of K3 (a bf16 stack, and the int8 stack over bf16
+    x), the register home's wavefront and the shared home, on the f32
+    trajectories of K2t's bf16 instance: against ``lstm_seq_bwd_plain``
+    within one bf16 step of each gradient's largest entry (2^-7 x max, a
+    bf16 gradient rounded once; an int8 stack's f32 dw and db at 1e-4);
+    bit-identical across time chunks and two runs, tickets back at 0; and
+    equal, bit for bit, to the f32 instance on the widened operands with
+    its bf16 outputs rounded once -- so the bf16 recompute is the f32
+    instance's, which runs lstm_gates.cuh's order as K2t does."""
+    B, T, L, H, P, block_b, chunks, pair = case
+    w, b, x, dc, dh = _lstm_inputs(B, T, L, H, P, seed=B * T + L * H)
+    wk, s, bk, xk, dck, dhk = _as_pair(pair, w, b, x, dc, dh)
+    lib = _lib("lstm_seq")
+    _, _, ct, ht = _k2_call(lib, pair, wk, s, bk, xk, block_b, T, True)
+    want = bwd_k.lstm_seq_bwd_plain(wk, bk, xk, ct, ht, dck, dhk, scales=s)
+    lib = _lib("lstm_seq_bwd")
+    runs = [_k3_call(lib, pair, wk, s, bk, xk, ct, ht, dck, dhk, block_b, tc)
+            for tc in chunks + chunks[:1]]
+    for run in runs:
+        assert int(run[3].abs().sum()) == 0
+        assert all(torch.equal(u, v) for u, v in zip(run[:3], runs[0][:3]))
+    for name, u, r in zip(("dw", "db", "dx"), runs[0], want):
+        assert u.dtype == r.dtype, name
+        limit = _step(r) if r.dtype == BF16 else 1e-4 * max(
+            1.0, float(r.abs().max()))
+        assert float((u.float() - r.float()).abs().max()) <= limit, name
+    wide = "f32" if s is None else "q8"
+    f32 = _k3_call(lib, wide, wk if s is not None else wk.float(), s,
+                   bk.float(), xk.float(), ct, ht, dck.float(), dhk.float(),
+                   block_b, T)
+    for name, u, v in zip(("dw", "db", "dx"), runs[0], f32):
+        assert torch.equal(u, v.to(u.dtype)), name
+
+
+@pytest.mark.parametrize("B,D,H", [(1, 9, 32), (5, 32, 20), (3, 64, 64)])
+def test_k1_bf16_under_the_mock_matches_its_plain_version(B, D, H):
+    """K1's bf16 instance at ``choose_blocks``'s tile (x a strided row, as
+    the plans pass it; H = 20 takes the unvectorised loads): (c', h') within
+    one bf16 step of the plain version, two runs bit-identical, and equal to
+    the f32 instance on the widened operands rounded once."""
+    g = torch.Generator().manual_seed(B + D + H)
+    rnd = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    w = (rnd(D + H, 4 * H) * (D + H) ** -0.5).to(BF16)
+    b = (rnd(4 * H) * 0.1).to(BF16)
+    x = rnd(B, 3, D).to(BF16)[:, 1]
+    c, h = rnd(B, H).to(BF16), rnd(B, H).to(BF16)
+    blocks = cell_k.choose_blocks(B, D, H)
+    lib = _lib("lstm_cell")
+
+    def call(suffix, *ops):
+        fn = getattr(lib, f"lstm_cell_{suffix}")
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+        wo, bo, xo, co, ho = ops
+        outs = [torch.full((B, H), float("nan")).to(co.dtype)
+                for _ in range(2)]
+        err = fn(*(t.data_ptr() for t in (wo, bo, xo, co, ho, *outs)), B, D,
+                 H, xo.stride(0), ho.stride(0), blocks.block_b,
+                 blocks.block_h, blocks.k_slices, blocks.smem, None)
+        assert err == 0
+        return outs
+
+    got = call("bf16", w, b, x, c, h)
+    assert all(torch.equal(u, v) for u, v in
+               zip(got, call("bf16", w, b, x, c, h)))
+    for u, r in zip(got, cell_k.lstm_cell_plain(w, b, x, c, h)):
+        assert u.dtype == r.dtype == BF16
+        assert float((u.float() - r.float()).abs().max()) <= _step(r)
+    f32 = call("f32", *(t.float() for t in (w, b, x, c, h)))
+    assert all(torch.equal(u, v.to(BF16)) for u, v in zip(got, f32))
+
+
+def _lstm_launch_shapes():
+    """(B, T, L, P, H) of the LSTM launches the tables price: the paper's
+    width served and trained, the Fig 5/6 widths, the family's cases, and
+    the batch and sequence lengths the tests and the chip run take."""
+    shapes = set()
+    for L, P, H in ((2, 32, 32), (1, 32, 32), (3, 32, 32), (2, 64, 64),
+                    (3, 64, 64), (2, 96, 96), (2, 48, 48), (2, 9, 8),
+                    (2, 48, 48), (3, 33, 33), (2, 40, 16), (2, 16, 16)):
+        for B in (1, 3, 37, 64, 1024):
+            for T in (1, 7, 50, 128, 300):
+                shapes.add((B, T, L, P, H))
+    return sorted(shapes)
+
+
+@pytest.mark.parametrize("pair", list(_PAIRS))
+def test_the_c_side_prices_every_lstm_launch_as_the_table_does(pair):
+    """``lstm_seq_fwd_smem_bytes`` and ``lstm_seq_bwd_smem_bytes`` (what
+    K2/K2t and the shared-home K3 refuse a launch against) equal
+    ``working_set_bytes`` at every tiling ``choose_batch_block`` picks for
+    the instance pair, forward and backward, and at every tile and time
+    chunk beside it; the register home's K3 (``lstm_seq_bwd_wave_smem_bytes``)
+    too."""
+    wt, io = _PAIRS[pair]
+    wb = {torch.float32: 4, BF16: 2, torch.int8: 1}[wt]
+    kw = dict(dtype_bytes=io.itemsize, w_dtype_bytes=None if wb == 1 else wb,
+              quantized=wb == 1)
+    fwd = _lib("lstm_seq").lstm_seq_fwd_smem_bytes
+    fwd.restype = ctypes.c_longlong
+    bwd_lib = _lib("lstm_seq_bwd")
+    bwd = bwd_lib.lstm_seq_bwd_smem_bytes
+    bwd.restype = ctypes.c_longlong
+    wave = bwd_lib.lstm_seq_bwd_wave_smem_bytes
+    wave.restype = ctypes.c_longlong
+    priced = 0
+    for B, T, L, P, H in _lstm_launch_shapes():
+        tilings = {(bm, tc) for bm in seq_k.TILE_ROWS
+                   for tc in (None, 1, 3, T // 2)
+                   if tc is None or 1 <= tc < T}
+        for mode in ("fwd", "bwd"):
+            got = seq_k.choose_batch_block(B, T, L, P, H, mode=mode, **kw)
+            if got is not None:
+                tilings.add(tuple(got))
+        for bm, tc in tilings:
+            reg = seq_k.weight_home(L, P, H, bm) == "registers"
+            for mode in ("fwd", "bwd"):
+                want = seq_k.working_set_bytes(T, L, P, H, bm, mode=mode,
+                                               time_chunk=tc, **kw)
+                if mode == "fwd":
+                    got = fwd(T, L, P, H, bm, tc or T, int(reg), wb,
+                              io.itemsize)
+                elif reg:
+                    got = wave(L, wb)
+                else:
+                    got = bwd(T, L, P, H, bm, tc or T, wb)
+                assert got == want, (pair, B, T, L, P, H, bm, tc, mode)
+                priced += 1
+    assert priced > 1000
 
 
 def _mamba_launch_shapes():

@@ -33,7 +33,7 @@ def test_the_lstm_family_has_the_jax_plans_in_order():
     assert list(FAMILY.plans) == list(JAX_FAMILY.plans) == \
         list(lstm.FORWARD_PLANS)
     assert FAMILY.oracle == JAX_FAMILY.oracle == "sequential"
-    assert FAMILY.dtypes == ("float32",)
+    assert FAMILY.dtypes == JAX_FAMILY.dtypes == ("float32", "bfloat16")
     for name, spec in FAMILY.plans.items():
         assert spec.name == name and spec.fn is lstm.FORWARD_PLANS[name]
 
@@ -63,15 +63,18 @@ def test_cases_are_the_jax_cases():
 
 
 def test_sweeps_are_the_jax_float32_sweeps():
+    """The lstm sweeps' ids and ``heavy`` flags are JAX's, both dtypes
+    (the bf16 rows included; the int8 plan's float32 only)."""
     def ids(sweep, family):
-        return [sc.id for sc in sweep if sc.family == family
-                and sc.dtype == "float32"]
+        return [(sc.id, sc.heavy) for sc in sweep if sc.family == family]
     assert ids(plans.value_sweep(), "lstm") == \
         ids(jax_plans.value_sweep(), "lstm")
     assert ids(plans.grad_sweep(), "lstm") == \
         ids(jax_plans.grad_sweep(), "lstm")
+    assert {sc.dtype for sc in plans.value_sweep()
+            if sc.family == "lstm"} == {"float32", "bfloat16"}
     assert all(sc.dtype == "float32" for sc in plans.value_sweep()
-               if sc.family == "lstm")
+               if sc.plan == "fused_seq_q8")
 
 
 def test_register_family_needs_its_oracle():
@@ -91,16 +94,17 @@ def test_scheduler_viability_binds_scheduler_names():
     assert viable("cpu_fallback")
 
 
-def _jax_inputs(case):
-    """The JAX family's inputs for ``case`` (f32) and the port's copy."""
-    jcfg, jparams, x, labels = JAX_FAMILY.make_inputs(case, "float32")
+def _jax_inputs(case, dtype: str = "float32"):
+    """The JAX family's inputs for ``case`` in ``dtype`` and the port's
+    copy (bf16 leaves carried bit for bit)."""
+    jcfg, jparams, x, labels = JAX_FAMILY.make_inputs(case, dtype)
     b, t, h, d, n_layers = case.shape
     cfg = dataclasses.replace(LSTMConfig(), hidden=h, input_dim=d,
-                              n_layers=n_layers, seq_len=t)
+                              n_layers=n_layers, seq_len=t, dtype=dtype)
     params = convert.params_from_numpy(
         jax.tree.map(np.asarray, split(jparams)[0]))
     return (jcfg, jparams, x, labels), (
-        cfg, params, torch.from_numpy(np.array(x)),
+        cfg, params, convert.params_from_numpy(np.asarray(x)),
         torch.from_numpy(np.array(labels)).long())
 
 
@@ -123,14 +127,17 @@ LSTM_GRAD_SWEEP = [sc for sc in plans.grad_sweep() if sc.family == "lstm"]
 @pytest.mark.parametrize("sc", LSTM_GRAD_SWEEP,
                          ids=[sc.id for sc in LSTM_GRAD_SWEEP])
 def test_port_plan_grads_match_jax_sequential_on_jax_cases(sc):
-    (jcfg, jparams, x, labels), (cfg, params, xt, yt) = _jax_inputs(sc.case)
+    (jcfg, jparams, x, labels), (cfg, params, xt, yt) = _jax_inputs(
+        sc.case, sc.dtype)
     want = jax.grad(jax_lstm.loss_fn)(jparams, x, labels, jcfg)
     got = FAMILY.grads(sc.plan, (cfg, params, xt, yt))
     tol = FAMILY.grad_tol(sc.plan, sc.dtype)
     for g, r in zip(jax.tree.leaves(convert.params_to_numpy(got)),
                     jax.tree.leaves(jax.tree.map(np.asarray,
                                                  split(want)[0]))):
-        np.testing.assert_allclose(g, r, **tol)
+        assert g.dtype == r.dtype
+        np.testing.assert_allclose(g.astype(np.float32),
+                                   r.astype(np.float32), **tol)
 
 
 @pytest.mark.parametrize("sc", plans.value_sweep(),

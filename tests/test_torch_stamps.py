@@ -54,7 +54,7 @@ def test_a_stamp_after_each_barrier_and_at_each_kernel_end(name):
 def test_every_kernel_the_tool_stamps_has_a_main_path_shape():
     assert set(stamps.KERNELS) == {"wkv6", "lstm_cell", "decode_attn",
                                    "mamba_scan", "mamba_scan_bwd",
-                                   "lstm_seq_bwd"}
+                                   "lstm_seq", "lstm_seq_bwd"}
     assert stamps.SOURCES["mamba_scan_bwd"] == ("mamba_scan",
                                                 "mamba_scan_bwd")
     # the forward's choice stamps its own source alone: no K7b build
