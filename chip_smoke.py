@@ -63,6 +63,17 @@ launch held against the plain version on its own inputs) and trained
 through ``repro_torch.launch.train.train`` (8 steps of batch 4 x 512, two
 K7t and one K7b a layer a step, step 1's K7b launches held against plain,
 the last two steps under torch.profiler).
+Beside each family's wave serve (phases R3, M4 and A4), on the parameters
+that phase drew, the slot engine (``serving.SlotEngine``, continuous
+batching, 4 slots of 517 positions, its decode tick captured in a CUDA
+graph) serves the same 8 requests: S1 Qwen2-0.5B, S2 RWKV6-3B and the
+Jamba stack, each with a replayed tick bit-equal to the eager tick on a
+clone of the same state, the graph-ticked tokens equal to the eager-ticked
+ones, no allocation across replayed ticks, every eager K8/K9 (K7) launch
+held against its plain version, chunked admission and the wave engine at
+batch 1 compared token by token up to the reference's first low top-2
+margin; S3 Qwen2's engine under a seeded FaultPlan; S4 the decode ms a
+tick eager against replayed beside the wave engine's, TTFT and TBT.
 It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work.
@@ -314,6 +325,9 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
 
     bf16, f32 = torch.bfloat16, torch.float32
     tol = plans.RWKV_TOL
+    # the plain versions a CUDA tensor must not reach on the main paths
+    plain_wkv = ((wkv6_k, "wkv6_plain"), (ref, "wkv6"),
+                 (ref, "wkv6_stepwise"), (rwkv, "wkv_chunked"))
 
     def inputs(BH, T, dk, dv, dtype, decay=1.0):
         return wkv_inputs(BH, T, dk, dv, dtype, gen, decay)
@@ -421,14 +435,16 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
           f"max abs err {e1:.3e} (RWKV_TOL f32); prefill + {K} decode steps "
           f"vs forward over {S + K}: {e2:.3e} ({CONSISTENCY_TOL}); 4 launches"
           " a forward or prefill, none in decode")
-    del p4, scan, xla, cache
+    del scan, xla, cache
+    admission_f32("R2", m4, p4, plain_wkv, counted, counts)
+    del p4
     torch.cuda.empty_cache()
 
     # --- R3. RWKV6-3B served at full width, bf16 ---------------------------
     cfg = get_arch("rwkv6-3b")
     t0 = time.perf_counter()
     engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=4,
-                                   max_seq=500 + 16 + 1)
+                                   max_seq=500 + 16 + 1, engine="wave")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
     print(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters in "
@@ -475,8 +491,7 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
     capacity = engine.pool.stats.capacity
     reset_counts(*counted)
     try:
-        with tripwires((wkv6_k, "wkv6_plain"), (ref, "wkv6"),
-                       (ref, "wkv6_stepwise"), (rwkv, "wkv_chunked")):
+        with tripwires(*plain_wkv):
             served = serve_lm.serve(engine, reqs)
     finally:
         wkv6_k.wkv6, steps_lib.decode_step = kernel, decode
@@ -554,6 +569,17 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
                   f"{w['prefill_ms']:.3f} ms, decode "
                   f"{w['decode_ms_per_token']:.3f} ms/token (host clock)")
     launches = got["wkv6"]
+    # --- S2. the slot engine on the same parameters -----------------------
+    def hold_wkv(args, kwargs, out):
+        """out at the bf16 tier, the f32 state at the f32 tier, as R3."""
+        want = wkv6_k.wkv6_plain(*args, chunk=kwargs["chunk"])
+        return max(close(out[0].float(), want[0].float(), "slot wkv6 out",
+                         tol["bfloat16"]),
+                   close(out[1], want[1], "slot wkv6 state", tol["float32"]))
+
+    slot_slice("S2", cfg, engine.params, counted, counts, only,
+               {"wkv6": (wkv6_k, "wkv6", hold_wkv)}, plain_wkv,
+               [w["decode_ms_per_token"] for w in served["waves"]])
     del engine
     torch.cuda.empty_cache()
 
@@ -1337,6 +1363,7 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
           f"{e2:.3e} ({CONSISTENCY_TOL}); {cfg.n_layers} launches a forward "
           f"or prefill, {cfg.n_layers} a decode step")
     del fused, plain_logits, cache
+    admission_f32("M3", m32, p32, plain_scans, counted, counts)
     leaves = tree_leaves(p32)
     for t in leaves:
         t.requires_grad_()
@@ -1383,7 +1410,7 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     # --- M4. the stack in bf16, served ------------------------------------
     t0 = time.perf_counter()
     engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=4,
-                                   max_seq=500 + 16 + 1)
+                                   max_seq=500 + 16 + 1, engine="wave")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
     print(f"[serve] {cfg.name} attention-free, {cfg.n_layers} layers: "
@@ -1462,6 +1489,18 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
               f"ms, decode {w['decode_ms_per_token']:.3f} ms/token (host "
               "clock)")
     serve_launches = got["mamba_scan"]
+
+    # --- S2. the slot engine on the same parameters -----------------------
+    def hold_scan(args, kwargs, out):
+        want = ms.mamba_scan_plain(*args, kwargs["chunk"])
+        return max(close(out[0], want[0], "slot mamba_scan y",
+                         tol["float32"]),
+                   close(out[1], want[1], "slot mamba_scan state",
+                         tol["float32"]))
+
+    slot_slice("S2", cfg, engine.params, counted, counts, only,
+               {"mamba_scan": (ms, "mamba_scan", hold_scan)}, plain_scans,
+               [w["decode_ms_per_token"] for w in served["waves"]])
     del engine, served, seen
     torch.cuda.empty_cache()
 
@@ -1993,7 +2032,9 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
           f"through K8/K9 vs blocked/einsum {e1d:.3e} (2e-4); vs the "
           f"forward over {S + K}: {e2:.3e} ({CONSISTENCY_TOL}); {L} K8 "
           f"launches a forward or prefill, {L} K9 a decode step")
-    del p32, full, outs, plain_full, plain_outs, model
+    del full, outs, plain_full, plain_outs
+    admission_f32("A3", model, p32, plain_attention, counted, counts)
+    del p32, model
     torch.cuda.empty_cache()
 
     # --- A4. Qwen2-0.5B and Yi-9B in bf16, served --------------------------
@@ -2004,7 +2045,7 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         cfg = get_arch(name)
         t0 = time.perf_counter()
         engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=4,
-                                       max_seq=500 + 16 + 1)
+                                       max_seq=500 + 16 + 1, engine="wave")
         torch.cuda.synchronize()
         n_params = sum(t.numel() for t in tree_leaves(engine.params))
         print(f"[serve] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
@@ -2141,6 +2182,33 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         print(f"[serve] {name}: a second serve of the same requests, "
               "nothing captured, launched as many kernels and gave the same "
               "tokens")
+        if name == "qwen2-0.5b":
+            # --- S1 and S3. the slot engine on the same parameters -------
+            def hold_fp(args, kwargs, out):
+                bl = fp.choose_blocks(args[0].shape[1], args[0].shape[3],
+                                      args[0].dtype)
+                want = fp.flash_prefill_plain(
+                    *args, window=kwargs.get("window", 0),
+                    q_block=bl.q_block, k_block=bl.k_block)
+                return close(out.float(), want.float(),
+                             "slot flash_prefill", tol[bf16])
+
+            def hold_da(args, kwargs, out):
+                B_, S_, Hkv_, dk_ = args[1].shape
+                bl = da.choose_blocks(S_, B_, Hkv_,
+                                      args[0].shape[1] // Hkv_, dk_,
+                                      args[0].dtype)
+                want = da.decode_attn_plain(*args, block_s=bl.block_s,
+                                            splits=bl.splits)
+                return close(out.float(), want.float(), "slot decode_attn",
+                             tol[bf16])
+
+            slot_slice("S1", cfg, engine.params, counted, counts, only,
+                       {"flash_prefill": (fp, "flash_prefill", hold_fp),
+                        "decode_attn": (da, "decode_attn", hold_da)},
+                       plain_attention,
+                       [w["decode_ms_per_token"] for w in timed["waves"]],
+                       chaos=True)
         del engine, served, timed, seen
         torch.cuda.empty_cache()
 
@@ -2256,6 +2324,591 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     return entries
 
 
+#: the bf16 tier of the attention kernels (K8, K9: 3e-2), the least the
+#: bf16 serving comparisons below stop at: greedy tokens of two runs whose
+#: sums run in another order are compared up to the first token whose
+#: top-2 logit margin in the reference is within this tolerance of its top
+#: logit, or within the family's plan spread (``plan_spread``, measured on
+#: the same prompts and independent of both runs; 32 random bf16 RWKV6
+#: layers spread two plans' logits by O(1), phase R3)
+MARGIN_TOL = dict(rtol=3e-2, atol=3e-2)
+#: the card's name and power limit, as nvidia-smi prints them (set by main)
+CARD = {"line": ""}
+#: the slot phases' prompt lengths (8 requests, 16 new tokens each), lanes
+#: and cache positions
+SLOT_LENS = (412, 300, 377, 500, 333, 468, 451, 389)
+N_SLOTS, SLOT_SEQ = 4, 500 + 16 + 1
+
+
+@contextlib.contextmanager
+def capturing(module, name: str, calls: list):
+    """Install a wrapper of the kernel ``module.name`` that keeps clones of
+    its inputs (caches and states are views that the model then
+    overwrites) and its output for the check against the plain version
+    afterwards.  The wrapper counts its launches through its module's
+    name, which is this function while it is installed: the counts are
+    carried across."""
+    kernel = getattr(module, name)
+    attrs = [a for a in ("launches", "tc_launches") if hasattr(kernel, a)]
+
+    def captured(*args, **kwargs):
+        for a in attrs:
+            setattr(captured, a, getattr(kernel, a))
+        out = kernel(*args, **kwargs)
+        for a in attrs:
+            setattr(kernel, a, getattr(captured, a))
+        calls.append(([x.clone() if isinstance(x, torch.Tensor) else x
+                       for x in args], kwargs, out))
+        return out
+
+    for a in attrs:
+        setattr(captured, a, getattr(kernel, a))
+    setattr(module, name, captured)
+    try:
+        yield
+    finally:
+        setattr(module, name, kernel)
+
+
+def held(calls: dict, launched: dict, holds: dict, what: str) -> str:
+    """Hold every captured launch (``calls``, by kernel) against its plain
+    version (``holds[name][2]``); each kernel's captured calls must number
+    its counted launches (``launched``).  Returns the errors measured, or
+    says that none of the kernels launched."""
+    out = []
+    for k, kcalls in calls.items():
+        check(len(kcalls) == launched.get(k, 0),
+              f"{what}: captured {len(kcalls)} {k} calls, counted "
+              f"{launched.get(k, 0)}")
+        if kcalls:
+            err = max(holds[k][2](*c) for c in kcalls)
+            out.append(f"{k}: each of {len(kcalls)} launches vs plain, max "
+                       f"abs err {err:.3e}")
+    return "; ".join(out) or f"none of {sorted(calls)} launched"
+
+
+def top2_margins(logits: torch.Tensor) -> list[tuple[float, float]]:
+    """(top logit, top-2 margin) of each row, on the host."""
+    v = logits.float().topk(2, dim=-1).values.cpu()
+    return [(float(a), float(a - b)) for a, b in v.reshape(-1, 2)]
+
+
+def agreed(ref_tokens, margins, other_tokens, tol: dict = MARGIN_TOL,
+           floor: float = 0.0) -> tuple[int, int]:
+    """(k, n): the reference's tokens up to the first one whose top-2
+    margin is within ``tol`` of its top logit or within ``floor`` (k of
+    them), and how many leading tokens of ``other_tokens`` equal the
+    reference's (n)."""
+    k = len(ref_tokens)
+    for j, (top, gap) in enumerate(margins):
+        if gap <= max(floor, tol["atol"] + tol["rtol"] * abs(top)):
+            k = j
+            break
+    n = 0
+    while n < len(ref_tokens) and n < len(other_tokens) \
+            and ref_tokens[n] == other_tokens[n]:
+        n += 1
+    return k, n
+
+
+def slot_requests(vocab: int) -> list:
+    """The slot phases' requests: ``SLOT_LENS`` prompts drawn from seed 0,
+    16 new tokens each."""
+    from repro_torch.serving import Request
+
+    prng = np.random.default_rng(0)
+    return [Request(i, prng.integers(0, vocab, (n,)).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate(SLOT_LENS)]
+
+
+def slot_engine(model, params, chunk: int | None = None, **kw):
+    """A SlotEngine of ``N_SLOTS`` lanes of ``SLOT_SEQ`` positions: whole-
+    prompt admission, or chunks of ``chunk`` through 2 prefill lanes."""
+    from repro_torch.serving import EngineConfig, SlotEngine
+
+    return SlotEngine(model, params, config=EngineConfig(
+        n_slots=N_SLOTS, max_seq=SLOT_SEQ, queue_capacity=8,
+        prefill_chunk_len=chunk, prefill_lanes=2, **kw))
+
+
+def tokens_ok(results, vocab: int, what: str) -> None:
+    from repro_torch.serving import FinishReason
+
+    check(all(r.tokens.shape == (16,) and int(r.tokens.min()) >= 0
+              and int(r.tokens.max()) < vocab
+              and r.finish_reason == FinishReason.LENGTH for r in results),
+          f"{what}: tokens outside [0, vocab), not 16 a request or not "
+          "finished by length")
+
+
+@contextlib.contextmanager
+def watching(eng, first: dict, margins: dict):
+    """While installed, record each request the slot engine ``eng``
+    admits: its first-token logits (``first[uid]``, f32 on the host: the
+    last row of its whole-prompt prefill or of its last chunk) and the
+    (top logit, top-2 margin) of each of its tokens (``margins[uid, j]``,
+    j = 0 from those logits, the others from the ticks)."""
+    from repro_torch import steps as steps_lib
+
+    mgr = eng.manager
+    tick = eng.ticks["decode/base"]
+    plan = eng.scheduler.plans["decode/base"]
+    prefill, admit, advance = eng._prefill, mgr.admit, eng._advance_lane
+    chunk_step = steps_lib.chunked_prefill_step
+    seen = {}
+
+    def w_prefill(p, c, b):
+        logits, c = prefill(p, c, b)
+        seen["logits"] = logits[0, -1].float().cpu()
+        return logits, c
+
+    def w_admit(index, req, *args, **kwargs):
+        if "logits" in seen:                   # whole-prompt admission
+            first[req.uid] = seen.pop("logits")
+        margins[req.uid, 0] = top2_margins(first[req.uid])[0]
+        return admit(index, req, *args, **kwargs)
+
+    def w_advance(lane, now):
+        seen["uid"] = lane.request.uid
+        return advance(lane, now)
+
+    def w_chunk(cfg_, p, c, b):
+        logits, c = chunk_step(cfg_, p, c, b)
+        first[seen["uid"]] = logits[0, -1].float().cpu()
+        return logits, c
+
+    def w_tick():
+        live = [s for s in mgr.slots if s.occupied and s.remaining > 0]
+        out = tick()
+        m = top2_margins(out[2])
+        for s in live:
+            margins[s.request.uid, len(s.tokens)] = m[s.index]
+        return out
+
+    eng._prefill, mgr.admit, eng._advance_lane = w_prefill, w_admit, w_advance
+    plan.fn, steps_lib.chunked_prefill_step = w_tick, w_chunk
+    try:
+        yield
+    finally:
+        eng._prefill, mgr.admit, eng._advance_lane = prefill, admit, advance
+        plan.fn, steps_lib.chunked_prefill_step = tick, chunk_step
+
+
+@contextlib.contextmanager
+def plain_plans():
+    """Every model family's plain plans in place of its kernels': blocked
+    attention and einsum decode, chunked_xla WKV6, the plain Mamba
+    scan."""
+    from repro_torch.models import attention, mamba, rwkv
+
+    old = (attention.PREFILL_PLAN, attention.DECODE_PLAN, rwkv.WKV_PLAN,
+           mamba.SCAN_PLAN)
+    attention.PREFILL_PLAN, attention.DECODE_PLAN = "blocked", "einsum"
+    rwkv.WKV_PLAN, mamba.SCAN_PLAN = "chunked_xla", "scan"
+    try:
+        yield
+    finally:
+        (attention.PREFILL_PLAN, attention.DECODE_PLAN, rwkv.WKV_PLAN,
+         mamba.SCAN_PLAN) = old
+
+
+def plan_spread(eng, reqs, first: dict) -> float:
+    """The family's plan spread: the largest difference between each
+    request's first-token logits from ``eng``'s whole-prompt admission
+    (``first``) and from the same B=1 prefill through the plain plans.
+    Measured on the prompts the slot phases compare, it is the spread one
+    change of summation order gives this model, and is independent of
+    chunked admission, of the decode ticks and of the wave engine."""
+    spread = 0.0
+    with torch.no_grad(), plain_plans():
+        for r in reqs:
+            cache = eng.model.init_cache(1, SLOT_SEQ, eng.device)
+            logits, _ = eng._prefill(eng.params, cache,
+                                     eng._prefill_batch(r.prompt[None]))
+            spread = max(spread, float((logits[0, -1].float().cpu()
+                                        - first[r.uid]).abs().max()))
+            del cache, logits
+    return spread
+
+
+def admission_f32(phase: str, model, params, arms, counted, counts) -> None:
+    """The slot engine's chunked admission (chunks of 128, 2 prefill lanes)
+    against its whole-prompt admission, on a phase's f32 model at full
+    width (``params``, already drawn), over the slot phases' 8 requests,
+    the plain versions in ``arms`` armed to raise.  In f32 two summation
+    orders agree to CONSISTENCY_TOL, the tolerance the phase holds
+    prefill + decode against the forward at: each request's first-token
+    logits are held at it, and its 16 greedy tokens must equal the whole-
+    prompt run's up to the first top-2 margin within it.  This is the
+    card's check of prefill_chunk, chunk_prefill_attention and the scans
+    resumed from carried state; in bf16 (phases S1, S2) random layers
+    spread two orders' logits too far for one."""
+    reqs = slot_requests(model.cfg.vocab)
+    runs = {}
+    for mode, chunk in (("whole", None), ("chunked", 128)):
+        eng = slot_engine(model, params, chunk)
+        first, margins = {}, {}
+        reset_counts(*counted)
+        with tripwires(*arms), watching(eng, first, margins):
+            results = eng.serve(reqs)
+        launched = {k: v for k, v in counts().items() if v}
+        tokens_ok(results, model.cfg.vocab,
+                  f"{phase} {model.cfg.name} f32 {mode} slot serve")
+        runs[mode] = (results, first, margins, launched)
+        del eng
+    (whole, f_w, m_w, n_w), (chunked, f_c, _, n_c) = (runs["whole"],
+                                                      runs["chunked"])
+    err = max(close(f_c[r.uid], f_w[r.uid],
+                    f"{phase} f32 first-token logits of request {r.uid}, "
+                    f"chunked vs whole-prompt admission", CONSISTENCY_TOL)
+              for r in reqs)
+    stops = []
+    for r, w, c in zip(reqs, whole, chunked):
+        k, n = agreed(w.tokens.tolist(), [m_w[r.uid, j] for j in range(16)],
+                      c.tokens.tolist(), CONSISTENCY_TOL)
+        check(n >= k, f"{phase} f32 chunked vs whole-prompt: request "
+              f"{r.uid} differs at token {n}, before the first margin "
+              f"within CONSISTENCY_TOL at {k}")
+        stops.append(f"{r.uid}:{k}/{n}")
+    print(f"[{phase}] {model.cfg.name} {model.cfg.n_layers} layers f32, slot "
+          f"engine ({N_SLOTS} x {SLOT_SEQ}): chunked admission (128 and "
+          f"powers of two, launches {n_c}) vs whole-prompt (launches {n_w}): "
+          f"first-token logits of the 8 requests max abs err {err:.3e} "
+          f"({CONSISTENCY_TOL}); tokens equal up to the whole-prompt run's "
+          f"first top-2 margin within it (uid:margin stop/first difference, "
+          f"16 = none) {' '.join(stops)}")
+
+
+def slot_slice(phase: str, cfg, params, counted, counts, only,
+               holds: dict, arms, wave_ms: list[float],
+               chaos: bool = False) -> dict:
+    """The slot engine on one family at full width in bf16 (phases S1 to
+    S4), over the parameters its slice already drew (``params``): the 8
+    requests of ``slot_requests``, ``N_SLOTS`` lanes of ``SLOT_SEQ``.
+
+    * the graph-ticked whole-prompt serve, counted (the launches its
+      capture recorded, i.e. per replayed tick, and the eager prefill
+      launches), the plain versions in ``arms`` armed to raise, every
+      eager launch of the kernels in ``holds`` ({name: (module, attr,
+      hold)}, ``hold(args, kwargs, out)`` returning the max abs error
+      against the plain version) captured and held; mid-serve, one
+      replayed tick with every lane active and one with a lane free, each
+      bit-equal to the same tick run eagerly from a clone of the same
+      state (logits, sampled, lane_ok, every cache leaf and pos; a free
+      lane's cache rows and pos as before the tick), then the state
+      restored;
+    * the same requests on the same engine with an eager tick installed
+      (tokens equal: same shapes, same kernels) and again graph-ticked,
+      each tick timed (host clock, synchronized before and after) and the
+      allocator's count read around every replay (it must not move);
+    * chunked admission (chunks of 128, 2 prefill lanes), its launches of
+      the kernels in ``holds`` captured and held, and the wave engine at
+      batch 1, compared with the whole-prompt tokens up to the
+      reference's first top-2 margin within MARGIN_TOL or within the
+      plan spread (``plan_spread``); the sharp check of chunked admission
+      is ``admission_f32``;
+    * with ``chaos``, a seeded FaultPlan (poisoned lanes through the
+      static poison buffer, a prefill fault, a slow burst, a flood,
+      retry_budget 1).
+    Returns the decode ms a tick eager and replayed."""
+    from repro_torch.models import registry
+    from repro_torch.obs.metrics import Metrics
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.serving import (FINISH_REASONS, Engine, EngineConfig,
+                                     FaultPlan, FinishReason)
+    from repro_torch.serving.tick import DecodeTick
+    from repro_torch import steps as steps_lib
+
+    model = registry.build(cfg)
+    reqs = slot_requests(cfg.vocab)
+    name = f"{phase} {cfg.name}"
+
+    def pools_ok(eng, what):
+        for pool in (eng.pool, eng._scratch_pool):
+            check(pool.stats.buffers_built == pool.stats.capacity,
+                  f"{name} {what}: a pool built {pool.stats.buffers_built} "
+                  f"buffers for capacity {pool.stats.capacity}")
+
+    # --- the graph-ticked whole-prompt serve, counted and checked ---------
+    reset_counts(*counted)
+    t0 = time.perf_counter()
+    eng = slot_engine(model, params)
+    build_s = time.perf_counter() - t0
+    built = counts()
+    tick = eng.ticks["decode/base"]
+    check(tick.graph is not None, f"{name}: no CUDA graph")
+    # the warmup tick and the capture each ran the wrappers once
+    check(built == only(**{k: 2 * v for k, v in
+                           tick.captured_launches.items()}),
+          f"{name}: the warmup and the capture launched {built}, the "
+          f"capture recorded {tick.captured_launches}")
+    mgr = eng.manager
+    calls = {k: [] for k in holds}
+
+    def replay_vs_eager(active: np.ndarray) -> dict:
+        """One replayed tick against the same tick run eagerly from a clone
+        of the same state, then the state put back in place; the free
+        lanes' cache rows and pos must be as before the tick."""
+        slots, pos = tree_leaves(mgr.cache["slots"]), mgr.cache["pos"]
+        free = [int(i) for i in np.flatnonzero(~active)]
+        kept = [t.select(1, i).clone() for t in slots for i in free] + \
+            [pos[i].clone() for i in free]
+        live = [*tree_leaves(mgr.cache), mgr.tokens, mgr.active, mgr.poison]
+        saved = [t.clone() for t in live]
+        c_cache = tree_map(lambda t: t.clone(), mgr.cache)
+        c_batch = {k: v.clone() for k, v in mgr.tick_batch().items()}
+        g_out = [t.clone() for t in tick()]
+        g_state = [t.clone() for t in live]
+        after = [t.select(1, i) for t in slots for i in free] + \
+            [pos[i] for i in free]
+        before = {k: len(v) for k, v in calls.items()}
+        e_out = DecodeTick(tick.fn, params, c_cache, c_batch, graph=False)()
+        res = {"lanes": int(active.sum()),
+               "eager_calls": {k: len(v) - before[k]
+                               for k, v in calls.items()},
+               "outputs": all(torch.equal(a, b)
+                              for a, b in zip(g_out, e_out)),
+               "state": all(torch.equal(a, b) for a, b in zip(
+                   g_state, [*tree_leaves(c_cache), *c_batch.values()])),
+               "free_kept": all(torch.equal(a, b)
+                                for a, b in zip(kept, after))}
+        for t, s in zip(live, saved):
+            t.copy_(s)
+        return res
+
+    first = {"whole": {}, "chunked": {}}       # first-token logits
+    margins = {"whole": {}, "chunked": {}}
+    equal = {}
+    reset_counts(*counted)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(tripwires(*arms))
+        for k, (mod, attr, _) in holds.items():
+            stack.enter_context(capturing(mod, attr, calls[k]))
+        stack.enter_context(watching(eng, first["whole"],
+                                     margins["whole"]))
+        for _ in eng.stream(reqs):
+            active = mgr.active_mask()
+            which = "all" if active.all() else "some"
+            if which in equal or not active.any() \
+                    or eng.metrics.counter("serving/ticks").value < 2:
+                continue
+            equal[which] = replay_vs_eager(active)
+    served = eng.take_finished()
+    whole = [served[r.uid] for r in reqs]
+    got = counts()
+    ticks_1 = eng.metrics.counter("serving/ticks").value
+    check(set(equal) == {"all", "some"} and all(
+        e["outputs"] and e["state"] and e["free_kept"]
+        for e in equal.values()),
+          f"{name}: a replayed tick differs from the eager tick on the same "
+          f"state, or a free lane moved: {equal}")
+    tokens_ok(whole, cfg.vocab, f"{name} whole-prompt serve")
+    pools_ok(eng, "whole-prompt serve")
+    mgr.check_resident()
+    eager_calls = {k: sum(e["eager_calls"].get(k, 0) for e in equal.values())
+                   for k in got}
+    ref_calls = {k: v for k, v in eager_calls.items() if v}
+    prefill_launches = {k: got[k] - eager_calls[k] for k in got if got[k]}
+    check(all(v > 0 for v in tick.captured_launches.values())
+          and any(v > 0 for v in prefill_launches.values()),
+          f"{name}: serve launched {got}")
+    whole_held = held(calls, got, holds, f"{name} whole-prompt serve")
+    del calls
+    replayed = {k: v * ticks_1 for k, v in tick.captured_launches.items()}
+    print(f"[{phase}] {cfg.name} slot engine ({N_SLOTS} slots x {SLOT_SEQ}, "
+          f"bf16), built and captured in {build_s:.1f} s: launches captured "
+          f"a tick {tick.captured_launches or 'none'} (counted at capture, "
+          f"not at replay: x {ticks_1} ticks = {replayed or 'none'} "
+          f"replayed), eager launches of the serve {prefill_launches}; a "
+          f"replayed tick with all {equal['all']['lanes']} lanes active and "
+          f"one with {equal['some']['lanes']} active each bit-equal to the "
+          f"eager tick from a clone of its state (logits, sampled, lane_ok, "
+          f"every cache leaf, pos and tokens), the free lanes' cache rows "
+          f"and pos unmoved; eager launches (the reference ticks' "
+          f"{ref_calls or 'none'} among them) held: {whole_held}; "
+          f"buffers_built and "
+          f"the scratch pool at capacity, no resident buffer rebound")
+    spread = plan_spread(eng, reqs, first["whole"])
+
+    # --- eager-ticked, then graph-ticked again, each tick timed -----------
+    pl = eng.scheduler.plans["decode/base"]
+
+    def timed_serve(tk, allocs=None):
+        ms_full = []
+
+        def timed_tick():
+            full = sum(s.occupied and s.remaining > 0
+                       for s in mgr.slots) == N_SLOTS
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+            t0_ = time.perf_counter()
+            out = tk()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0_
+            if allocs is not None:
+                allocs.append(torch.cuda.memory_stats()[
+                    "allocation.all.allocated"] - a0)
+            if full:
+                ms_full.append(dt * 1e3)
+            return out
+
+        pl.fn = timed_tick
+        try:
+            results = eng.serve(reqs)
+        finally:
+            pl.fn = tick
+        return results, ms_full
+
+    eager_tick = DecodeTick(tick.fn, params, mgr.cache, mgr.tick_batch(),
+                            graph=False)
+    eager, eager_ms = timed_serve(eager_tick)
+    del eager_tick
+    allocs = []
+    eng.metrics = Metrics()           # TTFT and TBT of this serve alone
+    n_decided = len(eng.scheduler.decisions)
+    again, graph_ms_ = timed_serve(tick, allocs)
+    check(all(np.array_equal(a.tokens, b.tokens) and
+              np.array_equal(a.tokens, c.tokens)
+              for a, b, c in zip(whole, eager, again)),
+          f"{name}: graph-ticked and eager-ticked tokens differ")
+    check(allocs and all(a == 0 for a in allocs),
+          f"{name}: allocations across replayed ticks {sorted(set(allocs))}")
+    pools_ok(eng, "second serve")
+    snap = eng.metrics.snapshot()
+    print(f"[{phase}] {cfg.name}: the eager-ticked serve's tokens equal the "
+          f"graph-ticked serves' (all 128); allocation.all.allocated "
+          f"unmoved across each of {len(allocs)} replayed ticks")
+
+    # --- chunked admission; the wave engine at batch 1 --------------------
+    ceng = slot_engine(model, params, 128)
+    calls = {k: [] for k in holds}
+    reset_counts(*counted)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(tripwires(*arms))
+        for k, (mod, attr, _) in holds.items():
+            stack.enter_context(capturing(mod, attr, calls[k]))
+        stack.enter_context(watching(ceng, first["chunked"],
+                                     margins["chunked"]))
+        chunked = ceng.serve(reqs)
+    c_got = {k: v for k, v in counts().items() if v}
+    tokens_ok(chunked, cfg.vocab, f"{name} chunked serve")
+    pools_ok(ceng, "chunked serve")
+    chunk_held = held(calls, c_got, holds, f"{name} chunked serve")
+    del calls
+    n_chunks = ceng.metrics.histogram("serving/prefill_chunk_s").count
+    del ceng
+    wave = Engine(model, params, config=EngineConfig(
+        n_slots=1, max_seq=SLOT_SEQ, pool_capacity=1))
+    w_margins: dict = {}
+    w_prefill, w_decode = wave._prefill, steps_lib.decode_step
+    order = iter(r.uid for r in reqs)
+    state = {"uid": None, "j": 0}
+
+    def w_watched_prefill(p, c, b):
+        logits, c = w_prefill(p, c, b)
+        state["uid"], state["j"] = next(order), 0
+        w_margins[state["uid"], 0] = top2_margins(logits[:, -1])[0]
+        return logits, c
+
+    def w_watched_decode(cfg_, p, c, b):
+        logits, c = w_decode(cfg_, p, c, b)
+        state["j"] += 1
+        w_margins[state["uid"], state["j"]] = top2_margins(logits)[0]
+        return logits, c
+
+    wave._prefill, steps_lib.decode_step = w_watched_prefill, \
+        w_watched_decode
+    try:
+        with tripwires(*arms):
+            waved = wave.serve(reqs)
+    finally:
+        steps_lib.decode_step = w_decode
+    del wave
+    d_first = max(float((first["chunked"][r.uid]
+                         - first["whole"][r.uid]).abs().max()) for r in reqs)
+    for what, ref_run, ref_m, other in (
+            ("chunked vs whole-prompt", whole, margins["whole"], chunked),
+            ("slot vs the wave engine at batch 1", waved, w_margins, whole)):
+        stops = []
+        for r, o in zip(ref_run, other):
+            k, n = agreed(r.tokens.tolist(),
+                          [ref_m[r.uid, j] for j in range(16)],
+                          o.tokens.tolist(), floor=spread)
+            check(n >= k, f"{name} {what}: request {r.uid} differs at token "
+                  f"{n}, before the reference's first low margin at {k}")
+            stops.append(f"{r.uid}:{k}/{n}")
+        print(f"[{phase}] {cfg.name} {what}: tokens equal up to the "
+              f"reference's first top-2 margin within max(MARGIN_TOL, the "
+              f"plan spread {spread:.3e}) (uid:margin stop/first difference, "
+              f"16 = none) {' '.join(stops)}")
+    print(f"[{phase}] {cfg.name} chunked admission: {n_chunks} chunks (128 "
+          f"and powers of two) launched {c_got}; held: {chunk_held}; first-"
+          f"token logits differ from whole-prompt admission's by up to "
+          f"{d_first:.3e} (printed, not held: in bf16 the plan spread, one "
+          f"change of summation order, is {spread:.3e}; the f32 check of "
+          f"the same admission is admission_f32)")
+
+    # --- S3. a seeded FaultPlan on this engine's shapes --------------------
+    if chaos:
+        plan_f = FaultPlan.seeded(0, n_slots=N_SLOTS, ticks=40,
+                                  uids=tuple(r.uid for r in reqs),
+                                  n_poison=2, n_prefill=1, n_slow_burst=1,
+                                  slow_extra_s=0.01, n_flood=1, flood_n=2)
+        feng = slot_engine(model, params, faults=plan_f, retry_budget=1)
+        for ev in feng.stream(reqs):
+            check(ev.finish_reason is None
+                  or ev.finish_reason in FINISH_REASONS,
+                  f"S3: event with reason {ev.finish_reason}")
+        done = feng.take_finished()
+        reasons = {}
+        for r, w in zip(reqs, whole):
+            res = done[r.uid]
+            check(res.finish_reason in FINISH_REASONS,
+                  f"S3: request {r.uid} ended {res.finish_reason}")
+            reasons[res.finish_reason] = reasons.get(res.finish_reason, 0) + 1
+            if res.finish_reason == FinishReason.LENGTH:
+                check(np.array_equal(res.tokens, w.tokens),
+                      f"S3: request {r.uid}'s tokens differ from the "
+                      "fault-free run's")
+        pools_ok(feng, "chaos serve")
+        check(not feng.manager.poison.any(), "S3: poison buffer left set")
+        m = feng.metrics.snapshot()["counters"]
+        kinds = sorted({type(f).__name__ for f in plan_f.faults})
+        print(f"[S3] {cfg.name} under FaultPlan.seeded(0) ({kinds}, "
+              f"retry_budget 1): reasons {reasons}, quarantined "
+              f"{m['serving/quarantined']}, retries {m['serving/retries']}, "
+              f"deadline_miss {m['serving/deadline_miss']}, "
+              f"{len(done) - len(reqs)} flood requests retired; every "
+              "'length' request's tokens equal the fault-free run's; "
+              "buffers_built at capacity; the poison buffer clear")
+        del feng
+
+    # --- S4. times -------------------------------------------------------
+    e_ms, g_ms = statistics.median(eager_ms), statistics.median(graph_ms_)
+    h = snap["histograms"]
+    decisions = {}
+    for d in list(eng.scheduler.decisions)[n_decided:]:
+        decisions[d.plan] = decisions.get(d.plan, 0) + 1
+    print(f"[S4] {cfg.name} decode, 4 slots all active: eager tick "
+          f"{e_ms:.3f} ms ({len(eager_ms)} ticks, min {min(eager_ms):.3f}), "
+          f"replayed CUDA graph {g_ms:.3f} ms ({len(graph_ms_)} ticks, min "
+          f"{min(graph_ms_):.3f}), {e_ms / g_ms:.1f}x; the wave engine (4 "
+          f"lanes, this run) "
+          f"{', '.join(f'{w:.3f}' for w in wave_ms)} ms/token; host clock "
+          f"around one tick, synchronized before and after; {CARD['line']}")
+    print(f"[S4] {cfg.name} graph-ticked serve: serving/ttft_s p50 "
+          f"{h['serving/ttft_s']['p50'] * 1e3:.3f} ms p99 "
+          f"{h['serving/ttft_s']['p99'] * 1e3:.3f} ms; serving/tbt_s p50 "
+          f"{h['serving/tbt_s']['p50'] * 1e3:.3f} ms p99 "
+          f"{h['serving/tbt_s']['p99'] * 1e3:.3f} ms (the timed serve; "
+          f"TTFT from admission to the first token on the host, as the JAX "
+          f"package measures it); "
+          f"scheduler decisions {decisions}")
+    del eng
+    torch.cuda.empty_cache()
+    return {"eager_ms": e_ms, "graph_ms": g_ms}
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     if not torch.cuda.is_available():
@@ -2322,6 +2975,7 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     card = smi.stdout.strip().splitlines()[0]
+    CARD["line"] = card
     clocks = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"],

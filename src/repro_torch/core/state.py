@@ -9,7 +9,11 @@ once: checkout never allocates, exhaustion raises (backpressure), and
 at ``capacity`` for the life of the pool.  The JAX package gets in-place
 updates by donating buffers to its jits; the port writes into the
 checked-out tensors directly (``copy_``, ``zero_``).  The lane-granular
-helpers (``lane_write``/``lane_zero``) come with the slot engine.
+helpers (``lane_write``/``lane_zero``) serve slot-resident continuous
+batching (serving/slots.py): one batch axis of a pooled buffer is B
+independent lanes, and admission writes, and retirement zeroes, JUST one
+lane of the preallocated tree in place (no fresh zero tensor, no whole-
+buffer copy).
 """
 from __future__ import annotations
 
@@ -74,3 +78,30 @@ class StatePool:
         self._free.append(buf)
         self.stats.resets += 1
         self.stats.outstanding -= 1
+
+
+# ---------------------------------------------------------------------------
+# Lane-granular state ops (slot-resident continuous batching)
+# ---------------------------------------------------------------------------
+def lane_write(tree: Any, lane: Any, index: int, axis: int) -> Any:
+    """Copy a width-1 ``lane`` slice into position ``index`` of ``axis`` on
+    every leaf of ``tree``, in place (``lane`` leaves carry the singleton
+    axis, e.g. a B=1 prefill cache written into lane i of a B-lane
+    buffer; a dtype differing from the target's is cast).  Returns
+    ``tree``, its tensors unchanged."""
+    big, small = tree_leaves(tree), tree_leaves(lane)
+    if len(big) != len(small):
+        raise ValueError(f"lane_write: {len(small)} lane leaves for "
+                         f"{len(big)} leaves")
+    for b, s in zip(big, small):
+        b.narrow(axis, index, 1).copy_(s)
+    return tree
+
+
+def lane_zero(tree: Any, index: int, axis: int) -> Any:
+    """Zero position ``index`` of ``axis`` on every leaf, in place (slot
+    retirement: the lane-granular ``StatePool.give_back``).  Returns
+    ``tree``, its tensors unchanged."""
+    for b in tree_leaves(tree):
+        b.narrow(axis, index, 1).zero_()
+    return tree

@@ -20,10 +20,13 @@ Two cache layouts, as in the JAX package:
 and, with ``cfg.kv_quant``, int8 values plus per-(token, kv-head) f32
 scales.  The port writes the cache in place (the JAX package returns new
 arrays and donates the old ones to its jits): a prefill writes the
-positions it covers, a decode step its slot, indexed by the device ``pos``
-tensor, so no step waits on the host.  Training through attention is not
-ported (``transformer.forward`` raises under autograd for a config with
-attention layers): K8 has no backward in the JAX package either.
+positions it covers, a prefill chunk (``chunk_prefill_attention``, the
+slot engine's chunked admission) its positions' slots, a decode step its
+slot, indexed by the device ``pos`` tensor, so no step waits on the host
+and a decode step can be captured in a CUDA graph (serving/tick.py).
+Training through attention is not ported (``transformer.forward`` raises
+under autograd for a config with attention layers): K8 has no backward in
+the JAX package either.
 """
 from __future__ import annotations
 
@@ -179,6 +182,85 @@ def prefill_cache(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
     return cache
 
 
+def chunk_prefill_attention(p: dict, x: torch.Tensor, cache: dict,
+                            cfg: ModelConfig, positions: torch.Tensor
+                            ) -> torch.Tensor:
+    """One fixed-shape prefill CHUNK against the decode cache (the JAX
+    model's ``chunk_prefill_attention``, computed with torch ops as JAX
+    computes it with jnp, outside any kernel).
+
+    x is a (B, L, d) slice of the prompt whose absolute positions are
+    ``positions`` (B, L): consecutive, continuing wherever the previous
+    chunk stopped.  The chunk's roped k and its v are written into the
+    cache slot in place at their position slots (ring slots ``pos % S_c``
+    for sliding-window layouts; int8 values and scales with
+    ``kv_quant``), and the chunk's queries attend the FULL cache under a
+    content-position mask, so chunk k sees every key chunks 0..k-1 wrote
+    plus its own causal prefix.  Token identity with whole-prompt prefill
+    holds as long as the ring never evicts a position a later query still
+    needs (for sliding-window layouts: while the prompt fits the ring);
+    the serving engine routes longer windowed prompts through the
+    whole-prompt path.  Returns the attention output (B, L, d)."""
+    B, L, _ = x.shape
+    q, k, v = _qkv(p, x)
+    q = common.apply_rope(q, positions, cfg.rope_theta)
+    k = common.apply_rope(k, positions, cfg.rope_theta)
+    s_c = cache["k"].shape[1]
+    w = cfg.sliding_window or 0
+    slots = ((positions % s_c) if w else positions).long()   # (B, L)
+    b_idx = torch.arange(B, device=x.device)[:, None]
+    writes = {"k": k, "v": v}
+    if cfg.kv_quant:
+        kq, ks = _quantize(k)
+        vq, vs = _quantize(v)
+        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    for name, val in writes.items():
+        cache[name][b_idx, slots] = val.to(cache[name].dtype)
+    k_cache, v_cache = cache["k"], cache["v"]
+
+    hkv = cfg.n_kv_heads
+    group = cfg.n_heads // hkv
+    dh = cfg.resolved_head_dim
+    q5 = q.reshape(B, L, hkv, group, dh)
+    q5 = q5.to(x.dtype if cfg.kv_quant else k_cache.dtype)
+    # bf16 products summed in f32, as preferred_element_type=f32 does
+    scores = torch.einsum("blkgd,bskd->bkgls", q5.to(F32),
+                          k_cache.to(q5.dtype).to(F32)) * dh ** -0.5
+    if cfg.kv_quant:
+        # per-(token, head) dequant scales fold into the scores, exactly
+        # as in decode_attention
+        scores = scores * cache["k_scale"].transpose(1, 2)[:, :, None, None]
+
+    # content-position mask: slot j holds the key of absolute position
+    # content_pos[j]; a query at qp may attend it iff 0 <= content_pos <=
+    # qp (and within the sliding window).  One formula covers the full
+    # layout and the ring, including the intra-chunk causal half.
+    idx = torch.arange(s_c, device=x.device)                 # (S_c,)
+    p_last = positions[:, -1][:, None]                       # (B, 1)
+    written = torch.remainder(p_last - idx[None], s_c) < L   # (B, S_c)
+    prev_last = p_last - L                       # end of chunks 0..k-1
+    content_pos = torch.where(
+        written, p_last - torch.remainder(p_last - idx[None], s_c),
+        prev_last - torch.remainder(prev_last - idx[None], s_c))
+    qp = positions[:, :, None]                               # (B, L, 1)
+    cp = content_pos[:, None, :]                             # (B, 1, S_c)
+    valid = (cp >= 0) & (cp <= qp)                           # (B, L, S_c)
+    if w:
+        valid &= (qp - cp) < w
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)                    # f32
+    if cfg.kv_quant:
+        probs = probs * cache["v_scale"].transpose(1, 2)[:, :, None, None]
+        out = torch.einsum("bkgls,bskd->blkgd", probs.to(x.dtype).to(F32),
+                           v_cache.to(x.dtype).to(F32))
+    else:
+        out = torch.einsum("bkgls,bskd->blkgd",
+                           probs.to(v_cache.dtype).to(F32),
+                           v_cache.to(F32))
+    out = out.reshape(B, L, cfg.n_heads, dh).to(x.dtype)
+    return torch.einsum("blhk,hkd->bld", out, p["wo"])
+
+
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
@@ -239,14 +321,18 @@ def _decode_einsum(q4: torch.Tensor, cache: dict, valid: torch.Tensor,
 
 
 def decode_attention(p: dict, x: torch.Tensor, cache: dict,
-                     pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                     pos: torch.Tensor, cfg: ModelConfig,
+                     active: torch.Tensor | None = None) -> torch.Tensor:
     """One-token cached attention.  x: (B, 1, d); cache slot arrays
     (B, S_c, Hkv, dh), written in place at each lane's slot; pos: the
     absolute position of this token, a 0-d tensor (the wave engine's
-    lockstep lanes) or one per lane (B,), on x's device.  A full,
-    unquantized cache runs ``DECODE_PLAN``, with ``lengths = pos + 1``
-    handed to K9 as a device tensor; ring and int8 caches run the grouped
-    contractions.  Returns (B, 1, d)."""
+    lockstep lanes) or one per lane (B,) (the slot engine's), on x's
+    device.  With ``active`` (B,) bool, a lane where it is False keeps its
+    cache bit for bit: the row at its slot is written back as it was
+    (``torch.where`` against the old row, no boolean indexing, so nothing
+    waits on the host).  A full, unquantized cache runs ``DECODE_PLAN``,
+    with ``lengths = pos + 1`` handed to K9 as a device tensor; ring and
+    int8 caches run the grouped contractions.  Returns (B, 1, d)."""
     B = x.shape[0]
     pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (B,))
     q, k, v = _qkv(p, x)                                  # (B, 1, h, dh)
@@ -262,7 +348,11 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
         vq, vs = _quantize(v)
         writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     for name, val in writes.items():
-        cache[name][rows, slot_b] = val[:, 0].to(cache[name].dtype)
+        new = val[:, 0].to(cache[name].dtype)
+        if active is not None:
+            keep = active.reshape((B,) + (1,) * (new.dim() - 1))
+            new = torch.where(keep, new, cache[name][rows, slot_b])
+        cache[name][rows, slot_b] = new
 
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     if DECODE_PLAN == "decode_attn" and not cfg.kv_quant and not w:

@@ -21,8 +21,10 @@ class Model:
         return transformer.init_params(self.cfg, gen, device)
 
     def init_cache(self, batch: int, max_seq: int,
-                   device: str | torch.device = "cpu") -> dict:
-        return transformer.init_cache(self.cfg, batch, max_seq, device)
+                   device: str | torch.device = "cpu", *,
+                   per_lane_pos: bool = False) -> dict:
+        return transformer.init_cache(self.cfg, batch, max_seq, device,
+                                      per_lane_pos=per_lane_pos)
 
     def forward(self, params, batch, remat: bool = False,
                 inference: bool = False):
@@ -31,6 +33,9 @@ class Model:
 
     def prefill(self, params, cache, batch):
         return transformer.prefill(params, self.cfg, cache, batch)
+
+    def prefill_chunk(self, params, cache, batch):
+        return transformer.prefill_chunk(params, self.cfg, cache, batch)
 
     def decode_step(self, params, cache, batch):
         return transformer.decode_step(params, self.cfg, cache, batch)

@@ -12,12 +12,17 @@ title.  As in JAX, the block parameters are a list over the period's slots
 whose leaves are stacked over layer groups (a leading layer axis); the
 layers run in a Python loop over the groups.
 
-Three entry points share the block code:
-  * forward      — full sequence from zero state (reference logits, and
-                   the training forward: differentiable, ``remat=``,
-                   except through attention, whose training is not ported)
-  * prefill      — full sequence, fills the decode cache IN PLACE
-  * decode_step  — one token against the preallocated cache, in place
+Four entry points share the block code:
+  * forward        — full sequence from zero state (reference logits, and
+                     the training forward: differentiable, ``remat=``,
+                     except through attention, whose training is not
+                     ported)
+  * prefill        — full sequence, fills the decode cache IN PLACE
+  * prefill_chunk  — one prompt segment continuing at ``cache['pos']``
+                     (the slot engine's chunked admission), in place
+  * decode_step    — one token against the preallocated cache, in place;
+                     with ``batch['active']`` an inactive lane's cache and
+                     ``pos`` stay bit for bit as they were
 
 ``forward`` carries each layer's recurrent states as values, as the JAX
 package's does: writing them into a scratch cache would modify tensors
@@ -27,9 +32,10 @@ an attention layer writes its k and v straight into its slot (positions
 [0, S) in a prefill, slot ``pos`` in a decode step), so a step never copies
 a whole KV cache.  The JAX package donates its caches to its jits for the
 same effect, so a serve never allocates a cache (core/state.StatePool).
-The sequence-parallel time-mix and ``prefill_chunk`` (chunked admission)
-wait for their slices (ROADMAP Queue 1, "Distributed, launch and
-checkpoint" and "The serving stack").
+``decode_step`` neither reads a device value on the host nor makes a
+tensor of data-dependent shape, so the slot engine captures it in a CUDA
+graph (serving/tick.py).  The sequence-parallel time-mix waits for its
+slice (ROADMAP Queue 1, "Distributed, launch and checkpoint").
 """
 from __future__ import annotations
 
@@ -176,8 +182,11 @@ def _zero_slot(cfg: ModelConfig, slot: int, batch: int, device) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: str | torch.device = "cpu") -> dict:
-    """Zero decode cache: ``pos`` (a 0-d int32 tensor) and per slot, for
+               device: str | torch.device = "cpu", *,
+               per_lane_pos: bool = False) -> dict:
+    """Zero decode cache: ``pos`` (a 0-d int32 tensor; with
+    ``per_lane_pos`` one per lane, (B,) int32, the form the slot engine's
+    continuous batching decodes with) and per slot, for
     attention, ``k``/``v`` (groups, B, S_c, Hkv, dh) in the model dtype
     with S_c = ``max_seq`` (the window, for a ring; int8 values and f32
     scales with ``kv_quant``: ``attention.init_cache_slot``); for rwkv6,
@@ -197,7 +206,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
         else:
             slots.append({k: v.expand(n, *v.shape).clone() for k, v in
                           _zero_slot(cfg, s, batch, device).items()})
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device),
+    pos_shape = (batch,) if per_lane_pos else ()
+    return {"pos": torch.zeros(pos_shape, dtype=torch.int32, device=device),
             "slots": slots}
 
 
@@ -217,18 +227,24 @@ def _apply_mlp_slot(slot_p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _apply_block(slot_p: dict, cfg: ModelConfig, slot: int,
                  x: torch.Tensor, cache_slot: dict, positions, pos,
-                 mode: str) -> tuple[torch.Tensor, dict]:
+                 mode: str, active: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, dict]:
     """One block (mix + mlp).  ``cache_slot`` has NO group dim.  mode:
-    'full' | 'prefill' | 'decode'; ``positions`` (B, S) are the sequence's
-    (full and prefill), ``pos`` the decode token's (a 0-d tensor).
-    Returns the new activations and the block's new recurrent states (new
-    tensors); an attention block writes its cache slot in place and
-    returns none."""
+    'full' | 'prefill' | 'prefill_chunk' | 'decode'; ``positions`` (B, S)
+    are the sequence's (full, prefill and a chunk's absolute ones),
+    ``pos`` the decode token's (a 0-d tensor, or (B,) per lane), and
+    ``active`` the decode's lane mask (or None).  Returns the new
+    activations and the block's new recurrent states (new tensors); an
+    attention block writes its cache slot in place and returns none."""
     h = common.apply_norm(slot_p["ln1"], x, cfg.norm)
     if cfg.layer_kind(slot) == "attn":
         if mode == "decode":
             out = attention.decode_attention(slot_p["mix"], h, cache_slot,
-                                             pos, cfg)
+                                             pos, cfg, active=active)
+        elif mode == "prefill_chunk":
+            out = attention.chunk_prefill_attention(slot_p["mix"], h,
+                                                    cache_slot, cfg,
+                                                    positions)
         else:
             out = attention.apply_attention(
                 slot_p["mix"], h, cfg, positions,
@@ -266,18 +282,23 @@ def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
 
 
 def _run_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
-               cache: dict, mode: str, positions=None, pos=None
-               ) -> torch.Tensor:
+               cache: dict, mode: str, positions=None, pos=None,
+               active: torch.Tensor | None = None) -> torch.Tensor:
     """All layers in order, each starting from its slice of the cache and
     copying its new recurrent states into it (an attention layer has
-    written its slot itself); prefill and decode, never under autograd."""
+    written its slot itself); prefill and decode, never under autograd.
+    With ``active`` (B,) bool, a lane where it is False gets its old
+    states copied back (``torch.where`` against the old row)."""
     for g in range(_n_groups(cfg)):
         for s in range(cfg.period):
             slot_p = _layer(params["blocks"][s], g)
             slot_c = _layer(cache["slots"][s], g)
             x, new = _apply_block(slot_p, cfg, s, x, slot_c, positions, pos,
-                                  mode)
+                                  mode, active)
             for name, state in new.items():
+                if active is not None:
+                    keep = active.reshape((-1,) + (1,) * (state.dim() - 1))
+                    state = torch.where(keep, state, slot_c[name])
                 slot_c[name].copy_(state)
     return common.apply_norm(params["final_norm"], x, cfg.norm)
 
@@ -333,11 +354,45 @@ def prefill(params: dict, cfg: ModelConfig, cache: dict, batch: dict
     return lm_logits(params, cfg, x[:, -1:]), cache
 
 
+def prefill_chunk(params: dict, cfg: ModelConfig, cache: dict,
+                  batch: dict) -> tuple[torch.Tensor, dict]:
+    """One prefill chunk, in place: a (B, L) prompt slice continuing at
+    absolute position ``cache['pos']`` (a 0-d device tensor, read on the
+    device: one code path serves every chunk of every prompt).
+
+    Attention writes the chunk's k/v into the cache and attends the full
+    cache under a content-position mask
+    (attention.chunk_prefill_attention); rwkv/mamba consume the cache as
+    their incoming recurrent state — for them a chunk is just a shorter
+    ``prefill`` starting from carried state, with positions ``pos +
+    arange(L)``.  Returns (logits of the chunk's LAST position (B,1,V)
+    f32, the same cache with ``pos += L``)."""
+    x = embed_inputs(params, cfg, batch)
+    B, L = x.shape[:2]
+    base = cache["pos"]
+    positions = base + torch.arange(L, device=x.device).expand(B, L)
+    x = _run_stack(params, cfg, x, cache, "prefill_chunk",
+                   positions=positions)
+    cache["pos"].add_(L)
+    return lm_logits(params, cfg, x[:, -1:]), cache
+
+
 def decode_step(params: dict, cfg: ModelConfig, cache: dict, batch: dict
                 ) -> tuple[torch.Tensor, dict]:
-    """One decode step, in place.  batch['tokens']: (B,).  Returns
-    (logits (B,V) f32, the same cache)."""
+    """One decode step, in place.  batch['tokens']: (B,).  ``cache['pos']``
+    is a 0-d tensor (the wave engine's lockstep lanes) or (B,) per lane
+    (the slot engine's).  With ``batch['active']`` (B,) bool (per-lane pos
+    only), a lane where it is False is a no-op: its recurrent states, its
+    attention rows and its ``pos`` stay bit for bit what they were, and
+    its logits are garbage the caller ignores.  Returns (logits (B,V)
+    f32, the same cache)."""
+    active = batch.get("active")
     x = embed_inputs(params, cfg, {"tokens": batch["tokens"][:, None]})
-    x = _run_stack(params, cfg, x, cache, "decode", pos=cache["pos"])
-    cache["pos"].add_(1)
+    x = _run_stack(params, cfg, x, cache, "decode", pos=cache["pos"],
+                   active=active)
+    if active is None:
+        cache["pos"].add_(1)
+    else:
+        cache["pos"].copy_(torch.where(active, cache["pos"] + 1,
+                                       cache["pos"]))
     return lm_logits(params, cfg, x)[:, 0], cache

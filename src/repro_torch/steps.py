@@ -2,10 +2,19 @@
 port's twin of the JAX package's ``steps.py``, for the dense attention,
 rwkv6 and mamba paths: a config with MoE layers, audio codebooks or vision
 tokens raises, as ``models/transformer`` does, and ``loss_fn`` raises for
-a config with attention layers, whose training is not ported).  All take the plain parameter and cache
-trees; the cache is updated in place, and ``train_step`` updates the
-parameters and the optimizer state in place (the JAX package donates them
-to its jits for the same effect)."""
+a config with attention layers, whose training is not ported).  All take
+the plain parameter and cache trees; the cache is updated in place, and
+``train_step`` updates the parameters and the optimizer state in place
+(the JAX package donates them to its jits for the same effect).
+
+The serving steps of the slot engine keep the JAX contract: after
+``masked_decode_step`` an inactive lane's cache and ``pos`` are bit for
+bit what they were.  Because the port writes in place (recurrent states
+by ``copy_``, attention rows at each lane's slot), the lane select runs
+inside ``transformer.decode_step``, on every in-place write, with
+``torch.where`` against the old row: no boolean indexing and no host
+read, so the whole guarded tick can be captured in a CUDA graph
+(serving/tick.py)."""
 from __future__ import annotations
 
 import torch
@@ -63,9 +72,68 @@ def prefill_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict
     return transformer.prefill(params, cfg, cache, batch)
 
 
+def chunked_prefill_step(cfg: ModelConfig, params: dict, cache: dict,
+                         batch: dict) -> tuple[torch.Tensor, dict]:
+    """One admission-prefill chunk (transformer.prefill_chunk):
+    ``batch['tokens']`` is a (B, L) prompt slice whose absolute start is
+    the device tensor ``cache['pos']``."""
+    return transformer.prefill_chunk(params, cfg, cache, batch)
+
+
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict
                 ) -> tuple[torch.Tensor, dict]:
     return transformer.decode_step(params, cfg, cache, batch)
+
+
+def masked_decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                       batch: dict, step_fn=None
+                       ) -> tuple[torch.Tensor, dict]:
+    """One fused decode tick across B slots honouring a per-slot active
+    mask.
+
+    ``batch['active']`` is a (B,) bool mask; ``cache['pos']`` must be the
+    per-lane (B,) vector form.  Inactive lanes (free slots, finished
+    requests) still ride through the fixed-shape computation — ONE step
+    per tick regardless of occupancy — but their cache rows and position
+    counters are written back unchanged, so a dead lane is a no-op and its
+    logits are garbage the caller must ignore.  ``step_fn`` (default
+    ``decode_step``) receives the batch WITH its ``active`` mask and must
+    honour it as ``transformer.decode_step`` does: in the port the select
+    guards the in-place writes themselves, so it cannot be applied to a
+    step's results afterwards.  Returns (logits, the same cache)."""
+    if batch["active"].shape != cache["pos"].shape:
+        raise ValueError(f"masked_decode_step takes the per-lane (B,) pos; "
+                         f"got pos {tuple(cache['pos'].shape)}, active "
+                         f"{tuple(batch['active'].shape)}")
+    step = step_fn or decode_step
+    return step(cfg, params, cache, batch)
+
+
+def guarded_decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                        batch: dict, step_fn=None
+                        ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """``masked_decode_step`` plus the per-lane finite guard — the serving
+    fault path's device half, inside the same tick (one extra reduction,
+    no extra launch of the model, no shape change, nothing read on the
+    host).
+
+    ``batch['poison']`` is an optional (B,) bool fault-injection hook
+    (serving/faults.FaultPlan): poisoned lanes' logits are overwritten with
+    NaN inside the tick, exercising exactly the guard a genuinely
+    non-finite lane would trip.  Returns ``(logits, lane_ok, cache)``
+    where ``lane_ok`` is (B,) bool — False iff an ACTIVE lane produced
+    non-finite logits this tick.  With an all-False poison mask the logits
+    are bit-identical to the unguarded tick."""
+    active = batch["active"]
+    poison = batch.get("poison")
+    logits, cache = masked_decode_step(
+        cfg, params, cache, {k: v for k, v in batch.items() if k != "poison"},
+        step_fn=step_fn)
+    if poison is not None:
+        m = poison.reshape((-1,) + (1,) * (logits.dim() - 1))
+        logits = torch.where(m, float("nan"), logits)
+    finite = torch.isfinite(logits).flatten(1).all(dim=1)
+    return logits, finite | ~active, cache
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:

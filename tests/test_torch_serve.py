@@ -3,7 +3,9 @@ package's wave ``Engine`` (greedy tokens identical for the same requests
 and transplanted params) on the reduced RWKV6-3B and on the reduced
 attention-free Jamba stack (Mamba layers, whose decode runs the scan at
 T = 1), the preallocated ``StatePool``, and the
-``repro_torch.launch.serve`` entry point."""
+``repro_torch.launch.serve`` entry point with both engines (the slot
+engine itself is held against the JAX package's in
+tests/test_torch_serving_slots.py)."""
 import dataclasses
 
 import numpy as np
@@ -203,7 +205,7 @@ def test_result_finish_reason_is_a_closed_set():
 def test_serve_entry_point_runs_on_the_cpu(capsys):
     out = serve.main(["--device", "cpu", "--reduced", "--requests", "3",
                       "--prompt-len", "9", "--max-new", "2",
-                      "--batch-size", "2"])
+                      "--batch-size", "2", "--engine", "wave"])
     assert len(out["results"]) == 3
     assert all(r.tokens.shape == (2,) for r in out["results"])
     assert len(out["waves"]) == 2
@@ -220,6 +222,23 @@ def test_serve_defaults_to_the_card_and_raises_without_one():
         serve.main(["--reduced", "--requests", "1"])
 
 
-def test_slot_engine_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="slot"):
-        serve.main(["--device", "cpu", "--reduced", "--engine", "slot"])
+def test_serve_entry_point_slot_engine_runs_on_the_cpu(capsys):
+    """``--engine slot`` (also the default) serves through the slot engine
+    with its scheduler reading ``--load``; the tick runs eagerly on the
+    CPU; greedy tokens equal the wave engine's."""
+    args = ["--device", "cpu", "--reduced", "--requests", "3",
+            "--prompt-len", "9", "--max-new", "3", "--batch-size", "2"]
+    out = serve.main(args + ["--engine", "slot", "--load", "0.5"])
+    default = serve.main(args)
+    wave = serve.main(args + ["--engine", "wave"])
+    assert "waves" not in out and "waves" not in default
+    for r, d, w in zip(out["results"], default["results"], wave["results"]):
+        assert r.finish_reason == FinishReason.LENGTH
+        np.testing.assert_array_equal(r.tokens, w.tokens)
+        np.testing.assert_array_equal(d.tokens, w.tokens)
+    assert out["pool"].buffers_built == out["pool"].capacity == 1
+    assert out["metrics"]["counters"]["serving/retired"] == 3
+    assert out["metrics"]["histograms"]["serving/ttft_s"]["count"] == 3
+    printed = capsys.readouterr().out
+    assert "arch=rwkv6-3b-reduced served=3 new_tokens=9" in printed
+    assert "serving/tbt_s: p50" in printed and "CUDA graph off" in printed
