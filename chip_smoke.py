@@ -74,6 +74,21 @@ held against its plain version, chunked admission and the wave engine at
 batch 1 compared token by token up to the reference's first low top-2
 margin; S3 Qwen2's engine under a seeded FaultPlan; S4 the decode ms a
 tick eager against replayed beside the wave engine's, TTFT and TBT.
+Then the MoE phases (``moe_slice``), each model freed before the next and
+each phase's peak memory printed: X1 OLMoE-1B-7B at full width, 2 of 16
+layers, in f32 (prefill plus 4 decode steps against
+``forward(inference=True)`` with one K8 and one K9 an attention layer,
+chunked against whole-prompt admission, ``moe.apply_moe`` on the card
+against the CPU with the same routing, drop-free and at capacity); X2
+OLMoE-1B-7B in bf16 at full width and depth (6.92 B parameters) and X3
+the Jamba hybrid cut to one period at 8 experts (25.9 B: attention, Mamba
+and MoE in one model, one cache and one captured tick), each served
+through ``launch/serve``'s wave engine and the slot engine as S1 to S4
+serve (every K7, K8 and K9 launch held against its plain version), with
+the MoE layers' share of the decode tick beside the weights' read, and
+for X3 the first-token logits of prefill plus decode against the forward
+beside the plan spread; X4 Qwen3-30B-A3B in bf16 at full width and depth
+(30.5 B) through the wave engine, one wave of 4.
 It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work.
@@ -91,6 +106,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -1146,9 +1162,7 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     cfg = dataclasses.replace(get_arch("jamba-1.5-large-398b"),
                               **jamba.ATTENTION_FREE, n_layers=2)
     di, ds = mamba.d_inner(cfg), cfg.ssm.d_state
-    plain_scans = ((ms, "mamba_scan_plain"), (ms, "mamba_scan_traj_plain"),
-                   (ms, "mamba_scan_bwd_plain"), (ms, "mamba_scan_ref"),
-                   (ms, "_chunk_math"))
+    plain_scans = plain_scan_arms()
     bf16_step = {"share": 0.0}
 
     def hold(got: torch.Tensor, want: torch.Tensor, what: str,
@@ -1491,15 +1505,8 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     serve_launches = got["mamba_scan"]
 
     # --- S2. the slot engine on the same parameters -----------------------
-    def hold_scan(args, kwargs, out):
-        want = ms.mamba_scan_plain(*args, kwargs["chunk"])
-        return max(close(out[0], want[0], "slot mamba_scan y",
-                         tol["float32"]),
-                   close(out[1], want[1], "slot mamba_scan state",
-                         tol["float32"]))
-
     slot_slice("S2", cfg, engine.params, counted, counts, only,
-               {"mamba_scan": (ms, "mamba_scan", hold_scan)}, plain_scans,
+               {"mamba_scan": kernel_holds()["mamba_scan"]}, plain_scans,
                [w["decode_ms_per_token"] for w in served["waves"]])
     del engine, served, seen
     torch.cuda.empty_cache()
@@ -1763,12 +1770,9 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import flash_prefill as fp
-    from repro_torch.kernels import ref
-    from repro_torch import steps as steps_lib
     from repro_torch.launch import serve as serve_lm
     from repro_torch.models import attention, registry
     from repro_torch.optim.adamw import tree_leaves
-    from repro_torch.serving import Request
 
     import torch.nn.functional as F
 
@@ -1785,10 +1789,7 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     #: one p moves o by up to 2^-8 |v| / l
     tc_tol = dict(rtol=2 ** -7, atol=2 ** -7)
     err_rp = 0.0
-    plain_attention = ((fp, "flash_prefill_plain"), (da, "decode_attn_plain"),
-                       (attention, "flash_attention"),
-                       (attention, "_decode_einsum"), (ref, "prefill_attn"),
-                       (ref, "decode_attn"))
+    plain_attention = plain_attention_arms()
     errs = {"flash_prefill": {f32: 0.0, bf16: 0.0},
             "decode_attn": {f32: 0.0, bf16: 0.0}}
 
@@ -2038,14 +2039,13 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     torch.cuda.empty_cache()
 
     # --- A4. Qwen2-0.5B and Yi-9B in bf16, served --------------------------
-    lens_req = [412, 300, 377, 500, 333, 468, 451, 389]  # wave maxima 500, 468
     served_launches = {"flash_prefill": 0, "decode_attn": 0}
-    served_err = {"flash_prefill": 0.0, "decode_attn": 0.0}
+    attn_holds = {k: kernel_holds()[k] for k in served_launches}
     for name in ("qwen2-0.5b", "yi-9b"):
         cfg = get_arch(name)
         t0 = time.perf_counter()
         engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=4,
-                                       max_seq=500 + 16 + 1, engine="wave")
+                                       max_seq=SLOT_SEQ, engine="wave")
         torch.cuda.synchronize()
         n_params = sum(t.numel() for t in tree_leaves(engine.params))
         print(f"[serve] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
@@ -2053,163 +2053,18 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
               f"{cfg.resolved_head_dim}, {n_params / 1e9:.3f} B parameters "
               f"in {cfg.dtype}, drawn from seed 0 on the card in "
               f"{time.perf_counter() - t0:.1f} s")
-        prng = np.random.default_rng(0)
-        reqs = [Request(i, prng.integers(0, cfg.vocab, (n,)).astype(np.int32),
-                        max_new_tokens=16) for i, n in enumerate(lens_req)]
-        seen = {"calls": {"flash_prefill": [], "decode_attn": []},
-                "prefill": [], "decode": [], "finite": True}
-        kernels = {"flash_prefill": fp.flash_prefill,
-                   "decode_attn": da.decode_attn}
-        prefill, decode = engine._prefill, steps_lib.decode_step
-
-        def watched_prefill(params, cache, batch):
-            before = kernels["flash_prefill"].launches
-            logits, cache = prefill(params, cache, batch)
-            seen["prefill"].append(kernels["flash_prefill"].launches - before)
-            seen["finite"] &= bool(torch.isfinite(logits).all())
-            return logits, cache
-
-        def watched_decode(cfg_, params, cache, batch):
-            before = kernels["decode_attn"].launches
-            logits, cache = decode(cfg_, params, cache, batch)
-            seen["decode"].append(kernels["decode_attn"].launches - before)
-            seen["finite"] &= bool(torch.isfinite(logits).all())
-            return logits, cache
-
-        def capture(kname):
-            """The kernel as the serve calls it, keeping clones of its
-            inputs (the caches are written after the call and zeroed
-            between waves) and its output for the check against the plain
-            version after the serve; the launch count is carried across,
-            as in the Mamba slice."""
-            kernel = kernels[kname]
-            attrs = [a for a in ("launches", "tc_launches")
-                     if hasattr(kernel, a)]
-
-            def captured(*args, **kwargs):
-                for a in attrs:
-                    setattr(captured, a, getattr(kernel, a))
-                out = kernel(*args, **kwargs)
-                for a in attrs:
-                    setattr(kernel, a, getattr(captured, a))
-                seen["calls"][kname].append(
-                    ([a.clone() for a in args], kwargs, out))
-                return out
-            for a in attrs:
-                setattr(captured, a, getattr(kernel, a))
-            return captured
-
-        engine._prefill, steps_lib.decode_step = watched_prefill, \
-            watched_decode
-        fp.flash_prefill = capture("flash_prefill")
-        da.decode_attn = capture("decode_attn")
-        reset_counts(*counted)
-        try:
-            with tripwires(*plain_attention):
-                served = serve_lm.serve(engine, reqs)
-        finally:
-            fp.flash_prefill = kernels["flash_prefill"]
-            da.decode_attn = kernels["decode_attn"]
-            steps_lib.decode_step = decode
-        got = counts()
-        n_tc = kernels["flash_prefill"].tc_launches
-        Lc = cfg.n_layers
-        check(got == only(flash_prefill=2 * Lc, decode_attn=2 * 16 * Lc)
-              and seen["prefill"] == [Lc] * 2
-              and seen["decode"] == [Lc] * 32
-              and n_tc == got["flash_prefill"],
-              f"{name} serve launched {got}, {n_tc} K8 on the tensor cores; "
-              f"per prefill {seen['prefill']}, per decode step "
-              f"{sorted(set(seen['decode']))}")
-        check(all(r.tokens.shape == (16,) and int(r.tokens.min()) >= 0
-                  and int(r.tokens.max()) < cfg.vocab
-                  for r in served["results"]),
-              f"{name}: served tokens outside [0, vocab) or not 16 a request")
-        check(seen["finite"], f"{name}: a served logit is not finite")
-        check(served["pool"].buffers_built == served["pool"].capacity,
-              f"{name}: the pool built {served['pool'].buffers_built} "
-              "buffers")
-        for kname, calls in seen["calls"].items():
-            check(len(calls) == got[kname],
-                  f"{name}: captured {len(calls)} {kname} calls")
-            for i, (args, kwargs, out) in enumerate(calls):
-                if kname == "flash_prefill":
-                    bl = fp.choose_blocks(args[0].shape[1], args[0].shape[3],
-                                          args[0].dtype)
-                    want = fp.flash_prefill_plain(
-                        *args, window=kwargs.get("window", 0),
-                        q_block=bl.q_block, k_block=bl.k_block)
-                else:
-                    B_, S_, Hkv_, dk_ = args[1].shape
-                    bl = da.choose_blocks(S_, B_, Hkv_,
-                                          args[0].shape[1] // Hkv_, dk_,
-                                          args[0].dtype)
-                    want = da.decode_attn_plain(*args, block_s=bl.block_s,
-                                                splits=bl.splits)
-                served_err[kname] = max(served_err[kname], close(
-                    out.float(), want.float(),
-                    f"{name} served {kname} call {i}", tol[bf16]))
-            served_launches[kname] += got[kname]
-        q0 = seen["calls"]["flash_prefill"][0][0][0]
-        k0 = seen["calls"]["decode_attn"][0][0][1]
-        print(f"[serve] {name}: {got['flash_prefill']} K8 launches "
-              f"({seen['prefill']} per prefill; {n_tc} on the tensor-core "
-              f"instance) and {got['decode_attn']} K9 "
-              f"({Lc} a decode step), no plain attention reached; every "
-              f"logit finite; buffers_built {served['pool'].buffers_built} "
-              f"= capacity; each launch (K8 at q {tuple(q0.shape)}, K9 over "
-              f"caches {tuple(k0.shape)}, {q0.dtype}) against its plain "
-              f"version on its own inputs: K8 max abs err "
-              f"{served_err['flash_prefill']:.3e}, K9 "
-              f"{served_err['decode_attn']:.3e} (bf16 3e-2)")
-        # the same requests again, nothing captured: the serve's times
-        reset_counts(*counted)
-        with tripwires(*plain_attention):
-            timed = serve_lm.serve(engine, reqs)
-        check(counts() == got and fp.flash_prefill.tc_launches == n_tc,
-              f"{name}: the second serve launched {counts()}, "
-              f"{fp.flash_prefill.tc_launches} K8 on the tensor cores")
-        check(all(np.array_equal(a.tokens, b.tokens) for a, b in zip(
-            timed["results"], served["results"])),
-              f"{name}: the second serve's tokens differ from the first's")
-        for i, (w, wc) in enumerate(zip(timed["waves"], served["waves"])):
-            print(f"[time] serve {name} wave {i}: prefill "
-                  f"{w['prefill_ms']:.3f} ms, decode "
-                  f"{w['decode_ms_per_token']:.3f} ms/token (host clock; "
-                  f"the first serve, launches captured: "
-                  f"{wc['prefill_ms']:.3f} and "
-                  f"{wc['decode_ms_per_token']:.3f})")
-        print(f"[serve] {name}: a second serve of the same requests, "
-              "nothing captured, launched as many kernels and gave the same "
-              "tokens")
+        waves, got = wave_serve("A4", engine, slot_requests(cfg.vocab),
+                                counted, counts, only, attn_holds,
+                                plain_attention)
+        for k in served_launches:
+            served_launches[k] += got[k]
         if name == "qwen2-0.5b":
             # --- S1 and S3. the slot engine on the same parameters -------
-            def hold_fp(args, kwargs, out):
-                bl = fp.choose_blocks(args[0].shape[1], args[0].shape[3],
-                                      args[0].dtype)
-                want = fp.flash_prefill_plain(
-                    *args, window=kwargs.get("window", 0),
-                    q_block=bl.q_block, k_block=bl.k_block)
-                return close(out.float(), want.float(),
-                             "slot flash_prefill", tol[bf16])
-
-            def hold_da(args, kwargs, out):
-                B_, S_, Hkv_, dk_ = args[1].shape
-                bl = da.choose_blocks(S_, B_, Hkv_,
-                                      args[0].shape[1] // Hkv_, dk_,
-                                      args[0].dtype)
-                want = da.decode_attn_plain(*args, block_s=bl.block_s,
-                                            splits=bl.splits)
-                return close(out.float(), want.float(), "slot decode_attn",
-                             tol[bf16])
-
             slot_slice("S1", cfg, engine.params, counted, counts, only,
-                       {"flash_prefill": (fp, "flash_prefill", hold_fp),
-                        "decode_attn": (da, "decode_attn", hold_da)},
-                       plain_attention,
-                       [w["decode_ms_per_token"] for w in timed["waves"]],
+                       attn_holds, plain_attention,
+                       [w["decode_ms_per_token"] for w in waves],
                        chaos=True)
-        del engine, served, timed, seen
+        del engine
         torch.cuda.empty_cache()
 
     # --- A5. the kernels' times at the served shapes ----------------------
@@ -2385,6 +2240,71 @@ def held(calls: dict, launched: dict, holds: dict, what: str) -> str:
             out.append(f"{k}: each of {len(kcalls)} launches vs plain, max "
                        f"abs err {err:.3e}")
     return "; ".join(out) or f"none of {sorted(calls)} launched"
+
+
+def plain_scan_arms() -> tuple:
+    """The Mamba scan's plain versions, for ``tripwires``: the plain K7,
+    K7t and K7b, JAX's reference scan and the chunk math they share."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    return ((ms, "mamba_scan_plain"), (ms, "mamba_scan_traj_plain"),
+            (ms, "mamba_scan_bwd_plain"), (ms, "mamba_scan_ref"),
+            (ms, "_chunk_math"))
+
+
+def plain_attention_arms() -> tuple:
+    """Attention's plain versions, for ``tripwires``: the plain K8 and K9,
+    the model's blocked and einsum plans and the oracles."""
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+
+    return ((fp, "flash_prefill_plain"), (da, "decode_attn_plain"),
+            (attention, "flash_attention"), (attention, "_decode_einsum"),
+            (ref, "prefill_attn"), (ref, "decode_attn"))
+
+
+def kernel_holds() -> dict:
+    """{kernel: (module, wrapper name, hold)} for the serving paths' kernels
+    K7, K8 and K9: ``hold(args, kwargs, out)`` holds one captured launch
+    against its plain version on the launch's own inputs (K8 and K9 at the
+    launch's tiles and the attention kernels' bf16 tier, 3e-2; K7's output
+    and state at MAMBA_TOL f32) and returns the max abs error."""
+    from repro_torch.core import plans
+    from repro_torch.kernels import decode_attn as da
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import mamba_scan as ms
+
+    attn_tol, scan_tol = MARGIN_TOL, plans.MAMBA_TOL["float32"]
+
+    def hold_fp(args, kwargs, out):
+        bl = fp.choose_blocks(args[0].shape[1], args[0].shape[3],
+                              args[0].dtype)
+        want = fp.flash_prefill_plain(*args, window=kwargs.get("window", 0),
+                                      q_block=bl.q_block, k_block=bl.k_block)
+        return close(out.float(), want.float(), "a flash_prefill launch",
+                     attn_tol)
+
+    def hold_da(args, kwargs, out):
+        B_, S_, Hkv_, dk_ = args[1].shape
+        bl = da.choose_blocks(S_, B_, Hkv_, args[0].shape[1] // Hkv_, dk_,
+                              args[0].dtype)
+        want = da.decode_attn_plain(*args, block_s=bl.block_s,
+                                    splits=bl.splits)
+        return close(out.float(), want.float(), "a decode_attn launch",
+                     attn_tol)
+
+    def hold_scan(args, kwargs, out):
+        want = ms.mamba_scan_plain(*args, kwargs["chunk"])
+        return max(close(out[0], want[0], "a mamba_scan launch's y",
+                         scan_tol),
+                   close(out[1], want[1], "a mamba_scan launch's state",
+                         scan_tol))
+
+    return {"flash_prefill": (fp, "flash_prefill", hold_fp),
+            "decode_attn": (da, "decode_attn", hold_da),
+            "mamba_scan": (ms, "mamba_scan", hold_scan)}
 
 
 def top2_margins(logits: torch.Tensor) -> list[tuple[float, float]]:
@@ -2610,7 +2530,8 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     * with ``chaos``, a seeded FaultPlan (poisoned lanes through the
       static poison buffer, a prefill fault, a slow burst, a flood,
       retry_budget 1).
-    Returns the decode ms a tick eager and replayed."""
+    Returns the decode ms a tick eager and replayed, and the plan
+    spread."""
     from repro_torch.models import registry
     from repro_torch.obs.metrics import Metrics
     from repro_torch.optim.adamw import tree_leaves, tree_map
@@ -2906,7 +2827,431 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
           f"scheduler decisions {decisions}")
     del eng
     torch.cuda.empty_cache()
-    return {"eager_ms": e_ms, "graph_ms": g_ms}
+    return {"eager_ms": e_ms, "graph_ms": g_ms, "spread": spread}
+
+
+#: the MoE phases: OLMoE-1B-7B's and the Jamba cut's serves take the slot
+#: phases' 8 requests; Qwen3-30B-A3B one wave of 4 requests of 128 to 256
+#: tokens, 8 new tokens each
+QWEN3_LENS, QWEN3_NEW = (201, 128, 256, 177), 8
+#: ``moe.apply_moe`` on the card against the same call on the CPU, both in
+#: f32 with TF32 off: two summation orders of the same products
+MOE_DEVICE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def free_models(what: str) -> None:
+    """Collect what the earlier phases dropped and give the cached blocks
+    back, then print what stays allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[{what}] earlier models freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+
+
+def peak_memory(phase: str) -> None:
+    print(f"[{phase}] peak memory (torch.cuda.max_memory_allocated) "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; {CARD['line']}")
+
+
+def kernel_counts(cfg) -> tuple[dict, dict]:
+    """(a prefill's launches, a decode step's): one K8 an attention layer
+    a prefill, one K9 an attention layer a decode step, one K7 a Mamba
+    layer in both."""
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    n_ssm = cfg.n_layers - n_attn
+    prefill = {"flash_prefill": n_attn, "mamba_scan": n_ssm}
+    step = {"decode_attn": n_attn, "mamba_scan": n_ssm}
+    return ({k: v for k, v in prefill.items() if v},
+            {k: v for k, v in step.items() if v})
+
+
+def wave_serve(phase: str, engine, reqs, counted, counts, only, holds: dict,
+               arms) -> tuple[list[dict], dict]:
+    """``reqs`` through ``launch/serve.serve`` on the wave engine
+    ``engine``, counted, the plain versions in ``arms`` armed to raise,
+    every launch of the kernels in ``holds`` captured and then held
+    against its plain version on its own inputs (``kernel_holds``): each
+    prefill and each decode step must launch ``kernel_counts``' kernels, a
+    bf16 model's K8 launches all on the tensor-core instance, every logit
+    finite, every token in the vocabulary, the pool at capacity.  Then
+    the same requests again, nothing captured: the same launches and
+    tokens.  Returns that serve's waves (prefill ms, decode ms/token, host
+    clock) and the launches counted."""
+    from repro_torch import steps as steps_lib
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.launch import serve as serve_lm
+
+    cfg = engine.cfg
+    name = f"{phase} {cfg.name}"
+    new = reqs[0].max_new_tokens
+    per_prefill, per_step = kernel_counts(cfg)
+    calls = {k: [] for k in holds}
+    seen = {"prefill": [], "decode": [], "finite": True}
+    prefill, decode = engine._prefill, steps_lib.decode_step
+
+    def launched(fn, *args):
+        before = counts()
+        logits, c = fn(*args)
+        after = counts()
+        seen["finite"] &= bool(torch.isfinite(logits).all())
+        return logits, c, {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
+
+    def watched_prefill(p, c, b):
+        logits, c, n = launched(prefill, p, c, b)
+        seen["prefill"].append(n)
+        return logits, c
+
+    def watched_decode(cfg_, p, c, b):
+        logits, c, n = launched(decode, cfg_, p, c, b)
+        seen["decode"].append(n)
+        return logits, c
+
+    reset_counts(*counted)
+    engine._prefill, steps_lib.decode_step = watched_prefill, watched_decode
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(tripwires(*arms))
+            for k, (mod, attr, _) in holds.items():
+                stack.enter_context(capturing(mod, attr, calls[k]))
+            served = serve_lm.serve(engine, reqs)
+    finally:
+        engine._prefill, steps_lib.decode_step = prefill, decode
+    got = counts()
+    n_waves = -(-len(reqs) // engine.batch_size)
+    n_tc = fp.flash_prefill.tc_launches
+    step_counts = sorted({tuple(sorted(d.items())) for d in seen["decode"]})
+    check(seen["prefill"] == [per_prefill] * n_waves
+          and seen["decode"] == [per_step] * (n_waves * new)
+          and got == only(**{k: n_waves * per_prefill.get(k, 0)
+                             + n_waves * new * per_step.get(k, 0)
+                             for k in {*per_prefill, *per_step}}),
+          f"{name} wave serve launched {got}; per prefill "
+          f"{seen['prefill']}, per decode step {step_counts}")
+    check(cfg.dtype != "bfloat16" or n_tc == got["flash_prefill"],
+          f"{name}: {n_tc} of {got['flash_prefill']} K8 launches on the "
+          "tensor-core instance")
+    check(all(r.tokens.shape == (new,) and int(r.tokens.min()) >= 0
+              and int(r.tokens.max()) < cfg.vocab
+              for r in served["results"]),
+          f"{name}: served tokens outside [0, vocab) or not {new} a request")
+    check(seen["finite"], f"{name}: a served logit is not finite")
+    check(served["pool"].buffers_built == served["pool"].capacity,
+          f"{name}: the pool built {served['pool'].buffers_built} buffers")
+    holds_said = held(calls, got, holds, f"{name} wave serve")
+    del calls
+    print(f"[{phase}] {cfg.name} wave engine through launch/serve "
+          f"({len(reqs)} requests, {new} new tokens, waves of "
+          f"{engine.batch_size}): launches "
+          f"{ {k: v for k, v in got.items() if v} }, {per_prefill} a prefill "
+          f"and {per_step} a decode step, {n_tc} "
+          f"K8 on the tensor-core instance; no plain version reached; every "
+          f"logit finite; buffers_built = capacity; {holds_said}")
+    reset_counts(*counted)
+    with tripwires(*arms):
+        timed = serve_lm.serve(engine, reqs)
+    check(counts() == got, f"{name}: the second serve launched {counts()}")
+    check(all(np.array_equal(a.tokens, b.tokens) for a, b in zip(
+        timed["results"], served["results"])),
+          f"{name}: the second serve's tokens differ from the first's")
+    for i, w in enumerate(timed["waves"]):
+        print(f"[time] {name} wave {i}: prefill {w['prefill_ms']:.3f} ms, "
+              f"decode {w['decode_ms_per_token']:.3f} ms/token (host clock; "
+              f"the captured serve's {served['waves'][i]['prefill_ms']:.3f} "
+              f"and {served['waves'][i]['decode_ms_per_token']:.3f}); "
+              f"{CARD['line']}")
+    return timed["waves"], got
+
+
+def weight_bytes(params: dict) -> int:
+    """The bytes a decode step reads of ``params``: every leaf but the
+    embedding table (of which it gathers a row a lane)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    return sum(t.numel() * t.element_size() for k, v in params.items()
+               if k != "embed" for t in tree_leaves(v))
+
+
+def moe_tick_share(phase: str, cfg, params, device, graph_tick_ms: float
+                   ) -> None:
+    """The MoE layers' share of a replayed decode tick of ``N_SLOTS``
+    lanes, two ways: one MoE layer's drop-free dispatch at T = N_SLOTS in
+    a CUDA graph (device time alone) times the MoE layers; and CUDA events
+    around every ``apply_moe`` of one eager decode step, each started
+    after a synchronize (its own work and its launch gaps).  Beside them
+    the replayed tick and the bound of reading every weight once, the
+    experts' and the rest's (under no_drop every expert's products run
+    over its C = T rows, so a step reads every expert)."""
+    from repro_torch.models import moe, registry
+
+    model = registry.build(cfg)
+    moe_slots = [s for s in range(cfg.period) if cfg.layer_is_moe(s)]
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    layer = {k: v[0] for k, v in params["blocks"][moe_slots[0]]["mlp"]
+             .items()}
+    gen = torch.Generator().manual_seed(26)
+    x = randn(N_SLOTS, cfg.d_model, gen=gen).to(getattr(torch, cfg.dtype))
+    one_ms = graph_ms(lambda: moe.apply_moe(layer, x, cfg, no_drop=True))
+    cache = model.init_cache(N_SLOTS, SLOT_SEQ, device, per_lane_pos=True)
+    batch = {"tokens": torch.zeros(N_SLOTS, dtype=torch.int32,
+                                   device=device),
+             "active": torch.ones(N_SLOTS, dtype=torch.bool, device=device)}
+    spans, inner = [], moe.apply_moe
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    steps_ms, moe_ms = [], []
+    moe.apply_moe = timed
+    try:
+        with torch.no_grad():
+            for _ in range(4):
+                spans.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.decode_step(params, cache, batch)
+                torch.cuda.synchronize()
+                steps_ms.append((time.perf_counter() - t0) * 1e3)
+                moe_ms.append(sum(s.elapsed_time(e) for s, e in spans))
+    finally:
+        moe.apply_moe = inner
+    check(len(spans) == n_moe, f"{phase}: {len(spans)} MoE layers timed, "
+          f"the config has {n_moe}")
+    expert = sum(t.numel() * t.element_size() for s in moe_slots
+                 for k, t in params["blocks"][s]["mlp"].items()
+                 if k != "router")
+    total = weight_bytes(params)
+    bound_ms = total / HBM_BYTES_PER_S * 1e3
+    e_moe, e_step = statistics.median(moe_ms[1:]), statistics.median(
+        steps_ms[1:])
+    print(f"[time] {phase} {cfg.name} MoE share of a decode tick of "
+          f"{N_SLOTS} lanes: one MoE layer (T={N_SLOTS}, drop-free, "
+          f"{cfg.moe.n_experts} experts) {one_ms:.4f} ms in a CUDA graph, "
+          f"x {n_moe} layers = {n_moe * one_ms:.3f} ms = "
+          f"{100 * n_moe * one_ms / graph_tick_ms:.1f}% of the replayed tick "
+          f"{graph_tick_ms:.3f} ms; eager decode step {e_step:.3f} ms (host "
+          f"clock, synchronized), of it {e_moe:.3f} ms "
+          f"({100 * e_moe / e_step:.1f}%) inside apply_moe (CUDA events, a "
+          f"synchronize before each); "
+          f"weights read a step {total / 1e9:.2f} GB ({expert / 1e9:.2f} GB "
+          f"of experts), bound {bound_ms:.3f} ms at 3.35 TB/s, replayed tick "
+          f"at {graph_tick_ms / bound_ms:.2f}x it; {CARD['line']}")
+    del cache
+
+
+def moe_f32_phase(device, counted, counts, only, arms) -> None:
+    """X1: OLMoE-1B-7B at full width, 2 of 16 layers, in f32: prefill + 4
+    decode steps against ``forward(inference=True)`` at CONSISTENCY_TOL
+    with one K8 an attention layer a prefill and one K9 a decode step;
+    chunked admission against whole-prompt (``admission_f32``);
+    ``moe.apply_moe`` on the card against the same call on the CPU (the
+    routing identical, the output and aux at MOE_DEVICE_TOL), drop-free
+    and at capacity factor 0.5, at T = 4 and 256: the cumsum, scatter and
+    gather on CUDA."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe, registry
+    from repro_torch.optim.adamw import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_arch("olmoe-1b-7b"), n_layers=2,
+                              dtype="float32")
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    L, B, S, K = cfg.n_layers, 2, 128, 4
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (B, S + K)).astype(np.int32)).to(device)
+    with torch.no_grad(), tripwires(*arms):
+        reset_counts(*counted)
+        full, aux = model.forward(params, {"tokens": toks}, inference=True)
+        n_fwd = counts()
+        cache = model.init_cache(B, S + K, device)
+        reset_counts(*counted)
+        logits, cache = model.prefill(params, cache, {"tokens": toks[:, :S]})
+        n_pre = counts()
+        err = close(logits[:, 0], full[:, S - 1], "X1 prefill vs forward",
+                    CONSISTENCY_TOL)
+        n_dec = []
+        for t in range(S, S + K):
+            reset_counts(*counted)
+            logits, cache = model.decode_step(params, cache,
+                                              {"tokens": toks[:, t]})
+            n_dec.append(counts())
+            err = max(err, close(logits, full[:, t],
+                                 f"X1 decode step at {t} vs forward",
+                                 CONSISTENCY_TOL))
+    check(n_fwd == only(flash_prefill=L) and n_pre == only(flash_prefill=L)
+          and all(n == only(decode_attn=L) for n in n_dec),
+          f"X1 launched forward {n_fwd}, prefill {n_pre}, decode {n_dec}")
+    check(float(aux["moe_drop_frac"]) == 0.0,
+          f"X1: drop-free forward dropped {float(aux['moe_drop_frac'])}")
+    print(f"[X1] {cfg.name} at full width, {L} of 16 layers, f32, "
+          f"{n_params / 1e9:.3f} B parameters: prefill {S} + {K} decode "
+          f"steps vs forward(inference=True) max abs err {err:.3e} "
+          f"({CONSISTENCY_TOL}); launches: forward {n_fwd['flash_prefill']} "
+          f"K8, prefill {n_pre['flash_prefill']} K8, each decode step "
+          f"{n_dec[0]['decode_attn']} K9 (one an attention layer); no plain "
+          f"attention reached; aux "
+          f"{ {k: round(float(v), 6) for k, v in aux.items()} }")
+    del full, cache, logits
+    admission_f32("X1", model, params, arms, counted, counts)
+
+    layer = {k: v[0] for k, v in params["blocks"][0]["mlp"].items()}
+    on_cpu = {k: v.cpu() for k, v in layer.items()}
+    gen = torch.Generator().manual_seed(261)
+    x = randn(256, cfg.d_model, gen=gen)
+    tight = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=0.5))
+    said = []
+    for label, c, no_drop in (("drop-free", cfg, True),
+                              ("capacity factor 0.5", tight, False)):
+        for T in (N_SLOTS, 256):
+            xs = x[:T]
+            out, aux_d = moe.apply_moe(layer, xs, c, no_drop=no_drop)
+            want, aux_h = moe.apply_moe(on_cpu, xs.cpu(), c, no_drop=no_drop)
+            e_d = moe.route(layer["router"], xs, c)[3].cpu()
+            e_h = moe.route(on_cpu["router"], xs.cpu(), c)[3]
+            check(torch.equal(e_d, e_h), f"X1 apply_moe {label} T={T}: "
+                  f"the card routes {int((e_d != e_h).any(1).sum())} tokens "
+                  "to other experts than the CPU")
+            e = close(out.cpu(), want, f"X1 apply_moe {label} T={T}",
+                      MOE_DEVICE_TOL)
+            for k in aux_h:
+                close(aux_d[k].cpu(), aux_h[k], f"X1 {label} T={T} {k}",
+                      MOE_DEVICE_TOL)
+            said.append(f"{label} T={T}: drop share "
+                        f"{float(aux_d['moe_drop_frac']):.4f}, out max abs "
+                        f"err {e:.3e}")
+    print(f"[X1] moe.apply_moe on the card vs on the CPU, layer 0 of the "
+          f"model above ({cfg.moe.n_experts} experts, top-{cfg.moe.top_k}): "
+          f"routing identical for every token, aux and outputs within "
+          f"{MOE_DEVICE_TOL}: {'; '.join(said)}")
+    del params, layer, on_cpu
+    peak_memory("X1")
+
+
+def moe_serve_phase(phase: str, cfg, device, counted, counts, only, arms,
+                    holds: dict, vs_forward: bool = False) -> None:
+    """X2 and X3: ``cfg`` at full width in bf16 through the wave engine
+    (``wave_serve``: the 8 requests of ``slot_requests``, every K7/K8/K9
+    launch held against plain) and the slot engine (``slot_slice``: whole
+    and chunked admission, a replayed tick bit-equal to the eager one
+    with all lanes active and with one free, allocations unmoved, the
+    seeded FaultPlan, every eager launch held), then the MoE layers' share
+    of the tick (``moe_tick_share``); with ``vs_forward`` the first-token
+    logits of prefill + 4 decode steps against ``forward(inference=True)``,
+    printed beside the plan spread."""
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    free_models(phase)
+    t0 = time.perf_counter()
+    engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=N_SLOTS,
+                                   max_seq=SLOT_SEQ, engine="wave")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    print(f"[{phase}] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} of {cfg.moe.d_ff}, {n_params / 1e9:.3f} B "
+          f"parameters in {cfg.dtype}, drawn from seed 0 on the card in "
+          f"{time.perf_counter() - t0:.1f} s; peak memory of the draw "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    waves, _ = wave_serve(phase, engine, slot_requests(cfg.vocab), counted,
+                          counts, only, holds, arms)
+    res = slot_slice(phase, cfg, engine.params, counted, counts, only, holds,
+                     arms, [w["decode_ms_per_token"] for w in waves],
+                     chaos=True)
+    moe_tick_share(phase, cfg, engine.params, device, res["graph_ms"])
+    if vs_forward:
+        from repro_torch.models import registry
+
+        model = registry.build(cfg)
+        S, K = 64, 4
+        toks = torch.from_numpy(np.random.default_rng(4).integers(
+            0, cfg.vocab, (2, S + K)).astype(np.int32)).to(device)
+        with torch.no_grad(), tripwires(*arms):
+            full, _ = model.forward(engine.params, {"tokens": toks},
+                                    inference=True)
+            cache = model.init_cache(2, S + K, device)
+            logits, cache = model.prefill(engine.params, cache,
+                                          {"tokens": toks[:, :S]})
+            diffs = [float((logits[:, 0] - full[:, S - 1]).abs().max())]
+            for t in range(S, S + K):
+                logits, cache = model.decode_step(engine.params, cache,
+                                                  {"tokens": toks[:, t]})
+                diffs.append(float((logits - full[:, t]).abs().max()))
+        print(f"[{phase}] {cfg.name} bf16, prefill {S} + {K} decode steps vs "
+              f"forward(inference=True), max abs diff of the logits at each "
+              f"position {', '.join(f'{d:.3e}' for d in diffs)} (printed, "
+              f"not held: bf16 over {cfg.n_layers} random layers; the plan "
+              f"spread of the slot phase, one change of summation order, is "
+              f"{res['spread']:.3e})")
+        del full, cache, logits
+    del engine
+    peak_memory(phase)
+
+
+def moe_slice(device, counted, counts, only) -> None:
+    """The MoE phases: X1 OLMoE-1B-7B in f32 at 2 layers
+    (``moe_f32_phase``); X2 OLMoE-1B-7B in bf16 at full width and depth and
+    X3 the Jamba hybrid cut to one period at 8 experts
+    (``jamba_1_5_large_398b.ONE_PERIOD_8_EXPERTS``: attention, Mamba and
+    MoE in one model, one cache and one captured tick) through both
+    engines (``moe_serve_phase``); X4 Qwen3-30B-A3B in bf16 at full width
+    and depth through the wave engine, one wave.  The plain attention and
+    scan versions are armed to raise throughout; each phase prints its
+    peak memory."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import jamba_1_5_large_398b as jamba
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serving import Request
+
+    arms = plain_attention_arms() + plain_scan_arms()
+    holds = kernel_holds()
+    attn = {k: holds[k] for k in ("flash_prefill", "decode_attn")}
+    free_models("X1")
+    moe_f32_phase(device, counted, counts, only, arms)
+    moe_serve_phase("X2", get_arch("olmoe-1b-7b"), device, counted, counts,
+                    only, arms, attn)
+    moe_serve_phase("X3", jamba.ONE_PERIOD_8_EXPERTS, device, counted,
+                    counts, only, arms, holds, vs_forward=True)
+
+    free_models("X4")
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    t0 = time.perf_counter()
+    engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=N_SLOTS,
+                                   max_seq=max(QWEN3_LENS) + QWEN3_NEW + 1,
+                                   engine="wave")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    print(f"[X4] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} of {cfg.moe.d_ff}, {n_params / 1e9:.3f} B "
+          f"parameters in {cfg.dtype}, drawn from seed 0 on the card in "
+          f"{time.perf_counter() - t0:.1f} s; peak memory of the draw "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    prng = np.random.default_rng(0)
+    reqs = [Request(i, prng.integers(0, cfg.vocab, (n,)).astype(np.int32),
+                    max_new_tokens=QWEN3_NEW)
+            for i, n in enumerate(QWEN3_LENS)]
+    wave_serve("X4", engine, reqs, counted, counts, only, attn, arms)
+    print(f"[time] X4 {cfg.name}: weights read a decode step "
+          f"{weight_bytes(engine.params) / 1e9:.2f} GB, bound "
+          f"{weight_bytes(engine.params) / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+          f"3.35 TB/s")
+    del engine
+    peak_memory("X4")
 
 
 def main() -> None:
@@ -4639,6 +4984,7 @@ def main() -> None:
     kernels += rwkv_train_slice(device, gen, counted, counts, only)
     kernels += mamba_slice(device, gen, counted, counts, only)
     kernels += attention_slice(device, gen, counted, counts, only)
+    moe_slice(device, counted, counts, only)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

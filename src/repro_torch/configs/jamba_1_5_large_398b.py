@@ -3,13 +3,19 @@
 
 Layer pattern (period 8): one attention layer per 8 (at period midpoint),
 seven Mamba layers; MoE MLP on every second layer (16 experts, top-2).
-The port runs its Mamba, attention and dense-MLP layers; the MoE layers
-come with the slice "MoE and the full Jamba hybrid" (ROADMAP Queue 1), so
-the configuration as it stands raises there.
+The port runs every layer kind of the period: Mamba, attention, the dense
+MLP and MoE.  Two cuts of it at Jamba's width, which the JAX package's
+config takes the same way:
 ``dataclasses.replace(CONFIG, **ATTENTION_FREE, n_layers=L)`` is the
-attention-free stack at Jamba's width that both packages run (the JAX
-package's config takes the same replacement).
+attention-free stack (Mamba + SwiGLU MLP in every layer), and
+``ONE_PERIOD_8_EXPERTS`` is the whole hybrid, one period of 8 layers with
+8 experts where the configuration has 16 (25.9 B parameters, 51.8 GB in
+bf16: one period at 16 experts is 45.2 B, over one 80 GB card).  Every
+matrix keeps its published shape; top-2 routing and the period's layer
+kinds stay.
 """
+import dataclasses
+
 from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
 
 CONFIG = ModelConfig(
@@ -35,3 +41,8 @@ CONFIG = ModelConfig(
 #: the fields that take attention and MoE out of the stack: every layer is
 #: then Mamba + SwiGLU MLP (``ModelConfig.attention_free``, period 1)
 ATTENTION_FREE = dict(n_heads=0, n_kv_heads=0, attn_every=0, moe=None)
+
+#: the whole hybrid cut to one card: one period (attention at slot 4, Mamba
+#: at the other seven, MoE on the odd slots) with 8 of the 16 experts
+ONE_PERIOD_8_EXPERTS = dataclasses.replace(
+    CONFIG, n_layers=8, moe=dataclasses.replace(CONFIG.moe, n_experts=8))

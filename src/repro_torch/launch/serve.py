@@ -14,7 +14,8 @@ TTFT and time-between-tokens p50/p99, ticks and plan decisions (host
 clock, ending in a read of the result on the card).
 
   PYTHONPATH=src python -m repro_torch.launch.serve [--arch rwkv6-3b |
-      qwen2-0.5b | yi-9b | stablelm-12b | command-r-35b] [--reduced]
+      qwen2-0.5b | yi-9b | stablelm-12b | command-r-35b | olmoe-1b-7b |
+      qwen3-moe-30b-a3b | jamba-1.5-large-398b] [--reduced]
       [--device cuda|cpu] [--engine slot|wave] [--load L] [--requests N]
       [--prompt-len S] [--max-new K] [--batch-size B]
 
@@ -23,7 +24,8 @@ running on the CPU.  On the card every prefill's RWKV6 time-mix runs the
 K6 kernel (``models/rwkv.WKV_PLAN``); for a dense model every prefill's
 attention runs the K8 kernel and every decode step's the K9 kernel
 (``models/attention.PREFILL_PLAN`` and ``DECODE_PLAN``), one launch a
-layer each; a Mamba layer runs K7 in both.  In the slot engine's captured
+layer each; a Mamba layer runs K7 in both; an MoE layer dispatches
+drop-free with torch ops (``models/moe.py``).  In the slot engine's captured
 tick the kernels launch at every replay while their wrappers count only
 the capture (serving/tick.py).
 """

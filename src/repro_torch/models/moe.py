@@ -1,0 +1,145 @@
+"""Top-k mixture-of-experts with capacity-based dense dispatch (the port's
+twin of the JAX package's ``models/moe.py``, its single-device path).
+
+Dispatch, as the JAX package's ``_apply_moe_dense`` does it, with fixed
+shapes only:
+  1. router: softmax(x @ Wr) -> top-k (expert ids, weights) per token,
+     renormalised
+  2. position-in-expert by a cumsum of one-hot rows over the flattened
+     token-major (T*K,) slots
+  3. scatter token vectors into a zeroed (E+1, C, d) buffer; row E is the
+     drop bin (C = capacity; slots past it are dropped, the GShard rule)
+  4. batched expert products (E, C, d) x (E, d, ff) (``torch.bmm``: plain
+     large products, which the JAX package leaves to XLA outside Pallas)
+  5. gather each slot's row back by index and combine with its weight
+
+No step reads a device value on the host or makes a tensor whose shape
+depends on the data (no ``nonzero``, boolean indexing, ``.item()`` or
+``repeat_interleave``): the one-hot is a comparison with ``arange(E)``, the
+scatter an ``index_put`` on integer indices, the combine a gather by index,
+so a decode step with MoE layers can be captured in a CUDA graph
+(serving/tick.py).  The combine gathers rows rather than multiplying a
+one-hot dispatch mask into the expert outputs: NaN x 0 is NaN, so a mask
+product would spread one lane's NaN to every lane, where a gather leaves
+each token's output a function of its own rows.
+
+``no_drop`` (C = T) is the inference paths' setting: a token takes at most
+one slot of an expert, nothing drops and every kept (expert, slot) pair is
+distinct, so the scatter is deterministic and decode equals the forward.
+Training keeps the capacity bound; its dropped slots all land in row E,
+whose contents are discarded.
+
+The expert-parallel path of the JAX package (``_apply_moe_ep``, a
+``shard_map`` over a 'model' mesh axis) is not ported: it needs the
+partitioning rules and more than one device (ROADMAP Queue 1,
+"Distributed, launch and checkpoint").
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import common
+
+F32 = torch.float32
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             device="cpu") -> dict:
+    """``{"router": (d, E), "wd": (E, ff, d)}`` plus ``"wg", "wu": (E, d,
+    ff)`` for SwiGLU or ``"wi": (E, d, ff)`` for GELU, in the JAX layouts
+    and scales (truncated normal times d^-1/2, ff^-1/2 for ``wd``), drawn
+    in the order router, wg (wi), wu, wd."""
+    moe = cfg.moe
+    d, e, ff = cfg.d_model, moe.n_experts, moe.d_ff
+
+    def w(shape, scale):
+        return common.truncated_normal(gen, shape, scale, dtype, device)
+
+    p = {"router": w((d, e), d ** -0.5)}
+    if cfg.mlp_act == "swiglu":
+        p["wg"] = w((e, d, ff), d ** -0.5)
+        p["wu"] = w((e, d, ff), d ** -0.5)
+    else:
+        p["wi"] = w((e, d, ff), d ** -0.5)
+    p["wd"] = w((e, ff, d), ff ** -0.5)
+    return p
+
+
+def capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Slots an expert holds for ``n_tokens`` tokens: capacity_factor x
+    T x K / E, at least K."""
+    moe = cfg.moe
+    c = int(moe.capacity_factor * n_tokens * moe.top_k / moe.n_experts)
+    return max(c, moe.top_k)
+
+
+def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The router on tokens ``xt`` (T, d): (logits (T, E) f32, probs,
+    top_p (T, K) renormalised, top_e (T, K) int64), as the JAX package
+    routes.  The product runs in the model dtype and is widened after (in
+    bf16 a product in f32 would flip near-tied experts); the top k are
+    taken by a stable sort, so tied probabilities go to the lower expert
+    index, as ``lax.top_k`` breaks ties."""
+    logits = (xt @ router).to(F32)
+    probs = torch.softmax(logits, dim=-1)
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = ranked[:, :cfg.moe.top_k], order[:, :cfg.moe.top_k]
+    return logits, probs, top_p / top_p.sum(-1, keepdim=True), top_e
+
+
+def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              no_drop: bool = False) -> tuple[torch.Tensor, dict]:
+    """x: (..., d) -> (the same shape and dtype, aux), the JAX package's
+    dense dispatch.  ``aux`` holds 0-d f32 tensors: ``moe_load_balance``
+    (switch style, E x sum of mean router probability times top-1 share),
+    ``moe_z_loss`` (mean squared logsumexp of the router logits) and
+    ``moe_drop_frac`` (the share of the T x K slots dropped).  Tokens are
+    routed by ``route``."""
+    moe = cfg.moe
+    shape = x.shape
+    d = shape[-1]
+    xt = x.reshape(-1, d)                       # batch-major tokens (T, d)
+    T = xt.shape[0]
+    E, K = moe.n_experts, moe.top_k
+    C = T if no_drop else capacity(T, cfg)
+
+    logits, probs, top_p, top_e = route(p["router"], xt, cfg)
+
+    # --- position-in-expert over the token-major (T*K,) slots -------------
+    flat_e = top_e.reshape(-1)
+    onehot = (flat_e[:, None] == torch.arange(E, device=x.device)).long()
+    before = torch.cumsum(onehot, dim=0) - onehot               # before me
+    pos = torch.gather(before, 1, flat_e[:, None])[:, 0]        # (T*K,)
+    keep = pos < C
+    dst_e = torch.where(keep, flat_e, E)                        # drop -> row E
+    dst_c = torch.where(keep, pos, 0)
+
+    # --- scatter to (E+1, C, d) -------------------------------------------
+    xk = xt[:, None, :].expand(T, K, d).reshape(T * K, d)
+    buf = xt.new_zeros(E + 1, C, d).index_put((dst_e, dst_c), xk)
+    expert_in = buf[:E]                                         # (E, C, d)
+
+    # --- the experts, batched ---------------------------------------------
+    if "wg" in p:
+        h = F.silu(torch.bmm(expert_in, p["wg"])) * torch.bmm(expert_in,
+                                                              p["wu"])
+    else:
+        h = common.gelu(torch.bmm(expert_in, p["wi"]))
+    expert_out = torch.bmm(h, p["wd"])                          # (E, C, d)
+
+    # --- gather back and combine ------------------------------------------
+    out_k = expert_out[dst_e % E, dst_c]                        # (T*K, d)
+    out_k = out_k * keep[:, None].to(out_k.dtype)
+    out_k = out_k * top_p.reshape(-1)[:, None].to(out_k.dtype)
+    out = out_k.reshape(T, K, d).sum(1)
+
+    # --- aux losses (switch-transformer style) ----------------------------
+    me = probs.mean(0)                                          # (E,)
+    ce = (top_e[:, :1] == torch.arange(E, device=x.device)).to(F32).mean(0)
+    aux = {"moe_load_balance": E * torch.sum(me * ce),
+           "moe_z_loss": torch.square(torch.logsumexp(logits, -1)).mean(),
+           "moe_drop_frac": 1.0 - keep.to(F32).mean()}
+    return out.reshape(shape).to(x.dtype), aux

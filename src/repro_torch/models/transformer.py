@@ -1,12 +1,12 @@
 """Decoder assembly (the port's twin of the JAX package's
-``models/transformer.py``), with the attention, RWKV6 and Mamba paths
+``models/transformer.py``), with the attention, RWKV6, Mamba and MoE paths
 ported.
 
 A model is a periodic stack of blocks; each block = (mix, mlp) chosen per
-slot by the config.  The port has the dense attention blocks (GQA
-attention + dense MLP: Qwen2, Yi, StableLM, Command-R), the rwkv6 blocks
-(time-mix + channel-mix) and the mamba blocks (Mamba + dense MLP); a
-config with MoE layers, vision tokens or audio codebooks raises
+slot by the config: mix ∈ {GQA attention, rwkv6 time-mix, Mamba}, mlp ∈
+{dense MLP, MoE, rwkv6 channel-mix} (Qwen2, Yi, StableLM, Command-R;
+OLMoE, Qwen3-MoE; RWKV6; Jamba, whose period mixes attention, Mamba, MLP
+and MoE); a config with vision tokens or audio codebooks raises
 ``NotImplementedError`` naming the ROADMAP item that ports it, by its
 title.  As in JAX, the block parameters are a list over the period's slots
 whose leaves are stacked over layer groups (a leading layer axis); the
@@ -16,7 +16,8 @@ Four entry points share the block code:
   * forward        — full sequence from zero state (reference logits, and
                      the training forward: differentiable, ``remat=``,
                      except through attention, whose training is not
-                     ported)
+                     ported); returns the MoE aux losses summed over the
+                     MoE layers
   * prefill        — full sequence, fills the decode cache IN PLACE
   * prefill_chunk  — one prompt segment continuing at ``cache['pos']``
                      (the slot engine's chunked admission), in place
@@ -34,8 +35,11 @@ a whole KV cache.  The JAX package donates its caches to its jits for the
 same effect, so a serve never allocates a cache (core/state.StatePool).
 ``decode_step`` neither reads a device value on the host nor makes a
 tensor of data-dependent shape, so the slot engine captures it in a CUDA
-graph (serving/tick.py).  The sequence-parallel time-mix waits for its
-slice (ROADMAP Queue 1, "Distributed, launch and checkpoint").
+graph (serving/tick.py), MoE layers included (``models/moe.py``).  An MoE
+layer dispatches drop-free on every path but the training forward
+(``forward(inference=False)``), so decode equals the forward.  The
+sequence-parallel time-mix waits for its slice (ROADMAP Queue 1,
+"Distributed, launch and checkpoint").
 """
 from __future__ import annotations
 
@@ -43,10 +47,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, mamba, mlp, rwkv
+from repro_torch.models import attention, common, mamba, mlp, moe, rwkv
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 F32 = torch.float32
+#: the aux losses an MoE layer returns, which ``forward`` sums over layers
+MOE_AUX = ("moe_load_balance", "moe_z_loss", "moe_drop_frac")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -60,15 +66,10 @@ def _roadmap(title: str) -> str:
 def _check_ported(cfg: ModelConfig) -> None:
     """Raise for what the port cannot run yet, naming its ROADMAP item by
     its title."""
-    todo = []
     if cfg.n_codebooks or cfg.n_vis_tokens:
-        todo.append("audio and vision fronts "
-                    + _roadmap("The vision and audio fronts"))
-    if cfg.moe is not None:
-        todo.append("MoE layers " + _roadmap("MoE and the full Jamba hybrid"))
-    if todo:
         raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {'; '.join(todo)}")
+            f"{cfg.name}: not ported yet: audio and vision fronts "
+            f"{_roadmap('The vision and audio fronts')}")
     if cfg.ssm is not None and cfg.ssm.kind not in ("rwkv6", "mamba"):
         raise NotImplementedError(
             f"{cfg.name}: only the rwkv6 and mamba mixes are ported")
@@ -122,16 +123,21 @@ def _rwkv(cfg: ModelConfig) -> bool:
 def _init_slot(gen: torch.Generator, cfg: ModelConfig, slot: int, dtype,
                device) -> dict:
     """Slot ``slot``'s block, as the JAX package chooses it: attention, an
-    rwkv6 time-mix or a Mamba mix, then the rwkv6 channel-mix or a dense
-    MLP."""
+    rwkv6 time-mix or a Mamba mix, then the rwkv6 channel-mix, MoE (where
+    ``cfg.layer_is_moe(slot)``) or a dense MLP."""
     if cfg.layer_kind(slot) == "attn":
         mix = attention.init_attention(gen, cfg, dtype, device)
     elif _rwkv(cfg):
         mix = rwkv.init_tmix(gen, cfg, dtype, device)
     else:
         mix = mamba.init_mamba(gen, cfg, dtype, device)
-    mlp_p = (rwkv.init_cmix if _rwkv(cfg) else mlp.init_mlp)(gen, cfg, dtype,
-                                                              device)
+    if _rwkv(cfg):
+        init_mlp = rwkv.init_cmix
+    elif cfg.layer_is_moe(slot):
+        init_mlp = moe.init_moe
+    else:
+        init_mlp = mlp.init_mlp
+    mlp_p = init_mlp(gen, cfg, dtype, device)
     return {"ln1": common.init_norm(cfg.d_model, cfg.norm, F32, device),
             "mix": mix,
             "ln2": common.init_norm(cfg.d_model, cfg.norm, F32, device),
@@ -143,16 +149,25 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     """Parameter tree with weights drawn from ``gen`` (a generator on
     ``device``): ``embed``, ``blocks`` (a list over the period's slots,
     leaves stacked over layer groups), ``final_norm`` and ``lm_head``, in
-    the JAX package's layouts."""
+    the JAX package's layouts.  Each stacked leaf is allocated once and
+    filled group by group, so the draw holds one group's tensors beside
+    the stack, not a second copy of the slot."""
     _check_ported(cfg)
     dtype = _dtype(cfg)
     p: dict = {"embed": common.init_embedding(gen, cfg.vocab, cfg.d_model,
                                               dtype, device)}
     p["blocks"] = []
+    n = _n_groups(cfg)
     for slot in range(cfg.period):
-        groups = [_init_slot(gen, cfg, slot, dtype, device)
-                  for _ in range(_n_groups(cfg))]
-        p["blocks"].append(tree_map(lambda *ts: torch.stack(ts), *groups))
+        stacked = None
+        for g in range(n):
+            group = _init_slot(gen, cfg, slot, dtype, device)
+            if stacked is None:
+                stacked = tree_map(lambda t: t.new_empty((n, *t.shape)),
+                                   group)
+            tree_map(lambda dst, src: dst[g].copy_(src), stacked, group)
+            del group                 # freed before the next group's draw
+        p["blocks"].append(stacked)
     p["final_norm"] = common.init_norm(cfg.d_model, cfg.norm, F32, device)
     if not cfg.tie_embeddings:
         p["lm_head"] = common.init_linear(gen, cfg.d_model, cfg.vocab, dtype,
@@ -214,28 +229,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
-def _apply_mlp_slot(slot_p: dict, cfg: ModelConfig, x: torch.Tensor,
-                    cache: dict) -> tuple[torch.Tensor, dict]:
-    """Second half-block (the rwkv6 channel-mix, or the dense MLP) with
-    residual."""
+def _apply_mlp_slot(slot_p: dict, cfg: ModelConfig, slot: int,
+                    x: torch.Tensor, cache: dict, mode: str
+                    ) -> tuple[torch.Tensor, dict, dict | None]:
+    """Second half-block (the rwkv6 channel-mix, MoE or the dense MLP) with
+    residual.  Returns (x, cache, the MoE layer's aux or None); MoE
+    dispatches drop-free in every mode but 'full' (the training forward),
+    as in the JAX package."""
     h = common.apply_norm(slot_p["ln2"], x, cfg.norm)
-    if not _rwkv(cfg):
-        return x + mlp.apply_mlp(slot_p["mlp"], h), cache
-    out, shift = rwkv.apply_cmix(slot_p["mlp"], h, cache["shift_c"])
-    return x + out, dict(cache, shift_c=shift)
+    if _rwkv(cfg):
+        out, shift = rwkv.apply_cmix(slot_p["mlp"], h, cache["shift_c"])
+        return x + out, dict(cache, shift_c=shift), None
+    if cfg.layer_is_moe(slot):
+        out, aux = moe.apply_moe(slot_p["mlp"], h, cfg,
+                                 no_drop=(mode != "full"))
+        return x + out, cache, aux
+    return x + mlp.apply_mlp(slot_p["mlp"], h), cache, None
 
 
 def _apply_block(slot_p: dict, cfg: ModelConfig, slot: int,
                  x: torch.Tensor, cache_slot: dict, positions, pos,
                  mode: str, active: torch.Tensor | None = None
-                 ) -> tuple[torch.Tensor, dict]:
+                 ) -> tuple[torch.Tensor, dict, dict | None]:
     """One block (mix + mlp).  ``cache_slot`` has NO group dim.  mode:
-    'full' | 'prefill' | 'prefill_chunk' | 'decode'; ``positions`` (B, S)
-    are the sequence's (full, prefill and a chunk's absolute ones),
-    ``pos`` the decode token's (a 0-d tensor, or (B,) per lane), and
-    ``active`` the decode's lane mask (or None).  Returns the new
-    activations and the block's new recurrent states (new tensors); an
-    attention block writes its cache slot in place and returns none."""
+    'full' | 'infer' (the forward, training and drop-free) | 'prefill' |
+    'prefill_chunk' | 'decode'; ``positions`` (B, S) are the sequence's
+    (full, prefill and a chunk's absolute ones), ``pos`` the decode
+    token's (a 0-d tensor, or (B,) per lane), and ``active`` the decode's
+    lane mask (or None).  Returns the new activations, the block's new
+    recurrent states (new tensors; an attention block writes its cache
+    slot in place and returns none) and an MoE block's aux (else None)."""
     h = common.apply_norm(slot_p["ln1"], x, cfg.norm)
     if cfg.layer_kind(slot) == "attn":
         if mode == "decode":
@@ -260,7 +283,7 @@ def _apply_block(slot_p: dict, cfg: ModelConfig, slot: int,
         out, conv, hst = fn(slot_p["mix"], cfg, h, cache_slot["conv"],
                             cache_slot["h"])
         new = dict(cache_slot, conv=conv, h=hst)
-    return _apply_mlp_slot(slot_p, cfg, x + out, new)
+    return _apply_mlp_slot(slot_p, cfg, slot, x + out, new, mode)
 
 
 # ---------------------------------------------------------------------------
@@ -293,8 +316,8 @@ def _run_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
         for s in range(cfg.period):
             slot_p = _layer(params["blocks"][s], g)
             slot_c = _layer(cache["slots"][s], g)
-            x, new = _apply_block(slot_p, cfg, s, x, slot_c, positions, pos,
-                                  mode, active)
+            x, new, _ = _apply_block(slot_p, cfg, s, x, slot_c, positions,
+                                     pos, mode, active)
             for name, state in new.items():
                 if active is not None:
                     keep = active.reshape((-1,) + (1,) * (state.dim() - 1))
@@ -311,14 +334,17 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             ) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward, every layer from zero states, the states
     carried as values (differentiable).  Returns (logits (B,S,V) f32,
-    aux).  ``remat`` recomputes each layer group in the backward
-    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of
-    its group function): only the groups' inputs are kept, and a group's
-    forward runs twice per gradient.  ``inference`` is the JAX signature's
-    (it switches MoE dispatch, which the ported paths do not have).  A
-    config with attention layers raises when autograd would record the
-    call (``check_trainable``)."""
-    del inference
+    aux): for a config with MoE layers ``moe_load_balance``,
+    ``moe_z_loss`` and ``moe_drop_frac``, 0-d f32 tensors summed over the
+    MoE layers, else an empty dict.  ``remat`` recomputes each layer group
+    in the backward (``torch.utils.checkpoint``, the JAX package's
+    ``jax.checkpoint`` of its group function): only the groups' inputs
+    are kept, and a group's forward runs twice per gradient.
+    ``inference`` switches MoE layers to drop-free dispatch, so the
+    logits are those the prefill and decode paths give.  A config with
+    attention layers raises when autograd would record the call
+    (``check_trainable``)."""
+    mode = "infer" if inference else "full"
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in tree_leaves(params)):
         check_trainable(cfg)
@@ -326,19 +352,23 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
     zeros = [_zero_slot(cfg, s, B, x.device) for s in range(cfg.period)]
+    aux = {} if cfg.moe is None else {
+        k: torch.zeros((), dtype=F32, device=x.device) for k in MOE_AUX}
 
-    def group_fn(x, group_p):
+    def group_fn(x, aux, group_p):
         for s, slot_p in enumerate(group_p):
-            x, _ = _apply_block(slot_p, cfg, s, x, zeros[s], positions, None,
-                                "full")
-        return x
+            x, _, layer_aux = _apply_block(slot_p, cfg, s, x, zeros[s],
+                                           positions, None, mode)
+            if layer_aux is not None:
+                aux = {k: aux[k] + layer_aux[k] for k in MOE_AUX}
+        return x, aux
 
     slots = [_groups(p, _n_groups(cfg)) for p in params["blocks"]]
     for group_p in zip(*slots):
-        x = (checkpoint(group_fn, x, group_p, use_reentrant=False) if remat
-             else group_fn(x, group_p))
+        x, aux = (checkpoint(group_fn, x, aux, group_p, use_reentrant=False)
+                  if remat else group_fn(x, aux, group_p))
     x = common.apply_norm(params["final_norm"], x, cfg.norm)
-    return lm_logits(params, cfg, x), {}
+    return lm_logits(params, cfg, x), aux
 
 
 def prefill(params: dict, cfg: ModelConfig, cache: dict, batch: dict

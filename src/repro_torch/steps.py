@@ -1,6 +1,6 @@
 """Step functions shared by training, serving and the smoke runs (the
 port's twin of the JAX package's ``steps.py``, for the dense attention,
-rwkv6 and mamba paths: a config with MoE layers, audio codebooks or vision
+rwkv6, mamba and MoE paths: a config with audio codebooks or vision
 tokens raises, as ``models/transformer`` does, and ``loss_fn`` raises for
 a config with attention layers, whose training is not ported).  All take
 the plain parameter and cache trees; the cache is updated in place, and
@@ -34,13 +34,24 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
             remat: bool = True) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy of ``transformer.forward`` (``remat`` as
-    there; on by default, as in the JAX package).  Returns (loss,
-    metrics)."""
+    there; on by default, as in the JAX package), plus for a config with
+    MoE layers ``router_aux_weight`` x (load balance + 0.1 x z loss), each
+    aux averaged over the MoE layers.  Returns (loss, metrics): ``xent``,
+    ``loss`` and for MoE the three averaged aux values."""
     transformer.check_trainable(cfg)
-    logits, _ = transformer.forward(params, cfg, batch, remat=remat)
+    logits, aux = transformer.forward(params, cfg, batch, remat=remat)
     toks = batch["tokens"]
     loss = _xent(logits[:, :-1], toks[:, 1:])
-    return loss, {"xent": loss, "loss": loss}
+    metrics = {"xent": loss}
+    if cfg.moe is not None:
+        n_moe = max(sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers)), 1)
+        lb = aux["moe_load_balance"] / n_moe
+        zl = aux["moe_z_loss"] / n_moe
+        loss = loss + cfg.moe.router_aux_weight * (lb + 0.1 * zl)
+        metrics.update(moe_load_balance=lb, moe_z_loss=zl,
+                       moe_drop_frac=aux["moe_drop_frac"] / n_moe)
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def train_step(optimizer: AdamW, cfg: ModelConfig, params: dict,

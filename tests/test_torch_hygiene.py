@@ -50,7 +50,8 @@ def test_the_scan_sees_the_whole_port():
             "kernels/mamba_scan.py", "models/mamba.py", "models/mlp.py",
             "configs/jamba_1_5_large_398b.py", "kernels/flash_prefill.py",
             "kernels/decode_attn.py", "models/attention.py",
-            "configs/qwen2_0_5b.py", "configs/yi_9b.py"} <= names
+            "configs/qwen2_0_5b.py", "configs/yi_9b.py", "models/moe.py",
+            "configs/olmoe_1b_7b.py", "configs/qwen3_moe_30b_a3b.py"} <= names
     assert _imported_modules(ROOT / "tests" / "test_torch_plans.py").count(
         "repro.partitioning") == 1    # the scanner does see such imports
 

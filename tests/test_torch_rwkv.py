@@ -255,28 +255,33 @@ def test_convert_round_trips_params_and_caches(both):
 
 
 def test_unported_layers_raise_naming_their_roadmap_item():
-    """MoE layers raise naming their ROADMAP item by its title ("MoE and
-    the full Jamba hybrid"), before anything is allocated: the full Jamba
-    config names MoE only, its attention layers being ported; a dense
-    attention config builds (attention blocks and dense MLPs, k/v cache
-    slots), and so does the attention-free Jamba stack."""
+    """The vision and audio fronts raise naming their ROADMAP item by its
+    title ("The vision and audio fronts"), before anything is allocated;
+    a dense attention config builds (attention blocks and dense MLPs, k/v
+    cache slots), so does an MoE one (router and expert stacks on the MoE
+    slots, the layer of every second slot for Jamba's ``every=2``), and so
+    does the attention-free Jamba stack."""
     attn = dataclasses.replace(CFG, n_heads=4, n_kv_heads=2, ssm=None)
     model = registry.build(attn)
     params = model.init(torch.Generator().manual_seed(0))
     assert set(params["blocks"][0]["mix"]) == {"wq", "wk", "wv", "wo"}
     assert set(params["blocks"][0]["mlp"]) == {"wg", "wu", "wd"}
     assert set(model.init_cache(1, 8)["slots"][0]) == {"k", "v"}
-    moe = dataclasses.replace(attn, moe=get_arch("jamba-1.5-large-398b").moe)
-    with pytest.raises(NotImplementedError,
-                       match='MoE layers.*ROADMAP.*"MoE and the full Jamba'):
-        registry.build(moe).init(torch.Generator().manual_seed(0))
+    for fronts in (dict(n_codebooks=2), dict(n_vis_tokens=4, vis_dim=16)):
+        for build in (lambda m: m.init(torch.Generator().manual_seed(0)),
+                      lambda m: m.init_cache(1, 8)):
+            with pytest.raises(NotImplementedError,
+                               match='fronts.*ROADMAP.*"The vision and '
+                                     'audio fronts'):
+                build(registry.build(dataclasses.replace(attn, **fronts)))
+    moe = dataclasses.replace(attn, moe=dataclasses.replace(
+        get_arch("jamba-1.5-large-398b").moe, n_experts=4, d_ff=32))
+    params = registry.build(moe).init(torch.Generator().manual_seed(0))
+    assert [set(b["mlp"]) for b in params["blocks"]] == [
+        {"wg", "wu", "wd"}, {"router", "wg", "wu", "wd"}]
+    assert tuple(params["blocks"][1]["mlp"]["wg"].shape) == (
+        1, 4, CFG.d_model, 32)
     jamba = get_arch("jamba-1.5-large-398b")
-    for build in (lambda m: m.init(torch.Generator().manual_seed(0)),
-                  lambda m: m.init_cache(1, 8)):
-        with pytest.raises(NotImplementedError,
-                           match="MoE layers.*MoE and the full Jamba") as e:
-            build(registry.build(jamba))
-        assert "attention" not in str(e.value)
     free = dataclasses.replace(jamba, n_layers=2, **jamba_1_5_large_398b
                                .ATTENTION_FREE).reduced()
     model = registry.build(free)

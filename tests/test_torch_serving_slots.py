@@ -4,8 +4,9 @@ the queue, chunked admission, the decode tick) against the JAX package's
 
 The JAX package's tests/test_serving_slots.py, case for case: its micro
 dense model (``_tiny_cfg``: 2 layers, d=64) for the quick cases, and the
-reduced ``qwen2-0.5b``, ``rwkv6-3b`` and attention-free Jamba stacks for
-the per-family sweeps, all f32.  Parameters are drawn by the JAX init and
+reduced ``qwen2-0.5b``, ``rwkv6-3b``, attention-free Jamba stack, MoE
+``olmoe-1b-7b`` and whole Jamba hybrid (attention, Mamba and MoE) for the
+per-family sweeps, all f32.  Parameters are drawn by the JAX init and
 carried across with ``convert.params_from_numpy``; the port's greedy
 tokens, finish reasons and ``take_finished`` contents must equal those of
 the JAX package's ``SlotEngine`` on the same requests (and its deadline
@@ -578,7 +579,8 @@ def test_chunked_rejects_invalid_config(tiny):
 # ---------------------------------------------------------------------------
 # Per-family sweeps (the JAX package's slow cases), against JAX's engine
 # ---------------------------------------------------------------------------
-FAMILIES = ["qwen2-0.5b", "jamba-attention-free", "rwkv6-3b"]
+FAMILIES = ["qwen2-0.5b", "jamba-attention-free", "rwkv6-3b", "olmoe-1b-7b",
+            "jamba-1.5-large-398b"]
 
 
 @pytest.fixture(scope="module", params=FAMILIES)
