@@ -32,7 +32,8 @@ plain version (the JAX family's cases, the full-width heads at T=512 and
 500, extreme decay, rows alone and in a batch, a split-resume run), the
 full-width model cut to 4 layers in f32 (the kernel plan against
 ``chunked_xla``, prefill plus decode against ``forward``), and the full
-32-layer bf16 RWKV6-3B served through ``repro_torch.launch.serve``'s wave
+bf16 RWKV6-3B at full width (8 of its 32 layers: ``SERVE_LAYERS``)
+served through ``repro_torch.launch.serve``'s wave
 engine: 8 ragged requests of 300 to 500 tokens, 16 new tokens each, with
 32 kernel launches per prefill, none in decode and the plain scans armed to
 raise, every launch of the serve held against the plain version on the
@@ -80,15 +81,30 @@ layers, in f32 (prefill plus 4 decode steps against
 ``forward(inference=True)`` with one K8 and one K9 an attention layer,
 chunked against whole-prompt admission, ``moe.apply_moe`` on the card
 against the CPU with the same routing, drop-free and at capacity); X2
-OLMoE-1B-7B in bf16 at full width and depth (6.92 B parameters) and X3
+OLMoE-1B-7B in bf16 at full width, 8 of its 16 layers, and X3
 the Jamba hybrid cut to one period at 8 experts (25.9 B: attention, Mamba
 and MoE in one model, one cache and one captured tick), each served
 through ``launch/serve``'s wave engine and the slot engine as S1 to S4
 serve (every K7, K8 and K9 launch held against its plain version), with
 the MoE layers' share of the decode tick beside the weights' read, and
 for X3 the first-token logits of prefill plus decode against the forward
-beside the plan spread; X4 Qwen3-30B-A3B in bf16 at full width and depth
-(30.5 B) through the wave engine, one wave of 4.
+beside the plan spread; X4 Qwen3-30B-A3B in bf16 at full width, 24 of its
+48 layers, through the wave engine, one wave of 4 (``SERVE_LAYERS``).
+Attention training (``attention_train_slice``, at the end of the attention
+slice, and X5 in ``moe_slice``): A6 the training forward K8t (K8 that also
+writes each row's log-sum-exp) bit-equal to K8 and its lse against the
+plain version, and the hand-written backward K8b against its plain version
+and torch autograd of the plain K8 (Qwen2's, OLMoE's and Yi's heads,
+StableLM's width, a ragged S, a window of 64; f32 and bf16; two runs
+bit-identical); A7 Qwen2-0.5B at full width, 2 of 24 layers, in f32:
+``loss_fn`` gradients on the card against the CPU, remat on and off; A8
+Qwen2-0.5B trained at full width and depth in bf16 through
+``launch/train.train`` (40 steps of batch 4 x 512, 48 K8t and 24 K8b calls
+a step, no K8, the plain attention armed to raise, step 1's K8b calls held
+against plain, the loss curve, the last two steps under torch.profiler);
+A9 K8t's and K8b's times beside their bounds, plain versions and SDPA
+forward + backward; X5 OLMoE-1B-7B at full width, 4 of its 16 layers,
+trained the same way for 8 steps, with its router metrics.
 It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work.
@@ -151,6 +167,13 @@ BUILD_LOGS: dict[str, str] = {}
 #: on the CPU by tests/test_torch_lm_train.py.
 JAX_TRAIN_DISPATCHES_4 = {True: 12, False: 8}
 REPO = Path(__file__).resolve().parent
+#: Layers of the serving phases run at cut depth (full width), so that the
+#: whole script stays within the time it took before attention training's
+#: phases (A6 to A9, X5) were added: RWKV6-3B's wave and slot serves (R3,
+#: S2; 32 layers), Yi-9B's serve (A4; 48), OLMoE-1B-7B's serves (X2; 16)
+#: and Qwen3-30B-A3B's (X4; 48).  The training runs keep their depth.
+SERVE_LAYERS = {"rwkv6-3b": 8, "yi-9b": 24, "olmoe-1b-7b": 8,
+                "qwen3-moe-30b-a3b": 24}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -326,7 +349,8 @@ def wkv6_bwd_work(BH, T, dk, dv, C, dtype) -> tuple[int, int]:
 
 def rwkv_slice(device, gen, counted, counts, only) -> dict:
     """The RWKV6 slice: K6 against its plain version, the 4-layer f32 model
-    across plans and against its own forward, the 32-layer bf16 RWKV6-3B
+    across plans and against its own forward, the bf16 RWKV6-3B at full
+    width and ``SERVE_LAYERS`` depth
     served through ``launch/serve.py`` (counted, plain scans armed), and
     K6's times.  Returns K6's entry of the ``kernels`` line."""
     from repro_torch.configs import get_arch
@@ -457,7 +481,8 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
     torch.cuda.empty_cache()
 
     # --- R3. RWKV6-3B served at full width, bf16 ---------------------------
-    cfg = get_arch("rwkv6-3b")
+    cfg = dataclasses.replace(get_arch("rwkv6-3b"),
+                              n_layers=SERVE_LAYERS["rwkv6-3b"])
     t0 = time.perf_counter()
     engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=4,
                                    max_seq=500 + 16 + 1, engine="wave")
@@ -512,7 +537,8 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
     finally:
         wkv6_k.wkv6, steps_lib.decode_step = kernel, decode
     got = counts()
-    check(got == only(wkv6=64) and seen["launches"] == [32, 32],
+    check(got == only(wkv6=2 * cfg.n_layers)
+          and seen["launches"] == [cfg.n_layers] * 2,
           f"serve launched {got}, per prefill {seen['launches']}")
     check(all(r.tokens.shape == (16,) and int(r.tokens.min()) >= 0
               and int(r.tokens.max()) < cfg.vocab for r in served["results"]),
@@ -524,7 +550,7 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
           "prefill, 0 in decode, no plain scan reached; every logit finite;"
           f" buffers_built {served['pool'].buffers_built} = capacity")
     # every launch of the serve against the plain version on the inputs it
-    # was given (the 32 layers' real r, k, v, logw, u and carried state):
+    # was given (the layers' real r, k, v, logw, u and carried state):
     # out at the bf16 tier, the f32 state at the f32 tier
     e_out = e_state = 0.0
     n_calls, L = len(seen["calls"]), cfg.n_layers
@@ -562,7 +588,7 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
                     engine.params, cache, {"tokens": toks})[0].float())
     finally:
         rwkv.WKV_PLAN = old
-    # Printed, not held to a tolerance: in bf16 the 32 random layers turn a
+    # Printed, not held to a tolerance: in bf16 the random layers turn a
     # one-ulp difference in a wkv output into first-token logits that
     # differ by O(1) between any two plans, the two plain ones included.
     # The kernel is held on this path by the per-launch check above, and
@@ -635,13 +661,15 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
 def device_time(events, spans=()) -> tuple[float, dict, dict]:
     """The device's busy time in one profiled step (one stream, so kernels
     do not overlap), that time by group — the scan kernels of each family
-    (wkv6, mamba_scan), the matrix products, the kernels inside the
+    (wkv6, mamba_scan), the attention kernels (flash_prefill: K8t;
+    flash_prefill_bwd: K8b), the matrix products, the kernels inside the
     optimizer's span (``spans``, empty when the host was not traced) and
     the rest, each group that ran — and by kernel name with its
     launches."""
     def group(e) -> str:
         name = e.name.lower()
-        for family in ("wkv6", "mamba_scan"):
+        for family in ("wkv6", "mamba_scan", "flash_prefill_bwd",
+                       "flash_prefill"):
             if family in name:
                 return f"{family} kernels"
         if any(k in name for k in ("gemm", "cutlass", "xmma", "nvjet")):
@@ -688,14 +716,17 @@ def profiling(train_step, n_steps: int, profiles: list):
     return profiled_step
 
 
-def print_step_profile(profiles: list[dict], unprofiled_ms: float) -> None:
+def print_step_profile(profiles: list[dict], unprofiled_ms: float
+                       ) -> float | None:
     """Where the last two training steps' device time goes, from
     torch.profiler's device events.  The first traced the device alone:
     its busy time against its own wall gives the device's idle share, and
     its wall against the unprofiled steps' median the tracing's host cost.
     The second also traced the host, so the optimizer's span groups its
-    kernels; its wall carries the host tracing's cost and is not used."""
+    kernels; its wall carries the host tracing's cost and is not used.
+    Returns the device-alone step's busy ms (None if not measured)."""
     span = "adamw.update_"
+    busy_alone = None
     for prof in profiles:
         device = [e for e in prof["events"]
                   if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -720,11 +751,13 @@ def print_step_profile(profiles: list[dict], unprofiled_ms: float) -> None:
                       f"{name[:110]}")
         else:
             wall = prof["wall_ms"]
+            busy_alone = busy
             print(f"[profile] training step {prof['step']} ({what}): wall "
                   f"{wall:.3f} ms ({wall - unprofiled_ms:+.3f} ms against the"
                   f" unprofiled median), device busy {busy:.3f} ms, idle "
                   f"{1 - busy / wall:.1%} of this step's wall; {groups} "
                   f"(AdamW in other)")
+    return busy_alone
 
 
 def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
@@ -1761,11 +1794,13 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     """The dense attention slice: K8 against its plain version (A1); K9
     against its plain version (A2); Qwen2-0.5B at full width and depth in
     f32, across plans and prefill + decode against its own forward (A3);
-    Qwen2-0.5B and Yi-9B in bf16 served through ``launch/serve.py``,
+    Qwen2-0.5B and Yi-9B (``SERVE_LAYERS`` depth) in bf16 served through
+    ``launch/serve.py``,
     counted, the plain attention functions armed to raise, every launch
     then held against its plain version on its own inputs, and served
     again uncaptured for the times (A4); the two
-    kernels' times beside SDPA's (A5).  Returns their entries of the
+    kernels' times beside SDPA's (A5); then attention training
+    (``attention_train_slice``: A6 to A9).  Returns their entries of the
     ``kernels`` line."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attn as da
@@ -1856,22 +1891,29 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
             close(fp.flash_prefill(q, k, v, k_block=kb).float(), base,
                   f"flash_prefill bf16 {Hq}/{Hkv} x {dh} k_block {kb} vs "
                   "default", tol[bf16])
-    q, k, v = attn_inputs(4, 500, 14, 2, 64, f32, gen)
-    q.requires_grad_()
-    try:
-        fp.flash_prefill(q, k, v)
-        raised = False
-    except RuntimeError:
-        raised = True
-    check(raised, "flash_prefill under autograd did not raise on the card")
+    # under autograd the call runs K8t (attention training, A6 to A9):
+    # the same output bits as K8, one K8t launch and no K8 one
+    for dtype in (f32, bf16):
+        q, k, v = attn_inputs(4, 500, 14, 2, 64, dtype, gen)
+        want = fp.flash_prefill(q, k, v)
+        before = (fp.flash_prefill.launches,
+                  fp.flash_prefill_traj.launches)
+        got = fp.flash_prefill(q.requires_grad_(), k, v)
+        check(got.requires_grad and torch.equal(got.detach(), want)
+              and (fp.flash_prefill.launches,
+                   fp.flash_prefill_traj.launches)
+              == (before[0], before[1] + 1),
+              f"flash_prefill under autograd ({dtype}) did not run K8t "
+              "alone, or its output differs from K8's")
+        del got
     print(f"[K8] max abs err vs plain: f32 "
           f"{errs['flash_prefill'][f32]:.3e}, bf16 "
           f"{errs['flash_prefill'][bf16]:.3e} (vs round_p plain "
           f"{err_rp:.3e}, within rtol {tc_tol['rtol']:.4g} atol "
           f"{tc_tol['atol']:.4g}); f32 results within 2e-4 at q/k "
           "tiles (16, 64), (32, 32), (48, 16), (64, 2); bf16 within 3e-2 at "
-          f"k_block {fp.TC_K_BLOCKS} at dh 64, 128, 160; raises under "
-          "autograd")
+          f"k_block {fp.TC_K_BLOCKS} at dh 64, 128, 160; under autograd "
+          "one K8t launch, its output bit-equal to K8's (f32 and bf16)")
 
     # --- A2. K9 against its plain version ---------------------------------
     # each case against the plain version at the table's split (block_s,
@@ -2043,6 +2085,8 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     attn_holds = {k: kernel_holds()[k] for k in served_launches}
     for name in ("qwen2-0.5b", "yi-9b"):
         cfg = get_arch(name)
+        if name in SERVE_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS[name])
         t0 = time.perf_counter()
         engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=4,
                                        max_seq=SLOT_SEQ, engine="wave")
@@ -2176,8 +2220,443 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         if kname == "decode_attn":        # device time alone, both sides
             entries[-1].update(graph_ms=r["graph_ms"],
                                library_graph_ms=r["library_graph_ms"])
-    return entries
+    # --- A6 to A9. attention training -------------------------------------
+    return entries + attention_train_slice(device, gen, counted, counts,
+                                           only)
 
+
+
+def attn_traj_work(B, S, Hq, Hkv, dh, dtype) -> tuple[int, int]:
+    """(bytes, operations) of one K8t launch: K8's (``prefill_work``) and
+    the rows' lse written in f32."""
+    nbytes, ops = prefill_work(B, S, Hq, Hkv, dh, dtype)
+    return nbytes + 4 * B * Hq * S, ops
+
+
+def attn_bwd_work(B, S, Hq, Hkv, dh, dtype) -> tuple[int, int]:
+    """(bytes, operations) of one K8b call: q, o, dO in and dq out (B, S,
+    Hq, dh), k, v in and dk, dv out (B, S, Hkv, dh), in the IO type, each
+    once, and lse in f32; the causal half of its five products (q k^T,
+    dO v^T, p^T dO, ds k, ds^T q), 5 B Hq dh S (S + 1) (a multiply-add is
+    2)."""
+    io = 2 if dtype == torch.bfloat16 else 4
+    return (io * B * S * dh * (4 * Hq + 4 * Hkv) + 4 * B * Hq * S,
+            5 * B * Hq * dh * S * (S + 1))
+
+
+def attn_grad_hold(got: torch.Tensor, want: torch.Tensor, what: str,
+                   share: dict) -> float:
+    """Hold an attention gradient to its reference; return the max abs
+    error.  f32 at K8's 2e-4 (tests/test_flash_prefill.py's kernel
+    tolerance).  bf16 at K8's 3e-2 with its atol scaled by the reference's
+    max abs (a gradient's scale is the inputs', not 1), and within one
+    bf16 step at that max, 2^-7 max|want|: both sides sum in f32 and round
+    each output once; ``share`` keeps the largest error over max|want|."""
+    if want.dtype == torch.float32:
+        return close(got, want, what, dict(rtol=2e-4, atol=2e-4))
+    m = float(want.float().abs().max())
+    e = close(got.float(), want.float(), what,
+              dict(rtol=3e-2, atol=3e-2 * m))
+    check(e <= 2.0 ** -7 * m, f"{what}: max abs err {e} is past one bf16 "
+          f"step at max|want| {m}")
+    share["bf16"] = max(share.get("bf16", 0.0), e / m if m else 0.0)
+    return e
+
+
+def attention_train_run(phase: str, cfg, n_steps: int, counted, counts,
+                        only, arms, share: dict) -> dict:
+    """``cfg`` trained in bf16 through ``launch/train.train`` (batch 4 x
+    512, AdamW, remat on, ``n_steps`` steps, weights from seed 0 on the
+    card), counted, the plain attention and scan versions armed to raise:
+    K8t twice and K8b once an attention layer a step and no K8; each K8b
+    call of step 1 held against ``flash_prefill_bwd_plain`` on its own
+    inputs; every loss and gradient norm finite; the last two steps under
+    torch.profiler.  Prints the step time (host clock, steps 2 to
+    ``n_steps`` - 2), tokens/s, the model FLOPs' share of the bf16 peak,
+    peak memory, the loss curve and the lm_head's share of a step.  Returns
+    the launches and the report."""
+    from repro_torch import steps as steps_lib
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.launch import train as train_lm
+
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    kernel_bwd, plain_bwd = fp.flash_prefill_bwd, fp.flash_prefill_bwd_plain
+    seen = {"n": 0, "err": 0.0, "shape": None}
+
+    def checked_bwd(*args, **kwargs):
+        """K8b as the training step calls it; each call of step 1 (the
+        first ``n_attn``) held against the plain version on its own
+        inputs.  The wrapper counts its calls through its module's name,
+        which is this function while it is installed: the count is carried
+        across."""
+        checked_bwd.launches = kernel_bwd.launches
+        got = kernel_bwd(*args, **kwargs)
+        kernel_bwd.launches = checked_bwd.launches
+        if seen["n"] < n_attn:
+            want = plain_bwd(*args, **kwargs)
+            for n, a, b in zip(("dq", "dk", "dv"), got, want):
+                seen["err"] = max(seen["err"], attn_grad_hold(
+                    a, b, f"{phase} trained flash_prefill_bwd call "
+                    f"{seen['n']} {n}", share))
+            seen["n"] += 1
+            seen["shape"] = (tuple(args[0].shape), tuple(args[1].shape),
+                             args[0].dtype)
+        return got
+
+    train_step = steps_lib.train_step
+    profiles = []
+    fp.flash_prefill_bwd = checked_bwd
+    steps_lib.train_step = profiling(train_step, n_steps, profiles)
+    reset_counts(*counted)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with tripwires(*arms):
+            report = train_lm.train(cfg, steps=n_steps, batch=4, seq=512,
+                                    lr=3e-3, seed=0, device="cuda",
+                                    log_every=1)
+    finally:
+        fp.flash_prefill_bwd, steps_lib.train_step = kernel_bwd, train_step
+    wall = time.perf_counter() - t0
+    got = counts()
+    check(got == only(flash_prefill_traj=2 * n_attn * n_steps,
+                      flash_prefill_bwd=n_attn * n_steps),
+          f"{phase}: {n_steps} training steps launched {got}")
+    check(seen["n"] == n_attn,
+          f"{phase}: checked {seen['n']} K8b calls of step 1")
+    check(all(math.isfinite(x) for x in report["losses"]
+              + report["grad_norms"]),
+          f"{phase}: a loss or grad_norm is not finite: {report['losses']}, "
+          f"{report['grad_norms']}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = report["step_ms"][1:-2]   # step 1 also ran the checks
+    med = statistics.median(step_ms)
+    tokens = report["tokens_per_step"]
+    model_flops = 6 * report["n_params"] * tokens
+    print(f"[{phase}] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
+          f"{report['n_params'] / 1e9:.3f} B parameters in {cfg.dtype}, batch"
+          f" 4 x 512, {n_steps} steps in {wall:.1f} s (init included); "
+          f"launches {got['flash_prefill_traj']} K8t + "
+          f"{got['flash_prefill_bwd']} K8b calls ({2 * n_attn} + {n_attn} a "
+          "step), none of K8, no plain attention or scan reached; every "
+          f"loss and grad_norm finite; peak device memory {peak:.3f} GB "
+          f"(torch.cuda.max_memory_allocated); {CARD['line']}")
+    print(f"[{phase}] each of step 1's {seen['n']} K8b calls (q "
+          f"{seen['shape'][0]}, k {seen['shape'][1]}, {seen['shape'][2]}) "
+          f"against flash_prefill_bwd_plain on its own inputs: max abs err "
+          f"{seen['err']:.3e} (3e-2 x max|grad| and one bf16 step at "
+          "max|grad|)")
+    print(f"[{phase}] loss curve: "
+          + ", ".join(f"{x:.3f}" for x in report["losses"]))
+    print(f"[{phase}] grad norms: "
+          + ", ".join(f"{x:.3g}" for x in report["grad_norms"]))
+    print(f"[time] {phase} training step, {cfg.name}, batch 4 x 512, steps "
+          f"2 to {n_steps - 2}: median {med:.3f} ms, min {min(step_ms):.3f} "
+          "ms (host clock around the step, ending in the loss's copy to the "
+          f"host; steps {n_steps - 1} and {n_steps} ran under the profiler); "
+          f"{tokens / (med / 1e3):.1f} tokens/s; model FLOPs (6 x params x "
+          f"tokens, {model_flops:.3e} a step) at "
+          f"{model_flops / (med / 1e3) / BF16_FLOP_PER_S:.2%} of the H100's "
+          "989 TFLOP/s bf16 dense peak")
+    busy = print_step_profile(profiles, med)
+    head = lm_head_ms(cfg, tokens)
+    print(f"[profile] {phase} lm_head: the logits product (4 x 512 x "
+          f"{cfg.d_model} by {cfg.vocab}), the f32 log-softmax and the "
+          f"cross-entropy, forward and backward, timed alone with CUDA "
+          f"events at the step's shapes: {head:.3f} ms"
+          + (f", {head / busy:.1%} of the device-alone step's busy time"
+             if busy else ""))
+    return {"launches": got, "report": report, "median_ms": med}
+
+
+def lm_head_ms(cfg, tokens: int) -> float:
+    """Forward and backward of the lm_head and the loss at a training
+    step's shapes, bf16 weights (CUDA events, median of 5 runs of 3): the
+    step's largest matrix product."""
+    from repro_torch import steps as steps_lib
+
+    gen = torch.Generator().manual_seed(5)
+    x = randn(4, tokens // 4, cfg.d_model, gen=gen).to(torch.bfloat16)
+    w = randn(cfg.vocab, cfg.d_model, gen=gen,
+              scale=cfg.d_model ** -0.5).to(torch.bfloat16)
+    x.requires_grad_()
+    w.requires_grad_()
+    toks = torch.randint(0, cfg.vocab, (4, tokens // 4), generator=gen).cuda()
+
+    def step():
+        logits = (x @ w.T).float()
+        loss = steps_lib._xent(logits[:, :-1], toks[:, 1:])
+        return torch.autograd.grad(loss, (x, w))
+
+    return time_ms(step, 3)
+
+
+def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
+    """Attention training: K8t and K8b against their plain versions and
+    torch autograd (A6); Qwen2-0.5B at full width, 2 of 24 layers, f32:
+    ``loss_fn`` gradients on the card against the CPU, remat on and off
+    (A7); Qwen2-0.5B trained at full width and depth in bf16 for 40 steps
+    through ``launch/train.train`` (A8); the two kernels' times beside
+    their bounds, plain versions and SDPA forward + backward, and ptxas's
+    registers (A9).  Returns their entries of the ``kernels`` line."""
+    from repro_torch import steps as steps_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    import torch.nn.functional as F
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    arms = plain_attention_arms() + plain_scan_arms()
+    share: dict = {}
+    errs = {"flash_prefill_traj": {f32: 0.0, bf16: 0.0},
+            "flash_prefill_bwd": {f32: 0.0, bf16: 0.0}}
+    lse_tol = dict(rtol=2e-4, atol=2e-4)
+
+    # --- A6. K8t and K8b against their plain versions ---------------------
+    # K8t's output bit-equal to K8's at the same tiles; its lse against the
+    # plain version at K8's f32 2e-4 in both dtypes (an f32 value from f32
+    # sums of exact products on both sides); K8b against the plain
+    # backward on the same inputs (K8t's o and lse) and against torch
+    # autograd of flash_prefill_plain (attn_grad_hold); two runs of each
+    # bit-identical
+    cases = [  # Qwen2's heads, OLMoE's, Yi's, StableLM's width, a ragged
+        # S, a window of 64
+        ("Qwen2", 4, 512, 14, 2, 64, 0), ("OLMoE", 4, 512, 16, 16, 128, 0),
+        ("Yi", 4, 512, 32, 4, 128, 0), ("dh 160", 2, 512, 8, 8, 160, 0),
+        ("ragged", 4, 300, 14, 2, 64, 0), ("window", 4, 512, 14, 2, 64, 64)]
+    for label, B, S, Hq, Hkv, dh, w in cases:
+        said = []
+        for dtype in (f32, bf16):
+            name = str(dtype).split(".")[1]
+            what = f"{label} B={B} S={S} {Hq}/{Hkv} x {dh} w={w} {name}"
+            q, k, v = attn_inputs(B, S, Hq, Hkv, dh, dtype, gen)
+            bl = fp.choose_blocks(S, dh, dtype)
+            o8 = fp.flash_prefill(q, k, v, window=w)
+            o, lse = fp.flash_prefill_traj(q, k, v, window=w)
+            o2, lse2 = fp.flash_prefill_traj(q, k, v, window=w)
+            check(torch.equal(o, o8), f"K8t {what}: output differs from K8's")
+            check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                  f"K8t {what}: two runs differ")
+            check(lse.dtype == f32 and lse.shape == (B, Hq, S),
+                  f"K8t {what}: lse {lse.dtype} {tuple(lse.shape)}")
+            _, p_lse = fp.flash_prefill_traj_plain(
+                q, k, v, window=w, q_block=bl.q_block, k_block=bl.k_block,
+                round_p=dtype == bf16)
+            e_t = close(lse, p_lse, f"K8t {what} lse vs plain", lse_tol)
+            errs["flash_prefill_traj"][dtype] = max(
+                errs["flash_prefill_traj"][dtype], e_t)
+            dout = randn(B, S, Hq, dh, gen=gen).to(dtype)
+            got = fp.flash_prefill_bwd(q, k, v, o, lse, dout, window=w)
+            again = fp.flash_prefill_bwd(q, k, v, o, lse, dout, window=w)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K8b {what}: two runs differ")
+            plain = fp.flash_prefill_bwd_plain(q, k, v, o, lse, dout,
+                                               window=w)
+            x = [t.clone().requires_grad_() for t in (q, k, v)]
+            with torch.enable_grad():
+                auto = torch.autograd.grad(fp.flash_prefill_plain(
+                    *x, window=w, q_block=bl.q_block, k_block=bl.k_block),
+                    x, dout)
+            e_b = e_a = 0.0
+            for n, g_, pl, au in zip(("dq", "dk", "dv"), got, plain, auto):
+                check(g_.dtype == dtype and g_.shape == pl.shape,
+                      f"K8b {what} {n}: {g_.dtype} {tuple(g_.shape)}")
+                e_b = max(e_b, attn_grad_hold(g_, pl, f"K8b {what} {n} vs "
+                                              "plain", share))
+                e_a = max(e_a, attn_grad_hold(g_, au, f"K8b {what} {n} vs "
+                                              "autograd", share))
+            errs["flash_prefill_bwd"][dtype] = max(
+                errs["flash_prefill_bwd"][dtype], e_b)
+            said.append(f"{name}: K8t bit-equal to K8, lse vs plain "
+                        f"{e_t:.3e}; K8b vs plain {e_b:.3e}, vs autograd of "
+                        f"flash_prefill_plain {e_a:.3e}")
+        print(f"[K8t/K8b] {label} B={B} S={S} {Hq}/{Hkv} x {dh} window={w}"
+              f" (K8b {tuple(fp.choose_bwd_blocks(S, dh, bf16))}): "
+              + "; ".join(said) + "; two runs bit-identical")
+    print(f"[K8t/K8b] max abs err vs plain: K8t lse f32 "
+          f"{errs['flash_prefill_traj'][f32]:.3e}, bf16 "
+          f"{errs['flash_prefill_traj'][bf16]:.3e}; K8b f32 "
+          f"{errs['flash_prefill_bwd'][f32]:.3e}, bf16 "
+          f"{errs['flash_prefill_bwd'][bf16]:.3e}; bf16 gradients within "
+          f"{share.get('bf16', 0.0):.3e} x max|want| (held at one bf16 step,"
+          f" 2^-7 = {2.0 ** -7:.3e})")
+
+    # --- A7. the f32 gate: Qwen2-0.5B at full width, 2 of 24 layers -------
+    cfg2 = dataclasses.replace(get_arch("qwen2-0.5b"), n_layers=2,
+                               dtype="float32")
+    p2 = registry.build(cfg2).init(
+        torch.Generator(device=device).manual_seed(0), device)
+    leaves = tree_leaves(p2)
+    for t in leaves:
+        t.requires_grad_()
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg2.vocab, (2, 256)).astype(np.int32))
+    L = cfg2.n_layers
+
+    def grads(params, batch, remat: bool):
+        reset_counts(*counted)
+        loss, _ = steps_lib.loss_fn(params, cfg2, batch, remat=remat)
+        g = torch.autograd.grad(loss, tree_leaves(params))
+        if loss.is_cuda:
+            torch.cuda.synchronize()
+        return loss.detach(), g, counts()
+
+    with tripwires(*arms):
+        loss_on, g_on, n_on = grads(p2, {"tokens": toks.to(device)}, True)
+        loss_off, g_off, n_off = grads(p2, {"tokens": toks.to(device)},
+                                       False)
+    for remat, n in ((True, n_on), (False, n_off)):
+        check(n == only(flash_prefill_traj=(2 if remat else 1) * L,
+                        flash_prefill_bwd=L),
+              f"A7 2-layer training step (remat {remat}) launched {n}")
+    #: the card against the CPU: the same f32 sums in another order on two
+    #: devices (cuBLAS and the SIMT kernels against the CPU's products and
+    #: the plain versions), held as the MoE model tests hold two
+    #: frameworks (1e-4), the atol scaled by each leaf's max|grad|
+    d_remat = max(close(a, b, "A7 grads, remat on vs off",
+                        dict(rtol=1e-4, atol=1e-4 * float(b.abs().max())))
+                  for a, b in zip(g_on, g_off))
+    p_cpu = tree_map(lambda t: t.detach().cpu().requires_grad_(), p2)
+    loss_cpu, g_cpu, _ = grads(p_cpu, {"tokens": toks}, True)
+    e_loss = close(loss_on.cpu(), loss_cpu, "A7 loss, card vs CPU",
+                   dict(rtol=1e-5, atol=0.0))
+    e_grad = 0.0
+    for a, b in zip(g_on, g_cpu):
+        m = float(b.abs().max())
+        e_grad = max(e_grad, close(a.cpu(), b, "A7 grads, card vs CPU",
+                                   dict(rtol=1e-4, atol=1e-4 * m)) / (m or 1))
+    print(f"[A7] {cfg2.name} at full width, {L} of 24 layers, f32, B=2 "
+          f"S=256: loss_fn loss on the card vs the CPU {e_loss:.3e} "
+          f"({float(loss_on):.6f}); every leaf's gradient within "
+          f"{e_grad:.3e} x its max|grad| (rtol 1e-4, atol 1e-4 x max|grad|);"
+          f" remat on vs off max abs diff {d_remat:.3e}; launches a step: "
+          f"remat on {n_on['flash_prefill_traj']} K8t + "
+          f"{n_on['flash_prefill_bwd']} K8b, off "
+          f"{n_off['flash_prefill_traj']} + {n_off['flash_prefill_bwd']}, "
+          "no K8; no plain attention reached on the card")
+    del p2, p_cpu, leaves, g_on, g_off, g_cpu
+    free_models("A8")
+
+    # --- A8. Qwen2-0.5B trained at full width and depth, bf16 -------------
+    n_steps = 40
+    run = attention_train_run("A8", get_arch("qwen2-0.5b"), n_steps, counted,
+                              counts, only, arms, share)
+    launches = {k: run["launches"][k]
+                for k in ("flash_prefill_traj", "flash_prefill_bwd")}
+    free_models("A9")
+
+    # --- A9. K8t's and K8b's times at the training shapes ------------------
+    rows = {}
+    for name, (B, S, Hq, Hkv, dh) in (("qwen2-0.5b", (4, 512, 14, 2, 64)),
+                                      ("olmoe-1b-7b", (4, 512, 16, 16, 128))):
+        q, k, v = attn_inputs(B, S, Hq, Hkv, dh, bf16, gen)
+        bl = fp.choose_blocks(S, dh, bf16)
+        o, lse = fp.flash_prefill_traj(q, k, v)
+        dout = randn(B, S, Hq, dh, gen=gen).to(bf16)
+        qt, kt, vt, dot = (t.transpose(1, 2).contiguous()
+                           for t in (q, k, v, dout))
+        for t in (qt, kt, vt):
+            t.requires_grad_()
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                 enable_gqa=True)
+            return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+        lib = torch.autograd.grad(F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt), dot)
+        mine = fp.flash_prefill_bwd(q, k, v, o, lse, dout)
+        e_lib = max(close(a.transpose(1, 2).float(), b.float(),
+                          f"SDPA backward vs K8b at {name}",
+                          dict(rtol=3e-2, atol=3e-2 * float(
+                              b.float().abs().max())))
+                    for a, b in zip(lib, mine))
+        lib_fb = time_ms(sdpa_fwd_bwd, 10)
+        lib_fb_graph = graph_ms(sdpa_fwd_bwd, 5)
+        t_bound, by = bound(*attn_traj_work(B, S, Hq, Hkv, dh, bf16),
+                            flop_rate=BF16_FLOP_PER_S)
+        rows["flash_prefill_traj", name] = r = dict(
+            ms=time_ms(lambda: fp.flash_prefill_traj(q, k, v), 20),
+            graph_ms=graph_ms(lambda: fp.flash_prefill_traj(q, k, v)),
+            plain_ms=time_ms(lambda: fp.flash_prefill_traj_plain(
+                q, k, v, q_block=bl.q_block, k_block=bl.k_block,
+                round_p=True), 1, repeats=3),
+            library_ms=time_ms(sdpa_fwd, 20),
+            library_graph_ms=graph_ms(sdpa_fwd), bound_ms=t_bound,
+            bound_by=by)
+        t_bound, by = bound(*attn_bwd_work(B, S, Hq, Hkv, dh, bf16),
+                            flop_rate=BF16_FLOP_PER_S)
+        rows["flash_prefill_bwd", name] = rb = dict(
+            ms=time_ms(lambda: fp.flash_prefill_bwd(q, k, v, o, lse, dout),
+                       10),
+            graph_ms=graph_ms(lambda: fp.flash_prefill_bwd(
+                q, k, v, o, lse, dout), 5),
+            plain_ms=time_ms(lambda: fp.flash_prefill_bwd_plain(
+                q, k, v, o, lse, dout), 1, repeats=3),
+            library_ms=lib_fb, library_graph_ms=lib_fb_graph,
+            bound_ms=t_bound, bound_by=by)
+        ops_b = attn_bwd_work(B, S, Hq, Hkv, dh, bf16)[1]
+        print(f"[time] flash_prefill_traj (K8t) {name} B={B} S={S} "
+              f"{Hq}/{Hkv} x {dh} bf16 on the tensor cores: kernel "
+              f"{r['ms']:.4f} ms back to back, {r['graph_ms']:.4f} ms in a "
+              f"CUDA graph; plain {r['plain_ms']:.4f} ms; SDPA forward "
+              f"(is_causal, enable_gqa) {r['library_ms']:.4f} ms, "
+              f"{r['library_graph_ms']:.4f} ms in a graph; bound "
+              f"{r['bound_ms']:.3e} ms ({r['bound_by']}, bf16 dense peak)")
+        print(f"[time] flash_prefill_bwd (K8b) {name} B={B} S={S} "
+              f"{Hq}/{Hkv} x {dh} bf16 (SIMT, "
+              f"{tuple(fp.choose_bwd_blocks(S, dh, bf16))}): kernels "
+              f"{rb['ms']:.4f} ms back to back, {rb['graph_ms']:.4f} ms in "
+              f"a CUDA graph ({ops_b / rb['graph_ms'] / 1e9:.1f} TFLOP/s of "
+              f"the five causal products); plain {rb['plain_ms']:.4f} ms; "
+              f"SDPA forward + backward {rb['library_ms']:.4f} ms, "
+              f"{rb['library_graph_ms']:.4f} ms in a graph (a yardstick: "
+              f"its gradients vs K8b's {e_lib:.3e}); K8t + K8b in graphs "
+              f"{r['graph_ms'] + rb['graph_ms']:.4f} ms, "
+              f"{(r['graph_ms'] + rb['graph_ms']) / rb['library_graph_ms']:.2f}x"
+              f" SDPA's; bound {rb['bound_ms']:.3e} ms ({rb['bound_by']}, "
+              f"bf16 dense peak), kernels at "
+              f"{rb['graph_ms'] / rb['bound_ms']:.0f}x it in a graph; "
+              f"{CARD['line']}")
+    for src, legend in (("flash_prefill", "K8t: flash_prefill_kernel "
+                         "<dh,lse>, flash_prefill_tc_kernel <padded dh,"
+                         "k_block,lse>"),
+                        ("flash_prefill_bwd", "K8b: flash_prefill_bwd_kernel "
+                         "<IO,dh,dq>")):
+        compiled = ""                  # the entry ptxas is reporting on
+        for line in BUILD_LOGS.get(src, "").splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                compiled = entry.group(1)
+            elif ("registers" in line or "spill" in line) and (
+                    src == "flash_prefill_bwd"
+                    or instance(compiled).endswith(",1>")):
+                print(f"[time] {src} ({legend}) {instance(compiled)}: "
+                      f"{line.strip()}")
+    entries = []
+    for kname, src in (("flash_prefill_traj", "flash_prefill.cu"),
+                       ("flash_prefill_bwd", "flash_prefill_bwd.cu")):
+        r = rows[kname, "qwen2-0.5b"]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": "none: no TPU counterpart (the JAX package "
+                        "differentiates its jnp flash_attention, "
+                        "src/repro/models/attention.py:60)",
+            "launches": launches[kname],
+            "max_abs_err": errs[kname][bf16], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "graph_ms": r["graph_ms"],
+            "library_graph_ms": r["library_graph_ms"]})
+    return entries
 
 #: the bf16 tier of the attention kernels (K8, K9: 3e-2), the least the
 #: bf16 serving comparisons below stop at: greedy tokens of two runs whose
@@ -2253,8 +2732,8 @@ def plain_scan_arms() -> tuple:
 
 
 def plain_attention_arms() -> tuple:
-    """Attention's plain versions, for ``tripwires``: the plain K8 and K9,
-    the model's blocked and einsum plans and the oracles."""
+    """Attention's plain versions, for ``tripwires``: the plain K8, K8t,
+    K8b and K9, the model's blocked and einsum plans and the oracles."""
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import ref
@@ -2262,7 +2741,8 @@ def plain_attention_arms() -> tuple:
 
     return ((fp, "flash_prefill_plain"), (da, "decode_attn_plain"),
             (attention, "flash_attention"), (attention, "_decode_einsum"),
-            (ref, "prefill_attn"), (ref, "decode_attn"))
+            (ref, "prefill_attn"), (ref, "decode_attn"),
+            (fp, "flash_prefill_traj_plain"), (fp, "flash_prefill_bwd_plain"))
 
 
 def kernel_holds() -> dict:
@@ -3202,14 +3682,17 @@ def moe_serve_phase(phase: str, cfg, device, counted, counts, only, arms,
 
 def moe_slice(device, counted, counts, only) -> None:
     """The MoE phases: X1 OLMoE-1B-7B in f32 at 2 layers
-    (``moe_f32_phase``); X2 OLMoE-1B-7B in bf16 at full width and depth and
+    (``moe_f32_phase``); X2 OLMoE-1B-7B in bf16 at full width
+    (``SERVE_LAYERS`` depth) and
     X3 the Jamba hybrid cut to one period at 8 experts
     (``jamba_1_5_large_398b.ONE_PERIOD_8_EXPERTS``: attention, Mamba and
     MoE in one model, one cache and one captured tick) through both
     engines (``moe_serve_phase``); X4 Qwen3-30B-A3B in bf16 at full width
-    and depth through the wave engine, one wave.  The plain attention and
-    scan versions are armed to raise throughout; each phase prints its
-    peak memory."""
+    (``SERVE_LAYERS`` depth) through the wave engine, one wave; X5 OLMoE-1B-7B at full
+    width, 4 of its 16 layers, trained in bf16 at its capacity factor for
+    8 steps (``attention_train_run``, with the router metrics of each
+    step).  The plain attention and scan versions are armed to raise
+    throughout; each phase prints its peak memory."""
     from repro_torch.configs import get_arch
     from repro_torch.configs import jamba_1_5_large_398b as jamba
     from repro_torch.launch import serve as serve_lm
@@ -3221,13 +3704,15 @@ def moe_slice(device, counted, counts, only) -> None:
     attn = {k: holds[k] for k in ("flash_prefill", "decode_attn")}
     free_models("X1")
     moe_f32_phase(device, counted, counts, only, arms)
-    moe_serve_phase("X2", get_arch("olmoe-1b-7b"), device, counted, counts,
-                    only, arms, attn)
+    moe_serve_phase("X2", dataclasses.replace(
+        get_arch("olmoe-1b-7b"), n_layers=SERVE_LAYERS["olmoe-1b-7b"]),
+        device, counted, counts, only, arms, attn)
     moe_serve_phase("X3", jamba.ONE_PERIOD_8_EXPERTS, device, counted,
                     counts, only, arms, holds, vs_forward=True)
 
     free_models("X4")
-    cfg = get_arch("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b"),
+                              n_layers=SERVE_LAYERS["qwen3-moe-30b-a3b"])
     t0 = time.perf_counter()
     engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=N_SLOTS,
                                    max_seq=max(QWEN3_LENS) + QWEN3_NEW + 1,
@@ -3252,6 +3737,20 @@ def moe_slice(device, counted, counts, only) -> None:
           f"3.35 TB/s")
     del engine
     peak_memory("X4")
+
+    # --- X5. OLMoE-1B-7B trained: full width, 4 of its 16 layers ---------
+    # the full depth (6.92 B parameters, ~83 GB with AdamW's f32 moments)
+    # does not fit the card
+    free_models("X5")
+    cfg = dataclasses.replace(get_arch("olmoe-1b-7b"), n_layers=4)
+    run = attention_train_run("X5", cfg, 8, counted, counts, only, arms, {})
+    for h in run["report"]["history"]:
+        print(f"[X5] step {h['step']}: loss {h['loss']:.4f}, xent "
+              f"{h['xent']:.4f}, moe_load_balance {h['moe_load_balance']:.4f},"
+              f" moe_z_loss {h['moe_z_loss']:.4f}, moe_drop_frac "
+              f"{h['moe_drop_frac']:.4f} (capacity factor "
+              f"{cfg.moe.capacity_factor})")
+    peak_memory("X5")
 
 
 def main() -> None:
@@ -3286,7 +3785,9 @@ def main() -> None:
                bwd_k.lstm_seq_bwd, seq_k.lstm_seq_q8, seq_k.lstm_seq_q8_traj,
                bwd_k.lstm_seq_bwd_q8, wkv6_k.wkv6, wkv6_k.wkv6_traj,
                wkv6_k.wkv6_bwd, mamba_k.mamba_scan, mamba_k.mamba_scan_traj,
-               mamba_k.mamba_scan_bwd, fp_k.flash_prefill, da_k.decode_attn)
+               mamba_k.mamba_scan_bwd, fp_k.flash_prefill,
+               fp_k.flash_prefill_traj, fp_k.flash_prefill_bwd,
+               da_k.decode_attn)
 
     def counts() -> dict:
         return {fn.__name__: fn.launches for fn in counted}

@@ -27,7 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("lstm_cell", "lstm_seq", "lstm_seq_bwd", "wkv6", "wkv6_bwd",
-           "mamba_scan", "mamba_scan_bwd", "flash_prefill", "decode_attn")
+           "mamba_scan", "mamba_scan_bwd", "flash_prefill",
+           "flash_prefill_bwd", "decode_attn")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -53,6 +53,16 @@
 //     before the PV product (the plain version's round_p repeats it); q . k
 //     of bf16 inputs is exact in both, and both sum in f32.
 //
+// K8t, the training forward (flash_prefill_tc_traj, flash_prefill_f32_traj):
+// either instance with its kLse flag set also writes each query row's
+// log-sum-exp, lse = m + log(max(l, 1e-30)) in f32, laid out (B, Hq, S),
+// for the backward K8b (flash_prefill_bwd.cu), which recomputes p from it.
+// The flag adds one store to the epilogue and changes nothing before it, so
+// at the same tiles K8t's output is K8's, bit for bit.  The tensor-core
+// instance keeps m in the exp2 domain and converts it to the natural log
+// once, there.  K8t has no TPU counterpart: the JAX package trains through
+// its jnp flash_attention, which XLA differentiates.
+//
 // The SIMT instance (f32; flash_prefill_f32).  f32 on the tensor cores
 // would be TF32, ~3 decimal digits, outside the f32 gates, so f32 keeps
 // the first version: a block of 2 qb threads owns a q tile of qb rows and
@@ -65,18 +75,32 @@
 // the 16-byte loads of a warp fall on distinct banks; rows at or past S are
 // zero and masked.  Its f32 fmaf on the CUDA cores peak at 67 TFLOP/s.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include <atomic>
 
+// The tensor-core instance needs tensor maps (cuTensorMapEncodeTiled) and
+// wgmma: it is compiled by nvcc only.  The g++ mock of the CUDA runtime (tests/cuda_mock)
+// builds the SIMT instance alone.
+#ifdef __CUDACC__
+#include <cuda.h>
+
 #include "hopper.cuh"
+#endif
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ bool key_ok(int qp, int kp, int S, int window) {
+  return kp <= qp && kp < S && (window <= 0 || qp - kp < window);
+}
+
+#ifdef __CUDACC__
 
 // ===========================================================================
 // The tensor-core instance
@@ -121,10 +145,6 @@ __device__ __forceinline__ void pv_product(float (&o)[DHP / 2],
   if constexpr (DHP == 64) hopper::wgmma_rs_n64(o, p, dv);
   if constexpr (DHP == 128) hopper::wgmma_rs_n128(o, p, dv);
   if constexpr (DHP == 192) hopper::wgmma_rs_n192(o, p, dv);
-}
-
-__device__ __forceinline__ bool key_ok(int qp, int kp, int S, int window) {
-  return kp <= qp && kp < S && (window <= 0 || qp - kp < window);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -202,13 +222,15 @@ __device__ __forceinline__ void softmax_tile(
   m1 = mn1;
 }
 
-template <int DHP, int KB>
+// kLse (K8t): also write each row's log-sum-exp to lse (B, Hq, S)
+template <int DHP, int KB, bool kLse>
 __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(KB, DHP))
     flash_prefill_tc_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
-                            __nv_bfloat16* __restrict__ o, int B, int S,
-                            int Hq, int Hkv, int dh, int window, float scale) {
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int B, int S, int Hq,
+                            int Hkv, int dh, int window, float scale) {
   constexpr int kChunks = DHP / kAtomCols;      // column blocks of a row
   constexpr int kQBytes = 2 * kTcQBlock * DHP;
   constexpr int kTileBytes = 2 * KB * DHP;      // one k or v tile
@@ -363,6 +385,15 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(KB, DHP))
             acc[4 * j + 2] / lc1, acc[4 * j + 3] / lc1);
     }
   }
+  // K8t: the quad's first thread writes its two rows' lse; m is in the exp2
+  // domain (scores times scale log2(e)), so m ln(2) is the natural maximum
+  if constexpr (kLse) {
+    if ((lane & 3) == 0) {
+      float* row = lse + ((long long)b * Hq + hq) * S;
+      if (qp0 < S) row[qp0] = m0 * kLn2 + logf(lc0);
+      if (qp1 < S) row[qp1] = m1 * kLn2 + logf(lc1);
+    }
+  }
 }
 
 // cuTensorMapEncodeTiled, taken from the driver through the runtime so
@@ -416,15 +447,15 @@ int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int DHP, int KB>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int Hq, int Hkv, int dh, int window, float scale,
-              long long smem, cudaStream_t stream) {
+template <int DHP, int KB, bool kLse>
+int launch_tc(const void* q, const void* k, const void* v, void* o,
+              float* lse, int B, int S, int Hq, int Hkv, int dh, int window,
+              float scale, long long smem, cudaStream_t stream) {
   if (smem != tc_smem_bytes(KB, DHP)) return (int)cudaErrorInvalidValue;
   static std::atomic<long long> granted{48 * 1024};
   if (smem > granted.load()) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_tc_kernel<DHP, KB>,
+        flash_prefill_tc_kernel<DHP, KB, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     granted.store(smem);
@@ -437,27 +468,66 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int B,
   const long long blocks =
       (long long)((S + kTcQBlock - 1) / kTcQBlock) * B * Hq;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_prefill_tc_kernel<DHP, KB>
+  flash_prefill_tc_kernel<DHP, KB, kLse>
       <<<(unsigned)blocks, kTcThreads, (size_t)smem, stream>>>(
-          tq, tk, tv, (__nv_bfloat16*)o, B, S, Hq, Hkv, dh, window, scale);
+          tq, tk, tv, (__nv_bfloat16*)o, lse, B, S, Hq, Hkv, dh, window,
+          scale);
   return (int)cudaGetLastError();
+}
+
+// K8 without lse, K8t with it
+template <int DHP, int KB>
+int launch_tc_lse(const void* q, const void* k, const void* v, void* o,
+                  float* lse, int B, int S, int Hq, int Hkv, int dh,
+                  int window, float scale, long long smem,
+                  cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch_tc<DHP, KB, true>(q, k, v, o, lse, B, S, Hq, Hkv, dh,
+                                    window, scale, smem, stream);
+  return launch_tc<DHP, KB, false>(q, k, v, o, lse, B, S, Hq, Hkv, dh,
+                                   window, scale, smem, stream);
 }
 
 template <int DHP>
 int launch_tc_kb(const void* q, const void* k, const void* v, void* o,
-                 int B, int S, int Hq, int Hkv, int dh, int kb, int window,
-                 float scale, long long smem, cudaStream_t stream) {
+                 float* lse, int B, int S, int Hq, int Hkv, int dh, int kb,
+                 int window, float scale, long long smem,
+                 cudaStream_t stream) {
   switch (kb) {
     case 32:
-      return launch_tc<DHP, 32>(q, k, v, o, B, S, Hq, Hkv, dh, window, scale,
-                                smem, stream);
+      return launch_tc_lse<DHP, 32>(q, k, v, o, lse, B, S, Hq, Hkv, dh,
+                                    window, scale, smem, stream);
     case 64:
-      return launch_tc<DHP, 64>(q, k, v, o, B, S, Hq, Hkv, dh, window, scale,
-                                smem, stream);
+      return launch_tc_lse<DHP, 64>(q, k, v, o, lse, B, S, Hq, Hkv, dh,
+                                    window, scale, smem, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+int launch_tc_dh(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int S, int Hq, int Hkv, int dh, int kb,
+                 int window, float scale, long long smem, void* stream) {
+  if (B < 1 || S < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || window < 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (dh) {
+    case 16:
+    case 32:
+    case 64:
+      return launch_tc_kb<64>(q, k, v, o, lse, B, S, Hq, Hkv, dh, kb, window,
+                              scale, smem, st);
+    case 128:
+      return launch_tc_kb<128>(q, k, v, o, lse, B, S, Hq, Hkv, dh, kb,
+                               window, scale, smem, st);
+    case 160:
+      return launch_tc_kb<192>(q, k, v, o, lse, B, S, Hq, Hkv, dh, kb,
+                               window, scale, smem, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+#endif  // __CUDACC__
 
 // ===========================================================================
 // The SIMT instance
@@ -491,13 +561,14 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ src,
   }
 }
 
-template <int DH>
+// kLse (K8t): also write each row's log-sum-exp to lse (B, Hq, S)
+template <int DH, bool kLse>
 __global__ void __launch_bounds__(2 * kMaxQBlock)
     flash_prefill_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         int S, int Hq, int Hkv, int qb, int kb, int window,
-                         float scale) {
+                         float* __restrict__ lse, int S, int Hq, int Hkv,
+                         int qb, int kb, int window, float scale) {
   constexpr int kLd = DH + kPad;
   constexpr int kOut = DH / 8;  // 4-wide output chunks a thread owns
   extern __shared__ float4 smem4[];
@@ -613,31 +684,47 @@ __global__ void __launch_bounds__(2 * kMaxQBlock)
       *reinterpret_cast<float4*>(orow + 8 * a) =
           make_float4(acc[4 * a] / lc, acc[4 * a + 1] / lc,
                       acc[4 * a + 2] / lc, acc[4 * a + 3] / lc);
+    // K8t: m and l are the pair's; the first thread writes the row's lse
+    if constexpr (kLse)
+      if (half == 0) lse[((long long)b * Hq + hq) * S + qp] = m + logf(lc);
   }
 }
 
-template <int DH>
-int launch_dh(const float* q, const float* k, const float* v, float* o,
-              int B, int S, int Hq, int Hkv, int qb, int kb, int window,
-              float scale, long long smem, cudaStream_t stream) {
+template <int DH, bool kLse>
+int launch_simt(const float* q, const float* k, const float* v, float* o,
+                float* lse, int B, int S, int Hq, int Hkv, int qb, int kb,
+                int window, float scale, long long smem,
+                cudaStream_t stream) {
   // raise the block's shared-memory limit once per instance
   static std::atomic<long long> granted{48 * 1024};
   if (smem > granted.load()) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_prefill_kernel<DH>,
+        flash_prefill_kernel<DH, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     granted.store(smem);
   }
   const dim3 grid((S + qb - 1) / qb, Hq, B);
-  flash_prefill_kernel<DH><<<grid, 2 * qb, (size_t)smem, stream>>>(
-      q, k, v, o, S, Hq, Hkv, qb, kb, window, scale);
+  flash_prefill_kernel<DH, kLse><<<grid, 2 * qb, (size_t)smem, stream>>>(
+      q, k, v, o, lse, S, Hq, Hkv, qb, kb, window, scale);
   return (int)cudaGetLastError();
 }
 
-int launch(const float* q, const float* k, const float* v, float* o, int B,
-           int S, int Hq, int Hkv, int dh, int qb, int kb, int window,
-           float scale, long long smem, void* stream_) {
+// K8 without lse, K8t with it
+template <int DH>
+int launch_dh(const float* q, const float* k, const float* v, float* o,
+              float* lse, int B, int S, int Hq, int Hkv, int qb, int kb,
+              int window, float scale, long long smem, cudaStream_t stream) {
+  if (lse != nullptr)
+    return launch_simt<DH, true>(q, k, v, o, lse, B, S, Hq, Hkv, qb, kb,
+                                 window, scale, smem, stream);
+  return launch_simt<DH, false>(q, k, v, o, lse, B, S, Hq, Hkv, qb, kb,
+                                window, scale, smem, stream);
+}
+
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int B, int S, int Hq, int Hkv, int dh, int qb, int kb,
+           int window, float scale, long long smem, void* stream_) {
   if (B < 1 || S < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || qb < 16 ||
       qb > kMaxQBlock || qb % 16 != 0 || kb < 2 || kb > kMaxKBlock ||
       kb % 2 != 0 || window < 0 || Hq > 65535 || B > 65535)
@@ -647,20 +734,20 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
   const cudaStream_t stream = (cudaStream_t)stream_;
   switch (dh) {
     case 16:
-      return launch_dh<16>(q, k, v, o, B, S, Hq, Hkv, qb, kb, window, scale,
-                           smem, stream);
+      return launch_dh<16>(q, k, v, o, lse, B, S, Hq, Hkv, qb, kb, window,
+                           scale, smem, stream);
     case 32:
-      return launch_dh<32>(q, k, v, o, B, S, Hq, Hkv, qb, kb, window, scale,
-                           smem, stream);
+      return launch_dh<32>(q, k, v, o, lse, B, S, Hq, Hkv, qb, kb, window,
+                           scale, smem, stream);
     case 64:
-      return launch_dh<64>(q, k, v, o, B, S, Hq, Hkv, qb, kb, window, scale,
-                           smem, stream);
+      return launch_dh<64>(q, k, v, o, lse, B, S, Hq, Hkv, qb, kb, window,
+                           scale, smem, stream);
     case 128:
-      return launch_dh<128>(q, k, v, o, B, S, Hq, Hkv, qb, kb, window, scale,
-                            smem, stream);
+      return launch_dh<128>(q, k, v, o, lse, B, S, Hq, Hkv, qb, kb, window,
+                            scale, smem, stream);
     case 160:
-      return launch_dh<160>(q, k, v, o, B, S, Hq, Hkv, qb, kb, window, scale,
-                            smem, stream);
+      return launch_dh<160>(q, k, v, o, lse, B, S, Hq, Hkv, qb, kb, window,
+                            scale, smem, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -670,6 +757,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
 
 extern "C" {
 
+#ifdef __CUDACC__
 // q, o (B, S, Hq, dh); k, v (B, S, Hkv, dh); all contiguous and 16-byte
 // aligned, bf16.  dh is 16, 32, 64, 128 or 160 (padded to 64, 64, 64, 128,
 // 192 in shared memory); kb 32 or 64; window 0 for full causal attention.
@@ -678,25 +766,20 @@ extern "C" {
 int flash_prefill_tc(const void* q, const void* k, const void* v, void* o,
                      int B, int S, int Hq, int Hkv, int dh, int kb,
                      int window, float scale, long long smem, void* stream) {
-  if (B < 1 || S < 1 || Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || window < 0)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 16:
-    case 32:
-    case 64:
-      return launch_tc_kb<64>(q, k, v, o, B, S, Hq, Hkv, dh, kb, window,
-                              scale, smem, st);
-    case 128:
-      return launch_tc_kb<128>(q, k, v, o, B, S, Hq, Hkv, dh, kb, window,
-                               scale, smem, st);
-    case 160:
-      return launch_tc_kb<192>(q, k, v, o, B, S, Hq, Hkv, dh, kb, window,
-                               scale, smem, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_tc_dh(q, k, v, o, nullptr, B, S, Hq, Hkv, dh, kb, window,
+                      scale, smem, stream);
 }
+
+// K8t on the tensor cores: flash_prefill_tc that also writes lse (B, Hq, S)
+// f32, each row's m + log(max(l, 1e-30)) in the natural log.
+int flash_prefill_tc_traj(const void* q, const void* k, const void* v,
+                          void* o, float* lse, int B, int S, int Hq, int Hkv,
+                          int dh, int kb, int window, float scale,
+                          long long smem, void* stream) {
+  return launch_tc_dh(q, k, v, o, lse, B, S, Hq, Hkv, dh, kb, window, scale,
+                      smem, stream);
+}
+#endif  // __CUDACC__
 
 // q, o (B, S, Hq, dh); k, v (B, S, Hkv, dh); all contiguous and 16-byte
 // aligned, f32.  dh is 16, 32, 64, 128 or 160; qb a multiple of 16 up to 64,
@@ -707,8 +790,18 @@ int flash_prefill_f32(const float* q, const float* k, const float* v,
                       float* o, int B, int S, int Hq, int Hkv, int dh, int qb,
                       int kb, int window, float scale, long long smem,
                       void* stream) {
-  return launch(q, k, v, o, B, S, Hq, Hkv, dh, qb, kb, window, scale, smem,
-                stream);
+  return launch(q, k, v, o, nullptr, B, S, Hq, Hkv, dh, qb, kb, window,
+                scale, smem, stream);
+}
+
+// K8t on the SIMT instance: flash_prefill_f32 that also writes lse
+// (B, Hq, S) f32.
+int flash_prefill_f32_traj(const float* q, const float* k, const float* v,
+                           float* o, float* lse, int B, int S, int Hq,
+                           int Hkv, int dh, int qb, int kb, int window,
+                           float scale, long long smem, void* stream) {
+  return launch(q, k, v, o, lse, B, S, Hq, Hkv, dh, qb, kb, window, scale,
+                smem, stream);
 }
 
 const char* flash_prefill_error_string(int err) {

@@ -1,5 +1,6 @@
-"""Blocked causal prefill attention (K8): wrapper, budget tables, launch
-counters and plain version.
+"""Blocked causal prefill attention (K8), its training forward (K8t) and
+its backward (K8b): wrappers, budget tables, launch counters, plain
+versions and the autograd Function that pairs K8t with K8b.
 
 Replaces the JAX package's Pallas kernel ``kernels/flash_prefill.py:
 _kernel`` (launched by ``flash_prefill``'s ``pallas_call``) with the CUDA
@@ -41,11 +42,31 @@ order of the online softmax's sums, not its function: results agree
 across tiles to rounding (2e-4 in f32, the JAX package's block-invariance
 tolerance).
 
+Training (``_FlashPrefillFn``, which ``flash_prefill`` runs when autograd
+would record the call).  Neither kernel has a TPU counterpart: the JAX
+package trains through its jnp ``flash_attention``, which XLA
+differentiates, and gives K8 no VJP.
+* K8t (``flash_prefill_traj``, ``csrc/flash_prefill.cu`` with its kLse
+  flag): K8 at the same tiles, bit for bit, that also writes each query
+  row's log-sum-exp ``lse = m + log(max(l, 1e-30))``, f32 (B, Hq, S).
+* K8b (``flash_prefill_bwd``, ``csrc/flash_prefill_bwd.cu``): dq, dk and
+  dv from dO, q, k, v, o and lse, in the IO dtype, the math in f32: D =
+  rowsum(dO o), p recomputed tile by tile as exp(scale q.k - lse) under
+  K8's mask (fully masked tiles skipped), dv = p^T dO, ds = p (dO v^T -
+  D), dq = scale ds k, dk = scale ds^T q, dk and dv summed over each GQA
+  group.  Two SIMT kernels in one call, no atomics: a dQ kernel over q
+  tiles (which writes D), then a dK/dV kernel over kv tiles.  Its tiling
+  is ``BwdBlocks``, priced by ``bwd_working_set_bytes`` and chosen by
+  ``choose_bwd_blocks``.
+With remat each training step runs K8t twice an attention layer (the
+forward and its recompute) and K8b once; ``eval_step`` runs K8 alone.
+
 A tensor on the CPU takes the plain version, which repeats the kernel's
-tiles in PyTorch; a tensor on the card launches a kernel or raises, and
-raises under autograd (the JAX package gives the kernel no VJP).
-``flash_prefill.launches`` counts kernel launches of either instance and
-nothing else.
+tiles in PyTorch (``flash_prefill_plain``, ``flash_prefill_traj_plain``,
+``flash_prefill_bwd_plain``; float64 too, for gradient checks); a tensor
+on the card launches a kernel or raises.  ``flash_prefill.launches``,
+``flash_prefill_traj.launches`` and ``flash_prefill_bwd.launches`` count
+kernel launches (K8b's two kernels count as one call) and nothing else.
 """
 from __future__ import annotations
 
@@ -95,12 +116,34 @@ MBARRIER_BYTES = 8
 #: overlaps another's products and loads
 TC_MIN_BLOCKS_PER_SM = 2
 
+# The backward K8b (csrc/flash_prefill_bwd.cu)
+#: rows a block of the dQ kernel owns (four threads a row: 128 threads)
+BWD_DQ_ROWS = 32
+#: rows a block of the dK/dV kernel owns (64 threads): it loops over the
+#: whole GQA group, so its blocks are fewer; smaller ones fill the card
+BWD_DKV_ROWS = 16
+#: rows of the streamed tile, coarsest first (a multiple of 4, at most 64)
+BWD_TILES = (64, 32, 16)
+#: bytes of padding after each staged row (kPadBytes)
+BWD_PAD_BYTES = 16
+#: blocks of either backward kernel the table keeps on an SM
+BWD_MIN_BLOCKS_PER_SM = 2
+
 
 class PrefillBlocks(NamedTuple):
     """K8's tiling: rows of a q tile (a thread block, two threads a row) x
     rows of a kv tile (staged in shared memory, one tile at a time)."""
     q_block: int
     k_block: int
+
+
+class BwdBlocks(NamedTuple):
+    """K8b's tiling: query rows a dQ block owns, key rows a dK/dV block
+    owns (four threads a row), and rows of the tile each streams (kv rows
+    for dQ, q rows for dK/dV)."""
+    dq_rows: int
+    dkv_rows: int
+    tile: int
 
 
 def padded_head_dim(dh: int) -> int:
@@ -188,6 +231,45 @@ def choose_blocks(seq_len: int, dh: int, dtype: torch.dtype = F32
     return None
 
 
+def bwd_working_set_bytes(rows: int, tile: int, dh: int,
+                          dtype: torch.dtype = F32, dq: bool = True) -> int:
+    """Dynamic shared memory of one block of K8b's dQ kernel (``dq``) or
+    its dK/dV kernel, exactly as the C side launches it: the owned rows
+    of two tensors (q and dO, or k and v) and a streamed tile of two (k
+    and v, or q and dO), each row dh values in the IO type plus
+    ``BWD_PAD_BYTES``; for dK/dV also the streamed rows' lse and D
+    (f32)."""
+    io = 2 if dtype == torch.bfloat16 else 4
+    ws = tiling.WorkingSet()
+    ws.add("owned", 2 * rows * (dh * io + BWD_PAD_BYTES))
+    ws.add("streamed", 2 * tile * (dh * io + BWD_PAD_BYTES))
+    if not dq:
+        ws.add("lse_d", 2 * 4 * tile)
+    return ws.total()
+
+
+def choose_bwd_blocks(seq_len: int, dh: int, dtype: torch.dtype = F32
+                      ) -> BwdBlocks | None:
+    """K8b's tiling for a sequence of ``seq_len`` at head width ``dh`` in
+    ``dtype``: ``BWD_DQ_ROWS`` and ``BWD_DKV_ROWS`` owned rows, and the
+    coarsest streamed tile of ``BWD_TILES`` that is no longer than the
+    sequence needs (S rounded up to a multiple of 16) and leaves
+    ``BWD_MIN_BLOCKS_PER_SM`` blocks of both kernels on an SM.  None when
+    the kernel has no instance for ``dh`` or no tile fits."""
+    if dh not in HEAD_DIMS or dtype not in _IO_DTYPES:
+        return None
+    need = factorization.round_up(max(seq_len, 1), 16)
+    for tile in BWD_TILES:
+        if tile > need and tile != BWD_TILES[-1]:
+            continue
+        sizes = (bwd_working_set_bytes(BWD_DQ_ROWS, tile, dh, dtype, True),
+                 bwd_working_set_bytes(BWD_DKV_ROWS, tile, dh, dtype, False))
+        if all(b <= factorization.H100_SMEM_PER_BLOCK
+               and blocks_per_sm(b) >= BWD_MIN_BLOCKS_PER_SM for b in sizes):
+            return BwdBlocks(BWD_DQ_ROWS, BWD_DKV_ROWS, tile)
+    return None
+
+
 def live_tiles(q0: int, q_block: int, k_block: int, seq_len: int,
                window: int) -> range:
     """The kv tiles a q tile starting at ``q0`` reads: from the window's
@@ -198,6 +280,18 @@ def live_tiles(q0: int, q_block: int, k_block: int, seq_len: int,
         first = (q0 - window + 1) // k_block
     last = min((seq_len - 1) // k_block, (q0 + q_block - 1) // k_block)
     return range(first, last + 1)
+
+
+def live_q_tiles(k0: int, k_rows: int, q_tile: int, seq_len: int,
+                 window: int) -> range:
+    """The q tiles a block of K8b's dK/dV kernel owning keys [k0, k0 +
+    k_rows) reads: from the tile holding query k0 (no earlier query sees
+    these keys) to the last query a key of the block reaches (the
+    sequence's end, or ``k0 + k_rows - 2 + window``)."""
+    last = (seq_len - 1) // q_tile
+    if window > 0:
+        last = min(last, (k0 + k_rows - 2 + window) // q_tile)
+    return range(k0 // q_tile, last + 1)
 
 
 def tile_order(batch: int, heads: int, seq_len: int
@@ -216,6 +310,60 @@ def tile_order(batch: int, heads: int, seq_len: int
 # ---------------------------------------------------------------------------
 # The plain version: the CPU path of the wrapper and the kernel's yardstick
 # ---------------------------------------------------------------------------
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32, or float64 for float64 inputs (the gradient checks)."""
+    return torch.float64 if t.dtype == torch.float64 else F32
+
+
+def _mask(qp: torch.Tensor, kp: torch.Tensor, window: int) -> torch.Tensor:
+    """K8's mask of (query, key) positions: causal, within the window."""
+    mask = qp[:, None] >= kp[None, :]
+    if window:
+        mask &= (qp[:, None] - kp[None, :]) < window
+    return mask
+
+
+def _forward_plain(q, k, v, window, scale, q_block, k_block, round_p
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The online softmax of K8, tile by tile: (o in q's dtype, lse f32 or
+    float64, (B, Hq, S))."""
+    B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    ct = _compute_dtype(q)
+    scale = dh ** -0.5 if scale is None else scale
+    q5 = q.to(ct).reshape(B, S, Hkv, g, dh)
+    k32, v32 = k.to(ct), v.to(ct)
+    pos = torch.arange(S, device=q.device)
+    outs, lses = [], []
+    for q0 in range(0, S, q_block):
+        qi = q5[:, q0:q0 + q_block]
+        qp = pos[q0:q0 + q_block]
+        n = qi.shape[1]
+        m = torch.full((B, Hkv, g, n), NEG_INF, dtype=ct, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, Hkv, g, n, dh, dtype=ct, device=q.device)
+        for kt in live_tiles(q0, q_block, k_block, S, window):
+            win = slice(kt * k_block, (kt + 1) * k_block)
+            mask = _mask(qp, pos[win], window)
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qi, k32[:, win]) * scale
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(-1)
+            pv = p.to(torch.bfloat16).to(ct) if round_p else p
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", pv, v32[:, win])
+            m = m_new
+        lc = torch.clamp_min(l, 1e-30)
+        out = acc / lc[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))          # (B, n, Hkv, g, dh)
+        lses.append(m + torch.log(lc))                    # (B, Hkv, g, n)
+    o = torch.cat(outs, dim=1).reshape(B, S, Hq, dh).to(q.dtype)
+    return o, torch.cat(lses, dim=-1).reshape(B, Hq, S)
+
+
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, window: int = 0, scale: float | None = None,
                         q_block: int = MAX_Q_BLOCK,
@@ -228,54 +376,108 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     grouping the query heads of each kv head.  ``round_p`` rounds p to
     bf16 before the PV product, as the tensor-core instance does (the row
     sums keep p in f32); the JAX kernel keeps p in f32 (the default)."""
+    return _forward_plain(q, k, v, window, scale, q_block, k_block,
+                          round_p)[0]
+
+
+def flash_prefill_traj_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: int = 0,
+                             scale: float | None = None,
+                             q_block: int = MAX_Q_BLOCK,
+                             k_block: int = MAX_K_BLOCK,
+                             round_p: bool = False
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K8t's function: ``flash_prefill_plain``'s output (the same code,
+    bit for bit) and each query row's ``lse = m + log(max(l, 1e-30))``,
+    (B, Hq, S) f32."""
+    return _forward_plain(q, k, v, window, scale, q_block, k_block, round_p)
+
+
+def flash_prefill_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
+                            window: int = 0, scale: float | None = None,
+                            blocks: BwdBlocks | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """K8b's function in PyTorch, step by step as the kernel runs it, in
+    f32 (float64 for float64 inputs): D = rowsum(dO o); then, for each q
+    tile of ``dq_rows`` over its live kv tiles, p = exp(scale q.k - lse)
+    under K8's mask, ds = p (dO v^T - D) and dq += ds k; for each kv tile
+    of ``dkv_rows`` over the live q tiles (``live_q_tiles``), dv += p^T dO
+    and dk += ds^T q, summed over the GQA group; dq and dk times the
+    scale.  Returns (dq, dk, dv) in the inputs' dtype.  The kernel keeps
+    p and ds in f32 and rounds only the outputs, so this version has no
+    rounding flag."""
     B, S, Hq, dh = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
+    ct = _compute_dtype(q)
     scale = dh ** -0.5 if scale is None else scale
-    q5 = q.to(F32).reshape(B, S, Hkv, g, dh)
-    k32, v32 = k.to(F32), v.to(F32)
+    bl = blocks or choose_bwd_blocks(S, dh, q.dtype) \
+        or BwdBlocks(BWD_DQ_ROWS, BWD_DKV_ROWS, BWD_TILES[0])
+    q5 = q.to(ct).reshape(B, S, Hkv, g, dh)
+    do5 = dout.to(ct).reshape(B, S, Hkv, g, dh)
+    k32, v32 = k.to(ct), v.to(ct)
+    lse4 = lse.to(ct).reshape(B, Hkv, g, S)
+    d4 = (do5 * o.to(ct).reshape(B, S, Hkv, g, dh)).sum(-1) \
+        .permute(0, 2, 3, 1)                             # (B, Hkv, g, S)
     pos = torch.arange(S, device=q.device)
-    outs = []
-    for q0 in range(0, S, q_block):
-        qi = q5[:, q0:q0 + q_block]
-        qp = pos[q0:q0 + q_block]
-        n = qi.shape[1]
-        m = torch.full((B, Hkv, g, n), NEG_INF, dtype=F32, device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros(B, Hkv, g, n, dh, dtype=F32, device=q.device)
-        for kt in live_tiles(q0, q_block, k_block, S, window):
-            win = slice(kt * k_block, (kt + 1) * k_block)
-            kp = pos[win]
-            mask = qp[:, None] >= kp[None, :]
-            if window:
-                mask &= (qp[:, None] - kp[None, :]) < window
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qi, k32[:, win]) * scale
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
-            l = l * alpha + p.sum(-1)
-            pv = p.to(torch.bfloat16).to(F32) if round_p else p
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", pv, v32[:, win])
-            m = m_new
-        out = acc / torch.clamp_min(l, 1e-30)[..., None]
-        outs.append(out.permute(0, 3, 1, 2, 4))          # (B, n, Hkv, g, dh)
-    return torch.cat(outs, dim=1).reshape(B, S, Hq, dh).to(q.dtype)
+
+    def probs(q0, n, k0, m):
+        """p and ds of queries [q0, q0 + n) against keys [k0, k0 + m):
+        (B, Hkv, g, n, m) each."""
+        qs, ks = slice(q0, q0 + n), slice(k0, k0 + m)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q5[:, qs], k32[:, ks])
+        mask = _mask(pos[qs], pos[ks], window)
+        p = torch.where(mask, torch.exp(s * scale - lse4[..., qs, None]),
+                        0.0)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", do5[:, qs], v32[:, ks])
+        return p, p * (dp - d4[..., qs, None])
+
+    dq = torch.empty(B, S, Hkv, g, dh, dtype=ct, device=q.device)
+    for q0 in range(0, S, bl.dq_rows):
+        n = min(bl.dq_rows, S - q0)
+        acc = torch.zeros(B, Hkv, g, n, dh, dtype=ct, device=q.device)
+        for kt in live_tiles(q0, bl.dq_rows, bl.tile, S, window):
+            k0 = kt * bl.tile
+            _, ds = probs(q0, n, k0, min(bl.tile, S - k0))
+            acc += torch.einsum("bhgqk,bkhd->bhgqd", ds,
+                                k32[:, k0:k0 + bl.tile])
+        dq[:, q0:q0 + n] = (acc * scale).permute(0, 3, 1, 2, 4)
+    dk = torch.empty(B, S, Hkv, dh, dtype=ct, device=q.device)
+    dv = torch.empty_like(dk)
+    for k0 in range(0, S, bl.dkv_rows):
+        m = min(bl.dkv_rows, S - k0)
+        acc_k = torch.zeros(B, Hkv, m, dh, dtype=ct, device=q.device)
+        acc_v = torch.zeros_like(acc_k)
+        for qt in live_q_tiles(k0, bl.dkv_rows, bl.tile, S, window):
+            q0 = qt * bl.tile
+            n = min(bl.tile, S - q0)
+            p, ds = probs(q0, n, k0, m)
+            qs = slice(q0, q0 + n)
+            acc_v += torch.einsum("bhgqk,bqhgd->bhkd", p, do5[:, qs])
+            acc_k += torch.einsum("bhgqk,bqhgd->bhkd", ds, q5[:, qs])
+        dk[:, k0:k0 + m] = (acc_k * scale).transpose(1, 2)
+        dv[:, k0:k0 + m] = acc_v.transpose(1, 2)
+    return (dq.reshape(B, S, Hq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------
 # The launch
 # ---------------------------------------------------------------------------
-def _entry(kind: str):
-    """The C entry point of an instance: q, k, v, o, then B, S, Hq, Hkv,
-    dh, (the SIMT instance's q_block,) k_block, window, the scale, the
-    shared-memory bytes and the stream."""
+def _entry(kind: str, lse: bool = False):
+    """The C entry point of an instance (K8t's with ``lse``): q, k, v, o,
+    (lse,) then B, S, Hq, Hkv, dh, (the SIMT instance's q_block,)
+    k_block, window, the scale, the shared-memory bytes and the stream."""
     lib = _build.load("flash_prefill")
-    fn = getattr(lib, "flash_prefill_" + ("tc" if kind == "tc" else "f32"))
+    fn = getattr(lib, "flash_prefill_" + ("tc" if kind == "tc" else "f32")
+                 + ("_traj" if lse else ""))
     if fn.argtypes is None:
         ints = 7 if kind == "tc" else 8
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
+        fn.argtypes = ([ctypes.c_void_p] * (5 if lse else 4)
+                       + [ctypes.c_int] * ints
                        + [ctypes.c_float, ctypes.c_longlong,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -294,43 +496,29 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_prefill: q, k and v must share a device")
 
 
-def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  window: int = 0, scale: float | None = None,
-                  q_block: int | None = None, k_block: int | None = None
-                  ) -> torch.Tensor:
-    """Causal (optionally windowed) GQA attention over a whole prefill —
-    ONE kernel launch (K8).
+def _tiles(q: torch.Tensor, q_block: int | None, k_block: int | None
+           ) -> tuple[int, int]:
+    """The tiles of a forward call: the caller's, else ``choose_blocks``."""
+    chosen = choose_blocks(q.shape[1], q.shape[3], q.dtype) \
+        or PrefillBlocks(MAX_Q_BLOCK, MAX_K_BLOCK)
+    return (chosen.q_block if q_block is None else q_block,
+            chosen.k_block if k_block is None else k_block)
 
-    q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh).  Returns (B, S, Hq, dh) in
-    q's dtype.  Any S; ``q_block``/``k_block`` default to
-    ``choose_blocks`` for q's dtype.  On the card q, k and v share one
-    dtype and dh is one of ``HEAD_DIMS``: bfloat16 runs the tensor-core
-    instance (q_block ``TC_Q_BLOCK``, k_block one of ``TC_K_BLOCKS``),
-    float32 the SIMT instance (q_block a multiple of 16 up to
-    ``MAX_Q_BLOCK``, k_block even up to ``MAX_K_BLOCK``); no bf16 head
-    width is left on the SIMT instance.  A call that autograd would record
-    raises there.  The CPU runs ``flash_prefill_plain``."""
-    _validate(q, k, v)
+
+def _card_checks(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """Raise unless the call can launch a kernel on the card."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} on the card takes q, k and v in one "
+                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def _launch_fwd(q, k, v, window, scale, qb, kb, with_lse):
+    """One K8 launch (K8t with ``with_lse``): (o, lse or None)."""
     B, S, Hq, dh = q.shape
     Hkv = k.shape[2]
-    scale = dh ** -0.5 if scale is None else float(scale)
-    chosen = choose_blocks(S, dh, q.dtype) \
-        or PrefillBlocks(MAX_Q_BLOCK, MAX_K_BLOCK)
-    qb = chosen.q_block if q_block is None else q_block
-    kb = chosen.k_block if k_block is None else k_block
-    if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, window=window, scale=scale,
-                                   q_block=qb, k_block=kb)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_prefill runs on cpu or cuda, not "
-                         f"{q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash_prefill has no backward: the kernel K8 "
-                           "serves prefill only (the JAX package gives it "
-                           "no VJP)")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_prefill on the card takes q, k and v in one "
-                        f"dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     kind = route(q.dtype, dh)
     smem = working_set_bytes(qb, kb, dh, q.dtype)
     if kind == "tc":
@@ -346,19 +534,167 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{MAX_K_BLOCK})")
     q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     out = torch.empty_like(q)
-    lib, fn = _entry(kind)
+    lse = (torch.empty(B, Hq, S, dtype=F32, device=q.device) if with_lse
+           else None)
+    lib, fn = _entry(kind, with_lse)
     tiles = (kb,) if kind == "tc" else (qb, kb)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-             Hq, Hkv, dh, *tiles, int(window), scale, smem,
+    ptrs = (q, k, v, out) + ((lse,) if with_lse else ())
+    err = fn(*(t.data_ptr() for t in ptrs), B, S, Hq, Hkv, dh, *tiles,
+             int(window), scale, smem,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_prefill", err)
+    return out, lse
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int = 0, scale: float | None = None,
+                  q_block: int | None = None, k_block: int | None = None
+                  ) -> torch.Tensor:
+    """Causal (optionally windowed) GQA attention over a whole prefill —
+    ONE kernel launch (K8).
+
+    q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh).  Returns (B, S, Hq, dh) in
+    q's dtype.  Any S; ``q_block``/``k_block`` default to
+    ``choose_blocks`` for q's dtype.  On the card q, k and v share one
+    dtype and dh is one of ``HEAD_DIMS``: bfloat16 runs the tensor-core
+    instance (q_block ``TC_Q_BLOCK``, k_block one of ``TC_K_BLOCKS``),
+    float32 the SIMT instance (q_block a multiple of 16 up to
+    ``MAX_Q_BLOCK``, k_block even up to ``MAX_K_BLOCK``); no bf16 head
+    width is left on the SIMT instance.  The CPU runs
+    ``flash_prefill_plain``.
+
+    Differentiable: when autograd would record the call, it runs
+    ``_FlashPrefillFn`` — K8t forward and K8b backward (on the CPU their
+    plain versions)."""
+    _validate(q, k, v)
+    qb, kb = _tiles(q, q_block, k_block)
+    scale = q.shape[3] ** -0.5 if scale is None else float(scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashPrefillFn.apply(q, k, v, int(window), scale, qb, kb)
+    if q.device.type == "cpu":
+        return flash_prefill_plain(q, k, v, window=window, scale=scale,
+                                   q_block=qb, k_block=kb)
+    _card_checks("flash_prefill", q, k, v)
+    out, _ = _launch_fwd(q, k, v, window, scale, qb, kb, with_lse=False)
     flash_prefill.launches += 1
-    if kind == "tc":
+    if route(q.dtype, q.shape[3]) == "tc":
         flash_prefill.tc_launches += 1
     return out
 
 
+def flash_prefill_traj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, window: int = 0, scale: float | None = None,
+                       q_block: int | None = None,
+                       k_block: int | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The training forward — ONE kernel launch (K8t): ``flash_prefill``'s
+    output (bit for bit at the same tiles, on the same instance) and each
+    query row's log-sum-exp, (B, Hq, S) f32.  The CPU runs
+    ``flash_prefill_traj_plain``."""
+    _validate(q, k, v)
+    qb, kb = _tiles(q, q_block, k_block)
+    scale = q.shape[3] ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_prefill_traj_plain(q, k, v, window=window, scale=scale,
+                                        q_block=qb, k_block=kb)
+    _card_checks("flash_prefill_traj", q, k, v)
+    out, lse = _launch_fwd(q, k, v, window, scale, qb, kb, with_lse=True)
+    flash_prefill_traj.launches += 1
+    return out, lse
+
+
+def _bwd_entry(dtype: torch.dtype):
+    """K8b's C entry point for ``dtype``: q, k, v, o, dout, lse, D, dq,
+    dk, dv, then B, S, Hq, Hkv, dh, dq_rows, dkv_rows, tile, window, the
+    scale, both kernels' shared-memory bytes and the stream."""
+    lib = _build.load("flash_prefill_bwd")
+    fn = getattr(lib, "flash_prefill_bwd_"
+                 + ("bf16" if dtype == torch.bfloat16 else "f32"))
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_longlong,
+                          ctypes.c_longlong, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor,
+                      dout: torch.Tensor, *, window: int = 0,
+                      scale: float | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention backward — ONE call of two kernel launches (K8b):
+    (dq, dk, dv) in the inputs' dtype from the forward's q, k, v, its
+    output o and K8t's lse (B, Hq, S) f32, and the output's gradient
+    ``dout``, at the tiles of ``choose_bwd_blocks``.  On the card q, k, v,
+    o and dout share one dtype (float32 or bfloat16) and dh is one of
+    ``HEAD_DIMS``; anything else raises.  The CPU runs
+    ``flash_prefill_bwd_plain``."""
+    _validate(q, k, v)
+    if o.shape != q.shape or dout.shape != q.shape \
+            or lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(f"flash_prefill_bwd takes o and dout shaped as q "
+                         f"{tuple(q.shape)} and lse (B, Hq, S); got o "
+                         f"{tuple(o.shape)}, dout {tuple(dout.shape)}, lse "
+                         f"{tuple(lse.shape)}")
+    B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    scale = dh ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_prefill_bwd_plain(q, k, v, o, lse, dout, window=window,
+                                       scale=scale)
+    _card_checks("flash_prefill_bwd", q, k, v)
+    if o.dtype != q.dtype or dout.dtype != q.dtype or lse.dtype != F32:
+        raise TypeError(f"flash_prefill_bwd on the card takes o and dout in "
+                        f"q's dtype and lse in float32; got {o.dtype}, "
+                        f"{dout.dtype}, {lse.dtype}")
+    route(q.dtype, dh)                       # raises without an instance
+    bl = choose_bwd_blocks(S, dh, q.dtype)
+    if bl is None:
+        raise ValueError(f"flash_prefill_bwd: no tile of {BWD_TILES} fits "
+                         f"dh {dh} in {q.dtype}")
+    smem = (bwd_working_set_bytes(bl.dq_rows, bl.tile, dh, q.dtype, True),
+            bwd_working_set_bytes(bl.dkv_rows, bl.tile, dh, q.dtype, False))
+    ins = [_build.aligned(t) for t in (q, k, v, o, dout, lse)]
+    d = torch.empty(B, Hq, S, dtype=F32, device=q.device)
+    dq, dk, dv = (torch.empty_like(ins[0]), torch.empty_like(ins[1]),
+                  torch.empty_like(ins[2]))
+    lib, fn = _bwd_entry(q.dtype)
+    err = fn(*(t.data_ptr() for t in (*ins, d, dq, dk, dv)), B, S, Hq, Hkv,
+             dh, bl.dq_rows, bl.dkv_rows, bl.tile, int(window), scale,
+             *smem, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, "flash_prefill_bwd", err)
+    flash_prefill_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashPrefillFn(torch.autograd.Function):
+    """Attention under autograd: the forward is K8t, keeping q, k, v, its
+    output and the rows' lse, the backward is K8b.  The module's wrappers
+    are looked up at call time, so a wrapper installed in their place (a
+    counting or checking one) is the one that runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, scale, q_block, k_block):
+        o, lse = flash_prefill_traj(q, k, v, window=window, scale=scale,
+                                    q_block=q_block, k_block=k_block)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window, ctx.scale = window, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_bwd(q, k, v, o, lse,
+                                       dout.to(q.dtype).contiguous(),
+                                       window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
 #: kernel launches of either instance since the last reset, and those of
-#: the tensor-core instance (CPU calls are not counted)
+#: the tensor-core instance; K8t's launches; K8b's calls (two kernels each)
+#: (CPU calls are not counted)
 flash_prefill.launches = 0
 flash_prefill.tc_launches = 0
+flash_prefill_traj.launches = 0
+flash_prefill_bwd.launches = 0

@@ -12,10 +12,11 @@ row and ``di_tile`` channels per thread block; ``flash_prefill`` takes its
 ``decode_attn.choose_blocks`` and runs one (row, kv head, span of positions)
 per thread block.  Any block may be pinned by the caller.  CPU tensors run the kernels' plain versions; CUDA tensors
 launch the kernels.  The entries are differentiable: under autograd
-``lstm_seq``, ``lstm_seq_q8``, ``wkv6`` and ``mamba_scan`` pair their
-trajectory launch with their backward kernel, and ``lstm_cell`` takes the
-VJP of its plain version; the two attention kernels serve inference only
-and raise on the card under autograd.
+``lstm_seq``, ``lstm_seq_q8``, ``wkv6``, ``mamba_scan`` and
+``flash_prefill`` pair their trajectory launch (K8t: K8 that also writes
+each row's log-sum-exp) with their backward kernel (K8b for attention),
+and ``lstm_cell`` takes the VJP of its plain version; ``decode_attn``
+serves inference only and raises on the card under autograd.
 """
 from __future__ import annotations
 
@@ -115,8 +116,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh); ``window`` > 0 restricts each
     query to the last ``window`` positions.  Returns (B, S, Hq, dh) in q's
-    dtype.  The ``flash_prefill`` prefill plan of ``models/attention``
-    calls this."""
+    dtype.  Under autograd: the trajectory launch K8t forward and the
+    backward K8b (on the CPU their plain versions).  The ``flash_prefill``
+    prefill plan of ``models/attention`` calls this."""
     return _flash_prefill.flash_prefill(q, k, v, window=window, scale=scale,
                                         q_block=q_block, k_block=k_block)
 

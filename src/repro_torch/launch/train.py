@@ -1,21 +1,24 @@
 """Training entry point (the port's twin of the JAX package's
 ``launch/train.py``).
 
-Trains an architecture of the port (``rwkv6-3b``, or its ``--reduced``
-variant) on the synthetic LM pipeline (``data/lm.py``, the same tokens as
-the JAX trainer's for a seed) with AdamW under a warmup-cosine schedule,
-weights drawn from ``--seed`` on the device.  Every layer's time-mix runs
-the plan of ``models/rwkv.WKV_PLAN``: on the card ``chunked_scan``, whose
-training step is two kernel launches a layer (the trajectory forward K6t
-and the reverse sweep K6b), plus one more K6t a layer for the recompute of
-``remat`` (on, as in the JAX trainer).  A Mamba stack (``train(cfg,
-...)`` with an attention-free Jamba config) runs ``models/mamba.SCAN_PLAN``
-the same way: K7t and K7b, plus one more K7t a layer for the recompute.
-It prints the JAX trainer's per-step JSON lines and closing ``loss a ->
-b`` line, and before that the median and minimum step time (host clock
-around a step, ending in the loss's copy to the host).
+Trains an architecture of ``ARCHS`` that ``transformer.check_trainable``
+admits (``--arch``, default ``rwkv6-3b``, or its ``--reduced`` variant) on
+the synthetic LM pipeline (``data/lm.py``, the same tokens as the JAX
+trainer's for a seed) with AdamW under a warmup-cosine schedule, weights
+drawn from ``--seed`` on the device.  On the card each layer's mix runs
+its kernels, with ``remat`` on as in the JAX trainer: an RWKV6 time-mix
+(``models/rwkv.WKV_PLAN`` ``chunked_scan``) the trajectory forward K6t
+and the reverse sweep K6b, plus one more K6t for the recompute; a Mamba
+layer (``models/mamba.SCAN_PLAN``) K7t and K7b the same way; an attention
+layer (``models/attention.PREFILL_PLAN`` ``flash_prefill``: Qwen2, Yi,
+StableLM, Command-R, the MoE decoders OLMoE and Qwen3-MoE, the Jamba
+hybrid) K8t twice and the backward K8b once.  MoE layers train at the
+config's capacity factor.  It prints the JAX trainer's per-step JSON lines
+and closing ``loss a -> b`` line, and before that the median and minimum
+step time (host clock around a step, ending in the loss's copy to the
+host).
 
-  PYTHONPATH=src python -m repro_torch.launch.train [--arch rwkv6-3b]
+  PYTHONPATH=src python -m repro_torch.launch.train [--arch qwen2-0.5b]
       [--reduced] [--device cuda|cpu] [--steps N] [--batch B] [--seq S]
       [--lr LR] [--log-every N] [--seed N]
 

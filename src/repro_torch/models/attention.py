@@ -24,9 +24,11 @@ positions it covers, a prefill chunk (``chunk_prefill_attention``, the
 slot engine's chunked admission) its positions' slots, a decode step its
 slot, indexed by the device ``pos`` tensor, so no step waits on the host
 and a decode step can be captured in a CUDA graph (serving/tick.py).
-Training through attention is not ported (``transformer.forward`` raises
-under autograd for a config with attention layers): K8 has no backward in
-the JAX package either.
+Under autograd the ``flash_prefill`` plan trains: ``ops.flash_prefill``
+runs K8t (K8 that also writes each row's log-sum-exp) forward and the
+hand-written backward K8b (kernels/flash_prefill.py), where the JAX
+package differentiates its jnp ``flash_attention``; the ``blocked`` plan
+stays that function's twin, differentiated by autograd, for comparisons.
 """
 from __future__ import annotations
 

@@ -14,10 +14,10 @@ layers run in a Python loop over the groups.
 
 Four entry points share the block code:
   * forward        — full sequence from zero state (reference logits, and
-                     the training forward: differentiable, ``remat=``,
-                     except through attention, whose training is not
-                     ported); returns the MoE aux losses summed over the
-                     MoE layers
+                     the training forward: differentiable, ``remat=``;
+                     attention trains through K8t and K8b,
+                     kernels/flash_prefill.py); returns the MoE aux
+                     losses summed over the MoE layers
   * prefill        — full sequence, fills the decode cache IN PLACE
   * prefill_chunk  — one prompt segment continuing at ``cache['pos']``
                      (the slot engine's chunked admission), in place
@@ -75,19 +75,12 @@ def _check_ported(cfg: ModelConfig) -> None:
             f"{cfg.name}: only the rwkv6 and mamba mixes are ported")
 
 
-def _has_attention(cfg: ModelConfig) -> bool:
-    return any(cfg.layer_kind(s) == "attn" for s in range(cfg.period))
-
-
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config the port cannot differentiate: one with
-    attention layers (K8 has no backward; JAX trains through its jnp
-    blocked attention)."""
+    """Raise for a config the port cannot differentiate: one with audio
+    or vision fronts or an unported mix.  Every ported mix trains:
+    attention through K8t and K8b (``ops.flash_prefill`` under autograd),
+    rwkv6 through K6t and K6b, Mamba through K7t and K7b."""
     _check_ported(cfg)
-    if _has_attention(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: training through attention layers is not ported "
-            f"yet {_roadmap('Attention training')}")
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -341,9 +334,11 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     ``jax.checkpoint`` of its group function): only the groups' inputs
     are kept, and a group's forward runs twice per gradient.
     ``inference`` switches MoE layers to drop-free dispatch, so the
-    logits are those the prefill and decode paths give.  A config with
-    attention layers raises when autograd would record the call
-    (``check_trainable``)."""
+    logits are those the prefill and decode paths give.  Under autograd
+    an attention layer's prefill plan ``flash_prefill`` runs K8t forward
+    and K8b backward (twice K8t with ``remat``: the recompute); a config
+    the port cannot differentiate raises when autograd would record the
+    call (``check_trainable``)."""
     mode = "infer" if inference else "full"
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in tree_leaves(params)):

@@ -1,8 +1,8 @@
 """Step functions shared by training, serving and the smoke runs (the
 port's twin of the JAX package's ``steps.py``, for the dense attention,
 rwkv6, mamba and MoE paths: a config with audio codebooks or vision
-tokens raises, as ``models/transformer`` does, and ``loss_fn`` raises for
-a config with attention layers, whose training is not ported).  All take
+tokens raises, as ``models/transformer`` does; ``loss_fn`` differentiates
+every other config, attention through the kernels K8t and K8b).  All take
 the plain parameter and cache trees; the cache is updated in place, and
 ``train_step`` updates the parameters and the optimizer state in place
 (the JAX package donates them to its jits for the same effect).

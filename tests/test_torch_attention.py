@@ -29,7 +29,7 @@ from repro.models import common as jax_common  # noqa: E402
 from repro.models import registry as jax_registry  # noqa: E402
 from repro.partitioning import split  # noqa: E402
 
-from repro_torch import convert, steps  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.models import attention, common, registry  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -371,17 +371,42 @@ def test_decode_writes_the_cache_in_place(both):
     assert bool(k[:, :, 8].any()) and not bool(k[:, :, 9:].any())
 
 
-def test_training_through_attention_raises_naming_its_roadmap_item(both):
+def test_training_differentiates_through_attention(both, monkeypatch):
+    """Under autograd the reduced model differentiates through its
+    attention layers (K8t forward and K8b backward; on the CPU their plain
+    versions) with finite gradients on every leaf, the attention weights
+    included; under ``no_grad`` inference still takes K8's path (on the
+    CPU ``flash_prefill_plain``), K8t and K8b never."""
+    from repro_torch.kernels import flash_prefill as fp
+
     cfg, _, _, params = both
     toks = torch.from_numpy(_toks(cfg, 2, 8, seed=14))
+    calls = []
+    for name in ("flash_prefill_traj", "flash_prefill_bwd",
+                 "flash_prefill_plain"):
+        fn = getattr(fp, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+        monkeypatch.setattr(fp, name, counted)
     trainable = convert.params_from_numpy(convert.params_to_numpy(params))
     for t in tree_leaves(trainable):
         t.requires_grad_()
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP Queue 1, "Attention training"'):
-        registry.build(cfg).forward(trainable, {"tokens": toks})
-    with pytest.raises(NotImplementedError, match="Attention training"):
-        steps.loss_fn(params, cfg, {"tokens": toks})
-    with torch.no_grad():                          # inference still runs
+    logits, _ = registry.build(cfg).forward(trainable, {"tokens": toks})
+    grads = torch.autograd.grad(logits.square().mean(),
+                                tree_leaves(trainable))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    mix = trainable["blocks"][0]["mix"]
+    for name in ("wq", "wk", "wv", "wo"):
+        g, = torch.autograd.grad(registry.build(cfg).forward(
+            trainable, {"tokens": toks})[0].square().mean(), [mix[name]])
+        assert bool(g.abs().sum() > 0), name
+    L = cfg.n_layers
+    assert calls[:2 * L] == ["flash_prefill_traj"] * L + \
+        ["flash_prefill_bwd"] * L
+    calls.clear()
+    with torch.no_grad():                          # inference: K8's path
         logits, _ = registry.build(cfg).forward(trainable, {"tokens": toks})
     assert bool(torch.isfinite(logits).all())
+    assert calls == ["flash_prefill_plain"] * L

@@ -683,3 +683,150 @@ def test_the_c_side_prices_every_launch_as_the_tables_do():
                                                time_chunk=tc, quantized=q8)
                 assert fn(L, 1 if q8 else 4) == want
                 assert want <= factorization.H100_SMEM_PER_BLOCK
+
+
+# ---------------------------------------------------------------------------
+# Attention training: the SIMT instance of K8t (csrc/flash_prefill.cu; the
+# tensor-core instance needs wgmma and TMA, and is held on the card) and
+# K8b (csrc/flash_prefill_bwd.cu)
+# ---------------------------------------------------------------------------
+def _k8_call(lib, q, k, v, qb, kb, window, lse, smem=None):
+    """One K8 launch of the SIMT instance (K8t with ``lse``) under the
+    mock: (error code, o, lse)."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    B, S, Hq, dh = q.shape
+    o = torch.full_like(q, float("nan"))
+    rows = torch.full((B, Hq, S), float("nan"))
+    fn = lib.flash_prefill_f32_traj if lse else lib.flash_prefill_f32
+    ptrs = (q, k, v, o) + ((rows,) if lse else ())
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p])
+    smem = fp.working_set_bytes(qb, kb, dh) if smem is None else smem
+    err = fn(*(t.data_ptr() for t in ptrs), B, S, Hq, k.shape[2], dh, qb, kb,
+             window, dh ** -0.5, smem, None)
+    return err, o, rows
+
+
+def _k8b_call(lib, args, window, blocks, smem=None):
+    """One K8b call (its dQ and dK/dV kernels) under the mock: (error
+    code, dq, dk, dv, D)."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    q, k, v, o, lse, dout = args
+    B, S, Hq, dh = q.shape
+    d = torch.full((B, Hq, S), float("nan"))
+    grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
+    fn = (lib.flash_prefill_bwd_bf16 if q.dtype == torch.bfloat16
+          else lib.flash_prefill_bwd_f32)
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong,
+                      ctypes.c_void_p])
+    if smem is None:
+        smem = (fp.bwd_working_set_bytes(blocks.dq_rows, blocks.tile, dh,
+                                         q.dtype, True),
+                fp.bwd_working_set_bytes(blocks.dkv_rows, blocks.tile, dh,
+                                         q.dtype, False))
+    err = fn(*(t.data_ptr() for t in (q, k, v, o, dout, lse, d, *grads)), B,
+             S, Hq, k.shape[2], dh, *blocks, window, dh ** -0.5, *smem,
+             None)
+    return (err, *grads, d)
+
+
+def _attn_inputs(B, S, Hq, Hkv, dh, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(B, S, Hq, dh, generator=g),
+            torch.randn(B, S, Hkv, dh, generator=g),
+            torch.randn(B, S, Hkv, dh, generator=g),
+            torch.randn(B, S, Hq, dh, generator=g))
+
+
+@pytest.mark.parametrize("case", [
+    # (B, S, Hq, Hkv, dh, window, q_block, k_block): a ragged tail, GQA
+    # groups of 2 and 4, a window, several q and kv tiles
+    (1, 37, 4, 2, 16, 0, 16, 8), (1, 45, 4, 1, 32, 12, 32, 16),
+    (2, 20, 2, 2, 64, 0, 16, 4)])
+def test_simt_k8t_under_the_mock_matches_its_plain_version(case):
+    """K8t's SIMT instance writes K8's output bit for bit and each row's
+    lse, both against ``flash_prefill_traj_plain`` at the same tiles; two
+    runs give the same bits."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    B, S, Hq, Hkv, dh, w, qb, kb = case
+    lib = _lib("flash_prefill")
+    q, k, v, _ = _attn_inputs(B, S, Hq, Hkv, dh, seed=S)
+    err8, o8, _ = _k8_call(lib, q, k, v, qb, kb, w, lse=False)
+    err, o, lse = _k8_call(lib, q, k, v, qb, kb, w, lse=True)
+    _, o2, lse2 = _k8_call(lib, q, k, v, qb, kb, w, lse=True)
+    assert err8 == err == 0
+    assert torch.equal(o, o8) and torch.equal(o, o2) and torch.equal(lse,
+                                                                     lse2)
+    want_o, want_lse = fp.flash_prefill_traj_plain(q, k, v, window=w,
+                                                   q_block=qb, k_block=kb)
+    torch.testing.assert_close(o, want_o, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert _k8_call(lib, q, k, v, qb, kb, w, lse=True,
+                    smem=fp.working_set_bytes(qb, kb, dh) + 16)[0] != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # (B, S, Hq, Hkv, dh, window, (dq_rows, dkv_rows, tile)): a ragged
+    # tail, GQA groups of 2 and 4, a window, many dQ, dK/dV and streamed
+    # tiles
+    (1, 37, 4, 2, 16, 0, (16, 8, 8)), (1, 30, 4, 1, 32, 12, (8, 8, 4)),
+    (2, 20, 2, 2, 16, 0, (8, 16, 16))])
+def test_k8b_under_the_mock_matches_its_plain_version(case, dtype):
+    """K8b's two kernels against ``flash_prefill_bwd_plain`` at the same
+    tiles, on K8t's plain o and lse: f32 at 1e-5 (the same f32 sums in
+    another order); bf16 within one bf16 step of max|grad| (both sides sum
+    in f32 and round once).  D is rowsum(dO o); two runs give the same
+    bits; a mispriced launch of either kernel is refused."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    B, S, Hq, Hkv, dh, w, bl = case
+    blocks = fp.BwdBlocks(*bl)
+    lib = _lib("flash_prefill_bwd")
+    q, k, v, dout = (t.to(dtype) for t in _attn_inputs(B, S, Hq, Hkv, dh,
+                                                        seed=S + 1))
+    o, lse = fp.flash_prefill_traj_plain(q, k, v, window=w)
+    args = (q, k, v, o, lse, dout)
+    err, *got, d = _k8b_call(lib, args, w, blocks)
+    err2, *again, _ = _k8b_call(lib, args, w, blocks)
+    assert err == err2 == 0
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    torch.testing.assert_close(
+        d, (dout.float() * o.float()).sum(-1).transpose(1, 2), rtol=1e-5,
+        atol=1e-5)
+    want = fp.flash_prefill_bwd_plain(*args, window=w, blocks=blocks)
+    for g, t in zip(got, want):
+        assert g.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, t, rtol=1e-5, atol=1e-5)
+        else:
+            m = float(t.float().abs().max())
+            assert float((g.float() - t.float()).abs().max()) <= 2 ** -7 * m
+    for which in (0, 1):
+        smem = [fp.bwd_working_set_bytes(bl[0], bl[2], dh, dtype, True),
+                fp.bwd_working_set_bytes(bl[1], bl[2], dh, dtype, False)]
+        smem[which] += 16
+        assert _k8b_call(lib, args, w, blocks, smem=smem)[0] != 0
+
+
+def test_the_c_side_prices_k8b_as_the_table_does():
+    """``flash_prefill_bwd_smem_bytes`` (what each K8b launch checks its
+    shared memory against) equals ``bwd_working_set_bytes`` at every head
+    width, IO dtype, row count and tile the kernels take."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    fn = _lib("flash_prefill_bwd").flash_prefill_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    for dh in fp.HEAD_DIMS:
+        for dtype, io in ((torch.float32, 4), (torch.bfloat16, 2)):
+            for rows in (8, 16, 32, 64):
+                for tile in (4, 16, 32, 64):
+                    for dq in (True, False):
+                        assert fn(int(dq), rows, tile, dh, io) == \
+                            fp.bwd_working_set_bytes(rows, tile, dh, dtype,
+                                                     dq)
