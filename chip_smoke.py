@@ -93,18 +93,22 @@ beside the plan spread; X4 Qwen3-30B-A3B in bf16 at full width, 24 of its
 Attention training (``attention_train_slice``, at the end of the attention
 slice, and X5 in ``moe_slice``): A6 the training forward K8t (K8 that also
 writes each row's log-sum-exp) bit-equal to K8 and its lse against the
-plain version, and the hand-written backward K8b against its plain version
-and torch autograd of the plain K8 (Qwen2's, OLMoE's and Yi's heads,
-StableLM's width, a ragged S, a window of 64; f32 and bf16; two runs
-bit-identical); A7 Qwen2-0.5B at full width, 2 of 24 layers, in f32:
-``loss_fn`` gradients on the card against the CPU, remat on and off; A8
-Qwen2-0.5B trained at full width and depth in bf16 through
-``launch/train.train`` (40 steps of batch 4 x 512, 48 K8t and 24 K8b calls
-a step, no K8, the plain attention armed to raise, step 1's K8b calls held
+plain version, and the hand-written backward K8b (bf16 on the tensor
+cores, f32 on the SIMT kernels; the GQA group split over blocks and summed
+in head order) against its plain version (in bf16 rounding p and ds as
+the kernel does) and torch autograd of the plain K8 (Qwen2's, OLMoE's and
+Yi's heads, StableLM's width, a ragged S, a window of 64; f32 and bf16;
+two runs bit-identical; every bf16 call on the tensor cores); A7
+Qwen2-0.5B at full width, 2 of 24 layers, in f32: ``loss_fn`` gradients
+on the card against the CPU, remat on and off; A8 Qwen2-0.5B trained at
+full width and depth in bf16 through ``launch/train.train`` (40 steps of
+batch 4 x 512, 48 K8t and 24 K8b calls a step, every K8b on the tensor
+cores, no K8, the plain attention armed to raise, step 1's K8b calls held
 against plain, the loss curve, the last two steps under torch.profiler);
 A9 K8t's and K8b's times beside their bounds, plain versions and SDPA
-forward + backward; X5 OLMoE-1B-7B at full width, 4 of its 16 layers,
-trained the same way for 8 steps, with its router metrics.
+forward + backward (and its backward alone), K8b's kernels by the
+profiler; X5 OLMoE-1B-7B at full width, 4 of its 16 layers, trained the
+same way for 8 steps, with its router metrics.
 It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work.
@@ -262,6 +266,47 @@ def instance(mangled: str) -> str:
     return "<" + ",".join(
         tok[0] or names.get(tok[1], "bf16") for tok in re.findall(
             r"L[ib](\d+)E|(f|a|13__nv_bfloat16|S\d*_)", args.group(1))) + ">"
+
+
+def kernel_name(mangled: str) -> str:
+    """The unqualified name of a mangled kernel, e.g. ``dq_tc`` for
+    ``_ZN12_GLOBAL__N_15dq_tcILi64EEEv...``: the last of its length-prefixed
+    names before the template arguments."""
+    i, name = 2 + (mangled[2:3] == "N"), ""
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    return name
+
+
+def kernel_device_ms(fn, calls: int, names: tuple[str, ...]
+                     ) -> dict[str, tuple[float, int]]:
+    """Mean device time of one launch, and the launches recorded, of each
+    kernel whose name holds one of ``names``, from torch.profiler over
+    ``calls`` calls of ``fn`` (after a warmup).  The profiler has been
+    seen to drop some of a session's device events, and to record none in
+    the first session after the training steps': the mean is over the
+    launches recorded, and up to three sessions are tried; empty if none
+    recorded any."""
+    fn()
+    torch.cuda.synchronize()
+    out: dict[str, tuple[float, int]] = {}
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            for n in names:
+                if n in e.key and e.device_time_total > 0 and e.count:
+                    out[n] = (e.device_time_total / 1e3 / e.count, e.count)
+        if out:
+            break
+    return out
 
 
 def randn(*shape, gen, scale=1.0):
@@ -2245,21 +2290,24 @@ def attn_bwd_work(B, S, Hq, Hkv, dh, dtype) -> tuple[int, int]:
 
 
 def attn_grad_hold(got: torch.Tensor, want: torch.Tensor, what: str,
-                   share: dict) -> float:
+                   share: dict, one_step: bool = True) -> float:
     """Hold an attention gradient to its reference; return the max abs
     error.  f32 at K8's 2e-4 (tests/test_flash_prefill.py's kernel
     tolerance).  bf16 at K8's 3e-2 with its atol scaled by the reference's
-    max abs (a gradient's scale is the inputs', not 1), and within one
-    bf16 step at that max, 2^-7 max|want|: both sides sum in f32 and round
-    each output once; ``share`` keeps the largest error over max|want|."""
+    max abs (a gradient's scale is the inputs', not 1) and, with
+    ``one_step`` (a reference that rounds where the kernel rounds, so that
+    both sides sum in f32 and differ by the order of their sums), within
+    one bf16 step at that max, 2^-7 max|want|; ``share`` keeps the largest
+    error over max|want| of those."""
     if want.dtype == torch.float32:
         return close(got, want, what, dict(rtol=2e-4, atol=2e-4))
     m = float(want.float().abs().max())
     e = close(got.float(), want.float(), what,
               dict(rtol=3e-2, atol=3e-2 * m))
-    check(e <= 2.0 ** -7 * m, f"{what}: max abs err {e} is past one bf16 "
-          f"step at max|want| {m}")
-    share["bf16"] = max(share.get("bf16", 0.0), e / m if m else 0.0)
+    if one_step:
+        check(e <= 2.0 ** -7 * m, f"{what}: max abs err {e} is past one "
+              f"bf16 step at max|want| {m}")
+        share["bf16"] = max(share.get("bf16", 0.0), e / m if m else 0.0)
     return e
 
 
@@ -2286,14 +2334,17 @@ def attention_train_run(phase: str, cfg, n_steps: int, counted, counts,
     def checked_bwd(*args, **kwargs):
         """K8b as the training step calls it; each call of step 1 (the
         first ``n_attn``) held against the plain version on its own
-        inputs.  The wrapper counts its calls through its module's name,
-        which is this function while it is installed: the count is carried
-        across."""
+        inputs, rounding as the instance does (``round_p`` in bf16).  The
+        wrapper counts its calls through its module's name, which is this
+        function while it is installed: the counts are carried across."""
         checked_bwd.launches = kernel_bwd.launches
+        checked_bwd.tc_launches = kernel_bwd.tc_launches
         got = kernel_bwd(*args, **kwargs)
         kernel_bwd.launches = checked_bwd.launches
+        kernel_bwd.tc_launches = checked_bwd.tc_launches
         if seen["n"] < n_attn:
-            want = plain_bwd(*args, **kwargs)
+            want = plain_bwd(*args, **kwargs,
+                             round_p=args[0].dtype == torch.bfloat16)
             for n, a, b in zip(("dq", "dk", "dv"), got, want):
                 seen["err"] = max(seen["err"], attn_grad_hold(
                     a, b, f"{phase} trained flash_prefill_bwd call "
@@ -2324,6 +2375,11 @@ def attention_train_run(phase: str, cfg, n_steps: int, counted, counts,
           f"{phase}: {n_steps} training steps launched {got}")
     check(seen["n"] == n_attn,
           f"{phase}: checked {seen['n']} K8b calls of step 1")
+    n_tc = fp.flash_prefill_bwd.tc_launches
+    check(n_tc == (got["flash_prefill_bwd"] if cfg.dtype == "bfloat16"
+                   else 0),
+          f"{phase}: {n_tc} of {got['flash_prefill_bwd']} K8b calls on the "
+          "tensor cores")
     check(all(math.isfinite(x) for x in report["losses"]
               + report["grad_norms"]),
           f"{phase}: a loss or grad_norm is not finite: {report['losses']}, "
@@ -2338,14 +2394,15 @@ def attention_train_run(phase: str, cfg, n_steps: int, counted, counts,
           f" 4 x 512, {n_steps} steps in {wall:.1f} s (init included); "
           f"launches {got['flash_prefill_traj']} K8t + "
           f"{got['flash_prefill_bwd']} K8b calls ({2 * n_attn} + {n_attn} a "
-          "step), none of K8, no plain attention or scan reached; every "
+          f"step; {n_tc} K8b on the tensor cores), none of K8, no plain "
+          "attention or scan reached; every "
           f"loss and grad_norm finite; peak device memory {peak:.3f} GB "
           f"(torch.cuda.max_memory_allocated); {CARD['line']}")
     print(f"[{phase}] each of step 1's {seen['n']} K8b calls (q "
           f"{seen['shape'][0]}, k {seen['shape'][1]}, {seen['shape'][2]}) "
-          f"against flash_prefill_bwd_plain on its own inputs: max abs err "
-          f"{seen['err']:.3e} (3e-2 x max|grad| and one bf16 step at "
-          "max|grad|)")
+          f"against flash_prefill_bwd_plain (round_p in bf16) on its own "
+          f"inputs: max abs err {seen['err']:.3e} (3e-2 x max|grad| and one "
+          "bf16 step at max|grad|)")
     print(f"[{phase}] loss curve: "
           + ", ".join(f"{x:.3f}" for x in report["losses"]))
     print(f"[{phase}] grad norms: "
@@ -2397,8 +2454,10 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
     ``loss_fn`` gradients on the card against the CPU, remat on and off
     (A7); Qwen2-0.5B trained at full width and depth in bf16 for 40 steps
     through ``launch/train.train`` (A8); the two kernels' times beside
-    their bounds, plain versions and SDPA forward + backward, and ptxas's
-    registers (A9).  Returns their entries of the ``kernels`` line."""
+    their bounds, plain versions and SDPA forward + backward (and SDPA's
+    backward alone), K8b's kernels' device times by the profiler, and
+    ptxas's registers (A9).  Returns their entries of the ``kernels``
+    line."""
     from repro_torch import steps as steps_lib
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_prefill as fp
@@ -2418,9 +2477,11 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
     # K8t's output bit-equal to K8's at the same tiles; its lse against the
     # plain version at K8's f32 2e-4 in both dtypes (an f32 value from f32
     # sums of exact products on both sides); K8b against the plain
-    # backward on the same inputs (K8t's o and lse) and against torch
-    # autograd of flash_prefill_plain (attn_grad_hold); two runs of each
-    # bit-identical
+    # backward on the same inputs (K8t's o and lse; in bf16 rounding p and
+    # ds as the tensor-core instance does, round_p) and against torch
+    # autograd of flash_prefill_plain (unrounded: in bf16 at 3e-2 x
+    # max|grad| alone, the tolerance policy's tier; attn_grad_hold); two
+    # runs of each bit-identical; every bf16 call on the tensor cores
     cases = [  # Qwen2's heads, OLMoE's, Yi's, StableLM's width, a ragged
         # S, a window of 64
         ("Qwen2", 4, 512, 14, 2, 64, 0), ("OLMoE", 4, 512, 16, 16, 128, 0),
@@ -2448,12 +2509,17 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
             errs["flash_prefill_traj"][dtype] = max(
                 errs["flash_prefill_traj"][dtype], e_t)
             dout = randn(B, S, Hq, dh, gen=gen).to(dtype)
+            tc0 = fp.flash_prefill_bwd.tc_launches
             got = fp.flash_prefill_bwd(q, k, v, o, lse, dout, window=w)
             again = fp.flash_prefill_bwd(q, k, v, o, lse, dout, window=w)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"K8b {what}: two runs differ")
+            n_tc = fp.flash_prefill_bwd.tc_launches - tc0
+            check(n_tc == (2 if dtype == bf16 else 0),
+                  f"K8b {what}: {n_tc} of 2 calls on the tensor cores")
             plain = fp.flash_prefill_bwd_plain(q, k, v, o, lse, dout,
-                                               window=w)
+                                               window=w,
+                                               round_p=dtype == bf16)
             x = [t.clone().requires_grad_() for t in (q, k, v)]
             with torch.enable_grad():
                 auto = torch.autograd.grad(fp.flash_prefill_plain(
@@ -2466,22 +2532,26 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
                 e_b = max(e_b, attn_grad_hold(g_, pl, f"K8b {what} {n} vs "
                                               "plain", share))
                 e_a = max(e_a, attn_grad_hold(g_, au, f"K8b {what} {n} vs "
-                                              "autograd", share))
+                                              "autograd", share,
+                                              one_step=False))
             errs["flash_prefill_bwd"][dtype] = max(
                 errs["flash_prefill_bwd"][dtype], e_b)
             said.append(f"{name}: K8t bit-equal to K8, lse vs plain "
-                        f"{e_t:.3e}; K8b vs plain {e_b:.3e}, vs autograd of "
-                        f"flash_prefill_plain {e_a:.3e}")
+                        f"{e_t:.3e}; K8b ({n_tc} of 2 calls on the tensor "
+                        f"cores) vs plain{' round_p' if dtype == bf16 else ''}"
+                        f" {e_b:.3e}, vs autograd of flash_prefill_plain "
+                        f"{e_a:.3e}")
         print(f"[K8t/K8b] {label} B={B} S={S} {Hq}/{Hkv} x {dh} window={w}"
-              f" (K8b {tuple(fp.choose_bwd_blocks(S, dh, bf16))}): "
+              f" (K8b tiles f32 {tuple(fp.choose_bwd_blocks(S, dh, f32))}, "
+              f"bf16 {tuple(fp.choose_bwd_blocks(S, dh, bf16))}): "
               + "; ".join(said) + "; two runs bit-identical")
     print(f"[K8t/K8b] max abs err vs plain: K8t lse f32 "
           f"{errs['flash_prefill_traj'][f32]:.3e}, bf16 "
           f"{errs['flash_prefill_traj'][bf16]:.3e}; K8b f32 "
           f"{errs['flash_prefill_bwd'][f32]:.3e}, bf16 "
-          f"{errs['flash_prefill_bwd'][bf16]:.3e}; bf16 gradients within "
-          f"{share.get('bf16', 0.0):.3e} x max|want| (held at one bf16 step,"
-          f" 2^-7 = {2.0 ** -7:.3e})")
+          f"{errs['flash_prefill_bwd'][bf16]:.3e}; bf16 gradients vs "
+          f"their rounding plain versions within {share.get('bf16', 0.0):.3e}"
+          f" x max|want| (held at one bf16 step, 2^-7 = {2.0 ** -7:.3e})")
 
     # --- A7. the f32 gate: Qwen2-0.5B at full width, 2 of 24 layers -------
     cfg2 = dataclasses.replace(get_arch("qwen2-0.5b"), n_layers=2,
@@ -2599,10 +2669,14 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
             graph_ms=graph_ms(lambda: fp.flash_prefill_bwd(
                 q, k, v, o, lse, dout), 5),
             plain_ms=time_ms(lambda: fp.flash_prefill_bwd_plain(
-                q, k, v, o, lse, dout), 1, repeats=3),
+                q, k, v, o, lse, dout, round_p=True), 1, repeats=3),
             library_ms=lib_fb, library_graph_ms=lib_fb_graph,
             bound_ms=t_bound, bound_by=by)
         ops_b = attn_bwd_work(B, S, Hq, Hkv, dh, bf16)[1]
+        per_kernel = kernel_device_ms(
+            lambda: fp.flash_prefill_bwd(q, k, v, o, lse, dout), 10,
+            ("flash_prefill_bwd_dq_tc", "flash_prefill_bwd_dkv_tc",
+             "flash_prefill_bwd_sum"))
         print(f"[time] flash_prefill_traj (K8t) {name} B={B} S={S} "
               f"{Hq}/{Hkv} x {dh} bf16 on the tensor cores: kernel "
               f"{r['ms']:.4f} ms back to back, {r['graph_ms']:.4f} ms in a "
@@ -2610,26 +2684,35 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
               f"(is_causal, enable_gqa) {r['library_ms']:.4f} ms, "
               f"{r['library_graph_ms']:.4f} ms in a graph; bound "
               f"{r['bound_ms']:.3e} ms ({r['bound_by']}, bf16 dense peak)")
+        sdpa_bwd = rb["library_graph_ms"] - r["library_graph_ms"]
         print(f"[time] flash_prefill_bwd (K8b) {name} B={B} S={S} "
-              f"{Hq}/{Hkv} x {dh} bf16 (SIMT, "
+              f"{Hq}/{Hkv} x {dh} bf16 (tensor cores, "
               f"{tuple(fp.choose_bwd_blocks(S, dh, bf16))}): kernels "
               f"{rb['ms']:.4f} ms back to back, {rb['graph_ms']:.4f} ms in "
               f"a CUDA graph ({ops_b / rb['graph_ms'] / 1e9:.1f} TFLOP/s of "
-              f"the five causal products); plain {rb['plain_ms']:.4f} ms; "
-              f"SDPA forward + backward {rb['library_ms']:.4f} ms, "
+              f"the five causal products); by kernel (torch.profiler over "
+              f"10 calls, mean of the launches it recorded): " + (", ".join(
+                  f"{k} {ms:.4f} ms ({n} launches)"
+                  for k, (ms, n) in per_kernel.items())
+                  or "not measured (no device event recorded)")
+              + f"; plain (round_p) {rb['plain_ms']:.4f} ms; SDPA forward + "
+              f"backward {rb['library_ms']:.4f} ms, "
               f"{rb['library_graph_ms']:.4f} ms in a graph (a yardstick: "
-              f"its gradients vs K8b's {e_lib:.3e}); K8t + K8b in graphs "
+              f"its gradients vs K8b's {e_lib:.3e}); SDPA's backward alone "
+              f"{sdpa_bwd:.4f} ms (its forward + backward graph less its "
+              f"forward graph, timed apart); K8t + K8b in graphs "
               f"{r['graph_ms'] + rb['graph_ms']:.4f} ms, "
               f"{(r['graph_ms'] + rb['graph_ms']) / rb['library_graph_ms']:.2f}x"
               f" SDPA's; bound {rb['bound_ms']:.3e} ms ({rb['bound_by']}, "
               f"bf16 dense peak), kernels at "
-              f"{rb['graph_ms'] / rb['bound_ms']:.0f}x it in a graph; "
+              f"{rb['graph_ms'] / rb['bound_ms']:.1f}x it in a graph; "
               f"{CARD['line']}")
     for src, legend in (("flash_prefill", "K8t: flash_prefill_kernel "
                          "<dh,lse>, flash_prefill_tc_kernel <padded dh,"
                          "k_block,lse>"),
-                        ("flash_prefill_bwd", "K8b: flash_prefill_bwd_kernel "
-                         "<IO,dh,dq>")):
+                        ("flash_prefill_bwd", "K8b: flash_prefill_bwd_dq_tc "
+                         "and _dkv_tc <padded dh>, flash_prefill_bwd_sum "
+                         "<IO>, the f32 flash_prefill_bwd_kernel <dh,dq>")):
         compiled = ""                  # the entry ptxas is reporting on
         for line in BUILD_LOGS.get(src, "").splitlines():
             entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -2638,8 +2721,8 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
             elif ("registers" in line or "spill" in line) and (
                     src == "flash_prefill_bwd"
                     or instance(compiled).endswith(",1>")):
-                print(f"[time] {src} ({legend}) {instance(compiled)}: "
-                      f"{line.strip()}")
+                print(f"[time] {src} ({legend}) {kernel_name(compiled)}"
+                      f"{instance(compiled)}: {line.strip()}")
     entries = []
     for kname, src in (("flash_prefill_traj", "flash_prefill.cu"),
                        ("flash_prefill_bwd", "flash_prefill_bwd.cu")):

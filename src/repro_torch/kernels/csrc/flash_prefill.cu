@@ -137,27 +137,6 @@ __device__ __forceinline__ void qk_product(float (&s)[KB / 2], uint64_t dq,
   if constexpr (KB == 64) hopper::wgmma_ss_n64(s, dq, dk, accumulate);
 }
 
-// O (64, DHP) += P V over 16 keys: V's rows N-major
-template <int DHP>
-__device__ __forceinline__ void pv_product(float (&o)[DHP / 2],
-                                           const uint32_t (&p)[4],
-                                           uint64_t dv) {
-  if constexpr (DHP == 64) hopper::wgmma_rs_n64(o, p, dv);
-  if constexpr (DHP == 128) hopper::wgmma_rs_n128(o, p, dv);
-  if constexpr (DHP == 192) hopper::wgmma_rs_n192(o, p, dv);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One kv tile's online softmax on the S accumulator fragment of rows r
 // (m0, l0) and r + 8 (m1, l1).  The running maxima are kept in the exp2
 // domain, scores times c = scale log2(e), so that p = exp(s scale - m) is
@@ -191,15 +170,16 @@ __device__ __forceinline__ void softmax_tile(
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
   mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
   const float mn0 = fmaxf(m0, mx0 * c), mn1 = fmaxf(m1, mx1 * c);
-  alpha0 = exp2_approx(m0 - mn0);
-  alpha1 = exp2_approx(m1 - mn1);
+  alpha0 = hopper::exp2_approx(m0 - mn0);
+  alpha1 = hopper::exp2_approx(m1 - mn1);
   float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
   for (int j = 0; j < KB / 8; ++j) {
     float p[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      p[e] = exp2_approx(fmaf(sc[4 * j + e], c, e < 2 ? -mn0 : -mn1));
+      p[e] = hopper::exp2_approx(
+          fmaf(sc[4 * j + e], c, e < 2 ? -mn0 : -mn1));
     if constexpr (kMask) {
       const int kp = kp0 + 8 * j;
       if (!key_ok(qp0, kp, S, window)) p[0] = 0.f;
@@ -209,8 +189,8 @@ __device__ __forceinline__ void softmax_tile(
     }
     ps0 += p[0] + p[1];
     ps1 += p[2] + p[3];
-    pa[j / 2][2 * (j % 2)] = pack_bf16(p[0], p[1]);
-    pa[j / 2][2 * (j % 2) + 1] = pack_bf16(p[2], p[3]);
+    pa[j / 2][2 * (j % 2)] = hopper::pack_bf16(p[0], p[1]);
+    pa[j / 2][2 * (j % 2) + 1] = hopper::pack_bf16(p[2], p[3]);
   }
   ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
   ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
@@ -235,9 +215,7 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(KB, DHP))
   constexpr int kQBytes = 2 * kTcQBlock * DHP;
   constexpr int kTileBytes = 2 * KB * DHP;      // one k or v tile
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* base = smem_raw + ((kSwizzleAlign -
-                               (hopper::smem_addr(smem_raw) & 1023)) & 1023);
-  uint8_t* sq = base;
+  uint8_t* sq = hopper::align_1024(smem_raw);
   uint8_t* sk = sq + kQBytes;
   uint8_t* sv = sk + kTcStages * kTileBytes;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sv + kTcStages * kTileBytes);
@@ -361,9 +339,9 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(KB, DHP))
     hopper::wgmma_fence();
 #pragma unroll
     for (int t = 0; t < KB / 16; ++t)
-      pv_product<DHP>(acc, pa[t],
-                      hopper::sw128_desc(v_addr + t * 16 * 128, KB * 128,
-                                         1024));
+      hopper::wgmma_rs<DHP>(
+          acc, pa[t],
+          hopper::sw128_desc(v_addr + t * 16 * 128, KB * 128, 1024));
     hopper::wgmma_commit();
     hopper::wgmma_wait_all();
     hopper::fence_regs(acc);
@@ -396,57 +374,6 @@ __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(KB, DHP))
   }
 }
 
-// cuTensorMapEncodeTiled, taken from the driver through the runtime so
-// that the library needs no link against libcuda
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static std::atomic<EncodeTiledFn> fn{nullptr};
-  EncodeTiledFn f = fn.load();
-  if (f == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    f = reinterpret_cast<EncodeTiledFn>(p);
-    fn.store(f);
-  }
-  return f;
-}
-
-// The (dh, H, S, B) view of a contiguous (B, S, H, dh) bf16 tensor, boxes
-// of 64 columns x 1 head x `rows` positions x 1 row, 128-byte swizzle;
-// columns past dh and positions past S read as zeros.
-int encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-               int dh, int rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {2ULL * dh, 2ULL * dh * H,
-                                 2ULL * dh * H * S};
-  const cuuint32_t box[4] = {(cuuint32_t)kAtomCols, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 template <int DHP, int KB, bool kLse>
 int launch_tc(const void* q, const void* k, const void* v, void* o,
               float* lse, int B, int S, int Hq, int Hkv, int dh, int window,
@@ -461,9 +388,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* o,
     granted.store(smem);
   }
   CUtensorMap tq, tk, tv;
-  int err = encode_map(&tq, q, B, S, Hq, dh, kTcQBlock);
-  if (!err) err = encode_map(&tk, k, B, S, Hkv, dh, KB);
-  if (!err) err = encode_map(&tv, v, B, S, Hkv, dh, KB);
+  int err = hopper::encode_map(&tq, q, B, S, Hq, dh, kTcQBlock);
+  if (!err) err = hopper::encode_map(&tk, k, B, S, Hkv, dh, KB);
+  if (!err) err = hopper::encode_map(&tv, v, B, S, Hkv, dh, KB);
   if (err) return err;
   const long long blocks =
       (long long)((S + kTcQBlock - 1) / kTcQBlock) * B * Hq;

@@ -50,14 +50,19 @@ differentiates, and gives K8 no VJP.
   flag): K8 at the same tiles, bit for bit, that also writes each query
   row's log-sum-exp ``lse = m + log(max(l, 1e-30))``, f32 (B, Hq, S).
 * K8b (``flash_prefill_bwd``, ``csrc/flash_prefill_bwd.cu``): dq, dk and
-  dv from dO, q, k, v, o and lse, in the IO dtype, the math in f32: D =
+  dv from dO, q, k, v, o and lse, in the IO dtype, summed in f32: D =
   rowsum(dO o), p recomputed tile by tile as exp(scale q.k - lse) under
   K8's mask (fully masked tiles skipped), dv = p^T dO, ds = p (dO v^T -
   D), dq = scale ds k, dk = scale ds^T q, dk and dv summed over each GQA
-  group.  Two SIMT kernels in one call, no atomics: a dQ kernel over q
-  tiles (which writes D), then a dK/dV kernel over kv tiles.  Its tiling
-  is ``BwdBlocks``, priced by ``bwd_working_set_bytes`` and chosen by
-  ``choose_bwd_blocks``.
+  group.  One call, no atomics: a dQ kernel over q tiles (which writes
+  D), a dK/dV kernel over key tiles of each QUERY head (the group split
+  over blocks) and, for GQA, a reduction that sums each kv head's f32
+  partials in head order.  ``route`` picks its instance as it picks K8's:
+  bf16 on the tensor cores (wgmma on TMA-fed tiles, p and ds rounded to
+  bf16 before the products that take them: the plain version's
+  ``round_p``; ``flash_prefill_bwd.tc_launches`` counts these calls), f32
+  on the SIMT kernels.  Its tiling is ``BwdBlocks``, priced by
+  ``bwd_working_set_bytes`` and chosen by ``choose_bwd_blocks``.
 With remat each training step runs K8t twice an attention layer (the
 forward and its recompute) and K8b once; ``eval_step`` runs K8 alone.
 
@@ -66,7 +71,7 @@ tiles in PyTorch (``flash_prefill_plain``, ``flash_prefill_traj_plain``,
 ``flash_prefill_bwd_plain``; float64 too, for gradient checks); a tensor
 on the card launches a kernel or raises.  ``flash_prefill.launches``,
 ``flash_prefill_traj.launches`` and ``flash_prefill_bwd.launches`` count
-kernel launches (K8b's two kernels count as one call) and nothing else.
+kernel launches (K8b's kernels count as one call) and nothing else.
 """
 from __future__ import annotations
 
@@ -117,17 +122,22 @@ MBARRIER_BYTES = 8
 TC_MIN_BLOCKS_PER_SM = 2
 
 # The backward K8b (csrc/flash_prefill_bwd.cu)
-#: rows a block of the dQ kernel owns (four threads a row: 128 threads)
+#: rows a block of the SIMT dQ kernel owns (four threads a row: 128 threads)
 BWD_DQ_ROWS = 32
-#: rows a block of the dK/dV kernel owns (64 threads): it loops over the
-#: whole GQA group, so its blocks are fewer; smaller ones fill the card
+#: rows a block of the SIMT dK/dV kernel owns (64 threads); its grid is
+#: Hq x B x key tiles, as the dQ kernel's
 BWD_DKV_ROWS = 16
-#: rows of the streamed tile, coarsest first (a multiple of 4, at most 64)
+#: rows of the SIMT kernels' streamed tile, coarsest first (a multiple of
+#: 4, at most 64)
 BWD_TILES = (64, 32, 16)
 #: bytes of padding after each staged row (kPadBytes)
 BWD_PAD_BYTES = 16
-#: blocks of either backward kernel the table keeps on an SM
+#: blocks of either SIMT kernel the table keeps on an SM
 BWD_MIN_BLOCKS_PER_SM = 2
+#: rows of every tile of the tensor-core instance (one warpgroup's wgmma M)
+#: and the streamed tiles of its TMA ring
+BWD_TC_ROWS = 64
+BWD_TC_STAGES = 2
 
 
 class PrefillBlocks(NamedTuple):
@@ -139,8 +149,8 @@ class PrefillBlocks(NamedTuple):
 
 class BwdBlocks(NamedTuple):
     """K8b's tiling: query rows a dQ block owns, key rows a dK/dV block
-    owns (four threads a row), and rows of the tile each streams (kv rows
-    for dQ, q rows for dK/dV)."""
+    owns, and rows of the tile each streams (kv rows for dQ, q rows for
+    dK/dV)."""
     dq_rows: int
     dkv_rows: int
     tile: int
@@ -234,15 +244,29 @@ def choose_blocks(seq_len: int, dh: int, dtype: torch.dtype = F32
 def bwd_working_set_bytes(rows: int, tile: int, dh: int,
                           dtype: torch.dtype = F32, dq: bool = True) -> int:
     """Dynamic shared memory of one block of K8b's dQ kernel (``dq``) or
-    its dK/dV kernel, exactly as the C side launches it: the owned rows
-    of two tensors (q and dO, or k and v) and a streamed tile of two (k
-    and v, or q and dO), each row dh values in the IO type plus
-    ``BWD_PAD_BYTES``; for dK/dV also the streamed rows' lse and D
-    (f32)."""
-    io = 2 if dtype == torch.bfloat16 else 4
+    its dK/dV kernel, exactly as the C side launches it.
+
+    f32 (the SIMT kernels): the owned rows of two tensors (q and dO, or k
+    and v) and a streamed tile of two (k and v, or q and dO), each row dh
+    floats plus ``BWD_PAD_BYTES``; for dK/dV also the streamed rows' lse
+    and D.  bf16 (the tensor-core kernels): the slack that aligns the
+    tiles to ``SWIZZLE_ALIGN``; the owned tiles of two tensors (q and dO,
+    or k and v), (rows, padded dh) bf16 each; ``BWD_TC_STAGES`` stages of
+    two streamed tiles
+    (tile, padded dh) and, for dK/dV, their rows' lse and D (f32); the
+    barriers (the owned tiles', a full and an empty one per stage)."""
     ws = tiling.WorkingSet()
-    ws.add("owned", 2 * rows * (dh * io + BWD_PAD_BYTES))
-    ws.add("streamed", 2 * tile * (dh * io + BWD_PAD_BYTES))
+    if dtype == torch.bfloat16:
+        dhp = padded_head_dim(dh)
+        ws.add("align", SWIZZLE_ALIGN)
+        ws.add("owned", 2 * rows * dhp * 2)
+        ws.add("streamed", BWD_TC_STAGES * 2 * tile * dhp * 2)
+        if not dq:
+            ws.add("lse_d", BWD_TC_STAGES * 2 * 4 * tile)
+        ws.add("barriers", (1 + 2 * BWD_TC_STAGES) * MBARRIER_BYTES)
+        return ws.total()
+    ws.add("owned", 2 * rows * (dh * 4 + BWD_PAD_BYTES))
+    ws.add("streamed", 2 * tile * (dh * 4 + BWD_PAD_BYTES))
     if not dq:
         ws.add("lse_d", 2 * 4 * tile)
     return ws.total()
@@ -251,13 +275,21 @@ def bwd_working_set_bytes(rows: int, tile: int, dh: int,
 def choose_bwd_blocks(seq_len: int, dh: int, dtype: torch.dtype = F32
                       ) -> BwdBlocks | None:
     """K8b's tiling for a sequence of ``seq_len`` at head width ``dh`` in
-    ``dtype``: ``BWD_DQ_ROWS`` and ``BWD_DKV_ROWS`` owned rows, and the
-    coarsest streamed tile of ``BWD_TILES`` that is no longer than the
-    sequence needs (S rounded up to a multiple of 16) and leaves
-    ``BWD_MIN_BLOCKS_PER_SM`` blocks of both kernels on an SM.  None when
-    the kernel has no instance for ``dh`` or no tile fits."""
+    ``dtype``, or None when the kernel has no instance for ``dh`` or
+    ``dtype`` or no tile fits.  bf16 (the tensor-core instance): owned and
+    streamed tiles of ``BWD_TC_ROWS``, whatever the sequence.  f32 (the SIMT instance):
+    ``BWD_DQ_ROWS`` and ``BWD_DKV_ROWS`` owned rows, and the coarsest
+    streamed tile of ``BWD_TILES`` that is no longer than the sequence
+    needs (S rounded up to a multiple of 16) and leaves
+    ``BWD_MIN_BLOCKS_PER_SM`` blocks of both kernels on an SM."""
     if dh not in HEAD_DIMS or dtype not in _IO_DTYPES:
         return None
+    if dtype == torch.bfloat16:
+        bl = BwdBlocks(BWD_TC_ROWS, BWD_TC_ROWS, BWD_TC_ROWS)
+        fits = all(bwd_working_set_bytes(rows, bl.tile, dh, dtype, dq)
+                   <= factorization.H100_SMEM_PER_BLOCK
+                   for rows, dq in ((bl.dq_rows, True), (bl.dkv_rows, False)))
+        return bl if fits else None
     need = factorization.round_up(max(seq_len, 1), 16)
     for tile in BWD_TILES:
         if tile > need and tile != BWD_TILES[-1]:
@@ -393,11 +425,21 @@ def flash_prefill_traj_plain(q: torch.Tensor, k: torch.Tensor,
     return _forward_plain(q, k, v, window, scale, q_block, k_block, round_p)
 
 
+def head_order_sum(parts: torch.Tensor) -> torch.Tensor:
+    """The sum over dim 2 (the query heads of each kv head) of ``parts``,
+    taken in head order 0 ... g - 1, as K8b's reduction takes it."""
+    total = parts[:, :, 0]
+    for i in range(1, parts.shape[2]):
+        total = total + parts[:, :, i]
+    return total
+
+
 def flash_prefill_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, dout: torch.Tensor, *,
                             window: int = 0, scale: float | None = None,
-                            blocks: BwdBlocks | None = None
+                            blocks: BwdBlocks | None = None,
+                            round_p: bool = False
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """K8b's function in PyTorch, step by step as the kernel runs it, in
@@ -406,9 +448,14 @@ def flash_prefill_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     under K8's mask, ds = p (dO v^T - D) and dq += ds k; for each kv tile
     of ``dkv_rows`` over the live q tiles (``live_q_tiles``), dv += p^T dO
     and dk += ds^T q, summed over the GQA group; dq and dk times the
-    scale.  Returns (dq, dk, dv) in the inputs' dtype.  The kernel keeps
-    p and ds in f32 and rounds only the outputs, so this version has no
-    rounding flag."""
+    scale.  Returns (dq, dk, dv) in the inputs' dtype.
+
+    ``round_p`` rounds as the tensor-core instance does: p to bf16 before
+    p^T dO, ds (computed in f32 from the unrounded p) to bf16 before ds k
+    and ds^T q, and dk and dv summed per query head, the heads' partials
+    then added in head order (``head_order_sum``).  Without it (the SIMT
+    instance's f32 sums, the default) p and ds stay unrounded and only the
+    outputs are rounded."""
     B, S, Hq, dh = q.shape
     Hkv = k.shape[2]
     g = Hq // Hkv
@@ -423,6 +470,9 @@ def flash_prefill_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     d4 = (do5 * o.to(ct).reshape(B, S, Hkv, g, dh)).sum(-1) \
         .permute(0, 2, 3, 1)                             # (B, Hkv, g, S)
     pos = torch.arange(S, device=q.device)
+
+    def rounded(x):
+        return x.to(torch.bfloat16).to(ct) if round_p else x
 
     def probs(q0, n, k0, m):
         """p and ds of queries [q0, q0 + n) against keys [k0, k0 + m):
@@ -442,22 +492,30 @@ def flash_prefill_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         for kt in live_tiles(q0, bl.dq_rows, bl.tile, S, window):
             k0 = kt * bl.tile
             _, ds = probs(q0, n, k0, min(bl.tile, S - k0))
-            acc += torch.einsum("bhgqk,bkhd->bhgqd", ds,
+            acc += torch.einsum("bhgqk,bkhd->bhgqd", rounded(ds),
                                 k32[:, k0:k0 + bl.tile])
         dq[:, q0:q0 + n] = (acc * scale).permute(0, 3, 1, 2, 4)
+    # per query head with round_p (partials, then head_order_sum), else
+    # summed over the group inside the products
+    heads = "bhgkd" if round_p else "bhkd"
     dk = torch.empty(B, S, Hkv, dh, dtype=ct, device=q.device)
     dv = torch.empty_like(dk)
     for k0 in range(0, S, bl.dkv_rows):
         m = min(bl.dkv_rows, S - k0)
-        acc_k = torch.zeros(B, Hkv, m, dh, dtype=ct, device=q.device)
+        shape = (B, Hkv, g, m, dh) if round_p else (B, Hkv, m, dh)
+        acc_k = torch.zeros(shape, dtype=ct, device=q.device)
         acc_v = torch.zeros_like(acc_k)
         for qt in live_q_tiles(k0, bl.dkv_rows, bl.tile, S, window):
             q0 = qt * bl.tile
             n = min(bl.tile, S - q0)
             p, ds = probs(q0, n, k0, m)
             qs = slice(q0, q0 + n)
-            acc_v += torch.einsum("bhgqk,bqhgd->bhkd", p, do5[:, qs])
-            acc_k += torch.einsum("bhgqk,bqhgd->bhkd", ds, q5[:, qs])
+            acc_v += torch.einsum(f"bhgqk,bqhgd->{heads}", rounded(p),
+                                  do5[:, qs])
+            acc_k += torch.einsum(f"bhgqk,bqhgd->{heads}", rounded(ds),
+                                  q5[:, qs])
+        if round_p:
+            acc_k, acc_v = head_order_sum(acc_k), head_order_sum(acc_v)
         dk[:, k0:k0 + m] = (acc_k * scale).transpose(1, 2)
         dv[:, k0:k0 + m] = acc_v.transpose(1, 2)
     return (dq.reshape(B, S, Hq, dh).to(q.dtype), dk.to(k.dtype),
@@ -603,15 +661,17 @@ def flash_prefill_traj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def _bwd_entry(dtype: torch.dtype):
-    """K8b's C entry point for ``dtype``: q, k, v, o, dout, lse, D, dq,
-    dk, dv, then B, S, Hq, Hkv, dh, dq_rows, dkv_rows, tile, window, the
-    scale, both kernels' shared-memory bytes and the stream."""
+def _bwd_entry(kind: str):
+    """K8b's C entry point of an instance: q, k, v, o, dout, lse, D, dq,
+    dk, dv, the partials' scratch (or None), then B, S, Hq, Hkv, dh, (the
+    SIMT instance's dq_rows, dkv_rows, tile,) window, the scale, both
+    kernels' shared-memory bytes and the stream."""
     lib = _build.load("flash_prefill_bwd")
-    fn = getattr(lib, "flash_prefill_bwd_"
-                 + ("bf16" if dtype == torch.bfloat16 else "f32"))
+    fn = getattr(lib, "flash_prefill_bwd_" + ("tc" if kind == "tc"
+                                              else "f32"))
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        ints = 6 if kind == "tc" else 9
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * ints
                        + [ctypes.c_float, ctypes.c_longlong,
                           ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -623,12 +683,14 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       dout: torch.Tensor, *, window: int = 0,
                       scale: float | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The attention backward — ONE call of two kernel launches (K8b):
-    (dq, dk, dv) in the inputs' dtype from the forward's q, k, v, its
-    output o and K8t's lse (B, Hq, S) f32, and the output's gradient
-    ``dout``, at the tiles of ``choose_bwd_blocks``.  On the card q, k, v,
-    o and dout share one dtype (float32 or bfloat16) and dh is one of
-    ``HEAD_DIMS``; anything else raises.  The CPU runs
+    """The attention backward — ONE call of K8b's kernels (dQ, dK/dV and,
+    when Hq > Hkv, the reduction): (dq, dk, dv) in the inputs' dtype from
+    the forward's q, k, v, its output o and K8t's lse (B, Hq, S) f32, and
+    the output's gradient ``dout``, at the tiles of ``choose_bwd_blocks``.
+    On the card q, k, v, o and dout share one dtype and dh is one of
+    ``HEAD_DIMS``: bfloat16 runs the tensor-core instance, float32 the
+    SIMT one (``route``); anything else raises.  The wrapper allocates D
+    and, for GQA, the f32 partials of dk and dv.  The CPU runs
     ``flash_prefill_bwd_plain``."""
     _validate(q, k, v)
     if o.shape != q.shape or dout.shape != q.shape \
@@ -648,7 +710,7 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"flash_prefill_bwd on the card takes o and dout in "
                         f"q's dtype and lse in float32; got {o.dtype}, "
                         f"{dout.dtype}, {lse.dtype}")
-    route(q.dtype, dh)                       # raises without an instance
+    kind = route(q.dtype, dh)                # raises without an instance
     bl = choose_bwd_blocks(S, dh, q.dtype)
     if bl is None:
         raise ValueError(f"flash_prefill_bwd: no tile of {BWD_TILES} fits "
@@ -657,14 +719,20 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             bwd_working_set_bytes(bl.dkv_rows, bl.tile, dh, q.dtype, False))
     ins = [_build.aligned(t) for t in (q, k, v, o, dout, lse)]
     d = torch.empty(B, Hq, S, dtype=F32, device=q.device)
+    part = (torch.empty(2, B, S, Hq, dh, dtype=F32, device=q.device)
+            if Hq > Hkv else None)
     dq, dk, dv = (torch.empty_like(ins[0]), torch.empty_like(ins[1]),
                   torch.empty_like(ins[2]))
-    lib, fn = _bwd_entry(q.dtype)
-    err = fn(*(t.data_ptr() for t in (*ins, d, dq, dk, dv)), B, S, Hq, Hkv,
-             dh, bl.dq_rows, bl.dkv_rows, bl.tile, int(window), scale,
-             *smem, torch.cuda.current_stream(q.device).cuda_stream)
+    lib, fn = _bwd_entry(kind)
+    tiles = () if kind == "tc" else tuple(bl)
+    err = fn(*(t.data_ptr() for t in (*ins, d, dq, dk, dv)),
+             None if part is None else part.data_ptr(), B, S, Hq, Hkv, dh,
+             *tiles, int(window), scale, *smem,
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "flash_prefill_bwd", err)
     flash_prefill_bwd.launches += 1
+    if kind == "tc":
+        flash_prefill_bwd.tc_launches += 1
     return dq, dk, dv
 
 
@@ -692,9 +760,10 @@ class _FlashPrefillFn(torch.autograd.Function):
 
 
 #: kernel launches of either instance since the last reset, and those of
-#: the tensor-core instance; K8t's launches; K8b's calls (two kernels each)
-#: (CPU calls are not counted)
+#: the tensor-core instance; K8t's launches; K8b's calls (two or three
+#: kernels each), and those on the tensor cores (CPU calls are not counted)
 flash_prefill.launches = 0
 flash_prefill.tc_launches = 0
 flash_prefill_traj.launches = 0
 flash_prefill_bwd.launches = 0
+flash_prefill_bwd.tc_launches = 0

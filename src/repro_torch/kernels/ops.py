@@ -14,9 +14,10 @@ per thread block.  Any block may be pinned by the caller.  CPU tensors run the k
 launch the kernels.  The entries are differentiable: under autograd
 ``lstm_seq``, ``lstm_seq_q8``, ``wkv6``, ``mamba_scan`` and
 ``flash_prefill`` pair their trajectory launch (K8t: K8 that also writes
-each row's log-sum-exp) with their backward kernel (K8b for attention),
-and ``lstm_cell`` takes the VJP of its plain version; ``decode_attn``
-serves inference only and raises on the card under autograd.
+each row's log-sum-exp) with their backward kernel (K8b for attention:
+bf16 on the tensor cores, f32 on the SIMT kernels, as K8 is routed), and
+``lstm_cell`` takes the VJP of its plain version; ``decode_attn`` serves
+inference only and raises on the card under autograd.
 """
 from __future__ import annotations
 
@@ -117,8 +118,10 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, Hq, dh); k, v: (B, S, Hkv, dh); ``window`` > 0 restricts each
     query to the last ``window`` positions.  Returns (B, S, Hq, dh) in q's
     dtype.  Under autograd: the trajectory launch K8t forward and the
-    backward K8b (on the CPU their plain versions).  The ``flash_prefill``
-    prefill plan of ``models/attention`` calls this."""
+    backward K8b, one call of its dQ and dK/dV kernels and, for GQA, the
+    reduction of each group's partials (bf16 on the tensor cores, f32 on
+    the SIMT kernels; on the CPU their plain versions).  The
+    ``flash_prefill`` prefill plan of ``models/attention`` calls this."""
     return _flash_prefill.flash_prefill(q, k, v, window=window, scale=scale,
                                         q_block=q_block, k_block=k_block)
 

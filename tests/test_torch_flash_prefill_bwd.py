@@ -11,8 +11,10 @@ the JAX model's ``flash_attention`` (what the JAX trainer differentiates)
 and of the oracle ``ref.prefill_attn``, on tests/test_flash_prefill.py's
 sweep cases plus ragged S, GQA groups 1, 2 and 4, head widths 16, 32 and
 64, windows 0 and 16, f32 and bf16, at the default tiles and at small
-ones.  ``torch.autograd.gradcheck`` runs the Function in float64.  Beside
-them: K8b's budget table and the wrappers' raises.  The kernels run on
+ones; with ``round_p=True`` (the tensor-core instance's rounding of p and
+ds, and its head-order sum of the GQA partials) in bf16 too, while the
+default keeps its bits.  ``torch.autograd.gradcheck`` runs the Function in
+float64.  Beside them: K8b's budget tables and the wrappers' raises.  The kernels run on
 the card only (chip_smoke.py, A6), and under the g++ mock
 (tests/test_torch_kernels_mock.py)."""
 import numpy as np
@@ -148,6 +150,147 @@ def test_bwd_plain_matches_jax_vjp(B, S, Hq, Hkv, dh, w, dtype):
                 _hold(g, jw, dtype)
 
 
+@pytest.mark.parametrize("B,S,Hq,Hkv,dh,w", CASES)
+def test_bwd_plain_round_p_matches_jax_vjp_in_bf16(B, S, Hq, Hkv, dh, w):
+    """The tensor-core instance's rounding (``round_p=True``: p and ds in
+    bf16 before the products that take them, the GQA partials summed in
+    head order) against ``jax.vjp`` of JAX's ``flash_attention`` in bf16,
+    at the table's tiles, within ``_hold``'s bf16 tolerance."""
+    arrays = _arrays(B, S, Hq, Hkv, dh, seed=S + Hq + w + 2)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16) for a in arrays)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16)
+                       for a in arrays)
+    o, lse = fp.flash_prefill_traj_plain(tq, tk, tv, window=w, q_block=64,
+                                         k_block=64, round_p=True)
+    want = jax.jit(lambda q, k, v, do: jax.vjp(
+        lambda q_, k_, v_: jax_attention.flash_attention(q_, k_, v_,
+                                                         window=w),
+        q, k, v)[1](do))(jq, jk, jv, jdo)
+    got = fp.flash_prefill_bwd_plain(tq, tk, tv, o, lse, tdo, window=w,
+                                     round_p=True)
+    for g, t, jw in zip(got, (tq, tk, tv), want):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        _hold(g, jw, "bfloat16")
+
+
+def _bwd_plain_unrounded(q, k, v, o, lse, dout, window, scale, bl):
+    """The plain backward with no rounding flag: the default
+    (``round_p=False``, the SIMT instance's yardstick) must keep its
+    bits."""
+    B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    ct = torch.float32
+    q5 = q.to(ct).reshape(B, S, Hkv, g, dh)
+    do5 = dout.to(ct).reshape(B, S, Hkv, g, dh)
+    k32, v32 = k.to(ct), v.to(ct)
+    lse4 = lse.to(ct).reshape(B, Hkv, g, S)
+    d4 = (do5 * o.to(ct).reshape(B, S, Hkv, g, dh)).sum(-1) \
+        .permute(0, 2, 3, 1)
+    pos = torch.arange(S)
+
+    def probs(q0, n, k0, m):
+        qs, ks = slice(q0, q0 + n), slice(k0, k0 + m)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q5[:, qs], k32[:, ks])
+        mask = fp._mask(pos[qs], pos[ks], window)
+        p = torch.where(mask, torch.exp(s * scale - lse4[..., qs, None]),
+                        0.0)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", do5[:, qs], v32[:, ks])
+        return p, p * (dp - d4[..., qs, None])
+
+    dq = torch.empty(B, S, Hkv, g, dh, dtype=ct)
+    for q0 in range(0, S, bl.dq_rows):
+        n = min(bl.dq_rows, S - q0)
+        acc = torch.zeros(B, Hkv, g, n, dh, dtype=ct)
+        for kt in fp.live_tiles(q0, bl.dq_rows, bl.tile, S, window):
+            k0 = kt * bl.tile
+            _, ds = probs(q0, n, k0, min(bl.tile, S - k0))
+            acc += torch.einsum("bhgqk,bkhd->bhgqd", ds,
+                                k32[:, k0:k0 + bl.tile])
+        dq[:, q0:q0 + n] = (acc * scale).permute(0, 3, 1, 2, 4)
+    dk = torch.empty(B, S, Hkv, dh, dtype=ct)
+    dv = torch.empty_like(dk)
+    for k0 in range(0, S, bl.dkv_rows):
+        m = min(bl.dkv_rows, S - k0)
+        acc_k = torch.zeros(B, Hkv, m, dh, dtype=ct)
+        acc_v = torch.zeros_like(acc_k)
+        for qt in fp.live_q_tiles(k0, bl.dkv_rows, bl.tile, S, window):
+            q0 = qt * bl.tile
+            n = min(bl.tile, S - q0)
+            p, ds = probs(q0, n, k0, m)
+            qs = slice(q0, q0 + n)
+            acc_v += torch.einsum("bhgqk,bqhgd->bhkd", p, do5[:, qs])
+            acc_k += torch.einsum("bhgqk,bqhgd->bhkd", ds, q5[:, qs])
+        dk[:, k0:k0 + m] = (acc_k * scale).transpose(1, 2)
+        dv[:, k0:k0 + m] = acc_v.transpose(1, 2)
+    return (dq.reshape(B, S, Hq, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,Hq,Hkv,dh,w", CASES[:5])
+def test_bwd_plain_default_keeps_its_bits(B, S, Hq, Hkv, dh, w, dtype):
+    """``round_p=False`` (the default, the SIMT instance's yardstick)
+    gives the bits of the plain backward written without the flag."""
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(dtype) for a in _arrays(
+        B, S, Hq, Hkv, dh, seed=S + w + 3))
+    o, lse = fp.flash_prefill_traj_plain(tq, tk, tv, window=w)
+    bl = fp.BwdBlocks(16, 8, 8)
+    got = fp.flash_prefill_bwd_plain(tq, tk, tv, o, lse, tdo, window=w,
+                                     blocks=bl, round_p=False)
+    want = _bwd_plain_unrounded(tq, tk, tv, o, lse, tdo, w, dh ** -0.5, bl)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("Hq,Hkv", [(7, 1), (3, 3)])
+def test_round_p_sums_the_heads_partials_in_head_order(Hq, Hkv,
+                                                       monkeypatch):
+    """With ``round_p`` each dK/dV tile's dk and dv are per-query-head
+    partials added in head order 0 ... g - 1 (``head_order_sum``, what
+    the kernel's reduction does): a group of 7 (Qwen2's) and of 1.  Each
+    partial is that head's own backward (the head alone over the same k
+    and v), and dk and dv are the recorded sums, bit for bit."""
+    B, S, dh, w = 1, 40, 16, 0
+    bl = fp.BwdBlocks(8, 16, 8)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in _arrays(
+        B, S, Hq, Hkv, dh, seed=Hq))
+    o, lse = fp.flash_prefill_traj_plain(tq, tk, tv, window=w)
+    sums = []
+    real = fp.head_order_sum
+
+    def recording(parts):
+        out = real(parts)
+        want = parts[:, :, 0]
+        for i in range(1, parts.shape[2]):
+            want = want + parts[:, :, i]
+        assert torch.equal(out, want)
+        sums.append((parts, out))
+        return out
+    monkeypatch.setattr(fp, "head_order_sum", recording)
+    _, dk, dv = fp.flash_prefill_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                           window=w, blocks=bl, round_p=True)
+    monkeypatch.undo()
+    g = Hq // Hkv
+    assert len(sums) == 2 * -(-S // bl.dkv_rows)   # dk's and dv's a tile
+    assert all(parts.shape[2] == g for parts, _ in sums)
+    # (dk, dv) sums of each key tile, in order: the outputs are them
+    got_k = torch.cat([out for _, out in sums[0::2]], dim=2)
+    got_v = torch.cat([out for _, out in sums[1::2]], dim=2)
+    assert torch.equal(dk, (got_k * dh ** -0.5).transpose(1, 2))
+    assert torch.equal(dv, got_v.transpose(1, 2))
+    # with one kv head, each partial is its query head's backward alone
+    for i in range(g if Hkv == 1 else 0):
+        h = slice(i, i + 1)
+        _, dk_i, dv_i = fp.flash_prefill_bwd_plain(
+            tq[:, :, h], tk, tv, o[:, :, h], lse[:, h], tdo[:, :, h],
+            window=w, blocks=bl, round_p=True)
+        for sel, want, mul in ((sums[0::2], dk_i, dh ** -0.5),
+                               (sums[1::2], dv_i, 1.0)):
+            part = torch.cat([parts[:, :, i] for parts, _ in sel], dim=2)
+            torch.testing.assert_close(want, part.transpose(1, 2) * mul,
+                                       **F32_TOL)
+
+
 @pytest.mark.parametrize("w", [0, 5])
 def test_function_passes_gradcheck_in_float64(w):
     """``flash_prefill`` under autograd (``_FlashPrefillFn``: the plain K8t
@@ -199,12 +342,30 @@ def test_function_saves_the_forward_and_runs_the_backward_once(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", fp.HEAD_DIMS)
 def test_bwd_budget_table_at_every_head_width(dh, dtype):
-    """Each kernel's working set priced term by term (two owned and two
-    streamed rows of dh values plus 16 bytes, and for dK/dV the streamed
-    rows' lse and D), and the chosen tile the coarsest that leaves two
-    blocks of both kernels on an SM."""
-    io = 2 if dtype == torch.bfloat16 else 4
-    row = dh * io + 16
+    """Each kernel's working set priced term by term.  f32 (SIMT): two
+    owned and two streamed rows of dh floats plus 16 bytes, and for dK/dV
+    the streamed rows' lse and D; the chosen tile the coarsest that leaves
+    two blocks of both kernels on an SM.  bf16 (tensor cores): the
+    swizzle's 1,024-byte alignment slack, the owned tiles (q and dO of 64
+    rows; k and v of the block's keys), two stages of two streamed (64,
+    padded dh) tiles and, for dK/dV, their rows' lse and D, and five
+    barriers; 64-row tiles whatever the sequence."""
+    if dtype == torch.bfloat16:
+        dhp = fp.padded_head_dim(dh)
+        assert fp.bwd_working_set_bytes(64, 64, dh, dtype, True) == (
+            1024 + 2 * 64 * dhp * 2 + 2 * (2 * 64 * dhp * 2) + 5 * 8)
+        assert fp.bwd_working_set_bytes(64, 64, dh, dtype, False) == (
+            1024 + 2 * 64 * dhp * 2 + 2 * (2 * 64 * dhp * 2 + 2 * 4 * 64)
+            + 5 * 8)
+        bl = fp.choose_bwd_blocks(512, dh, dtype)
+        assert bl == (64, 64, 64)
+        assert fp.choose_bwd_blocks(37, dh, dtype) == bl
+        for rows, dq in ((64, True), (64, False)):
+            smem = fp.bwd_working_set_bytes(rows, 64, dh, dtype, dq)
+            assert smem <= factorization.H100_SMEM_PER_BLOCK
+            assert smem % 8 == 0
+        return
+    row = dh * 4 + 16
     assert fp.bwd_working_set_bytes(32, 64, dh, dtype, True) == (
         (2 * 32 + 2 * 64) * row)
     assert fp.bwd_working_set_bytes(16, 64, dh, dtype, False) == (
@@ -224,11 +385,11 @@ def test_bwd_budget_table_at_every_head_width(dh, dtype):
 
 
 @pytest.mark.parametrize("S,dh,dtype,want", [
-    (512, 64, torch.bfloat16, (32, 16, 64)),   # Qwen2's training shape
-    (512, 128, torch.bfloat16, (32, 16, 64)),  # OLMoE's, Yi's
+    (512, 64, torch.bfloat16, (64, 64, 64)),   # Qwen2's training shape
+    (512, 128, torch.bfloat16, (64, 64, 64)),  # OLMoE's, Yi's
     (512, 160, torch.float32, (32, 16, 32)),   # f32 at 160: 64 fits once
     (20, 64, torch.float32, (32, 16, 32)),     # no tile past S's need
-    (1, 16, torch.bfloat16, (32, 16, 16)),
+    (1, 16, torch.bfloat16, (64, 64, 64)),     # bf16 tiles whatever S
     (512, 48, torch.float32, None),            # no instance
     (512, 64, torch.float16, None)])
 def test_choose_bwd_blocks_at_the_edges(S, dh, dtype, want):

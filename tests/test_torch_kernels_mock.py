@@ -686,9 +686,9 @@ def test_the_c_side_prices_every_launch_as_the_tables_do():
 
 
 # ---------------------------------------------------------------------------
-# Attention training: the SIMT instance of K8t (csrc/flash_prefill.cu; the
-# tensor-core instance needs wgmma and TMA, and is held on the card) and
-# K8b (csrc/flash_prefill_bwd.cu)
+# Attention training: the SIMT instances of K8t (csrc/flash_prefill.cu) and
+# K8b with its reduction (csrc/flash_prefill_bwd.cu); the tensor-core
+# instances need wgmma and TMA, and are held on the card
 # ---------------------------------------------------------------------------
 def _k8_call(lib, q, k, v, qb, kb, window, lse, smem=None):
     """One K8 launch of the SIMT instance (K8t with ``lse``) under the
@@ -708,18 +708,22 @@ def _k8_call(lib, q, k, v, qb, kb, window, lse, smem=None):
     return err, o, rows
 
 
-def _k8b_call(lib, args, window, blocks, smem=None):
-    """One K8b call (its dQ and dK/dV kernels) under the mock: (error
-    code, dq, dk, dv, D)."""
+def _k8b_call(lib, args, window, blocks, smem=None, part=None):
+    """One K8b call of the SIMT instance (its dQ, dK/dV and, for GQA,
+    reduction kernels) under the mock, with ``part`` the partials' scratch
+    (allocated NaN-filled for Hq > Hkv unless given): (error code, dq, dk,
+    dv, D, part)."""
     from repro_torch.kernels import flash_prefill as fp
 
     q, k, v, o, lse, dout = args
     B, S, Hq, dh = q.shape
+    Hkv = k.shape[2]
     d = torch.full((B, Hq, S), float("nan"))
     grads = [torch.full_like(t, float("nan")) for t in (q, k, v)]
-    fn = (lib.flash_prefill_bwd_bf16 if q.dtype == torch.bfloat16
-          else lib.flash_prefill_bwd_f32)
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    if part is None and Hq > Hkv:
+        part = torch.full((2, B, S, Hq, dh), float("nan"))
+    fn = lib.flash_prefill_bwd_f32
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_longlong, ctypes.c_longlong,
                       ctypes.c_void_p])
     if smem is None:
@@ -727,10 +731,10 @@ def _k8b_call(lib, args, window, blocks, smem=None):
                                          q.dtype, True),
                 fp.bwd_working_set_bytes(blocks.dkv_rows, blocks.tile, dh,
                                          q.dtype, False))
-    err = fn(*(t.data_ptr() for t in (q, k, v, o, dout, lse, d, *grads)), B,
-             S, Hq, k.shape[2], dh, *blocks, window, dh ** -0.5, *smem,
-             None)
-    return (err, *grads, d)
+    err = fn(*(t.data_ptr() for t in (q, k, v, o, dout, lse, d, *grads)),
+             None if part is None else part.data_ptr(), B, S, Hq, Hkv, dh,
+             *blocks, window, dh ** -0.5, *smem, None)
+    return (err, *grads, d, part)
 
 
 def _attn_inputs(B, S, Hq, Hkv, dh, seed):
@@ -769,19 +773,20 @@ def test_simt_k8t_under_the_mock_matches_its_plain_version(case):
                     smem=fp.working_set_bytes(qb, kb, dh) + 16)[0] != 0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32])  # the SIMT instance's
 @pytest.mark.parametrize("case", [
     # (B, S, Hq, Hkv, dh, window, (dq_rows, dkv_rows, tile)): a ragged
-    # tail, GQA groups of 2 and 4, a window, many dQ, dK/dV and streamed
-    # tiles
+    # tail, GQA groups of 2, 4 and 1, a window, many dQ, dK/dV and
+    # streamed tiles
     (1, 37, 4, 2, 16, 0, (16, 8, 8)), (1, 30, 4, 1, 32, 12, (8, 8, 4)),
     (2, 20, 2, 2, 16, 0, (8, 16, 16))])
 def test_k8b_under_the_mock_matches_its_plain_version(case, dtype):
-    """K8b's two kernels against ``flash_prefill_bwd_plain`` at the same
-    tiles, on K8t's plain o and lse: f32 at 1e-5 (the same f32 sums in
-    another order); bf16 within one bf16 step of max|grad| (both sides sum
-    in f32 and round once).  D is rowsum(dO o); two runs give the same
-    bits; a mispriced launch of either kernel is refused."""
+    """K8b's SIMT kernels (f32: the dK/dV grid over query heads, each
+    group's partials summed by the reduction) against
+    ``flash_prefill_bwd_plain`` at the same tiles, on K8t's plain o and
+    lse, at 1e-5 (the same f32 sums in another order).  D is rowsum(dO o);
+    two runs give the same bits; a mispriced launch of either kernel is
+    refused, and so is scratch given for g = 1 or missing for g > 1."""
     from repro_torch.kernels import flash_prefill as fp
 
     B, S, Hq, Hkv, dh, w, bl = case
@@ -791,42 +796,83 @@ def test_k8b_under_the_mock_matches_its_plain_version(case, dtype):
                                                         seed=S + 1))
     o, lse = fp.flash_prefill_traj_plain(q, k, v, window=w)
     args = (q, k, v, o, lse, dout)
-    err, *got, d = _k8b_call(lib, args, w, blocks)
-    err2, *again, _ = _k8b_call(lib, args, w, blocks)
+    err, *got, d, _ = _k8b_call(lib, args, w, blocks)
+    err2, *again, _, _ = _k8b_call(lib, args, w, blocks)
     assert err == err2 == 0
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     torch.testing.assert_close(
-        d, (dout.float() * o.float()).sum(-1).transpose(1, 2), rtol=1e-5,
-        atol=1e-5)
+        d, (dout * o).sum(-1).transpose(1, 2), rtol=1e-5, atol=1e-5)
     want = fp.flash_prefill_bwd_plain(*args, window=w, blocks=blocks)
     for g, t in zip(got, want):
         assert g.dtype == dtype
-        if dtype == torch.float32:
-            torch.testing.assert_close(g, t, rtol=1e-5, atol=1e-5)
-        else:
-            m = float(t.float().abs().max())
-            assert float((g.float() - t.float()).abs().max()) <= 2 ** -7 * m
+        torch.testing.assert_close(g, t, rtol=1e-5, atol=1e-5)
     for which in (0, 1):
         smem = [fp.bwd_working_set_bytes(bl[0], bl[2], dh, dtype, True),
                 fp.bwd_working_set_bytes(bl[1], bl[2], dh, dtype, False)]
         smem[which] += 16
         assert _k8b_call(lib, args, w, blocks, smem=smem)[0] != 0
+    wrong = torch.zeros(2, B, S, Hq, dh) if Hq == Hkv else None
+    if wrong is not None:
+        assert _k8b_call(lib, args, w, blocks, part=wrong)[0] != 0
+
+
+@pytest.mark.parametrize("case", [
+    # (B, S, Hq, Hkv, dh, window, (dq_rows, dkv_rows, tile)): a group of
+    # 7 (Qwen2's), and of 1
+    (1, 33, 7, 1, 16, 0, (8, 16, 8)), (2, 21, 3, 3, 32, 5, (8, 8, 4))])
+def test_k8b_reduction_sums_the_heads_in_order(case):
+    """The reduction reads the partials the dK/dV kernel left in the
+    scratch, (2, B, S, Hq, dh): each kv head's dk is its g query heads'
+    partials added in head order 0 ... g - 1, times the scale, and its dv
+    the same sum, bit for bit (``head_order_sum``).  With g = 1 there is
+    no scratch and the dK/dV kernel's output is the plain version's."""
+    from repro_torch.kernels import flash_prefill as fp
+
+    B, S, Hq, Hkv, dh, w, bl = case
+    blocks = fp.BwdBlocks(*bl)
+    lib = _lib("flash_prefill_bwd")
+    q, k, v, dout = _attn_inputs(B, S, Hq, Hkv, dh, seed=S + 2)
+    o, lse = fp.flash_prefill_traj_plain(q, k, v, window=w)
+    args = (q, k, v, o, lse, dout)
+    err, _, dk, dv, _, part = _k8b_call(lib, args, w, blocks)
+    assert err == 0
+    want = fp.flash_prefill_bwd_plain(*args, window=w, blocks=blocks)
+    if Hq == Hkv:
+        assert part is None
+    else:
+        g = Hq // Hkv
+        parts = part.reshape(2, B, S, Hkv, g, dh).permute(0, 1, 3, 4, 2, 5)
+        assert not parts.isnan().any()
+        sums = [fp.head_order_sum(x).transpose(1, 2) for x in parts]
+        assert torch.equal(dk, sums[0] * dh ** -0.5)
+        assert torch.equal(dv, sums[1])
+    torch.testing.assert_close(dk, want[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dv, want[2], rtol=1e-5, atol=1e-5)
 
 
 def test_the_c_side_prices_k8b_as_the_table_does():
-    """``flash_prefill_bwd_smem_bytes`` (what each K8b launch checks its
-    shared memory against) equals ``bwd_working_set_bytes`` at every head
-    width, IO dtype, row count and tile the kernels take."""
+    """``flash_prefill_bwd_smem_bytes`` and ``flash_prefill_bwd_tc_smem_
+    bytes`` (what each K8b launch checks its shared memory against) equal
+    ``bwd_working_set_bytes``: the SIMT kernels' at every head width, row
+    count and tile they take in f32; the tensor-core kernels' at every
+    head width at the tiles ``choose_bwd_blocks`` gives bf16."""
     from repro_torch.kernels import flash_prefill as fp
 
-    fn = _lib("flash_prefill_bwd").flash_prefill_bwd_smem_bytes
-    fn.argtypes = [ctypes.c_int] * 5
-    fn.restype = ctypes.c_longlong
+    lib = _lib("flash_prefill_bwd")
+    simt = lib.flash_prefill_bwd_smem_bytes
+    simt.argtypes = [ctypes.c_int] * 4
+    simt.restype = ctypes.c_longlong
+    tc = lib.flash_prefill_bwd_tc_smem_bytes
+    tc.argtypes = [ctypes.c_int] * 2
+    tc.restype = ctypes.c_longlong
     for dh in fp.HEAD_DIMS:
-        for dtype, io in ((torch.float32, 4), (torch.bfloat16, 2)):
-            for rows in (8, 16, 32, 64):
-                for tile in (4, 16, 32, 64):
-                    for dq in (True, False):
-                        assert fn(int(dq), rows, tile, dh, io) == \
-                            fp.bwd_working_set_bytes(rows, tile, dh, dtype,
-                                                     dq)
+        for rows in (8, 16, 32, 64):
+            for tile in (4, 16, 32, 64):
+                for dq in (True, False):
+                    assert simt(int(dq), rows, tile, dh) == \
+                        fp.bwd_working_set_bytes(rows, tile, dh,
+                                                 torch.float32, dq)
+        bl = fp.choose_bwd_blocks(512, dh, torch.bfloat16)
+        for rows, dq in ((bl.dq_rows, True), (bl.dkv_rows, False)):
+            assert tc(int(dq), dh) == fp.bwd_working_set_bytes(
+                rows, bl.tile, dh, torch.bfloat16, dq)
