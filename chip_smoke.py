@@ -109,6 +109,20 @@ A9 K8t's and K8b's times beside their bounds, plain versions and SDPA
 forward + backward (and its backward alone), K8b's kernels by the
 profiler; X5 OLMoE-1B-7B at full width, 4 of its 16 layers, trained the
 same way for 8 steps, with its router metrics.
+The vision and audio fronts (``fronts_slice``), each model freed before
+the next: V1 InternVL2-1B and U1 MusicGen-large at full width, 2 layers,
+in f32 (drawn patch embeddings ahead of the text; 4 codebooks a step):
+K8/K9 against the blocked/einsum plans, prefill + 4 decode steps against
+``forward(inference=True)``, every launch held against its plain version;
+V2 and U2 the two at full width and depth in bf16 through the wave engine
+and the slot engine as S1 to S4 serve them (every K8/K9 launch held, every
+bf16 K8 on the tensor cores, a replayed tick bit-equal to the eager one;
+InternVL2-1B's chunked engine refused, MusicGen-large's (4, 16) tokens
+through whole and chunked admission and under the seeded FaultPlan); V3
+and U3 the two trained at full width and depth for 8 steps of batch 4 x
+512 positions drawn by ``registry.make_batch``, as A8 (step 1's K8b calls
+held, peak memory, the loss).  A1, A2, A5, A6 and A9 also hold and time
+K8, K9, K8t and K8b at MusicGen-large's heads (32/32 x 64).
 It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work.
@@ -1885,10 +1899,14 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         (2, 96, 4, 1, 32, 32, 32, 24), (1, 60, 2, 2, 16, 16, 16, 0),
         (1, 60, 2, 2, 16, 16, 16, 20), (1, 64, 4, 2, 32, 32, 32, 0),
         (2, 96, 4, 2, 16, 32, 32, 0),
-        # Qwen2-0.5B's served prefills, Yi-9B's, 8/8 x 160, a window of 64
+        # Qwen2-0.5B's served prefills, Yi-9B's, 8/8 x 160, a window of 64,
+        # MusicGen-large's full multi-head 32/32 x 64 (g = 1 at dh 64) and
+        # InternVL2-1B's vision prefix ahead of 300 text tokens
         (4, 500, 14, 2, 64, None, None, 0), (4, 468, 14, 2, 64, None, None, 0),
         (4, 500, 32, 4, 128, None, None, 0), (2, 500, 8, 8, 160, None, None, 0),
-        (4, 500, 14, 2, 64, None, None, 64)]
+        (4, 500, 14, 2, 64, None, None, 64),
+        (4, 500, 32, 32, 64, None, None, 0),
+        (1, 556, 14, 2, 64, None, None, 0)]
     for B, S, Hq, Hkv, dh, qb, kb, w in cases:
         blocks = fp.choose_blocks(S, dh)
         qb_, kb_ = qb or blocks.q_block, kb or blocks.k_block
@@ -1973,7 +1991,10 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         (4, 14, 2, 517, 64, None, [65, 300, 508, 517]),
         (4, 32, 4, 517, 128, None, [0, 1, 63, 64]),
         (4, 32, 4, 517, 128, None, [65, 300, 508, 517]),
-        (2, 32, 8, 517, 160, None, [300, 508])]
+        (2, 32, 8, 517, 160, None, [300, 508]),
+        # MusicGen-large's 32/32 x 64; InternVL2-1B's cache behind its prefix
+        (4, 32, 32, 517, 64, None, [0, 1, 300, 517]),
+        (4, 14, 2, 773, 64, None, [557, 600, 700, 773])]
     for B, Hq, Hkv, S, dk, bs, lens in cases:
         if lens is None:
             lens = (torch.arange(1, B + 1) * (S // (B + 1)) + 1).tolist()
@@ -2159,7 +2180,8 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     # --- A5. the kernels' times at the served shapes ----------------------
     rows = {}
     for name, (Hq, Hkv, dh) in (("qwen2-0.5b", (14, 2, 64)),
-                                ("yi-9b", (32, 4, 128))):
+                                ("yi-9b", (32, 4, 128)),
+                                ("musicgen-large", (32, 32, 64))):
         B, S = 4, 500
         q, k, v = attn_inputs(B, S, Hq, Hkv, dh, bf16, gen)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -2313,16 +2335,16 @@ def attn_grad_hold(got: torch.Tensor, want: torch.Tensor, what: str,
 
 def attention_train_run(phase: str, cfg, n_steps: int, counted, counts,
                         only, arms, share: dict) -> dict:
-    """``cfg`` trained in bf16 through ``launch/train.train`` (batch 4 x
-    512, AdamW, remat on, ``n_steps`` steps, weights from seed 0 on the
-    card), counted, the plain attention and scan versions armed to raise:
-    K8t twice and K8b once an attention layer a step and no K8; each K8b
-    call of step 1 held against ``flash_prefill_bwd_plain`` on its own
+    """``cfg`` trained in bf16 through ``launch/train.train`` (batch 4 x 512,
+    AdamW, remat on, ``n_steps`` steps, weights from seed 0 on the card),
+    counted, the plain attention and scan versions armed
+    to raise: K8t twice and K8b once an attention layer a step and no K8; each
+    K8b call of step 1 held against ``flash_prefill_bwd_plain`` on its own
     inputs; every loss and gradient norm finite; the last two steps under
-    torch.profiler.  Prints the step time (host clock, steps 2 to
-    ``n_steps`` - 2), tokens/s, the model FLOPs' share of the bf16 peak,
-    peak memory, the loss curve and the lm_head's share of a step.  Returns
-    the launches and the report."""
+    torch.profiler.  Prints the step time (host clock, steps 2 to ``n_steps`` -
+    2), tokens/s, the model FLOPs' share of the bf16 peak, peak memory, the
+    loss curve and the lm_head's share of a step.  Returns the launches and the
+    report."""
     from repro_torch import steps as steps_lib
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.launch import train as train_lm
@@ -2418,7 +2440,8 @@ def attention_train_run(phase: str, cfg, n_steps: int, counted, counts,
     busy = print_step_profile(profiles, med)
     head = lm_head_ms(cfg, tokens)
     print(f"[profile] {phase} lm_head: the logits product (4 x 512 x "
-          f"{cfg.d_model} by {cfg.vocab}), the f32 log-softmax and the "
+          f"{cfg.d_model} by {max(cfg.n_codebooks, 1) * cfg.vocab}), the f32 "
+          f"log-softmax and the "
           f"cross-entropy, forward and backward, timed alone with CUDA "
           f"events at the step's shapes: {head:.3f} ms"
           + (f", {head / busy:.1%} of the device-alone step's busy time"
@@ -2429,19 +2452,22 @@ def attention_train_run(phase: str, cfg, n_steps: int, counted, counts,
 def lm_head_ms(cfg, tokens: int) -> float:
     """Forward and backward of the lm_head and the loss at a training
     step's shapes, bf16 weights (CUDA events, median of 5 runs of 3): the
-    step's largest matrix product."""
+    step's largest matrix product (an audio model's K heads as one
+    product of K x vocab columns, each codebook's log-softmax apart)."""
     from repro_torch import steps as steps_lib
 
+    K = max(cfg.n_codebooks, 1)
     gen = torch.Generator().manual_seed(5)
     x = randn(4, tokens // 4, cfg.d_model, gen=gen).to(torch.bfloat16)
-    w = randn(cfg.vocab, cfg.d_model, gen=gen,
+    w = randn(K * cfg.vocab, cfg.d_model, gen=gen,
               scale=cfg.d_model ** -0.5).to(torch.bfloat16)
     x.requires_grad_()
     w.requires_grad_()
-    toks = torch.randint(0, cfg.vocab, (4, tokens // 4), generator=gen).cuda()
+    toks = torch.randint(0, cfg.vocab, (4, tokens // 4, K),
+                         generator=gen).cuda()
 
     def step():
-        logits = (x @ w.T).float()
+        logits = (x @ w.T).float().reshape(4, tokens // 4, K, cfg.vocab)
         loss = steps_lib._xent(logits[:, :-1], toks[:, 1:])
         return torch.autograd.grad(loss, (x, w))
 
@@ -2486,7 +2512,9 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
         # S, a window of 64
         ("Qwen2", 4, 512, 14, 2, 64, 0), ("OLMoE", 4, 512, 16, 16, 128, 0),
         ("Yi", 4, 512, 32, 4, 128, 0), ("dh 160", 2, 512, 8, 8, 160, 0),
-        ("ragged", 4, 300, 14, 2, 64, 0), ("window", 4, 512, 14, 2, 64, 64)]
+        ("ragged", 4, 300, 14, 2, 64, 0), ("window", 4, 512, 14, 2, 64, 64),
+        # MusicGen-large's training heads: g = 1 at dh 64 (no reduction)
+        ("MusicGen", 4, 512, 32, 32, 64, 0)]
     for label, B, S, Hq, Hkv, dh, w in cases:
         said = []
         for dtype in (f32, bf16):
@@ -2619,8 +2647,10 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
 
     # --- A9. K8t's and K8b's times at the training shapes ------------------
     rows = {}
-    for name, (B, S, Hq, Hkv, dh) in (("qwen2-0.5b", (4, 512, 14, 2, 64)),
-                                      ("olmoe-1b-7b", (4, 512, 16, 16, 128))):
+    for name, (B, S, Hq, Hkv, dh) in (
+            ("qwen2-0.5b", (4, 512, 14, 2, 64)),
+            ("olmoe-1b-7b", (4, 512, 16, 16, 128)),
+            ("musicgen-large", (4, 512, 32, 32, 64))):
         q, k, v = attn_inputs(B, S, Hq, Hkv, dh, bf16, gen)
         bl = fp.choose_blocks(S, dh, bf16)
         o, lse = fp.flash_prefill_traj(q, k, v)
@@ -2828,18 +2858,19 @@ def plain_attention_arms() -> tuple:
             (fp, "flash_prefill_traj_plain"), (fp, "flash_prefill_bwd_plain"))
 
 
-def kernel_holds() -> dict:
+def kernel_holds(attn_tol: dict = MARGIN_TOL) -> dict:
     """{kernel: (module, wrapper name, hold)} for the serving paths' kernels
     K7, K8 and K9: ``hold(args, kwargs, out)`` holds one captured launch
     against its plain version on the launch's own inputs (K8 and K9 at the
-    launch's tiles and the attention kernels' bf16 tier, 3e-2; K7's output
-    and state at MAMBA_TOL f32) and returns the max abs error."""
+    launch's tiles and ``attn_tol``, by default the attention kernels' bf16
+    tier, 3e-2; K7's output and state at MAMBA_TOL f32) and returns the
+    max abs error."""
     from repro_torch.core import plans
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import flash_prefill as fp
     from repro_torch.kernels import mamba_scan as ms
 
-    attn_tol, scan_tol = MARGIN_TOL, plans.MAMBA_TOL["float32"]
+    scan_tol = plans.MAMBA_TOL["float32"]
 
     def hold_fp(args, kwargs, out):
         bl = fp.choose_blocks(args[0].shape[1], args[0].shape[3],
@@ -2870,21 +2901,41 @@ def kernel_holds() -> dict:
             "mamba_scan": (ms, "mamba_scan", hold_scan)}
 
 
-def top2_margins(logits: torch.Tensor) -> list[tuple[float, float]]:
-    """(top logit, top-2 margin) of each row, on the host."""
+def top2_margins(logits: torch.Tensor) -> list[list[tuple[float, float]]]:
+    """(top logit, top-2 margin) of each row of each lane, on the host:
+    logits (B, V) give one row a lane, an audio model's (B, K, V) one a
+    codebook."""
     v = logits.float().topk(2, dim=-1).values.cpu()
-    return [(float(a), float(a - b)) for a, b in v.reshape(-1, 2)]
+    return [[(float(a), float(a - b)) for a, b in lane.reshape(-1, 2)]
+            for lane in v.reshape(logits.shape[0], -1, 2)]
+
+
+def last_logits(logits: torch.Tensor) -> torch.Tensor:
+    """A B=1 prefill's last-position logits on the host, f32: (V,), or
+    (K, V) for an audio model's (1, K, S, V)."""
+    return logits[0, ..., -1, :].float().cpu()
+
+
+def token_steps(tokens: np.ndarray) -> list[tuple[int, ...]]:
+    """A Result's tokens, (m,) or (K, m) codebooks, as its m steps."""
+    t = np.asarray(tokens)
+    return [tuple(int(x) for x in col)
+            for col in t.reshape(-1, t.shape[-1]).T]
 
 
 def agreed(ref_tokens, margins, other_tokens, tol: dict = MARGIN_TOL,
            floor: float = 0.0) -> tuple[int, int]:
-    """(k, n): the reference's tokens up to the first one whose top-2
-    margin is within ``tol`` of its top logit or within ``floor`` (k of
-    them), and how many leading tokens of ``other_tokens`` equal the
-    reference's (n)."""
+    """(k, n): the reference's token steps up to the first one with a row
+    (a codebook's, for audio) whose top-2 margin is within ``tol`` of its
+    top logit or within ``floor`` (k of them), and how many leading steps
+    of ``other_tokens`` equal the reference's (n); tokens as a Result
+    holds them, margins one list of rows a step (``top2_margins``)."""
+    ref_tokens, other_tokens = token_steps(ref_tokens), token_steps(
+        other_tokens)
     k = len(ref_tokens)
-    for j, (top, gap) in enumerate(margins):
-        if gap <= max(floor, tol["atol"] + tol["rtol"] * abs(top)):
+    for j, rows in enumerate(margins):
+        if any(gap <= max(floor, tol["atol"] + tol["rtol"] * abs(top))
+               for top, gap in rows):
             k = j
             break
     n = 0
@@ -2894,33 +2945,46 @@ def agreed(ref_tokens, margins, other_tokens, tol: dict = MARGIN_TOL,
     return k, n
 
 
-def slot_requests(vocab: int) -> list:
+def token_tail(cfg) -> tuple[int, ...]:
+    """A step's token shape: (K,) for an audio model's codebooks, else ()."""
+    return (cfg.n_codebooks,) if cfg.n_codebooks else ()
+
+
+def slot_seq(cfg) -> int:
+    """The slot phases' cache positions: ``SLOT_SEQ``, plus a vision
+    model's prefix (the engines check a prompt's text alone against
+    ``max_seq``, as the JAX package's do)."""
+    return SLOT_SEQ + cfg.n_vis_tokens
+
+
+def slot_requests(vocab: int, tail: tuple[int, ...] = ()) -> list:
     """The slot phases' requests: ``SLOT_LENS`` prompts drawn from seed 0,
-    16 new tokens each."""
+    16 new tokens each; ``tail`` (K,) makes (K, S) codebook prompts."""
     from repro_torch.serving import Request
 
     prng = np.random.default_rng(0)
-    return [Request(i, prng.integers(0, vocab, (n,)).astype(np.int32),
+    return [Request(i, prng.integers(0, vocab, tail + (n,)).astype(np.int32),
                     max_new_tokens=16) for i, n in enumerate(SLOT_LENS)]
 
 
 def slot_engine(model, params, chunk: int | None = None, **kw):
-    """A SlotEngine of ``N_SLOTS`` lanes of ``SLOT_SEQ`` positions: whole-
+    """A SlotEngine of ``N_SLOTS`` lanes of ``slot_seq`` positions: whole-
     prompt admission, or chunks of ``chunk`` through 2 prefill lanes."""
     from repro_torch.serving import EngineConfig, SlotEngine
 
     return SlotEngine(model, params, config=EngineConfig(
-        n_slots=N_SLOTS, max_seq=SLOT_SEQ, queue_capacity=8,
+        n_slots=N_SLOTS, max_seq=slot_seq(model.cfg), queue_capacity=8,
         prefill_chunk_len=chunk, prefill_lanes=2, **kw))
 
 
-def tokens_ok(results, vocab: int, what: str) -> None:
+def tokens_ok(results, cfg, what: str) -> None:
     from repro_torch.serving import FinishReason
 
-    check(all(r.tokens.shape == (16,) and int(r.tokens.min()) >= 0
-              and int(r.tokens.max()) < vocab
+    shape = token_tail(cfg) + (16,)
+    check(all(r.tokens.shape == shape and int(r.tokens.min()) >= 0
+              and int(r.tokens.max()) < cfg.vocab
               and r.finish_reason == FinishReason.LENGTH for r in results),
-          f"{what}: tokens outside [0, vocab), not 16 a request or not "
+          f"{what}: tokens outside [0, vocab), not {shape} a request or not "
           "finished by length")
 
 
@@ -2942,13 +3006,13 @@ def watching(eng, first: dict, margins: dict):
 
     def w_prefill(p, c, b):
         logits, c = prefill(p, c, b)
-        seen["logits"] = logits[0, -1].float().cpu()
+        seen["logits"] = last_logits(logits)
         return logits, c
 
     def w_admit(index, req, *args, **kwargs):
         if "logits" in seen:                   # whole-prompt admission
             first[req.uid] = seen.pop("logits")
-        margins[req.uid, 0] = top2_margins(first[req.uid])[0]
+        margins[req.uid, 0] = top2_margins(first[req.uid][None])[0]
         return admit(index, req, *args, **kwargs)
 
     def w_advance(lane, now):
@@ -2957,7 +3021,7 @@ def watching(eng, first: dict, margins: dict):
 
     def w_chunk(cfg_, p, c, b):
         logits, c = chunk_step(cfg_, p, c, b)
-        first[seen["uid"]] = logits[0, -1].float().cpu()
+        first[seen["uid"]] = last_logits(logits)
         return logits, c
 
     def w_tick():
@@ -2981,18 +3045,24 @@ def watching(eng, first: dict, margins: dict):
 def plain_plans():
     """Every model family's plain plans in place of its kernels': blocked
     attention and einsum decode, chunked_xla WKV6, the plain Mamba
-    scan."""
+    scan.  The blocked attention takes all rows as one q block: its
+    default of 512 must divide S (as the JAX function asserts), which a
+    vision prefix's 256 rows ahead of 300 to 500 text tokens do not; the
+    rows' sums are the same either way (a q block only groups rows)."""
     from repro_torch.models import attention, mamba, rwkv
 
     old = (attention.PREFILL_PLAN, attention.DECODE_PLAN, rwkv.WKV_PLAN,
-           mamba.SCAN_PLAN)
+           mamba.SCAN_PLAN, attention.flash_attention)
+    blocked = attention.flash_attention
     attention.PREFILL_PLAN, attention.DECODE_PLAN = "blocked", "einsum"
     rwkv.WKV_PLAN, mamba.SCAN_PLAN = "chunked_xla", "scan"
+    attention.flash_attention = lambda q, k, v, **kw: blocked(
+        q, k, v, q_block=q.shape[1], **kw)
     try:
         yield
     finally:
         (attention.PREFILL_PLAN, attention.DECODE_PLAN, rwkv.WKV_PLAN,
-         mamba.SCAN_PLAN) = old
+         mamba.SCAN_PLAN, attention.flash_attention) = old
 
 
 def plan_spread(eng, reqs, first: dict) -> float:
@@ -3005,10 +3075,10 @@ def plan_spread(eng, reqs, first: dict) -> float:
     spread = 0.0
     with torch.no_grad(), plain_plans():
         for r in reqs:
-            cache = eng.model.init_cache(1, SLOT_SEQ, eng.device)
+            cache = eng.model.init_cache(1, eng.max_seq, eng.device)
             logits, _ = eng._prefill(eng.params, cache,
                                      eng._prefill_batch(r.prompt[None]))
-            spread = max(spread, float((logits[0, -1].float().cpu()
+            spread = max(spread, float((last_logits(logits)
                                         - first[r.uid]).abs().max()))
             del cache, logits
     return spread
@@ -3026,7 +3096,7 @@ def admission_f32(phase: str, model, params, arms, counted, counts) -> None:
     card's check of prefill_chunk, chunk_prefill_attention and the scans
     resumed from carried state; in bf16 (phases S1, S2) random layers
     spread two orders' logits too far for one."""
-    reqs = slot_requests(model.cfg.vocab)
+    reqs = slot_requests(model.cfg.vocab, token_tail(model.cfg))
     runs = {}
     for mode, chunk in (("whole", None), ("chunked", 128)):
         eng = slot_engine(model, params, chunk)
@@ -3035,7 +3105,7 @@ def admission_f32(phase: str, model, params, arms, counted, counts) -> None:
         with tripwires(*arms), watching(eng, first, margins):
             results = eng.serve(reqs)
         launched = {k: v for k, v in counts().items() if v}
-        tokens_ok(results, model.cfg.vocab,
+        tokens_ok(results, model.cfg,
                   f"{phase} {model.cfg.name} f32 {mode} slot serve")
         runs[mode] = (results, first, margins, launched)
         del eng
@@ -3047,14 +3117,15 @@ def admission_f32(phase: str, model, params, arms, counted, counts) -> None:
               for r in reqs)
     stops = []
     for r, w, c in zip(reqs, whole, chunked):
-        k, n = agreed(w.tokens.tolist(), [m_w[r.uid, j] for j in range(16)],
-                      c.tokens.tolist(), CONSISTENCY_TOL)
+        k, n = agreed(w.tokens, [m_w[r.uid, j] for j in range(16)],
+                      c.tokens, CONSISTENCY_TOL)
         check(n >= k, f"{phase} f32 chunked vs whole-prompt: request "
               f"{r.uid} differs at token {n}, before the first margin "
               f"within CONSISTENCY_TOL at {k}")
         stops.append(f"{r.uid}:{k}/{n}")
     print(f"[{phase}] {model.cfg.name} {model.cfg.n_layers} layers f32, slot "
-          f"engine ({N_SLOTS} x {SLOT_SEQ}): chunked admission (128 and "
+          f"engine ({N_SLOTS} x {slot_seq(model.cfg)}): chunked admission "
+          f"(128 and "
           f"powers of two, launches {n_c}) vs whole-prompt (launches {n_w}): "
           f"first-token logits of the 8 requests max abs err {err:.3e} "
           f"({CONSISTENCY_TOL}); tokens equal up to the whole-prompt run's "
@@ -3089,7 +3160,10 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
       batch 1, compared with the whole-prompt tokens up to the
       reference's first top-2 margin within MARGIN_TOL or within the
       plan spread (``plan_spread``); the sharp check of chunked admission
-      is ``admission_f32``;
+      is ``admission_f32``.  A vision model's chunked engine must raise
+      (its prefix is not sliceable, as in the JAX package) and is not
+      served; an audio model's prompts, tokens and margins carry the
+      codebook axis (``token_tail``);
     * with ``chaos``, a seeded FaultPlan (poisoned lanes through the
       static poison buffer, a prefill fault, a slow burst, a flood,
       retry_budget 1).
@@ -3103,8 +3177,10 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     from repro_torch.serving.tick import DecodeTick
     from repro_torch import steps as steps_lib
 
+    from repro_torch.kernels import flash_prefill as fp
+
     model = registry.build(cfg)
-    reqs = slot_requests(cfg.vocab)
+    reqs = slot_requests(cfg.vocab, token_tail(cfg))
     name = f"{phase} {cfg.name}"
 
     def pools_ok(eng, what):
@@ -3186,7 +3262,11 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
         for e in equal.values()),
           f"{name}: a replayed tick differs from the eager tick on the same "
           f"state, or a free lane moved: {equal}")
-    tokens_ok(whole, cfg.vocab, f"{name} whole-prompt serve")
+    tokens_ok(whole, cfg, f"{name} whole-prompt serve")
+    check(cfg.dtype != "bfloat16"
+          or fp.flash_prefill.tc_launches == got["flash_prefill"],
+          f"{name}: {fp.flash_prefill.tc_launches} of "
+          f"{got['flash_prefill']} K8 launches on the tensor-core instance")
     pools_ok(eng, "whole-prompt serve")
     mgr.check_resident()
     eager_calls = {k: sum(e["eager_calls"].get(k, 0) for e in equal.values())
@@ -3199,9 +3279,10 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     whole_held = held(calls, got, holds, f"{name} whole-prompt serve")
     del calls
     replayed = {k: v * ticks_1 for k, v in tick.captured_launches.items()}
-    print(f"[{phase}] {cfg.name} slot engine ({N_SLOTS} slots x {SLOT_SEQ}, "
-          f"bf16), built and captured in {build_s:.1f} s: launches captured "
-          f"a tick {tick.captured_launches or 'none'} (counted at capture, "
+    print(f"[{phase}] {cfg.name} slot engine ({N_SLOTS} slots x "
+          f"{slot_seq(cfg)}, bf16), built and captured in {build_s:.1f} s: "
+          f"launches captured a tick {tick.captured_launches or 'none'} "
+          f"(counted at capture, "
           f"not at replay: x {ticks_1} ticks = {replayed or 'none'} "
           f"replayed), eager launches of the serve {prefill_launches}; a "
           f"replayed tick with all {equal['all']['lanes']} lanes active and "
@@ -3264,25 +3345,39 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
           f"unmoved across each of {len(allocs)} replayed ticks")
 
     # --- chunked admission; the wave engine at batch 1 --------------------
-    ceng = slot_engine(model, params, 128)
-    calls = {k: [] for k in holds}
-    reset_counts(*counted)
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(tripwires(*arms))
-        for k, (mod, attr, _) in holds.items():
-            stack.enter_context(capturing(mod, attr, calls[k]))
-        stack.enter_context(watching(ceng, first["chunked"],
-                                     margins["chunked"]))
-        chunked = ceng.serve(reqs)
-    c_got = {k: v for k, v in counts().items() if v}
-    tokens_ok(chunked, cfg.vocab, f"{name} chunked serve")
-    pools_ok(ceng, "chunked serve")
-    chunk_held = held(calls, c_got, holds, f"{name} chunked serve")
-    del calls
-    n_chunks = ceng.metrics.histogram("serving/prefill_chunk_s").count
-    del ceng
+    compared = [("slot vs the wave engine at batch 1", None, None, whole)]
+    if cfg.n_vis_tokens:
+        try:
+            slot_engine(model, params, 128)
+            refused = ""
+        except ValueError as err:
+            refused = str(err)
+        check("vis-token" in refused, f"{name}: a chunked vision engine "
+              f"was built, or refused otherwise: {refused!r}")
+        print(f"[{phase}] {cfg.name}: the chunked engine (128) raises "
+              f"ValueError, as the JAX package's does: {refused}")
+    else:
+        ceng = slot_engine(model, params, 128)
+        calls = {k: [] for k in holds}
+        reset_counts(*counted)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(tripwires(*arms))
+            for k, (mod, attr, _) in holds.items():
+                stack.enter_context(capturing(mod, attr, calls[k]))
+            stack.enter_context(watching(ceng, first["chunked"],
+                                         margins["chunked"]))
+            chunked = ceng.serve(reqs)
+        c_got = {k: v for k, v in counts().items() if v}
+        tokens_ok(chunked, cfg, f"{name} chunked serve")
+        pools_ok(ceng, "chunked serve")
+        chunk_held = held(calls, c_got, holds, f"{name} chunked serve")
+        del calls
+        n_chunks = ceng.metrics.histogram("serving/prefill_chunk_s").count
+        del ceng
+        compared.insert(0, ("chunked vs whole-prompt", whole,
+                            margins["whole"], chunked))
     wave = Engine(model, params, config=EngineConfig(
-        n_slots=1, max_seq=SLOT_SEQ, pool_capacity=1))
+        n_slots=1, max_seq=slot_seq(cfg), pool_capacity=1))
     w_margins: dict = {}
     w_prefill, w_decode = wave._prefill, steps_lib.decode_step
     order = iter(r.uid for r in reqs)
@@ -3291,7 +3386,7 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     def w_watched_prefill(p, c, b):
         logits, c = w_prefill(p, c, b)
         state["uid"], state["j"] = next(order), 0
-        w_margins[state["uid"], 0] = top2_margins(logits[:, -1])[0]
+        w_margins[state["uid"], 0] = top2_margins(logits[..., -1, :])[0]
         return logits, c
 
     def w_watched_decode(cfg_, p, c, b):
@@ -3308,16 +3403,12 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     finally:
         steps_lib.decode_step = w_decode
     del wave
-    d_first = max(float((first["chunked"][r.uid]
-                         - first["whole"][r.uid]).abs().max()) for r in reqs)
-    for what, ref_run, ref_m, other in (
-            ("chunked vs whole-prompt", whole, margins["whole"], chunked),
-            ("slot vs the wave engine at batch 1", waved, w_margins, whole)):
+    compared[-1] = (compared[-1][0], waved, w_margins, whole)
+    for what, ref_run, ref_m, other in compared:
         stops = []
         for r, o in zip(ref_run, other):
-            k, n = agreed(r.tokens.tolist(),
-                          [ref_m[r.uid, j] for j in range(16)],
-                          o.tokens.tolist(), floor=spread)
+            k, n = agreed(r.tokens, [ref_m[r.uid, j] for j in range(16)],
+                          o.tokens, floor=spread)
             check(n >= k, f"{name} {what}: request {r.uid} differs at token "
                   f"{n}, before the reference's first low margin at {k}")
             stops.append(f"{r.uid}:{k}/{n}")
@@ -3325,12 +3416,17 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
               f"reference's first top-2 margin within max(MARGIN_TOL, the "
               f"plan spread {spread:.3e}) (uid:margin stop/first difference, "
               f"16 = none) {' '.join(stops)}")
-    print(f"[{phase}] {cfg.name} chunked admission: {n_chunks} chunks (128 "
-          f"and powers of two) launched {c_got}; held: {chunk_held}; first-"
-          f"token logits differ from whole-prompt admission's by up to "
-          f"{d_first:.3e} (printed, not held: in bf16 the plan spread, one "
-          f"change of summation order, is {spread:.3e}; the f32 check of "
-          f"the same admission is admission_f32)")
+    if not cfg.n_vis_tokens:
+        d_first = max(float((first["chunked"][r.uid]
+                             - first["whole"][r.uid]).abs().max())
+                      for r in reqs)
+        print(f"[{phase}] {cfg.name} chunked admission: {n_chunks} chunks "
+              f"(128 and powers of two) launched {c_got}; held: "
+              f"{chunk_held}; first-token logits differ from whole-prompt "
+              f"admission's by up to {d_first:.3e} (printed, not held: in "
+              f"bf16 the plan spread, one change of summation order, is "
+              f"{spread:.3e}; the f32 check of the same admission is "
+              f"admission_f32)")
 
     # --- S3. a seeded FaultPlan on this engine's shapes --------------------
     if chaos:
@@ -3495,10 +3591,12 @@ def wave_serve(phase: str, engine, reqs, counted, counts, only, holds: dict,
     check(cfg.dtype != "bfloat16" or n_tc == got["flash_prefill"],
           f"{name}: {n_tc} of {got['flash_prefill']} K8 launches on the "
           "tensor-core instance")
-    check(all(r.tokens.shape == (new,) and int(r.tokens.min()) >= 0
+    shape = token_tail(cfg) + (new,)
+    check(all(r.tokens.shape == shape and int(r.tokens.min()) >= 0
               and int(r.tokens.max()) < cfg.vocab
               for r in served["results"]),
-          f"{name}: served tokens outside [0, vocab) or not {new} a request")
+          f"{name}: served tokens outside [0, vocab) or not {shape} a "
+          "request")
     check(seen["finite"], f"{name}: a served logit is not finite")
     check(served["pool"].buffers_built == served["pool"].capacity,
           f"{name}: the pool built {served['pool'].buffers_built} buffers")
@@ -3834,6 +3932,241 @@ def moe_slice(device, counted, counts, only) -> None:
               f"{h['moe_drop_frac']:.4f} (capacity factor "
               f"{cfg.moe.capacity_factor})")
     peak_memory("X5")
+
+
+def fronts_f32_phase(phase: str, name: str, device, counted, counts,
+                     only) -> None:
+    """V1 and U1: ``name`` at full width, 2 layers, in f32, B=2: 500
+    positions (InternVL2-1B: drawn patch embeddings for its 256-token
+    prefix, then 244 text tokens; MusicGen-large: 4 codebooks) then 4
+    decode steps, through K8 and K9 and again through the plain plans
+    (``blocked``, ``einsum``): the kernels' forward and each step's logits
+    against the plain plans' at 2e-4; prefill + decode against
+    ``forward(inference=True)`` at CONSISTENCY_TOL; one K8 a layer a
+    forward or prefill and one K9 a decode step, none on the tensor
+    cores; every K8 and K9 launch held against its plain version on its
+    own inputs at 2e-4; the plain attention armed to raise.  For audio,
+    chunked admission against whole-prompt admission (``admission_f32``,
+    (4, S) prompts sliced on every codebook alike)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import attention, registry
+    from repro_torch.optim.adamw import tree_leaves
+
+    free_models(phase)
+    arms = plain_attention_arms()
+    f32_tol = dict(rtol=2e-4, atol=2e-4)
+    holds = {k: v for k, v in kernel_holds(f32_tol).items()
+             if k in ("flash_prefill", "decode_attn")}
+    cfg = dataclasses.replace(get_arch(name), n_layers=2, dtype="float32")
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    L, B, K, off = cfg.n_layers, 2, 4, cfg.n_vis_tokens
+    S = 500 - off
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B,) + token_tail(cfg) + (S + K,)).astype(
+            np.int32)).to(device)
+    extra = {}
+    if off:
+        extra["vis_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, off, cfg.vis_dim)).astype(np.float32)).to(device)
+
+    def at(full, i):
+        """The forward's logits of text position i (every codebook)."""
+        return full[:, :, i] if cfg.n_codebooks else full[:, off + i]
+
+    tc = []                         # K8 launches on the tensor cores
+
+    def run(prefill_plan: str, decode_plan: str):
+        old = attention.PREFILL_PLAN, attention.DECODE_PLAN
+        attention.PREFILL_PLAN, attention.DECODE_PLAN = (prefill_plan,
+                                                         decode_plan)
+        try:
+            with torch.no_grad():
+                reset_counts(*counted)
+                full, _ = model.forward(params, {"tokens": toks, **extra},
+                                        inference=True)
+                n = [counts()]
+                tc.append(fp.flash_prefill.tc_launches)
+                cache = model.init_cache(B, off + S + K, device=device)
+                reset_counts(*counted)
+                first, cache = model.prefill(
+                    params, cache, {"tokens": toks[..., :S], **extra})
+                n.append(counts())
+                tc.append(fp.flash_prefill.tc_launches)
+                outs = [first[..., 0, :]]
+                for t in range(K):
+                    reset_counts(*counted)
+                    logits, cache = model.decode_step(
+                        params, cache, {"tokens": toks[..., S + t]})
+                    n.append(counts())
+                    outs.append(logits)
+            torch.cuda.synchronize()
+        finally:
+            attention.PREFILL_PLAN, attention.DECODE_PLAN = old
+        return full, outs, n
+
+    calls = {k: [] for k in holds}
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(tripwires(*arms[:2], *arms[4:]))
+        for k, (mod, attr, _) in holds.items():
+            stack.enter_context(capturing(mod, attr, calls[k]))
+        full, outs, n_k = run("flash_prefill", "decode_attn")
+    check(n_k[:2] == [only(flash_prefill=L)] * 2
+          and n_k[2:] == [only(decode_attn=L)] * K and tc == [0, 0],
+          f"{phase} f32 launches (forward, prefill, decode steps): {n_k}, "
+          f"{tc} of the forward's and prefill's K8 on the tensor cores")
+    launched = {k: sum(n[k] for n in n_k) for k in holds}
+    said = held(calls, launched, holds, f"{phase} f32")
+    del calls
+    e2 = max(close(o, at(full, S - 1 + t), f"{phase} f32 step {t} vs forward",
+                   CONSISTENCY_TOL) for t, o in enumerate(outs))
+    plain_full, plain_outs, n_p = run("blocked", "einsum")
+    check(all(n == only() for n in n_p), f"plain plans launched {n_p}")
+    e1 = close(full, plain_full, f"{phase} f32 forward, flash_prefill vs "
+               "blocked", f32_tol)
+    e1d = max(close(a, b, f"{phase} f32 step {t}, kernels vs blocked/einsum",
+                    f32_tol) for t, (a, b) in enumerate(zip(outs,
+                                                            plain_outs)))
+    front = (f"{off} drawn patch embeddings of {cfg.vis_dim} projected "
+             f"ahead of {S} text tokens" if off else
+             f"{cfg.n_codebooks} codebooks of {S} tokens")
+    print(f"[{phase}] {cfg.name} at full width, {L} of "
+          f"{get_arch(name).n_layers} layers, f32 ({n_params / 1e9:.3f} B "
+          f"parameters), B={B}, {front}: forward logits {tuple(full.shape)} "
+          f"flash_prefill vs blocked max abs err {e1:.3e}, prefill + {K} "
+          f"decode steps (tokens {tuple(toks[..., 0].shape)} a step) through "
+          f"K8/K9 vs blocked/einsum {e1d:.3e} (2e-4); vs the forward: "
+          f"{e2:.3e} ({CONSISTENCY_TOL}); {L} K8 launches a forward or "
+          f"prefill, {L} K9 a decode step, none on the tensor cores; no "
+          f"plain attention reached; {said} (2e-4)")
+    del full, outs, plain_full, plain_outs
+    if cfg.n_codebooks:
+        admission_f32(phase, model, params, arms, counted, counts)
+    del params, model
+    peak_memory(phase)
+
+
+def fronts_serve_phase(phase: str, cfg, device, counted, counts, only,
+                       chaos: bool) -> dict:
+    """V2 and U2: ``cfg`` at full width in bf16 served through
+    ``launch/serve``'s wave engine (``wave_serve``: the 8 requests of
+    ``slot_requests``, as (K, S) codebook prompts for audio and behind the
+    zero patch embeddings of the vision prefix, waves of 4; every K8 on
+    the tensor cores and every K8/K9 launch held against its plain
+    version) and the slot engine (``slot_slice``: whole-prompt admission,
+    for audio chunked too and with ``chaos`` the seeded FaultPlan, for
+    vision the chunked engine refused; a replayed tick bit-equal to the
+    eager one), the plain attention armed to raise.  Returns the wave
+    serve's launches."""
+    from repro_torch.launch import serve as serve_lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    free_models(phase)
+    arms = plain_attention_arms()
+    holds = {k: v for k, v in kernel_holds().items()
+             if k in ("flash_prefill", "decode_attn")}
+    t0 = time.perf_counter()
+    engine = serve_lm.build_engine(cfg, device, seed=0, batch_size=N_SLOTS,
+                                   max_seq=slot_seq(cfg), engine="wave")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    front = (f"a {cfg.n_vis_tokens}-token vision prefix (zero patch "
+             f"embeddings of {cfg.vis_dim}) ahead of each prompt"
+             if cfg.n_vis_tokens else
+             f"{cfg.n_codebooks} codebooks a step")
+    print(f"[{phase}] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"{front}, {n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn "
+          f"from seed 0 on the card in {time.perf_counter() - t0:.1f} s; "
+          f"cache {N_SLOTS} x {slot_seq(cfg)} positions")
+    waves, got = wave_serve(phase, engine,
+                            slot_requests(cfg.vocab, token_tail(cfg)),
+                            counted, counts, only, holds, arms)
+    slot_slice(phase, cfg, engine.params, counted, counts, only, holds, arms,
+               [w["decode_ms_per_token"] for w in waves], chaos=chaos)
+    print(f"[time] {phase} {cfg.name}: weights read a decode step "
+          f"{weight_bytes(engine.params) / 1e9:.2f} GB, bound "
+          f"{weight_bytes(engine.params) / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+          f"3.35 TB/s")
+    del engine
+    peak_memory(phase)
+    return got
+
+
+def make_batch_lm(cfg):
+    """A stand-in for ``launch/train``'s ``SyntheticLM``, whose text-only
+    batches the fronts cannot take (in both packages): built as it is,
+    from the vocab and the seed, its ``batches(batch, seq)`` yields the
+    port's ``registry.make_batch`` batches of ``cfg`` as numpy arrays,
+    drawn on the host from seed + 1 ((B, K, seq) codebook ids for audio;
+    seq - n_vis text ids beside n_vis patch embeddings for vision, held
+    in f32, which ``embed_inputs`` casts back to bf16 exactly; the
+    ``labels`` ride along unused, as in the JAX package)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import registry
+
+    class MakeBatchLM:
+        def __init__(self, vocab: int, seed: int = 0):
+            self.gen = torch.Generator().manual_seed(seed + 1)
+
+        def batches(self, batch: int, seq: int):
+            shape = ShapeConfig("fronts", seq, batch, "train")
+            while True:
+                yield {k: (v.float() if v.is_floating_point() else v).numpy()
+                       for k, v in registry.make_batch(cfg, shape,
+                                                       self.gen).items()}
+
+    return MakeBatchLM
+
+
+def fronts_slice(device, counted, counts, only) -> dict:
+    """The vision and audio fronts, each model freed before the next and
+    each phase's peak memory printed: V1 InternVL2-1B and U1 MusicGen-large
+    at full width, 2 layers, in f32 (``fronts_f32_phase``); V2
+    InternVL2-1B and U2 MusicGen-large at full width and depth in bf16
+    through both engines (``fronts_serve_phase``; U2 also under the seeded
+    FaultPlan); V3 and U3 the same two trained at full width and depth in
+    bf16 for 8 steps of batch 4 x 512 positions (``attention_train_run``,
+    through ``launch/train.train`` with ``make_batch_lm`` in place of the
+    text pipeline: two K8t and one K8b an attention layer a step, step 1's
+    K8b calls held against plain, every K8b on the tensor cores).  Returns
+    the served and trained launches of K8, K9, K8t and K8b, to add to the
+    ``kernels`` line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train as train_lm
+    from repro_torch.models import registry
+
+    launches = {"flash_prefill": 0, "decode_attn": 0,
+                "flash_prefill_traj": 0, "flash_prefill_bwd": 0}
+    arms = plain_attention_arms() + plain_scan_arms()
+    for f32_phase, serve_phase, train_phase, name in (
+            ("V1", "V2", "V3", "internvl2-1b"),
+            ("U1", "U2", "U3", "musicgen-large")):
+        fronts_f32_phase(f32_phase, name, device, counted, counts, only)
+        cfg = get_arch(name)
+        got = fronts_serve_phase(serve_phase, cfg, device, counted, counts,
+                                 only, chaos=bool(cfg.n_codebooks))
+        free_models(train_phase)
+        specs = registry.input_specs(cfg, ShapeConfig("fronts", 512, 4,
+                                                      "train"))
+        print(f"[{train_phase}] {cfg.name} trained on registry.make_batch "
+              f"batches: " + ", ".join(f"{k} {tuple(s.shape)} {s.dtype}"
+                                       for k, s in specs.items()))
+        text_lm = train_lm.SyntheticLM
+        train_lm.SyntheticLM = make_batch_lm(cfg)
+        try:
+            run = attention_train_run(train_phase, cfg, 8, counted, counts,
+                                      only, arms, {})
+        finally:
+            train_lm.SyntheticLM = text_lm
+        peak_memory(train_phase)
+        for k in launches:
+            launches[k] += got.get(k, 0) + run["launches"].get(k, 0)
+    return launches
 
 
 def main() -> None:
@@ -5569,6 +5902,10 @@ def main() -> None:
     kernels += mamba_slice(device, gen, counted, counts, only)
     kernels += attention_slice(device, gen, counted, counts, only)
     moe_slice(device, counted, counts, only)
+    for name, n in fronts_slice(device, counted, counts, only).items():
+        for entry in kernels:
+            if entry["name"] == name:
+                entry["launches"] += n
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

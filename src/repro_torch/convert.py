@@ -9,15 +9,18 @@ become lists.  The trees it carries:
 * the LSTM classifier (``core/lstm.init_params``): ``{"layers": [{"w":
   (D+H, 4H), "b": (4H,)}, ...], "head": {"w": (H, C), "b": (C,)}}``, gate
   order (i, f, g, o);
-* the language models (``models/transformer.init_params``, the dense
-  attention, RWKV6 and Mamba paths): ``{"embed": (V, d), "blocks": [slot,
-  ...], "final_norm": {"scale", ...}, "lm_head": {"w": (d, V)}}`` (no
-  ``lm_head`` with tied embeddings), one slot per layer of the period (JAX
-  keeps them in a tuple), each ``{"ln1", "mix", "ln2", "mlp"}`` with every
-  leaf stacked over layer groups (leading layer axis); every weight keeps
-  the JAX layout ``(d_in, d_out)`` for ``x @ w``, and an attention mix its
-  head axes: ``wq`` (d, Hq, dh), ``wk``/``wv`` (d, Hkv, dh), ``wo`` (Hq,
-  dh, d), and with QKV biases ``bq`` (Hq, dh), ``bk``/``bv`` (Hkv, dh);
+* the language models (``models/transformer.init_params``, the dense attention,
+  RWKV6 and Mamba paths and the modality fronts): ``{"embed": (V, d), "blocks":
+  [slot, ...], "final_norm": {"scale", ...}, "lm_head": {"w": (d, V)}}`` (no
+  ``lm_head`` with tied embeddings; with audio codebooks ``"audio_embed": (K,
+  V, d)`` and ``"audio_heads": (K, d, V)`` in place of ``embed`` and
+  ``lm_head``; with vision tokens also ``"vis_proj": {"in": {"w": (vis_dim, d),
+  "b"}, "out": {"w": (d, d), "b"}}``), one slot per layer of the period (JAX
+  keeps them in a tuple), each ``{"ln1", "mix", "ln2", "mlp"}`` with every leaf
+  stacked over layer groups (leading layer axis); every weight keeps the JAX
+  layout ``(d_in, d_out)`` for ``x @ w``, and an attention mix its head axes:
+  ``wq`` (d, Hq, dh), ``wk``/``wv`` (d, Hkv, dh), ``wo`` (Hq, dh, d), and with
+  QKV biases ``bq`` (Hq, dh), ``bk``/``bv`` (Hkv, dh);
 * their decode caches (``init_cache``): ``{"pos": () int32, "slots":
   [slot, ...]}``, an attention slot ``{"k", "v": (G, B, S_c, Hkv, dh)}``
   in the model dtype, or int8 with ``"k_scale", "v_scale": (G, B, S_c,

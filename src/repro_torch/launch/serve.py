@@ -2,7 +2,9 @@
 engines (the port's twin of the JAX package's ``launch/serve.py``).
 
 Builds the model of ``--arch`` (weights drawn from ``--seed`` on the
-device), makes ``--requests`` random prompts of ``--prompt-len`` tokens and
+device), makes ``--requests`` random prompts of ``--prompt-len`` tokens
+(for an audio model ``(K, --prompt-len)`` codebook ids; a vision model's
+prefills carry the engine's zero patch embeddings ahead of them) and
 serves them, ``--max-new`` greedy tokens each, through ``--engine``:
 ``slot`` (the default, as in the JAX package: continuous batching over
 ``--batch-size`` slots, the decode tick captured in a CUDA graph on the
@@ -15,7 +17,8 @@ clock, ending in a read of the result on the card).
 
   PYTHONPATH=src python -m repro_torch.launch.serve [--arch rwkv6-3b |
       qwen2-0.5b | yi-9b | stablelm-12b | command-r-35b | olmoe-1b-7b |
-      qwen3-moe-30b-a3b | jamba-1.5-large-398b] [--reduced]
+      qwen3-moe-30b-a3b | jamba-1.5-large-398b | internvl2-1b |
+      musicgen-large] [--reduced]
       [--device cuda|cpu] [--engine slot|wave] [--load L] [--requests N]
       [--prompt-len S] [--max-new K] [--batch-size B]
 
@@ -142,15 +145,19 @@ def main(argv: list[str] | None = None) -> dict:
 
     device = resolve_device(args.device)
     cfg = get_arch(args.arch + ("-reduced" if args.reduced else ""))
+    # the cache also holds a vision prefix (the JAX driver sizes it by the
+    # text alone, and its decode then writes past the cache)
     engine = build_engine(cfg, device, seed=args.seed,
                           batch_size=args.batch_size,
-                          max_seq=args.prompt_len + args.max_new + 1,
+                          max_seq=(cfg.n_vis_tokens + args.prompt_len
+                                   + args.max_new + 1),
                           engine=args.engine,
                           queue_capacity=max(args.requests, 1),
                           load=args.load)
     rng = np.random.default_rng(args.seed)
-    reqs = [Request(i, rng.integers(0, cfg.vocab, (args.prompt_len,)
-                                    ).astype(np.int32),
+    shape = ((cfg.n_codebooks, args.prompt_len) if cfg.n_codebooks
+             else (args.prompt_len,))
+    reqs = [Request(i, rng.integers(0, cfg.vocab, shape).astype(np.int32),
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]
     return serve(engine, reqs)

@@ -2,7 +2,8 @@
 ``launch/train.py``).
 
 Trains an architecture of ``ARCHS`` that ``transformer.check_trainable``
-admits (``--arch``, default ``rwkv6-3b``, or its ``--reduced`` variant) on
+admits (``--arch``, default ``rwkv6-3b``, or its ``--reduced`` variant;
+not the audio and vision fronts, whose inputs the text pipeline lacks) on
 the synthetic LM pipeline (``data/lm.py``, the same tokens as the JAX
 trainer's for a seed) with AdamW under a warmup-cosine schedule, weights
 drawn from ``--seed`` on the device.  On the card each layer's mix runs
@@ -63,8 +64,12 @@ def main(argv: list[str] | None = None) -> dict:
         raise NotImplementedError("--ckpt-dir: checkpointing comes with the "
                                   "distributed slice (ROADMAP Queue 1, "
                                   "\"Distributed, launch and checkpoint\")")
-    return train(get_arch(args.arch + ("-reduced" if args.reduced else "")),
-                 steps=args.steps, batch=args.batch, seq=args.seq,
+    cfg = get_arch(args.arch + ("-reduced" if args.reduced else ""))
+    if cfg.n_codebooks or cfg.n_vis_tokens:
+        ap.error(f"--arch {args.arch}: the synthetic LM pipeline gives text "
+                 "alone; train an audio or vision front through "
+                 "steps.train_step on registry.make_batch batches")
+    return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                  lr=args.lr, seed=args.seed, device=args.device,
                  log_every=args.log_every)
 

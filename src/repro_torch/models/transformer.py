@@ -1,16 +1,24 @@
 """Decoder assembly (the port's twin of the JAX package's
 ``models/transformer.py``), with the attention, RWKV6, Mamba and MoE paths
-ported.
+and the vision and audio fronts ported.
 
 A model is a periodic stack of blocks; each block = (mix, mlp) chosen per
 slot by the config: mix ∈ {GQA attention, rwkv6 time-mix, Mamba}, mlp ∈
 {dense MLP, MoE, rwkv6 channel-mix} (Qwen2, Yi, StableLM, Command-R;
 OLMoE, Qwen3-MoE; RWKV6; Jamba, whose period mixes attention, Mamba, MLP
-and MoE); a config with vision tokens or audio codebooks raises
-``NotImplementedError`` naming the ROADMAP item that ports it, by its
-title.  As in JAX, the block parameters are a list over the period's slots
-whose leaves are stacked over layer groups (a leading layer axis); the
-layers run in a Python loop over the groups.
+and MoE).  As in JAX, the block parameters are a list over the period's
+slots whose leaves are stacked over layer groups (a leading layer axis);
+the layers run in a Python loop over the groups.
+
+The modality fronts, as in the JAX package (their encoders are stubs):
+  * vlm    — precomputed patch embeddings ``batch['vis_embeds']`` (B, n_vis,
+             vis_dim) -> a learned 2-layer projector (``vis_proj``: in,
+             tanh GELU, out), prepended to the text sequence; only where
+             the batch holds them (a decode step embeds its token alone)
+  * audio  — K parallel EnCodec codebook ids ``tokens`` (B, K, S), embedded
+             (``audio_embed`` (K, V, d)) and summed; K output heads
+             (``audio_heads`` (K, d, V)) predict the next token of every
+             codebook: logits (B, K, S, V), a decode step's (B, K, V)
 
 Four entry points share the block code:
   * forward        — full sequence from zero state (reference logits, and
@@ -59,27 +67,20 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _roadmap(title: str) -> str:
-    return f'(ROADMAP Queue 1, "{title}")'
-
-
 def _check_ported(cfg: ModelConfig) -> None:
-    """Raise for what the port cannot run yet, naming its ROADMAP item by
-    its title."""
-    if cfg.n_codebooks or cfg.n_vis_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: audio and vision fronts "
-            f"{_roadmap('The vision and audio fronts')}")
+    """Raise for a mix the port has no path for: an ``ssm.kind`` other
+    than rwkv6 and mamba (the JAX package builds a Mamba mix for any other
+    kind; the port refuses it rather than guess)."""
     if cfg.ssm is not None and cfg.ssm.kind not in ("rwkv6", "mamba"):
         raise NotImplementedError(
             f"{cfg.name}: only the rwkv6 and mamba mixes are ported")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a config the port cannot differentiate: one with audio
-    or vision fronts or an unported mix.  Every ported mix trains:
-    attention through K8t and K8b (``ops.flash_prefill`` under autograd),
-    rwkv6 through K6t and K6b, Mamba through K7t and K7b."""
+    """Raise for a config the port cannot differentiate: one with an
+    unported mix.  Every ported mix trains, under either front: attention
+    through K8t and K8b (``ops.flash_prefill`` under autograd), rwkv6
+    through K6t and K6b, Mamba through K7t and K7b."""
     _check_ported(cfg)
 
 
@@ -140,15 +141,29 @@ def _init_slot(gen: torch.Generator, cfg: ModelConfig, slot: int, dtype,
 def init_params(cfg: ModelConfig, gen: torch.Generator,
                 device: str | torch.device = "cpu") -> dict:
     """Parameter tree with weights drawn from ``gen`` (a generator on
-    ``device``): ``embed``, ``blocks`` (a list over the period's slots,
-    leaves stacked over layer groups), ``final_norm`` and ``lm_head``, in
-    the JAX package's layouts.  Each stacked leaf is allocated once and
-    filled group by group, so the draw holds one group's tensors beside
-    the stack, not a second copy of the slot."""
+    ``device``), in the JAX package's layouts and scales: ``embed`` (V, d)
+    or, with audio codebooks, ``audio_embed`` (K, V, d); with vision tokens
+    ``vis_proj`` ``{"in": {"w": (vis_dim, d), "b"}, "out": {"w": (d, d),
+    "b"}}``; ``blocks`` (a list over the period's slots, leaves stacked
+    over layer groups); ``final_norm``; then ``audio_heads`` (K, d, V)
+    with codebooks, else ``lm_head`` unless the embeddings are tied.  Each
+    stacked leaf is allocated once and filled group by group, so the draw
+    holds one group's tensors beside the stack, not a second copy of the
+    slot."""
     _check_ported(cfg)
     dtype = _dtype(cfg)
-    p: dict = {"embed": common.init_embedding(gen, cfg.vocab, cfg.d_model,
-                                              dtype, device)}
+    d, K = cfg.d_model, cfg.n_codebooks
+    p: dict = {}
+    if K:
+        p["audio_embed"] = common.truncated_normal(
+            gen, (K, cfg.vocab, d), d ** -0.5, dtype, device)
+    else:
+        p["embed"] = common.init_embedding(gen, cfg.vocab, d, dtype, device)
+    if cfg.n_vis_tokens:
+        p["vis_proj"] = {
+            "in": common.init_linear(gen, cfg.vis_dim, d, dtype, device,
+                                     bias=True),
+            "out": common.init_linear(gen, d, d, dtype, device, bias=True)}
     p["blocks"] = []
     n = _n_groups(cfg)
     for slot in range(cfg.period):
@@ -161,10 +176,12 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
             tree_map(lambda dst, src: dst[g].copy_(src), stacked, group)
             del group                 # freed before the next group's draw
         p["blocks"].append(stacked)
-    p["final_norm"] = common.init_norm(cfg.d_model, cfg.norm, F32, device)
-    if not cfg.tie_embeddings:
-        p["lm_head"] = common.init_linear(gen, cfg.d_model, cfg.vocab, dtype,
-                                          device)
+    p["final_norm"] = common.init_norm(d, cfg.norm, F32, device)
+    if K:
+        p["audio_heads"] = common.truncated_normal(
+            gen, (K, d, cfg.vocab), d ** -0.5, dtype, device)
+    elif not cfg.tie_embeddings:
+        p["lm_head"] = common.init_linear(gen, d, cfg.vocab, dtype, device)
     return p
 
 
@@ -284,13 +301,34 @@ def _apply_block(slot_p: dict, cfg: ModelConfig, slot: int,
 # ---------------------------------------------------------------------------
 def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
                  ) -> torch.Tensor:
-    del cfg
-    return params["embed"][batch["tokens"].long()]
+    """(B, S, d) in the model dtype.  Audio: ``tokens`` (B, K, S), the K
+    codebooks' embeddings summed onto zeros in the model dtype, codebook 0
+    first (the JAX package's order, so bf16 rounds alike).  Vision, where
+    the batch holds ``vis_embeds`` (B, n_vis, vis_dim): the projected
+    patches, then the text's embeddings, ``[vis | text]``."""
+    toks = batch["tokens"].long()
+    if cfg.n_codebooks:
+        x = torch.zeros(toks.shape[:1] + toks.shape[2:] + (cfg.d_model,),
+                        dtype=_dtype(cfg), device=toks.device)
+        for k in range(cfg.n_codebooks):
+            x = x + params["audio_embed"][k][toks[:, k]]
+        return x
+    x = params["embed"][toks]
+    if cfg.n_vis_tokens and "vis_embeds" in batch:
+        vp = params["vis_proj"]
+        v = common.apply_linear(vp["in"], batch["vis_embeds"].to(x.dtype))
+        v = common.apply_linear(vp["out"], common.gelu(v))
+        x = torch.cat([v, x], dim=1)
+    return x
 
 
 def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
-    if cfg.tie_embeddings:
+    """f32 logits of x (B, S, d), softcapped: (B, S, V), or with audio
+    codebooks each head's, (B, K, S, V)."""
+    if cfg.n_codebooks:
+        logits = torch.einsum("bsd,kdv->bksv", x, params["audio_heads"])
+    elif cfg.tie_embeddings:
         logits = x @ params["embed"].T
     else:
         logits = common.apply_linear(params["lm_head"], x)
@@ -325,20 +363,20 @@ def _run_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             remat: bool = False, inference: bool = False
             ) -> tuple[torch.Tensor, dict]:
-    """Full-sequence forward, every layer from zero states, the states
-    carried as values (differentiable).  Returns (logits (B,S,V) f32,
-    aux): for a config with MoE layers ``moe_load_balance``,
-    ``moe_z_loss`` and ``moe_drop_frac``, 0-d f32 tensors summed over the
-    MoE layers, else an empty dict.  ``remat`` recomputes each layer group
-    in the backward (``torch.utils.checkpoint``, the JAX package's
-    ``jax.checkpoint`` of its group function): only the groups' inputs
-    are kept, and a group's forward runs twice per gradient.
-    ``inference`` switches MoE layers to drop-free dispatch, so the
-    logits are those the prefill and decode paths give.  Under autograd
-    an attention layer's prefill plan ``flash_prefill`` runs K8t forward
-    and K8b backward (twice K8t with ``remat``: the recompute); a config
-    the port cannot differentiate raises when autograd would record the
-    call (``check_trainable``)."""
+    """Full-sequence forward, every layer from zero states, the states carried
+    as values (differentiable).  ``batch`` as ``embed_inputs`` takes it (S
+    counts the vision prefix).  Returns (logits (B,S,V) f32, with codebooks
+    (B,K,S,V), aux): for a config with MoE layers ``moe_load_balance``,
+    ``moe_z_loss`` and ``moe_drop_frac``, 0-d f32 tensors summed over the MoE
+    layers, else an empty dict.  ``remat`` recomputes each layer group in the
+    backward (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``
+    of its group function): only the groups' inputs are kept, and a group's
+    forward runs twice per gradient. ``inference`` switches MoE layers to
+    drop-free dispatch, so the logits are those the prefill and decode paths
+    give.  Under autograd an attention layer's prefill plan ``flash_prefill``
+    runs K8t forward and K8b backward (twice K8t with ``remat``: the
+    recompute); a config the port cannot differentiate raises when autograd
+    would record the call (``check_trainable``)."""
     mode = "infer" if inference else "full"
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in tree_leaves(params)):
@@ -368,9 +406,11 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
 
 def prefill(params: dict, cfg: ModelConfig, cache: dict, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    """Full-sequence forward that fills the decode cache in place.
+    """Full-sequence forward that fills the decode cache in place; a vision
+    prefix takes the first n_vis positions, so ``pos`` ends at n_vis + S.
 
-    Returns (logits of the LAST position (B,1,V) f32, the same cache)."""
+    Returns (logits of the LAST position (B,1,V) f32, with codebooks
+    (B,K,1,V), the same cache)."""
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
@@ -391,7 +431,10 @@ def prefill_chunk(params: dict, cfg: ModelConfig, cache: dict,
     their incoming recurrent state — for them a chunk is just a shorter
     ``prefill`` starting from carried state, with positions ``pos +
     arange(L)``.  Returns (logits of the chunk's LAST position (B,1,V)
-    f32, the same cache with ``pos += L``)."""
+    f32, with codebooks (B,K,1,V), the same cache with ``pos += L``).
+    Not for vision prompts, as in the JAX package: the vision prefix is
+    prepended whole at embed time and cannot be sliced into chunks (the
+    slot engine refuses chunked admission for them)."""
     x = embed_inputs(params, cfg, batch)
     B, L = x.shape[:2]
     base = cache["pos"]
@@ -404,15 +447,15 @@ def prefill_chunk(params: dict, cfg: ModelConfig, cache: dict,
 
 def decode_step(params: dict, cfg: ModelConfig, cache: dict, batch: dict
                 ) -> tuple[torch.Tensor, dict]:
-    """One decode step, in place.  batch['tokens']: (B,).  ``cache['pos']``
-    is a 0-d tensor (the wave engine's lockstep lanes) or (B,) per lane
-    (the slot engine's).  With ``batch['active']`` (B,) bool (per-lane pos
-    only), a lane where it is False is a no-op: its recurrent states, its
-    attention rows and its ``pos`` stay bit for bit what they were, and
-    its logits are garbage the caller ignores.  Returns (logits (B,V)
-    f32, the same cache)."""
+    """One decode step, in place.  batch['tokens']: (B,), with codebooks (B,
+    K).  ``cache['pos']`` is a 0-d tensor (the wave engine's lockstep lanes) or
+    (B,) per lane (the slot engine's).  With ``batch['active']`` (B,) bool
+    (per-lane pos only), a lane where it is False is a no-op: its recurrent
+    states, its attention rows and its ``pos`` stay bit for bit what they were,
+    and its logits are garbage the caller ignores.  Returns (logits (B,V) f32,
+    with codebooks (B,K,V), the same cache)."""
     active = batch.get("active")
-    x = embed_inputs(params, cfg, {"tokens": batch["tokens"][:, None]})
+    x = embed_inputs(params, cfg, {"tokens": batch["tokens"][..., None]})
     x = _run_stack(params, cfg, x, cache, "decode", pos=cache["pos"],
                    active=active)
     if active is None:
@@ -420,4 +463,4 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict, batch: dict
     else:
         cache["pos"].copy_(torch.where(active, cache["pos"] + 1,
                                        cache["pos"]))
-    return lm_logits(params, cfg, x)[:, 0], cache
+    return lm_logits(params, cfg, x)[..., 0, :], cache

@@ -29,6 +29,12 @@ tick is captured once, at construction, in a CUDA graph on the card
 (serving/tick.py, the port's form of JAX's donated ``jax.jit``) and
 replayed every tick; on the CPU it runs eagerly.
 
+Both engines serve every family the port builds, the modality fronts
+included: an audio model's prompts are (K, S) codebook ids, its tokens a
+step (K,) and its Results' tokens (K, m); a vision model's prefills carry
+zero patch embeddings (the JAX engine's stand-in for its stub encoder),
+and the slot engine refuses chunked admission for it, as JAX's does.
+
 Timings are host clock around work that ends in a read of its result on
 the host (``.cpu()``) or ``torch.cuda.synchronize()``.
 """
@@ -146,7 +152,7 @@ class _EngineBase:
         self.params = params
         self.batch_size = batch_size
         self.max_seq = max_seq
-        self.device = params["embed"].device
+        self.device = params["final_norm"]["scale"].device
         # continuous batching: each lane decodes at its own position
         spec = model.init_cache(batch_size, max_seq, device="meta",
                                 per_lane_pos=per_lane_pos)
@@ -161,7 +167,33 @@ class _EngineBase:
         return steps_lib.prefill_step(self.cfg, params, cache, batch)
 
     def _prefill_batch(self, toks: np.ndarray) -> dict:
-        return {"tokens": torch.from_numpy(toks).to(self.device)}
+        """A prefill's batch: the (B, [K,] S) prompt ids on the device, and
+        for a vision model zero patch embeddings (B, n_vis, vis_dim) in
+        the model dtype."""
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.cfg.n_vis_tokens:
+            batch["vis_embeds"] = torch.zeros(
+                (toks.shape[0], self.cfg.n_vis_tokens, self.cfg.vis_dim),
+                dtype=getattr(torch, self.cfg.dtype), device=self.device)
+        return batch
+
+    def _check_vision_fit(self, uid: int, s: int, n_writes: int) -> None:
+        """Raise ValueError when a vision model's prefix, ``s`` text
+        positions and ``n_writes`` decode writes pass the cache (a ring
+        cache wraps instead).  The JAX package drops such writes; on the
+        card an out-of-range write is a device-side assert."""
+        n_vis = self.cfg.n_vis_tokens
+        if (n_vis and not self.cfg.sliding_window
+                and n_vis + s + n_writes > self.max_seq):
+            raise ValueError(
+                f"request {uid}: vision prefix {n_vis} + prompt {s} + "
+                f"{n_writes} decode writes exceed the cache's max_seq "
+                f"{self.max_seq}")
+
+    @property
+    def token_tail(self) -> tuple[int, ...]:
+        """The per-step token's shape: (K,) for audio codebooks, else ()."""
+        return (self.cfg.n_codebooks,) if self.cfg.n_codebooks else ()
 
 
 # ---------------------------------------------------------------------------
@@ -191,18 +223,27 @@ class Engine(_EngineBase):
     def _dummy_request(self) -> Request:
         """Zero-length, zero-token filler for ragged wave tails — an
         inactive lane, NOT a duplicate of a real request."""
-        return Request(uid=-1, prompt=np.zeros((0,), np.int32),
-                       max_new_tokens=0)
+        return Request(uid=-1, prompt=np.zeros(self.token_tail + (0,),
+                                               np.int32), max_new_tokens=0)
 
     def _pad_prompts(self, reqs: list[Request]) -> np.ndarray:
         s = max(r.prompt.shape[-1] for r in reqs)
-        toks = np.zeros((self.batch_size, s), np.int32)
+        toks = np.zeros((self.batch_size,) + self.token_tail + (s,),
+                        np.int32)
         for i, r in enumerate(reqs):
-            toks[i, s - r.prompt.shape[-1]:] = r.prompt       # left-pad
+            toks[i, ..., s - r.prompt.shape[-1]:] = r.prompt  # left-pad
         return toks
 
     def serve(self, requests: list[Request]) -> list[Result]:
-        """Serve all requests in fixed-shape waves of ``batch_size``."""
+        """Serve all requests in fixed-shape waves of ``batch_size``.  A
+        wave decodes its longest budget from its longest prompt, one
+        write a step; a vision wave that would pass the cache raises
+        ValueError before any wave runs."""
+        for i in range(0, len(requests), self.batch_size):
+            wave = requests[i:i + self.batch_size]
+            self._check_vision_fit(
+                wave[0].uid, max(r.prompt.shape[-1] for r in wave),
+                max(r.max_new_tokens for r in wave))
         results: list[Result] = []
         with torch.no_grad():
             for i in range(0, len(requests), self.batch_size):
@@ -250,9 +291,9 @@ class Engine(_EngineBase):
         self.metrics.histogram("serving/wave_prefill_s").observe(t_prefill)
         self.metrics.histogram("serving/wave_decode_s").observe(t_decode)
 
-        # (B, max_new); toks[:, :0] covers an all-zero-budget wave
-        gen = np.stack(outs, axis=-1) if outs else toks[:, :0]
-        return [Result(r.uid, gen[j, :r.max_new_tokens], t_prefill,
+        # (B, [K,] max_new); toks[..., :0] covers an all-zero-budget wave
+        gen = np.stack(outs, axis=-1) if outs else toks[..., :0]
+        return [Result(r.uid, gen[j, ..., :r.max_new_tokens], t_prefill,
                        t_decode, decisions)
                 for j, r in enumerate(reqs)]
 
@@ -318,6 +359,11 @@ class SlotEngine(_EngineBase):
         self.prefill_lanes = config.prefill_lanes
         chunked = self._chunk_len is not None
         if chunked:
+            if self.cfg.n_vis_tokens:
+                raise ValueError(
+                    "chunked prefill cannot serve vis-token prompts (the "
+                    "vision prefix is not sliceable); keep "
+                    "prefill_chunk_len=None")
             if not 0 < self._chunk_len <= self._chunk_safe_len:
                 raise ValueError(
                     f"prefill_chunk_len {self._chunk_len} outside (0, "
@@ -356,6 +402,7 @@ class SlotEngine(_EngineBase):
         self._lanes: list[PrefillLane] = []
         self._rr = 0                 # round-robin cursor over live lanes
         self.manager = SlotManager(self.pool.checkout(), n_slots,
+                                   token_tail=self.token_tail,
                                    clock=self.clock)
 
         # -- decode plans: one tick each, captured once --------------------
@@ -385,7 +432,8 @@ class SlotEngine(_EngineBase):
         self.shed_margin = config.shed_margin
         faults = config.faults
         self.injector = None if faults is None else faults_lib.FaultInjector(
-            faults, n_slots, vocab=self.cfg.vocab, max_seq=max_seq)
+            faults, n_slots, vocab=self.cfg.vocab, max_seq=max_seq,
+            token_tail=self.token_tail)
         self._attempts: dict[int, int] = {}   # uid -> retries consumed
         self._retry_backlog: list[tuple[float, Request]] = []
         self._tick_ema: float | None = None
@@ -416,7 +464,7 @@ class SlotEngine(_EngineBase):
         """Zero the scratch (rwkv/mamba prefill consumes the cache as its
         initial state, so a previous occupant's state must not leak into
         the next prompt), prefill the whole prompt, and sample its first
-        greedy token (a (1,) device tensor)."""
+        greedy token (a (1, [K]) device tensor)."""
         with torch.no_grad():
             for t in tree_leaves(cache):
                 t.zero_()
@@ -439,7 +487,10 @@ class SlotEngine(_EngineBase):
     def _validate(self, req: Request) -> None:
         """Reject requests that cannot fit their lane BEFORE they queue —
         decode writes token ``i`` at position prompt_len + i, and an
-        out-of-range lane write would corrupt another position."""
+        out-of-range lane write would corrupt another position.  The
+        text is held to ``max_seq`` as in the JAX package, which counts
+        no vision prefix; a vision request whose prefix, text and new
+        tokens pass the cache is refused too (``_check_vision_fit``)."""
         if req.max_new_tokens <= 0:
             return                        # completes without touching a lane
         s = np.asarray(req.prompt).shape[-1]
@@ -451,6 +502,7 @@ class SlotEngine(_EngineBase):
             raise ValueError(
                 f"request {req.uid}: prompt {s} + max_new_tokens "
                 f"{req.max_new_tokens} - 1 exceeds max_seq {self.max_seq}")
+        self._check_vision_fit(req.uid, s, req.max_new_tokens - 1)
 
     def submit(self, req: Request) -> bool:
         """Queue one request; raises QueueFull (backpressure) when bounded
@@ -471,7 +523,7 @@ class SlotEngine(_EngineBase):
         tok0 = self._prefill_sample(self._scratch,
                                     self._prefill_batch(prompt[None]))
         prefill_s = time.perf_counter() - t0
-        tok0_np = tok0.cpu().numpy().reshape(())   # blocks: host-visible
+        tok0_np = tok0.cpu().numpy()[0]          # () or (K,); blocks
         ttft_s = time.perf_counter() - t0          # admit -> first token
         self.manager.admit(index, req, self._scratch, tok0, prefill_s,
                            ttft_s=ttft_s)
@@ -594,7 +646,7 @@ class SlotEngine(_EngineBase):
         # fully prefilled: admit into a free slot and release the scratch
         self._lanes.remove(lane)
         idx = mgr.free_indices()[0]
-        tok0_np = lane.last_tok.cpu().numpy().reshape(())
+        tok0_np = lane.last_tok.cpu().numpy()[0]      # () or (K,)
         ttft_s = time.perf_counter() - lane.t_start
         mgr.admit(idx, req, lane.cache, lane.last_tok, lane.prefill_s,
                   ttft_s=ttft_s)

@@ -174,7 +174,7 @@ class FaultInjector:
     FLOOD_UID_BASE = -1000
 
     def __init__(self, plan: FaultPlan, n_slots: int, *, vocab: int,
-                 max_seq: int):
+                 max_seq: int, token_tail: tuple[int, ...] = ()):
         self.plan = plan
         self._rng = np.random.default_rng(plan.seed)
         self._poison: dict[int, set[int]] = {}
@@ -183,6 +183,7 @@ class FaultInjector:
         self._prefill: dict[int, list[int | None]] = {}  # uid -> chunks
         self._vocab = vocab
         self._max_seq = max_seq
+        self._token_tail = tuple(token_tail)
         self._next_flood_uid = self.FLOOD_UID_BASE
         for f in plan.faults:
             if isinstance(f, LanePoison):
@@ -229,8 +230,9 @@ class FaultInjector:
             new = max(1, min(spec.max_new_tokens, self._max_seq - s + 1))
             for _ in range(spec.n):
                 self._next_flood_uid -= 1
-                prompt = self._rng.integers(0, self._vocab,
-                                            (s,)).astype(np.int32)
+                prompt = self._rng.integers(
+                    0, self._vocab,
+                    self._token_tail + (s,)).astype(np.int32)
                 out.append(Request(self._next_flood_uid, prompt,
                                    max_new_tokens=new,
                                    deadline_s=now + spec.deadline_in_s))

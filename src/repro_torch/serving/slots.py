@@ -85,7 +85,7 @@ FINISH_REASONS = frozenset({
 @dataclasses.dataclass
 class Request:
     uid: int
-    prompt: np.ndarray               # (S,) int32
+    prompt: np.ndarray               # (S,) int32 (or (K,S) for audio)
     max_new_tokens: int = 16
     # absolute deadline on the engine clock (time.monotonic by default);
     # None = no deadline.  Expired requests are retired with
@@ -97,7 +97,7 @@ class Request:
 @dataclasses.dataclass
 class Result:
     uid: int
-    tokens: np.ndarray               # (m,); m may be 0 on expiry
+    tokens: np.ndarray               # (m,) or (K, m); m may be 0 on expiry
     prefill_s: float
     decode_s: float
     plan_decisions: list[str]
@@ -118,7 +118,7 @@ class Result:
 class TokenEvent:
     """One streamed token (or a terminal marker) surfaced per tick."""
     uid: int
-    token: np.ndarray | None         # () int32; None on tokenless end
+    token: np.ndarray | None         # () or (K,) int32; None on tokenless end
     index: int                       # position within the request's output
     done: bool
     finish_reason: str | None = None
@@ -260,23 +260,27 @@ class SlotManager:
     """B lanes of one pooled cache buffer + the tick's device buffers.
 
     The manager owns the device cache (``pos`` in its per-lane (B,) vector
-    form) and the per-slot host records; the engine owns params, the
-    decode ticks and the scheduler and drives ticks.  ``tokens`` (B,)
-    int32, ``active`` (B,) bool and ``poison`` (B,) bool live on the
-    cache's device and are only written in place: one lane at an admit or
-    retire, ``tokens`` as a whole by the tick itself (JAX's
-    ``set_sampled``), ``poison`` only around a fault tick.  Nothing is
-    uploaded on a healthy tick.
+    form) and the per-slot host records; the engine owns params, the decode
+    ticks and the scheduler and drives ticks.  ``tokens`` (B,) + ``token_tail``
+    int32 (the tail is (K,) for an audio model's codebooks, as in the JAX
+    package), ``active`` (B,) bool and ``poison`` (B,) bool live on the cache's
+    device and are only written in place: one lane at an admit or retire,
+    ``tokens`` as a whole by the tick itself (JAX's ``set_sampled``),
+    ``poison`` only around a fault tick.  Nothing is uploaded on a healthy
+    tick.
     """
 
     def __init__(self, cache: Any, n_slots: int,
+                 token_tail: tuple[int, ...] = (),
                  clock: Callable[[], float] = None):
         self.cache = cache
         self.n_slots = n_slots
         self.clock = clock or time.monotonic
         self.slots = [Slot(i) for i in range(n_slots)]
+        self._token_tail = tuple(token_tail)
         device = cache["pos"].device
-        self.tokens = torch.zeros(n_slots, dtype=torch.int32, device=device)
+        self.tokens = torch.zeros((n_slots,) + self._token_tail,
+                                  dtype=torch.int32, device=device)
         self.active = torch.zeros(n_slots, dtype=torch.bool, device=device)
         self.poison = torch.zeros(n_slots, dtype=torch.bool, device=device)
         self._resident = self._addresses()
@@ -319,7 +323,8 @@ class SlotManager:
         ``lane_cache`` is the B=1 scratch cache holding the prompt's state
         (0-d ``pos`` = prompt length); its single lane is written into lane
         ``index`` (core/state.lane_write), with the prompt's first sampled
-        token (``first_token``, a one-element device tensor).  ``ttft_s``
+        token (``first_token``, a device tensor of one step's token: one
+        element, or K for codebooks).  ``ttft_s``
         is the admit->first-token wall time the engine measured; defaults
         to ``prefill_s``."""
         s = self.slots[index]
@@ -328,12 +333,13 @@ class SlotManager:
                              axis=1)
         self.cache["pos"][index:index + 1].copy_(
             lane_cache["pos"].reshape(1))
-        self.tokens[index:index + 1].copy_(first_token.reshape(1))
+        self.tokens[index:index + 1].copy_(
+            first_token.reshape((1,) + self._token_tail))
         self.active[index] = True
         self.check_resident()
         s.request = req
-        s.tokens = [np.asarray(first_token.cpu().numpy().reshape(()),
-                               np.int32)]
+        s.tokens = [np.asarray(first_token.cpu().numpy().reshape(
+            self._token_tail), np.int32)]
         s.remaining = req.max_new_tokens - 1
         s.prefill_s = prefill_s
         s.admitted_t = time.perf_counter()
@@ -363,7 +369,7 @@ class SlotManager:
 
     def empty_tokens(self) -> np.ndarray:
         """Zero-length token array of the right per-request shape."""
-        return np.zeros((0,), np.int32)
+        return np.zeros(self._token_tail + (0,), np.int32)
 
     # -- tick interface -------------------------------------------------
     def tick_batch(self) -> dict:

@@ -1,8 +1,8 @@
 """Step functions shared by training, serving and the smoke runs (the
 port's twin of the JAX package's ``steps.py``, for the dense attention,
-rwkv6, mamba and MoE paths: a config with audio codebooks or vision
-tokens raises, as ``models/transformer`` does; ``loss_fn`` differentiates
-every other config, attention through the kernels K8t and K8b).  All take
+rwkv6, mamba and MoE paths and the vision and audio fronts; ``loss_fn``
+differentiates every config ``models/transformer`` builds, attention
+through the kernels K8t and K8b).  All take
 the plain parameter and cache trees; the cache is updated in place, and
 ``train_step`` updates the parameters and the optimizer state in place
 (the JAX package donates them to its jits for the same effect).
@@ -33,15 +33,25 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
             remat: bool = True) -> tuple[torch.Tensor, dict]:
-    """Next-token cross-entropy of ``transformer.forward`` (``remat`` as
-    there; on by default, as in the JAX package), plus for a config with
-    MoE layers ``router_aux_weight`` x (load balance + 0.1 x z loss), each
-    aux averaged over the MoE layers.  Returns (loss, metrics): ``xent``,
-    ``loss`` and for MoE the three averaged aux values."""
+    """Next-token cross-entropy of ``transformer.forward`` (``remat`` as there;
+    on by default, as in the JAX package), with the JAX package's targets:
+    audio codebooks, logits (B, K, S, V), each codebook's next token
+    (``logits[:, :, :-1]`` against ``tokens[:, :, 1:]``); vision, the layout
+    ``[vis | text]``, position n_vis - 1 + i predicting text token i
+    (``logits[:, n_vis-1:-1]`` against ``tokens``); text, the next token.  Plus
+    for a config with MoE layers ``router_aux_weight`` x (load balance + 0.1 x
+    z loss), each aux averaged over the MoE layers.  Returns (loss, metrics):
+    ``xent``, ``loss`` and for MoE the three averaged aux values."""
     transformer.check_trainable(cfg)
     logits, aux = transformer.forward(params, cfg, batch, remat=remat)
     toks = batch["tokens"]
-    loss = _xent(logits[:, :-1], toks[:, 1:])
+    if cfg.n_codebooks:
+        loss = _xent(logits[:, :, :-1], toks[:, :, 1:])
+    elif cfg.n_vis_tokens:
+        nv = cfg.n_vis_tokens
+        loss = _xent(logits[:, nv - 1:-1], toks)
+    else:
+        loss = _xent(logits[:, :-1], toks[:, 1:])
     metrics = {"xent": loss}
     if cfg.moe is not None:
         n_moe = max(sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers)), 1)

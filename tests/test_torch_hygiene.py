@@ -51,7 +51,9 @@ def test_the_scan_sees_the_whole_port():
             "configs/jamba_1_5_large_398b.py", "kernels/flash_prefill.py",
             "kernels/decode_attn.py", "models/attention.py",
             "configs/qwen2_0_5b.py", "configs/yi_9b.py", "models/moe.py",
-            "configs/olmoe_1b_7b.py", "configs/qwen3_moe_30b_a3b.py"} <= names
+            "configs/olmoe_1b_7b.py", "configs/qwen3_moe_30b_a3b.py",
+            "configs/internvl2_1b.py", "configs/musicgen_large.py",
+            "models/registry.py"} <= names
     assert _imported_modules(ROOT / "tests" / "test_torch_plans.py").count(
         "repro.partitioning") == 1    # the scanner does see such imports
 

@@ -199,8 +199,12 @@ def test_eval_step_is_the_loss_without_gradients(trees):
 
 
 def test_loss_fn_raises_for_what_the_port_cannot_train():
-    cfg = dataclasses.replace(CFG, n_codebooks=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mix the port has no path for (an ``ssm.kind`` other than rwkv6
+    and mamba) raises before anything runs, also under the audio front,
+    which the port now trains (tests/test_torch_fronts.py)."""
+    cfg = dataclasses.replace(CFG, n_codebooks=2, ssm=dataclasses.replace(
+        CFG.ssm, kind="s4"))
+    with pytest.raises(NotImplementedError, match="rwkv6 and mamba"):
         steps.loss_fn({}, cfg, {"tokens": torch.zeros(1, 2, 4)})
 
 

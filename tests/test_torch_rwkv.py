@@ -255,25 +255,52 @@ def test_convert_round_trips_params_and_caches(both):
 
 
 def test_unported_layers_raise_naming_their_roadmap_item():
-    """The vision and audio fronts raise naming their ROADMAP item by its
-    title ("The vision and audio fronts"), before anything is allocated;
-    a dense attention config builds (attention blocks and dense MLPs, k/v
-    cache slots), so does an MoE one (router and expert stacks on the MoE
-    slots, the layer of every second slot for Jamba's ``every=2``), and so
-    does the attention-free Jamba stack."""
+    """Every layer and front the port has builds; only a mix it has no
+    path for raises (an ``ssm.kind`` other than rwkv6 and mamba), before
+    anything is allocated.  A dense attention config builds (attention
+    blocks and dense MLPs, k/v cache slots), and so do its vision and
+    audio fronts (ROADMAP Queue 1, "The vision and audio fronts"): the
+    codebooks' ``audio_embed`` (K, V, d) and ``audio_heads`` (K, d, V) in
+    place of ``embed`` and an untied ``lm_head``, the vision projector
+    ``vis_proj`` (in and out, with biases), the same k/v cache, and a slot
+    engine whose token buffer is (B, K) for codebooks; so does an MoE one
+    (router and expert stacks on the MoE slots, the layer of every second
+    slot for Jamba's ``every=2``), and so does the attention-free Jamba
+    stack."""
+    from repro_torch.serving import EngineConfig, SlotEngine
+
     attn = dataclasses.replace(CFG, n_heads=4, n_kv_heads=2, ssm=None)
     model = registry.build(attn)
     params = model.init(torch.Generator().manual_seed(0))
     assert set(params["blocks"][0]["mix"]) == {"wq", "wk", "wv", "wo"}
     assert set(params["blocks"][0]["mlp"]) == {"wg", "wu", "wd"}
     assert set(model.init_cache(1, 8)["slots"][0]) == {"k", "v"}
-    for fronts in (dict(n_codebooks=2), dict(n_vis_tokens=4, vis_dim=16)):
-        for build in (lambda m: m.init(torch.Generator().manual_seed(0)),
-                      lambda m: m.init_cache(1, 8)):
-            with pytest.raises(NotImplementedError,
-                               match='fronts.*ROADMAP.*"The vision and '
-                                     'audio fronts'):
-                build(registry.build(dataclasses.replace(attn, **fronts)))
+    d, V = CFG.d_model, CFG.vocab
+    audio = registry.build(dataclasses.replace(attn, n_codebooks=2))
+    p = audio.init(torch.Generator().manual_seed(0))
+    assert {"audio_embed", "audio_heads"} <= set(p)
+    assert not {"embed", "lm_head"} & set(p)
+    assert tuple(p["audio_embed"].shape) == (2, V, d)
+    assert tuple(p["audio_heads"].shape) == (2, d, V)
+    assert set(audio.init_cache(1, 8)["slots"][0]) == {"k", "v"}
+    eng = SlotEngine(audio, p, config=EngineConfig(n_slots=3, max_seq=8))
+    assert tuple(eng.manager.tokens.shape) == (3, 2)
+    assert eng.manager.tokens.dtype == torch.int32
+    vision = registry.build(dataclasses.replace(attn, n_vis_tokens=4,
+                                                vis_dim=16))
+    p = vision.init(torch.Generator().manual_seed(0))
+    assert {"embed", "vis_proj"} <= set(p)
+    assert tuple(p["vis_proj"]["in"]["w"].shape) == (16, d)
+    assert tuple(p["vis_proj"]["out"]["w"].shape) == (d, d)
+    assert set(p["vis_proj"]["in"]) == set(p["vis_proj"]["out"]) == {"w",
+                                                                     "b"}
+    assert set(vision.init_cache(1, 8)["slots"][0]) == {"k", "v"}
+    other = dataclasses.replace(CFG, ssm=dataclasses.replace(CFG.ssm,
+                                                             kind="s4"))
+    for build in (lambda m: m.init(torch.Generator().manual_seed(0)),
+                  lambda m: m.init_cache(1, 8)):
+        with pytest.raises(NotImplementedError, match="rwkv6 and mamba"):
+            build(registry.build(other))
     moe = dataclasses.replace(attn, moe=dataclasses.replace(
         get_arch("jamba-1.5-large-398b").moe, n_experts=4, d_ff=32))
     params = registry.build(moe).init(torch.Generator().manual_seed(0))
