@@ -123,9 +123,22 @@ and U3 the two trained at full width and depth for 8 steps of batch 4 x
 512 positions drawn by ``registry.make_batch``, as A8 (step 1's K8b calls
 held, peak memory, the loss).  A1, A2, A5, A6 and A9 also hold and time
 K8, K9, K8t and K8b at MusicGen-large's heads (32/32 x 64).
+The analysis and profiler half: P1 holds every served and trained
+model's parameters to ``analysis.param_counts`` (within the norms'
+bookkeeping of the JAX package's count), prints each training step's
+model-FLOPs share from ``analysis.model_flops`` (active, non-embedding
+parameters) and each replayed tick beside its ``analysis.analytic_costs``
+roofline; P2 sweeps ``obs/profile.profile_families`` (K2/K4, K6, K7 at
+the kernel table's shapes, each point held against its plain version and
+timed beside its ``model_s``), saves the profile under ``build/`` and
+reloads it; P3 calibrates the Fig 7 scheduler's five LSTM plans from it
+(``fused_seq`` seeded without a launch) and serves 32 windows through the
+chosen plan; P4 trains Qwen2-0.5B 4 steps through ``launch/train.py
+--ckpt-dir --ckpt-every 2`` and restores the checkpoint onto the card and
+the CPU bit for bit (``profiler_slice``).
 It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
-card could take for the work.
+card could take for the work (``repro_torch.analysis``).
 
 Float32 matrix products and cuDNN run without TF32 here
 (``allow_tf32 = False`` for both), so the plain versions and the library
@@ -166,17 +179,6 @@ Q8_ORACLE_TOL = dict(rtol=1e-4, atol=1e-5)
 SPLIT_TOL = dict(rtol=2e-4, atol=2e-4)
 #: Prefill plus decode against the full forward: tests/test_consistency.py.
 CONSISTENCY_TOL = dict(rtol=3e-4, atol=3e-4)
-#: Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
-#: float32 FLOP/s outside the tensor cores — the kernels use CUDA cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-#: Its bf16 dense tensor-core peak: the yardstick of a training step's
-#: model FLOPs and of the kernels that run on the tensor cores.
-BF16_FLOP_PER_S = 989e12
-#: Its TF32 dense tensor-core peak: the tier the chunk products of K6, K6t
-#: and K6b would reach on the tensor cores (they run on the CUDA cores in
-#: f32; their bounds are stated at both rates).
-TF32_FLOP_PER_S = 495e12
 #: nvcc's output per source of this run's build (ptxas registers and spills)
 BUILD_LOGS: dict[str, str] = {}
 #: JAX's Pallas dispatches of one value_and_grad of its loss_fn through
@@ -251,16 +253,6 @@ def graph_ms(fn, calls: int = 20) -> float:
         for _ in range(calls):
             fn()
     return time_ms(graph.replay, 5) / calls
-
-
-def bound(nbytes: int, flops: int, flop_rate: float = F32_FLOP_PER_S
-          ) -> tuple[float, str]:
-    """Least time in ms for the work, and which of the two bounds it: the
-    bytes at the HBM rate, the operations at ``flop_rate`` (the f32 rate
-    of the CUDA cores unless the inputs' type has a faster peak)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def instance(mangled: str) -> str:
@@ -360,58 +352,13 @@ def wkv_inputs(BH, T, dk, dv, dtype, gen, decay=1.0):
             randn(BH, dk, dv, gen=gen, scale=0.3))
 
 
-def wkv6_fwd_work(BH, T, dk, dv, C, dtype, traj=False) -> tuple[int, int]:
-    """(bytes, operations) of one K6 launch (K6t with ``traj``): r, k, v
-    in and out in the IO type, logw f32, u, s0 and s_out f32 (and s_traj
-    f32 out); per chunk of a row the carry, the scores (sub, 2 mul, add),
-    scores x v, the bonus, bonus x v, the state update and the decays."""
-    io = 2 if dtype == torch.bfloat16 else 4
-    nt = -(-T // C)
-    nbytes = (io * BH * T * (2 * dk + 2 * dv) + 4 * BH * T * dk
-              + 4 * (BH * dk + 2 * BH * dk * dv))
-    if traj:
-        nbytes += 4 * BH * nt * dk * dv
-    pairs = C * (C - 1) // 2
-    per_chunk = (2 * C * dk * dv + 4 * pairs * dk + 2 * pairs * dv
-                 + 3 * C * dk + 2 * C * dv + 2 * C * dk * dv + dk * dv
-                 + 3 * C * dk)
-    return nbytes, BH * nt * per_chunk
-
-
-def wkv6_bwd_work(BH, T, dk, dv, C, dtype) -> tuple[int, int]:
-    """(bytes, operations) that the chunk backward of ``kernels/wkv6.py``'s
-    docstring needs, each distinct product and exponential counted once (a
-    multiply-add is 2 operations, an exponential 1), whatever the kernel
-    recomputes: r, k, v, dout in and dr, dk, dv out in the IO type; logw in
-    and dlogw out, u, du, the chunk-incoming states, s_fin, ds_fin and ds0
-    f32.  Per chunk of a row: four (C, dk, dv) products (dv's state term
-    through k e^{Llast - L}, dr's carry S dO, dk's v . dS', the dS update
-    through r e^{L_prev}); for each of the C(C-1)/2 pairs over dk the decay
-    (sub, exp), k times it, A, dr's term, r times it and dk's term, and over
-    dv dA and dv's term; per (i, c) the cumsum, the two decays and their
-    products with r and k, the bonus and its three gradient terms, du, the
-    two scalings, dlogw's two inputs, the state term and the reverse
-    cumsums; per (i, n) db and dv's bonus term; dS' scaled and Llast's
-    term."""
-    io = 2 if dtype == torch.bfloat16 else 4
-    nt = -(-T // C)
-    nbytes = (io * BH * T * (4 * dk + 3 * dv) + 4 * BH * T * 2 * dk
-              + 4 * 2 * BH * dk + 4 * BH * nt * dk * dv
-              + 4 * 3 * BH * dk * dv)
-    pairs = C * (C - 1) // 2
-    per_chunk = (8 * C * dk * dv
-                 + pairs * (10 * dk + 4 * dv)
-                 + 26 * C * dk + 4 * C * dv
-                 + 3 * dk * dv + 3 * dk)
-    return nbytes, BH * nt * per_chunk
-
-
 def rwkv_slice(device, gen, counted, counts, only) -> dict:
     """The RWKV6 slice: K6 against its plain version, the 4-layer f32 model
     across plans and against its own forward, the bf16 RWKV6-3B at full
     width and ``SERVE_LAYERS`` depth
     served through ``launch/serve.py`` (counted, plain scans armed), and
     K6's times.  Returns K6's entry of the ``kernels`` line."""
+    from repro_torch.analysis import TF32_FLOP_PER_S, bound, wkv6_fwd_work
     from repro_torch.configs import get_arch
     from repro_torch.core import plans
     from repro_torch.kernels import ref
@@ -547,6 +494,7 @@ def rwkv_slice(device, gen, counted, counts, only) -> dict:
                                    max_seq=500 + 16 + 1, engine="wave")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    accounting("R3", cfg, n_params)
     print(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters in "
           f"{cfg.dtype}, drawn from seed 0 on the card in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -775,6 +723,45 @@ def profiling(train_step, n_steps: int, profiles: list):
     return profiled_step
 
 
+def accounting(phase: str, cfg, n_built: int) -> None:
+    """P1: ``analysis.param_counts`` of ``cfg`` beside the parameters of
+    the model the phase built.  The count is the JAX package's arithmetic,
+    which books 4 d_model a layer for norms where the models hold 2
+    (RMSNorm) or 4 (LayerNorm) and a final norm: it must be within
+    4 d_model x (layers + 1) of the built model's."""
+    from repro_torch.analysis import param_counts
+
+    total, active = param_counts(cfg)
+    slack = 4 * cfg.d_model * (cfg.n_layers + 1)
+    check(abs(n_built - total) <= slack,
+          f"P1 {phase}: analysis.param_counts({cfg.name}) {total:,} is "
+          f"{n_built - total:+,} from the built model's {n_built:,}")
+    print(f"[P1] {phase} {cfg.name}: analysis.param_counts {total:,} "
+          f"total, {active:,} active a token; the built model {n_built:,} "
+          f"({n_built - total:+,}, the norms' bookkeeping, within "
+          f"{slack:,})")
+
+
+def flops_share(phase: str, cfg, report: dict, med_ms: float,
+                batch: int = 4, seq: int = 512) -> str:
+    """P1: a training step's model FLOPs (``analysis.model_flops``: 6 x
+    the active, non-embedding parameters x tokens) at ``batch`` x ``seq``
+    and their share of the bf16 dense peak at a step of ``med_ms``, beside
+    the share 6 x every parameter x tokens gave before; the model's
+    parameters held to ``analysis.param_counts`` (``accounting``)."""
+    from repro_torch.analysis import BF16_FLOP_PER_S, model_flops
+    from repro_torch.configs.base import ShapeConfig
+
+    accounting(phase, cfg, report["n_params"])
+    mf = model_flops(cfg, ShapeConfig("step", seq, batch, "train"))
+    old = 6 * report["n_params"] * batch * seq
+    per_s = med_ms / 1e3 * BF16_FLOP_PER_S
+    return (f"model FLOPs (analysis.model_flops: 6 x active non-embedding "
+            f"parameters x tokens, {mf:.3e} a step) at {mf / per_s:.2%} of "
+            f"the H100's 989 TFLOP/s bf16 dense peak (6 x all parameters x "
+            f"tokens, {old:.3e}, gave {old / per_s:.2%})")
+
+
 def print_step_profile(profiles: list[dict], unprofiled_ms: float
                        ) -> float | None:
     """Where the last two training steps' device time goes, from
@@ -829,6 +816,8 @@ def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
     armed to raise, each K6b launch of step 1 held against its plain
     version (R7); the two kernels' times (R8).  Returns their entries of
     the ``kernels`` line."""
+    from repro_torch.analysis import (TF32_FLOP_PER_S, bound, wkv6_bwd_work,
+                                      wkv6_fwd_work)
     from repro_torch.configs import get_arch
     from repro_torch.core import plans
     from repro_torch import steps as steps_lib
@@ -1095,7 +1084,6 @@ def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
     step_ms = report["step_ms"][1:-2]
     med = statistics.median(step_ms)
     tokens = report["tokens_per_step"]
-    model_flops = 6 * report["n_params"] * tokens
     print(f"[train] {cfg.name}: {report['n_params'] / 1e9:.3f} B parameters "
           f"in {cfg.dtype}, batch 4 x 512, {n_steps} steps in {wall:.1f} s "
           f"(init included); launches {got['wkv6_traj']} K6t + "
@@ -1111,10 +1099,8 @@ def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
           f"{n_steps - 2}: median {med:.3f} ms, min {min(step_ms):.3f} ms "
           f"(host clock around the step, ending in the loss's copy to the "
           f"host); "
-          f"{tokens / (med / 1e3):.1f} tokens/s; model FLOPs (6 x params x "
-          f"tokens, {model_flops:.3e} a step) at "
-          f"{model_flops / (med / 1e3) / BF16_FLOP_PER_S:.2%} of the H100's "
-          "989 TFLOP/s bf16 dense peak")
+          f"{tokens / (med / 1e3):.1f} tokens/s; "
+          + flops_share("R7", cfg, report, med))
     print_step_profile(profiles, med)
     launches = {"wkv6_traj": got["wkv6_traj"], "wkv6_bwd": got["wkv6_bwd"]}
     torch.cuda.empty_cache()
@@ -1196,37 +1182,6 @@ def mamba_inputs(B, T, di, ds, dtype, gen, dt_scale=1.0):
             randn(B, di, ds, gen=gen, scale=0.3))
 
 
-def mamba_fwd_work(B, T, di, ds, C, dtype, traj=False) -> tuple[int, int]:
-    """(bytes, operations) of one K7 launch (K7t with ``traj``): x in and y
-    out in the IO type, dt, b, c, a, h0 and h_out f32 (and h_traj f32
-    out); per state-step dt A, its exponential (one operation), (dt x) B,
-    the update's multiply-add and y's, and per channel-step dt x."""
-    io = 2 if dtype == torch.bfloat16 else 4
-    nt = -(-T // C)
-    nbytes = (2 * io * B * T * di + 4 * B * T * di + 4 * 2 * B * T * ds
-              + 4 * di * ds + 4 * 2 * B * di * ds)
-    if traj:
-        nbytes += 4 * B * nt * di * ds
-    return nbytes, B * T * di * (7 * ds + 1)
-
-
-def mamba_bwd_work(B, T, di, ds, C, dtype) -> tuple[int, int]:
-    """(bytes, operations) that the backward of ``kernels/mamba_scan.py``'s
-    docstring needs, each product and exponential counted once: x, dy in
-    and dx out in the IO type; dt, ddt, b, c, db, dc, a, da, h_traj,
-    dh_fin and dh0 f32.  Per state-step the recompute of h from the chunk's
-    incoming state (dt A, exp, (dt x) B, multiply-add: 5) and the reverse
-    step (g's multiply-add, sum g B, g h a, sum g h a A, dA's multiply-add,
-    the dB and dC terms and their sums over d_inner, a g: 16); per
-    channel-step dt x, dx and ddt's multiply-add (4).  The kernel's own
-    partial sums of dB and dC are its choice and not counted."""
-    io = 2 if dtype == torch.bfloat16 else 4
-    nt = -(-T // C)
-    nbytes = (3 * io * B * T * di + 2 * 4 * B * T * di + 4 * 4 * B * T * ds
-              + 2 * 4 * di * ds + 4 * B * nt * di * ds + 2 * 4 * B * di * ds)
-    return nbytes, B * T * di * (21 * ds + 4)
-
-
 def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     """The Mamba slice: K7 and K7t against their plain versions (M1); K7b
     against its plain version and torch autograd (M2); the attention-free
@@ -1236,6 +1191,7 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     trained through ``launch/train.train``, counted, the plain scans armed
     to raise (M4); the three kernels' times (M5).  Returns their entries
     of the ``kernels`` line."""
+    from repro_torch.analysis import bound, mamba_bwd_work, mamba_fwd_work
     from repro_torch.configs import get_arch, jamba_1_5_large_398b as jamba
     from repro_torch.core import plans
     from repro_torch import steps as steps_lib
@@ -1519,6 +1475,7 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
                                    max_seq=500 + 16 + 1, engine="wave")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    accounting("M4", cfg, n_params)
     print(f"[serve] {cfg.name} attention-free, {cfg.n_layers} layers: "
           f"{n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn from "
           f"seed 0 on the card in {time.perf_counter() - t0:.1f} s")
@@ -1654,7 +1611,6 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
     step_ms = report["step_ms"][1:-2]
     med = statistics.median(step_ms)
     tokens = report["tokens_per_step"]
-    model_flops = 6 * report["n_params"] * tokens
     print(f"[train] {cfg.name} attention-free: {report['n_params'] / 1e9:.3f}"
           f" B parameters in {cfg.dtype}, batch 4 x 512, {n_steps} steps in "
           f"{wall:.1f} s (init included); launches {got['mamba_scan_traj']} "
@@ -1672,9 +1628,7 @@ def mamba_slice(device, gen, counted, counts, only) -> list[dict]:
           f"steps 2 to {n_steps - 2}: median {med:.3f} ms, min "
           f"{min(step_ms):.3f} ms (host clock around the step, ending in the "
           f"loss's copy to the host); {tokens / (med / 1e3):.1f} tokens/s; "
-          f"model FLOPs (6 x params x tokens, {model_flops:.3e} a step) at "
-          f"{model_flops / (med / 1e3) / BF16_FLOP_PER_S:.2%} of the H100's "
-          "989 TFLOP/s bf16 dense peak")
+          + flops_share("M4", cfg, report, med))
     print_step_profile(profiles, med)
     train_launches = {"mamba_scan_traj": got["mamba_scan_traj"],
                       "mamba_scan_bwd": got["mamba_scan_bwd"]}
@@ -1831,24 +1785,6 @@ def attn_inputs(B, S, Hq, Hkv, dh, dtype, gen):
             randn(B, S, Hkv, dh, gen=gen).to(dtype))
 
 
-def prefill_work(B, S, Hq, Hkv, dh, dtype) -> tuple[int, int]:
-    """(bytes, operations) of one K8 launch: q, k, v in and o out in the IO
-    type, each once; the causal half of the two products, 4 B Hq dh
-    S (S + 1) / 2 (a multiply-add is 2)."""
-    io = 2 if dtype == torch.bfloat16 else 4
-    return (io * B * S * dh * (2 * Hq + 2 * Hkv),
-            4 * B * Hq * dh * S * (S + 1) // 2)
-
-
-def decode_work(B, Hq, Hkv, dk, lengths, dtype) -> tuple[int, int]:
-    """(bytes, operations) of one K9 launch: the k and v rows below each
-    row's length, q in and o out, in the IO type; the two products over
-    those rows (4 Hq dk a row and position)."""
-    io = 2 if dtype == torch.bfloat16 else 4
-    n = int(lengths.clamp_min(0).sum())
-    return (io * (2 * n * Hkv * dk + 2 * B * Hq * dk), 4 * n * Hq * dk)
-
-
 def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     """The dense attention slice: K8 against its plain version (A1); K9
     against its plain version (A2); Qwen2-0.5B at full width and depth in
@@ -1861,6 +1797,8 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     kernels' times beside SDPA's (A5); then attention training
     (``attention_train_slice``: A6 to A9).  Returns their entries of the
     ``kernels`` line."""
+    from repro_torch.analysis import (BF16_FLOP_PER_S, bound, decode_work,
+                                      prefill_work)
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attn as da
     from repro_torch.kernels import flash_prefill as fp
@@ -2086,6 +2024,7 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     model = registry.build(cfg32)
     p32 = model.init(torch.Generator(device=device).manual_seed(0), device)
     n_params = sum(t.numel() for t in tree_leaves(p32))
+    accounting("A3", cfg32, n_params)
     L, S, K = cfg32.n_layers, 300, 4
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg32.vocab, (2, S + K)).astype(np.int32)).to(device)
@@ -2158,6 +2097,7 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
                                        max_seq=SLOT_SEQ, engine="wave")
         torch.cuda.synchronize()
         n_params = sum(t.numel() for t in tree_leaves(engine.params))
+        accounting("A4", cfg, n_params)
         print(f"[serve] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
               f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
               f"{cfg.resolved_head_dim}, {n_params / 1e9:.3f} B parameters "
@@ -2293,24 +2233,6 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
 
 
 
-def attn_traj_work(B, S, Hq, Hkv, dh, dtype) -> tuple[int, int]:
-    """(bytes, operations) of one K8t launch: K8's (``prefill_work``) and
-    the rows' lse written in f32."""
-    nbytes, ops = prefill_work(B, S, Hq, Hkv, dh, dtype)
-    return nbytes + 4 * B * Hq * S, ops
-
-
-def attn_bwd_work(B, S, Hq, Hkv, dh, dtype) -> tuple[int, int]:
-    """(bytes, operations) of one K8b call: q, o, dO in and dq out (B, S,
-    Hq, dh), k, v in and dk, dv out (B, S, Hkv, dh), in the IO type, each
-    once, and lse in f32; the causal half of its five products (q k^T,
-    dO v^T, p^T dO, ds k, ds^T q), 5 B Hq dh S (S + 1) (a multiply-add is
-    2)."""
-    io = 2 if dtype == torch.bfloat16 else 4
-    return (io * B * S * dh * (4 * Hq + 4 * Hkv) + 4 * B * Hq * S,
-            5 * B * Hq * dh * S * (S + 1))
-
-
 def attn_grad_hold(got: torch.Tensor, want: torch.Tensor, what: str,
                    share: dict, one_step: bool = True) -> float:
     """Hold an attention gradient to its reference; return the max abs
@@ -2410,7 +2332,6 @@ def attention_train_run(phase: str, cfg, n_steps: int, counted, counts,
     step_ms = report["step_ms"][1:-2]   # step 1 also ran the checks
     med = statistics.median(step_ms)
     tokens = report["tokens_per_step"]
-    model_flops = 6 * report["n_params"] * tokens
     print(f"[{phase}] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
           f"{report['n_params'] / 1e9:.3f} B parameters in {cfg.dtype}, batch"
           f" 4 x 512, {n_steps} steps in {wall:.1f} s (init included); "
@@ -2433,10 +2354,8 @@ def attention_train_run(phase: str, cfg, n_steps: int, counted, counts,
           f"2 to {n_steps - 2}: median {med:.3f} ms, min {min(step_ms):.3f} "
           "ms (host clock around the step, ending in the loss's copy to the "
           f"host; steps {n_steps - 1} and {n_steps} ran under the profiler); "
-          f"{tokens / (med / 1e3):.1f} tokens/s; model FLOPs (6 x params x "
-          f"tokens, {model_flops:.3e} a step) at "
-          f"{model_flops / (med / 1e3) / BF16_FLOP_PER_S:.2%} of the H100's "
-          "989 TFLOP/s bf16 dense peak")
+          f"{tokens / (med / 1e3):.1f} tokens/s; "
+          + flops_share(phase, cfg, report, med))
     busy = print_step_profile(profiles, med)
     head = lm_head_ms(cfg, tokens)
     print(f"[profile] {phase} lm_head: the logits product (4 x 512 x "
@@ -2484,6 +2403,8 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
     backward alone), K8b's kernels' device times by the profiler, and
     ptxas's registers (A9).  Returns their entries of the ``kernels``
     line."""
+    from repro_torch.analysis import (BF16_FLOP_PER_S, attn_bwd_work,
+                                      attn_traj_work, bound)
     from repro_torch import steps as steps_lib
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_prefill as fp
@@ -3484,9 +3405,30 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
           f"TTFT from admission to the first token on the host, as the JAX "
           f"package measures it); "
           f"scheduler decisions {decisions}")
+    tick_costs(phase, cfg, g_ms)
     del eng
     torch.cuda.empty_cache()
     return {"eager_ms": e_ms, "graph_ms": g_ms, "spread": spread}
+
+
+def tick_costs(phase: str, cfg, graph_ms: float) -> None:
+    """P1: ``analysis.analytic_costs`` of one decode tick of ``N_SLOTS``
+    lanes over the slot phases' cache (the JAX package's model: every
+    weight read once, the caches read, the activations) and its roofline
+    on one card, beside the replayed tick measured at ``graph_ms``."""
+    from repro_torch.analysis import Roofline, analytic_costs
+    from repro_torch.configs.base import ShapeConfig
+
+    costs = analytic_costs(cfg, ShapeConfig("tick", slot_seq(cfg), N_SLOTS,
+                                            "decode"))
+    roof = Roofline(costs["flops"], costs["bytes"])
+    least = max(roof.t_compute, roof.t_memory) * 1e3
+    print(f"[P1] {phase} {cfg.name} decode tick of {N_SLOTS} lanes over "
+          f"{slot_seq(cfg)} positions: analysis.analytic_costs "
+          f"{costs['flops']:.4e} FLOPs, {costs['bytes']:.4e} bytes; "
+          f"roofline {least:.4f} ms ({roof.dominant}; bf16 peak, 3.35 TB/s)"
+          f"; replayed tick {graph_ms:.3f} ms, {graph_ms / least:.1f}x it; "
+          f"{CARD['line']}")
 
 
 #: the MoE phases: OLMoE-1B-7B's and the Jamba cut's serves take the slot
@@ -3644,6 +3586,7 @@ def moe_tick_share(phase: str, cfg, params, device, graph_tick_ms: float
     the replayed tick and the bound of reading every weight once, the
     experts' and the rest's (under no_drop every expert's products run
     over its C = T rows, so a step reads every expert)."""
+    from repro_torch.analysis import HBM_BYTES_PER_S
     from repro_torch.models import moe, registry
 
     model = registry.build(cfg)
@@ -3727,6 +3670,7 @@ def moe_f32_phase(device, counted, counts, only, arms) -> None:
     model = registry.build(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
     n_params = sum(t.numel() for t in tree_leaves(params))
+    accounting("X1", cfg, n_params)
     L, B, S, K = cfg.n_layers, 2, 128, 4
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab, (B, S + K)).astype(np.int32)).to(device)
@@ -3819,6 +3763,7 @@ def moe_serve_phase(phase: str, cfg, device, counted, counts, only, arms,
                                    max_seq=SLOT_SEQ, engine="wave")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    accounting(phase, cfg, n_params)
     print(f"[{phase}] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-"
@@ -3874,6 +3819,7 @@ def moe_slice(device, counted, counts, only) -> None:
     8 steps (``attention_train_run``, with the router metrics of each
     step).  The plain attention and scan versions are armed to raise
     throughout; each phase prints its peak memory."""
+    from repro_torch.analysis import HBM_BYTES_PER_S
     from repro_torch.configs import get_arch
     from repro_torch.configs import jamba_1_5_large_398b as jamba
     from repro_torch.launch import serve as serve_lm
@@ -3900,6 +3846,7 @@ def moe_slice(device, counted, counts, only) -> None:
                                    engine="wave")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    accounting("X4", cfg, n_params)
     print(f"[X4] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.resolved_head_dim}, {cfg.moe.n_experts} experts top-"
@@ -3962,6 +3909,7 @@ def fronts_f32_phase(phase: str, name: str, device, counted, counts,
     model = registry.build(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(0), device)
     n_params = sum(t.numel() for t in tree_leaves(params))
+    accounting(phase, cfg, n_params)
     L, B, K, off = cfg.n_layers, 2, 4, cfg.n_vis_tokens
     S = 500 - off
     rng = np.random.default_rng(5)
@@ -4061,6 +4009,7 @@ def fronts_serve_phase(phase: str, cfg, device, counted, counts, only,
     vision the chunked engine refused; a replayed tick bit-equal to the
     eager one), the plain attention armed to raise.  Returns the wave
     serve's launches."""
+    from repro_torch.analysis import HBM_BYTES_PER_S
     from repro_torch.launch import serve as serve_lm
     from repro_torch.optim.adamw import tree_leaves
 
@@ -4073,6 +4022,7 @@ def fronts_serve_phase(phase: str, cfg, device, counted, counts, only,
                                    max_seq=slot_seq(cfg), engine="wave")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(engine.params))
+    accounting(phase, cfg, n_params)
     front = (f"a {cfg.n_vis_tokens}-token vision prefix (zero patch "
              f"embeddings of {cfg.vis_dim}) ahead of each prompt"
              if cfg.n_vis_tokens else
@@ -4169,6 +4119,213 @@ def fronts_slice(device, counted, counts, only) -> dict:
     return launches
 
 
+#: P2's shapes, the kernel table's: the paper's 2 x 32 LSTM at T=128 and
+#: batch 64; RWKV6-3B's heads, 160 rows x T=512 of 64 x 64 (its serving
+#: chunk as the sweep's coarsest); the Jamba width, B=4 x T=512 at d_inner
+#: 16384 and d_state 16
+P2_SHAPES = {"lstm": {"batch": 64, "seq_len": 128},
+             "rwkv6": {"seq_len": 512, "n_bh": 160, "dk": 64, "dv": 64,
+                       "target": 32},
+             "mamba": {"batch": 4, "seq_len": 512, "d_inner": 16384,
+                       "d_state": 16}}
+#: the wrapper each family's profile points launch
+P2_KERNELS = {"lstm": "lstm_seq", "rwkv6": "wkv6", "mamba": "mamba_scan"}
+
+
+def profiler_slice(device, counted, counts, only, shapes=P2_SHAPES,
+                   train_args=("--arch", "qwen2-0.5b")) -> dict:
+    """The analysis and profiler half (P2 to P4; P1 runs inside the serving
+    and training phases, ``accounting``, ``flops_share``, ``tick_costs``).
+
+    * P2: ``obs/profile.profile_families`` over the three families at
+      ``shapes`` on the card, counted (warmup 1 and 2 timed calls a point,
+      each one launch of K2/K4, K6 or K7); every point's kernel held
+      against its plain version on the same inputs, at its plan's f32
+      policy (``core/plans.py``), and
+      timed with CUDA events back to back and in a CUDA graph beside its
+      host-clock measurement and its ``model_s``; the ``model_vs_measured``
+      rows; the profile saved under ``build/``, reloaded and compared.
+    * P3: the Fig 7 scheduler with the five LSTM plans calibrated with
+      ``profile=profile.best_latencies()``: no K2 launched for
+      ``fused_seq`` during ``calibrate``, its base latency the profile's;
+      then 32 single-window requests (``classify.latencies_ms``) through
+      the plan it chooses, held to ``sequential`` at the plan's policy.
+    * P4: ``launch.train.main(train_args + --steps 4 --ckpt-every 2
+      --ckpt-dir build/p4_ckpt)``, counted (K8t twice and K8b once an
+      attention layer a step); steps 2 and 4 written; the step-4
+      checkpoint restored onto the card and onto the CPU, each bit-equal
+      to the trained parameters.
+    Returns the launches of P2 and P4 by wrapper name and P2's max abs
+    errors."""
+    import shutil
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.mobirnn_lstm import LSTMConfig
+    from repro_torch.core import lstm, plans
+    from repro_torch.core.scheduler import (Plan, Scheduler,
+                                            SyntheticLoadSensor)
+    from repro_torch.data import har
+    from repro_torch.launch import classify
+    from repro_torch.launch import train as train_lm
+    from repro_torch.obs import profile as profile_lib
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    families = tuple(shapes)
+    # --- P2. the measured profile ----------------------------------------
+    reset_counts(*counted)
+    t0 = time.perf_counter()
+    prof = profile_lib.profile_families(families, hook_kwargs=shapes,
+                                        device=device)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launched = counts()
+    per_family = {f: sum(p.family == f for p in prof.points)
+                  for f in families}
+    want = only(**{P2_KERNELS[f]: 3 * n for f, n in per_family.items()})
+    check(launched == want, f"P2: the sweep launched {launched}, "
+          f"{want} expected (3 a point)")
+    check(all(n >= 1 for n in per_family.values()),
+          f"P2: a family profiled no point: {per_family}")
+    print(f"[P2] profile_families{families} on {prof.key}: "
+          f"{len(prof.points)} points ({per_family}) in {sweep_s:.1f} s; "
+          f"launches {dict((k, v) for k, v in launched.items() if v)}")
+    errs: dict[str, float] = {}
+    cands = profile_lib.candidates(families, hook_kwargs=shapes,
+                                   device=device)
+    check([(c.family, c.point) for c in cands]
+          == [(p.family, p.point) for p in prof.points],
+          "P2: the candidates differ from the profiled points")
+    for c, pt, r in zip(cands, prof.points,
+                        profile_lib.model_vs_measured(prof)):
+        name = P2_KERNELS[c.family]
+        tol = plans.get_family(c.family).tol(c.plan, "float32")
+        got, want_out = c.fn(*c.args), c.plain(*c.args)
+        err = max(close(g.float(), w.float(), f"P2 {name} {c.point}", tol)
+                  for g, w in zip(got, want_out))
+        errs[name] = max(errs.get(name, 0.0), err)
+        ev_ms = time_ms(lambda: c.fn(*c.args), 20)
+        g_ms = graph_ms(lambda: c.fn(*c.args), 10)
+        print(f"[P2] {c.family} {c.plan} {c.point}: measured "
+              f"{pt.measured_s * 1e3:.4f} ms (host clock around a "
+              f"synchronized call, best of 2), CUDA events "
+              f"{ev_ms:.4f} ms back to back, {g_ms:.4f} ms in a CUDA graph; "
+              f"model_s {pt.model_s * 1e3:.4e} ms (analysis stream costs "
+              f"at the f32 CUDA-core and HBM rates), measured/model "
+              f"{r['ratio']:.1f}, graph/model {g_ms / (pt.model_s * 1e3):.1f}"
+              f"; {name} against its plain version: max abs err {err:.3e}; "
+              f"{CARD['line']}")
+    del cands
+    path = REPO / "build" / "device_profile.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.save(str(path))
+    loaded = profile_lib.DeviceProfile.load(str(path))
+    check(loaded.to_json() == prof.to_json() and loaded.key == prof.key,
+          "P2: the saved profile reloads differently")
+    print(f"[P2] saved {path.relative_to(REPO)} and reloaded it equal; "
+          f"best latencies {prof.best_latencies()}")
+
+    # --- P3. the Fig 7 scheduler calibrated from the profile ---------------
+    cfg = LSTMConfig()
+    _, test = har.make_har(n_train=1, n_test=32, seed=0)
+    windows = torch.tensor(test.x, device=device)
+    params = lstm.LSTMClassifier(
+        cfg, generator=torch.Generator().manual_seed(0)).to(device).params()
+    best = prof.best_latencies()
+    sched = Scheduler(SyntheticLoadSensor(0.0),
+                      viable=lstm.plan_viability(cfg, 1, cfg.seq_len))
+    for name, fn in lstm.FORWARD_PLANS.items():
+        sched.register(Plan(name, fn))
+    reset_counts(*counted)
+    with torch.inference_mode():
+        sched.calibrate(params, windows[:1], cfg, profile=best)
+    torch.cuda.synchronize()
+    cal = counts()
+    check(cal["lstm_seq"] == 0 and cal["lstm_seq_traj"] == 0,
+          f"P3: calibrate(profile=) launched {cal}; fused_seq must not run")
+    check(sched.plans["fused_seq"].base_latency_s == best["fused_seq"],
+          "P3: fused_seq's base latency is not the profile's")
+    chosen = sched.choose().plan
+    reset_counts(*counted)
+    with torch.inference_mode():
+        times, logits = classify.latencies_ms(lstm.FORWARD_PLANS[chosen],
+                                              params, windows, cfg)
+        want_logits = lstm.FORWARD_PLANS["sequential"](params, windows, cfg)
+    torch.cuda.synchronize()
+    served = counts()
+    tol = plans.get_family("lstm").tol(chosen, "float32")
+    err = close(logits, want_logits, f"P3 {chosen} vs sequential", tol)
+    if chosen == "fused_seq":
+        check(served == only(lstm_seq=33),
+              f"P3: 32 requests and a warmup through fused_seq launched "
+              f"{served}")
+    print(f"[P3] Scheduler(viable=plan_viability) over "
+          f"{list(lstm.FORWARD_PLANS)}, calibrate(profile=best_latencies): "
+          f"fused_seq seeded at {best['fused_seq'] * 1e3:.4f} ms from the "
+          f"profile without a launch (calibrate launched "
+          f"{dict((k, v) for k, v in cal.items() if v)}); base latencies "
+          + ", ".join(f"{n} {p.base_latency_s * 1e3:.4f} ms"
+                      for n, p in sched.plans.items())
+          + f"; chose {chosen}; 32 single-window requests through it p50 "
+          f"{statistics.median(times):.4f} ms (launches "
+          f"{dict((k, v) for k, v in served.items() if v)}), against "
+          f"sequential max abs err {err:.3e} at {tol}; {CARD['line']}")
+
+    # --- P4. checkpoints of the trainer ----------------------------------
+    ckdir = REPO / "build" / "p4_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    reset_counts(*counted)
+    t0 = time.perf_counter()
+    report = train_lm.main([*train_args, "--device", device.type,
+                            "--steps", "4", "--ckpt-every", "2",
+                            "--ckpt-dir", str(ckdir), "--log-every", "1"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trained = counts()
+    tcfg = train_lm.get_arch(train_args[1] + (
+        "-reduced" if "--reduced" in train_args else ""))
+    n_attn = sum(tcfg.layer_kind(i) == "attn" for i in range(tcfg.n_layers))
+    check(trained == only(flash_prefill_traj=2 * n_attn * 4,
+                          flash_prefill_bwd=n_attn * 4),
+          f"P4: 4 training steps launched {trained}")
+    files = sorted(f.name for f in ckdir.iterdir())
+    check(files == ["ckpt_00000002.json", "ckpt_00000002.npz",
+                    "ckpt_00000004.json", "ckpt_00000004.npz"],
+          f"P4: the checkpoint directory holds {files}")
+    params = tree_map(lambda t: t.detach(), report.pop("params"))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+
+    def bits(t: torch.Tensor) -> torch.Tensor:
+        width = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}[t.element_size()]
+        return t.view(width)
+
+    held = []
+    for where in (device, torch.device("cpu")):
+        template = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                  device=where), params)
+        t0 = time.perf_counter()
+        got = ckpt.restore(str(ckdir), template)
+        restore_s = time.perf_counter() - t0
+        pairs = list(zip(tree_leaves(got), tree_leaves(params)))
+        check(len(pairs) == len(tree_leaves(params)) and all(
+            g.device.type == where.type and g.dtype == p.dtype
+            and torch.equal(bits(g.cpu()), bits(p.cpu())) for g, p in pairs),
+            f"P4: the checkpoint restored onto {where} is not bit-equal to "
+            "the trained parameters")
+        held.append(f"{where.type} in {restore_s:.1f} s")
+        del got, template
+    shutil.rmtree(ckdir, ignore_errors=True)
+    print(f"[P4] launch.train.main({' '.join(train_args)} --steps 4 "
+          f"--ckpt-every 2): {tcfg.name} ({tcfg.n_layers} x {tcfg.d_model}, "
+          f"{tcfg.dtype}, {n_bytes / 1e9:.3f} GB of parameters) in "
+          f"{train_s:.1f} s, launches "
+          f"{dict((k, v) for k, v in trained.items() if v)}; wrote {files}; "
+          f"step 4 restored bit-equal to the trained parameters onto "
+          f"{' and '.join(held)}; {CARD['line']}")
+    launches = {name: launched[name] + trained[name] for name in launched}
+    return {"launches": launches, "errs": errs}
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     if not torch.cuda.is_available():
@@ -4181,6 +4338,7 @@ def main() -> None:
         sys.exit(1)
     sys.path.insert(0, str(src))
 
+    from repro_torch.analysis import BF16_FLOP_PER_S, bound
     from repro_torch.configs.mobirnn_lstm import LSTMConfig
     from repro_torch.core import factorization, lstm, plans
     from repro_torch.kernels import _build
@@ -5906,6 +6064,11 @@ def main() -> None:
         for entry in kernels:
             if entry["name"] == name:
                 entry["launches"] += n
+    half = profiler_slice(device, counted, counts, only)
+    for entry in kernels:
+        entry["launches"] += half["launches"].get(entry["name"], 0)
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   half["errs"].get(entry["name"], 0.0))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,6 @@ set.
 """
 import argparse
 import collections
-import json
 import time
 
 import numpy as np
@@ -131,10 +130,7 @@ def main() -> None:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args()
     device = resolve_device(args.device)
-    sink = None
-    if args.trace:
-        sink = trace_lib.ListSink()
-        trace_lib.set_tracer(trace_lib.Tracer(sink))
+    tracer = trace_lib.configure(args.trace) if args.trace else None
 
     cfg = get_arch("qwen2-0.5b").reduced()
     model = registry.build(cfg)
@@ -187,11 +183,9 @@ def main() -> None:
               + ("a replayed CUDA graph" if slot.ticks["decode/base"].graph
                  is not None else "eager"))
         print("resident pool:", slot.pool.stats)
-    if sink is not None:
-        with open(args.trace, "w") as fh:
-            for rec in sink.records:
-                fh.write(json.dumps(rec, default=float) + "\n")
-        print(f"wrote {len(sink.records)} trace records to {args.trace}")
+    if tracer is not None:
+        tracer.close()
+        print(f"wrote the trace to {args.trace}")
 
 
 if __name__ == "__main__":

@@ -37,9 +37,11 @@ Families registered here:
   with a ``plan/dispatch fallback=`` event and a CUDA call raises).
   Dtypes float32 and bfloat16.  Viability is ``mamba_viability``.
 
-``profile_hook`` is None for all three: the JAX hooks price each candidate
-tiling with a TPU roofline (``analysis.*_stream_costs``), which says
-nothing about an H100; they wait for the profiler slice.
+Each family also registers a ``profile_hook``: the measured profiler's
+sweep (obs/profile.py) over the port's own tiling coordinates, coarse to
+fine in the JAX package's order, every point admitted by the kernel's
+shared-memory table against ``factorization.H100_SMEM_PER_BLOCK`` and
+priced by ``analysis.*_stream_costs`` at the H100's rates.
 """
 from __future__ import annotations
 
@@ -75,6 +77,36 @@ class PlanSpec(NamedTuple):
     train_launches: int | None = None
 
 
+class ProfileCandidate(NamedTuple):
+    """One measurable point on a family's viable tiling surface — what
+    ``Family.profile_hook`` yields and obs/profile.py times.
+
+    ``fn`` is a ready-to-call callable over ``args`` (it launches the hand
+    kernel for tensors on the card, the plain version for tensors on the
+    CPU); ``point`` holds the JSON-able tiling coordinates; ``model_s`` is
+    the analytic roofline the model-vs-measured report divides against;
+    ``plain`` is the kernel's plain version over the same ``args``, which
+    the card's output is held to."""
+    family: str
+    plan: str
+    point: dict
+    fn: Callable
+    args: tuple
+    model_s: float | None = None
+    plain: Callable | None = None
+
+
+def _model_s(costs: dict) -> float:
+    return max(costs["t_compute"], costs["t_memory"])
+
+
+def _seeded(seed: int, device, *shape, transform=None) -> torch.Tensor:
+    """A normal draw of ``shape`` from a CPU generator of ``seed`` (the
+    same numbers on every device), moved to ``device``."""
+    t = torch.randn(*shape, generator=torch.Generator().manual_seed(seed))
+    return (t if transform is None else transform(t)).to(device)
+
+
 class Case(NamedTuple):
     """One sweep shape.  ``heavy`` cases are the slow ones of the value
     sweep; the gradient sweep also marks ``heavy_grad`` (and every
@@ -102,7 +134,8 @@ class Family:
     #: family-specific keyword signature; returns the Fig 7 ``viable=``
     #: predicate (plan name -> bool) from the shared-memory budget table
     viability: Callable[..., Callable[[str], bool]]
-    #: measured-profiler hook; None: the family has none yet
+    #: measured-profiler hook: keyword shapes, ``smem_budget``,
+    #: ``max_points`` and ``device`` -> list of ``ProfileCandidate``
     profile_hook: Callable[..., list] | None = None
 
     def comparable_plans(self) -> list[str]:
@@ -260,6 +293,63 @@ def _lstm_viability(*args, **kwargs):
     return lstm.plan_viability(*args, **kwargs)
 
 
+def _lstm_profile_candidates(*, smem_budget: int | None = None,
+                             max_points: int = 4, batch: int = 4,
+                             seq_len: int = 48, device="cuda"
+                             ) -> list[ProfileCandidate]:
+    """Measured-profiler candidates: ``fused_seq``'s kernel
+    (``kernels/lstm_seq.lstm_seq``) at the paper's 2 x 32 layer shape over
+    the ``(block_b, time_chunk)`` surface — batch tiles on the halving walk
+    from the tile the budget table takes, each at whole-T residency (K2)
+    and then streamed chunks of T/2 and T/4 (K4), admitted where the
+    working set fits ``smem_budget`` (a thread block's shared memory by
+    default) and the layers' warps fit a block.  ``model_s`` is the
+    roofline of ``analysis.lstm_seq_stream_costs``."""
+    import functools
+
+    from repro_torch import analysis
+    from repro_torch.configs.mobirnn_lstm import LSTMConfig
+    from repro_torch.core import factorization, lstm as lstm_lib, tiling
+    from repro_torch.kernels import lstm_seq as seq_lib
+
+    cfg = LSTMConfig()
+    budget = factorization.H100_SMEM_PER_BLOCK if smem_budget is None \
+        else smem_budget
+    p = lstm_lib.init_params(torch.Generator().manual_seed(0), cfg)
+    w, b, p_width = seq_lib.stack_params(p["layers"], cfg.hidden)
+    L, H = cfg.n_layers, cfg.hidden
+    x = seq_lib.pad_input(torch.randn(
+        batch, seq_len, cfg.input_dim,
+        generator=torch.Generator().manual_seed(1)), p_width)
+    args = tuple(t.to(device) for t in (w, b, x))
+
+    table = seq_lib.choose_batch_block(batch, seq_len, L, p_width, H,
+                                       smem_budget=budget)
+    time_chunks: list[int | None] = [None]
+    for t in (seq_len // 2, seq_len // 4):
+        if 1 <= t < seq_len and t not in time_chunks:
+            time_chunks.append(t)
+    out: list[ProfileCandidate] = []
+    for bm in tiling.halving(table.block_b) if table else ():
+        home = seq_lib.weight_home(L, p_width, H, bm)
+        for tc in time_chunks:
+            if len(out) >= max_points:
+                return out
+            ws = seq_lib.working_set_bytes(seq_len, L, p_width, H, bm,
+                                           time_chunk=tc)
+            if ws > budget or seq_lib.fwd_threads(L, H) > \
+                    seq_lib.fwd_max_threads(bm, home):
+                continue
+            costs = analysis.lstm_seq_stream_costs(
+                seq_len, L, p_width, H, batch, bm, tc)
+            out.append(ProfileCandidate(
+                "lstm", "fused_seq", {"block_b": bm, "time_chunk": tc},
+                functools.partial(seq_lib.lstm_seq, block_b=bm,
+                                  time_chunk=tc),
+                args, _model_s(costs), seq_lib.lstm_seq_plain))
+    return out
+
+
 def _build_lstm_family() -> Family:
     from repro_torch.core import lstm
 
@@ -277,7 +367,8 @@ def _build_lstm_family() -> Family:
     return Family(
         name="lstm", oracle="sequential", plans=specs, cases=_LSTM_CASES,
         dtypes=("float32", "bfloat16"), make_inputs=_lstm_make_inputs,
-        apply=_lstm_apply, grads=_lstm_grads, viability=_lstm_viability)
+        apply=_lstm_apply, grads=_lstm_grads, viability=_lstm_viability,
+        profile_hook=_lstm_profile_candidates)
 
 
 register_family(_build_lstm_family())
@@ -461,6 +552,56 @@ def rwkv_viability(seq_len: int, dk: int, dv: int, *, chunk: int = 32,
     return viable
 
 
+def _rwkv_profile_candidates(*, smem_budget: int | None = None,
+                             max_points: int = 4, seq_len: int = 64,
+                             n_bh: int = 4, dk: int = 8, dv: int = 8,
+                             target: int = 16, device="cuda"
+                             ) -> list[ProfileCandidate]:
+    """Measured-profiler candidates for the rwkv6 family over the
+    ``(bh_tile, chunk)`` surface of ``chunked_scan``'s kernel
+    (``kernels/wkv6.wkv6``, K6): for each bh tile on the halving walk from
+    the table's (one row a block), chunks from ``target`` halving, the
+    points shared evenly over the tiles, admitted where the working set
+    fits ``smem_budget``.  ``model_s`` comes from
+    ``analysis.wkv6_stream_costs``."""
+    import functools
+
+    from repro_torch import analysis
+    from repro_torch.core import factorization, tiling
+    from repro_torch.kernels import wkv6 as wkv6_lib
+
+    budget = factorization.H100_SMEM_PER_BLOCK if smem_budget is None \
+        else smem_budget
+    table = wkv6_lib.choose_blocks(seq_len, dk, dv, target=target,
+                                   smem_budget=budget)
+    args = (_seeded(20, device, n_bh, seq_len, dk),
+            _seeded(21, device, n_bh, seq_len, dk),
+            _seeded(22, device, n_bh, seq_len, dv),
+            _seeded(23, device, n_bh, seq_len, dk,
+                    transform=lambda t: -torch.exp(t)),
+            _seeded(24, device, n_bh, dk),
+            _seeded(25, device, n_bh, dk, dv, transform=lambda t: t * 0.3))
+    out: list[ProfileCandidate] = []
+    tiles = list(tiling.halving(table.bh_tile)) if table else []
+    per_tile = max(1, max_points // max(1, len(tiles)))   # over both axes
+    for bt in tiles:
+        taken = 0
+        for c in tiling.halving(max(1, min(target, seq_len))):
+            if len(out) >= max_points or taken >= per_tile:
+                break
+            if wkv6_lib.working_set_bytes(seq_len, dk, dv, c) > budget:
+                continue
+            costs = analysis.wkv6_stream_costs(seq_len, n_bh, dk, dv, c,
+                                               bh_tile=bt)
+            out.append(ProfileCandidate(
+                "rwkv6", "chunked_scan", {"chunk": c, "bh_tile": bt},
+                functools.partial(wkv6_lib.wkv6, chunk=c, bh_tile=bt),
+                args, _model_s(costs),
+                functools.partial(wkv6_lib.wkv6_plain, chunk=c)))
+            taken += 1
+    return out
+
+
 def _build_rwkv_family() -> Family:
     specs = {
         "stepwise": PlanSpec("stepwise", _rwkv_stepwise, _RWKV_EXACT),
@@ -473,7 +614,8 @@ def _build_rwkv_family() -> Family:
     return Family(
         name="rwkv6", oracle="stepwise", plans=specs, cases=_RWKV_CASES,
         dtypes=("float32", "bfloat16"), make_inputs=_rwkv_make_inputs,
-        apply=_rwkv_apply, grads=_rwkv_grads, viability=rwkv_viability)
+        apply=_rwkv_apply, grads=_rwkv_grads, viability=rwkv_viability,
+        profile_hook=_rwkv_profile_candidates)
 
 
 register_family(_build_rwkv_family())
@@ -636,6 +778,62 @@ def mamba_viability(seq_len: int, d_inner: int, d_state: int, *,
     return viable
 
 
+def _mamba_profile_candidates(*, smem_budget: int | None = None,
+                              max_points: int = 4, batch: int = 4,
+                              seq_len: int = 64, d_inner: int = 16,
+                              d_state: int = 8, device="cuda"
+                              ) -> list[ProfileCandidate]:
+    """Measured-profiler candidates for the mamba family over the
+    ``(di_tile, chunk)`` surface of ``fused_scan``'s kernel
+    (``kernels/mamba_scan.mamba_scan``, K7) — the port's tile is of
+    d_inner channels (a block runs its batch rows one after another, and
+    the table keeps one a block): for each tile on the halving walk from
+    the table's down to one warp, chunks from whole T halving, the points
+    shared evenly over the tiles, admitted where the working set fits
+    ``smem_budget``.  ``model_s`` comes from
+    ``analysis.mamba_scan_stream_costs``."""
+    import functools
+
+    from repro_torch import analysis
+    from repro_torch.core import factorization, tiling
+    from repro_torch.kernels import mamba_scan as ms_lib
+
+    budget = factorization.H100_SMEM_PER_BLOCK if smem_budget is None \
+        else smem_budget
+    table = ms_lib.choose_blocks(seq_len, d_inner, d_state,
+                                 smem_budget=budget)
+    softplus = torch.nn.functional.softplus
+    args = (_seeded(30, device, batch, seq_len, d_inner),
+            _seeded(31, device, batch, seq_len, d_inner, transform=softplus),
+            _seeded(32, device, batch, seq_len, d_state),
+            _seeded(33, device, batch, seq_len, d_state),
+            _seeded(34, device, d_inner, d_state,
+                    transform=lambda t: -torch.exp(t)),
+            _seeded(35, device, batch, d_inner, d_state,
+                    transform=lambda t: t * 0.3))
+    out: list[ProfileCandidate] = []
+    tiles = list(tiling.halving(table.di_tile, floor=factorization.WARP)) \
+        if table else []
+    per_tile = max(1, max_points // max(1, len(tiles)))   # over both axes
+    for tile in tiles:
+        taken = 0
+        for cn in tiling.halving(seq_len):
+            if len(out) >= max_points or taken >= per_tile:
+                break
+            if ms_lib.working_set_bytes(seq_len, d_state, cn, tile) > budget:
+                continue
+            costs = analysis.mamba_scan_stream_costs(
+                seq_len, batch, d_inner, d_state, 1, cn, di_tile=tile)
+            out.append(ProfileCandidate(
+                "mamba", "fused_scan", {"di_tile": tile, "chunk": cn},
+                functools.partial(ms_lib.mamba_scan, chunk=cn, block_b=1,
+                                  di_tile=tile),
+                args, _model_s(costs),
+                functools.partial(ms_lib.mamba_scan_plain, chunk=cn)))
+            taken += 1
+    return out
+
+
 def _build_mamba_family() -> Family:
     specs = {
         "scan": PlanSpec("scan", _mamba_scan, _MAMBA_EXACT),
@@ -645,7 +843,8 @@ def _build_mamba_family() -> Family:
     return Family(
         name="mamba", oracle="scan", plans=specs, cases=_MAMBA_CASES,
         dtypes=("float32", "bfloat16"), make_inputs=_mamba_make_inputs,
-        apply=_mamba_apply, grads=_mamba_grads, viability=mamba_viability)
+        apply=_mamba_apply, grads=_mamba_grads, viability=mamba_viability,
+        profile_hook=_mamba_profile_candidates)
 
 
 register_family(_build_mamba_family())

@@ -17,7 +17,9 @@ shared-memory budget table in with
 ``Scheduler(viable=core/lstm.plan_viability(...))`` so that ``fused_seq``
 is never calibrated or chosen where it would run ``fused_cell`` instead.
 Timing waits for the card: a plan whose output is on CUDA is followed by
-``torch.cuda.synchronize()`` inside the timed region.
+``torch.cuda.synchronize()`` inside the timed region.  ``calibrate(profile=)``
+seeds a plan from a measured device profile (obs/profile.py) instead of
+timing it.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import collections
 import dataclasses
 import os
 import time
-from typing import Callable, Protocol
+from typing import Callable, Mapping, Protocol
 
 import torch
 
@@ -188,12 +190,25 @@ class Scheduler:
 
     def calibrate(self, *args, repeats: int = 3,
                   viable: Callable[[str], bool] | None = None,
+                  profile: Mapping[str, float] | None = None,
                   **kwargs) -> None:
-        """Seed base latencies for each viable plan: ONE untimed warmup call
-        (first-call costs such as building a kernel), then best of
-        ``repeats`` timed calls.  Non-viable plans keep an infinite base."""
+        """Seed base latencies for each viable plan; non-viable plans keep
+        an infinite base.
+
+        A plan named in ``profile`` (plan name -> measured seconds, e.g.
+        ``obs/profile.DeviceProfile.best_latencies(...)``) is seeded from
+        the persisted measurement WITHOUT running.  Every other viable plan
+        is timed here: ONE untimed warmup call (first-call costs such as
+        building a kernel), then best of ``repeats`` timed calls."""
         tracer = trace_lib.get_tracer()
         for plan in self._viable_plans(viable).values():
+            if profile is not None and plan.name in profile:
+                plan.base_latency_s = float(profile[plan.name])
+                if tracer.enabled:
+                    tracer.event("sched/calibrate", plan=plan.name,
+                                 latency_s=plan.base_latency_s,
+                                 source="profile")
+                continue
             self._blocked_call(plan, args, kwargs)          # untimed warmup
             best = float("inf")
             for _ in range(repeats):

@@ -11,7 +11,9 @@ order are the JAX package's ``core/tiling.py`` unchanged:
   only under ``mode="bwd"`` (the training working set);
 * ``streamed_rows``: whole-axis residency vs ``STREAM_SLOTS``
   double-buffered chunk windows; ``bwd_window_rows``: the reverse sweep's
-  trajectory window, one overlap row longer;
+  trajectory window, one overlap row longer; ``ceil_chunks``,
+  ``streamed_axis_rows`` and ``pad_tiles``: the traffic side, which the
+  stream-cost rooflines of ``analysis.py`` price;
 * ``joint_search``: whole-T residency at the coarsest batch tile first, then
   streamed time chunks from coarse to fine, then smaller batch tiles.
 """
@@ -72,6 +74,29 @@ def bwd_window_rows(seq_len: int, time_chunk: int) -> int:
     return tc + 1 if seq_len > tc else tc
 
 
+def ceil_chunks(seq_len: int, time_chunk: int) -> int:
+    """Grid extent of a streamed sequence axis: ceil(T / tc)."""
+    tc = max(1, min(time_chunk, seq_len))
+    return -(-seq_len // tc)
+
+
+def streamed_axis_rows(seq_len: int, time_chunk: int | None) -> int:
+    """Total rows a streamed axis moves through device memory — the
+    traffic-side twin of ``streamed_rows``: every chunk window is a full
+    ``tc`` rows, so a non-dividing tail re-reads or re-moves up to
+    ``tc - 1`` rows; pricing ``nc * tc`` keeps the analysis rooflines
+    honest about that."""
+    if time_chunk is None:
+        return seq_len
+    tc = max(1, min(time_chunk, seq_len))
+    return ceil_chunks(seq_len, tc) * tc
+
+
+def pad_tiles(n: int, tile: int) -> int:
+    """Length of an axis padded up to the tile grid."""
+    return ceil_chunks(n, tile) * tile
+
+
 @dataclasses.dataclass
 class WorkingSet:
     """Named-term working set of ONE thread block — the algebra the budget
@@ -96,14 +121,14 @@ class WorkingSet:
         return sum(self.terms.values())
 
 
-def halving(start: int) -> Iterator[int]:
-    """Coarse-to-fine halving walk: start, start//2, ..., 1."""
-    c = max(1, start)
+def halving(start: int, floor: int = 1) -> Iterator[int]:
+    """Coarse-to-fine halving walk: start, start//2, ..., floor."""
+    c = max(floor, start)
     while True:
         yield c
-        if c <= 1:
+        if c <= floor:
             return
-        c = max(c // 2, 1)
+        c = max(c // 2, floor)
 
 
 def joint_search(batch: int, seq_len: int,

@@ -1,12 +1,20 @@
 """The hand-written CUDA kernels and their wrappers.
 
 Each wrapper counts its kernel's launches in its ``launches`` attribute;
-``launch_counts`` reads every such counter of the package.
+``launch_counts`` reads every such counter of the package.  ``CALLS``
+counts, by wrapper name, every call that ran the kernel or, for tensors on
+the CPU, its plain version in the kernel's place: the count a launch count
+rests on, which ``analysis.count_launches`` reads where nothing launches.
 """
 from __future__ import annotations
 
+import collections
 import importlib
 import pkgutil
+
+#: calls of each wrapper (by its name) that ran its kernel, or its plain
+#: version for CPU tensors; never reset, read as deltas
+CALLS: collections.Counter[str] = collections.Counter()
 
 
 def launch_counts() -> dict[str, int]:

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import _build
+from repro_torch.kernels import CALLS, _build
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -261,6 +261,7 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     g = Hq // Hkv
     scale = dk ** -0.5 if scale is None else float(scale)
     blocks = choose_blocks(S, B, Hkv, g, dk, q.dtype, block_s=block_s)
+    CALLS["decode_attn"] += 1
     if q.device.type == "cpu":
         bs = blocks.block_s if blocks else block_s or min(BLOCK_S, S)
         return decode_attn_plain(q, k_cache, v_cache, lengths, scale=scale,

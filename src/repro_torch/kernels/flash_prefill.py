@@ -81,7 +81,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import _build
+from repro_torch.kernels import CALLS, _build
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -629,6 +629,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = q.shape[3] ** -0.5 if scale is None else float(scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashPrefillFn.apply(q, k, v, int(window), scale, qb, kb)
+    CALLS["flash_prefill"] += 1
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, window=window, scale=scale,
                                    q_block=qb, k_block=kb)
@@ -652,6 +653,7 @@ def flash_prefill_traj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _validate(q, k, v)
     qb, kb = _tiles(q, q_block, k_block)
     scale = q.shape[3] ** -0.5 if scale is None else float(scale)
+    CALLS["flash_prefill_traj"] += 1
     if q.device.type == "cpu":
         return flash_prefill_traj_plain(q, k, v, window=window, scale=scale,
                                         q_block=qb, k_block=kb)
@@ -702,6 +704,7 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, Hq, dh = q.shape
     Hkv = k.shape[2]
     scale = dh ** -0.5 if scale is None else float(scale)
+    CALLS["flash_prefill_bwd"] += 1
     if q.device.type == "cpu":
         return flash_prefill_bwd_plain(q, k, v, o, lse, dout, window=window,
                                        scale=scale)

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import CALLS, _build, ref
 
 _NAME = "lstm_cell"
 #: K rows a slice of threads loads before its FMAs (csrc kUnroll)
@@ -183,6 +183,7 @@ def _forward(w, b, x, c, h, block_b: int | None, block_h: int | None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The cell step outside autograd: the plain version on the CPU, one
     kernel launch on the card."""
+    CALLS["lstm_cell"] += 1
     if x.device.type == "cpu":
         return lstm_cell_plain(w, b, x, c, h)
     if x.stride(-1) != 1 or h.stride(-1) != 1:

@@ -74,7 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import CALLS, _build, ref
 from repro_torch.obs import trace as trace_lib
 
 _NAME = "lstm_seq"
@@ -651,6 +651,7 @@ def _forward(w, b, x, block_b: int, time_chunk: int | None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain forward at a resolved tiling: its plain version on the
     CPU, one kernel launch on the card."""
+    CALLS["lstm_seq"] += 1
     if x.device.type == "cpu":
         return lstm_seq_plain(w, b, x)
     _no_autograd("the lstm_seq kernel", w, b, x)
@@ -676,6 +677,7 @@ def lstm_seq_traj(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     B, T, _ = x.shape
     block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
                                     **_bytes(w, x))
+    CALLS["lstm_seq_traj"] += 1
     if x.device.type == "cpu":
         return ref.lstm_seq_traj(w, b, x)
     _no_autograd("lstm_seq_traj", w, b, x)
@@ -789,6 +791,7 @@ def lstm_seq_q8_traj(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
     B, T, _ = x.shape
     block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
                                     **_bytes(wq, x))
+    CALLS["lstm_seq_q8_traj"] += 1
     if x.device.type == "cpu":
         return lstm_seq_q8_traj_plain(wq, scales, b, x)
     _no_autograd("lstm_seq_q8_traj", scales, b, x)
@@ -866,6 +869,7 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
                                     **q8_bytes)
     wq, scales = ref.quantize_q8(w)
+    CALLS["lstm_seq_q8"] += 1
     if x.device.type == "cpu":
         return lstm_seq_q8_plain(wq, scales, b, x)
     out = _launch(wq, b, x, block_b, time_chunk, traj=False, scales=scales)

@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import factorization
-from repro_torch.kernels import _build
+from repro_torch.kernels import CALLS, _build
 from repro_torch.kernels import lstm_seq as seq_lib
 
 _NAME = "lstm_seq_bwd"
@@ -308,6 +308,7 @@ def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     if scales is not None:
         return lstm_seq_bwd_q8(w, scales, b, x, c_traj, h_traj, dc, dh,
                                block_b=block_b, time_chunk=time_chunk)
+    CALLS["lstm_seq_bwd"] += 1
     out = _run(w, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, None)
     if x.device.type == "cuda":
         lstm_seq_bwd.launches += 1
@@ -327,6 +328,7 @@ def lstm_seq_bwd_q8(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
     ``choose_batch_block(mode="bwd", quantized=True)``.  dw and db are the
     straight-through gradients of the dequantized stack, for the f32
     master weights."""
+    CALLS["lstm_seq_bwd_q8"] += 1
     out = _run(wq, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, scales)
     if x.device.type == "cuda":
         lstm_seq_bwd_q8.launches += 1

@@ -83,7 +83,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import _build
+from repro_torch.kernels import CALLS, _build
 from repro_torch.obs import trace as trace_lib
 
 F32 = torch.float32
@@ -415,13 +415,19 @@ def _card_smem(what: str, mode: str, x, ds: int, chunk: int, di_tile: int,
     return smem
 
 
+def default_di_tile(d_inner: int, mode: str = "fwd") -> int:
+    """The tile a launch of the kernel of ``mode`` takes when none is
+    given: the widest one d_inner needs."""
+    return _tiles(d_inner)[0] if mode == "fwd" else _bwd_tile(d_inner)
+
+
 def _resolve(x, chunk: int, block_b: int, di_tile: int | None,
              mode: str = "fwd") -> tuple[int, int, int]:
-    """The clamps: chunk to [1, T], block_b to [1, B], di_tile (None: the
-    widest tile d_inner needs for the kernel of ``mode``)."""
+    """The clamps: chunk to [1, T], block_b to [1, B], di_tile (None:
+    ``default_di_tile``)."""
     B, T, di = x.shape
     if di_tile is None:
-        di_tile = _tiles(di)[0] if mode == "fwd" else _bwd_tile(di)
+        di_tile = default_di_tile(di, mode)
     return max(1, min(chunk, T)), max(1, min(block_b, B)), di_tile
 
 
@@ -469,6 +475,7 @@ def mamba_scan_traj(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     ``mamba_scan_traj_plain``."""
     _validate(x, dt, b, c, a, h0)
     chunk, block_b, di_tile = _resolve(x, chunk, block_b, di_tile)
+    CALLS["mamba_scan_traj"] += 1
     if x.device.type == "cpu":
         return mamba_scan_traj_plain(x, dt, b, c, a, h0, chunk)
     outs = _launch_fwd(x, dt, b, c, a, h0, chunk, block_b, di_tile,
@@ -501,6 +508,7 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                          f"dy {tuple(dy.shape)}")
     if any(t.device != x.device for t in (h_traj, dy)):
         raise ValueError("mamba_scan_bwd: every tensor must be on x's device")
+    CALLS["mamba_scan_bwd"] += 1
     if x.device.type == "cpu":
         return mamba_scan_bwd_plain(x, dt, b, c, a, h_traj, dy, dh_fin,
                                     chunk)
@@ -630,12 +638,14 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
         else:
             y, h_out = _MambaFn.apply(x, dt, b, c, a, h0, chunk, block_b,
                                       di_tile)
-    elif x.device.type == "cpu":
-        y, h_out = mamba_scan_plain(x, dt, b, c, a, h0, chunk)
     else:
-        y, h_out = _launch_fwd(x, dt, b, c, a, h0, chunk, block_b, di_tile,
-                               traj=False)
-        mamba_scan.launches += 1
+        CALLS["mamba_scan"] += 1
+        if x.device.type == "cpu":
+            y, h_out = mamba_scan_plain(x, dt, b, c, a, h0, chunk)
+        else:
+            y, h_out = _launch_fwd(x, dt, b, c, a, h0, chunk, block_b,
+                                   di_tile, traj=False)
+            mamba_scan.launches += 1
     return y, h_out
 
 

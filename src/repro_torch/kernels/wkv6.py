@@ -80,7 +80,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import CALLS, _build, ref
 from repro_torch.obs import trace as trace_lib
 
 F32 = torch.float32
@@ -452,6 +452,7 @@ def wkv6_traj(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     BH, T, _ = r.shape
     chunk = max(1, min(chunk, T))
     bh_tile = max(1, min(bh_tile, BH))
+    CALLS["wkv6_traj"] += 1
     if r.device.type == "cpu":
         return wkv6_traj_plain(r, k, v, logw, u, state, chunk)
     outs = _launch_fwd(r, k, v, logw, u, state, chunk, bh_tile, traj=True)
@@ -486,6 +487,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(dout.shape)}, ds_fin {tuple(ds_fin.shape)}")
     if any(t.device != r.device for t in (s_traj, dout, ds_fin)):
         raise ValueError("wkv6_bwd: every tensor must be on r's device")
+    CALLS["wkv6_bwd"] += 1
     if r.device.type == "cpu":
         return wkv6_bwd_plain(r, k, v, logw, u, s_traj, s_fin, dout, ds_fin,
                               chunk)
@@ -558,6 +560,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, logw, u, state)):
         return _Wkv6Fn.apply(r, k, v, logw, u, state, chunk, bh_tile)
+    CALLS["wkv6"] += 1
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, logw, u, state, chunk)
     out, s_out = _launch_fwd(r, k, v, logw, u, state, chunk, bh_tile,

@@ -17,15 +17,18 @@ hybrid) K8t twice and the backward K8b once.  MoE layers train at the
 config's capacity factor.  It prints the JAX trainer's per-step JSON lines
 and closing ``loss a -> b`` line, and before that the median and minimum
 step time (host clock around a step, ending in the loss's copy to the
-host).
+host).  With ``--ckpt-dir`` it saves the parameters every
+``--ckpt-every`` steps as the JAX trainer does (``checkpoint/ckpt.py``:
+``ckpt_%08d.npz`` and ``.json`` with the arch's name), files either
+package's ``restore`` reads.
 
   PYTHONPATH=src python -m repro_torch.launch.train [--arch qwen2-0.5b]
       [--reduced] [--device cuda|cpu] [--steps N] [--batch B] [--seq S]
-      [--lr LR] [--log-every N] [--seed N]
+      [--lr LR] [--log-every N] [--seed N] [--ckpt-dir D]
+      [--ckpt-every N]
 
 The default device is ``cuda``; without a card that raises rather than
-running on the CPU.  ``--ckpt-dir`` raises: checkpointing comes with the
-distributed slice (ROADMAP Queue 1, "Distributed, launch and checkpoint").
+running on the CPU.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import time
 import torch
 
 from repro_torch import steps as steps_lib
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.lm import SyntheticLM
@@ -54,16 +58,12 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--ckpt-dir", default=None,
-                    help="not ported yet: raises (ROADMAP Queue 1, "
-                         "\"Distributed, launch and checkpoint\")")
+                    help="save the parameters here every --ckpt-every steps")
+    ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise NotImplementedError("--ckpt-dir: checkpointing comes with the "
-                                  "distributed slice (ROADMAP Queue 1, "
-                                  "\"Distributed, launch and checkpoint\")")
     cfg = get_arch(args.arch + ("-reduced" if args.reduced else ""))
     if cfg.n_codebooks or cfg.n_vis_tokens:
         ap.error(f"--arch {args.arch}: the synthetic LM pipeline gives text "
@@ -71,16 +71,18 @@ def main(argv: list[str] | None = None) -> dict:
                  "steps.train_step on registry.make_batch batches")
     return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                  lr=args.lr, seed=args.seed, device=args.device,
-                 log_every=args.log_every)
+                 log_every=args.log_every, ckpt_dir=args.ckpt_dir,
+                 ckpt_every=args.ckpt_every)
 
 
 def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
           seq: int = 64, lr: float = 3e-3, seed: int = 0,
-          device: str = "cuda", log_every: int = 10) -> dict:
+          device: str = "cuda", log_every: int = 10,
+          ckpt_dir: str | None = None, ckpt_every: int = 100) -> dict:
     """Train ``cfg`` for ``steps`` AdamW steps of ``batch`` x ``seq``
     tokens and print the report; ``main``'s flags as keywords.  Returns
     the logged history, every loss, ``grad_norm`` and step time, the
-    parameter count and the tokens of a step."""
+    parameter count, the tokens of a step and the trained ``params``."""
     device = resolve_device(device)
     model = registry.build(cfg)
     params = model.init(torch.Generator(device=device).manual_seed(seed),
@@ -113,9 +115,12 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
             history.append(m)
             print(json.dumps({k: (round(v, 4) if isinstance(v, float)
                                   else v) for k, v in m.items()}))
+        if ckpt_dir and step % ckpt_every == 0:
+            ckpt.save(ckpt_dir, step, params, {"arch": cfg.name})
     report = {"history": history, "losses": losses,
               "grad_norms": grad_norms, "step_ms": step_ms,
-              "n_params": n_params, "tokens_per_step": batch * seq}
+              "n_params": n_params, "tokens_per_step": batch * seq,
+              "params": params}
     if not history:                      # --steps 0: nothing ran, no summary
         print("no training steps run")
         return report

@@ -14,11 +14,29 @@ and pays one branch.  Span records are emitted at span exit (a child's
 record precedes its parent's) carrying ``ts`` (entry time) and ``dur_s``.
 Event names used by the port: ``plan/dispatch`` (with ``fallback=`` when a
 fused plan reroutes), ``sched/calibrate``, ``sched/choose``, ``sched/run``,
-``sched/degrade`` and ``sched/recover``.
+``sched/degrade``, ``sched/recover`` and ``profile/point``.
+``JsonlSink`` writes one record a line; ``read_jsonl`` (here or the JAX
+package's) reads them back as the same records.
 """
 from __future__ import annotations
 
+import json
 import time
+from typing import Any, TextIO
+
+
+def _jsonable(obj: Any) -> Any:
+    """Fallback encoder: numpy scalars -> python, array-likes -> lists,
+    anything else -> repr."""
+    try:
+        return obj.item()          # numpy scalar / 0-d array or tensor
+    except (ValueError, RuntimeError):   # more than one value: keep them
+        try:
+            return obj.tolist()
+        except Exception:
+            return repr(obj)
+    except AttributeError:
+        return repr(obj)
 
 
 class NullSink:
@@ -26,6 +44,9 @@ class NullSink:
     enabled = False
 
     def emit(self, record: dict) -> None:  # pragma: no cover - guarded off
+        pass
+
+    def close(self) -> None:
         pass
 
 
@@ -38,6 +59,46 @@ class ListSink:
 
     def emit(self, record: dict) -> None:
         self.records.append(record)
+
+    def close(self) -> None:
+        pass
+
+
+class JsonlSink:
+    """One JSON object per line, append-as-you-go (a crash keeps the
+    prefix).  Non-finite floats are written as ``null`` so the file stays
+    parseable by strict readers."""
+    enabled = True
+
+    def __init__(self, path: str):
+        self.path = str(path)
+        self._fh: TextIO = open(self.path, "w", encoding="utf-8")
+
+    def emit(self, record: dict) -> None:
+        self._fh.write(json.dumps(_sanitize(record), default=_jsonable))
+        self._fh.write("\n")
+
+    def close(self) -> None:
+        if not self._fh.closed:
+            self._fh.flush()
+            self._fh.close()
+
+
+def _sanitize(obj: Any) -> Any:
+    """Replace non-finite floats with None, recursively (strict JSON has
+    no Infinity/NaN literals; plan predictions can legitimately be inf)."""
+    if isinstance(obj, float):
+        return obj if obj == obj and obj not in (float("inf"), float("-inf")) else None
+    if isinstance(obj, dict):
+        return {k: _sanitize(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_sanitize(v) for v in obj]
+    return obj
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path, "r", encoding="utf-8") as fh:
+        return [json.loads(line) for line in fh if line.strip()]
 
 
 class _NullSpan:
@@ -128,9 +189,14 @@ class Tracer:
             return NULL_SPAN
         return Span(self, name, attrs)
 
+    def close(self) -> None:
+        self.sink.close()
+        self.enabled = False
+        self.sink = NullSink()
+
 
 #: process-global tracer; NullSink by default so instrumented hot paths
-#: pay one ``enabled`` branch until someone calls set_tracer()
+#: pay one ``enabled`` branch until someone calls configure()/set_tracer()
 _GLOBAL = Tracer()
 
 
@@ -145,3 +211,15 @@ def set_tracer(tracer: Tracer) -> Tracer:
     old = _GLOBAL
     _GLOBAL = tracer
     return old
+
+
+def configure(path: str | None = None, sink=None) -> Tracer:
+    """Install a global tracer: JSONL to ``path``, an explicit ``sink``,
+    or (neither) the disabled default."""
+    if path is not None and sink is not None:
+        raise ValueError("pass path or sink, not both")
+    if path is not None:
+        sink = JsonlSink(path)
+    tracer = Tracer(sink)
+    set_tracer(tracer)
+    return tracer

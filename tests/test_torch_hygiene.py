@@ -74,3 +74,16 @@ def test_build_directory_is_ignored_by_git():
     lines = (ROOT / ".gitignore").read_text(encoding="utf-8").splitlines()
     assert f"{_build.BUILD_DIR.name}/" in lines
     assert _build.BUILD_DIR.parent == ROOT
+
+
+@pytest.mark.parametrize("name", ["analysis.py", "obs/profile.py",
+                                  "obs/trace.py", "checkpoint/__init__.py",
+                                  "checkpoint/ckpt.py", "core/plans.py",
+                                  "core/scheduler.py", "core/tiling.py"])
+def test_the_analysis_half_is_scanned_and_stands_alone(name):
+    """The modules of the analysis and profiler half are among the files
+    the scan reads, and import neither jax nor the JAX package."""
+    path = PORT / name
+    assert path in FILES
+    assert not [n for n in _imported_modules(path)
+                if n.split(".")[0] in FORBIDDEN]

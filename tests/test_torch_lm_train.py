@@ -303,10 +303,14 @@ def test_train_main_runs_on_the_cpu(capsys):
     assert [h["step"] for h in report["history"]] == [1, 2]
 
 
-def test_train_main_raises_where_it_cannot_run():
-    with pytest.raises(NotImplementedError,
-                       match="Distributed, launch and checkpoint"):
-        train_lm.main(["--device", "cpu", "--reduced", "--ckpt-dir", "x"])
+def test_train_main_raises_where_it_cannot_run(capsys):
+    """A front the text pipeline cannot feed is refused (``--ckpt-dir``
+    now saves: tests/test_torch_ckpt.py), and ``cuda`` without a card
+    raises."""
+    with pytest.raises(SystemExit):
+        train_lm.main(["--device", "cpu", "--reduced", "--arch",
+                       "musicgen-large", "--ckpt-dir", "x"])
+    assert "synthetic LM pipeline" in capsys.readouterr().err
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             train_lm.main(["--reduced", "--steps", "1"])

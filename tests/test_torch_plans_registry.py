@@ -173,7 +173,8 @@ def test_the_rwkv6_family_has_the_jax_plans_in_order():
         list(plans.RWKV_PLANS)
     assert RWKV.oracle == JAX_RWKV.oracle == "stepwise"
     assert RWKV.dtypes == JAX_RWKV.dtypes == ("float32", "bfloat16")
-    assert RWKV.profile_hook is None
+    assert RWKV.profile_hook is plans._rwkv_profile_candidates
+    assert JAX_RWKV.profile_hook is not None   # both profile
     for name, spec in RWKV.plans.items():
         assert spec.name == name and spec.fn is plans.RWKV_PLANS[name]
 
@@ -333,7 +334,8 @@ def test_the_mamba_family_has_the_jax_plans_in_order():
         list(plans.MAMBA_PLANS) == ["scan", "fused_scan"]
     assert MAMBA.oracle == JAX_MAMBA.oracle == "scan"
     assert MAMBA.dtypes == JAX_MAMBA.dtypes == ("float32", "bfloat16")
-    assert MAMBA.profile_hook is None
+    assert MAMBA.profile_hook is plans._mamba_profile_candidates
+    assert JAX_MAMBA.profile_hook is not None   # both profile
     for name, spec in MAMBA.plans.items():
         assert spec.name == name and spec.fn is plans.MAMBA_PLANS[name]
 
