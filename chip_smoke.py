@@ -136,6 +136,24 @@ reloads it; P3 calibrates the Fig 7 scheduler's five LSTM plans from it
 chosen plan; P4 trains Qwen2-0.5B 4 steps through ``launch/train.py
 --ckpt-dir --ckpt-every 2`` and restores the checkpoint onto the card and
 the CPU bit for bit (``profiler_slice``).
+The paper's cost model (``factorization_slice``): F1 times MobiRNN's Figs
+2 and 3 on the card, one HAR window (2 x 32, T=128 x 9, B=1, f32) through
+``forward_sequential`` over the per-column cell (Fig 2b), the 10-column
+cell and the packed plain cell (Fig 2c), ``fused_cell`` and
+``fused_seq``, each held to ``sequential`` at LSTM_TOL, K1 launched
+exactly 256 times and K2 once, the host-clock medians in the paper's
+order (per-column > 10-column > packed > ``fused_cell`` >
+``fused_seq``), each beside ``core/factorization.H100``'s modelled time
+(printed, not held), the host cost a launch beside the profile's, and the
+Fig 3 to 6 model rows under the paper's profiles.  The one-device mesh
+(``mesh_slice``): D1 trains Qwen2-0.5B at full width and depth through
+``launch/train.train`` (bf16, 2 steps of 4 x 512) inside ``use_rules`` on
+the 1 x 1 host mesh and outside it (losses and ``grad_norm``s bit-equal,
+launches equal), serves it through the slot engine with its tick captured
+inside the rules and outside (tokens and launches equal), and builds
+every architecture's abstract parameter and cache trees at full width
+with their specs on the host mesh and the abstract (16, 16) mesh, with
+``torch.cuda.memory_allocated()`` unchanged.
 It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work (``repro_torch.analysis``).
@@ -4326,6 +4344,315 @@ def profiler_slice(device, counted, counts, only, shapes=P2_SHAPES,
     return {"launches": launches, "errs": errs}
 
 
+def host_ms(fn, repeats: int = 5) -> float:
+    """Median over ``repeats`` of the host clock around one call ending in
+    ``torch.cuda.synchronize()``, after a warmup call."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def figure_model_rows(fz, cfg) -> list[tuple[str, float, float]]:
+    """The JAX benchmark's Fig 3 to Fig 6 model rows (its
+    ``bench_fig3_factorization``, ``bench_fig4_speedup``,
+    ``bench_fig5_complexity`` and ``bench_fig6_multithread``) under the
+    paper's profiles of the cost model ``fz``: (row, seconds, ratio)."""
+    in_dim, out = cfg.input_dim + cfg.hidden, 4 * cfg.hidden
+    gpu_fine = fz.factorize_gate(fz.MOBILE_GPU, in_dim, out, 1)
+    cpu = fz.factorize_gate(fz.MOBILE_CPU1, in_dim, out, out)
+    best = fz.best_cols_per_unit(fz.MOBILE_GPU, in_dim, out)
+    gpu = fz.factorize_gate(fz.MOBILE_GPU, in_dim, out, best)
+    best4 = fz.best_cols_per_unit(fz.MOBILE_CPU4, in_dim, out)
+    mt = fz.factorize_gate(fz.MOBILE_CPU4, in_dim, out, best4)
+    rows = [("fig3/model_mobile_gpu_fine_vs_cpu (gpu_fine/cpu)", gpu_fine,
+             gpu_fine / cpu),
+            ("fig4/model_mobirnn_speedup (cpu/gpu)", gpu, cpu / gpu),
+            ("fig6/model_multithread_cpu (gpu/mt)", mt, gpu / mt)]
+    for hidden in (32, 64, 128, 256):
+        for layers in (1, 2, 3):
+            c = cfg.with_complexity(hidden, layers)
+            d_in, o = c.input_dim + hidden, 4 * hidden
+            b = fz.best_cols_per_unit(fz.MOBILE_GPU, d_in, o)
+            t_gpu = layers * fz.factorize_gate(fz.MOBILE_GPU, d_in, o, b)
+            t_cpu = layers * fz.factorize_gate(fz.MOBILE_CPU1, d_in, o, o)
+            rows.append((f"fig5/model_h{hidden}_l{layers} (speedup)", t_gpu,
+                         t_cpu / t_gpu))
+    return rows
+
+
+def factorization_slice(device, counted, counts, only) -> dict:
+    """F1: MobiRNN's Figs 2 and 3 on the card.  The paper's classifier
+    (2 x 32, T=128 x 9 sensors, B=1, f32, weights from seed 0) on one
+    window through five factorizations of the same cell:
+    ``forward_sequential`` over ``lstm_cell_fine(unit_cols=1)`` (Fig 2b,
+    one work unit a gate column), ``unit_cols=10`` (the JAX benchmark's
+    packed_10col), ``lstm_cell_fused`` (one packed unit, plain torch),
+    ``fused_cell`` (T x L = 256 K1 launches) and ``fused_seq`` (1 K2
+    launch).  Each run's logits held to ``sequential`` at LSTM_TOL, its
+    launches counted on one call (none for the plain ones), and timed on
+    the host clock (median of 5 synchronized calls) beside the modelled
+    time of ``core/factorization.H100``: T x sum over layers of
+    ``factorize_gate(H100, D + H, 4H, cols)``, for ``fused_seq`` one unit
+    holding the whole window.  Holds the paper's ordering on the card:
+    per-column > 10-column > packed plain > ``fused_cell`` > ``fused_seq``
+    (the model's ratio to the measurement is printed, not held).  Prints
+    the host cost a launch (``fused_cell``'s window over its 256 launches)
+    beside ``H100.enqueue_overhead_s``, and the Fig 3 to Fig 6 model rows
+    under the paper's four profiles.  Returns the launches of the counted
+    calls and the times."""
+    from repro_torch.configs.mobirnn_lstm import LSTMConfig
+    from repro_torch.core import cell as cell_lib
+    from repro_torch.core import factorization as fz
+    from repro_torch.core import lstm
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = LSTMConfig()
+    T, L, H, D = cfg.seq_len, cfg.n_layers, cfg.hidden, cfg.input_dim
+    params = tree_map(lambda t: t.to(device),
+                      lstm.init_params(torch.Generator().manual_seed(0), cfg))
+    x = torch.randn(1, T, D, generator=torch.Generator().manual_seed(1)
+                    ).to(device)
+    in_dims = [(D if i == 0 else H) + H for i in range(L)]
+
+    def fine(cols):
+        def cell(p, i, c, h):
+            return cell_lib.lstm_cell_fine(p, i, c, h, unit_cols=cols)
+        return lambda: lstm.forward_sequential(params, x, cfg, cell_fn=cell)
+
+    def modelled(cols) -> float:
+        if cols is not None:
+            return T * sum(fz.factorize_gate(fz.H100, d, 4 * H, cols)
+                           for d in in_dims)
+        flops = T * sum(2.0 * d * 4 * H for d in in_dims)
+        byts = 4 * (sum((d + 1) * 4 * H for d in in_dims) + T * D
+                    + cfg.n_classes)
+        return fz.unit_time(fz.H100, 1, flops, byts)
+
+    runs = [("per-column (Fig 2b)", fine(1), 1, {}),
+            ("10-column", fine(10), 10, {}),
+            ("packed plain (Fig 2c)",
+             lambda: lstm.forward_sequential(params, x, cfg), 4 * H, {}),
+            ("fused_cell", lambda: lstm.forward_fused_kernel(params, x, cfg),
+             4 * H, {"lstm_cell": T * L}),
+            ("fused_seq", lambda: lstm.forward_fused_seq(params, x, cfg),
+             None, {"lstm_seq": 1})]
+    times, launched = {}, {}
+    with torch.inference_mode():
+        want = lstm.forward_sequential(params, x, cfg)
+        for label, fn, cols, expect in runs:
+            reset_counts(*counted)
+            got = fn()
+            torch.cuda.synchronize()
+            got_counts = counts()
+            check(got_counts == only(**expect),
+                  f"F1 {label}: one window launched {got_counts}, "
+                  f"{expect or 'no hand kernel'} expected")
+            launched.update(expect)
+            err = close(got, want, f"F1 {label} vs sequential")
+            times[label] = host_ms(fn)
+            model_ms = modelled(cols) * 1e3
+            print(f"[F1] {label}: {times[label]:.3f} ms a window (host "
+                  f"clock, median of 5 synchronized calls), modelled "
+                  f"{model_ms:.3f} ms on {fz.H100.name} "
+                  f"({'one unit a window' if cols is None else f'{cols} columns a unit'}"
+                  f"), measured/model {times[label] / model_ms:.3f}; "
+                  f"launches {expect or 'none of the hand kernels'}; logits "
+                  f"vs sequential max abs err {err:.3e}; {CARD['line']}")
+    order = [label for label, *_ in runs]
+    check(all(times[a] > times[b] for a, b in zip(order, order[1:])),
+          f"F1: the paper's ordering does not hold on the card: {times}")
+    per_launch_us = times["fused_cell"] / (T * L) * 1e3
+    print(f"[F1] ordering held: " + " > ".join(
+        f"{label} {times[label]:.3f}" for label in order) + " ms; "
+          f"fused_cell's host cost a launch {per_launch_us:.2f} us "
+          f"({times['fused_cell']:.3f} ms / {T * L}) beside "
+          f"H100.enqueue_overhead_s {fz.H100.enqueue_overhead_s * 1e6:.2f}"
+          f" us; {CARD['line']}")
+    for row, t, ratio in figure_model_rows(fz, cfg):
+        print(f"[F1] {row}: {t * 1e6:.3f} us, {ratio:.3f}x (the paper's "
+              "profiles, modelled)")
+    return {"launches": launched, "times": times}
+
+
+def spec_leaves(tree) -> list:
+    """The PartitionSpecs of a spec tree (dicts and lists), in order."""
+    from repro_torch.partitioning import PartitionSpec
+
+    if isinstance(tree, PartitionSpec):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [s for t in tree for s in spec_leaves(t)]
+
+
+def mesh_slice(device, counted, counts, only) -> dict:
+    """D1: logical-axis partitioning on the one-device mesh.
+
+    * The trainer: ``launch/train.train`` on Qwen2-0.5B at full width and
+      depth, bf16, 2 steps of 4 x 512, once as it runs (inside
+      ``use_rules`` on the 1 x 1 host mesh; the activation specs its
+      ``constrain`` calls resolve are counted) and once with the rules
+      context left out (its ``use_rules`` replaced by a null context):
+      losses and ``grad_norm``s bit-equal, every wrapper's launches equal
+      (K8t twice and K8b once an attention layer a step).
+    * The slot engine: Qwen2-0.5B's first 4 slot requests served with the
+      engine built, its decode tick captured and the serve run inside
+      ``use_rules``, and again outside: tokens equal, the captured
+      launches and the eager ones equal.
+    * The abstract trees: ``abstract_params()`` and ``abstract_cache(128,
+      32768)`` of every arch at full width (Jamba-1.5-Large's 398 B and
+      Command-R-35B included), their specs resolved on the host mesh and
+      on the abstract (16, 16) production mesh, with
+      ``torch.cuda.memory_allocated()`` unchanged across the sweep; the
+      production mesh itself refused on one card.
+    Returns the launches of the partitioned runs."""
+    from repro_torch import partitioning as pt
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train as train_lm
+    from repro_torch.models import registry
+
+    cfg = get_arch("qwen2-0.5b")
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    host = pt.make_rules(mesh_lib.make_host_mesh(device=torch.device(
+        device.type, torch.cuda.current_device())))
+    check(host.mesh.shape == {"data": 1, "model": 1},
+          f"D1: the host mesh is {host.mesh.shape}")
+    resolved = {"n": 0}
+    spec_for = pt.AxisRules.spec_for
+
+    def counting(self, axes, shape):
+        resolved["n"] += 1
+        return spec_for(self, axes, shape)
+
+    free_models("D1")
+    runs, launched, specs = {}, {}, {}
+    pt.AxisRules.spec_for = counting
+    try:
+        for partitioned in (True, False):
+            reset_counts(*counted)
+            resolved["n"] = 0
+            if not partitioned:
+                train_lm.use_rules = lambda rules: contextlib.nullcontext()
+            t0 = time.perf_counter()
+            rep = train_lm.train(cfg, steps=2, batch=4, seq=512,
+                                 device=device.type, log_every=1)
+            torch.cuda.synchronize()
+            launched[partitioned] = counts()
+            specs[partitioned] = resolved["n"]
+            runs[partitioned] = (rep["losses"], rep["grad_norms"],
+                                 time.perf_counter() - t0, rep["step_ms"])
+            del rep
+            free_models("D1")
+    finally:
+        pt.AxisRules.spec_for = spec_for
+        train_lm.use_rules = pt.use_rules
+    want = only(flash_prefill_traj=2 * n_attn * 2,
+                flash_prefill_bwd=n_attn * 2)
+    check(launched[True] == launched[False] == want,
+          f"D1 trainer: launches inside the rules {launched[True]}, outside "
+          f"{launched[False]}, {want} expected")
+    check(runs[True][:2] == runs[False][:2],
+          f"D1 trainer: losses and grad_norms inside the rules "
+          f"{runs[True][:2]} differ from outside {runs[False][:2]}")
+    n_leaves = specs[False]           # the parameters' placement alone
+    check(specs[True] > n_leaves,
+          f"D1 trainer: constrain resolved no spec inside the rules "
+          f"({specs[True]} resolutions, {n_leaves} for the parameters)")
+    print(f"[D1] launch.train.train({cfg.name}, {cfg.dtype}, 2 steps of 4 x "
+          f"512): "
+          f"inside use_rules on the 1 x 1 host mesh {runs[True][2]:.1f} s "
+          f"(steps {', '.join(f'{t:.1f}' for t in runs[True][3])} ms; "
+          f"{specs[True] - n_leaves} activation specs resolved by "
+          f"constrain), outside {runs[False][2]:.1f} s (steps "
+          f"{', '.join(f'{t:.1f}' for t in runs[False][3])} ms): losses "
+          f"{runs[True][0]} and grad_norms {runs[True][1]} bit-equal; "
+          f"launches {dict((k, v) for k, v in want.items() if v)} both; "
+          f"{CARD['line']}")
+
+    # --- the slot engine, its tick captured inside the rules --------------
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0),
+                        device)
+    reqs = slot_requests(cfg.vocab)[:4]
+    served = {}
+    for inside in (True, False):
+        reset_counts(*counted)
+        t0 = time.perf_counter()
+        with pt.use_rules(host) if inside else contextlib.nullcontext():
+            eng = slot_engine(model, params)
+            tick = eng.ticks["decode/base"]
+            check(tick.graph is not None,
+                  f"D1 slot engine (rules {inside}): no CUDA graph")
+            results = eng.serve(reqs)
+        torch.cuda.synchronize()
+        tokens_ok(results, cfg, f"D1 slot engine (rules {inside})")
+        served[inside] = ([r.tokens for r in results],
+                          dict(tick.captured_launches), counts(),
+                          time.perf_counter() - t0)
+        del eng, tick, results
+    check(all(np.array_equal(a, b) for a, b in zip(served[True][0],
+                                                     served[False][0])),
+          "D1 slot engine: tokens inside the rules differ from outside")
+    check(served[True][1:3] == served[False][1:3],
+          f"D1 slot engine: captured and eager launches inside the rules "
+          f"{served[True][1:3]} differ from outside {served[False][1:3]}")
+    print(f"[D1] SlotEngine({cfg.name}, {cfg.dtype}, {N_SLOTS} slots of "
+          f"{slot_seq(cfg)}): 4 requests served with the tick captured "
+          f"inside use_rules ({served[True][3]:.1f} s) and outside "
+          f"({served[False][3]:.1f} s): tokens equal, captured launches "
+          f"{served[True][1]} a tick both, eager launches "
+          f"{dict((k, v) for k, v in served[True][2].items() if v)} both; "
+          f"{CARD['line']}")
+    del params, model
+    free_models("D1")
+
+    # --- the abstract trees at full width ---------------------------------
+    prod = pt.make_rules(mesh_lib.abstract_production_mesh())
+    try:
+        mesh_lib.make_production_mesh(device=device.type)
+        refused = ""
+    except RuntimeError as e:
+        refused = str(e)
+    check("needs 256 devices" in refused,
+          f"D1: make_production_mesh on one card gave {refused!r}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sizes = []
+    for name in sorted(ARCHS):
+        m = registry.build(name)
+        trees = (m.abstract_params(), m.abstract_cache(128, 32768))
+        sharded = 0
+        for vals, axes in trees:
+            pt.tree_specs(axes, vals, host)
+            sharded += sum(bool(s) for s in spec_leaves(
+                pt.tree_specs(axes, vals, prod)))
+        sizes.append(f"{name} {pt.param_count(trees[0][0]):,} parameters, "
+                     f"{pt.bytes_of(trees[0][0]) / 1e9:.3f} GB, cache "
+                     f"{pt.bytes_of(trees[1][0]) / 1e9:.3f} GB, "
+                     f"{sharded} leaves sharded on (16, 16)")
+    sweep_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    check(after == before, f"D1: the abstract sweep allocated "
+          f"{after - before} bytes on the card")
+    print(f"[D1] abstract_params/abstract_cache(128, 32768) of {len(ARCHS)} "
+          f"archs at full width, specs resolved on the 1 x 1 host mesh and "
+          f"the abstract (16, 16) mesh in {sweep_s:.1f} s, "
+          f"torch.cuda.memory_allocated() {before} before and after; "
+          f"make_production_mesh refused ({refused.split(' —')[0]}): "
+          + "; ".join(sizes))
+    return {"launches": {k: launched[True][k] + served[True][2][k]
+                         for k in launched[True]}}
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     if not torch.cuda.is_available():
@@ -6065,8 +6392,12 @@ def main() -> None:
             if entry["name"] == name:
                 entry["launches"] += n
     half = profiler_slice(device, counted, counts, only)
+    paper = factorization_slice(device, counted, counts, only)
+    meshed = mesh_slice(device, counted, counts, only)
     for entry in kernels:
-        entry["launches"] += half["launches"].get(entry["name"], 0)
+        entry["launches"] += half["launches"].get(entry["name"], 0) \
+            + paper["launches"].get(entry["name"], 0) \
+            + meshed["launches"].get(entry["name"], 0)
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    half["errs"].get(entry["name"], 0.0))
     print(card)

@@ -35,15 +35,10 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-
-#: Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at the
-#: 700 W power limit): HBM bytes/s; f32 FLOP/s outside the tensor cores
-#: (the LSTM, RWKV6 and Mamba kernels run on the CUDA cores); the bf16 and
-#: TF32 tensor-core rates.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12
-TF32_FLOP_PER_S = 495e12
+# The H100's published peaks live with its other constants.
+from repro_torch.core.factorization import (BF16_FLOP_PER_S,  # noqa: F401
+                                            F32_FLOP_PER_S, HBM_BYTES_PER_S,
+                                            TF32_FLOP_PER_S)
 
 
 # ---------------------------------------------------------------------------

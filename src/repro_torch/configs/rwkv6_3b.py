@@ -19,8 +19,8 @@ CONFIG = ModelConfig(
     vocab=65536,
     norm="ln",
     ssm=SSMConfig(kind="rwkv6", head_dim=64, lora_rank=64, chunk=32),
-    seq_shard=True,           # read by the sequence-parallel time-mix,
-                              # which is not ported yet (ROADMAP Queue 1,
-                              # "Distributed, launch and checkpoint")
+    seq_shard=True,           # read by the partitioning rules and the
+                              # sequence-parallel time-mix, which is not
+                              # ported yet (ROADMAP Queue 1 item 3)
     source="arXiv:2404.05892",
 )

@@ -19,18 +19,26 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.partitioning import Annot, dense_init, split
+
+
+def init_cell_annot(gen: torch.Generator, input_dim: int, hidden: int,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    """Fused-cell parameters on the CPU with logical sharding axes: ``w``
+    ("embed", "mlp") truncated normal in [-2, 2] scaled by (input_dim +
+    hidden) ** -0.5, ``b`` ("mlp",) zero except the forget gate's +1.
+    ``gen`` is a CPU ``torch.Generator``; move the result with ``.to``."""
+    b = torch.zeros(4 * hidden, dtype=torch.float32)
+    b[hidden:2 * hidden] = 1.0
+    return {"w": dense_init(gen, (input_dim + hidden, 4 * hidden),
+                            ("embed", "mlp"), dtype),
+            "b": Annot(b.to(dtype), ("mlp",))}
+
 
 def init_cell(gen: torch.Generator, input_dim: int, hidden: int,
               dtype: torch.dtype = torch.float32) -> dict:
-    """Fused-cell parameters on the CPU: truncated normal in [-2, 2] scaled
-    by (input_dim + hidden) ** -0.5, zero bias except the forget gate's +1.
-    ``gen`` is a CPU ``torch.Generator``; move the result with ``.to``."""
-    scale = (input_dim + hidden) ** -0.5
-    w = torch.empty(input_dim + hidden, 4 * hidden, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    b = torch.zeros(4 * hidden, dtype=torch.float32)
-    b[hidden:2 * hidden] = 1.0
-    return {"w": (w * scale).to(dtype), "b": b.to(dtype)}
+    """``init_cell_annot``'s plain tensors."""
+    return split(init_cell_annot(gen, input_dim, hidden, dtype))[0]
 
 
 def lstm_cell_fused(params: dict, x: torch.Tensor, c: torch.Tensor,

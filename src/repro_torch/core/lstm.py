@@ -56,22 +56,40 @@ from repro_torch.core import wavefront
 from repro_torch.kernels import lstm_seq as seq_lib
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.obs import trace as trace_lib
+from repro_torch.partitioning import dense_init, split, zeros_init
+
+
+def init_params_annot(gen: torch.Generator, cfg: LSTMConfig) -> dict:
+    """Annotated parameter tree for the stacked LSTM + HAR head (the JAX
+    package's ``init_params`` axes), on the CPU, drawn from the CPU
+    generator ``gen``."""
+    dtype = getattr(torch, cfg.dtype)
+    layers = [cell_lib.init_cell_annot(
+        gen, cfg.input_dim if i == 0 else cfg.hidden, cfg.hidden, dtype)
+        for i in range(cfg.n_layers)]
+    return {
+        "layers": layers,
+        "head": {"w": dense_init(gen, (cfg.hidden, cfg.n_classes),
+                                 ("embed", None), dtype),
+                 "b": zeros_init((cfg.n_classes,), (None,), dtype)},
+    }
 
 
 def init_params(gen: torch.Generator, cfg: LSTMConfig) -> dict:
-    """Parameter dict for the stacked LSTM + HAR head, on the CPU, drawn
-    from the CPU generator ``gen``."""
-    dtype = getattr(torch, cfg.dtype)
-    layers = [cell_lib.init_cell(gen, cfg.input_dim if i == 0 else cfg.hidden,
-                                 cfg.hidden, dtype)
-              for i in range(cfg.n_layers)]
-    head_w = torch.empty(cfg.hidden, cfg.n_classes, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(head_w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return {
-        "layers": layers,
-        "head": {"w": (head_w * cfg.hidden ** -0.5).to(dtype),
-                 "b": torch.zeros(cfg.n_classes, dtype=dtype)},
-    }
+    """Parameter dict for the stacked LSTM + HAR head: the plain tensors of
+    ``init_params_annot``."""
+    return split(init_params_annot(gen, cfg))[0]
+
+
+def init_state(cfg: LSTMConfig, batch: int, dtype: torch.dtype = torch.float32,
+               device: str | torch.device = "cpu"
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Preallocated (c, h) buffers, one pair per layer, (L, B, H) zeros
+    (paper §3.2: state tensors are preallocated once and reused across the
+    whole sequence)."""
+    shape = (cfg.n_layers, batch, cfg.hidden)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _head(params: dict, last_h: torch.Tensor) -> torch.Tensor:
@@ -85,9 +103,8 @@ def forward_sequential(params: dict, x: torch.Tensor, cfg: LSTMConfig,
 
     A loop over time; within a step, layers run in dependency order and
     each layer's (c, h) is replaced by its update."""
-    B = x.shape[0]
-    c = [x.new_zeros(B, cfg.hidden) for _ in range(cfg.n_layers)]
-    h = [x.new_zeros(B, cfg.hidden) for _ in range(cfg.n_layers)]
+    c0, h0 = init_state(cfg, x.shape[0], x.dtype, x.device)
+    c, h = list(c0.unbind(0)), list(h0.unbind(0))
     for t in range(x.shape[1]):
         inp = x[:, t]
         for i, layer in enumerate(params["layers"]):

@@ -6,21 +6,26 @@ admits (``--arch``, default ``rwkv6-3b``, or its ``--reduced`` variant;
 not the audio and vision fronts, whose inputs the text pipeline lacks) on
 the synthetic LM pipeline (``data/lm.py``, the same tokens as the JAX
 trainer's for a seed) with AdamW under a warmup-cosine schedule, weights
-drawn from ``--seed`` on the device.  On the card each layer's mix runs
-its kernels, with ``remat`` on as in the JAX trainer: an RWKV6 time-mix
-(``models/rwkv.WKV_PLAN`` ``chunked_scan``) the trajectory forward K6t
-and the reverse sweep K6b, plus one more K6t for the recompute; a Mamba
-layer (``models/mamba.SCAN_PLAN``) K7t and K7b the same way; an attention
-layer (``models/attention.PREFILL_PLAN`` ``flash_prefill``: Qwen2, Yi,
-StableLM, Command-R, the MoE decoders OLMoE and Qwen3-MoE, the Jamba
-hybrid) K8t twice and the backward K8b once.  MoE layers train at the
-config's capacity factor.  It prints the JAX trainer's per-step JSON lines
-and closing ``loss a -> b`` line, and before that the median and minimum
-step time (host clock around a step, ending in the loss's copy to the
-host).  With ``--ckpt-dir`` it saves the parameters every
-``--ckpt-every`` steps as the JAX trainer does (``checkpoint/ckpt.py``:
-``ckpt_%08d.npz`` and ``.json`` with the arch's name), files either
-package's ``restore`` reads.
+drawn from ``--seed`` on the device.  As in the JAX trainer, the
+parameters are drawn with their logical axes (``Model.init_annot``),
+placed by the default rules on the host mesh (``launch/mesh.py``:
+(data=1, model=1) on the one device it trains on, where every placement
+is the identity) and the steps run inside ``use_rules``, so the models'
+``constrain`` calls resolve against that mesh.  On the card each layer's
+mix runs its kernels, with ``remat`` on as in the JAX trainer: an RWKV6
+time-mix (``models/rwkv.WKV_PLAN`` ``chunked_scan``) the trajectory
+forward K6t and the reverse sweep K6b, plus one more K6t for the
+recompute; a Mamba layer (``models/mamba.SCAN_PLAN``) K7t and K7b the same
+way; an attention layer (``models/attention.PREFILL_PLAN``
+``flash_prefill``: Qwen2, Yi, StableLM, Command-R, the MoE decoders OLMoE
+and Qwen3-MoE, the Jamba hybrid) K8t twice and the backward K8b once.  MoE layers train at the
+config's capacity factor.  It prints the JAX trainer's ``arch= params=
+mesh=`` line (and the device), its per-step JSON lines and closing ``loss
+a -> b`` line, and before that the median and minimum step time (host
+clock around a step, ending in the loss's copy to the host).  With
+``--ckpt-dir`` it saves the parameters every ``--ckpt-every`` steps as the
+JAX trainer does (``checkpoint/ckpt.py``: ``ckpt_%08d.npz`` and ``.json``
+with the arch's name), files either package's ``restore`` reads.
 
   PYTHONPATH=src python -m repro_torch.launch.train [--arch qwen2-0.5b]
       [--reduced] [--device cuda|cpu] [--steps N] [--batch B] [--seq S]
@@ -45,8 +50,11 @@ from repro_torch.configs import ARCHS, get_arch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.lm import SyntheticLM
 from repro_torch.launch.classify import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import registry
 from repro_torch.optim.adamw import AdamW, tree_leaves, warmup_cosine
+from repro_torch.partitioning import (device_put, make_rules, param_count,
+                                      split, tree_shardings, use_rules)
 
 
 def main(argv: list[str] | None = None) -> dict:
@@ -85,12 +93,19 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
     parameter count, the tokens of a step and the trained ``params``."""
     device = resolve_device(device)
     model = registry.build(cfg)
-    params = model.init(torch.Generator(device=device).manual_seed(seed),
-                        device)
+    # the trainer runs on one device: its host mesh is that device alone
+    mesh = make_host_mesh(device=device if device.type == "cpu" or
+                          device.index is not None else
+                          torch.device("cuda", torch.cuda.current_device()))
+    rules = make_rules(mesh)
+    params, axes = split(model.init_annot(
+        torch.Generator(device=device).manual_seed(seed), device))
+    n_params = param_count(params)
+    print(f"arch={cfg.name} params={n_params:,} mesh={dict(mesh.shape)} "
+          f"device={device}")
+    params = device_put(params, tree_shardings(axes, params, rules))
     for p in tree_leaves(params):
         p.requires_grad_()
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    print(f"arch={cfg.name} params={n_params:,} device={device}")
 
     optimizer = AdamW(lr=warmup_cosine(lr, steps // 10, steps))
     opt_state = optimizer.init(params)
@@ -99,24 +114,25 @@ def train(cfg: ModelConfig, *, steps: int = 50, batch: int = 8,
     history, losses, grad_norms, step_ms = [], [], [], []
     log_every = max(log_every, 1)        # --log-every 0 means "every step"
     t0 = time.time()
-    for step in range(1, steps + 1):
-        tokens = {k: torch.from_numpy(v).to(device)
-                  for k, v in next(it).items()}
-        ts = time.perf_counter()
-        params, opt_state, metrics = steps_lib.train_step(
-            optimizer, cfg, params, opt_state, tokens)
-        losses.append(float(metrics["loss"]))
-        step_ms.append((time.perf_counter() - ts) * 1e3)
-        grad_norms.append(float(metrics["grad_norm"]))
-        if step % log_every == 0 or step == 1:
-            m = {k: float(v) for k, v in metrics.items()}
-            m["step"] = step
-            m["wall_s"] = round(time.time() - t0, 1)
-            history.append(m)
-            print(json.dumps({k: (round(v, 4) if isinstance(v, float)
-                                  else v) for k, v in m.items()}))
-        if ckpt_dir and step % ckpt_every == 0:
-            ckpt.save(ckpt_dir, step, params, {"arch": cfg.name})
+    with use_rules(rules):
+        for step in range(1, steps + 1):
+            tokens = {k: torch.from_numpy(v).to(device)
+                      for k, v in next(it).items()}
+            ts = time.perf_counter()
+            params, opt_state, metrics = steps_lib.train_step(
+                optimizer, cfg, params, opt_state, tokens)
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            grad_norms.append(float(metrics["grad_norm"]))
+            if step % log_every == 0 or step == 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["step"] = step
+                m["wall_s"] = round(time.time() - t0, 1)
+                history.append(m)
+                print(json.dumps({k: (round(v, 4) if isinstance(v, float)
+                                      else v) for k, v in m.items()}))
+            if ckpt_dir and step % ckpt_every == 0:
+                ckpt.save(ckpt_dir, step, params, {"arch": cfg.name})
     report = {"history": history, "losses": losses,
               "grad_norms": grad_norms, "step_ms": step_ms,
               "n_params": n_params, "tokens_per_step": batch * seq,

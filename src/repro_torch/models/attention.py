@@ -37,6 +37,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common
+from repro_torch.partitioning import constrain, dense_init, zeros_init
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -50,22 +51,26 @@ PREFILL_PLAN = "flash_prefill"
 DECODE_PLAN = "decode_attn"
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig,
-                   dtype: torch.dtype, device="cpu") -> dict:
+def init_attention_annot(gen: torch.Generator, cfg: ModelConfig,
+                         dtype: torch.dtype, device="cpu") -> dict:
     """``wq`` (d, Hq, dh), ``wk``/``wv`` (d, Hkv, dh), ``wo`` (Hq, dh, d),
     each drawn at scale d^-1/2, and with ``cfg.qkv_bias`` the zero biases
-    ``bq`` (Hq, dh), ``bk``/``bv`` (Hkv, dh): the JAX package's tree."""
+    ``bq`` (Hq, dh), ``bk``/``bv`` (Hkv, dh): the JAX package's tree and
+    logical axes."""
     d, hq, hkv, dh = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                       cfg.resolved_head_dim)
 
-    def w(shape):
-        return common.truncated_normal(gen, shape, d ** -0.5, dtype, device)
+    def w(shape, axes):
+        return dense_init(gen, shape, axes, dtype, device, scale=d ** -0.5)
 
-    p = {"wq": w((d, hq, dh)), "wk": w((d, hkv, dh)), "wv": w((d, hkv, dh)),
-         "wo": w((hq, dh, d))}
+    p = {"wq": w((d, hq, dh), ("embed", "heads", None)),
+         "wk": w((d, hkv, dh), ("embed", "kv_heads", None)),
+         "wv": w((d, hkv, dh), ("embed", "kv_heads", None)),
+         "wo": w((hq, dh, d), ("heads", None, "embed"))}
     if cfg.qkv_bias:
-        for name, h in (("bq", hq), ("bk", hkv), ("bv", hkv)):
-            p[name] = torch.zeros(h, dh, dtype=dtype, device=device)
+        for name, h, ax in (("bq", hq, "heads"), ("bk", hkv, "kv_heads"),
+                            ("bv", hkv, "kv_heads")):
+            p[name] = zeros_init((h, dh), (ax, None), dtype, device)
     return p
 
 
@@ -232,6 +237,7 @@ def chunk_prefill_attention(p: dict, x: torch.Tensor, cache: dict,
         # per-(token, head) dequant scales fold into the scores, exactly
         # as in decode_attention
         scores = scores * cache["k_scale"].transpose(1, 2)[:, :, None, None]
+    scores = constrain(scores, ("batch", None, None, None, "cache_seq"))
 
     # content-position mask: slot j holds the key of absolute position
     # content_pos[j]; a query at qp may attend it iff 0 <= content_pos <=
@@ -266,22 +272,25 @@ def chunk_prefill_attention(p: dict, x: torch.Tensor, cache: dict,
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
-def init_cache_slot(cfg: ModelConfig, n_groups: int, batch: int,
-                    max_seq: int, dtype: torch.dtype, device="cpu") -> dict:
-    """Zero KV cache of one attention slot, stacked over groups: ``k``,
-    ``v`` (G, B, S_c, Hkv, dh) with S_c = min(max_seq, window) for a ring;
-    with ``kv_quant`` int8 values plus ``k_scale``/``v_scale`` (G, B, S_c,
-    Hkv) f32."""
+def init_cache_slot_annot(cfg: ModelConfig, n_groups: int, batch: int,
+                          max_seq: int, dtype: torch.dtype, device="cpu"
+                          ) -> dict:
+    """Zero KV cache of one attention slot, stacked over groups, with the
+    JAX package's logical axes: ``k``, ``v`` (G, B, S_c, Hkv, dh) with S_c
+    = min(max_seq, window) for a ring; with ``kv_quant`` int8 values plus
+    ``k_scale``/``v_scale`` (G, B, S_c, Hkv) f32."""
     w = cfg.sliding_window or 0
     s_c = min(max_seq, w) if w else max_seq
     shape = (n_groups, batch, s_c, cfg.n_kv_heads, cfg.resolved_head_dim)
+    axes = ("layers", "batch", "cache_seq", "kv_heads", None)
+
     if cfg.kv_quant:
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(shape[:-1], dtype=F32, device=device),
-                "v_scale": torch.zeros(shape[:-1], dtype=F32, device=device)}
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+        return {"k": zeros_init(shape, axes, torch.int8, device),
+                "v": zeros_init(shape, axes, torch.int8, device),
+                "k_scale": zeros_init(shape[:-1], axes[:-1], F32, device),
+                "v_scale": zeros_init(shape[:-1], axes[:-1], F32, device)}
+    return {"k": zeros_init(shape, axes, dtype, device),
+            "v": zeros_init(shape, axes, dtype, device)}
 
 
 def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -312,6 +321,7 @@ def _decode_einsum(q4: torch.Tensor, cache: dict, valid: torch.Tensor,
     scores = scores * cfg.resolved_head_dim ** -0.5
     if cfg.kv_quant:
         scores = scores * cache["k_scale"].transpose(1, 2)[:, :, None]
+    scores = constrain(scores, ("batch", None, None, "cache_seq"))
     scores = torch.where(valid[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     if cfg.kv_quant:

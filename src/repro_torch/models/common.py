@@ -2,36 +2,37 @@
 rotary position embeddings (the port's twin of the JAX package's
 ``models/common.py``).
 
-Initializers return plain tensors drawn from an explicit
-``torch.Generator`` on an explicit device (the JAX package returns
-partitioning annotations; the port has no partitioning yet).  Apply
-functions compute numerically sensitive ops (norms) in float32 and cast
-back to the input dtype, as the JAX package does.
+Initializers draw from an explicit ``torch.Generator`` on an explicit
+device.  Each ``*_annot`` initializer returns ``partitioning.Annot`` leaves
+(tensor + logical sharding axes, the JAX package's axes); its plain twin
+is ``partitioning.split`` of it, the same draw.  On the ``meta`` device
+nothing is drawn or allocated (abstract trees).  Apply functions take
+plain tensors and compute numerically sensitive ops (norms) in float32 and
+cast back to the input dtype, as the JAX package does.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.partitioning import (dense_init, ones_init, split,
+                                      zeros_init)
+
 F32 = torch.float32
-
-
-def truncated_normal(gen: torch.Generator, shape: tuple, scale: float,
-                     dtype: torch.dtype, device) -> torch.Tensor:
-    """N(0, 1) truncated to [-2, 2], times ``scale``, drawn in f32 and cast
-    to ``dtype`` (JAX's ``truncated_normal(key, -2, 2, shape) * scale``)."""
-    w = torch.empty(shape, dtype=F32, device=device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * scale).to(dtype)
 
 
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
-def init_norm(d: int, kind: str, dtype: torch.dtype, device="cpu") -> dict:
-    p = {"scale": torch.ones(d, dtype=dtype, device=device)}
+def init_norm_annot(d: int, kind: str, dtype: torch.dtype,
+                    device="cpu") -> dict:
+    p = {"scale": ones_init((d,), ("embed_nofsdp",), dtype, device)}
     if kind == "ln":
-        p["bias"] = torch.zeros(d, dtype=dtype, device=device)
+        p["bias"] = zeros_init((d,), ("embed_nofsdp",), dtype, device)
     return p
+
+
+def init_norm(d: int, kind: str, dtype: torch.dtype, device="cpu") -> dict:
+    return split(init_norm_annot(d, kind, dtype, device))[0]
 
 
 def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-5
@@ -50,11 +51,11 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str, eps: float = 1e-5
     return out.to(x.dtype)
 
 
-def init_groupnorm(n_groups: int, d: int, dtype: torch.dtype,
-                   device="cpu") -> dict:
+def init_groupnorm_annot(n_groups: int, d: int, dtype: torch.dtype,
+                         device="cpu") -> dict:
     del n_groups
-    return {"scale": torch.ones(d, dtype=dtype, device=device),
-            "bias": torch.zeros(d, dtype=dtype, device=device)}
+    return {"scale": ones_init((d,), ("embed_nofsdp",), dtype, device),
+            "bias": zeros_init((d,), ("embed_nofsdp",), dtype, device)}
 
 
 def apply_groupnorm(p: dict, x: torch.Tensor, n_groups: int,
@@ -72,15 +73,22 @@ def apply_groupnorm(p: dict, x: torch.Tensor, n_groups: int,
 # ---------------------------------------------------------------------------
 # Linear / embedding
 # ---------------------------------------------------------------------------
+def init_linear_annot(gen: torch.Generator, d_in: int, d_out: int,
+                      axes: tuple, dtype: torch.dtype, device="cpu",
+                      bias: bool = False) -> dict:
+    """``{"w": (d_in, d_out)}`` (JAX layout: ``y = x @ w``) on ``axes``,
+    scale d_in^-1/2, and with ``bias`` a zero ``"b": (d_out,)`` on the
+    last of them."""
+    p = {"w": dense_init(gen, (d_in, d_out), axes, dtype, device)}
+    if bias:
+        p["b"] = zeros_init((d_out,), (axes[-1],), dtype, device)
+    return p
+
+
 def init_linear(gen: torch.Generator, d_in: int, d_out: int,
                 dtype: torch.dtype, device="cpu", bias: bool = False) -> dict:
-    """``{"w": (d_in, d_out)}`` (JAX layout: ``y = x @ w``), scale
-    d_in^-1/2, and with ``bias`` a zero ``"b": (d_out,)``."""
-    p = {"w": truncated_normal(gen, (d_in, d_out), d_in ** -0.5, dtype,
-                               device)}
-    if bias:
-        p["b"] = torch.zeros(d_out, dtype=dtype, device=device)
-    return p
+    return split(init_linear_annot(gen, d_in, d_out, (None, None), dtype,
+                                   device, bias))[0]
 
 
 def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -90,9 +98,15 @@ def apply_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def init_embedding_annot(gen: torch.Generator, vocab: int, d: int,
+                         dtype: torch.dtype, device="cpu"):
+    return dense_init(gen, (vocab, d), ("vocab", "embed"), dtype, device,
+                      scale=d ** -0.5)
+
+
 def init_embedding(gen: torch.Generator, vocab: int, d: int,
                    dtype: torch.dtype, device="cpu") -> torch.Tensor:
-    return truncated_normal(gen, (vocab, d), d ** -0.5, dtype, device)
+    return init_embedding_annot(gen, vocab, d, dtype, device).value
 
 
 # ---------------------------------------------------------------------------

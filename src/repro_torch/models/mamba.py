@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common
+from repro_torch.partitioning import (Annot, dense_init, is_meta, ones_init,
+                                      zeros_init)
 
 F32 = torch.float32
 
@@ -47,33 +48,34 @@ def dt_rank(cfg: ModelConfig) -> int:
     return math.ceil(cfg.d_model / 16)
 
 
-def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-               device="cpu") -> dict:
-    """The JAX package's tree and initialisation: S4D-real A (``a_log`` =
-    log 1..d_state per channel), dt bias the inverse softplus of dt drawn
-    log-uniform in [1e-3, 1e-1], zero conv bias, unit skip."""
+def init_mamba_annot(gen: torch.Generator, cfg: ModelConfig,
+                     dtype: torch.dtype, device="cpu") -> dict:
+    """The JAX package's tree, initialisation and logical axes: S4D-real A
+    (``a_log`` = log 1..d_state per channel), dt bias the inverse softplus
+    of dt drawn log-uniform in [1e-3, 1e-1], zero conv bias, unit skip."""
     d = cfg.d_model
     di, ds, dc, dr = d_inner(cfg), cfg.ssm.d_state, cfg.ssm.d_conv, \
         dt_rank(cfg)
 
-    def w(shape, scale, dt_):
-        return common.truncated_normal(gen, shape, scale, dt_, device)
+    def w(shape, axes, scale, dt_):
+        return dense_init(gen, shape, axes, dt_, device, scale)
 
     a = torch.arange(1, ds + 1, dtype=F32, device=device).repeat(di, 1)
-    u = torch.rand(di, generator=gen, dtype=F32, device=device)
+    u = (torch.empty(di, dtype=F32, device=device) if is_meta(device) else
+         torch.rand(di, generator=gen, dtype=F32, device=device))
     dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3))
                         + math.log(1e-3))
     dt_bias = dt_init + torch.log1p(-torch.exp(-dt_init))  # inverse softplus
     return {
-        "in_proj": w((d, 2 * di), d ** -0.5, dtype),
-        "conv_w": w((dc, di), dc ** -0.5, dtype),
-        "conv_b": torch.zeros(di, dtype=dtype, device=device),
-        "x_proj": w((di, dr + 2 * ds), di ** -0.5, dtype),
-        "dt_proj": w((dr, di), dr ** -0.5, F32),
-        "dt_bias": dt_bias,
-        "a_log": torch.log(a),
-        "d_skip": torch.ones(di, dtype=F32, device=device),
-        "out_proj": w((di, d), di ** -0.5, dtype),
+        "in_proj": w((d, 2 * di), ("embed", "mlp"), d ** -0.5, dtype),
+        "conv_w": w((dc, di), (None, "mlp"), dc ** -0.5, dtype),
+        "conv_b": zeros_init((di,), ("mlp",), dtype, device),
+        "x_proj": w((di, dr + 2 * ds), ("mlp", None), di ** -0.5, dtype),
+        "dt_proj": w((dr, di), (None, "mlp"), dr ** -0.5, F32),
+        "dt_bias": Annot(dt_bias, ("mlp",)),
+        "a_log": Annot(torch.log(a), ("mlp", None)),
+        "d_skip": ones_init((di,), ("mlp",), F32, device),
+        "out_proj": w((di, d), ("mlp", "embed"), di ** -0.5, dtype),
     }
 
 

@@ -7,23 +7,32 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
+from repro_torch.partitioning import dense_init, split
+
+
+def init_mlp_annot(gen: torch.Generator, cfg: ModelConfig,
+                   dtype: torch.dtype, device="cpu") -> dict:
+    """SwiGLU ``{"wg", "wu": (d, ff), "wd": (ff, d)}``, or for another
+    ``cfg.mlp_act`` GELU ``{"wi": (d, ff), "wd": (ff, d)}``, in the JAX
+    layouts (``x @ w``) and logical axes."""
+    d = cfg.d_model
+    ff = cfg.d_ff
+
+    def w(shape, axes, scale):
+        return dense_init(gen, shape, axes, dtype, device, scale)
+
+    if cfg.mlp_act == "swiglu":
+        return {"wg": w((d, ff), ("embed", "mlp"), d ** -0.5),
+                "wu": w((d, ff), ("embed", "mlp"), d ** -0.5),
+                "wd": w((ff, d), ("mlp", "embed"), ff ** -0.5)}
+    return {"wi": w((d, ff), ("embed", "mlp"), d ** -0.5),
+            "wd": w((ff, d), ("mlp", "embed"), ff ** -0.5)}
 
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
              device="cpu") -> dict:
-    """SwiGLU ``{"wg", "wu": (d, ff), "wd": (ff, d)}``, or for another
-    ``cfg.mlp_act`` GELU ``{"wi": (d, ff), "wd": (ff, d)}``, in the JAX
-    layouts (``x @ w``)."""
-    d = cfg.d_model
-    ff = cfg.d_ff
-
-    def w(shape, scale):
-        return common.truncated_normal(gen, shape, scale, dtype, device)
-
-    if cfg.mlp_act == "swiglu":
-        return {"wg": w((d, ff), d ** -0.5), "wu": w((d, ff), d ** -0.5),
-                "wd": w((ff, d), ff ** -0.5)}
-    return {"wi": w((d, ff), d ** -0.5), "wd": w((ff, d), ff ** -0.5)}
+    """``init_mlp_annot``'s plain tensors."""
+    return split(init_mlp_annot(gen, cfg, dtype, device))[0]
 
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -30,9 +30,10 @@ Training keeps the capacity bound; its dropped slots all land in row E,
 whose contents are discarded.
 
 The expert-parallel path of the JAX package (``_apply_moe_ep``, a
-``shard_map`` over a 'model' mesh axis) is not ported: it needs the
-partitioning rules and more than one device (ROADMAP Queue 1,
-"Distributed, launch and checkpoint").
+``shard_map`` over a 'model' mesh axis) is not ported: it needs a mesh of
+more than one device (ROADMAP Queue 1 item 3).  The dense path marks the
+expert buffer and the output with ``partitioning.constrain``, as the JAX
+package does; on one device that is the identity.
 """
 from __future__ import annotations
 
@@ -41,30 +42,38 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
+from repro_torch.partitioning import constrain, dense_init, split
 
 F32 = torch.float32
 
 
-def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-             device="cpu") -> dict:
+def init_moe_annot(gen: torch.Generator, cfg: ModelConfig,
+                   dtype: torch.dtype, device="cpu") -> dict:
     """``{"router": (d, E), "wd": (E, ff, d)}`` plus ``"wg", "wu": (E, d,
-    ff)`` for SwiGLU or ``"wi": (E, d, ff)`` for GELU, in the JAX layouts
-    and scales (truncated normal times d^-1/2, ff^-1/2 for ``wd``), drawn
-    in the order router, wg (wi), wu, wd."""
+    ff)`` for SwiGLU or ``"wi": (E, d, ff)`` for GELU, in the JAX layouts,
+    scales (truncated normal times d^-1/2, ff^-1/2 for ``wd``) and logical
+    axes, drawn in the order router, wg (wi), wu, wd."""
     moe = cfg.moe
     d, e, ff = cfg.d_model, moe.n_experts, moe.d_ff
 
-    def w(shape, scale):
-        return common.truncated_normal(gen, shape, scale, dtype, device)
+    def w(shape, axes, scale):
+        return dense_init(gen, shape, axes, dtype, device, scale)
 
-    p = {"router": w((d, e), d ** -0.5)}
+    # router is tiny and every shard routes locally: keep it replicated
+    p = {"router": w((d, e), ("embed_nofsdp", None), d ** -0.5)}
     if cfg.mlp_act == "swiglu":
-        p["wg"] = w((e, d, ff), d ** -0.5)
-        p["wu"] = w((e, d, ff), d ** -0.5)
+        p["wg"] = w((e, d, ff), ("experts", None, "mlp"), d ** -0.5)
+        p["wu"] = w((e, d, ff), ("experts", None, "mlp"), d ** -0.5)
     else:
-        p["wi"] = w((e, d, ff), d ** -0.5)
-    p["wd"] = w((e, ff, d), ff ** -0.5)
+        p["wi"] = w((e, d, ff), ("experts", None, "mlp"), d ** -0.5)
+    p["wd"] = w((e, ff, d), ("experts", "mlp", None), ff ** -0.5)
     return p
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
+             device="cpu") -> dict:
+    """``init_moe_annot``'s plain tensors."""
+    return split(init_moe_annot(gen, cfg, dtype, device))[0]
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -120,7 +129,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     # --- scatter to (E+1, C, d) -------------------------------------------
     xk = xt[:, None, :].expand(T, K, d).reshape(T * K, d)
     buf = xt.new_zeros(E + 1, C, d).index_put((dst_e, dst_c), xk)
-    expert_in = buf[:E]                                         # (E, C, d)
+    expert_in = constrain(buf[:E], ("experts", None, None))     # (E, C, d)
 
     # --- the experts, batched ---------------------------------------------
     if "wg" in p:
@@ -135,6 +144,9 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     out_k = out_k * keep[:, None].to(out_k.dtype)
     out_k = out_k * top_p.reshape(-1)[:, None].to(out_k.dtype)
     out = out_k.reshape(T, K, d).sum(1)
+    if len(shape) == 3:
+        out = constrain(out.reshape(shape), ("batch", "seq", None)
+                        ).reshape(T, d)
 
     # --- aux losses (switch-transformer style) ----------------------------
     me = probs.mean(0)                                          # (E,)

@@ -87,11 +87,23 @@ class Model:
              device: str | torch.device = "cpu") -> dict:
         return transformer.init_params(self.cfg, gen, device)
 
+    def init_annot(self, gen: torch.Generator,
+                   device: str | torch.device = "cpu") -> dict:
+        """``init``'s draw with ``partitioning.Annot`` leaves (the logical
+        axes beside each tensor); ``split`` gives (params, axes)."""
+        return transformer.init_params_annot(self.cfg, gen, device)
+
+    def abstract_params(self) -> tuple[dict, dict]:
+        return transformer.abstract_params(self.cfg)
+
     def init_cache(self, batch: int, max_seq: int,
                    device: str | torch.device = "cpu", *,
                    per_lane_pos: bool = False) -> dict:
         return transformer.init_cache(self.cfg, batch, max_seq, device,
                                       per_lane_pos=per_lane_pos)
+
+    def abstract_cache(self, batch: int, max_seq: int) -> tuple[dict, dict]:
+        return transformer.abstract_cache(self.cfg, batch, max_seq)
 
     def forward(self, params, batch, remat: bool = False,
                 inference: bool = False):

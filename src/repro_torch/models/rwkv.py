@@ -20,8 +20,8 @@ decode step feeds its f32 output to the head-norm, as JAX's does).
 Token-shift state and the per-head (dk x dv) wkv state are the recurrent
 state buffers held in the preallocated decode cache (core/state.py).  The
 sequence-parallel time-mix (JAX ``_apply_tmix_seqpar``) is not ported: it
-comes with the distributed code (ROADMAP Queue 1, "Distributed, launch and
-checkpoint").
+needs a mesh of more than one device (ROADMAP Queue 1 item 3); the
+partitioning rules it reads are ported (``partitioning.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
+from repro_torch.partitioning import Annot, dense_init, zeros_init
 
 F32 = torch.float32
 N_MIX = 5  # w, k, v, r, g interpolation vectors
@@ -39,34 +40,36 @@ def n_heads(cfg: ModelConfig) -> int:
     return cfg.d_model // cfg.ssm.head_dim
 
 
-def init_tmix(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-              device="cpu") -> dict:
+def init_tmix_annot(gen: torch.Generator, cfg: ModelConfig,
+                    dtype: torch.dtype, device="cpu") -> dict:
+    """The time-mix parameters with the JAX package's logical axes."""
     d = cfg.d_model
     r = cfg.ssm.lora_rank
     H, dh = n_heads(cfg), cfg.ssm.head_dim
 
-    def w(shape, scale, dt):
-        return common.truncated_normal(gen, shape, scale, dt, device)
+    def w(shape, axes, scale, dt):
+        return dense_init(gen, shape, axes, dt, device, scale)
 
     return {
         # token-shift interpolation: base mu vectors + data-dependent LoRA
-        "maa_x": torch.zeros(d, dtype=F32, device=device),
-        "maa": torch.zeros(N_MIX, d, dtype=F32, device=device),
-        "tm_w1": w((d, N_MIX * 32), d ** -0.5, F32),
-        "tm_w2": w((N_MIX, 32, d), 32 ** -0.5, F32),
+        "maa_x": zeros_init((d,), ("embed_nofsdp",), F32, device),
+        "maa": zeros_init((N_MIX, d), (None, "embed_nofsdp"), F32, device),
+        "tm_w1": w((d, N_MIX * 32), ("embed", None), d ** -0.5, F32),
+        "tm_w2": w((N_MIX, 32, d), (None, None, "embed"), 32 ** -0.5, F32),
         # data-dependent decay: w0 + LoRA(xw)
-        "w0": torch.linspace(-6.0, -0.3, d, dtype=F32, device=device),
-        "td_w1": w((d, r), d ** -0.5, F32),
-        "td_w2": w((r, d), r ** -0.5, F32),
+        "w0": Annot(torch.linspace(-6.0, -0.3, d, dtype=F32, device=device),
+                    ("embed_nofsdp",)),
+        "td_w1": w((d, r), ("embed", None), d ** -0.5, F32),
+        "td_w2": w((r, d), (None, "embed"), r ** -0.5, F32),
         # projections
-        "wr": w((d, d), d ** -0.5, dtype),
-        "wk": w((d, d), d ** -0.5, dtype),
-        "wv": w((d, d), d ** -0.5, dtype),
-        "wg": w((d, d), d ** -0.5, dtype),
-        "wo": w((d, d), d ** -0.5, dtype),
+        "wr": w((d, d), ("embed", "mlp"), d ** -0.5, dtype),
+        "wk": w((d, d), ("embed", "mlp"), d ** -0.5, dtype),
+        "wv": w((d, d), ("embed", "mlp"), d ** -0.5, dtype),
+        "wg": w((d, d), ("embed", "mlp"), d ** -0.5, dtype),
+        "wo": w((d, d), ("mlp", "embed"), d ** -0.5, dtype),
         # per-head bonus u
-        "u": torch.zeros(H, dh, dtype=F32, device=device),
-        "gn": common.init_groupnorm(H, d, F32, device),
+        "u": zeros_init((H, dh), ("heads", None), F32, device),
+        "gn": common.init_groupnorm_annot(H, d, F32, device),
     }
 
 
@@ -199,19 +202,20 @@ def step_tmix(p: dict, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Channel-mix
 # ---------------------------------------------------------------------------
-def init_cmix(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
-              device="cpu") -> dict:
+def init_cmix_annot(gen: torch.Generator, cfg: ModelConfig,
+                    dtype: torch.dtype, device="cpu") -> dict:
+    """The channel-mix parameters with the JAX package's logical axes."""
     d, ff = cfg.d_model, cfg.d_ff
 
-    def w(shape, scale):
-        return common.truncated_normal(gen, shape, scale, dtype, device)
+    def w(shape, axes, scale):
+        return dense_init(gen, shape, axes, dtype, device, scale)
 
     return {
-        "mu_k": torch.zeros(d, dtype=F32, device=device),
-        "mu_r": torch.zeros(d, dtype=F32, device=device),
-        "wk": w((d, ff), d ** -0.5),
-        "wv": w((ff, d), ff ** -0.5),
-        "wr": w((d, d), d ** -0.5),
+        "mu_k": zeros_init((d,), ("embed_nofsdp",), F32, device),
+        "mu_r": zeros_init((d,), ("embed_nofsdp",), F32, device),
+        "wk": w((d, ff), ("embed", "mlp"), d ** -0.5),
+        "wv": w((ff, d), ("mlp", "embed"), ff ** -0.5),
+        "wr": w((d, d), ("embed", "mlp"), d ** -0.5),
     }
 
 

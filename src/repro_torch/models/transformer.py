@@ -45,9 +45,16 @@ same effect, so a serve never allocates a cache (core/state.StatePool).
 tensor of data-dependent shape, so the slot engine captures it in a CUDA
 graph (serving/tick.py), MoE layers included (``models/moe.py``).  An MoE
 layer dispatches drop-free on every path but the training forward
-(``forward(inference=False)``), so decode equals the forward.  The
-sequence-parallel time-mix waits for its slice (ROADMAP Queue 1,
-"Distributed, launch and checkpoint").
+(``forward(inference=False)``), so decode equals the forward.
+
+The residual stream and the logits pass through ``partitioning.constrain``
+at the JAX package's places (the activation sequence axis is "seq_model"
+for a ``seq_shard`` config): under ``use_rules`` on one device that is the
+identity, no copy and no launch, also inside a captured tick.
+``init_params_annot``/``init_cache_annot`` give the trees with their
+logical axes and ``abstract_params``/``abstract_cache`` the same as meta
+tensors.  The sequence-parallel time-mix waits for a mesh of more than one
+device (ROADMAP Queue 1 item 3).
 """
 from __future__ import annotations
 
@@ -57,6 +64,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mamba, mlp, moe, rwkv
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.partitioning import (Annot, constrain, dense_init, split,
+                                      stack_axes, zeros_init)
 
 F32 = torch.float32
 #: the aux losses an MoE layer returns, which ``forward`` sums over layers
@@ -114,28 +123,85 @@ def _rwkv(cfg: ModelConfig) -> bool:
     return cfg.ssm is not None and cfg.ssm.kind == "rwkv6"
 
 
+def _init_slot_annot(gen: torch.Generator, cfg: ModelConfig, slot: int,
+                     dtype, device) -> dict:
+    """Slot ``slot``'s annotated block, as the JAX package chooses it:
+    attention, an rwkv6 time-mix or a Mamba mix, then the rwkv6
+    channel-mix, MoE (where ``cfg.layer_is_moe(slot)``) or a dense MLP."""
+    if cfg.layer_kind(slot) == "attn":
+        mix = attention.init_attention_annot(gen, cfg, dtype, device)
+    elif _rwkv(cfg):
+        mix = rwkv.init_tmix_annot(gen, cfg, dtype, device)
+    else:
+        mix = mamba.init_mamba_annot(gen, cfg, dtype, device)
+    if _rwkv(cfg):
+        init_mlp = rwkv.init_cmix_annot
+    elif cfg.layer_is_moe(slot):
+        init_mlp = moe.init_moe_annot
+    else:
+        init_mlp = mlp.init_mlp_annot
+    mlp_p = init_mlp(gen, cfg, dtype, device)
+    return {"ln1": common.init_norm_annot(cfg.d_model, cfg.norm, F32, device),
+            "mix": mix,
+            "ln2": common.init_norm_annot(cfg.d_model, cfg.norm, F32, device),
+            "mlp": mlp_p}
+
+
 def _init_slot(gen: torch.Generator, cfg: ModelConfig, slot: int, dtype,
                device) -> dict:
-    """Slot ``slot``'s block, as the JAX package chooses it: attention, an
-    rwkv6 time-mix or a Mamba mix, then the rwkv6 channel-mix, MoE (where
-    ``cfg.layer_is_moe(slot)``) or a dense MLP."""
-    if cfg.layer_kind(slot) == "attn":
-        mix = attention.init_attention(gen, cfg, dtype, device)
-    elif _rwkv(cfg):
-        mix = rwkv.init_tmix(gen, cfg, dtype, device)
+    """One group of slot ``slot``: ``_init_slot_annot``'s tensors."""
+    return split(_init_slot_annot(gen, cfg, slot, dtype, device))[0]
+
+
+def init_params_annot(cfg: ModelConfig, gen: torch.Generator | None,
+                      device: str | torch.device = "cpu") -> dict:
+    """Annotated parameter tree (``partitioning.Annot`` leaves: the tensor
+    and the JAX package's logical axes; ``init_params`` describes the
+    tensors).  On the ``meta`` device nothing is drawn or allocated and
+    ``gen`` may be None (``abstract_params``)."""
+    _check_ported(cfg)
+    dtype = _dtype(cfg)
+    d, K = cfg.d_model, cfg.n_codebooks
+    p: dict = {}
+    if K:
+        p["audio_embed"] = dense_init(gen, (K, cfg.vocab, d),
+                                      (None, "vocab", "embed"), dtype, device,
+                                      scale=d ** -0.5)
     else:
-        mix = mamba.init_mamba(gen, cfg, dtype, device)
-    if _rwkv(cfg):
-        init_mlp = rwkv.init_cmix
-    elif cfg.layer_is_moe(slot):
-        init_mlp = moe.init_moe
-    else:
-        init_mlp = mlp.init_mlp
-    mlp_p = init_mlp(gen, cfg, dtype, device)
-    return {"ln1": common.init_norm(cfg.d_model, cfg.norm, F32, device),
-            "mix": mix,
-            "ln2": common.init_norm(cfg.d_model, cfg.norm, F32, device),
-            "mlp": mlp_p}
+        p["embed"] = common.init_embedding_annot(gen, cfg.vocab, d, dtype,
+                                                 device)
+    if cfg.n_vis_tokens:
+        p["vis_proj"] = {
+            "in": common.init_linear_annot(gen, cfg.vis_dim, d,
+                                           ("embed_nofsdp", "embed"), dtype,
+                                           device, bias=True),
+            "out": common.init_linear_annot(gen, d, d,
+                                            ("embed", "embed_nofsdp"), dtype,
+                                            device, bias=True)}
+    p["blocks"] = []
+    n = _n_groups(cfg)
+    for slot in range(cfg.period):
+        stacked = None
+        for g in range(n):
+            group = _init_slot_annot(gen, cfg, slot, dtype, device)
+            if stacked is None:
+                stacked = tree_map(lambda a: Annot(
+                    a.value.new_empty((n, *a.value.shape)),
+                    stack_axes(a.axes)), group)
+            tree_map(lambda dst, src: dst.value[g].copy_(src.value),
+                     stacked, group)
+            del group                 # freed before the next group's draw
+        p["blocks"].append(stacked)
+    p["final_norm"] = common.init_norm_annot(d, cfg.norm, F32, device)
+    if K:
+        p["audio_heads"] = dense_init(gen, (K, d, cfg.vocab),
+                                      (None, "embed", "vocab"), dtype, device,
+                                      scale=d ** -0.5)
+    elif not cfg.tie_embeddings:
+        p["lm_head"] = common.init_linear_annot(gen, d, cfg.vocab,
+                                                ("embed", "vocab"), dtype,
+                                                device)
+    return p
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
@@ -149,40 +215,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     with codebooks, else ``lm_head`` unless the embeddings are tied.  Each
     stacked leaf is allocated once and filled group by group, so the draw
     holds one group's tensors beside the stack, not a second copy of the
-    slot."""
-    _check_ported(cfg)
-    dtype = _dtype(cfg)
-    d, K = cfg.d_model, cfg.n_codebooks
-    p: dict = {}
-    if K:
-        p["audio_embed"] = common.truncated_normal(
-            gen, (K, cfg.vocab, d), d ** -0.5, dtype, device)
-    else:
-        p["embed"] = common.init_embedding(gen, cfg.vocab, d, dtype, device)
-    if cfg.n_vis_tokens:
-        p["vis_proj"] = {
-            "in": common.init_linear(gen, cfg.vis_dim, d, dtype, device,
-                                     bias=True),
-            "out": common.init_linear(gen, d, d, dtype, device, bias=True)}
-    p["blocks"] = []
-    n = _n_groups(cfg)
-    for slot in range(cfg.period):
-        stacked = None
-        for g in range(n):
-            group = _init_slot(gen, cfg, slot, dtype, device)
-            if stacked is None:
-                stacked = tree_map(lambda t: t.new_empty((n, *t.shape)),
-                                   group)
-            tree_map(lambda dst, src: dst[g].copy_(src), stacked, group)
-            del group                 # freed before the next group's draw
-        p["blocks"].append(stacked)
-    p["final_norm"] = common.init_norm(d, cfg.norm, F32, device)
-    if K:
-        p["audio_heads"] = common.truncated_normal(
-            gen, (K, d, cfg.vocab), d ** -0.5, dtype, device)
-    elif not cfg.tie_embeddings:
-        p["lm_head"] = common.init_linear(gen, d, cfg.vocab, dtype, device)
-    return p
+    slot.  The tensors of ``init_params_annot``: one draw."""
+    return split(init_params_annot(cfg, gen, device))[0]
+
+
+def abstract_params(cfg: ModelConfig) -> tuple[dict, dict]:
+    """(meta-tensor tree, axes tree) of ``init_params``: shapes and dtypes
+    at any width with nothing allocated or drawn."""
+    return split(init_params_annot(cfg, None, "meta"))
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +246,46 @@ def _zero_slot(cfg: ModelConfig, slot: int, batch: int, device) -> dict:
             "shift_c": torch.zeros(batch, d, dtype=dtype, device=device)}
 
 
+#: the logical axes of each recurrent state of a slot (the JAX package's
+#: ``init_cache``), before the leading "layers"
+STATE_AXES = {"shift_t": ("batch", "embed_nofsdp"),
+              "wkv": ("batch", "heads", None, None),
+              "shift_c": ("batch", "embed_nofsdp"),
+              "conv": ("batch", None, "mlp"),
+              "h": ("batch", "mlp", None)}
+
+
+def init_cache_annot(cfg: ModelConfig, batch: int, max_seq: int,
+                     device: str | torch.device = "cpu", *,
+                     per_lane_pos: bool = False) -> dict:
+    """Annotated zero decode cache (``init_cache`` describes the tensors;
+    the axes are the JAX package's).  The per-lane ``pos`` (B,), which the
+    JAX package's cache lacks, takes the axes its shape implies:
+    ("batch",)."""
+    _check_ported(cfg)
+    n = _n_groups(cfg)
+    slots = []
+    for s in range(cfg.period):
+        if cfg.layer_kind(s) == "attn":
+            slots.append(attention.init_cache_slot_annot(
+                cfg, n, batch, max_seq, _dtype(cfg), device))
+        else:
+            slots.append({k: Annot(v.expand(n, *v.shape).clone(),
+                                   stack_axes(STATE_AXES[k])) for k, v in
+                          _zero_slot(cfg, s, batch, device).items()})
+    pos_shape, pos_axes = ((batch,), ("batch",)) if per_lane_pos \
+        else ((), ())
+    return {"pos": zeros_init(pos_shape, pos_axes, torch.int32, device),
+            "slots": slots}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int
+                   ) -> tuple[dict, dict]:
+    """(meta-tensor tree, axes tree) of ``init_cache``, nothing
+    allocated."""
+    return split(init_cache_annot(cfg, batch, max_seq, "meta"))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                device: str | torch.device = "cpu", *,
                per_lane_pos: bool = False) -> dict:
@@ -214,26 +294,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     continuous batching decodes with) and per slot, for
     attention, ``k``/``v`` (groups, B, S_c, Hkv, dh) in the model dtype
     with S_c = ``max_seq`` (the window, for a ring; int8 values and f32
-    scales with ``kv_quant``: ``attention.init_cache_slot``); for rwkv6,
+    scales with ``kv_quant``: ``attention.init_cache_slot_annot``); for rwkv6,
     the token-shift states ``shift_t``/``shift_c`` (groups, B, d) in the
     model dtype and the wkv state (groups, B, H, dh, dh) f32; for mamba
     the conv window ``conv`` (groups, B, dc-1, di) in the model dtype and
     the ssm state ``h`` (groups, B, di, ds) f32.  A recurrent state does
     not grow with ``max_seq``.  On the ``meta`` device it is the
-    shape-and-dtype spec a StatePool builds its buffers from."""
-    _check_ported(cfg)
-    n = _n_groups(cfg)
-    slots = []
-    for s in range(cfg.period):
-        if cfg.layer_kind(s) == "attn":
-            slots.append(attention.init_cache_slot(cfg, n, batch, max_seq,
-                                                   _dtype(cfg), device))
-        else:
-            slots.append({k: v.expand(n, *v.shape).clone() for k, v in
-                          _zero_slot(cfg, s, batch, device).items()})
-    pos_shape = (batch,) if per_lane_pos else ()
-    return {"pos": torch.zeros(pos_shape, dtype=torch.int32, device=device),
-            "slots": slots}
+    shape-and-dtype spec a StatePool builds its buffers from.  The
+    tensors of ``init_cache_annot``."""
+    return split(init_cache_annot(cfg, batch, max_seq, device,
+                                  per_lane_pos=per_lane_pos))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -269,6 +339,7 @@ def _apply_block(slot_p: dict, cfg: ModelConfig, slot: int,
     lane mask (or None).  Returns the new activations, the block's new
     recurrent states (new tensors; an attention block writes its cache
     slot in place and returns none) and an MoE block's aux (else None)."""
+    x = constrain(x, ("batch", _sax(cfg), None))
     h = common.apply_norm(slot_p["ln1"], x, cfg.norm)
     if cfg.layer_kind(slot) == "attn":
         if mode == "decode":
@@ -299,6 +370,12 @@ def _apply_block(slot_p: dict, cfg: ModelConfig, slot: int,
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
+def _sax(cfg: ModelConfig) -> str:
+    """Logical name of the activation sequence axis (sequence parallelism
+    shards it over 'model' for cfg.seq_shard archs)."""
+    return "seq_model" if cfg.seq_shard else "seq"
+
+
 def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
                  ) -> torch.Tensor:
     """(B, S, d) in the model dtype.  Audio: ``tokens`` (B, K, S), the K
@@ -313,7 +390,7 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
         for k in range(cfg.n_codebooks):
             x = x + params["audio_embed"][k][toks[:, k]]
         return x
-    x = params["embed"][toks]
+    x = constrain(params["embed"][toks], ("batch", _sax(cfg), None))
     if cfg.n_vis_tokens and "vis_embeds" in batch:
         vp = params["vis_proj"]
         v = common.apply_linear(vp["in"], batch["vis_embeds"].to(x.dtype))
@@ -326,12 +403,16 @@ def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
               ) -> torch.Tensor:
     """f32 logits of x (B, S, d), softcapped: (B, S, V), or with audio
     codebooks each head's, (B, K, S, V)."""
+    sax = _sax(cfg)
+    x = constrain(x, ("batch", sax, None))
     if cfg.n_codebooks:
         logits = torch.einsum("bsd,kdv->bksv", x, params["audio_heads"])
+        logits = constrain(logits, ("batch", None, sax, "vocab"))
     elif cfg.tie_embeddings:
-        logits = x @ params["embed"].T
+        logits = constrain(x @ params["embed"].T, ("batch", sax, "vocab"))
     else:
-        logits = common.apply_linear(params["lm_head"], x)
+        logits = constrain(common.apply_linear(params["lm_head"], x),
+                           ("batch", sax, "vocab"))
     return common.softcap(logits.to(F32), cfg.logit_softcap)
 
 

@@ -53,7 +53,8 @@ def test_the_scan_sees_the_whole_port():
             "configs/qwen2_0_5b.py", "configs/yi_9b.py", "models/moe.py",
             "configs/olmoe_1b_7b.py", "configs/qwen3_moe_30b_a3b.py",
             "configs/internvl2_1b.py", "configs/musicgen_large.py",
-            "models/registry.py"} <= names
+            "models/registry.py", "partitioning.py", "launch/mesh.py",
+            "core/factorization.py"} <= names
     assert _imported_modules(ROOT / "tests" / "test_torch_plans.py").count(
         "repro.partitioning") == 1    # the scanner does see such imports
 
@@ -87,3 +88,29 @@ def test_the_analysis_half_is_scanned_and_stands_alone(name):
     assert path in FILES
     assert not [n for n in _imported_modules(path)
                 if n.split(".")[0] in FORBIDDEN]
+
+
+@pytest.mark.parametrize("name", ["partitioning.py", "launch/mesh.py",
+                                  "core/factorization.py"])
+def test_the_partitioning_half_is_scanned_and_stands_alone(name):
+    """The cost model, the partitioning rules and the meshes are among the
+    files the scan reads, and import neither jax nor the JAX package."""
+    path = PORT / name
+    assert path in FILES
+    assert not [n for n in _imported_modules(path)
+                if n.split(".")[0] in FORBIDDEN]
+
+
+def test_nothing_starts_a_process_group():
+    """No module of the port, no line of ``chip_smoke.py`` and no example
+    calls ``init_process_group``: on one card there is no rendezvous to
+    wait for, and the multi-device paths are not ported yet."""
+    calls = []
+    for path in FILES:
+        tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, "id", getattr(node.func, "attr", "")) \
+                    == "init_process_group":
+                calls.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    assert not calls, calls
