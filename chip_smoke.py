@@ -153,8 +153,18 @@ launches equal), serves it through the slot engine with its tick captured
 inside the rules and outside (tokens and launches equal), and builds
 every architecture's abstract parameter and cache trees at full width
 with their specs on the host mesh and the abstract (16, 16) mesh, with
-``torch.cuda.memory_allocated()`` unchanged.
-It times each kernel beside its plain version, one PyTorch library call
+``torch.cuda.memory_allocated()`` unchanged.  The multi-device paths
+(``multidevice_slice``): D2 starts 4 gloo ranks on the one card as a
+(1, 4) mesh; each draws the full-width parameters from one seed and holds
+RWKV6-3B's sequence-parallel time-mix (B 4 x S 512, 128 tokens a rank,
+f32 and bf16; one K6 a rank, K6t and K6b under autograd, the plain scans
+armed to raise) and OLMoE-1B-7B's expert-parallel MoE layer (16 experts
+a rank, drop-free and at the training capacity) against the
+single-device paths on the full inputs, forward and gradients, and each
+rank's collectives to their count and bytes; the time-mix's f32
+gradients also against a float64 autograd of the plain time-mix, seqpar
+within twice the one-device path's error there.  It prints no time for
+them.  It times each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work (``repro_torch.analysis``).
 
@@ -4653,6 +4663,411 @@ def mesh_slice(device, counted, counts, only) -> dict:
                          for k in launched[True]}}
 
 
+#: D2's ranks: a (1, 4) mesh of gloo ranks sharing the one card
+D2_WORLD = 4
+#: D2's time-mix and MoE configs (full width), its batch and sequence
+D2_ARCHS = ("rwkv6-3b", "olmoe-1b-7b")
+D2_B, D2_S = 4, 512
+#: the f32 bounds of the JAX package's tests/test_distributed.py: the MoE
+#: forward and gradients, the time-mix output and state, its shift
+EP_TOL, EP_GRAD_TOL = dict(rtol=2e-4, atol=2e-4), dict(rtol=3e-4, atol=3e-4)
+SEQPAR_TOL, SHIFT_TOL = dict(rtol=4e-4, atol=4e-4), dict(rtol=1e-5, atol=1e-5)
+#: an MoE output or gradient in bf16: within this share of the largest
+BF16_SHARE = 3e-2
+
+
+def d2_leaves(mesh, tree, axes):
+    """``tree``'s tensors as DTensors on ``mesh`` by logical ``axes`` (a
+    tree of axes tuples, or one for a tensor), as differentiable leaves.
+    Every rank holds the same full tensors, so ``device_put`` sends
+    nothing."""
+    from repro_torch import partitioning as pt
+    from repro_torch.optim.adamw import tree_map
+
+    rules = pt.make_rules(mesh)
+    placed = pt.device_put(tree, pt.tree_shardings(axes, tree, rules))
+    return tree_map(lambda t: t.detach().requires_grad_(), placed)
+
+
+def leaf_names(tree, prefix: str = "") -> list[str]:
+    """The names of ``tree``'s leaves in ``tree_leaves``' order (dict keys
+    sorted), nested keys joined by dots."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def tmix_f64_grads(p, cfg, x, xp, s0) -> list:
+    """The gradients of D2's time-mix loss, sum(out^2) + sum(shift^2) +
+    sum(state^2), in float64 over the whole sequence: the port's plain
+    time-mix (``_apply_tmix_local`` at ``chunked_xla``) with its f32 casts
+    (``rwkv.F32``, ``common.F32``) raised to float64 for the call, on
+    float64 copies of the inputs.  The truth D2's two f32 paths are
+    measured against: leaves of x, params in ``tree_leaves``' order."""
+    from repro_torch.models import common, rwkv
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    saved = rwkv.F32, common.F32
+    rwkv.F32 = common.F32 = torch.float64
+    try:
+        whole = [t.detach().double().requires_grad_() for t in (x, xp, s0)]
+        q = tree_map(lambda t: t.detach().double().requires_grad_(), p)
+        out, sh, st = rwkv._apply_tmix_local(q, cfg, *whole,
+                                             plan="chunked_xla")
+        check(out.dtype == sh.dtype == st.dtype == torch.float64,
+              "D2 f64 time-mix: not computed in float64")
+        return list(torch.autograd.grad(
+            (out ** 2).sum() + (sh ** 2).sum() + (st ** 2).sum(),
+            whole + tree_leaves(q)))
+    finally:
+        rwkv.F32, common.F32 = saved
+
+
+def d2_tmix(mesh, dtype, dev, arch: str) -> dict:
+    """RWKV6-3B's time-mix at full width through the sequence-parallel path
+    on ``mesh`` against one K6 over the whole sequence on this rank; in
+    f32 also the gradients.  Returns this rank's errors, launches and
+    collectives."""
+    from repro_torch import analysis
+    from repro_torch import partitioning as pt
+    from repro_torch.configs import get_arch
+    from repro_torch.core import plans
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import wkv6 as wkv6_k
+    from repro_torch.models import rwkv
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = get_arch(arch)
+    gen = torch.Generator(device=dev).manual_seed(7)     # alike on every rank
+    p = pt.split(rwkv.init_tmix_annot(gen, cfg, dtype, dev))[0]
+    p = {k: v + 0.1 * torch.randn(v.shape, generator=gen, device=dev)
+         if k in ("maa_x", "maa", "u") else v for k, v in p.items()}
+    B, S, d = D2_B, D2_S, cfg.d_model
+    H, dh = rwkv.n_heads(cfg), cfg.ssm.head_dim
+    x = (torch.randn(B, S, d, generator=gen, device=dev) * 0.5).to(dtype)
+    xp = (torch.randn(B, d, generator=gen, device=dev) * 0.5).to(dtype)
+    s0 = torch.randn(B, H, dh, dh, generator=gen, device=dev) * 0.3
+    m = mesh.shape["model"]
+    j = mesh.device_mesh.get_local_rank("model")
+    mine = slice(j * S // m, (j + 1) * S // m)
+    axes = [("batch", "seq_model", None), ("batch", None),
+            ("batch", None, None, None)]
+    p_axes = tree_map(lambda t: (None,) * t.dim(), p)
+    rules = pt.make_rules(mesh)
+    counted = (wkv6_k.wkv6, wkv6_k.wkv6_traj, wkv6_k.wkv6_bwd)
+    arms = ((wkv6_k, "wkv6_plain"), (wkv6_k, "wkv6_traj_plain"),
+            (wkv6_k, "wkv6_bwd_plain"), (ref, "wkv6"), (ref, "wkv6_traj"),
+            (ref, "wkv6_stepwise"), (rwkv, "wkv_chunked"))
+
+    def seqpar(grad: bool):
+        xs = d2_leaves(mesh, [x, xp, s0], axes)
+        dp = d2_leaves(mesh, p, p_axes)
+        reset_counts(*counted)
+        with pt.use_rules(rules), tripwires(*arms), \
+                torch.set_grad_enabled(grad):
+            got = {}
+            out = analysis.count_collectives(
+                lambda: got.update(o=rwkv.apply_tmix(dp, cfg, *xs)))
+        launches = {fn.__name__: fn.launches for fn in counted}
+        return got["o"], out, launches, xs + tree_leaves(dp)
+
+    with torch.no_grad():
+        want = rwkv.apply_tmix(p, cfg, x, xp, s0)
+    (out, shift, state), colls, launched, _ = seqpar(False)
+    tol = SEQPAR_TOL if dtype == torch.float32 \
+        else plans.RWKV_TOL["bfloat16"]
+    errs = {"out": close(out.to_local(), want[0][:, mine], "D2 out", tol),
+            "state": close(state.to_local(), want[2], "D2 state", tol),
+            "shift": close(shift.to_local(), want[1], "D2 shift",
+                           SHIFT_TOL if dtype == torch.float32 else tol)}
+    if dev.type == "cuda":
+        check(launched == {"wkv6": 1, "wkv6_traj": 0, "wkv6_bwd": 0},
+              f"D2 seqpar {dtype} launches {launched}, one K6 expected")
+    res = {"errs": errs, "collectives": colls, "launches": launched}
+    if dtype != torch.float32:
+        return res
+
+    # the gradients of sum(out^2) + sum(state^2) + sum(shift^2): every
+    # rank's loss holds its shard of out and the replicated outputs whole
+    (out, shift, state), _, _, leaves = seqpar(True)
+    loss = sum((t.to_local() ** 2).sum() for t in (out, shift, state))
+    got = torch.autograd.grad(loss, leaves)
+    launched = {fn.__name__: fn.launches for fn in counted}
+    whole = [t.clone().requires_grad_() for t in (x, xp, s0)]
+    one = tree_map(lambda t: t.clone().requires_grad_(), p)
+    o1, sh1, st1 = rwkv.apply_tmix(one, cfg, *whole)
+    want = torch.autograd.grad((o1 ** 2).sum() + (sh1 ** 2).sum()
+                               + (st1 ** 2).sum(), whole + tree_leaves(one))
+    check(len(got) == len(want), "D2 seqpar: the leaves differ")
+    # both sides run K6t and K6b (over 4 x 128 tokens and the carry's
+    # products, and over 512), the same f32 sums in another order: each
+    # leaf held at 3e-4 with the atol scaled by its max|grad|, as A7 holds
+    # two orders of f32 sums.  At full width the one-device path is itself
+    # off the float64 truth by more than 3e-4 absolute on leaves of
+    # max|grad| 1e2 to 5e3 (up to 7e-3 on tm_w1's): the witness below
+    rtol = 3e-4
+    gerr = 0.0                          # the worst error over its max|grad|
+    for i, (g, w) in enumerate(zip(got, want)):     # x, x_prev, s0, params
+        w = w[:, mine] if i == 0 else w
+        m = float(w.abs().max())
+        gerr = max(gerr, close(g.to_local(), w, f"D2 grad of leaf {i}",
+                               dict(rtol=rtol, atol=rtol * m)) / (m or 1))
+    if dev.type == "cuda":
+        check(launched == {"wkv6": 0, "wkv6_traj": 1, "wkv6_bwd": 1},
+              f"D2 seqpar grads launches {launched}: K6t and K6b expected")
+    res["errs"]["grads"] = gerr
+    res["grad_launches"] = launched
+    # the witness of that bound: both f32 paths against the float64 truth,
+    # each leaf's worst errors and, at the entry where the two paths
+    # differ most, each path's error there
+    truth = tmix_f64_grads(p, cfg, x, xp, s0)
+    witness = {}
+    for i, (name, g, w, t) in enumerate(zip(
+            ["x", "x_prev", "s0"] + leaf_names(p), got, want, truth)):
+        g, w = g.to_local().double(), w.double()
+        t = t[:, mine] if i == 0 else t
+        w = w[:, mine] if i == 0 else w
+        at = int((g - w).abs().argmax())
+        witness[name] = {
+            "max_grad": float(t.abs().max()),
+            "seqpar_vs_one": float((g - w).abs().max()),
+            "seqpar_vs_f64": float((g - t).abs().max()),
+            "one_vs_f64": float((w - t).abs().max()),
+            "at_worst": [float((g - t).flatten()[at]),
+                         float((w - t).flatten()[at])]}
+    res["witness"] = witness
+    return res
+
+
+def d2_moe(mesh, dtype, dev, arch: str) -> dict:
+    """OLMoE-1B-7B's MoE layer at full width through the expert-parallel
+    path on ``mesh`` (E / m experts a rank) against the dense path on this
+    rank, drop-free and at the training capacity, forward and gradients.
+    Returns this rank's errors and collectives."""
+    from repro_torch import analysis
+    from repro_torch import partitioning as pt
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import tree_map
+
+    cfg = get_arch(arch)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    p = moe.init_moe(gen, cfg, dtype, dev)
+    x = torch.randn(D2_B, D2_S, cfg.d_model, generator=gen,
+                    device=dev).to(dtype)
+    E_loc = cfg.moe.n_experts // mesh.shape["model"]
+    j = mesh.device_mesh.get_local_rank("model")
+    mine = slice(j * E_loc, (j + 1) * E_loc)
+    p_axes = {k: ("experts", None, None) if k != "router" else (None, None)
+              for k in p}
+    rules = pt.make_rules(mesh)
+    f32 = dtype == torch.float32
+    res = {"errs": {}, "collectives": {}}
+    for no_drop in (True, False):
+        tag = "no_drop" if no_drop else "capacity"
+        dx = d2_leaves(mesh, x, ("batch", "seq", None))
+        dp = d2_leaves(mesh, p, p_axes)
+        with pt.use_rules(rules):
+            got = {}
+            colls = analysis.count_collectives(lambda: got.update(
+                o=moe.apply_moe(dp, dx, cfg, no_drop=no_drop)))
+        out, aux = got["o"]
+        one = tree_map(lambda t: t.clone().requires_grad_(), p)
+        x1 = x.clone().requires_grad_()
+        want, want_aux = moe.apply_moe(one, x1, cfg, no_drop=no_drop)
+        # the output is replicated: every rank's loss holds it whole
+        g = torch.autograd.grad((out.to_local().float() ** 2).sum(),
+                                [dp[k] for k in sorted(p)] + [dx])
+        w = torch.autograd.grad((want.float() ** 2).sum(),
+                                [one[k] for k in sorted(p)] + [x1])
+        pairs = [(k, a.to_local(), b[mine] if k != "router" else b)
+                 for k, a, b in zip(sorted(p), g, w)]
+        pairs.append(("x", g[-1].to_local(), w[-1]))
+        out, want = out.to_local().detach(), want.detach()
+        check(aux["moe_drop_frac"].to_local().item()
+              == want_aux["moe_drop_frac"].item(),
+              f"D2 EP {tag}: drop fractions differ")
+        if f32:
+            errs = {"out": close(out, want, f"D2 EP {tag} out", EP_TOL)}
+            for k in ("moe_load_balance", "moe_z_loss"):
+                errs[k] = close(aux[k].to_local().detach(),
+                                want_aux[k].detach(), f"D2 EP {tag} {k}",
+                                EP_TOL)
+            # JAX's gradient bound as the rtol, the atol scaled by each
+            # leaf's max|grad| (full-width sums over 2048 tokens, in
+            # another order: the combine's psum), as A7 holds gradients
+            errs["grads"] = max(
+                close(a, b, f"D2 EP {tag} grad {k}",
+                      dict(rtol=EP_GRAD_TOL["rtol"],
+                           atol=EP_GRAD_TOL["atol"] * float(b.abs().max())))
+                / float(b.abs().max() or 1) for k, a, b in pairs)
+        else:
+            errs = {}
+            for k, a, b in [("out", out, want)] + pairs:
+                err = float((a.float() - b.float()).abs().max())
+                scale = float(b.float().abs().max())
+                check(err <= BF16_SHARE * scale,
+                      f"D2 EP {tag} bf16 {k}: max abs err {err:.3e} over "
+                      f"{BF16_SHARE} x max {scale:.3e}")
+                errs[k] = err
+        res["errs"][tag] = errs
+        res["collectives"][tag] = colls
+        del dx, dp, got, out, aux, one, x1, want, want_aux, g, w, pairs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def d2_rank(rank: int, world: int, tmp: str, device_type: str = "cuda",
+            archs: tuple[str, str] = D2_ARCHS) -> None:
+    """One rank of D2: joins the gloo group in ``tmp``, builds the (1,
+    world) mesh, runs ``d2_tmix`` and ``d2_moe`` in f32 and bf16 and writes
+    its results to ``tmp/rank<rank>.json``.  A failed check raises here,
+    and the rank exits nonzero."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.launch import mesh as mesh_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = mesh_lib.group_mesh(("data", "model"), (1, world), dev)
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            res[f"tmix {name}"] = d2_tmix(mesh, dtype, dev, archs[0])
+            res[f"moe {name}"] = d2_moe(mesh, dtype, dev, archs[1])
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def expected_collectives(cfg_t, cfg_m, world: int, j: int, dtype) -> dict:
+    """What rank ``j`` of the (1, ``world``) mesh sends in one seqpar call
+    and one EP call: 7 permutes of the shift, the two rounds' (D, A) and
+    the exclusive pair (a round's last ranks send nothing) and 2
+    all-reduces of (state, shift); the EP combine in the model dtype and
+    the dropped count."""
+    item = torch.finfo(dtype).bits // 8
+    H, dh = cfg_t.d_model // cfg_t.ssm.head_dim, cfg_t.ssm.head_dim
+    shift = D2_B * cfg_t.d_model * item
+    D, A = D2_B * H * dh * 4, D2_B * H * dh * dh * 4
+    strides = [2 ** i for i in range(math.ceil(math.log2(world)))]
+    sends = sum(j < world - s for s in strides) + (j < world - 1)
+    return {"tmix": {"collective-permute": [3 + 2 * len(strides),
+                                            shift + sends * (D + A)],
+                     "all-reduce": [2, A + shift]},
+            "moe": {"all-reduce": [2, D2_B * D2_S * cfg_m.d_model * item
+                                   + 4]}}
+
+
+def multidevice_slice(device, counted, world: int = D2_WORLD,
+                      archs: tuple[str, str] = D2_ARCHS) -> dict:
+    """D2: the multi-device paths on ``world`` gloo ranks sharing the one
+    card, as a (1, world) mesh: each rank draws the full-width parameters
+    and inputs from one seed, runs RWKV6-3B's sequence-parallel time-mix
+    (d 2560, 40 heads of 64, B 4 x S 512, 128 tokens a rank) and
+    OLMoE-1B-7B's expert-parallel MoE layer (64 experts, top 8, d 2048, ff
+    1024, 16 experts a rank, 4 x 512 tokens) in f32 and bf16, and holds
+    them against the single-device paths on the full inputs: the time-mix
+    at JAX's f32 bounds (its gradients too) and the rwkv6 family's bf16
+    tolerance, one K6 a rank forward and one K6t and one K6b under
+    autograd with the plain scans armed to raise; the MoE drop-free and at
+    the training capacity, forward and gradients at JAX's f32 bounds and
+    bf16 within 3e-2 of the largest value.  The time-mix's f32 gradients
+    are also taken in float64 (``tmix_f64_grads``): seqpar must be off
+    that truth by at most twice what the one-device path is, on every
+    leaf.  Each rank's collectives are held to the count and the bytes
+    the paths send.  No time is printed:
+    four ranks on one card say nothing of the paths' speed on four.
+    Returns the launches of the ranks, summed."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_arch
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=d2_rank,
+                             args=(r, world, tmp, device.type, archs))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=max(600 - (time.perf_counter() - t0), 1))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"D2: the ranks exited {codes}")
+        ranks = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    cfg_t, cfg_m = get_arch(archs[0]), get_arch(archs[1])
+    launches = {fn.__name__: 0 for fn in counted}
+    for j, res in enumerate(ranks):
+        for name, dtype in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            want = expected_collectives(cfg_t, cfg_m, world, j, dtype)
+            t, m = res[f"tmix {name}"], res[f"moe {name}"]
+            check(t["collectives"] == want["tmix"],
+                  f"D2 rank {j} seqpar {name}: collectives "
+                  f"{t['collectives']}, {want['tmix']} expected")
+            for tag, colls in m["collectives"].items():
+                check(colls == want["moe"],
+                      f"D2 rank {j} EP {name} {tag}: collectives {colls}, "
+                      f"{want['moe']} expected")
+            for k, n in list(t["launches"].items()) + list(
+                    t.get("grad_launches", {}).items()):
+                launches[k] += n
+            print(f"[D2] rank {j} {name}: seqpar {cfg_t.name} time-mix "
+                  f"(B {D2_B} x S {D2_S}, {D2_S // world} tokens a rank) "
+                  f"max abs err {t['errs']}, launches {t['launches']}"
+                  f"{', grads ' + str(t['grad_launches']) if 'grad_launches' in t else ''}"
+                  f"; collectives {t['collectives']}; EP {cfg_m.name} MoE "
+                  f"({cfg_m.moe.n_experts // world} experts a rank) max abs "
+                  f"err {m['errs']}; collectives {m['collectives']}")
+    # the witness of the gradient bound: each leaf's errors against the
+    # float64 truth over the ranks, and at the entry where seqpar and one
+    # device differ most (from that rank).  Seqpar must be no farther
+    # from the truth than twice the one-device path (K6t/K6b over the
+    # whole sequence): what the two then disagree by is f32 rounding
+    for name in ranks[0]["tmix float32"]["witness"]:
+        ws = [res["tmix float32"]["witness"][name] for res in ranks]
+        w = max(ws, key=lambda e: e["seqpar_vs_one"])
+        sp = max(e["seqpar_vs_f64"] for e in ws)
+        one = max(e["one_vs_f64"] for e in ws)
+        print(f"[D2] witness, f32 grad of {name}: max|grad| "
+              f"{max(e['max_grad'] for e in ws):.6e}; seqpar vs one device "
+              f"{w['seqpar_vs_one']:.3e}; vs f64: seqpar {sp:.3e}, one "
+              f"device {one:.3e}; at the entry where the two differ most, "
+              f"off f64 by {w['at_worst'][0]:.3e} and "
+              f"{w['at_worst'][1]:.3e}")
+        check(sp <= 2 * one, f"D2 witness {name}: seqpar off f64 by "
+              f"{sp:.3e}, more than twice the one-device path's {one:.3e}")
+    print(f"[D2] {world} gloo ranks on one card as a (1, {world}) mesh: "
+          f"every rank's outputs, gradients, launches and collectives held; "
+          f"no time taken (NCCL across cards is not run); {CARD['line']}")
+    return {"launches": launches}
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     if not torch.cuda.is_available():
@@ -6394,10 +6809,12 @@ def main() -> None:
     half = profiler_slice(device, counted, counts, only)
     paper = factorization_slice(device, counted, counts, only)
     meshed = mesh_slice(device, counted, counts, only)
+    spmd = multidevice_slice(device, counted)
     for entry in kernels:
         entry["launches"] += half["launches"].get(entry["name"], 0) \
             + paper["launches"].get(entry["name"], 0) \
-            + meshed["launches"].get(entry["name"], 0)
+            + meshed["launches"].get(entry["name"], 0) \
+            + spmd["launches"].get(entry["name"], 0)
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    half["errs"].get(entry["name"], 0.0))
     print(card)

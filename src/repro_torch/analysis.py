@@ -22,9 +22,13 @@ JAX package's ``analysis.py``).
   ``bound``, the least time the card could take for them.  ``chip_smoke.py``
   prices its kernel table with these.
 * ``Roofline``: one card's compute and memory terms of a step.
+* **Collective accounting** (the twin of ``collective_bytes``):
+  ``count_collectives`` gives one call's collectives on this rank, by
+  JAX's HLO kind names, from ``partitioning.COLLECTIVES``.
 
-Not here yet: the JAX package's Pallas grid-step counter and its HLO
-collective parser; the collective term of ``Roofline`` is 0 on one card.
+Not here yet: the JAX package's Pallas grid-step counter, its HLO parser
+and ``ici_seconds`` (there is no HLO to read; they wait for the dry run);
+the collective term of ``Roofline`` is 0 on one card.
 """
 from __future__ import annotations
 
@@ -94,6 +98,28 @@ def count_train_launches(loss_fn: Callable, params: Any, *args,
     loss = loss_fn(params, *args, **kw)
     torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
     return _total(on_card) - before
+
+
+def count_collectives(fn: Callable, *args, **kw
+                      ) -> dict[str, tuple[int, int]]:
+    """This rank's collectives in one call ``fn(*args, **kw)``: ``{kind:
+    (calls, bytes)}`` by JAX's HLO kind names (``collective-permute``,
+    ``all-reduce``, ``all-gather``, ...), the bytes those this rank sent
+    (a permute counts on every rank, its bytes only where the rank sends).
+    Read from ``partitioning.COLLECTIVES``, which the shard_map
+    collectives and the explicit redistributions of ``constrain`` and
+    ``shard_map`` write; a DTensor op's own redistributions are not
+    counted."""
+    from repro_torch import partitioning as pt
+
+    before = {k: tuple(v) for k, v in pt.COLLECTIVES.items()}
+    fn(*args, **kw)
+    out = {}
+    for kind, (calls, nbytes) in pt.COLLECTIVES.items():
+        c0, b0 = before.get(kind, (0, 0))
+        if calls > c0:
+            out[kind] = (calls - c0, nbytes - b0)
+    return out
 
 
 # ---------------------------------------------------------------------------

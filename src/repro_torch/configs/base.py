@@ -64,9 +64,8 @@ class ModelConfig:
     # audio: number of EnCodec codebooks (parallel token streams)
     n_codebooks: int = 0
     # shard the sequence dim of activations over a 'model' mesh axis
-    # (sequence parallelism: the activations' logical axis "seq_model";
-    # the sequence-parallel time-mix is not ported yet, ROADMAP Queue 1
-    # item 3)
+    # (sequence parallelism: the activations' logical axis "seq_model",
+    # and the time-mix's sequence-parallel path, rwkv._apply_tmix_seqpar)
     seq_shard: bool = False
     # int8 KV cache (per-token-per-head scales)
     kv_quant: bool = False

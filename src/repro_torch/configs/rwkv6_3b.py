@@ -20,7 +20,7 @@ CONFIG = ModelConfig(
     norm="ln",
     ssm=SSMConfig(kind="rwkv6", head_dim=64, lora_rank=64, chunk=32),
     seq_shard=True,           # read by the partitioning rules and the
-                              # sequence-parallel time-mix, which is not
-                              # ported yet (ROADMAP Queue 1 item 3)
+                              # sequence-parallel time-mix
+                              # (models/rwkv._apply_tmix_seqpar)
     source="arXiv:2404.05892",
 )

@@ -10,26 +10,39 @@ chips as (data=16, model=16); multi-pod = 2 pods as (pod=2, data=16,
 model=16).  The 'pod' axis carries only data parallelism, 'model' carries
 tensor/expert/sequence parallelism, 'data' carries batch + FSDP weight
 sharding.  On one H100 the host mesh is (data=1, model=1), where every
-placement is the identity.  A ``torch.distributed`` ``DeviceMesh`` over a
-mesh of more than one device waits for the distributed paths (ROADMAP
-Queue 1 item 3); nothing here starts a process group.
+placement is the identity.
+
+A mesh of more than one device runs SPMD over a ``torch.distributed``
+process group, one rank a device: when a group is running and its world
+size equals the mesh's size, the mesh holds a ``DeviceMesh`` over the
+group's ranks with the same axis names in the same order (the twin of the
+JAX package's ``jax.sharding.Mesh``), which ``partitioning.device_put``,
+``constrain`` and ``shard_map`` place and communicate over.  Nothing here
+starts a process group: the caller does (a test, ``chip_smoke.py`` or
+``torchrun``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """``axis_names`` with ``axis_sizes``; ``devices`` in row-major order
-    over the axes, or None for an abstract mesh."""
+    over the axes, or None for an abstract mesh; ``device_mesh`` the
+    ``DeviceMesh`` over a process group's ranks (``group_mesh``), or None
+    outside one."""
 
     axis_names: tuple[str, ...]
     axis_sizes: tuple[int, ...]
     devices: tuple[torch.device, ...] | None = None
+    device_mesh: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.axis_sizes):
@@ -92,9 +105,33 @@ def abstract_production_mesh(*, multi_pod: bool = False, data: int = 16,
     return Mesh(axes, shape)
 
 
+def group_mesh(axis_names: tuple[str, ...], axis_sizes: tuple[int, ...],
+               device: str | torch.device = "cuda") -> Mesh:
+    """A mesh over the running process group's ranks, row-major over the
+    axes, each rank on ``device`` (every rank the same device: ranks share
+    one card or the CPU).  Its ``device_mesh`` is the group's
+    ``DeviceMesh`` with the same axis names.  Raises unless a group runs
+    whose world size is the mesh's size."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = math.prod(axis_sizes)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise RuntimeError(f"mesh {axis_sizes} needs a process group of {n} "
+                           f"ranks, found {world}")
+    device = torch.device(device)
+    dm = init_device_mesh(device.type, tuple(axis_sizes),
+                          mesh_dim_names=tuple(axis_names))
+    return Mesh(tuple(axis_names), tuple(axis_sizes), (device,) * n, dm)
+
+
 def make_host_mesh(device: str | torch.device = "cuda") -> Mesh:
-    """Tiny mesh on the real local device(s) of ``device`` for tests,
-    examples and the trainer: every device on ``data``, ``model`` of 1 —
-    (data=1, model=1) on one card or the CPU."""
+    """Tiny mesh for tests, examples and the trainer: every device on
+    ``data``, ``model`` of 1.  Over the running process group's ranks
+    (``group_mesh``), else over the local devices of ``device`` ((data=1,
+    model=1) on one card or the CPU)."""
+    if dist.is_initialized():
+        return group_mesh(("data", "model"), (dist.get_world_size(), 1),
+                          device)
     devices = local_devices(device)
     return Mesh(("data", "model"), (len(devices), 1), tuple(devices))

@@ -29,17 +29,22 @@ distinct, so the scatter is deterministic and decode equals the forward.
 Training keeps the capacity bound; its dropped slots all land in row E,
 whose contents are discarded.
 
-The expert-parallel path of the JAX package (``_apply_moe_ep``, a
-``shard_map`` over a 'model' mesh axis) is not ported: it needs a mesh of
-more than one device (ROADMAP Queue 1 item 3).  The dense path marks the
-expert buffer and the output with ``partitioning.constrain``, as the JAX
-package does; on one device that is the identity.
+On a mesh of more than one device whose 'model' axis divides the experts
+(``partitioning.use_rules`` over a process group), a (B, S, d) input takes
+the JAX package's expert-parallel path (``_apply_moe_ep``, a
+``partitioning.shard_map``): each rank routes its batch shard's tokens
+into its own E/m experts in the same fixed-shape forms, and the partial
+outputs are combined with one ``psum`` over 'model', taken in the model
+dtype.  The dense path marks the expert buffer and the output with
+``partitioning.constrain``, as the JAX package does; on one device that
+is the identity.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import partitioning as pt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.partitioning import constrain, dense_init, split
@@ -101,12 +106,37 @@ def route(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig
 
 def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               no_drop: bool = False) -> tuple[torch.Tensor, dict]:
-    """x: (..., d) -> (the same shape and dtype, aux), the JAX package's
-    dense dispatch.  ``aux`` holds 0-d f32 tensors: ``moe_load_balance``
-    (switch style, E x sum of mean router probability times top-1 share),
-    ``moe_z_loss`` (mean squared logsumexp of the router logits) and
-    ``moe_drop_frac`` (the share of the T x K slots dropped).  Tokens are
-    routed by ``route``."""
+    """x: (..., d) -> (the same shape and dtype, aux).  ``aux`` holds 0-d
+    f32 tensors: ``moe_load_balance`` (switch style, E x sum of mean router
+    probability times top-1 share), ``moe_z_loss`` (mean squared
+    logsumexp of the router logits) and ``moe_drop_frac`` (the share of
+    the T x K slots dropped).  Tokens are routed by ``route``.
+
+    As in the JAX package, under ``use_rules`` with a 'model' axis m > 1
+    that divides the experts, a (B, S, d) input takes the expert-parallel
+    path (``_apply_moe_ep``); otherwise the dense dispatch
+    (``_apply_moe_dense``)."""
+    rules = pt.active_rules()
+    if rules is not None:
+        m = rules.mesh.shape.get("model", 1)
+        if m > 1 and cfg.moe.n_experts % m == 0 and x.ndim == 3:
+            return _apply_moe_ep(p, x, cfg, rules, no_drop)
+    return _apply_moe_dense(p, x, cfg, no_drop)
+
+
+def _experts(p: dict, expert_in: torch.Tensor) -> torch.Tensor:
+    """The batched expert MLPs: (E, C, d) -> (E, C, d)."""
+    if "wg" in p:
+        h = F.silu(torch.bmm(expert_in, p["wg"])) * torch.bmm(expert_in,
+                                                              p["wu"])
+    else:
+        h = common.gelu(torch.bmm(expert_in, p["wi"]))
+    return torch.bmm(h, p["wd"])
+
+
+def _apply_moe_dense(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                     no_drop: bool) -> tuple[torch.Tensor, dict]:
+    """The JAX package's dense dispatch on one device."""
     moe = cfg.moe
     shape = x.shape
     d = shape[-1]
@@ -132,12 +162,7 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     expert_in = constrain(buf[:E], ("experts", None, None))     # (E, C, d)
 
     # --- the experts, batched ---------------------------------------------
-    if "wg" in p:
-        h = F.silu(torch.bmm(expert_in, p["wg"])) * torch.bmm(expert_in,
-                                                              p["wu"])
-    else:
-        h = common.gelu(torch.bmm(expert_in, p["wi"]))
-    expert_out = torch.bmm(h, p["wd"])                          # (E, C, d)
+    expert_out = _experts(p, expert_in)                         # (E, C, d)
 
     # --- gather back and combine ------------------------------------------
     out_k = expert_out[dst_e % E, dst_c]                        # (T*K, d)
@@ -155,3 +180,76 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
            "moe_z_loss": torch.square(torch.logsumexp(logits, -1)).mean(),
            "moe_drop_frac": 1.0 - keep.to(F32).mean()}
     return out.reshape(shape).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# Expert-parallel shard_map path (the JAX package's ``_apply_moe_ep``).
+#
+# Layout: token activations are batch-sharded over ('pod', 'data') and
+# REPLICATED over 'model'; the expert weights are sharded over 'model'
+# (E_loc = E / m experts a rank).  Every rank routes its local tokens,
+# scatters the slots bound for ITS experts into a local (E_loc + 1, C, d)
+# buffer (no traffic for the dispatch: the tokens are already there), runs
+# its expert products, and the partial outputs are combined with ONE psum
+# over 'model' a layer, in the model dtype (the JAX package pins it there
+# with ``_dtype_pin``: an f32 combine would send twice the bytes).
+# Capacity is enforced per data shard (C = cf x T_loc x K / E).
+# ---------------------------------------------------------------------------
+def _apply_moe_ep(p: dict, x: torch.Tensor, cfg: ModelConfig, rules,
+                  no_drop: bool) -> tuple[torch.Tensor, dict]:
+    mesh = rules.mesh
+    moe = cfg.moe
+    E, K = moe.n_experts, moe.top_k
+    E_loc = E // mesh.shape["model"]
+    batch_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+    x_spec = rules.spec_for(("batch", "seq", None), x.shape)
+    p_specs = {k: pt.PartitionSpec() if k == "router"
+               else pt.PartitionSpec("model", None, None) for k in p}
+    aux_spec = {k: pt.PartitionSpec() for k in
+                ("moe_load_balance", "moe_z_loss", "moe_drop_frac")}
+
+    def local_fn(x_loc, p_loc):
+        B, S, d = x_loc.shape
+        xt = x_loc.reshape(-1, d)
+        T = xt.shape[0]
+        C = T if no_drop else capacity(T, cfg)
+        logits, probs, top_p, top_e = route(p_loc["router"], xt, cfg)
+
+        # --- the slots bound for this rank's experts ----------------------
+        lo = pt.axis_index("model") * E_loc
+        flat_e = top_e.reshape(-1)
+        is_local = (flat_e >= lo) & (flat_e < lo + E_loc)
+        local_e = torch.where(is_local, flat_e - lo, E_loc)
+        onehot = (local_e[:, None]
+                  == torch.arange(E_loc, device=x_loc.device)).long()
+        pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
+        kept = is_local & (pos < C)
+        dst_e = torch.where(kept, local_e, E_loc)               # else drop bin
+        dst_c = torch.where(kept, pos, 0)
+
+        xk = xt[:, None, :].expand(T, K, d).reshape(T * K, d)
+        buf = xt.new_zeros(E_loc + 1, C, d).index_put((dst_e, dst_c), xk)
+        expert_out = _experts(p_loc, buf[:E_loc])
+
+        out_k = expert_out[torch.clamp(dst_e, max=E_loc - 1), dst_c]
+        out_k = out_k * kept[:, None].to(out_k.dtype)
+        out_k = out_k * top_p.reshape(-1)[:, None].to(out_k.dtype)
+        partial = out_k.reshape(T, K, d).sum(1).to(x_loc.dtype)
+        out = pt.psum(partial, "model")                 # combine experts
+
+        me = probs.mean(0)
+        ce = (top_e[:, :1] == torch.arange(E, device=x_loc.device)
+              ).to(F32).mean(0)
+        dropped = pt.psum((is_local & ~kept).sum().to(F32), "model")
+        aux = torch.stack([
+            E * torch.sum(me * ce),
+            torch.square(torch.logsumexp(logits, -1)).mean(),
+            dropped / (T * K)])
+        if batch_axes:
+            aux = pt.pmean(aux, batch_axes)
+        return out.reshape(B, S, d), dict(zip(aux_spec, aux.unbind(0)))
+
+    fn = pt.shard_map(local_fn, mesh, in_specs=(x_spec, p_specs),
+                      out_specs=(x_spec, aux_spec))
+    return tuple(fn(x, p))

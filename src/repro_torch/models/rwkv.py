@@ -18,16 +18,22 @@ output is in v's dtype before the head-norm of the full-sequence path (the
 decode step feeds its f32 output to the head-norm, as JAX's does).
 
 Token-shift state and the per-head (dk x dv) wkv state are the recurrent
-state buffers held in the preallocated decode cache (core/state.py).  The
-sequence-parallel time-mix (JAX ``_apply_tmix_seqpar``) is not ported: it
-needs a mesh of more than one device (ROADMAP Queue 1 item 3); the
-partitioning rules it reads are ported (``partitioning.py``).
+state buffers held in the preallocated decode cache (core/state.py).
+
+On a mesh of more than one device (``partitioning.use_rules`` over a
+process group) the time-mix takes DTensors.  A ``seq_shard`` config whose
+sequence splits into at least 4 tokens a rank runs the JAX package's
+sequence-parallel pipeline (``_apply_tmix_seqpar``, the MobiRNN wavefront
+carried across devices); any other runs the single-device body on each
+rank's batch shard (``_apply_tmix_batch``), so the hand kernel sees only
+rank-local tensors either way.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import partitioning as pt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.partitioning import Annot, dense_init, zeros_init
@@ -171,8 +177,29 @@ def apply_tmix(p: dict, cfg: ModelConfig, x: torch.Tensor,
                x_prev: torch.Tensor, state: torch.Tensor,
                plan: str | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence time-mix (the JAX package's single-device
-    ``_apply_tmix_local``).  Returns (out, shift', state')."""
+    """Full-sequence time-mix.  Returns (out, shift', state').
+
+    As in the JAX package, under ``use_rules`` with ``cfg.seq_shard``, a
+    'model' axis m > 1, S % m == 0 and S // m >= 4, the sequence-parallel
+    pipeline runs (``_apply_tmix_seqpar``).  Otherwise the single-device
+    body (``_apply_tmix_local``), on a mesh of more than one device on
+    each rank's batch shard (``_apply_tmix_batch``)."""
+    rules = pt.active_rules()
+    if rules is None:
+        return _apply_tmix_local(p, cfg, x, x_prev, state, plan)
+    m = rules.mesh.shape.get("model", 1)
+    S = x.shape[1]
+    if cfg.seq_shard and m > 1 and S % m == 0 and S // m >= 4:
+        return _apply_tmix_seqpar(p, cfg, x, x_prev, state, rules, plan)
+    return _apply_tmix_batch(p, cfg, x, x_prev, state, rules, plan)
+
+
+def _apply_tmix_local(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                      x_prev: torch.Tensor, state: torch.Tensor,
+                      plan: str | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The single-device time-mix (the JAX package's
+    ``_apply_tmix_local``)."""
     from repro_torch.core import plans as plans_lib
 
     B, S, d = x.shape
@@ -183,6 +210,145 @@ def apply_tmix(p: dict, cfg: ModelConfig, x: torch.Tensor,
     out = common.apply_groupnorm(p["gn"], out.reshape(B, S, d), H)
     out = (out.to(x.dtype) * g) @ p["wo"]
     return out, shift, state
+
+
+def _specs(rules, x: torch.Tensor, state: torch.Tensor, seq: str):
+    """in_specs of the time-mix bodies: x (batch, ``seq``, None), x_prev
+    (batch, None), the state (batch, ...), the parameters replicated."""
+    B, _, d = x.shape
+    return (rules.spec_for(("batch", seq, None), x.shape),
+            rules.spec_for(("batch", None), (B, d)),
+            rules.spec_for(("batch", None, None, None), state.shape),
+            pt.PartitionSpec())
+
+
+def _apply_tmix_batch(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                      x_prev: torch.Tensor, state: torch.Tensor, rules,
+                      plan: str | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The single-device body on each rank's batch shard, the sequence
+    whole and the parameters replicated: the path of a mesh of more than
+    one device where the sequence does not shard.  The wkv scan has no
+    DTensor sharding rule (on the card it is the hand kernel), so the
+    inputs are redistributed to these specs explicitly; ranks along
+    'model' compute the same outputs."""
+    x_spec, b_spec, st_spec, p_spec = _specs(rules, x, state, "seq")
+
+    def local_fn(x_loc, xp_loc, s_loc, p_loc):
+        return _apply_tmix_local(p_loc, cfg, x_loc, xp_loc, s_loc, plan)
+
+    fn = pt.shard_map(local_fn, rules.mesh,
+                      in_specs=(x_spec, b_spec, st_spec, p_spec),
+                      out_specs=(x_spec, b_spec, st_spec))
+    return tuple(fn(x, x_prev, state, p))
+
+
+def _apply_tmix_seqpar(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       x_prev: torch.Tensor, state: torch.Tensor, rules,
+                       plan: str | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sequence-parallel time-mix (the JAX package's ``_apply_tmix_seqpar``,
+    step for step).
+
+    Activations arrive sequence-sharded over the 'model' axis.  Everything
+    per token (ddlerp, projections, head-norm, gating) is rank-local; the
+    cross-rank parts are
+
+      1. token shift: the last token of shard i is the shift input of
+         shard i+1 — one (B, d) cyclic ``ppermute``;
+      2. the wkv state carry: each shard's scan is affine in its incoming
+         state, ``S_out = D ⊙ S_in + A`` with D = exp(Σ logw) and A the
+         scan from a zero state, so the global recurrence is an exclusive
+         prefix over shards of affine maps: ceil(log2 m) Hillis-Steele
+         rounds of ``ppermute``s of (D, A), then one exclusive permute;
+      3. one correction product folding the incoming state into the local
+         outputs: out_t += (r_t ⊙ exp(L_prev,t)) @ S_in, in f32.
+
+    The final state and the shift state are masked to the last shard and
+    ``psum``med over 'model'.  The one difference from the JAX package: the
+    scan from zero runs the registered plan (``plan`` or ``WKV_PLAN``; on
+    the card K6, under autograd K6t and K6b, whose final-state cotangent
+    carries the prefix's gradient), where JAX calls ``wkv_chunked``."""
+    from repro_torch.core import plans as plans_lib
+
+    m_size = rules.mesh.shape["model"]
+    H, dh = n_heads(cfg), cfg.ssm.head_dim
+    d = x.shape[-1]
+    wkv_fn = plans_lib.RWKV_PLANS[plan or WKV_PLAN]
+    x_spec, b_spec, st_spec, p_spec = _specs(rules, x, state, "seq_model")
+
+    def local_fn(x_loc, x_prev_g, s0_g, p_loc):
+        idx = pt.axis_index("model")
+        dev = x_loc.device
+
+        def mask(flag: bool) -> torch.Tensor:
+            # a rank-dependent select as a tensor: every rank builds the
+            # same graph, so the collectives' backwards meet
+            return torch.tensor(flag, device=dev)
+
+        B_loc, S_loc = x_loc.shape[0], x_loc.shape[1]
+        # --- 1. token shift across the shard boundary ------------------
+        recv = pt.ppermute(x_loc[:, -1], "model",
+                           [(i, (i + 1) % m_size) for i in range(m_size)])
+        xp = torch.where(mask(idx == 0), x_prev_g.to(x_loc.dtype), recv)
+        r, k, v, g, logw, _ = _project(p_loc, cfg, x_loc, xp)
+
+        # --- 2. local scan from zero + affine summary ------------------
+        chunk = cfg.ssm.chunk
+        while S_loc % chunk:
+            chunk -= 1
+        zero = torch.zeros((B_loc, H, dh, dh), dtype=F32, device=dev)
+        out0, a_loc = wkv_fn(r, k, v, logw, p_loc["u"], zero, chunk=chunk)
+        d_loc = torch.exp(logw.to(F32).sum(1))                  # B,H,dk
+
+        # inclusive Hillis-Steele prefix of (D, A) over the model axis
+        d_agg, a_agg = d_loc, a_loc
+        shift_amt = 1
+        while shift_amt < m_size:
+            perm = [(i, i + shift_amt) for i in range(m_size - shift_amt)]
+            d_r = pt.ppermute(d_agg, "model", perm)
+            a_r = pt.ppermute(a_agg, "model", perm)
+            has = mask(idx >= shift_amt)
+            # compose: earlier segment (recv) then mine:
+            #   D = D_mine * D_recv ; A = D_mine ⊙ A_recv + A_mine
+            d_new = torch.where(has, d_agg * d_r, d_agg)
+            a_new = torch.where(has, d_agg[..., None] * a_r + a_agg, a_agg)
+            d_agg, a_agg = d_new, a_new
+            shift_amt *= 2
+        # exclusive prefix = inclusive of shard i-1 (shard 0: global s0)
+        perm1 = [(i, i + 1) for i in range(m_size - 1)]
+        a_excl = pt.ppermute(a_agg, "model", perm1)
+        d_excl = pt.ppermute(d_agg, "model", perm1)
+        s0 = s0_g.to(F32)
+        s_in = torch.where(mask(idx == 0), s0,
+                           a_excl + d_excl[..., None] * s0)
+
+        # --- 3. fold the carry into local outputs ----------------------
+        lw32 = logw.to(F32)
+        l_prev = torch.cumsum(lw32, dim=1) - lw32                # B,S,H,dk
+        carry = torch.einsum("bshk,bhkv->bshv",
+                             r.to(F32) * torch.exp(l_prev), s_in)
+        out = out0 + carry
+
+        # final state (replicated): inclusive aggregate of the last shard
+        last = mask(idx == m_size - 1)
+        s_fin = a_agg + d_agg[..., None] * s0
+        s_fin = pt.psum(torch.where(last, s_fin, torch.zeros_like(s_fin)),
+                        "model")
+        # shift state = globally-last token (replicated)
+        tail = x_loc[:, -1]
+        shift = pt.psum(torch.where(last, tail, torch.zeros_like(tail)),
+                        "model")
+
+        out = common.apply_groupnorm(p_loc["gn"],
+                                     out.reshape(B_loc, S_loc, d), H)
+        out = (out.to(x_loc.dtype) * g) @ p_loc["wo"]
+        return out, shift.to(x_loc.dtype), s_fin
+
+    fn = pt.shard_map(local_fn, rules.mesh,
+                      in_specs=(x_spec, b_spec, st_spec, p_spec),
+                      out_specs=(x_spec, b_spec, st_spec))
+    return tuple(fn(x, x_prev, state, p))
 
 
 def step_tmix(p: dict, cfg: ModelConfig, x: torch.Tensor,

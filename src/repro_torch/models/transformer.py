@@ -53,19 +53,26 @@ for a ``seq_shard`` config): under ``use_rules`` on one device that is the
 identity, no copy and no launch, also inside a captured tick.
 ``init_params_annot``/``init_cache_annot`` give the trees with their
 logical axes and ``abstract_params``/``abstract_cache`` the same as meta
-tensors.  The sequence-parallel time-mix waits for a mesh of more than one
-device (ROADMAP Queue 1 item 3).
+tensors.  On a mesh of more than one device (over a process group) the
+parameters and the batch are DTensors (``partitioning.device_put``): the
+zero states and the aux sums are placed beside them (``partitioning.place``),
+``constrain`` redistributes, the time-mix and the MoE run their
+``shard_map`` paths (sequence- and expert-parallel), and a remat group's
+recompute runs under the rules of its forward.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import partitioning as pt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mamba, mlp, moe, rwkv
 from repro_torch.optim.adamw import tree_leaves, tree_map
-from repro_torch.partitioning import (Annot, constrain, dense_init, split,
-                                      stack_axes, zeros_init)
+from repro_torch.partitioning import (Annot, constrain, dense_init, place,
+                                      split, stack_axes, zeros_init)
 
 F32 = torch.float32
 #: the aux losses an MoE layer returns, which ``forward`` sums over layers
@@ -465,9 +472,14 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     x = embed_inputs(params, cfg, batch)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    zeros = [_zero_slot(cfg, s, B, x.device) for s in range(cfg.period)]
+    # the zero states and the aux sums, placed on a mesh of more than one
+    # device (DTensors meet only DTensors)
+    zeros = [{k: place(v, STATE_AXES[k]) for k, v in
+              _zero_slot(cfg, s, B, x.device).items()}
+             for s in range(cfg.period)]
     aux = {} if cfg.moe is None else {
-        k: torch.zeros((), dtype=F32, device=x.device) for k in MOE_AUX}
+        k: place(torch.zeros((), dtype=F32, device=x.device), ())
+        for k in MOE_AUX}
 
     def group_fn(x, aux, group_p):
         for s, slot_p in enumerate(group_p):
@@ -477,9 +489,17 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
                 aux = {k: aux[k] + layer_aux[k] for k in MOE_AUX}
         return x, aux
 
+    # the backward's recompute runs under the rules of the forward
+    rules = pt.active_rules()
+
+    def recompute_context():
+        return contextlib.nullcontext(), (pt.use_rules(rules) if rules
+                                          else contextlib.nullcontext())
+
     slots = [_groups(p, _n_groups(cfg)) for p in params["blocks"]]
     for group_p in zip(*slots):
-        x, aux = (checkpoint(group_fn, x, aux, group_p, use_reentrant=False)
+        x, aux = (checkpoint(group_fn, x, aux, group_p, use_reentrant=False,
+                             context_fn=recompute_context)
                   if remat else group_fn(x, aux, group_p))
     x = common.apply_norm(params["final_norm"], x, cfg.norm)
     return lm_logits(params, cfg, x), aux

@@ -18,25 +18,27 @@ equal to the JAX package's ``PartitionSpec``s as tuples.  A
 
 On a mesh of one device every placement and ``constrain`` is the
 identity: the tensor itself comes back, with no copy, launch or host read.
-The multi-device paths (DTensor placement, a ``DeviceMesh`` from
-``torch.distributed``, the sequence-parallel wkv and the expert-parallel
-MoE) are not ported yet: on a mesh of more than one device ``constrain``
-and ``device_put`` raise rather than silently leaving tensors where they
-are.  The JAX package's ``shard_map`` version shim has no twin; the
-distributed paths replace its call sites.
+
+A mesh of more than one device runs SPMD over a ``torch.distributed``
+process group (the mesh's ``DeviceMesh``, launch/mesh.py), the twin of
+JAX's single controller over a ``jax.sharding.Mesh``: every rank runs the
+same program on its shards.  ``device_put`` makes DTensors, ``constrain``
+redistributes a DTensor (``with_sharding_constraint``'s twin) and refuses
+a plain tensor, and ``shard_map`` runs a body on rank-local tensors with
+the collectives ``axis_index``, ``ppermute``, ``psum`` and ``pmean`` over
+a mesh axis (the sequence-parallel time-mix and the expert-parallel MoE).
+Each collective counts its calls and the bytes this rank sends, by JAX's
+HLO kind names, in ``COLLECTIVES`` (``analysis.count_collectives``).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Any, Callable, Mapping, Sequence
 
 import torch
-
-#: What the multi-device paths wait for (the error ``constrain`` raises).
-MULTI_DEVICE = ("a mesh of more than one device is not supported yet: the "
-                "distributed paths (DTensor placement, sequence-parallel "
-                "wkv, expert-parallel MoE) are ROADMAP Queue 1 item 3")
+import torch.distributed as dist
 
 # ---------------------------------------------------------------------------
 # Logical axis names used throughout the framework.
@@ -197,19 +199,312 @@ class use_rules:
         _ACTIVE_RULES.pop()
 
 
+def active_rules() -> AxisRules | None:
+    """The innermost ``use_rules`` rules when their mesh has more than one
+    device, else None: the one test by which a model takes its
+    multi-device path (on one device every placement is the identity)."""
+    if _ACTIVE_RULES and mesh_size(_ACTIVE_RULES[-1].mesh) > 1:
+        return _ACTIVE_RULES[-1]
+    return None
+
+
 def constrain(x: Any, logical_axes: Sequence[str | None]) -> Any:
     """``x`` itself: outside ``use_rules``, and inside it on a mesh of one
     device, where a sharding constraint is the identity (only the axes'
     rank is checked against ``x.shape``; no copy, no launch, no read of a
     device value, so it is safe inside CUDA-graph capture).  On a larger
-    mesh it raises ``NotImplementedError``."""
+    mesh ``x`` must be a DTensor on the mesh's ``DeviceMesh``: it is
+    redistributed to the axes' placements (``with_sharding_constraint``'s
+    twin); a plain tensor raises ``TypeError`` rather than stay
+    replicated."""
     if not _ACTIVE_RULES:
         return x
     rules = _ACTIVE_RULES[-1]
-    if mesh_size(rules.mesh) > 1:
-        raise NotImplementedError(f"constrain: {MULTI_DEVICE}")
-    rules.spec_for(logical_axes, x.shape)
+    spec = rules.spec_for(logical_axes, x.shape)
+    if mesh_size(rules.mesh) == 1:
+        return x
+    return _redistribute(_as_dtensor(x, rules.mesh, "constrain"),
+                         NamedSharding(rules.mesh, spec).placements())
+
+
+# ---------------------------------------------------------------------------
+# A mesh of more than one device: DTensors, the shard_map twin and its
+# collectives.
+#
+# Every rank runs the same program.  Outside a shard_map body tensors are
+# DTensors on the mesh's DeviceMesh; inside one they are this rank's
+# shards, and the collectives below talk over one mesh axis's group.  The
+# differentiation rules are those of the JAX package's
+# ``shard_map(check_rep=False)``: the cotangent of an output that is
+# replicated over an axis (its spec does not name it) is divided by the
+# axis size on entering the body's backward, a ``psum``'s backward is a
+# ``psum`` (so a psum whose result is replicated passes its cotangent
+# through unchanged), a ``ppermute``'s the inverse permutation (a rank that
+# receives nothing gets zeros), and the gradient of an input that enters
+# replicated over an axis is summed over that axis (the copy-to /
+# reduce-from pair).  Together they give the single-device gradient of a
+# loss every rank computes alike, also for an output the body computes
+# alike on every rank (the MoE's aux losses).  A collective's backward is a
+# collective, so every rank must build the same autograd graph: a body
+# selects with ``torch.where`` on a rank-dependent mask, never with a
+# Python branch on ``axis_index``.
+# ---------------------------------------------------------------------------
+#: calls and bytes this rank sent, by JAX's HLO collective kind
+#: ("collective-permute", "all-reduce", "all-gather", "reduce-scatter",
+#: "all-to-all"); never reset, read as deltas (``analysis.count_collectives``)
+COLLECTIVES: collections.defaultdict[str, list[int]] = \
+    collections.defaultdict(lambda: [0, 0])
+
+
+def _count(kind: str, nbytes: int) -> None:
+    COLLECTIVES[kind][0] += 1
+    COLLECTIVES[kind][1] += nbytes
+
+
+def _device_mesh(mesh: Any, what: str) -> Any:
+    dm = getattr(mesh, "device_mesh", None)
+    if dm is None:
+        raise RuntimeError(
+            f"{what}: mesh {dict(mesh.shape)} spans {mesh_size(mesh)} "
+            "devices but holds no DeviceMesh: build it inside a process "
+            "group of that many ranks (launch/mesh.group_mesh)")
+    return dm
+
+
+def _as_dtensor(x: Any, mesh: Any, what: str) -> Any:
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        raise TypeError(
+            f"{what}: a plain {type(x).__name__} on a mesh of "
+            f"{mesh_size(mesh)} devices; place it first (device_put)")
+    if x.device_mesh is not _device_mesh(mesh, what):
+        raise ValueError(f"{what}: a DTensor of another DeviceMesh")
     return x
+
+
+def _redistribute(x: Any, placements: list) -> Any:
+    """``x.redistribute`` to ``placements``, counting the collective each
+    changed mesh dimension implies (its bytes: this rank's shard before the
+    move); ``x`` itself where nothing changes."""
+    src = list(x.placements)
+    if src == list(placements):
+        return x
+    nbytes = x.to_local().numel() * x.element_size()
+    for a, b in zip(src, placements):
+        if a == b or b.is_partial() or (a.is_replicate() and b.is_shard()):
+            continue                        # local: nothing is sent
+        kind = ("all-gather" if a.is_shard() and b.is_replicate() else
+                "all-to-all" if a.is_shard() else
+                "all-reduce" if b.is_replicate() else "reduce-scatter")
+        _count(kind, nbytes)
+    return x.redistribute(x.device_mesh, placements)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Body:
+    """The mesh a shard_map body runs over."""
+    mesh: Any
+    device_mesh: Any
+
+
+_BODIES: list[_Body] = []
+
+
+def _body(what: str) -> _Body:
+    if not _BODIES:
+        raise RuntimeError(f"{what} outside a shard_map body")
+    return _BODIES[-1]
+
+
+def _axes(axis: str | Sequence[str]) -> tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def _host_staged(group: Any, t: torch.Tensor) -> bool:
+    """Whether a collective stages ``t`` through host memory: a CUDA
+    tensor on a gloo group (gloo sends no CUDA tensor point to point and
+    reduces no bf16 one; NCCL takes them as they are)."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _all_reduce(t: torch.Tensor, axes: tuple[str, ...], body: _Body
+                ) -> torch.Tensor:
+    """The sum of ``t`` over the mesh axes ``axes``: one all-reduce per
+    axis of more than one device, counted.  A new tensor."""
+    out = t.clone()
+    for a in axes:
+        if body.mesh.shape[a] == 1:
+            continue
+        group = body.device_mesh.get_group(a)
+        _count("all-reduce", out.numel() * out.element_size())
+        if _host_staged(group, out):
+            host = out.cpu()
+            dist.all_reduce(host, group=group)
+            out.copy_(host)
+        else:
+            dist.all_reduce(out, group=group)
+    return out
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axes, body):
+        ctx.axes, ctx.body = axes, body
+        return _all_reduce(t, axes, body)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_reduce(ct, ctx.axes, ctx.body), None, None
+
+
+def _send_recv(t: torch.Tensor, axis: str, perm: tuple, body: _Body
+               ) -> torch.Tensor:
+    """This rank's row of a permute over ``axis``: ``t`` sent to the
+    index ``perm`` maps this rank's to, the tensor received from the index
+    that maps to it, zeros where none does.  Counted on every rank; the
+    bytes where this rank sends."""
+    group = body.device_mesh.get_group(axis)
+    me = body.device_mesh.get_local_rank(axis)
+    dst = [j for i, j in perm if i == me]
+    src = [i for i, j in perm if j == me]
+    _count("collective-permute", t.numel() * t.element_size() if dst else 0)
+    staged = _host_staged(group, t)
+    send = t.detach().cpu() if staged else t.detach().contiguous()
+    recv = torch.zeros_like(send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, j),
+                      group) for j in dst]
+    ops += [dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, i),
+                       group) for i in src]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return recv.to(t.device) if staged else recv
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, axis, perm, body):
+        ctx.axis, ctx.perm, ctx.body = axis, perm, body
+        return _send_recv(t, axis, perm, body)
+
+    @staticmethod
+    def backward(ctx, ct):
+        inverse = tuple((j, i) for i, j in ctx.perm)
+        return _send_recv(ct, ctx.axis, inverse, ctx.body), None, None, None
+
+
+class _SumGradOver(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over ``axes``: an
+    input entering a body replicated over them (copy-to)."""
+
+    @staticmethod
+    def forward(ctx, t, axes, body):
+        ctx.axes, ctx.body = axes, body
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_reduce(ct, ctx.axes, ctx.body), None, None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward scales the cotangent by ``scale``: an
+    output leaving a body replicated over axes of that many devices."""
+
+    @staticmethod
+    def forward(ctx, t, scale):
+        ctx.scale = scale
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct * ctx.scale, None
+
+
+def axis_index(axis: str) -> int:
+    """This rank's index along mesh axis ``axis`` (``lax.axis_index``),
+    inside a shard_map body."""
+    return _body("axis_index").device_mesh.get_local_rank(axis)
+
+
+def ppermute(x: torch.Tensor, axis: str,
+             perm: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """``lax.ppermute``: index i's ``x`` goes to index j for each (i, j)
+    of ``perm`` along ``axis``; an index nothing is sent to gets zeros.
+    Point to point over the axis's group."""
+    return _PPermute.apply(x, axis, tuple((int(i), int(j)) for i, j in perm),
+                           _body("ppermute"))
+
+
+def psum(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
+    """``lax.psum``: the sum of ``x`` over the mesh axis (or axes)."""
+    return _PSum.apply(x, _axes(axis), _body("psum"))
+
+
+def pmean(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
+    """``lax.pmean``: the mean of ``x`` over the mesh axis (or axes)."""
+    axes = _axes(axis)
+    n = math.prod(_body("pmean").mesh.shape[a] for a in axes)
+    return psum(x, axes) / n
+
+
+def _spec_map(fn: Callable, specs: Any, tree: Any) -> Any:
+    """``fn(tensor, spec)`` over the tensors of ``tree``, ``specs`` a tree
+    of PartitionSpecs of the same structure or a prefix of it (one spec
+    for a whole subtree), as JAX's ``in_specs``/``out_specs``."""
+    if isinstance(specs, PartitionSpec):
+        return _map(lambda t: fn(t, specs),
+                    lambda x: isinstance(x, torch.Tensor), tree)
+    if isinstance(specs, dict):
+        return {k: _spec_map(fn, specs[k], v) for k, v in tree.items()}
+    return [_spec_map(fn, s, t) for s, t in zip(specs, tree, strict=True)]
+
+
+def _unnamed(mesh: Any, spec: PartitionSpec) -> tuple[str, ...]:
+    """The mesh axes of more than one device that ``spec`` does not name:
+    those its tensor is replicated over."""
+    named = {n for e in spec for n in (e if isinstance(e, tuple) else (e,))}
+    return tuple(a for a, n in mesh.shape.items() if n > 1 and a not in named)
+
+
+def shard_map(f: Callable, mesh: Any, in_specs: Any, out_specs: Any
+              ) -> Callable:
+    """The twin of ``jax.shard_map(f, mesh, in_specs, out_specs,
+    check_rep=False)``: called on DTensors (trees of them, as ``in_specs``
+    describes), it redistributes each to its spec's placements, runs ``f``
+    on the rank-local tensors, where ``axis_index``, ``ppermute``, ``psum``
+    and ``pmean`` talk over the mesh's axes, and wraps ``f``'s outputs as
+    DTensors by ``out_specs``.  The differentiation rules are the section
+    comment's.  Hand kernels see only the local tensors."""
+    from torch.distributed.tensor import DTensor
+
+    def enter(t: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+        t = _redistribute(_as_dtensor(t, mesh, "shard_map"),
+                          NamedSharding(mesh, spec).placements())
+        local = t.to_local()
+        axes = _unnamed(mesh, spec)
+        return _SumGradOver.apply(local, axes, body) if axes else local
+
+    def leave(t: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+        n = math.prod(mesh.shape[a] for a in _unnamed(mesh, spec))
+        if n > 1:
+            t = _ScaleGrad.apply(t, 1.0 / n)
+        return DTensor.from_local(t, dm, NamedSharding(mesh, spec)
+                                  .placements(), run_check=False)
+
+    dm = _device_mesh(mesh, "shard_map")
+    body = _Body(mesh, dm)
+
+    def call(*args):
+        local = _spec_map(enter, tuple(in_specs), list(args))
+        _BODIES.append(body)
+        try:
+            out = f(*local)
+        finally:
+            _BODIES.pop()
+        return _spec_map(leave, out_specs, out)
+    return call
 
 
 # ---------------------------------------------------------------------------
@@ -281,13 +576,37 @@ def tree_shardings(axes_tree: Any, value_tree: Any, rules: AxisRules) -> Any:
 
 def device_put(tree: Any, shardings: Any) -> Any:
     """Place each tensor of ``tree`` by its ``NamedSharding``: on a mesh of
-    one device the tensor itself (it already lies on that device); a
-    larger mesh raises ``NotImplementedError``."""
+    one device the tensor itself (it already lies on that device); on a
+    larger one the DTensor that ``distribute_tensor(t, device_mesh,
+    sharding.placements())`` gives, each rank cutting its shard from its
+    own copy of ``t`` (SPMD: every rank holds the same host value, as
+    JAX's ``device_put`` slices one host array), so nothing is sent."""
     def put(t: torch.Tensor, s: NamedSharding) -> torch.Tensor:
-        if mesh_size(s.mesh) > 1:
-            raise NotImplementedError(f"device_put: {MULTI_DEVICE}")
-        return t
+        if mesh_size(s.mesh) == 1:
+            return t
+        from torch.distributed.tensor import DTensor
+        dm = _device_mesh(s.mesh, "device_put")
+        placements = s.placements()
+        local = t
+        for i, pl in enumerate(placements):
+            if pl.is_shard():
+                local = local.chunk(dm.size(i), dim=pl.dim)[
+                    dm.get_local_rank(i)]
+        return DTensor.from_local(local.clone(), dm, placements,
+                                  run_check=False)
     return _map(put, lambda x: isinstance(x, torch.Tensor), tree, shardings)
+
+
+def place(x: torch.Tensor, logical_axes: Sequence[str | None]
+          ) -> torch.Tensor:
+    """A tensor a program makes (a zero state, an accumulator) placed by
+    its logical axes under the active rules: ``x`` itself outside
+    ``use_rules`` and on a mesh of one device, else ``device_put`` (JAX
+    places such a constant by its use; a DTensor program must say so)."""
+    rules = active_rules()
+    if rules is None:
+        return x
+    return device_put(x, rules.sharding_for(logical_axes, x.shape))
 
 
 def stack_axes(axes: tuple[str | None, ...]) -> tuple[str | None, ...]:

@@ -101,16 +101,22 @@ def test_the_partitioning_half_is_scanned_and_stands_alone(name):
                 if n.split(".")[0] in FORBIDDEN]
 
 
-def test_nothing_starts_a_process_group():
-    """No module of the port, no line of ``chip_smoke.py`` and no example
-    calls ``init_process_group``: on one card there is no rendezvous to
-    wait for, and the multi-device paths are not ported yet."""
-    calls = []
-    for path in FILES:
-        tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
-        for node in ast.walk(tree):
+def _process_group_calls(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    return [f"{path.relative_to(ROOT)}:{node.lineno}"
+            for node in ast.walk(tree)
             if isinstance(node, ast.Call) and getattr(
-                    node.func, "id", getattr(node.func, "attr", "")) \
-                    == "init_process_group":
-                calls.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+                node.func, "id", getattr(node.func, "attr", ""))
+            == "init_process_group"]
+
+
+def test_nothing_starts_a_process_group():
+    """No module of the port and no example calls ``init_process_group``:
+    a mesh of more than one device runs over a group its caller starts (a
+    test, ``chip_smoke.py``'s phase D2, or ``torchrun``), never one an
+    import or an entry point starts.  ``chip_smoke.py`` is the one file
+    scanned here that does start one."""
+    calls = [c for path in FILES if path != ROOT / "chip_smoke.py"
+             for c in _process_group_calls(path)]
     assert not calls, calls
+    assert _process_group_calls(ROOT / "chip_smoke.py")

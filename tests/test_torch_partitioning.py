@@ -159,13 +159,17 @@ def test_constrain_is_the_identity_on_one_device():
 @pytest.mark.parametrize("kw", [dict(data=2, model=1), dict(data=16, model=16),
                                 dict(pod=2)])
 def test_constrain_raises_beyond_one_device(kw):
+    """Outside a process group: a plain tensor is refused by ``constrain``
+    (it must not stay replicated), and ``device_put`` finds no
+    DeviceMesh to place on.  tests/test_torch_collectives.py places and
+    constrains DTensors inside one."""
     x = torch.ones(4, 4)
     with pt.use_rules(rules(**kw)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        with pytest.raises(TypeError, match="plain Tensor on a mesh of"):
             pt.constrain(x, ("batch", None))
     shardings = pt.tree_shardings({"x": ("batch", None)}, {"x": x},
                                   rules(**kw))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(RuntimeError, match="holds no DeviceMesh"):
         pt.device_put({"x": x}, shardings)
 
 
