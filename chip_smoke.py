@@ -164,7 +164,22 @@ single-device paths on the full inputs, forward and gradients, and each
 rank's collectives to their count and bytes; the time-mix's f32
 gradients also against a float64 autograd of the plain time-mix, seqpar
 within twice the one-device path's error there.  It prints no time for
-them.  It times each kernel beside its plain version, one PyTorch library call
+them.  The trainer on several ranks (``train_ranks_slice``): D3 trains
+Qwen2-0.5B at full width and depth on 2 gloo ranks on the card as (data=2,
+model=1), parameters and AdamW moments DTensors placed FSDP-style, f32 4
+steps (each loss and grad_norm within 1e-4 of the one-device trainer's,
+2L K8t + L K8b a step a rank with the plain attention armed, step 1's K8b
+against plain, each rank's collectives a step equal to those its specs
+predict) and bf16 2 steps (losses printed); then, on the same ranks as
+(data=1, model=2), serves it in f32 (prefill 4 x 64, 4 decode steps): the
+heads and the cache's sequence split, L K8 a prefill and L K9 a decode
+step on each rank (K9's log-sum-exp combining the cache's slices), the
+gathered logits within 3e-4 of one device.  The production-mesh dry run
+(``dryrun_slice``): D4 runs ``python -m repro_torch.launch.dryrun`` over
+every arch x input shape on pod1 and a case a family on pod2 (meta
+DTensors over a fake group of 256 or 512 ranks), every case passing with
+a non-zero collective term; its roofline terms are modelled.  It times
+each kernel beside its plain version, one PyTorch library call
 computing the same function where there is one, and the least time the
 card could take for the work (``repro_torch.analysis``).
 
@@ -184,6 +199,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1961,6 +1977,7 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         # MusicGen-large's 32/32 x 64; InternVL2-1B's cache behind its prefix
         (4, 32, 32, 517, 64, None, [0, 1, 300, 517]),
         (4, 14, 2, 773, 64, None, [557, 600, 700, 773])]
+    e_lse = {f32: 0.0, bf16: 0.0}
     for B, Hq, Hkv, S, dk, bs, lens in cases:
         if lens is None:
             lens = (torch.arange(1, B + 1) * (S // (B + 1)) + 1).tolist()
@@ -1973,11 +1990,22 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
             q = randn(B, Hq, dk, gen=gen).to(dtype)
             _, kc, vc = attn_inputs(B, S, Hkv, Hkv, dk, dtype, gen)
             got = da.decode_attn(q, kc, vc, lens, block_s=bs)
-            want = da.decode_attn_plain(q, kc, vc, lens, block_s=bl.block_s,
-                                        splits=bl.splits)
+            want, want_lse = da.decode_attn_plain(
+                q, kc, vc, lens, block_s=bl.block_s, splits=bl.splits,
+                with_lse=True)
             e = close(got.float(), want.float(),
                       f"decode_attn {(B, Hq, Hkv, S, dk)} {tuple(bl)} "
                       f"{dtype}", tol[dtype])
+            # the log-sum-exp out (a cache split over ranks combines by
+            # it): the output unchanged, the lse in f32 within f32's bound
+            got_l, lse = da.decode_attn(q, kc, vc, lens, block_s=bs,
+                                        with_lse=True)
+            check(torch.equal(got_l, got), f"decode_attn "
+                  f"{(B, Hq, Hkv, S, dk)} {dtype}: the output moved with "
+                  "the lse out")
+            e_lse[dtype] = max(e_lse[dtype], close(
+                lse, want_lse, f"decode_attn lse {(B, Hq, Hkv, S, dk)} "
+                f"{dtype}", tol[f32]))
             check(torch.equal(got, da.decode_attn(q, kc, vc, lens,
                                                   block_s=bs)),
                   f"decode_attn {(B, Hq, Hkv, S, dk)} {dtype}: two runs "
@@ -2042,6 +2070,9 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         raised = True
     check(raised, "decode_attn f32 32/4 x 128 at block_s 128 (256 KB of "
           "k/v stages) did not raise")
+    print(f"[K9] log-sum-exp out vs plain, every case: max abs err f32 "
+          f"{e_lse[f32]:.3e}, bf16 inputs {e_lse[bf16]:.3e} (2e-4); the "
+          "output bit-equal to the call without it")
     print(f"[K9] max abs err vs plain: f32 {errs['decode_attn'][f32]:.3e}, "
           f"bf16 {errs['decode_attn'][bf16]:.3e}; f32 results within 2e-4 "
           "at block_s 1, 16, 100 (32/4 x 128) and 128 (14/2 x 64); 32/4 x "
@@ -4972,6 +5003,38 @@ def expected_collectives(cfg_t, cfg_m, world: int, j: int, dtype) -> dict:
                                    + 4]}}
 
 
+def _spawn_ranks(target, world: int, args: tuple, limit: float) -> list:
+    """Run ``target(rank, world, tmp, *args)`` on ``world`` spawned ranks,
+    killing them past ``limit`` seconds; each rank's JSON results."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=target, args=(r, world, tmp, *args))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=max(limit - (time.perf_counter() - t0), 1))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"the ranks of {target.__name__} "
+              f"exited {codes}")
+        ranks = []
+        for r in range(world):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    return ranks
+
+
 def multidevice_slice(device, counted, world: int = D2_WORLD,
                       archs: tuple[str, str] = D2_ARCHS) -> dict:
     """D2: the multi-device paths on ``world`` gloo ranks sharing the one
@@ -4992,34 +5055,9 @@ def multidevice_slice(device, counted, world: int = D2_WORLD,
     the paths send.  No time is printed:
     four ranks on one card say nothing of the paths' speed on four.
     Returns the launches of the ranks, summed."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     from repro_torch.configs import get_arch
 
-    ctx = mp.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=d2_rank,
-                             args=(r, world, tmp, device.type, archs))
-                 for r in range(world)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(timeout=max(600 - (time.perf_counter() - t0), 1))
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        codes = [p.exitcode for p in procs]
-        check(codes == [0] * world, f"D2: the ranks exited {codes}")
-        ranks = []
-        for r in range(world):
-            with open(f"{tmp}/rank{r}.json") as f:
-                ranks.append(json.load(f))
+    ranks = _spawn_ranks(d2_rank, world, (device.type, archs), 600)
     cfg_t, cfg_m = get_arch(archs[0]), get_arch(archs[1])
     launches = {fn.__name__: 0 for fn in counted}
     for j, res in enumerate(ranks):
@@ -5066,6 +5104,401 @@ def multidevice_slice(device, counted, world: int = D2_WORLD,
           f"every rank's outputs, gradients, launches and collectives held; "
           f"no time taken (NCCL across cards is not run); {CARD['line']}")
     return {"launches": launches}
+
+
+#: D3: the trainer on 2 gloo ranks sharing the card, as (data=2, model=1)
+D3_ARCH, D3_WORLD = "qwen2-0.5b", 2
+D3_BATCH, D3_SEQ, D3_STEPS, D3_BF16_STEPS = 4, 512, 4, 2
+#: PERF.md section 2's gate for LM training on the card (gradients card vs
+#: CPU at 1e-4): each step's loss and grad_norm on the ranks, relative to
+#: the one-device trainer's on the same seed and batches
+D3_TOL = 1e-4
+#: D3's serve on the (data=1, model=2) mesh: 4 prompts of 64 tokens, 4
+#: decode steps, a cache of 128 slots; the port's prefill + decode
+#: tolerance (tests/test_torch_train_ranks.py's SERVE_TOL)
+D3_SERVE_B, D3_PROMPT, D3_DECODE, D3_CACHE = 4, 64, 4, 128
+D3_SERVE_TOL = 3e-4
+
+
+def d3_predicted(cfg, world: int) -> dict:
+    """What a training step of ``cfg`` sends on each rank of the (data =
+    ``world``, model = 1) host mesh, from the parameters' specs: each leaf
+    that the rules shard over 'data' (FSDP) is all-gathered where a
+    ``shard_map`` body takes it (a layer's twice, the remat recompute
+    gathering again; the embedding twice, for the lookup and the tied
+    head; each call this rank's shard of a layer) and reduce-scattered
+    once a use in the backward (the whole layer's gradient); each
+    replicated bias is all-reduced once a layer in the backward (its
+    gradient summed over 'data'); the norms' scales, used by DTensor ops,
+    once a leaf (their gradients' partial sums); the loss's sum twice
+    (forward, backward) and the gradient norm once, 4 bytes each.
+    {kind: [calls, bytes]}."""
+    from repro_torch import partitioning as pt
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+
+    rules = pt.make_rules(mesh_lib.Mesh(("data", "model"), (world, 1)))
+    values, axes = transformer.abstract_params(cfg)
+    specs = pt.tree_specs(axes, values, rules)
+    out = {"all-gather": [0, 0], "reduce-scatter": [0, 0],
+           "all-reduce": [0, 0]}
+
+    def add(kind, calls, nbytes):
+        out[kind][0] += calls
+        out[kind][1] += nbytes
+
+    leaves = []
+    pt._map(lambda v, spec: leaves.append((v, spec)),
+            lambda x: isinstance(x, torch.Tensor), values, specs)
+    n_groups = cfg.n_layers // cfg.period
+    for (v, spec), path in zip(leaves, _leaf_paths(values)):
+        full = v.numel() * v.element_size()
+        data = any(pt.sharded_over(spec, d, rules.mesh, "data")
+                   for d in range(v.dim()))
+        if path[0] == "blocks":
+            if data:
+                add("all-gather", 2 * n_groups, 2 * full // world)
+                add("reduce-scatter", n_groups, full)
+            elif path[-1] in ("bq", "bk", "bv"):
+                add("all-reduce", n_groups, full)
+            else:                                  # the norms' scales
+                add("all-reduce", 1, full)
+        elif data:                                 # the embedding
+            add("all-gather", 2, 2 * full // world)
+            add("reduce-scatter", 2, 2 * full)
+        else:                                      # the final norm
+            add("all-reduce", 1, full)
+    add("all-reduce", 3, 12)
+    return out
+
+
+def _leaf_paths(tree, prefix=()) -> list:
+    """The key paths of a tree's tensors, in ``partitioning._map``'s
+    order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in _leaf_paths(v, prefix
+                                                                + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, prefix + (i,))]
+    return [prefix]
+
+
+def d3_rank(rank: int, world: int, tmp: str, device_type: str, arch: str,
+            runs: tuple) -> None:
+    """One rank of D3: joins the gloo group in ``tmp`` and, for each
+    (dtype name, steps) of ``runs`` in turn, trains ``arch`` through
+    ``launch/train.train`` on the (data=``world``, model=1) host mesh (the
+    parameters and AdamW moments DTensors, embed over 'data'), the plain
+    attention versions armed to raise on CUDA tensors; counts each step's
+    launches and collectives, keeps the K8b calls of step 1 and, after
+    the run, holds each against its plain version on its own inputs; then
+    ``serve_run``.  Writes ``tmp/rank<rank>.json`` ({dtype name: results,
+    "serve": the serve's}); a failed check
+    raises here and the rank exits nonzero."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch import analysis
+    from repro_torch import steps as steps_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.launch import train as train_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    counted = (fp.flash_prefill, fp.flash_prefill_traj, fp.flash_prefill_bwd)
+    kernel_bwd, train_step = fp.flash_prefill_bwd, steps_lib.train_step
+
+    def one_run(dtype_name: str, steps: int) -> dict:
+        cfg = dataclasses.replace(get_arch(arch), dtype=dtype_name)
+        per_step, colls, captured = [], [], []
+        record = {"on": False}
+
+        def capture(*args, **kwargs):
+            """K8b as the step calls it; step 1's calls kept (inputs and
+            outputs) for the hold after the run.  Its launch counts are
+            carried to the wrapper's."""
+            capture.launches = kernel_bwd.launches
+            capture.tc_launches = kernel_bwd.tc_launches
+            got = kernel_bwd(*args, **kwargs)
+            kernel_bwd.launches = capture.launches
+            kernel_bwd.tc_launches = capture.tc_launches
+            if record["on"]:
+                captured.append(([a.detach().clone() if isinstance(
+                    a, torch.Tensor) else a for a in args], kwargs,
+                    [g.clone() for g in got]))
+            return got
+
+        def counted_step(*args, **kwargs):
+            """A training step with its launches and collectives counted
+            (step 1's K8b calls kept)."""
+            before = {fn.__name__: fn.launches for fn in counted}
+            record["on"] = not per_step
+            res = {}
+            got = analysis.count_collectives(
+                lambda: res.update(out=train_step(*args, **kwargs)))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            per_step.append({fn.__name__: fn.launches - before[fn.__name__]
+                             for fn in counted})
+            colls.append({k: list(v) for k, v in sorted(got.items())})
+            return res["out"]
+
+        fp.flash_prefill_bwd = capture
+        steps_lib.train_step = counted_step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        try:
+            with tripwires(*plain_attention_arms()):
+                rep = train_lm.train(cfg, steps=steps, batch=D3_BATCH,
+                                     seq=D3_SEQ, lr=3e-3, seed=0,
+                                     device=device_type, log_every=1)
+        finally:
+            fp.flash_prefill_bwd = kernel_bwd
+            steps_lib.train_step = train_step
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if dev.type == "cuda" else 0.0)
+        share, err = {}, 0.0
+        for i, (args, kwargs, got) in enumerate(captured):
+            want = fp.flash_prefill_bwd_plain(
+                *args, **kwargs, round_p=args[0].dtype == torch.bfloat16)
+            for n, a, b in zip(("dq", "dk", "dv"), got, want):
+                err = max(err, attn_grad_hold(
+                    a, b, f"D3 rank {rank} {dtype_name} K8b call {i} {n}",
+                    share))
+        return {"losses": rep["losses"], "grad_norms": rep["grad_norms"],
+                "step_ms": rep["step_ms"], "mesh": rep["mesh"],
+                "launches": per_step, "collectives": colls,
+                "peak_gb": peak, "k8b_checked": len(captured),
+                "k8b_err": err}
+
+    def serve_run() -> dict:
+        """Prefill and ``D3_DECODE`` decode steps of ``arch`` (f32) on the
+        (data=1, model=``world``) mesh over the group, the plain attention
+        armed: the heads and the cache's sequence split over 'model', K8 on
+        each rank's heads and K9 over its slice of the cache (its
+        log-sum-exp combining the slices), each counted; the gathered
+        logits against the same steps on one device."""
+        from repro_torch import partitioning as pt
+        from repro_torch.kernels import decode_attn as da
+        from repro_torch.launch import mesh as mesh_lib
+        from repro_torch.models import registry, transformer
+
+        cfg = dataclasses.replace(get_arch(arch), dtype="float32")
+        model = registry.build(cfg)
+        params, axes = pt.split(model.init_annot(
+            torch.Generator(device=dev).manual_seed(0), dev))
+        gen = torch.Generator(device=dev).manual_seed(1)
+        toks = torch.randint(0, cfg.vocab, (D3_SERVE_B, D3_PROMPT),
+                             generator=gen, device=dev)
+        nxt = torch.randint(0, cfg.vocab, (D3_DECODE, D3_SERVE_B),
+                            generator=gen, device=dev)
+        with torch.no_grad():
+            cache = model.init_cache(D3_SERVE_B, D3_CACHE, dev)
+            want = [model.prefill(params, cache, {"tokens": toks})[0][:, 0]]
+            want += [model.decode_step(params, cache, {"tokens": t})[0]
+                     for t in nxt]
+        rules = pt.make_rules(mesh_lib.group_mesh(
+            ("data", "model"), (1, world), device_type))
+        put = lambda t, ax: pt.device_put(t, rules.sharding_for(ax, t.shape))
+        dp = pt.device_put(params, pt.tree_shardings(axes, params, rules))
+        c_vals, c_axes = pt.split(transformer.init_cache_annot(
+            cfg, D3_SERVE_B, D3_CACHE, dev))
+        dc = pt.device_put(c_vals, pt.tree_shardings(c_axes, c_vals, rules))
+        k8, k9 = fp.flash_prefill.launches, da.decode_attn.launches
+        with pt.use_rules(rules), torch.no_grad(), \
+                tripwires(*plain_attention_arms()):
+            got = [model.prefill(dp, dc, {"tokens": put(
+                toks, ("batch", "seq"))})[0][:, 0]]
+            k8 = fp.flash_prefill.launches - k8
+            got += [model.decode_step(dp, dc, {"tokens": put(
+                t, ("batch",))})[0] for t in nxt]
+            k9 = da.decode_attn.launches - k9
+        err = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            err = max(err, close(pt.full_tensor(g), w, f"D3 rank {rank} "
+                                 f"serve step {i}", dict(
+                                     rtol=D3_SERVE_TOL, atol=D3_SERVE_TOL)))
+        return {"flash_prefill": k8, "decode_attn": k9, "err": err,
+                "split": {"heads": cfg.n_heads % world == 0,
+                          "cache_seq": D3_CACHE % world == 0}}
+
+    try:
+        results = {name: one_run(name, steps) for name, steps in runs}
+        results["serve"] = serve_run()
+        with open(f"{tmp}/rank{rank}.json", "w") as f:
+            json.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def train_ranks_slice(device, world: int = D3_WORLD, arch: str = D3_ARCH
+                      ) -> dict:
+    """D3: the trainer on several ranks.  Qwen2-0.5B at full width and
+    depth trained through ``launch/train.train`` on ``world`` gloo ranks
+    spawned on the card as (data=``world``, model=1): the parameters and
+    AdamW moments DTensors placed FSDP-style, batch 4 x 512 (2 rows a
+    rank), remat on, weights from seed 0.  f32, ``D3_STEPS`` steps: each
+    step's loss and grad_norm within ``D3_TOL`` relative of the one-device
+    trainer's on the same seed and batches; each rank launches 2L K8t and
+    L K8b a step and no K8, the plain attention armed to raise; step 1's
+    K8b calls held against their plain version; each rank's collectives a
+    step, by kind and bytes, equal to ``d3_predicted``; peak memory a
+    rank.  Then bf16, ``D3_BF16_STEPS`` steps: the losses printed beside
+    the one-device trainer's, held to no bound.  Then each rank's serve
+    on (data=1, model=``world``) (``serve_run``): L K8 and ``D3_DECODE`` x
+    L K9 launches a rank, the logits within ``D3_SERVE_TOL`` of one
+    device.  Nothing is timed: ranks
+    sharing one card over gloo say nothing of a multi-card step.  Returns
+    the launches of the ranks' f32 and bf16 runs and serves, summed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as train_lm
+
+    launches = {"flash_prefill_traj": 0, "flash_prefill_bwd": 0}
+    runs = (("float32", D3_STEPS), ("bfloat16", D3_BF16_STEPS))
+    t0 = time.perf_counter()
+    by_rank = _spawn_ranks(d3_rank, world, (device.type, arch, runs), 900)
+    print(f"[D3] {world} ranks, {arch}, f32 {D3_STEPS} steps then bf16 "
+          f"{D3_BF16_STEPS} of {D3_BATCH} x {D3_SEQ}: "
+          f"{time.perf_counter() - t0:.1f} s of command (spawn, draws, "
+          "training, the K8b holds)")
+    free_models("D3")
+    for dtype_name, n_steps in runs:
+        cfg = dataclasses.replace(get_arch(arch), dtype=dtype_name)
+        n_attn = sum(cfg.layer_kind(i) == "attn"
+                     for i in range(cfg.n_layers))
+        ranks = [res[dtype_name] for res in by_rank]
+        one = train_lm.train(cfg, steps=n_steps, batch=D3_BATCH, seq=D3_SEQ,
+                             lr=3e-3, seed=0, device=device.type,
+                             log_every=1)
+        del one["params"]
+        want = d3_predicted(cfg, world)
+        for j, res in enumerate(ranks):
+            check(res["mesh"] == {"data": world, "model": 1},
+                  f"D3 rank {j}: mesh {res['mesh']}")
+            print(f"[D3] rank {j} {dtype_name} losses {res['losses']} "
+                  f"(one device {one['losses']}); grad_norm "
+                  f"{res['grad_norms']} (one device {one['grad_norms']})")
+            if dtype_name == "float32":
+                for i, (a, b, ga, gb) in enumerate(zip(
+                        res["losses"], one["losses"], res["grad_norms"],
+                        one["grad_norms"])):
+                    check(abs(a - b) <= D3_TOL * abs(b),
+                          f"D3 rank {j} step {i + 1}: loss {a} vs one "
+                          f"device {b} (rel {abs(a - b) / abs(b):.2e})")
+                    check(abs(ga - gb) <= D3_TOL * abs(gb),
+                          f"D3 rank {j} step {i + 1}: grad_norm {ga} vs "
+                          f"one device {gb}")
+                gap = {k: max(abs(a - b) / abs(b)
+                              for a, b in zip(res[k], one[k]))
+                       for k in ("losses", "grad_norms")}
+                print(f"[D3] rank {j} f32 worst relative gap: loss "
+                      f"{gap['losses']:.3e}, grad_norm "
+                      f"{gap['grad_norms']:.3e} (bound {D3_TOL})")
+            for i, got in enumerate(res["launches"]):
+                if device.type == "cuda":
+                    check(got == {"flash_prefill": 0,
+                                  "flash_prefill_traj": 2 * n_attn,
+                                  "flash_prefill_bwd": n_attn},
+                          f"D3 rank {j} step {i + 1}: launches {got}")
+                for k in launches:
+                    launches[k] += got[k]
+            check(res["k8b_checked"] == n_attn,
+                  f"D3 rank {j}: {res['k8b_checked']} K8b calls of step 1 "
+                  "held")
+            print(f"[D3] rank {j} {dtype_name}: step 1's {n_attn} K8b calls "
+                  f"vs plain, max abs err {res['k8b_err']:.3e}; peak memory "
+                  f"{res['peak_gb']:.3f} GB (torch.cuda.max_memory_allocated"
+                  f", this rank's process); {CARD['line']}")
+            for i, got in enumerate(res["collectives"]):
+                print(f"[D3] rank {j} {dtype_name} step {i + 1} collectives "
+                      f"{got} (predicted {want})")
+                check(got == want, f"D3 rank {j} step {i + 1}: collectives "
+                      f"{got}, {want} predicted")
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    for j, res in enumerate(by_rank):
+        srv = res["serve"]
+        if device.type == "cuda":
+            check(srv["flash_prefill"] == n_attn
+                  and srv["decode_attn"] == n_attn * D3_DECODE,
+                  f"D3 rank {j} serve: launches K8 {srv['flash_prefill']}, "
+                  f"K9 {srv['decode_attn']}")
+        for k in ("flash_prefill", "decode_attn"):
+            launches[k] = launches.get(k, 0) + srv[k]
+        print(f"[D3] rank {j} serve on (data=1, model={world}), split "
+              f"{srv['split']}: prefill {D3_SERVE_B} x {D3_PROMPT} + "
+              f"{D3_DECODE} decode steps, f32; {srv['flash_prefill']} K8 "
+              f"and {srv['decode_attn']} K9 launches (log-sum-exp out, "
+              f"combined over 'model'); logits vs one device max abs err "
+              f"{srv['err']:.3e} ({D3_SERVE_TOL})")
+    return launches
+
+
+def dryrun_slice(device, jobs: int = 8, limit: float = 420.0) -> dict:
+    """D4: the production-mesh dry run, ``python -m
+    repro_torch.launch.dryrun`` in a process of its own (its ``fake``
+    group of 256 or 512 ranks cannot share one with D2's and D3's): every
+    arch x input shape on pod1 and one case a family on pod2, ``jobs``
+    cases at a time, each traced on meta DTensors over a mesh of the
+    card's device type.  Every case must pass; each one's trace seconds,
+    the three roofline terms (modelled from published rates: the H100's
+    bf16 peak, HBM rate, NVLink 4 and NDR links; nothing timed), the
+    dominant term, collective bytes by kind and argument bytes a rank are
+    printed, and the collective term must be non-zero.  Returns the
+    records."""
+    import tempfile
+
+    from repro_torch.configs import ARCHS, INPUT_SHAPES
+
+    pod2 = ("rwkv6-3b,train_4k,pod2", "qwen2-0.5b,decode_32k,pod2",
+            "olmoe-1b-7b,prefill_32k,pod2",
+            "jamba-1.5-large-398b,long_500k,pod2",
+            "internvl2-1b,train_4k,pod2", "musicgen-large,prefill_32k,pod2")
+    cases = [f"{a},{s},pod1" for a in ARCHS for s in INPUT_SHAPES] + \
+        list(pod2)
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--device", device.type, "--out", tmp, "--force", "--jobs",
+               str(jobs)] + [a for c in cases for a in ("--case", c)]
+        env = dict(os.environ, OMP_NUM_THREADS="1",
+                   PYTHONPATH=str(REPO / "src"))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=limit)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"D4: the dry run exited "
+              f"{proc.returncode}: {proc.stdout[-3000:]} "
+              f"{proc.stderr[-3000:]}")
+        records = {}
+        for c in cases:
+            arch, shape, mesh = c.split(",")
+            with open(f"{tmp}/{arch}__{shape}__{mesh}.json") as f:
+                records[c] = json.load(f)
+    for c, rec in records.items():
+        r = rec["roofline"]
+        check(rec["ok"] and r["t_collective_s"] > 0,
+              f"D4 {c}: collective term {r['t_collective_s']}")
+        print(f"[D4] {c}: traced in {rec['trace_s']} s; modelled terms "
+              f"(published rates, not measured) compute "
+              f"{r['t_compute_s']:.3e} s, memory {r['t_memory_s']:.3e} s, "
+              f"collective {r['t_collective_s']:.3e} s, dominant "
+              f"{r['dominant']}; collective bytes a rank "
+              f"{rec['collective_bytes']}; argument bytes a rank "
+              f"{rec['argument_bytes']:,}; launches {rec['launches']}")
+    print(f"[D4] {len(records)} cases ({len(cases) - len(pod2)} on pod1, "
+          f"{len(pod2)} on pod2) in {wall:.1f} s of command, {jobs} at a "
+          f"time; {CARD['line']}")
+    return records
 
 
 def main() -> None:
@@ -6810,11 +7243,14 @@ def main() -> None:
     paper = factorization_slice(device, counted, counts, only)
     meshed = mesh_slice(device, counted, counts, only)
     spmd = multidevice_slice(device, counted)
+    ranked = train_ranks_slice(device)
+    dryrun_slice(device)
     for entry in kernels:
         entry["launches"] += half["launches"].get(entry["name"], 0) \
             + paper["launches"].get(entry["name"], 0) \
             + meshed["launches"].get(entry["name"], 0) \
-            + spmd["launches"].get(entry["name"], 0)
+            + spmd["launches"].get(entry["name"], 0) \
+            + ranked.get(entry["name"], 0)
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    half["errs"].get(entry["name"], 0.0))
     print(card)

@@ -21,14 +21,22 @@ JAX package's ``analysis.py``).
   K7, K7t, K7b, K8, K8t, K8b and K9 at the shapes it is given, and
   ``bound``, the least time the card could take for them.  ``chip_smoke.py``
   prices its kernel table with these.
-* ``Roofline``: one card's compute and memory terms of a step.
+* ``Roofline``: a step's compute, memory and collective terms on
+  ``n_chips`` H100s.
 * **Collective accounting** (the twin of ``collective_bytes``):
   ``count_collectives`` gives one call's collectives on this rank, by
-  JAX's HLO kind names, from ``partitioning.COLLECTIVES``.
+  JAX's HLO kind names, from ``partitioning.COLLECTIVES``: the explicit
+  ones of ``shard_map`` and the placements, and those DTensor ops issue by
+  themselves (``partitioning.counting``).  ``ici_seconds`` prices them
+  with the JAX package's ring multipliers at the H100's links: NVLink 4
+  within a node of 8, one NDR InfiniBand port a GPU across nodes.  The
+  rates are published figures, not measurements: no run here times a
+  collective.
+* **Grid steps** (the twin of ``count_pallas_grid_steps``): the work
+  units the JAX package's Pallas grids have for the same kernel calls,
+  from the wrappers' tiling arguments (``kernels.GRID_STEPS``).
 
-Not here yet: the JAX package's Pallas grid-step counter, its HLO parser
-and ``ici_seconds`` (there is no HLO to read; they wait for the dry run);
-the collective term of ``Roofline`` is 0 on one card.
+The JAX package's HLO parser has no twin: the port has no HLO to read.
 """
 from __future__ import annotations
 
@@ -43,6 +51,15 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.factorization import (BF16_FLOP_PER_S,  # noqa: F401
                                             F32_FLOP_PER_S, HBM_BYTES_PER_S,
                                             TF32_FLOP_PER_S)
+
+#: NVLink 4 of one H100 SXM5, a direction: 18 links of 25 GB/s (NVIDIA's
+#: H100 datasheet gives 900 GB/s both ways)
+NVLINK_BYTES_PER_S = 450e9
+#: one NDR InfiniBand port a GPU (ConnectX-7, 400 Gb/s), a direction: the
+#: rate of a ring that leaves the node
+NDR_BYTES_PER_S = 400e9 / 8
+#: H100 SXM5s a node share NVLink (an HGX H100 board)
+GPUS_PER_NODE = 8
 
 
 # ---------------------------------------------------------------------------
@@ -107,19 +124,52 @@ def count_collectives(fn: Callable, *args, **kw
     ``all-reduce``, ``all-gather``, ...), the bytes those this rank sent
     (a permute counts on every rank, its bytes only where the rank sends).
     Read from ``partitioning.COLLECTIVES``, which the shard_map
-    collectives and the explicit redistributions of ``constrain`` and
-    ``shard_map`` write; a DTensor op's own redistributions are not
-    counted."""
+    collectives, the explicit redistributions of ``constrain`` and
+    ``shard_map`` and, inside ``partitioning.counting`` (entered here), a
+    DTensor op's own collectives write."""
     from repro_torch import partitioning as pt
 
     before = {k: tuple(v) for k, v in pt.COLLECTIVES.items()}
-    fn(*args, **kw)
+    with pt.counting():
+        fn(*args, **kw)
     out = {}
     for kind, (calls, nbytes) in pt.COLLECTIVES.items():
         c0, b0 = before.get(kind, (0, 0))
         if calls > c0:
             out[kind] = (calls - c0, nbytes - b0)
     return out
+
+
+def count_pallas_grid_steps(fn: Callable, *args, **kw) -> int:
+    """The JAX package's Pallas grid steps of one call ``fn(*args,
+    **kw)``: each kernel call counts the grid JAX's kernel has for it
+    (K6, K6t, K6b: ceil(BH / bh_tile) x ceil(T / C); K7, K7t, K7b:
+    ceil(B / block_b) x ceil(T / C); K8: B x Hq x ceil(S / q_block) x
+    ceil(S / k_block); K9: B x Hq x ceil(S / block_s); ...), from the
+    wrapper's tiling arguments, on the card, the CPU or ``meta``.  Halving
+    the chunk doubles it while the launch count stays."""
+    from repro_torch import kernels
+
+    before = sum(kernels.GRID_STEPS.values())
+    fn(*args, **kw)
+    return sum(kernels.GRID_STEPS.values()) - before
+
+
+def ici_seconds(coll: dict[str, int], n_shards: int = 16) -> float:
+    """Seconds to move ``coll`` ({kind: bytes}) with the JAX package's ring
+    multipliers on an ``n_shards``-way ring: (n-1)/n of the bytes for an
+    all-gather or a reduce-scatter, twice that for an all-reduce, half for
+    an all-to-all, all of them for a permute.  Priced at NVLink 4 within a
+    node (``NVLINK_BYTES_PER_S``), and at one NDR port
+    (``NDR_BYTES_PER_S``) when the ring has more than ``GPUS_PER_NODE``
+    shards, since it then crosses nodes.  Modelled from published rates,
+    not measured."""
+    f = (n_shards - 1) / max(n_shards, 1)
+    mult = {"all-gather": f, "reduce-scatter": f, "all-reduce": 2 * f,
+            "all-to-all": f / 2, "collective-permute": 1.0}
+    rate = (NVLINK_BYTES_PER_S if n_shards <= GPUS_PER_NODE
+            else NDR_BYTES_PER_S)
+    return sum(mult.get(k, 1.0) * v for k, v in coll.items()) / rate
 
 
 # ---------------------------------------------------------------------------
@@ -612,13 +662,16 @@ def attn_bwd_work(B, S, Hq, Hkv, dh, dtype) -> tuple[int, int]:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class Roofline:
-    """Compute and memory terms of a step on ``n_chips`` H100s, the
-    compute at the bf16 tensor-core peak.  The collective term is 0: the
-    port runs on one card."""
+    """Compute, memory and collective terms of a step on ``n_chips``
+    H100s: the compute at the bf16 tensor-core peak, the memory at the
+    HBM rate, the collectives (``coll_bytes``: this rank's bytes by kind)
+    by ``ici_seconds`` on a ring of ``n_shards`` (the JAX package's 16)."""
     flops: float                 # total flops (all cards)
     hbm_bytes: float             # total device-memory bytes (all cards)
     n_chips: int = 1
     model_flops: float = 0.0
+    coll_bytes: dict = dataclasses.field(default_factory=dict)
+    n_shards: int = 16
 
     @property
     def t_compute(self) -> float:
@@ -630,7 +683,7 @@ class Roofline:
 
     @property
     def t_collective(self) -> float:
-        return 0.0
+        return ici_seconds(self.coll_bytes, self.n_shards)
 
     @property
     def dominant(self) -> str:
@@ -646,7 +699,7 @@ class Roofline:
         return {
             "flops": self.flops,
             "hbm_bytes": self.hbm_bytes,
-            "collective_bytes": {},
+            "collective_bytes": dict(self.coll_bytes),
             "n_chips": self.n_chips,
             "model_flops": self.model_flops,
             "t_compute_s": self.t_compute,

@@ -39,8 +39,10 @@
 //   __threadfence, a barrier, then one thread's atomicAdd).  The last to
 //   arrive merges the partials from L2, a thread a (head, 16-byte chunk)
 //   pair: the head's largest m, then l and acc weighted by exp(m - max)
-//   summed in split order; it writes the output and resets the counter
-//   to 0.  A fixed merge order and no value summed by an atomic: two runs
+//   summed in split order; it writes the output (and, where the caller
+//   asks, each head's log-sum-exp M + log L, -1e30 where L is 0: the
+//   term by which a cache split over ranks combines their outputs) and
+//   resets the counter to 0.  A fixed merge order and no value summed by an atomic: two runs
 //   agree bit for bit.  The counters live in a buffer that the wrapper
 //   zeroes once per device and size, so a CUDA graph can capture the
 //   launch.  An empty span leaves (acc = 0, m = -1e30, l = 0) and still
@@ -127,7 +129,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     decode_attn_kernel(const IO* __restrict__ q, const IO* __restrict__ kc,
                        const IO* __restrict__ vc,
                        const int* __restrict__ lengths, IO* __restrict__ o,
-                       float* __restrict__ ws, int* __restrict__ counters,
+                       float* __restrict__ lse, float* __restrict__ ws,
+                       int* __restrict__ counters,
                        int S, int Hq, int Hkv, int dk, int bs, int span,
                        float scale) {
   constexpr int E = Chunk<IO>::E;
@@ -394,6 +397,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       IO* dst = o + ((long long)b * Hq + hk * g + ph[i]) * dk + pc[i] * E;
 #pragma unroll
       for (int x = 0; x < E; ++x) store(dst + x, L > 0.f ? O[x] / L : 0.f);
+      if (lse != nullptr && pc[i] == 0)
+        lse[(long long)b * Hq + hk * g + ph[i]] =
+            L > 0.f ? M + logf(L) : kNegInf;
     }
     if (tid == 0) counters[pair] = 0;
   }
@@ -401,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <typename IO>
 int launch(const IO* q, const IO* kc, const IO* vc, const int* lengths,
-           IO* o, float* ws, int* counters, int B, int S, int Hq, int Hkv,
+           IO* o, float* lse, float* ws, int* counters, int B, int S, int Hq, int Hkv,
            int dk, int bs, int splits, int span, float scale, long long smem,
            void* stream) {
   constexpr int E = Chunk<IO>::E;
@@ -427,7 +433,8 @@ int launch(const IO* q, const IO* kc, const IO* vc, const int* lengths,
   const dim3 grid(splits, Hkv, B);
   decode_attn_kernel<IO><<<grid, kThreads, (size_t)smem,
                            (cudaStream_t)stream>>>(
-      q, kc, vc, lengths, o, ws, counters, S, Hq, Hkv, dk, bs, span, scale);
+      q, kc, vc, lengths, o, lse, ws, counters, S, Hq, Hkv, dk, bs, span,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -437,29 +444,30 @@ extern "C" {
 
 // q, o (B, Hq, dk); k_cache, v_cache (B, S, Hkv, dk); all contiguous and
 // 16-byte aligned, f32 (decode_attn_f32) or bf16 (decode_attn_bf16);
-// lengths (B,) int32 on the device.  dk a multiple of 16 bytes with
+// lengths (B,) int32 on the device; lse (B, Hq) f32, or null for none.  dk a multiple of 16 bytes with
 // (Hq / Hkv) * dk <= 2048.  ws: B x Hkv x splits x (Hq / Hkv) x (dk + 4)
 // floats; counters: B x Hkv ints, 0 before the launch and after it.  Splits
 // of span positions (a multiple of bs) cover S; smem must equal
 // smem_bytes(Hq / Hkv, bs, dk, sizeof(IO)).  Grid: splits x Hkv x B blocks
 // of 128 threads.
 int decode_attn_f32(const float* q, const float* kc, const float* vc,
-                    const int* lengths, float* o, float* ws, int* counters,
-                    int B, int S, int Hq, int Hkv, int dk, int bs, int splits,
-                    int span, float scale, long long smem, void* stream) {
-  return launch<float>(q, kc, vc, lengths, o, ws, counters, B, S, Hq, Hkv,
-                       dk, bs, splits, span, scale, smem, stream);
+                    const int* lengths, float* o, float* lse, float* ws,
+                    int* counters, int B, int S, int Hq, int Hkv, int dk,
+                    int bs, int splits, int span, float scale, long long smem,
+                    void* stream) {
+  return launch<float>(q, kc, vc, lengths, o, lse, ws, counters, B, S, Hq,
+                       Hkv, dk, bs, splits, span, scale, smem, stream);
 }
 
 int decode_attn_bf16(const void* q, const void* kc, const void* vc,
-                     const int* lengths, void* o, float* ws, int* counters,
-                     int B, int S, int Hq, int Hkv, int dk, int bs,
-                     int splits, int span, float scale, long long smem,
-                     void* stream) {
+                     const int* lengths, void* o, float* lse, float* ws,
+                     int* counters, int B, int S, int Hq, int Hkv, int dk,
+                     int bs, int splits, int span, float scale,
+                     long long smem, void* stream) {
   using bf16 = __nv_bfloat16;
   return launch<bf16>((const bf16*)q, (const bf16*)kc, (const bf16*)vc,
-                      lengths, (bf16*)o, ws, counters, B, S, Hq, Hkv, dk, bs,
-                      splits, span, scale, smem, stream);
+                      lengths, (bf16*)o, lse, ws, counters, B, S, Hq, Hkv,
+                      dk, bs, splits, span, scale, smem, stream);
 }
 
 const char* decode_attn_error_string(int err) {

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import CALLS, _build
+from repro_torch.kernels import _build, called, meta_like
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -147,7 +147,7 @@ def choose_blocks(seq_len: int, batch: int, n_kv: int, group: int, dk: int,
 def decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, lengths: torch.Tensor, *,
                       scale: float | None = None, block_s: int = BLOCK_S,
-                      splits: int = 1) -> torch.Tensor:
+                      splits: int = 1, with_lse: bool = False):
     """K9's function in PyTorch, in the kernel's order: the cache cut into
     ``split_span(S, block_s, splits)`` spans, each span's online softmax
     over its blocks of ``block_s`` positions in f32 (positions at or past
@@ -155,7 +155,8 @@ def decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
     the spans merged: each head's largest m, and l and acc weighted by
     ``exp(m - max)`` summed in split order; the output ``acc / l``, 0
     where l is 0 (a row of length 0).  GQA by grouping the query heads of
-    each kv head."""
+    each kv head.  ``with_lse``: also each head's log-sum-exp ``max +
+    log l`` (B, Hq) in f32, ``NEG_INF`` where l is 0."""
     B, S, Hkv, dk = k_cache.shape
     Hq = q.shape[1]
     g = Hq // Hkv
@@ -193,7 +194,12 @@ def decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
         out = out + acc[..., i, :] * wgt[..., i, None]
     out = torch.where(big_l[..., None] > 0, out / torch.where(
         big_l > 0, big_l, 1.0)[..., None], 0.0)
-    return out.reshape(B, Hq, dk).to(q.dtype)
+    out = out.reshape(B, Hq, dk).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.where(big_l > 0, m.amax(-1) + torch.log(torch.where(
+        big_l > 0, big_l, 1.0)), NEG_INF)
+    return out, lse.reshape(B, Hq)
 
 
 # ---------------------------------------------------------------------------
@@ -218,14 +224,15 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 
 def _entry(dtype: torch.dtype):
     """The C entry point of ``dtype``'s instance: q, the two caches, the
-    lengths, o, the workspace, the counters, then B, S, Hq, Hkv, dk,
+    lengths, o, the log-sum-exp (or null), the workspace, the counters,
+    then B, S, Hq, Hkv, dk,
     block_s, splits, span, the scale, the shared-memory bytes and the
     stream."""
     lib = _build.load("decode_attn")
     fn = getattr(lib, "decode_attn_" + (
         "f32" if dtype == torch.float32 else "bf16"))
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_longlong,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -234,13 +241,16 @@ def _entry(dtype: torch.dtype):
 
 def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                scale: float | None = None, block_s: int | None = None
-                ) -> torch.Tensor:
+                scale: float | None = None, block_s: int | None = None,
+                with_lse: bool = False):
     """One new token's GQA attention over a cache — ONE kernel launch (K9).
 
     q: (B, Hq, dk); k_cache, v_cache: (B, S, Hkv, dk); lengths: (B,) int32
     on q's device, the valid positions of each row.  Returns (B, Hq, dk) in
-    q's dtype.  ``block_s`` (pinned, or from ``choose_blocks``) and the
+    q's dtype; with ``with_lse`` also each head's log-sum-exp of its
+    scaled scores, (B, Hq) f32 (``NEG_INF`` for a row of length 0), by
+    which the outputs over slices of one cache combine (a cache whose
+    positions are split over ranks).  ``block_s`` (pinned, or from ``choose_blocks``) and the
     table's split set the order of the sums.  On the card q and the caches
     share one dtype, float32 or bfloat16, and a call that autograd would
     record raises.  The CPU runs ``decode_attn_plain`` at the table's
@@ -261,12 +271,17 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     g = Hq // Hkv
     scale = dk ** -0.5 if scale is None else float(scale)
     blocks = choose_blocks(S, B, Hkv, g, dk, q.dtype, block_s=block_s)
-    CALLS["decode_attn"] += 1
+    bs = blocks.block_s if blocks else block_s or min(BLOCK_S, S)
+    # the JAX kernel's grid: (B, Hq, ceil(S / block_s))
+    called("decode_attn", B * Hq * -(-S // bs))
+    if q.device.type == "meta":
+        out = meta_like((q.shape, q.dtype), ((B, Hq), F32))
+        return tuple(out) if with_lse else out[0]
     if q.device.type == "cpu":
-        bs = blocks.block_s if blocks else block_s or min(BLOCK_S, S)
         return decode_attn_plain(q, k_cache, v_cache, lengths, scale=scale,
                                  block_s=bs,
-                                 splits=blocks.splits if blocks else 1)
+                                 splits=blocks.splits if blocks else 1,
+                                 with_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attn runs on cpu or cuda, not {q.device}")
     if torch.is_grad_enabled() and any(
@@ -288,18 +303,21 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     q, k_cache, v_cache = (_build.aligned(t) for t in (q, k_cache, v_cache))
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty(B, Hq, dtype=F32, device=q.device) if with_lse \
+        else None
     ws = torch.empty(workspace_floats(B, Hkv, g, dk, blocks.splits),
                      dtype=F32, device=q.device)
     counters = _counters(q.device, B * Hkv)
     lib, fn = _entry(q.dtype)
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if with_lse else None, ws.data_ptr(),
              counters.data_ptr(), B, S, Hq, Hkv, dk, blocks.block_s,
              blocks.splits, blocks.span, scale, blocks.smem,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, "decode_attn", err)
     decode_attn.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 #: kernel launches since the last reset (CPU calls are not counted)

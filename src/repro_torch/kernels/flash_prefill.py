@@ -81,7 +81,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import CALLS, _build
+from repro_torch.kernels import _build, called, meta_like
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -563,6 +563,15 @@ def _tiles(q: torch.Tensor, q_block: int | None, k_block: int | None
             chosen.k_block if k_block is None else k_block)
 
 
+def grid_steps(q: torch.Tensor, q_block: int, k_block: int) -> int:
+    """The JAX kernel's grid of a call at these tiles: (B, Hq,
+    ceil(S / q_block), ceil(S / k_block)) steps.  K8t's call counts as
+    K8's; K8b (no JAX counterpart) counts the forward's grid at the default
+    tiles."""
+    B, S, Hq, _ = q.shape
+    return B * Hq * -(-S // q_block) * -(-S // k_block)
+
+
 def _card_checks(name: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor) -> None:
     """Raise unless the call can launch a kernel on the card."""
@@ -629,7 +638,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = q.shape[3] ** -0.5 if scale is None else float(scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashPrefillFn.apply(q, k, v, int(window), scale, qb, kb)
-    CALLS["flash_prefill"] += 1
+    called("flash_prefill", grid_steps(q, qb, kb))
+    if q.device.type == "meta":
+        return meta_like((q.shape, q.dtype))[0]
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, window=window, scale=scale,
                                    q_block=qb, k_block=kb)
@@ -653,7 +664,10 @@ def flash_prefill_traj(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _validate(q, k, v)
     qb, kb = _tiles(q, q_block, k_block)
     scale = q.shape[3] ** -0.5 if scale is None else float(scale)
-    CALLS["flash_prefill_traj"] += 1
+    called("flash_prefill_traj", grid_steps(q, qb, kb))
+    if q.device.type == "meta":
+        B, S, Hq, _ = q.shape
+        return meta_like((q.shape, q.dtype), ((B, Hq, S), F32))
     if q.device.type == "cpu":
         return flash_prefill_traj_plain(q, k, v, window=window, scale=scale,
                                         q_block=qb, k_block=kb)
@@ -704,7 +718,10 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, S, Hq, dh = q.shape
     Hkv = k.shape[2]
     scale = dh ** -0.5 if scale is None else float(scale)
-    CALLS["flash_prefill_bwd"] += 1
+    called("flash_prefill_bwd", grid_steps(q, *_tiles(q, None, None)))
+    if q.device.type == "meta":
+        return meta_like((q.shape, q.dtype), (k.shape, k.dtype),
+                         (v.shape, v.dtype))
     if q.device.type == "cpu":
         return flash_prefill_bwd_plain(q, k, v, o, lse, dout, window=window,
                                        scale=scale)

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import CALLS, _build, ref
+from repro_torch.kernels import _build, called, meta_like, ref
 
 _NAME = "lstm_cell"
 #: K rows a slice of threads loads before its FMAs (csrc kUnroll)
@@ -171,7 +171,7 @@ def lstm_cell(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     ``choose_blocks``'s.  Under autograd the backward is the VJP of
     ``ref.lstm_cell`` (``_LstmCellFn``)."""
     _validate(w, b, x, c, h)
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"lstm_cell runs on cpu or cuda, not {x.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (w, b, x, c, h)):
@@ -183,14 +183,18 @@ def _forward(w, b, x, c, h, block_b: int | None, block_h: int | None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The cell step outside autograd: the plain version on the CPU, one
     kernel launch on the card."""
-    CALLS["lstm_cell"] += 1
+    B, D = x.shape
+    H = c.shape[-1]
+    blocks = choose_blocks(B, D, H, block_b=block_b, block_h=block_h)
+    bm, bh = (blocks.block_b, blocks.block_h) if blocks else (B, H)
+    # the JAX kernel's grid: (ceil(B / bm), ceil(H / bh))
+    called("lstm_cell", -(-B // bm) * -(-H // bh))
+    if x.device.type == "meta":
+        return meta_like((c.shape, c.dtype), (h.shape, h.dtype))
     if x.device.type == "cpu":
         return lstm_cell_plain(w, b, x, c, h)
     if x.stride(-1) != 1 or h.stride(-1) != 1:
         raise ValueError("lstm_cell: x and h need a contiguous last dim")
-    B, D = x.shape
-    H = c.shape[-1]
-    blocks = choose_blocks(B, D, H, block_b=block_b, block_h=block_h)
     if blocks is None:
         raise ValueError(f"lstm_cell: no launch for B={B} D={D} H={H} at "
                          f"block_b={block_b}, block_h={block_h} (tiles of "

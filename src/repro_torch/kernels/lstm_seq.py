@@ -74,7 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import CALLS, _build, ref
+from repro_torch.kernels import _build, called, meta_like, ref
 from repro_torch.obs import trace as trace_lib
 
 _NAME = "lstm_seq"
@@ -572,7 +572,7 @@ def _validate(w, b, x, scales=None, w_dtype=None) -> None:
         if t is not None and t.device != x.device:
             raise ValueError(f"lstm_seq: {name} is on {t.device}, x on "
                              f"{x.device}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"lstm_seq runs on cpu or cuda, not {x.device}")
 
 
@@ -635,6 +635,17 @@ def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool,
     return c_out, h_out
 
 
+def _meta_out(w: torch.Tensor, x: torch.Tensor, traj: bool) -> tuple:
+    """A forward's outputs on ``meta``: (c, h) (L, B, H) in x's dtype,
+    with ``traj`` also the (T, L, B, H) f32 trajectories."""
+    L, H = w.shape[0], w.shape[-1] // 4
+    B, T, _ = x.shape
+    outs = [((L, B, H), x.dtype)] * 2
+    if traj:
+        outs += [((T, L, B, H), torch.float32)] * 2
+    return meta_like(*outs)
+
+
 def _count(wrapper, w: torch.Tensor, x: torch.Tensor, block_b: int) -> None:
     """One launch of ``wrapper``'s kernel: ``launches``, ``reg_launches``
     when its weights were in registers, and ``bf16_launches`` when its
@@ -651,7 +662,9 @@ def _forward(w, b, x, block_b: int, time_chunk: int | None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain forward at a resolved tiling: its plain version on the
     CPU, one kernel launch on the card."""
-    CALLS["lstm_seq"] += 1
+    called("lstm_seq", -(-x.shape[0] // block_b))
+    if x.device.type == "meta":
+        return _meta_out(w, x, traj=False)
     if x.device.type == "cpu":
         return lstm_seq_plain(w, b, x)
     _no_autograd("the lstm_seq kernel", w, b, x)
@@ -677,7 +690,9 @@ def lstm_seq_traj(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     B, T, _ = x.shape
     block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
                                     **_bytes(w, x))
-    CALLS["lstm_seq_traj"] += 1
+    called("lstm_seq_traj", -(-x.shape[0] // block_b))
+    if x.device.type == "meta":
+        return _meta_out(w, x, traj=True)
     if x.device.type == "cpu":
         return ref.lstm_seq_traj(w, b, x)
     _no_autograd("lstm_seq_traj", w, b, x)
@@ -791,7 +806,9 @@ def lstm_seq_q8_traj(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
     B, T, _ = x.shape
     block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
                                     **_bytes(wq, x))
-    CALLS["lstm_seq_q8_traj"] += 1
+    called("lstm_seq_q8_traj", -(-x.shape[0] // block_b))
+    if x.device.type == "meta":
+        return _meta_out(wq, x, traj=True)
     if x.device.type == "cpu":
         return lstm_seq_q8_traj_plain(wq, scales, b, x)
     _no_autograd("lstm_seq_q8_traj", scales, b, x)
@@ -869,7 +886,9 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
                                     **q8_bytes)
     wq, scales = ref.quantize_q8(w)
-    CALLS["lstm_seq_q8"] += 1
+    called("lstm_seq_q8", -(-x.shape[0] // block_b))
+    if x.device.type == "meta":
+        return _meta_out(wq, x, traj=False)
     if x.device.type == "cpu":
         return lstm_seq_q8_plain(wq, scales, b, x)
     out = _launch(wq, b, x, block_b, time_chunk, traj=False, scales=scales)

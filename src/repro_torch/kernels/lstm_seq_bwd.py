@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import factorization
-from repro_torch.kernels import CALLS, _build
+from repro_torch.kernels import _build, called, meta_like
 from repro_torch.kernels import lstm_seq as seq_lib
 
 _NAME = "lstm_seq_bwd"
@@ -186,7 +186,7 @@ def _validate(w, b, x, c_traj, h_traj, dc, dh, scales=None) -> None:
         if t is not None and t.device != x.device:
             raise ValueError(f"lstm_seq_bwd: {name} is on {t.device}, x on "
                              f"{x.device}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"lstm_seq_bwd runs on cpu or cuda, not {x.device}")
 
 
@@ -227,6 +227,11 @@ def _run(w, b, x, c_traj, h_traj, dc, dh, block_b: int,
     if block_b not in seq_lib.TILE_ROWS:
         raise ValueError(f"lstm_seq_bwd: block_b must be one of "
                          f"{seq_lib.TILE_ROWS}, not {block_b}")
+    if x.device.type == "meta":
+        q8 = scales is not None
+        return meta_like((w.shape, torch.float32 if q8 else w.dtype),
+                         (b.shape, torch.float32 if q8 else b.dtype),
+                         (x.shape, x.dtype))
     if x.device.type == "cpu":
         return lstm_seq_bwd_plain(w, b, x, c_traj, h_traj, dc, dh, scales)
     if torch.is_grad_enabled() and any(
@@ -308,7 +313,7 @@ def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     if scales is not None:
         return lstm_seq_bwd_q8(w, scales, b, x, c_traj, h_traj, dc, dh,
                                block_b=block_b, time_chunk=time_chunk)
-    CALLS["lstm_seq_bwd"] += 1
+    called("lstm_seq_bwd", -(-x.shape[0] // block_b))
     out = _run(w, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, None)
     if x.device.type == "cuda":
         lstm_seq_bwd.launches += 1
@@ -328,7 +333,7 @@ def lstm_seq_bwd_q8(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
     ``choose_batch_block(mode="bwd", quantized=True)``.  dw and db are the
     straight-through gradients of the dequantized stack, for the f32
     master weights."""
-    CALLS["lstm_seq_bwd_q8"] += 1
+    called("lstm_seq_bwd_q8", -(-x.shape[0] // block_b))
     out = _run(wq, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, scales)
     if x.device.type == "cuda":
         lstm_seq_bwd_q8.launches += 1

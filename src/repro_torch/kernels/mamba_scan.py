@@ -83,7 +83,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import CALLS, _build
+from repro_torch.kernels import _build, called, meta_like
 from repro_torch.obs import trace as trace_lib
 
 F32 = torch.float32
@@ -475,7 +475,13 @@ def mamba_scan_traj(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     ``mamba_scan_traj_plain``."""
     _validate(x, dt, b, c, a, h0)
     chunk, block_b, di_tile = _resolve(x, chunk, block_b, di_tile)
-    CALLS["mamba_scan_traj"] += 1
+    B, T, di = x.shape
+    nt = -(-T // chunk)
+    called("mamba_scan_traj", -(-B // block_b) * nt)
+    if x.device.type == "meta":
+        ds = b.shape[-1]
+        return meta_like((x.shape, x.dtype), ((B, di, ds), F32),
+                         ((B, nt, di, ds), F32))
     if x.device.type == "cpu":
         return mamba_scan_traj_plain(x, dt, b, c, a, h0, chunk)
     outs = _launch_fwd(x, dt, b, c, a, h0, chunk, block_b, di_tile,
@@ -508,7 +514,10 @@ def mamba_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                          f"dy {tuple(dy.shape)}")
     if any(t.device != x.device for t in (h_traj, dy)):
         raise ValueError("mamba_scan_bwd: every tensor must be on x's device")
-    CALLS["mamba_scan_bwd"] += 1
+    called("mamba_scan_bwd", -(-B // block_b) * nt)
+    if x.device.type == "meta":
+        return meta_like((x.shape, x.dtype), (dt.shape, F32), (b.shape, F32),
+                         (c.shape, F32), (a.shape, F32), (dh_fin.shape, F32))
     if x.device.type == "cpu":
         return mamba_scan_bwd_plain(x, dt, b, c, a, h_traj, dy, dh_fin,
                                     chunk)
@@ -639,8 +648,11 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
             y, h_out = _MambaFn.apply(x, dt, b, c, a, h0, chunk, block_b,
                                       di_tile)
     else:
-        CALLS["mamba_scan"] += 1
-        if x.device.type == "cpu":
+        called("mamba_scan", -(-B // block_b) * -(-T // chunk))
+        if x.device.type == "meta":
+            y, h_out = meta_like((x.shape, x.dtype),
+                                 ((B, x.shape[2], b.shape[-1]), F32))
+        elif x.device.type == "cpu":
             y, h_out = mamba_scan_plain(x, dt, b, c, a, h0, chunk)
         else:
             y, h_out = _launch_fwd(x, dt, b, c, a, h0, chunk, block_b,

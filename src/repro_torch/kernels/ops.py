@@ -128,12 +128,14 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, lengths: torch.Tensor, *,
-                scale: float | None = None, block_s: int | None = None
-                ) -> torch.Tensor:
+                scale: float | None = None, block_s: int | None = None,
+                with_lse: bool = False):
     """One new token's GQA attention over a cache, ONE kernel launch (K9).
 
     q: (B, Hq, dk); caches: (B, S, Hkv, dk); lengths: (B,) int32 on the
-    device.  Returns (B, Hq, dk) in q's dtype, 0 for a row of length 0.
-    The ``decode_attn`` decode plan of ``models/attention`` calls this."""
+    device.  Returns (B, Hq, dk) in q's dtype, 0 for a row of length 0,
+    and with ``with_lse`` each head's log-sum-exp (B, Hq) f32.  The
+    ``decode_attn`` decode plan of ``models/attention`` calls this."""
     return _decode_attn.decode_attn(q, k_cache, v_cache, lengths,
-                                    scale=scale, block_s=block_s)
+                                    scale=scale, block_s=block_s,
+                                    with_lse=with_lse)

@@ -80,7 +80,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import factorization, tiling
-from repro_torch.kernels import CALLS, _build, ref
+from repro_torch.kernels import _build, called, meta_like, ref
 from repro_torch.obs import trace as trace_lib
 
 F32 = torch.float32
@@ -452,7 +452,12 @@ def wkv6_traj(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     BH, T, _ = r.shape
     chunk = max(1, min(chunk, T))
     bh_tile = max(1, min(bh_tile, BH))
-    CALLS["wkv6_traj"] += 1
+    nt = -(-T // chunk)
+    called("wkv6_traj", -(-BH // bh_tile) * nt)
+    if r.device.type == "meta":
+        dk, dv = r.shape[-1], v.shape[-1]
+        return meta_like((v.shape, v.dtype), ((BH, dk, dv), F32),
+                         ((BH, nt, dk, dv), F32))
     if r.device.type == "cpu":
         return wkv6_traj_plain(r, k, v, logw, u, state, chunk)
     outs = _launch_fwd(r, k, v, logw, u, state, chunk, bh_tile, traj=True)
@@ -487,7 +492,11 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(dout.shape)}, ds_fin {tuple(ds_fin.shape)}")
     if any(t.device != r.device for t in (s_traj, dout, ds_fin)):
         raise ValueError("wkv6_bwd: every tensor must be on r's device")
-    CALLS["wkv6_bwd"] += 1
+    called("wkv6_bwd", -(-BH // bh_tile) * nt)
+    if r.device.type == "meta":
+        return meta_like((r.shape, r.dtype), (k.shape, k.dtype),
+                         (v.shape, v.dtype), (logw.shape, F32),
+                         (u.shape, F32), (s_fin.shape, F32))
     if r.device.type == "cpu":
         return wkv6_bwd_plain(r, k, v, logw, u, s_traj, s_fin, dout, ds_fin,
                               chunk)
@@ -560,7 +569,9 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, logw, u, state)):
         return _Wkv6Fn.apply(r, k, v, logw, u, state, chunk, bh_tile)
-    CALLS["wkv6"] += 1
+    called("wkv6", -(-BH // bh_tile) * -(-T // chunk))
+    if r.device.type == "meta":
+        return meta_like((v.shape, v.dtype), ((BH, dk, v.shape[-1]), F32))
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, logw, u, state, chunk)
     out, s_out = _launch_fwd(r, k, v, logw, u, state, chunk, bh_tile,

@@ -83,11 +83,16 @@ def make_production_mesh(*, multi_pod: bool = False, data: int = 16,
                          model: int = 16,
                          device: str | torch.device = "cuda") -> Mesh:
     """Default production topology is (16, 16) / (2, 16, 16); `data`/`model`
-    allow aspect-ratio ablations over the same 256 chips per pod.  Raises
-    when the machine has fewer devices than the mesh needs (always on one
-    card: check the shapes with ``abstract_production_mesh``)."""
+    allow aspect-ratio ablations over the same 256 chips per pod.  Inside
+    a process group of 256 (512) ranks the mesh is ``group_mesh`` over
+    them (the dry run's ``fake`` group on one machine: every rank's
+    placements with nothing sent); outside one it takes the machine's
+    devices and raises when there are fewer than the mesh needs (always on
+    one card: check the shapes with ``abstract_production_mesh``)."""
     shape, axes = _production_shape(multi_pod, data, model)
     n = math.prod(shape)
+    if dist.is_initialized():
+        return group_mesh(axes, shape, device)
     devices = local_devices(device)
     if len(devices) < n:
         raise RuntimeError(
@@ -125,13 +130,19 @@ def group_mesh(axis_names: tuple[str, ...], axis_sizes: tuple[int, ...],
     return Mesh(tuple(axis_names), tuple(axis_sizes), (device,) * n, dm)
 
 
-def make_host_mesh(device: str | torch.device = "cuda") -> Mesh:
-    """Tiny mesh for tests, examples and the trainer: every device on
-    ``data``, ``model`` of 1.  Over the running process group's ranks
-    (``group_mesh``), else over the local devices of ``device`` ((data=1,
-    model=1) on one card or the CPU)."""
+def make_host_mesh(model_axis: int = 1,
+                   device: str | torch.device = "cuda") -> Mesh:
+    """Tiny mesh for tests, examples and the trainer, as the JAX package
+    makes it: ``model`` of ``model_axis`` and ``data`` of n // model_axis
+    (at least 1) over n devices: the running process group's ranks
+    (``group_mesh``; n // model_axis x model_axis must be the world), else
+    the local devices of ``device`` ((data=1, model=1) on one card or the
+    CPU)."""
     if dist.is_initialized():
-        return group_mesh(("data", "model"), (dist.get_world_size(), 1),
-                          device)
+        n = dist.get_world_size()
+        return group_mesh(("data", "model"),
+                          (max(n // model_axis, 1), model_axis), device)
     devices = local_devices(device)
-    return Mesh(("data", "model"), (len(devices), 1), tuple(devices))
+    data = max(len(devices) // model_axis, 1)
+    return Mesh(("data", "model"), (data, model_axis),
+                tuple(devices[:data * model_axis]))

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import partitioning as pt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import common
@@ -145,7 +146,12 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """Full-sequence (prefill) attention.  x: (B, S, d); positions (B, S).
     With ``cache`` (one layer's slot), the roped k and the v it computes
     are also written into it in place, as ``prefill_cache`` writes them
-    (the JAX package computes them a second time there)."""
+    (the JAX package computes them a second time there).  On a mesh of
+    more than one device (DTensors) the positions are 0..S-1 and the
+    section below runs it."""
+    rules = pt.active_rules()
+    if rules is not None:
+        return _apply_attention_sharded(p, x, cfg, cache, rules)
     q, k, v = _qkv(p, x)
     q = common.apply_rope(q, positions, cfg.rope_theta)
     k = common.apply_rope(k, positions, cfg.rope_theta)
@@ -344,7 +350,15 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
     (``torch.where`` against the old row, no boolean indexing, so nothing
     waits on the host).  A full, unquantized cache runs ``DECODE_PLAN``,
     with ``lengths = pos + 1`` handed to K9 as a device tensor; ring and
-    int8 caches run the grouped contractions.  Returns (B, 1, d)."""
+    int8 caches run the grouped contractions.  Returns (B, 1, d).  On a
+    mesh of more than one device (DTensors, no ``active``) the section
+    below runs it."""
+    rules = pt.active_rules()
+    if rules is not None:
+        if active is not None:
+            raise NotImplementedError("decode_attention: a lane mask on a "
+                                      "mesh of more than one device")
+        return _decode_sharded(p, x, cache, pos, cfg, rules)
     B = x.shape[0]
     pos_b = torch.broadcast_to(torch.as_tensor(pos, device=x.device), (B,))
     q, k, v = _qkv(p, x)                                  # (B, 1, h, dh)
@@ -385,3 +399,240 @@ def decode_attention(p: dict, x: torch.Tensor, cache: dict,
         raise ValueError(f"unknown decode plan {DECODE_PLAN!r}")
     out = out.reshape(B, hq, dh).to(x.dtype)
     return torch.einsum("bhk,hkd->bd", out, p["wo"])[:, None]
+
+
+# ---------------------------------------------------------------------------
+# A mesh of more than one device
+#
+# The kernels have no DTensor sharding rule, so on a mesh over a process
+# group each path runs as a ``shard_map`` body on rank-local tensors, laid
+# out as the resolved specs say: the batch over ('pod', 'data'), the heads
+# over 'model' where they divide it (the weights gathered over 'data' on
+# entry: FSDP), the decode cache's sequence over 'model' (``cache_seq``).
+# With the heads split, each rank attends its own heads (their kv heads
+# beside them) and the output projection's partial sums meet in one psum
+# over 'model'.  A prefill writes the cache slice this rank holds; a decode
+# step writes its token where its slot lies and, on the ``decode_attn``
+# plan, runs K9 on the local tensors: on its own heads where only the
+# heads are split, else over its cache slice with the log-sum-exp out, the
+# slices' outputs combined by it across 'model' (``_decode_k9_local``).
+# The int8 cache and the sliding window, which K9 does not take on one
+# device either, combine each rank's softmax over its slice (max, sum and
+# weighted values) in torch ops.  Where 'model' splits nothing, the body
+# is the single-device code on the batch shard.
+# ---------------------------------------------------------------------------
+def _layout(rules, p: dict, cache: dict | None):
+    """(param specs, cache specs, heads split, kv heads split, cache
+    sequence split, cache kv heads split) over 'model': the parameters
+    gathered over the batch axes, the cache as placed."""
+    p_specs = pt.body_specs(p)
+    hs = pt.sharded_over(p_specs["wq"], 1, rules.mesh)
+    kvs = pt.sharded_over(p_specs["wk"], 1, rules.mesh)
+    c_specs, cs, ckv = None, False, False
+    if cache is not None:
+        c_specs = {k: pt.spec_of(v) for k, v in cache.items()}
+        cs = pt.sharded_over(c_specs["k"], 1, rules.mesh)
+        ckv = pt.sharded_over(c_specs["k"], 2, rules.mesh)
+    return p_specs, c_specs, hs, kvs, cs, ckv
+
+
+def _local_kv(k: torch.Tensor, v: torch.Tensor, nq: int, cfg: ModelConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kv heads that this rank's ``nq`` query heads attend, from all
+    of them (the query heads split over 'model', the kv heads not): a
+    contiguous run where the group size and ``nq`` divide one another,
+    else one kv head per query head."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    h0 = pt.axis_index("model") * nq
+    lo = h0 // g
+    if nq % g == 0 or g % nq == 0:
+        n = max(nq // g, 1)
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = (h0 + torch.arange(nq, device=k.device)) // g
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _write_prefill_local(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                         cfg: ModelConfig, c_lo: int, s_c: int) -> None:
+    """``_write_prefill`` into the slice of a cache of ``s_c`` slots that
+    starts at slot ``c_lo``: each local slot takes the position the whole
+    cache would hold there after the segment, or keeps its row."""
+    writes = {"k": k, "v": v}
+    if cfg.kv_quant:
+        kq, ks = _quantize(k)
+        vq, vs = _quantize(v)
+        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    S, s_loc = k.shape[1], cache["k"].shape[1]
+    j = c_lo + torch.arange(s_loc, device=k.device)       # global slots
+    if S <= s_c and not cfg.sliding_window:
+        src, valid = j, j < S
+    else:
+        keep = min(S, s_c)
+        src = j + s_c * torch.div(S - 1 - j, s_c, rounding_mode="floor")
+        valid = src >= S - keep
+    src = src.clamp(0, S - 1)
+    for name, val in writes.items():
+        tgt = cache[name]
+        m = valid.reshape((1, -1) + (1,) * (tgt.dim() - 2))
+        tgt.copy_(torch.where(m, val[:, src].to(tgt.dtype), tgt))
+
+
+def _apply_attention_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                             cache: dict | None, rules) -> torch.Tensor:
+    """``apply_attention`` on DTensors (the section comment); positions are
+    the prefill's 0..S-1."""
+    p_specs, c_specs, hs, kvs, cs, ckv = _layout(rules, p, cache)
+    x_spec = rules.spec_for(("batch", "seq", None), x.shape)
+    m = rules.mesh.shape.get("model", 1)
+
+    def local_fn(x_l, p_l, cache_l):
+        B, S = x_l.shape[:2]
+        positions = torch.arange(S, device=x_l.device).expand(B, S)
+        if not (hs or cs or ckv):
+            return apply_attention(p_l, x_l, cfg, positions, cache_l)
+        q, k, v = _qkv(p_l, x_l)
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
+        if cache_l is not None:
+            kc, vc = k, v
+            if kvs and not ckv:
+                kc, vc = (pt.all_gather(t, "model", 2) for t in (k, v))
+            s_loc = cache_l["k"].shape[1]
+            c_lo = pt.axis_index("model") * s_loc if cs else 0
+            _write_prefill_local(cache_l, kc, vc, cfg, c_lo,
+                                 s_loc * (m if cs else 1))
+        ka, va = (k, v) if kvs or not hs else _local_kv(k, v, q.shape[2],
+                                                        cfg)
+        out = _attend(q, ka, va, cfg.sliding_window)
+        out = torch.einsum("bshk,hkd->bsd", out, p_l["wo"])
+        return pt.psum(out, "model") if hs else out
+
+    if cache is None:
+        fn = pt.shard_map(lambda x_l, p_l: local_fn(x_l, p_l, None),
+                          rules.mesh, in_specs=(x_spec, p_specs),
+                          out_specs=x_spec)
+        return fn(x, p)
+    fn = pt.shard_map(local_fn, rules.mesh, in_specs=(x_spec, p_specs,
+                                                      c_specs),
+                      out_specs=x_spec)
+    return fn(x, p, cache)
+
+
+def _decode_k9_local(q: torch.Tensor, cache: dict, pos_b: torch.Tensor,
+                     c_lo: int, cfg: ModelConfig, hs: bool, cs: bool,
+                     ckv: bool) -> torch.Tensor:
+    """K9 inside ``_decode_sharded``'s body: this rank's query heads'
+    attention (B, heads, dh), ``q`` (B, local heads, dh) after the token's
+    write.  With the cache's sequence split (``cs``) every rank runs K9
+    over all the query heads against its slice of the cache (the lengths
+    cut to it) with the log-sum-exp out, and the slices' outputs combine
+    by it across 'model' (a pmax, two psums), as one softmax over the
+    whole cache; else each rank runs K9 on its own query heads against the
+    kv heads they read."""
+    nq = q.shape[1]
+    kc, vc = cache["k"], cache["v"]
+    q = q.to(kc.dtype)
+    if cs:
+        if hs:
+            q = pt.all_gather(q, "model", 1)
+        s_loc = kc.shape[1]
+        lens = (pos_b + 1 - c_lo).clamp(0, s_loc).to(torch.int32)
+        out, lse = ops.decode_attn(q, kc, vc, lens, with_lse=True)
+        mx = pt.pmax(lse, "model")
+        wgt = torch.exp(lse - mx)
+        out = (pt.psum(out.to(F32) * wgt[..., None], "model")
+               / pt.psum(wgt, "model")[..., None])
+        if hs:
+            h0 = pt.axis_index("model") * nq
+            out = out[:, h0:h0 + nq]
+        return out
+    if ckv and not hs:
+        raise ValueError("decode_attn: the cache's kv heads are split over "
+                         "'model' but the query heads are not")
+    if hs and not ckv:
+        kc, vc = _local_kv(kc, vc, nq, cfg)
+    return ops.decode_attn(q, kc, vc, (pos_b + 1).to(torch.int32))
+
+
+def _decode_sharded(p: dict, x: torch.Tensor, cache: dict,
+                    pos: torch.Tensor, cfg: ModelConfig, rules
+                    ) -> torch.Tensor:
+    """``decode_attention`` on DTensors (the section comment)."""
+    p_specs, c_specs, hs, kvs, cs, ckv = _layout(rules, p, cache)
+    x_spec = rules.spec_for(("batch", None, None), x.shape)
+    pos_spec = rules.spec_for(("batch",)[:pos.dim()], pos.shape)
+    m = rules.mesh.shape.get("model", 1)
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def local_fn(x_l, pos_l, cache_l, p_l):
+        if not (hs or cs or ckv):
+            return decode_attention(p_l, x_l, cache_l, pos_l, cfg)
+        B = x_l.shape[0]
+        pos_b = torch.broadcast_to(pos_l, (B,))
+        q, k, v = _qkv(p_l, x_l)                             # (B, 1, h, dh)
+        q = common.apply_rope(q, pos_b[:, None], cfg.rope_theta)
+        k = common.apply_rope(k, pos_b[:, None], cfg.rope_theta)
+        if kvs and not ckv:
+            k, v = (pt.all_gather(t, "model", 2) for t in (k, v))
+        s_loc = cache_l["k"].shape[1]
+        c_lo = pt.axis_index("model") * s_loc if cs else 0
+        s_c = s_loc * (m if cs else 1)
+        w = cfg.sliding_window or 0
+        slot = ((pos_b % s_c) if w else pos_b).long() - c_lo
+        mine = (slot >= 0) & (slot < s_loc)
+        slot = slot.clamp(0, s_loc - 1)
+        rows = torch.arange(B, device=x_l.device)
+        writes = {"k": k, "v": v}
+        if cfg.kv_quant:
+            kq, ks = _quantize(k)
+            vq, vs = _quantize(v)
+            writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+        for name, val in writes.items():
+            new = val[:, 0].to(cache_l[name].dtype)
+            keep = mine.reshape((B,) + (1,) * (new.dim() - 1))
+            old = cache_l[name][rows, slot]
+            cache_l[name][rows, slot] = torch.where(keep, new, old)
+        if DECODE_PLAN == "decode_attn" and not cfg.kv_quant and not w:
+            out = _decode_k9_local(q[:, 0], cache_l, pos_b, c_lo, cfg, hs,
+                                   cs, ckv)
+            out = torch.einsum("bhk,hkd->bd", out.to(x_l.dtype),
+                               p_l["wo"])[:, None]
+            return pt.psum(out, "model") if hs else out
+        # every query head against this rank's slice of the cache
+        qa = pt.all_gather(q, "model", 2) if hs else q
+        j = c_lo + torch.arange(s_loc, device=x_l.device)
+        if w:
+            valid = (pos_b[:, None] - torch.remainder(
+                pos_b[:, None] - j[None], s_c)) >= 0
+        else:
+            valid = j[None] <= pos_b[:, None]
+        dtype = x_l.dtype if cfg.kv_quant else cache_l["k"].dtype
+        q4 = qa[:, 0].reshape(B, hkv, hq // hkv, dh).to(dtype)
+        scores = torch.einsum("bkgd,bskd->bkgs", q4.to(F32),
+                              cache_l["k"].to(q4.dtype).to(F32)) * dh ** -0.5
+        if cfg.kv_quant:
+            scores = scores * cache_l["k_scale"].transpose(1, 2)[:, :, None]
+        scores = torch.where(valid[:, None, None], scores, NEG_INF)
+        mx = scores.amax(-1)
+        if cs:
+            mx = pt.pmax(mx, "model")
+        e = torch.exp(scores - mx[..., None])
+        denom = e.sum(-1)
+        if cfg.kv_quant:
+            e = e * cache_l["v_scale"].transpose(1, 2)[:, :, None]
+        acc = torch.einsum("bkgs,bskd->bkgd", e.to(dtype).to(F32),
+                           cache_l["v"].to(dtype).to(F32))
+        if cs:
+            denom, acc = pt.psum(denom, "model"), pt.psum(acc, "model")
+        out = (acc / denom[..., None]).reshape(B, hq, dh).to(x_l.dtype)
+        if hs:
+            nq = hq // m
+            h0 = pt.axis_index("model") * nq
+            out = out[:, h0:h0 + nq]
+        out = torch.einsum("bhk,hkd->bd", out, p_l["wo"])[:, None]
+        return pt.psum(out, "model") if hs else out
+
+    fn = pt.shard_map(local_fn, rules.mesh,
+                      in_specs=(x_spec, pos_spec, c_specs, p_specs),
+                      out_specs=x_spec)
+    return fn(x, pos, cache, p)

@@ -27,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import partitioning as pt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.partitioning import (Annot, dense_init, is_meta, ones_init,
                                       zeros_init)
@@ -136,7 +137,11 @@ def apply_mamba(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 conv_state: torch.Tensor, h_state: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence mamba.  x: (B, S, d).  Returns (out, conv', h'): the
-    new conv window holds the last dc-1 inputs before activation."""
+    new conv window holds the last dc-1 inputs before activation.  On a
+    mesh of more than one device (DTensors) the section below runs it."""
+    rules = pt.active_rules()
+    if rules is not None:
+        return _apply_mamba_sharded(p, cfg, x, conv_state, h_state, rules)
     di = d_inner(cfg)
     xz = x @ p["in_proj"]
     x_in, z = xz[..., :di], xz[..., di:]
@@ -157,3 +162,61 @@ def step_mamba(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """One-token mamba.  x: (B, 1, d); conv_state: (B, dc-1, di); h_state:
     (B, di, ds)."""
     return apply_mamba(p, cfg, x, conv_state, h_state)
+
+
+# ---------------------------------------------------------------------------
+# A mesh of more than one device
+#
+# The scan kernel has no DTensor sharding rule, so on a mesh over a process
+# group the block runs as a ``shard_map`` body: the batch over ('pod',
+# 'data') and, as the resolved specs say, the inner channels over 'model'
+# (the "mlp" axis of every parameter but ``in_proj`` and of both states),
+# the weights gathered over 'data' on entry (FSDP).  ``in_proj``'s columns
+# hold [x | z], which a split over 'model' would not cut at the channels'
+# boundary, so it enters whole and each rank takes its channels of both
+# halves.  Each rank convolves and scans its channels; ``x_proj`` and
+# ``out_proj`` contract over them, so their partial sums meet in a psum
+# over 'model'.  Where 'model' splits nothing, the body is
+# ``apply_mamba`` on the batch shard.
+# ---------------------------------------------------------------------------
+def _apply_mamba_sharded(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                         conv_state: torch.Tensor, h_state: torch.Tensor,
+                         rules) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``apply_mamba`` on DTensors (the section comment)."""
+    # every parameter as placed, but ``in_proj``, which enters whole (the
+    # section comment)
+    p_specs = dict(pt.body_specs(p), in_proj=pt.PartitionSpec())
+    split = pt.sharded_over(p_specs["conv_b"], 0, rules.mesh)
+    x_spec = rules.spec_for(("batch", "seq", None), x.shape)
+    c_spec = rules.spec_for(("batch", None, "mlp"), conv_state.shape)
+    h_spec = rules.spec_for(("batch", "mlp", None), h_state.shape)
+    di, dc = d_inner(cfg), cfg.ssm.d_conv
+
+    def local_fn(x_l, conv_l, h_l, p_l):
+        if not split:
+            return apply_mamba(p_l, cfg, x_l, conv_l, h_l)
+        n = p_l["conv_b"].shape[0]
+        lo = pt.axis_index("model") * n
+        w = p_l["in_proj"]
+        x_in = x_l @ w[:, lo:lo + n]
+        z = x_l @ w[:, di + lo:di + lo + n]
+        xc = F.silu(_conv_causal(p_l, x_in, conv_l))
+        dr, ds = dt_rank(cfg), cfg.ssm.d_state
+        proj = pt.psum(xc @ p_l["x_proj"], "model")
+        dt = F.softplus(proj[..., :dr].to(F32) @ p_l["dt_proj"]
+                        + p_l["dt_bias"])
+        b_mat = proj[..., dr:dr + ds].to(F32)
+        c_mat = proj[..., dr + ds:].to(F32)
+        y, h = _scan(p_l, xc, dt, b_mat, c_mat, h_l.to(F32),
+                     chunk=cfg.ssm.chunk)
+        out = pt.psum((y.to(x_l.dtype) * F.silu(z)) @ p_l["out_proj"],
+                      "model")
+        conv_new = torch.cat([conv_l.to(x_in.dtype), x_in],
+                             dim=1)[:, -(dc - 1):]
+        return out, conv_new, h
+
+    fn = pt.shard_map(local_fn, rules.mesh,
+                      in_specs=(x_spec, c_spec, h_spec, p_specs),
+                      out_specs=(x_spec, c_spec, h_spec))
+    return tuple(fn(x, conv_state, h_state, p))

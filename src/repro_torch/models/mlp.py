@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import partitioning as pt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common
 from repro_torch.partitioning import dense_init, split
@@ -36,7 +37,23 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
 
 
 def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The block of ``init_mlp``'s tree: SwiGLU when it holds a gate."""
+    """The block of ``init_mlp``'s tree: SwiGLU when it holds a gate.  On a
+    mesh of more than one device (DTensors) a ``shard_map`` body: the
+    batch over ('pod', 'data'), the hidden units over 'model' where the
+    specs split them (the weights gathered over 'data' on entry), the down
+    projection's partial sums meeting in one psum over 'model'."""
+    rules = pt.active_rules()
+    if rules is not None:
+        p_specs = pt.body_specs(p)
+        split = pt.sharded_over(p_specs["wd"], 0, rules.mesh)
+        x_spec = rules.spec_for(("batch",) + (None,) * (x.dim() - 1),
+                                x.shape)
+
+        def local_fn(x_l, p_l):
+            out = apply_mlp(p_l, x_l)
+            return pt.psum(out, "model") if split else out
+        return pt.shard_map(local_fn, rules.mesh, in_specs=(x_spec, p_specs),
+                            out_specs=x_spec)(x, p)
     if "wg" in p:
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
     else:

@@ -121,7 +121,33 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
         m = rules.mesh.shape.get("model", 1)
         if m > 1 and cfg.moe.n_experts % m == 0 and x.ndim == 3:
             return _apply_moe_ep(p, x, cfg, rules, no_drop)
+        return _apply_moe_dense_sharded(p, x, cfg, rules, no_drop)
     return _apply_moe_dense(p, x, cfg, no_drop)
+
+
+def _apply_moe_dense_sharded(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                             rules, no_drop: bool
+                             ) -> tuple[torch.Tensor, dict]:
+    """The dense dispatch on DTensors, where 'model' does not split the
+    experts: a ``shard_map`` body on each rank's batch shard with every
+    weight whole (gathered on entry), capacity per data shard as on the
+    expert-parallel path, the aux losses averaged over the batch axes."""
+    batch_axes = tuple(a for a in ("pod", "data") if a in rules.mesh.shape)
+    x_spec = rules.spec_for(("batch",) + (None,) * (x.dim() - 1), x.shape)
+    p_specs = {k: pt.PartitionSpec() for k in p}
+    aux_spec = {k: pt.PartitionSpec() for k in
+                ("moe_load_balance", "moe_z_loss", "moe_drop_frac")}
+
+    def local_fn(x_l, p_l):
+        out, aux = _apply_moe_dense(p_l, x_l, cfg, no_drop)
+        vals = torch.stack([aux[k] for k in aux_spec])
+        if batch_axes:
+            vals = pt.pmean(vals, batch_axes)
+        return out, dict(zip(aux_spec, vals.unbind(0)))
+
+    fn = pt.shard_map(local_fn, rules.mesh, in_specs=(x_spec, p_specs),
+                      out_specs=(x_spec, aux_spec))
+    return tuple(fn(x, p))
 
 
 def _experts(p: dict, expert_in: torch.Tensor) -> torch.Tensor:

@@ -354,7 +354,17 @@ def _apply_tmix_seqpar(p: dict, cfg: ModelConfig, x: torch.Tensor,
 def step_tmix(p: dict, cfg: ModelConfig, x: torch.Tensor,
               x_prev: torch.Tensor, state: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One-token time-mix.  x: (B,1,d)."""
+    """One-token time-mix.  x: (B,1,d).  On a mesh of more than one device
+    (DTensors) the body of ``_apply_tmix_batch``'s layout: each rank's
+    batch shard, the parameters whole."""
+    rules = pt.active_rules()
+    if rules is not None:
+        x_spec, b_spec, st_spec, p_spec = _specs(rules, x, state, "seq")
+        fn = pt.shard_map(lambda *a: step_tmix(a[3], cfg, *a[:3]),
+                          rules.mesh, in_specs=(x_spec, b_spec, st_spec,
+                                                p_spec),
+                          out_specs=(x_spec, b_spec, st_spec))
+        return tuple(fn(x, x_prev, state, p))
     B, _, d = x.shape
     H = n_heads(cfg)
     r, k, v, g, logw, shift = _project(p, cfg, x, x_prev)
@@ -387,10 +397,49 @@ def init_cmix_annot(gen: torch.Generator, cfg: ModelConfig,
 
 def apply_cmix(p: dict, x: torch.Tensor, x_prev: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Channel-mix with token shift.  x: (B,S,d); x_prev: (B,d)."""
+    """Channel-mix with token shift.  x: (B,S,d); x_prev: (B,d).  On a
+    mesh of more than one device (DTensors) ``_apply_cmix_sharded``."""
+    rules = pt.active_rules()
+    if rules is not None:
+        return _apply_cmix_sharded(p, x, x_prev, rules)
     sx = (_shifted(x, x_prev) - x).to(x.dtype)
     xk = x + sx * p["mu_k"].to(x.dtype)
     xr = x + sx * p["mu_r"].to(x.dtype)
     k = torch.square(torch.relu(xk @ p["wk"]))
     out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
     return out, x[:, -1]
+
+
+def _apply_cmix_sharded(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
+                        rules) -> tuple[torch.Tensor, torch.Tensor]:
+    """The channel-mix as a ``shard_map`` body: each rank's batch shard
+    and, for a sequence split over 'model' (``seq_model``), its tokens,
+    the weights whole.  The first token of a sequence shard shifts in the
+    previous shard's last one (a cyclic ``ppermute`` over 'model'; shard 0
+    takes ``x_prev``), and the new shift state is the last shard's last
+    token (masked and ``psum``med over 'model'), as
+    ``_apply_tmix_seqpar``'s step 1 does."""
+    x_spec = rules.spec_for(("batch", "seq_model", None), x.shape)
+    b_spec = rules.spec_for(("batch", None), x_prev.shape)
+    split = pt.sharded_over(x_spec, 1, rules.mesh)
+    m = rules.mesh.shape.get("model", 1)
+
+    def local_fn(x_loc, xp_loc, p_loc):
+        if not split:
+            return apply_cmix(p_loc, x_loc, xp_loc)
+        idx = pt.axis_index("model")
+        dev = x_loc.device
+        recv = pt.ppermute(x_loc[:, -1], "model",
+                           [(i, (i + 1) % m) for i in range(m)])
+        first = torch.where(torch.tensor(idx == 0, device=dev),
+                            xp_loc.to(x_loc.dtype), recv)
+        out, _ = apply_cmix(p_loc, x_loc, first)
+        tail = x_loc[:, -1]
+        shift = pt.psum(torch.where(torch.tensor(idx == m - 1, device=dev),
+                                    tail, torch.zeros_like(tail)), "model")
+        return out, shift
+
+    fn = pt.shard_map(local_fn, rules.mesh,
+                      in_specs=(x_spec, b_spec, pt.PartitionSpec()),
+                      out_specs=(x_spec, b_spec))
+    return tuple(fn(x, x_prev, p))

@@ -54,11 +54,18 @@ identity, no copy and no launch, also inside a captured tick.
 ``init_params_annot``/``init_cache_annot`` give the trees with their
 logical axes and ``abstract_params``/``abstract_cache`` the same as meta
 tensors.  On a mesh of more than one device (over a process group) the
-parameters and the batch are DTensors (``partitioning.device_put``): the
-zero states and the aux sums are placed beside them (``partitioning.place``),
-``constrain`` redistributes, the time-mix and the MoE run their
-``shard_map`` paths (sequence- and expert-parallel), and a remat group's
-recompute runs under the rules of its forward.
+parameters, the batch and the caches are DTensors
+(``partitioning.device_put``): the zero states and the aux sums are placed
+beside them (``partitioning.place``), ``constrain`` redistributes, and
+every block runs a ``shard_map`` body on rank-local tensors, the kernels
+inside: attention (batch over 'data', heads over 'model'; the cache's
+sequence over 'model' in prefill and decode), Mamba (channels over
+'model'), the MLP, the MoE (expert-parallel, or dense on each batch
+shard), the time-mix (sequence-parallel or on each batch shard), the
+embedding and the head (vocabulary over 'model'); the norms, the residual
+stream and the rwkv6 channel-mix are DTensor ops.  A remat group's
+recompute runs under the rules of its forward.  Every arch x input shape
+runs so on the production mesh in the dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -390,6 +397,9 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
     first (the JAX package's order, so bf16 rounds alike).  Vision, where
     the batch holds ``vis_embeds`` (B, n_vis, vis_dim): the projected
     patches, then the text's embeddings, ``[vis | text]``."""
+    rules = pt.active_rules()
+    if rules is not None:
+        return _embed_sharded(params, cfg, batch, rules)
     toks = batch["tokens"].long()
     if cfg.n_codebooks:
         x = torch.zeros(toks.shape[:1] + toks.shape[2:] + (cfg.d_model,),
@@ -412,6 +422,9 @@ def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
     codebooks each head's, (B, K, S, V)."""
     sax = _sax(cfg)
     x = constrain(x, ("batch", sax, None))
+    rules = pt.active_rules()
+    if rules is not None:
+        return _logits_sharded(params, cfg, x, rules)
     if cfg.n_codebooks:
         logits = torch.einsum("bsd,kdv->bksv", x, params["audio_heads"])
         logits = constrain(logits, ("batch", None, sax, "vocab"))
@@ -421,6 +434,111 @@ def lm_logits(params: dict, cfg: ModelConfig, x: torch.Tensor
         logits = constrain(common.apply_linear(params["lm_head"], x),
                            ("batch", sax, "vocab"))
     return common.softcap(logits.to(F32), cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Embedding and head on a mesh of more than one device
+#
+# ``shard_map`` bodies, as the blocks: the tokens' batch over ('pod',
+# 'data') (their sequence over 'model' for a ``seq_shard`` config), the
+# vocabulary of each table over 'model' where the specs split it (gathered
+# over 'data' on entry).  A lookup in a split table takes the rows this
+# rank holds and zeros elsewhere, and one psum over 'model' (a codebook at
+# a time, so every sum has one non-zero term: exact) assembles the
+# embeddings; the head writes each rank's vocabulary slice of the logits.
+# ---------------------------------------------------------------------------
+def _lookup(table: torch.Tensor, toks: torch.Tensor, split: bool
+            ) -> torch.Tensor:
+    """Rows ``toks`` of ``table`` (this rank's vocabulary slice when
+    ``split``, the psum over 'model' assembling them)."""
+    if not split:
+        return table[toks]
+    n = table.shape[0]
+    i = toks - pt.axis_index("model") * n
+    mine = (i >= 0) & (i < n)
+    rows = table[i.clamp(0, n - 1)] * mine[..., None].to(table.dtype)
+    return pt.psum(rows, "model")
+
+
+def _embed_sharded(params: dict, cfg: ModelConfig, batch: dict, rules
+                   ) -> torch.Tensor:
+    """``embed_inputs`` on DTensors (the section comment); where the
+    tokens' sequence takes 'model' the table enters whole."""
+    sax = _sax(cfg)
+    toks = batch["tokens"]
+    name = "audio_embed" if cfg.n_codebooks else "embed"
+    tok_axes = ("batch", None, sax) if cfg.n_codebooks else ("batch", sax)
+    tok_spec = rules.spec_for(tok_axes, toks.shape)
+    # a sequence split over 'model' leaves the table whole: each rank
+    # looks up its own tokens
+    t_spec = pt.PartitionSpec() if pt.sharded_over(
+        tok_spec, toks.dim() - 1, rules.mesh) else pt.only_axes(
+        pt.spec_of(params[name]))
+    split = pt.sharded_over(t_spec, 1 if cfg.n_codebooks else 0,
+                            rules.mesh)
+    args = [toks, params[name]]
+    specs = [tok_spec, t_spec]
+    vision = bool(cfg.n_vis_tokens and "vis_embeds" in batch)
+    if vision:
+        args += [batch["vis_embeds"], params["vis_proj"]]
+        specs += [rules.spec_for(("batch", None, None),
+                                 batch["vis_embeds"].shape),
+                  pt.PartitionSpec()]
+    B, S = toks.shape[0], toks.shape[-1]
+    S_out = S + (cfg.n_vis_tokens if vision else 0)
+    x_spec = rules.spec_for(("batch", sax, None), (B, S_out, cfg.d_model))
+
+    def local_fn(toks_l, table_l, vis_l=None, vp_l=None):
+        toks_l = toks_l.long()
+        if cfg.n_codebooks:
+            x = torch.zeros(toks_l.shape[:1] + toks_l.shape[2:]
+                            + (cfg.d_model,), dtype=_dtype(cfg),
+                            device=toks_l.device)
+            for k in range(cfg.n_codebooks):
+                x = x + _lookup(table_l[k], toks_l[:, k], split)
+            return x
+        x = _lookup(table_l, toks_l, split)
+        if vision:
+            v = common.apply_linear(vp_l["in"], vis_l.to(x.dtype))
+            v = common.apply_linear(vp_l["out"], common.gelu(v))
+            x = torch.cat([v, x], dim=1)
+        return x
+
+    return pt.shard_map(local_fn, rules.mesh, in_specs=tuple(specs),
+                        out_specs=x_spec)(*args)
+
+
+def _logits_sharded(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    rules) -> torch.Tensor:
+    """``lm_logits`` on DTensors (the section comment).  Where the
+    logits' vocabulary cannot take 'model' (a ``seq_shard`` config's
+    sequence holds it) the head enters whole."""
+    sax = _sax(cfg)
+    B, S = x.shape[:2]
+    if cfg.n_codebooks:
+        name, out_axes = "audio_heads", ("batch", None, sax, "vocab")
+        out_shape = (B, cfg.n_codebooks, S, cfg.vocab)
+    else:
+        name = "embed" if cfg.tie_embeddings else "lm_head"
+        out_axes, out_shape = ("batch", sax, "vocab"), (B, S, cfg.vocab)
+    w = params[name]["w"] if name == "lm_head" else params[name]
+    out_spec = rules.spec_for(out_axes, out_shape)
+    w_spec = (pt.only_axes(pt.spec_of(w))
+              if pt.sharded_over(out_spec, len(out_shape) - 1, rules.mesh)
+              else pt.PartitionSpec())
+    x_spec = rules.spec_for(("batch", sax, None), x.shape)
+
+    def local_fn(x_l, w_l):
+        if cfg.n_codebooks:
+            logits = torch.einsum("bsd,kdv->bksv", x_l, w_l)
+        elif cfg.tie_embeddings:
+            logits = x_l @ w_l.T
+        else:
+            logits = common.apply_linear({"w": w_l}, x_l)
+        return common.softcap(logits.to(F32), cfg.logit_softcap)
+
+    return pt.shard_map(local_fn, rules.mesh, in_specs=(x_spec, w_spec),
+                        out_specs=out_spec)(x, w)
 
 
 def _run_stack(params: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -517,6 +635,9 @@ def prefill(params: dict, cfg: ModelConfig, cache: dict, batch: dict
     positions = torch.arange(S, device=x.device).expand(B, S)
     x = _run_stack(params, cfg, x, cache, "prefill", positions=positions)
     cache["pos"].fill_(S)
+    # a sequence split over 'model' is gathered before the last token is
+    # taken (the identity on one device and for an unsplit sequence)
+    x = constrain(x, ("batch", None, None))
     return lm_logits(params, cfg, x[:, -1:]), cache
 
 

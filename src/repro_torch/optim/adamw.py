@@ -21,6 +21,8 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import partitioning as pt
+
 F32 = torch.float32
 
 
@@ -56,7 +58,11 @@ class AdamW:
     grad_clip: float = 1.0
 
     def init(self, params: Any) -> dict:
-        zeros = lambda p: torch.zeros(p.shape, dtype=F32, device=p.device)
+        """Zero f32 moments shaped and placed as the parameters (a DTensor
+        parameter's moments are DTensors of its placements: JAX's
+        ``{"mu": p_shard, "nu": p_shard}``), and ``step`` 0."""
+        zeros = lambda p: torch.zeros_like(p, dtype=F32,
+                                           requires_grad=False)
         return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
                 "step": 0}
 
@@ -72,15 +78,19 @@ class AdamW:
         the metrics: the global gradient norm before clipping
         (``grad_norm``) and ``lr``."""
         step_f = torch.tensor(state["step"] + 1, dtype=F32)
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
-                               for g in tree_leaves(grads)))
+        leaves = tree_leaves(params)
+        gleaves = [pt.match_placements(g, p)
+                   for g, p in zip(tree_leaves(grads), leaves)]
+        gnorm = global_norm(gleaves)
         scale = torch.clamp(self.grad_clip / (gnorm + 1e-9), max=1.0)
         bc1 = 1 - torch.pow(torch.tensor(self.b1, dtype=F32), step_f)
         bc2 = 1 - torch.pow(torch.tensor(self.b2, dtype=F32), step_f)
         lr = self._lr(step_f)
-        for p, g, m, n in zip(tree_leaves(params), tree_leaves(grads),
-                              tree_leaves(state["mu"]),
+        for p, g, m, n in zip(leaves, gleaves, tree_leaves(state["mu"]),
                               tree_leaves(state["nu"])):
+            # a DTensor leaf's four tensors share its placements: the
+            # update is elementwise on this rank's shards
+            p, g, m, n = (_local(t) for t in (p, g, m, n))
             g32 = g.to(F32)
             if self.grad_clip:
                 g32 = g32 * scale
@@ -91,6 +101,29 @@ class AdamW:
             p.copy_((p.to(F32) - lr * u).to(p.dtype))
         state["step"] += 1
         return {"grad_norm": gnorm, "lr": lr}
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's rank-local shard (written in place, it is the
+    DTensor's); a plain tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def global_norm(leaves: list[torch.Tensor]) -> torch.Tensor:
+    """The f32 norm of all the leaves together.  Plain tensors: the square
+    root of the sum of their squared sums.  DTensors (a mesh of more than
+    one device): each rank's local sums, each divided by the ranks that
+    hold a copy of its leaf, summed over every rank by one all-reduce, so
+    every element counts once; the result is this rank's plain 0-d
+    tensor, the same on every rank."""
+    from torch.distributed.tensor import DTensor
+
+    if not any(isinstance(g, DTensor) for g in leaves):
+        return torch.sqrt(sum(torch.sum(torch.square(g.to(F32)))
+                              for g in leaves))
+    local = sum(torch.sum(torch.square(g.to_local().to(F32)))
+                / pt.replicas(g) for g in leaves)
+    return torch.sqrt(pt.world_sum(local))
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int,

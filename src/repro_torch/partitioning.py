@@ -26,9 +26,19 @@ same program on its shards.  ``device_put`` makes DTensors, ``constrain``
 redistributes a DTensor (``with_sharding_constraint``'s twin) and refuses
 a plain tensor, and ``shard_map`` runs a body on rank-local tensors with
 the collectives ``axis_index``, ``ppermute``, ``psum`` and ``pmean`` over
-a mesh axis (the sequence-parallel time-mix and the expert-parallel MoE).
-Each collective counts its calls and the bytes this rank sends, by JAX's
-HLO kind names, in ``COLLECTIVES`` (``analysis.count_collectives``).
+a mesh axis (the sequence-parallel time-mix and the expert-parallel MoE),
+and ``all_gather`` and ``pmax`` (the cached attention's).  Every model
+block runs as such a body, the hand kernels on rank-local tensors.  A
+move between placements that gathers or slices (FSDP's all-gather of a
+parameter entering a body, its gradient's reduce-scatter) is done by
+explicit collectives, staged through host memory where gloo needs it
+(CUDA tensors on one card); ``to_placements``/``match_placements`` also
+sum a Partial gradient, ``full_tensor`` gathers a whole one.  Each
+collective counts its calls and the bytes this rank sends, by JAX's HLO
+kind names, in ``COLLECTIVES``; inside ``counting`` so do those a DTensor
+op issues by itself (``analysis.count_collectives``).  On ``meta`` tensors
+(the dry run, over a ``fake`` group) nothing is sent and only the shapes
+and the counts are made.
 """
 from __future__ import annotations
 
@@ -39,6 +49,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # ---------------------------------------------------------------------------
 # Logical axis names used throughout the framework.
@@ -202,8 +213,10 @@ class use_rules:
 def active_rules() -> AxisRules | None:
     """The innermost ``use_rules`` rules when their mesh has more than one
     device, else None: the one test by which a model takes its
-    multi-device path (on one device every placement is the identity)."""
-    if _ACTIVE_RULES and mesh_size(_ACTIVE_RULES[-1].mesh) > 1:
+    multi-device path (on one device every placement is the identity).
+    Inside a ``shard_map`` body, where tensors are rank-local, None too."""
+    if _ACTIVE_RULES and not _BODIES \
+            and mesh_size(_ACTIVE_RULES[-1].mesh) > 1:
         return _ACTIVE_RULES[-1]
     return None
 
@@ -216,8 +229,9 @@ def constrain(x: Any, logical_axes: Sequence[str | None]) -> Any:
     mesh ``x`` must be a DTensor on the mesh's ``DeviceMesh``: it is
     redistributed to the axes' placements (``with_sharding_constraint``'s
     twin); a plain tensor raises ``TypeError`` rather than stay
-    replicated."""
-    if not _ACTIVE_RULES:
+    replicated.  Inside a ``shard_map`` body (rank-local tensors) ``x``
+    itself, as JAX's body sees no sharding."""
+    if not _ACTIVE_RULES or _BODIES:
         return x
     rules = _ACTIVE_RULES[-1]
     spec = rules.spec_for(logical_axes, x.shape)
@@ -278,27 +292,174 @@ def _as_dtensor(x: Any, mesh: Any, what: str) -> Any:
         raise TypeError(
             f"{what}: a plain {type(x).__name__} on a mesh of "
             f"{mesh_size(mesh)} devices; place it first (device_put)")
-    if x.device_mesh is not _device_mesh(mesh, what):
+    # equal meshes (the same ranks, shape and names) are one mesh:
+    # DTensor's sharding cache may hand an op's output an equal one
+    if x.device_mesh != _device_mesh(mesh, what):
         raise ValueError(f"{what}: a DTensor of another DeviceMesh")
     return x
 
 
+def _mesh_groups(dm: Any) -> list[tuple[Any, int, int]]:
+    """(group, size, this rank's index) of each mesh dimension."""
+    return [(dm.get_group(i), dm.size(i), dm.get_local_rank(i))
+            for i in range(dm.ndim)]
+
+
+def _host_staged(group: Any, t: torch.Tensor) -> bool:
+    """Whether a collective stages ``t`` through host memory: a CUDA
+    tensor on a gloo group (gloo sends no CUDA tensor point to point and
+    reduces no bf16 one; NCCL takes them as they are)."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _run(collective: Callable, out: torch.Tensor, /, *inputs: torch.Tensor,
+         group: Any = None, **kw: Any) -> None:
+    """``collective(out, *inputs, group=group, **kw)`` (``out`` alone for
+    an in-place one, an all-reduce): nothing on ``meta``, and staged
+    through host memory where ``_host_staged``."""
+    if out.is_meta:
+        return
+    if _host_staged(group, out):
+        host = out.cpu()
+        collective(host, *(t.cpu() for t in inputs), group=group, **kw)
+        out.copy_(host)
+    else:
+        collective(out, *inputs, group=group, **kw)
+
+
+def _gather_local(t: torch.Tensor, dim: int, group: Any, n: int
+                  ) -> torch.Tensor:
+    """The ``n`` ranks' ``t`` of ``group`` concatenated along ``dim`` in
+    rank order (an all-gather; staged through host memory where
+    ``_host_staged``); on ``meta`` the shape alone."""
+    tt = t.movedim(dim, 0).contiguous()
+    out = tt.new_empty((n * tt.shape[0],) + tuple(tt.shape[1:]))
+    _run(dist.all_gather_into_tensor, out, tt, group=group)
+    return out.movedim(0, dim)
+
+
+def _scatter_sum_local(t: torch.Tensor, dim: int, group: Any, n: int
+                       ) -> torch.Tensor:
+    """This rank's ``dim``-chunk of the sum of ``t`` over ``group`` (a
+    reduce-scatter, staged as ``_gather_local``)."""
+    tt = t.movedim(dim, 0).contiguous()
+    out = tt.new_empty((tt.shape[0] // n,) + tuple(tt.shape[1:]))
+    _run(dist.reduce_scatter_tensor, out, tt, group=group)
+    return out.movedim(0, dim)
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather of a rank-local tensor along ``dim`` over one mesh
+    dimension's group; its backward is the reduce-scatter of the
+    cotangent (each rank keeps the sum of its own chunk).  Counted."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        _count("all-gather", t.numel() * t.element_size())
+        return _gather_local(t, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, ct):
+        _count("reduce-scatter", ct.numel() * ct.element_size())
+        return (_scatter_sum_local(ct, ctx.dim, ctx.group, ctx.n), None,
+                None, None)
+
+
+class _Slice(torch.autograd.Function):
+    """This rank's chunk of a replicated tensor along ``dim`` (local, no
+    traffic); its backward all-gathers the cotangent's chunks."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, n, index):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return t.chunk(n, dim=dim)[index].clone()
+
+    @staticmethod
+    def backward(ctx, ct):
+        _count("all-gather", ct.numel() * ct.element_size())
+        return (_gather_local(ct, ctx.dim, ctx.group, ctx.n), None, None,
+                None, None)
+
+
+def _explicit(src: list, dst: list) -> bool:
+    """Whether ``_relocal`` moves ``src`` to ``dst``: every changed mesh
+    dimension goes Shard -> Replicate or Replicate -> Shard."""
+    return all(a == b or (a.is_shard() and b.is_replicate())
+               or (a.is_replicate() and b.is_shard())
+               for a, b in zip(src, dst))
+
+
+def _relocal(local: torch.Tensor, src: list, dst: list, dm: Any
+             ) -> torch.Tensor:
+    """A rank-local shard under placements ``src`` moved to ``dst``: the
+    gathers first, innermost mesh dimension first (two mesh dimensions
+    sharding one tensor dimension nest in mesh order), then the slices,
+    outermost first; a mesh dimension of one device moves nothing.  Every
+    collective is explicit, counted and staged through host memory where
+    the group needs it."""
+    groups = _mesh_groups(dm)
+    for i in reversed(range(len(src))):
+        group, n, index = groups[i]
+        if src[i].is_shard() and dst[i].is_replicate() and n > 1:
+            local = _Gather.apply(local, src[i].dim, group, n)
+    for i in range(len(src)):
+        group, n, index = groups[i]
+        if src[i].is_replicate() and dst[i].is_shard() and n > 1:
+            local = _Slice.apply(local, dst[i].dim, group, n, index)
+    return local
+
+
 def _redistribute(x: Any, placements: list) -> Any:
-    """``x.redistribute`` to ``placements``, counting the collective each
-    changed mesh dimension implies (its bytes: this rank's shard before the
-    move); ``x`` itself where nothing changes."""
+    """``x`` moved to ``placements``: ``x`` itself where nothing changes;
+    gathers and slices (``_relocal``) explicitly, each all-gather counted
+    with this rank's shard before the move; any other move (a Partial
+    source, Shard to another Shard) by DTensor's ``redistribute``, whose
+    collectives ``counting`` sees."""
+    from torch.distributed.tensor import DTensor
+
     src = list(x.placements)
     if src == list(placements):
         return x
-    nbytes = x.to_local().numel() * x.element_size()
-    for a, b in zip(src, placements):
-        if a == b or b.is_partial() or (a.is_replicate() and b.is_shard()):
-            continue                        # local: nothing is sent
-        kind = ("all-gather" if a.is_shard() and b.is_replicate() else
-                "all-to-all" if a.is_shard() else
-                "all-reduce" if b.is_replicate() else "reduce-scatter")
-        _count(kind, nbytes)
-    return x.redistribute(x.device_mesh, placements)
+    if not _explicit(src, placements):
+        return x.redistribute(x.device_mesh, placements)
+    local = _relocal(x.to_local(), src, list(placements), x.device_mesh)
+    return DTensor.from_local(local, x.device_mesh, placements,
+                              run_check=False)
+
+
+# the native functional collectives DTensor issues, by JAX's HLO kind
+_FUNCTIONAL_KINDS = (("all_gather", "all-gather"),
+                     ("reduce_scatter", "reduce-scatter"),
+                     ("all_reduce", "all-reduce"),
+                     ("all_to_all", "all-to-all"))
+
+
+class _CountFunctional(TorchDispatchMode):
+    """Lets DTensor desugar an op (NotImplemented for DTensor arguments)
+    and counts each native functional collective it then issues on the
+    rank-local tensors, with its input's bytes."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        name = func._overloadpacket._qualified_op_name
+        if name.startswith("_c10d_functional::"):
+            for key, kind in _FUNCTIONAL_KINDS:
+                if key in name:
+                    _count(kind, args[0].numel() * args[0].element_size())
+        return func(*args, **(kwargs or {}))
+
+
+def counting():
+    """A context in which the collectives DTensor ops issue by themselves
+    (an FSDP all-gather of a DTensor matmul, a partial sum's all-reduce)
+    are counted in ``COLLECTIVES`` beside the explicit ones, under JAX's
+    kind names with the bytes of this rank's input.  Outside it only the
+    explicit collectives (``shard_map``'s, ``_redistribute``'s) count."""
+    return _CountFunctional()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,13 +482,6 @@ def _axes(axis: str | Sequence[str]) -> tuple[str, ...]:
     return (axis,) if isinstance(axis, str) else tuple(axis)
 
 
-def _host_staged(group: Any, t: torch.Tensor) -> bool:
-    """Whether a collective stages ``t`` through host memory: a CUDA
-    tensor on a gloo group (gloo sends no CUDA tensor point to point and
-    reduces no bf16 one; NCCL takes them as they are)."""
-    return t.is_cuda and dist.get_backend(group) == "gloo"
-
-
 def _all_reduce(t: torch.Tensor, axes: tuple[str, ...], body: _Body
                 ) -> torch.Tensor:
     """The sum of ``t`` over the mesh axes ``axes``: one all-reduce per
@@ -336,14 +490,8 @@ def _all_reduce(t: torch.Tensor, axes: tuple[str, ...], body: _Body
     for a in axes:
         if body.mesh.shape[a] == 1:
             continue
-        group = body.device_mesh.get_group(a)
         _count("all-reduce", out.numel() * out.element_size())
-        if _host_staged(group, out):
-            host = out.cpu()
-            dist.all_reduce(host, group=group)
-            out.copy_(host)
-        else:
-            dist.all_reduce(out, group=group)
+        _run(dist.all_reduce, out, group=body.device_mesh.get_group(a))
     return out
 
 
@@ -369,6 +517,8 @@ def _send_recv(t: torch.Tensor, axis: str, perm: tuple, body: _Body
     dst = [j for i, j in perm if i == me]
     src = [i for i, j in perm if j == me]
     _count("collective-permute", t.numel() * t.element_size() if dst else 0)
+    if t.is_meta:
+        return torch.empty_like(t)
     staged = _host_staged(group, t)
     send = t.detach().cpu() if staged else t.detach().contiguous()
     recv = torch.zeros_like(send)
@@ -449,6 +599,30 @@ def pmean(x: torch.Tensor, axis: str | Sequence[str]) -> torch.Tensor:
     return psum(x, axes) / n
 
 
+def all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """``lax.all_gather(x, axis, axis=dim, tiled=True)``: the axis's ranks'
+    ``x`` concatenated along ``dim`` in index order; its backward keeps
+    this rank's chunk of the summed cotangent."""
+    body = _body("all_gather")
+    if body.mesh.shape[axis] == 1:
+        return x
+    return _Gather.apply(x, dim, body.device_mesh.get_group(axis),
+                         body.mesh.shape[axis])
+
+
+def pmax(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``lax.pmax``: the elementwise maximum of ``x`` over the mesh axis,
+    outside autograd (a softmax's stabiliser, whose gradient is none)."""
+    body = _body("pmax")
+    out = x.detach().clone()
+    if body.mesh.shape[axis] == 1:
+        return out
+    _count("all-reduce", out.numel() * out.element_size())
+    _run(dist.all_reduce, out, group=body.device_mesh.get_group(axis),
+         op=dist.ReduceOp.MAX)
+    return out
+
+
 def _spec_map(fn: Callable, specs: Any, tree: Any) -> Any:
     """``fn(tensor, spec)`` over the tensors of ``tree``, ``specs`` a tree
     of PartitionSpecs of the same structure or a prefix of it (one spec
@@ -480,10 +654,16 @@ def shard_map(f: Callable, mesh: Any, in_specs: Any, out_specs: Any
     from torch.distributed.tensor import DTensor
 
     def enter(t: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
-        t = _redistribute(_as_dtensor(t, mesh, "shard_map"),
-                          NamedSharding(mesh, spec).placements())
-        local = t.to_local()
-        axes = _unnamed(mesh, spec)
+        t = _as_dtensor(t, mesh, "shard_map")
+        src, dst = list(t.placements), NamedSharding(mesh, spec).placements()
+        local = _redistribute(t, dst).to_local()
+        if not _explicit(src, dst):
+            src = dst
+        # an axis gathered on entry sums its gradient in the gather's
+        # backward (a reduce-scatter); one the tensor was replicated over
+        # already sums it here (an all-reduce)
+        axes = tuple(a for i, a in enumerate(mesh.shape)
+                     if a in _unnamed(mesh, spec) and not src[i].is_shard())
         return _SumGradOver.apply(local, axes, body) if axes else local
 
     def leave(t: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
@@ -595,6 +775,115 @@ def device_put(tree: Any, shardings: Any) -> Any:
         return DTensor.from_local(local.clone(), dm, placements,
                                   run_check=False)
     return _map(put, lambda x: isinstance(x, torch.Tensor), tree, shardings)
+
+
+def only_axes(spec: PartitionSpec, axes: Sequence[str] = ("model",)
+              ) -> PartitionSpec:
+    """``spec`` with every mesh axis but ``axes`` dropped: a parameter's
+    spec inside a ``shard_map`` body, gathered over the batch axes (FSDP's
+    all-gather on entry, a reduce-scatter of its gradient)."""
+    def keep(entry):
+        names = tuple(n for n in (entry if isinstance(entry, tuple)
+                                  else (entry,)) if n in axes)
+        return names if names else None
+    return PartitionSpec(*(keep(e) for e in spec))
+
+
+def sharded_over(spec: PartitionSpec, dim: int, mesh: Any,
+                 axis: str = "model") -> bool:
+    """Whether ``spec`` splits tensor dimension ``dim`` over ``axis`` of
+    ``mesh``: it names the axis there and the axis has more than one
+    device."""
+    if dim >= len(spec) or spec[dim] is None or mesh.shape.get(axis, 1) == 1:
+        return False
+    entry = spec[dim]
+    return axis in (entry if isinstance(entry, tuple) else (entry,))
+
+
+def spec_of(t: Any) -> PartitionSpec:
+    """The PartitionSpec of a DTensor ``t``'s own placements: each tensor
+    dimension the mesh axes that shard it, in mesh order (a Partial or
+    Replicate mesh dimension names none), trailing ``None``s stripped as
+    ``spec_for`` strips them."""
+    parts: list[list[str]] = [[] for _ in range(t.dim())]
+    for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if pl.is_shard():
+            parts[pl.dim].append(name)
+    while parts and not parts[-1]:
+        parts.pop()
+    return PartitionSpec(*(tuple(p) if p else None for p in parts))
+
+
+def body_specs(tree: dict, keep: Sequence[str] = ("model",)) -> dict:
+    """The ``only_axes`` spec of each DTensor of ``tree`` (a dict of
+    them), by its own placements: a parameter's spec inside a
+    ``shard_map`` body, from where ``device_put`` placed it."""
+    return {k: only_axes(spec_of(v), keep) for k, v in tree.items()}
+
+
+def match_placements(t: Any, like: Any) -> Any:
+    """A DTensor ``t`` (a gradient) moved to the placements of ``like``
+    (its parameter): ``to_placements``.  A plain ``t`` comes back as it
+    is."""
+    if not hasattr(t, "placements"):
+        return t
+    return to_placements(t, list(like.placements))
+
+
+def to_placements(t: Any, dst: list) -> Any:
+    """A DTensor ``t`` moved to placements ``dst``: a Partial dimension
+    all-reduced (explicit and counted), then ``_redistribute``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    src = list(t.placements)
+    if not any(pl.is_partial() for pl in src):
+        return _redistribute(t, dst)
+    dm, local = t.device_mesh, t.to_local()
+    for i, pl in enumerate(src):
+        if pl.is_partial():
+            local = local.clone()
+            _count("all-reduce", local.numel() * local.element_size())
+            _run(dist.all_reduce, local, group=dm.get_group(i))
+            src[i] = Replicate()
+    return _redistribute(DTensor.from_local(local, dm, src,
+                                            run_check=False), dst)
+
+
+def full_tensor(t: Any) -> Any:
+    """The whole tensor of a DTensor on every rank (its shards gathered by
+    explicit, counted all-gathers, staged through host memory where gloo
+    needs it), detached; a plain tensor itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    with torch.no_grad():
+        return to_placements(t.detach(), [Replicate()] * t.device_mesh.ndim
+                             ).to_local()
+
+
+def replicas(t: Any) -> int:
+    """The ranks holding each element of a DTensor ``t`` (the product of
+    the mesh dimensions it is replicated over); 1 for a plain tensor."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        return 1
+    return math.prod(t.device_mesh.size(i)
+                     for i, pl in enumerate(t.placements)
+                     if pl.is_replicate())
+
+
+def world_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of a rank-local tensor over every rank of the process group
+    (one all-reduce, counted, staged through host memory where gloo needs
+    it); ``t`` itself outside a group or on ``meta``."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return t
+    out = t.clone()
+    _count("all-reduce", out.numel() * out.element_size())
+    _run(dist.all_reduce, out)
+    return out
 
 
 def place(x: torch.Tensor, logical_axes: Sequence[str | None]

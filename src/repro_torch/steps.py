@@ -17,9 +17,12 @@ read, so the whole guarded tick can be captured in a CUDA graph
 (serving/tick.py)."""
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
+from repro_torch import partitioning as pt
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.optim.adamw import AdamW, tree_leaves, tree_map
@@ -29,6 +32,70 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy; logits (..., V) f32, targets (...) int."""
     logp = F.log_softmax(logits, dim=-1)
     return -torch.gather(logp, -1, targets.long()[..., None])[..., 0].mean()
+
+
+def _targets(toks: torch.Tensor, cfg: ModelConfig, seq_len: int
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each logits position's target token and whether it has one
+    (``loss_fn``'s pairing) over a whole sequence of ``seq_len``
+    positions: the next token (audio: of each codebook), or with a vision
+    prefix text token i at position n_vis - 1 + i."""
+    if cfg.n_vis_tokens and not cfg.n_codebooks:
+        nv = cfg.n_vis_tokens
+        tgt = F.pad(toks, (nv - 1, seq_len - nv + 1 - toks.shape[-1]))
+        pos = torch.arange(seq_len, device=toks.device)
+        return tgt, (pos >= nv - 1) & (pos < nv - 1 + toks.shape[-1])
+    tgt = F.pad(toks[..., 1:], (0, 1))
+    return tgt, torch.arange(seq_len, device=toks.device) < seq_len - 1
+
+
+def _xent_sharded(logits: torch.Tensor, toks: torch.Tensor,
+                  cfg: ModelConfig, rules) -> torch.Tensor:
+    """``_xent`` of ``loss_fn``'s pairs on DTensors, a ``shard_map`` body:
+    the tokens enter with their sequence whole (each rank pairs its own
+    logits positions), a vocabulary split over 'model' takes its
+    log-sum-exp and target logit by psums over 'model' (the maximum by
+    pmax), and the sum of the losses over every rank's positions, divided
+    by their count, is the mean."""
+    sax = transformer._sax(cfg)
+    audio = bool(cfg.n_codebooks)
+    l_axes = ("batch", None, sax, "vocab") if audio else ("batch", sax,
+                                                          "vocab")
+    l_spec = rules.spec_for(l_axes, logits.shape)
+    t_spec = rules.spec_for(("batch",) + (None,) * (toks.dim() - 1),
+                            toks.shape)
+    vocab_split = pt.sharded_over(l_spec, logits.dim() - 1, rules.mesh)
+    seq_split = pt.sharded_over(l_spec, logits.dim() - 2, rules.mesh)
+    S = logits.shape[-2]
+    count = math.prod(logits.shape[:-2]) * (
+        toks.shape[-1] if cfg.n_vis_tokens and not audio else S - 1)
+    batch_axes = tuple(a for a in ("pod", "data") if a in rules.mesh.shape)
+
+    def local_fn(l_l, toks_l):
+        tgt, has = _targets(toks_l.long(), cfg, S)
+        if seq_split:
+            n = l_l.shape[-2]
+            lo = pt.axis_index("model") * n
+            tgt, has = tgt[..., lo:lo + n], has[lo:lo + n]
+        if vocab_split:
+            n = l_l.shape[-1]
+            mx = pt.pmax(l_l.amax(-1), "model")
+            lse = torch.log(pt.psum(torch.exp(l_l - mx[..., None]).sum(-1),
+                                    "model")) + mx
+            i = tgt - pt.axis_index("model") * n
+            mine = (i >= 0) & (i < n)
+            picked = torch.gather(l_l, -1,
+                                  i.clamp(0, n - 1)[..., None])[..., 0]
+            nll = lse - pt.psum(torch.where(mine, picked, 0.0), "model")
+        else:
+            logp = F.log_softmax(l_l, dim=-1)
+            nll = -torch.gather(logp, -1, tgt[..., None])[..., 0]
+        total = torch.where(has, nll, 0.0).sum()
+        axes = batch_axes + (("model",) if seq_split else ())
+        return (pt.psum(total, axes) if axes else total) / count
+
+    return pt.shard_map(local_fn, rules.mesh, in_specs=(l_spec, t_spec),
+                        out_specs=pt.PartitionSpec())(logits, toks)
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -45,7 +112,10 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     transformer.check_trainable(cfg)
     logits, aux = transformer.forward(params, cfg, batch, remat=remat)
     toks = batch["tokens"]
-    if cfg.n_codebooks:
+    rules = pt.active_rules()
+    if rules is not None:
+        loss = _xent_sharded(logits, toks, cfg, rules)
+    elif cfg.n_codebooks:
         loss = _xent(logits[:, :, :-1], toks[:, :, 1:])
     elif cfg.n_vis_tokens:
         nv = cfg.n_vis_tokens

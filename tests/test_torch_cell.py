@@ -101,9 +101,16 @@ def test_cell_wrapper_rejects_what_the_kernel_does_not_take():
         cell_k.lstm_cell(a["w"].double(), a["b"], a["x"], a["c"], a["h"])
     with pytest.raises(ValueError):
         cell_k.lstm_cell(a["w"][1:], a["b"], a["x"], a["c"], a["h"])
+    # on meta (an abstract trace) no plain version runs: the outputs'
+    # shapes and dtypes come back
     meta = {k: v.to("meta") for k, v in a.items()}
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        cell_k.lstm_cell(*(meta[k] for k in "wbxch"))
+    plain, cell_k.lstm_cell_plain = cell_k.lstm_cell_plain, None
+    try:
+        out = cell_k.lstm_cell(*(meta[k] for k in "wbxch"))
+    finally:
+        cell_k.lstm_cell_plain = plain
+    assert [(t.device.type, t.shape) for t in out] == \
+        [("meta", meta["c"].shape), ("meta", meta["h"].shape)]
 
 
 def test_init_cell_layout():

@@ -111,6 +111,53 @@ def test_block_s_never_changes_results():
         torch.testing.assert_close(outs[0], o, **TOL)
 
 
+def test_lse_is_the_log_sum_exp_of_the_scaled_scores():
+    """``with_lse``: the output unchanged, and each head's log-sum-exp of
+    its scaled scores over the row's valid positions (JAX's reference
+    scores), NEG_INF for a row of length 0; on meta, the shapes alone."""
+    B, Hq, Hkv, S, dh = 3, 8, 2, 40, 32
+    q, kc, vc = _inputs(B, Hq, Hkv, S, dh, seed=6)
+    lens = np.array([0, 17, 40], np.int32)
+    tq, tk, tv, tl = (convert.params_from_numpy(a) for a in (q, kc, vc, lens))
+    out, lse = ops.decode_attn(tq, tk, tv, tl, block_s=8, with_lse=True)
+    torch.testing.assert_close(out, ops.decode_attn(tq, tk, tv, tl,
+                                                    block_s=8), rtol=0, atol=0)
+    assert lse.shape == (B, Hq) and lse.dtype == torch.float32
+    g = Hq // Hkv
+    kq = jnp.repeat(jnp.asarray(kc), g, axis=2)          # (B, S, Hq, dh)
+    scores = np.asarray(jnp.einsum("bhd,bshd->bhs", jnp.asarray(q), kq)
+                        * dh ** -0.5)
+    for b in range(1, B):
+        want = np.log(np.exp(scores[b, :, :lens[b]]).sum(-1))
+        np.testing.assert_allclose(lse[b].numpy(), want, **TOL)
+    assert torch.all(lse[0] == da.NEG_INF)
+    mo, ml = da.decode_attn(*(t.to("meta") for t in (tq, tk, tv, tl)),
+                            with_lse=True)
+    assert (mo.shape, ml.shape, ml.dtype) == (tq.shape, (B, Hq), torch.float32)
+
+
+def test_lse_combines_slices_of_a_cache_into_the_whole():
+    """A cache cut into slices along its positions, K9 on each (its
+    lengths cut to the slice) with the log-sum-exp, the outputs weighted
+    by exp(lse - max): the whole cache's output, as the decode on a cache
+    split over 'model' combines its ranks'."""
+    B, Hq, Hkv, S, dh = 4, 8, 2, 48, 32
+    q, kc, vc = (convert.params_from_numpy(a)
+                 for a in _inputs(B, Hq, Hkv, S, dh, seed=7))
+    lens = torch.tensor([1, 12, 30, 48], dtype=torch.int32)
+    whole = da.decode_attn(q, kc, vc, lens)
+    parts = []
+    for lo in range(0, S, 12):
+        cut = (lens - lo).clamp(0, 12).to(torch.int32)
+        parts.append(da.decode_attn(q, kc[:, lo:lo + 12], vc[:, lo:lo + 12],
+                                    cut, with_lse=True))
+    mx = torch.stack([lse for _, lse in parts]).amax(0)
+    wgt = [torch.exp(lse - mx) for _, lse in parts]
+    got = (sum(o * w[..., None] for (o, _), w in zip(parts, wgt))
+           / sum(wgt)[..., None])
+    torch.testing.assert_close(got, whole, **TOL)
+
+
 #: the served decode shapes: (model, B, group, dk, kv heads) at S = 517
 SERVED = [("qwen2-0.5b", 4, 7, 64, 2), ("yi-9b", 4, 8, 128, 4),
           ("command-r-35b", 4, 8, 128, 8), ("stablelm-12b", 4, 4, 160, 8)]

@@ -431,12 +431,25 @@ def test_bwd_wrapper_rejects_mismatched_shapes():
 
 
 @pytest.mark.parametrize("name", ["flash_prefill_traj", "flash_prefill_bwd"])
-def test_wrappers_raise_off_the_cpu_and_the_card(name):
-    """A tensor neither on the CPU nor on the card reaches no plain
-    version: the wrappers raise (on the card they launch or raise)."""
+def test_wrappers_raise_off_the_cpu_and_the_card(name, monkeypatch):
+    """A tensor off the CPU reaches no plain version: on ``meta`` (an
+    abstract trace, the dry run) the wrappers count the call and give
+    their outputs' shapes and dtypes, computing nothing; on the card they
+    launch or raise."""
+    from repro_torch import kernels
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on meta tensors")
+    for plain in ("flash_prefill_traj_plain", "flash_prefill_bwd_plain"):
+        monkeypatch.setattr(fp, plain, refuse)
     q = torch.empty(1, 8, 2, 16, device="meta")
     k = torch.empty(1, 8, 1, 16, device="meta")
+    lse = torch.empty(1, 2, 8, device="meta")
     args = (q, k, k) if name == "flash_prefill_traj" else (
-        q, k, k, q, torch.empty(1, 2, 8, device="meta"), q)
-    with pytest.raises(ValueError, match="runs on cpu or cuda"):
-        getattr(fp, name)(*args)
+        q, k, k, q, lse, q)
+    calls = kernels.CALLS[name]
+    out = getattr(fp, name)(*args)
+    want = [q, lse] if name == "flash_prefill_traj" else [q, k, k]
+    assert [(t.device.type, t.shape, t.dtype) for t in out] == \
+        [("meta", w.shape, w.dtype) for w in want]
+    assert kernels.CALLS[name] == calls + 1

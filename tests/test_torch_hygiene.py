@@ -54,7 +54,8 @@ def test_the_scan_sees_the_whole_port():
             "configs/olmoe_1b_7b.py", "configs/qwen3_moe_30b_a3b.py",
             "configs/internvl2_1b.py", "configs/musicgen_large.py",
             "models/registry.py", "partitioning.py", "launch/mesh.py",
-            "core/factorization.py"} <= names
+            "core/factorization.py", "launch/dryrun.py"} <= names
+    assert ROOT / "examples" / "dryrun_one_torch.py" in FILES
     assert _imported_modules(ROOT / "tests" / "test_torch_plans.py").count(
         "repro.partitioning") == 1    # the scanner does see such imports
 
@@ -111,12 +112,17 @@ def _process_group_calls(path: Path) -> list[str]:
 
 
 def test_nothing_starts_a_process_group():
-    """No module of the port and no example calls ``init_process_group``:
-    a mesh of more than one device runs over a group its caller starts (a
-    test, ``chip_smoke.py``'s phase D2, or ``torchrun``), never one an
-    import or an entry point starts.  ``chip_smoke.py`` is the one file
-    scanned here that does start one."""
-    calls = [c for path in FILES if path != ROOT / "chip_smoke.py"
-             for c in _process_group_calls(path)]
-    assert not calls, calls
+    """No import starts a process group, and of the port's modules and
+    examples only two entry points call ``init_process_group``: the dry
+    run (``launch/dryrun.start_group``: a ``fake`` group in one process,
+    which sends nothing) and the trainer (``launch/train._join_group``:
+    the group ``torchrun``'s environment describes, only when it names
+    several ranks).  Any other mesh of more than one device runs over a
+    group its caller starts (a test, ``chip_smoke.py``'s D2 and D3).
+    ``chip_smoke.py`` starts them."""
+    calls = {path.relative_to(ROOT).as_posix() for path in FILES
+             if path != ROOT / "chip_smoke.py"
+             and _process_group_calls(path)}
+    assert calls == {"src/repro_torch/launch/dryrun.py",
+                     "src/repro_torch/launch/train.py"}, calls
     assert _process_group_calls(ROOT / "chip_smoke.py")

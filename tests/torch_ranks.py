@@ -6,7 +6,8 @@ tests/test_distributed.py), and collect its per-check results.
 starts ``world`` processes of it (rank i of world, a ``file://``
 rendezvous in ``tmp``, so parallel test workers never share a port) and
 waits for all of them within ``timeout`` seconds, killing every one on
-expiry.  The program registers checks with ``check(name, fn)``: each runs
+expiry (the program imports ``src`` and this directory's helpers, as
+``init_annot_from``).  The program registers checks with ``check(name, fn)``: each runs
 ``fn`` and records whether it raised; every rank writes its record to
 ``tmp/rank<i>.json``.  ``run`` returns ``{name: [(rank, ok, detail),
 ...]}``, so one job serves many parametrised tests, each reading its
@@ -21,7 +22,8 @@ import sys
 import time
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent.parent / "src"
+TESTS = Path(__file__).resolve().parent
+SRC = TESTS.parent / "src"
 
 PRELUDE = '''
 import json, sys, traceback
@@ -61,7 +63,7 @@ def run(code: str, world: int, tmp: Path, timeout: float = 300.0
     script.write_text(PRELUDE + code, encoding="utf-8")
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
-                   [str(SRC), os.environ.get("PYTHONPATH", "")]))
+                   [str(SRC), str(TESTS), os.environ.get("PYTHONPATH", "")]))
     logs = [open(tmp / f"rank{r}.log", "w+") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(script), str(r),
                                str(world), str(tmp)], env=env,
@@ -98,3 +100,26 @@ def assert_held(results: dict, name: str, world: int) -> None:
     failed = [f"rank {r}: {detail}" for r, ok, detail in got if not ok]
     assert not failed, "\n".join(failed)
     assert len(got) == world, f"{name}: {len(got)} of {world} ranks ran it"
+
+
+def init_annot_from(trees: dict):
+    """A ``registry.Model.init_annot`` that gives ``trees[cfg.name]`` (a
+    plain parameter tree: another package's weights, converted) with the
+    model's own logical axes, in place of its draw; patched in, it feeds
+    those weights to every entry point that draws (the trainer)."""
+    from repro_torch import partitioning as pt
+    from repro_torch.optim.adamw import tree_map
+
+    def annotated(values, axes):
+        if isinstance(values, dict):
+            return {k: annotated(values[k], axes[k]) for k in values}
+        if isinstance(values, list):
+            return [annotated(v, a) for v, a in zip(values, axes,
+                                                    strict=True)]
+        return pt.Annot(values, axes)
+
+    def init_annot(self, gen, device="cpu"):
+        return annotated(tree_map(lambda t: t.to(device),
+                                  trees[self.cfg.name]),
+                         self.abstract_params()[1])
+    return init_annot
