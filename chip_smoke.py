@@ -123,6 +123,23 @@ and U3 the two trained at full width and depth for 8 steps of batch 4 x
 512 positions drawn by ``registry.make_batch``, as A8 (step 1's K8b calls
 held, peak memory, the loss).  A1, A2, A5, A6 and A9 also hold and time
 K8, K9, K8t and K8b at MusicGen-large's heads (32/32 x 64).
+The dense archs with LayerNorm: A3 also holds StableLM-2-12B (32/8 heads
+of 160) and Command-R-35B (64/8 of 128, a tied 256,000-entry head, rope
+theta 8e6) at full width, 2 layers, in f32 as V1 holds InternVL2-1B; A4
+serves both at full width and depth in bf16 (12.1 B and 30.3 B
+parameters) through the wave engine and the slot engine (every K8 on
+the tensor cores and every K8/K9 launch held against its plain version
+as it comes, a replayed tick bit-equal to the eager one, each model's
+peak memory); A1, A2 and A5 hold and time K8 and K9 at their heads.
+The JAX package's other cache layouts (``layouts_slice``): L1 the
+long-context ring ``config_for_shape(qwen2-0.5b, long_500k)`` gives (a
+window of 8,192 slots), at full width and depth: in f32 a 9,000-token
+prefill (windowed K8) and 16 decode steps on the ring against the
+windowed ``forward(inference=True)``, in bf16 the slot engine over 4
+lanes of the ring (prompts of 8,300 to 9,000 tokens); Q1 the int8 cache
+on Yi-9B (``SERVE_LAYERS`` depth) against the bf16 full cache as the
+JAX package's tests/test_kv_quant.py holds it, then the slot engine over
+it.
 The analysis and profiler half: P1 holds every served and trained
 model's parameters to ``analysis.param_counts`` (within the norms'
 bookkeeping of the JAX package's count), prints each training step's
@@ -238,6 +255,16 @@ REPO = Path(__file__).resolve().parent
 #: and Qwen3-30B-A3B's (X4; 48).  The training runs keep their depth.
 SERVE_LAYERS = {"rwkv6-3b": 8, "yi-9b": 24, "olmoe-1b-7b": 8,
                 "qwen3-moe-30b-a3b": 24}
+#: the dense archs with LayerNorm, StableLM-2-12B (32/8 heads of 160) and
+#: Command-R-35B (64/8 of 128, a tied 256,000-entry head, rope theta 8e6):
+#: A3 at 2 layers in f32, A4 at full width and depth in bf16, A5's shapes
+LN_ARCHS = ("stablelm-12b", "command-r-35b")
+#: L1's long-context layout: the ring of ``registry.LONG_CONTEXT_WINDOW``
+#: slots that ``config_for_shape`` gives a dense arch at ``long_500k``, a
+#: prompt past it and 16 decode steps
+RING_WINDOW, RING_PROMPT, RING_STEPS = 8192, 9000, 16
+#: L1's slot serve: 6 prompts past the ring on 4 lanes, 16 new tokens each
+RING_LENS = (8300, 9000, 8650, 8821, 8417, 8963)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -363,15 +390,34 @@ def randn(*shape, gen, scale=1.0):
     return (torch.randn(*shape, generator=gen) * scale).cuda()
 
 
+#: above 0 while ``disarmed`` holds: the armed plain versions then run
+_DISARMED = [0]
+
+
+@contextlib.contextmanager
+def disarmed():
+    """Inside, the plain versions that ``tripwires`` armed run as they
+    would unarmed: a hold checks a launch against its plain version (and
+    the functions that version calls) in the middle of a serve that has
+    them armed."""
+    _DISARMED[0] += 1
+    try:
+        yield
+    finally:
+        _DISARMED[0] -= 1
+
+
 @contextlib.contextmanager
 def tripwires(*where):
     """Arm each ``(module, name)`` plain version to raise when a CUDA
-    tensor reaches it: inside, every CUDA call must launch its kernel."""
+    tensor reaches it (outside ``disarmed``): inside, every CUDA call must
+    launch its kernel."""
     saved = [(mod, name, getattr(mod, name)) for mod, name in where]
 
     def armed(name, fn):
         def call(*args, **kwargs):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+            if not _DISARMED[0] and any(isinstance(a, torch.Tensor)
+                                        and a.is_cuda for a in args):
                 raise RuntimeError(f"a CUDA tensor reached the plain version "
                                    f"{name}")
             return fn(*args, **kwargs)
@@ -1882,13 +1928,18 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         (1, 60, 2, 2, 16, 16, 16, 20), (1, 64, 4, 2, 32, 32, 32, 0),
         (2, 96, 4, 2, 16, 32, 32, 0),
         # Qwen2-0.5B's served prefills, Yi-9B's, 8/8 x 160, a window of 64,
-        # MusicGen-large's full multi-head 32/32 x 64 (g = 1 at dh 64) and
-        # InternVL2-1B's vision prefix ahead of 300 text tokens
+        # MusicGen-large's full multi-head 32/32 x 64 (g = 1 at dh 64),
+        # InternVL2-1B's vision prefix ahead of 300 text tokens, the
+        # LayerNorm archs' served prefills (StableLM-2-12B 32/8 x 160,
+        # Command-R-35B 64/8 x 128) and L1's long prompt in the 8,192 ring
         (4, 500, 14, 2, 64, None, None, 0), (4, 468, 14, 2, 64, None, None, 0),
         (4, 500, 32, 4, 128, None, None, 0), (2, 500, 8, 8, 160, None, None, 0),
         (4, 500, 14, 2, 64, None, None, 64),
         (4, 500, 32, 32, 64, None, None, 0),
-        (1, 556, 14, 2, 64, None, None, 0)]
+        (1, 556, 14, 2, 64, None, None, 0),
+        (4, 500, 32, 8, 160, None, None, 0),
+        (4, 500, 64, 8, 128, None, None, 0),
+        (1, RING_PROMPT, 14, 2, 64, None, None, RING_WINDOW)]
     for B, S, Hq, Hkv, dh, qb, kb, w in cases:
         blocks = fp.choose_blocks(S, dh)
         qb_, kb_ = qb or blocks.q_block, kb or blocks.k_block
@@ -1974,9 +2025,13 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
         (4, 32, 4, 517, 128, None, [0, 1, 63, 64]),
         (4, 32, 4, 517, 128, None, [65, 300, 508, 517]),
         (2, 32, 8, 517, 160, None, [300, 508]),
-        # MusicGen-large's 32/32 x 64; InternVL2-1B's cache behind its prefix
+        # MusicGen-large's 32/32 x 64; InternVL2-1B's cache behind its
+        # prefix; the LayerNorm archs' served caches, StableLM-2-12B's 32/8
+        # x 160 and Command-R-35B's 64/8 x 128 (g = 8)
         (4, 32, 32, 517, 64, None, [0, 1, 300, 517]),
-        (4, 14, 2, 773, 64, None, [557, 600, 700, 773])]
+        (4, 14, 2, 773, 64, None, [557, 600, 700, 773]),
+        (4, 32, 8, 517, 160, None, [0, 1, 65, 517]),
+        (4, 64, 8, 517, 128, None, [0, 1, 300, 508])]
     e_lse = {f32: 0.0, bf16: 0.0}
     for B, Hq, Hkv, S, dk, bs, lens in cases:
         if lens is None:
@@ -2143,6 +2198,11 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
     admission_f32("A3", model, p32, plain_attention, counted, counts)
     del p32, model
     torch.cuda.empty_cache()
+    # the LayerNorm archs at full width, 2 layers, f32: K8 at dh 160 and
+    # K9's split table at g = 8 against the plain plans, prefill + decode
+    # against the forward
+    for name in LN_ARCHS:
+        model_f32_phase("A3", name, device, counted, counts, only)
 
     # --- A4. Qwen2-0.5B and Yi-9B in bf16, served --------------------------
     served_launches = {"flash_prefill": 0, "decode_attn": 0}
@@ -2175,12 +2235,23 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
                        chaos=True)
         del engine
         torch.cuda.empty_cache()
+    # the LayerNorm archs at full width and depth (Command-R-35B's 30.3 B
+    # parameters, 60.6 GB, fit beside its pools) through both engines;
+    # their slot serves leave out chunked admission and the comparisons
+    # with the wave engine at batch 1, which S1 holds for the same code
+    for name in LN_ARCHS:
+        got = model_serve_phase("A4", get_arch(name), device, counted,
+                                counts, only, chaos=False, compare=False)
+        for k in served_launches:
+            served_launches[k] += got.get(k, 0)
 
     # --- A5. the kernels' times at the served shapes ----------------------
     rows = {}
     for name, (Hq, Hkv, dh) in (("qwen2-0.5b", (14, 2, 64)),
                                 ("yi-9b", (32, 4, 128)),
-                                ("musicgen-large", (32, 32, 64))):
+                                ("musicgen-large", (32, 32, 64)),
+                                ("stablelm-12b", (32, 8, 160)),
+                                ("command-r-35b", (64, 8, 128))):
         B, S = 4, 500
         q, k, v = attn_inputs(B, S, Hq, Hkv, dh, bf16, gen)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -2768,13 +2839,16 @@ N_SLOTS, SLOT_SEQ = 4, 500 + 16 + 1
 
 
 @contextlib.contextmanager
-def capturing(module, name: str, calls: list):
-    """Install a wrapper of the kernel ``module.name`` that keeps clones of
-    its inputs (caches and states are views that the model then
-    overwrites) and its output for the check against the plain version
-    afterwards.  The wrapper counts its launches through its module's
-    name, which is this function while it is installed: the counts are
-    carried across."""
+def capturing(module, name: str, calls: list, hold):
+    """Install a wrapper of the kernel ``module.name`` that holds each
+    launch against its plain version as it comes, on the launch's own
+    inputs before the model overwrites them (``hold(args, kwargs, out)``,
+    ``disarmed``), and keeps the error in ``calls``, or the exception of
+    a hold that failed (``held`` raises it: the slot engine contains a
+    failing admission, which would hide it).  No launch's inputs are
+    kept, so a model whose caches fill the card is held launch by launch.
+    The wrapper counts its launches through its module's name, which is
+    this function while it is installed: the counts are carried across."""
     kernel = getattr(module, name)
     attrs = [a for a in ("launches", "tc_launches") if hasattr(kernel, a)]
 
@@ -2784,8 +2858,11 @@ def capturing(module, name: str, calls: list):
         out = kernel(*args, **kwargs)
         for a in attrs:
             setattr(kernel, a, getattr(captured, a))
-        calls.append(([x.clone() if isinstance(x, torch.Tensor) else x
-                       for x in args], kwargs, out))
+        try:
+            with disarmed():
+                calls.append(hold(args, kwargs, out))
+        except Exception as err:             # noqa: BLE001 (see held)
+            calls.append(err)
         return out
 
     for a in attrs:
@@ -2797,20 +2874,24 @@ def capturing(module, name: str, calls: list):
         setattr(module, name, kernel)
 
 
-def held(calls: dict, launched: dict, holds: dict, what: str) -> str:
-    """Hold every captured launch (``calls``, by kernel) against its plain
-    version (``holds[name][2]``); each kernel's captured calls must number
-    its counted launches (``launched``).  Returns the errors measured, or
-    says that none of the kernels launched."""
+def held(calls: dict, launched: dict, what: str) -> str:
+    """The errors of every captured launch (``calls``, by kernel: each
+    launch's max abs error against its plain version); each kernel's held
+    launches must number its counted launches (``launched``).  Returns the
+    errors, or says that none of the kernels launched."""
     out = []
-    for k, kcalls in calls.items():
-        check(len(kcalls) == launched.get(k, 0),
-              f"{what}: captured {len(kcalls)} {k} calls, counted "
+    for k, errs in calls.items():
+        failed = [e for e in errs if isinstance(e, Exception)]
+        if failed:
+            raise RuntimeError(f"{what}: {len(failed)} of {len(errs)} {k} "
+                               f"launches failed their hold: {failed[0]}"
+                               ) from failed[0]
+        check(len(errs) == launched.get(k, 0),
+              f"{what}: held {len(errs)} {k} launches, counted "
               f"{launched.get(k, 0)}")
-        if kcalls:
-            err = max(holds[k][2](*c) for c in kcalls)
-            out.append(f"{k}: each of {len(kcalls)} launches vs plain, max "
-                       f"abs err {err:.3e}")
+        if errs:
+            out.append(f"{k}: each of {len(errs)} launches vs plain, max "
+                       f"abs err {max(errs):.3e}")
     return "; ".join(out) or f"none of {sorted(calls)} launched"
 
 
@@ -2947,13 +3028,16 @@ def slot_requests(vocab: int, tail: tuple[int, ...] = ()) -> list:
                     max_new_tokens=16) for i, n in enumerate(SLOT_LENS)]
 
 
-def slot_engine(model, params, chunk: int | None = None, **kw):
-    """A SlotEngine of ``N_SLOTS`` lanes of ``slot_seq`` positions: whole-
-    prompt admission, or chunks of ``chunk`` through 2 prefill lanes."""
+def slot_engine(model, params, chunk: int | None = None,
+                max_seq: int | None = None, **kw):
+    """A SlotEngine of ``N_SLOTS`` lanes of ``max_seq`` positions (by
+    default ``slot_seq``): whole-prompt admission, or chunks of ``chunk``
+    through 2 prefill lanes."""
     from repro_torch.serving import EngineConfig, SlotEngine
 
     return SlotEngine(model, params, config=EngineConfig(
-        n_slots=N_SLOTS, max_seq=slot_seq(model.cfg), queue_capacity=8,
+        n_slots=N_SLOTS, max_seq=max_seq or slot_seq(model.cfg),
+        queue_capacity=8,
         prefill_chunk_len=chunk, prefill_lanes=2, **kw))
 
 
@@ -3115,10 +3199,12 @@ def admission_f32(phase: str, model, params, arms, counted, counts) -> None:
 
 def slot_slice(phase: str, cfg, params, counted, counts, only,
                holds: dict, arms, wave_ms: list[float],
-               chaos: bool = False) -> dict:
+               chaos: bool = False, compare: bool = True, reqs=None,
+               max_seq: int | None = None) -> dict:
     """The slot engine on one family at full width in bf16 (phases S1 to
     S4), over the parameters its slice already drew (``params``): the 8
-    requests of ``slot_requests``, ``N_SLOTS`` lanes of ``SLOT_SEQ``.
+    requests of ``slot_requests`` (or ``reqs``, 16 new tokens each),
+    ``N_SLOTS`` lanes of ``slot_seq`` positions (or ``max_seq``).
 
     * the graph-ticked whole-prompt serve, counted (the launches its
       capture recorded, i.e. per replayed tick, and the eager prefill
@@ -3140,7 +3226,8 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
       batch 1, compared with the whole-prompt tokens up to the
       reference's first top-2 margin within MARGIN_TOL or within the
       plan spread (``plan_spread``); the sharp check of chunked admission
-      is ``admission_f32``.  A vision model's chunked engine must raise
+      is ``admission_f32``.  Without ``compare`` this part and the plan
+      spread are left out.  A vision model's chunked engine must raise
       (its prefix is not sliceable, as in the JAX package) and is not
       served; an audio model's prompts, tokens and margins carry the
       codebook axis (``token_tail``);
@@ -3160,7 +3247,8 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     from repro_torch.kernels import flash_prefill as fp
 
     model = registry.build(cfg)
-    reqs = slot_requests(cfg.vocab, token_tail(cfg))
+    reqs = reqs or slot_requests(cfg.vocab, token_tail(cfg))
+    seq = max_seq or slot_seq(cfg)
     name = f"{phase} {cfg.name}"
 
     def pools_ok(eng, what):
@@ -3172,7 +3260,7 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     # --- the graph-ticked whole-prompt serve, counted and checked ---------
     reset_counts(*counted)
     t0 = time.perf_counter()
-    eng = slot_engine(model, params)
+    eng = slot_engine(model, params, max_seq=seq)
     build_s = time.perf_counter() - t0
     built = counts()
     tick = eng.ticks["decode/base"]
@@ -3222,8 +3310,8 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     reset_counts(*counted)
     with contextlib.ExitStack() as stack:
         stack.enter_context(tripwires(*arms))
-        for k, (mod, attr, _) in holds.items():
-            stack.enter_context(capturing(mod, attr, calls[k]))
+        for k, (mod, attr, hold) in holds.items():
+            stack.enter_context(capturing(mod, attr, calls[k], hold))
         stack.enter_context(watching(eng, first["whole"],
                                      margins["whole"]))
         for _ in eng.stream(reqs):
@@ -3236,6 +3324,8 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     served = eng.take_finished()
     whole = [served[r.uid] for r in reqs]
     got = counts()
+    # first: a hold that failed inside the engine's containment
+    whole_held = held(calls, got, f"{name} whole-prompt serve")
     ticks_1 = eng.metrics.counter("serving/ticks").value
     check(set(equal) == {"all", "some"} and all(
         e["outputs"] and e["state"] and e["free_kept"]
@@ -3256,11 +3346,10 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     check(all(v > 0 for v in tick.captured_launches.values())
           and any(v > 0 for v in prefill_launches.values()),
           f"{name}: serve launched {got}")
-    whole_held = held(calls, got, holds, f"{name} whole-prompt serve")
     del calls
     replayed = {k: v * ticks_1 for k, v in tick.captured_launches.items()}
     print(f"[{phase}] {cfg.name} slot engine ({N_SLOTS} slots x "
-          f"{slot_seq(cfg)}, bf16), built and captured in {build_s:.1f} s: "
+          f"{seq}, bf16), built and captured in {build_s:.1f} s: "
           f"launches captured a tick {tick.captured_launches or 'none'} "
           f"(counted at capture, "
           f"not at replay: x {ticks_1} ticks = {replayed or 'none'} "
@@ -3273,7 +3362,7 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
           f"{ref_calls or 'none'} among them) held: {whole_held}; "
           f"buffers_built and "
           f"the scratch pool at capacity, no resident buffer rebound")
-    spread = plan_spread(eng, reqs, first["whole"])
+    spread = plan_spread(eng, reqs, first["whole"]) if compare else None
 
     # --- eager-ticked, then graph-ticked again, each tick timed -----------
     pl = eng.scheduler.plans["decode/base"]
@@ -3321,92 +3410,95 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     pools_ok(eng, "second serve")
     snap = eng.metrics.snapshot()
     print(f"[{phase}] {cfg.name}: the eager-ticked serve's tokens equal the "
-          f"graph-ticked serves' (all 128); allocation.all.allocated "
-          f"unmoved across each of {len(allocs)} replayed ticks")
+          f"graph-ticked serves' (all {16 * len(reqs)}); "
+          f"allocation.all.allocated unmoved across each of {len(allocs)} "
+          f"replayed ticks")
 
     # --- chunked admission; the wave engine at batch 1 --------------------
-    compared = [("slot vs the wave engine at batch 1", None, None, whole)]
-    if cfg.n_vis_tokens:
+    if compare:
+        compared = [("slot vs the wave engine at batch 1", None, None, whole)]
+        if cfg.n_vis_tokens:
+            try:
+                slot_engine(model, params, 128)
+                refused = ""
+            except ValueError as err:
+                refused = str(err)
+            check("vis-token" in refused, f"{name}: a chunked vision engine "
+                  f"was built, or refused otherwise: {refused!r}")
+            print(f"[{phase}] {cfg.name}: the chunked engine (128) raises "
+                  f"ValueError, as the JAX package's does: {refused}")
+        else:
+            ceng = slot_engine(model, params, 128)
+            calls = {k: [] for k in holds}
+            reset_counts(*counted)
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(tripwires(*arms))
+                for k, (mod, attr, hold) in holds.items():
+                    stack.enter_context(capturing(mod, attr, calls[k], hold))
+                stack.enter_context(watching(ceng, first["chunked"],
+                                             margins["chunked"]))
+                chunked = ceng.serve(reqs)
+            c_got = {k: v for k, v in counts().items() if v}
+            chunk_held = held(calls, c_got, f"{name} chunked serve")
+            tokens_ok(chunked, cfg, f"{name} chunked serve")
+            pools_ok(ceng, "chunked serve")
+            del calls
+            n_chunks = ceng.metrics.histogram("serving/prefill_chunk_s").count
+            del ceng
+            compared.insert(0, ("chunked vs whole-prompt", whole,
+                                margins["whole"], chunked))
+        wave = Engine(model, params, config=EngineConfig(
+            n_slots=1, max_seq=slot_seq(cfg), pool_capacity=1))
+        w_margins: dict = {}
+        w_prefill, w_decode = wave._prefill, steps_lib.decode_step
+        order = iter(r.uid for r in reqs)
+        state = {"uid": None, "j": 0}
+
+        def w_watched_prefill(p, c, b):
+            logits, c = w_prefill(p, c, b)
+            state["uid"], state["j"] = next(order), 0
+            w_margins[state["uid"], 0] = top2_margins(logits[..., -1, :])[0]
+            return logits, c
+
+        def w_watched_decode(cfg_, p, c, b):
+            logits, c = w_decode(cfg_, p, c, b)
+            state["j"] += 1
+            w_margins[state["uid"], state["j"]] = top2_margins(logits)[0]
+            return logits, c
+
+        wave._prefill, steps_lib.decode_step = w_watched_prefill, \
+            w_watched_decode
         try:
-            slot_engine(model, params, 128)
-            refused = ""
-        except ValueError as err:
-            refused = str(err)
-        check("vis-token" in refused, f"{name}: a chunked vision engine "
-              f"was built, or refused otherwise: {refused!r}")
-        print(f"[{phase}] {cfg.name}: the chunked engine (128) raises "
-              f"ValueError, as the JAX package's does: {refused}")
-    else:
-        ceng = slot_engine(model, params, 128)
-        calls = {k: [] for k in holds}
-        reset_counts(*counted)
-        with contextlib.ExitStack() as stack:
-            stack.enter_context(tripwires(*arms))
-            for k, (mod, attr, _) in holds.items():
-                stack.enter_context(capturing(mod, attr, calls[k]))
-            stack.enter_context(watching(ceng, first["chunked"],
-                                         margins["chunked"]))
-            chunked = ceng.serve(reqs)
-        c_got = {k: v for k, v in counts().items() if v}
-        tokens_ok(chunked, cfg, f"{name} chunked serve")
-        pools_ok(ceng, "chunked serve")
-        chunk_held = held(calls, c_got, holds, f"{name} chunked serve")
-        del calls
-        n_chunks = ceng.metrics.histogram("serving/prefill_chunk_s").count
-        del ceng
-        compared.insert(0, ("chunked vs whole-prompt", whole,
-                            margins["whole"], chunked))
-    wave = Engine(model, params, config=EngineConfig(
-        n_slots=1, max_seq=slot_seq(cfg), pool_capacity=1))
-    w_margins: dict = {}
-    w_prefill, w_decode = wave._prefill, steps_lib.decode_step
-    order = iter(r.uid for r in reqs)
-    state = {"uid": None, "j": 0}
-
-    def w_watched_prefill(p, c, b):
-        logits, c = w_prefill(p, c, b)
-        state["uid"], state["j"] = next(order), 0
-        w_margins[state["uid"], 0] = top2_margins(logits[..., -1, :])[0]
-        return logits, c
-
-    def w_watched_decode(cfg_, p, c, b):
-        logits, c = w_decode(cfg_, p, c, b)
-        state["j"] += 1
-        w_margins[state["uid"], state["j"]] = top2_margins(logits)[0]
-        return logits, c
-
-    wave._prefill, steps_lib.decode_step = w_watched_prefill, \
-        w_watched_decode
-    try:
-        with tripwires(*arms):
-            waved = wave.serve(reqs)
-    finally:
-        steps_lib.decode_step = w_decode
-    del wave
-    compared[-1] = (compared[-1][0], waved, w_margins, whole)
-    for what, ref_run, ref_m, other in compared:
-        stops = []
-        for r, o in zip(ref_run, other):
-            k, n = agreed(r.tokens, [ref_m[r.uid, j] for j in range(16)],
-                          o.tokens, floor=spread)
-            check(n >= k, f"{name} {what}: request {r.uid} differs at token "
-                  f"{n}, before the reference's first low margin at {k}")
-            stops.append(f"{r.uid}:{k}/{n}")
-        print(f"[{phase}] {cfg.name} {what}: tokens equal up to the "
-              f"reference's first top-2 margin within max(MARGIN_TOL, the "
-              f"plan spread {spread:.3e}) (uid:margin stop/first difference, "
-              f"16 = none) {' '.join(stops)}")
-    if not cfg.n_vis_tokens:
-        d_first = max(float((first["chunked"][r.uid]
-                             - first["whole"][r.uid]).abs().max())
-                      for r in reqs)
-        print(f"[{phase}] {cfg.name} chunked admission: {n_chunks} chunks "
-              f"(128 and powers of two) launched {c_got}; held: "
-              f"{chunk_held}; first-token logits differ from whole-prompt "
-              f"admission's by up to {d_first:.3e} (printed, not held: in "
-              f"bf16 the plan spread, one change of summation order, is "
-              f"{spread:.3e}; the f32 check of the same admission is "
-              f"admission_f32)")
+            with tripwires(*arms):
+                waved = wave.serve(reqs)
+        finally:
+            steps_lib.decode_step = w_decode
+        del wave
+        compared[-1] = (compared[-1][0], waved, w_margins, whole)
+        for what, ref_run, ref_m, other in compared:
+            stops = []
+            for r, o in zip(ref_run, other):
+                k, n = agreed(r.tokens, [ref_m[r.uid, j] for j in range(16)],
+                              o.tokens, floor=spread)
+                check(n >= k, f"{name} {what}: request {r.uid} differs at "
+                      f"token {n}, before the reference's first low margin "
+                      f"at {k}")
+                stops.append(f"{r.uid}:{k}/{n}")
+            print(f"[{phase}] {cfg.name} {what}: tokens equal up to the "
+                  f"reference's first top-2 margin within max(MARGIN_TOL, the "
+                  f"plan spread {spread:.3e}) (uid:margin stop/first "
+                  f"difference, 16 = none) {' '.join(stops)}")
+        if not cfg.n_vis_tokens:
+            d_first = max(float((first["chunked"][r.uid]
+                                 - first["whole"][r.uid]).abs().max())
+                          for r in reqs)
+            print(f"[{phase}] {cfg.name} chunked admission: {n_chunks} chunks "
+                  f"(128 and powers of two) launched {c_got}; held: "
+                  f"{chunk_held}; first-token logits differ from whole-prompt "
+                  f"admission's by up to {d_first:.3e} (printed, not held: in "
+                  f"bf16 the plan spread, one change of summation order, is "
+                  f"{spread:.3e}; the f32 check of the same admission is "
+                  f"admission_f32)")
 
     # --- S3. a seeded FaultPlan on this engine's shapes --------------------
     if chaos:
@@ -3452,9 +3544,10 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
     print(f"[S4] {cfg.name} decode, 4 slots all active: eager tick "
           f"{e_ms:.3f} ms ({len(eager_ms)} ticks, min {min(eager_ms):.3f}), "
           f"replayed CUDA graph {g_ms:.3f} ms ({len(graph_ms_)} ticks, min "
-          f"{min(graph_ms_):.3f}), {e_ms / g_ms:.1f}x; the wave engine (4 "
-          f"lanes, this run) "
-          f"{', '.join(f'{w:.3f}' for w in wave_ms)} ms/token; host clock "
+          f"{min(graph_ms_):.3f}), {e_ms / g_ms:.1f}x; "
+          + (f"the wave engine (4 lanes, this run) "
+             f"{', '.join(f'{w:.3f}' for w in wave_ms)} ms/token; "
+             if wave_ms else "") + f"host clock "
           f"around one tick, synchronized before and after; {CARD['line']}")
     print(f"[S4] {cfg.name} graph-ticked serve: serving/ttft_s p50 "
           f"{h['serving/ttft_s']['p50'] * 1e3:.3f} ms p99 "
@@ -3464,26 +3557,26 @@ def slot_slice(phase: str, cfg, params, counted, counts, only,
           f"TTFT from admission to the first token on the host, as the JAX "
           f"package measures it); "
           f"scheduler decisions {decisions}")
-    tick_costs(phase, cfg, g_ms)
+    tick_costs(phase, cfg, g_ms, seq)
     del eng
     torch.cuda.empty_cache()
     return {"eager_ms": e_ms, "graph_ms": g_ms, "spread": spread}
 
 
-def tick_costs(phase: str, cfg, graph_ms: float) -> None:
+def tick_costs(phase: str, cfg, graph_ms: float, seq: int) -> None:
     """P1: ``analysis.analytic_costs`` of one decode tick of ``N_SLOTS``
-    lanes over the slot phases' cache (the JAX package's model: every
+    lanes over a cache of ``seq`` positions (the JAX package's model: every
     weight read once, the caches read, the activations) and its roofline
     on one card, beside the replayed tick measured at ``graph_ms``."""
     from repro_torch.analysis import Roofline, analytic_costs
     from repro_torch.configs.base import ShapeConfig
 
-    costs = analytic_costs(cfg, ShapeConfig("tick", slot_seq(cfg), N_SLOTS,
+    costs = analytic_costs(cfg, ShapeConfig("tick", seq, N_SLOTS,
                                             "decode"))
     roof = Roofline(costs["flops"], costs["bytes"])
     least = max(roof.t_compute, roof.t_memory) * 1e3
     print(f"[P1] {phase} {cfg.name} decode tick of {N_SLOTS} lanes over "
-          f"{slot_seq(cfg)} positions: analysis.analytic_costs "
+          f"{seq} positions: analysis.analytic_costs "
           f"{costs['flops']:.4e} FLOPs, {costs['bytes']:.4e} bytes; "
           f"roofline {least:.4f} ms ({roof.dominant}; bf16 peak, 3.35 TB/s)"
           f"; replayed tick {graph_ms:.3f} ms, {graph_ms / least:.1f}x it; "
@@ -3573,8 +3666,8 @@ def wave_serve(phase: str, engine, reqs, counted, counts, only, holds: dict,
     try:
         with contextlib.ExitStack() as stack:
             stack.enter_context(tripwires(*arms))
-            for k, (mod, attr, _) in holds.items():
-                stack.enter_context(capturing(mod, attr, calls[k]))
+            for k, (mod, attr, hold) in holds.items():
+                stack.enter_context(capturing(mod, attr, calls[k], hold))
             served = serve_lm.serve(engine, reqs)
     finally:
         engine._prefill, steps_lib.decode_step = prefill, decode
@@ -3601,7 +3694,7 @@ def wave_serve(phase: str, engine, reqs, counted, counts, only, holds: dict,
     check(seen["finite"], f"{name}: a served logit is not finite")
     check(served["pool"].buffers_built == served["pool"].capacity,
           f"{name}: the pool built {served['pool'].buffers_built} buffers")
-    holds_said = held(calls, got, holds, f"{name} wave serve")
+    holds_said = held(calls, got, f"{name} wave serve")
     del calls
     print(f"[{phase}] {cfg.name} wave engine through launch/serve "
           f"({len(reqs)} requests, {new} new tokens, waves of "
@@ -3940,11 +4033,12 @@ def moe_slice(device, counted, counts, only) -> None:
     peak_memory("X5")
 
 
-def fronts_f32_phase(phase: str, name: str, device, counted, counts,
-                     only) -> None:
-    """V1 and U1: ``name`` at full width, 2 layers, in f32, B=2: 500
-    positions (InternVL2-1B: drawn patch embeddings for its 256-token
-    prefix, then 244 text tokens; MusicGen-large: 4 codebooks) then 4
+def model_f32_phase(phase: str, name: str, device, counted, counts,
+                    only) -> None:
+    """V1, U1 and A3's LayerNorm archs: ``name`` at full width, 2 layers,
+    in f32, B=2: 500 positions (InternVL2-1B: drawn patch embeddings for
+    its 256-token prefix, then 244 text tokens; MusicGen-large: 4
+    codebooks; a text model: 500 tokens) then 4
     decode steps, through K8 and K9 and again through the plain plans
     (``blocked``, ``einsum``): the kernels' forward and each step's logits
     against the plain plans' at 2e-4; prefill + decode against
@@ -4018,15 +4112,15 @@ def fronts_f32_phase(phase: str, name: str, device, counted, counts,
     calls = {k: [] for k in holds}
     with contextlib.ExitStack() as stack:
         stack.enter_context(tripwires(*arms[:2], *arms[4:]))
-        for k, (mod, attr, _) in holds.items():
-            stack.enter_context(capturing(mod, attr, calls[k]))
+        for k, (mod, attr, hold) in holds.items():
+            stack.enter_context(capturing(mod, attr, calls[k], hold))
         full, outs, n_k = run("flash_prefill", "decode_attn")
     check(n_k[:2] == [only(flash_prefill=L)] * 2
           and n_k[2:] == [only(decode_attn=L)] * K and tc == [0, 0],
           f"{phase} f32 launches (forward, prefill, decode steps): {n_k}, "
           f"{tc} of the forward's and prefill's K8 on the tensor cores")
     launched = {k: sum(n[k] for n in n_k) for k in holds}
-    said = held(calls, launched, holds, f"{phase} f32")
+    said = held(calls, launched, f"{phase} f32")
     del calls
     e2 = max(close(o, at(full, S - 1 + t), f"{phase} f32 step {t} vs forward",
                    CONSISTENCY_TOL) for t, o in enumerate(outs))
@@ -4039,7 +4133,8 @@ def fronts_f32_phase(phase: str, name: str, device, counted, counts,
                                                             plain_outs)))
     front = (f"{off} drawn patch embeddings of {cfg.vis_dim} projected "
              f"ahead of {S} text tokens" if off else
-             f"{cfg.n_codebooks} codebooks of {S} tokens")
+             f"{cfg.n_codebooks} codebooks of {S} tokens"
+             if cfg.n_codebooks else f"{S} tokens")
     print(f"[{phase}] {cfg.name} at full width, {L} of "
           f"{get_arch(name).n_layers} layers, f32 ({n_params / 1e9:.3f} B "
           f"parameters), B={B}, {front}: forward logits {tuple(full.shape)} "
@@ -4056,18 +4151,19 @@ def fronts_f32_phase(phase: str, name: str, device, counted, counts,
     peak_memory(phase)
 
 
-def fronts_serve_phase(phase: str, cfg, device, counted, counts, only,
-                       chaos: bool) -> dict:
-    """V2 and U2: ``cfg`` at full width in bf16 served through
-    ``launch/serve``'s wave engine (``wave_serve``: the 8 requests of
-    ``slot_requests``, as (K, S) codebook prompts for audio and behind the
-    zero patch embeddings of the vision prefix, waves of 4; every K8 on
-    the tensor cores and every K8/K9 launch held against its plain
-    version) and the slot engine (``slot_slice``: whole-prompt admission,
+def model_serve_phase(phase: str, cfg, device, counted, counts, only,
+                      chaos: bool, compare: bool = True) -> dict:
+    """V2, U2 and A4's LayerNorm archs: ``cfg`` at full width in bf16
+    served through ``launch/serve``'s wave engine (``wave_serve``: the 8
+    requests of ``slot_requests``, as (K, S) codebook prompts for audio
+    and behind the zero patch embeddings of the vision prefix, waves of
+    4; every K8 on the tensor cores and every K8/K9 launch held against
+    its plain version) and the slot engine (``slot_slice``: whole-prompt admission,
     for audio chunked too and with ``chaos`` the seeded FaultPlan, for
     vision the chunked engine refused; a replayed tick bit-equal to the
-    eager one), the plain attention armed to raise.  Returns the wave
-    serve's launches."""
+    eager one; without ``compare`` neither chunked admission nor the
+    comparisons with the wave engine at batch 1), the plain attention
+    armed to raise.  Returns the wave serve's launches."""
     from repro_torch.analysis import HBM_BYTES_PER_S
     from repro_torch.launch import serve as serve_lm
     from repro_torch.optim.adamw import tree_leaves
@@ -4085,7 +4181,8 @@ def fronts_serve_phase(phase: str, cfg, device, counted, counts, only,
     front = (f"a {cfg.n_vis_tokens}-token vision prefix (zero patch "
              f"embeddings of {cfg.vis_dim}) ahead of each prompt"
              if cfg.n_vis_tokens else
-             f"{cfg.n_codebooks} codebooks a step")
+             f"{cfg.n_codebooks} codebooks a step" if cfg.n_codebooks
+             else f"{cfg.norm} norms")
     print(f"[{phase}] {cfg.name}: {cfg.n_layers} x {cfg.d_model}, "
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
           f"{front}, {n_params / 1e9:.3f} B parameters in {cfg.dtype}, drawn "
@@ -4095,7 +4192,8 @@ def fronts_serve_phase(phase: str, cfg, device, counted, counts, only,
                             slot_requests(cfg.vocab, token_tail(cfg)),
                             counted, counts, only, holds, arms)
     slot_slice(phase, cfg, engine.params, counted, counts, only, holds, arms,
-               [w["decode_ms_per_token"] for w in waves], chaos=chaos)
+               [w["decode_ms_per_token"] for w in waves], chaos=chaos,
+               compare=compare)
     print(f"[time] {phase} {cfg.name}: weights read a decode step "
           f"{weight_bytes(engine.params) / 1e9:.2f} GB, bound "
           f"{weight_bytes(engine.params) / HBM_BYTES_PER_S * 1e3:.3f} ms at "
@@ -4134,9 +4232,9 @@ def make_batch_lm(cfg):
 def fronts_slice(device, counted, counts, only) -> dict:
     """The vision and audio fronts, each model freed before the next and
     each phase's peak memory printed: V1 InternVL2-1B and U1 MusicGen-large
-    at full width, 2 layers, in f32 (``fronts_f32_phase``); V2
+    at full width, 2 layers, in f32 (``model_f32_phase``); V2
     InternVL2-1B and U2 MusicGen-large at full width and depth in bf16
-    through both engines (``fronts_serve_phase``; U2 also under the seeded
+    through both engines (``model_serve_phase``; U2 also under the seeded
     FaultPlan); V3 and U3 the same two trained at full width and depth in
     bf16 for 8 steps of batch 4 x 512 positions (``attention_train_run``,
     through ``launch/train.train`` with ``make_batch_lm`` in place of the
@@ -4155,9 +4253,9 @@ def fronts_slice(device, counted, counts, only) -> dict:
     for f32_phase, serve_phase, train_phase, name in (
             ("V1", "V2", "V3", "internvl2-1b"),
             ("U1", "U2", "U3", "musicgen-large")):
-        fronts_f32_phase(f32_phase, name, device, counted, counts, only)
+        model_f32_phase(f32_phase, name, device, counted, counts, only)
         cfg = get_arch(name)
-        got = fronts_serve_phase(serve_phase, cfg, device, counted, counts,
+        got = model_serve_phase(serve_phase, cfg, device, counted, counts,
                                  only, chaos=bool(cfg.n_codebooks))
         free_models(train_phase)
         specs = registry.input_specs(cfg, ShapeConfig("fronts", 512, 4,
@@ -4176,6 +4274,189 @@ def fronts_slice(device, counted, counts, only) -> dict:
         for k in launches:
             launches[k] += got.get(k, 0) + run["launches"].get(k, 0)
     return launches
+
+
+def ring_requests(vocab: int) -> list:
+    """L1's slot serve: ``RING_LENS`` prompts drawn from seed 0, 16 new
+    tokens each."""
+    from repro_torch.serving import Request
+
+    prng = np.random.default_rng(0)
+    return [Request(i, prng.integers(0, vocab, (n,)).astype(np.int32),
+                    max_new_tokens=16) for i, n in enumerate(RING_LENS)]
+
+
+def layouts_slice(device, counted, counts, only) -> None:
+    """The JAX package's two other cache layouts, each model freed before
+    the next and each phase's peak memory printed.
+
+    * L1, the long-context ring: ``config_for_shape(qwen2-0.5b,
+      long_500k)`` (a ring of ``RING_WINDOW`` slots), full width and
+      depth, B=1.  In f32 a ``RING_PROMPT``-token prompt prefilled (one
+      windowed K8 a layer), then ``RING_STEPS`` decode steps on the ring
+      (JAX's grouped einsums: no launch), the prefill's and every step's
+      logits held against ``forward(inference=True)`` over the whole
+      sequence under the same window at CONSISTENCY_TOL.  In bf16 the
+      slot engine over 4 lanes of the ring (``slot_slice``: whole-prompt
+      admission of ``RING_LENS`` prompts; a replayed tick, the ring
+      wrapping inside it, bit-equal to the eager one; ``buffers_built``
+      at capacity).
+    * Q1, the int8 cache: Yi-9B at full width, ``SERVE_LAYERS`` depth, in
+      bf16, ``kv_quant`` against the full bf16 cache on the same
+      parameters, the JAX package's tests/test_kv_quant.py at full width:
+      2 rows, a 16-token prefill and 4 decode steps, each step within 8%
+      of the full cache's logits' scale and its greedy argmax identical
+      under the seeded 0.4 margin; ``analysis.cache_bytes`` under 0.6x;
+      then the slot engine over the int8 cache (``slot_slice``).
+    The plain K8 and K9 are armed to raise throughout; the ring and int8
+    decodes run JAX's grouped einsums, as the JAX package does."""
+    from repro_torch import analysis
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import tree_leaves
+
+    arms = plain_attention_arms()
+    kernels_armed = (*arms[:2], *arms[4:])   # not the einsums the layouts run
+    holds = {k: v for k, v in kernel_holds().items()
+             if k in ("flash_prefill", "decode_attn")}
+
+    # --- L1. the ring, f32: prefill past the window, then decode ----------
+    free_models("L1")
+    cfg = dataclasses.replace(registry.config_for_shape(
+        get_arch("qwen2-0.5b"), INPUT_SHAPES["long_500k"]), dtype="float32")
+    check(cfg.sliding_window == registry.LONG_CONTEXT_WINDOW == RING_WINDOW,
+          f"L1: config_for_shape gave a window of {cfg.sliding_window}")
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    accounting("L1", cfg, sum(t.numel() for t in tree_leaves(params)))
+    L, S, K = cfg.n_layers, RING_PROMPT, RING_STEPS
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (1, S + K)).astype(np.int32)).to(device)
+    steps = []
+    with torch.no_grad(), tripwires(*kernels_armed):
+        reset_counts(*counted)
+        full, _ = model.forward(params, {"tokens": toks}, inference=True)
+        n_fwd, tc_fwd = counts(), fp.flash_prefill.tc_launches
+        cache = model.init_cache(1, S + K, device=device)
+        slots = cache["slots"][0]["k"].shape[2]
+        reset_counts(*counted)
+        first, cache = model.prefill(params, cache, {"tokens": toks[:, :S]})
+        n_pre = counts()
+        outs = [first[:, 0]]
+        for t in range(K):
+            reset_counts(*counted)
+            logits, cache = model.decode_step(params, cache,
+                                              {"tokens": toks[:, S + t]})
+            steps.append(counts())
+            outs.append(logits)
+        torch.cuda.synchronize()
+    check(slots == RING_WINDOW, f"L1: the ring has {slots} slots")
+    check(n_fwd == n_pre == only(flash_prefill=L) and tc_fwd == 0
+          and all(n == only() for n in steps),
+          f"L1 f32 launches: forward {n_fwd}, prefill {n_pre}, decode "
+          f"steps {steps}")
+    err = max(close(o, full[:, S - 1 + t], f"L1 f32 position {S - 1 + t} "
+                    "vs the windowed forward", CONSISTENCY_TOL)
+              for t, o in enumerate(outs))
+    print(f"[L1] {cfg.name} at long_500k (config_for_shape: sliding window "
+          f"{cfg.sliding_window}), {L} x {cfg.d_model}, f32, B=1: prefill "
+          f"of {S} tokens into a ring of {slots} slots ({L} windowed K8 "
+          f"launches, as the forward), then {K} decode steps on the ring "
+          f"(positions {S} to {S + K - 1} at slots {S % slots} to "
+          f"{(S + K - 1) % slots}; the grouped einsums, no launch): logits "
+          f"of the prefill and every step vs forward(inference=True) over "
+          f"{S + K} tokens under the same window max abs err {err:.3e} "
+          f"({CONSISTENCY_TOL}); no plain K8 or K9 reached")
+    del full, outs, cache, params, model
+    peak_memory("L1")
+
+    # --- L1. the ring, bf16, through the slot engine ----------------------
+    free_models("L1")
+    cfg = registry.config_for_shape(get_arch("qwen2-0.5b"),
+                                    INPUT_SHAPES["long_500k"])
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=device).manual_seed(0), device)
+    print(f"[L1] {cfg.name} bf16 slot engine over a ring of "
+          f"{cfg.sliding_window} slots a lane: {len(RING_LENS)} prompts of "
+          f"{min(RING_LENS)} to {max(RING_LENS)} tokens; its K8 launches are "
+          f"not held one by one here (A1 holds K8 at S={RING_PROMPT}, window "
+          f"{RING_WINDOW}, against its plain version)")
+    slot_slice("L1", cfg, params, counted, counts, only, {}, kernels_armed,
+               [], compare=False, reqs=ring_requests(cfg.vocab),
+               max_seq=max(RING_LENS) + 16)
+    del params, model
+    peak_memory("L1")
+
+    # --- Q1. the int8 cache against the full cache ------------------------
+    free_models("Q1")
+    cfg_f = dataclasses.replace(get_arch("yi-9b"),
+                                n_layers=SERVE_LAYERS["yi-9b"])
+    cfg_q = dataclasses.replace(cfg_f, kv_quant=True)
+    m_f, m_q = registry.build(cfg_f), registry.build(cfg_q)
+    params = m_q.init(torch.Generator(device=device).manual_seed(0), device)
+    accounting("Q1", cfg_q, sum(t.numel() for t in tree_leaves(params)))
+    ratio = (analysis.cache_bytes(cfg_q, 2, 4096)
+             / analysis.cache_bytes(cfg_f, 2, 4096))
+    check(ratio < 0.6, f"Q1: the int8 cache is {ratio:.3f} of the full one")
+    L, B, S, K = cfg_q.n_layers, 2, 16, 4
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg_q.vocab, (B, S + K)).astype(np.int32)).to(device)
+    rels, n = [], {}
+    with torch.no_grad(), tripwires(*kernels_armed):
+        cq, cf = m_q.init_cache(B, 32, device), m_f.init_cache(B, 32, device)
+        check(cq["slots"][0]["k"].dtype == torch.int8
+              and cq["slots"][0]["k_scale"].dtype == torch.float32,
+              "Q1: the quantized cache is not int8 codes and f32 scales")
+        reset_counts(*counted)
+        m_q.prefill(params, cq, {"tokens": toks[:, :S]})
+        n["prefill int8"] = counts()
+        reset_counts(*counted)
+        m_f.prefill(params, cf, {"tokens": toks[:, :S]})
+        n["prefill full"] = counts()
+        for t in range(S, S + K):
+            reset_counts(*counted)
+            dq, cq = m_q.decode_step(params, cq, {"tokens": toks[:, t]})
+            n["decode int8"] = counts()
+            reset_counts(*counted)
+            df, cf = m_f.decode_step(params, cf, {"tokens": toks[:, t]})
+            n["decode full"] = counts()
+            dqn, dfn = dq.float().cpu().numpy(), df.float().cpu().numpy()
+            rel = float(np.abs(dqn - dfn).max() / (np.abs(dfn).max() + 1e-9))
+            check(rel < 0.08, f"Q1 step {t}: int8 vs full {rel:.4f} of the "
+                  "logits' scale")
+            # test_kv_quant's seeded target, 0.4 x max|df| above each row's
+            # runner-up in both outputs: greedy argmax must be identical
+            rng = np.random.default_rng(t)
+            target = rng.integers(0, dfn.shape[-1], size=dfn.shape[0])
+            bias = np.zeros_like(dfn)
+            for bi, tok in enumerate(target):
+                bias[bi, tok] = (dfn[bi].max() - dfn[bi, tok]
+                                 + 0.4 * np.abs(dfn).max())
+            check(np.array_equal(np.argmax(dqn + bias, -1),
+                                 np.argmax(dfn + bias, -1))
+                  and np.array_equal(np.argmax(dfn + bias, -1), target),
+                  f"Q1 step {t}: greedy argmax differs under the margin")
+            rels.append(rel)
+    check(n["prefill int8"] == n["prefill full"] == only(flash_prefill=L)
+          and n["decode int8"] == only()
+          and n["decode full"] == only(decode_attn=L),
+          f"Q1 launches: {n}")
+    print(f"[Q1] {cfg_q.name} at full width, {L} of "
+          f"{get_arch('yi-9b').n_layers} layers, bf16, kv_quant (int8 codes, "
+          f"f32 scales a token and kv head) vs the full bf16 cache on the "
+          f"same parameters, B={B}: prefill {S} tokens ({L} K8 each), "
+          f"{K} decode steps (full: {L} K9 a step; int8: the grouped "
+          f"einsums, no launch): max|dq - df| / max|df| "
+          f"{', '.join(f'{r:.4f}' for r in rels)} (< 0.08); greedy argmax "
+          f"identical under test_kv_quant's seeded 0.4 margin at every step; "
+          f"analysis.cache_bytes int8 / full at 2 x 4096: {ratio:.4f} (< 0.6)")
+    del cq, cf
+    slot_slice("Q1", cfg_q, params, counted, counts, only, holds,
+               kernels_armed, [], compare=False)
+    del params
+    peak_memory("Q1")
 
 
 #: P2's shapes, the kernel table's: the paper's 2 x 32 LSTM at T=128 and
@@ -5579,7 +5860,7 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
     # --- 1. build ---------------------------------------------------------
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build_all(ptxas_info=True)
     BUILD_LOGS.update(logs)
     print(f"[build] {sorted(logs) or 'cached'} in "
@@ -7230,21 +7511,34 @@ def main() -> None:
                 r["name"].endswith("_bf16") and "graph_ms" in r):
             kernels[-1].update(graph_ms=r["graph_ms"],
                                chain_bound_ms=r["chain_ms"])
-    kernels.append(rwkv_slice(device, gen, counted, counts, only))
-    kernels += rwkv_train_slice(device, gen, counted, counts, only)
-    kernels += mamba_slice(device, gen, counted, counts, only)
-    kernels += attention_slice(device, gen, counted, counts, only)
-    moe_slice(device, counted, counts, only)
-    for name, n in fronts_slice(device, counted, counts, only).items():
+    print(f"[time] the LSTM phases and the build: "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    def timed(fn, *args):
+        """One slice, its seconds of command printed after it."""
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    kernels.append(timed(rwkv_slice, device, gen, counted, counts, only))
+    kernels += timed(rwkv_train_slice, device, gen, counted, counts, only)
+    kernels += timed(mamba_slice, device, gen, counted, counts, only)
+    kernels += timed(attention_slice, device, gen, counted, counts, only)
+    timed(layouts_slice, device, counted, counts, only)
+    timed(moe_slice, device, counted, counts, only)
+    for name, n in timed(fronts_slice, device, counted, counts,
+                         only).items():
         for entry in kernels:
             if entry["name"] == name:
                 entry["launches"] += n
-    half = profiler_slice(device, counted, counts, only)
-    paper = factorization_slice(device, counted, counts, only)
-    meshed = mesh_slice(device, counted, counts, only)
-    spmd = multidevice_slice(device, counted)
-    ranked = train_ranks_slice(device)
-    dryrun_slice(device)
+    half = timed(profiler_slice, device, counted, counts, only)
+    paper = timed(factorization_slice, device, counted, counts, only)
+    meshed = timed(mesh_slice, device, counted, counts, only)
+    spmd = timed(multidevice_slice, device, counted)
+    ranked = timed(train_ranks_slice, device)
+    timed(dryrun_slice, device)
+    print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s")
     for entry in kernels:
         entry["launches"] += half["launches"].get(entry["name"], 0) \
             + paper["launches"].get(entry["name"], 0) \

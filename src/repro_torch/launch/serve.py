@@ -15,8 +15,8 @@ plus each wave's prefill ms and decode ms per token, or the slot engine's
 TTFT and time-between-tokens p50/p99, ticks and plan decisions (host
 clock, ending in a read of the result on the card).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve [--arch rwkv6-3b |
-      qwen2-0.5b | yi-9b | stablelm-12b | command-r-35b | olmoe-1b-7b |
+  PYTHONPATH=src python -m repro_torch.launch.serve [--arch qwen2-0.5b |
+      rwkv6-3b | yi-9b | stablelm-12b | command-r-35b | olmoe-1b-7b |
       qwen3-moe-30b-a3b | jamba-1.5-large-398b | internvl2-1b |
       musicgen-large] [--reduced]
       [--device cuda|cpu] [--engine slot|wave] [--load L] [--requests N]
@@ -128,7 +128,7 @@ def _waves(results: list[Result], batch_size: int) -> list[dict]:
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-3b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=16)

@@ -2,8 +2,9 @@
 ``launch/train.py``).
 
 Trains an architecture of ``ARCHS`` that ``transformer.check_trainable``
-admits (``--arch``, default ``rwkv6-3b``, or its ``--reduced`` variant;
-not the audio and vision fronts, whose inputs the text pipeline lacks) on
+admits (``--arch``, default ``qwen2-0.5b`` as in the JAX package, or its
+``--reduced`` variant; not the audio and vision fronts, whose inputs the
+text pipeline lacks) on
 the synthetic LM pipeline (``data/lm.py``, the same tokens as the JAX
 trainer's for a seed) with AdamW under a warmup-cosine schedule, weights
 drawn from ``--seed`` on the device.  As in the JAX trainer, the
@@ -72,7 +73,7 @@ from repro_torch.partitioning import (device_put, make_rules, param_count,
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="rwkv6-3b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="qwen2-0.5b", choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

@@ -292,7 +292,8 @@ def test_synthetic_lm_tokens_equal_jax(vocab, seed):
 
 
 def test_train_main_runs_on_the_cpu(capsys):
-    report = train_lm.main(["--device", "cpu", "--reduced", "--steps", "2",
+    report = train_lm.main(["--device", "cpu", "--arch", "rwkv6-3b",
+                            "--reduced", "--steps", "2",
                             "--batch", "2", "--seq", "24", "--log-every",
                             "1"])
     out = capsys.readouterr().out.strip().splitlines()

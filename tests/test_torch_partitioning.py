@@ -287,7 +287,8 @@ def test_full_width_specs_equal_jax(name):
 # --- the trainer inside use_rules ------------------------------------------
 def test_train_main_runs_inside_the_rules_on_the_host_mesh(capsys,
                                                            monkeypatch):
-    argv = ["--device", "cpu", "--reduced", "--steps", "2", "--batch", "2",
+    argv = ["--device", "cpu", "--arch", "rwkv6-3b", "--reduced",
+            "--steps", "2", "--batch", "2",
             "--seq", "24", "--log-every", "1"]
     report = train_lm.main(argv)
     out = capsys.readouterr().out.strip().splitlines()

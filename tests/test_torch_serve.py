@@ -203,7 +203,8 @@ def test_result_finish_reason_is_a_closed_set():
 
 
 def test_serve_entry_point_runs_on_the_cpu(capsys):
-    out = serve.main(["--device", "cpu", "--reduced", "--requests", "3",
+    out = serve.main(["--device", "cpu", "--arch", "rwkv6-3b", "--reduced",
+                      "--requests", "3",
                       "--prompt-len", "9", "--max-new", "2",
                       "--batch-size", "2", "--engine", "wave"])
     assert len(out["results"]) == 3
@@ -226,7 +227,8 @@ def test_serve_entry_point_slot_engine_runs_on_the_cpu(capsys):
     """``--engine slot`` (also the default) serves through the slot engine
     with its scheduler reading ``--load``; the tick runs eagerly on the
     CPU; greedy tokens equal the wave engine's."""
-    args = ["--device", "cpu", "--reduced", "--requests", "3",
+    args = ["--device", "cpu", "--arch", "rwkv6-3b", "--reduced",
+            "--requests", "3",
             "--prompt-len", "9", "--max-new", "3", "--batch-size", "2"]
     out = serve.main(args + ["--engine", "slot", "--load", "0.5"])
     default = serve.main(args)
