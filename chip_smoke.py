@@ -46,10 +46,10 @@ same cases), the 4-layer f32 model's ``loss_fn`` gradients through the
 kernels against those through ``chunked_xla``, with remat on and off and
 its launches per step against the JAX package's dispatch count, and
 RWKV6-3B trained at full width and depth in bf16 through
-``repro_torch.launch.train`` (8 steps of batch 4 x 512, the plain scans
-armed to raise, every K6b launch of step 1 held against its plain
-version, the last step under torch.profiler for where the device's time
-goes).  Then the Mamba slice: the selective scan K7, its trajectory
+``repro_torch.launch.train`` (40 steps of batch 4 x 512, warmup 4, the
+plain scans armed to raise, every K6b launch of step 1 held against its
+plain version, the loss curve, the last step under torch.profiler for
+where the device's time goes).  Then the Mamba slice: the selective scan K7, its trajectory
 instance K7t and its backward K7b against their plain versions and torch
 autograd (the JAX family's cases and Jamba's width, d_inner 16384 and
 d_state 16, at B=4 x T=512 and 500; bit-identity across chunks, tiles,
@@ -99,8 +99,9 @@ in head order) against its plain version (in bf16 rounding p and ds as
 the kernel does) and torch autograd of the plain K8 (Qwen2's, OLMoE's and
 Yi's heads, StableLM's width, a ragged S, a window of 64; f32 and bf16;
 two runs bit-identical; every bf16 call on the tensor cores); A7
-Qwen2-0.5B at full width, 2 of 24 layers, in f32: ``loss_fn`` gradients
-on the card against the CPU, remat on and off; A8 Qwen2-0.5B trained at
+Qwen2-0.5B at full width, 2 of 24 layers, in f32 (``grad_gate``): two
+steps' ``loss_fn`` gradients and the AdamW update between them on the card
+against the CPU, remat on and off; A8 Qwen2-0.5B trained at
 full width and depth in bf16 through ``launch/train.train`` (40 steps of
 batch 4 x 512, 48 K8t and 24 K8b calls a step, every K8b on the tensor
 cores, no K8, the plain attention armed to raise, step 1's K8b calls held
@@ -114,8 +115,9 @@ the next: V1 InternVL2-1B and U1 MusicGen-large at full width, 2 layers,
 in f32 (drawn patch embeddings ahead of the text; 4 codebooks a step):
 K8/K9 against the blocked/einsum plans, prefill + 4 decode steps against
 ``forward(inference=True)``, every launch held against its plain version;
-V2 and U2 the two at full width and depth in bf16 through the wave engine
-and the slot engine as S1 to S4 serve them (every K8/K9 launch held, every
+V2 and U2 the two at full width and half depth (``SERVE_LAYERS``) in bf16
+through the wave engine and the slot engine as S1 to S4 serve them (every
+K8/K9 launch held, every
 bf16 K8 on the tensor cores, a replayed tick bit-equal to the eager one;
 InternVL2-1B's chunked engine refused, MusicGen-large's (4, 16) tokens
 through whole and chunked admission and under the seeded FaultPlan); V3
@@ -126,11 +128,17 @@ K8, K9, K8t and K8b at MusicGen-large's heads (32/32 x 64).
 The dense archs with LayerNorm: A3 also holds StableLM-2-12B (32/8 heads
 of 160) and Command-R-35B (64/8 of 128, a tied 256,000-entry head, rope
 theta 8e6) at full width, 2 layers, in f32 as V1 holds InternVL2-1B; A4
-serves both at full width and depth in bf16 (12.1 B and 30.3 B
-parameters) through the wave engine and the slot engine (every K8 on
+serves both at full width and 10 of their 40 layers in bf16
+(``SERVE_LAYERS``) through the wave engine and the slot engine (every K8 on
 the tensor cores and every K8/K9 launch held against its plain version
 as it comes, a replayed tick bit-equal to the eager one, each model's
 peak memory); A1, A2 and A5 hold and time K8 and K9 at their heads.
+T1 (``ln_train_slice``) trains both: at 2 layers in f32 (``grad_gate``,
+as A7), two steps' gradients and the AdamW update between them on the
+card against the CPU at 1e-4; in bf16 at full width and ``TRAIN_LAYERS``
+depth (12 and 2 of 40 layers), 8 steps as A8 (step 1's K8b calls held against plain: at StableLM's heads
+the GQA reduction at dh 160; the loss curve, peak memory); A9 times K8t
+and K8b at both training heads.
 The JAX package's other cache layouts (``layouts_slice``): L1 the
 long-context ring ``config_for_shape(qwen2-0.5b, long_500k)`` gives (a
 window of 8,192 slots), at full width and depth: in f32 a 9,000-token
@@ -252,12 +260,25 @@ REPO = Path(__file__).resolve().parent
 #: whole script stays within the time it took before attention training's
 #: phases (A6 to A9, X5) were added: RWKV6-3B's wave and slot serves (R3,
 #: S2; 32 layers), Yi-9B's serve (A4; 48), OLMoE-1B-7B's serves (X2; 16)
-#: and Qwen3-30B-A3B's (X4; 48).  The training runs keep their depth.
+#: and Qwen3-30B-A3B's (X4; 48); and, since T1 and R7's 40 steps were
+#: added, the LayerNorm archs' serves (A4; 40 layers each), InternVL2-1B's
+#: (V2; 24) and MusicGen-large's (U2; 48).  The training runs keep their
+#: depth.
 SERVE_LAYERS = {"rwkv6-3b": 8, "yi-9b": 24, "olmoe-1b-7b": 8,
-                "qwen3-moe-30b-a3b": 24}
+                "qwen3-moe-30b-a3b": 24, "stablelm-12b": 10,
+                "command-r-35b": 10, "internvl2-1b": 12,
+                "musicgen-large": 24}
+#: T1's depths: the LayerNorm archs trained in bf16 at full width, batch 4
+#: x 512, AdamW, remat on, cut to fit the card.  Measured peaks
+#: (torch.cuda.max_memory_allocated; H100 80GB HBM3, 700 W): StableLM-2-12B
+#: at 12 layers 63.896 GB, Command-R-35B at 2 layers 61.687 GB (its tied
+#: 256,000 x 8,192 embedding is 2.1 B of its 3.5 B parameters); a layer
+#: more is 0.278 B and 0.705 B parameters, 12 bytes each with AdamW
+TRAIN_LAYERS = {"stablelm-12b": 12, "command-r-35b": 2}
 #: the dense archs with LayerNorm, StableLM-2-12B (32/8 heads of 160) and
 #: Command-R-35B (64/8 of 128, a tied 256,000-entry head, rope theta 8e6):
-#: A3 at 2 layers in f32, A4 at full width and depth in bf16, A5's shapes
+#: A3 at 2 layers in f32, A4 at full width and ``SERVE_LAYERS`` depth in
+#: bf16, A5's shapes, T1 trained
 LN_ARCHS = ("stablelm-12b", "command-r-35b")
 #: L1's long-context layout: the ring of ``registry.LONG_CONTEXT_WINDOW``
 #: slots that ``config_for_shape`` gives a dense arch at ``long_500k``, a
@@ -1119,7 +1140,8 @@ def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
 
     # --- R7. RWKV6-3B trained at full width and depth, bf16 ----------------
     cfg = get_arch("rwkv6-3b")
-    n_steps, L = 8, cfg.n_layers
+    # 40 steps, as A8 trains Qwen2-0.5B: warmup 4 (8 steps have none)
+    n_steps, L = 40, cfg.n_layers
     kernel_bwd, plain_bwd = wkv6_k.wkv6_bwd, wkv6_k.wkv6_bwd_plain
     seen = {"n": 0, "err": 0.0, "shape": None}
 
@@ -1180,6 +1202,10 @@ def rwkv_train_slice(device, gen, counted, counts, only) -> list[dict]:
           f"{got['wkv6_bwd']} K6b ({2 * L} + {L} a step), none of K6, no "
           "plain scan reached; every loss and grad_norm finite; peak "
           f"device memory {peak:.2f} GB (torch.cuda.max_memory_allocated)")
+    print("[train] loss curve: "
+          + ", ".join(f"{x:.3f}" for x in report["losses"]))
+    print("[train] grad norms: "
+          + ", ".join(f"{x:.3g}" for x in report["grad_norms"]))
     print(f"[train] each of step 1's {seen['n']} K6b launches (r "
           f"{seen['shape'][0]} {seen['shape'][1]}, C={seen['shape'][2]}) "
           f"against wkv6_bwd_plain on its own inputs: max abs err "
@@ -2235,13 +2261,16 @@ def attention_slice(device, gen, counted, counts, only) -> list[dict]:
                        chaos=True)
         del engine
         torch.cuda.empty_cache()
-    # the LayerNorm archs at full width and depth (Command-R-35B's 30.3 B
-    # parameters, 60.6 GB, fit beside its pools) through both engines;
-    # their slot serves leave out chunked admission and the comparisons
-    # with the wave engine at batch 1, which S1 holds for the same code
+    # the LayerNorm archs at full width and ``SERVE_LAYERS`` depth through
+    # both engines (at full depth Command-R-35B's 30.3 B parameters, 60.6
+    # GB, fit beside its pools); their slot serves leave out chunked
+    # admission and the comparisons with the wave engine at batch 1, which
+    # S1 holds for the same code
     for name in LN_ARCHS:
-        got = model_serve_phase("A4", get_arch(name), device, counted,
-                                counts, only, chaos=False, compare=False)
+        cfg = dataclasses.replace(get_arch(name),
+                                  n_layers=SERVE_LAYERS[name])
+        got = model_serve_phase("A4", cfg, device, counted, counts, only,
+                                chaos=False, compare=False)
         for k in served_launches:
             served_launches[k] += got.get(k, 0)
 
@@ -2526,8 +2555,8 @@ def lm_head_ms(cfg, tokens: int) -> float:
 def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
     """Attention training: K8t and K8b against their plain versions and
     torch autograd (A6); Qwen2-0.5B at full width, 2 of 24 layers, f32:
-    ``loss_fn`` gradients on the card against the CPU, remat on and off
-    (A7); Qwen2-0.5B trained at full width and depth in bf16 for 40 steps
+    two steps' ``loss_fn`` gradients and the AdamW update between them on
+    the card against the CPU, remat on and off (A7, ``grad_gate``); Qwen2-0.5B trained at full width and depth in bf16 for 40 steps
     through ``launch/train.train`` (A8); the two kernels' times beside
     their bounds, plain versions and SDPA forward + backward (and SDPA's
     backward alone), K8b's kernels' device times by the profiler, and
@@ -2535,11 +2564,8 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
     line."""
     from repro_torch.analysis import (BF16_FLOP_PER_S, attn_bwd_work,
                                       attn_traj_work, bound)
-    from repro_torch import steps as steps_lib
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_prefill as fp
-    from repro_torch.models import registry
-    from repro_torch.optim.adamw import tree_leaves, tree_map
 
     import torch.nn.functional as F
 
@@ -2633,59 +2659,9 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
           f" x max|want| (held at one bf16 step, 2^-7 = {2.0 ** -7:.3e})")
 
     # --- A7. the f32 gate: Qwen2-0.5B at full width, 2 of 24 layers -------
-    cfg2 = dataclasses.replace(get_arch("qwen2-0.5b"), n_layers=2,
-                               dtype="float32")
-    p2 = registry.build(cfg2).init(
-        torch.Generator(device=device).manual_seed(0), device)
-    leaves = tree_leaves(p2)
-    for t in leaves:
-        t.requires_grad_()
-    toks = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg2.vocab, (2, 256)).astype(np.int32))
-    L = cfg2.n_layers
-
-    def grads(params, batch, remat: bool):
-        reset_counts(*counted)
-        loss, _ = steps_lib.loss_fn(params, cfg2, batch, remat=remat)
-        g = torch.autograd.grad(loss, tree_leaves(params))
-        if loss.is_cuda:
-            torch.cuda.synchronize()
-        return loss.detach(), g, counts()
-
-    with tripwires(*arms):
-        loss_on, g_on, n_on = grads(p2, {"tokens": toks.to(device)}, True)
-        loss_off, g_off, n_off = grads(p2, {"tokens": toks.to(device)},
-                                       False)
-    for remat, n in ((True, n_on), (False, n_off)):
-        check(n == only(flash_prefill_traj=(2 if remat else 1) * L,
-                        flash_prefill_bwd=L),
-              f"A7 2-layer training step (remat {remat}) launched {n}")
-    #: the card against the CPU: the same f32 sums in another order on two
-    #: devices (cuBLAS and the SIMT kernels against the CPU's products and
-    #: the plain versions), held as the MoE model tests hold two
-    #: frameworks (1e-4), the atol scaled by each leaf's max|grad|
-    d_remat = max(close(a, b, "A7 grads, remat on vs off",
-                        dict(rtol=1e-4, atol=1e-4 * float(b.abs().max())))
-                  for a, b in zip(g_on, g_off))
-    p_cpu = tree_map(lambda t: t.detach().cpu().requires_grad_(), p2)
-    loss_cpu, g_cpu, _ = grads(p_cpu, {"tokens": toks}, True)
-    e_loss = close(loss_on.cpu(), loss_cpu, "A7 loss, card vs CPU",
-                   dict(rtol=1e-5, atol=0.0))
-    e_grad = 0.0
-    for a, b in zip(g_on, g_cpu):
-        m = float(b.abs().max())
-        e_grad = max(e_grad, close(a.cpu(), b, "A7 grads, card vs CPU",
-                                   dict(rtol=1e-4, atol=1e-4 * m)) / (m or 1))
-    print(f"[A7] {cfg2.name} at full width, {L} of 24 layers, f32, B=2 "
-          f"S=256: loss_fn loss on the card vs the CPU {e_loss:.3e} "
-          f"({float(loss_on):.6f}); every leaf's gradient within "
-          f"{e_grad:.3e} x its max|grad| (rtol 1e-4, atol 1e-4 x max|grad|);"
-          f" remat on vs off max abs diff {d_remat:.3e}; launches a step: "
-          f"remat on {n_on['flash_prefill_traj']} K8t + "
-          f"{n_on['flash_prefill_bwd']} K8b, off "
-          f"{n_off['flash_prefill_traj']} + {n_off['flash_prefill_bwd']}, "
-          "no K8; no plain attention reached on the card")
-    del p2, p_cpu, leaves, g_on, g_off, g_cpu
+    free_models("A7")
+    grad_gate("A7", get_arch("qwen2-0.5b"), (2, 256), device, counted,
+              counts, only, arms, both_remats=True)
     free_models("A8")
 
     # --- A8. Qwen2-0.5B trained at full width and depth, bf16 -------------
@@ -2701,7 +2677,10 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
     for name, (B, S, Hq, Hkv, dh) in (
             ("qwen2-0.5b", (4, 512, 14, 2, 64)),
             ("olmoe-1b-7b", (4, 512, 16, 16, 128)),
-            ("musicgen-large", (4, 512, 32, 32, 64))):
+            ("musicgen-large", (4, 512, 32, 32, 64)),
+            # T1's training heads: the GQA reduction at dh 160, and g = 8
+            ("stablelm-12b", (4, 512, 32, 8, 160)),
+            ("command-r-35b", (4, 512, 64, 8, 128))):
         q, k, v = attn_inputs(B, S, Hq, Hkv, dh, bf16, gen)
         bl = fp.choose_blocks(S, dh, bf16)
         o, lse = fp.flash_prefill_traj(q, k, v)
@@ -2821,6 +2800,197 @@ def attention_train_slice(device, gen, counted, counts, only) -> list[dict]:
             "graph_ms": r["graph_ms"],
             "library_graph_ms": r["library_graph_ms"]})
     return entries
+
+
+def adamw_plain(opt, gnorm: torch.Tensor, p: torch.Tensor,
+                g: torch.Tensor) -> torch.Tensor:
+    """The parameter after ``opt.update_``'s first step from zero moments,
+    written out of place in the order of the JAX package's formula (the
+    CPU tests' ``_adamw_out_of_place``), for a piece of a leaf: ``gnorm``
+    is the global norm of every gradient."""
+    f32 = torch.float32
+    step = torch.tensor(1.0, dtype=f32)
+    scale = torch.clamp(opt.grad_clip / (gnorm + 1e-9), max=1.0)
+    bc1 = 1 - torch.pow(torch.tensor(opt.b1, dtype=f32), step)
+    bc2 = 1 - torch.pow(torch.tensor(opt.b2, dtype=f32), step)
+    lr = torch.tensor(opt.lr, dtype=f32)
+    g32 = g.float() * scale
+    zero = torch.zeros_like(g32)
+    m = opt.b1 * zero + (1 - opt.b1) * g32
+    n = opt.b2 * zero + (1 - opt.b2) * g32 * g32
+    u = (m / bc1) / (torch.sqrt(n / bc2) + opt.eps)
+    u = u + opt.weight_decay * p.float()
+    return (p.float() - lr * u).to(p.dtype)
+
+
+def grad_gate(phase: str, full, batch: tuple[int, int], device, counted,
+              counts, only, arms, both_remats: bool = False) -> None:
+    """The f32 gate of LM training (A7, T1): ``full`` at full width, 2
+    layers, in f32, a (B, S) batch of seed-7 tokens.  Step 1's ``loss_fn``
+    loss and gradients on the card against the same model on the CPU (loss
+    rtol 1e-5; every leaf rtol 1e-4, atol 1e-4 x its max|grad|); then one
+    AdamW update (``optim/adamw.update_``, in place, lr 3e-3) of the card's
+    parameters from its gradients, against the out-of-place formula
+    (``adamw_plain``) on the card from the same gradients and the CPU's
+    copy of the parameters before it, piece by piece (rtol 1e-6; the two
+    are bit-equal on the CPU, tests/test_torch_train.py); then step 2 from
+    the card's updated parameters on both sides, its loss and gradients
+    held as step 1's.  (Updated each from its own gradients, the two sides
+    would part: AdamW's first step moves an entry by about lr x g / (|g| +
+    eps), so a gradient near eps = 1e-8 that rounds differently on the two
+    devices moves its entry differently, by up to 2 lr.)  Each
+    card step launches 2 K8t (1 with remat off) and 1 K8b an attention
+    layer and no K8, the plain attention armed to raise.
+    ``both_remats``: step 1 on the card also with remat off, its gradients
+    against remat on's.  A function of its own, so that no gradient
+    outlives it on the card."""
+    from repro_torch import steps as steps_lib
+    from repro_torch.models import registry
+    from repro_torch.optim.adamw import (AdamW, global_norm, tree_leaves,
+                                         tree_map)
+
+    cfg2 = dataclasses.replace(full, n_layers=2, dtype="float32")
+    L = cfg2.n_layers
+    p_card = registry.build(cfg2).init(
+        torch.Generator(device=device).manual_seed(0), device)
+    p_cpu = tree_map(lambda t: t.detach().to("cpu", copy=True), p_card)
+    for t in tree_leaves(p_card) + tree_leaves(p_cpu):
+        t.requires_grad_()
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg2.vocab, batch).astype(np.int32))
+    opt = AdamW(lr=3e-3)
+
+    def grads(params, remat: bool = True):
+        reset_counts(*counted)
+        b = {"tokens": toks.to(tree_leaves(params)[0].device)}
+        loss, _ = steps_lib.loss_fn(params, cfg2, b, remat=remat)
+        g = torch.autograd.grad(loss, tree_leaves(params))
+        if loss.is_cuda:
+            torch.cuda.synchronize()
+        return loss.detach(), g, counts()
+
+    def update(params, g) -> torch.Tensor:
+        """One AdamW step from zero moments, which go with it: step 2
+        needs only the parameters (Command-R-35B's f32 moments are 28
+        GB)."""
+        flat = iter(g)
+        return opt.update_(tree_map(lambda _: next(flat), params),
+                           opt.init(params), params)["grad_norm"]
+
+    def pieces(a, b):
+        """A card leaf and its CPU twin in pieces of 2^28 entries, each of
+        the CPU's moved to the card as it comes, so that the comparison's
+        temporaries fit beside the card's model."""
+        return zip(a.detach().reshape(-1).split(1 << 28),
+                   (x.to(device) for x in b.detach().reshape(-1).split(
+                       1 << 28)))
+
+    def held(step, loss_card, g_card, loss_cpu, g_cpu):
+        e_loss = close(loss_card.cpu(), loss_cpu,
+                       f"{phase} {full.name} step {step} loss, card vs CPU",
+                       dict(rtol=1e-5, atol=0.0))
+        e_grad = 0.0
+        for a, b in zip(g_card, g_cpu):
+            m = float(b.abs().max())
+            for a_, b_ in pieces(a, b):
+                e_grad = max(e_grad, close(
+                    a_, b_,
+                    f"{phase} {full.name} step {step} grads, card vs CPU",
+                    dict(rtol=1e-4, atol=1e-4 * m)) / (m or 1))
+        return e_loss, e_grad
+
+    said, t_cpu = [], 0.0
+    for step in (1, 2):
+        with tripwires(*arms):
+            loss_card, g_card, n_card = grads(p_card)
+        check(n_card == only(flash_prefill_traj=2 * L, flash_prefill_bwd=L),
+              f"{phase} {full.name} 2-layer f32 step {step} launched "
+              f"{n_card}")
+        if step == 1 and both_remats:
+            with tripwires(*arms):
+                _, g_off, n_off = grads(p_card, remat=False)
+            check(n_off == only(flash_prefill_traj=L, flash_prefill_bwd=L),
+                  f"{phase} {full.name} 2-layer f32 step (remat off) "
+                  f"launched {n_off}")
+            d_remat = max(close(a, b, f"{phase} grads, remat on vs off",
+                                dict(rtol=1e-4,
+                                     atol=1e-4 * float(b.abs().max())))
+                          for a, b in zip(g_card, g_off))
+            del g_off
+            said.append(f"remat on vs off max abs diff {d_remat:.3e} (1 K8t"
+                        f" + 1 K8b a layer with remat off)")
+        t = time.perf_counter()
+        loss_cpu, g_cpu, _ = grads(p_cpu)
+        t_cpu += time.perf_counter() - t
+        e_loss, e_grad = held(step, loss_card, g_card, loss_cpu, g_cpu)
+        said.append(f"step {step}: loss {float(loss_card):.6f}, card vs CPU "
+                    f"{e_loss:.3e}; every leaf's gradient within "
+                    f"{e_grad:.3e} x its max|grad|")
+        del g_cpu
+        if step == 1:
+            gnorm = global_norm(g_card)
+            gn = update(p_card, g_card)
+            check(torch.equal(gn, gnorm), f"{phase} {full.name} AdamW's "
+                  f"grad norm {float(gn)} against {float(gnorm)}")
+            e_p, bits = 0.0, True
+            for a, before, g in zip(tree_leaves(p_card), tree_leaves(p_cpu),
+                                    g_card):
+                for (a_, b_), g_ in zip(pieces(a, before),
+                                        g.reshape(-1).split(1 << 28)):
+                    want = adamw_plain(opt, gnorm, b_, g_)
+                    e_p = max(e_p, close(
+                        a_, want, f"{phase} {full.name} AdamW's update in "
+                        "place vs its formula", dict(rtol=1e-6, atol=0.0)))
+                    bits = bits and torch.equal(a_, want)
+            with torch.no_grad():      # step 2 from the same parameters
+                for a, b in zip(tree_leaves(p_card), tree_leaves(p_cpu)):
+                    b.copy_(a)
+            said.append(f"AdamW's update in place on the card (grad norm "
+                        f"{float(gn):.6g}) against its out-of-place formula:"
+                        " " + ("bit-equal" if bits else f"within {e_p:.3e}")
+                        + "; the updated parameters copied to the CPU")
+        del g_card
+    print(f"[{phase}] {full.name} at full width, 2 of {full.n_layers} "
+          f"layers, f32 ({cfg2.n_heads}/{cfg2.n_kv_heads} heads of "
+          f"{cfg2.head_dim}), B={batch[0]} S={batch[1]}, on the card against"
+          f" the CPU (loss rtol 1e-5; gradients rtol 1e-4, atol 1e-4 x "
+          f"max|grad|; AdamW's update rtol 1e-6): " + "; ".join(said)
+          + f"; the CPU's two steps {t_cpu:.1f} s; launches a "
+          f"step {2 * L} K8t + {L} K8b, no K8; no plain attention reached "
+          "on the card")
+
+
+def ln_train_slice(device, gen, counted, counts, only) -> dict:
+    """T1: the LayerNorm archs (``LN_ARCHS``) trained at full width.  For
+    each, the f32 gate at 2 layers (``grad_gate``, B=1 S=128); then
+    ``attention_train_run`` in bf16 for 8 steps at batch 4 x 512, AdamW,
+    remat on, at ``TRAIN_LAYERS`` depth: every K8b call of step 1 held
+    against ``flash_prefill_bwd_plain(round_p=True)`` (at StableLM-2-12B's
+    32/8 x 160 the GQA reduction at dh 160), 2 K8t + 1 K8b an attention
+    layer a step, no K8, every K8b call on the tensor cores, the plain
+    attention armed to raise, every loss and grad norm finite.  Returns the
+    K8t and K8b launches of the bf16 runs."""
+    from repro_torch.configs import get_arch
+
+    arms = plain_attention_arms() + plain_scan_arms()
+    share: dict = {}
+    launched = {"flash_prefill_traj": 0, "flash_prefill_bwd": 0}
+    for name in LN_ARCHS:
+        full = get_arch(name)
+        free_models(f"T1 {name}")
+        grad_gate("T1", full, (1, 128), device, counted, counts, only, arms)
+        free_models(f"T1 {name} bf16")
+        cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS[name])
+        print(f"[T1] {name}: {cfg.n_layers} of {full.n_layers} layers "
+              "(TRAIN_LAYERS)")
+        run = attention_train_run("T1", cfg, 8, counted, counts, only, arms,
+                                  share)
+        for k in launched:
+            launched[k] += run["launches"][k]
+        del run
+    free_models("T1 done")
+    return launched
+
 
 #: the bf16 tier of the attention kernels (K8, K9: 3e-2), the least the
 #: bf16 serving comparisons below stop at: greedy tokens of two runs whose
@@ -4233,9 +4403,10 @@ def fronts_slice(device, counted, counts, only) -> dict:
     """The vision and audio fronts, each model freed before the next and
     each phase's peak memory printed: V1 InternVL2-1B and U1 MusicGen-large
     at full width, 2 layers, in f32 (``model_f32_phase``); V2
-    InternVL2-1B and U2 MusicGen-large at full width and depth in bf16
-    through both engines (``model_serve_phase``; U2 also under the seeded
-    FaultPlan); V3 and U3 the same two trained at full width and depth in
+    InternVL2-1B and U2 MusicGen-large at full width and ``SERVE_LAYERS``
+    depth in bf16 through both engines (``model_serve_phase``; U2 also
+    under the seeded FaultPlan); V3 and U3 the same two trained at full
+    width and depth in
     bf16 for 8 steps of batch 4 x 512 positions (``attention_train_run``,
     through ``launch/train.train`` with ``make_batch_lm`` in place of the
     text pipeline: two K8t and one K8b an attention layer a step, step 1's
@@ -4255,8 +4426,9 @@ def fronts_slice(device, counted, counts, only) -> dict:
             ("U1", "U2", "U3", "musicgen-large")):
         model_f32_phase(f32_phase, name, device, counted, counts, only)
         cfg = get_arch(name)
-        got = model_serve_phase(serve_phase, cfg, device, counted, counts,
-                                 only, chaos=bool(cfg.n_codebooks))
+        got = model_serve_phase(serve_phase, dataclasses.replace(
+            cfg, n_layers=SERVE_LAYERS[name]), device, counted, counts,
+            only, chaos=bool(cfg.n_codebooks))
         free_models(train_phase)
         specs = registry.input_specs(cfg, ShapeConfig("fronts", 512, 4,
                                                       "train"))
@@ -7526,6 +7698,11 @@ def main() -> None:
     kernels += timed(mamba_slice, device, gen, counted, counts, only)
     kernels += timed(attention_slice, device, gen, counted, counts, only)
     timed(layouts_slice, device, counted, counts, only)
+    for name, n in timed(ln_train_slice, device, gen, counted, counts,
+                         only).items():
+        for entry in kernels:
+            if entry["name"] == name:
+                entry["launches"] += n
     timed(moe_slice, device, counted, counts, only)
     for name, n in timed(fronts_slice, device, counted, counts,
                          only).items():

@@ -71,6 +71,44 @@ def apply_groupnorm(p: dict, x: torch.Tensor, n_groups: int,
 
 
 # ---------------------------------------------------------------------------
+# Gates
+# ---------------------------------------------------------------------------
+class _Sigmoid(torch.autograd.Function):
+    """The bf16 ``jax.nn.sigmoid`` with its own backward: autograd through
+    1 / (1 + exp(-x)) would give inf x 0 = NaN where exp(-x) overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        # JAX's logistic JVP, g * (y * (1 - y)), each step in y's dtype
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the JAX package's compiled graph rounds it.  In
+    bf16, XLA expands it to 1 / (1 + exp(-x)) and rounds each of the four
+    steps to bf16; ``torch.sigmoid`` would round once.  Its gradient is
+    JAX's, g * (y * (1 - y)), finite where exp(-x) overflows.  In f32 the
+    fused op."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.sigmoid(x)
+    return _Sigmoid.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``, x * ``sigmoid`` (x), each step rounded as there."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.nn.functional.silu(x)
+    return x * sigmoid(x)
+
+
+# ---------------------------------------------------------------------------
 # Linear / embedding
 # ---------------------------------------------------------------------------
 def init_linear_annot(gen: torch.Generator, d_in: int, d_out: int,

@@ -31,7 +31,6 @@ rank-local tensors either way.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import partitioning as pt
 from repro_torch.configs.base import ModelConfig
@@ -103,13 +102,15 @@ def _project(p: dict, cfg: ModelConfig, x: torch.Tensor,
     and the new shift state (B,d)."""
     B, S, d = x.shape
     H, dh = n_heads(cfg), cfg.ssm.head_dim
-    sx = _shifted(x, x_prev) - x
-    xw, xk, xv, xr, xg = _ddlerp(p, x.to(F32), sx.to(F32))
+    # the shift's difference stays f32 into the f32 ddlerp: the JAX
+    # package's compiled graph drops its bf16 round trip there
+    sx = _shifted(x, x_prev).to(F32) - x.to(F32)
+    xw, xk, xv, xr, xg = _ddlerp(p, x.to(F32), sx)
     dt = x.dtype
     r = (xr.to(dt) @ p["wr"]).reshape(B, S, H, dh)
     k = (xk.to(dt) @ p["wk"]).reshape(B, S, H, dh)
     v = (xv.to(dt) @ p["wv"]).reshape(B, S, H, dh)
-    g = F.silu(xg.to(dt) @ p["wg"])
+    g = common.silu(xg.to(dt) @ p["wg"])
     w = p["w0"] + torch.tanh(xw @ p["td_w1"]) @ p["td_w2"]      # (B,S,d) f32
     logw = -torch.exp(w.reshape(B, S, H, dh))
     return r, k, v, g, logw, x[:, -1]
@@ -406,7 +407,7 @@ def apply_cmix(p: dict, x: torch.Tensor, x_prev: torch.Tensor
     xk = x + sx * p["mu_k"].to(x.dtype)
     xr = x + sx * p["mu_r"].to(x.dtype)
     k = torch.square(torch.relu(xk @ p["wk"]))
-    out = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    out = common.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
     return out, x[:, -1]
 
 

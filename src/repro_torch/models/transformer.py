@@ -324,13 +324,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 # Block application
 # ---------------------------------------------------------------------------
 def _apply_mlp_slot(slot_p: dict, cfg: ModelConfig, slot: int,
-                    x: torch.Tensor, cache: dict, mode: str
-                    ) -> tuple[torch.Tensor, dict, dict | None]:
+                    x: torch.Tensor, mix_out: torch.Tensor, cache: dict,
+                    mode: str) -> tuple[torch.Tensor, dict, dict | None]:
     """Second half-block (the rwkv6 channel-mix, MoE or the dense MLP) with
-    residual.  Returns (x, cache, the MoE layer's aux or None); MoE
-    dispatches drop-free in every mode but 'full' (the training forward),
-    as in the JAX package."""
-    h = common.apply_norm(slot_p["ln2"], x, cfg.norm)
+    residual, after the first half-block's output ``mix_out``.  Returns
+    (x, cache, the MoE layer's aux or None); MoE dispatches drop-free in
+    every mode but 'full' (the training forward), as in the JAX package.
+
+    The residual ``x + mix_out`` rounds to the model dtype, but the norm
+    reads the sum unrounded, in f32: the JAX package's compiled layer does
+    so (XLA, which may keep excess precision, drops the bf16 round trip
+    between the add and the norm's f32 cast, in every family).  Rounding
+    the norm's input there left the bf16 RWKV6 gradients up to 3x further
+    from f32 than JAX's (tests/test_torch_lm_train.py)."""
+    h = common.apply_norm(slot_p["ln2"], x.to(F32) + mix_out.to(F32),
+                          cfg.norm).to(x.dtype)
+    x = x + mix_out
     if _rwkv(cfg):
         out, shift = rwkv.apply_cmix(slot_p["mlp"], h, cache["shift_c"])
         return x + out, dict(cache, shift_c=shift), None
@@ -378,7 +387,7 @@ def _apply_block(slot_p: dict, cfg: ModelConfig, slot: int,
         out, conv, hst = fn(slot_p["mix"], cfg, h, cache_slot["conv"],
                             cache_slot["h"])
         new = dict(cache_slot, conv=conv, h=hst)
-    return _apply_mlp_slot(slot_p, cfg, slot, x + out, new, mode)
+    return _apply_mlp_slot(slot_p, cfg, slot, x, out, new, mode)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ from repro.optim import AdamW as JaxAdamW  # noqa: E402
 from repro.optim import warmup_cosine as jax_warmup_cosine  # noqa: E402
 from repro.partitioning import split  # noqa: E402
 
+import torch_trainer  # noqa: E402
 from repro_torch import convert, steps  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs import jamba_1_5_large_398b as jamba  # noqa: E402
@@ -386,6 +387,20 @@ def test_three_train_steps_match_jax(jax_grads, plan, monkeypatch):
         np.testing.assert_allclose(float(m["grad_norm"]),
                                    float(jm["grad_norm"]), **STEP_GNORM_TOL)
     assert state["step"] == 3
+
+
+def test_eight_trainer_steps_match_jax(monkeypatch):
+    """The trainer's own schedule at ``--steps 8`` (warmup 8 // 10 = 0,
+    lr 3e-3, AdamW), which the card's training phases run: the port's
+    ``launch.train.train`` on the attention-free stack from the JAX
+    package's ``init_params`` against JAX's trainer loop, every step's loss
+    and grad norm (ROADMAP Queue 3, gap 2)."""
+    theirs, mine = torch_trainer.run_both(JCFG, CFG, monkeypatch, seq=16)
+    assert len(theirs) == len(mine) == 8
+    for t, m in zip(theirs, mine):
+        np.testing.assert_allclose(m["loss"], t["loss"], **STEP_LOSS_TOL)
+        np.testing.assert_allclose(m["grad_norm"], t["grad_norm"],
+                                   **STEP_GNORM_TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ from repro_torch.models import registry, transformer  # noqa: E402
 from repro_torch.optim.adamw import tree_leaves, tree_map  # noqa: E402
 
 import test_torch_serving_faults as faults_tests  # noqa: E402
+import torch_trainer  # noqa: E402
 
 ARCHS = ("olmoe-1b-7b", "qwen3-moe-30b-a3b", "jamba-1.5-large-398b")
 #: tests/test_consistency.py's model-level tolerance
@@ -183,6 +184,36 @@ def test_loss_fn_loss_metrics_and_grads_match_jax(cf):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)
+
+
+#: every step's loss and grad norm against JAX's trainer
+#: (tests/test_torch_lm_train.py's bands)
+STEP_LOSS_TOL = dict(rtol=1e-4, atol=0)
+STEP_GNORM_TOL = dict(rtol=1e-3, atol=0)
+#: the router's drop share is a count over a count, averaged over the MoE
+#: layers: equal in both packages to f32 rounding (a few ulps: the
+#: layers are summed in another order)
+DROP_TOL = dict(rtol=1e-6, atol=0)
+
+
+def test_eight_trainer_steps_match_jax(monkeypatch):
+    """The trainer's own schedule at ``--steps 8`` (warmup 8 // 10 = 0,
+    lr 3e-3, AdamW), which the card's training phases run: the port's
+    ``launch.train.train`` on reduced OLMoE from the JAX package's
+    ``init_params`` against JAX's trainer loop, every step's loss, grad norm
+    and router drop share (ROADMAP Queue 3, gap 2; the card's X5 share
+    rose from 0.358 to 0.750 over 8 steps)."""
+    cfg, jcfg = (get("olmoe-1b-7b").reduced() for get in (get_arch,
+                                                          jax_get_arch))
+    theirs, mine = torch_trainer.run_both(jcfg, cfg, monkeypatch)
+    assert len(theirs) == len(mine) == 8
+    for t, m in zip(theirs, mine):
+        np.testing.assert_allclose(m["loss"], t["loss"], **STEP_LOSS_TOL)
+        np.testing.assert_allclose(m["grad_norm"], t["grad_norm"],
+                                   **STEP_GNORM_TOL)
+        np.testing.assert_allclose(m["moe_drop_frac"], t["moe_drop_frac"],
+                                   **DROP_TOL)
+    assert any(t["moe_drop_frac"] > 0 for t in theirs)
 
 
 # ---------------------------------------------------------------------------

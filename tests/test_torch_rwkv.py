@@ -27,7 +27,8 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.configs import jamba_1_5_large_398b  # noqa: E402
 from repro_torch.core import plans  # noqa: E402
-from repro_torch.models import registry, rwkv, transformer  # noqa: E402
+from repro_torch.models import common, registry, rwkv  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 
 #: tests/test_consistency.py's model-level tolerance
 TOL = dict(rtol=3e-4, atol=3e-4)
@@ -373,7 +374,8 @@ def test_bf16_layers_match_jax(both16, layer):
     """Each layer of the bf16 model on the same bf16 inputs and f32 state as
     JAX's, at the family's bf16 tier: this holds every cast of the served
     model (mixes and decay LoRA in f32, r/k/v/g in bf16, logw and the state
-    f32, the scan's out in v's dtype before the head-norm, cmix in bf16)."""
+    f32, the scan's out in v's dtype before the head-norm, cmix in bf16)
+    against JAX's layer compiled whole."""
     jparams, params = both16[0]["perturbed"]
     part = "mlp" if layer == "cmix" else "mix"
     jp = jax.tree.map(lambda a: a[0], jparams["blocks"][0][part])
@@ -383,20 +385,54 @@ def test_bf16_layers_match_jax(both16, layer):
     s = _state(2, seed=12)
     t = [convert.params_from_numpy(a) for a in (x, xp, s)]
     j = [jnp.asarray(a) for a in (x, xp, s)]
+    # JAX's layer compiled as one computation, as its jitted steps and the
+    # layer scan of its forward run it (XLA keeps f32 across some of the
+    # layer's bf16 casts, and the port rounds where that graph does)
     if layer == "project":
         got = rwkv._project(p, CFG16, *t[:2])
-        want = jax_rwkv._project(jp, JCFG16, *j[:2])
+        want = jax.jit(lambda q, *a: jax_rwkv._project(q, JCFG16, *a))(
+            jp, *j[:2])
     elif layer == "step_tmix":
         got = rwkv.step_tmix(p, CFG16, *t)
-        want = jax_rwkv.step_tmix(jp, JCFG16, *j)
+        want = jax.jit(lambda q, *a: jax_rwkv.step_tmix(q, JCFG16, *a))(
+            jp, *j)
     elif layer == "cmix":
         got = rwkv.apply_cmix(p, *t[:2])
-        want = jax_rwkv.apply_cmix(jp, *j[:2])
+        want = jax.jit(jax_rwkv.apply_cmix)(jp, *j[:2])
     else:
         plan = layer.removeprefix("tmix-")
         got = rwkv.apply_tmix(p, CFG16, *t, plan=plan)
-        want = jax_rwkv._apply_tmix_local(jp, JCFG16, *j, plan=plan)
+        want = jax.jit(lambda q, *a: jax_rwkv._apply_tmix_local(
+            q, JCFG16, *a, plan=plan))(jp, *j)
     _close16(got, want)
+
+
+@pytest.mark.parametrize("name", ["sigmoid", "silu"])
+def test_bf16_gate_gradients_equal_jax(name):
+    """RWKV6's bf16 gates (``common.sigmoid``, ``silu``), forward and
+    gradient, against ``jax.nn``'s and ``jax.grad``'s, over x from -100
+    (where exp(-x) overflows to inf in bf16) to 100: finite and equal.
+    XLA's CPU flushes subnormal results to zero and PyTorch's does not,
+    so they are held to the least normal number, 2^-126, times max|x|
+    (silu multiplies a subnormal sigmoid by x)."""
+    x = np.array([-100, -89, -88, -20, -3.3, -0.7, 0, 0.4, 2.9, 17, 100],
+                 np.float32)
+    w = np.linspace(-1.5, 2.0, x.size).astype(np.float32)
+    jfn = getattr(jax.nn, name)
+    jx, jw = (jnp.asarray(a, jnp.bfloat16) for a in (x, w))
+    want_y = jfn(jx)
+    want_g = jax.grad(lambda a: jnp.sum(
+        jfn(a).astype(jnp.float32) * jw.astype(jnp.float32)))(jx)
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    y = getattr(common, name)(tx)
+    (g,) = torch.autograd.grad(
+        (y.float() * torch.from_numpy(w).to(torch.bfloat16).float()).sum(),
+        tx)
+    assert y.dtype == g.dtype == torch.bfloat16
+    assert torch.isfinite(g).all()
+    for got, want in ((y, want_y), (g, want_g)):
+        np.testing.assert_allclose(_f32(got.detach()), _f32(want), rtol=0,
+                                   atol=2.0 ** -126 * np.abs(x).max())
 
 
 def _close_at_scale(got, want, tol):

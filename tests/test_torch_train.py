@@ -118,6 +118,58 @@ def test_adamw_steps_match_the_jax_training_step(plan):
     _assert_trees_close(params, split(jparams)[0], **GRAD_TOL)
 
 
+def _adamw_out_of_place(opt, grads, state, params):
+    """``AdamW.update_``'s arithmetic written out of place: new tensors for
+    every product and sum, in the order of the JAX package's formula."""
+    step = torch.tensor(state["step"] + 1, dtype=torch.float32)
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                           for g in grads))
+    scale = torch.clamp(opt.grad_clip / (gnorm + 1e-9), max=1.0)
+    bc1 = 1 - torch.pow(torch.tensor(opt.b1, dtype=torch.float32), step)
+    bc2 = 1 - torch.pow(torch.tensor(opt.b2, dtype=torch.float32), step)
+    lr = opt._lr(step)
+    out = []
+    for p, g, m, n in zip(params, grads, state["mu"], state["nu"]):
+        g32 = g.float() * scale
+        m = opt.b1 * m + (1 - opt.b1) * g32
+        n = opt.b2 * n + (1 - opt.b2) * g32 * g32
+        u = (m / bc1) / (torch.sqrt(n / bc2) + opt.eps)
+        u = u + opt.weight_decay * p.float()
+        out.append(((p.float() - lr * u).to(p.dtype), m, n))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad_scale", [1e-3, 1e3])
+def test_adamw_update_in_place_is_the_formula_bit_for_bit(dtype, grad_scale):
+    """``update_`` writes each leaf in place, holding at most two f32
+    temporaries of it: three steps give the bits of the out-of-place
+    formula, f32 and bf16 leaves, gradients under and over the clip."""
+    gen = torch.Generator().manual_seed(3)
+    params = [torch.randn(s, generator=gen).to(dtype) for s in
+              ((7, 5), (11,), (3, 4, 2))]
+    opt = AdamW(lr=warmup_cosine(3e-3, 1, 3))
+    state = opt.init(params)
+    mine = [p.clone() for p in params]
+    theirs = [p.clone() for p in params]
+    ref = {"mu": [m.clone() for m in state["mu"]],
+           "nu": [n.clone() for n in state["nu"]], "step": 0}
+    for _ in range(3):
+        grads = [(grad_scale * torch.randn(p.shape, generator=gen)).to(dtype)
+                 for p in params]
+        kept = [g.clone() for g in grads]
+        opt.update_(grads, state, mine)
+        new = _adamw_out_of_place(opt, grads, ref, theirs)
+        theirs = [p for p, _, _ in new]
+        ref = {"mu": [m for _, m, _ in new], "nu": [n for _, _, n in new],
+               "step": ref["step"] + 1}
+        assert all(torch.equal(a, b) for a, b in zip(grads, kept))
+        for a, b in zip(mine + state["mu"] + state["nu"],
+                        theirs + ref["mu"] + ref["nu"]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert state["step"] == 3
+
+
 def test_warmup_cosine_matches_jax():
     mine, theirs = warmup_cosine(1e-3, 5, 40), jax_warmup_cosine(1e-3, 5, 40)
     for step in (0, 1, 4, 5, 6, 20, 39, 40, 55):
