@@ -22,11 +22,11 @@ largest entry; f32 trajectories at the f32 tolerance) and bit-equal to
 their f32 instances on the widened operands, across time chunks, tiles,
 weight homes and runs; ``classify.serve`` of a bf16 ``LSTMConfig`` through
 all five plans (one bf16 K2 launch a request, T x L bf16 K1 for
-``fused_cell``, 2 x 64 in one K2 launch where f32 takes ``fused_cell``),
+``fused_cell``, 2 x 64 in one K2 launch where f32 takes the split home),
 20 bf16 ``train_har`` steps each through ``fused_seq`` and
 ``fused_seq_q8`` (two launches a step, the first 3 losses against bf16
-``sequential``), 2 x 64 bf16 training routed to ``fused_cell``, and the
-bf16 instances' times beside their f32 instances'.  Then the RWKV6 slice:
+``sequential``), 2 x 64 bf16 training in two launches on the split home,
+and the bf16 instances' times beside their f32 instances'.  Then the RWKV6 slice:
 the K6 chunked scan against its
 plain version (the JAX family's cases, the full-width heads at T=512 and
 500, extreme decay, rows alone and in a batch, a split-resume run), the
@@ -170,7 +170,18 @@ exactly 256 times and K2 once, the host-clock medians in the paper's
 order (per-column > 10-column > packed > ``fused_cell`` >
 ``fused_seq``), each beside ``core/factorization.H100``'s modelled time
 (printed, not held), the host cost a launch beside the profile's, and the
-Fig 3 to 6 model rows under the paper's profiles.  The one-device mesh
+Fig 3 to 6 model rows under the paper's profiles.  F2 (``fig5_slice``)
+runs the paper's Fig 5 on the card: all 12 configs of hidden 32 to 256 x
+1 to 3 layers (T=128, weights from seeds) served (B=1) and trained one
+step (B=64) on ``fused_seq`` in f32 and bf16 and on ``fused_seq_q8``,
+each run exactly 1 launch a forward and 2 a step, no ``lstm_cell`` launch
+and no fallback event, the stacks no block holds on the split home (G
+co-resident blocks of one cooperative launch); logits and gradients held
+to their references, every launch to its plain version; each config's
+serving p50 beside ``fused_cell``, ``sequential`` and ``nn.LSTM``; the
+split K2, K2t and K3 at 2 x 64, 3 x 128 and 3 x 256 in a CUDA graph
+beside their bounds, G, bytes a block and ptxas's registers and spills.
+The one-device mesh
 (``mesh_slice``): D1 trains Qwen2-0.5B at full width and depth through
 ``launch/train.train`` (bf16, 2 steps of 4 x 512) inside ``use_rules`` on
 the 1 x 1 host mesh and outside it (losses and ``grad_norm``s bit-equal,
@@ -309,6 +320,8 @@ def reset_counts(*wrappers) -> None:
             fn.reg_launches = 0
         if hasattr(fn, "bf16_launches"):    # the LSTM kernels' bf16 instances
             fn.bf16_launches = 0
+        if hasattr(fn, "split_launches"):   # the LSTM kernels' split home
+            fn.split_launches = 0
 
 
 def time_ms(fn, iters: int, repeats: int = 5) -> float:
@@ -4974,6 +4987,554 @@ def factorization_slice(device, counted, counts, only) -> dict:
     return {"launches": launched, "times": times}
 
 
+#: F2: the paper's Fig 5 sweep (MobiRNN's configs/mobirnn_lstm.py: hidden
+#: 32 to 256 x 1 to 3 layers, T = 128 windows of 9 sensors, 6 classes), the
+#: requests a serving p50 is taken over, the training batch, and the three
+#: corners whose split kernels are timed in a CUDA graph
+FIG5_HIDDEN, FIG5_LAYERS = (32, 64, 128, 256), (1, 2, 3)
+FIG5_REQUESTS, FIG5_TRAIN_B = 32, 64
+FIG5_CORNERS = ((64, 2), (128, 3), (256, 3))
+
+
+def once_ms(fn) -> float:
+    """CUDA-event time of one call of ``fn`` after one warmup call: for the
+    plain versions, whose calls take tens to hundreds of ms."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def q8_oracle(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The q8 plan's oracle logits: ``ref.lstm_seq`` over the
+    straight-through dequantized f32 stack, then the head
+    (differentiable: the straight-through gradients of the master
+    weights)."""
+    from repro_torch.kernels import lstm_seq as seq_k
+    from repro_torch.kernels import ref
+    w_s, b_s, P = seq_k.stack_params(params["layers"], cfg.hidden)
+    _, h = ref.lstm_seq(ref.quantize_dequantize_ste(w_s.float()),
+                        b_s.float(), seq_k.pad_input(x, P))
+    return h[-1] @ params["head"]["w"] + params["head"]["b"]
+
+
+def step_close(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Hold ``got`` within one bf16 step (2^-7) of ``want``'s largest
+    entry; return the max abs error."""
+    e = float((got.float() - want.float()).abs().max())
+    m = float(want.float().abs().max())
+    check(e <= 2.0 ** -7 * max(m, 1e-6), f"{what}: max abs err {e} is past "
+          f"one bf16 step of max|want| = {m}")
+    return e
+
+
+def fig5_slice(device, counted, counts, only, sm_clock_hz: float) -> dict:
+    """F2: MobiRNN's Fig 5 on the card.  All 12 configs of the paper's
+    complexity sweep (hidden 32 to 256 x 1 to 3 layers, T = 128, 9
+    sensors, 6 classes, weights from a seed a config) through the port's
+    entry points: serving one window (B = 1) on ``fused_seq`` in f32 and
+    bf16 and on ``fused_seq_q8``, and one training step (loss and
+    ``torch.autograd.grad``, B = 64) on the same three plans.  Where one
+    thread block cannot hold the stack the budget table splits it over
+    co-resident blocks (the split home), so every run must be exactly 1
+    ``lstm_seq``/``lstm_seq_q8`` launch a forward and 1 trajectory plus 1
+    backward launch a step, with no ``lstm_cell`` launch and no fallback
+    event, the plain versions armed to raise on a CUDA tensor; the split
+    launches counted by ``split_launches``.  Holds: logits against
+    ``sequential`` at LSTM_TOL (bf16: against f32 ``sequential`` on the
+    widened bf16 weights, at the bf16 LSTM_TOL; q8: against
+    ``ref.lstm_seq_q8``'s logits at Q8_ORACLE_TOL), gradients at
+    LSTM_GRAD_TOL (q8: against autograd through ``ref.lstm_seq`` over
+    ``quantize_dequantize_ste`` weights), and every kernel launch of the
+    table's tiling against its plain version.  Prints each config's
+    serving p50 (host clock, 32 requests) of ``fused_seq`` (f32, bf16 and
+    q8), ``fused_cell``, ``sequential`` and ``nn.LSTM`` (cuDNN, the library
+    yardstick); at 2 x 64, 3 x 128 and 3 x 256 the split K2, K2t and K3 in
+    a CUDA graph beside ``analysis.bound`` and the wavefront's chain bound,
+    G, bytes a block and ptxas's registers and spills.  Returns the
+    launches of the counted runs by kernel-line name, and the split
+    instances' kernel-line entries (timed at 3 x 256)."""
+    import dataclasses
+
+    from repro_torch.analysis import BF16_FLOP_PER_S, F32_FLOP_PER_S, bound
+    from repro_torch.configs.mobirnn_lstm import LSTMConfig
+    from repro_torch.core import lstm, plans
+    from repro_torch.kernels import lstm_seq as seq_k
+    from repro_torch.kernels import lstm_seq_bwd as bwd_k
+    from repro_torch.kernels import ref
+    from repro_torch.obs import trace as trace_lib
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    plain_versions = ((seq_k, "lstm_seq_plain"), (seq_k, "lstm_seq_q8_plain"),
+                      (seq_k, "lstm_seq_q8_traj_plain"),
+                      (bwd_k, "lstm_seq_bwd_plain"), (ref, "lstm_seq"),
+                      (ref, "lstm_seq_traj"))
+    seq_wrappers = (seq_k.lstm_seq, seq_k.lstm_seq_traj, seq_k.lstm_seq_q8,
+                    seq_k.lstm_seq_q8_traj, bwd_k.lstm_seq_bwd,
+                    bwd_k.lstm_seq_bwd_q8)
+    lstm_tol, grad_tol = plans.LSTM_TOL, plans.LSTM_GRAD_TOL
+    T, D = LSTMConfig().seq_len, LSTMConfig().input_dim
+    t_slice = time.perf_counter()
+    launched: dict[str, int] = {}
+    errs: dict[str, float] = {}
+
+    def add(name: str, n: int) -> None:
+        launched[name] = launched.get(name, 0) + n
+
+    def main_path(fn, expect: dict, what: str, bf16: bool) -> tuple:
+        """``fn()`` with the counts at 0 and the plain versions armed: its
+        launches exactly ``expect``, no fallback event, the bf16 instances
+        iff ``bf16``, split launches iff its event names the split home;
+        returns (its output, its dispatch event)."""
+        sink = trace_lib.ListSink()
+        old = trace_lib.set_tracer(trace_lib.Tracer(sink))
+        try:
+            reset_counts(*counted)
+            with tripwires(*plain_versions):
+                out = fn()
+            torch.cuda.synchronize()
+            got = counts()
+            split = {w.__name__: w.split_launches for w in seq_wrappers}
+            n16 = sum(w.bf16_launches for w in seq_wrappers)
+        finally:
+            trace_lib.set_tracer(old)
+        events = [r["attrs"] for r in sink.records
+                  if r["name"] == "plan/dispatch"]
+        check(got == only(**expect), f"F2 {what}: launched {got}, "
+              f"{expect} expected")
+        check(len(events) == 1 and "fallback" not in events[0],
+              f"F2 {what}: dispatch events {events}")
+        check(n16 == (sum(expect.values()) if bf16 else 0),
+              f"F2 {what}: {n16} bf16-instance launches")
+        home = events[0]["weight_home"]
+        check((sum(split.values()) > 0) == (home == "split")
+              and sum(split.values()) in (0, sum(expect.values())),
+              f"F2 {what}: {split} split launches on the {home} home")
+        return out, events[0]
+
+    def cudnn(params, H, L):
+        """nn.LSTM (cuDNN, TF32 off) with the config's weights and the
+        head: the library yardstick of one window."""
+        lib = torch.nn.LSTM(D, H, num_layers=L, batch_first=True
+                            ).to(device).requires_grad_(False)
+        for l, lw in enumerate(params["layers"]):
+            d = D if l == 0 else H
+            getattr(lib, f"weight_ih_l{l}").copy_(lw["w"][:d].T)
+            getattr(lib, f"weight_hh_l{l}").copy_(lw["w"][d:].T)
+            getattr(lib, f"bias_ih_l{l}").copy_(lw["b"])
+            getattr(lib, f"bias_hh_l{l}").zero_()
+        lib.flatten_parameters()         # one weight buffer, as cuDNN takes
+
+        def run(x):
+            _, (h, _) = lib(x)
+            return h[-1] @ params["head"]["w"] + params["head"]["b"]
+        return run
+
+    def p50(fn, xs) -> float:
+        """Median host time of one request (a window) over ``xs``, each
+        call ending in a synchronize, after a warmup request."""
+        fn(xs[:1])
+        torch.cuda.synchronize()
+        samples = []
+        for j in range(xs.shape[0]):
+            t0 = time.perf_counter()
+            fn(xs[j:j + 1])
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples)
+
+    def suffix(kind: str, home: str) -> str:
+        """The kernel-line name's tail of a launch of ``kind`` (f32, bf16
+        or q8) on ``home``: ``_split`` for the split home, ``_bf16`` for
+        the bf16 instances."""
+        return ("_split" if home == "split" else "") + (
+            "_bf16" if kind == "bf16" else "")
+
+    corners = {}
+    for H in FIG5_HIDDEN:
+        for L in FIG5_LAYERS:
+            cfg = LSTMConfig().with_complexity(H, L)
+            cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+            seed = 100 * L + H
+            p32 = tree_map(lambda t: t.to(device), lstm.init_params(
+                torch.Generator().manual_seed(seed), cfg))
+            p16 = tree_map(lambda t: t.to(torch.bfloat16), p32)
+            wide = tree_map(lambda t: t.float(), p16)
+            gen = torch.Generator().manual_seed(seed + 1)
+            xs = torch.randn(FIG5_REQUESTS, T, D, generator=gen).to(device)
+            x64 = torch.randn(FIG5_TRAIN_B, T, D, generator=gen).to(device)
+            y64 = torch.randint(0, cfg.n_classes, (FIG5_TRAIN_B,),
+                                generator=gen).to(device)
+            x1 = xs[:1]
+            homes = {}
+            # --- serving, B = 1 ---------------------------------------
+            with torch.inference_mode():
+                serve = (
+                    ("f32", lambda: lstm.forward_fused_seq(p32, x1, cfg),
+                     {"lstm_seq": 1}, lambda: lstm.forward_sequential(
+                         p32, x1, cfg), lstm_tol["float32"]),
+                    ("bf16", lambda: lstm.forward_fused_seq(
+                        p16, x1.bfloat16(), cfg16), {"lstm_seq": 1},
+                     lambda: lstm.forward_sequential(wide, x1.bfloat16(
+                     ).float(), cfg), lstm_tol["bfloat16"]),
+                    ("q8", lambda: lstm.forward_fused_seq_q8(p32, x1, cfg),
+                     {"lstm_seq_q8": 1}, lambda: q8_oracle(p32, x1, cfg),
+                     Q8_ORACLE_TOL))
+                for kind, fn, expect, want_fn, tol in serve:
+                    what = f"{L} x {H} serve {kind}"
+                    out, ev = main_path(fn, expect, what, kind == "bf16")
+                    homes[f"serve {kind}"] = (ev["weight_home"],
+                                              ev["n_blocks"])
+                    name = next(iter(expect)) + suffix(kind,
+                                                       ev["weight_home"])
+                    add(name, 1)
+                    close(out.float(), want_fn().float(),
+                          f"F2 {what} vs its reference", tol)
+                # each launch of the serving tilings against its plain
+                # version
+                w_s, b_s, P = seq_k.stack_params(p32["layers"], H)
+                xp = seq_k.pad_input(x1, P)
+                got = seq_k.lstm_seq(w_s, b_s, xp)
+                e = max(close(g, r, f"F2 {L} x {H} lstm_seq vs plain")
+                        for g, r in zip(got, seq_k.lstm_seq_plain(w_s, b_s,
+                                                                  xp)))
+                n = "lstm_seq" + suffix("f32", homes["serve f32"][0])
+                errs[n] = max(errs.get(n, 0.0), e)
+                w16, b16 = w_s.bfloat16(), b_s.bfloat16()
+                got = seq_k.lstm_seq(w16, b16, xp.bfloat16())
+                e = max(step_close(g, r, f"F2 {L} x {H} bf16 lstm_seq vs "
+                                         "plain")
+                        for g, r in zip(got, seq_k.lstm_seq_plain(
+                            w16, b16, xp.bfloat16())))
+                n = "lstm_seq" + suffix("bf16", homes["serve bf16"][0])
+                errs[n] = max(errs.get(n, 0.0), e)
+                wq, sc = ref.quantize_q8(w_s)
+                got = seq_k.lstm_seq_q8(w_s, b_s, xp)
+                e = max(close(g, r, f"F2 {L} x {H} lstm_seq_q8 vs plain")
+                        for g, r in zip(got, seq_k.lstm_seq_q8_plain(
+                            wq, sc, b_s, xp)))
+                n = "lstm_seq_q8" + suffix("q8", homes["serve q8"][0])
+                errs[n] = max(errs.get(n, 0.0), e)
+            # --- training, B = 64 --------------------------------------
+            train = (
+                ("f32", p32, x64, cfg, lstm.forward_fused_seq,
+                 {"lstm_seq_traj": 1, "lstm_seq_bwd": 1},
+                 lambda: (p32, x64, lstm.forward_sequential, cfg),
+                 grad_tol["float32"]),
+                ("bf16", p16, x64.bfloat16(), cfg16, lstm.forward_fused_seq,
+                 {"lstm_seq_traj": 1, "lstm_seq_bwd": 1},
+                 lambda: (wide, x64.bfloat16().float(),
+                          lstm.forward_sequential, cfg),
+                 grad_tol["bfloat16"]),
+                ("q8", p32, x64, cfg, lstm.forward_fused_seq_q8,
+                 {"lstm_seq_q8_traj": 1, "lstm_seq_bwd_q8": 1},
+                 lambda: (p32, x64, q8_oracle, cfg), grad_tol["float32"]))
+            for kind, params, xb, c_, fwd, expect, ref_args, tol in train:
+                what = f"{L} x {H} train {kind}"
+                leaves = [t.detach().requires_grad_()
+                          for t in tree_leaves(params)]
+                tree = params_like(params, leaves)
+
+                def step():
+                    loss = lstm.loss_fn(tree, xb, y64, c_, forward=fwd)
+                    return loss, torch.autograd.grad(loss, leaves)
+                (_, grads), ev = main_path(step, expect, what,
+                                           kind == "bf16")
+                homes[f"train {kind}"] = (ev["weight_home"],
+                                          ev["n_blocks"])
+                for name in expect:
+                    add(name + suffix(kind, ev["weight_home"]), 1)
+                rp, rx, rfwd, rcfg = ref_args()
+                r_leaves = [t.detach().requires_grad_()
+                            for t in tree_leaves(rp)]
+                r_tree = params_like(rp, r_leaves)
+                r_loss = lstm.loss_fn(r_tree, rx, y64, rcfg, forward=rfwd)
+                r_grads = torch.autograd.grad(r_loss, r_leaves)
+                for g, r in zip(grads, r_grads):
+                    close(g.float(), r.float(), f"F2 {what} grads vs its "
+                          "reference", tol)
+            # each training launch at the backward's tiling against its
+            # plain version (f32, bf16 and int8 instances)
+            with torch.no_grad():
+                w_s, b_s, P = seq_k.stack_params(p32["layers"], H)
+                xp = seq_k.pad_input(x64, P)
+                dh = torch.randn(L, FIG5_TRAIN_B, H, generator=gen
+                                 ).to(device)
+                dc = torch.zeros_like(dh)
+                for kind in ("f32", "bf16", "q8"):
+                    wk = w_s.bfloat16() if kind == "bf16" else w_s
+                    bk = b_s.bfloat16() if kind == "bf16" else b_s
+                    xk = xp.bfloat16() if kind == "bf16" else xp
+                    dck = dc.to(xk.dtype)
+                    dhk = dh.to(xk.dtype)
+                    kw = dict(dtype_bytes=xk.element_size(),
+                              w_dtype_bytes=None if kind == "q8"
+                              else wk.element_size(), quantized=kind == "q8")
+                    tb = seq_k.choose_batch_block(FIG5_TRAIN_B, T, L, P, H,
+                                                  mode="bwd", **kw)
+                    tiles = dict(block_b=tb.block_b,
+                                 time_chunk=tb.time_chunk,
+                                 n_blocks=tb.n_blocks)
+                    tail = suffix(kind, seq_k.weight_home(
+                        L, P, H, tb.block_b, tb.n_blocks))
+                    hold = step_close if kind == "bf16" else (
+                        lambda g, r, w: close(g, r, w))
+                    if kind == "q8":
+                        wq, sc = ref.quantize_q8(w_s)
+                        got = seq_k.lstm_seq_q8_traj(wq, sc, bk, xk,
+                                                     **tiles)
+                        want = seq_k.lstm_seq_q8_traj_plain(wq, sc, bk, xk)
+                        base = ("lstm_seq_q8_traj", "lstm_seq_bwd_q8")
+                    else:
+                        got = seq_k.lstm_seq_traj(wk, bk, xk, **tiles)
+                        want = ref.lstm_seq_traj(wk, bk, xk)
+                        base = ("lstm_seq_traj", "lstm_seq_bwd")
+                    e = max(hold(g, r, f"F2 {L} x {H} {kind} {base[0]} vs "
+                                 "plain") for g, r in zip(got, want))
+                    errs[base[0] + tail] = max(errs.get(base[0] + tail, 0.0),
+                                               e)
+                    ct, ht = got[2], got[3]
+                    if kind == "q8":
+                        grads = bwd_k.lstm_seq_bwd_q8(wq, sc, bk, xk, ct, ht,
+                                                      dck, dhk, **tiles)
+                        want = bwd_k.lstm_seq_bwd_plain(wq, bk, xk, ct, ht,
+                                                        dck, dhk, scales=sc)
+                    else:
+                        grads = bwd_k.lstm_seq_bwd(wk, bk, xk, ct, ht, dck,
+                                                   dhk, **tiles)
+                        want = bwd_k.lstm_seq_bwd_plain(wk, bk, xk, ct, ht,
+                                                        dck, dhk)
+                    # dx elementwise; dw and db sum B x T terms in another
+                    # order than the plain version: held to GRAD_TOL's rtol
+                    # of their largest entry (bf16: one bf16 step)
+                    e = step_close(grads[2], want[2], f"F2 {L} x {H} bf16 "
+                                   f"{base[1]} dx vs plain") \
+                        if kind == "bf16" else close(
+                            grads[2], want[2], f"F2 {L} x {H} {base[1]} dx "
+                            "vs plain", GRAD_TOL)
+                    for g, r, part in zip(grads[:2], want[:2], ("dw", "db")):
+                        d = float((g.float() - r.float()).abs().max())
+                        m = float(r.float().abs().max())
+                        rtol = 2.0 ** -7 if g.dtype == torch.bfloat16 \
+                            else GRAD_TOL["rtol"]
+                        check(d <= rtol * m, f"F2 {L} x {H} {kind} "
+                              f"{base[1]} {part}: max abs err {d} past "
+                              f"{rtol} x {m}")
+                        e = max(e, d)
+                    errs[base[1] + tail] = max(errs.get(base[1] + tail, 0.0),
+                                               e)
+            # --- a window's serving p50 --------------------------------
+            lib = cudnn(p32, H, L)
+            with torch.inference_mode():
+                times = {
+                    "fused_seq": p50(lambda x: lstm.forward_fused_seq(
+                        p32, x, cfg), xs),
+                    "fused_seq bf16": p50(lambda x: lstm.forward_fused_seq(
+                        p16, x.bfloat16(), cfg16), xs),
+                    "fused_seq_q8": p50(
+                        lambda x: lstm.forward_fused_seq_q8(p32, x, cfg), xs),
+                    "fused_cell": p50(lambda x: lstm.forward_fused_kernel(
+                        p32, x, cfg), xs),
+                    "sequential": p50(lambda x: lstm.forward_sequential(
+                        p32, x, cfg), xs),
+                    "nn.LSTM": p50(lib, xs)}
+                close(lib(x1), lstm.forward_sequential(p32, x1, cfg),
+                      f"F2 {L} x {H} nn.LSTM vs sequential")
+            print(f"[F2] {L} x {H}: homes " + ", ".join(
+                f"{k} {v[0]}" + (f" G={v[1]}" if v[1] > 1 else "")
+                for k, v in homes.items()) + "; serving p50 (host clock, "
+                f"{FIG5_REQUESTS} requests of one window): " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in times.items())
+                + f"; every run 1 launch a forward and 2 a step, no "
+                f"lstm_cell, no fallback; {CARD['line']}")
+            if (H, L) in FIG5_CORNERS:
+                corners[H, L] = (p32, x1, x64, times)
+    print(f"[F2] 12 configs held: logits at LSTM_TOL (bf16 {lstm_tol['bfloat16']}"
+          f", q8 at Q8_ORACLE_TOL {Q8_ORACLE_TOL}), gradients at "
+          f"LSTM_GRAD_TOL; max abs err vs plain " + ", ".join(
+              f"{k} {v:.3e}" for k, v in sorted(errs.items())))
+
+    # --- the split kernels at the corners, in a CUDA graph -----------------
+    def chain_ms(T_, L_, P_, H_) -> float:
+        """The forward wavefront's dependent chain (as the K2 rows' chain
+        bound): T + L - 1 wave-steps of ceil(max(P, H) / 4) + 6 dependent
+        f32 operations at 4 cycles and the card's highest SM clock."""
+        return (T_ + L_ - 1) * (-(-max(P_, H_) // 4) + 6) * 4 \
+            / sm_clock_hz * 1e3
+
+    def bwd_chain_ms(T_, L_, P_, H_, G) -> float:
+        """The split backward's chain: T + L wave-steps, each at least the
+        recompute's chain (as the forward's), the G partials' sum and dc's
+        two, the gate gradient's multiply and one product's 4H / G
+        multiply-adds, at 4 cycles an operation; loads and barriers left
+        out."""
+        ops = -(-max(P_, H_) // 4) + 6 + (G - 1) + 3 + 4 * H_ // G
+        return (T_ + L_) * ops * 4 / sm_clock_hz * 1e3
+
+    entries = []
+    for (H, L), (p32, x1, x64, times) in corners.items():
+        w_s, b_s, P = seq_k.stack_params(p32["layers"], H)
+        B = FIG5_TRAIN_B
+        flops1 = T * 2 * 4 * H * ((P + H) + (L - 1) * 2 * H)
+        rows = []
+        for kind in ("f32", "bf16", "q8"):
+            wk = w_s.bfloat16() if kind == "bf16" else w_s
+            bk = b_s.bfloat16() if kind == "bf16" else b_s
+            io = torch.bfloat16 if kind == "bf16" else torch.float32
+            wb = {"f32": 4, "bf16": 2, "q8": 1}[kind]
+            ib = 2 if kind == "bf16" else 4
+            kw = dict(dtype_bytes=ib, w_dtype_bytes=None if kind == "q8"
+                      else wb, quantized=kind == "q8")
+            wq, sc = ref.quantize_q8(w_s)
+            wl = wq if kind == "q8" else wk
+            scales = sc if kind == "q8" else None
+            xp1 = seq_k.pad_input(x1, P).to(io)
+            xpb = seq_k.pad_input(x64, P).to(io)
+            t1 = seq_k.choose_batch_block(1, T, L, P, H, **kw)
+            tb = seq_k.choose_batch_block(B, T, L, P, H, mode="bwd", **kw)
+            wbytes = wl.numel() * wb + 4 * (b_s.numel() + (
+                sc.numel() if kind == "q8" else 0))
+            k2 = lambda: seq_k._launch(wl, bk, xp1, t1.block_b,  # noqa
+                                       None, False, scales, t1.n_blocks)
+            k2t = lambda: seq_k._launch(wl, bk, xpb, tb.block_b,  # noqa
+                                        None, True, scales, tb.n_blocks)
+            _, _, ct, ht = k2t()
+            dh = torch.randn(L, B, H, device=device).to(io)
+            dc = torch.zeros_like(dh)
+            k3 = lambda: bwd_k._run(wl, bk, xpb, ct, ht, dc, dh,  # noqa
+                                    tb.block_b, None, scales, tb.n_blocks)
+            with torch.no_grad():
+                plain2 = (lambda: seq_k.lstm_seq_q8_plain(wq, sc, b_s, xp1)) \
+                    if kind == "q8" else \
+                    (lambda: seq_k.lstm_seq_plain(wk, bk, xp1))
+                plain2t = (lambda: seq_k.lstm_seq_q8_traj_plain(
+                    wq, sc, b_s, xpb)) if kind == "q8" else \
+                    (lambda: ref.lstm_seq_traj(wk, bk, xpb))
+                plain3 = lambda: bwd_k.lstm_seq_bwd_plain(  # noqa: E731
+                    wl, bk, xpb, ct, ht, dc, dh, scales=scales)
+                lib = torch.nn.LSTM(P, H, num_layers=L, batch_first=True
+                                    ).to(device).to(io)
+                wd = ref.dequantize_q8(wq, sc) if kind == "q8" else wk
+                for l in range(L):
+                    getattr(lib, f"weight_ih_l{l}").data.copy_(
+                        wd[l][:P if l == 0 else H].T)
+                    getattr(lib, f"weight_hh_l{l}").data.copy_(wd[l][P:].T)
+                    getattr(lib, f"bias_ih_l{l}").data.copy_(bk[l])
+                    getattr(lib, f"bias_hh_l{l}").data.zero_()
+                lib.flatten_parameters()
+                lib1 = lambda: lib(xp1)  # noqa: E731
+                libb = lambda: lib(xpb)  # noqa: E731
+                k2_ms, k2_graph = time_ms(k2, 10), graph_ms(k2, 10)
+                k2t_ms, k2t_graph = time_ms(k2t, 2), graph_ms(k2t, 1)
+                k3_ms, k3_graph = time_ms(k3, 1), graph_ms(k3, 1)
+                lib1_ms, libb_ms = time_ms(lib1, 10), time_ms(libb, 5)
+                pl = (once_ms(plain2), once_ms(plain2t), once_ms(plain3))
+            xg = xpb.clone().requires_grad_()
+            with torch.enable_grad():
+                _, (hn, cn) = lib(xg)
+                lib_in = [xg, *lib.parameters()]
+                lib3_ms = time_ms(lambda: torch.autograd.grad(
+                    (hn, cn), lib_in, (dh, dc), retain_graph=True), 5)
+            state = 2 * T * L * B * H * 4
+            x1b, xbb = xp1.numel() * ib, xpb.numel() * ib
+            out1, outb = 2 * L * H * ib, 2 * L * B * H * ib
+            # the peak of the inputs' type: the bf16 rate for bf16 (as the
+            # kernel table's other bf16 rows), the f32 rate for f32 and q8
+            rate = BF16_FLOP_PER_S if kind == "bf16" else F32_FLOP_PER_S
+            b2 = bound(wbytes + x1b + out1, flops1, rate)
+            b2t = bound(wbytes + xbb + outb + state, B * flops1, rate)
+            b3 = bound(2 * wbytes + 2 * xbb + state + outb, 3 * B * flops1,
+                       rate)
+            def ws(t, m):
+                return seq_k.working_set_bytes(T, L, P, H, t.block_b,
+                                               mode=m, n_blocks=t.n_blocks,
+                                               **kw)
+            names = ("lstm_seq_q8", "lstm_seq_q8_traj", "lstm_seq_bwd_q8") \
+                if kind == "q8" else ("lstm_seq", "lstm_seq_traj",
+                                      "lstm_seq_bwd")
+            for name, t, ms, gms, plain_ms, lib_ms, (bms, by), chain in (
+                    (names[0], t1, k2_ms, k2_graph, pl[0], lib1_ms, b2,
+                     chain_ms(T, L, P, H)),
+                    (names[1], tb, k2t_ms, k2t_graph, pl[1], libb_ms, b2t,
+                     chain_ms(T, L, P, H)),
+                    (names[2], tb, k3_ms, k3_graph, pl[2], lib3_ms, b3,
+                     bwd_chain_ms(T, L, P, H, tb.n_blocks))):
+                home = seq_k.weight_home(L, P, H, t.block_b, t.n_blocks)
+                mode = "bwd" if name.startswith("lstm_seq_bwd") else "fwd"
+                print(f"[F2] {name} {kind} {L} x {H} B="
+                      f"{1 if t is t1 else B} tiles {tuple(t)} ({home}, "
+                      f"G={t.n_blocks}, {ws(t, mode)} bytes a block): "
+                      f"kernel {ms:.4f} ms back to back, {gms:.4f} ms in a "
+                      f"CUDA graph; plain {plain_ms:.4f} ms; nn.LSTM "
+                      f"{lib_ms:.4f} ms; bound {bms:.3e} ms ({by}); chain "
+                      f"bound {chain:.3e} ms; {CARD['line']}")
+                rows.append(dict(
+                    name=name + suffix(kind, home), ms=ms, graph_ms=gms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=bms, bound_by=by,
+                    chain_bound_ms=chain, n_blocks=t.n_blocks,
+                    smem=ws(t, mode)))
+        if (H, L) == FIG5_CORNERS[-1]:
+            entries = rows
+    for name, log in BUILD_LOGS.items():
+        compiled = ""
+        for line in log.splitlines():
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:
+                compiled = entry.group(1)
+            elif "split_kernel" in compiled and (
+                    "registers" in line or "spill" in line):
+                print(f"[F2] {name} {kernel_name(compiled)}"
+                      f"{instance(compiled)}: {line.strip()}")
+    kernels = []
+    for r in entries:
+        base = r["name"].replace("_split", "")
+        src = "lstm_seq_bwd" if base.startswith("lstm_seq_bwd") \
+            else "lstm_seq"
+        replaces = {"lstm_seq": "src/repro/kernels/lstm_seq.py:317",
+                    "lstm_seq_traj": "src/repro/kernels/lstm_seq.py:350",
+                    "lstm_seq_bwd": "src/repro/kernels/lstm_seq_bwd.py:134",
+                    "lstm_seq_q8": "src/repro/kernels/lstm_seq.py:340",
+                    "lstm_seq_q8_traj": "src/repro/kernels/lstm_seq.py:374",
+                    "lstm_seq_bwd_q8":
+                        "src/repro/kernels/lstm_seq_bwd.py:197"}[
+                            base.replace("_bf16", "")]
+        check(launched.get(r["name"], 0) > 0,
+              f"F2: {r['name']} never launched on the main path")
+        kernels.append({
+            "name": r["name"], "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": replaces, "launches": launched[r["name"]],
+            "max_abs_err": errs.get(r["name"], 0.0), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "graph_ms": r["graph_ms"],
+            "chain_bound_ms": r["chain_bound_ms"],
+            "n_blocks": r["n_blocks"], "smem_bytes": r["smem"]})
+    print(f"[F2] launches on the main path: {launched}; "
+          f"{time.perf_counter() - t_slice:.1f} s")
+    own = {e["name"] for e in kernels}
+    return {"launches": {k: v for k, v in launched.items() if k not in own},
+            "kernels": kernels}
+
+
+def params_like(params: dict, leaves: list) -> dict:
+    """``params``' tree with its leaves, in ``tree_leaves`` order, replaced
+    by ``leaves``."""
+    it = iter(leaves)
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            return {k: rebuild(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [rebuild(v) for v in node]
+        return next(it)
+    return rebuild(params)
+
+
 def spec_leaves(tree) -> list:
     """The PartitionSpecs of a spec tree (dicts and lists), in order."""
     from repro_torch.partitioning import PartitionSpec
@@ -5981,7 +6542,8 @@ def main() -> None:
     from repro_torch.launch import classify, train_har
     from repro_torch.obs import trace as trace_lib
     from repro_torch.data import har
-    from repro_torch.optim.adamw import AdamW, tree_leaves, warmup_cosine
+    from repro_torch.optim.adamw import (AdamW, tree_leaves, tree_map,
+                                        warmup_cosine)
 
     counted = (cell_k.lstm_cell, seq_k.lstm_seq, seq_k.lstm_seq_traj,
                bwd_k.lstm_seq_bwd, seq_k.lstm_seq_q8, seq_k.lstm_seq_q8_traj,
@@ -6206,11 +6768,11 @@ def main() -> None:
         ins = [t.clone().requires_grad_() for t in (w, b, x)]
         return torch.autograd.grad(ref.lstm_seq(*ins), ins, (dc, dh))
 
-    def bwd_run(w, b, x, dc, dh, block_b, tc):
+    def bwd_run(w, b, x, dc, dh, block_b, tc, n_blocks=1):
         _, _, ct, ht = seq_k.lstm_seq_traj(w, b, x, block_b=block_b,
-                                           time_chunk=tc)
+                                           time_chunk=tc, n_blocks=n_blocks)
         return bwd_k.lstm_seq_bwd(w, b, x, ct, ht, dc, dh, block_b=block_b,
-                                  time_chunk=tc), (ct, ht)
+                                  time_chunk=tc, n_blocks=n_blocks), (ct, ht)
 
     # a 16-row tile leaves room for 2-step windows only (168 KiB before any)
     bwd_cases = [("2x32 T=128 B=1", (2, 32, 32, 1, 128), None),
@@ -6314,13 +6876,14 @@ def main() -> None:
               f"time_chunk {chunks} and two runs (B={B}, block_b={block_b}, "
               f"T={T})")
 
-    def q8_bwd_run(w, b, x, dc, dh, block_b, tc):
+    def q8_bwd_run(w, b, x, dc, dh, block_b, tc, n_blocks=1):
         wq, s = ref.quantize_q8(w)
         _, _, ct, ht = seq_k.lstm_seq_q8_traj(wq, s, b, x, block_b=block_b,
-                                              time_chunk=tc)
+                                              time_chunk=tc,
+                                              n_blocks=n_blocks)
         return bwd_k.lstm_seq_bwd_q8(wq, s, b, x, ct, ht, dc, dh,
-                                     block_b=block_b, time_chunk=tc), \
-            (wq, s, ct, ht)
+                                     block_b=block_b, time_chunk=tc,
+                                     n_blocks=n_blocks), (wq, s, ct, ht)
 
     def ste_autograd(w, b, x, dc, dh):
         """autograd of the oracle over straight-through int8 weights."""
@@ -6463,7 +7026,8 @@ def main() -> None:
               f"fused_cell {T * L} (T x L) at B=1 and B=64")
     print(f"[slice] scheduler chose {served['chosen']}")
 
-    # 2 x 64: the f32 stack fits no block, the int8 one does
+    # 2 x 64: the f32 stack fits no block and is split over co-resident
+    # blocks; the int8 one fits a block
     wide64 = cfg.with_complexity(64, 2)
     served64 = {}
     for plan in ("fused_seq_q8", "fused_seq"):
@@ -6486,8 +7050,10 @@ def main() -> None:
                 "fallback" not in e for e in events),
                   f"2 x 64 fused_seq_q8: {got}, {events[:1]}")
         else:
-            check(got == only(lstm_cell=calls * T * L) and all(
-                e.get("fallback") == "fused_cell" for e in events),
+            check(got == only(lstm_seq=calls)
+                  and seq_k.lstm_seq.split_launches == calls and all(
+                      "fallback" not in e and e["weight_home"] == "split"
+                      for e in events),
                   f"2 x 64 fused_seq: {got}, {events[:1]}")
     p64 = lstm.LSTMClassifier(
         wide64, generator=torch.Generator().manual_seed(0)).to(device).params()
@@ -6500,7 +7066,7 @@ def main() -> None:
               policy(plan))
     print(f"[slice] 2 x 64, B=1: fused_seq_q8 1 q8 launch a request (p50 "
           f"{served64['fused_seq_q8']['table']['fused_seq_q8']['p50_ms']:.3f}"
-          f" ms); fused_seq routed to fused_cell, {T * L} launches (p50 "
+          f" ms); fused_seq 1 split launch a request (p50 "
           f"{served64['fused_seq']['table']['fused_seq']['p50_ms']:.3f} ms)"
           ", each within its policy of sequential")
 
@@ -6627,7 +7193,8 @@ def main() -> None:
           "backward kernel")
 
     # 2 x 48 (f32: the forward fits a block, the backward does not) and
-    # 2 x 64 (q8: the same); both train on fused_cell
+    # 2 x 64 (q8: the same); both train on the split home, one trajectory
+    # launch and one backward launch a step
     for plan, hidden in (("fused_seq", 48), ("fused_seq_q8", 64)):
         wide = cfg.with_complexity(hidden, 2)
         wp = lstm.LSTMClassifier(
@@ -6647,30 +7214,42 @@ def main() -> None:
             trace_lib.set_tracer(old)
         events = [r["attrs"] for r in sink.records
                   if r["name"] == "plan/dispatch"]
-        check(wide_launches == only(lstm_cell=16 * 2)
+        q8 = plan == "fused_seq_q8"
+        pair = only(lstm_seq_q8_traj=1, lstm_seq_bwd_q8=1) if q8 else \
+            only(lstm_seq_traj=1, lstm_seq_bwd=1)
+        bwd_w = bwd_k.lstm_seq_bwd_q8 if q8 else bwd_k.lstm_seq_bwd
+        check(wide_launches == pair and bwd_w.split_launches == 1
               and len(events) == 1 and events[0]["train"]
               and events[0]["plan"] == plan
-              and events[0].get("fallback") == "fused_cell",
+              and "fallback" not in events[0]
+              and events[0]["weight_home"] == "split",
               f"2 x {hidden} {plan} training step: {wide_launches}, "
               f"{events}")
-        want = torch.autograd.grad(lstm.loss_fn(wp, xs, ys, wide),
-                                   tree_leaves(wp))
+
+        want = torch.autograd.grad(lstm.loss_fn(
+            wp, xs, ys, wide, forward=q8_oracle if q8
+            else lstm.forward_sequential), tree_leaves(wp))
         for g, r in zip(got, want):
-            close(g, r, f"2 x {hidden} {plan} grads vs sequential", GRAD_TOL)
-        w_s, b_s, P = seq_k.stack_params(wp["layers"], hidden)
-        bare = seq_k.lstm_seq_q8 if plan == "fused_seq_q8" \
-            else seq_k.lstm_seq
+            close(g, r, f"2 x {hidden} {plan} grads vs "
+                  f"{'the q8 oracle' if q8 else 'sequential'}", GRAD_TOL)
+        print(f"[train] 2 x {hidden} (backward fits no block): a {plan} "
+              "step is 2 launches on the split home, no fallback, "
+              f"{'the q8 oracle' if q8 else 'sequential'}'s grads")
+    # 17 layers need 17 warps in every block of any split: a bare call
+    # under autograd past every budget raises (no plain version runs)
+    deep = [randn(17, 32, 64, gen=gen, scale=0.2).requires_grad_(),
+            randn(17, 64, gen=gen).requires_grad_(), randn(2, 4, 16, gen=gen)]
+    for bare in (seq_k.lstm_seq, seq_k.lstm_seq_q8):
         try:
-            bare(w_s, b_s, seq_k.pad_input(xs, P))
+            bare(*deep)
             raised = ""
         except ValueError as e:
             raised = str(e)
         check("working set" in raised,
-              f"{bare.__name__} under autograd past the backward's budget: "
+              f"{bare.__name__} under autograd past every budget: "
               f"{raised!r}")
-        print(f"[train] 2 x {hidden} (backward fits no block): a {plan} "
-              "step runs on fused_cell with the event and sequential's "
-              f"grads; a bare {bare.__name__} call under autograd raises")
+    print("[train] 17 x 16 under autograd: lstm_seq and lstm_seq_q8 raise "
+          "(no backward tiling, one block or split)")
 
     # --- 3e. the bf16 instances -------------------------------------------
     # K1, K2/K2t, K3 and the int8 stack over bf16 x against their plain
@@ -6968,8 +7547,8 @@ def main() -> None:
     print(f"[bf16] 2 x 64, B=1: fused_seq 1 bf16 K2 launch a request at tile "
           f"{tuple(p64_tile)} (p50 "
           f"{served64_16['table']['fused_seq']['p50_ms']:.3f} ms, max abs "
-          f"err {e:.3e} vs bf16 sequential) beside f32 fused_seq on "
-          f"fused_cell, {T * L} launches (p50 "
+          f"err {e:.3e} vs bf16 sequential) beside f32 fused_seq's 1 "
+          f"split launch (p50 "
           f"{served64['fused_seq']['table']['fused_seq']['p50_ms']:.3f} ms)")
 
     # the bf16 training paths: 20 train_har steps through fused_seq and
@@ -7023,8 +7602,8 @@ def main() -> None:
         print(f"[bf16 train] first 3 {plan} losses "
               f"{runs16[plan]['losses'][:3]} agree with bf16 sequential's "
               f"{seq16['losses'][:3]} at {grad16}")
-    # 2 x 64 bf16 trains on fused_cell: the f32 dW accumulators alone fill
-    # a block
+    # 2 x 64 bf16 trains on the split home: the f32 dW accumulators alone
+    # fill a block
     wp = lstm.LSTMClassifier(
         cfg64_16, generator=torch.Generator().manual_seed(2)
     ).to(device).params()
@@ -7042,18 +7621,27 @@ def main() -> None:
         trace_lib.set_tracer(old)
     events = [r["attrs"] for r in sink.records
               if r["name"] == "plan/dispatch"]
-    check(wide_launches == only(lstm_cell=16 * 2)
-          and cell_k.lstm_cell.bf16_launches == 16 * 2
-          and len(events) == 1 and events[0].get("fallback") == "fused_cell",
+    check(wide_launches == only(lstm_seq_traj=1, lstm_seq_bwd=1)
+          and seq_k.lstm_seq_traj.bf16_launches == 1
+          and bwd_k.lstm_seq_bwd.bf16_launches == 1
+          and bwd_k.lstm_seq_bwd.split_launches == 1
+          and len(events) == 1 and "fallback" not in events[0]
+          and events[0]["weight_home"] == "split",
           f"2 x 64 bf16 fused_seq training step: {wide_launches}, {events}")
-    want = torch.autograd.grad(lstm.loss_fn(wp, xs, ys, cfg64_16),
-                               tree_leaves(wp))
+    # against f32 sequential on the widened bf16 weights and x: fused_seq
+    # keeps its state in f32, bf16 sequential rounds it every step
+    wide_p = tree_map(lambda t: t.float(), wp)
+    want = torch.autograd.grad(lstm.loss_fn(
+        wide_p, xs.float(), ys, dataclasses.replace(cfg64_16,
+                                                    dtype="float32")),
+        tree_leaves(wide_p))
     for g, r in zip(got, want):
         close(g.float(), r.float(), "2 x 64 bf16 grads vs sequential",
               grad16)
     print("[bf16 train] 2 x 64 (the bf16 backward fits no block): a "
-          "fused_seq step runs on the bf16 K1 with the event and bf16 "
-          "sequential's grads")
+          "fused_seq step is 2 bf16 launches on the split home, no "
+          "fallback, within the bf16 grad tolerance of f32 sequential's "
+          "grads on the widened weights")
 
     def cudnn_lstm(w_s, b_s, P):
         """``nn.LSTM`` loaded with the stacked weights (TF32 off): one
@@ -7235,7 +7823,7 @@ def main() -> None:
             bound_ms=t_bound, bound_by=by)
 
     with torch.no_grad():
-        # the 2 x 64 stack's second layer: fused_seq serves it on fused_cell
+        # the 2 x 64 stack's second layer on K1, the cell of fused_cell
         rows.append(cell_row(1, p64["layers"][1], extra=True))
         for B in (1, 64):
             H = cfg.hidden
@@ -7328,7 +7916,8 @@ def main() -> None:
             # Q8_ORACLE_TOL; "ms" is the kernel's launch on the codes, the
             # public call adds the per-call quantize (printed beside)
             rows += q8_rows(w_s, b_s, xp, B, dc, dh)
-        # 2 x 64, B=1: the int8 forward where the f32 one fits no block
+        # 2 x 64, B=1: the int8 forward in one block, where the f32 one
+        # needs the split home
         w64, b64, P64 = seq_k.stack_params(p64["layers"], 64)
         rows += q8_rows(w64, b64, seq_k.pad_input(windows[:1], P64), 1,
                         None, None, extra=True)
@@ -7711,6 +8300,8 @@ def main() -> None:
                 entry["launches"] += n
     half = timed(profiler_slice, device, counted, counts, only)
     paper = timed(factorization_slice, device, counted, counts, only)
+    fig5 = timed(fig5_slice, device, counted, counts, only, sm_clock_hz)
+    kernels += fig5["kernels"]
     meshed = timed(mesh_slice, device, counted, counts, only)
     spmd = timed(multidevice_slice, device, counted)
     ranked = timed(train_ranks_slice, device)
@@ -7719,6 +8310,7 @@ def main() -> None:
     for entry in kernels:
         entry["launches"] += half["launches"].get(entry["name"], 0) \
             + paper["launches"].get(entry["name"], 0) \
+            + fig5["launches"].get(entry["name"], 0) \
             + meshed["launches"].get(entry["name"], 0) \
             + spmd["launches"].get(entry["name"], 0) \
             + ranked.get(entry["name"], 0)

@@ -187,7 +187,8 @@ def lstm_seq_stream_costs(seq_len: int, n_layers: int, p_width: int,
                           time_chunk: int | None, dtype_bytes: int = 4,
                           w_dtype_bytes: int | None = None,
                           mode: str = "fwd",
-                          quantized: bool = False) -> dict[str, float]:
+                          quantized: bool = False,
+                          n_blocks: int = 1) -> dict[str, float]:
     """Roofline terms of ONE fused-LSTM launch (K2, streamed K4 when
     ``time_chunk`` is set; ``mode="bwd"`` the reverse sweep K3).
 
@@ -201,7 +202,10 @@ def lstm_seq_stream_costs(seq_len: int, n_layers: int, p_width: int,
     master gradients).
 
     Returns ``flops``, ``hbm_bytes``, ``smem_resident_bytes`` (the port's
-    ``kernels/lstm_seq.working_set_bytes`` at this tiling) and
+    ``kernels/lstm_seq.working_set_bytes`` at this tiling: for the split
+    home, ``n_blocks`` > 1, one of its blocks; its traffic is the same
+    model's, the weights crossing once a tile split over the blocks, the
+    h exchange between them in L2 not counted) and
     ``t_compute``/``t_memory`` in seconds at the H100's f32 CUDA-core and
     HBM rates: the kernels do their products in f32 on the CUDA cores,
     bf16 operands included."""
@@ -242,7 +246,7 @@ def lstm_seq_stream_costs(seq_len: int, n_layers: int, p_width: int,
     resident = seq_lib.working_set_bytes(
         seq_len, n_layers, p_width, hidden, block_b, dtype_bytes,
         w_dtype_bytes, mode=mode, time_chunk=time_chunk,
-        quantized=quantized)
+        quantized=quantized, n_blocks=n_blocks)
     return _times(flops, hbm_bytes, resident)
 
 

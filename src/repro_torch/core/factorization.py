@@ -40,6 +40,8 @@ H100_SMEM_PER_SM = 233_472
 H100_SMEM_RESERVED_PER_BLOCK = 1024
 #: Streaming multiprocessors of an H100 SXM.
 H100_SMS = 132
+#: 32-bit registers of one H100 SM.
+H100_REGS_PER_SM = 65_536
 #: Threads of one warp — the alignment of a thread block's fast axis.
 WARP = 32
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at the
@@ -54,6 +56,18 @@ TF32_FLOP_PER_S = 495e12
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def blocks_per_sm(smem: int, threads: int | None = None,
+                  regs_per_thread: int | None = None) -> int:
+    """Blocks of ``smem`` bytes of dynamic shared memory an H100 SM holds
+    at once; with ``threads`` and ``regs_per_thread``, also no more than
+    its register file holds (registers go to whole warps)."""
+    n = H100_SMEM_PER_SM // (smem + H100_SMEM_RESERVED_PER_BLOCK)
+    if threads is not None:
+        warps = -(-threads // WARP)
+        n = min(n, H100_REGS_PER_SM // (warps * WARP * regs_per_thread))
+    return n
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,13 +14,15 @@ four are numerically equivalent, the fifth agrees within the int8 band:
 * ``forward_fused_seq`` (``fused_seq``) — the sequence-resident CUDA kernel
   (kernels/lstm_seq.py): the whole T-step, L-layer recurrence in ONE launch,
   weights in shared memory once, (c, h) never leaving it — the MobiRNN fast
-  path.  Routes to ``fused_cell`` with a ``plan/dispatch`` event when the
-  weight stack exceeds a thread block's shared memory.
+  path.  A stack one thread block cannot hold is split over co-resident
+  blocks of the same launch (``weight_home="split"``); it routes to
+  ``fused_cell`` with a ``plan/dispatch`` event only where even that split
+  cannot be co-resident on the card.
 * ``forward_fused_seq_q8`` (``fused_seq_q8``) — ``fused_seq`` over
   per-output-channel int8 weights (kernels/ref.quantize_q8), held in
-  shared memory as int8 plus f32 scales: a quarter of the f32 stack, so it
-  runs in one launch at widths where ``fused_seq`` cannot (2 x 64, 3 x 64,
-  2 x 96).  Within ``Q8_BAND`` of the others (core/plans.py), within fp
+  shared memory as int8 plus f32 scales: a quarter of the f32 stack, so
+  one block holds it at widths where the f32 stack needs the split home
+  (2 x 64, 3 x 64, 2 x 96).  Within ``Q8_BAND`` of the others (core/plans.py), within fp
   rounding of the dequantize oracle; it trains quantization-aware with f32
   master weights and straight-through gradients.
 
@@ -29,8 +31,8 @@ the input's dtype), as the JAX package's do.  In bf16 the kernels widen
 every operand to f32 and sum in f32; ``fused_seq`` keeps its state in f32
 for the whole sequence and rounds only the final h, while ``fused_cell``
 (and ``sequential``) round the state to bf16 every step, by design, as in
-the JAX package.  The bf16 stack is half the f32 one, so ``fused_seq``
-serves 2 x 64 and 3 x 64 in one launch, where f32 routes to ``fused_cell``.
+the JAX package.  The bf16 stack is half the f32 one, so one block holds
+2 x 64 and 3 x 64, where the f32 stack is split over blocks.
 
 Every plan trains: ``loss_fn`` under ``torch.autograd`` differentiates it.
 A ``fused_seq`` training step is two launches at any T (the trajectory
@@ -135,12 +137,17 @@ def forward_fused_seq(params: dict, x: torch.Tensor, cfg: LSTMConfig,
     otherwise the kernel streams the time axis through its two-slot ring.
     When autograd records the call, the search sizes the backward kernel
     (``mode="bwd"``), and that one tiling serves the trajectory forward and
-    the backward.  Only when even ``(bm=1, tc=1)`` cannot fit — the weight
-    stack (in training, plus its gradient accumulators) exceeds
-    ``smem_budget`` (default: one H100 thread block's shared memory) — does
-    this route to ``forward_fused_kernel``, emitting a ``plan/dispatch``
-    event with ``fallback="fused_cell"``.  Every event names ``train``; a
-    training event also ``bwd_block_b``/``bwd_time_chunk``.
+    the backward.  When even ``(bm=1, tc=1)`` cannot fit one block — the
+    weight stack (in training, plus its gradient accumulators) exceeds
+    ``smem_budget`` (default: one H100 thread block's shared memory) — the
+    table splits the stack's gate columns over ``n_blocks`` co-resident
+    blocks a tile (the split home: still one launch forward, two a
+    training step).  Only where no split fits the budget and the card's
+    co-resident blocks does this route to ``forward_fused_kernel``,
+    emitting a ``plan/dispatch`` event with ``fallback="fused_cell"``.
+    Every event names ``train``; a tiled one also ``weight_home``,
+    ``block_b``, ``time_chunk`` and ``n_blocks``, and a training one the
+    ``bwd_`` twins of the last three.
     """
     return _forward_fused_seq_impl(params, x, cfg, smem_budget=smem_budget,
                                    quantized=False)
@@ -156,9 +163,10 @@ def forward_fused_seq_q8(params: dict, x: torch.Tensor, cfg: LSTMConfig,
     f32 stack fits no thread block.  Its training step is two launches
     with f32 straight-through gradients for the f32 master weights; where
     the q8 backward fits no block (2 x 64: its f32 dW accumulators alone are
-    264 KiB) a training call routes to ``fused_cell``, as a forward that
-    fits no block does, with a ``plan/dispatch`` event naming
-    ``plan="fused_seq_q8", fallback="fused_cell"``.
+    264 KiB) it takes the split home, as the f32 plan does; only where no
+    split fits either does a call route to ``fused_cell``, with a
+    ``plan/dispatch`` event naming ``plan="fused_seq_q8",
+    fallback="fused_cell"``.
 
     NOT numerically equivalent to the other plans: within fp rounding of
     ``ref.lstm_seq_q8`` (dequantize, then run) and within ``Q8_BAND`` of
@@ -173,7 +181,8 @@ def _forward_fused_seq_impl(params: dict, x: torch.Tensor, cfg: LSTMConfig,
     """Shared body of the f32 and int8 sequence-resident plans: stack the
     layer params, consult the (dtype- and quantization-aware) budget table
     once — ``mode="bwd"`` when autograd records the call — route to the
-    per-cell kernel when even (bm=1, tc=1) cannot fit, run the sequence
+    per-cell kernel when neither one block at (bm=1, tc=1) nor a split over
+    co-resident blocks fits, run the sequence
     kernel, apply the head.  ``quantized`` casts the stack to f32 masters
     first, as the JAX package does: int8 rounding is then the only
     deviation, and the straight-through gradients land in f32 before the
@@ -191,19 +200,24 @@ def _forward_fused_seq_impl(params: dict, x: torch.Tensor, cfg: LSTMConfig,
         mode="bwd" if train else "fwd", quantized=quantized)
     plan = "fused_seq_q8" if quantized else "fused_seq"
     tracer = trace_lib.get_tracer()
-    if blocks is None:        # the stack > shared memory at (bm=1, tc=1)
+    if blocks is None:        # no block and no co-resident split holds it
         if tracer.enabled:
             tracer.event("plan/dispatch", family="lstm", plan=plan,
                          fallback="fused_cell", train=train, batch=B,
                          seq_len=T)
         return forward_fused_kernel(params, x, cfg)
-    tiles = dict(block_b=blocks.block_b, time_chunk=blocks.time_chunk)
+    tiles = dict(block_b=blocks.block_b, time_chunk=blocks.time_chunk,
+                 n_blocks=blocks.n_blocks)
     if train:
         tiles.update(bwd_block_b=blocks.block_b,
-                     bwd_time_chunk=blocks.time_chunk)
+                     bwd_time_chunk=blocks.time_chunk,
+                     bwd_n_blocks=blocks.n_blocks)
     if tracer.enabled:
+        home = seq_lib.weight_home(cfg.n_layers, p_width, cfg.hidden,
+                                   blocks.block_b, blocks.n_blocks)
         tracer.event("plan/dispatch", family="lstm", plan=plan,
-                     train=train, **tiles, batch=B, seq_len=T)
+                     train=train, weight_home=home, **tiles, batch=B,
+                     seq_len=T)
     xp = seq_lib.pad_input(x, p_width)
     op = kernel_ops.lstm_seq_q8 if quantized else kernel_ops.lstm_seq
     _, h = op(w_stack, b_stack, xp, **tiles)
@@ -239,14 +253,16 @@ def plan_viability(cfg: LSTMConfig, batch: int, seq_len: int, *,
 
     The sequence-resident plan is only a real plan while
     ``kernels/lstm_seq.choose_batch_block`` finds a ``(block_b,
-    time_chunk)`` tiling that fits a thread block's shared memory; past it
+    time_chunk, n_blocks)`` tiling: one thread block's shared memory, or
+    the stack split over co-resident blocks of one launch; past it
     ``forward_fused_seq`` reroutes to the per-cell kernel, so scheduling it
     would run ``fused_cell`` under another name.  ``seq_plan_names``
     lists the scheduler names of that plan (a benchmark may register it as
     ``accel_seq``); every other plan is always viable.  ``dtype_bytes``
     sizes the input and ``w_dtype_bytes`` the stack (default: the input's
     width): a bf16 model is ``dtype_bytes=2, w_dtype_bytes=2``, whose
-    halved stack serves 2 x 64 in one launch where f32 cannot.
+    halved stack one block holds at 2 x 64, where f32 takes the split
+    home.
 
     ``train=True`` sizes the backward working set instead
     (``choose_batch_block(mode="bwd")``: trajectory windows and gradient
@@ -257,8 +273,9 @@ def plan_viability(cfg: LSTMConfig, batch: int, seq_len: int, *,
     ``q8_plan_names`` lists the scheduler names of the int8 plan
     (``fused_seq_q8``); its surface is the quantization-aware table
     (``choose_batch_block(quantized=True)``), which fits every width the
-    f32 one does and more (2 x 64 serving), so there are shapes where the
-    scheduler may offer only the int8 fast path.
+    f32 one does (one block at 2 x 64 serving, where f32 splits); under a
+    small ``smem_budget`` there are shapes where the scheduler may offer
+    only the int8 fast path.
     """
     p_width = max(cfg.input_dim, cfg.hidden)
     mode = "bwd" if train else "fwd"

@@ -295,16 +295,24 @@ def _lstm_viability(*args, **kwargs):
 
 def _lstm_profile_candidates(*, smem_budget: int | None = None,
                              max_points: int = 4, batch: int = 4,
-                             seq_len: int = 48, device="cuda"
+                             seq_len: int = 48, device="cuda",
+                             hidden: int = 32, n_layers: int = 2
                              ) -> list[ProfileCandidate]:
     """Measured-profiler candidates: ``fused_seq``'s kernel
-    (``kernels/lstm_seq.lstm_seq``) at the paper's 2 x 32 layer shape over
+    (``kernels/lstm_seq.lstm_seq``) at a layer shape (the paper's 2 x 32
+    by default; ``hidden`` x ``n_layers`` of its Fig 5 sweep) over
     the ``(block_b, time_chunk)`` surface — batch tiles on the halving walk
     from the tile the budget table takes, each at whole-T residency (K2)
     and then streamed chunks of T/2 and T/4 (K4), admitted where the
     working set fits ``smem_budget`` (a thread block's shared memory by
-    default) and the layers' warps fit a block.  ``model_s`` is the
-    roofline of ``analysis.lstm_seq_stream_costs``."""
+    default) and the layers' warps fit a block.  Where the table itself
+    splits the stack over G co-resident blocks (no one block holds it
+    within the budget), the split home's points instead: the table's tile
+    over G and over 2G blocks (``n_blocks`` in the point), admitted where
+    a block fits the budget and its instance's threads and the card holds
+    every block at once, so that the scheduler can calibrate the split
+    kernels on the card.  ``model_s`` is the roofline of
+    ``analysis.lstm_seq_stream_costs``."""
     import functools
 
     from repro_torch import analysis
@@ -312,7 +320,7 @@ def _lstm_profile_candidates(*, smem_budget: int | None = None,
     from repro_torch.core import factorization, lstm as lstm_lib, tiling
     from repro_torch.kernels import lstm_seq as seq_lib
 
-    cfg = LSTMConfig()
+    cfg = LSTMConfig().with_complexity(hidden, n_layers)
     budget = factorization.H100_SMEM_PER_BLOCK if smem_budget is None \
         else smem_budget
     p = lstm_lib.init_params(torch.Generator().manual_seed(0), cfg)
@@ -347,6 +355,25 @@ def _lstm_profile_candidates(*, smem_budget: int | None = None,
                 functools.partial(seq_lib.lstm_seq, block_b=bm,
                                   time_chunk=tc),
                 args, _model_s(costs), seq_lib.lstm_seq_plain))
+    if table is None or table.n_blocks == 1:
+        return out
+    bm = table.block_b
+    for g in (table.n_blocks, 2 * table.n_blocks):
+        if len(out) >= max_points:
+            break
+        ws = seq_lib.working_set_bytes(seq_len, L, p_width, H, bm,
+                                       n_blocks=g)
+        threads = seq_lib.split_threads(L, H, g, block_b=bm)
+        if H % g or ws > budget or threads > seq_lib.SPLIT_MAX_THREADS or \
+                g * -(-batch // bm) > seq_lib.split_capacity(ws, threads):
+            continue
+        costs = analysis.lstm_seq_stream_costs(
+            seq_len, L, p_width, H, batch, bm, None, n_blocks=g)
+        out.append(ProfileCandidate(
+            "lstm", "fused_seq", {"block_b": bm, "time_chunk": None,
+                                  "n_blocks": g},
+            functools.partial(seq_lib.lstm_seq, block_b=bm, n_blocks=g),
+            args, _model_s(costs), seq_lib.lstm_seq_plain))
     return out
 
 

@@ -72,6 +72,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -141,6 +142,23 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 #else
   cuda_mock_named_sync(id, n);
 #endif
+}
+
+// Four consecutive f32 of device memory that other blocks of the launch
+// write (the split kernels' exchanges), read from L2 (ld.global.cg): L1 is
+// not coherent across SMs, so a plain load could see a stale line.
+__device__ __forceinline__ float4 load4_cg(const float* p) {
+  return __ldcg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+
+// A barrier of every thread of every block of a cooperative launch
+// (cooperative_groups' grid sync: the launch's own barrier state, so no
+// words of the caller's and nothing shared between launches or streams;
+// it orders every block's writes before it against every read after it).
+// Every thread of every block calls it.
+__device__ __forceinline__ void grid_sync() {
+  cooperative_groups::this_grid().sync();
 }
 
 __device__ __forceinline__ float sigmoid(float v) {

@@ -59,10 +59,11 @@
 //    x ring is in shared memory.  (The codes are not kept packed 4 to a
 //    register: I2F runs at a quarter of the FMA rate on Hopper, so
 //    converting 64 codes a step would cost more than the multiply-adds.)
-//    Every other shape keeps the (L, P+H, 4H) stack in shared memory with
-//    rows padded to lstm_gates::row_stride, grouped four rows a column
-//    (one float4, or one word of four int8 codes stored as c + 128 and
-//    converted by an add, not the quarter-rate I2F), columns unit-major
+//    Every other shape one block holds (the split home, below the one-block
+//    instances, takes the rest) keeps the (L, P+H, 4H) stack in shared
+//    memory with rows padded to lstm_gates::row_stride, grouped four rows a
+//    column (one float4, or one word of four int8 codes stored as c + 128
+//    and converted by an add, not the quarter-rate I2F), columns unit-major
 //    (gate g of unit j at j * 4 + g), so a warp reads 32 adjacent groups;
 //    h and x rows are padded to whole float4s, so a lane reads four rows
 //    of weights and of inputs a load (lstm_gates::partial_sums4, the same
@@ -185,12 +186,15 @@ __host__ __device__ inline long long fwd_smem_bytes(int T, int L, int P,
          (long long)slots * tc * rows * P4 * iob;
 }
 
+// The bias's type: the stack's, f32 beside an int8 stack.
+template <typename WT>
+using BiasT = typename std::conditional<sizeof(WT) == 1, float, WT>::type;
+
 template <int ROWS, bool TRAJ, typename WT, typename IO, bool REG>
 __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
     lstm_seq_fwd_kernel(
         const WT* __restrict__ w, const float* __restrict__ scales,
-        const typename std::conditional<sizeof(WT) == 1, float, WT>::type*
-            __restrict__ b,
+        const BiasT<WT>* __restrict__ b,
         const IO* __restrict__ x, IO* __restrict__ c_out,
         IO* __restrict__ h_out, float* __restrict__ c_traj,
         float* __restrict__ h_traj, int B, int T, int L, int P, int H, int tc,
@@ -481,10 +485,6 @@ __global__ void __launch_bounds__(max_threads<ROWS, REG>(), 1)
   }
 }
 
-// The bias's type: the stack's, f32 beside an int8 stack.
-template <typename WT>
-using BiasT = typename std::conditional<sizeof(WT) == 1, float, WT>::type;
-
 template <int ROWS, bool TRAJ, typename WT, typename IO, bool REG>
 int launch(const WT* w, const float* scales, const BiasT<WT>* b, const IO* x,
            IO* c_out, IO* h_out, float* c_traj, float* h_traj, int B, int T,
@@ -562,6 +562,282 @@ int launch_tile(const WT* w, const float* scales, const BiasT<WT>* b,
       return (int)cudaErrorInvalidValue;
   }
 #undef LSTM_SEQ_LAUNCH
+}
+
+// ---------------------------------------------------------------------------
+// The split home: the stack's gate columns over G co-resident blocks.
+// ---------------------------------------------------------------------------
+// Where one block cannot hold the stack (the f32 2 x 64 stack is 256 KiB,
+// 3 x 256 is 6 MiB, against 227 KB a block), the host's table
+// (choose_batch_block) splits it over G blocks of ONE cooperative launch,
+// grid (G, tiles): block j of a tile owns the whole hidden units [j H/G,
+// (j+1) H/G) of every layer, i.e. their four gate columns over all P + H
+// rows, so c and the cell update stay in the block.  Its column slice sits
+// in shared memory in the shared home's layout (four rows of a column side
+// by side, columns unit-major), without the row pad: a warp reads 32
+// adjacent groups of one row, whatever the row's length.  The layer
+// wavefront is the one-block kernel's: T + L - 1 wave-steps, layer l at
+// time s - l, each layer its own warps, lane 4u + g gate g of unit u; a
+// layer has rw warps for each 8 of its units, warp i of them taking the
+// row groups i, i + rw, ... of the tile.
+// What a block cannot see is the h of the other blocks' units: every block
+// writes the h of its units to a (tiles, L, 2, bmp, H4) f32 exchange in
+// device memory (L2-resident; slot t mod 2, as the one-block kernel's
+// shared slots), and ONE grid barrier a wave-step (grid_sync,
+// cooperative_groups' grid sync) orders every write of
+// wave-step s before every read of wave-step s + 1.  A wave-step begins by
+// staging, with every thread of the block, the newest slot of every layer
+// (L, bmp, H4) and x_s (bmp, P4, widened to f32) into shared memory, all
+// loads in flight at once (read one lane at a time from L2, the sums
+// waited on the latency of each group); then a block barrier, and the
+// sums read shared memory as the shared home's do.  Each gate sum runs in
+// one lane in lstm_gates.cuh's canonical order, on the same f32 values as
+// the one-block kernels, so the results are the shared home's to the bit
+// at any shape both can run (and the backward's recompute, lstm_seq_bwd.cu's
+// split kernel, is this kernel's).  The tile's rows go through the sums RG
+// at a time (1 for a one-row tile, else 4; the tile padded to bmp, a
+// multiple of RG, in the buffers; rows past B read zero x and are never
+// written out).  c of the block's units lives in shared memory, written
+// and read by the unit's gate-0 lane only.
+
+// Dynamic shared memory of one split block in bytes, the kernel's layout:
+// the column slice (L, KG, 4U, 4) of wb-byte weights, the staged f32 h of
+// every layer (L, bmp, H4) and x (bmp, P4), and the f32 c of its units
+// (L, bmp, U).  kernels/lstm_seq.py:working_set_bytes(n_blocks=G) prices
+// the same terms; a launch with any other smem is refused.
+__host__ __device__ inline long long split_smem_bytes(int L, int P, int H,
+                                                      int rows, int G,
+                                                      int wb) {
+  const long long P4 = (P + 3) / 4 * 4, H4 = (H + 3) / 4 * 4;
+  const long long U = H / G;
+  const int rg = rows == 1 ? 1 : 4;
+  const long long bmp = (rows + rg - 1) / rg * rg;
+  return L * (P4 + H4) * 4 * U * wb + 4 * (L * bmp * H4 + bmp * P4) +
+         L * bmp * U * 4;
+}
+
+// Most threads a split block launches with (128 registers a thread): the
+// host's SPLIT_MAX_THREADS.
+constexpr int kSplitThreads = 512;
+
+// Warps a layer of a split block gives each 8 of its units: as many row
+// groups of the tile as the block's kSplitThreads allow (the host's
+// split_row_warps).
+__host__ __device__ inline int split_row_warps(int L, int H, int G,
+                                               int rows) {
+  const int rg = rows == 1 ? 1 : 4;
+  const int groups = (rows + rg - 1) / rg;
+  const int base = L * ((H / G + kUnitsPerWarp - 1) / kUnitsPerWarp);
+  return max(1, min(groups, kSplitThreads / (32 * base)));
+}
+
+template <int RG, bool TRAJ, typename WT, typename IO>
+__global__ void __launch_bounds__(kSplitThreads, 1) lstm_seq_split_kernel(
+    const WT* __restrict__ w, const float* __restrict__ scales,
+    const BiasT<WT>* __restrict__ b, const IO* __restrict__ x,
+    IO* __restrict__ c_out, IO* __restrict__ h_out,
+    float* __restrict__ c_traj, float* __restrict__ h_traj, float* hx,
+    int B, int T, int L, int P, int H, int bm,
+    long long x_stride_b, long long x_stride_t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kQ8 = sizeof(WT) == 1;
+  using ST = typename std::conditional<kQ8, uint8_t, WT>::type;
+  const int G4 = 4 * H;
+  const int U = H / gridDim.x;          // units a block owns
+  const int j0 = blockIdx.x * U;        // its first unit
+  const int SU = 4 * U;                 // its gate columns
+  const int K = P + H;
+  const int P4 = (P + 3) / 4 * 4;
+  const int H4 = (H + 3) / 4 * 4;
+  const int KG = (P4 + H4) / 4;
+  const int bmp = (bm + RG - 1) / RG * RG;
+  ST* w_s = reinterpret_cast<ST*>(smem);                 // (L, KG, SU, 4)
+  float* hs = reinterpret_cast<float*>(smem + (size_t)L * KG * SU * 4 *
+                                                  sizeof(ST));  // (L, bmp, H4)
+  float* xs = hs + (size_t)L * bmp * H4;                 // (bmp, P4)
+  float* c_s = xs + (size_t)bmp * P4;                    // (L, bmp, U)
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int lane = tid & 31;
+  const int wpl = (U + kUnitsPerWarp - 1) / kUnitsPerWarp;  // warps of units
+  const int rw = nt / (32 * L * wpl);                       // row warps
+  const int warp = tid >> 5;
+  const int layer = warp / (wpl * rw);
+  const int wr = warp % (wpl * rw);
+  const int unit = (wr % wpl) * kUnitsPerWarp + (lane >> 2);
+  const int rwi = wr / wpl;  // the warp's first row group
+  const int g = lane & 3;
+  // lanes past U repeat unit U-1 and write nothing
+  const bool owner = unit < U;
+  const int u = min(unit, U - 1);
+  const int col = g * H + j0 + u;  // the lane's gate column of the stack
+  const int pc = u * 4 + g;        // where it sits in a shared row
+  const int quad = lane & ~3;
+  const bool is_tanh = g == 2;
+  const int row0 = blockIdx.y * bm;
+  const int rows = min(bm, B - row0);
+  const float bias = lstm_gates::to_f32(b[layer * G4 + col]);
+  const float scale = kQ8 ? scales[layer * G4 + col] : 1.0f;
+
+  // The block's columns into its slice; c and both h slots of its units
+  // zero (slot 1 is h_{-1} of every layer).
+  for (int i = tid; i < L * K * SU; i += nt) {
+    const int row = i / SU;
+    const int cl = i - row * SU;
+    const int l = row / K;
+    const int q = row - l * K;
+    const int qs = q < P ? q : q - P;
+    const int grp = (q < P ? 0 : P4 / 4) + qs / 4;
+    const WT v = w[((size_t)l * K + q) * G4 + (cl & 3) * H + j0 + (cl >> 2)];
+    ST* dst = w_s + (((size_t)l * KG + grp) * SU + cl) * 4 + qs % 4;
+    if constexpr (kQ8)
+      *dst = static_cast<uint8_t>(v + 128);
+    else
+      *dst = v;
+  }
+  for (int i = tid; i < L * bmp * U; i += nt) c_s[i] = 0.0f;
+  const size_t slot = (size_t)bmp * H4;                     // one (bmp, H4)
+  float* hx_t = hx + (size_t)blockIdx.y * L * 2 * slot;    // (L, 2, bmp, H4)
+  for (int i = tid; i < L * 2 * bmp * U; i += nt)
+    hx_t[(size_t)(i / U) * H4 + j0 + i % U] = 0.0f;
+  lstm_gates::grid_sync();
+
+  const ST* w_in = w_s + ((size_t)layer * KG * SU + pc) * 4;
+  const ST* w_rec = w_s + (((size_t)layer * KG + P4 / 4) * SU + pc) * 4;
+  float* c_l = c_s + (size_t)layer * bmp * U;
+  const float* h_own = hs + (size_t)layer * slot;
+  const float* h_below = hs + (size_t)(layer - 1) * slot;
+  const long long traj_step = (long long)L * B * H;
+  for (int s = 0; s < T + L - 1; ++s) {
+    // stage layer l's newest h (h_l[s - 1 - l], slot (s - 1 - l) mod 2:
+    // layer l's own h_{t-1} and layer l + 1's input) and x_s
+    for (int i = tid; i < L * bmp * H4 / 4; i += nt) {
+      const int l = i / (bmp * H4 / 4);
+      const size_t e = (size_t)(i - l * (bmp * H4 / 4)) * 4;
+      const float4 v = lstm_gates::load4_cg(
+          hx_t + ((size_t)l * 2 + ((s - 1 - l) & 1)) * slot + e);
+      *reinterpret_cast<float4*>(hs + (size_t)l * slot + e) = v;
+    }
+    if (s < T) {
+      for (int i = tid; i < bmp * P4; i += nt) {
+        const int r = i / P4, q = i - r * P4;
+        xs[i] = r < rows && q < P
+                    ? lstm_gates::to_f32(x[(long long)(row0 + r) * x_stride_b +
+                                           (long long)s * x_stride_t + q])
+                    : 0.0f;
+      }
+    }
+    __syncthreads();
+    const int t = s - layer;
+    if (t >= 0 && t < T) {  // uniform over the warp: a warp is one layer
+      float* h_next = hx_t + ((size_t)layer * 2 + (t & 1)) * slot;
+      for (int r0 = rwi * RG; r0 < bmp; r0 += rw * RG) {
+        float rec[RG], in[RG];
+        shared_segment<RG>(rec, w_rec, SU, h_own, H4, H, r0);
+        if (layer == 0)
+          shared_segment<RG>(in, w_in, SU, xs, P4, P, r0);
+        else
+          shared_segment<RG>(in, w_in, SU, h_below, H4, H, r0);
+#pragma unroll
+        for (int r = 0; r < RG; ++r) {
+          const float a = lstm_gates::activate(
+              lstm_gates::preact<WT>(in[r], rec[r], bias, scale), is_tanh);
+          const float ig = __shfl_sync(0xffffffffu, a, quad);
+          const float fg = __shfl_sync(0xffffffffu, a, quad + 1);
+          const float gg = __shfl_sync(0xffffffffu, a, quad + 2);
+          const float og = __shfl_sync(0xffffffffu, a, quad + 3);
+          const int rr = r0 + r;
+          if (owner && g == 0) {
+            float* cp = c_l + (size_t)rr * U + u;
+            const float cn = fmaf(fg, *cp, ig * gg);
+            const float hn = og * lstm_gates::tanh_sig(cn);
+            *cp = cn;
+            h_next[(size_t)rr * H4 + j0 + u] = hn;
+            if (rr < rows) {
+              const long long o =
+                  ((long long)layer * B + row0 + rr) * H + j0 + u;
+              if (TRAJ) {
+                c_traj[o + t * traj_step] = cn;
+                h_traj[o + t * traj_step] = hn;
+              }
+              if (t == T - 1) {
+                c_out[o] = lstm_gates::to_io<IO>(cn);
+                h_out[o] = lstm_gates::to_io<IO>(hn);
+              }
+            }
+          }
+        }
+      }
+    }
+    lstm_gates::grid_sync();
+  }
+}
+
+// One cooperative launch of the split instance: every block of the (G,
+// tiles) grid resident at once, or the launch is refused
+// (cudaErrorCooperativeLaunchTooLarge) and nothing runs.
+template <int RG, bool TRAJ, typename WT, typename IO>
+int launch_split_inst(const WT* w, const float* scales, const BiasT<WT>* b,
+                      const IO* x, IO* c_out, IO* h_out, float* c_traj,
+                      float* h_traj, float* hx, int B, int T, int L,
+                      int P, int H, long long x_stride_b,
+                      long long x_stride_t, int block_b, int G, int threads,
+                      long long smem_bytes, cudaStream_t stream) {
+  static long long configured = 48 * 1024;
+  if (smem_bytes > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lstm_seq_split_kernel<RG, TRAJ, WT, IO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem_bytes;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G, (B + block_b - 1) / block_b);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, lstm_seq_split_kernel<RG, TRAJ, WT, IO>, w, scales, b, x, c_out,
+      h_out, c_traj, h_traj, hx, B, T, L, P, H, block_b, x_stride_b,
+      x_stride_t);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The split launch's checks and instance: G >= 2 dividing H, the layers'
+// warps of H / G units, the table's shared memory; RG 1 for a one-row
+// tile, else 4.
+template <typename WT, typename IO>
+int launch_split(const WT* w, const float* scales, const BiasT<WT>* b,
+                 const IO* x, IO* c_out, IO* h_out, float* c_traj,
+                 float* h_traj, float* hx, int B, int T, int L, int P,
+                 int H, long long x_stride_b, long long x_stride_t,
+                 int block_b, int G, int threads, long long smem_bytes,
+                 void* stream) {
+  if (G < 2 || H % G != 0 || block_b < 1 ||
+      threads != L * ((H / G + kUnitsPerWarp - 1) / kUnitsPerWarp) *
+                     split_row_warps(L, H, G, block_b) * 32 ||
+      threads > kSplitThreads ||
+      smem_bytes != split_smem_bytes(L, P, H, block_b, G, (int)sizeof(WT)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define LSTM_SEQ_SPLIT(RG, TRAJ)                                              \
+  return launch_split_inst<RG, TRAJ, WT, IO>(                                 \
+      w, scales, b, x, c_out, h_out, c_traj, h_traj, hx, B, T, L, P, H,      \
+      x_stride_b, x_stride_t, block_b, G, threads, smem_bytes, st)
+  if (block_b == 1) {
+    if (c_traj != nullptr) LSTM_SEQ_SPLIT(1, true);
+    LSTM_SEQ_SPLIT(1, false);
+  }
+  if (c_traj != nullptr) LSTM_SEQ_SPLIT(4, true);
+  LSTM_SEQ_SPLIT(4, false);
+#undef LSTM_SEQ_SPLIT
 }
 
 }  // namespace
@@ -646,6 +922,73 @@ int lstm_seq_fwd_q8_bf16(const int8_t* wq, const float* scales,
 long long lstm_seq_fwd_smem_bytes(int T, int L, int P, int H, int block_b,
                                   int tc, int reg, int wb, int iob) {
   return fwd_smem_bytes(T, L, P, H, block_b, tc, reg != 0, wb, iob);
+}
+
+// The split home (kernels/lstm_seq.py weight_home "split"): one
+// cooperative launch of G = n_blocks blocks a tile of block_b rows (any
+// number), grid (G, ceil(B / block_b)), every block resident at once; G
+// divides H and block j of a tile owns units [j H/G, (j+1) H/G) of every
+// layer.  hx is the h exchange, ceil(B / block_b) x L x 2 x bmp x H4 f32
+// (bmp: block_b rounded up to 1 or 4, H4: H rounded up to 4), 16-byte
+// aligned, written and read within the launch.  threads = L x ceil(H /
+// G / 8) x split_row_warps warps (the host's split_threads); smem_bytes is
+// working_set_bytes(n_blocks=G) (lstm_seq_split_smem_bytes).  Operands,
+// dtypes and outputs as lstm_seq_fwd_*: c_traj/h_traj null or the f32
+// trajectories.  Returns cudaErrorInvalidValue for another split, thread
+// count or shared memory, and the launch's error when the card cannot hold
+// every block at once.
+int lstm_seq_split_f32(const float* w, const float* b, const float* x,
+                       float* c_out, float* h_out, float* c_traj,
+                       float* h_traj, float* hx, int B, int T,
+                       int L, int P, int H, long long x_stride_b,
+                       long long x_stride_t, int block_b, int n_blocks,
+                       int threads, long long smem_bytes, void* stream) {
+  return launch_split<float, float>(
+      w, nullptr, b, x, c_out, h_out, c_traj, h_traj, hx, B, T, L, P, H,
+      x_stride_b, x_stride_t, block_b, n_blocks, threads, smem_bytes, stream);
+}
+
+int lstm_seq_split_bf16(const __nv_bfloat16* w, const __nv_bfloat16* b,
+                        const __nv_bfloat16* x, __nv_bfloat16* c_out,
+                        __nv_bfloat16* h_out, float* c_traj, float* h_traj,
+                        float* hx, int B, int T, int L, int P,
+                        int H, long long x_stride_b, long long x_stride_t,
+                        int block_b, int n_blocks, int threads,
+                        long long smem_bytes, void* stream) {
+  return launch_split<__nv_bfloat16, __nv_bfloat16>(
+      w, nullptr, b, x, c_out, h_out, c_traj, h_traj, hx, B, T, L, P, H,
+      x_stride_b, x_stride_t, block_b, n_blocks, threads, smem_bytes, stream);
+}
+
+int lstm_seq_split_q8(const int8_t* wq, const float* scales, const float* b,
+                      const float* x, float* c_out, float* h_out,
+                      float* c_traj, float* h_traj, float* hx,
+                      int B, int T, int L, int P, int H, long long x_stride_b,
+                      long long x_stride_t, int block_b, int n_blocks,
+                      int threads, long long smem_bytes, void* stream) {
+  return launch_split<int8_t, float>(
+      wq, scales, b, x, c_out, h_out, c_traj, h_traj, hx, B, T, L, P, H,
+      x_stride_b, x_stride_t, block_b, n_blocks, threads, smem_bytes, stream);
+}
+
+int lstm_seq_split_q8_bf16(const int8_t* wq, const float* scales,
+                           const float* b, const __nv_bfloat16* x,
+                           __nv_bfloat16* c_out, __nv_bfloat16* h_out,
+                           float* c_traj, float* h_traj, float* hx,
+                           int B, int T, int L, int P, int H,
+                           long long x_stride_b, long long x_stride_t,
+                           int block_b, int n_blocks, int threads,
+                           long long smem_bytes, void* stream) {
+  return launch_split<int8_t, __nv_bfloat16>(
+      wq, scales, b, x, c_out, h_out, c_traj, h_traj, hx, B, T, L, P, H,
+      x_stride_b, x_stride_t, block_b, n_blocks, threads, smem_bytes, stream);
+}
+
+// split_smem_bytes of a split launch of block_b rows over G blocks, wb the
+// bytes of a weight: what kernels/lstm_seq.py's table is held to.
+long long lstm_seq_split_smem_bytes(int L, int P, int H, int block_b, int G,
+                                    int wb) {
+  return split_smem_bytes(L, P, H, block_b, G, wb);
 }
 
 const char* lstm_seq_error_string(int err) {

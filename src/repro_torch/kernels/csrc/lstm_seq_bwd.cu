@@ -46,7 +46,9 @@
 // gate recompute reads only the trajectories, and dW and db feed nothing
 // until the end.
 //
-// Two weight homes, as in the forward (the host's weight_home):
+// Two one-block weight homes, as in the forward (the host's weight_home;
+// its third, the split home over co-resident blocks, is the kernel at the
+// end of this file):
 //
 // Register home (lstm_seq_bwd_wave_kernel: H = P = 32, at most 2 layers,
 // one row a block -- the paper's width trained at batch 64): a layer
@@ -953,6 +955,460 @@ int launch_tile(const WT* w, const float* scales, const GradT<WT>* b,
 #undef LSTM_SEQ_BWD_LAUNCH
 }
 
+// ---------------------------------------------------------------------------
+// The split home: the reverse sweep over G co-resident blocks.
+// ---------------------------------------------------------------------------
+// Where the stack and its f32 dW fit no block (lstm_seq.cu's split
+// forward), one cooperative launch of grid (G, tiles) runs the sweep as a
+// reverse layer wavefront: in wave-step s layer l unwinds step t = T - 1 -
+// s + (L - 1 - l).  Block j of a tile owns the units [j H/G, (j+1) H/G)
+// of every layer, i.e. 4U gate columns (local column c = g U + u), and
+// holds their rows of the stack (L, P+H, 4U; each row padded by one word),
+// their f32 dW and db, their activations and gate gradients and the dc
+// carry of their units.  A wave-step is three phases and ONE grid barrier:
+//  (1) recompute the forward's gates of its columns from the trajectories
+//      (and x), in lstm_gates.cuh's canonical order, four lanes a (row,
+//      column) as the one-block backward's parts, a warp's loads of a
+//      row's inputs one sector: the forward's activations to the bit;
+//  (2) for each of its units and the tile's rows, the incoming dh: the dh
+//      carry (dhf at t = T - 1) plus, below the top layer, the input
+//      gradient of the layer above, each the sum of the G blocks' partials
+//      of the previous wave-step, in block order; then the gate gradients
+//      and the dc carry (_unwind_step), zero past the batch; and the sum
+//      of layer 0's dx partials of the previous wave-step, its columns q
+//      = j, j + G, ...;
+//  (3) dW += [inp | h_prev]^T dg and db += sum dg for its columns (f32,
+//      in shared memory; a lane a row of W, its inputs loaded once for 16
+//      columns), and its partial of every row of W's products, sum over
+//      its columns c of dg[r][c] W[q][c] (dg * s for int8; a lane a row q,
+//      its 16 weights in registers for every tile row), to
+//      (2, tiles, G, L, bmp, P+H) f32 partials in device memory, slot s
+//      mod 2: rows q >= P the dh carry, q < P the layer-below input
+//      gradient (dx at layer 0).
+// Then the grid barrier; the two slots keep a wave-step's reads of slot
+// s - 1 apart from its writes of slot s, so one barrier a wave-step orders
+// everything.  No atomics: every sum runs in a fixed order, so the
+// gradients are the same bits run to run (not the shared home's: its
+// products sum the 4H columns of a row in another order).  One extra
+// wave-step sums layer 0's last dx.  After the sweep each block writes its
+// columns of dw and db; for several tiles it writes its tile's f32 partial
+// instead, and after one more barrier block (j, y) sums the tiles, in tile
+// order, of rows (l, q) with (l (P+H+1) + q) mod tiles = y of its columns.
+// Where the time goes (python -m repro_torch.obs.stamps --kernel
+// lstm_seq_bwd_split, an H100 80GB HBM3 at 700 W): at 3 x 256, B = 64,
+// about 80 us a wave-step in (1), 20 in (2) and 90 in (3) with the
+// barrier; each phase waits on loads from device memory that no shared
+// memory is left to stage (the stack and its f32 dW fill the block).
+
+// Dynamic shared memory of one split block of the backward in bytes, the
+// kernel's layout: f32 dW (L, K, 4U), db, bias (and scales) (L, 4U), the
+// activations, dg (and dg * s) (L, bmp, 4U) and dc (L, bmp, U), then the
+// weights (L, K, 4U + 4 / wb) of wb bytes.  kernels/lstm_seq.py:
+// working_set_bytes(mode="bwd", n_blocks=G) prices the same terms.
+__host__ __device__ inline long long split_bwd_smem_bytes(int L, int P, int H,
+                                                          int rows, int G,
+                                                          int wb) {
+  const long long K = P + H, SU = 4LL * (H / G), U = H / G;
+  const int rg = rows == 1 ? 1 : 4;
+  const long long bmp = (rows + rg - 1) / rg * rg;
+  const bool q8 = wb == 1;
+  const long long floats = L * K * SU + L * SU * (q8 ? 3 : 2) +
+                           L * bmp * SU * (q8 ? 3 : 2) + L * bmp * U;
+  return 4 * floats + L * K * (SU * wb + 4);
+}
+
+// One lane's share of a gate sum in the split backward's recompute: lane p
+// of the four of a column sums v[q] w[q * SW] over the reduction rows q =
+// p, p + 4, ... < n in ascending order from 0, as fmaf (accumulator p of
+// lstm_gates.cuh's canonical order), its loads of v (a row of n inputs of
+// unit stride, zero when !valid) NA at a time ahead of the multiply-adds.
+template <int NA, typename V, typename WT>
+__device__ __forceinline__ float quad_sum(const V* v, bool valid, int n,
+                                          const WT* w, int SW, int p) {
+  float acc = 0.0f;
+  for (int q0 = p; q0 < n; q0 += 4 * NA) {
+    float xv[NA];
+#pragma unroll
+    for (int k = 0; k < NA; ++k)
+      xv[k] = valid && q0 + 4 * k < n ? lstm_gates::to_f32(v[q0 + 4 * k])
+                                      : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NA; ++k)
+      if (q0 + 4 * k < n)
+        acc = fmaf(xv[k], lstm_gates::to_f32(w[(size_t)(q0 + 4 * k) * SW]),
+                   acc);
+  }
+  return acc;
+}
+
+template <int RG, typename WT, typename IO>
+__global__ void __launch_bounds__(512, 1) lstm_seq_bwd_split_kernel(
+    const WT* __restrict__ w, const float* __restrict__ scales,
+    const GradT<WT>* __restrict__ b, const IO* __restrict__ x,
+    const float* __restrict__ c_traj, const float* __restrict__ h_traj,
+    const IO* __restrict__ dcf, const IO* __restrict__ dhf,
+    GradT<WT>* __restrict__ dw, GradT<WT>* __restrict__ db,
+    IO* __restrict__ dx, float* part, float* tile_part, int B,
+    int T, int L, int P, int H, int bm, long long x_stride_b,
+    long long x_stride_t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kQ8 = sizeof(WT) == 1;
+  const int G = gridDim.x;
+  const int U = H / G;
+  const int j0 = blockIdx.x * U;
+  const int SU = 4 * U;
+  const int SW = SU + 4 / (int)sizeof(WT);  // weight row stride (elements)
+  const int K = P + H;
+  const int G4 = 4 * H;
+  const int bmp = (bm + RG - 1) / RG * RG;
+  const int tiles = gridDim.y;
+  const int tile = blockIdx.y;
+  float* dw_s = reinterpret_cast<float*>(smem);     // (L, K, SU)
+  float* db_s = dw_s + (size_t)L * K * SU;          // (L, SU)
+  float* b_s = db_s + (size_t)L * SU;               // (L, SU)
+  float* s_s = b_s + (size_t)L * SU;                // (L, SU), int8 only
+  float* act = s_s + (kQ8 ? (size_t)L * SU : 0);    // (L, bmp, SU)
+  float* dg_s = act + (size_t)L * bmp * SU;         // (L, bmp, SU)
+  float* dgs_s = dg_s + (size_t)L * bmp * SU;       // (L, bmp, SU), int8
+  float* dc_s = dgs_s + (kQ8 ? (size_t)L * bmp * SU : 0);  // (L, bmp, U)
+  WT* w_s = reinterpret_cast<WT*>(dc_s + (size_t)L * bmp * U);  // (L, K, SW)
+  const float* dprod = kQ8 ? dgs_s : dg_s;
+  // the recompute's (row, column) items and the inputs a lane loads ahead
+  // of its multiply-adds; the columns an item of dW sums and the tile rows
+  // it loads ahead
+  const int n_quads = L * bmp * SU;
+  constexpr int kAhead = 8;
+  constexpr int DW = 16;
+  constexpr int kAheadDW = 8;
+  constexpr int kProd = 16;  // W's columns a products item holds at once
+  const int ndw = (SU + DW - 1) / DW;
+
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const int row0 = tile * bm;
+  const int rows = min(bm, B - row0);
+  // the stack's column of local column c
+  auto gcol = [&](int c) { return (c / U) * H + j0 + c % U; };
+
+  for (int i = tid; i < L * K * SU; i += nt) {
+    const int lq = i / SU, c = i - lq * SU;
+    w_s[(size_t)lq * SW + c] = w[(size_t)lq * G4 + gcol(c)];
+    dw_s[i] = 0.0f;
+  }
+  for (int i = tid; i < L * SU; i += nt) {
+    const int l = i / SU, c = i - l * SU;
+    b_s[i] = lstm_gates::to_f32(b[l * G4 + gcol(c)]);
+    if (kQ8) s_s[i] = scales[l * G4 + gcol(c)];
+    db_s[i] = 0.0f;
+  }
+  for (int i = tid; i < L * bmp * U; i += nt) {
+    const int l = i / (bmp * U), r = (i / U) % bmp, u = i % U;
+    dc_s[i] = r < rows ? lstm_gates::to_f32(
+                             dcf[((long long)l * B + row0 + r) * H + j0 + u])
+                       : 0.0f;
+  }
+  __syncthreads();
+
+  // (t, l, row r of the tile, unit k) of the (T, L, B, H) trajectories
+  auto traj = [&](const float* tr, int t, int l, int r, int k) {
+    return tr[(((long long)t * L + l) * B + row0 + r) * H + k];
+  };
+  // the partials of block k, layer l, tile row r in slot sl: (K) floats
+  auto part_row = [&](int sl, int k, int l, int r) {
+    return part + ((((size_t)sl * tiles + tile) * G + k) * L + l) *
+                      (size_t)bmp * K + (size_t)r * K;
+  };
+  // the layer's input (x, or the layer below's h_t) and its own h_{t-1} of
+  // tile row r at reduction row q, zero past the batch and before t = 0
+  auto inp_v = [&](int l, int t, int r, int q) -> float {
+    if (r >= rows) return 0.0f;
+    if (l == 0)
+      return lstm_gates::to_f32(x[(long long)(row0 + r) * x_stride_b +
+                                  (long long)t * x_stride_t + q]);
+    return traj(h_traj, t, l - 1, r, q);
+  };
+  auto hprev_v = [&](int l, int t, int r, int q) -> float {
+    return r < rows && t > 0 ? traj(h_traj, t - 1, l, r, q) : 0.0f;
+  };
+
+  for (int s = 0; s <= T + L - 1; ++s) {
+    const int cur = s & 1, prev = cur ^ 1;
+    // (1) the forward's gates of the block's columns, canonical order:
+    // four lanes a (row, column), lane p summing the reduction rows q = p,
+    // p + 4, ... (quad_sum), the four combined by shuffles as
+    // lstm_gates::combine<1, 4>; a warp is 8 columns of one row, so each
+    // of its loads of the row's inputs is one sector.  The loop is
+    // warp-uniform (the shuffles need every lane); lanes past the items
+    // or on a layer idle this wave-step compute zeros and write nothing.
+    for (int base = tid & ~31; base < n_quads * 4; base += nt) {
+      const int i = base + (tid & 31);
+      const int p = i & 3;
+      const int c = (i >> 2) % SU;
+      const int r = (i >> 2) / SU % bmp;
+      const int l = min((i >> 2) / (SU * bmp), L - 1);
+      const int t = T - 1 - s + (L - 1 - l);
+      const bool live = i < n_quads * 4 && t >= 0 && t < T;
+      const bool ok = live && r < rows;
+      const int tt = live ? t : 0;  // a step that exists, for the pointers
+      const WT* wl = w_s + (size_t)l * K * SW + c;
+      float in_s = l == 0
+          ? quad_sum<kAhead>(x + (long long)(row0 + r) * x_stride_b +
+                                 (long long)tt * x_stride_t,
+                             ok, P, wl, SW, p)
+          : quad_sum<kAhead>(
+                h_traj + (((long long)tt * L + l - 1) * B + row0 + r) * H,
+                ok, H, wl, SW, p);
+      float rec_s = quad_sum<kAhead>(
+          h_traj + (((long long)(tt > 0 ? tt - 1 : 0) * L + l) * B + row0 +
+                    r) * H,
+          ok && tt > 0, H, wl + (size_t)P * SW, SW, p);
+      in_s += __shfl_xor_sync(0xffffffffu, in_s, 1);
+      in_s += __shfl_xor_sync(0xffffffffu, in_s, 2);
+      rec_s += __shfl_xor_sync(0xffffffffu, rec_s, 1);
+      rec_s += __shfl_xor_sync(0xffffffffu, rec_s, 2);
+      if (live && p == 0)
+        act[((size_t)l * bmp + r) * SU + c] = lstm_gates::activate(
+            lstm_gates::preact<WT>(in_s, rec_s, b_s[l * SU + c],
+                                   kQ8 ? s_s[l * SU + c] : 1.0f),
+            c / U == 2);
+    }
+    __syncthreads();
+    // (2) the incoming dh of the block's units, the gate gradients and the
+    // dc carry; and layer 0's dx of the previous wave-step
+    for (int i = tid; i < L * bmp * U; i += nt) {
+      const int u = i % U;
+      const int r = (i / U) % bmp;
+      const int l = i / (U * bmp);
+      const int t = T - 1 - s + (L - 1 - l);
+      if (t < 0 || t >= T) continue;
+      const int k = j0 + u;
+      float dhc = 0.0f, dinp = 0.0f;
+      if (t == T - 1) {
+        if (r < rows)
+          dhc = lstm_gates::to_f32(dhf[((long long)l * B + row0 + r) * H + k]);
+      } else {
+        dhc = lstm_gates::load_cg(part_row(prev, 0, l, r) + P + k);
+#pragma unroll 8
+        for (int blk = 1; blk < G; ++blk)
+          dhc += lstm_gates::load_cg(part_row(prev, blk, l, r) + P + k);
+      }
+      if (l + 1 < L) {
+        dinp = lstm_gates::load_cg(part_row(prev, 0, l + 1, r) + k);
+#pragma unroll 8
+        for (int blk = 1; blk < G; ++blk)
+          dinp += lstm_gates::load_cg(part_row(prev, blk, l + 1, r) + k);
+      }
+      const float* a = act + ((size_t)l * bmp + r) * SU + u;
+      const float si = a[0], sf = a[U], tg = a[2 * U], so = a[3 * U];
+      const bool ok = r < rows;
+      const float cn = ok ? traj(c_traj, t, l, r, k) : 0.0f;
+      const float cp = ok && t > 0 ? traj(c_traj, t - 1, l, r, k) : 0.0f;
+      const float tcn = tanhf(cn);
+      const float dhv = dhc + (l + 1 < L ? dinp : 0.0f);
+      float* dcp = dc_s + ((size_t)l * bmp + r) * U + u;
+      const float dcv = *dcp + dhv * so * (1.0f - tcn * tcn);
+      float* dgr = dg_s + ((size_t)l * bmp + r) * SU + u;
+      dgr[0] = ok ? dcv * tg * si * (1.0f - si) : 0.0f;
+      dgr[U] = ok ? dcv * cp * sf * (1.0f - sf) : 0.0f;
+      dgr[2 * U] = ok ? dcv * si * (1.0f - tg * tg) : 0.0f;
+      dgr[3 * U] = ok ? dhv * tcn * so * (1.0f - so) : 0.0f;
+      if (kQ8) {
+        float* dsr = dgs_s + ((size_t)l * bmp + r) * SU + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          dsr[g * U] = dgr[g * U] * s_s[l * SU + g * U + u];
+      }
+      *dcp = dcv * sf;
+    }
+    {
+      const int t0 = T - s + (L - 1);  // layer 0's step of wave-step s - 1
+      if (s > 0 && t0 >= 0 && t0 < T) {
+        const int nq = (P - blockIdx.x + G - 1) / G;  // q = j, j + G, ...
+        for (int i = tid; i < rows * nq; i += nt) {
+          const int r = i / nq;
+          const int q = blockIdx.x + (i % nq) * G;
+          float sum = lstm_gates::load_cg(part_row(prev, 0, 0, r) + q);
+#pragma unroll 8
+          for (int blk = 1; blk < G; ++blk)
+            sum += lstm_gates::load_cg(part_row(prev, blk, 0, r) + q);
+          dx[((long long)(row0 + r) * T + t0) * P + q] =
+              lstm_gates::to_io<IO>(sum);
+        }
+      }
+    }
+    __syncthreads();
+    // (3) dW and db of the block's columns (row K of a layer: db), an item
+    // one row of W and DW columns, whose inputs it loads once; then its
+    // partial of every row of the products
+    for (int i = tid; i < L * (K + 1) * ndw; i += nt) {
+      const int c0 = (i % ndw) * DW;
+      const int q = (i / ndw) % (K + 1);
+      const int l = i / (ndw * (K + 1));
+      const int t = T - 1 - s + (L - 1 - l);
+      const int in_w = l == 0 ? P : H;
+      if (t < 0 || t >= T || (q >= in_w && q < P)) continue;
+      const float* dgl = dg_s + (size_t)l * bmp * SU + c0;
+      float sum[DW];
+#pragma unroll
+      for (int cc = 0; cc < DW; ++cc) sum[cc] = 0.0f;
+      if (q == K) {
+        for (int r = 0; r < bmp; ++r)
+#pragma unroll
+          for (int cc = 0; cc < DW; ++cc)
+            if (c0 + cc < SU) sum[cc] += dgl[(size_t)r * SU + cc];
+      } else {
+        for (int r0 = 0; r0 < bmp; r0 += kAheadDW) {
+          float v[kAheadDW];
+#pragma unroll
+          for (int k = 0; k < kAheadDW; ++k)
+            v[k] = r0 + k >= bmp ? 0.0f
+                   : q < P     ? inp_v(l, t, r0 + k, q)
+                               : hprev_v(l, t, r0 + k, q - P);
+#pragma unroll
+          for (int k = 0; k < kAheadDW; ++k)
+            if (r0 + k < bmp)
+#pragma unroll
+              for (int cc = 0; cc < DW; ++cc)
+                if (c0 + cc < SU)
+                  sum[cc] = fmaf(v[k], dgl[(size_t)(r0 + k) * SU + cc],
+                                 sum[cc]);
+        }
+      }
+      float* dst = q == K ? db_s + l * SU + c0
+                          : dw_s + ((size_t)l * K + q) * SU + c0;
+#pragma unroll
+      for (int cc = 0; cc < DW; ++cc)
+        if (c0 + cc < SU) dst[cc] += sum[cc];
+    }
+    // the products: an item is one row q of W, kProd of its columns in
+    // registers at a time, for every row of the tile
+    for (int i = tid; i < L * K; i += nt) {
+      const int q = i % K;
+      const int l = i / K;
+      const int t = T - 1 - s + (L - 1 - l);
+      if (t < 0 || t >= T || (l > 0 && q >= H && q < P)) continue;
+      const WT* wq = w_s + ((size_t)l * K + q) * SW;
+      for (int c0 = 0; c0 < SU; c0 += kProd) {
+        float wv[kProd];
+#pragma unroll
+        for (int cc = 0; cc < kProd; ++cc)
+          wv[cc] = c0 + cc < SU ? lstm_gates::to_f32(wq[c0 + cc]) : 0.0f;
+        for (int r = 0; r < bmp; ++r) {
+          const float* d = dprod + ((size_t)l * bmp + r) * SU + c0;
+          float* out = part_row(cur, blockIdx.x, l, r) + q;
+          float sum = c0 == 0 ? 0.0f : *out;
+#pragma unroll
+          for (int cc = 0; cc < kProd; ++cc)
+            if (c0 + cc < SU) sum = fmaf(d[cc], wv[cc], sum);
+          *out = sum;
+        }
+      }
+    }
+    lstm_gates::grid_sync();
+  }
+
+  // dW and db of the block's columns: straight out for one tile, else this
+  // tile's partial, then the fixed-order sum over tiles
+  const int KB = K + 1;  // a layer's dW rows, then its db row
+  auto grad_s = [&](int l, int q, int c) {
+    return q < K ? dw_s[((size_t)l * K + q) * SU + c] : db_s[l * SU + c];
+  };
+  if (tiles == 1) {
+    for (int i = tid; i < L * KB * SU; i += nt) {
+      const int c = i % SU, q = (i / SU) % KB, l = i / (SU * KB);
+      const GradT<WT> v = lstm_gates::to_io<GradT<WT>>(grad_s(l, q, c));
+      if (q < K)
+        dw[((size_t)l * K + q) * G4 + gcol(c)] = v;
+      else
+        db[l * G4 + gcol(c)] = v;
+    }
+    return;
+  }
+  for (int i = tid; i < L * KB * SU; i += nt) {
+    const int c = i % SU, lq = i / SU;
+    tile_part[((size_t)tile * L * KB + lq) * G4 + gcol(c)] =
+        grad_s(lq / KB, lq % KB, c);
+  }
+  lstm_gates::grid_sync();
+  for (int i = tid; i < L * KB * SU; i += nt) {
+    const int c = i % SU, lq = i / SU;
+    if (lq % tiles != tile) continue;
+    const size_t o = (size_t)lq * G4 + gcol(c);
+    float sum = lstm_gates::load_cg(tile_part + o);
+    for (int y = 1; y < tiles; ++y)
+      sum += lstm_gates::load_cg(tile_part + (size_t)y * L * KB * G4 + o);
+    const int l = lq / KB, q = lq % KB;
+    const GradT<WT> v = lstm_gates::to_io<GradT<WT>>(sum);
+    if (q < K)
+      dw[((size_t)l * K + q) * G4 + gcol(c)] = v;
+    else
+      db[l * G4 + gcol(c)] = v;
+  }
+}
+
+template <int RG, typename WT, typename IO>
+int launch_split_inst(const WT* w, const float* scales, const GradT<WT>* b,
+                      const IO* x, const float* c_traj, const float* h_traj,
+                      const IO* dc, const IO* dh, GradT<WT>* dw,
+                      GradT<WT>* db, IO* dx, float* part, float* tile_part,
+                      int B, int T, int L, int P, int H,
+                      long long x_stride_b, long long x_stride_t, int block_b,
+                      int G, int threads, long long smem_bytes,
+                      cudaStream_t stream) {
+  static long long configured = 48 * 1024;
+  if (smem_bytes > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        lstm_seq_bwd_split_kernel<RG, WT, IO>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem_bytes;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(G, (B + block_b - 1) / block_b);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, lstm_seq_bwd_split_kernel<RG, WT, IO>, w, scales, b, x, c_traj,
+      h_traj, dc, dh, dw, db, dx, part, tile_part, B, T, L, P, H,
+      block_b, x_stride_b, x_stride_t);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The split launch's checks and instance: G >= 2 dividing H, kSplitThreads
+// threads, the table's shared memory; RG 1 for a one-row tile, else 4.
+constexpr int kSplitThreads = 512;
+
+template <typename WT, typename IO>
+int launch_split(const WT* w, const float* scales, const GradT<WT>* b,
+                 const IO* x, const float* c_traj, const float* h_traj,
+                 const IO* dc, const IO* dh, GradT<WT>* dw, GradT<WT>* db,
+                 IO* dx, float* part, float* tile_part, int B,
+                 int T, int L, int P, int H, long long x_stride_b,
+                 long long x_stride_t, int block_b, int G, int threads,
+                 long long smem_bytes, void* stream) {
+  if (G < 2 || H % G != 0 || block_b < 1 || threads != kSplitThreads ||
+      smem_bytes !=
+          split_bwd_smem_bytes(L, P, H, block_b, G, (int)sizeof(WT)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (block_b == 1)
+    return launch_split_inst<1, WT, IO>(
+        w, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, part, tile_part,
+        B, T, L, P, H, x_stride_b, x_stride_t, block_b, G, threads,
+        smem_bytes, st);
+  return launch_split_inst<4, WT, IO>(
+      w, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, part, tile_part,
+      B, T, L, P, H, x_stride_b, x_stride_t, block_b, G, threads,
+      smem_bytes, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1054,6 +1510,84 @@ long long lstm_seq_bwd_wave_smem_bytes(int L, int wb) {
 long long lstm_seq_bwd_smem_bytes(int T, int L, int P, int H, int block_b,
                                   int tc, int wb) {
   return bwd_smem_bytes(T, L, P, H, block_b, tc, wb);
+}
+
+// The split home (kernels/lstm_seq.py weight_home "split"): one
+// cooperative launch of G = n_blocks blocks a tile of block_b rows, grid
+// (G, ceil(B / block_b)), every block resident at once; G divides H.
+// part holds 2 x tiles x G x L x bmp x (P+H) floats (bmp: block_b rounded
+// up to 1 or 4) and tile_part, for more than one tile, tiles x L x (P+H+1)
+// x 4H, both written and read within the launch.  threads is 512; smem_bytes is working_set_bytes(mode="bwd",
+// n_blocks=G) (lstm_seq_bwd_split_smem_bytes).  Operands, dtypes and
+// outputs as lstm_seq_bwd_* (the trajectories of the split forward or any
+// other: they are the same bits).  Returns cudaErrorInvalidValue for
+// another split, thread count or shared memory, and the launch's error
+// when the card cannot hold every block at once.
+int lstm_seq_bwd_split_f32(const float* w, const float* b, const float* x,
+                           const float* c_traj, const float* h_traj,
+                           const float* dc, const float* dh, float* dw,
+                           float* db, float* dx, float* part,
+                           float* tile_part, int B, int T,
+                           int L, int P, int H, long long x_stride_b,
+                           long long x_stride_t, int block_b, int n_blocks,
+                           int threads, long long smem_bytes, void* stream) {
+  return launch_split<float, float>(
+      w, nullptr, b, x, c_traj, h_traj, dc, dh, dw, db, dx, part, tile_part,
+      B, T, L, P, H, x_stride_b, x_stride_t, block_b, n_blocks, threads,
+      smem_bytes, stream);
+}
+
+int lstm_seq_bwd_split_bf16(const __nv_bfloat16* w, const __nv_bfloat16* b,
+                            const __nv_bfloat16* x, const float* c_traj,
+                            const float* h_traj, const __nv_bfloat16* dc,
+                            const __nv_bfloat16* dh, __nv_bfloat16* dw,
+                            __nv_bfloat16* db, __nv_bfloat16* dx, float* part,
+                            float* tile_part, int B, int T,
+                            int L, int P, int H, long long x_stride_b,
+                            long long x_stride_t, int block_b, int n_blocks,
+                            int threads, long long smem_bytes, void* stream) {
+  return launch_split<__nv_bfloat16, __nv_bfloat16>(
+      w, nullptr, b, x, c_traj, h_traj, dc, dh, dw, db, dx, part, tile_part,
+      B, T, L, P, H, x_stride_b, x_stride_t, block_b, n_blocks, threads,
+      smem_bytes, stream);
+}
+
+int lstm_seq_bwd_split_q8(const int8_t* wq, const float* scales,
+                          const float* b, const float* x, const float* c_traj,
+                          const float* h_traj, const float* dc,
+                          const float* dh, float* dw, float* db, float* dx,
+                          float* part, float* tile_part, int B,
+                          int T, int L, int P, int H, long long x_stride_b,
+                          long long x_stride_t, int block_b, int n_blocks,
+                          int threads, long long smem_bytes, void* stream) {
+  return launch_split<int8_t, float>(
+      wq, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, part, tile_part,
+      B, T, L, P, H, x_stride_b, x_stride_t, block_b, n_blocks, threads,
+      smem_bytes, stream);
+}
+
+int lstm_seq_bwd_split_q8_bf16(const int8_t* wq, const float* scales,
+                               const float* b, const __nv_bfloat16* x,
+                               const float* c_traj, const float* h_traj,
+                               const __nv_bfloat16* dc,
+                               const __nv_bfloat16* dh, float* dw, float* db,
+                               __nv_bfloat16* dx, float* part,
+                               float* tile_part, int B, int T,
+                               int L, int P, int H, long long x_stride_b,
+                               long long x_stride_t, int block_b,
+                               int n_blocks, int threads,
+                               long long smem_bytes, void* stream) {
+  return launch_split<int8_t, __nv_bfloat16>(
+      wq, scales, b, x, c_traj, h_traj, dc, dh, dw, db, dx, part, tile_part,
+      B, T, L, P, H, x_stride_b, x_stride_t, block_b, n_blocks, threads,
+      smem_bytes, stream);
+}
+
+// split_bwd_smem_bytes of a split launch of block_b rows over G blocks, wb
+// the bytes of a weight: what kernels/lstm_seq.py's table is held to.
+long long lstm_seq_bwd_split_smem_bytes(int L, int P, int H, int block_b,
+                                        int G, int wb) {
+  return split_bwd_smem_bytes(L, P, H, block_b, G, wb);
 }
 
 const char* lstm_seq_bwd_error_string(int err) {

@@ -196,12 +196,6 @@ def working_set_bytes(q_block: int, k_block: int, dh: int,
     return ws.total()
 
 
-def blocks_per_sm(smem: int) -> int:
-    """Blocks of ``smem`` bytes of dynamic shared memory an SM holds."""
-    return factorization.H100_SMEM_PER_SM // (
-        smem + factorization.H100_SMEM_RESERVED_PER_BLOCK)
-
-
 def block_budget(q_block: int) -> int:
     """Shared memory one block of ``2 * q_block`` threads may take so that
     ``MIN_WARPS_PER_SM`` warps fit on an SM: the SM's shared memory over
@@ -230,8 +224,9 @@ def choose_blocks(seq_len: int, dh: int, dtype: torch.dtype = F32
     if dtype == torch.bfloat16:
         need = max(TC_K_BLOCKS[-1], 1 << max(seq_len - 1, 0).bit_length())
         for kb in TC_K_BLOCKS:
-            if kb <= need and blocks_per_sm(working_set_bytes(
-                    TC_Q_BLOCK, kb, dh, dtype)) >= TC_MIN_BLOCKS_PER_SM:
+            if kb <= need and factorization.blocks_per_sm(
+                    working_set_bytes(TC_Q_BLOCK, kb, dh, dtype)) \
+                    >= TC_MIN_BLOCKS_PER_SM:
                 return PrefillBlocks(TC_Q_BLOCK, kb)
         return None
     qb = min(MAX_Q_BLOCK, factorization.round_up(max(seq_len, 1), 16))
@@ -297,7 +292,8 @@ def choose_bwd_blocks(seq_len: int, dh: int, dtype: torch.dtype = F32
         sizes = (bwd_working_set_bytes(BWD_DQ_ROWS, tile, dh, dtype, True),
                  bwd_working_set_bytes(BWD_DKV_ROWS, tile, dh, dtype, False))
         if all(b <= factorization.H100_SMEM_PER_BLOCK
-               and blocks_per_sm(b) >= BWD_MIN_BLOCKS_PER_SM for b in sizes):
+               and factorization.blocks_per_sm(b) >= BWD_MIN_BLOCKS_PER_SM
+               for b in sizes):
             return BwdBlocks(BWD_DQ_ROWS, BWD_DKV_ROWS, tile)
     return None
 

@@ -34,8 +34,9 @@ reverse-time sweep of ``kernels/lstm_seq_bwd.py``: a training step is two
 launches at any T.  ``lstm_seq_q8`` takes the f32 MASTER stack and runs
 ``_LstmSeqQ8Fn``, which quantizes inside its forward (``ref.quantize_q8``)
 and returns the q8 backward's f32 dw to the master unchanged
-(straight-through).  When ``choose_batch_block(mode="bwd")`` finds no tiling
-(``ORACLE_BWD``), a CPU call is autograd of ``ref.lstm_seq`` (over
+(straight-through).  When ``choose_batch_block(mode="bwd")`` finds no
+tiling, one block or split (``ORACLE_BWD``), a CPU call is autograd of
+``ref.lstm_seq`` (over
 ``ref.quantize_dequantize_ste`` weights for q8), the JAX package's own
 decision table, named by a ``plan/dispatch`` event; a CUDA call raises, and
 ``core/lstm`` trains such widths on the per-cell kernel.  Without grad,
@@ -46,12 +47,21 @@ the kernel's operands; ``working_set_bytes`` and ``choose_batch_block`` are
 the budget table, with Hopper's terms and budget
 (``factorization.H100_SMEM_PER_BLOCK``) in place of the TPU's VMEM, and
 ``weight_home`` names where a launch keeps its weights: in registers (the
-paper's 2 x 32 at one row a block) or in shared memory.  When no tile fits
-— already at 2 x 64, whose f32 stack alone is 256 KiB —
-``choose_batch_block`` returns None and ``core/lstm`` routes to the
-per-cell kernel with a ``plan/dispatch`` event; the int8 stack at 2 x 64 is
-68 KiB and fits (``quantized=True``).  The budget functions are pure
-functions of integers and are memoised.
+paper's 2 x 32 at one row a block), in one block's shared memory, or
+split.  Where no one-block tile fits — already at 2 x 64, whose f32 stack
+alone is 256 KiB; 6 MiB at 3 x 256 — the table splits the stack's gate
+columns over G co-resident blocks of one cooperative launch
+(``SeqBlocks.n_blocks``; the split instances ``lstm_seq_split_*`` and
+``lstm_seq_bwd_split_*``, each block owning H / G whole hidden units of
+every layer and exchanging h through device memory at one grid barrier a
+wave-step), so the paper's whole Fig 5 sweep (hidden 32 to 256 x 1 to 3
+layers) stays one launch a forward and two a training step, as the JAX
+package's VMEM table keeps it.  Only where no split fits either (a block
+past 227 KB, past 512 threads, or more blocks than the card holds at once)
+does ``choose_batch_block`` return None and ``core/lstm`` route to the
+per-cell kernel with a ``plan/dispatch`` event.  The int8 stack at 2 x 64
+is 68 KiB and fits one block (``quantized=True``).  The budget functions
+are pure functions of integers and are memoised.
 
 A tensor on the CPU takes the plain versions (``lstm_seq_plain``,
 ``ref.lstm_seq_traj``, ``lstm_seq_q8_plain``, ``lstm_seq_q8_traj_plain``),
@@ -61,8 +71,9 @@ or raises.  Each wrapper counts its launches (CPU calls are not counted):
 inference forward at any T), ``lstm_seq_traj.launches`` and
 ``lstm_seq_q8_traj.launches`` trajectory launches (one per training
 forward); each also counts in ``reg_launches`` the launches whose weights
-were in registers (``weight_home``) and in ``bf16_launches`` those on a
-bf16 input (the bf16/bf16 and int8/bf16 instances).
+were in registers (``weight_home``), in ``split_launches`` those on the
+split home and in ``bf16_launches`` those on a bf16 input (the bf16/bf16
+and int8/bf16 instances).
 """
 from __future__ import annotations
 
@@ -102,6 +113,20 @@ BWD_REG_THREADS = 256
 BWD_RING = 16
 #: steps a block of the register-home backward's closing dW pass stages
 BWD_STAGE = 32
+#: Batch tiles of the split home: ``TILE_ROWS`` and the 32-row tile a
+#: batch of 64 needs where the 64 blocks a tile of 2 x 256 and 3 x 256
+#: training leave room for two tiles on the card.  The split kernels take
+#: the tile's rows at run time; rows go through the gate sums
+#: ``split_row_group`` at a time.
+SPLIT_TILE_ROWS = TILE_ROWS + (32,)
+#: Most threads a block of the split forward launches with, and the
+#: threads of a block of the split backward (its phases stride their work
+#: over the block).  Both kernels are built ``__launch_bounds__(512, 1)``,
+#: so ptxas may give a thread up to ``SPLIT_MAX_REGS`` registers: the
+#: table prices a split block's residency at that many, which makes a
+#: backward block one an SM whatever its shared memory.
+SPLIT_MAX_THREADS = SPLIT_BWD_THREADS = 512
+SPLIT_MAX_REGS = factorization.H100_REGS_PER_SM // SPLIT_MAX_THREADS
 
 #: The plain PyTorch version (torch.matmul + elementwise ops, f32 math): the
 #: CPU path of ``lstm_seq`` and the yardstick the kernel is held to.
@@ -194,12 +219,18 @@ def pad_input(x: torch.Tensor, p_width: int) -> torch.Tensor:
 # Shared-memory budget — the MobiRNN packing rule applied to the sequence.
 # ---------------------------------------------------------------------------
 class SeqBlocks(NamedTuple):
-    """The kernel's tiling: batch rows per thread block x time residency.
+    """The kernel's tiling: batch rows per tile x time residency x thread
+    blocks a tile.
 
     ``time_chunk=None`` holds the whole (T, bm, P) input of the tile in one
-    ring slot; ``time_chunk=tc`` streams it through two (tc, bm, P) slots."""
+    ring slot; ``time_chunk=tc`` streams it through two (tc, bm, P) slots.
+    ``n_blocks`` is 1 for the one-block homes; above 1 it is the split
+    home's G co-resident blocks a tile, each owning H / G hidden units of
+    every layer (``time_chunk`` is then None: the split kernels read x from
+    device memory as they go)."""
     block_b: int
     time_chunk: int | None = None
+    n_blocks: int = 1
 
     @property
     def batch_tile(self) -> int:
@@ -227,18 +258,103 @@ def fwd_threads(n_layers: int, hidden: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def weight_home(n_layers: int, p_width: int, hidden: int,
-                block_b: int) -> str:
-    """Where a forward launch keeps its weight stack: ``"registers"`` (each
-    lane's 64 weights, int8 codes converted once to f32) for the paper's
-    width — H = P = ``REG_HIDDEN``, at most ``REG_MAX_LAYERS`` layers, one
-    row a block, the tile of B=1 serving and of B=64 training — and
-    ``"shared"`` (padded shared rows, ``row_stride``) for every other
-    shape, whose lanes would need more registers than a thread has at
-    their block's size."""
+                block_b: int, n_blocks: int = 1) -> str:
+    """Where a launch keeps its weight stack: ``"registers"`` (each lane's
+    64 weights, int8 codes converted once to f32) for the paper's width —
+    H = P = ``REG_HIDDEN``, at most ``REG_MAX_LAYERS`` layers, one row a
+    block, the tile of B=1 serving and of B=64 training — ``"shared"``
+    (padded shared rows, ``row_stride``) for every other shape one block
+    holds, and ``"split"`` when the tiling spreads the stack over
+    ``n_blocks`` > 1 co-resident blocks a tile (``choose_batch_block``
+    takes it only where neither one-block home fits): each block holds the
+    gate columns of its H / G hidden units in shared memory."""
+    if n_blocks > 1:
+        return "split"
     if (hidden == REG_HIDDEN and p_width == hidden
             and n_layers <= REG_MAX_LAYERS and block_b == 1):
         return "registers"
     return "shared"
+
+
+@functools.lru_cache(maxsize=None)
+def split_row_group(block_b: int) -> int:
+    """Rows a split lane sums together (the kernels' RG instances): 1 for a
+    one-row tile, else 4; the tile's rows are padded to a multiple of it in
+    the kernels' buffers."""
+    return 1 if block_b == 1 else 4
+
+
+@functools.lru_cache(maxsize=None)
+def split_row_warps(n_layers: int, hidden: int, n_blocks: int,
+                    block_b: int) -> int:
+    """Warps a layer of a split forward block gives each ``UNITS_PER_WARP``
+    of its units: one per row group of the tile (``split_row_group``
+    rows), as many as ``SPLIT_MAX_THREADS`` allow (``csrc/lstm_seq.cu``'s
+    ``split_row_warps``)."""
+    groups = -(-block_b // split_row_group(block_b))
+    base = n_layers * -(-(hidden // n_blocks) // UNITS_PER_WARP)
+    return max(1, min(groups,
+                      SPLIT_MAX_THREADS // (factorization.WARP * base)))
+
+
+@functools.lru_cache(maxsize=None)
+def split_threads(n_layers: int, hidden: int, n_blocks: int,
+                  mode: str = "fwd", block_b: int = 1) -> int:
+    """Threads of one split block.  Forward: each layer's own warps, a warp
+    to ``UNITS_PER_WARP`` of the block's H / G units (4 gate lanes each),
+    as the one-block forward, times ``split_row_warps`` for a tile of
+    ``block_b`` rows.  Backward: ``SPLIT_BWD_THREADS``, over which each of
+    its phases strides its work."""
+    if mode == "fwd":
+        units = hidden // n_blocks
+        return (n_layers * -(-units // UNITS_PER_WARP) * factorization.WARP
+                * split_row_warps(n_layers, hidden, n_blocks, block_b))
+    return SPLIT_BWD_THREADS
+
+
+def _split_working_set(n_layers: int, p_width: int, hidden: int,
+                       block_b: int, n_blocks: int, dtype_bytes: int,
+                       w_dtype_bytes: int | None, mode: str,
+                       quantized: bool) -> int:
+    """Shared memory of one split block (``csrc/lstm_seq.cu``'s
+    ``split_smem_bytes``, ``csrc/lstm_seq_bwd.cu``'s
+    ``split_bwd_smem_bytes``): the exact dynamic shared memory each split
+    kernel is launched with.  U = H / ``n_blocks`` units, 4U gate columns,
+    rows padded to ``split_row_group`` (bmp).
+
+    ``fwd``: its column slice of the stack, each segment's rows padded to a
+    multiple of 4 and four rows of a column side by side, ``w_dtype_bytes``
+    a weight; the f32 h of every unit of every layer (L, bmp, H4) and the
+    f32 x of one step (bmp, P4), staged each wave-step from the h exchange
+    the blocks write in device memory and from x; and the f32 c of its
+    units (L, bmp, U).  Nothing depends on T.
+
+    ``bwd``: its column slice (L, P+H, 4U), ``w_dtype_bytes`` a weight
+    (int8 codes for ``quantized``), each row padded by one 4-byte word (the
+    products read the rows of 32 lanes at once); the f32 dW slice (L, P+H,
+    4U) and the f32 db, bias (and scales) of its columns (L, 4U); the
+    activations and gate gradients of its columns (L, bmp, 4U) (and dg * s
+    for int8); and the dc carry of its units (L, bmp, U).  x, the
+    trajectories and the dh partials are read from device memory."""
+    wb = tiling.weight_dtype_bytes(dtype_bytes, w_dtype_bytes, quantized)
+    units = hidden // n_blocks
+    cols = 4 * units
+    bmp = factorization.round_up(block_b, split_row_group(block_b))
+    ws = tiling.WorkingSet(mode)
+    if mode == "fwd":
+        p4 = factorization.round_up(p_width, 4)
+        h4 = factorization.round_up(hidden, 4)
+        ws.add("weights", n_layers * (p4 + h4) * cols * wb)
+        ws.add("staged", (n_layers * bmp * h4 + bmp * p4) * 4)
+        ws.add("c", n_layers * bmp * units * 4)
+        return ws.total()
+    k = p_width + hidden
+    ws.add("weights", n_layers * k * (cols * wb + 4))
+    ws.add("grad_accumulators", n_layers * (k + 1) * cols * 4)
+    ws.add("biases", n_layers * cols * 4 * (2 if quantized else 1))
+    ws.add("gates", n_layers * bmp * cols * 4 * (3 if quantized else 2))
+    ws.add("dc", n_layers * bmp * units * 4)
+    return ws.total()
 
 
 def fwd_max_threads(block_b: int, home: str) -> int:
@@ -274,9 +390,12 @@ def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
                       block_b: int, dtype_bytes: int = 4,
                       w_dtype_bytes: int | None = None, mode: str = "fwd",
                       time_chunk: int | None = None,
-                      quantized: bool = False) -> int:
+                      quantized: bool = False, n_blocks: int = 1) -> int:
     """Shared memory of one thread block, per phase: the exact dynamic
-    shared memory each kernel is launched with.
+    shared memory each kernel is launched with.  ``n_blocks`` > 1 prices
+    one block of the split home (``_split_working_set``; ``seq_len`` and
+    ``time_chunk`` do not enter it); the rest of this text is the
+    one-block homes'.
 
     ``mode="fwd"`` sizes the forward kernel (``csrc/lstm_seq.cu``; the
     trajectory launch adds nothing, its trajectories go straight from
@@ -325,6 +444,10 @@ def working_set_bytes(seq_len: int, n_layers: int, p_width: int, hidden: int,
     gate gradients times the scales.  The JAX table's "active-layer dequant
     temporary" has no counterpart: the kernels convert each int8 code to f32
     in a register and keep no f32 slab of the stack in shared memory."""
+    if n_blocks > 1:
+        return _split_working_set(n_layers, p_width, hidden, block_b,
+                                  n_blocks, dtype_bytes, w_dtype_bytes, mode,
+                                  quantized)
     wb = tiling.weight_dtype_bytes(dtype_bytes, w_dtype_bytes, quantized)
     ws = tiling.WorkingSet(mode)
     w_rows = n_layers * (p_width + hidden)
@@ -403,15 +526,19 @@ def choose_batch_block(batch: int, seq_len: int, n_layers: int,
     ``mode="bwd"`` sizes the training kernels (``working_set_bytes``), so a
     tiling fine for inference can be none for training; the trajectory
     launch runs at the tiling found, so the forward's bytes and threads
-    must fit there too.  None means even ``(1, 1)`` does not fit — the weight stack
-    (plus, for ``bwd``, its gradient accumulators) is too large — and
+    must fit there too.  When even ``(1, 1)`` fits no one block — the
+    weight stack (plus, for ``bwd``, its gradient accumulators) is too
+    large, or the layers' warps are too many — the split home is tried
+    (``_choose_split``); None means that no split fits either, and
     ``core/lstm.forward_fused_seq`` routes to the per-cell kernel.
     ``quantized=True`` sizes the int8 instances (``working_set_bytes``):
-    with the stack quartered, they fit where the f32 ones do not (2 x 64,
-    3 x 64 and 2 x 96 forward), and are never tiled finer.  The bf16
-    instances (``dtype_bytes=2``, ``w_dtype_bytes=2``) halve the stack and
-    the x ring: their forward fits 2 x 64 and 3 x 64 in one block, their
-    backward, whose f32 dW accumulators alone are 256 KiB there, does not.
+    with the stack quartered, one block holds them where the f32 ones
+    split (2 x 64, 3 x 64 and 2 x 96 forward), and they are never tiled
+    finer.  The bf16 instances (``dtype_bytes=2``, ``w_dtype_bytes=2``)
+    halve the stack and the x ring: their forward fits 2 x 64 and 3 x 64 in
+    one block, their backward, whose f32 dW accumulators alone are 256 KiB
+    there, splits.  Wherever a one-block tiling exists the answer is the
+    one-block search's, unchanged.
     """
     budget = factorization.H100_SMEM_PER_BLOCK if smem_budget is None \
         else smem_budget
@@ -430,7 +557,48 @@ def choose_batch_block(batch: int, seq_len: int, n_layers: int,
     need = -(-batch // factorization.H100_SMS)
     seed = next((r for r in TILE_ROWS if r >= need), TILE_ROWS[-1])
     found = tiling.joint_search(batch, seq_len, fits, seed_batch_tile=seed)
-    return None if found is None else SeqBlocks(*found)
+    if found is not None:
+        return SeqBlocks(*found)
+    return _choose_split(batch, n_layers, p_width, hidden, dtype_bytes,
+                         budget, w_dtype_bytes, mode, quantized)
+
+
+def _choose_split(batch: int, n_layers: int, p_width: int, hidden: int,
+                  dtype_bytes: int, budget: int, w_dtype_bytes: int | None,
+                  mode: str, quantized: bool) -> SeqBlocks | None:
+    """The split home's tiling, where no one-block tiling fits: the fewest
+    G blocks a tile (G divides H, so a block owns whole units) whose
+    blocks fit ``budget`` and their instance's thread bound, at the
+    smallest tile of ``SPLIT_TILE_ROWS`` whose G x tiles blocks the card
+    holds at once (``split_capacity``: a cooperative launch needs every
+    block resident).  None when no G and tile fit."""
+    modes = ("fwd",) if mode == "fwd" else ("fwd", "bwd")
+    for g in range(2, hidden + 1):
+        if hidden % g or split_threads(n_layers, hidden,
+                                       g) > SPLIT_MAX_THREADS:
+            continue
+        for bm in SPLIT_TILE_ROWS:
+            smem = [working_set_bytes(
+                1, n_layers, p_width, hidden, bm, dtype_bytes, w_dtype_bytes,
+                mode=m, quantized=quantized, n_blocks=g) for m in modes]
+            if max(smem) > budget:
+                break                 # larger tiles only grow the block
+            cap = min(split_capacity(s, split_threads(
+                n_layers, hidden, g, mode=m, block_b=bm))
+                for s, m in zip(smem, modes))
+            if g * -(-batch // bm) <= cap:
+                return SeqBlocks(bm, None, g)
+            if bm >= batch:
+                break
+    return None
+
+
+def split_capacity(smem: int, threads: int) -> int:
+    """Split blocks of ``smem`` bytes and ``threads`` threads the card
+    holds at once: ``H100_SMS`` x the blocks an SM holds by shared memory
+    and by registers at ``SPLIT_MAX_REGS`` a thread."""
+    return factorization.H100_SMS * factorization.blocks_per_sm(
+        smem, threads, SPLIT_MAX_REGS)
 
 
 #: bwd spec sentinel: "no viable backward tiling — autograd of the oracle",
@@ -453,53 +621,67 @@ def _bytes(w: torch.Tensor, x: torch.Tensor) -> dict:
                 quantized=q8)
 
 
+def _check_tile(block_b: int, n_blocks: int, H: int, what: str) -> None:
+    """An explicit tile: one of ``TILE_ROWS`` (``SPLIT_TILE_ROWS`` for the
+    split home), and a split that gives every block whole units."""
+    rows = SPLIT_TILE_ROWS if n_blocks > 1 else TILE_ROWS
+    if block_b not in rows:
+        raise ValueError(f"lstm_seq: {what} must be one of {rows}, not "
+                         f"{block_b}")
+    if n_blocks < 1 or H % n_blocks:
+        raise ValueError(f"lstm_seq: {n_blocks} blocks a tile do not split "
+                         f"{H} hidden units into whole units")
+
+
 def _fwd_spec(B: int, T: int, L: int, P: int, H: int, block_b: int | None,
-              time_chunk: int | None, **dtypes) -> tuple[int, int | None]:
-    """The forward's ``(block_b, time_chunk)``: explicit tiles pin the
-    layout, otherwise ``choose_batch_block`` searches (an explicit
-    ``time_chunk`` survives an automatic ``block_b``); ``dtypes`` are
-    ``_bytes``'s keywords."""
+              time_chunk: int | None, n_blocks: int | None = None,
+              **dtypes) -> tuple[int, int | None, int]:
+    """The forward's ``(block_b, time_chunk, n_blocks)``: explicit tiles
+    pin the layout (``n_blocks`` default 1), otherwise
+    ``choose_batch_block`` searches (an explicit ``time_chunk`` survives an
+    automatic ``block_b``); ``dtypes`` are ``_bytes``'s keywords."""
     if block_b is None:
         blocks = choose_batch_block(B, T, L, P, H, **dtypes)
         if blocks is None:
             raise ValueError(
                 f"sequence-resident working set (L={L}, P+H={P + H}, "
-                f"4H={4 * H}, {dtypes}) exceeds a thread "
-                "block's shared memory even at batch tile 1 with tc=1 time "
-                "streaming; use the per-cell kernel (core/lstm routes this)")
+                f"4H={4 * H}, {dtypes}) fits neither one thread block's "
+                "shared memory at batch tile 1 with tc=1 time streaming nor "
+                "the split home's co-resident blocks; use the per-cell "
+                "kernel (core/lstm routes this)")
         block_b = blocks.block_b
         if time_chunk is None:
             time_chunk = blocks.time_chunk
-    if block_b not in TILE_ROWS:
-        raise ValueError(f"lstm_seq: block_b must be one of {TILE_ROWS}, "
-                         f"not {block_b}")
-    return block_b, time_chunk
+        if n_blocks is None:
+            n_blocks = blocks.n_blocks
+    n_blocks = 1 if n_blocks is None else n_blocks
+    _check_tile(block_b, n_blocks, H, "block_b")
+    return block_b, time_chunk, n_blocks
 
 
 def _resolve_specs(B: int, T: int, L: int, P: int, H: int, *,
                    bwd_block_b: int | None, bwd_time_chunk: int | None,
-                   device: torch.device, **dtypes
-                   ) -> tuple[int, int | None] | int:
-    """The ``(block_b, time_chunk)`` of a call autograd records, for the
-    backward launch and the trajectory launch that feeds it.
+                   device: torch.device, bwd_n_blocks: int | None = None,
+                   **dtypes) -> tuple[int, int | None, int] | int:
+    """The ``(block_b, time_chunk, n_blocks)`` of a call autograd records,
+    for the backward launch and the trajectory launch that feeds it.
 
-    An explicit ``bwd_block_b`` (one of ``TILE_ROWS``) pins the layout;
-    otherwise ``choose_batch_block(mode="bwd")`` searches (an explicit
-    ``bwd_time_chunk`` survives).  When nothing
-    fits, a CPU call gets ``ORACLE_BWD`` — autograd of ``ref.lstm_seq``, the
-    JAX package's decision table — and a CUDA call a ValueError naming the
-    working set: on the card no plain version takes a kernel's place
-    (``core/lstm`` trains such widths on ``fused_cell``).  ``dtypes``
-    (``_bytes``'s keywords) size the bf16 and int8 backwards."""
+    An explicit ``bwd_block_b`` pins the layout (``bwd_n_blocks`` default
+    1); otherwise ``choose_batch_block(mode="bwd")`` searches (an explicit
+    ``bwd_time_chunk`` survives).  When nothing fits, a CPU call gets
+    ``ORACLE_BWD`` — autograd of ``ref.lstm_seq``, the JAX package's
+    decision table — and a CUDA call a ValueError naming the working set:
+    on the card no plain version takes a kernel's place (``core/lstm``
+    trains such widths on ``fused_cell``).  ``dtypes`` (``_bytes``'s
+    keywords) size the bf16 and int8 backwards."""
     if bwd_block_b is not None:
-        if bwd_block_b not in TILE_ROWS:
-            raise ValueError(f"lstm_seq: bwd_block_b must be one of "
-                             f"{TILE_ROWS}, not {bwd_block_b}")
-        return bwd_block_b, bwd_time_chunk
+        n_blocks = 1 if bwd_n_blocks is None else bwd_n_blocks
+        _check_tile(bwd_block_b, n_blocks, H, "bwd_block_b")
+        return bwd_block_b, bwd_time_chunk, n_blocks
     blocks = choose_batch_block(B, T, L, P, H, mode="bwd", **dtypes)
     if blocks is not None:
         return (blocks.block_b, blocks.time_chunk if bwd_time_chunk is None
-                else bwd_time_chunk)
+                else bwd_time_chunk, blocks.n_blocks)
     if device.type == "cpu":
         return ORACLE_BWD
     need = working_set_bytes(T, L, P, H, 1, mode="bwd", time_chunk=1,
@@ -509,8 +691,9 @@ def _resolve_specs(B: int, T: int, L: int, P: int, H: int, *,
         f"with tc=1 (L={L}, P+H={P + H}, 4H={4 * H}, {dtypes})"
         " exceeds a thread "
         f"block's {factorization.H100_SMEM_PER_BLOCK} bytes of shared "
-        "memory; train this width on the per-cell kernel "
-        "(core/lstm.forward_fused_seq routes it)")
+        "memory, and no split over co-resident blocks fits the card; train "
+        "this width on the per-cell kernel (core/lstm.forward_fused_seq "
+        "routes it)")
 
 
 # ---------------------------------------------------------------------------
@@ -524,21 +707,36 @@ INSTANCES = ((torch.float32, torch.float32, torch.float32),
              (torch.int8, torch.float32, torch.bfloat16))
 
 
-def _entry(w_dtype: torch.dtype, io_dtype: torch.dtype):
+#: the C entries' suffix of each (stack, input) dtype pair
+SUFFIX = {(torch.float32, torch.float32): "f32",
+          (torch.bfloat16, torch.bfloat16): "bf16",
+          (torch.int8, torch.float32): "q8",
+          (torch.int8, torch.bfloat16): "q8_bf16"}
+
+
+def _entry(w_dtype: torch.dtype, io_dtype: torch.dtype,
+           split: bool = False):
+    """The C entry of the one-block forward (``lstm_seq_fwd_*``) or of the
+    split forward (``lstm_seq_split_*``) for the dtype pair."""
     lib = _build.load(_NAME)
-    fn = getattr(lib, "lstm_seq_fwd_" + {
-        (torch.float32, torch.float32): "f32",
-        (torch.bfloat16, torch.bfloat16): "bf16",
-        (torch.int8, torch.float32): "q8",
-        (torch.int8, torch.bfloat16): "q8_bf16"}[w_dtype, io_dtype])
+    fn = getattr(lib, ("lstm_seq_split_" if split else "lstm_seq_fwd_")
+                 + SUFFIX[w_dtype, io_dtype])
     if fn.argtypes is None:
         q8 = w_dtype == torch.int8
-        fn.argtypes = ([ctypes.c_void_p] * (8 if q8 else 7)
-                       + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+        ptrs = (8 if q8 else 7) + (1 if split else 0)
+        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] * (3 if split else 4)
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def split_exchange_floats(B: int, L: int, H: int, block_b: int) -> int:
+    """Floats of the split forward's h exchange: per tile (L, 2, bmp, H4),
+    the h of every unit of every layer in two slots by time parity."""
+    bmp = factorization.round_up(block_b, split_row_group(block_b))
+    return -(-B // block_b) * L * 2 * bmp * factorization.round_up(H, 4)
 
 
 def _validate(w, b, x, scales=None, w_dtype=None) -> None:
@@ -586,17 +784,62 @@ def _no_autograd(name: str, *tensors: torch.Tensor) -> None:
                            "kernel")
 
 
+def _launch_split(w, b, x, block_b: int, n_blocks: int, traj: bool,
+                  scales: torch.Tensor | None):
+    """One cooperative launch of the split forward: ``n_blocks`` blocks a
+    tile of ``block_b`` rows, all resident at once, exchanging h through
+    device memory.  A refused launch (too many blocks to be co-resident,
+    a failed build) raises; nothing else runs in its place."""
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    smem = working_set_bytes(T, L, P, H, block_b, n_blocks=n_blocks,
+                             **_bytes(w, x))
+    if smem > factorization.H100_SMEM_PER_BLOCK:
+        raise ValueError(f"lstm_seq: split tile ({block_b}, G={n_blocks}) "
+                         f"needs {smem} bytes of shared memory, above a "
+                         f"thread block's {factorization.H100_SMEM_PER_BLOCK}")
+    threads = split_threads(L, H, n_blocks, block_b=block_b)
+    if threads > SPLIT_MAX_THREADS:
+        raise ValueError(f"lstm_seq: {L} layers of {H // n_blocks} units a "
+                         f"block need {threads} threads, above the split "
+                         f"instance's {SPLIT_MAX_THREADS}")
+    w, b = w.contiguous(), b.contiguous()
+    scales = None if scales is None else scales.contiguous()
+    c_out = x.new_empty(L, B, H)
+    h_out = x.new_empty(L, B, H)
+    c_traj = x.new_empty(T, L, B, H, dtype=F32) if traj else None
+    h_traj = x.new_empty(T, L, B, H, dtype=F32) if traj else None
+    hx = _build.aligned(x.new_empty(split_exchange_floats(B, L, H, block_b),
+                                    dtype=F32))
+    lib, fn = _entry(w.dtype, x.dtype, split=True)
+    w_ptrs = (w.data_ptr(), scales.data_ptr()) if scales is not None \
+        else (w.data_ptr(),)
+    err = fn(*w_ptrs, b.data_ptr(), x.data_ptr(), c_out.data_ptr(),
+             h_out.data_ptr(), None if c_traj is None else c_traj.data_ptr(),
+             None if h_traj is None else h_traj.data_ptr(), hx.data_ptr(),
+             B, T, L, P, H, x.stride(0), x.stride(1), block_b, n_blocks,
+             threads, smem, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, _NAME, err)
+    if traj:
+        return c_out, h_out, c_traj, h_traj
+    return c_out, h_out
+
+
 def _launch(w, b, x, block_b: int, time_chunk: int | None, traj: bool,
-            scales: torch.Tensor | None = None):
+            scales: torch.Tensor | None = None, n_blocks: int = 1):
     """One launch of the forward kernel, with or without trajectories: the
     instance of ``w``'s and ``x``'s dtypes (``INSTANCES``; int8 with
     ``scales``).  The weight home, the threads and the shared memory come
-    from the (memoised) budget table."""
+    from the (memoised) budget table; ``n_blocks`` > 1 is the split
+    home's launch."""
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T, _ = x.shape
     if x.stride(-1) != 1:
         raise ValueError("lstm_seq: x needs a contiguous last dim")
+    if n_blocks > 1:
+        return _launch_split(w, b, x, block_b, n_blocks, traj, scales)
     tc = T if time_chunk is None else max(1, min(time_chunk, T))
     q8 = scales is not None
     smem = working_set_bytes(T, L, P, H, block_b,
@@ -646,20 +889,23 @@ def _meta_out(w: torch.Tensor, x: torch.Tensor, traj: bool) -> tuple:
     return meta_like(*outs)
 
 
-def _count(wrapper, w: torch.Tensor, x: torch.Tensor, block_b: int) -> None:
+def _count(wrapper, w: torch.Tensor, x: torch.Tensor, block_b: int,
+           n_blocks: int = 1) -> None:
     """One launch of ``wrapper``'s kernel: ``launches``, ``reg_launches``
-    when its weights were in registers, and ``bf16_launches`` when its
-    input was bf16."""
+    when its weights were in registers, ``split_launches`` when they were
+    split over co-resident blocks, and ``bf16_launches`` when its input
+    was bf16."""
     H = w.shape[-1] // 4
     wrapper.launches += 1
-    if weight_home(w.shape[0], w.shape[1] - H, H, block_b) == "registers":
-        wrapper.reg_launches += 1
+    home = weight_home(w.shape[0], w.shape[1] - H, H, block_b, n_blocks)
+    wrapper.reg_launches += int(home == "registers")
+    wrapper.split_launches += int(home == "split")
     if x.dtype == torch.bfloat16:
         wrapper.bf16_launches += 1
 
 
-def _forward(w, b, x, block_b: int, time_chunk: int | None
-             ) -> tuple[torch.Tensor, torch.Tensor]:
+def _forward(w, b, x, block_b: int, time_chunk: int | None,
+             n_blocks: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain forward at a resolved tiling: its plain version on the
     CPU, one kernel launch on the card."""
     called("lstm_seq", -(-x.shape[0] // block_b))
@@ -668,13 +914,15 @@ def _forward(w, b, x, block_b: int, time_chunk: int | None
     if x.device.type == "cpu":
         return lstm_seq_plain(w, b, x)
     _no_autograd("the lstm_seq kernel", w, b, x)
-    out = _launch(w, b, x, block_b, time_chunk, traj=False)
-    _count(lstm_seq, w, x, block_b)
+    out = _launch(w, b, x, block_b, time_chunk, traj=False,
+                  n_blocks=n_blocks)
+    _count(lstm_seq, w, x, block_b, n_blocks)
     return out
 
 
 def lstm_seq_traj(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
-                  block_b: int | None = None, time_chunk: int | None = None
+                  block_b: int | None = None, time_chunk: int | None = None,
+                  n_blocks: int | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """The trajectory-writing forward in ONE launch: (c, h, c_traj, h_traj).
@@ -688,16 +936,17 @@ def lstm_seq_traj(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
     B, T, _ = x.shape
-    block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
-                                    **_bytes(w, x))
+    block_b, time_chunk, n_blocks = _fwd_spec(
+        B, T, L, P, H, block_b, time_chunk, n_blocks, **_bytes(w, x))
     called("lstm_seq_traj", -(-x.shape[0] // block_b))
     if x.device.type == "meta":
         return _meta_out(w, x, traj=True)
     if x.device.type == "cpu":
         return ref.lstm_seq_traj(w, b, x)
     _no_autograd("lstm_seq_traj", w, b, x)
-    out = _launch(w, b, x, block_b, time_chunk, traj=True)
-    _count(lstm_seq_traj, w, x, block_b)
+    out = _launch(w, b, x, block_b, time_chunk, traj=True,
+                  n_blocks=n_blocks)
+    _count(lstm_seq_traj, w, x, block_b, n_blocks)
     return out
 
 
@@ -708,9 +957,10 @@ class _LstmSeqFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w, b, x, bwd_spec):
-        block_b, time_chunk = bwd_spec
+        block_b, time_chunk, n_blocks = bwd_spec
         c, h, c_traj, h_traj = lstm_seq_traj(w, b, x, block_b=block_b,
-                                             time_chunk=time_chunk)
+                                             time_chunk=time_chunk,
+                                             n_blocks=n_blocks)
         ctx.bwd_spec = bwd_spec
         ctx.save_for_backward(w, b, x, c_traj, h_traj)
         return c, h
@@ -719,17 +969,19 @@ class _LstmSeqFn(torch.autograd.Function):
     def backward(ctx, dc, dh):
         from repro_torch.kernels import lstm_seq_bwd as bwd_lib
         w, b, x, c_traj, h_traj = ctx.saved_tensors
-        block_b, time_chunk = ctx.bwd_spec
+        block_b, time_chunk, n_blocks = ctx.bwd_spec
         dw, db, dx = bwd_lib.lstm_seq_bwd(w, b, x, c_traj, h_traj, dc, dh,
                                           block_b=block_b,
-                                          time_chunk=time_chunk)
+                                          time_chunk=time_chunk,
+                                          n_blocks=n_blocks)
         return dw, db, dx if ctx.needs_input_grad[2] else None, None
 
 
 def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
              block_b: int | None = None, time_chunk: int | None = None,
              bwd_block_b: int | None = None,
-             bwd_time_chunk: int | None = None
+             bwd_time_chunk: int | None = None,
+             n_blocks: int | None = None, bwd_n_blocks: int | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole-sequence stacked LSTM in ONE kernel launch.
 
@@ -742,7 +994,10 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     kernel does; its gradients come back in bf16.
 
     When ``block_b`` is None the tiling comes from ``choose_batch_block``
-    (an explicit ``time_chunk`` still pins the time layout); an explicit ``block_b`` is one of ``TILE_ROWS``.  ValueError
+    (an explicit ``time_chunk`` still pins the time layout); an explicit
+    ``block_b`` is one of ``TILE_ROWS``, or with ``n_blocks`` > 1 (the
+    split home: the stack's columns over that many co-resident blocks a
+    tile, one cooperative launch) one of ``SPLIT_TILE_ROWS``.  ValueError
     when nothing fits — core/lstm.forward_fused_seq routes that case to the
     per-cell kernel.  ``time_chunk=None`` holds the whole sequence in the
     ring; results are bit-identical for every ``time_chunk``.  The kernel
@@ -750,9 +1005,9 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
 
     When autograd records the call (grad enabled and an input requires
     grad), ``_LstmSeqFn`` runs it at the tiling ``_resolve_specs`` gives
-    (``bwd_block_b``/``bwd_time_chunk``, default
-    ``choose_batch_block(mode="bwd")``; ``block_b``/``time_chunk`` are not
-    used): the trajectory launch, then the backward kernel.  Where no
+    (``bwd_block_b``/``bwd_time_chunk``/``bwd_n_blocks``, default
+    ``choose_batch_block(mode="bwd")``; ``block_b``/``time_chunk``/
+    ``n_blocks`` are not used): the trajectory launch, then the backward kernel.  Where no
     backward tiling fits, a CPU call is autograd of ``ref.lstm_seq``, named
     by a ``plan/dispatch`` event with ``fallback="oracle_bwd"``, and a CUDA
     call raises ValueError.
@@ -764,6 +1019,7 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     if recorded(w, b, x):
         bwd_spec = _resolve_specs(B, T, L, P, H, bwd_block_b=bwd_block_b,
                                   bwd_time_chunk=bwd_time_chunk,
+                                  bwd_n_blocks=bwd_n_blocks,
                                   device=x.device, **_bytes(w, x))
         if bwd_spec != ORACLE_BWD:
             return _LstmSeqFn.apply(w, b, x, bwd_spec)
@@ -774,15 +1030,17 @@ def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
                          batch=B, seq_len=T)
         return ref.lstm_seq(w, b, x)
     return _forward(w, b, x, *_fwd_spec(B, T, L, P, H, block_b, time_chunk,
-                                        **_bytes(w, x)))
+                                        n_blocks, **_bytes(w, x)))
 
 
 #: plain launches since the last reset (CPU calls are not counted), those
-#: of them on the register weight home, and those on a bf16 input
+#: of them on the register weight home, those on the split home, and those
+#: on a bf16 input
 lstm_seq.launches = lstm_seq.reg_launches = lstm_seq.bf16_launches = 0
+lstm_seq.split_launches = 0
 #: trajectory launches since the last reset (CPU calls are not counted)
 lstm_seq_traj.launches = lstm_seq_traj.reg_launches = 0
-lstm_seq_traj.bf16_launches = 0
+lstm_seq_traj.bf16_launches = lstm_seq_traj.split_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -790,7 +1048,8 @@ lstm_seq_traj.bf16_launches = 0
 # ---------------------------------------------------------------------------
 def lstm_seq_q8_traj(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
                      x: torch.Tensor, *, block_b: int | None = None,
-                     time_chunk: int | None = None
+                     time_chunk: int | None = None,
+                     n_blocks: int | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
     """The q8 trajectory-writing forward in ONE launch: (c, h, c_traj,
@@ -804,16 +1063,17 @@ def lstm_seq_q8_traj(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
     L, H = wq.shape[0], wq.shape[-1] // 4
     P = wq.shape[1] - H
     B, T, _ = x.shape
-    block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
-                                    **_bytes(wq, x))
+    block_b, time_chunk, n_blocks = _fwd_spec(
+        B, T, L, P, H, block_b, time_chunk, n_blocks, **_bytes(wq, x))
     called("lstm_seq_q8_traj", -(-x.shape[0] // block_b))
     if x.device.type == "meta":
         return _meta_out(wq, x, traj=True)
     if x.device.type == "cpu":
         return lstm_seq_q8_traj_plain(wq, scales, b, x)
     _no_autograd("lstm_seq_q8_traj", scales, b, x)
-    out = _launch(wq, b, x, block_b, time_chunk, traj=True, scales=scales)
-    _count(lstm_seq_q8_traj, wq, x, block_b)
+    out = _launch(wq, b, x, block_b, time_chunk, traj=True, scales=scales,
+                  n_blocks=n_blocks)
+    _count(lstm_seq_q8_traj, wq, x, block_b, n_blocks)
     return out
 
 
@@ -827,10 +1087,11 @@ class _LstmSeqQ8Fn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w, b, x, bwd_spec):
-        block_b, time_chunk = bwd_spec
+        block_b, time_chunk, n_blocks = bwd_spec
         wq, scales = ref.quantize_q8(w)
         c, h, c_traj, h_traj = lstm_seq_q8_traj(
-            wq, scales, b, x, block_b=block_b, time_chunk=time_chunk)
+            wq, scales, b, x, block_b=block_b, time_chunk=time_chunk,
+            n_blocks=n_blocks)
         ctx.bwd_spec = bwd_spec
         ctx.save_for_backward(wq, scales, b, x, c_traj, h_traj)
         return c, h
@@ -839,17 +1100,19 @@ class _LstmSeqQ8Fn(torch.autograd.Function):
     def backward(ctx, dc, dh):
         from repro_torch.kernels import lstm_seq_bwd as bwd_lib
         wq, scales, b, x, c_traj, h_traj = ctx.saved_tensors
-        block_b, time_chunk = ctx.bwd_spec
+        block_b, time_chunk, n_blocks = ctx.bwd_spec
         dw, db, dx = bwd_lib.lstm_seq_bwd_q8(
             wq, scales, b, x, c_traj, h_traj, dc, dh, block_b=block_b,
-            time_chunk=time_chunk)
+            time_chunk=time_chunk, n_blocks=n_blocks)
         return dw, db, dx if ctx.needs_input_grad[2] else None, None
 
 
 def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
                 block_b: int | None = None, time_chunk: int | None = None,
                 bwd_block_b: int | None = None,
-                bwd_time_chunk: int | None = None
+                bwd_time_chunk: int | None = None,
+                n_blocks: int | None = None,
+                bwd_n_blocks: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole-sequence stacked LSTM over int8 weights in ONE kernel launch.
 
@@ -874,6 +1137,7 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     if recorded(w, b, x):
         bwd_spec = _resolve_specs(B, T, L, P, H, bwd_block_b=bwd_block_b,
                                   bwd_time_chunk=bwd_time_chunk,
+                                  bwd_n_blocks=bwd_n_blocks,
                                   device=x.device, **q8_bytes)
         if bwd_spec != ORACLE_BWD:
             return _LstmSeqQ8Fn.apply(w, b, x, bwd_spec)
@@ -883,22 +1147,23 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
                          fallback="oracle_bwd", bwd_block_b=ORACLE_BWD,
                          batch=B, seq_len=T)
         return ref.lstm_seq(ref.quantize_dequantize_ste(w), b, x)
-    block_b, time_chunk = _fwd_spec(B, T, L, P, H, block_b, time_chunk,
-                                    **q8_bytes)
+    block_b, time_chunk, n_blocks = _fwd_spec(
+        B, T, L, P, H, block_b, time_chunk, n_blocks, **q8_bytes)
     wq, scales = ref.quantize_q8(w)
     called("lstm_seq_q8", -(-x.shape[0] // block_b))
     if x.device.type == "meta":
         return _meta_out(wq, x, traj=False)
     if x.device.type == "cpu":
         return lstm_seq_q8_plain(wq, scales, b, x)
-    out = _launch(wq, b, x, block_b, time_chunk, traj=False, scales=scales)
-    _count(lstm_seq_q8, wq, x, block_b)
+    out = _launch(wq, b, x, block_b, time_chunk, traj=False, scales=scales,
+                  n_blocks=n_blocks)
+    _count(lstm_seq_q8, wq, x, block_b, n_blocks)
     return out
 
 
 #: q8 plain launches since the last reset (CPU calls are not counted)
 lstm_seq_q8.launches = lstm_seq_q8.reg_launches = 0
-lstm_seq_q8.bf16_launches = 0
+lstm_seq_q8.bf16_launches = lstm_seq_q8.split_launches = 0
 #: q8 trajectory launches since the last reset (CPU calls are not counted)
 lstm_seq_q8_traj.launches = lstm_seq_q8_traj.reg_launches = 0
-lstm_seq_q8_traj.bf16_launches = 0
+lstm_seq_q8_traj.bf16_launches = lstm_seq_q8_traj.split_launches = 0

@@ -19,7 +19,14 @@ backwards and layers top-down with the stack, the carries and f32 dW/db
 accumulators in shared memory.  The sum of dW/db across batch tiles is a
 two-level fixed-order sum (groups of 8 tiles, then the groups) taken by
 the last blocks to finish, so one launch gives the same bits run to
-run.  What bounds it on the H100 and what the design does about it is
+run.  Where ``weight_home`` is ``"split"`` (a stack and f32 dW that no
+block holds) one cooperative launch of G co-resident blocks a tile runs
+the sweep as a reverse layer wavefront, each block owning H / G units of
+every layer: it recomputes its gate columns bit for bit, keeps their dW
+and db, and sums the G blocks' partial products of the carries in block
+order after one grid barrier a wave-step (``csrc/lstm_seq_bwd.cu``),
+deterministic run to run, its dh and dx sums in another order than the
+one-block homes'.  What bounds it on the H100 and what the design does about it is
 written at the top of the CUDA source.  Its int8 instance
 (``lstm_seq_bwd_q8``, or ``lstm_seq_bwd(..., scales=)``) recomputes the
 gates with the q8 forward's scale fold and returns f32 straight-through
@@ -34,8 +41,8 @@ step exactly as the JAX package's ``_unwind_step`` does, over the whole
 batch at once, with no autograd (``scales=`` folds as the q8 kernel does).
 A tensor on the CPU takes it; a tensor on the card launches the kernel or
 raises.  ``lstm_seq_bwd.launches`` and ``lstm_seq_bwd_q8.launches`` count
-kernel launches: one per training step at any T (``bf16_launches`` those
-on a bf16 input).
+kernel launches: one per training step at any T (``split_launches`` those
+on the split home, ``bf16_launches`` those on a bf16 input).
 """
 from __future__ import annotations
 
@@ -129,21 +136,37 @@ def dot_parts(rows: int, threads: int) -> int:
     return parts
 
 
-def _entry(w_dtype: torch.dtype, io_dtype: torch.dtype):
+def _entry(w_dtype: torch.dtype, io_dtype: torch.dtype,
+           split: bool = False):
+    """The C entry of the one-block backward (``lstm_seq_bwd_*``) or of the
+    split backward (``lstm_seq_bwd_split_*``) for the dtype pair."""
     lib = _build.load(_NAME)
-    fn = getattr(lib, "lstm_seq_bwd_" + {
-        (torch.float32, torch.float32): "f32",
-        (torch.bfloat16, torch.bfloat16): "bf16",
-        (torch.int8, torch.float32): "q8",
-        (torch.int8, torch.bfloat16): "q8_bf16"}[w_dtype, io_dtype])
+    fn = getattr(lib, ("lstm_seq_bwd_split_" if split else "lstm_seq_bwd_")
+                 + seq_lib.SUFFIX[w_dtype, io_dtype])
     if fn.argtypes is None:
         q8 = w_dtype == torch.int8
-        fn.argtypes = ([ctypes.c_void_p] * (14 if q8 else 13)
-                       + [ctypes.c_int] * 5
-                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * ((14 if q8 else 13)
+                                            - (1 if split else 0))
+                       + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] * (3 if split else 6)
                        + [ctypes.c_longlong, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib, fn
+
+
+def split_workspace(B: int, L: int, P: int, H: int, block_b: int,
+                    n_blocks: int) -> tuple[int, int]:
+    """Floats of the split backward's two workspaces: its partial products
+    (2 parity slots x tiles x G blocks x (L, bmp, P+H): each block's sum
+    over its own gate columns of every row of W, for the dh carries, the
+    layer-below input gradients and dx), and, for more than one tile, each
+    tile's dW/db (L, P+H+1, 4H) summed over tiles in tile order at the
+    end."""
+    bmp = factorization.round_up(block_b, seq_lib.split_row_group(block_b))
+    n_tiles = -(-B // block_b)
+    part = 2 * n_tiles * n_blocks * L * bmp * (P + H)
+    tiles = n_tiles * L * (P + H + 1) * 4 * H if n_tiles > 1 else 0
+    return part, tiles
 
 
 def _validate(w, b, x, c_traj, h_traj, dc, dh, scales=None) -> None:
@@ -219,14 +242,54 @@ def close_workspace(n_tiles: int, n_out: int) -> tuple[int, int]:
     return (n_tiles + groups) * n_out, groups + 1
 
 
+def _run_split(w, b, x, c_traj, h_traj, dc, dh, block_b: int, n_blocks: int,
+               scales: torch.Tensor | None):
+    """One cooperative launch of the split backward: ``n_blocks`` blocks a
+    tile of ``block_b`` rows, all resident at once.  A refused launch
+    raises; nothing else runs in its place."""
+    q8 = scales is not None
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    smem = seq_lib.working_set_bytes(T, L, P, H, block_b, mode="bwd",
+                                     n_blocks=n_blocks,
+                                     **seq_lib._bytes(w, x))
+    if smem > factorization.H100_SMEM_PER_BLOCK:
+        raise ValueError(f"lstm_seq_bwd: split tile ({block_b}, G="
+                         f"{n_blocks}) needs {smem} bytes of shared memory, "
+                         "above a thread block's "
+                         f"{factorization.H100_SMEM_PER_BLOCK}")
+    threads = seq_lib.split_threads(L, H, n_blocks, mode="bwd")
+    w, b = w.contiguous(), b.contiguous()
+    c_traj, h_traj = c_traj.contiguous(), h_traj.contiguous()
+    dc, dh = dc.contiguous(), dh.contiguous()
+    scales = None if scales is None else scales.contiguous()
+    dw = x.new_empty(w.shape, dtype=F32 if q8 else w.dtype)
+    db = torch.empty_like(b)
+    dx = x.new_empty(B, T, P)
+    n_part, n_tile = split_workspace(B, L, P, H, block_b, n_blocks)
+    part = x.new_empty(n_part, dtype=F32)
+    tile_part = x.new_empty(n_tile, dtype=F32)
+    lib, fn = _entry(w.dtype, x.dtype, split=True)
+    w_ptrs = (w.data_ptr(), scales.data_ptr()) if q8 else (w.data_ptr(),)
+    err = fn(*w_ptrs, b.data_ptr(), x.data_ptr(), c_traj.data_ptr(),
+             h_traj.data_ptr(), dc.data_ptr(), dh.data_ptr(), dw.data_ptr(),
+             db.data_ptr(), dx.data_ptr(), part.data_ptr(),
+             tile_part.data_ptr(), B, T, L, P, H, x.stride(0), x.stride(1),
+             block_b, n_blocks, threads, smem,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, _NAME, err)
+    return dw, db, dx
+
+
 def _run(w, b, x, c_traj, h_traj, dc, dh, block_b: int,
-         time_chunk: int | None, scales: torch.Tensor | None):
+         time_chunk: int | None, scales: torch.Tensor | None,
+         n_blocks: int = 1):
     """The backward at a resolved tiling: its plain version on the CPU, one
-    launch of the f32 or (with ``scales``) int8 instance on the card."""
+    launch of the f32 or (with ``scales``) int8 instance on the card
+    (``n_blocks`` > 1: the split home's)."""
     _validate(w, b, x, c_traj, h_traj, dc, dh, scales)
-    if block_b not in seq_lib.TILE_ROWS:
-        raise ValueError(f"lstm_seq_bwd: block_b must be one of "
-                         f"{seq_lib.TILE_ROWS}, not {block_b}")
+    seq_lib._check_tile(block_b, n_blocks, w.shape[-1] // 4, "block_b")
     if x.device.type == "meta":
         q8 = scales is not None
         return meta_like((w.shape, torch.float32 if q8 else w.dtype),
@@ -240,6 +303,9 @@ def _run(w, b, x, c_traj, h_traj, dc, dh, block_b: int,
                            "call it outside autograd")
     if x.stride(-1) != 1:
         raise ValueError("lstm_seq_bwd: x needs a contiguous last dim")
+    if n_blocks > 1:
+        return _run_split(w, b, x, c_traj, h_traj, dc, dh, block_b,
+                          n_blocks, scales)
     q8 = scales is not None
     L, H = w.shape[0], w.shape[-1] // 4
     P = w.shape[1] - H
@@ -297,7 +363,7 @@ def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
                  c_traj: torch.Tensor, h_traj: torch.Tensor,
                  dc: torch.Tensor, dh: torch.Tensor, *, block_b: int,
                  time_chunk: int | None = None,
-                 scales: torch.Tensor | None = None
+                 scales: torch.Tensor | None = None, n_blocks: int = 1
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Whole-sequence BPTT in ONE kernel launch: (dw, db, dx).
 
@@ -308,23 +374,36 @@ def lstm_seq_bwd(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     ``time_chunk`` come from ``lstm_seq.choose_batch_block(mode="bwd")``:
     ``time_chunk=None`` holds x and both trajectories whole in shared
     memory, ``tc`` streams them in reverse chunks; the gradients are
-    bit-identical for every ``time_chunk`` and from run to run.  With
-    ``scales``, ``w`` is the int8 stack and this is ``lstm_seq_bwd_q8``."""
+    bit-identical for every ``time_chunk`` and from run to run.
+    ``n_blocks`` > 1 (``choose_batch_block``'s split home) runs the split
+    backward: the stack's gate columns over that many co-resident blocks a
+    tile, one cooperative launch.  With ``scales``, ``w`` is the int8
+    stack and this is ``lstm_seq_bwd_q8``."""
     if scales is not None:
         return lstm_seq_bwd_q8(w, scales, b, x, c_traj, h_traj, dc, dh,
-                               block_b=block_b, time_chunk=time_chunk)
+                               block_b=block_b, time_chunk=time_chunk,
+                               n_blocks=n_blocks)
     called("lstm_seq_bwd", -(-x.shape[0] // block_b))
-    out = _run(w, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, None)
+    out = _run(w, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, None,
+               n_blocks)
     if x.device.type == "cuda":
-        lstm_seq_bwd.launches += 1
-        lstm_seq_bwd.bf16_launches += int(x.dtype == torch.bfloat16)
+        _count(lstm_seq_bwd, x, n_blocks)
     return out
+
+
+def _count(wrapper, x: torch.Tensor, n_blocks: int) -> None:
+    """One launch of ``wrapper``'s kernel: ``launches``, ``split_launches``
+    on the split home and ``bf16_launches`` on a bf16 input."""
+    wrapper.launches += 1
+    wrapper.split_launches += int(n_blocks > 1)
+    wrapper.bf16_launches += int(x.dtype == torch.bfloat16)
 
 
 def lstm_seq_bwd_q8(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
                     x: torch.Tensor, c_traj: torch.Tensor,
                     h_traj: torch.Tensor, dc: torch.Tensor, dh: torch.Tensor,
-                    *, block_b: int, time_chunk: int | None = None
+                    *, block_b: int, time_chunk: int | None = None,
+                    n_blocks: int = 1
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The int8 instance of the backward in ONE launch: (dw, db, dx), dw
     and db f32, dx in x's dtype (float32 or bfloat16, the cotangents in
@@ -334,16 +413,18 @@ def lstm_seq_bwd_q8(wq: torch.Tensor, scales: torch.Tensor, b: torch.Tensor,
     straight-through gradients of the dequantized stack, for the f32
     master weights."""
     called("lstm_seq_bwd_q8", -(-x.shape[0] // block_b))
-    out = _run(wq, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, scales)
+    out = _run(wq, b, x, c_traj, h_traj, dc, dh, block_b, time_chunk, scales,
+               n_blocks)
     if x.device.type == "cuda":
-        lstm_seq_bwd_q8.launches += 1
-        lstm_seq_bwd_q8.bf16_launches += int(x.dtype == torch.bfloat16)
+        _count(lstm_seq_bwd_q8, x, n_blocks)
     return out
 
 
-#: kernel launches since the last reset (CPU calls are not counted), and
-#: those of them on a bf16 input
+#: kernel launches since the last reset (CPU calls are not counted), those
+#: of them on the split home, and those on a bf16 input
 lstm_seq_bwd.launches = lstm_seq_bwd.bf16_launches = 0
-#: q8 kernel launches since the last reset (CPU calls are not counted), and
-#: those of them on a bf16 input
+lstm_seq_bwd.split_launches = 0
+#: q8 kernel launches since the last reset (CPU calls are not counted),
+#: those of them on the split home, and those on a bf16 input
 lstm_seq_bwd_q8.launches = lstm_seq_bwd_q8.bf16_launches = 0
+lstm_seq_bwd_q8.split_launches = 0

@@ -1,8 +1,8 @@
 """Public entry points of the kernels, with automatic blocks.
 
 ``lstm_cell`` takes its tile and K split from ``lstm_cell.choose_blocks``;
-``lstm_seq`` and ``lstm_seq_q8`` take their ``(block_b, time_chunk)`` from
-``lstm_seq.choose_batch_block``; ``wkv6`` takes its chunk from the caller
+``lstm_seq`` and ``lstm_seq_q8`` take their ``(block_b, time_chunk,
+n_blocks)`` from ``lstm_seq.choose_batch_block``; ``wkv6`` takes its chunk from the caller
 (the model's ``cfg.ssm.chunk``) and runs one batch-head row per thread
 block; ``mamba_scan`` takes its chunk from the caller and runs one batch
 row and ``di_tile`` channels per thread block; ``flash_prefill`` takes its
@@ -43,29 +43,36 @@ def lstm_cell(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
 def lstm_seq(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
              block_b: int | None = None, time_chunk: int | None = None,
              bwd_block_b: int | None = None,
-             bwd_time_chunk: int | None = None
+             bwd_time_chunk: int | None = None,
+             n_blocks: int | None = None, bwd_n_blocks: int | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Whole-sequence stacked LSTM, ONE kernel launch for all T steps (and,
     under autograd, ONE reverse-sweep launch for the backward).
 
     w: (L, P+H, 4H) (lstm_seq.stack_params); b: (L, 4H); x: (B, T, P)
     padded input.  Returns final (c, h), each (L, B, H).
-    ``block_b``/``time_chunk`` tile the forward; ``bwd_block_b``/
-    ``bwd_time_chunk`` tile the training path, its trajectory forward
-    included (None: from ``choose_batch_block(mode="bwd")``).  Raises ValueError when the weight stack exceeds a
-    thread block's shared memory even at (bm=1, tc=1) —
+    ``block_b``/``time_chunk``/``n_blocks`` tile the forward (``n_blocks``
+    > 1: the stack split over that many co-resident blocks a tile);
+    ``bwd_block_b``/``bwd_time_chunk``/``bwd_n_blocks`` tile the training
+    path, its trajectory forward included (None: from
+    ``choose_batch_block(mode="bwd")``).  Raises ValueError when the
+    weight stack fits neither a thread block's shared memory at (bm=1,
+    tc=1) nor a split the card holds at once —
     core/lstm.forward_fused_seq routes that case to the per-cell kernel —
     and, on CUDA tensors under autograd, when the backward fits nowhere (a
     CPU call then takes autograd of ``ref.lstm_seq``)."""
     return _lstm_seq.lstm_seq(w, b, x, block_b=block_b,
                               time_chunk=time_chunk, bwd_block_b=bwd_block_b,
-                              bwd_time_chunk=bwd_time_chunk)
+                              bwd_time_chunk=bwd_time_chunk,
+                              n_blocks=n_blocks, bwd_n_blocks=bwd_n_blocks)
 
 
 def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
                 block_b: int | None = None, time_chunk: int | None = None,
                 bwd_block_b: int | None = None,
-                bwd_time_chunk: int | None = None
+                bwd_time_chunk: int | None = None,
+                n_blocks: int | None = None,
+                bwd_n_blocks: int | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``lstm_seq`` over int8 weights: ``w`` is the f32 MASTER stack,
     quantized per output channel inside (``ref.quantize_q8``) and held by
@@ -77,7 +84,9 @@ def lstm_seq_q8(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, *,
     return _lstm_seq.lstm_seq_q8(w, b, x, block_b=block_b,
                                  time_chunk=time_chunk,
                                  bwd_block_b=bwd_block_b,
-                                 bwd_time_chunk=bwd_time_chunk)
+                                 bwd_time_chunk=bwd_time_chunk,
+                                 n_blocks=n_blocks,
+                                 bwd_n_blocks=bwd_n_blocks)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

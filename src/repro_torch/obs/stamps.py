@@ -4,14 +4,16 @@ K6b ``wkv6_bwd``), the fused LSTM cell (K1 ``lstm_cell``), the decode
 attention (K9 ``decode_attn``), the Mamba selective scans (K7 and K7t under
 ``mamba_scan``, and K7b too under ``mamba_scan_bwd``), the stacked-LSTM
 forward (K2 and K2t under ``lstm_seq``) or its backward (K3 and K3-q8 under
-``lstm_seq_bwd``) spends its cycles.
+``lstm_seq_bwd``), and their split homes (``lstm_seq_split``,
+``lstm_seq_bwd_split``), spends its cycles.
 
     PYTHONPATH=src python -m repro_torch.obs.stamps [--kernel wkv6]
         [--dtype float32] [--sass] [--no-stamps]
 
 Each kernel source is copied with a ``clock64()`` stamp after every
-barrier of its ``__global__`` body (``__syncthreads()`` or a named
-barrier, ``lstm_gates::bar_sync``) and one before the body's closing
+barrier of its ``__global__`` body (``__syncthreads()``, a named
+barrier, ``lstm_gates::bar_sync``, or the split kernels' grid barrier,
+``lstm_gates::grid_sync``) and one before the body's closing
 brace: thread 0 of each block adds the cycles since its previous
 stamp to a per-(block, site) counter and counts its passes, so site k's
 counter holds the time of the phase that ends there, the wait for the
@@ -43,7 +45,11 @@ launch at the kernel's main-path shapes, random inputs from seed 0:
   x and dy bf16 unless ``--dtype float32``;
 - ``lstm_seq_bwd``: the paper's 2 x 32 stack trained at batch 64, T = 128:
   K3 (f32) and K3-q8 at the backward table's tiling, and their bf16
-  instances beside them unless ``--dtype float32``.
+  instances beside them unless ``--dtype float32``;
+- ``lstm_seq_split``, ``lstm_seq_bwd_split``: the split home at the top of
+  the paper's Fig 5, ``SPLIT_SHAPES`` (3 x 256 and 3 x 128, T = 128), f32:
+  K2 at B = 1 and K2t at B = 64, or K3 at B = 64 and B = 1, each at its
+  table's split tiling (G co-resident blocks a tile).
 
 Printed per site: its line in the source, the nearest phase comment above
 it, the mean cycles a pass, the passes a block (over the blocks that reach
@@ -93,6 +99,8 @@ DECODE_B, DECODE_S, DECODE_LEN = 4, 517, 508
 MAMBA_SHAPE, MAMBA_CHUNK = (4, 512, 16384, 16), 64
 #: the HAR training backward: batch, T, layers, hidden (P = H)
 LSTM_BWD_SHAPE = (64, 128, 2, 32)
+#: the split home's stamped shapes: T, layers, hidden (P = H)
+SPLIT_SHAPES = ((128, 3, 256), (128, 3, 128))
 HBM_BYTES_PER_S = 3.35e12
 MAX_SITES = 64
 MAX_BLOCKS = 4096
@@ -127,8 +135,10 @@ extern "C" int stamps_reset() {{
 
 
 def is_barrier(line: str) -> bool:
-    """Whether a source line is a block or named barrier the stamps follow."""
-    return "__syncthreads();" in line or "bar_sync(" in line
+    """Whether a source line is a block, named or grid barrier the stamps
+    follow."""
+    return ("__syncthreads();" in line or "bar_sync(" in line
+            or "grid_sync(" in line)
 
 
 def instrument(text: str) -> tuple[str, list[tuple[int, str]]]:
@@ -368,7 +378,8 @@ def lstm_seq_runs(dtype, rnd) -> dict:
     """K2 at B = 1 and K2t at B = 64 (the paper's 2 x 32 stack, T = 128,
     each at its table's tiling), f32 and ``dtype``, each held to its plain
     version and timed back to back and in a CUDA graph; and bf16's 2 x 64
-    K2 at B = 1, which f32 cannot run in one block."""
+    K2 at B = 1, which f32 cannot run in one block (f32 runs it on the
+    split home)."""
     from repro_torch.kernels import lstm_seq as seq_k
     from repro_torch.kernels import ref
     T_, L, H = 128, 2, 32
@@ -390,14 +401,14 @@ def lstm_seq_runs(dtype, rnd) -> dict:
             name = (f"lstm_seq{'_traj' if traj else ''} B={B} {L}x{Hs} "
                     f"{str(dt).split('.')[1]} tiles {tuple(tiles)}")
             got = seq_k._launch(w, b, x, tiles.block_b, tiles.time_chunk,
-                                traj)
+                                traj, n_blocks=tiles.n_blocks)
             want = ref.lstm_seq_traj(w, b, x)
             for g, r in zip(got, want):
                 torch.testing.assert_close(
                     g.float(), r.float(), rtol=2e-5,
                     atol=2e-5 if g.dtype == torch.float32 else 2.0 ** -7)
             fn = (lambda w=w, b=b, x=x, t=tiles, tr=traj: seq_k._launch(
-                w, b, x, t.block_b, t.time_chunk, tr))
+                w, b, x, t.block_b, t.time_chunk, tr, n_blocks=t.n_blocks))
             timed(name, fn)
             runs[name] = (fn, "lstm_seq")
     return runs
@@ -593,13 +604,63 @@ def lstm_bwd_runs(dtype, rnd) -> dict:
     return runs
 
 
+def lstm_split_runs(dtype, rnd, bwd: bool = False) -> dict:
+    """The split home at ``SPLIT_SHAPES`` in f32: K2 at B = 1 and K2t at
+    B = 64 (``bwd``: K3 at B = 64 and B = 1), each at its table's tiling
+    and held to its plain version, timed back to back and in a CUDA
+    graph."""
+    from repro_torch.kernels import lstm_seq as seq_k
+    from repro_torch.kernels import lstm_seq_bwd as bwd_k
+    from repro_torch.kernels import ref
+    runs = {}
+    for T_, L, H in SPLIT_SHAPES:
+        w = rnd(L, 2 * H, 4 * H, scale=(2 * H) ** -0.5)
+        b = rnd(L, 4 * H, scale=0.1)
+        for B, traj in ((1, False), (64, True)) if not bwd else \
+                ((64, True), (1, True)):
+            x = rnd(B, T_, H)
+            t = seq_k.choose_batch_block(B, T_, L, H, H,
+                                         mode="bwd" if traj else "fwd")
+            kw = dict(block_b=t.block_b, n_blocks=t.n_blocks)
+            name = (f"{'lstm_seq_bwd' if bwd else 'lstm_seq'}"
+                    f"{'_traj' if traj and not bwd else ''} B={B} {L}x{H} "
+                    f"tiles {tuple(t)}")
+            if not bwd:
+                got = seq_k._launch(w, b, x, t.block_b, None, traj,
+                                    n_blocks=t.n_blocks)
+                want = ref.lstm_seq_traj(w, b, x)
+                for g, r in zip(got, want):
+                    torch.testing.assert_close(g, r, rtol=2e-5, atol=2e-5)
+                fn = (lambda w=w, b=b, x=x, t=t, tr=traj: seq_k._launch(
+                    w, b, x, t.block_b, None, tr, n_blocks=t.n_blocks))
+                runs[name] = (fn, "lstm_seq")
+            else:
+                _, _, ct, ht = seq_k.lstm_seq_traj(w, b, x, **kw)
+                dc, dh = rnd(L, B, H), rnd(L, B, H)
+                got = bwd_k.lstm_seq_bwd(w, b, x, ct, ht, dc, dh, **kw)
+                want = bwd_k.lstm_seq_bwd_plain(w, b, x, ct, ht, dc, dh)
+                for g, r in zip(got, want):
+                    e = float((g - r).abs().max())
+                    assert e <= 2e-4 * max(1.0, float(r.abs().max())), e
+                fn = (lambda w=w, b=b, x=x, ct=ct, ht=ht, dc=dc, dh=dh,
+                      kw=kw: bwd_k.lstm_seq_bwd(w, b, x, ct, ht, dc, dh,
+                                                **kw))
+                runs[name] = (fn, "lstm_seq_bwd")
+            timed(name, fn)
+    return runs
+
+
 KERNELS = {"wkv6": wkv6_runs, "lstm_cell": lstm_cell_runs,
            "decode_attn": decode_attn_runs, "mamba_scan": mamba_fwd_runs,
            "mamba_scan_bwd": mamba_runs, "lstm_seq": lstm_seq_runs,
-           "lstm_seq_bwd": lstm_bwd_runs}
+           "lstm_seq_bwd": lstm_bwd_runs, "lstm_seq_split": lstm_split_runs,
+           "lstm_seq_bwd_split": lambda dtype, rnd: lstm_split_runs(
+               dtype, rnd, bwd=True)}
 #: the sources each choice stamps (by default the choice's own)
 SOURCES = {"wkv6": ("wkv6", "wkv6_bwd"),
-           "mamba_scan_bwd": ("mamba_scan", "mamba_scan_bwd")}
+           "mamba_scan_bwd": ("mamba_scan", "mamba_scan_bwd"),
+           "lstm_seq_split": ("lstm_seq",),
+           "lstm_seq_bwd_split": ("lstm_seq_bwd",)}
 
 
 def main(argv=None) -> None:

@@ -9,7 +9,12 @@
 // dynamic shared memory, a NaN); blocks run one after another in a
 // shuffled order, so any block of a reduction can be the last to arrive.
 // Its floating point is the host's (glibc's expf), so bits differ from the
-// card's; nothing here says anything about timing.
+// card's; nothing here says anything about timing.  A cooperative launch
+// (cudaLaunchKernelEx with cudaLaunchAttributeCooperative) runs every
+// block's threads at once, as the card keeps every block of one resident,
+// so a grid barrier (lstm_gates::grid_sync, cooperative_groups.h's
+// this_grid().sync(): one barrier of every thread of the launch) meets
+// there.
 //
 // tests/cuda_mock.py rewrites a source for it: each launch
 // `k<<<grid, block, smem, stream>>>(args)` becomes
@@ -61,6 +66,20 @@ inline float4 make_float4(float x, float y, float z, float w) {
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union {
+    int cooperative;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes = 0;
+  cudaStream_t stream = nullptr;
+  cudaLaunchAttribute* attrs = nullptr;
+  unsigned numAttrs = 0;
+};
 enum cudaFuncAttribute {
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
   cudaFuncAttributePreferredSharedMemoryCarveout = 9
@@ -125,14 +144,38 @@ struct Copy {
 };
 
 inline thread_local Block* block = nullptr;
+// every thread of the cooperative launch running, else null
+inline thread_local std::barrier<>* coresident = nullptr;
 inline thread_local unsigned char* dyn_smem = nullptr;
 inline thread_local std::vector<std::vector<Copy>> groups;
 inline thread_local std::vector<Copy> open_group;
 
 template <class F>
 void launch(dim3 grid, dim3 threads, size_t smem, F kernel);
+template <class F>
+void launch_coresident(dim3 grid, dim3 threads, size_t smem, F kernel);
 
 }  // namespace cuda_mock
+
+// cudaLaunchKernelEx: cooperative launches run every block at once, others
+// as a <<<>>> launch does.
+template <class... Exp, class... Act>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                                      void (*kernel)(Exp...),
+                                      Act&&... args) {
+  bool coop = false;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    coop |= cfg->attrs[i].id == cudaLaunchAttributeCooperative &&
+            cfg->attrs[i].val.cooperative != 0;
+  auto body = [&] { kernel(args...); };
+  if (coop)
+    cuda_mock::launch_coresident(cfg->gridDim, cfg->blockDim,
+                                 cfg->dynamicSmemBytes, body);
+  else
+    cuda_mock::launch(cfg->gridDim, cfg->blockDim, cfg->dynamicSmemBytes,
+                      body);
+  return cudaSuccess;
+}
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
@@ -165,6 +208,12 @@ template <class T>
 inline T __ldcg(const T* p) {
   T v;
   __atomic_load(p, &v, __ATOMIC_SEQ_CST);
+  return v;
+}
+inline float4 __ldcg(const float4* p) {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+  float4 v;
+  std::memcpy(&v, p, sizeof v);
   return v;
 }
 
@@ -227,6 +276,45 @@ void launch(dim3 grid, dim3 threads, size_t smem, F kernel) {
       });
     for (auto& th : pool) th.join();
   }
+}
+
+// Every block's threads at once, each block with its own meeting points
+// and its own 0xff-filled dynamic shared memory, all of them meeting at
+// the grid barrier.
+template <class F>
+void launch_coresident(dim3 grid, dim3 threads, size_t smem, F kernel) {
+  const int n = (int)(threads.x * threads.y * threads.z);
+  std::vector<dim3> order;
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) order.push_back(dim3(x, y, z));
+  std::vector<std::unique_ptr<Block>> blocks;
+  std::vector<std::vector<unsigned char>> shared;
+  for (size_t i = 0; i < order.size(); ++i) {
+    blocks.emplace_back(std::make_unique<Block>(n));
+    shared.emplace_back(smem + 16, 0xff);
+  }
+  std::barrier<> all((std::ptrdiff_t)(order.size() * n));
+  std::vector<std::thread> pool;
+  for (size_t k = 0; k < order.size(); ++k) {
+    unsigned char* base = shared[k].data();
+    base += (16 - reinterpret_cast<uintptr_t>(base) % 16) % 16;
+    for (int t = 0; t < n; ++t)
+      pool.emplace_back([&, k, base, t] {
+        block = blocks[k].get();
+        coresident = &all;
+        dyn_smem = base;
+        groups.clear();
+        open_group.clear();
+        threadIdx = dim3(t % threads.x, t / threads.x % threads.y,
+                         t / (threads.x * threads.y));
+        blockIdx = order[k];
+        blockDim = threads;
+        gridDim = grid;
+        kernel();
+      });
+  }
+  for (auto& th : pool) th.join();
 }
 
 }  // namespace cuda_mock

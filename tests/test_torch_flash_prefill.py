@@ -171,7 +171,8 @@ def test_bf16_budget_table_at_the_served_head_widths(dh, dhp, kb, blocks):
     assert fp.choose_blocks(500, dh, BF16) == fp.PrefillBlocks(64, kb)
     ws = fp.working_set_bytes(64, kb, dh, BF16)
     assert ws == 1024 + 64 * dhp * 2 + 2 * 2 * kb * dhp * 2 + 5 * 8
-    assert fp.blocks_per_sm(ws) == blocks >= fp.TC_MIN_BLOCKS_PER_SM
+    assert factorization.blocks_per_sm(ws) == blocks \
+        >= fp.TC_MIN_BLOCKS_PER_SM
     per_block = ws + factorization.H100_SMEM_RESERVED_PER_BLOCK
     assert blocks * per_block <= factorization.H100_SMEM_PER_SM \
         < (blocks + 1) * per_block
@@ -181,8 +182,8 @@ def test_bf16_budget_table_at_the_served_head_widths(dh, dhp, kb, blocks):
         assert tile % fp.SWIZZLE_ALIGN == 0
     coarser = [b for b in fp.TC_K_BLOCKS if b > kb]
     for b in coarser:           # a coarser kv tile leaves fewer blocks
-        assert fp.blocks_per_sm(fp.working_set_bytes(64, b, dh, BF16)) \
-            < fp.TC_MIN_BLOCKS_PER_SM
+        assert factorization.blocks_per_sm(
+            fp.working_set_bytes(64, b, dh, BF16)) < fp.TC_MIN_BLOCKS_PER_SM
 
 
 @pytest.mark.parametrize("S,dh,want", [

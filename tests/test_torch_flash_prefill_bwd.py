@@ -374,7 +374,7 @@ def test_bwd_budget_table_at_every_head_width(dh, dtype):
     assert (bl.dq_rows, bl.dkv_rows) == (fp.BWD_DQ_ROWS, fp.BWD_DKV_ROWS)
 
     def fits(tile):
-        return all(fp.blocks_per_sm(fp.bwd_working_set_bytes(
+        return all(factorization.blocks_per_sm(fp.bwd_working_set_bytes(
             r, tile, dh, dtype, dq)) >= fp.BWD_MIN_BLOCKS_PER_SM
             for r, dq in ((32, True), (16, False)))
     assert fits(bl.tile)

@@ -2,7 +2,9 @@
 K3 (``csrc/lstm_seq_bwd.cu``) run on
 the CPU under the g++ mock of the CUDA runtime (``tests/cuda_mock``): one
 std::thread per CUDA thread, real barriers, shuffles and named barriers,
-cp.async copies that land only at their wait, blocks in a shuffled order.
+cp.async copies that land only at their wait, blocks in a shuffled order
+(a cooperative launch, the LSTM kernels' split home, runs every block at
+once, so its grid barriers meet).
 Each is held against its plain version at small shapes (f32, bf16 and int8;
 ragged tails; many tiles, so that the multi-level closing sums run), two
 runs give the same bits, and every ticket the kernel draws ends where the
@@ -500,6 +502,139 @@ def test_k3_bf16_under_the_mock_matches_its_plain_version(case):
         assert torch.equal(u, v.to(u.dtype)), name
 
 
+def _split_fwd_call(lib, pair, w, s, b, x, block_b, G, traj):
+    """One split K2 (K2t with ``traj``) launch under the mock, the table's
+    shared memory: (c, h) or (c, h, c_traj, h_traj)."""
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    smem = seq_k.working_set_bytes(T, L, P, H, block_b, n_blocks=G,
+                                   **seq_k._bytes(w, x))
+    outs = [torch.full((L, B, H), float("nan")).to(x.dtype)
+            for _ in range(2)]
+    outs += [torch.full((T, L, B, H), float("nan")) for _ in range(2)] \
+        if traj else []
+    hx = torch.full((seq_k.split_exchange_floats(B, L, H, block_b),),
+                    float("nan"))
+    fn = getattr(lib, f"lstm_seq_split_{pair}")
+    ptrs = [w.data_ptr()] + ([s.data_ptr()] if s is not None else []) + [
+        b.data_ptr(), x.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+        outs[2].data_ptr() if traj else None,
+        outs[3].data_ptr() if traj else None, hx.data_ptr()]
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    args = (B, T, L, P, H, x.stride(0), x.stride(1), block_b, G,
+            seq_k.split_threads(L, H, G, block_b=block_b))
+    # a launch priced one byte off is refused before it runs
+    assert fn(*ptrs, *args, smem + 1, None) != 0
+    assert fn(*ptrs, *args, smem, None) == 0
+    return tuple(outs)
+
+
+def _split_bwd_call(lib, pair, w, s, b, x, ct, ht, dc, dh, block_b, G):
+    """One split K3 launch under the mock: (dw, db, dx)."""
+    L, H = w.shape[0], w.shape[-1] // 4
+    P = w.shape[1] - H
+    B, T, _ = x.shape
+    q8 = s is not None
+    smem = seq_k.working_set_bytes(T, L, P, H, block_b, mode="bwd",
+                                   n_blocks=G, **seq_k._bytes(w, x))
+    dw = torch.full(w.shape, float("nan")).to(torch.float32 if q8
+                                              else w.dtype)
+    db = torch.full(b.shape, float("nan")).to(b.dtype)
+    dx = torch.full((B, T, P), float("nan")).to(x.dtype)
+    n_part, n_tile = bwd_k.split_workspace(B, L, P, H, block_b, G)
+    part = torch.full((max(1, n_part),), float("nan"))
+    tile_part = torch.full((max(1, n_tile),), float("nan"))
+    fn = getattr(lib, f"lstm_seq_bwd_split_{pair}")
+    ptrs = [w.data_ptr()] + ([s.data_ptr()] if q8 else []) + [
+        t.data_ptr() for t in (b, x, ct, ht, dc, dh, dw, db, dx, part,
+                               tile_part)]
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    args = (B, T, L, P, H, x.stride(0), x.stride(1), block_b, G,
+            seq_k.split_threads(L, H, G, mode="bwd"))
+    assert fn(*ptrs, *args, smem + 1, None) != 0
+    assert fn(*ptrs, *args, smem, None) == 0
+    return dw, db, dx
+
+
+@pytest.mark.parametrize("case", [
+    # (B, T, L, H, P, the table's budget and mode, or a pinned (tile, G))
+    (2, 6, 2, 32, 32, (80_000, "bwd"), 2),
+    (1, 5, 2, 32, 32, (45_000, "bwd"), 4),
+    (1, 4, 2, 64, 64, (None, "fwd"), 2),
+    (5, 4, 2, 8, 9, (4, 2), 2),
+], ids=["2x32-G2", "2x32-G4", "2x64-G2", "ragged-tail"])
+@pytest.mark.parametrize("pair", list(_PAIRS))
+def test_split_k2_k2t_and_k3_under_the_mock(case, pair):
+    """The split home's forward, trajectory forward and backward, every
+    instance pair, on a cooperative launch of G blocks a tile that meet at
+    grid barriers, at the f32 table's tiling: 2 x 32 split over 2 and
+    over 4 blocks (the training table under a budget no one-block home
+    fits), 2 x 64 over 2 (the serving table's own answer), and a ragged
+    tail (5 rows in tiles of 4, pinned).  The
+    forwards against their plain versions (as K2/K2t's test) and equal,
+    bit for bit, to the shared-home instance at the same tile; the
+    trajectory launch's (c, h) the plain launch's; the backward on the
+    split trajectories against ``lstm_seq_bwd_plain`` at 1e-4 of each
+    gradient's largest entry (one bf16 step for bf16 gradients) and
+    against the shared-home K3 likewise (its products sum a row's columns
+    in another order, so not to the bit); two runs of each bit-identical;
+    a launch priced one byte off refused."""
+    B, T, L, H, P, table, G = case
+    if isinstance(table[1], int):        # a pinned (tile, G)
+        bm = table[0]
+    else:                                # the f32 table's, for every pair
+        budget, mode = table
+        got = seq_k.choose_batch_block(B, T, L, P, H, smem_budget=budget,
+                                       mode=mode)
+        assert got.n_blocks == G and got.time_chunk is None
+        bm = got.block_b
+    w, b, x, dc, dh = _lstm_inputs(B, T, L, H, P, seed=B * T + H + G)
+    wk, s, bk, xk, dck, dhk = _as_pair(pair, w, b, x, dc, dh)
+    lib = _lib("lstm_seq")
+    runs = [(_split_fwd_call(lib, pair, wk, s, bk, xk, bm, G, False),
+             _split_fwd_call(lib, pair, wk, s, bk, xk, bm, G, True))
+            for _ in range(2)]
+    (c0, h0), traj0 = runs[0]
+    again, traj1 = runs[1]
+    assert all(torch.equal(u, v) for u, v in
+               zip((*again, *traj1), (c0, h0, *traj0)))
+    assert torch.equal(traj0[0], c0) and torch.equal(traj0[1], h0)
+    if s is None:
+        want = ref.lstm_seq_traj(wk, bk, xk)
+    else:
+        want = seq_k.lstm_seq_q8_traj_plain(wk, s, bk, xk)
+    for u, r in zip(traj0[:2], want[:2]):
+        limit = _step(r) if xk.dtype == BF16 else 1e-5 * max(
+            1.0, float(r.abs().max()))
+        assert float((u.float() - r.float()).abs().max()) <= limit
+    for u, r in zip(traj0[2:], want[2:]):
+        assert float((u - r).abs().max()) <= 2e-5
+    shared = _k2_call(lib, pair, wk, s, bk, xk, bm, T, True)
+    assert all(torch.equal(u, v) for u, v in zip(shared, traj0))
+
+    ct, ht = traj0[2], traj0[3]
+    bwd_lib = _lib("lstm_seq_bwd")
+    grads, grads2 = [
+        _split_bwd_call(bwd_lib, pair, wk, s, bk, xk, ct, ht, dck, dhk, bm,
+                        G) for _ in range(2)]
+    assert all(torch.equal(u, v) for u, v in zip(grads, grads2))
+    want = bwd_k.lstm_seq_bwd_plain(wk, bk, xk, ct, ht, dck, dhk, scales=s)
+    one_block = _k3_call(bwd_lib, pair, wk, s, bk, xk, ct, ht, dck, dhk,
+                         bm, T)[:3]
+    for name, u, r, o in zip(("dw", "db", "dx"), grads, want, one_block):
+        assert u.dtype == r.dtype == o.dtype, name
+        for other in (r, o):
+            limit = _step(other) if other.dtype == BF16 else 1e-4 * max(
+                1.0, float(other.abs().max()))
+            assert float((u.float() - other.float()).abs().max()) <= \
+                limit, name
+
+
 @pytest.mark.parametrize("B,D,H", [(1, 9, 32), (5, 32, 20), (3, 64, 64)])
 def test_k1_bf16_under_the_mock_matches_its_plain_version(B, D, H):
     """K1's bf16 instance at ``choose_blocks``'s tile (x a strided row, as
@@ -546,7 +681,9 @@ def _lstm_launch_shapes():
     shapes = set()
     for L, P, H in ((2, 32, 32), (1, 32, 32), (3, 32, 32), (2, 64, 64),
                     (3, 64, 64), (2, 96, 96), (2, 48, 48), (2, 9, 8),
-                    (2, 48, 48), (3, 33, 33), (2, 40, 16), (2, 16, 16)):
+                    (2, 48, 48), (3, 33, 33), (2, 40, 16), (2, 16, 16),
+                    (1, 128, 128), (3, 128, 128), (2, 256, 256),
+                    (3, 256, 256)):
         for B in (1, 3, 37, 64, 1024):
             for T in (1, 7, 50, 128, 300):
                 shapes.add((B, T, L, P, H))
@@ -560,7 +697,8 @@ def test_the_c_side_prices_every_lstm_launch_as_the_table_does(pair):
     ``working_set_bytes`` at every tiling ``choose_batch_block`` picks for
     the instance pair, forward and backward, and at every tile and time
     chunk beside it; the register home's K3 (``lstm_seq_bwd_wave_smem_bytes``)
-    too."""
+    too, and the split home's (``lstm_seq_split_smem_bytes``,
+    ``lstm_seq_bwd_split_smem_bytes``) wherever the table splits."""
     wt, io = _PAIRS[pair]
     wb = {torch.float32: 4, BF16: 2, torch.int8: 1}[wt]
     kw = dict(dtype_bytes=io.itemsize, w_dtype_bytes=None if wb == 1 else wb,
@@ -572,21 +710,29 @@ def test_the_c_side_prices_every_lstm_launch_as_the_table_does(pair):
     bwd.restype = ctypes.c_longlong
     wave = bwd_lib.lstm_seq_bwd_wave_smem_bytes
     wave.restype = ctypes.c_longlong
+    split_fwd = _lib("lstm_seq").lstm_seq_split_smem_bytes
+    split_bwd = bwd_lib.lstm_seq_bwd_split_smem_bytes
+    for fn in (split_fwd, split_bwd):
+        fn.restype = ctypes.c_longlong
     priced = 0
     for B, T, L, P, H in _lstm_launch_shapes():
-        tilings = {(bm, tc) for bm in seq_k.TILE_ROWS
+        tilings = {(bm, tc, 1) for bm in seq_k.TILE_ROWS
                    for tc in (None, 1, 3, T // 2)
                    if tc is None or 1 <= tc < T}
         for mode in ("fwd", "bwd"):
             got = seq_k.choose_batch_block(B, T, L, P, H, mode=mode, **kw)
             if got is not None:
                 tilings.add(tuple(got))
-        for bm, tc in tilings:
+        for bm, tc, g in tilings:
             reg = seq_k.weight_home(L, P, H, bm) == "registers"
             for mode in ("fwd", "bwd"):
                 want = seq_k.working_set_bytes(T, L, P, H, bm, mode=mode,
-                                               time_chunk=tc, **kw)
-                if mode == "fwd":
+                                               time_chunk=tc, n_blocks=g,
+                                               **kw)
+                if g > 1:
+                    got = (split_fwd if mode == "fwd" else split_bwd)(
+                        L, P, H, bm, g, wb)
+                elif mode == "fwd":
                     got = fwd(T, L, P, H, bm, tc or T, int(reg), wb,
                               io.itemsize)
                 elif reg:

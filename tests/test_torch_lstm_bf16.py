@@ -282,8 +282,9 @@ def test_bf16_budget_table_term_by_term_at_2x64():
     """The forward of a 2 x 64 bf16 stack at T=128, B=1: the shared-home
     stack at 2 bytes a weight, rows of ``row_stride(64, 2)`` = 256 + 16,
     the f32 h slots and the bf16 x ring -- 156,672 bytes, one block.  Its
-    backward adds the f32 dW accumulators (264 KiB alone) and fits none,
-    and the f32 stack's forward fits none either."""
+    backward adds the f32 dW accumulators (264 KiB alone) and fits no one
+    block, and the f32 stack's forward fits none either: both are split
+    over two co-resident blocks."""
     T, L, P, H = 128, 2, 64, 64
     assert seq_k.row_stride(H, 2) == 272
     weights = L * (P + H) * 272 * 2
@@ -293,16 +294,21 @@ def test_bf16_budget_table_term_by_term_at_2x64():
                                    w_dtype_bytes=2) == \
         weights + h_slots + x_ring == 156_672
     assert 156_672 <= factorization.H100_SMEM_PER_BLOCK
-    assert tuple(seq_k.choose_batch_block(
-        1, T, L, P, H, dtype_bytes=2, w_dtype_bytes=2)) == (1, None)
+    assert seq_k.choose_batch_block(
+        1, T, L, P, H, dtype_bytes=2, w_dtype_bytes=2) == \
+        seq_k.SeqBlocks(1, None)
     assert seq_k.choose_batch_block(1, T, L, P, H, dtype_bytes=2,
-                                    w_dtype_bytes=2, mode="bwd") is None
-    assert seq_k.choose_batch_block(1, T, L, P, H) is None
-    # 3 x 64 serves in one block too; 2 x 64 bf16 trains at no batch
+                                    w_dtype_bytes=2, mode="bwd") == \
+        seq_k.SeqBlocks(1, None, 2)
+    assert seq_k.choose_batch_block(1, T, L, P, H) == \
+        seq_k.SeqBlocks(1, None, 2)
+    # 3 x 64 serves in one block too; 2 x 64 bf16 trains in one block at
+    # no batch, split at every one
     assert seq_k.choose_batch_block(1, T, 3, P, H, dtype_bytes=2,
-                                    w_dtype_bytes=2) is not None
+                                    w_dtype_bytes=2).n_blocks == 1
     assert seq_k.choose_batch_block(64, T, L, P, H, dtype_bytes=2,
-                                    w_dtype_bytes=2, mode="bwd") is None
+                                    w_dtype_bytes=2, mode="bwd") == \
+        seq_k.SeqBlocks(1, None, 2)
 
 
 def test_bf16_register_home_prices_its_widened_chunk():
@@ -346,19 +352,33 @@ def test_bf16_backward_table_prices_what_the_kernel_widens():
 
 @pytest.mark.parametrize("train", [False, True])
 def test_plan_viability_prices_the_dtype(train):
-    """``plan_viability(dtype_bytes=2, w_dtype_bytes=2)`` at 2 x 64: the
-    bf16 ``fused_seq`` serves (one block) and does not train; at f32 it
-    does neither; ``seq_plan_names`` binds another scheduler name, as the
-    JAX package's does."""
+    """``plan_viability(dtype_bytes=2, w_dtype_bytes=2)`` at 2 x 64: on
+    the H100's budget both dtypes serve and train (bf16 serves in one
+    block, the rest split over co-resident blocks); under a budget between
+    the smallest bf16 block and the smallest f32 one (a split of 64 blocks
+    of one unit each) the bf16 ``fused_seq`` is viable and the f32 one is
+    not; ``seq_plan_names`` binds another scheduler name, as the JAX
+    package's does."""
     cfg = LSTMConfig().with_complexity(64, 2)
-    bf16 = lstm.plan_viability(cfg, 1, 128, dtype_bytes=2, w_dtype_bytes=2,
-                               train=train)
-    f32 = lstm.plan_viability(cfg, 1, 128, train=train)
-    assert bf16("fused_seq") is (not train)
-    assert not f32("fused_seq")
-    assert all(p("sequential") and p("fused_cell") for p in (bf16, f32))
+    for budget in (None, "between"):
+        if budget == "between":
+            modes = ("fwd", "bwd") if train else ("fwd",)
+            least = [min(max(seq_k.working_set_bytes(
+                128, 2, 64, 64, 1, mode=m, n_blocks=g, **kw) for m in modes)
+                for g in (2, 4, 8, 16, 32, 64))
+                for kw in (dict(dtype_bytes=2, w_dtype_bytes=2), {})]
+            assert least[0] < least[1]
+            budget = sum(least) // 2
+        bf16 = lstm.plan_viability(cfg, 1, 128, dtype_bytes=2,
+                                   w_dtype_bytes=2, train=train,
+                                   smem_budget=budget)
+        f32 = lstm.plan_viability(cfg, 1, 128, train=train,
+                                  smem_budget=budget)
+        assert bf16("fused_seq")
+        assert f32("fused_seq") is (budget is None)
+        assert all(p("sequential") and p("fused_cell") for p in (bf16, f32))
     alias = lstm.plan_viability(cfg, 1, 128, seq_plan_names=("accel_seq",),
-                                train=train)
+                                train=train, smem_budget=budget)
     assert not alias("accel_seq") and alias("fused_seq")
 
 

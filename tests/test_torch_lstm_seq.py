@@ -94,22 +94,26 @@ def test_time_chunk_never_changes_the_result():
     # (L, H, B, T, expected): the paper's 2 x 32 holds whole T in one-row
     # blocks up to 132 rows, streams 512-step chunks at T=2048, and streams
     # 32-step chunks once a batch of 2000 needs 16-row blocks; the f32 stack
-    # of 2 x 64 (256 KiB) or 3 x 256 (6 MiB) alone exceeds a thread block
+    # of 2 x 64 (256 KiB) or 3 x 256 (6 MiB) alone exceeds a thread block,
+    # so the table splits it over the fewest co-resident blocks that hold
+    # it (2 and 32); 2 x 1024 (16 MiB) fits no split the card holds
     (2, 32, 1, 128, seq_k.SeqBlocks(1, None)),
     (2, 32, 64, 128, seq_k.SeqBlocks(1, None)),
     (2, 32, 1, 2048, seq_k.SeqBlocks(1, 512)),
     (2, 32, 2000, 128, seq_k.SeqBlocks(16, 32)),
-    (2, 64, 1, 128, None),
-    (3, 256, 1, 128, None),
-], ids=["2x32-B1", "2x32-B64", "2x32-T2048", "2x32-B2000", "2x64", "3x256"])
+    (2, 64, 1, 128, seq_k.SeqBlocks(1, None, 2)),
+    (3, 256, 1, 128, seq_k.SeqBlocks(1, None, 32)),
+    (2, 1024, 1, 128, None),
+], ids=["2x32-B1", "2x32-B64", "2x32-T2048", "2x32-B2000", "2x64", "3x256",
+        "2x1024"])
 def test_choose_batch_block_on_the_hopper_budget(case):
     L, H, B, T, expected = case
     got = seq_k.choose_batch_block(B, T, L, max(9, H), H)
     assert got == expected
     if got is not None:
         assert seq_k.working_set_bytes(
-            T, L, H, H, got.block_b, time_chunk=got.time_chunk) \
-            <= factorization.H100_SMEM_PER_BLOCK
+            T, L, H, H, got.block_b, time_chunk=got.time_chunk,
+            n_blocks=got.n_blocks) <= factorization.H100_SMEM_PER_BLOCK
         assert isinstance(got, tiling.TilePlan)
 
 
@@ -179,13 +183,21 @@ def test_weight_home_is_registers_only_at_the_paper_width(shape):
                          ids=["9x32", "5x64-q8", "17x16"])
 def test_a_wavefront_past_1024_threads_fits_no_block(shape):
     """Every layer needs its own warps at once: L x ceil(H / 8) warps past
-    32 fit no thread block, whatever the bytes, so the table finds nothing
+    32 fit no one thread block, whatever the bytes.  The split home gives
+    each block fewer units, so fewer warps a layer: 9 x 32 and 5 x 64 run
+    split, within the split instance's 512 threads; 17 layers need 17 warps
+    in every block of any split (544 threads), so the table finds nothing
     (core/lstm routes to fused_cell), for training too."""
     L, H, q8 = shape
     assert seq_k.fwd_threads(L, H) > seq_k.MAX_THREADS
     for mode in ("fwd", "bwd"):
-        assert seq_k.choose_batch_block(1, 8, L, H, H, mode=mode,
-                                        quantized=q8) is None
+        got = seq_k.choose_batch_block(1, 8, L, H, H, mode=mode,
+                                       quantized=q8)
+        if L == 17:
+            assert got is None
+        else:
+            assert got.n_blocks > 1 and seq_k.split_threads(
+                L, H, got.n_blocks) <= seq_k.SPLIT_MAX_THREADS
 
 
 def test_budget_functions_are_memoised():
@@ -215,7 +227,8 @@ def test_gate_parts_fill_a_thread_block(hidden_parts):
 
 
 def test_lstm_seq_raises_when_no_tile_fits():
-    tw, tb, tx, *_ = _stacked(4, 2, 64, 9, 1, 3)
+    # 17 layers need 17 warps in every block of any split: no tiling
+    tw, tb, tx, *_ = _stacked(4, 17, 16, 9, 1, 3)
     with pytest.raises(ValueError, match="per-cell"):
         ops.lstm_seq(tw, tb, tx)
 

@@ -126,21 +126,23 @@ def test_bwd_wrapper_rejects_what_the_kernel_does_not_take():
         [(True, t.shape) for t in (w, b, x)]
 
 
-#: 2 x 64: its weight stack and dW accumulators fit no thread block
-PAST_BUDGET = (2, 64, 9, 3, 5)
+#: 17 x 16: every layer needs its own warp in every block, one block or a
+#: split over any number of them (17 warps, past the split instance's 512
+#: threads), so no backward tiling exists
+PAST_BUDGET = (17, 16, 9, 3, 5)
 
 
-@pytest.mark.parametrize("bwd", [(None, None), (2, 3), (1, 1), "2x64"],
+@pytest.mark.parametrize("bwd", [(None, None), (2, 3), (1, 1), "past"],
                          ids=["auto", "streamed", "tc1", "oracle"])
 def test_autograd_function_matches_autograd_of_ref(bwd):
     """``lstm_seq`` under autograd — the trajectory forward and the
     backward's plain version on the CPU, or, at a width whose backward fits
     no thread block, the oracle — gives the grads of autograd through
     ``ref.lstm_seq``, and the forward's outputs."""
-    shape = PAST_BUDGET if bwd == "2x64" else SHAPES["odd"]
+    shape = PAST_BUDGET if bwd == "past" else SHAPES["odd"]
     w, b, x, dc, dh = _t(*_operands(4, *shape))
     ins = [t.clone().requires_grad_() for t in (w, b, x)]
-    kw = {} if bwd == "2x64" else dict(bwd_block_b=bwd[0],
+    kw = {} if bwd == "past" else dict(bwd_block_b=bwd[0],
                                        bwd_time_chunk=bwd[1])
     c, h = ops.lstm_seq(*ins, **kw)
     assert c.grad_fn is not None
@@ -255,12 +257,19 @@ def test_a_bwd_tiling_fits_the_trajectory_launch_that_feeds_it():
                                                    quantized=q8)
                     if got is None:
                         continue
-                    home = seq_k.weight_home(L, P, H, got.block_b)
+                    home = seq_k.weight_home(L, P, H, got.block_b,
+                                             got.n_blocks)
                     assert seq_k.working_set_bytes(
                         T, L, P, H, got.block_b, time_chunk=got.time_chunk,
-                        quantized=q8) <= budget, (L, H, B, T, q8, got)
-                    assert seq_k.fwd_threads(L, H) <= \
-                        seq_k.fwd_max_threads(got.block_b, home)
+                        quantized=q8, n_blocks=got.n_blocks) <= budget, (
+                        L, H, B, T, q8, got)
+                    if home == "split":
+                        assert seq_k.split_threads(
+                            L, H, got.n_blocks, block_b=got.block_b) <= \
+                            seq_k.SPLIT_MAX_THREADS
+                    else:
+                        assert seq_k.fwd_threads(L, H) <= \
+                            seq_k.fwd_max_threads(got.block_b, home)
 
 
 @pytest.mark.parametrize("case", [
@@ -269,34 +278,45 @@ def test_a_bwd_tiling_fits_the_trajectory_launch_that_feeds_it():
     # streams 16 trajectory rows whatever T (108,800 of 232,448 bytes),
     # and the forward's x ring holds 300 rows; the 16-row tiles of a batch
     # of 2000 hold 168 KiB before any window, so only 2-step chunks fit;
-    # 2 x 64 fits neither forward nor backward
+    # 2 x 64 fits no block, forward or backward: its stack and f32 dW are
+    # split over 4 co-resident blocks, in 2-row tiles at a batch of 64 (64
+    # blocks: 32 tiles of 4); 2 x 1024 fits no split the card holds
     (2, 32, 1, 128, seq_k.SeqBlocks(1, None)),
     (2, 32, 64, 128, seq_k.SeqBlocks(1, None)),
     (2, 32, 64, 300, seq_k.SeqBlocks(1, None)),
     (2, 32, 2000, 128, seq_k.SeqBlocks(16, 2)),
-    (2, 64, 1, 128, None),
-], ids=["2x32-B1", "2x32-B64", "2x32-T300", "2x32-B2000", "2x64"])
+    (2, 64, 1, 128, seq_k.SeqBlocks(1, None, 4)),
+    (2, 64, 64, 128, seq_k.SeqBlocks(2, None, 4)),
+    (2, 1024, 1, 128, None),
+], ids=["2x32-B1", "2x32-B64", "2x32-T300", "2x32-B2000", "2x64",
+        "2x64-B64", "2x1024"])
 def test_choose_batch_block_bwd_on_the_hopper_budget(case):
     L, H, B, T, expected = case
     got = seq_k.choose_batch_block(B, T, L, max(9, H), H, mode="bwd")
     assert got == expected
     if got is not None:
         assert seq_k.working_set_bytes(
-            T, L, H, H, got.block_b, mode="bwd",
-            time_chunk=got.time_chunk) <= factorization.H100_SMEM_PER_BLOCK
+            T, L, H, H, got.block_b, mode="bwd", time_chunk=got.time_chunk,
+            n_blocks=got.n_blocks) <= factorization.H100_SMEM_PER_BLOCK
 
 
 def test_budget_window_routes_the_backward_to_the_oracle():
-    """A budget that holds the forward but not the backward: the forward
-    stays fused and a training call of ``fused_seq`` runs on
+    """A budget that holds the forward but not the backward, in any home:
+    the forward stays fused and a training call of ``fused_seq`` runs on
     ``fused_cell``.  Where the backward fits nowhere, ``lstm_seq`` itself
     takes autograd of the oracle on the CPU, each named by a plan/dispatch
     event, while a CUDA call would raise."""
     cfg = LSTMConfig(hidden=16, n_layers=2, seq_len=6)
     P = max(cfg.input_dim, cfg.hidden)
-    fwd_min = seq_k.working_set_bytes(6, 2, P, 16, 1, time_chunk=1)
-    bwd_min = seq_k.working_set_bytes(6, 2, P, 16, 1, mode="bwd",
-                                      time_chunk=1)
+    # the smallest block of each mode: one block at (1, 1), or one of a
+    # split (the backward's tiling holds its trajectory forward too)
+    homes = [dict(time_chunk=1)] + [dict(n_blocks=g) for g in (2, 4, 8, 16)]
+    fwd_min = min(seq_k.working_set_bytes(6, 2, P, 16, 1, **h)
+                  for h in homes)
+    bwd_min = min(max(seq_k.working_set_bytes(6, 2, P, 16, 1, **h),
+                      seq_k.working_set_bytes(6, 2, P, 16, 1, mode="bwd",
+                                              **h)) for h in homes)
+    assert fwd_min < bwd_min
     budget = (fwd_min + bwd_min) // 2
     assert seq_k.choose_batch_block(3, 6, 2, P, 16, smem_budget=budget)
     assert seq_k.choose_batch_block(3, 6, 2, P, 16, smem_budget=budget,

@@ -22,6 +22,7 @@ from repro_torch.core import lstm, plans, wavefront  # noqa: E402
 from repro_torch.core.scheduler import (Plan, Scheduler,  # noqa: E402
                                         SyntheticLoadSensor)
 from repro_torch.data import har  # noqa: E402
+from repro_torch.kernels import lstm_seq as seq_k  # noqa: E402
 from repro_torch.launch import classify  # noqa: E402
 from repro_torch.obs import trace as trace_lib  # noqa: E402
 
@@ -121,30 +122,51 @@ def test_fused_seq_reports_its_tiling(small):
 
 
 def test_fused_seq_routes_at_2x64():
+    """The f32 2 x 64 stack (256 KiB) fits no block: the table splits it
+    over co-resident blocks and the call stays one ``fused_seq`` launch,
+    named by its event; 2 x 1024 fits no split either and routes to
+    ``fused_cell``."""
     cfg = LSTMConfig().with_complexity(64, 2)
     params = lstm.init_params(torch.Generator().manual_seed(0), cfg)
     x = torch.from_numpy(_x(2, 1, 3))
     out, events = _dispatch_events(
         lambda: lstm.forward_fused_seq(params, x, cfg))
-    assert events[0]["attrs"]["fallback"] == "fused_cell"
+    attrs = events[0]["attrs"]
+    assert "fallback" not in attrs and attrs["weight_home"] == "split"
+    assert attrs["n_blocks"] > 1
     torch.testing.assert_close(out, lstm.forward_sequential(params, x, cfg),
+                               **TOL)
+    huge = LSTMConfig().with_complexity(1024, 2)
+    assert seq_k.choose_batch_block(1, 3, 2, 1024, 1024) is None
+    hp = lstm.init_params(torch.Generator().manual_seed(0), huge)
+    out, events = _dispatch_events(
+        lambda: lstm.forward_fused_seq(hp, x, huge))
+    assert events[0]["attrs"]["fallback"] == "fused_cell"
+    torch.testing.assert_close(out, lstm.forward_sequential(hp, x, huge),
                                **TOL)
 
 
 def test_plan_viability():
-    """At 2 x 64 the f32 stack fits no block and the int8 one does, so
-    serving may offer only the int8 fast path; its training backward fits
-    no block either."""
+    """At 2 x 64 the f32 stack fits no block, so it is split over
+    co-resident blocks: every plan is viable, serving and training.  At
+    2 x 1024 no split of the f32 stack fits the card and the int8 one does,
+    so serving may offer only the int8 fast path; its training backward,
+    whose f32 dW is the f32 plan's, fits no split either."""
     paper = lstm.plan_viability(LSTMConfig(), 1, 128)
     wide_cfg = LSTMConfig().with_complexity(64, 2)
     wide = lstm.plan_viability(wide_cfg, 1, 128)
     assert all(paper(n) for n in lstm.FORWARD_PLANS)
-    assert not wide("fused_seq")
-    assert all(wide(n) for n in lstm.FORWARD_PLANS if n != "fused_seq")
-    assert wide("fused_seq_q8")
-    train = lstm.plan_viability(wide_cfg, 1, 128, train=True)
+    assert all(wide(n) for n in lstm.FORWARD_PLANS)
+    assert all(lstm.plan_viability(wide_cfg, 1, 128, train=True)(n)
+               for n in lstm.FORWARD_PLANS)
+    huge_cfg = LSTMConfig().with_complexity(1024, 2)
+    huge = lstm.plan_viability(huge_cfg, 1, 128)
+    assert not huge("fused_seq")
+    assert all(huge(n) for n in lstm.FORWARD_PLANS if n != "fused_seq")
+    assert huge("fused_seq_q8")
+    train = lstm.plan_viability(huge_cfg, 1, 128, train=True)
     assert not train("fused_seq") and not train("fused_seq_q8")
-    renamed = lstm.plan_viability(wide_cfg, 1, 128, train=True,
+    renamed = lstm.plan_viability(huge_cfg, 1, 128, train=True,
                                   q8_plan_names=("accel_seq_q8",))
     assert not renamed("accel_seq_q8") and renamed("fused_seq_q8")
 
@@ -158,12 +180,15 @@ def test_scheduler_calibrates_and_chooses(small):
     for name, fn in lstm.FORWARD_PLANS.items():
         sched.register(Plan(name, fn))
     sched.calibrate(*args, repeats=1)
+    # 1024 bytes hold no f32 block, not even split over 16 blocks of one
+    # unit; the int8 stack split so fits
     assert sched.plans["fused_seq"].base_latency_s == float("inf")
     assert all(0 < sched.plans[n].base_latency_s < float("inf")
-               for n in ("sequential", "wavefront", "fused_cell"))
+               for n in ("sequential", "wavefront", "fused_cell",
+                         "fused_seq_q8"))
     d = sched.choose()
     assert d.plan != "fused_seq" and set(d.predicted_s) == {
-        "sequential", "wavefront", "fused_cell"}
+        "sequential", "wavefront", "fused_cell", "fused_seq_q8"}
     out, d2 = sched.run(*args)
     assert out.shape == (1, small["cfg"].n_classes)
     assert sched.degrade() and "wavefront" not in sched.choose().predicted_s

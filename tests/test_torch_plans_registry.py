@@ -85,7 +85,11 @@ def test_register_family_needs_its_oracle():
 
 
 def test_scheduler_viability_binds_scheduler_names():
-    wide = LSTMConfig().with_complexity(64, 2)
+    # 2 x 1024: no split of the f32 stack fits the card, the int8 one does
+    # (2 x 64 now runs both, the f32 stack split over co-resident blocks)
+    assert FAMILY.viability(LSTMConfig().with_complexity(64, 2), 1,
+                            128)("fused_seq")
+    wide = LSTMConfig().with_complexity(1024, 2)
     pred = FAMILY.viability(wide, 1, 128)
     viable = plans.scheduler_viability({
         "accel_seq": ("fused_seq", pred),

@@ -154,7 +154,7 @@ def test_hooks_admit_only_points_within_a_blocks_shared_memory(family):
             x = c.args[2]
             ws = seq_lib.working_set_bytes(
                 x.shape[1], 2, x.shape[2], 32, p["block_b"],
-                time_chunk=p["time_chunk"])
+                time_chunk=p["time_chunk"], n_blocks=p.get("n_blocks", 1))
         elif family == "rwkv6":
             ws = wkv6_lib.working_set_bytes(c.args[0].shape[1], 8, 8,
                                             p["chunk"])
@@ -165,7 +165,22 @@ def test_hooks_admit_only_points_within_a_blocks_shared_memory(family):
         got, want = c.fn(*c.args), c.plain(*c.args)
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     if family == "lstm":
-        assert [c.point["time_chunk"] for c in cands] == [None, 8, 4]
+        # one block holds the paper's 2 x 32: no split points
+        assert [(c.point["time_chunk"], c.point.get("n_blocks", 1))
+                for c in cands] == [(None, 1), (8, 1), (4, 1)]
+        # at 2 x 64 the table splits the f32 stack over G blocks, and the
+        # hook offers the table's tile over G and 2G blocks only
+        table = seq_lib.choose_batch_block(2, 16, 2, 64, 64)
+        wide = hook(max_points=8, device="cpu", hidden=64, **HOOKS[family])
+        assert [(c.point["block_b"], c.point["n_blocks"]) for c in wide] == \
+            [(table.block_b, table.n_blocks),
+             (table.block_b, 2 * table.n_blocks)]
+        for c in wide:
+            assert seq_lib.working_set_bytes(
+                16, 2, 64, 64, c.point["block_b"],
+                n_blocks=c.point["n_blocks"]) <= budget
+            got, want = c.fn(*c.args), c.plain(*c.args)
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
     elif family == "rwkv6":
         assert [c.point["chunk"] for c in cands] == [8, 4, 2, 1]
     else:

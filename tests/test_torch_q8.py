@@ -329,8 +329,10 @@ def test_q8_bytes_at_the_paper_width_are_the_kernels_layout():
 
 @pytest.mark.parametrize("L,H", [(2, 64), (3, 64), (2, 96)])
 def test_q8_fits_widths_where_f32_does_not(L, H):
+    """The int8 stack fits one block where the f32 one fits none and is
+    split over co-resident blocks."""
     P = max(9, H)
-    assert seq_k.choose_batch_block(1, 128, L, P, H) is None
+    assert seq_k.choose_batch_block(1, 128, L, P, H).n_blocks > 1
     assert seq_k.choose_batch_block(1, 128, L, P, H, quantized=True) == \
         seq_k.SeqBlocks(1, None)
 
@@ -354,8 +356,10 @@ def test_q8_is_never_tiled_finer_than_f32(mode):
 
 
 def test_q8_backward_fits_no_block_at_2x64():
+    """No one block holds the q8 backward at 2 x 64 (its f32 dW alone is
+    264 KiB): the table splits it over co-resident blocks."""
     assert seq_k.choose_batch_block(1, 128, 2, 64, 64, mode="bwd",
-                                    quantized=True) is None
+                                    quantized=True).n_blocks > 1
     assert seq_k.working_set_bytes(128, 2, 64, 64, 1, mode="bwd",
                                    time_chunk=1, quantized=True) > \
         seq_k.factorization.H100_SMEM_PER_BLOCK
@@ -450,49 +454,69 @@ def test_q8_plan_grads_are_the_ste_reference():
 
 
 def test_q8_plan_serves_2x64_in_one_sequence_call():
-    """2 x 64, B=1: ``fused_seq`` routes to ``fused_cell`` with its event;
-    ``fused_seq_q8`` runs the q8 sequence path with its tiling."""
+    """2 x 64, B=1: ``fused_seq`` runs on the split home (its event names
+    it); ``fused_seq_q8`` runs the q8 sequence path with its one-block
+    tiling."""
     cfg = LSTMConfig().with_complexity(64, 2)
     params = lstm.init_params(torch.Generator().manual_seed(0), cfg)
     x = torch.randn(1, 5, 9, generator=torch.Generator().manual_seed(1))
     out, events = _events(lambda: lstm.forward_fused_seq(params, x, cfg))
-    assert events[0]["fallback"] == "fused_cell"
+    assert "fallback" not in events[0]
+    assert events[0]["weight_home"] == "split"
     out_q8, events = _events(lambda: lstm.forward_fused_seq_q8(params, x,
                                                                cfg))
     assert len(events) == 1 and "fallback" not in events[0]
     assert events[0]["plan"] == "fused_seq_q8" and events[0]["block_b"] == 1
+    assert events[0]["weight_home"] == "shared"
     torch.testing.assert_close(out_q8, out, **plans.Q8_BAND)
 
 
 def test_q8_training_at_2x64_routes_to_fused_cell():
     """A q8 training step at 2 x 64: its f32 dW accumulators fit no block,
-    so the plan trains on ``fused_cell`` (f32 weights, as the JAX package's
-    route does) with a ``plan="fused_seq_q8", fallback="fused_cell"``
-    event naming ``train``."""
-    cfg = LSTMConfig().with_complexity(64, 2)
-    params = lstm.init_params(torch.Generator().manual_seed(2), cfg)
-    for leaf in tree_leaves(params):
-        leaf.requires_grad_()
+    so the table splits the step over co-resident blocks (one trajectory
+    launch, one backward launch) and its gradients are the straight-through
+    ones of ``ref.lstm_seq`` over the dequantized stack.  At 2 x 1024 no
+    split fits the card: the plan trains on ``fused_cell`` (f32 weights, as
+    the JAX package's route does) with a ``plan="fused_seq_q8",
+    fallback="fused_cell"`` event naming ``train``."""
     x = torch.randn(2, 4, 9, generator=torch.Generator().manual_seed(3))
     y = torch.tensor([1, 4])
-    loss, events = _events(lambda: lstm.loss_fn(
-        params, x, y, cfg, forward=lstm.forward_fused_seq_q8))
-    assert events == [dict(family="lstm", plan="fused_seq_q8",
-                           fallback="fused_cell", train=True, batch=2,
-                           seq_len=4)]
-    got = torch.autograd.grad(loss, tree_leaves(params))
-    want = torch.autograd.grad(lstm.loss_fn(
-        params, x, y, cfg, forward=lstm.forward_fused_kernel),
-        tree_leaves(params))
-    for g, r in zip(got, want):
-        torch.testing.assert_close(g, r, **GRAD_TOL)
+
+    def q8_oracle(p, v, c):
+        w, b, P = seq_k.stack_params(p["layers"], c.hidden)
+        _, h = ref.lstm_seq(ref.quantize_dequantize_ste(w), b,
+                            seq_k.pad_input(v, P))
+        return h[-1] @ p["head"]["w"] + p["head"]["b"]
+
+    for hidden, routed in ((64, False), (1024, True)):
+        cfg = LSTMConfig().with_complexity(hidden, 2)
+        params = lstm.init_params(torch.Generator().manual_seed(2), cfg)
+        for leaf in tree_leaves(params):
+            leaf.requires_grad_()
+        loss, events = _events(lambda: lstm.loss_fn(
+            params, x, y, cfg, forward=lstm.forward_fused_seq_q8))
+        if routed:
+            assert events == [dict(family="lstm", plan="fused_seq_q8",
+                                   fallback="fused_cell", train=True,
+                                   batch=2, seq_len=4)]
+        else:
+            assert len(events) == 1 and "fallback" not in events[0]
+            assert events[0]["train"] and events[0]["bwd_n_blocks"] > 1
+            assert events[0]["weight_home"] == "split"
+        got = torch.autograd.grad(loss, tree_leaves(params))
+        want = torch.autograd.grad(lstm.loss_fn(
+            params, x, y, cfg, forward=lstm.forward_fused_kernel if routed
+            else q8_oracle), tree_leaves(params))
+        for g, r in zip(got, want):
+            torch.testing.assert_close(g, r, **GRAD_TOL)
 
 
 def test_cpu_oracle_backward_names_itself():
-    """A bare ``lstm_seq_q8`` under autograd at 2 x 64 on CPU tensors: no
-    q8 backward tiling fits, so it is autograd of ``ref.lstm_seq`` over the
-    straight-through weights, named by a ``plan/dispatch`` event."""
-    w, b, x, dc, dh = _t(*_operands(12, 2, 64, 9, 3, 5))
+    """A bare ``lstm_seq_q8`` under autograd at 17 x 16 on CPU tensors: no
+    q8 backward tiling fits (every block of any split needs 17 warps), so
+    it is autograd of ``ref.lstm_seq`` over the straight-through weights,
+    named by a ``plan/dispatch`` event."""
+    w, b, x, dc, dh = _t(*_operands(12, 17, 16, 9, 3, 5))
     ins = [t.clone().requires_grad_() for t in (w, b, x)]
     (c, h), events = _events(lambda: ops.lstm_seq_q8(*ins))
     assert events == [dict(family="lstm", plan="lstm_seq_q8",

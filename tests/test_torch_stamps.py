@@ -12,7 +12,7 @@ from repro_torch.obs import stamps  # noqa: E402
 
 @pytest.mark.parametrize("name", ["lstm_cell", "decode_attn", "wkv6",
                                   "wkv6_bwd", "mamba_scan", "mamba_scan_bwd",
-                                  "lstm_seq_bwd"])
+                                  "lstm_seq_bwd", "lstm_seq"])
 def test_a_stamp_after_each_barrier_and_at_each_kernel_end(name):
     text = (_build.CSRC / f"{name}.cu").read_text()
     out, sites = stamps.instrument(text)
@@ -33,6 +33,10 @@ def test_a_stamp_after_each_barrier_and_at_each_kernel_end(name):
                     barriers.append(n)
                 if depth == 0:
                     inside = False
+    if name in ("lstm_seq", "lstm_seq_bwd"):
+        # the split kernels' grid barriers are stamp sites too
+        src = text.splitlines()
+        assert any("grid_sync(" in src[n - 1] for n in barriers)
     ends = [s for s in sites if s[1] == "end of kernel"]
     assert len(ends) == kernels
     assert [s[0] for s in sites if s[1] != "end of kernel"] == barriers
@@ -54,7 +58,12 @@ def test_a_stamp_after_each_barrier_and_at_each_kernel_end(name):
 def test_every_kernel_the_tool_stamps_has_a_main_path_shape():
     assert set(stamps.KERNELS) == {"wkv6", "lstm_cell", "decode_attn",
                                    "mamba_scan", "mamba_scan_bwd",
-                                   "lstm_seq", "lstm_seq_bwd"}
+                                   "lstm_seq", "lstm_seq_bwd",
+                                   "lstm_seq_split", "lstm_seq_bwd_split"}
+    # the split homes stamp the LSTM sources at the top of Fig 5
+    assert stamps.SOURCES["lstm_seq_split"] == ("lstm_seq",)
+    assert stamps.SOURCES["lstm_seq_bwd_split"] == ("lstm_seq_bwd",)
+    assert stamps.SPLIT_SHAPES == ((128, 3, 256), (128, 3, 128))
     assert stamps.SOURCES["mamba_scan_bwd"] == ("mamba_scan",
                                                 "mamba_scan_bwd")
     # the forward's choice stamps its own source alone: no K7b build

@@ -197,7 +197,10 @@ def test_fused_cell_step_runs_no_backward_kernel():
 def test_plan_viability_train_sizes_the_backward():
     cfg = LSTMConfig()
     assert lstm.plan_viability(cfg, 64, 128, train=True)("fused_seq")
-    wide = LSTMConfig().with_complexity(64, 2)
+    # 2 x 64 trains on the split home; no split of 2 x 1024's fits the card
+    assert lstm.plan_viability(cfg.with_complexity(64, 2), 1, 128,
+                               train=True)("fused_seq")
+    wide = LSTMConfig().with_complexity(1024, 2)
     assert not lstm.plan_viability(wide, 1, 128, train=True)("fused_seq")
     assert lstm.plan_viability(wide, 1, 128, train=True)("fused_cell")
 
